@@ -8,13 +8,19 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every CUDA kernel of the serving path from the sources in the
-     checkout (one nvcc per source, all started together);
+  2. build every CUDA kernel of the serving and GUPS paths from the sources
+     in the checkout (one nvcc per source, all started together);
   3. each kernel against its plain PyTorch version on the card: paged
      decode at yi-6b, granite-3-2b, internlm2-20b, head_dim-16 and
      one-KV-head shapes (1 to 32 query heads per KV head), ragged
      lengths plus a zero-length padding row, f32 (tolerance 2e-3) and bf16
-     (3e-2), at depths 1, 2 and the solved depth;
+     (3e-2), at depths 1, 2 and the solved depth; the row and span
+     gathers in f32, bf16 and int32, 1/4/8 rows per tile, depths 1, 2 and
+     solved, an index count off the tile, 16-byte and 4-byte rows, and the
+     coalesced gather of the gups_random, stream_unit and hj_mixed streams
+     (all bitwise); the scatter-add with duplicates through its op in f32
+     (2e-3) and bf16 (3e-2), and the kernel on deduplicated rows (bitwise);
+     the triad in f32 (1e-5) and bf16 (2e-2);
   4. a reduced yi-6b engine in f32 on the card against the same engine on
      the CPU (same parameters, same prompts, round width pinned): the
      greedy tokens must be identical;
@@ -31,7 +37,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      bytes over 3.35 TB/s and the flops over 989 TFLOP/s (data sheet);
   7. a profile of full-width decode rounds (torch.profiler): device time
      by kernel per round and the device's busy share of the wall clock;
-  8. one JSON line describing every kernel, then the result line.
+  8. the GUPS path at a real size, through `repro_torch.launch.gups` and the
+     ops: a 2^24 x 128 f32 table (8 GiB, far past the 50 MB L2), 2^22
+     seeded uniform-random indices gathered and then scatter-added, a
+     coalesced gather of a 2^22 hj_mixed-style stream, and a triad over
+     three [2^21, 128] f32 arrays (1 GiB each). Launch counts are zeroed
+     just before and read just after and must be what the calls imply; the
+     gather must equal table[idx] bitwise and the updated table the plain
+     scatter-add; peak device memory is printed;
+  9. times of the four GUPS-path kernels at phase 8's shapes (the same
+     method as phase 6): kernel, plain version, and as a yardstick the
+     PyTorch call for the same function (index_select, index_select over
+     the expanded span rows, index_add_ on the deduplicated rows,
+     torch.add(b, c, alpha=s)); each bound is the bytes the function must
+     move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
+ 10. one JSON line describing every kernel, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -57,6 +77,21 @@ HEAD_SHAPES = [("yi-6b", 32, 4, 128), ("granite-3-2b", 32, 8, 64),
                ("head_dim-16", 4, 2, 16), ("internlm2-20b", 48, 8, 128),
                ("one-kv-head", 32, 1, 64)]
 SERVE = dict(batch=8, prompt_len=256, gen=32, block_size=16)
+# The GUPS path (HPCC RandomAccess, cut to one batch of 2^22 updates of
+# 512 B rows) and the STREAM triad arrays (each over 4x the caches).
+GUPS = dict(rows=1 << 24, d=128, n=1 << 22, triad_rows=1 << 21, scalar=3.0)
+TRIAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GUPS_KERNELS = (   # name, CUDA source, TPU kernel it replaces
+    ("row_gather", "coro_gather/csrc/coro_gather.cu",
+     "coro_gather/coro_gather.py:56"),
+    ("span_gather", "coro_gather/csrc/coro_gather.cu",
+     "coro_gather/coro_gather.py:82"),
+    ("scatter_add", "coro_scatter_add/csrc/scatter_add.cu",
+     "coro_scatter_add/coro_scatter_add.py:49"),
+    ("stream_triad", "stream_copy/csrc/triad.cu",
+     "stream_copy/stream_copy.py:40"),
+)
+F32_PEAK = 67e12                 # data sheet, f32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -82,10 +117,13 @@ def card_info(torch) -> str:
 
 def build_kernels():
     from repro_torch.kernels import build
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
     from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.stream_copy import stream_copy as sc
 
     t0 = time.perf_counter()
-    libs = build.build([da.SOURCE])
+    libs = build.build([da.SOURCE, cg.SOURCE, sa.SOURCE, sc.SOURCE])
     log(f"built {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in build.build_logs.items():
@@ -398,6 +436,332 @@ def profile_decode_rounds(torch, cfg, width, rounds=4):
     return busy_ms / wall_ms
 
 
+# ----------------------------------------------- phase 3 (GUPS-path kernels)
+
+
+def _equal(name: str, got, want) -> None:
+    """Bitwise agreement of a copy with its plain version."""
+    import torch
+
+    ok = got.shape == want.shape and got.dtype == want.dtype and \
+        bool(torch.equal(got, want))
+    log(f"parity {name}: {'bitwise ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel output differs from its plain "
+                             f"version")
+
+
+def _close(name: str, got, want, tol: float) -> float:
+    import torch
+
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite values")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+    log(f"parity {name}: max_abs_err={err:.3e} tol={tol:g} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with its plain version, "
+                             f"max_abs_err={err:.3e}")
+    return err
+
+
+def check_gups_parity(torch) -> None:
+    """The gather, scatter-add and triad kernels against their plain
+    versions on the card, at small shapes that reach every code path."""
+    import numpy as np
+
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+    from repro_torch.kernels.coro_gather.ops import coalesced_gather, \
+        coro_gather
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
+    from repro_torch.kernels.coro_scatter_add.ops import coro_scatter_add
+    from repro_torch.kernels.stream_copy import stream_copy as sc
+    from repro_torch.launch.kernel_bench import coalesce_patterns
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def table(rows, d, dtype, scale=10.0):
+        t = torch.randn(rows, d, generator=gen, device="cuda") * scale
+        return t.to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        # 16-byte rows, and rows of 4-byte words (20 B; 12 B in bf16)
+        for rows, d in ((300, 128), (64, 6 if dtype == torch.bfloat16 else 5)):
+            tab = table(rows, d, dtype)
+            idx = torch.randint(0, rows, (48,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            for rpt in (1, 4, 8):
+                for depth in (1, 2, None):
+                    _equal(f"row_gather {dtype} {rows}x{d} rows/tile={rpt} "
+                           f"depth={depth}",
+                           cg.row_gather(tab, idx, depth=depth,
+                                         rows_per_tile=rpt),
+                           cg.row_gather_plain(tab, idx))
+            odd = idx[:45]                          # off the 8-row tile
+            _equal(f"coro_gather {dtype} {rows}x{d} n=45",
+                   coro_gather(tab, odd), cg.row_gather_plain(tab, odd))
+            starts = torch.randint(0, rows - 8, (13,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+            for depth in (1, 2, None):
+                _equal(f"span_gather {dtype} {rows}x{d} depth={depth}",
+                       cg.span_gather(tab, starts, span=8, depth=depth),
+                       cg.span_gather_plain(tab, starts, 8))
+    tab = table(4096, 128, torch.float32)
+    for name, idx in coalesce_patterns().items():
+        out, plan = coalesced_gather(tab, idx)
+        _equal(f"coalesced_gather {name} ({plan.n_spans} spans, "
+               f"{plan.n_singles} singles)", out,
+               tab[torch.as_tensor(idx, device="cuda").long()])
+
+    rng = np.random.RandomState(3)
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+        tab = table(4096, 128, dtype, scale=1.0)   # the reference's scale
+        idx = rng.randint(0, 4096, 2045).astype(np.int32)   # duplicates
+        upd = torch.randn(2045, 128, generator=gen, device="cuda").to(dtype)
+        want = tab.to(torch.float32, copy=True).index_put_(
+            (torch.as_tensor(idx, device="cuda").long(),), upd.float(),
+            accumulate=True)
+        for depth in (1, 2, None):
+            got = coro_scatter_add(tab, idx, upd, depth=depth)
+            _close(f"coro_scatter_add {dtype} depth={depth}", got, want, tol)
+        uniq = torch.as_tensor(rng.permutation(4096)[:2040].astype(np.int32),
+                               device="cuda")
+        summed = torch.randn(2040, 128, generator=gen, device="cuda").to(dtype)
+        for depth in (1, 2, None):
+            _equal(f"scatter_add_unique {dtype} depth={depth}",
+                   sa.scatter_add_unique(tab.clone(), uniq, summed,
+                                         depth=depth),
+                   sa.scatter_add_unique_plain(tab.clone(), uniq, summed))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TRIAD_TOL[str(dtype).split(".")[1]]
+        for n, d, rows in ((4096, 128, 128), (640, 96, 64), (64, 3, 2)):
+            b = table(n, d, dtype)
+            c = table(n, d, dtype)
+            want = sc.triad_plain(b, c, 2.5)
+            for depth in (1, 2, None):
+                _close(f"triad {dtype} {n}x{d} rows={rows} depth={depth}",
+                       sc.triad(b, c, 2.5, rows=rows, depth=depth), want,
+                       tol)
+    torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def gups_main_path(torch):
+    """The GUPS path at its real size; returns what phase 9 times."""
+    import numpy as np
+
+    from repro_torch.core import autotune
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.coro_gather.ops import coalesced_gather
+    from repro_torch.kernels.stream_copy.ops import stream_triad
+    from repro_torch.kernels.stream_copy.stream_copy import triad_plain
+    from repro_torch.launch.gups import gups_round
+    from repro_torch.launch.kernel_bench import coalesce_patterns
+
+    rows, d, n = GUPS["rows"], GUPS["d"], GUPS["n"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    table = torch.randn(rows, d, generator=gen, device="cuda")
+    idx = torch.randint(0, rows, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    upd = torch.randn(n, d, generator=gen, device="cuda") * 0.1
+    hj = coalesce_patterns(rows=rows, n=n, seed=5)["hj_mixed"]
+    b = torch.randn(GUPS["triad_rows"], d, generator=gen, device="cuda")
+    c = torch.randn(GUPS["triad_rows"], d, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+
+    walls = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    gathered, updated = gups_round(table, idx, upd)
+    torch.cuda.synchronize()
+    walls["gups_round"] = time.perf_counter() - t0
+    depths = {"row_gather": autotune.last_choice("row_gather"),
+              "scatter_add": autotune.last_choice("scatter_add")}
+    t0 = time.perf_counter()
+    hj_out, plan = coalesced_gather(table, hj)
+    torch.cuda.synchronize()
+    walls["coalesced_gather"] = time.perf_counter() - t0
+    depths["span_gather"] = autotune.last_choice("span_gather")
+    t0 = time.perf_counter()
+    a = stream_triad(b, c, GUPS["scalar"])
+    torch.cuda.synchronize()
+    walls["stream_triad"] = time.perf_counter() - t0
+    depths["stream_triad"] = autotune.last_choice("stream_triad")
+    counts = launch_counts()
+
+    want = {"paged_decode": 0, "row_gather": 1 + bool(plan.n_singles),
+            "span_gather": int(bool(plan.n_spans)), "scatter_add": 1,
+            "stream_triad": 1}
+    if counts != want:
+        raise AssertionError(f"GUPS path launches {counts}, want {want}")
+    idx64 = idx.long()
+    if not torch.equal(gathered, table[idx64]):
+        raise AssertionError("GUPS gather differs from table[idx]")
+    if not torch.equal(hj_out, table[torch.as_tensor(hj, device="cuda")]):
+        raise AssertionError("coalesced gather differs from table[idx]")
+    del gathered, hj_out
+    plain = table.clone().index_put_((idx64,), upd, accumulate=True)
+    err = _max_abs_err(updated, plain)
+    if not _allclose(updated, plain, 2e-3):
+        raise AssertionError(f"GUPS scatter differs from the plain scatter-"
+                             f"add: max_abs_err={err:.3e}")
+    del plain
+    triad_err = float((a - triad_plain(b, c, GUPS["scalar"])).abs().max())
+    if triad_err > TRIAD_TOL["float32"]:
+        raise AssertionError(f"triad differs from its plain version: "
+                             f"{triad_err:.3e}")
+    n_unique = int(torch.unique(idx).numel())
+    shown = {"launches": counts, "depths": depths, "walls_s": walls,
+             "unique_rows": n_unique,
+             "coalescing": [plan.n_requests, plan.requests_issued(),
+                            plan.coalescing_ratio()],
+             "scatter_max_abs_err_vs_index_put": err,
+             "memory_allocated_before_gb": held_gb,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9}
+    log("gups path: " + json.dumps(shown))
+    del a
+    return {"table": table, "idx": idx, "updated": updated, "plan": plan,
+            "b": b, "c": c, "n_unique": n_unique, "depths": depths,
+            "counts": counts}
+
+
+# ------------------------------------------------------------------ phase 9
+
+
+def _max_abs_err(a, b, *, rows: int = 1 << 20) -> float:
+    """Largest |a - b| in f32, over chunks of rows: no temporary of the
+    size of an 8 GiB table."""
+    err = 0.0
+    for s in range(0, a.shape[0], rows):
+        err = max(err, float((a[s:s + rows].float()
+                              - b[s:s + rows].float()).abs().max()))
+    return err
+
+
+def _allclose(a, b, tol: float, *, rows: int = 1 << 20) -> bool:
+    import torch
+
+    return all(bool(torch.allclose(a[s:s + rows], b[s:s + rows], rtol=tol,
+                                   atol=tol))
+               for s in range(0, a.shape[0], rows))
+
+
+def _bound_ms(nbytes: float, flops: float = 0.0):
+    bytes_s, ops_s = nbytes / HBM_BW, flops / F32_PEAK
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else \
+        "operations"
+
+
+def time_gups_kernels(torch, st):
+    """Kernel, plain and library times of the four GUPS-path kernels at the
+    shapes phase 8 gave them, each kernel checked against its plain
+    version on exactly these inputs."""
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
+    from repro_torch.kernels.stream_copy import stream_copy as sc
+
+    table, idx, plan, depths = st["table"], st["idx"], st["plan"], \
+        st["depths"]
+    d = GUPS["d"]
+    row_bytes = d * table.element_size()
+    starts = torch.as_tensor(plan.span_starts, device="cuda")
+    span_rows = cg.span_rows(starts, plan.span)
+    # the scatter kernel's inputs at phase 8's shape: the distinct rows,
+    # padded with unused rows to the tile, and one update row each
+    uniq = torch.unique(idx)
+    pad = (-uniq.numel()) % 8
+    free = torch.ones(table.shape[0], dtype=torch.bool, device="cuda")
+    free[uniq.long()] = False
+    uniq = torch.cat([uniq, free.nonzero()[:pad, 0].int()])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    summed = torch.randn(uniq.numel(), d, generator=gen, device="cuda") * 0.1
+    work = st["updated"]
+    b, c, s = st["b"], st["c"], GUPS["scalar"]
+    n, t, u, nt = idx.numel(), starts.numel(), uniq.numel(), b.numel()
+
+    cases = {
+        "row_gather": dict(
+            kernel=lambda: cg.row_gather(table, idx,
+                                         depth=depths["row_gather"]),
+            plain=lambda: cg.row_gather_plain(table, idx),
+            library=(torch.index_select, (table, 0, idx.long())),
+            bound=_bound_ms(2 * n * row_bytes + 4 * n),
+            shape={"table": list(table.shape), "n": n, "rows_per_tile": 8,
+                   "dtype": "float32"}),
+        "span_gather": dict(
+            kernel=lambda: cg.span_gather(table, starts, span=plan.span,
+                                          depth=depths["span_gather"]),
+            plain=lambda: cg.span_gather_plain(table, starts, plan.span),
+            library=(torch.index_select, (table, 0, span_rows)),
+            bound=_bound_ms(2 * t * plan.span * row_bytes + 4 * t),
+            shape={"table": list(table.shape), "spans": t, "span": plan.span,
+                   "dtype": "float32"}),
+        "scatter_add": dict(
+            kernel=lambda: sa.scatter_add_unique(work, uniq, summed,
+                                                 depth=depths["scatter_add"]),
+            plain=lambda: sa.scatter_add_unique_plain(work, uniq, summed),
+            library=(lambda i, v: work.index_add_(0, i, v),
+                     (uniq.long(), summed)),
+            bound=_bound_ms(3 * u * row_bytes + 4 * u, u * d),
+            shape={"table": list(table.shape), "n": u, "rows_per_tile": 8,
+                   "dtype": "float32"}),
+        "stream_triad": dict(
+            kernel=lambda: sc.triad(b, c, s, depth=depths["stream_triad"]),
+            plain=lambda: sc.triad_plain(b, c, s),
+            library=(lambda x, y: torch.add(x, y, alpha=s), (b, c)),
+            bound=_bound_ms(3 * nt * 4, 2 * nt),
+            shape={"N": b.shape[0], "d": d, "rows": 128, "dtype": "float32"}),
+    }
+    out = {}
+    for name, case in cases.items():
+        if name == "scatter_add":       # in place: compare on copies
+            before = work.clone()
+            got = sa.scatter_add_unique(before.clone(), uniq, summed,
+                                        depth=depths["scatter_add"])
+            ref = sa.scatter_add_unique_plain(before, uniq, summed)
+            del before
+        else:
+            got, ref = case["kernel"](), case["plain"]()
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, ref)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"the GUPS path's shapes: {err:.3e}")
+        del got, ref
+        lib_fn, lib_args = case["library"]
+        kernel_a = median_ms(torch, lambda: case["kernel"](), [()])
+        plain_ms = median_ms(torch, lambda: case["plain"](), [()])
+        library_ms = median_ms(torch, lib_fn, [lib_args])
+        kernel_b = median_ms(torch, lambda: case["kernel"](), [()])
+        bound_ms, bound_by = case["bound"]
+        ms = statistics.median([kernel_a, kernel_b])
+        log(f"times {name} {json.dumps(case['shape'])}: kernel "
+            f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), {bound_ms / ms:.1%} of the bound")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "shape": case["shape"]}
+    gups = GUPS["n"] / ((out["row_gather"]["ms"] + out["scatter_add"]["ms"])
+                        * 1e-3) / 1e9
+    log(f"GUPS from kernel times: {gups:.4f} giga-updates/s "
+        f"({GUPS['n']} updates: gather + scatter-add of {u} rows)")
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -416,12 +780,15 @@ def main() -> int:
     card_info(torch)
     build_kernels()
     check_parity(torch)
+    check_gups_parity(torch)
     check_engine_card_vs_cpu(torch)
     cfg, stats, counts = serve_main_path(torch)
     timing = time_kernel(torch, cfg, stats)
     profile_decode_rounds(torch, cfg, stats["round_width"])
     log(f"depths: solved {stats['solved_depth']}, round width "
         f"{stats['round_width']}")
+    gups = gups_main_path(torch)
+    gups_times = time_gups_kernels(torch, gups)
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -434,6 +801,18 @@ def main() -> int:
                                   "bound_by", "library_ms")},
         "shape": timing["shape"],
     }]
+    for name, source, replaces in GUPS_KERNELS:
+        t = gups_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": gups["counts"][name],
+            "parity": "ok",
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "shape": t["shape"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,10 @@ profile (`machine.set_machine`, `REPRO_MACHINE`) never reuses another
 profile's latency samples — the paper's latency dial re-solves from scratch.
 
 Always-on telemetry: the serving engine feeds every decode round and every
-prefill chunk to `observe_pipeline(kernel, wall_s, n_tiles)`. The first observation of a
+prefill chunk to `observe_pipeline(kernel, wall_s, n_tiles)`, and the GUPS
+and kernel-bench launchers feed the device time (CUDA events) of each
+kernel call they make; a kernel wrapper itself never synchronizes to time
+its launch. The first observation of a
 (machine, kernel, n_tiles) triple is treated as compile warmup and dropped;
 every later one lands in `record_transfer` as wall-clock / tiles — so ANY
 workload tightens the schedule, not just the benchmark harness.
@@ -39,8 +42,8 @@ API stability note: `TileProfile` is defined in `core.schedule` and
 re-exported here. Kernel wrappers derive their profile from the
 declarative `CoroSpec` (``spec.profile()``) and pass
 ``vars=spec.all_vars()`` so the VMEM cap comes from the classified context
-bytes; `profile_decode` below is the standalone traffic/flops model of a
-decode tile.
+bytes; the ``profile_*`` helpers below remain the standalone traffic/flops
+models used by the benchmarks and the modelled-latency figures.
 """
 from __future__ import annotations
 
@@ -64,6 +67,10 @@ __all__ = [
     "last_choice",
     "observe_pipeline",
     "profile_decode",
+    "profile_row_gather",
+    "profile_scatter_add",
+    "profile_span_gather",
+    "profile_triad",
     "record_choice",
     "record_transfer",
     "set_telemetry",
@@ -91,6 +98,45 @@ def _key(kernel: str, machine: Optional[MachineModel] = None) -> Tuple[str, str]
 
 
 # ------------------------------------------------------- per-kernel profiles
+
+
+#
+# flops_per_tile models the post-resumption work per element: pure data
+# movement counts ~1 op/element (gather/triad).
+
+
+def profile_row_gather(rows_per_tile: int, d: int, itemsize: int) -> TileProfile:
+    """One tile = `rows_per_tile` single-row copies (an aset group)."""
+    return TileProfile(
+        tile_bytes=rows_per_tile * d * itemsize,
+        flops_per_tile=float(rows_per_tile * d),
+    )
+
+
+def profile_span_gather(span: int, d: int, itemsize: int) -> TileProfile:
+    """One tile = one coarse-grained span copy (paper §III-C case 1)."""
+    return TileProfile(
+        tile_bytes=span * d * itemsize,
+        flops_per_tile=float(span * d),
+    )
+
+
+def profile_scatter_add(rows_per_tile: int, d: int, itemsize: int) -> TileProfile:
+    """RMW tile: rows are loaded AND stored (2x bytes), and each slot holds
+    separate in/out buffers — tile_bytes doubles as both the traffic and the
+    per-slot footprint."""
+    return TileProfile(
+        tile_bytes=2 * rows_per_tile * d * itemsize,
+        flops_per_tile=float(2 * rows_per_tile * d),
+    )
+
+
+def profile_triad(rows: int, d: int, itemsize: int) -> TileProfile:
+    """STREAM tile: two loads plus one store per slot (three slot buffers)."""
+    return TileProfile(
+        tile_bytes=3 * rows * d * itemsize,
+        flops_per_tile=float(2 * rows * d),  # fma per element
+    )
 
 
 def profile_decode(blk: int, kh: int, g: int, d: int, itemsize: int) -> TileProfile:

@@ -8,11 +8,22 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+from repro_torch.kernels.coro_gather.coro_gather import row_gather, span_gather
+from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
+    scatter_add_unique,
+)
 from repro_torch.kernels.decode_attention.decode_attention import (
     paged_flash_decode,
 )
+from repro_torch.kernels.stream_copy.stream_copy import triad
 
-KERNELS: Dict[str, Callable] = {"paged_decode": paged_flash_decode}
+KERNELS: Dict[str, Callable] = {
+    "paged_decode": paged_flash_decode,
+    "row_gather": row_gather,
+    "span_gather": span_gather,
+    "scatter_add": scatter_add_unique,
+    "stream_triad": triad,
+}
 
 
 def launch_counts() -> Dict[str, int]:

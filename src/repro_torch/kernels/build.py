@@ -3,8 +3,8 @@
 Each kernel source under ``kernels/*/csrc/`` has a plain C interface. At
 first use it is compiled for Hopper (``sm_90a``) into a shared library in
 ``build/repro_torch/`` at the repository root (listed in ``.gitignore``),
-named after a hash of the source and the flags so that an edited source
-rebuilds. Builds of several sources start together, one nvcc each.
+named after a hash of the source, the shared headers in ``kernels/csrc/``
+and the flags, so that an edited source or header rebuilds. Builds of several sources start together, one nvcc each.
 
 Nothing here runs at import time, and nothing falls back: a missing nvcc,
 a failed compile or a failed load raises `KernelCompileError`.
@@ -26,6 +26,7 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "library_path", "load"]
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+HEADER_DIR = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,8 +48,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the library built from `source` lives (content-addressed)."""
+    """Where the library built from `source` lives (content-addressed: the
+    source, the shared headers of ``kernels/csrc/`` and the flags)."""
     h = hashlib.sha256(Path(source).read_bytes())
+    for header in sorted(HEADER_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
