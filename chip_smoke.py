@@ -16,11 +16,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      lengths plus a zero-length padding row, f32 (tolerance 2e-3) and bf16
      (3e-2), at depths 1, 2 and the solved depth; the row and span
      gathers in f32, bf16 and int32, 1/4/8 rows per tile, depths 1, 2 and
-     solved, an index count off the tile, 16-byte and 4-byte rows, and the
-     coalesced gather of the gups_random, stream_unit and hj_mixed streams
-     (all bitwise); the scatter-add with duplicates through its op in f32
-     (2e-3) and bf16 (3e-2), and the kernel on deduplicated rows (bitwise);
-     the triad in f32 (1e-5) and bf16 (2e-2);
+     solved, an index count off the tile, rows of 16-byte, 4-byte and
+     (bf16) 2-byte units, and the coalesced gather of the gups_random,
+     stream_unit and hj_mixed streams (all bitwise); the scatter-add with
+     duplicates through its op in f32 (2e-3) and bf16 (3e-2), and the
+     kernel on deduplicated rows (bitwise, 16- and 2-byte units); the triad
+     in f32 (1e-5) and bf16 (2e-2);
   4. a reduced yi-6b engine in f32 on the card against the same engine on
      the CPU (same parameters, same prompts, round width pinned): the
      greedy tokens must be identical;
@@ -51,6 +52,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      the expanded span rows, index_add_ on the deduplicated rows,
      torch.add(b, c, alpha=s)); each bound is the bytes the function must
      move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
+     then the same kernels at other depths (tiles in flight per block) and
+     the triad at other tile heights, each time beside its bound;
  10. one JSON line describing every kernel, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -489,8 +492,9 @@ def check_gups_parity(torch) -> None:
         return t.to(dtype)
 
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
-        # 16-byte rows, and rows of 4-byte words (20 B; 12 B in bf16)
-        for rows, d in ((300, 128), (64, 6 if dtype == torch.bfloat16 else 5)):
+        # 16-byte rows, and rows of 4-byte words (20 B) or, in bf16, of
+        # 2-byte units (10 B)
+        for rows, d in ((300, 128), (64, 5)):
             tab = table(rows, d, dtype)
             idx = torch.randint(0, rows, (48,), generator=gen, device="cuda",
                                 dtype=torch.int32)
@@ -530,16 +534,21 @@ def check_gups_parity(torch) -> None:
             _close(f"coro_scatter_add {dtype} depth={depth}", got, want, tol)
         uniq = torch.as_tensor(rng.permutation(4096)[:2040].astype(np.int32),
                                device="cuda")
-        summed = torch.randn(2040, 128, generator=gen, device="cuda").to(dtype)
-        for depth in (1, 2, None):
-            _equal(f"scatter_add_unique {dtype} depth={depth}",
-                   sa.scatter_add_unique(tab.clone(), uniq, summed,
-                                         depth=depth),
-                   sa.scatter_add_unique_plain(tab.clone(), uniq, summed))
+        for d in (128, 5):          # 16-byte units; bf16 d=5: 2-byte units
+            tab_d = tab[:, :d].contiguous()
+            summed = torch.randn(2040, d, generator=gen,
+                                 device="cuda").to(dtype)
+            for depth in (1, 2, None):
+                _equal(f"scatter_add_unique {dtype} d={d} depth={depth}",
+                       sa.scatter_add_unique(tab_d.clone(), uniq, summed,
+                                             depth=depth),
+                       sa.scatter_add_unique_plain(tab_d.clone(), uniq,
+                                                   summed))
 
     for dtype in (torch.float32, torch.bfloat16):
         tol = TRIAD_TOL[str(dtype).split(".")[1]]
-        for n, d, rows in ((4096, 128, 128), (640, 96, 64), (64, 3, 2)):
+        for n, d, rows in ((4096, 128, 128), (640, 96, 64), (64, 3, 2),
+                           (63, 3, 1)):
             b = table(n, d, dtype)
             c = table(n, d, dtype)
             want = sc.triad_plain(b, c, 2.5)
@@ -759,6 +768,25 @@ def time_gups_kernels(torch, st):
                         * 1e-3) / 1e9
     log(f"GUPS from kernel times: {gups:.4f} giga-updates/s "
         f"({GUPS['n']} updates: gather + scatter-add of {u} rows)")
+
+    # the same work at other depths, and the triad at other tile heights
+    sweep = [("row_gather", f"depth={k}",
+              lambda k=k: cg.row_gather(table, idx, depth=k))
+             for k in (4, 8, 16, 32, 56)]
+    sweep += [("scatter_add", f"depth={k}",
+               lambda k=k: sa.scatter_add_unique(work, uniq, summed, depth=k))
+              for k in (4, 8, 16, 28)]
+    sweep += [("stream_triad", f"rows={r} depth={k}",
+               lambda r=r, k=k: sc.triad(b, c, s, rows=r, depth=k))
+              for r, k in ((128, 1), (64, 1), (64, 3), (32, 1), (32, 2),
+                           (32, 6))]
+    swept = {}
+    for name, tag, fn in sweep:
+        ms = median_ms(torch, fn, [()])
+        swept[f"{name} {tag}"] = ms
+        log(f"sweep {name} {tag}: {ms:.4f} ms, "
+            f"{out[name]['bound_ms'] / ms:.1%} of the bound")
+    log("sweep: " + json.dumps(swept))
     return out
 
 

@@ -98,12 +98,11 @@ def _check(table, idx, name: str) -> None:
 
 
 def _launch(kernel: str, table, idx, out, *, n_tiles: int,
-            rows_per_tile: int, depth: int, span: bool) -> None:
+            rows_per_tile: int, depth: int, unit: int, span: bool) -> None:
     if idx.dtype != torch.int32:
         raise TypeError(f"{kernel}: indices must be int32, got {idx.dtype}")
     row_bytes = table.shape[1] * table.element_size()
-    unit = ring.copy_unit(row_bytes, (table, out), kernel=kernel)
-    smem = depth * rows_per_tile * row_bytes
+    smem = depth * ring.ring_bytes(rows_per_tile * row_bytes, unit)
     ring.check_smem(smem, kernel=kernel, depth=depth,
                     tile=(rows_per_tile, table.shape[1]))
     grid, per_block = ring.launch_grid(table.device, n_tiles, depth, smem,
@@ -119,14 +118,23 @@ def _launch(kernel: str, table, idx, out, *, n_tiles: int,
                         tile=(rows_per_tile, table.shape[1]))
 
 
+def _depth(spec, depth, table, rows: int, n_tiles: int):
+    """(depth, copy unit) of a gather of `rows`-row tiles from `table`."""
+    row_bytes = table.shape[1] * table.element_size()
+    unit = ring.copy_unit(row_bytes, (table,))
+    return ring.solve_depth(spec, depth, n_tiles=n_tiles,
+                            slot_bytes=ring.ring_bytes(rows * row_bytes,
+                                                       unit)), unit
+
+
 def row_gather(table: torch.Tensor, idx: torch.Tensor, *,
                depth: Optional[int] = None,
                rows_per_tile: int = 8) -> torch.Tensor:
     """out[i] = table[idx[i]]; len(idx) must divide into `rows_per_tile`.
 
-    table: [R, d] (any type whose rows are a multiple of 4 bytes on CUDA);
-    idx: [n] int32, in range. `depth` is the number of tiles in flight per
-    thread block; None solves it from `row_gather_spec`.
+    table: [R, d] of any type; idx: [n] int32, in range. `depth` is the
+    number of tiles in flight per thread block; None solves it from
+    `row_gather_spec`.
     """
     _check(table, idx, "idx")
     n = idx.shape[0]
@@ -136,15 +144,15 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, *,
     n_tiles = n // rows_per_tile
     d = table.shape[1]
     cuda = ring.route("row_gather", ("table", table), ("idx", idx))
-    spec = row_gather_spec(rows_per_tile, d, table.dtype)
-    depth = ring.solve_depth(spec, depth, n_tiles=n_tiles,
-                             slot_bytes=rows_per_tile * d * table.element_size())
+    depth, unit = _depth(row_gather_spec(rows_per_tile, d, table.dtype),
+                         depth, table, rows_per_tile, n_tiles)
     if not cuda:
         return row_gather_plain(table, idx)
     out = torch.empty((n, d), dtype=table.dtype, device=table.device)
     if n_tiles:
         _launch("row_gather", table, idx, out, n_tiles=n_tiles,
-                rows_per_tile=rows_per_tile, depth=depth, span=False)
+                rows_per_tile=rows_per_tile, depth=depth, unit=unit,
+                span=False)
         row_gather.launches += 1
     return out
 
@@ -162,16 +170,15 @@ def span_gather(table: torch.Tensor, starts: torch.Tensor, *, span: int = 8,
     n_tiles = starts.shape[0]
     d = table.shape[1]
     cuda = ring.route("span_gather", ("table", table), ("starts", starts))
-    spec = span_gather_spec(span, d, table.dtype)
-    depth = ring.solve_depth(spec, depth, n_tiles=n_tiles,
-                             slot_bytes=span * d * table.element_size())
+    depth, unit = _depth(span_gather_spec(span, d, table.dtype), depth,
+                         table, span, n_tiles)
     if not cuda:
         return span_gather_plain(table, starts, span)
     out = torch.empty((n_tiles * span, d), dtype=table.dtype,
                       device=table.device)
     if n_tiles:
         _launch("span_gather", table, starts, out, n_tiles=n_tiles,
-                rows_per_tile=span, depth=depth, span=True)
+                rows_per_tile=span, depth=depth, unit=unit, span=True)
         span_gather.launches += 1
     return out
 

@@ -16,7 +16,7 @@ import torch
 from repro_torch.core.descriptors import GatherPlan, plan_gather
 from repro_torch.kernels.coro_gather.coro_gather import row_gather, span_gather
 
-__all__ = ["coalesced_gather", "coro_gather"]
+__all__ = ["coalesced_gather", "coro_gather", "padded_indices"]
 
 
 def _indices(idx, device) -> torch.Tensor:
@@ -26,16 +26,23 @@ def _indices(idx, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(idx, np.int32), device=device)
 
 
+def padded_indices(idx, device, rows_per_tile: int) -> torch.Tensor:
+    """`row_gather`'s index operand: `idx` as int32 on `device`, padded with
+    row 0 to a multiple of `rows_per_tile`."""
+    idx = _indices(idx, device)
+    pad = (-idx.shape[0]) % rows_per_tile
+    if pad:
+        idx = torch.cat([idx, idx.new_zeros(pad)])
+    return idx
+
+
 def coro_gather(table: torch.Tensor, idx, *, depth: Optional[int] = None,
                 rows_per_tile: int = 8) -> torch.Tensor:
     """Pipelined gather; pads the index stream to a tile multiple (with
     row 0) and drops the padding rows from the result."""
-    idx = _indices(idx, table.device)
-    n = idx.shape[0]
-    pad = (-n) % rows_per_tile
-    if pad:
-        idx = torch.cat([idx, idx.new_zeros(pad)])
-    out = row_gather(table, idx, depth=depth, rows_per_tile=rows_per_tile)
+    n = len(idx)
+    out = row_gather(table, padded_indices(idx, table.device, rows_per_tile),
+                     depth=depth, rows_per_tile=rows_per_tile)
     return out[:n]
 
 

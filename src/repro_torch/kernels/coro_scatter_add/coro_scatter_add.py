@@ -85,9 +85,11 @@ def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
     cuda = ring.route("scatter_add", ("table", table), ("idx", idx),
                       ("updates", updates))
     spec = scatter_add_spec(rows_per_tile, d, table.dtype)
-    tile_bytes = rows_per_tile * d * table.element_size()
+    row_bytes = d * table.element_size()
+    unit = ring.copy_unit(row_bytes, (table, updates))
+    slot_bytes = ring.ring_bytes(2 * rows_per_tile * row_bytes, unit)
     depth = ring.solve_depth(spec, depth, n_tiles=n_tiles,
-                             slot_bytes=2 * tile_bytes)
+                             slot_bytes=slot_bytes)
     if not cuda:
         return scatter_add_unique_plain(table, idx, updates)
     if table.dtype not in ring.DTYPE_CODE:
@@ -100,9 +102,7 @@ def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
     if n_tiles == 0:
         return table
     tile = (rows_per_tile, d)
-    row_bytes = d * table.element_size()
-    unit = ring.copy_unit(row_bytes, (table, updates), kernel="scatter_add")
-    smem = depth * 2 * tile_bytes
+    smem = depth * slot_bytes
     ring.check_smem(smem, kernel="scatter_add", depth=depth, tile=tile)
     grid, per_block = ring.launch_grid(table.device, n_tiles, depth, smem,
                                        THREADS)

@@ -18,12 +18,13 @@
 //     shared-memory ring, each slot holding the tile's current table rows
 //     and its update rows, both copied by cp.async in one commit group (the
 //     aset group); the depth is solved on the host from the CoroSpec and
-//     clamped to shared memory and to the tile count;
+//     clamped to shared memory, to the tile count and to repro::kMaxDepth;
 //   * the write-back (the reference's astore StoreStream) is a plain global
 //     store straight from registers: a store does not stall the thread, so
 //     it needs no slot of its own;
-//   * 16-byte units where the rows and pointers allow, else 4-byte words;
-//     a thread reads back only the units it copied, so no block barrier.
+//   * 16-byte units where the rows and pointers allow, else 4-byte words,
+//     else (bf16 rows of odd width) 2-byte units (coro_ring.cuh); a thread
+//     reads back only the units it copied, so no block barrier.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
@@ -39,22 +40,27 @@ __global__ void __launch_bounds__(kThreads)
     scatter_add_kernel(V* __restrict__ table, const int* __restrict__ idx,
                        const V* __restrict__ upd, int64_t n_tiles, int64_t tiles_per_block,
                        int rows_per_tile, int row_units, int depth) {
+  using U = repro::Unit<V>;
+  using Slot = typename U::Slot;
   extern __shared__ __align__(16) unsigned char smem[];
-  V* ring = reinterpret_cast<V*>(smem);  // slot s: [cur tile | upd tile]
+  Slot* ring = reinterpret_cast<Slot*>(smem);  // slot s: [cur tile | upd tile]
   const int tile_units = rows_per_tile * row_units;
   int64_t first, count;
   repro::block_tiles(n_tiles, tiles_per_block, &first, &count);
 
+  // The table address of unit u of tile t.
+  auto target = [&](int64_t t, int u) {
+    const int r = u / row_units;
+    const int c = u - r * row_units;
+    return table + static_cast<int64_t>(idx[t * rows_per_tile + r]) * row_units + c;
+  };
   auto issue = [&](int64_t t, int slot) {
-    V* cur = ring + static_cast<size_t>(slot) * 2 * tile_units;
-    V* up = cur + tile_units;
+    Slot* cur = ring + static_cast<size_t>(slot) * 2 * tile_units;
+    Slot* up = cur + tile_units;
     const V* src_upd = upd + t * tile_units;
     for (int u = threadIdx.x; u < tile_units; u += kThreads) {
-      const int r = u / row_units;
-      const int c = u - r * row_units;
-      const int64_t row = idx[t * rows_per_tile + r];
-      repro::cp_async(cur + u, table + row * row_units + c);
-      repro::cp_async(up + u, src_upd + u);
+      U::load(cur + u, target(t, u));
+      U::load(up + u, src_upd + u);
     }
   };
 
@@ -66,13 +72,13 @@ __global__ void __launch_bounds__(kThreads)
     const int slot = static_cast<int>(i % depth);
     const int64_t t = first + i;
     repro::cp_async_wait_pending(depth - 1);
-    const V* cur = ring + static_cast<size_t>(slot) * 2 * tile_units;
-    const V* up = cur + tile_units;
+    const Slot* cur = ring + static_cast<size_t>(slot) * 2 * tile_units;
+    const Slot* up = cur + tile_units;
+    const V* src_upd = upd + t * tile_units;
     for (int u = threadIdx.x; u < tile_units; u += kThreads) {
-      const int r = u / row_units;
-      const int c = u - r * row_units;
-      const int64_t row = idx[t * rows_per_tile + r];
-      table[row * row_units + c] = repro::axpy_unit<T, V, false>(cur[u], up[u], 1.f);
+      V* dst = target(t, u);
+      *dst = repro::axpy_unit<T, V, false>(U::read(cur + u, dst), U::read(up + u, src_upd + u),
+                                           1.f);
     }
     if (i + depth < count) issue(t + depth, slot);
     repro::cp_async_commit();
@@ -85,7 +91,8 @@ cudaError_t launch(void* table, const void* idx, const void* upd, int64_t n_tile
                    int64_t tiles_per_block, int grid, int rows_per_tile, int row_bytes,
                    int depth, cudaStream_t stream) {
   const int row_units = row_bytes / static_cast<int>(sizeof(V));
-  const size_t smem = static_cast<size_t>(depth) * 2 * rows_per_tile * row_bytes;
+  const size_t smem = static_cast<size_t>(depth) * 2 * rows_per_tile * row_units *
+                      sizeof(typename repro::Unit<V>::Slot);
   auto kernel = scatter_add_kernel<T, V>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -106,6 +113,11 @@ cudaError_t dispatch_unit(int unit, void* table, const void* idx, const void* up
   if (unit == 4)
     return launch<T, uint32_t>(table, idx, upd, n_tiles, tiles_per_block, grid, rows_per_tile,
                                row_bytes, depth, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (unit == 2)
+      return launch<T, uint16_t>(table, idx, upd, n_tiles, tiles_per_block, grid, rows_per_tile,
+                                 row_bytes, depth, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -113,13 +125,14 @@ cudaError_t dispatch_unit(int unit, void* table, const void* idx, const void* up
 
 // table [R, row_bytes] += upd [n_tiles * rows_per_tile, row_bytes] at the
 // duplicate-free rows idx. dtype: 0 = float32, 1 = bfloat16. unit: copy unit
-// in bytes, 16 or 4. Returns the cudaError_t of the launch (0 on success).
+// in bytes, 16, 4 or (bfloat16) 2. depth is at most repro::kMaxDepth. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int repro_scatter_add(void* table, const void* idx, const void* upd,
                                  long long n_tiles, long long tiles_per_block, int grid,
                                  int rows_per_tile, int row_bytes, int depth, int dtype, int unit,
                                  void* stream) {
   if (n_tiles < 1 || tiles_per_block < 1 || grid < 1 || rows_per_tile < 1 || depth < 1 ||
-      unit < 4 || row_bytes < unit || row_bytes % unit != 0) {
+      depth > repro::kMaxDepth || unit < 2 || row_bytes < unit || row_bytes % unit != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

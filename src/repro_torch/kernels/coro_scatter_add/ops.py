@@ -11,7 +11,7 @@ from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
     scatter_add_unique,
 )
 
-__all__ = ["coro_scatter_add"]
+__all__ = ["coro_scatter_add", "rmw_operands"]
 
 
 def _host(x) -> np.ndarray:
@@ -23,6 +23,25 @@ def _host(x) -> np.ndarray:
             x = x.float()
         return x.numpy()
     return np.asarray(x)
+
+
+def rmw_operands(table: torch.Tensor, idx, updates, rows_per_tile: int):
+    """`scatter_add_unique`'s (idx, updates) operands on the table's device:
+    duplicates of `idx` combined (`dedup_rmw`, on the host), then padded to
+    a multiple of `rows_per_tile` with distinct rows no update targets, each
+    with a zero update, so that a padding row can never race a real one.
+    Duplicates of bf16 updates are summed in float32 (numpy has no bf16)."""
+    uniq, summed = dedup_rmw(_host(idx), _host(updates))
+    pad = (-uniq.shape[0]) % rows_per_tile
+    if pad:
+        unused = np.setdiff1d(np.arange(table.shape[0]), uniq)[:pad]
+        if unused.shape[0] < pad:
+            raise ValueError("cannot pad: every row is a scatter target")
+        uniq = np.concatenate([uniq, unused.astype(uniq.dtype)])
+        summed = np.concatenate(
+            [summed, np.zeros((pad,) + summed.shape[1:], summed.dtype)])
+    return (torch.as_tensor(uniq.astype(np.int32), device=table.device),
+            torch.as_tensor(summed, device=table.device).to(table.dtype))
 
 
 def coro_scatter_add(table: torch.Tensor, idx, updates, *,
@@ -40,21 +59,6 @@ def coro_scatter_add(table: torch.Tensor, idx, updates, *,
     where the reference sums them in bf16: the two agree within bf16's
     3e-2 tolerance.
     """
-    idx_h = _host(idx)
-    uniq, summed = dedup_rmw(idx_h, _host(updates))
-    n = uniq.shape[0]
-    pad = (-n) % rows_per_tile
-    if pad:
-        # pad with distinct rows no update targets, each with a zero update:
-        # a padding row can then never race a real one
-        unused = np.setdiff1d(np.arange(table.shape[0]), uniq)[:pad]
-        if unused.shape[0] < pad:
-            raise ValueError("cannot pad: every row is a scatter target")
-        uniq = np.concatenate([uniq, unused.astype(uniq.dtype)])
-        summed = np.concatenate(
-            [summed, np.zeros((pad,) + summed.shape[1:], summed.dtype)])
-    out = table.clone()
-    return scatter_add_unique(
-        out, torch.as_tensor(uniq.astype(np.int32), device=table.device),
-        torch.as_tensor(summed, device=table.device).to(table.dtype),
-        depth=depth, rows_per_tile=rows_per_tile)
+    uniq, summed = rmw_operands(table, idx, updates, rows_per_tile)
+    return scatter_add_unique(table.clone(), uniq, summed, depth=depth,
+                              rows_per_tile=rows_per_tile)

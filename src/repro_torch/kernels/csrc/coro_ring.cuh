@@ -15,21 +15,54 @@
 
 namespace repro {
 
-// One copy unit: 16 bytes where the rows allow it, else one 4-byte word.
-template <typename V>
-__device__ __forceinline__ void cp_async(V* smem, const V* gmem);
+// The deepest ring a kernel may run: `depth` tiles in flight per block.
+// The host clamps every depth to it (repro_torch/kernels/ring.py:MAX_DEPTH).
+constexpr int kMaxDepth = 64;
 
-template <>
-__device__ __forceinline__ void cp_async<uint4>(uint4* smem, const uint4* gmem) {
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
+// One copy unit of type V: 16, 4, 2 or 1 bytes, the widest that the rows
+// and base pointers allow. `Slot` is what one unit takes in the ring; `load`
+// starts its cp.async from global address g; `read` returns it from the
+// slot once its group has landed (g is the same address).
+template <typename V>
+struct Unit {
+  using Slot = V;
+  static __device__ __forceinline__ void load(Slot* s, const V* g) {
+    if constexpr (sizeof(V) == 16) cp_async16(s, g); else cp_async4(s, g);
+  }
+  static __device__ __forceinline__ V read(const Slot* s, const V*) { return *s; }
+};
+
+// cp.async copies no fewer than 4 bytes, so a 2- or 1-byte unit's slot is
+// the aligned 4-byte word that holds it, and `read` shifts its bytes out.
+// That word never leaves the unit's allocation: allocations are aligned to
+// far more than 4 bytes.
+template <typename V>
+struct SubWordUnit {
+  using Slot = uint32_t;
+  static __device__ __forceinline__ uintptr_t addr(const V* g) {
+    return reinterpret_cast<uintptr_t>(g);
+  }
+  static __device__ __forceinline__ void load(Slot* s, const V* g) {
+    cp_async4(s, reinterpret_cast<const void*>(addr(g) & ~uintptr_t(3)));
+  }
+  static __device__ __forceinline__ V read(const Slot* s, const V* g) {
+    return static_cast<V>(*s >> (8 * (addr(g) & 3)));
+  }
+};
 template <>
-__device__ __forceinline__ void cp_async<uint32_t>(uint32_t* smem, const uint32_t* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
+struct Unit<uint16_t> : SubWordUnit<uint16_t> {};
+template <>
+struct Unit<uint8_t> : SubWordUnit<uint8_t> {};
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -40,28 +73,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Wait until at most `n` copy groups are still pending. The instruction
-// takes an immediate, so a run-time depth goes through a switch; past 15
-// it waits for 15, which is stricter and therefore still correct.
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    case 7: cp_async_wait<7>(); break;
-    case 8: cp_async_wait<8>(); break;
-    case 9: cp_async_wait<9>(); break;
-    case 10: cp_async_wait<10>(); break;
-    case 11: cp_async_wait<11>(); break;
-    case 12: cp_async_wait<12>(); break;
-    case 13: cp_async_wait<13>(); break;
-    case 14: cp_async_wait<14>(); break;
-    default: cp_async_wait<15>(); break;
+// Wait until at most `n` copy groups are still pending, for any n below
+// kMaxDepth. The instruction takes an immediate, so the run-time n picks one
+// of kMaxDepth instantiations by binary search (six uniform branches).
+template <int Lo, int Hi>
+__device__ __forceinline__ void cp_async_wait_range(int n) {
+  if constexpr (Lo == Hi) {
+    cp_async_wait<Lo>();
+  } else {
+    constexpr int kMid = (Lo + Hi) / 2;
+    if (n <= kMid) {
+      cp_async_wait_range<Lo, kMid>(n);
+    } else {
+      cp_async_wait_range<kMid + 1, Hi>(n);
+    }
   }
+}
+
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  cp_async_wait_range<0, kMaxDepth - 1>(n);
 }
 
 // Elementwise arithmetic on one copy unit of T values, in f32 with one

@@ -18,8 +18,11 @@ from repro_torch.core import autotune
 from repro_torch.core.coro import CoroSpec
 from repro_torch.core.guard import KernelCompileError, KernelResourceError
 
-__all__ = ["SMEM_LIMIT", "check_smem", "copy_unit", "kernel_depth",
-           "launch_grid", "library", "raise_on_error", "route", "solve_depth"]
+__all__ = ["MAX_DEPTH", "SMEM_LIMIT", "check_smem", "copy_unit",
+           "kernel_depth", "launch_grid", "library", "raise_on_error",
+           "ring_bytes", "route", "solve_depth"]
+
+MAX_DEPTH = 64                 # kMaxDepth in csrc/coro_ring.cuh
 
 SMEM_LIMIT = 232_448           # shared memory one block may use on sm_90
 SM_SMEM = 233_472              # shared memory of one SM (228 KiB)
@@ -31,14 +34,14 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kernel_depth(depth: int, *, slot_bytes: int, n_tiles: int) -> int:
-    """Clamp a depth to what the kernel runs: at most `n_tiles` tiles, and
-    no more slots than one block's shared memory holds (`slot_bytes` each;
-    at least one, which `check_smem` refuses on the card if it does not
-    fit)."""
+    """Clamp a depth to what the kernel runs: at most `n_tiles` tiles, at
+    most `MAX_DEPTH` (the deepest wait the kernels compile), and no more
+    slots than one block's shared memory holds (`slot_bytes` each; at least
+    one, which `check_smem` refuses on the card if it does not fit)."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     fit = SMEM_LIMIT // max(slot_bytes, 1)
-    return max(1, min(int(depth), fit, max(int(n_tiles), 1)))
+    return max(1, min(int(depth), MAX_DEPTH, fit, max(int(n_tiles), 1)))
 
 
 def solve_depth(spec: CoroSpec, depth: Optional[int], *, slot_bytes: int,
@@ -82,16 +85,20 @@ def launch_grid(device: torch.device, n_tiles: int, depth: int,
     return -(-n_tiles // per_block), per_block
 
 
-def copy_unit(nbytes: int, tensors: Sequence[torch.Tensor], *,
-              kernel: str) -> int:
-    """16 when every row of `nbytes` and every base pointer allow 16-byte
-    copies, else 4; raises where not even 4-byte words fit."""
-    for unit in (16, 4):
+def copy_unit(nbytes: int, tensors: Sequence[torch.Tensor]) -> int:
+    """The widest copy unit, 16, 4, 2 or 1 bytes, that divides every row of
+    `nbytes` and every base pointer of `tensors`."""
+    for unit in (16, 4, 2):
         if nbytes % unit == 0 and all(t.data_ptr() % unit == 0
                                       for t in tensors):
             return unit
-    raise ValueError(f"{kernel}: rows of {nbytes} B (or a base pointer) are "
-                     f"not 4-byte aligned; the kernel copies 4-byte words")
+    return 1
+
+
+def ring_bytes(nbytes: int, unit: int) -> int:
+    """Shared memory that `nbytes` of data take in the ring: a 2- or 1-byte
+    unit sits in a 4-byte slot (cp.async copies at least 4 bytes)."""
+    return nbytes * max(1, 4 // unit)
 
 
 def library(source: Path, fn_name: str, argtypes) -> ctypes.CDLL:

@@ -20,9 +20,10 @@
 //     and to the tile count;
 //   * the store stream (the reference's StoreStream) is a plain global store
 //     from registers: it does not stall the thread and needs no slot;
-//   * 16-byte units where the rows and pointers allow, else 4-byte words,
-//     consecutive threads on consecutive addresses; a thread reads back only
-//     the units it copied, so no block barrier.
+//   * 16-byte units where the tiles and pointers allow, else 4-byte words,
+//     else (bf16 tiles of an odd number of values) 2-byte units
+//     (coro_ring.cuh), consecutive threads on consecutive addresses; a
+//     thread reads back only the units it copied, so no block barrier.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
@@ -37,18 +38,20 @@ template <typename T, typename V>
 __global__ void __launch_bounds__(kThreads)
     triad_kernel(const V* __restrict__ b, const V* __restrict__ c, V* __restrict__ a, float s,
                  int64_t n_tiles, int64_t tiles_per_block, int tile_units, int depth) {
+  using U = repro::Unit<V>;
+  using Slot = typename U::Slot;
   extern __shared__ __align__(16) unsigned char smem[];
-  V* ring = reinterpret_cast<V*>(smem);  // slot k: [b tile | c tile]
+  Slot* ring = reinterpret_cast<Slot*>(smem);  // slot k: [b tile | c tile]
   int64_t first, count;
   repro::block_tiles(n_tiles, tiles_per_block, &first, &count);
 
   auto issue = [&](int64_t t, int slot) {
-    V* bs = ring + static_cast<size_t>(slot) * 2 * tile_units;
-    V* cs = bs + tile_units;
+    Slot* bs = ring + static_cast<size_t>(slot) * 2 * tile_units;
+    Slot* cs = bs + tile_units;
     const int64_t off = t * tile_units;
     for (int u = threadIdx.x; u < tile_units; u += kThreads) {
-      repro::cp_async(bs + u, b + off + u);
-      repro::cp_async(cs + u, c + off + u);
+      U::load(bs + u, b + off + u);
+      U::load(cs + u, c + off + u);
     }
   };
 
@@ -59,11 +62,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t i = 0; i < count; ++i) {
     const int slot = static_cast<int>(i % depth);
     repro::cp_async_wait_pending(depth - 1);
-    const V* bs = ring + static_cast<size_t>(slot) * 2 * tile_units;
-    const V* cs = bs + tile_units;
-    V* dst = a + (first + i) * tile_units;
+    const Slot* bs = ring + static_cast<size_t>(slot) * 2 * tile_units;
+    const Slot* cs = bs + tile_units;
+    const int64_t off = (first + i) * tile_units;
     for (int u = threadIdx.x; u < tile_units; u += kThreads)
-      dst[u] = repro::axpy_unit<T, V, true>(bs[u], cs[u], s);
+      a[off + u] = repro::axpy_unit<T, V, true>(U::read(bs + u, b + off + u),
+                                                U::read(cs + u, c + off + u), s);
     if (i + depth < count) issue(first + i + depth, slot);
     repro::cp_async_commit();
   }
@@ -75,7 +79,8 @@ cudaError_t launch(const void* b, const void* c, void* a, float s, int64_t n_til
                    int64_t tiles_per_block, int grid, int tile_bytes, int depth,
                    cudaStream_t stream) {
   const int tile_units = tile_bytes / static_cast<int>(sizeof(V));
-  const size_t smem = static_cast<size_t>(depth) * 2 * tile_bytes;
+  const size_t smem = static_cast<size_t>(depth) * 2 * tile_units *
+                      sizeof(typename repro::Unit<V>::Slot);
   auto kernel = triad_kernel<T, V>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -96,19 +101,25 @@ cudaError_t dispatch_unit(int unit, const void* b, const void* c, void* a, float
   if (unit == 4)
     return launch<T, uint32_t>(b, c, a, s, n_tiles, tiles_per_block, grid, tile_bytes, depth,
                                stream);
+  if constexpr (sizeof(T) == 2) {
+    if (unit == 2)
+      return launch<T, uint16_t>(b, c, a, s, n_tiles, tiles_per_block, grid, tile_bytes, depth,
+                                 stream);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // a = b + s * c over n_tiles contiguous tiles of tile_bytes each. dtype:
-// 0 = float32, 1 = bfloat16. unit: copy unit in bytes, 16 or 4. Returns the
-// cudaError_t of the launch (0 on success).
+// 0 = float32, 1 = bfloat16. unit: copy unit in bytes, 16, 4 or (bfloat16)
+// 2. depth is at most repro::kMaxDepth. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int repro_triad(const void* b, const void* c, void* a, float s, long long n_tiles,
                            long long tiles_per_block, int grid, int tile_bytes, int depth,
                            int dtype, int unit, void* stream) {
-  if (n_tiles < 1 || tiles_per_block < 1 || grid < 1 || depth < 1 || unit < 4 ||
-      tile_bytes < unit || tile_bytes % unit != 0) {
+  if (n_tiles < 1 || tiles_per_block < 1 || grid < 1 || depth < 1 ||
+      depth > repro::kMaxDepth || unit < 2 || tile_bytes < unit || tile_bytes % unit != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -74,8 +74,10 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
     cuda = ring.route("stream_triad", ("b", b), ("c", c))
     spec = triad_spec(rows, d, b.dtype)
     tile_bytes = rows * d * b.element_size()
+    unit = ring.copy_unit(tile_bytes, (b, c))
+    slot_bytes = ring.ring_bytes(2 * tile_bytes, unit)
     depth = ring.solve_depth(spec, depth, n_tiles=n_tiles,
-                             slot_bytes=2 * tile_bytes)
+                             slot_bytes=slot_bytes)
     if not cuda:
         return triad_plain(b, c, scalar)
     if b.dtype not in ring.DTYPE_CODE or c.dtype != b.dtype:
@@ -85,8 +87,7 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
     if n_tiles == 0:
         return a
     tile = (rows, d)
-    unit = ring.copy_unit(tile_bytes, (b, c, a), kernel="stream_triad")
-    smem = depth * 2 * tile_bytes
+    smem = depth * slot_bytes
     ring.check_smem(smem, kernel="stream_triad", depth=depth, tile=tile)
     grid, per_block = ring.launch_grid(b.device, n_tiles, depth, smem,
                                        THREADS)

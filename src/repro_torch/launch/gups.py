@@ -31,20 +31,27 @@ from repro_torch.core import autotune, sim
 from repro_torch.core.descriptors import plan_gather
 from repro_torch.core.machine import get_machine
 from repro_torch.core.schedule import achieved_bandwidth, solve_depth
-from repro_torch.kernels.coro_gather.coro_gather import row_gather_spec
-from repro_torch.kernels.coro_gather.ops import coro_gather
+from repro_torch.kernels.coro_gather.coro_gather import (
+    row_gather,
+    row_gather_spec,
+)
+from repro_torch.kernels.coro_gather.ops import coro_gather, padded_indices
 from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
     scatter_add_spec,
+    scatter_add_unique,
 )
-from repro_torch.kernels.coro_scatter_add.ops import coro_scatter_add
+from repro_torch.kernels.coro_scatter_add.ops import rmw_operands
 
 PAPER_GUPS = {200: "29.0", 800: "59.8"}   # paper's reported speedups
 
 
 def observed(kernel: str, n_tiles: int, fn: Callable, *args, **kw):
-    """Run `fn`; on the card, feed its device time (CUDA events around the
-    call) to `autotune.observe_pipeline`, the always-on transfer telemetry.
-    The CPU runs plain versions, whose times are not transfer samples."""
+    """Run the kernel wrapper `fn` on operands already on the device; on the
+    card, feed its device time (CUDA events around the call) to
+    `autotune.observe_pipeline`, the always-on transfer telemetry, as one
+    sample over `n_tiles` tiles. Host passes in front of a kernel (dedup,
+    padding, copies) stay outside the call. The CPU runs plain versions,
+    whose times are not transfer samples."""
     dev = args[0].device
     if dev.type != "cuda":
         return fn(*args, **kw)
@@ -62,15 +69,18 @@ def gups_round(table: torch.Tensor, idx, updates, *,
                depth: Optional[int] = None, rows_per_tile: int = 8):
     """One GUPS round: gathered = table[idx], then updated = table with
     updates[i] added at idx[i] (duplicates combined first). Returns
-    (gathered, updated); `table` is left as it was."""
+    (gathered, updated); `table` is left as it was. It does what
+    `coro_gather` and `coro_scatter_add` do, and times only their two
+    kernel calls as transfer samples."""
     idx = np.asarray(idx.cpu() if isinstance(idx, torch.Tensor) else idx)
-    n_unique = len(np.unique(idx))
-    gathered = observed("row_gather", -(-len(idx) // rows_per_tile),
-                         coro_gather, table, idx, depth=depth,
-                         rows_per_tile=rows_per_tile)
-    updated = observed("scatter_add", -(-n_unique // rows_per_tile),
-                        coro_scatter_add, table, idx, updates, depth=depth,
-                        rows_per_tile=rows_per_tile)
+    rows = padded_indices(idx, table.device, rows_per_tile)
+    gathered = observed("row_gather", rows.shape[0] // rows_per_tile,
+                        row_gather, table, rows, depth=depth,
+                        rows_per_tile=rows_per_tile)[:len(idx)]
+    uniq, summed = rmw_operands(table, idx, updates, rows_per_tile)
+    updated = observed("scatter_add", uniq.shape[0] // rows_per_tile,
+                       scatter_add_unique, table.clone(), uniq, summed,
+                       depth=depth, rows_per_tile=rows_per_tile)
     return gathered, updated
 
 

@@ -10,6 +10,8 @@ The CUDA kernels themselves are held to the plain versions on the card
 (`test_torch_kernels_cuda.py`).
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,7 @@ from repro.kernels.coro_gather.ops import coalesced_gather as ref_coalesced
 from repro.kernels.coro_gather.ops import coro_gather as ref_coro_gather
 from repro_torch.core import autotune, machine
 from repro_torch.core.descriptors import apply_plan_reference, plan_gather
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, ring
 from repro_torch.kernels.coro_gather import coro_gather as cg
 from repro_torch.kernels.coro_gather.ops import coalesced_gather, coro_gather
 
@@ -203,3 +205,47 @@ def test_wrappers_reject_bad_inputs():
         cg.row_gather(table, torch.zeros(8, dtype=torch.int32), depth=0)
     with pytest.raises(ValueError):
         cg.span_gather(table, torch.zeros(3, dtype=torch.int32), span=0)
+
+
+@pytest.mark.parametrize("depth", [1, 15, 16, 17, 56, 64, 65, 1000])
+@pytest.mark.parametrize("slot_bytes", [64, 4096, 8192, 131072])
+def test_kernel_depth_never_exceeds_max_depth(depth, slot_bytes):
+    """The depth a kernel runs is at most MAX_DEPTH (its deepest compiled
+    wait), what shared memory holds and the tile count."""
+    for n_tiles in (3, 100, 10 ** 6):
+        got = ring.kernel_depth(depth, slot_bytes=slot_bytes, n_tiles=n_tiles)
+        assert got == max(1, min(depth, ring.MAX_DEPTH,
+                                 ring.SMEM_LIMIT // slot_bytes, n_tiles))
+        assert 1 <= got <= ring.MAX_DEPTH
+
+
+def test_max_depth_matches_the_kernels_wait():
+    header = (Path(ring.__file__).parent / "csrc" / "coro_ring.cuh").read_text()
+    assert int(re.search(r"kMaxDepth = (\d+);", header).group(1)) == \
+        ring.MAX_DEPTH
+
+
+def test_recorded_depth_is_the_depth_that_runs():
+    """A far-memory solve deeper than MAX_DEPTH is recorded as it runs."""
+    mm = machine.set_machine("v5e-far-800ns")
+    spec = cg.row_gather_spec(1, 16, torch.float32)
+    solved = autotune.choose_depth(spec.profile(), machine=mm,
+                                   vars=spec.all_vars())
+    assert solved > ring.MAX_DEPTH
+    cg.row_gather(torch.zeros(4096, 16), torch.zeros(4096, dtype=torch.int32),
+                  rows_per_tile=1)
+    assert autotune.last_choice("row_gather") == ring.MAX_DEPTH
+
+
+@pytest.mark.parametrize("dtype,d,offset,unit", [
+    (torch.float32, 128, 0, 16), (torch.float32, 5, 0, 4),
+    (torch.float32, 128, 1, 4), (torch.bfloat16, 6, 0, 4),
+    (torch.bfloat16, 5, 0, 2), (torch.bfloat16, 8, 1, 2),
+    (torch.uint8, 6, 0, 2), (torch.uint8, 5, 0, 1), (torch.uint8, 16, 3, 1)])
+def test_copy_unit_and_ring_bytes(dtype, d, offset, unit):
+    """The widest unit that divides the rows and the base pointer; a 2- or
+    1-byte unit takes a 4-byte slot in the ring."""
+    t = torch.zeros(64 * d + offset, dtype=dtype)[offset:].view(64, d)
+    row_bytes = d * t.element_size()
+    assert ring.copy_unit(row_bytes, (t,)) == unit
+    assert ring.ring_bytes(row_bytes, unit) == row_bytes * max(1, 4 // unit)

@@ -114,6 +114,47 @@ def test_smoke_record_matches_machine_smoke(profile):
     assert rec["device"] == "cpu"
 
 
+def test_gups_round_times_only_the_kernel_calls(monkeypatch):
+    """The transfer samples time the two kernel calls alone: the host dedup
+    and padding run before the timed call, never inside it."""
+    from repro_torch.kernels.coro_gather.coro_gather import row_gather
+    from repro_torch.kernels.coro_scatter_add import ops as scatter_ops
+    from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
+        scatter_add_unique,
+    )
+
+    timed, inside = [], [False]
+
+    def record(kernel, n_tiles, fn, *args, **kw):
+        timed.append((kernel, n_tiles, fn))
+        inside[0] = True
+        try:
+            return fn(*args, **kw)
+        finally:
+            inside[0] = False
+
+    dedup = scatter_ops.dedup_rmw
+
+    def checked_dedup(*args):
+        assert not inside[0], "the dedup ran inside a timed kernel call"
+        return dedup(*args)
+
+    monkeypatch.setattr(gups, "observed", record)
+    monkeypatch.setattr(scatter_ops, "dedup_rmw", checked_dedup)
+    rng = np.random.RandomState(1)
+    table = torch.from_numpy(rng.randn(64, 8).astype(np.float32))
+    idx = rng.randint(0, 64, 21).astype(np.int32)
+    upd = torch.from_numpy(rng.randn(21, 8).astype(np.float32))
+    gathered, updated = gups.gups_round(table, idx, upd)
+    n_unique = len(np.unique(idx))
+    assert timed == [("row_gather", 3, row_gather),
+                     ("scatter_add", -(-n_unique // 8), scatter_add_unique)]
+    assert torch.equal(gathered, table[torch.from_numpy(idx).long()])
+    want = table.clone().index_put_((torch.from_numpy(idx).long(),), upd,
+                                    accumulate=True)
+    torch.testing.assert_close(updated, want, rtol=2e-3, atol=2e-3)
+
+
 def test_far_profile_solves_deeper():
     """The latency dial reaches the solver: 800 ns of far memory needs a
     deeper row-gather pipeline than local HBM (the reference's CI lane)."""

@@ -123,16 +123,14 @@ def _ints(device, hi, n, seed=1):
     return torch.randint(0, hi, (n,), generator=g, dtype=torch.int32).to(device)
 
 
-@pytest.mark.parametrize("dtype,rows,d", [
-    (dtype, rows, d)
-    for dtype in (torch.float32, torch.bfloat16, torch.int32)
-    for rows, d in ((300, 128), (128, 8), (64, 5), (64, 6))
-    # bf16 rows of 5 elements are 10 bytes: not 4-byte words
-    if (dtype, d) != (torch.bfloat16, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32,
+                                   torch.uint8])
+@pytest.mark.parametrize("rows,d", [(300, 128), (128, 8), (64, 5), (64, 6)])
 @pytest.mark.parametrize("rows_per_tile", [1, 4, 8])
 def test_row_gather_bitwise(cuda_device, dtype, rows, d, rows_per_tile):
-    """16-byte rows and 4-byte-word rows (d=5, or d=6 in bf16), depths 1,
-    2 and solved: a copy is bitwise."""
+    """Rows of 16-byte units, of 4-byte words (d=5 or 6 in f32 and int32),
+    of 2-byte units (bf16 d=5, uint8 d=6) and of bytes (uint8 d=5), at
+    depths 1, 2 and solved: a copy is bitwise."""
     tab = _table(cuda_device, rows, d, dtype)
     idx = _ints(cuda_device, rows, 48)
     for depth in (1, 2, None):
@@ -141,9 +139,23 @@ def test_row_gather_bitwise(cuda_device, dtype, rows, d, rows_per_tile):
     assert launch_counts()["row_gather"] == 3
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
-def test_span_gather_and_ops_bitwise(cuda_device, dtype):
-    tab = _table(cuda_device, 512, 64, dtype)
+def test_deep_ring_bitwise(cuda_device):
+    """Depths past 16, up to the deepest the kernels compile, keep every
+    tile of a block in flight and still copy bitwise."""
+    from repro_torch.kernels import ring
+
+    tab = _table(cuda_device, 4096, 128, torch.float32)
+    idx = _ints(cuda_device, 4096, 4096)
+    for depth in (17, 40, ring.MAX_DEPTH):
+        out = cg.row_gather(tab, idx, depth=depth, rows_per_tile=1)
+        assert torch.equal(out, cg.row_gather_plain(tab, idx))
+    assert launch_counts()["row_gather"] == 3
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
+                                     (torch.int32, 64), (torch.bfloat16, 5)])
+def test_span_gather_and_ops_bitwise(cuda_device, dtype, d):
+    tab = _table(cuda_device, 512, d, dtype)
     starts = _ints(cuda_device, 512 - 8, 21)
     for depth in (1, 2, None):
         assert torch.equal(cg.span_gather(tab, starts, span=8, depth=depth),
@@ -182,11 +194,13 @@ def test_scatter_add_with_duplicates(cuda_device, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_scatter_add_unique_bitwise(cuda_device, dtype):
-    """One f32 add rounded once: the kernel equals its plain version."""
-    tab = _table(cuda_device, 1024, 96, dtype)
+@pytest.mark.parametrize("d", [96, 5])
+def test_scatter_add_unique_bitwise(cuda_device, dtype, d):
+    """One f32 add rounded once: the kernel equals its plain version (d=5
+    is 2-byte units in bf16)."""
+    tab = _table(cuda_device, 1024, d, dtype)
     uniq = torch.randperm(1024, device=cuda_device)[:400].int()
-    upd = _table(cuda_device, 400, 96, dtype, seed=4)
+    upd = _table(cuda_device, 400, d, dtype, seed=4)
     want = sa.scatter_add_unique_plain(tab.clone(), uniq, upd)
     for depth in (1, 2, None):
         got = sa.scatter_add_unique(tab.clone(), uniq, upd, depth=depth)
@@ -196,7 +210,7 @@ def test_scatter_add_unique_bitwise(cuda_device, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,d,rows", [(4096, 128, 128), (640, 96, 64),
-                                      (64, 3, 2)])
+                                      (64, 3, 2), (63, 3, 1)])
 def test_triad_matches_plain(cuda_device, dtype, tol, n, d, rows):
     b = _table(cuda_device, n, d, dtype, seed=5)
     c = _table(cuda_device, n, d, dtype, seed=6)
@@ -209,10 +223,10 @@ def test_triad_matches_plain(cuda_device, dtype, tol, n, d, rows):
 
 
 def test_gups_kernels_raise_instead_of_falling_back(cuda_device):
-    tab = _table(cuda_device, 64, 3, torch.bfloat16)     # 6-byte rows
+    tab = _table(cuda_device, 64, 3, torch.bfloat16)
     idx = _ints(cuda_device, 64, 8)
-    with pytest.raises(ValueError):
-        cg.row_gather(tab, idx)
+    with pytest.raises(ValueError):                      # non-contiguous
+        cg.row_gather(torch.cat([tab, tab], dim=1)[:, ::2], idx)
     with pytest.raises(ValueError):                      # mixed devices
         cg.row_gather(tab, idx.cpu())
     with pytest.raises(TypeError):                       # int64 indices
