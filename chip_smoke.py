@@ -14,7 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode at yi-6b, granite-3-2b, internlm2-20b, head_dim-16 and
      one-KV-head shapes (1 to 32 query heads per KV head), ragged
      lengths plus a zero-length padding row, f32 (tolerance 2e-3) and bf16
-     (3e-2), at depths 1, 2 and the solved depth; the row and span
+     (3e-2), at depths 1, 2 and the solved depth, and at depths 20 and 27
+     (yi-6b, bf16); the MoE grouped matmul at qwen3-moe's decode, down
+     projection and prefill shapes, granite-moe's, reduced tails and rows
+     off the 16-byte unit, with one token block shared by every expert
+     (stride 0) and with a token block per expert, in f32 (2e-3) and bf16
+     (3e-2 + 3e-2 x |value|), at depths 1, 2 and solved; the row and span
      gathers in f32, bf16 and int32, 1/4/8 rows per tile, depths 1, 2 and
      solved, an index count off the tile, rows of 16-byte, 4-byte and
      (bf16) 2-byte units, and the coalesced gather of the gups_random,
@@ -22,9 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      duplicates through its op in f32 (2e-3) and bf16 (3e-2), and the
      kernel on deduplicated rows (bitwise, 16- and 2-byte units); the triad
      in f32 (1e-5) and bf16 (2e-2);
-  4. a reduced yi-6b engine in f32 on the card against the same engine on
-     the CPU (same parameters, same prompts, round width pinned): the
-     greedy tokens must be identical;
+  4. a reduced yi-6b engine, and (4b) a reduced granite-moe engine, in f32
+     on the card against the same engine on the CPU (same parameters, same
+     prompts, round width pinned): the greedy tokens must be identical;
   5. the main path: `serve_paged` for yi-6b at full width with the serving
      layout (bf16), 8 requests, prompts of 64-256 tokens (half share a
      system prefix), 32 new tokens each, prefix cache on. Launch counts are
@@ -38,6 +43,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      bytes over 3.35 TB/s and the flops over 989 TFLOP/s (data sheet);
   7. a profile of full-width decode rounds (torch.profiler): device time
      by kernel per round and the device's busy share of the wall clock;
+  5b. the MoE path: `serve_paged` for qwen3-moe-30b-a3b at full width
+     (48 layers, 128 experts, 61.1 GB of bf16 weights), the same traffic
+     as phase 5, after yi-6b is freed. Every request must finish, the
+     paged-decode kernel run n_layers times per decode round and the
+     grouped matmul 3 x n_layers times per decode round and prefill chunk;
+  6b. grouped-matmul times at that path's decode (C = round width) and
+     prefill (C = 32) shapes, gate/up (dm -> f) and down (f -> dm), on
+     layer 0's weights: the kernel, its plain version, and as a yardstick
+     torch.bmm over the tokens expanded to every expert; the bound is the
+     weights, tokens and output over 3.35 TB/s (or the flops over 989
+     TFLOP/s, if larger);
+  7b. a profile of full-width qwen3-moe decode rounds: device time by
+     kernel per round, the grouped matmul's share, the busy share, and the
+     round's floor (every weight but the embedding table read once);
   8. the GUPS path at a real size, through `repro_torch.launch.gups` and the
      ops: a 2^24 x 128 f32 table (8 GiB, far past the 50 MB L2), 2^22
      seeded uniform-random indices gathered and then scatter-added, a
@@ -52,8 +71,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the expanded span rows, index_add_ on the deduplicated rows,
      torch.add(b, c, alpha=s)); each bound is the bytes the function must
      move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
-     then the same kernels at other depths (tiles in flight per block) and
-     the triad at other tile heights, each time beside its bound;
+     then the same kernels at other depths (tiles in flight per block), the
+     triad at other tile heights and the grouped matmul at qwen3-moe's
+     decode shape at other depths (k-slices in flight), each time beside its
+     bound;
  10. one JSON line describing every kernel, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -95,6 +116,7 @@ GUPS_KERNELS = (   # name, CUDA source, TPU kernel it replaces
      "stream_copy/stream_copy.py:40"),
 )
 F32_PEAK = 67e12                 # data sheet, f32 outside the tensor cores
+MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
 def log(msg: str) -> None:
@@ -123,10 +145,12 @@ def build_kernels():
     from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
     from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.stream_copy import stream_copy as sc
 
     t0 = time.perf_counter()
-    libs = build.build([da.SOURCE, cg.SOURCE, sa.SOURCE, sc.SOURCE])
+    libs = build.build([da.SOURCE, mg.SOURCE, cg.SOURCE, sa.SOURCE,
+                        sc.SOURCE])
     log(f"built {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in build.build_logs.items():
@@ -193,20 +217,84 @@ def check_parity(torch) -> float:
                                          f"plain version: {name} {dtype_name} "
                                          f"depth={depth} err={err:.3e}")
                 worst = max(worst, err / tol)
+    # rings deeper than 16 page pairs (27 fit one block at this shape)
+    from repro_torch.core import autotune
+
+    q, kp, vp, bt, lens = paged_problem(
+        torch, gen, PARITY_LENGTHS, h=32, kh=4, d=128, blk=16,
+        dtype=torch.bfloat16, device="cuda")
+    ref = da.paged_flash_decode_plain(q, kp, vp, bt, lens).float()
+    for depth in (20, 27):
+        out = da.paged_flash_decode(q, kp, vp, bt, lens, depth=depth).float()
+        ran = autotune.last_choice("paged_decode")
+        _close(f"paged_decode yi-6b bfloat16 depth={depth} (ran {ran})",
+               out[:-1], ref[:-1], TOL["bfloat16"])
+        if ran != depth:
+            raise AssertionError(f"paged_decode ran depth {ran}, asked {depth}")
+    return worst
+
+
+# ------------------------------------------------- phase 3 (grouped matmul)
+
+
+GMM_SHAPES = (   # name, E, C, dm, f, tokens shared by every expert
+    ("qwen3-moe decode gate/up", 128, 5, 2048, 768, True),
+    ("qwen3-moe decode down", 128, 5, 768, 2048, False),
+    ("qwen3-moe prefill gate/up", 128, 32, 2048, 768, True),
+    ("qwen3-moe prefill down", 128, 32, 768, 2048, False),
+    ("granite-moe decode gate/up", 32, 5, 1024, 512, True),
+    ("reduced C=1", 4, 1, 64, 32, True),
+    ("reduced C=5", 4, 5, 64, 32, False),
+    ("ragged C=33", 4, 33, 200, 136, True),
+    ("off the 16-byte unit", 2, 7, 50, 36, True),
+)
+
+
+def gmm_operands(torch, gen, e, c, dm, f, shared, dtype):
+    """Tokens (one [C, dm] block expanded over the experts when `shared`,
+    as the dense MoE layer passes them) and weights scaled by dm**-0.5."""
+    rows = 1 if shared else e
+    tokens = torch.randn(rows, c, dm, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(e, dm, f, generator=gen, device="cuda")
+         * dm ** -0.5).to(dtype)
+    return tokens.expand(e, c, dm), w
+
+
+def check_gmm_parity(torch) -> float:
+    from repro_torch.core import autotune
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    worst = 0.0
+    for name, e, c, dm, f, shared in GMM_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            tokens, w = gmm_operands(torch, gen, e, c, dm, f, shared, dtype)
+            ref = mg.gmm_plain(tokens, w)
+            for depth in (1, 2, None):
+                out = mg.gmm(tokens, w, depth=depth)
+                ran = autotune.last_choice("moe_gmm")
+                err = _close(f"moe_gmm {name} [{e},{c},{dm}]x[{dm},{f}] "
+                             f"shared={shared} {dtype_name} depth={depth} "
+                             f"(ran {ran})", out, ref, TOL[dtype_name])
+                worst = max(worst, err)
+            del tokens, w, ref, out
+    torch.cuda.synchronize()
     return worst
 
 
 # ------------------------------------------------------------------ phase 4
 
 
-def check_engine_card_vs_cpu(torch) -> None:
+def check_engine_card_vs_cpu(torch, arch: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import serve_paged
     from repro_torch.models import build_model
 
-    cfg = get_config("yi-6b").reduced().replace(dtype="float32",
-                                                param_dtype="float32")
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
     gen = torch.Generator()
     gen.manual_seed(0)
     params_cpu = build_model(cfg).init(gen, "cpu")
@@ -220,29 +308,34 @@ def check_engine_card_vs_cpu(torch) -> None:
     cpu = serve_paged(cfg, device="cpu", params=params_cpu, **kw)
     reset_launch_counts()
     card = serve_paged(cfg, device="cuda", params=to_card(params_cpu), **kw)
-    launches = launch_counts()["paged_decode"]
+    counts = launch_counts()
     if cpu["generated"] != card["generated"]:
-        raise AssertionError(f"card tokens {card['generated']} != CPU tokens "
-                             f"{cpu['generated']}")
-    if launches <= 0:
-        raise AssertionError("the card engine never launched paged_decode")
-    log(f"engine f32 card == cpu: {sum(map(len, card['generated']))} tokens "
-        f"identical, paged_decode launches {launches}")
+        raise AssertionError(f"{arch}: card tokens {card['generated']} != "
+                             f"CPU tokens {cpu['generated']}")
+    ran = {k: counts[k] for k in ("paged_decode", "moe_gmm")[:1 + cfg.moe]}
+    if not all(ran.values()):
+        raise AssertionError(f"{arch}: the card engine did not launch every "
+                             f"kernel of its path: {ran}")
+    log(f"engine {arch} reduced f32 card == cpu: "
+        f"{sum(map(len, card['generated']))} tokens identical, launches "
+        f"{ran}")
 
 
 # ------------------------------------------------------------------ phase 5
 
 
-def serve_main_path(torch):
+def serve_main_path(torch, arch: str, params=None):
+    """`serve_paged` for `arch` at full width, serving layout (bf16), with
+    the launch counts zeroed just before and read just after."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import SERVING_OVERRIDES, serve_paged
 
-    cfg = get_config("yi-6b").replace(**SERVING_OVERRIDES)
+    cfg = get_config(arch).replace(**SERVING_OVERRIDES)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_launch_counts()
-    stats = serve_paged(cfg, device="cuda", **SERVE)
+    stats = serve_paged(cfg, device="cuda", params=params, **SERVE)
     counts = launch_counts()
     wall = time.perf_counter() - t0
     n = SERVE["batch"]
@@ -252,10 +345,17 @@ def serve_main_path(torch):
         raise AssertionError(f"not every request finished: completed "
                              f"{stats['completed']}/{n}, {bad}, "
                              f"{stats['states']}")
-    want = cfg.n_layers * stats["decode_rounds"]
-    if counts["paged_decode"] != want or want == 0:
-        raise AssertionError(f"paged_decode launched {counts['paged_decode']} "
-                             f"times, want n_layers x decode rounds = {want}")
+    want = {"paged_decode": cfg.n_layers * stats["decode_rounds"],
+            "moe_gmm": 3 * cfg.n_layers * (stats["decode_rounds"]
+                                           + stats["prefill_chunks"])
+            if cfg.moe else 0}
+    for name, n in want.items():
+        if counts[name] != n or (n == 0 and (name == "paged_decode"
+                                             or cfg.moe)):
+            raise AssertionError(
+                f"{arch}: {name} launched {counts[name]} times, want {n} "
+                f"(paged_decode: n_layers x decode rounds; moe_gmm: 3 x "
+                f"n_layers x (decode rounds + prefill chunks))")
     for toks in stats["generated"]:
         if len(toks) != SERVE["gen"] or not all(0 <= t < cfg.vocab
                                                 for t in toks):
@@ -267,7 +367,8 @@ def serve_main_path(torch):
         "cow_forks", "preemptions", "prefill_s", "decode_s", "prompt_lens")}
     shown["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     shown["wall_s"] = wall
-    log("serve yi-6b full width: " + json.dumps(shown))
+    shown["launches"] = {k: counts[k] for k in want}
+    log(f"serve {arch} full width: " + json.dumps(shown))
     return cfg, stats, counts
 
 
@@ -380,12 +481,13 @@ def time_kernel(torch, cfg, stats):
 # ------------------------------------------------------------------ phase 7
 
 
-def profile_decode_rounds(torch, cfg, width, rounds=4):
+def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
     """Where a decode round's time goes at the main path's widths: an
     engine with one full round of `width` requests, all prefilled; `rounds` rounds
     timed on the host clock, then `rounds` more under torch.profiler for
     the device time by kernel. Busy share = device time per round over the
-    unprofiled wall clock per round."""
+    unprofiled wall clock per round. Returns (busy share, device ms per
+    round by kernel name)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -395,7 +497,7 @@ def profile_decode_rounds(torch, cfg, width, rounds=4):
     blocks = -(-(SERVE["prompt_len"] + new) // SERVE["block_size"])
     eng = PagedServingEngine(cfg, block_size=SERVE["block_size"],
                              num_blocks=width * blocks, max_in_flight=width,
-                             device="cuda")
+                             device="cuda", params=params)
     rng = np.random.default_rng(0)
     for n in rng.integers(SERVE["prompt_len"] // 2, SERVE["prompt_len"] + 1,
                           width):
@@ -436,7 +538,86 @@ def profile_decode_rounds(torch, cfg, width, rounds=4):
         f"round:")
     for ms, count, key in rows[:12]:
         log(f"  {ms:8.3f} ms {count:6d} x  {key[:90]}")
-    return busy_ms / wall_ms
+    return busy_ms / wall_ms, {key: ms for ms, _, key in rows}, wall_ms
+
+
+# ----------------------------------------------------------------- phase 6b
+
+
+def gmm_bound(e, c, dm, f, itemsize=2):
+    """Bytes: the weights, one [C, dm] token block and the [E, C, f]
+    output, each once; flops: 2 E C dm f on the tensor cores."""
+    nbytes = (e * dm * f + c * dm + e * c * f) * itemsize
+    flops = 2 * e * c * dm * f
+    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
+    return max(bytes_s, ops_s) * 1e3, \
+        "bytes" if bytes_s >= ops_s else "operations"
+
+
+def time_gmm(torch, params, width):
+    """The grouped matmul at the MoE path's shapes, on layer 0's weights:
+    decode (C = round width) and prefill (C = 32), gate/up and down."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    moe = params["layers"]["moe"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    out = {}
+    for phase, c in (("decode", width), ("prefill", 32)):
+        for proj, w in (("gate/up", moe["w_gate"][0]),
+                        ("down", moe["w_down"][0])):
+            e, dm, f = w.shape
+            shared = proj == "gate/up"       # the dense layer's [1, T, d]
+            rows = 1 if shared else e
+            # two token sets and two weight layers per batch: the working
+            # set is far past the 50 MB L2, as in a round
+            w2 = moe["w_gate" if shared else "w_down"][1]
+            args = []
+            for wi in (w, w2):
+                tok = torch.randn(rows, c, dm, generator=gen, device="cuda")
+                args.append((tok.to(torch.bfloat16).expand(e, c, dm), wi))
+            tokens = args[0][0]
+            got = mg.gmm(tokens, w)
+            depth = autotune.last_choice("moe_gmm")
+            ref = mg.gmm_plain(tokens, w)
+            torch.cuda.synchronize()
+            err = _close(f"moe_gmm {MOE_ARCH} {phase} {proj} at the path's "
+                         f"shape", got, ref, TOL["bfloat16"])
+            del got, ref
+            kernel_a = median_ms(torch, mg.gmm, args)
+            plain_ms = median_ms(torch, mg.gmm_plain, args)
+            library_ms = median_ms(torch, torch.bmm, args)
+            kernel_b = median_ms(torch, mg.gmm, args)
+            ms = statistics.median([kernel_a, kernel_b])
+            bound_ms, bound_by = gmm_bound(e, c, dm, f)
+            spec = mg.gmm_spec(c, dm, mg.F_TILE, torch.bfloat16, f_total=f)
+            solved = autotune.choose_depth(spec.profile(),
+                                           vars=spec.all_vars())
+            shape = {"E": e, "C": c, "dm": dm, "f": f, "shared": shared,
+                     "dtype": "bfloat16", "solved_depth": solved,
+                     "ran_depth": depth}
+            log(f"times moe_gmm {phase} {proj} {json.dumps(shape)}: kernel "
+                f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.bmm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by}), {bound_ms / ms:.1%} of the bound")
+            out[f"{phase} {proj}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "shape": shape}
+            del args, tokens
+    return out
+
+
+def round_floor_ms(cfg, params) -> float:
+    """A decode round reads every weight once, but of the embedding table
+    only the round's rows: the rest of the parameter bytes over 3.35 TB/s."""
+    def nbytes(tree):
+        return sum(nbytes(v) if isinstance(v, dict) else
+                   v.numel() * v.element_size() for v in tree.values())
+    embed = params["embed"]
+    return (nbytes(params) - embed.numel() * embed.element_size()) \
+        / HBM_BW * 1e3
 
 
 # ----------------------------------------------- phase 3 (GUPS-path kernels)
@@ -609,7 +790,8 @@ def gups_main_path(torch):
     depths["stream_triad"] = autotune.last_choice("stream_triad")
     counts = launch_counts()
 
-    want = {"paged_decode": 0, "row_gather": 1 + bool(plan.n_singles),
+    want = {"paged_decode": 0, "moe_gmm": 0,
+            "row_gather": 1 + bool(plan.n_singles),
             "span_gather": int(bool(plan.n_spans)), "scatter_add": 1,
             "stream_triad": 1}
     if counts != want:
@@ -673,12 +855,14 @@ def _bound_ms(nbytes: float, flops: float = 0.0):
         "operations"
 
 
-def time_gups_kernels(torch, st):
+def time_gups_kernels(torch, st, gmm_case):
     """Kernel, plain and library times of the four GUPS-path kernels at the
     shapes phase 8 gave them, each kernel checked against its plain
-    version on exactly these inputs."""
+    version on exactly these inputs; then the depth sweeps, the grouped
+    matmul's on `gmm_case` (tokens, weights, bound ms) from phase 6b."""
     from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.stream_copy import stream_copy as sc
 
     table, idx, plan, depths = st["table"], st["idx"], st["plan"], \
@@ -780,12 +964,20 @@ def time_gups_kernels(torch, st):
                lambda r=r, k=k: sc.triad(b, c, s, rows=r, depth=k))
               for r, k in ((128, 1), (64, 1), (64, 3), (32, 1), (32, 2),
                            (32, 6))]
+    tokens, w, gmm_bound_ms = gmm_case
+    deepest = mg.kernel_depth(64, c=tokens.shape[1], dm=tokens.shape[2],
+                              itemsize=tokens.element_size())
+    sweep += [("moe_gmm", f"decode gate/up depth={k}",
+               lambda k=k: mg.gmm(tokens, w, depth=k))
+              for k in sorted({1, 2, 3, 4, 6, 8, deepest})]
+    bounds = {name: t["bound_ms"] for name, t in out.items()}
+    bounds["moe_gmm"] = gmm_bound_ms
     swept = {}
     for name, tag, fn in sweep:
         ms = median_ms(torch, fn, [()])
         swept[f"{name} {tag}"] = ms
         log(f"sweep {name} {tag}: {ms:.4f} ms, "
-            f"{out[name]['bound_ms'] / ms:.1%} of the bound")
+            f"{bounds[name] / ms:.1%} of the bound")
     log("sweep: " + json.dumps(swept))
     return out
 
@@ -794,6 +986,8 @@ def time_gups_kernels(torch, st):
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -803,20 +997,65 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVING_OVERRIDES
+    from repro_torch.models import build_model
 
+    t_start = time.perf_counter()
     repro_torch.reset()
-    card_info(torch)
+    card = card_info(torch)
     build_kernels()
     check_parity(torch)
+    check_gmm_parity(torch)
     check_gups_parity(torch)
-    check_engine_card_vs_cpu(torch)
-    cfg, stats, counts = serve_main_path(torch)
+    for arch in ("yi-6b", "granite-moe-1b-a400m"):
+        check_engine_card_vs_cpu(torch, arch)
+    cfg, stats, counts = serve_main_path(torch, "yi-6b")
     timing = time_kernel(torch, cfg, stats)
     profile_decode_rounds(torch, cfg, stats["round_width"])
     log(f"depths: solved {stats['solved_depth']}, round width "
         f"{stats['round_width']}")
+    log(f"phases 1-7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # the MoE path: qwen3-moe at full width, after yi-6b is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cfg = get_config(MOE_ARCH).replace(**SERVING_OVERRIDES)
+    model = build_model(moe_cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"{MOE_ARCH}: {model.n_params()} parameters drawn in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    moe_cfg, moe_stats, moe_counts = serve_main_path(torch, MOE_ARCH, params)
+    width = moe_stats["round_width"]
+    gmm_times = time_gmm(torch, params, width)
+    busy, by_kernel, wall_ms = profile_decode_rounds(torch, moe_cfg, width,
+                                                     params=params)
+    device_ms = sum(by_kernel.values())
+    gmm_ms = sum(ms for key, ms in by_kernel.items() if "gmm_kernel" in key)
+    log(f"{MOE_ARCH} decode round (B={width}): grouped matmul {gmm_ms:.3f} "
+        f"ms of {device_ms:.3f} ms device time ({gmm_ms / device_ms:.1%}), "
+        f"wall {wall_ms:.2f} ms, busy {busy:.1%}; floor "
+        f"{round_floor_ms(moe_cfg, params):.3f} ms (weights read once over "
+        f"3.35 TB/s)")
+    w = params["layers"]["moe"]["w_gate"][0].clone()
+    tokens = torch.randn(1, width, w.shape[1], generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    gmm_case = (tokens.expand(w.shape[0], -1, -1), w,
+                gmm_times["decode gate/up"]["bound_ms"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phases 5b-7b done at {time.perf_counter() - t_start:.1f} s")
+
     gups = gups_main_path(torch)
-    gups_times = time_gups_kernels(torch, gups)
+    gups_times = time_gups_kernels(torch, gups, gmm_case)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -824,10 +1063,24 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:163",
         "tpu": "kernels/decode_attention/decode_attention.py:paged_flash_decode",
         "launches": counts["paged_decode"],
+        "launches_by_path": {"yi-6b": counts["paged_decode"],
+                             MOE_ARCH: moe_counts["paged_decode"]},
         "parity": "ok",
-        **{k: timing[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms")},
+        **{k: timing[k] for k in keys},
         "shape": timing["shape"],
+    }, {
+        "name": "moe_gmm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/csrc/moe_gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:48",
+        "tpu": "kernels/moe_gmm/moe_gmm.py:gmm",
+        "launches": moe_counts["moe_gmm"],
+        "parity": "ok",
+        **{k: gmm_times["decode gate/up"][k] for k in keys},
+        "shape": gmm_times["decode gate/up"]["shape"],
+        "at_other_shapes": {name: {k: t[k] for k in keys + ("shape",)}
+                            for name, t in gmm_times.items()
+                            if name != "decode gate/up"},
     }]
     for name, source, replaces in GUPS_KERNELS:
         t = gups_times[name]
@@ -837,10 +1090,11 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": gups["counts"][name],
             "parity": "ok",
-            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms")},
+            **{k: t[k] for k in keys},
             "shape": t["shape"],
         })
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,10 +15,12 @@ from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
 from repro_torch.kernels.decode_attention.decode_attention import (
     paged_flash_decode,
 )
+from repro_torch.kernels.moe_gmm.moe_gmm import gmm
 from repro_torch.kernels.stream_copy.stream_copy import triad
 
 KERNELS: Dict[str, Callable] = {
     "paged_decode": paged_flash_decode,
+    "moe_gmm": gmm,
     "row_gather": row_gather,
     "span_gather": span_gather,
     "scatter_add": scatter_add_unique,

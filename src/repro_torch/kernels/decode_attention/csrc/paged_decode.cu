@@ -37,63 +37,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/coro_ring.cuh"
+
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::cp_async_wait_pending;
+using repro::from_f32;
+using repro::to_f32;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 32;  // query heads per KV head this kernel takes
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Wait until at most `n` copy groups are still pending. The instruction
-// takes an immediate, so a run-time depth goes through a switch; past 15
-// it waits for 15, which is stricter and therefore still correct.
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    case 7: cp_async_wait<7>(); break;
-    case 8: cp_async_wait<8>(); break;
-    case 9: cp_async_wait<9>(); break;
-    case 10: cp_async_wait<10>(); break;
-    case 11: cp_async_wait<11>(); break;
-    case 12: cp_async_wait<12>(); break;
-    case 13: cp_async_wait<13>(); break;
-    case 14: cp_async_wait<14>(); break;
-    default: cp_async_wait<15>(); break;
-  }
-}
 
 // Dynamic shared memory: K ring, V ring ([depth][blk][D] each, input type),
 // then f32 q [G][D], p [G][blk], corr [G], l [G]. The same formula is
@@ -348,11 +306,6 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k_pool, const vo
 }
 
 }  // namespace
-
-// The message of a CUDA error code, for the wrapper's exception.
-extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
 // (0 on success); the caller raises on anything else.

@@ -27,7 +27,8 @@ import torch
 from repro_torch.core import autotune
 from repro_torch.core import context as ctx_mod
 from repro_torch.core.coro import CoroSpec, LoadStream
-from repro_torch.core.guard import KernelCompileError, KernelResourceError
+from repro_torch.core.guard import KernelResourceError
+from repro_torch.kernels import ring
 
 __all__ = [
     "paged_decode_spec",
@@ -40,10 +41,6 @@ NEG_INF = -1e30
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode.cu"
 HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 32                 # query heads per KV head the kernel holds
-SMEM_LIMIT = 232_448           # shared memory one block may use on sm_90
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# cudaErrorMemoryAllocation, cudaErrorLaunchOutOfResources
-_RESOURCE_ERRORS = (2, 701)
 
 
 def paged_decode_spec(blk: int, kh: int, g: int, d: int, dtype,
@@ -120,33 +117,24 @@ def _smem_bytes(g: int, d: int, blk: int, depth: int, itemsize: int) -> int:
 def kernel_depth(depth: int, *, g: int, d: int, blk: int, itemsize: int,
                  n_tiles: int) -> int:
     """Clamp a solved depth to what the kernel runs: at most `n_tiles`
-    pages, and no more page buffers than one block's shared memory holds
-    for its own [blk, D] K/V tile."""
+    pages, at most `ring.MAX_DEPTH` (the deepest wait the kernel compiles),
+    and no more page buffers than one block's shared memory holds for its
+    own [blk, D] K/V tile."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     fixed = _smem_bytes(g, d, blk, 0, itemsize)
     per_slot = _smem_bytes(g, d, blk, 1, itemsize) - fixed
-    fit = (SMEM_LIMIT - fixed) // per_slot
+    fit = (ring.SMEM_LIMIT - fixed) // per_slot
     if fit < 1:
         raise KernelResourceError(
             f"one page buffer needs {fixed + per_slot} B of shared memory, "
-            f"over {SMEM_LIMIT}", kernel="paged_decode", depth=1,
+            f"over {ring.SMEM_LIMIT}", kernel="paged_decode", depth=1,
             tile=(blk, d))
-    return max(1, min(int(depth), fit, max(int(n_tiles), 1)))
+    return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
 
 
-def _library() -> ctypes.CDLL:
-    from repro_torch.kernels import build
-
-    lib = build.load(SOURCE)
-    fn = lib.repro_paged_decode
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _check(q, k_pool, v_pool, block_tables, lengths) -> None:
@@ -174,7 +162,7 @@ def _check_cuda(q, k_pool, v_pool, block_tables, lengths) -> None:
                     ("block_tables", block_tables), ("lengths", lengths)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in ring.DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"pools ({k_pool.dtype}, {v_pool.dtype}) must match "
@@ -241,20 +229,16 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, *,
     depth = kernel_depth(depth, g=g, d=d, blk=blk, itemsize=itemsize,
                          n_tiles=m)
     autotune.record_choice("paged_decode", depth)
-    lib = _library()
+    lib = ring.library(SOURCE, "repro_paged_decode", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_paged_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             b, h, kh, d, blk, m, depth, float(d ** -0.5),
-            _DTYPE_CODE[q.dtype], stream)
-    if err:
-        msg = lib.repro_cuda_error_string(err).decode()
-        cls = KernelResourceError if err in _RESOURCE_ERRORS else \
-            KernelCompileError
-        raise cls(f"paged_decode launch failed: CUDA error {err} ({msg})",
-                  kernel="paged_decode", depth=depth, tile=(blk, d))
+            ring.DTYPE_CODE[q.dtype], stream)
+    ring.raise_on_error(err, lib, kernel="paged_decode", depth=depth,
+                        tile=(blk, d))
     paged_flash_decode.launches += 1
     return out
 

@@ -2,7 +2,8 @@
 coalescing stats, the depth solver and the context classification.
 
 The rows are the reference's ``benchmarks/kernel_bench.py`` rows whose
-kernels the port has (row and span gather, scatter-add, STREAM triad).
+kernels the port has (row and span gather, scatter-add, the MoE grouped
+matmul, STREAM triad).
 The derived columns are what the reference reports: correctness against
 the plain version, the coalescing ratio (paper §III-C), and the
 latency-aware depth the scheduler solves (§III-D). ``us_per_call`` is the
@@ -46,6 +47,7 @@ from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
     scatter_add_unique,
 )
 from repro_torch.kernels.coro_scatter_add.ops import rmw_operands
+from repro_torch.kernels.moe_gmm.moe_gmm import gmm, gmm_spec, n_slices
 from repro_torch.kernels.stream_copy.ops import stream_triad
 from repro_torch.kernels.stream_copy.stream_copy import (
     triad,
@@ -173,6 +175,7 @@ def context_rows() -> List[list]:
     specs = (
         row_gather_spec(8, 128, f32),
         scatter_add_spec(8, 128, f32),
+        gmm_spec(64, 512, 128, f32, f_total=2048),
         triad_spec(128, 512, f32),
     )
     out = []
@@ -210,6 +213,9 @@ def _json_workloads(device):
     upd_s = _tensor(rng.randn(32, 128).astype(np.float32), device)
     uniq, summed = rmw_operands(table_s, idx_s, upd_s, 8)
     n_s = uniq.shape[0] // 8
+    xs = _tensor(rng.randn(2, 16, 64).astype(np.float32), device)
+    w = _tensor(rng.randn(2, 64, 256).astype(np.float32), device)
+    n_w = 2 * (256 // 128) * n_slices(64, 4)     # weight k-slices streamed
     tb = _tensor(rng.randn(256, 64).astype(np.float32), device)
     tc = _tensor(rng.randn(256, 64).astype(np.float32), device)
     return [
@@ -221,6 +227,8 @@ def _json_workloads(device):
         (scatter_add_spec(8, 128, f32), n_s,
          lambda: observed("scatter_add", n_s, scatter_add_unique,
                           table_s.clone(), uniq, summed)),
+        (gmm_spec(16, 64, 128, f32, f_total=256), n_w,
+         lambda: observed("moe_gmm", n_w, gmm, xs, w)),
         (triad_spec(128, 64, f32), 2,
          lambda: observed("stream_triad", 2, triad, tb, tc, 2.5)),
     ]

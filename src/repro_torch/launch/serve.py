@@ -10,7 +10,10 @@ It runs on the GPU unless asked for the CPU:
 
   python -m repro_torch.launch.serve --arch yi-6b --layout serving \\
       --batch 8 --prompt-len 256 --gen 32
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layout serving
   python -m repro_torch.launch.serve --arch yi-6b --reduced --device cpu
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \
+      --device cpu
 """
 from __future__ import annotations
 

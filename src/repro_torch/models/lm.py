@@ -9,8 +9,10 @@ axis and each layer writes its KV rows into its slice of the
 pools, so callers read the same as against the reference.
 
 Served families: attention LMs with a dense SwiGLU FFN (yi-6b,
-granite-3-2b, internlm2-20b, command-r-plus-104b). MoE FFNs, recurrent
-state, cross-attention and sliding-window caches are not on this path.
+granite-3-2b, internlm2-20b, command-r-plus-104b) or a MoE FFN
+(granite-moe-1b-a400m, qwen3-moe-30b-a3b; `models/moe.py`, whose expert
+matmuls are the `moe_gmm` kernel). Recurrent state, cross-attention and
+sliding-window caches are not on this path.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.models.common import (
     rms_norm,
     swiglu,
 )
+from repro_torch.models.moe import moe_layer, moe_param_specs
 from repro_torch.models.params import ParamSpec, map_specs, torch_dtype
 
 # ------------------------------------------------------------- param specs
@@ -61,6 +64,16 @@ def _mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _layer_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"attn": _attn_specs(cfg)}
+    if cfg.moe:
+        s["moe"] = moe_param_specs(cfg)
+        s["moe_ln"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
+    else:
+        s["mlp"] = _mlp_specs(cfg)
+    return s
+
+
 def _stack(tree, n: int):
     return map_specs(
         lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.dtype,
@@ -75,11 +88,10 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
         raise ValueError(f"arch {cfg.name!r} (family={cfg.family}) is not on "
                          "the paged serving path of this package")
     d = cfg.d_model
-    layer = {"attn": _attn_specs(cfg), "mlp": _mlp_specs(cfg)}
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed")),
         "final_norm": ParamSpec((d,), ("embed",), init="ones"),
-        "layers": _stack(layer, cfg.n_layers),
+        "layers": _stack(_layer_specs(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, cfg.vocab), ("embed", "vocab"))
@@ -116,7 +128,12 @@ def _attn_out(p, o):
 
 
 def _ffn(p, x, cfg: ArchConfig):
-    """The post-attention half of a block (SwiGLU MLP)."""
+    """The post-attention half of a block (MoE or SwiGLU MLP): the
+    reference's ``_paged_ffn``."""
+    if cfg.moe:
+        h = rms_norm(x, p["moe_ln"], cfg.norm_eps)
+        moe_o, _ = moe_layer(p["moe"], h, cfg)
+        return x + moe_o
     m = p["mlp"]
     h = rms_norm(x, m["ln"], cfg.norm_eps)
     return x + swiglu(h, m["w_gate"].to(h.dtype), m["w_up"].to(h.dtype),
@@ -181,10 +198,10 @@ def paged_attn_prefill_chunk(p, x, k_pool, v_pool, cfg: ArchConfig, *,
 
 
 def supports_paged_decode(cfg: ArchConfig) -> bool:
-    """Archs this package's paged engine serves: plain attention with a
-    dense FFN (MoE FFNs are not ported yet)."""
+    """Archs the paged serving engine can drive (attention KV only): the
+    reference's rule."""
     return (cfg.has_attention and not cfg.hybrid and not cfg.enc_dec
-            and not cfg.vlm and not cfg.sliding_window and not cfg.moe)
+            and not cfg.vlm and not cfg.sliding_window)
 
 
 def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
@@ -197,7 +214,7 @@ def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
     Returns (logits [B, 1, V] f32, k_pools, v_pools)."""
     if not supports_paged_decode(cfg):
         raise ValueError(f"paged decode unsupported for family {cfg.family!r} "
-                         f"(sliding_window={cfg.sliding_window}, moe={cfg.moe})")
+                         f"(sliding_window={cfg.sliding_window})")
     dt = torch_dtype(cfg.dtype)
     x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
     layers = params["layers"]
@@ -222,7 +239,7 @@ def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start: int,
     the chunk's final real token, k_pools, v_pools)."""
     if not supports_paged_decode(cfg):
         raise ValueError(f"paged prefill unsupported for family {cfg.family!r} "
-                         f"(sliding_window={cfg.sliding_window}, moe={cfg.moe})")
+                         f"(sliding_window={cfg.sliding_window})")
     dt = torch_dtype(cfg.dtype)
     x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
     layers = params["layers"]

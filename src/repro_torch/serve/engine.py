@@ -19,10 +19,11 @@ pressure the engine reclaims least-recently-hit cache-only pages before the
 scheduler resorts to preemption.
 
 The decode step's attention runs through the paged flash-decode kernel
-(`kernels/decode_attention`): its CUDA kernel when the engine lives on a
-GPU, its plain PyTorch version on the CPU. The engine runs on the GPU unless
-the caller passes ``device="cpu"``; with no CUDA device it raises instead of
-quietly running on the CPU.
+(`kernels/decode_attention`), and a MoE arch's expert FFN through the
+grouped-matmul kernel (`kernels/moe_gmm`): their CUDA kernels when the
+engine lives on a GPU, their plain PyTorch versions on the CPU. The engine
+runs on the GPU unless the caller passes ``device="cpu"``; with no CUDA
+device it raises instead of quietly running on the CPU.
 
 Because freed pages are reused immediately, the aggregate KV served over a
 workload routinely exceeds what the same HBM held as a dense
@@ -123,9 +124,8 @@ class PagedServingEngine:
         if not self.model.supports_paged_decode():
             raise ValueError(
                 f"arch {cfg.name!r} (family={cfg.family}, sliding_window="
-                f"{cfg.sliding_window}, moe={cfg.moe}) is not on this "
-                "package's paged path: it serves plain-attention archs with "
-                "a dense FFN")
+                f"{cfg.sliding_window}) is not on this package's paged path: "
+                "it serves plain-attention archs with a dense or MoE FFN")
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))

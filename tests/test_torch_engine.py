@@ -3,8 +3,8 @@
 Both engines get the same parameters (the reference's `model.init`, bridged
 through numpy), the same prompts — half of them sharing a system prefix —
 and the same pinned round width, in f32 on the CPU. Greedy token streams
-must be identical, as must the prefix-cache, copy-on-write and preemption
-counters; a seeded chaos run must end every request in the same state for
+must be identical, for a dense and a MoE arch, as must the prefix-cache,
+copy-on-write and preemption counters; a seeded chaos run must end every request in the same state for
 the same reason.
 """
 import jax
@@ -14,12 +14,15 @@ import pytest
 import torch
 
 import repro_torch
+from repro.configs import REGISTRY as REF_REGISTRY
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
+from repro.models import lm as ref_lm
 from repro.serve import FaultInjector as RefFaultInjector
 from repro.serve import PagedServingEngine as RefEngine
 from repro_torch.configs import get_config
 from repro_torch.kernels import launch_counts
+from repro_torch.models import build_model
 from repro_torch.models.params import params_from_numpy
 from repro_torch.serve import FaultInjector, PagedServingEngine
 
@@ -36,9 +39,9 @@ def _reset_port():
 F32 = dict(dtype="float32", param_dtype="float32")
 
 
-def _setup(seed=0):
-    ref_cfg = ref_get_config("yi-6b").reduced().replace(**F32)
-    cfg = get_config("yi-6b").reduced().replace(**F32)
+def _setup(seed=0, arch="yi-6b"):
+    ref_cfg = ref_get_config(arch).reduced().replace(**F32)
+    cfg = get_config(arch).reduced().replace(**F32)
     ref_params = ref_build_model(ref_cfg).init(jax.random.PRNGKey(seed))
     params = params_from_numpy(jax.tree.map(np.asarray, ref_params), cfg, "cpu")
     return ref_cfg, cfg, ref_params, params
@@ -142,6 +145,40 @@ def test_engine_needs_a_device_it_can_use():
         PagedServingEngine(cfg, block_size=4, num_blocks=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedServingEngine(cfg, block_size=4, num_blocks=8, device="cuda")
-    with pytest.raises(ValueError):      # MoE FFNs are not on this path yet
+    with pytest.raises(RuntimeError, match="CUDA"):
         PagedServingEngine(get_config("granite-moe-1b-a400m").reduced(),
+                           block_size=4, num_blocks=8)
+    with pytest.raises(ValueError):      # recurrent state: not a paged arch
+        PagedServingEngine(get_config("mamba2-130m").reduced(),
                            block_size=4, num_blocks=8, device="cpu")
+
+
+def test_moe_engine_tokens_match_reference():
+    """The reduced granite-moe engine (MoE FFN through the grouped matmul's
+    plain version) against the reference's engine, f32: identical greedy
+    tokens and counters."""
+    ref_cfg, cfg, ref_params, params = _setup(2, arch="granite-moe-1b-a400m")
+    prompts = _prompts(np.random.default_rng(6), cfg.vocab, 5, 6, 18)
+    kw = dict(block_size=4, num_blocks=12, max_in_flight=3, prefill_chunk=8)
+    ref_stats, ref_toks, ref_states = _run(
+        RefEngine(ref_cfg, params=ref_params, **kw), prompts, 6)
+    stats, toks, states = _run(
+        PagedServingEngine(cfg, params=params, device="cpu", **kw), prompts, 6)
+    assert toks == ref_toks
+    assert states == ref_states == [("finished", "complete")] * 5
+    for k in COUNTERS:
+        assert stats[k] == ref_stats[k], k
+    assert launch_counts()["moe_gmm"] == 0        # CPU: the plain version ran
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", sorted(REF_REGISTRY))
+def test_supports_paged_decode_matches_reference(arch, reduced):
+    ref_cfg, cfg = ref_get_config(arch), get_config(arch)
+    if reduced:
+        ref_cfg, cfg = ref_cfg.reduced(), cfg.reduced()
+    want = ref_lm.supports_paged_decode(ref_cfg)
+    assert build_model(cfg).supports_paged_decode() == want
+    if want:                        # the engine takes what the model serves
+        PagedServingEngine(cfg.reduced().replace(**F32), block_size=4,
+                           num_blocks=4, device="cpu")

@@ -3,7 +3,7 @@
 A static scan of every module of `src/repro_torch` and of `chip_smoke.py`
 for imports of `jax` or `repro`, and a subprocess in which both are
 blocked (`sys.modules[...] = None`) that imports the port and serves two
-requests on the CPU.
+requests of a dense and two of a MoE arch on the CPU.
 """
 import ast
 import json
@@ -44,6 +44,9 @@ def test_port_files_exist():
     for want in ("src/repro_torch/serve/engine.py",
                  "src/repro_torch/models/lm.py",
                  "src/repro_torch/kernels/decode_attention/decode_attention.py",
+                 "src/repro_torch/kernels/moe_gmm/moe_gmm.py",
+                 "src/repro_torch/kernels/moe_gmm/ops.py",
+                 "src/repro_torch/models/moe.py",
                  "src/repro_torch/launch/serve.py", "chip_smoke.py"):
         assert want in names
 
@@ -63,14 +66,18 @@ for name in ("jax", "jaxlib", "repro"):
 import repro_torch
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import serve_paged
-cfg = get_config("yi-6b").reduced().replace(dtype="float32",
-                                            param_dtype="float32")
-stats = serve_paged(cfg, batch=2, prompt_len=12, gen=3, block_size=4,
-                    device="cpu")
+states, generated = [], []
+for arch in ("yi-6b", "granite-moe-1b-a400m"):
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
+    stats = serve_paged(cfg, batch=2, prompt_len=12, gen=3, block_size=4,
+                        device="cpu")
+    states += stats["states"]
+    generated += stats["generated"]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
-print(json.dumps({"states": stats["states"], "generated": stats["generated"],
+print(json.dumps({"states": states, "generated": generated,
                   "leaked": leaked}))
 """
 
@@ -82,6 +89,6 @@ def test_port_serves_with_jax_blocked():
                           cwd=str(ROOT), timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["states"] == ["finished", "finished"]
-    assert [len(g) for g in out["generated"]] == [3, 3]
+    assert out["states"] == ["finished"] * 4
+    assert [len(g) for g in out["generated"]] == [3] * 4
     assert out["leaked"] == []

@@ -3,7 +3,9 @@
 This file imports neither JAX nor the reference package, so it also runs on
 the GPU machine (``python -m pytest -q tests/test_torch_kernels_cuda.py``).
 Without a CUDA device every test skips: a CUDA kernel has no CPU mode.
-Tolerances: 2e-3 in f32, 3e-2 in bf16 (the reference's parity bounds);
+Tolerances: 2e-3 in f32, 3e-2 in bf16 (the reference's parity bounds;
+in bf16 3e-2 + 3e-2 x |value| for the grouped matmul, whose sums run in
+another order than the plain version's);
 the gathers are copies and must be bitwise; the triad takes the reference
 test's 1e-5 (f32) and 2e-2 (bf16).
 """
@@ -106,6 +108,110 @@ def test_kernel_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):         # non-contiguous pool
         da.paged_flash_decode(q, strided, vp, bt, lens)
     assert launch_counts()["paged_decode"] == 0
+
+
+@pytest.mark.parametrize("depth", [17, 20, 27])
+def test_kernel_deep_ring(cuda_device, depth):
+    """Depths past 16 run as asked (27 page pairs of yi-6b's bf16 head fit
+    one block's shared memory), and agree with the plain version."""
+    from repro_torch.core import autotune
+
+    args = _problem(cuda_device, torch.bfloat16, [300, 517, 2048], h=32, kh=4,
+                    d=128, blk=16, seed=depth)
+    out = da.paged_flash_decode(*args, depth=depth)
+    assert autotune.last_choice("paged_decode") == depth
+    ref = da.paged_flash_decode_plain(*args)
+    torch.testing.assert_close(out[:-1].float(), ref[:-1].float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+# ------------------------------------------- MoE grouped matmul (K2)
+
+
+def _gmm_problem(device, dtype, e, c, dm, f, *, shared=False, seed=0):
+    """Tokens [E, C, dm] (one block expanded over the experts when
+    `shared`, a stride-0 view) and weights [E, dm, f] scaled by dm**-0.5."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    if shared:
+        tokens = torch.randn(1, c, dm, generator=g).to(device, dtype)
+        tokens = tokens.expand(e, c, dm)
+    else:
+        tokens = torch.randn(e, c, dm, generator=g).to(device, dtype)
+    w = (torch.randn(e, dm, f, generator=g) * dm ** -0.5).to(device, dtype)
+    return tokens, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,dm,f,shared", [
+    (8, 5, 2048, 768, True),         # qwen3-moe decode round, gate / up
+    (8, 5, 768, 2048, False),        # ... down projection
+    (4, 32, 2048, 768, True),        # ... a prefill chunk
+    (3, 1, 64, 32, True),            # reduced configs, one token
+    (3, 5, 64, 32, False),
+    (2, 33, 200, 136, False),        # ragged C, dm and f
+    (2, 7, 50, 36, True),            # rows off the 16-byte unit
+])
+def test_gmm_matches_plain(cuda_device, dtype, e, c, dm, f, shared):
+    """Depths 1, 2, the solved one and the largest that fits one block."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import ring
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    tokens, w = _gmm_problem(cuda_device, dtype, e, c, dm, f, shared=shared)
+    ref = mg.gmm_plain(tokens, w).float()
+    deepest = mg.kernel_depth(ring.MAX_DEPTH, c=c, dm=dm,
+                              itemsize=tokens.element_size())
+    for depth in (1, 2, None, deepest):
+        out = mg.gmm(tokens, w, depth=depth)
+        torch.cuda.synchronize()
+        assert out.shape == (e, c, f) and out.dtype == dtype
+        if depth is not None:           # the depth recorded is the one run
+            assert autotune.last_choice("moe_gmm") == mg.kernel_depth(
+                depth, c=c, dm=dm, itemsize=tokens.element_size())
+        torch.testing.assert_close(out.float(), ref, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    assert launch_counts()["moe_gmm"] == 4
+
+
+def test_moe_layer_runs_the_kernel(cuda_device):
+    """A reduced MoE layer on the card: three grouped matmuls launch, and
+    the layer agrees with the same layer on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import initialize
+
+    cfg = get_config("qwen3-moe-30b-a3b").reduced().replace(
+        dtype="float32", param_dtype="float32")
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    p = initialize(moe.moe_param_specs(cfg), g, "cpu")
+    x = torch.randn(2, 5, cfg.d_model, generator=g)
+    want, _ = moe.moe_dense(p, x, cfg)
+    assert launch_counts()["moe_gmm"] == 0
+    got, _ = moe.moe_dense({k: v.to(cuda_device) for k, v in p.items()},
+                           x.to(cuda_device), cfg)
+    assert launch_counts()["moe_gmm"] == 3
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+def test_gmm_raises_instead_of_falling_back(cuda_device):
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    tokens, w = _gmm_problem(cuda_device, torch.float32, 2, 4, 64, 32)
+    with pytest.raises(TypeError):                       # no f16 kernel
+        mg.gmm(tokens.half(), w.half())
+    with pytest.raises(TypeError):                       # mixed types
+        mg.gmm(tokens, w.bfloat16())
+    with pytest.raises(ValueError):                      # another column tile
+        mg.gmm(tokens, w, f_tile=64)
+    with pytest.raises(ValueError):                      # mixed devices
+        mg.gmm(tokens, w.cpu())
+    with pytest.raises(ValueError):                      # strided weights
+        mg.gmm(tokens, torch.cat([w, w], dim=-1)[..., ::2])
+    with pytest.raises(ValueError):                      # strided columns
+        mg.gmm(torch.cat([tokens, tokens], dim=-1)[..., ::2], w)
+    assert launch_counts()["moe_gmm"] == 0
 
 
 # ----------------------------------------------- GUPS-path kernels (K5-K7)

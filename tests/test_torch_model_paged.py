@@ -3,7 +3,8 @@
 Parameters are made by the reference's `model.init` and bridged through
 numpy (`params_from_numpy`); pools and inputs are made with numpy from a
 seed. Decode-step and prefill-chunk logits (and the KV rows they write)
-must agree within the reference's f32 parity bound, 2e-3.
+must agree within the reference's f32 parity bound, 2e-3, for dense and
+MoE archs.
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +20,8 @@ from repro_torch.models import build_model
 from repro_torch.models.params import params_from_numpy
 
 TOL = 2e-3
-ARCHS = ["yi-6b", "granite-3-2b"]      # untied and tied embeddings
+# untied and tied embeddings, dense and MoE FFNs
+ARCHS = ["yi-6b", "granite-3-2b", "granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
 
 
 @pytest.fixture(autouse=True)

@@ -9,6 +9,8 @@ itself is checked against the plain version on the card
 (`test_torch_kernels_cuda.py`).
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,7 @@ from repro.kernels.decode_attention.ops import \
     paged_decode_attention as ref_paged_op
 from repro.models import common as ref_common
 from repro_torch.core import autotune, machine
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, ring
 from repro_torch.kernels.decode_attention import decode_attention as da
 
 TOL = 2e-5
@@ -155,6 +157,32 @@ def test_kernel_depth_clamps_to_shared_memory_and_tiles():
     assert da.kernel_depth(3, g=2, d=16, blk=8, itemsize=4, n_tiles=10) == 3
     with pytest.raises(ValueError):
         da.kernel_depth(0, g=2, d=16, blk=8, itemsize=4, n_tiles=10)
+
+
+@pytest.mark.parametrize("depth", [16, 17, 27, 64, 65, 500])
+@pytest.mark.parametrize("g,d,blk,itemsize", [(8, 128, 16, 2), (1, 16, 4, 4),
+                                              (2, 64, 8, 2)])
+def test_kernel_depth_never_exceeds_max_depth(depth, g, d, blk, itemsize):
+    """The recorded depth is the depth that runs: at most ring.MAX_DEPTH
+    (the deepest wait the shared ring header compiles), what shared memory
+    holds and the page count."""
+    got = da.kernel_depth(depth, g=g, d=d, blk=blk, itemsize=itemsize,
+                          n_tiles=1000)
+    fixed = da._smem_bytes(g, d, blk, 0, itemsize)
+    fit = (ring.SMEM_LIMIT - fixed) // (da._smem_bytes(g, d, blk, 1, itemsize)
+                                        - fixed)
+    assert got == min(depth, ring.MAX_DEPTH, fit)
+    assert 1 <= got <= ring.MAX_DEPTH
+
+
+def test_kernel_source_uses_the_shared_ring():
+    """K1 waits through coro_ring.cuh's cp_async_wait_pending (every depth
+    up to kMaxDepth), not a copy of its own."""
+    src = Path(da.SOURCE).read_text()
+    assert '#include "../../csrc/coro_ring.cuh"' in src
+    assert not re.search(r"void\s+cp_async_wait_pending", src)
+    assert not re.search(r"void\s+cp_async16", src)
+    assert "repro_cuda_error_string" not in src      # the header's
 
 
 @pytest.mark.parametrize("profile", ["v5e", "cpu-interpret", "h100"])
