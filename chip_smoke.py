@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every CUDA kernel of the serving and GUPS paths from the sources
-     in the checkout (one nvcc per source, all started together);
+  2. build every CUDA kernel of the serving (paged and dense) and GUPS
+     paths from the sources in the checkout (one nvcc per source, all
+     started together);
   3. each kernel against its plain PyTorch version on the card: paged
      decode at yi-6b, granite-3-2b, internlm2-20b, head_dim-16 and
      one-KV-head shapes (1 to 32 query heads per KV head), ragged
@@ -27,12 +28,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      duplicates through its op in f32 (2e-3) and bf16 (3e-2), and the
      kernel on deduplicated rows (bitwise, 16- and 2-byte units); the triad
      in f32 (1e-5) and bf16 (2e-2);
+  3c. the dense engine's kernels against their plain versions: dense
+     flash-decode at the five head shapes above over a cache of 1056 rows
+     (off the 128-row tile), pos 0, mid and last, f32 (2e-3) and bf16
+     (3e-2), depths 1, 2 and solved; the SSD scan at mamba2-130m's (nh 24,
+     p 64, n 128, chunk 256), hymba-1.5b's (nh 50, p 64, n 16) and a
+     reduced shape (chunk 16), x/B/C in f32 and in bf16 beside f32 dt,
+     depths 1, 2 and solved, and a strong decay (dt 8, A -1), at 2e-3 +
+     2e-3 x |value| (f32) and 3e-2 + 3e-2 x |value| (bf16 y);
   4. a reduced yi-6b engine, and (4b) a reduced granite-moe engine, in f32
      on the card against the same engine on the CPU (same parameters, same
      prompts, round width pinned): the greedy tokens must be identical;
+     (4c) the same for the dense engine, reduced yi-6b and mamba2-130m;
   5. the main path: `serve_paged` for yi-6b at full width with the serving
-     layout (bf16), 8 requests, prompts of 64-256 tokens (half share a
-     system prefix), 32 new tokens each, prefix cache on. Launch counts are
+     layout (bf16, weights drawn once from seed 0 and shared by phases 5-7
+     and 5c), 8 requests, prompts of 64-256 tokens (half share a system
+     prefix), 32 new tokens each, prefix cache on. Launch counts are
      zeroed just before and read just after; every request must finish and
      the paged-decode kernel must run n_layers times per decode round;
   6. times at the main path's decode shapes (CUDA events around one call
@@ -43,6 +54,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      bytes over 3.35 TB/s and the flops over 989 TFLOP/s (data sheet);
   7. a profile of full-width decode rounds (torch.profiler): device time
      by kernel per round and the device's busy share of the wall clock;
+  5c. the dense engine: `serve(engine="dense")` for yi-6b at full width on
+     phase 5's weights, batch 8, prompts of 1024 tokens, 32 new tokens
+     (caches [32, 8, 1056, 4, 128] x 2, 0.55 GB). Launch counts zeroed
+     just before and read just after: dense flash-decode 32 x 31 times and
+     nothing else; decode tok/s and per-token p50/p99; then a profile of
+     dense decode steps (device time by kernel, busy share), as phase 7;
+  6c. dense flash-decode times at 5c's decode shape (B 8, S 1056, pos
+     1040; the method of phase 6): kernel, plain version, and as a
+     yardstick scaled_dot_product_attention over the cache sliced to
+     pos + 1; bound: the live K/V bytes over 3.35 TB/s;
+  5d. `serve(engine="dense")` for mamba2-130m at full width, bf16, random
+     weights from seed 0, batch 8, prompts of 2048 tokens (8 chunks of
+     256), 32 new tokens: the SSD scan 24 times (once per layer of the
+     prefill) and nothing else; then (6c) SSD-scan times at that prefill
+     shape: kernel and plain version (no PyTorch call computes the scan);
+     bound: the larger of the bytes in and out over 3.35 TB/s and the
+     reference spec's flops over the 67 TFLOP/s f32 peak;
   5b. the MoE path: `serve_paged` for qwen3-moe-30b-a3b at full width
      (48 layers, 128 experts, 61.1 GB of bf16 weights), the same traffic
      as phase 5, after yi-6b is freed. Every request must finish, the
@@ -75,7 +103,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      triad at other tile heights and the grouped matmul at qwen3-moe's
      decode shape at other depths (k-slices in flight), each time beside its
      bound;
- 10. one JSON line describing every kernel, then the result line.
+ 10. one JSON line describing every kernel (eight), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -146,11 +174,12 @@ def build_kernels():
     from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.kernels.stream_copy import stream_copy as sc
 
     t0 = time.perf_counter()
-    libs = build.build([da.SOURCE, mg.SOURCE, cg.SOURCE, sa.SOURCE,
-                        sc.SOURCE])
+    libs = build.build([da.SOURCE, da.FLASH_SOURCE, ss.SOURCE, mg.SOURCE,
+                        cg.SOURCE, sa.SOURCE, sc.SOURCE])
     log(f"built {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in build.build_logs.items():
@@ -483,13 +512,9 @@ def time_kernel(torch, cfg, stats):
 
 def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
     """Where a decode round's time goes at the main path's widths: an
-    engine with one full round of `width` requests, all prefilled; `rounds` rounds
-    timed on the host clock, then `rounds` more under torch.profiler for
-    the device time by kernel. Busy share = device time per round over the
-    unprofiled wall clock per round. Returns (busy share, device ms per
-    round by kernel name)."""
+    engine with one full round of `width` requests, all prefilled, then
+    `profile_steps` over its rounds."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import PagedServingEngine
 
@@ -508,17 +533,29 @@ def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
         eng.step_round()
     if len(eng.scheduler.running) != width:
         raise AssertionError("the profiled engine never filled its round")
-    eng.step_round()                                   # one warm round
+    return profile_steps(torch, eng.step_round, rounds,
+                         f"decode round (B={width}, {cfg.n_layers} layers)")
+
+
+def profile_steps(torch, step, rounds, label):
+    """One warm call of `step`, `rounds` calls timed on the host clock,
+    then `rounds` more under torch.profiler for the device time by kernel.
+    Busy share = device time per call over the unprofiled wall clock per
+    call. Returns (busy share, device ms per call by kernel name, wall ms
+    per call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(rounds):
-        eng.step_round()
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(rounds):
-            eng.step_round()
+            step()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -532,13 +569,39 @@ def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
             rows.append((dev / 1e3 / rounds, e.count // rounds, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    log(f"profile decode round (B={width}, {cfg.n_layers} layers): wall "
-        f"{wall_ms:.2f} ms/round, device busy {busy_ms:.2f} ms/round "
-        f"({100 * busy_ms / wall_ms:.1f}% busy), device time by kernel per "
-        f"round:")
+    log(f"profile {label}: wall {wall_ms:.2f} ms/call, device busy "
+        f"{busy_ms:.2f} ms/call ({100 * busy_ms / wall_ms:.1f}% busy), "
+        f"device time by kernel per call:")
     for ms, count, key in rows[:12]:
         log(f"  {ms:8.3f} ms {count:6d} x  {key[:90]}")
     return busy_ms / wall_ms, {key: ms for ms, _, key in rows}, wall_ms
+
+
+def profile_dense_steps(torch, cfg, params, rounds=4):
+    """Where a dense decode step's time goes at the dense path's widths:
+    the batch prefilled with random prompts, then `profile_steps` over
+    decode steps (the cache holds every step)."""
+    from repro_torch.models import build_model
+
+    kw = DENSE_SERVE[cfg.name]
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    prompts = torch.randint(0, cfg.vocab, (kw["batch"], kw["prompt_len"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    state = {}
+    state["cache"], logits = model.prefill(
+        params, {"tokens": prompts}, pad_to=kw["prompt_len"] + 2 * rounds + 1)
+    state["tokens"] = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def step():
+        logits, state["cache"] = model.decode_step(
+            params, state["cache"], {"tokens": state["tokens"]})
+        state["tokens"] = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    return profile_steps(torch, step, rounds,
+                         f"dense decode step {cfg.name} (B={kw['batch']}, "
+                         f"{cfg.n_layers} layers)")
 
 
 # ----------------------------------------------------------------- phase 6b
@@ -618,6 +681,295 @@ def round_floor_ms(cfg, params) -> float:
     embed = params["embed"]
     return (nbytes(params) - embed.numel() * embed.element_size()) \
         / HBM_BW * 1e3
+
+
+# --------------------------------------------- phase 3c (dense decode, SSD)
+
+DENSE_S = 1056                 # off the 128-row tile, as the engine pads it
+SSD_SHAPES = (   # name, batch, seq, nh, p, n, chunk
+    ("mamba2-130m", 2, 512, 24, 64, 128, 256),
+    ("hymba-1.5b", 2, 512, 50, 64, 16, 256),
+    ("reduced", 2, 64, 8, 16, 16, 16),
+)
+
+
+def ssd_operands(torch, gen, b, s, nh, p, n, *, dtype, strong=False):
+    """x, B and C as slices of one joint [b, s, nh p + 2 n] projection in
+    `dtype` (the SSM block's layout), dt in f32 in [0.1, 0.6) (or 8, with
+    A = -1: a strong decay), A = -exp(0.3 N)."""
+    joint = torch.randn(b, s, nh * p + 2 * n, generator=gen,
+                        device="cuda").to(dtype)
+    x = joint[..., :nh * p].reshape(b, s, nh, p)
+    bm, cm = joint[..., nh * p:nh * p + n], joint[..., nh * p + n:]
+    dt = torch.rand(b, s, nh, generator=gen, device="cuda") * 0.5 + 0.1
+    a = -torch.exp(torch.randn(nh, generator=gen, device="cuda") * 0.3)
+    if strong:
+        dt, a = torch.full_like(dt, 8.0), torch.full_like(a, -1.0)
+    return x, dt, a, bm, cm
+
+
+def check_dense_parity(torch) -> None:
+    """K3 (dense flash-decode) at HEAD_SHAPES over a cache of DENSE_S rows,
+    pos 0, mid and last, f32 (2e-3) and bf16 (3e-2), depths 1, 2 and
+    solved; K4 (SSD scan) at mamba2's, hymba's and a reduced shape, f32
+    throughout and bf16 x/B/C beside f32 dt, depths 1, 2 and solved, and a
+    strong decay. K4's tolerance has a relative term (the kernel sums
+    32-row tiles, the plain version 256-row chunks): 2e-3 + 2e-3 x |value|
+    in f32, 3e-2 + 3e-2 x |value| for bf16 y; its f32 state 2e-3 +
+    2e-3 x |value| in both."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    for name, h, kh, d in HEAD_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            q = torch.randn(3, h, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(3, DENSE_S, kh, d, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(3, DENSE_S, kh, d, generator=gen,
+                            device="cuda").to(dtype)
+            for pos in (0, DENSE_S // 2, DENSE_S - 1):
+                ref = da.flash_decode_plain(q, k, v, pos)
+                for depth in (1, 2, None):
+                    out = da.flash_decode(q, k, v, pos, depth=depth)
+                    ran = autotune.last_choice("flash_decode")
+                    _close(f"flash_decode {name} S={DENSE_S} pos={pos} "
+                           f"{dtype_name} depth={depth} (ran {ran})", out,
+                           ref, TOL[dtype_name])
+    for name, b, s, nh, p, n, chunk in SSD_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            args = ssd_operands(torch, gen, b, s, nh, p, n, dtype=dtype)
+            ry, rh = ss.ssd_scan_plain(*args, chunk=chunk)
+            for depth in (1, 2, None):
+                y, h = ss.ssd_scan(*args, chunk=chunk, depth=depth)
+                ran = autotune.last_choice("ssd_scan")
+                tag = (f"ssd_scan {name} [b={b},s={s},nh={nh},p={p},n={n}] "
+                       f"chunk={chunk} x/B/C {dtype_name} dt float32 "
+                       f"depth={depth} (ran {ran})")
+                _close(tag + " y", y, ry, TOL[dtype_name])
+                _close(tag + " h_final", h, rh, TOL["float32"])
+    args = ssd_operands(torch, gen, 2, 64, 4, 16, 16, dtype=torch.float32,
+                        strong=True)
+    ry, rh = ss.ssd_scan_plain(*args, chunk=16)
+    y, h = ss.ssd_scan(*args, chunk=16)
+    _close("ssd_scan strong decay (dt 8, A -1, chunk 16) y", y, ry,
+           TOL["float32"])
+    _close("ssd_scan strong decay h_final", h, rh, TOL["float32"])
+    torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------- phase 4c
+
+
+def check_dense_engine_card_vs_cpu(torch, arch: str) -> None:
+    """The dense engine, reduced `arch` in f32, on the card against the CPU
+    (same parameters, same prompts): identical greedy tokens, and the
+    card's run launched its path's kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params_cpu = build_model(cfg).init(gen, "cpu")
+
+    def to_card(tree):
+        return {k: (to_card(v) if isinstance(v, dict) else v.to("cuda"))
+                for k, v in tree.items()}
+
+    kw = dict(batch=4, prompt_len=48, gen=12, seed=1)
+    cpu = serve(cfg, device="cpu", params=params_cpu, **kw)
+    reset_launch_counts()
+    card = serve(cfg, device="cuda", params=to_card(params_cpu), **kw)
+    counts = launch_counts()
+    if cpu["generated"] != card["generated"]:
+        raise AssertionError(f"{arch} dense: card tokens {card['generated']} "
+                             f"!= CPU tokens {cpu['generated']}")
+    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_decode"
+    want = cfg.n_layers * (1 if kernel == "ssd_scan" else kw["gen"] - 1)
+    if counts[kernel] != want:
+        raise AssertionError(f"{arch} dense: {kernel} launched "
+                             f"{counts[kernel]} times, want {want}")
+    log(f"engine {arch} reduced dense f32 card == cpu: "
+        f"{sum(map(len, card['generated']))} tokens identical, {kernel} "
+        f"launched {counts[kernel]} times")
+
+
+# ------------------------------------------------------- phases 5c and 5d
+
+
+DENSE_SERVE = {"yi-6b": dict(batch=8, prompt_len=1024, gen=32),
+               "mamba2-130m": dict(batch=8, prompt_len=2048, gen=32)}
+
+
+def serve_dense_path(torch, arch: str, params=None):
+    """`serve(engine="dense")` for `arch` at full width, serving layout
+    (bf16), with the launch counts zeroed just before and read just after:
+    flash_decode must run n_layers times per decode step (attention
+    archs), ssd_scan n_layers times in the prefill (SSM archs), and
+    nothing else."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import SERVING_OVERRIDES, serve
+
+    cfg = get_config(arch).replace(**SERVING_OVERRIDES)
+    kw = DENSE_SERVE[arch]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    stats = serve(cfg, device="cuda", params=params, **kw)
+    counts = launch_counts()
+    wall = time.perf_counter() - t0
+    want = {name: 0 for name in counts}
+    if cfg.family == "ssm":
+        want["ssd_scan"] = cfg.n_layers
+    else:
+        want["flash_decode"] = cfg.n_layers * (kw["gen"] - 1)
+    if counts != want:
+        raise AssertionError(f"{arch} dense: launches {counts}, want {want}")
+    gen_tokens = stats["generated"]
+    if stats["generated_shape"] != (kw["batch"], kw["gen"]) or not all(
+            0 <= t < cfg.vocab for row in gen_tokens for t in row):
+        raise AssertionError(f"{arch} dense: bad generation "
+                             f"{stats['generated_shape']}")
+    shown = {k: stats[k] for k in ("decode_tok_per_s", "p50_ms", "p99_ms",
+                                   "mean_ms", "prefill_s", "decode_s",
+                                   "generated_shape", "sample_tokens")}
+    shown["launches"] = {k: v for k, v in counts.items() if v}
+    shown["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    shown["wall_s"] = wall
+    log(f"serve dense {arch} full width {json.dumps(kw)}: "
+        + json.dumps(shown))
+    return cfg, stats, counts
+
+
+# -------------------------------------------------------------- phase 6c
+
+
+def time_flash_decode(torch, cfg):
+    """K3 at the dense yi-6b decode shape (B 8, H 32, KH 4, D 128, S 1056,
+    pos 1040), one call per layer's cache: the kernel, its plain version,
+    and as a yardstick scaled_dot_product_attention over the cache sliced
+    to pos + 1. The bound is the live K/V rows, q and the output over
+    3.35 TB/s, or the flops over 989 TFLOP/s if larger."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import autotune
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    kw = DENSE_SERVE["yi-6b"]
+    b, s = kw["batch"], kw["prompt_len"] + kw["gen"]
+    pos = s - 16
+    h, kh, d = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    layers = []
+    for _ in range(cfg.n_layers):
+        q = torch.randn(b, h, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        layers.append((q, k, v, pos))
+    q, k, v, _ = layers[0]
+    out = da.flash_decode(q, k, v, pos)
+    depth = autotune.last_choice("flash_decode")
+    err = _close(f"flash_decode at the dense path's shape (depth {depth})",
+                 out, da.flash_decode_plain(q, k, v, pos), TOL["bfloat16"])
+
+    sliced = [(q[:, :, None], k[:, :pos + 1].transpose(1, 2),
+               v[:, :pos + 1].transpose(1, 2)) for q, k, v, _ in layers]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+
+    kernel_a = median_ms(torch, da.flash_decode, layers)
+    plain_ms = median_ms(torch, da.flash_decode_plain, layers)
+    library_ms = median_ms(torch, sdpa, sliced)
+    kernel_b = median_ms(torch, da.flash_decode, layers)
+    ms = statistics.median([kernel_a, kernel_b])
+    nbytes = 2 * b * (pos + 1) * kh * d * 2 + 2 * b * h * d * 2
+    flops = 4 * b * h * d * (pos + 1)
+    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
+    bound_ms = max(bytes_s, ops_s) * 1e3
+    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    shape = {"B": b, "H": h, "KH": kh, "D": d, "S": s, "pos": pos,
+             "blk": 128, "dtype": "bfloat16", "depth": depth}
+    log(f"times flash_decode {json.dumps(shape)}: kernel "
+        f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{nbytes} B, {flops} flop), {bound_ms / ms:.1%} of the bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": shape}
+
+
+def time_ssd_scan(torch, cfg):
+    """K4 at the dense mamba2-130m prefill shape (b 8, s 2048, nh 24, p 64,
+    n 128, chunk 256; x/B/C bf16 slices of one joint projection, dt f32),
+    two operand sets alternating: the kernel and its plain version. No
+    single PyTorch call computes the SSD scan, so there is no library
+    time. The bound is the larger of the bytes in and out over 3.35 TB/s
+    and the reference spec's flops (flops_per_tile x chunks) over the
+    67 TFLOP/s f32 peak (the kernel's arithmetic is f32 SIMT)."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    from repro_torch.models.ssm import ssm_dims
+
+    kw = DENSE_SERVE["mamba2-130m"]
+    dims = ssm_dims(cfg)
+    b, s, chunk = kw["batch"], kw["prompt_len"], cfg.ssm_chunk
+    nh, p, n = dims["nh"], dims["p"], dims["n"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    sets = [ssd_operands(torch, gen, b, s, nh, p, n, dtype=torch.bfloat16)
+            for _ in range(2)]
+    y, h = ss.ssd_scan(*sets[0], chunk=chunk)
+    depth = autotune.last_choice("ssd_scan")
+    ry, rh = ss.ssd_scan_plain(*sets[0], chunk=chunk)
+    err = _close(f"ssd_scan at the dense path's shape (depth {depth}) y", y,
+                 ry, TOL["bfloat16"])
+    err = max(err, _close("ssd_scan at the dense path's shape h_final", h,
+                          rh, TOL["float32"]))
+    del y, h, ry, rh
+
+    def kernel(*a):
+        return ss.ssd_scan(*a, chunk=chunk)
+
+    def plain(*a):
+        return ss.ssd_scan_plain(*a, chunk=chunk)
+
+    kernel_a = median_ms(torch, kernel, sets)
+    plain_ms = median_ms(torch, plain, sets)
+    kernel_b = median_ms(torch, kernel, sets)
+    ms = statistics.median([kernel_a, kernel_b])
+    nbytes = (2 * b * s * nh * p * 2          # x in, y out (bf16)
+              + 2 * b * s * n * 2             # B, C
+              + b * s * nh * 4 + nh * 4       # dt, A (f32)
+              + b * nh * p * n * 4)           # h_final out (f32)
+    spec = ss.ssd_spec(chunk, nh, p, n, torch.bfloat16, seq_len=s)
+    flops = spec.flops_per_tile * b * (s // chunk)
+    bytes_s, ops_s = nbytes / HBM_BW, flops / F32_PEAK
+    bound_ms = max(bytes_s, ops_s) * 1e3
+    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    shape = {"b": b, "s": s, "nh": nh, "p": p, "n": n, "chunk": chunk,
+             "kernel_tile": ss.KQ, "dtype": "bfloat16", "dt": "float32",
+             "depth": depth}
+    log(f"times ssd_scan {json.dumps(shape)}: kernel "
+        f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, no "
+        f"library call, bound {bound_ms:.5f} ms ({bound_by}, {nbytes} B, "
+        f"{flops:.4g} flop), {bound_ms / ms:.1%} of the bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": shape}
 
 
 # ----------------------------------------------- phase 3 (GUPS-path kernels)
@@ -790,8 +1142,8 @@ def gups_main_path(torch):
     depths["stream_triad"] = autotune.last_choice("stream_triad")
     counts = launch_counts()
 
-    want = {"paged_decode": 0, "moe_gmm": 0,
-            "row_gather": 1 + bool(plan.n_singles),
+    want = {"paged_decode": 0, "moe_gmm": 0, "flash_decode": 0,
+            "ssd_scan": 0, "row_gather": 1 + bool(plan.n_singles),
             "span_gather": int(bool(plan.n_spans)), "scatter_add": 1,
             "stream_triad": 1}
     if counts != want:
@@ -1007,15 +1359,42 @@ def main() -> int:
     build_kernels()
     check_parity(torch)
     check_gmm_parity(torch)
+    check_dense_parity(torch)
     check_gups_parity(torch)
     for arch in ("yi-6b", "granite-moe-1b-a400m"):
         check_engine_card_vs_cpu(torch, arch)
-    cfg, stats, counts = serve_main_path(torch, "yi-6b")
+    for arch in ("yi-6b", "mamba2-130m"):
+        check_dense_engine_card_vs_cpu(torch, arch)
+    # yi-6b's weights, drawn once (seed 0, as the engine would draw them)
+    # for the paged path, its profile and the dense path
+    yi_cfg = get_config("yi-6b").replace(**SERVING_OVERRIDES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    yi_params = build_model(yi_cfg).init(gen, "cuda")
+    cfg, stats, counts = serve_main_path(torch, "yi-6b", yi_params)
     timing = time_kernel(torch, cfg, stats)
-    profile_decode_rounds(torch, cfg, stats["round_width"])
+    profile_decode_rounds(torch, cfg, stats["round_width"], params=yi_params)
     log(f"depths: solved {stats['solved_depth']}, round width "
         f"{stats['round_width']}")
     log(f"phases 1-7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # the dense engine: yi-6b on the same weights, then mamba2-130m
+    _, _, dense_counts = serve_dense_path(torch, "yi-6b", yi_params)
+    fd_timing = time_flash_decode(torch, cfg)
+    profile_dense_steps(torch, yi_cfg, yi_params)
+    del yi_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_cfg = get_config("mamba2-130m").replace(**SERVING_OVERRIDES)
+    gen.manual_seed(0)
+    ssm_params = build_model(ssm_cfg).init(gen, "cuda")
+    _, _, ssm_counts = serve_dense_path(torch, "mamba2-130m", ssm_params)
+    ssd_timing = time_ssd_scan(torch, ssm_cfg)
+    profile_dense_steps(torch, ssm_cfg, ssm_params)
+    del ssm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phases 5c-6c done at {time.perf_counter() - t_start:.1f} s")
 
     # the MoE path: qwen3-moe at full width, after yi-6b is freed
     gc.collect()
@@ -1068,6 +1447,26 @@ def main() -> int:
         "parity": "ok",
         **{k: timing[k] for k in keys},
         "shape": timing["shape"],
+    }, {
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:63",
+        "tpu": "kernels/decode_attention/decode_attention.py:flash_decode",
+        "launches": dense_counts["flash_decode"],
+        "parity": "ok",
+        **{k: fd_timing[k] for k in keys},
+        "shape": fd_timing["shape"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:60",
+        "tpu": "kernels/ssd_scan/ssd_scan.py:ssd_scan",
+        "launches": ssm_counts["ssd_scan"],
+        "parity": "ok",
+        **{k: ssd_timing[k] for k in keys},
+        "shape": ssd_timing["shape"],
     }, {
         "name": "moe_gmm",
         "route": "cuda",

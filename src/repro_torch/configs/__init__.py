@@ -1,4 +1,6 @@
 """Registry of assigned architectures (``--arch <id>``)."""
+from typing import Tuple
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.command_r_plus_104b import CONFIG as _command_r_plus_104b
 from repro_torch.configs.granite_3_2b import CONFIG as _granite_3_2b
@@ -36,4 +38,15 @@ def get_config(name: str) -> ArchConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ALL_ARCH_NAMES", "ArchConfig", "REGISTRY", "get_config"]
+def token_split(arch: ArchConfig, seq_len: int) -> Tuple[int, int]:
+    """(frontend_positions, text_positions) for stub-frontend archs."""
+    if arch.enc_dec:
+        return seq_len, max(seq_len // arch.dec_ratio, 8)
+    if arch.vlm:
+        prefix = min(arch.prefix_len, seq_len // 2)
+        return prefix, seq_len - prefix
+    return 0, seq_len
+
+
+__all__ = ["ALL_ARCH_NAMES", "ArchConfig", "REGISTRY", "get_config",
+           "token_split"]

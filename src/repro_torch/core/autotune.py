@@ -70,6 +70,7 @@ __all__ = [
     "profile_row_gather",
     "profile_scatter_add",
     "profile_span_gather",
+    "profile_ssd",
     "profile_triad",
     "record_choice",
     "record_transfer",
@@ -146,6 +147,19 @@ def profile_decode(blk: int, kh: int, g: int, d: int, itemsize: int) -> TileProf
         tile_bytes=2 * blk * kh * d * itemsize,
         flops_per_tile=float(4 * blk * h * d),  # qk + pv per block
         shared_bytes=4 * (kh * g * (d + 2) + h * d),  # acc/m/l + q (f32)
+    )
+
+
+def profile_ssd(chunk: int, nh: int, p: int, n: int, itemsize: int,
+                *, seq_len: Optional[int] = None) -> TileProfile:
+    """Chunk tile: x/dt/B/C stream per slot; the recurrent state is
+    sequential (one copy, depth-independent — core.context's SEQUENTIAL
+    class) and the per-batch [seq, nh, p] y block is a shared resident."""
+    return TileProfile(
+        tile_bytes=chunk * (nh * p + nh + 2 * n) * itemsize,
+        flops_per_tile=float(2 * chunk * chunk * (n + nh * p)),
+        # f32 state + f32 h-out block + y output block
+        shared_bytes=8 * nh * p * n + (seq_len or chunk) * nh * p * itemsize,
     )
 
 

@@ -13,14 +13,18 @@ from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
     scatter_add_unique,
 )
 from repro_torch.kernels.decode_attention.decode_attention import (
+    flash_decode,
     paged_flash_decode,
 )
 from repro_torch.kernels.moe_gmm.moe_gmm import gmm
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 from repro_torch.kernels.stream_copy.stream_copy import triad
 
 KERNELS: Dict[str, Callable] = {
     "paged_decode": paged_flash_decode,
     "moe_gmm": gmm,
+    "flash_decode": flash_decode,
+    "ssd_scan": ssd_scan,
     "row_gather": row_gather,
     "span_gather": span_gather,
     "scatter_add": scatter_add_unique,

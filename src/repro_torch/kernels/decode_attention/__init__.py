@@ -1,1 +1,1 @@
-"""Paged flash-decode attention: CUDA kernel, plain version, CoroSpec."""
+"""Flash-decode attention, dense and paged: CUDA kernels, plain versions, CoroSpecs."""

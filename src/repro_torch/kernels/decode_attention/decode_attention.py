@@ -1,20 +1,29 @@
-"""Paged flash-decode: the kernel's `CoroSpec`, its CUDA wrapper and its
-plain PyTorch version.
+"""Flash-decode attention, dense and paged: each kernel's `CoroSpec`, its
+CUDA wrapper and its plain PyTorch version.
 
-One decode token per request attends over that request's KV pages, which
-the pager scattered across a shared block pool; the block table redirects
-every page load. The CUDA kernel (`csrc/paged_decode.cu`, hand-written for
-sm_90a) replaces the TPU kernel
-``src/repro/kernels/decode_attention/decode_attention.py:paged_flash_decode``
-and keeps its arithmetic: q scaled in f32 by ``D**-0.5``, an f32 online
-softmax over key positions ``< lengths[b]``, output ``acc / max(l, 1e-30)``
-cast to q's type. It is bound by the bytes of the live K/V pages; the
-source note says what its design does about that.
+Dense (`flash_decode`): one decode token per sequence attends over a dense
+``[B, S, KH, D]`` cache up to one scalar position ``pos``, in ``blk``-row
+tiles. The CUDA kernel (`csrc/flash_decode.cu`) replaces the TPU kernel
+``src/repro/kernels/decode_attention/decode_attention.py:flash_decode``;
+the dense serving engine runs it for every attention layer of every
+decode step.
 
-`paged_flash_decode` picks its path from the device of the tensors it is
-given: on CPU tensors it runs `paged_flash_decode_plain`; on CUDA tensors it
-launches the kernel or raises. `paged_flash_decode.launches` counts kernel
-launches (and nothing else).
+Paged (`paged_flash_decode`): one decode token per request attends over
+that request's KV pages, which the pager scattered across a shared block
+pool; the block table redirects every page load. The CUDA kernel
+(`csrc/paged_decode.cu`) replaces the TPU kernel
+``src/repro/kernels/decode_attention/decode_attention.py:paged_flash_decode``.
+
+Both are hand-written for sm_90a and keep the TPU kernels' arithmetic: q
+scaled in f32 by ``D**-0.5``, an f32 online softmax over the live keys,
+output ``acc / max(l, 1e-30)`` cast to q's type. Both are bound by the
+bytes of the live K/V rows; the source notes say what their designs do
+about that.
+
+Each wrapper picks its path from the device of the tensors it is given: on
+CPU tensors it runs its plain version; on CUDA tensors it launches the
+kernel or raises. `flash_decode.launches` and `paged_flash_decode.launches`
+count kernel launches (and nothing else).
 """
 from __future__ import annotations
 
@@ -31,6 +40,9 @@ from repro_torch.core.guard import KernelResourceError
 from repro_torch.kernels import ring
 
 __all__ = [
+    "decode_spec",
+    "flash_decode",
+    "flash_decode_plain",
     "paged_decode_spec",
     "paged_flash_decode",
     "paged_flash_decode_plain",
@@ -39,8 +51,43 @@ __all__ = [
 
 NEG_INF = -1e30
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode.cu"
+FLASH_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
 HEAD_DIMS = (16, 64, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 32                 # query heads per KV head the kernel holds
+
+
+def _softmax_vars(kh: int, g: int, d: int):
+    """The online-softmax state (commutative: SHARED, one copy at any
+    depth) and the f32 query, a read-only resident."""
+    h = kh * g
+    return (
+        ctx_mod.var("m", (kh, g), "float32",
+                    carries_dependence=True, commutative=True),
+        ctx_mod.var("l", (kh, g), "float32",
+                    carries_dependence=True, commutative=True),
+        ctx_mod.var("acc", (kh, g, d), "float32",
+                    carries_dependence=True, commutative=True),
+        ctx_mod.VarSpec("q_f32", nbytes=4 * (h * d + kh * g * d),
+                        read_only=True),
+    )
+
+
+def decode_spec(blk: int, kh: int, g: int, d: int, dtype) -> CoroSpec:
+    """KV block tile: k+v copies per slot; accumulators are
+    depth-independent. The same declaration as the reference package's,
+    so `choose_depth` gives the same depth in both under one
+    `MachineModel`. The CUDA kernel's tile is one KV head's ``[blk, D]``
+    rows of the declared ``[blk, KH, D]`` tile (one block per KV head)."""
+    return CoroSpec(
+        name="flash_decode",
+        loads=(
+            LoadStream("k", (blk, kh, d), dtype),
+            LoadStream("v", (blk, kh, d), dtype),
+        ),
+        vars=_softmax_vars(kh, g, d),
+        flops_per_tile=float(4 * blk * kh * g * d),  # qk + pv per block
+    )
 
 
 def paged_decode_spec(blk: int, kh: int, g: int, d: int, dtype,
@@ -55,28 +102,39 @@ def paged_decode_spec(blk: int, kh: int, g: int, d: int, dtype,
     `max_blocks` (the table width) is the tile count; it does not change the
     declaration.
     """
-    h = kh * g
     return CoroSpec(
         name="paged_decode",
         loads=(
             LoadStream("k", (1, blk, kh, d), dtype),
             LoadStream("v", (1, blk, kh, d), dtype),
         ),
-        vars=(
-            ctx_mod.var("m", (kh, g), "float32",
-                        carries_dependence=True, commutative=True),
-            ctx_mod.var("l", (kh, g), "float32",
-                        carries_dependence=True, commutative=True),
-            ctx_mod.var("acc", (kh, g, d), "float32",
-                        carries_dependence=True, commutative=True),
-            ctx_mod.VarSpec("q_f32", nbytes=4 * (h * d + kh * g * d),
-                            read_only=True),
-        ),
-        flops_per_tile=float(4 * blk * h * d),
+        vars=_softmax_vars(kh, g, d),
+        flops_per_tile=float(4 * blk * kh * g * d),
     )
 
 
-# ------------------------------------------------------------ plain version
+# ------------------------------------------------------------ plain versions
+
+
+def flash_decode_plain(q, k_cache, v_cache, pos: int):
+    """The dense kernel's function in plain PyTorch, with the same f32
+    arithmetic (a one-pass softmax in place of the online one: equal up to
+    rounding).
+
+    q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: the last key
+    position attended (every key when pos >= S - 1). Returns [B, H, D] in
+    q's type."""
+    b, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    qv = q.float().reshape(b, kh, h // kh, d) * (d ** -0.5)
+    sc = torch.einsum("bkgd,bskd->bkgs", qv, k_cache.float())
+    valid = torch.arange(s, device=q.device) <= int(pos)
+    sc = sc.masked_fill(~valid, NEG_INF)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
 
 
 def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, lengths):
@@ -115,11 +173,12 @@ def _smem_bytes(g: int, d: int, blk: int, depth: int, itemsize: int) -> int:
 
 
 def kernel_depth(depth: int, *, g: int, d: int, blk: int, itemsize: int,
-                 n_tiles: int) -> int:
-    """Clamp a solved depth to what the kernel runs: at most `n_tiles`
-    pages, at most `ring.MAX_DEPTH` (the deepest wait the kernel compiles),
-    and no more page buffers than one block's shared memory holds for its
-    own [blk, D] K/V tile."""
+                 n_tiles: int, kernel: str = "paged_decode") -> int:
+    """Clamp a solved depth to what either decode kernel runs (both lay out
+    shared memory as `_smem_bytes` says): at most `n_tiles` tiles (pages,
+    or `blk`-row tiles of the dense cache), at most `ring.MAX_DEPTH` (the
+    deepest wait the kernels compile), and no more K/V buffer pairs than
+    one block's shared memory holds for its own [blk, D] tile."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     fixed = _smem_bytes(g, d, blk, 0, itemsize)
@@ -128,7 +187,7 @@ def kernel_depth(depth: int, *, g: int, d: int, blk: int, itemsize: int,
     if fit < 1:
         raise KernelResourceError(
             f"one page buffer needs {fixed + per_slot} B of shared memory, "
-            f"over {ring.SMEM_LIMIT}", kernel="paged_decode", depth=1,
+            f"over {ring.SMEM_LIMIT}", kernel=kernel, depth=1,
             tile=(blk, d))
     return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
 
@@ -244,3 +303,98 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, *,
 
 
 paged_flash_decode.launches = 0
+
+
+# ------------------------------------------------------- the dense kernel
+
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_dense(q, k_cache, v_cache, blk: int) -> None:
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"need q [B,H,D] and caches [B,S,KH,D], got "
+                         f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(f"k_cache {tuple(k_cache.shape)} != v_cache "
+                         f"{tuple(v_cache.shape)}")
+    b, h, d = q.shape
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or \
+            h % k_cache.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit caches "
+                         f"{tuple(k_cache.shape)}")
+    if blk < 1:
+        raise ValueError(f"blk must be >= 1, got {blk}")
+
+
+def _check_dense_cuda(q, k_cache, v_cache) -> None:
+    if q.dtype not in ring.DTYPE_CODE:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"caches ({k_cache.dtype}, {v_cache.dtype}) must "
+                        f"match q ({q.dtype})")
+    d = q.shape[2]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {FLASH_HEAD_DIMS}")
+    if q.shape[1] // k_cache.shape[2] > MAX_GROUP:
+        raise ValueError(f"more than {MAX_GROUP} query heads per KV head")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, blk: int = 128,
+                 depth: Optional[int] = None):
+    """Flash-decode over a dense KV cache at one scalar position.
+
+    q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: int (or a 0-d
+    tensor), the last key position attended — every position <= pos (all
+    S when pos >= S). S need not be a multiple of `blk`. Returns [B, H, D]
+    in q's type.
+
+    `depth` is the number of `blk`-row tiles in flight; None solves it from
+    `decode_spec` through `core.autotune.choose_depth`. Either is clamped by
+    `kernel_depth` and recorded as run, for
+    `autotune.last_choice("flash_decode")`.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel, or
+    raise (`KernelCompileError` / `KernelResourceError` on a failed build or
+    launch, ValueError / TypeError on inputs it does not take).
+    """
+    _check_dense(q, k_cache, v_cache, blk)
+    pos = int(pos)
+    if pos < 0:
+        raise ValueError(f"pos must be >= 0, got {pos}")
+    b, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    n_tiles = -(-min(pos + 1, s) // blk)
+    spec = decode_spec(blk, kh, g, d, k_cache.dtype)
+    if depth is None:
+        depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
+                                      vars=spec.all_vars())
+    depth = kernel_depth(depth, g=g, d=d, blk=blk,
+                         itemsize=k_cache.element_size(), n_tiles=n_tiles,
+                         kernel=spec.name)
+    autotune.record_choice(spec.name, depth)
+    if not ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
+                      ("v_cache", v_cache)):
+        return flash_decode_plain(q, k_cache, v_cache, pos)
+    _check_dense_cuda(q, k_cache, v_cache)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    lib = ring.library(FLASH_SOURCE, "repro_flash_decode", _FLASH_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), b, h, kh, d, s, blk, pos, depth,
+            float(d ** -0.5), ring.DTYPE_CODE[q.dtype], stream)
+    ring.raise_on_error(err, lib, kernel="flash_decode", depth=depth,
+                        tile=(blk, d))
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -2,8 +2,8 @@
 coalescing stats, the depth solver and the context classification.
 
 The rows are the reference's ``benchmarks/kernel_bench.py`` rows whose
-kernels the port has (row and span gather, scatter-add, the MoE grouped
-matmul, STREAM triad).
+kernels the port has (row and span gather, scatter-add, dense flash-decode,
+the MoE grouped matmul, the SSD scan, STREAM triad).
 The derived columns are what the reference reports: correctness against
 the plain version, the coalescing ratio (paper §III-C), and the
 latency-aware depth the scheduler solves (§III-D). ``us_per_call`` is the
@@ -47,7 +47,12 @@ from repro_torch.kernels.coro_scatter_add.coro_scatter_add import (
     scatter_add_unique,
 )
 from repro_torch.kernels.coro_scatter_add.ops import rmw_operands
+from repro_torch.kernels.decode_attention.decode_attention import (
+    decode_spec,
+    flash_decode,
+)
 from repro_torch.kernels.moe_gmm.moe_gmm import gmm, gmm_spec, n_slices
+from repro_torch.kernels.ssd_scan.ssd_scan import KQ, ssd_scan, ssd_spec
 from repro_torch.kernels.stream_copy.ops import stream_triad
 from repro_torch.kernels.stream_copy.stream_copy import (
     triad,
@@ -175,7 +180,9 @@ def context_rows() -> List[list]:
     specs = (
         row_gather_spec(8, 128, f32),
         scatter_add_spec(8, 128, f32),
+        decode_spec(128, 8, 12, 128, f32),
         gmm_spec(64, 512, 128, f32, f_total=2048),
+        ssd_spec(64, 8, 64, 128, f32, seq_len=2048),
         triad_spec(128, 512, f32),
     )
     out = []
@@ -213,9 +220,19 @@ def _json_workloads(device):
     upd_s = _tensor(rng.randn(32, 128).astype(np.float32), device)
     uniq, summed = rmw_operands(table_s, idx_s, upd_s, 8)
     n_s = uniq.shape[0] // 8
+    q = _tensor(rng.randn(2, 8, 16).astype(np.float32), device)
+    k = _tensor(rng.randn(2, 128, 2, 16).astype(np.float32), device)
+    v = _tensor(rng.randn(2, 128, 2, 16).astype(np.float32), device)
+    n_kv = 2 * 2 * 2                  # (sequence, KV head) blocks x 64-row tiles
     xs = _tensor(rng.randn(2, 16, 64).astype(np.float32), device)
     w = _tensor(rng.randn(2, 64, 256).astype(np.float32), device)
     n_w = 2 * (256 // 128) * n_slices(64, 4)     # weight k-slices streamed
+    x = _tensor(rng.randn(1, 128, 2, 8).astype(np.float32), device)
+    dt = _tensor(rng.rand(1, 128, 2).astype(np.float32), device)
+    a = _tensor(-np.abs(rng.randn(2)).astype(np.float32), device)
+    bm = _tensor(rng.randn(1, 128, 16).astype(np.float32), device)
+    cm = _tensor(rng.randn(1, 128, 16).astype(np.float32), device)
+    n_x = 2 * (128 // KQ)             # (sequence, head) blocks x KQ-row tiles
     tb = _tensor(rng.randn(256, 64).astype(np.float32), device)
     tc = _tensor(rng.randn(256, 64).astype(np.float32), device)
     return [
@@ -227,8 +244,14 @@ def _json_workloads(device):
         (scatter_add_spec(8, 128, f32), n_s,
          lambda: observed("scatter_add", n_s, scatter_add_unique,
                           table_s.clone(), uniq, summed)),
+        (decode_spec(64, 2, 4, 16, f32), n_kv,
+         lambda: observed("flash_decode", n_kv, flash_decode, q, k, v, 127,
+                          blk=64)),
         (gmm_spec(16, 64, 128, f32, f_total=256), n_w,
          lambda: observed("moe_gmm", n_w, gmm, xs, w)),
+        (ssd_spec(64, 2, 8, 16, f32, seq_len=128), n_x,
+         lambda: observed("ssd_scan", n_x, ssd_scan, x, dt, a, bm, cm,
+                          chunk=64)),
         (triad_spec(128, 64, f32), 2,
          lambda: observed("stream_triad", 2, triad, tb, tc, 2.5)),
     ]

@@ -1,34 +1,164 @@
-"""Serving launcher: the paged continuous-batching engine.
+"""Serving launcher: batched prefill + decode with KV caches.
 
-`serve_paged` drives `repro_torch.serve.PagedServingEngine` over a batch of
-ragged prompts, half of which share a system-prompt prefix, through a
-block pool sized to force page reuse, and returns the engine's stats
-(decode tok/s, TTFT/TBT and per-token p50/p99, prefix-cache and failure
-accounting) plus every request's generated tokens.
+Two engines, as in the reference package:
 
-It runs on the GPU unless asked for the CPU:
+  dense - the fixed-batch baseline (the default): one ``[batch, max_len]``
+          cache per layer, `model.prefill` once, then `model.decode_step`
+          for every token, timed one step at a time (`serve`,
+          `timed_decode_loop`). It serves the dense, MoE and Mamba-2 SSM
+          families; its decode attention is the `flash_decode` kernel and
+          its SSM prefill the `ssd_scan` kernel.
+  paged - `repro_torch.serve.PagedServingEngine` (`serve_paged`):
+          continuous batching over a paged KV block pool, ragged prompt
+          lengths, half of them sharing a system-prompt prefix, through a
+          pool sized to force page reuse.
+
+Both report decode tok/s and per-token p50/p99 (the paged engine also
+TTFT/TBT, prefix-cache and failure accounting) plus every request's
+generated tokens. They run on the GPU unless asked for the CPU:
 
   python -m repro_torch.launch.serve --arch yi-6b --layout serving \\
-      --batch 8 --prompt-len 256 --gen 32
-  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --layout serving
-  python -m repro_torch.launch.serve --arch yi-6b --reduced --device cpu
-  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \
-      --device cpu
+      --batch 8 --prompt-len 1024 --gen 32
+  python -m repro_torch.launch.serve --arch mamba2-130m --batch 8 \\
+      --prompt-len 2048 --gen 32
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+      --layout serving --engine paged --batch 8 --prompt-len 256 --gen 32
+  python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \\
+      --engine paged --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, token_split
+from repro_torch.core import autotune, guard
+from repro_torch.core.machine import get_machine
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import latency_report
 
 # ArchConfig override of the serving layout: weights stored in bf16
 # (compute stays cfg.dtype, bf16 for every shipped arch).
 SERVING_OVERRIDES: Dict[str, Any] = {"param_dtype": "bfloat16"}
+
+
+def make_prompts(cfg, batch: int, prompt_len: int, rng, device):
+    """Random prompts from the numpy generator `rng` (the reference's draws
+    for the same seed). Returns ({"tokens": [batch, text] int32}, text)."""
+    front, text = token_split(cfg, prompt_len)
+    if front:
+        raise NotImplementedError(
+            f"arch {cfg.name!r}: frontend (audio/vision) inputs wait for a "
+            "later slice of the port (ROADMAP Queue 1 item 6)")
+    tokens = rng.integers(0, cfg.vocab, (batch, text))
+    return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
+                                      device=device)}, text
+
+
+def timed_decode_loop(decode, params, cache, tokens, *, steps, make_batch):
+    """Drive `steps` decode calls, timing each to its tokens on the host.
+
+    Returns (tokens_list, final_tokens, per-step latencies in seconds). The
+    per-step synchronisation is what makes p50/p99 meaningful; its cost is
+    inside the latencies. A step whose logits are not finite raises
+    `KernelNumericsError` (counted in `guard.stats()`)."""
+    out = [tokens]
+    lat = []
+    tracer = obs_trace.get_tracer()  # fetched once: null no-op when off
+    for i in range(steps):
+        t0 = time.perf_counter()
+        with tracer.span("decode_step", step=i, batch=int(tokens.shape[0])):
+            logits, cache = decode(params, cache, make_batch(tokens, i))
+            tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            if tokens.is_cuda:
+                torch.cuda.synchronize(tokens.device)
+        dt = time.perf_counter() - t0
+        lat.append(dt)
+        nerr = guard.scan_output("serve_dense_decode", logits)
+        if nerr is not None:
+            raise nerr
+        if autotune.telemetry_enabled():
+            # one "tile" per request token this step; the first observation
+            # is dropped by observe_pipeline's warm-up skip
+            autotune.observe_pipeline("serve_dense_decode", dt,
+                                      int(tokens.shape[0]))
+        out.append(tokens)
+    return out, tokens, lat
+
+
+def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
+          engine: str = "dense", block_size: int = 16,
+          num_blocks: Optional[int] = None, prefix_cache: bool = True,
+          prefill_chunk: int = 32, deadline_s: Optional[float] = None,
+          chaos: Optional[int] = None, device=None, params=None,
+          max_in_flight: Optional[int] = None):
+    """Serve `batch` prompts of `prompt_len` tokens, `gen` new tokens each.
+
+    engine="dense" (the default): one prefill of the whole batch into
+    caches padded to ``prompt_len + gen`` rows, then ``gen - 1`` decode
+    steps. engine="paged": `serve_paged`. `device` None means the GPU
+    (RuntimeError where there is none); `params` None draws random weights
+    from `seed` on that device. The prompts are the reference package's
+    for the same seed."""
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import resolve_device
+
+    if engine == "paged":
+        return serve_paged(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
+                           seed=seed, block_size=block_size,
+                           num_blocks=num_blocks, prefix_cache=prefix_cache,
+                           prefill_chunk=prefill_chunk, deadline_s=deadline_s,
+                           chaos=chaos, device=device, params=params,
+                           max_in_flight=max_in_flight)
+    if engine != "dense":
+        raise ValueError(f"unknown engine {engine!r} (dense or paged)")
+    if deadline_s is not None or chaos is not None:
+        raise ValueError("--deadline-s / --chaos need --engine paged (the "
+                         "dense baseline has no per-request lifecycle)")
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    if params is None:
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(seed))
+        params = model.init(g, dev)
+    rng = np.random.default_rng(seed)
+    prompts, text_len = make_prompts(cfg, batch, prompt_len, rng, dev)
+
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(params, prompts, pad_to=text_len + gen)
+    tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_prefill = time.perf_counter() - t0
+
+    def make_batch(tokens, i):
+        return {"tokens": tokens}
+
+    out, tokens, lat = timed_decode_loop(model.decode_step, params, cache,
+                                         tokens, steps=gen - 1,
+                                         make_batch=make_batch)
+    t_decode = sum(lat)
+    generated = torch.cat(out, dim=1).cpu()
+    stats = {
+        "engine": "dense",
+        "machine": get_machine().name,
+        "device": str(dev),
+        "generated_shape": tuple(generated.shape),
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+        "sample_tokens": generated[0, :8].tolist(),
+        "substrate": guard.stats(),
+        "generated": generated.tolist(),
+    }
+    stats.update(latency_report(lat))
+    return stats
 
 
 def serve_paged(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
@@ -90,8 +220,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layout", default="default", choices=["default", "serving"],
                     help="serving: bf16 weight storage")
-    ap.add_argument("--engine", default="paged", choices=["paged"],
-                    help="the paged engine is the one this package serves")
+    ap.add_argument("--engine", default="dense", choices=["dense", "paged"],
+                    help="dense: fixed batch, one cache per layer; paged: "
+                         "continuous batching over a paged KV pool")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
     ap.add_argument("--prefix-cache", default=True,
@@ -99,13 +230,14 @@ def main(argv=None):
                     help="share KV pages across common prompt prefixes "
                          "(--no-prefix-cache disables)")
     ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="tokens per chunked-prefill step")
+                    help="tokens per chunked-prefill step (paged engine)")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="per-request wall-clock deadline in seconds; "
                          "expired requests are CANCELLED at the next round "
-                         "boundary")
+                         "boundary (paged engine)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
-                    help="inject a deterministic fault schedule seeded by SEED")
+                    help="inject a deterministic fault schedule seeded by "
+                         "SEED (paged engine)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="export the run's span trace as Chrome trace-event "
                          "JSON (open in https://ui.perfetto.dev)")
@@ -118,13 +250,13 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.layout == "serving":
         cfg = cfg.replace(**SERVING_OVERRIDES)
-    stats = serve_paged(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                        gen=args.gen, seed=args.seed,
-                        block_size=args.block_size, num_blocks=args.num_blocks,
-                        prefix_cache=args.prefix_cache,
-                        prefill_chunk=args.prefill_chunk,
-                        deadline_s=args.deadline_s, chaos=args.chaos,
-                        device=args.device)
+    stats = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                  gen=args.gen, seed=args.seed, engine=args.engine,
+                  block_size=args.block_size, num_blocks=args.num_blocks,
+                  prefix_cache=args.prefix_cache,
+                  prefill_chunk=args.prefill_chunk,
+                  deadline_s=args.deadline_s, chaos=args.chaos,
+                  device=args.device)
     if args.trace:
         stats["trace"] = obs_trace.get_tracer().export(args.trace)
         stats["trace_events"] = len(obs_trace.get_tracer().events)

@@ -1,10 +1,13 @@
-"""Layer library for the paged serving path: norms, RoPE, SwiGLU,
-embeddings, and attention over paged KV pools.
+"""Layer library: norms, RoPE, SwiGLU, embeddings, full-sequence GQA
+attention (naive / chunked), decode attention over a dense KV cache, and
+attention over paged KV pools.
 
 Layouts follow the reference package at every public function (q
-``[B, S, H, D]``, pools ``[NB, blk, KH, D]``, block tables ``[B, M]``
-int32), so the two packages are compared like with like. The pools are
-updated in place.
+``[B, S, H, D]``, caches ``[B, S, KH, D]``, pools ``[NB, blk, KH, D]``,
+block tables ``[B, M]`` int32), so the two packages are compared like with
+like. Caches and pools are updated in place. Prefill attention has no
+kernel in the reference and stays torch ops here; decode attention goes
+through the flash-decode kernels (dense and paged).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.decode_attention import (
+    flash_decode,
     paged_flash_decode,
 )
 
@@ -61,6 +65,119 @@ def _group(q, kv_heads: int):
     """[B,S,H,D] -> [B,S,KH,G,D] grouped-query layout (no KV repeat)."""
     b, s, h, d = q.shape
     return q.reshape(b, s, kv_heads, h // kv_heads, d)
+
+
+# ------------------------------------------------------------------ attention
+
+
+def _mask(q_pos, k_pos, *, causal: bool, window: int, prefix: int):
+    """q_pos: [Sq,1] int, k_pos: [1,Sk] int -> bool [Sq,Sk] (True=keep)."""
+    if not causal:
+        return torch.ones((q_pos.shape[0], k_pos.shape[1]), dtype=torch.bool,
+                          device=q_pos.device)
+    ok = k_pos <= q_pos
+    if window:
+        ok &= k_pos > (q_pos - window)
+    if prefix:
+        ok |= k_pos < prefix
+    return ok
+
+
+def attention_naive(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0):
+    """Materialized-scores attention. [B,Sq,H,D] x [B,Sk,KH,D] -> [B,Sq,H,D].
+    Scores in f32, probabilities cast to q's type before the product with
+    V, as in the reference."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    qg = _group(q, kh) * (d ** -0.5)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    m = _mask(q_pos[:, None], k_pos[None, :], causal=causal, window=window,
+              prefix=prefix)
+    s = s.masked_fill(~m, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v)
+    return o.reshape(b, sq, h, d)
+
+
+def attention_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=0,
+                      prefix=0, chunk=1024):
+    """Online-softmax loop over KV chunks (memory O(Sq*chunk) instead of
+    Sq*Sk)."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if sk % chunk != 0 or sk <= chunk:
+        return attention_naive(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                               causal=causal, window=window, prefix=prefix)
+    g = h // kh
+    qg = (_group(q, kh) * (d ** -0.5)).to(q.dtype)
+    acc = torch.zeros((b, kh, g, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, kh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=q.device)
+    for c in range(sk // chunk):
+        kc = k[:, c * chunk:(c + 1) * chunk]
+        vc = v[:, c * chunk:(c + 1) * chunk]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kc.float())
+        msk = _mask(q_pos[:, None], k_pos[None, c * chunk:(c + 1) * chunk],
+                    causal=causal, window=window, prefix=prefix)
+        s = s.masked_fill(~msk, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype), vc).float()
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    o = acc / l[..., None].clamp_min(1e-30)            # [b,kh,g,sq,d]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, kh * g, d).to(q.dtype)
+
+
+def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0,
+              impl="auto", chunk=1024):
+    """Full-sequence attention: the naive form up to max(chunk, 4096) keys,
+    the chunked one beyond (the reference's dispatch, without its
+    sliding-window block form, which waits for the hybrid family)."""
+    s_q, s_kv = q.shape[1], k.shape[1]
+    if impl == "swa_block" or (
+        impl == "auto" and causal and window and not prefix
+        and s_q == s_kv and window <= chunk and s_q % chunk == 0
+        and s_q >= 2 * chunk
+    ):
+        raise NotImplementedError(
+            "sliding-window block attention comes with the hybrid family "
+            "(ROADMAP Queue 1 item 6)")
+    if impl == "naive" or (impl == "auto" and s_kv <= max(chunk, 4096)):
+        return attention_naive(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                               causal=causal, window=window, prefix=prefix)
+    return attention_chunked(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                             causal=causal, window=window, prefix=prefix,
+                             chunk=chunk)
+
+
+# --------------------------------------------------- decode over a dense cache
+
+
+def _single_decode(q, k_cache, v_cache, new_k, new_v, pos: int, update=True):
+    """Unsharded decode attention: write the new K/V row at `pos` in place
+    (clamped to the last row, as the reference's dynamic_update_slice is),
+    then attend every position <= pos through the flash-decode kernel (its
+    plain version on CPU tensors).
+
+    q: [B, 1, H, D]; k_cache/v_cache: [B, S, KH, D]; new_k/new_v:
+    [B, 1, KH, D]; pos: int. Returns (out [B, 1, H, D], k_cache, v_cache)."""
+    pos = int(pos)
+    if update:
+        row = min(pos, k_cache.shape[1] - 1)
+        k_cache[:, row] = new_k[:, 0].to(k_cache.dtype)
+        v_cache[:, row] = new_v[:, 0].to(v_cache.dtype)
+    out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos)
+    return out[:, None], k_cache, v_cache
+
+
+def decode_attention(q, k_cache, v_cache, new_k, new_v, pos, update=True):
+    """Public decode-attention entry over a dense cache (one device: the
+    sequence-sharded form waits for the multi-device slice)."""
+    return _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update)
 
 
 # --------------------------------------------------------- paged KV (serving)

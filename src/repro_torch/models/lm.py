@@ -1,28 +1,36 @@
-"""The LM's paged serving path: parameter specs, one-token decode over paged
-KV pools for a round of ragged requests, and chunked prefill into the pools.
+"""The LM's serving paths: parameter specs; the dense engine's one-shot
+prefill and one-token decode over ``[L, B, S, KH, D]`` caches; and the
+paged engine's decode over paged KV pools for a round of ragged requests
+and chunked prefill into the pools.
 
 Parameters keep the reference package's tree — names, shapes and the
 stacked ``layers`` axis (``wq [L, d, H, hd]``, ``wo [L, H, hd, d]``, ...).
 The reference scans the layer stack; here a Python loop walks the stacked
-axis and each layer writes its KV rows into its slice of the
-``[L, NB+1, blk, KH, D]`` pools in place. The functions still return the
-pools, so callers read the same as against the reference.
+axis and each layer writes its cache rows (or its SSM state) into its
+slice of the stacked caches or pools in place. The functions still return
+the caches, so callers read the same as against the reference.
 
-Served families: attention LMs with a dense SwiGLU FFN (yi-6b,
-granite-3-2b, internlm2-20b, command-r-plus-104b) or a MoE FFN
-(granite-moe-1b-a400m, qwen3-moe-30b-a3b; `models/moe.py`, whose expert
-matmuls are the `moe_gmm` kernel). Recurrent state, cross-attention and
-sliding-window caches are not on this path.
+Families: attention LMs with a dense SwiGLU FFN (yi-6b, granite-3-2b,
+internlm2-20b, command-r-plus-104b) or a MoE FFN (granite-moe-1b-a400m,
+qwen3-moe-30b-a3b; `models/moe.py`, whose expert matmuls are the `moe_gmm`
+kernel), on both engines; the Mamba-2 SSM family (mamba2-130m;
+`models/ssm.py`, whose prefill scan is the `ssd_scan` kernel) on the dense
+engine. Dense decode attention is the `flash_decode` kernel, paged decode
+attention the `paged_decode` kernel. The hybrid, encoder-decoder and VLM
+families, and sliding-window caches, wait for a later slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (
     apply_rope,
+    attention,
+    decode_attention,
     embed_lookup,
     paged_cache_append,
     paged_cache_append_chunk,
@@ -33,6 +41,11 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.moe import moe_layer, moe_param_specs
 from repro_torch.models.params import ParamSpec, map_specs, torch_dtype
+from repro_torch.models.ssm import ssm_decode, ssm_forward, ssm_param_specs
+
+LATER_SLICE = ("the hybrid, encoder-decoder and VLM families and sliding-"
+               "window caches wait for a later slice of the port (ROADMAP "
+               "Queue 1 item 6)")
 
 # ------------------------------------------------------------- param specs
 
@@ -64,7 +77,17 @@ def _mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _check_family(cfg: ArchConfig) -> None:
+    """Refuse the families this package does not serve yet."""
+    if cfg.hybrid or cfg.enc_dec or cfg.vlm or cfg.sliding_window:
+        raise NotImplementedError(f"arch {cfg.name!r} (family={cfg.family}): "
+                                  f"{LATER_SLICE}")
+
+
 def _layer_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    if cfg.family == "ssm":
+        return {"ssm_ln": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
+                "ssm": ssm_param_specs(cfg)}
     s: Dict[str, Any] = {"attn": _attn_specs(cfg)}
     if cfg.moe:
         s["moe"] = moe_param_specs(cfg)
@@ -82,11 +105,9 @@ def _stack(tree, n: int):
 
 
 def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    """The parameter tree of a paged-servable arch (see
-    `supports_paged_decode`), in the reference's names and shapes."""
-    if not supports_paged_decode(cfg):
-        raise ValueError(f"arch {cfg.name!r} (family={cfg.family}) is not on "
-                         "the paged serving path of this package")
+    """The parameter tree of a dense, MoE or SSM arch, in the reference's
+    names and shapes."""
+    _check_family(cfg)
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed")),
@@ -129,7 +150,8 @@ def _attn_out(p, o):
 
 def _ffn(p, x, cfg: ArchConfig):
     """The post-attention half of a block (MoE or SwiGLU MLP): the
-    reference's ``_paged_ffn``."""
+    reference's ``_paged_ffn``. The MoE router's aux loss is dropped: it
+    serves training, which this package does not run yet."""
     if cfg.moe:
         h = rms_norm(x, p["moe_ln"], cfg.norm_eps)
         moe_o, _ = moe_layer(p["moe"], h, cfg)
@@ -154,6 +176,143 @@ def _unembed(params, x):
     else:
         logits = x @ table.to(dt)
     return logits.float()
+
+
+# ------------------------------------------------ dense prefill and decode
+
+
+def attn_full(p, x, cfg: ArchConfig, *, positions):
+    """Full-sequence causal self-attention block (prefill). Returns
+    (attn_out, (k, v)) with the roped keys and the values, for the cache."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _project_qkv(p, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, q_pos=positions, k_pos=positions, causal=True,
+                  window=cfg.sliding_window, impl=cfg.attn_impl,
+                  chunk=cfg.attn_chunk)
+    return _attn_out(p, o), (k, v)
+
+
+def attn_decode(p, x, cache, cfg: ArchConfig, *, pos: int, cross=False):
+    """One-token self-attention against a dense KV cache: the new row is
+    written at `pos` in place, then the flash-decode kernel attends every
+    position <= pos. Returns (attn_out, (k_cache, v_cache))."""
+    kc, vc = cache
+    if cross:
+        raise NotImplementedError(f"cross-attention decode: {LATER_SLICE}")
+    if cfg.sliding_window and kc.shape[1] <= cfg.sliding_window:
+        raise NotImplementedError(f"ring (sliding-window) decode: "
+                                  f"{LATER_SLICE}")
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k, v = _project_qkv(p, h)
+    posv = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    o, kc, vc = decode_attention(q, kc, vc, k, v, pos)
+    return _attn_out(p, o), (kc, vc)
+
+
+def block_full(p, x, cfg: ArchConfig, *, positions, build_cache=False):
+    """One layer, full sequence. Returns (x, cache_entry): K/V for an
+    attention layer, the final SSM and conv states for an SSM layer, or
+    nothing without `build_cache`. (The reference also returns the MoE
+    aux loss, which serves training.)"""
+    if cfg.family == "ssm":
+        h = rms_norm(x, p["ssm_ln"], cfg.norm_eps)
+        if build_cache:
+            out, h_fin, conv = ssm_forward(p["ssm"], h, cfg, return_state=True)
+            return x + out, {"h": h_fin, "conv": conv}
+        return x + ssm_forward(p["ssm"], h, cfg), {}
+    attn_o, (k, v) = attn_full(p["attn"], x, cfg, positions=positions)
+    x = _ffn(p, x + attn_o, cfg)
+    return x, ({"k": k, "v": v} if build_cache else {})
+
+
+def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos: int):
+    """One layer, one token. Returns (x, new_layer_cache); the attention
+    cache is updated in place (the same tensors come back)."""
+    if cfg.family == "ssm":
+        h = rms_norm(x, p["ssm_ln"], cfg.norm_eps)
+        out, st = ssm_decode(p["ssm"], {"h": layer_cache["h"],
+                                        "conv": layer_cache["conv"]}, h, cfg)
+        return x + out, st
+    attn_o, (kc, vc) = attn_decode(p["attn"], x,
+                                   (layer_cache["k"], layer_cache["v"]), cfg,
+                                   pos=pos)
+    return _ffn(p, x + attn_o, cfg), {"k": kc, "v": vc}
+
+
+def run_layers_full(layers, x, cfg: ArchConfig, *, positions,
+                    build_cache=False):
+    """Apply all layers in a Python loop over the stacked axis. Returns
+    (x, stacked_cache) with each cache leaf stacked to [L, ...]."""
+    entries = []
+    for i in range(cfg.n_layers):
+        x, cache = block_full(_layer(layers, i), x, cfg, positions=positions,
+                              build_cache=build_cache)
+        entries.append(cache)
+    caches = {k: torch.stack([e[k] for e in entries])
+              for k in entries[0]} if entries and entries[0] else {}
+    return x, caches
+
+
+def run_layers_decode(layers, caches, x, cfg: ArchConfig, *, pos: int):
+    """All layers for one token. Layer i updates its slice of every stacked
+    cache leaf ([L, B, S, KH, D] K/V rows, [L, B, H, P, N] SSM state, ...)
+    in place; no leaf is re-stacked. Returns (x, caches)."""
+    for i in range(cfg.n_layers):
+        lc = _layer(caches, i)
+        x, nc = block_decode(_layer(layers, i), x, lc, cfg, pos=pos)
+        for key, new in nc.items():
+            if new is not lc[key]:
+                lc[key].copy_(new)
+    return x, caches
+
+
+def _embed_in(params, batch, cfg: ArchConfig):
+    """Token embedding (no VLM frontend). Returns (x, positions)."""
+    x = embed_lookup(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    return x, positions
+
+
+def _pad_cache_seq(layer_caches, pad_to: Optional[int]):
+    """Pad the attention caches along seq so decode can write past the
+    prompt (the reference's, without its sliding-window ring case)."""
+    out = dict(layer_caches)
+    for key in ("k", "v"):
+        if key in out and pad_to and out[key].shape[2] < pad_to:
+            kv = out[key]  # [L, B, S, KH, D]
+            out[key] = F.pad(kv, (0, 0, 0, 0, 0, pad_to - kv.shape[2]))
+    return out
+
+
+def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
+    """Build decode state from a full prompt. batch["tokens"]: [B, S].
+    Returns (cache, last_logits [B, 1, V] f32); cache = {"pos": S (an int),
+    "layers": stacked per-layer caches, K/V padded to `pad_to` rows}."""
+    _check_family(cfg)
+    x, positions = _embed_in(params, batch, cfg)
+    x, layer_caches = run_layers_full(params["layers"], x, cfg,
+                                      positions=positions, build_cache=True)
+    cache = {"pos": int(x.shape[1]),
+             "layers": _pad_cache_seq(layer_caches, pad_to)}
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return cache, _unembed(params, x)
+
+
+def decode_step(params, cache, batch, cfg: ArchConfig):
+    """One decode step for the whole batch at the cache's position.
+    batch["tokens"]: [B, 1]. The cache is updated in place. Returns
+    (logits [B, 1, V] f32, {"pos": pos + 1, "layers": the same caches})."""
+    _check_family(cfg)
+    pos = int(cache["pos"])
+    x = embed_lookup(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
+    x, layers = run_layers_decode(params["layers"], cache["layers"], x, cfg,
+                                  pos=pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, x), {"pos": pos + 1, "layers": layers}
 
 
 # ------------------------------------------------------------ paged decode

@@ -1,4 +1,5 @@
-"""Model facade: bind an ArchConfig to the LM's paged serving functions."""
+"""Model facade: bind an ArchConfig to the LM's serving functions (the
+dense engine's prefill and decode step, the paged engine's steps)."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +28,12 @@ class Model:
         return pm.count(self.param_specs())
 
     # -------------------------------------------------------------- steps
+    def prefill(self, params, batch, pad_to=None):
+        return lm.prefill(params, batch, self.cfg, pad_to=pad_to)
+
+    def decode_step(self, params, cache, batch):
+        return lm.decode_step(params, cache, batch, self.cfg)
+
     def decode_step_paged(self, params, k_pools, v_pools, block_tables, lengths, batch):
         return lm.decode_step_paged(params, k_pools, v_pools, block_tables,
                                     lengths, batch, self.cfg)

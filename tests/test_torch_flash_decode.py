@@ -1,0 +1,224 @@
+"""Dense flash-decode (K3) in the PyTorch port against the JAX reference.
+
+The port's plain version (what the `flash_decode` wrapper runs on CPU
+tensors) is held to the reference's Pallas kernel in interpret mode and to
+its oracle `decode_attention_ref`, on the same numpy inputs, at the
+reference tests' tolerances: 2e-5 in f32, 3e-2 in bf16. The port's
+`_single_decode` / `decode_attention` (the dense engine's decode
+attention: in-place row write, then K3) are held to the reference's, and
+`decode_spec` must give the reference's context bytes and solved depth
+under one shared MachineModel. The CUDA kernel itself is checked against
+the plain version on the card (`test_torch_kernels_cuda.py`).
+"""
+import dataclasses
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.core import autotune as ref_autotune
+from repro.core import machine as ref_machine
+from repro.kernels.decode_attention import decode_attention as ref_da
+from repro.kernels.decode_attention.ops import decode_attention as ref_op
+from repro.kernels.decode_attention.ref import decode_attention_ref
+from repro.models import common as ref_common
+from repro.sharding import NULL_CTX
+from repro_torch.core import autotune, machine
+from repro_torch.kernels import launch_counts, ring
+from repro_torch.kernels.decode_attention import decode_attention as da
+from repro_torch.kernels.decode_attention import ops
+from repro_torch.models import common
+
+TOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _reset_port():
+    # tiny tensors: one intra-op thread, leaving the cores to other workers
+    torch.set_num_threads(1)
+    repro_torch.reset()
+    yield
+    repro_torch.reset()
+
+
+def _problem(seed, b, h, kh, d, s, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, h, d).astype(dtype), rng.randn(b, s, kh, d).astype(dtype),
+            rng.randn(b, s, kh, d).astype(dtype))
+
+
+def _port(q, k, v, pos, **kw):
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    return da.flash_decode(*t, pos, **kw).numpy()
+
+
+def _oracle(q, k, v, pos):
+    return np.asarray(decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), pos))
+
+
+@pytest.mark.parametrize("kh,h", [(2, 8), (1, 4), (4, 4)])
+@pytest.mark.parametrize("pos", [0, 63, 200, 255])
+def test_plain_matches_pallas_and_oracle(kh, h, pos):
+    """The reference test's grid: B 2, D 16, S 256, blk 64."""
+    q, k, v = _problem(pos + 10 * kh, 2, h, kh, 16, 256)
+    out = _port(q, k, v, pos, blk=64)
+    pal = np.asarray(ref_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            pos, blk=64, interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(out, _oracle(q, k, v, pos), rtol=TOL, atol=TOL)
+    assert launch_counts()["flash_decode"] == 0      # CPU tensors: plain path
+
+
+@pytest.mark.parametrize("blk,depth", [(32, 2), (64, 4), (128, 8)])
+def test_plain_block_depth_sweep(blk, depth):
+    q, k, v = _problem(blk, 2, 4, 2, 16, 256)
+    out = _port(q, k, v, 170, blk=blk, depth=depth)
+    pal = np.asarray(ref_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            170, blk=blk, depth=depth, interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=TOL, atol=TOL)
+    # the recorded depth is the one the kernel would run: clamped to tiles
+    assert autotune.last_choice("flash_decode") == min(depth, -(-171 // blk))
+
+
+def test_plain_bf16():
+    rng = np.random.RandomState(3)
+    q, k, v = (jnp.asarray(rng.randn(*s), jnp.bfloat16)
+               for s in ((1, 4, 32), (1, 128, 2, 32), (1, 128, 2, 32)))
+    ref = np.asarray(decode_attention_ref(q, k, v, 100), np.float32)
+    pal = np.asarray(ref_op(q, k, v, 100, blk=32, interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+                  for a in (q, k, v))
+    out = da.flash_decode(tq, tk, tv, 100, blk=32)
+    assert out.dtype == torch.bfloat16 and out.shape == tq.shape
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(out.float().numpy(), pal, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("s,pos", [(200, 0), (200, 150), (200, 199),
+                                   (200, 250), (1056, 1040), (7, 3)])
+def test_plain_cache_off_the_tile(s, pos):
+    """S not a multiple of blk (the engine pads to prompt + generation),
+    pos = 0, and pos past S (every key), against the oracle."""
+    q, k, v = _problem(s + pos, 2, 8, 2, 16, s)
+    np.testing.assert_allclose(_port(q, k, v, pos), _oracle(q, k, v, pos),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("s,pos", [(64, 0), (64, 37), (200, 130), (40, 39)])
+def test_single_decode_matches_reference(s, pos):
+    """The dense engine's decode attention: the new K/V row lands at pos in
+    place, then the output and both caches agree with the reference's."""
+    rng = np.random.RandomState(s + pos)
+    b, h, kh, d = 2, 8, 2, 16
+    q = rng.randn(b, 1, h, d).astype(np.float32)
+    kc = rng.randn(b, s, kh, d).astype(np.float32)
+    vc = rng.randn(b, s, kh, d).astype(np.float32)
+    nk = rng.randn(b, 1, kh, d).astype(np.float32)
+    nv = rng.randn(b, 1, kh, d).astype(np.float32)
+    ro, rk, rv = ref_common.decode_attention(
+        NULL_CTX, jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(pos, jnp.int32))
+    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    for fn in (common.decode_attention, common._single_decode):
+        tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+        out, ok, ov = fn(torch.from_numpy(q), tk, tv, torch.from_numpy(nk),
+                         torch.from_numpy(nv), pos)
+        assert ok is tk and ov is tv                 # written in place
+        np.testing.assert_allclose(out.numpy(), np.asarray(ro), rtol=2e-3,
+                                   atol=2e-3)
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(rk))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+
+
+def test_single_decode_without_update_reads_the_cache():
+    rng = np.random.RandomState(5)
+    q = rng.randn(1, 1, 4, 16).astype(np.float32)
+    kc, vc = (rng.randn(1, 32, 2, 16).astype(np.float32) for _ in range(2))
+    nk = np.zeros((1, 1, 2, 16), np.float32)
+    ro, _, _ = ref_common._single_decode(jnp.asarray(q), jnp.asarray(kc),
+                                         jnp.asarray(vc), jnp.asarray(nk),
+                                         jnp.asarray(nk), 20, update=False)
+    tk = torch.from_numpy(kc.copy())
+    out, _, _ = common._single_decode(torch.from_numpy(q), tk,
+                                      torch.from_numpy(vc.copy()),
+                                      torch.from_numpy(nk),
+                                      torch.from_numpy(nk), 20, update=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ro), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_array_equal(tk.numpy(), kc)
+
+
+def test_ops_decode_attention_is_the_wrapper():
+    q, k, v = _problem(9, 1, 4, 2, 16, 64)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    np.testing.assert_array_equal(ops.decode_attention(*t, 40, blk=32).numpy(),
+                                  da.flash_decode(*t, 40, blk=32).numpy())
+
+
+def test_wrapper_rejects_bad_inputs():
+    q, k, v = (torch.from_numpy(a) for a in _problem(4, 2, 4, 2, 16, 64))
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, -1)
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, 3, depth=0)
+    with pytest.raises(ValueError):
+        da.flash_decode(q[:, :3], k, v, 3)                 # H % KH != 0
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v[:, :32], 3)
+    with pytest.raises(ValueError):
+        da.flash_decode(q[:1], k, v, 3)                    # batch mismatch
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, 3, blk=0)
+
+
+@pytest.mark.parametrize("g,d,blk,itemsize,want", [
+    (8, 128, 128, 2, 3),      # yi-6b bf16: 64 KiB per K/V tile pair
+    (8, 128, 128, 4, 1),      # yi-6b f32: one 128 KiB pair
+    (2, 16, 128, 4, 14),      # reduced yi-6b f32
+])
+def test_kernel_depth_clamps_to_shared_memory(g, d, blk, itemsize, want):
+    assert da.kernel_depth(64, g=g, d=d, blk=blk, itemsize=itemsize,
+                           n_tiles=100, kernel="flash_decode") == want
+    fixed = da._smem_bytes(g, d, blk, 0, itemsize)
+    assert fixed + want * 2 * blk * d * itemsize <= ring.SMEM_LIMIT
+    assert da.kernel_depth(64, g=g, d=d, blk=blk, itemsize=itemsize,
+                           n_tiles=1) == 1
+
+
+def test_kernel_source_uses_the_shared_ring_and_skips_dead_rows():
+    src = Path(da.FLASH_SOURCE).read_text()
+    assert '#include "../../csrc/coro_ring.cuh"' in src
+    assert not re.search(r"void\s+cp_async_wait_pending", src)
+    assert "n_keys" in src and "pos + 1 < S ? pos + 1 : S" in src
+    for d in da.FLASH_HEAD_DIMS:
+        assert f"case {d}:" in src
+
+
+@pytest.mark.parametrize("profile", ["v5e", "cpu-interpret", "h100"])
+@pytest.mark.parametrize("blk,kh,g,d,dtype", [
+    (128, 4, 8, 128, "bfloat16"),    # yi-6b, the dense engine's decode
+    (128, 8, 12, 128, "float32"),    # kernel_bench's context row
+    (64, 2, 4, 16, "float32"),       # kernel_bench's --json workload
+    (128, 2, 2, 16, "float32"),      # reduced yi-6b
+])
+def test_spec_context_and_depth_match_reference(profile, blk, kh, g, d, dtype):
+    mm = machine.machine_profile(profile)
+    ref_mm = ref_machine.MachineModel(**dataclasses.asdict(mm))
+    spec = da.decode_spec(blk, kh, g, d, getattr(torch, dtype))
+    ref_spec = ref_da.decode_spec(blk, kh, g, d, jnp.dtype(dtype))
+    for depth in (1, 2, 7):
+        assert spec.context_bytes(depth) == ref_spec.context_bytes(depth)
+        assert spec.context_bytes(depth, baseline=True) == \
+            ref_spec.context_bytes(depth, baseline=True)
+    assert spec.profile() == type(spec.profile())(
+        **dataclasses.asdict(ref_spec.profile()))
+    got = autotune.choose_depth(spec.profile(), machine=mm,
+                                vars=spec.all_vars())
+    want = ref_autotune.choose_depth(ref_spec.profile(), machine=ref_mm,
+                                     vars=ref_spec.all_vars())
+    assert got == want

@@ -183,7 +183,8 @@ def test_kernel_bench_rows_match_reference():
     assert kernel_bench.schedule_rows() == ref.schedule_rows()
     ref_ctx = {row[0]: row for row in ref.context_rows()}
     rows = kernel_bench.context_rows()
-    assert [r[0] for r in rows] == ["row_gather", "scatter_add", "moe_gmm",
+    assert [r[0] for r in rows] == ["row_gather", "scatter_add",
+                                    "flash_decode", "moe_gmm", "ssd_scan",
                                     "stream_triad"]
     for row in rows:
         assert row == ref_ctx[row[0]]
@@ -202,11 +203,20 @@ def test_kernel_bench_table_and_json_on_cpu():
     report, _ = _stdout(kernel_bench.main, ["--device", "cpu", "--json"])
     rep = json.loads(report)
     assert set(rep["kernels"]) == {"row_gather", "span_gather", "scatter_add",
-                                   "moe_gmm", "stream_triad"}
+                                   "flash_decode", "moe_gmm", "ssd_scan",
+                                   "stream_triad"}
     # the reference's moe_gmm workload: gmm_spec(16, 64, 128, f32,
     # f_total=256) solves 6 on h100; the kernel runs its 2 k-slices
     assert rep["kernels"]["moe_gmm"]["static_depth"] == 6
     assert rep["kernels"]["moe_gmm"]["ran_depth"] == 2
+    # the reference's flash-decode and SSD workloads: decode_spec(64, 2, 4,
+    # 16, f32) solves 14 and the kernel runs its 2 tiles; ssd_spec(64, 2,
+    # 8, 16, f32, seq_len=128) solves 17 and the kernel runs its 4 tiles
+    # of 32 rows
+    assert [rep["kernels"]["flash_decode"][k]
+            for k in ("static_depth", "ran_depth")] == [14, 2]
+    assert [rep["kernels"]["ssd_scan"][k]
+            for k in ("static_depth", "ran_depth")] == [17, 4]
     for entry in rep["kernels"].values():
         assert entry["ran_depth"] <= entry["static_depth"]
         assert entry["samples"] == 0        # the CPU feeds no transfer samples

@@ -3,7 +3,8 @@
 A static scan of every module of `src/repro_torch` and of `chip_smoke.py`
 for imports of `jax` or `repro`, and a subprocess in which both are
 blocked (`sys.modules[...] = None`) that imports the port and serves two
-requests of a dense and two of a MoE arch on the CPU.
+requests of a dense and two of a MoE arch through the paged engine, and a
+batch of two of an SSM arch through the dense engine, on the CPU.
 """
 import ast
 import json
@@ -47,6 +48,10 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/moe_gmm/moe_gmm.py",
                  "src/repro_torch/kernels/moe_gmm/ops.py",
                  "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/kernels/decode_attention/ops.py",
+                 "src/repro_torch/kernels/ssd_scan/ssd_scan.py",
+                 "src/repro_torch/kernels/ssd_scan/ops.py",
                  "src/repro_torch/launch/serve.py", "chip_smoke.py"):
         assert want in names
 
@@ -65,7 +70,7 @@ for name in ("jax", "jaxlib", "repro"):
     sys.modules[name] = None          # any import of them now fails
 import repro_torch
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import serve_paged
+from repro_torch.launch.serve import serve, serve_paged
 states, generated = [], []
 for arch in ("yi-6b", "granite-moe-1b-a400m"):
     cfg = get_config(arch).reduced().replace(dtype="float32",
@@ -74,6 +79,11 @@ for arch in ("yi-6b", "granite-moe-1b-a400m"):
                         device="cpu")
     states += stats["states"]
     generated += stats["generated"]
+cfg = get_config("mamba2-130m").reduced().replace(dtype="float32",
+                                                  param_dtype="float32")
+dense = serve(cfg, batch=2, prompt_len=32, gen=3, device="cpu")
+states += ["finished" if dense["engine"] == "dense" else "?"] * 2
+generated += dense["generated"]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
@@ -89,6 +99,6 @@ def test_port_serves_with_jax_blocked():
                           cwd=str(ROOT), timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["states"] == ["finished"] * 4
-    assert [len(g) for g in out["generated"]] == [3] * 4
+    assert out["states"] == ["finished"] * 6
+    assert [len(g) for g in out["generated"]] == [3] * 6
     assert out["leaked"] == []

@@ -341,3 +341,204 @@ def test_gups_kernels_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(TypeError):                       # no f16 kernel
         sc.triad(f16, f16, 1.0, rows=8)
     assert sum(launch_counts().values()) == 0
+
+
+# ------------------------------------------------- dense flash-decode (K3)
+
+
+def _dense_problem(device, dtype, b, h, kh, d, s, seed=0):
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    q = torch.randn(b, h, d, generator=g)
+    k = torch.randn(b, s, kh, d, generator=g)
+    v = torch.randn(b, s, kh, d, generator=g)
+    return q.to(device, dtype), k.to(device, dtype), v.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kh,d,s", [(32, 4, 128, 1056), (32, 1, 64, 200),
+                                      (8, 2, 16, 77), (8, 8, 32, 300)])
+def test_flash_decode_matches_plain(cuda_device, dtype, h, kh, d, s):
+    """S off the 128-row tile, pos 0, mid and last, one KV head; depths 1,
+    2 and the solved one, each recorded as run."""
+    from repro_torch.core import autotune
+
+    q, k, v = _dense_problem(cuda_device, dtype, 3, h, kh, d, s, seed=s)
+    for pos in (0, s // 2, s - 1):
+        ref = da.flash_decode_plain(q, k, v, pos).float()
+        for depth in (1, 2, None):
+            out = da.flash_decode(q, k, v, pos, depth=depth)
+            torch.cuda.synchronize()
+            ran = autotune.last_choice("flash_decode")
+            want = da.kernel_depth(
+                depth or ran, g=h // kh, d=d, blk=128,
+                itemsize=q.element_size(), n_tiles=-(-(pos + 1) // 128))
+            assert ran == want
+            assert out.dtype == dtype and torch.isfinite(out.float()).all()
+            torch.testing.assert_close(out.float(), ref, rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+    assert launch_counts()["flash_decode"] == 9
+
+
+def test_flash_decode_small_tiles_and_past_the_cache(cuda_device):
+    """blk 32 with S = 100 (a 4-row tail), and pos past S (every key)."""
+    q, k, v = _dense_problem(cuda_device, torch.float32, 2, 8, 2, 64, 100)
+    for pos in (31, 32, 99, 150):
+        out = da.flash_decode(q, k, v, pos, blk=32, depth=3)
+        torch.testing.assert_close(out, da.flash_decode_plain(q, k, v, pos),
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_dense_decode_step_writes_in_place_and_runs_the_kernel(cuda_device):
+    from repro_torch.models import common
+
+    q, k, v = _dense_problem(cuda_device, torch.bfloat16, 2, 8, 2, 64, 40)
+    nk, nv = (t[:, :1].clone() for t in _dense_problem(
+        cuda_device, torch.bfloat16, 2, 2, 2, 64, 1, seed=9)[1:])
+    kc, vc = k.clone(), v.clone()
+    out, ok, ov = common.decode_attention(q[:, None], kc, vc, nk, nv, 17)
+    assert ok is kc and ov is vc
+    assert torch.equal(kc[:, 17], nk[:, 0]) and torch.equal(vc[:, 18:], v[:, 18:])
+    ref = da.flash_decode_plain(q, kc, vc, 17)
+    torch.testing.assert_close(out[:, 0].float(), ref.float(), rtol=3e-2,
+                               atol=3e-2)
+    assert launch_counts()["flash_decode"] == 1
+
+
+def test_flash_decode_raises_instead_of_falling_back(cuda_device):
+    q, k, v = _dense_problem(cuda_device, torch.float32, 2, 4, 2, 16, 64)
+    with pytest.raises(TypeError):          # no f16 kernel
+        da.flash_decode(q.half(), k.half(), v.half(), 3)
+    with pytest.raises(ValueError):         # head_dim 8 not built
+        da.flash_decode(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                        v[..., :8].contiguous(), 3)
+    with pytest.raises(ValueError):         # mixed devices
+        da.flash_decode(q, k.cpu(), v, 3)
+    with pytest.raises(ValueError):         # non-contiguous cache
+        da.flash_decode(q, k.transpose(1, 2), v.transpose(1, 2), 3)
+    assert launch_counts()["flash_decode"] == 0
+
+
+# ----------------------------------------------------------- SSD scan (K4)
+
+
+def _ssd_problem(device, b, s, nh, p, n, *, dtype=torch.float32,
+                 dt_dtype=torch.float32, seed=0, strong=False):
+    """The reference test's draws (dt in [0.1, 0.6), A = -exp(0.3 N)), or a
+    strong decay (dt 8, A -1)."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    x = torch.randn(b, s, nh, p, generator=g)
+    dt = torch.rand(b, s, nh, generator=g) * 0.5 + 0.1
+    a = -torch.exp(torch.randn(nh, generator=g) * 0.3)
+    bm = torch.randn(b, s, n, generator=g)
+    cm = torch.randn(b, s, n, generator=g)
+    if strong:
+        dt, a = torch.full_like(dt, 8.0), torch.full_like(a, -1.0)
+    return (x.to(device, dtype), dt.to(device, dt_dtype), a.to(device),
+            bm.to(device, dtype), cm.to(device, dtype))
+
+
+def _ssd_close(got, want, dtype):
+    """y: 2e-3 in f32; in bf16 3e-2 + 3e-2 x |value| (the plain version
+    sums 256-row chunks, the kernel 32-row tiles, and y is rounded to
+    bf16 after). The f32 state: 2e-3 + 2e-3 x |value|."""
+    (y, h), (ry, rh) = got, want
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y.float(), ry.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, rh, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype,dt_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("chunk,nh,p,n,s", [
+    (256, 24, 64, 128, 512),      # mamba2-130m's widths
+    (256, 50, 64, 16, 256),       # hymba-1.5b's state width
+    (64, 4, 16, 32, 192),
+    (16, 8, 16, 16, 48),          # reduced mamba2: a tile of 32 rows, 16 more
+])
+def test_ssd_scan_matches_plain(cuda_device, dtype, dt_dtype, chunk, nh, p, n,
+                                s):
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    args = _ssd_problem(cuda_device, 2, s, nh, p, n, dtype=dtype,
+                        dt_dtype=dt_dtype, seed=s + n)
+    want = ss.ssd_scan_plain(*args, chunk=chunk)
+    got = ss.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _ssd_close(got, want, dtype)
+    assert launch_counts()["ssd_scan"] == 1
+
+
+def test_ssd_scan_strong_decay_stays_finite(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    from repro_torch.models.ssm import ssd_sequential
+
+    args = _ssd_problem(cuda_device, 2, 64, 2, 16, 16, strong=True)
+    got = ss.ssd_scan(*args, chunk=16)
+    _ssd_close(got, ss.ssd_scan_plain(*args, chunk=16), torch.float32)
+    _ssd_close(got, ssd_sequential(*args), torch.float32)
+
+
+def test_ssd_scan_depths_and_strided_views(cuda_device):
+    """Depths 1, 2, 5 and the deepest ring that fits, each recorded as run;
+    x, B and C as slices of one joint projection (the SSM block's layout)."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    b, s, nh, p, n = 2, 256, 4, 64, 128
+    g = torch.Generator(device="cpu")
+    g.manual_seed(5)
+    joint = torch.randn(b, s, nh * p + 2 * n, generator=g).to(cuda_device,
+                                                               torch.bfloat16)
+    x = joint[..., :nh * p].reshape(b, s, nh, p)
+    bm, cm = joint[..., nh * p:nh * p + n], joint[..., nh * p + n:]
+    dt = (torch.rand(b, s, nh, generator=g) * 0.5 + 0.1).to(cuda_device)
+    a = -torch.exp(torch.randn(nh, generator=g) * 0.3).to(cuda_device)
+    want = ss.ssd_scan_plain(x, dt, a, bm, cm, chunk=64)
+    deepest = ss.kernel_depth(64, p=p, n=n, itemsize=2, n_tiles=s // ss.KQ)
+    for depth in (1, 2, 5, deepest):
+        got = ss.ssd_scan(x, dt, a, bm, cm, chunk=64, depth=depth)
+        assert autotune.last_choice("ssd_scan") == depth
+        _ssd_close(got, want, torch.bfloat16)
+    assert deepest > 5
+
+
+def test_ssm_forward_runs_the_kernel(cuda_device):
+    """A reduced mamba2 layer on the card: its prefill scan is one K4
+    launch, and agrees with the same layer on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.params import initialize
+
+    cfg = get_config("mamba2-130m").reduced().replace(dtype="float32")
+    g = torch.Generator()
+    g.manual_seed(3)
+    p = initialize(ssm.ssm_param_specs(cfg), g, "cpu")
+    x = torch.randn(2, 64, cfg.d_model, generator=g) * 0.5
+    want = ssm.ssm_forward(p, x, cfg)
+    got = ssm.ssm_forward({k: t.to(cuda_device) for k, t in p.items()},
+                          x.to(cuda_device), cfg)
+    assert launch_counts()["ssd_scan"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+
+
+def test_ssd_scan_raises_instead_of_falling_back(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    x, dt, a, bm, cm = _ssd_problem(cuda_device, 1, 64, 2, 16, 16)
+    with pytest.raises(TypeError):          # no f16 kernel
+        ss.ssd_scan(x.half(), dt, a, bm.half(), cm.half(), chunk=16)
+    with pytest.raises(TypeError):          # B in another type than x
+        ss.ssd_scan(x, dt, a, bm.bfloat16(), cm, chunk=16)
+    with pytest.raises(ValueError):         # rows off the 16-byte unit
+        ss.ssd_scan(x[..., :3].contiguous(), dt, a, bm, cm, chunk=16)
+    with pytest.raises(ValueError):         # state wider than the kernel's
+        wide = torch.zeros(1, 64, 160, device=cuda_device)
+        ss.ssd_scan(x, dt, a, wide, wide, chunk=16)
+    with pytest.raises(ValueError):         # mixed devices
+        ss.ssd_scan(x, dt.cpu(), a, bm, cm, chunk=16)
+    assert launch_counts()["ssd_scan"] == 0
