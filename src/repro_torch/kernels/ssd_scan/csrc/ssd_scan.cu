@@ -62,7 +62,7 @@ using repro::cp_async_wait_pending;
 using repro::from_f32;
 using repro::to_f32;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;  // 16 warps: more loads in flight per SM than 8
 constexpr int kWarps = kThreads / 32;
 constexpr int kQ = 32;            // rows per tile: one warp lane per row
 constexpr int kMaxNPerLane = 4;   // N <= 128

@@ -5,7 +5,10 @@ the GPU machine (``python -m pytest -q tests/test_torch_kernels_cuda.py``).
 Without a CUDA device every test skips: a CUDA kernel has no CPU mode.
 Tolerances: 2e-3 in f32, 3e-2 in bf16 (the reference's parity bounds;
 in bf16 3e-2 + 3e-2 x |value| for the grouped matmul, whose sums run in
-another order than the plain version's);
+another order than the plain version's); decode attention, whose outputs
+over randn K/V are ~0.05, is held tighter: 2e-4 in f32, 3e-3 + 1e-2 x
+|value| in bf16 (one bf16 rounding step of the output is at most 2^-7 of
+it);
 the gathers are copies and must be bitwise; the triad takes the reference
 test's 1e-5 (f32) and 2e-2 (bf16).
 """
@@ -23,6 +26,8 @@ from repro_torch.kernels.stream_copy import stream_copy as sc
 from repro_torch.launch.kernel_bench import coalesce_patterns
 
 TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+DECODE_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4),
+              torch.bfloat16: dict(atol=3e-3, rtol=1e-2)}
 
 
 @pytest.fixture(autouse=True)
@@ -79,8 +84,7 @@ def test_kernel_matches_plain(cuda_device, dtype, h, kh, d):
         out = da.paged_flash_decode(*args, depth=depth).float()
         torch.cuda.synchronize()
         assert torch.isfinite(out).all()
-        torch.testing.assert_close(out[:-1], ref[:-1], rtol=TOL[dtype],
-                                   atol=TOL[dtype])
+        torch.testing.assert_close(out[:-1], ref[:-1], **DECODE_TOL[dtype])
     assert launch_counts()["paged_decode"] == 3
 
 
@@ -90,7 +94,8 @@ def test_kernel_page_sizes(cuda_device, blk):
                     blk=blk, seed=blk)
     out = da.paged_flash_decode(*args)
     ref = da.paged_flash_decode_plain(*args)
-    torch.testing.assert_close(out[:-1], ref[:-1], rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(out[:-1], ref[:-1],
+                               **DECODE_TOL[torch.float32])
 
 
 def test_kernel_raises_instead_of_falling_back(cuda_device):
@@ -121,8 +126,8 @@ def test_kernel_deep_ring(cuda_device, depth):
     out = da.paged_flash_decode(*args, depth=depth)
     assert autotune.last_choice("paged_decode") == depth
     ref = da.paged_flash_decode_plain(*args)
-    torch.testing.assert_close(out[:-1].float(), ref[:-1].float(), rtol=3e-2,
-                               atol=3e-2)
+    torch.testing.assert_close(out[:-1].float(), ref[:-1].float(),
+                               **DECODE_TOL[torch.bfloat16])
 
 
 # ------------------------------------------- MoE grouped matmul (K2)
@@ -375,8 +380,8 @@ def test_flash_decode_matches_plain(cuda_device, dtype, h, kh, d, s):
                 itemsize=q.element_size(), n_tiles=-(-(pos + 1) // 128))
             assert ran == want
             assert out.dtype == dtype and torch.isfinite(out.float()).all()
-            torch.testing.assert_close(out.float(), ref, rtol=TOL[dtype],
-                                       atol=TOL[dtype])
+            torch.testing.assert_close(out.float(), ref,
+                                       **DECODE_TOL[dtype])
     assert launch_counts()["flash_decode"] == 9
 
 
@@ -386,7 +391,7 @@ def test_flash_decode_small_tiles_and_past_the_cache(cuda_device):
     for pos in (31, 32, 99, 150):
         out = da.flash_decode(q, k, v, pos, blk=32, depth=3)
         torch.testing.assert_close(out, da.flash_decode_plain(q, k, v, pos),
-                                   rtol=2e-3, atol=2e-3)
+                                   **DECODE_TOL[torch.float32])
 
 
 def test_dense_decode_step_writes_in_place_and_runs_the_kernel(cuda_device):
@@ -400,8 +405,8 @@ def test_dense_decode_step_writes_in_place_and_runs_the_kernel(cuda_device):
     assert ok is kc and ov is vc
     assert torch.equal(kc[:, 17], nk[:, 0]) and torch.equal(vc[:, 18:], v[:, 18:])
     ref = da.flash_decode_plain(q, kc, vc, 17)
-    torch.testing.assert_close(out[:, 0].float(), ref.float(), rtol=3e-2,
-                               atol=3e-2)
+    torch.testing.assert_close(out[:, 0].float(), ref.float(),
+                               **DECODE_TOL[torch.bfloat16])
     assert launch_counts()["flash_decode"] == 1
 
 
