@@ -30,8 +30,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      in f32 (1e-5) and bf16 (2e-2);
   3c. the dense engine's kernels against their plain versions: dense
      flash-decode at the five head shapes above over a cache of 1056 rows
-     (off the 128-row tile), pos 0, mid and last, f32 (2e-3) and bf16
-     (3e-2), depths 1, 2 and solved; the SSD scan at mamba2-130m's (nh 24,
+     (off the 128-row tile), pos 0, mid and last, f32 (2e-4) and bf16
+     (3e-3 + 1e-2 x |value|), depths 1, 2 and solved, then at the dense
+     path's shape (B 8, yi-6b's heads) split 1, 2 and the plan's ways, pos
+     in the first split, at split boundaries +-1 and past S; the SSD scan at mamba2-130m's (nh 24,
      p 64, n 128, chunk 256), hymba-1.5b's (nh 50, p 64, n 16) and a
      reduced shape (chunk 16), x/B/C in f32 and in bf16 beside f32 dt,
      depths 1, 2 and solved, and a strong decay (dt 8, A -1), at 2e-3 +
@@ -61,9 +63,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      nothing else; decode tok/s and per-token p50/p99; then a profile of
      dense decode steps (device time by kernel, busy share), as phase 7;
   6c. dense flash-decode times at 5c's decode shape (B 8, S 1056, pos
-     1040; the method of phase 6): kernel, plain version, and as a
-     yardstick scaled_dot_product_attention over the cache sliced to
-     pos + 1; bound: the live K/V bytes over 3.35 TB/s;
+     1040; the method of phase 6) and at B 1: kernel (with the splits,
+     tile height and depth it ran), plain version, and as a yardstick
+     scaled_dot_product_attention over the cache sliced to pos + 1; bound:
+     the live K/V bytes over 3.35 TB/s; then a sweep of tile height (64,
+     128) and splits at B 8, each beside the bound;
   5d. `serve(engine="dense")` for mamba2-130m at full width, bf16, random
      weights from seed 0, batch 8, prompts of 2048 tokens (8 chunks of
      256), 32 new tokens: the SSD scan 24 times (once per layer of the
@@ -723,6 +727,7 @@ def check_dense_parity(torch) -> None:
     in f32, 3e-2 + 3e-2 x |value| for bf16 y; its f32 state 2e-3 +
     2e-3 x |value| in both."""
     from repro_torch.core import autotune
+    from repro_torch.kernels import ring
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
@@ -744,6 +749,25 @@ def check_dense_parity(torch) -> None:
                     _close(f"flash_decode {name} S={DENSE_S} pos={pos} "
                            f"{dtype_name} depth={depth} (ran {ran})", out,
                            ref, *DECODE_TOL[dtype_name])
+    # the dense path's shape, split 1 and 2 ways and as planned (9 at B 8
+    # on 132 SMs): pos in the first split (the later ones empty), at the
+    # first split boundary +-1, past S
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn(8, 32, 128, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(8, DENSE_S, 4, 128, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        for splits in (1, 2, None):
+            n_split, per = da.split_plan(8, 4, DENSE_S, da.FLASH_BLK,
+                                         ring.sm_count(q.device), splits)
+            edge = per * da.FLASH_BLK
+            for pos in (0, 30, edge - 1, edge, edge + 1, 1040, 1055, 1500):
+                _close(f"flash_decode B=8 H=32 KH=4 D=128 S={DENSE_S} "
+                       f"pos={pos} {dtype_name} splits={splits} (ran "
+                       f"{n_split} x {per} tiles of {da.FLASH_BLK})",
+                       da.flash_decode(q, k, v, pos, splits=splits),
+                       da.flash_decode_plain(q, k, v, pos),
+                       *DECODE_TOL[dtype_name])
     for name, b, s, nh, p, n, chunk in SSD_SHAPES:
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
@@ -877,19 +901,31 @@ def check_flash_decode_path_shape(torch, q, k, v, pos):
     return err, depth
 
 
-def time_flash_decode(torch, cfg):
-    """K3 at the dense yi-6b decode shape (B 8, H 32, KH 4, D 128, S 1056,
-    pos 1040), one call per layer's cache: the kernel, its plain version,
-    and as a yardstick scaled_dot_product_attention over the cache sliced
-    to pos + 1. The bound is the live K/V rows, q and the output over
-    3.35 TB/s, or the flops over 989 TFLOP/s if larger."""
+def flash_decode_bound(b, h, kh, d, pos):
+    """(bound ms, bound_by, bytes, flops) of dense decode attention: the
+    live K/V rows, q and the output over 3.35 TB/s, or the flops over
+    989 TFLOP/s (bf16) if larger."""
+    nbytes = 2 * b * (pos + 1) * kh * d * 2 + 2 * b * h * d * 2
+    flops = 4 * b * h * d * (pos + 1)
+    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
+
+
+def time_flash_decode(torch, cfg, b, sweep=False):
+    """K3 at the dense yi-6b decode shape (H 32, KH 4, D 128, S 1056,
+    pos 1040) at batch `b`, one call per layer's cache: the kernel, its
+    plain version, and as a yardstick scaled_dot_product_attention over
+    the cache sliced to pos + 1, beside the bound. With `sweep`, the
+    kernel again at tile heights 64 and 128 and several split counts."""
     import torch.nn.functional as F
 
     from repro_torch.core import autotune
+    from repro_torch.kernels import ring
     from repro_torch.kernels.decode_attention import decode_attention as da
 
     kw = DENSE_SERVE["yi-6b"]
-    b, s = kw["batch"], kw["prompt_len"] + kw["gen"]
+    s = kw["prompt_len"] + kw["gen"]
     pos = s - 16
     h, kh, d = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda")
@@ -905,6 +941,8 @@ def time_flash_decode(torch, cfg):
         layers.append((q, k, v, pos))
     q, k, v, _ = layers[0]
     err, depth = check_flash_decode_path_shape(torch, q, k, v, pos)
+    sms = ring.sm_count(q.device)
+    n_split, per = da.split_plan(b, kh, s, da.FLASH_BLK, sms)
 
     sliced = [(q[:, :, None], k[:, :pos + 1].transpose(1, 2),
                v[:, :pos + 1].transpose(1, 2)) for q, k, v, _ in layers]
@@ -917,20 +955,37 @@ def time_flash_decode(torch, cfg):
     library_ms = median_ms(torch, sdpa, sliced)
     kernel_b = median_ms(torch, da.flash_decode, layers)
     ms = statistics.median([kernel_a, kernel_b])
-    nbytes = 2 * b * (pos + 1) * kh * d * 2 + 2 * b * h * d * 2
-    flops = 4 * b * h * d * (pos + 1)
-    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
-    bound_ms = max(bytes_s, ops_s) * 1e3
-    bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    bound_ms, bound_by, nbytes, flops = flash_decode_bound(b, h, kh, d, pos)
     shape = {"B": b, "H": h, "KH": kh, "D": d, "S": s, "pos": pos,
-             "blk": 128, "dtype": "bfloat16", "depth": depth}
+             "blk": da.FLASH_BLK, "dtype": "bfloat16", "depth": depth,
+             "splits": n_split, "tiles_per_split": per,
+             "blocks": b * kh * n_split, "sms": sms}
     log(f"times flash_decode {json.dumps(shape)}: kernel "
-        f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{kernel_a:.6f}/{kernel_b:.6f} ms, plain {plain_ms:.6f} ms, sdpa "
+        f"{library_ms:.6f} ms, bound {bound_ms:.7f} ms ({bound_by}, "
         f"{nbytes} B, {flops} flop), {bound_ms / ms:.1%} of the bound")
+    if sweep:
+        for blk in (64, 128):
+            seen = set()
+            for splits in (None, 1, 2, 3, 5, 9, 17):
+                plan = da.split_plan(b, kh, s, blk, sms, splits)
+                if plan in seen:
+                    continue
+                seen.add(plan)
+
+                def fn(q, k, v, pos, blk=blk, splits=plan[0]):
+                    return da.flash_decode(q, k, v, pos, blk=blk,
+                                           splits=splits)
+
+                t = median_ms(torch, fn, layers)
+                log(f"sweep flash_decode B={b} blk={blk} splits={plan[0]} "
+                    f"tiles_per_split={plan[1]} depth="
+                    f"{autotune.last_choice('flash_decode')} blocks="
+                    f"{b * kh * plan[0]}{' (plan)' if splits is None else ''}"
+                    f": {t:.6f} ms, {bound_ms / t:.1%} of the bound")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "shape": shape}
+            "bound_by": bound_by, "splits": n_split, "shape": shape}
 
 
 def time_ssd_scan(torch, cfg):
@@ -1403,8 +1458,13 @@ def main() -> int:
 
     # the dense engine: yi-6b on the same weights, then mamba2-130m
     _, _, dense_counts = serve_dense_path(torch, "yi-6b", yi_params)
-    fd_timing = time_flash_decode(torch, cfg)
-    profile_dense_steps(torch, yi_cfg, yi_params)
+    fd_timing = time_flash_decode(torch, cfg, 8, sweep=True)
+    fd_b1 = time_flash_decode(torch, cfg, 1)
+    _, by_kernel, _ = profile_dense_steps(torch, yi_cfg, yi_params)
+    k3_ms = sum(ms for key, ms in by_kernel.items()
+                if "flash_split_kernel" in key or "flash_merge_kernel" in key)
+    log(f"yi-6b dense decode step: flash_decode (split pass + merge) "
+        f"{k3_ms:.3f} ms of {sum(by_kernel.values()):.3f} ms device time")
     del yi_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1479,7 +1539,10 @@ def main() -> int:
         "launches": dense_counts["flash_decode"],
         "parity": "ok",
         **{k: fd_timing[k] for k in keys},
+        "splits": fd_timing["splits"],
         "shape": fd_timing["shape"],
+        "at_other_shapes": {"B=1": {k: fd_b1[k] for k in
+                                    keys + ("splits", "shape")}},
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -1,0 +1,184 @@
+"""Hold broken copies of the dense decode-attention kernel (K3,
+``flash_decode.cu``) and the SSD-scan kernel (K4, ``ssd_scan.cu``) to the
+tolerances ``chip_smoke.py`` holds the real ones to, on the card.
+
+Each broken copy ("mutant") is one textual change to a copy of the source,
+made in a temporary directory outside the checkout and built there with
+nvcc; the wrapper is pointed at it, and its output is compared with the
+plain PyTorch version on the inputs `chip_smoke.py` uses. A tolerance is
+worth something only if every mutant fails it; the unchanged source runs
+first, as a control, and must pass.
+
+    python3 scripts/kernel_mutants.py      (needs a CUDA card and nvcc)
+
+Prints one line per (mutant, case) and a JSON summary; exits 1 if the
+control fails anywhere or any mutant passes anywhere.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402  (its tolerances and operands)
+
+KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+FLASH = "decode_attention/csrc/flash_decode.cu"
+SSD = "ssd_scan/csrc/ssd_scan.cu"
+
+# name -> (source, the text replaced, its replacement)
+MUTANTS = {
+    "K3 merge without exp(m_i - m)": (
+        FLASH, "const float w = exp2f(m_i - M);", "const float w = 1.f;"),
+    "K3 last row of each split dropped": (
+        FLASH, "const int row_end = min(n_keys, row0 + tiles_per_split * blk);",
+        "const int row_end = min(n_keys, row0 + tiles_per_split * blk) - 1;"),
+    "K3 one row past pos": (
+        FLASH, "const int n_keys = pos + 1 < S ? pos + 1 : S;",
+        "const int n_keys = pos + 2 < S ? pos + 2 : S;"),
+    "K4 diagonal (intra-chunk) term dropped": (
+        SSD, "for (int j = 0; j <= r; ++j) {\n        const float s = sm[r * kQ + j];",
+        "for (int j = 0; j < 0; ++j) {\n        const float s = sm[r * kQ + j];"),
+    "K4 inter-chunk term dropped": (
+        SSD, "const float ec = ecs_s[r];", "const float ec = 0.f;"),
+    "K4 state not decayed between tiles": (
+        SSD, "const float decay = expf(cs_s[kQ - 1]);", "const float decay = 1.f;"),
+    "K4 last tile dropped": (
+        SSD, "for (int i = 0; i < n_tiles; ++i) {\n    const int slot = i % depth;\n    const int t0",
+        "for (int i = 0; i < n_tiles - 1; ++i) {\n    const int slot = i % depth;\n    const int t0"),
+}
+
+
+def patched_copy(tmp: Path, name: str, rel: str, edits) -> Path:
+    """A copy of the kernels tree under `tmp` / `name` (the sources include
+    ../../csrc/coro_ring.cuh) with `edits`, (text, replacement) pairs, made
+    to the source `rel`; each text must occur exactly once. Returns the
+    edited source's path."""
+    tree = tmp / name
+    shutil.copytree(KERNELS, tree, ignore=shutil.ignore_patterns(
+        "*.py", "__pycache__"))
+    src = tree / rel
+    text = src.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: the text to change occurs "
+                             f"{text.count(old)} times in {rel}: {old!r}")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return src
+
+
+def make_copies(tmp: Path):
+    """{name: mutated source path}."""
+    return {name: patched_copy(tmp, f"m{i}", rel, [(old, new)])
+            for i, (name, (rel, old, new)) in enumerate(MUTANTS.items())}
+
+
+def k3_cases(torch):
+    """yi-6b's heads (H 32, KH 4, D 128) over S 1056: B 8 pos 1040 (the
+    dense path's decode shape) and B 3 pos 528, f32 and bf16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for b, pos in ((8, 1040), (3, 528)):
+        base = [torch.randn(*shape, generator=gen, device="cuda")
+                for shape in ((b, 32, 128), (b, 1056, 4, 128),
+                              (b, 1056, 4, 128))]
+        for dtype_name in ("float32", "bfloat16"):
+            args = [t.to(getattr(torch, dtype_name)) for t in base]
+            yield f"B={b} pos={pos} {dtype_name}", args, pos, dtype_name
+
+
+def k4_cases(torch):
+    """mamba2-130m's prefill shape (b 8, s 2048, nh 24, p 64, n 128, chunk
+    256), x/B/C in f32 and in bf16, dt f32."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    for dtype_name in ("float32", "bfloat16"):
+        args = chip_smoke.ssd_operands(torch, gen, 8, 2048, 24, 64, 128,
+                                       dtype=getattr(torch, dtype_name))
+        yield f"b=8 s=2048 x/B/C {dtype_name}", args, dtype_name
+
+
+def within(torch, got, want, atol, rtol) -> bool:
+    got, want = got.float(), want.float()
+    return bool(torch.isfinite(got).all()) and bool(
+        torch.allclose(got, want, atol=atol, rtol=rtol))
+
+
+def run(torch, kernel: str, source):
+    """[(case, max_abs_err, passed)] of the kernel built from `source`."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    rows = []
+    if kernel == "K3":
+        da.FLASH_SOURCE = source
+        for case, (q, k, v), pos, dtype_name in k3_cases(torch):
+            got = da.flash_decode(q, k, v, pos)
+            want = da.flash_decode_plain(q, k, v, pos)
+            atol, rtol = chip_smoke.DECODE_TOL[dtype_name]
+            err = float((got.float() - want.float()).abs().max())
+            rows.append((case, err, within(torch, got, want, atol, rtol)))
+    else:
+        ss.SOURCE = source
+        for case, args, dtype_name in k4_cases(torch):
+            y, h = ss.ssd_scan(*args, chunk=256)
+            ry, rh = ss.ssd_scan_plain(*args, chunk=256)
+            tol_y, tol_h = chip_smoke.TOL[dtype_name], chip_smoke.TOL["float32"]
+            err = max(float((y.float() - ry.float()).abs().max()),
+                      float((h - rh).abs().max()))
+            ok = within(torch, y, ry, tol_y, tol_y) and \
+                within(torch, h, rh, tol_h, tol_h)
+            rows.append((case, err, ok))
+    torch.cuda.synchronize()
+    return rows
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_mutants: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    controls = {"K3": da.FLASH_SOURCE, "K4": ss.SOURCE}
+    bad = []
+    summary = {}
+    with tempfile.TemporaryDirectory(prefix="kernel_mutants_") as tmp:
+        tmp = Path(tmp)
+        build.BUILD_DIR = tmp / "build"
+        mutants = make_copies(tmp)
+        build.build([*controls.values(), *mutants.values()])
+        for kernel, source in controls.items():
+            for case, err, ok in run(torch, kernel, source):
+                print(f"MUT control {kernel} {case}: err={err:.3e} "
+                      f"{'pass' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    bad.append(f"control {kernel} {case}")
+        for name, source in mutants.items():
+            verdicts = []
+            for case, err, ok in run(torch, name.split()[0], source):
+                print(f"MUT {name} {case}: err={err:.3e} "
+                      f"{'pass' if ok else 'FAIL'}", flush=True)
+                verdicts.append("pass" if ok else "FAIL")
+                if ok:
+                    bad.append(f"{name} {case}")
+            summary[name] = verdicts
+    print(json.dumps({"mutants": summary, "caught": not bad}), flush=True)
+    if bad:
+        print("not caught: " + "; ".join(bad), file=sys.stderr)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,32 +7,59 @@
 //   o[b, h] = softmax_j(q[b, h] . K[b, j, kh] * D^-0.5) V[b, j, kh]   over j <= pos
 //
 // on caches [B, S, KH, D] with one scalar `pos` for the whole batch, with an
-// f32 online softmax (m, l, acc) over tiles of `blk` key rows, and the output
-// acc / max(l, 1e-30) cast to the input type. This is the dense serving
-// engine's decode attention: every attention layer, every decode step.
+// f32 online softmax (m, l, acc) and the output acc / max(l, 1e-30) cast to
+// the input type. This is the dense serving engine's decode attention:
+// every attention layer, every decode step.
 //
 // What bounds it: bytes. Each key row is read once and used for G query
 // heads (2 * G flops per byte in bf16), far below the ~295 flops/byte at
 // which the H100 becomes compute-bound, so its floor is the live K/V rows
-// (positions <= pos) over 3.35 TB/s. What the design does about it:
-//   * one thread block per (sequence, KV head), so every K/V byte crosses
-//     from global memory once and serves all G query heads of its group;
-//   * it walks only the ceil((pos + 1) / blk) tiles that hold a live key,
-//     where the Pallas kernel walks all S / blk tiles with the tail masked,
-//     and never loads a row at or past min(pos + 1, S): S need not be a
-//     multiple of blk (the engine pads the cache to prompt + generation);
-//   * a ring of `depth` [blk, D] K and V tiles in shared memory is kept in
-//     flight with cp.async (the shared coro_ring.cuh), so the copy of tile
-//     i + depth overlaps the math on tile i; `depth` is the pipeline depth
-//     the host solves from the kernel's CoroSpec, clamped to what shared
-//     memory holds for this block's tile;
-//   * the scaled query tile stays in shared memory and the running
-//     max/sum and the output accumulator in registers, all in f32; each
-//     tile costs four block barriers, one warp reduction per (row, head)
-//     for the scores and one per head for the softmax update.
-// Later work: split the sequence over several blocks when B * KH is under
-// the 132 SMs (flash-decoding; yi-6b at batch 8 fills 32), the query in
-// registers and scores without a warp reduction per row, TMA tile loads.
+// (positions <= pos) over 3.35 TB/s: 17.2 MB, 5.1 us at yi-6b's batch-8
+// decode shape. One SM pulls only ~30 GB/s, so the card reaches its rate
+// only with every SM loading, and a call this short also pays for its
+// launches and its epilogue. What the design does about it:
+//   * the sequence is split over blocks (flash-decoding): the grid is
+//     (B * KH, n_split), each split a contiguous range of `blk`-row tiles,
+//     so that B * KH = 32 (yi-6b at batch 8) still puts two or more blocks
+//     on every one of the 132 SMs. The host plans n_split from B, KH, S,
+//     blk and the SM count; the grid depends on S, not on pos. Each split
+//     leaves an f32 partial (m, l, acc) per head; a second kernel here, one
+//     block per (b, kh, head) and one thread per column, merges a head's
+//     partials with the rescale exp(m_i - m). With one split the split pass
+//     writes the output itself and no merge runs;
+//   * both kernels are launched with programmatic dependent launch: each
+//     is scheduled while the kernel before it still runs and waits
+//     (griddepcontrol.wait) before its first read, so neither launch's
+//     latency lies between two kernels on the device;
+//   * a ring of `depth` K and V tiles in shared memory is kept in flight
+//     with cp.async (the shared coro_ring.cuh); `depth` is the host's
+//     solved pipeline depth, clamped to the tiles of one split. A split
+//     loads only rows below min(pos + 1, S): one past pos is never read,
+//     and a split wholly past pos writes an empty partial (m = -1e30,
+//     l = 0, acc = 0);
+//   * bf16 runs both products on the tensor cores with
+//     mma.sync.m16n8k16 (f32 accumulate), query heads as the M dimension
+//     (G padded to 16; G = 32 takes two M tiles; wgmma's 64-row tile would
+//     be three quarters padding, for no gain on memory-bound work). Each
+//     warp takes 16 key rows at a time: the scores Q K^T from the query,
+//     held unscaled in registers as A fragments, and K read with ldmatrix;
+//     D^-0.5 (and log2 e, for exp2) scales the f32 scores. The online
+//     softmax runs on the score fragments in registers with quad shuffles
+//     only. P is rounded to bf16 and reused in registers as the A operand
+//     of P V, with V read by ldmatrix.trans. That rounding of P (relative
+//     2^-9) is the one the reference engine's own decode attention makes
+//     when it casts P to q's type before P V (models/common.py:
+//     _single_decode). K/V rows sit 16 bytes apart from a multiple of 128,
+//     so ldmatrix's eight row reads hit distinct banks;
+//   * f32 runs the same split, ring and merge on CUDA cores, the query in
+//     registers, one warp reduction per (row, head): a correctness path
+//     (TF32 would round q and K to 10 bits of mantissa);
+//   * every warp keeps its own (m, l, acc) over its rows; the block merges
+//     its four warps through shared memory once, after its last tile, with
+//     each head's warp weights computed once and the scratch rows padded
+//     off a single bank.
+// Every K/V row address comes from one device function (DenseRows); a
+// paged cache would give the same body a block-table row function.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
@@ -50,24 +77,38 @@ using repro::cp_async_commit;
 using repro::cp_async_wait;
 using repro::cp_async_wait_pending;
 using repro::from_f32;
-using repro::to_f32;
 
-// 512 threads (16 warps): at the dense engine's shapes B * KH blocks fill
-// few SMs (32 of 132 at yi-6b, batch 8), one block each, so the block's
-// own warps are what hides shared-memory and shuffle latency (the first
-// version's 128 threads ran the yi-6b decode shape far slower: PERF.md).
-constexpr int kThreads = 512;
+constexpr int kThreads = 128;  // four warps, each over its own 16-row chunks of a tile
 constexpr int kWarps = kThreads / 32;
+constexpr int kChunkRows = 16;  // key rows a warp takes at a time (the mma K of P V)
+constexpr int kMergeThreads = 128;  // the largest head dim: one thread per column
 constexpr int kMaxGroup = 32;  // query heads per KV head this kernel takes
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kAccPad = 8;  // floats after each head row of the merge scratch
 
-// Dynamic shared memory: K ring, V ring ([depth][blk][D] each, input type),
-// then f32 q [G][D], p [G][blk], corr [G], l [G]. The same formula is
-// repro_torch/kernels/decode_attention/decode_attention.py:_smem_bytes.
-size_t smem_bytes(int G, int D, int blk, int depth, int itemsize) {
-  return static_cast<size_t>(2) * depth * blk * D * itemsize +
-         sizeof(float) * (static_cast<size_t>(G) * D + static_cast<size_t>(G) * blk + 2 * G);
+// Dynamic shared memory: a K ring and a V ring ([depth][blk][D + pad] each,
+// input type, rows padded by 16 bytes); after the last tile the same bytes
+// hold every warp's f32 (m [GP], l [GP], acc [GP][D + kAccPad]) for the block's
+// merge. GP is G padded: to 16 or 32 in bf16, to a power of two in f32.
+// The kAccPad floats of padding put the eight head rows of an m16n8 fragment's
+// stores on different banks (unpadded, D = 128 puts them all on one).
+// The same formula is
+// repro_torch/kernels/decode_attention/decode_attention.py:_flash_smem_bytes.
+size_t smem_bytes(int GP, int D, int blk, int depth, int itemsize) {
+  const size_t ring = static_cast<size_t>(2) * depth * blk * (D + 16 / itemsize) * itemsize;
+  const size_t merge = sizeof(float) * kWarps * static_cast<size_t>(GP) * (D + kAccPad + 2);
+  return ring > merge ? ring : merge;
 }
+
+// Element offset of key row `row` of sequence b, KV head kh, in a dense
+// [B, S, KH, D] cache: the only place the kernel computes a K/V address.
+struct DenseRows {
+  int S, KH, D;
+  __device__ __forceinline__ int64_t operator()(int b, int row, int kh) const {
+    return ((static_cast<int64_t>(b) * S + row) * KH + kh) * D;
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -75,242 +116,508 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
 }
 
-// GMAX: a power of two >= G, the query heads one KV head serves; it sizes
-// the per-thread register arrays at compile time.
-template <typename T, int D, int GMAX>
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// d += a @ b for one 16x8x16 tile: bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One warp's online softmax over the key rows it is given, on the tensor
+// cores (bf16). MT M tiles of 16 query heads. Fragment layouts are PTX's
+// for m16n8k16: lane = 4 * g + t holds rows g and g + 8, columns 2t, 2t + 1.
+template <int D, int MT>
+struct MmaWarp {
+  static constexpr int kStride = D + 8;  // elements between rows in the ring
+  uint32_t qa[MT][D / 16][4];            // q, A fragments over the head dim
+  float acc[MT][D / 8][4];               // P V, C fragments over the head dim
+  float m[MT][2], l[MT][2];              // rows g and g + 8; l is this lane's part
+
+  __device__ __forceinline__ void init(const __nv_bfloat16* qg, int G, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = mt * 16 + g + 8 * (e & 1);
+          const int d = kk * 16 + 2 * t + 8 * (e >> 1);
+          qa[mt][kk][e] = h < G ? *reinterpret_cast<const uint32_t*>(qg + h * D + d) : 0u;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[mt][r] = kNegInf;
+        l[mt][r] = 0.f;
+      }
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][dn][e] = 0.f;
+    }
+  }
+
+  // Key rows ks[0 .. 16) of which the first `live` exist (V rows past them
+  // are zero in the ring; K rows past them score -1e30).
+  __device__ __forceinline__ void chunk(const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+                                        int live, float scale_log2, int lane) {
+    const int t = lane & 3;
+    const int j = lane >> 3, r8 = lane & 7;  // the 8x8 matrix and row this lane addresses
+    float s[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.f;
+    // S = Q K^T: per 16 of the head dim, one ldmatrix gives the B fragments
+    // of key rows 0-7 ({kb0, kb1}) and 8-15 ({kb2, kb3}).
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, ks + ((j >> 1) * 8 + r8) * kStride + kk * 16 + (j & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(s[mt][0], qa[mt][kk], kb);
+        mma_bf16(s[mt][1], qa[mt][kk], kb + 2);
+      }
+    }
+    // Scale into the log2 domain, mask, and update each head row's state.
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[mt][nt][e] = nt * 8 + 2 * t + (e & 1) < live ? s[mt][nt][e] * scale_log2 : kNegInf;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(fmaxf(s[mt][0][2 * r], s[mt][0][2 * r + 1]),
+                         fmaxf(s[mt][1][2 * r], s[mt][1][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[mt][r], mx);
+        const float corr = exp2f(m[mt][r] - m_new);
+        m[mt][r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2f(s[mt][nt][2 * r + c] - m_new);
+            s[mt][nt][2 * r + c] = p;
+            sum += p;
+          }
+        l[mt][r] = l[mt][r] * corr + sum;
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn) {
+          acc[mt][dn][2 * r] *= corr;
+          acc[mt][dn][2 * r + 1] *= corr;
+        }
+      }
+    }
+    // O += P V: the score fragments of key rows 0-7 and 8-15 are the A
+    // fragment of one k16 step; per 16 of the head dim, one ldmatrix.trans
+    // gives the B fragments of columns 0-7 ({vb0, vb1}) and 8-15 ({vb2, vb3}).
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      pa[mt][0] = pack_bf16(s[mt][0][0], s[mt][0][1]);
+      pa[mt][1] = pack_bf16(s[mt][0][2], s[mt][0][3]);
+      pa[mt][2] = pack_bf16(s[mt][1][0], s[mt][1][1]);
+      pa[mt][3] = pack_bf16(s[mt][1][2], s[mt][1][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vs + ((j & 1) * 8 + r8) * kStride + dp * 16 + (j >> 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * dp], pa[mt], vb);
+        mma_bf16(acc[mt][2 * dp + 1], pa[mt], vb + 2);
+      }
+    }
+  }
+
+  // This warp's (m, l, acc) into shared memory: m, l [GP], acc [GP][D + kAccPad].
+  __device__ __forceinline__ void store(float* sm_m, float* sm_l, float* sm_acc, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float lr = l[mt][r];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const int h = mt * 16 + g + 8 * r;
+        if (t == 0) {
+          sm_m[h] = m[mt][r];
+          sm_l[h] = lr;
+        }
+#pragma unroll
+        for (int dn = 0; dn < D / 8; ++dn)
+          *reinterpret_cast<float2*>(sm_acc + h * (D + kAccPad) + dn * 8 + 2 * t) =
+              make_float2(acc[mt][dn][2 * r], acc[mt][dn][2 * r + 1]);
+      }
+    }
+  }
+};
+
+// The same state on CUDA cores (f32): lane owns head-dim columns lane,
+// lane + 32, ... of every head; one warp reduction per (row, head) gives a
+// score, and every lane then holds the same m and l.
+template <int D, int GP_>
+struct SimtWarp {
+  static constexpr int GP = GP_;
+  static constexpr int kStride = D + 4;
+  static constexpr int kDPerLane = (D + 31) / 32;
+  float qr[GP][kDPerLane], acc[GP][kDPerLane];
+  float m[GP], l[GP];
+  int G;
+
+  __device__ __forceinline__ void init(const float* qg, int G_, int lane) {
+    G = G_;
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int x = 0; x < kDPerLane; ++x) {
+        const int d = lane + 32 * x;
+        qr[g][x] = g < G && d < D ? qg[g * D + d] : 0.f;
+        acc[g][x] = 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void chunk(const float* ks, const float* vs, int live,
+                                        float scale_log2, int lane) {
+    for (int jr = 0; jr < live; ++jr) {
+      float kv[kDPerLane], vv[kDPerLane];
+#pragma unroll
+      for (int x = 0; x < kDPerLane; ++x) {
+        const int d = lane + 32 * x;
+        kv[x] = d < D ? ks[jr * kStride + d] : 0.f;
+        vv[x] = d < D ? vs[jr * kStride + d] : 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        if (g < G) {
+          float part = 0.f;
+#pragma unroll
+          for (int x = 0; x < kDPerLane; ++x) part += qr[g][x] * kv[x];
+          const float sc = warp_sum(part) * scale_log2;
+          const float m_new = fmaxf(m[g], sc);
+          const float corr = exp2f(m[g] - m_new);
+          const float p = exp2f(sc - m_new);
+          m[g] = m_new;
+          l[g] = l[g] * corr + p;
+#pragma unroll
+          for (int x = 0; x < kDPerLane; ++x) acc[g][x] = acc[g][x] * corr + p * vv[x];
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* sm_m, float* sm_l, float* sm_acc, int lane) {
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      if (lane == 0) {
+        sm_m[g] = m[g];
+        sm_l[g] = l[g];
+      }
+#pragma unroll
+      for (int x = 0; x < kDPerLane; ++x) {
+        const int d = lane + 32 * x;
+        if (d < D) sm_acc[g * (D + kAccPad) + d] = acc[g][x];
+      }
+    }
+  }
+};
+
+template <typename T, int D, int GP>
+struct WarpOf {
+  using type = SimtWarp<D, GP>;
+};
+template <int D, int GP>
+struct WarpOf<__nv_bfloat16, D, GP> {
+  using type = MmaWarp<D, GP / 16>;
+};
+
+// The f32 partials of B * KH * n_split (b, kh, split) rows: acc [rows][G][D],
+// then m [rows][G], then l [rows][G].
+template <typename F>
+struct Partials {
+  F *acc, *m, *l;
+  __device__ __forceinline__ Partials(F* part, int rows, int G, int D)
+      : acc(part), m(part + static_cast<int64_t>(rows) * G * D), l(m + static_cast<int64_t>(rows) * G) {}
+};
+
+// Grid (B * KH, n_split): block (bkh, split) walks the key rows
+// [split * tiles_per_split * blk, ...) of sequence b = bkh / KH, KV head
+// kh = bkh % KH, up to n_keys = min(pos + 1, S).
+template <typename T, int D, int GP, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                        const T* __restrict__ v_cache, T* __restrict__ out, int H, int KH, int S,
-                        int blk, int n_keys, int depth, float scale) {
-  static_assert(kThreads % D == 0, "a thread keeps one head-dim column of the accumulator");
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
+    flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+                       const T* __restrict__ v_cache, T* __restrict__ out,
+                       float* __restrict__ part, Rows row_of, int H, int KH, int blk, int n_keys,
+                       int tiles_per_split, int depth, float scale_log2) {
+  using Warp = typename WarpOf<T, D, GP>::type;
+  constexpr int kStride = Warp::kStride;
+  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // elements per 16 B copy
+  constexpr int kChunksPerRow = D / kChunk;
+  const int bkh = blockIdx.x;
+  const int b = bkh / KH;
+  const int kh = bkh - b * KH;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int G = H / KH;
-  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // elements per 16 B copy
-  constexpr int kChunksPerRow = D / kChunk;
-  constexpr int kGStep = kThreads / D;                       // heads between a thread's columns
-  constexpr int kAccPerThread = (GMAX + kGStep - 1) / kGStep;
-  constexpr int kHeadsPerWarp = (GMAX + kWarps - 1) / kWarps;
-  constexpr int kDPerLane = (D + 31) / 32;
-  const int tile_elems = blk * D;
+  const int tile_elems = blk * kStride;
+  // Programmatic dependent launch (see launch_pdl): wait for the kernel
+  // before this one in the stream (it wrote q and the new cache row) before
+  // the first read, then let the merge kernel be scheduled; its blocks wait
+  // in griddepcontrol.wait until this grid has finished and its writes are
+  // visible.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_ring = reinterpret_cast<T*>(smem);
   T* v_ring = k_ring + static_cast<size_t>(depth) * tile_elems;
-  float* q_s = reinterpret_cast<float*>(v_ring + static_cast<size_t>(depth) * tile_elems);
-  float* p_s = q_s + G * D;    // scores, then probabilities, of one tile [G][blk]
-  float* c_s = p_s + G * blk;  // this tile's rescale factor exp(m_old - m_new)
-  float* l_s = c_s + G;        // final softmax denominators, for the epilogue
 
-  // Key rows 0 .. n_keys - 1 (n_keys = min(pos + 1, S) >= 1) are live.
-  const int n_tiles = (n_keys + blk - 1) / blk;
-  const int64_t row_stride = static_cast<int64_t>(KH) * D;  // between key rows of one head
-  const int64_t base = static_cast<int64_t>(b) * S * row_stride + static_cast<int64_t>(kh) * D;
+  // This split's live key rows [row0, row_end).
+  const int row0 = split * tiles_per_split * blk;
+  const int row_end = min(n_keys, row0 + tiles_per_split * blk);
+  const int n_tiles = row_end > row0 ? (row_end - row0 + blk - 1) / blk : 0;
 
-  // Start the copies of tile `tile` into ring slot `slot`: its live rows
-  // of D contiguous elements for this KV head, 16 B per cp.async. Rows at
-  // or past n_keys are not loaded, and never read.
+  // Start the copies of this split's tile `tile` into ring slot `slot`: its
+  // live rows, 16 B per cp.async. V rows from the last live one to the end
+  // of its 16-row chunk are zeroed (P is 0 there, and 0 * garbage may be
+  // NaN); rows past n_keys are never loaded.
   auto issue = [&](int tile, int slot) {
-    const int rows = min(blk, n_keys - tile * blk);
-    const int64_t first = base + static_cast<int64_t>(tile) * blk * row_stride;
+    const int first = row0 + tile * blk;
+    const int rows = min(blk, row_end - first);
+    const int padded = min(blk, (rows + kChunkRows - 1) / kChunkRows * kChunkRows);
     T* ks = k_ring + static_cast<size_t>(slot) * tile_elems;
     T* vs = v_ring + static_cast<size_t>(slot) * tile_elems;
     for (int c = tid; c < rows * kChunksPerRow; c += kThreads) {
       const int row = c / kChunksPerRow;
       const int col = (c - row * kChunksPerRow) * kChunk;
-      const int64_t src = first + row * row_stride + col;
-      cp_async16(ks + row * D + col, k_cache + src);
-      cp_async16(vs + row * D + col, v_cache + src);
+      const int64_t src = row_of(b, first + row, kh) + col;
+      cp_async16(ks + row * kStride + col, k_cache + src);
+      cp_async16(vs + row * kStride + col, v_cache + src);
+    }
+    for (int c = rows * kChunksPerRow + tid; c < padded * kChunksPerRow; c += kThreads) {
+      const int row = c / kChunksPerRow;
+      const int col = (c - row * kChunksPerRow) * kChunk;
+      *reinterpret_cast<uint4*>(vs + row * kStride + col) = make_uint4(0u, 0u, 0u, 0u);
     }
   };
 
-  // Prologue: the scaled query tile of this KV group, fresh accumulators,
-  // and the first `depth` tiles in flight. Every slot commits one group,
-  // empty or not, so that group i always holds tile i.
-  const int64_t q_off = (static_cast<int64_t>(b) * H + static_cast<int64_t>(kh) * G) * D;
-  for (int e = tid; e < G * D; e += kThreads) q_s[e] = to_f32(q[q_off + e]) * scale;
-  // Online-softmax state of heads g = warp + kWarps * i lives in the
-  // registers of warp `warp` (every lane holds the same value).
-  float m_r[kHeadsPerWarp], l_r[kHeadsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kHeadsPerWarp; ++i) {
-    m_r[i] = kNegInf;
-    l_r[i] = 0.f;
-  }
-  // Thread t owns accumulator column d0 = t % D of heads g0, g0 + kGStep, ...
-  const int d0 = tid % D;
-  const int g0 = tid / D;
-  float acc[kAccPerThread];
-#pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.f;
+  // Prologue: the query of this KV group, fresh state, and the first
+  // `depth` tiles in flight. Every slot commits one group, empty or not,
+  // so that group i always holds tile i.
+  const int64_t q_off = static_cast<int64_t>(bkh) * G * D;  // (b * H + kh * G) * D
+  Warp st;
+  st.init(q + q_off, G, lane);
   for (int s = 0; s < depth; ++s) {
     if (s < n_tiles) issue(s, s);
     cp_async_commit();
   }
-  __syncthreads();
 
   for (int i = 0; i < n_tiles; ++i) {
     const int slot = i % depth;
-    const int rows = min(blk, n_keys - i * blk);
+    const int rows = min(blk, row_end - (row0 + i * blk));
     cp_async_wait_pending(depth - 1);  // tile i has landed (this thread's part)
     __syncthreads();                   // ... and every other thread's part
     const T* ks = k_ring + static_cast<size_t>(slot) * tile_elems;
     const T* vs = v_ring + static_cast<size_t>(slot) * tile_elems;
-
-    // Scores: warp w takes key rows j = w, w + 4, ...; each lane multiplies
-    // its slice of the head dim with all G query heads, and G independent
-    // warp reductions give the G scores. Rows past `rows` score -1e30.
-    for (int j = warp; j < blk; j += kWarps) {
-      if (j >= rows) {
-        if (lane < G) p_s[lane * blk + j] = kNegInf;
-        continue;
-      }
-      float part[GMAX];
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) part[g] = 0.f;
-#pragma unroll
-      for (int x = 0; x < kDPerLane; ++x) {
-        const int d = lane + 32 * x;
-        if (d < D) {
-          const float kv = to_f32(ks[j * D + d]);
-#pragma unroll
-          for (int g = 0; g < GMAX; ++g)
-            if (g < G) part[g] += q_s[g * D + d] * kv;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g < G) {
-          const float sc = warp_sum(part[g]);
-          if (lane == g % 32) p_s[g * blk + j] = sc;
-        }
-      }
-    }
-    __syncthreads();
-
-    // Online softmax update: one warp per query head, lanes over the rows.
-#pragma unroll
-    for (int h = 0; h < kHeadsPerWarp; ++h) {
-      const int g = warp + kWarps * h;
-      if (g < G) {
-        float* sg = p_s + g * blk;
-        float mx = m_r[h];
-        for (int j = lane; j < blk; j += 32) mx = fmaxf(mx, sg[j]);
-        mx = warp_max(mx);
-        float sum = 0.f;
-        for (int j = lane; j < blk; j += 32) {
-          const float e = expf(sg[j] - mx);
-          sg[j] = e;
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        const float corr = expf(m_r[h] - mx);
-        l_r[h] = l_r[h] * corr + sum;
-        m_r[h] = mx;
-        if (lane == 0) c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc[g, d0] = acc[g, d0] * corr[g] + sum_j p[g, j] * v[j, d0] over the
-    // tile's live rows: each V element is read from shared memory once and
-    // used for all the thread's heads.
-    float pv[kAccPerThread];
-#pragma unroll
-    for (int a = 0; a < kAccPerThread; ++a) pv[a] = 0.f;
-    for (int j = 0; j < rows; ++j) {
-      const float v = to_f32(vs[j * D + d0]);
-#pragma unroll
-      for (int a = 0; a < kAccPerThread; ++a) {
-        const int g = g0 + a * kGStep;
-        if (g < G) pv[a] += p_s[g * blk + j] * v;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < kAccPerThread; ++a) {
-      const int g = g0 + a * kGStep;
-      if (g < G) acc[a] = acc[a] * c_s[g] + pv[a];
-    }
-    __syncthreads();  // the slot and p_s are free again
+    for (int c = warp * kChunkRows; c < rows; c += kWarps * kChunkRows)
+      st.chunk(ks + c * kStride, vs + c * kStride, min(kChunkRows, rows - c), scale_log2, lane);
+    __syncthreads();  // the slot is free again
 
     if (i + depth < n_tiles) issue(i + depth, slot);
     cp_async_commit();
   }
   cp_async_wait<0>();
+  __syncthreads();  // the ring's bytes now hold the warps' states
 
-  // Epilogue: normalise and cast.
+  constexpr int kWP = GP;
+  float* sm_m = reinterpret_cast<float*>(smem);
+  float* sm_l = sm_m + kWarps * kWP;
+  float* sm_acc = sm_l + kWarps * kWP;
+  st.store(sm_m + warp * kWP, sm_l + warp * kWP, sm_acc + warp * kWP * (D + kAccPad), lane);
+  __syncthreads();
+
+  // Merge the four warps. Thread h < G turns head h's m_w into the weight
+  // exp(m_w - M) in place and leaves L in sm_l[h], M in sm_l[kWP + h]; then
+  // every column is a weighted sum: the output (one split) or this split's
+  // partial.
+  if (tid < G) {
+    float M = kNegInf;
 #pragma unroll
-  for (int h = 0; h < kHeadsPerWarp; ++h) {
-    const int g = warp + kWarps * h;
-    if (g < G && lane == 0) l_s[g] = l_r[h];
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w * kWP + tid]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(sm_m[w * kWP + tid] - M);
+      sm_m[w * kWP + tid] = wt;
+      L += sm_l[w * kWP + tid] * wt;
+    }
+    sm_l[tid] = L;
+    sm_l[kWP + tid] = M;
   }
   __syncthreads();
+  const Partials<float> pt(part, gridDim.x * n_split, G, D);
+  const int64_t prow = static_cast<int64_t>(bkh) * n_split + split;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int h = e / D;
+    const int d = e - h * D;
+    float A = 0.f;
 #pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) {
-    const int g = g0 + a * kGStep;
-    if (g < G) out[q_off + g * D + d0] = from_f32<T>(acc[a] / fmaxf(l_s[g], 1e-30f));
+    for (int w = 0; w < kWarps; ++w) A += sm_acc[(w * kWP + h) * (D + kAccPad) + d] * sm_m[w * kWP + h];
+    if (n_split == 1) {
+      out[q_off + e] = from_f32<T>(A / fmaxf(sm_l[h], 1e-30f));
+    } else {
+      pt.acc[prow * G * D + e] = A;
+      if (d == 0) {
+        pt.m[prow * G + h] = sm_l[kWP + h];
+        pt.l[prow * G + h] = sm_l[h];
+      }
+    }
   }
 }
 
-template <typename T, int D, int GMAX>
-cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, void* out, int B,
-                   int H, int KH, int S, int blk, int n_keys, int depth, float scale,
-                   cudaStream_t stream) {
-  const int G = H / KH;
-  const size_t smem = smem_bytes(G, D, blk, depth, static_cast<int>(sizeof(T)));
-  auto kernel = flash_decode_kernel<T, D, GMAX>;
+// Grid (B * KH, G), D threads: block (bkh, h) merges head h's n_split
+// partials, thread d its column:
+//   o = sum_i acc_i exp(m_i - m) / max(sum_i l_i exp(m_i - m), 1e-30),
+// m = max_i m_i (m in the log2 domain). Split 0 always holds key 0, so m is
+// finite and an empty partial weighs 0. The loads of different splits are
+// independent, so an unrolled loop keeps several in flight.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+    flash_merge_kernel(const float* __restrict__ part, T* __restrict__ out, int n_split) {
+  const int bkh = blockIdx.x, h = blockIdx.y, G = gridDim.y;
+  const int d = threadIdx.x, D = blockDim.x;
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the split pass is done
+  const Partials<const float> pt(part, gridDim.x * n_split, G, D);
+  const int64_t first = static_cast<int64_t>(bkh) * n_split;
+  float M = kNegInf;
+#pragma unroll 8
+  for (int i = 0; i < n_split; ++i) M = fmaxf(M, pt.m[(first + i) * G + h]);
+  float L = 0.f, A = 0.f;
+#pragma unroll 8
+  for (int i = 0; i < n_split; ++i) {
+    const float m_i = pt.m[(first + i) * G + h];
+    const float w = exp2f(m_i - M);
+    L += pt.l[(first + i) * G + h] * w;
+    A += pt.acc[((first + i) * G + h) * D + d] * w;
+  }
+  out[(static_cast<int64_t>(bkh) * G + h) * D + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  float* part;
+  int B, H, KH, S, blk, n_keys, n_split, tiles_per_split, depth;
+  float scale_log2;
+  cudaStream_t stream;
+};
+
+// Launch with programmatic dependent launch allowed (Hopper): the grid may
+// be scheduled while the kernel before it in the stream is still running,
+// and each kernel here waits (griddepcontrol.wait) for that one's results
+// before it reads them. It hides a launch's latency behind the previous
+// kernel: about 1.5 us a call at the dense path's shape (PERF.md).
+template <typename... Params, typename... Actual>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                       cudaStream_t stream, Actual... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename T, int D, int GP>
+cudaError_t launch(const Args& a) {
+  const size_t smem = smem_bytes(GP, D, a.blk, a.depth, static_cast<int>(sizeof(T)));
+  auto kernel = flash_split_kernel<T, D, GP, DenseRows>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B, KH), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache), static_cast<const T*>(v_cache),
-      static_cast<T*>(out), H, KH, S, blk, n_keys, depth, scale);
-  return cudaGetLastError();
+  err = launch_pdl(kernel, dim3(a.B * a.KH, a.n_split), kThreads, smem, a.stream,
+                   static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                   static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part,
+                   DenseRows{a.S, a.KH, D}, a.H, a.KH, a.blk, a.n_keys, a.tiles_per_split,
+                   a.depth, a.scale_log2);
+  if (err != cudaSuccess || a.n_split == 1) return err;
+  return launch_pdl(flash_merge_kernel<T>, dim3(a.B * a.KH, a.H / a.KH), D, 0, a.stream,
+                    static_cast<const float*>(a.part), static_cast<T*>(a.out), a.n_split);
 }
 
+// G padded: to 16 or 32 query heads (M tiles) in bf16, a power of two in f32.
 template <typename T, int D>
-cudaError_t dispatch_g(int G, const void* q, const void* k_cache, const void* v_cache, void* out,
-                       int B, int H, int KH, int S, int blk, int n_keys, int depth, float scale,
-                       cudaStream_t stream) {
-#define REPRO_LAUNCH(GMAX)                                                                 \
-  return launch<T, D, GMAX>(q, k_cache, v_cache, out, B, H, KH, S, blk, n_keys, depth, scale, \
-                            stream)
-  if (G <= 1) REPRO_LAUNCH(1);
-  if (G <= 2) REPRO_LAUNCH(2);
-  if (G <= 4) REPRO_LAUNCH(4);
-  if (G <= 8) REPRO_LAUNCH(8);
-  if (G <= 16) REPRO_LAUNCH(16);
-  REPRO_LAUNCH(32);
-#undef REPRO_LAUNCH
+cudaError_t dispatch_g(int G, const Args& a) {
+  if constexpr (sizeof(T) == 2) {
+    if (G <= 16) return launch<T, D, 16>(a);
+    return launch<T, D, 32>(a);
+  } else {
+    if (G <= 1) return launch<T, D, 1>(a);
+    if (G <= 2) return launch<T, D, 2>(a);
+    if (G <= 4) return launch<T, D, 4>(a);
+    if (G <= 8) return launch<T, D, 8>(a);
+    if (G <= 16) return launch<T, D, 16>(a);
+    return launch<T, D, 32>(a);
+  }
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, int G, const void* q, const void* k_cache, const void* v_cache,
-                       void* out, int B, int H, int KH, int S, int blk, int n_keys, int depth,
-                       float scale, cudaStream_t stream) {
+cudaError_t dispatch_d(int D, int G, const Args& a) {
   switch (D) {
     case 16:
-      return dispatch_g<T, 16>(G, q, k_cache, v_cache, out, B, H, KH, S, blk, n_keys, depth,
-                               scale, stream);
+      return dispatch_g<T, 16>(G, a);
     case 32:
-      return dispatch_g<T, 32>(G, q, k_cache, v_cache, out, B, H, KH, S, blk, n_keys, depth,
-                               scale, stream);
+      return dispatch_g<T, 32>(G, a);
     case 64:
-      return dispatch_g<T, 64>(G, q, k_cache, v_cache, out, B, H, KH, S, blk, n_keys, depth,
-                               scale, stream);
+      return dispatch_g<T, 64>(G, a);
     case 128:
-      return dispatch_g<T, 128>(G, q, k_cache, v_cache, out, B, H, KH, S, blk, n_keys, depth,
-                                scale, stream);
+      return dispatch_g<T, 128>(G, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -320,25 +627,29 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k_cache, const v
 
 // dtype: 0 = float32, 1 = bfloat16. `pos` >= 0 is the last key position
 // attended (keys at or past S do not exist: min(pos + 1, S) rows are live).
-// Returns the cudaError_t of the launch (0 on success); the caller raises
-// on anything else.
+// The grid is (B * KH, n_split), split i walking tiles
+// [i * tiles_per_split, (i + 1) * tiles_per_split) of `blk` rows, which
+// must cover the S rows; `part` holds B * KH * n_split * G * (D + 2) floats
+// (unused, and may be null, when n_split == 1). Returns the cudaError_t of
+// the launches (0 on success); the caller raises on anything else.
 extern "C" int repro_flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                                  void* out, int B, int H, int KH, int D, int S, int blk,
-                                  int pos, int depth, float scale, int dtype, void* stream) {
-  if (B < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup || S < 1 || blk < 1 || pos < 0 ||
-      depth < 1) {
+                                  void* out, void* part, int B, int H, int KH, int D, int S,
+                                  int blk, int pos, int n_split, int tiles_per_split, int depth,
+                                  float scale, int dtype, void* stream) {
+  if (B < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup || S < 1 || blk < kChunkRows ||
+      blk % kChunkRows != 0 || pos < 0 || depth < 1 || n_split < 1 || tiles_per_split < 1 ||
+      static_cast<int64_t>(n_split) * tiles_per_split * blk < S || (n_split > 1 && !part)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_keys = pos + 1 < S ? pos + 1 : S;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const Args a{q, k_cache, v_cache, out, static_cast<float*>(part), B, H, KH, S, blk, n_keys,
+               n_split, tiles_per_split, depth, scale * kLog2e, static_cast<cudaStream_t>(stream)};
   const int G = H / KH;
+  cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(D, G, q, k_cache, v_cache, out, B, H, KH, S, blk, n_keys, depth,
-                            scale, s);
+    err = dispatch_d<float>(D, G, a);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, G, q, k_cache, v_cache, out, B, H, KH, S, blk, n_keys,
-                                    depth, scale, s);
+    err = dispatch_d<__nv_bfloat16>(D, G, a);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -14,11 +14,13 @@ pool; the block table redirects every page load. The CUDA kernel
 (`csrc/paged_decode.cu`) replaces the TPU kernel
 ``src/repro/kernels/decode_attention/decode_attention.py:paged_flash_decode``.
 
-Both are hand-written for sm_90a and keep the TPU kernels' arithmetic: q
-scaled in f32 by ``D**-0.5``, an f32 online softmax over the live keys,
-output ``acc / max(l, 1e-30)`` cast to q's type. Both are bound by the
-bytes of the live K/V rows; the source notes say what their designs do
-about that.
+Both are hand-written for sm_90a and keep the TPU kernels' arithmetic:
+scores scaled in f32 by ``D**-0.5``, an f32 online softmax over the live
+keys, output ``acc / max(l, 1e-30)`` cast to q's type (the dense kernel
+splits the sequence over blocks and merges their partial softmax states;
+in bf16 it rounds P to bf16 for the tensor cores, as the reference
+engine's decode attention does). Both are bound by the bytes of the live
+K/V rows; the source notes say what their designs do about that.
 
 Each wrapper picks its path from the device of the tensors it is given: on
 CPU tensors it runs its plain version; on CUDA tensors it launches the
@@ -43,10 +45,12 @@ __all__ = [
     "decode_spec",
     "flash_decode",
     "flash_decode_plain",
+    "flash_kernel_depth",
     "paged_decode_spec",
     "paged_flash_decode",
     "paged_flash_decode_plain",
     "kernel_depth",
+    "split_plan",
 ]
 
 NEG_INF = -1e30
@@ -307,8 +311,54 @@ paged_flash_decode.launches = 0
 
 # ------------------------------------------------------- the dense kernel
 
-_FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+FLASH_BLK = 64                 # default tile height (the sweep: PERF.md)
+BLOCKS_PER_SM = 2              # what the split plan aims to put on each SM
+WARPS = 4                      # kWarps in csrc/flash_decode.cu
+
+
+def split_plan(b: int, kh: int, s: int, blk: int, sm_count: int,
+               splits: Optional[int] = None):
+    """(n_split, tiles per split) of the dense kernel's grid (B * KH,
+    n_split): the ceil(S / blk) tiles of the cache cut into contiguous runs,
+    as few splits as put `BLOCKS_PER_SM` blocks on each of `sm_count` SMs
+    (one split when B * KH alone does), or `splits` when given. Depends on
+    S, never on pos; every split holds at least one tile."""
+    n_tiles = -(-s // blk)
+    if splits is None:
+        splits = -(-BLOCKS_PER_SM * sm_count // max(b * kh, 1))
+    per = -(-n_tiles // max(1, min(int(splits), n_tiles)))
+    return -(-n_tiles // per), per
+
+
+def _flash_smem_bytes(g: int, d: int, blk: int, depth: int,
+                      itemsize: int) -> int:
+    """Dynamic shared memory of one dense-kernel block (the layout in
+    csrc/flash_decode.cu): the K/V ring, rows padded by 16 bytes, or the
+    warps' f32 states for the block's merge (head rows padded by 8
+    floats), whichever is larger."""
+    gp = -(-g // 16) * 16 if itemsize == 2 else 1 << (g - 1).bit_length()
+    ring_bytes = 2 * depth * blk * (d + 16 // itemsize) * itemsize
+    return max(ring_bytes, 4 * WARPS * gp * (d + 8 + 2))
+
+
+def flash_kernel_depth(depth: int, *, g: int, d: int, blk: int,
+                       itemsize: int, n_tiles: int) -> int:
+    """Clamp a solved depth to what the dense kernel runs: at most
+    `n_tiles` tiles (those of one split that hold a live key), at most
+    `ring.MAX_DEPTH`, and no more K/V tile pairs than one block's shared
+    memory holds."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    per_slot = _flash_smem_bytes(g, d, blk, 1, itemsize)
+    if per_slot > ring.SMEM_LIMIT:
+        raise KernelResourceError(
+            f"one K/V tile pair needs {per_slot} B of shared memory, over "
+            f"{ring.SMEM_LIMIT}", kernel="flash_decode", depth=1,
+            tile=(blk, d))
+    fit = ring.SMEM_LIMIT // (2 * blk * (d + 16 // itemsize) * itemsize)
+    return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
 
 
 def _check_dense(q, k_cache, v_cache, blk: int) -> None:
@@ -327,7 +377,7 @@ def _check_dense(q, k_cache, v_cache, blk: int) -> None:
         raise ValueError(f"blk must be >= 1, got {blk}")
 
 
-def _check_dense_cuda(q, k_cache, v_cache) -> None:
+def _check_dense_cuda(q, k_cache, v_cache, blk: int) -> None:
     if q.dtype not in ring.DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
@@ -338,13 +388,16 @@ def _check_dense_cuda(q, k_cache, v_cache) -> None:
         raise ValueError(f"head_dim {d} not in {FLASH_HEAD_DIMS}")
     if q.shape[1] // k_cache.shape[2] > MAX_GROUP:
         raise ValueError(f"more than {MAX_GROUP} query heads per KV head")
+    if blk % 16:
+        raise ValueError(f"blk must be a multiple of 16 (a warp's rows), "
+                         f"got {blk}")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
 
 
-def flash_decode(q, k_cache, v_cache, pos, *, blk: int = 128,
-                 depth: Optional[int] = None):
+def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
+                 depth: Optional[int] = None, splits: Optional[int] = None):
     """Flash-decode over a dense KV cache at one scalar position.
 
     q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: int (or a 0-d
@@ -352,9 +405,12 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = 128,
     S when pos >= S). S need not be a multiple of `blk`. Returns [B, H, D]
     in q's type.
 
-    `depth` is the number of `blk`-row tiles in flight; None solves it from
-    `decode_spec` through `core.autotune.choose_depth`. Either is clamped by
-    `kernel_depth` and recorded as run, for
+    On the card the sequence is split over `splits` blocks per (b, kh);
+    None takes `split_plan` for this card's SM count. The plain version
+    does not split (one split). `depth` is the number of `blk`-row tiles in
+    flight per block; None solves it from `decode_spec` through
+    `core.autotune.choose_depth`. Either is clamped by `flash_kernel_depth`
+    to the live tiles of one split and recorded as run, for
     `autotune.last_choice("flash_decode")`.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
@@ -365,31 +421,41 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = 128,
     pos = int(pos)
     if pos < 0:
         raise ValueError(f"pos must be >= 0, got {pos}")
+    if splits is not None and splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    on_card = ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
+                         ("v_cache", v_cache))
     b, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
-    n_tiles = -(-min(pos + 1, s) // blk)
+    if on_card:
+        n_split, per = split_plan(b, kh, s, blk, ring.sm_count(q.device),
+                                  splits)
+    else:
+        n_split, per = split_plan(b, kh, s, blk, 0, splits or 1)
     spec = decode_spec(blk, kh, g, d, k_cache.dtype)
     if depth is None:
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
-    depth = kernel_depth(depth, g=g, d=d, blk=blk,
-                         itemsize=k_cache.element_size(), n_tiles=n_tiles,
-                         kernel=spec.name)
+    depth = flash_kernel_depth(depth, g=g, d=d, blk=blk,
+                               itemsize=k_cache.element_size(),
+                               n_tiles=min(per, -(-min(pos + 1, s) // blk)))
     autotune.record_choice(spec.name, depth)
-    if not ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
-                      ("v_cache", v_cache)):
+    if not on_card:
         return flash_decode_plain(q, k_cache, v_cache, pos)
-    _check_dense_cuda(q, k_cache, v_cache)
+    _check_dense_cuda(q, k_cache, v_cache, blk)
     out = torch.empty_like(q)
     if b == 0:
         return out
+    part = torch.empty(b * kh * n_split * g * (d + 2), dtype=torch.float32,
+                       device=q.device) if n_split > 1 else None
     lib = ring.library(FLASH_SOURCE, "repro_flash_decode", _FLASH_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), b, h, kh, d, s, blk, pos, depth,
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            b, h, kh, d, s, blk, pos, n_split, per, depth,
             float(d ** -0.5), ring.DTYPE_CODE[q.dtype], stream)
     ring.raise_on_error(err, lib, kernel="flash_decode", depth=depth,
                         tile=(blk, d))

@@ -20,7 +20,7 @@ from repro_torch.core.guard import KernelCompileError, KernelResourceError
 
 __all__ = ["MAX_DEPTH", "SMEM_LIMIT", "check_smem", "copy_unit",
            "kernel_depth", "launch_grid", "library", "raise_on_error",
-           "ring_bytes", "route", "solve_depth"]
+           "ring_bytes", "route", "sm_count", "solve_depth"]
 
 MAX_DEPTH = 64                 # kMaxDepth in csrc/coro_ring.cuh
 
@@ -73,14 +73,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(device: torch.device) -> int:
+    """The SM count of `device`'s card, read once per device."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def launch_grid(device: torch.device, n_tiles: int, depth: int,
                 smem_bytes: int, threads: int) -> Tuple[int, int]:
     """(blocks, tiles per block): as many blocks as fit on the card at once,
     but each walking at least `depth` tiles so that its ring fills."""
     per_sm = min(MAX_THREADS_PER_SM // threads,
                  SM_SMEM // (smem_bytes + SMEM_RESERVED))
-    resident = _sm_count(device.index if device.index is not None
-                         else torch.cuda.current_device()) * max(per_sm, 1)
+    resident = sm_count(device) * max(per_sm, 1)
     per_block = max(depth, -(-n_tiles // resident))
     return -(-n_tiles // per_block), per_block
 

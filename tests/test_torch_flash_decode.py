@@ -177,17 +177,18 @@ def test_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.parametrize("g,d,blk,itemsize,want", [
-    (8, 128, 128, 2, 3),      # yi-6b bf16: 64 KiB per K/V tile pair
-    (8, 128, 128, 4, 1),      # yi-6b f32: one 128 KiB pair
-    (2, 16, 128, 4, 14),      # reduced yi-6b f32
+    (8, 128, 128, 2, 3),      # yi-6b bf16: 68 KiB per padded K/V tile pair
+    (8, 128, 128, 4, 1),      # yi-6b f32: one 132 KiB pair
+    (2, 16, 128, 4, 11),      # reduced yi-6b f32
 ])
 def test_kernel_depth_clamps_to_shared_memory(g, d, blk, itemsize, want):
-    assert da.kernel_depth(64, g=g, d=d, blk=blk, itemsize=itemsize,
-                           n_tiles=100, kernel="flash_decode") == want
-    fixed = da._smem_bytes(g, d, blk, 0, itemsize)
-    assert fixed + want * 2 * blk * d * itemsize <= ring.SMEM_LIMIT
-    assert da.kernel_depth(64, g=g, d=d, blk=blk, itemsize=itemsize,
-                           n_tiles=1) == 1
+    assert da.flash_kernel_depth(64, g=g, d=d, blk=blk, itemsize=itemsize,
+                                 n_tiles=100) == want
+    assert da._flash_smem_bytes(g, d, blk, want, itemsize) <= ring.SMEM_LIMIT
+    assert da._flash_smem_bytes(g, d, blk, want + 1, itemsize) > \
+        ring.SMEM_LIMIT
+    assert da.flash_kernel_depth(64, g=g, d=d, blk=blk, itemsize=itemsize,
+                                 n_tiles=1) == 1
 
 
 def test_kernel_source_uses_the_shared_ring_and_skips_dead_rows():
@@ -197,6 +198,137 @@ def test_kernel_source_uses_the_shared_ring_and_skips_dead_rows():
     assert "n_keys" in src and "pos + 1 < S ? pos + 1 : S" in src
     for d in da.FLASH_HEAD_DIMS:
         assert f"case {d}:" in src
+    # the split pass and its merge; bf16 products on the tensor cores
+    assert "dim3(a.B * a.KH, a.n_split)" in src and "merge_kernel" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in src
+    # every K/V row address from one device function
+    assert src.count("row_of(") == 1 and "struct DenseRows" in src
+    # the wrapper's warp count is the source's
+    assert f"constexpr int kThreads = {32 * da.WARPS};" in src
+
+
+# ---------------------------------------------------------- the split plan
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("b,kh,s,blk,sms,splits", [
+    (8, 4, 1056, 128, H100_SMS, None),     # yi-6b at batch 8: the path
+    (1, 4, 1056, 128, H100_SMS, None),
+    (8, 4, 1056, 64, H100_SMS, None),
+    (3, 4, 1056, 128, H100_SMS, None),
+    (2, 2, 77, 16, H100_SMS, None),
+    (8, 4, 1056, 128, H100_SMS, 2),
+    (8, 4, 1056, 128, H100_SMS, 4),
+    (8, 4, 1056, 128, H100_SMS, 1000),
+    (66, 4, 1056, 128, H100_SMS, None),    # B * KH = 2 * SMs
+    (1, 1, 1, 128, 8, None),
+])
+def test_split_plan_covers_every_tile_once(b, kh, s, blk, sms, splits):
+    n_split, per = da.split_plan(b, kh, s, blk, sms, splits)
+    n_tiles = -(-s // blk)
+    runs = [range(i * per, min((i + 1) * per, n_tiles))
+            for i in range(n_split)]
+    assert all(len(r) for r in runs)             # no split without a tile
+    assert [t for r in runs for t in r] == list(range(n_tiles))
+    if splits is not None:
+        assert n_split <= splits
+
+
+def test_split_plan_fills_the_card_at_the_path_shape():
+    """B 8, KH 4, S 1056 in the default 64-row tiles: 17 tiles, 9 splits
+    of 2, 288 blocks for 132 SMs (32 without the split)."""
+    assert da.FLASH_BLK == 64
+    n_split, per = da.split_plan(8, 4, 1056, da.FLASH_BLK, H100_SMS)
+    assert (n_split, per) == (9, 2)
+    assert 8 * 4 * n_split >= da.BLOCKS_PER_SM * H100_SMS
+    assert da.split_plan(8, 4, 1056, 128, H100_SMS) == (9, 1)
+    assert da.split_plan(1, 4, 1056, 64, H100_SMS) == (17, 1)   # all tiles
+
+
+@pytest.mark.parametrize("b,kh", [(66, 4), (264, 1), (40, 8)])
+def test_split_plan_gives_one_split_when_the_batch_fills_the_card(b, kh):
+    assert b * kh >= da.BLOCKS_PER_SM * H100_SMS
+    assert da.split_plan(b, kh, 1056, 128, H100_SMS) == (1, 9)
+
+
+@pytest.mark.parametrize("splits,pos,want", [
+    (3, 1040, 6),     # 17 tiles in 3 splits: a split's 6 tiles bound it
+    (17, 1040, 1),
+    (1, 1040, 8),     # one split of 17 live tiles: the depth asked for
+    (1, 50, 1),       # only tile 0 is live
+])
+def test_depth_is_clamped_to_the_tiles_of_one_split(splits, pos, want):
+    q, k, v = (torch.from_numpy(a) for a in _problem(1, 1, 4, 2, 16, 1056))
+    da.flash_decode(q, k, v, pos, depth=8, splits=splits)
+    assert autotune.last_choice("flash_decode") == want
+    blk = da.FLASH_BLK
+    n_split, per = da.split_plan(1, 2, 1056, blk, 0, splits)
+    assert want == da.flash_kernel_depth(
+        8, g=2, d=16, blk=blk, itemsize=4,
+        n_tiles=min(per, -(-min(pos + 1, 1056) // blk)))
+
+
+def _split_merge_model(q, k, v, pos, blk, n_split, per):
+    """The kernel's arithmetic in torch ops: each split's f32 partial
+    (m in the log2 domain, l, acc) over its live rows, an empty partial
+    (-1e30, 0, 0) for a split past pos, then the merge kernel's formula."""
+    b, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    n_keys = min(pos + 1, s)
+    qg = q.float().reshape(b, kh, g, d)
+    scale_log2 = d ** -0.5 * 1.4426950408889634
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = i * per * blk, min(n_keys, (i + 1) * per * blk)
+        if hi <= lo:
+            ms.append(torch.full((b, kh, g), da.NEG_INF))
+            ls.append(torch.zeros(b, kh, g))
+            accs.append(torch.zeros(b, kh, g, d))
+            continue
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, k[:, lo:hi].float())
+        sc = sc * scale_log2
+        m = sc.amax(dim=-1)
+        p = torch.exp2(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v[:, lo:hi].float()))
+    m_all = torch.stack(ms)                               # [n_split, b, kh, g]
+    mx = m_all.amax(dim=0)
+    w = torch.exp2(m_all - mx)
+    l_all = (torch.stack(ls) * w).sum(dim=0)
+    acc = (torch.stack(accs) * w[..., None]).sum(dim=0)
+    out = acc / l_all.clamp_min(1e-30)[..., None]
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("pos", [0, 100, 383, 384, 385, 640, 767, 768, 1040,
+                                 1055, 2000])
+@pytest.mark.parametrize("blk,splits", [(64, 1), (64, 2), (64, 3), (64, None),
+                                        (128, 3), (128, None)])
+def test_split_and_merge_equal_the_plain_version(pos, blk, splits):
+    """At the path's S (1056 rows) in 64- and 128-row tiles: pos in the
+    first split (the later ones empty), at split boundaries (384 = 6 tiles
+    of 64, 3 of 128) and +-1, and past S, merged as the kernel merges,
+    against the plain version and the reference oracle at 2e-5 in f32."""
+    q, k, v = _problem(pos, 2, 8, 2, 16, 1056)
+    n_split, per = da.split_plan(2, 2, 1056, blk, H100_SMS, splits)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got = _split_merge_model(*t, pos, blk, n_split, per).numpy()
+    np.testing.assert_allclose(got, da.flash_decode_plain(*t, pos).numpy(),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, _oracle(q, k, v, pos), rtol=TOL, atol=TOL)
+
+
+def test_wrapper_rejects_bad_splits():
+    q, k, v = (torch.from_numpy(a) for a in _problem(4, 2, 4, 2, 16, 64))
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, 3, splits=0)
+    out = da.flash_decode(q, k, v, 3, splits=5)      # the plain version
+    np.testing.assert_array_equal(out.numpy(),
+                                  da.flash_decode_plain(q, k, v, 3).numpy())
 
 
 @pytest.mark.parametrize("profile", ["v5e", "cpu-interpret", "h100"])

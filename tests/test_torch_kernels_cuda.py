@@ -375,14 +375,74 @@ def test_flash_decode_matches_plain(cuda_device, dtype, h, kh, d, s):
             out = da.flash_decode(q, k, v, pos, depth=depth)
             torch.cuda.synchronize()
             ran = autotune.last_choice("flash_decode")
-            want = da.kernel_depth(
-                depth or ran, g=h // kh, d=d, blk=128,
-                itemsize=q.element_size(), n_tiles=-(-(pos + 1) // 128))
+            blk = da.FLASH_BLK
+            _, per = da.split_plan(3, kh, s, blk, _sms(cuda_device))
+            want = da.flash_kernel_depth(
+                depth or ran, g=h // kh, d=d, blk=blk,
+                itemsize=q.element_size(),
+                n_tiles=min(per, -(-(pos + 1) // blk)))
             assert ran == want
             assert out.dtype == dtype and torch.isfinite(out.float()).all()
             torch.testing.assert_close(out.float(), ref,
                                        **DECODE_TOL[dtype])
     assert launch_counts()["flash_decode"] == 9
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blk", [64, 128])
+@pytest.mark.parametrize("splits", [1, 2, None])
+def test_flash_decode_splits(cuda_device, dtype, splits, blk):
+    """yi-6b's heads over S 1056 at B 3, in 64- and 128-row tiles: one
+    split, two and the plan's; pos in the first split (the later splits
+    empty), at a boundary of the run's splits +-1, and past S."""
+    q, k, v = _dense_problem(cuda_device, dtype, 3, 32, 4, 128, 1056, seed=7)
+    n_split, per = da.split_plan(3, 4, 1056, blk, _sms(cuda_device), splits)
+    assert n_split == (splits or n_split) and n_split * per * blk >= 1056
+    edge = per * blk                         # the first split boundary
+    positions = (0, 30, edge - 1, edge, edge + 1, 1040, 1055, 1500)
+    for pos in positions:
+        out = da.flash_decode(q, k, v, pos, blk=blk, splits=splits)
+        torch.testing.assert_close(
+            out.float(), da.flash_decode_plain(q, k, v, pos).float(),
+            **DECODE_TOL[dtype])
+    assert launch_counts()["flash_decode"] == len(positions)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 6, 8, 32])
+def test_flash_decode_groups_and_head_dims(cuda_device, dtype, d, g):
+    """Every group size (G <= 16 is one M tile in bf16, 32 two) and head
+    dim, S 300 with a 44-row tail in 64-row tiles, pos inside the first
+    and the last tile, the plan's splits (5 tiles: 5 splits at B 2)."""
+    q, k, v = _dense_problem(cuda_device, dtype, 2, 2 * g, 2, d, 300,
+                             seed=g * d)
+    for pos in (17, 290):
+        out = da.flash_decode(q, k, v, pos)
+        torch.testing.assert_close(
+            out.float(), da.flash_decode_plain(q, k, v, pos).float(),
+            **DECODE_TOL[dtype])
+    assert launch_counts()["flash_decode"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_one_split_when_the_batch_fills_the_card(cuda_device,
+                                                              dtype):
+    """B * KH >= 2 blocks per SM: the plan takes one split, and the split
+    pass writes the output itself (no partials, no merge)."""
+    sms = _sms(cuda_device)
+    b, kh = da.BLOCKS_PER_SM * sms, 1
+    assert da.split_plan(b, kh, 200, da.FLASH_BLK, sms) == (1, 4)
+    q, k, v = _dense_problem(cuda_device, dtype, b, 4, kh, 64, 200, seed=3)
+    out = da.flash_decode(q, k, v, 150)
+    torch.testing.assert_close(
+        out.float(), da.flash_decode_plain(q, k, v, 150).float(),
+        **DECODE_TOL[dtype])
+    assert launch_counts()["flash_decode"] == 1
 
 
 def test_flash_decode_small_tiles_and_past_the_cache(cuda_device):
@@ -421,6 +481,8 @@ def test_flash_decode_raises_instead_of_falling_back(cuda_device):
         da.flash_decode(q, k.cpu(), v, 3)
     with pytest.raises(ValueError):         # non-contiguous cache
         da.flash_decode(q, k.transpose(1, 2), v.transpose(1, 2), 3)
+    with pytest.raises(ValueError):         # a tile not in 16-row chunks
+        da.flash_decode(q, k, v, 3, blk=24)
     assert launch_counts()["flash_decode"] == 0
 
 
