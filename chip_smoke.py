@@ -10,13 +10,16 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every CUDA kernel of the serving (paged and dense) and GUPS
      paths from the sources in the checkout (one nvcc per source, all
-     started together);
+     started together; K1 and K3 share one source);
   3. each kernel against its plain PyTorch version on the card: paged
-     decode at yi-6b, granite-3-2b, internlm2-20b, head_dim-16 and
+     decode (K1) at yi-6b, granite-3-2b, internlm2-20b, head_dim-16 and
      one-KV-head shapes (1 to 32 query heads per KV head), ragged
-     lengths plus a zero-length padding row, f32 (tolerance 2e-3) and bf16
-     (3e-2), at depths 1, 2 and the solved depth, and at depths 20 and 27
-     (yi-6b, bf16); the MoE grouped matmul at qwen3-moe's decode, down
+     lengths plus a zero-length padding row (it must come out 0), f32
+     (2e-4) and bf16 (3e-3 + 1e-2 x |value|), at depths 1, 2 and the
+     solved depth; at yi-6b's heads also splits 1, 2 and the plan's in 32-
+     and 64-row tiles, pages of 4, 8 and 32 rows, and page depths 20 and
+     27 (bf16), whose recorded depth must be the clamp's ring in pages;
+     the MoE grouped matmul at qwen3-moe's decode, down
      projection and prefill shapes, granite-moe's, reduced tails and rows
      off the 16-byte unit, with one token block shared by every expert
      (stride 0) and with a token block per expert, in f32 (2e-3) and bf16
@@ -48,14 +51,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      prefix), 32 new tokens each, prefix cache on. Launch counts are
      zeroed just before and read just after; every request must finish and
      the paged-decode kernel must run n_layers times per decode round;
-  6. times at the main path's decode shapes (CUDA events around one call
-     per layer, queued behind a device sleep; median of 21 batches): the
-     kernel, its plain version, and as a yardstick
+  6. K1 times at the main path's decode shape (CUDA events around one call
+     per layer, queued behind a device sleep; median of 21 batches) and
+     at B 1 (its longest request): the kernel (with the splits, tile and
+     depth it ran), its plain version, and as a yardstick
      `scaled_dot_product_attention` over K/V gathered beforehand (it
      excludes the page gather); the bound is the larger of the live K/V
      bytes over 3.35 TB/s and the flops over 989 TFLOP/s (data sheet);
+     then a sweep of tile height (32, 64) x splits, each beside the bound;
   7. a profile of full-width decode rounds (torch.profiler): device time
-     by kernel per round and the device's busy share of the wall clock;
+     by kernel per round, K1's share of it and the device's busy share of
+     the wall clock;
   5c. the dense engine: `serve(engine="dense")` for yi-6b at full width on
      phase 5's weights, batch 8, prompts of 1024 tokens, 32 new tokens
      (caches [32, 8, 1056, 4, 128] x 2, 0.55 GB). Launch counts zeroed
@@ -87,8 +93,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      weights, tokens and output over 3.35 TB/s (or the flops over 989
      TFLOP/s, if larger);
   7b. a profile of full-width qwen3-moe decode rounds: device time by
-     kernel per round, the grouped matmul's share, the busy share, and the
-     round's floor (every weight but the embedding table read once);
+     kernel per round, K1's and the grouped matmul's shares, the busy
+     share, and the round's floor (every weight but the embedding table
+     read once);
   8. the GUPS path at a real size, through `repro_torch.launch.gups` and the
      ops: a 2^24 x 128 f32 table (8 GiB, far past the 50 MB L2), 2^22
      seeded uniform-random indices gathered and then scatter-added, a
@@ -106,7 +113,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      then the same kernels at other depths (tiles in flight per block), the
      triad at other tile heights and the grouped matmul at qwen3-moe's
      decode shape at other depths (k-slices in flight), each time beside its
-     bound;
+     bound; last, the span gather with its ring wait inlined (the source)
+     against a copy built with the shared header's called wait, in turns;
  10. one JSON line describing every kernel (eight), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -187,8 +195,8 @@ def build_kernels():
     from repro_torch.kernels.stream_copy import stream_copy as sc
 
     t0 = time.perf_counter()
-    libs = build.build([da.SOURCE, da.FLASH_SOURCE, ss.SOURCE, mg.SOURCE,
-                        cg.SOURCE, sa.SOURCE, sc.SOURCE])
+    libs = build.build([da.FLASH_SOURCE, ss.SOURCE, mg.SOURCE, cg.SOURCE,
+                        sa.SOURCE, sc.SOURCE])
     log(f"built {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in build.build_logs.items():
@@ -224,7 +232,28 @@ def paged_problem(torch, gen, lengths, *, h, kh, d, blk, dtype, device,
     return q, kp, vp, bt, lens
 
 
+def _paged_close(torch, name, args, dtype_name, **kw) -> float:
+    """K1 on `args` (the last row of zero length) against its plain
+    version at DECODE_TOL; the zero-length row must come out finite, and
+    0. Returns the error over the live rows."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    out = da.paged_flash_decode(*args, **kw)
+    ref = da.paged_flash_decode_plain(*args)
+    err = _close(name, out[:-1], ref[:-1], *DECODE_TOL[dtype_name])
+    pad = out[-1].float()
+    if not bool(torch.isfinite(pad).all()) or bool(pad.any()):
+        raise AssertionError(f"{name}: the zero-length row is not 0")
+    return err
+
+
 def check_parity(torch) -> float:
+    """K1 at HEAD_SHAPES over 16-row pages, f32 and bf16, depths 1, 2 and
+    solved; then at yi-6b's heads: splits 1, 2 and the plan's in 32- and
+    64-row tiles, pages of 4, 8 and 32 rows, and deep page depths, each
+    recorded as the clamp's ring. Every case ends in a zero-length row."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import ring
     from repro_torch.kernels.decode_attention import decode_attention as da
 
     gen = torch.Generator(device="cuda")
@@ -233,42 +262,49 @@ def check_parity(torch) -> float:
     for name, h, kh, d in HEAD_SHAPES:
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
-            atol, rtol = DECODE_TOL[dtype_name]
-            q, kp, vp, bt, lens = paged_problem(
-                torch, gen, PARITY_LENGTHS, h=h, kh=kh, d=d, blk=16,
-                dtype=dtype, device="cuda")
-            ref = da.paged_flash_decode_plain(q, kp, vp, bt, lens).float()
+            args = paged_problem(torch, gen, PARITY_LENGTHS, h=h, kh=kh, d=d,
+                                 blk=16, dtype=dtype, device="cuda")
             for depth in (1, 2, None):
-                out = da.paged_flash_decode(q, kp, vp, bt, lens, depth=depth)
-                torch.cuda.synchronize()
-                out = out.float()
-                if not bool(torch.isfinite(out).all()):
-                    raise AssertionError(f"{name} {dtype_name} depth={depth}: "
-                                         "non-finite output")
-                err = float((out[:-1] - ref[:-1]).abs().max())
-                ok = torch.allclose(out[:-1], ref[:-1], rtol=rtol, atol=atol)
-                log(f"parity {name:13s} {dtype_name:8s} depth={depth} "
-                    f"max_abs_err={err:.3e} atol={atol:g} rtol={rtol:g} "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"paged_decode disagrees with its "
-                                         f"plain version: {name} {dtype_name} "
-                                         f"depth={depth} err={err:.3e}")
-                worst = max(worst, err / atol)
-    # rings deeper than 16 page pairs (27 fit one block at this shape)
-    from repro_torch.core import autotune
-
-    q, kp, vp, bt, lens = paged_problem(
-        torch, gen, PARITY_LENGTHS, h=32, kh=4, d=128, blk=16,
-        dtype=torch.bfloat16, device="cuda")
-    ref = da.paged_flash_decode_plain(q, kp, vp, bt, lens).float()
-    for depth in (20, 27):
-        out = da.paged_flash_decode(q, kp, vp, bt, lens, depth=depth).float()
-        ran = autotune.last_choice("paged_decode")
-        _close(f"paged_decode yi-6b bfloat16 depth={depth} (ran {ran})",
-               out[:-1], ref[:-1], *DECODE_TOL["bfloat16"])
-        if ran != depth:
-            raise AssertionError(f"paged_decode ran depth {ran}, asked {depth}")
+                err = _paged_close(torch, f"paged_decode {name} {dtype_name} "
+                                   f"depth={depth}", args, dtype_name,
+                                   depth=depth)
+                worst = max(worst, err / DECODE_TOL[dtype_name][0])
+    sms = ring.sm_count(torch.device("cuda"))
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        args = paged_problem(torch, gen, PARITY_LENGTHS, h=32, kh=4, d=128,
+                             blk=16, dtype=dtype, device="cuda")
+        b, m = args[0].shape[0], args[3].shape[1]
+        for blk in (32, 64):
+            for splits in (1, 2, None):
+                n_split, per = da.split_plan(b, 4, m * 16, blk, sms, splits)
+                _paged_close(torch, f"paged_decode yi-6b {dtype_name} blk={blk}"
+                             f" splits={splits} (ran {n_split} x {per} tiles)",
+                             args, dtype_name, blk=blk, splits=splits)
+        for page in (4, 8, 32):
+            args = paged_problem(torch, gen, PARITY_LENGTHS, h=32, kh=4,
+                                 d=128, blk=page, dtype=dtype, device="cuda")
+            _paged_close(torch, f"paged_decode yi-6b {dtype_name} page={page}",
+                         args, dtype_name)
+    # deep page depths: the ring runs the clamp's 64-row tiles (at most one
+    # split's, and what shared memory holds beside the table slice)
+    args = paged_problem(torch, gen, PARITY_LENGTHS, h=32, kh=4, d=128, blk=16,
+                         dtype=torch.bfloat16, device="cuda")
+    b, m = args[0].shape[0], args[3].shape[1]
+    for splits in (1, None):
+        _, per = da.split_plan(b, 4, m * 16, da.FLASH_BLK, sms, splits)
+        for depth in (20, 27):
+            tiles = da.kernel_depth(depth, g=8, d=128, page=16,
+                                    blk=da.FLASH_BLK, itemsize=2, n_tiles=per,
+                                    m=m)
+            want = da.ring_pages(tiles, da.FLASH_BLK, 16)
+            _paged_close(torch, f"paged_decode yi-6b bfloat16 depth={depth} "
+                         f"splits={splits} (ring {tiles} tiles = {want} pages)",
+                         args, "bfloat16", depth=depth, splits=splits)
+            ran = autotune.last_choice("paged_decode")
+            if ran != want:
+                raise AssertionError(f"paged_decode recorded depth {ran}, "
+                                     f"the clamp gives {want}")
     return worst
 
 
@@ -436,9 +472,79 @@ def median_ms(torch, fn, args_list, repeats=21):
     return statistics.median(times)
 
 
-def time_kernel(torch, cfg, stats):
+def paged_decode_bound(lengths, h, kh, d, m):
+    """(bound ms, bound_by, bytes, flops) of paged decode attention: the
+    live K/V rows, q, the output, the block table and the lengths over
+    3.35 TB/s, or the flops over 989 TFLOP/s (bf16) if larger."""
+    b = len(lengths)
+    kv_bytes = 2 * sum(lengths) * kh * d * 2          # K and V rows < len
+    io_bytes = 2 * b * h * d * 2 + b * m * 4 + b * 4
+    flops = 4 * h * d * sum(lengths)                  # q.k and p.v
+    bytes_s, ops_s = (kv_bytes + io_bytes) / HBM_BW, flops / PEAK["bfloat16"]
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations",
+            kv_bytes + io_bytes, flops)
+
+
+def time_paged(torch, layers, gathered, lengths, depth):
+    """K1 on `layers` (one (q, pools, table, lengths) per layer), checked
+    against its plain version on the first, then its time, the plain
+    version's and SDPA's over `gathered` (K/V gathered beforehand), beside
+    the bound."""
     import torch.nn.functional as F
 
+    from repro_torch.core import autotune
+    from repro_torch.kernels import ring
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    q, kp, vp, bt, ln = layers[0]
+    b, h, d = q.shape
+    page, kh, m = kp.shape[1], kp.shape[2], bt.shape[1]
+    out = da.paged_flash_decode(q, kp, vp, bt, ln, depth=depth)
+    ran = autotune.last_choice("paged_decode")
+    err = _close(f"paged_decode at the main path's shape B={b} lengths="
+                 f"{lengths}", out, da.paged_flash_decode_plain(q, kp, vp, bt, ln),
+                 *DECODE_TOL["bfloat16"])
+
+    def sdpa(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def kernel(*a):
+        return da.paged_flash_decode(*a, depth=depth)
+
+    kernel_a = median_ms(torch, kernel, layers)
+    plain_ms = median_ms(torch, da.paged_flash_decode_plain, layers)
+    library_ms = median_ms(torch, sdpa, gathered)
+    kernel_b = median_ms(torch, kernel, layers)
+    ms = statistics.median([kernel_a, kernel_b])
+    bound_ms, bound_by, nbytes, flops = paged_decode_bound(lengths, h, kh, d, m)
+    sms = ring.sm_count(q.device)
+    n_split, per = da.split_plan(b, kh, m * page, da.FLASH_BLK, sms)
+    shape = {"B": b, "H": h, "KH": kh, "D": d, "page": page, "M": m,
+             "lengths": lengths, "dtype": "bfloat16", "blk": da.FLASH_BLK,
+             "splits": n_split, "tiles_per_split": per,
+             "blocks": b * kh * n_split, "depth_pages": ran,
+             "solved_depth_pages": depth, "sms": sms}
+    log(f"times paged_decode {json.dumps(shape)}: kernel "
+        f"{kernel_a:.6f}/{kernel_b:.6f} ms, plain {plain_ms:.6f} ms, sdpa "
+        f"(pre-gathered, no page gather) {library_ms:.6f} ms, bound "
+        f"{bound_ms:.8f} ms ({bound_by}, {nbytes} B, {flops} flop), "
+        f"{bound_ms / ms:.1%} of the bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "splits": n_split, "shape": shape}
+
+
+def time_kernel(torch, cfg, stats):
+    """K1 at the main path's decode shape (B = round width, mid-generation
+    lengths of its longest prompts, 16-row pages, a table as wide as a
+    request's pages, one layer's pools per call) and at B 1 (the longest
+    request): kernel, plain version, SDPA over K/V gathered beforehand (it
+    excludes the page gather), bound; then a sweep of tile height (32, 64)
+    x splits at the main path's shape, each beside the bound."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import ring
     from repro_torch.kernels.decode_attention import decode_attention as da
 
     blk = SERVE["block_size"]
@@ -461,17 +567,6 @@ def time_kernel(torch, cfg, stats):
         ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         layers.append((q, kp, vp, bt, ln))
 
-    # agreement on exactly these inputs
-    q, kp, vp, bt, ln = layers[0]
-    out = da.paged_flash_decode(q, kp, vp, bt, ln)
-    ref = da.paged_flash_decode_plain(q, kp, vp, bt, ln)
-    torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    atol, rtol = DECODE_TOL["bfloat16"]
-    if not torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol):
-        raise AssertionError(f"paged_decode disagrees at the main path's "
-                             f"shapes: max_abs_err={err:.3e}")
-
     # the yardstick: SDPA over K/V gathered (and masked) beforehand
     s_len = m * blk
     gathered = []
@@ -482,38 +577,37 @@ def time_kernel(torch, cfg, stats):
                 < ln.long()[:, None])[:, None, None, :]
         gathered.append((q[:, :, None], k.contiguous(), v.contiguous(), mask))
 
-    def sdpa(q, k, v, mask):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              enable_gqa=True)
-
     depth = stats["solved_depth"]
+    rec = time_paged(torch, layers, gathered, lengths, depth)
+    # B 1: the longest request alone
+    one = [(q[-1:], kp, vp, bt[-1:], ln[-1:]) for q, kp, vp, bt, ln in layers]
+    rec["b1"] = time_paged(torch, one, [tuple(t[-1:] for t in g)
+                                        for g in gathered],
+                           lengths[-1:], depth)
+    sms = ring.sm_count(torch.device("cuda"))
+    swept = {}
+    for tile in (32, 64):
+        seen = set()
+        for splits in (None, 1, 2, 3, 5):
+            plan = da.split_plan(width, kh, m * blk, tile, sms, splits)
+            if plan in seen:
+                continue
+            seen.add(plan)
 
-    def kernel(*a):
-        return da.paged_flash_decode(*a, depth=depth)
+            def fn(*a, tile=tile, splits=plan[0]):
+                return da.paged_flash_decode(*a, blk=tile, splits=splits,
+                                             depth=depth)
 
-    kernel_a = median_ms(torch, kernel, layers)
-    plain_ms = median_ms(torch, da.paged_flash_decode_plain, layers)
-    library_ms = median_ms(torch, sdpa, gathered)
-    kernel_b = median_ms(torch, kernel, layers)
-    ms = statistics.median([kernel_a, kernel_b])
-
-    itemsize = 2
-    kv_bytes = 2 * sum(lengths) * kh * d * itemsize       # K and V rows < len
-    io_bytes = 2 * width * h * d * itemsize + bt.numel() * 4 + ln.numel() * 4
-    bytes_s = (kv_bytes + io_bytes) / HBM_BW
-    flops = 4 * h * d * sum(lengths)                      # q.k and p.v
-    ops_s = flops / PEAK["bfloat16"]
-    bound_ms = max(bytes_s, ops_s) * 1e3
-    log(f"times at B={width} H={h} KH={kh} D={d} blk={blk} M={m} "
-        f"lengths={lengths}: kernel {kernel_a:.4f}/{kernel_b:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa (pre-gathered, no page gather) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({kv_bytes + io_bytes} B, {flops} flop)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "shape": {"B": width, "H": h, "KH": kh, "D": d, "blk": blk,
-                      "M": m, "lengths": lengths, "dtype": "bfloat16"}}
+            t = median_ms(torch, fn, layers)
+            tag = (f"blk={tile} splits={plan[0]} tiles_per_split={plan[1]} "
+                   f"depth_pages={autotune.last_choice('paged_decode')} "
+                   f"blocks={width * kh * plan[0]}"
+                   f"{' (plan)' if splits is None else ''}")
+            swept[tag] = t
+            log(f"sweep paged_decode B={width} {tag}: {t:.6f} ms, "
+                f"{rec['bound_ms'] / t:.1%} of the bound")
+    rec["sweep"] = swept
+    return rec
 
 
 # ------------------------------------------------------------------ phase 7
@@ -584,6 +678,17 @@ def profile_steps(torch, step, rounds, label):
     for ms, count, key in rows[:12]:
         log(f"  {ms:8.3f} ms {count:6d} x  {key[:90]}")
     return busy_ms / wall_ms, {key: ms for ms, _, key in rows}, wall_ms
+
+
+def log_decode_share(label, by_kernel) -> float:
+    """The decode-attention kernels' (split pass + merge) device ms per call
+    in a profile's `by_kernel`, logged beside the call's device time."""
+    ms = sum(t for key, t in by_kernel.items()
+             if "flash_split_kernel" in key or "flash_merge_kernel" in key)
+    total = sum(by_kernel.values())
+    log(f"{label}: decode attention (split pass + merge) {ms:.3f} ms of "
+        f"{total:.3f} ms device time ({ms / total:.1%})")
+    return ms
 
 
 def profile_dense_steps(torch, cfg, params, rounds=4):
@@ -1409,7 +1514,76 @@ def time_gups_kernels(torch, st, gmm_case):
         log(f"sweep {name} {tag}: {ms:.4f} ms, "
             f"{bounds[name] / ms:.1%} of the bound")
     log("sweep: " + json.dumps(swept))
+    out["span_gather"]["wait_ab"] = time_span_gather_wait(
+        torch, table, starts, plan.span, depths["span_gather"])
     return out
+
+
+KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+# K5b's ring wait: inlined in the source, and as the shared header's call
+SPAN_WAIT_INLINE = """    if constexpr (kSpan) {
+      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);
+    } else {
+      repro::cp_async_wait_pending(depth - 1);
+    }"""
+SPAN_WAIT_CALLED = "    repro::cp_async_wait_pending(depth - 1);"
+
+
+def patched_copy(tmp: Path, name: str, rel: str, edits) -> Path:
+    """A copy of the kernels tree under `tmp` / `name` (the sources include
+    ../../csrc/coro_ring.cuh) with `edits`, (text, replacement) pairs, made
+    to the source `rel`; each text must occur exactly once. Returns the
+    edited source's path."""
+    import shutil
+
+    tree = tmp / name
+    shutil.copytree(KERNELS, tree, ignore=shutil.ignore_patterns(
+        "*.py", "__pycache__"))
+    src = tree / rel
+    text = src.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise AssertionError(f"{name}: the text to change occurs "
+                                 f"{text.count(old)} times in {rel}: {old!r}")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return src
+
+
+def time_span_gather_wait(torch, table, starts, span, depth):
+    """K5b at phase 8's shape with its ring wait inlined (the source) and
+    with the header's called wait (a copy of the source, built in a
+    temporary directory), timed in turns: called, inlined, inlined,
+    called."""
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+
+    inline = cg.SOURCE
+    times = {"called": [], "inlined": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        called = patched_copy(Path(tmp), "called",
+                              "coro_gather/csrc/coro_gather.cu",
+                              [(SPAN_WAIT_INLINE, SPAN_WAIT_CALLED)])
+        build.build([called])
+        want = cg.span_gather_plain(table, starts, span)
+        for name in ("called", "inlined", "inlined", "called"):
+            cg.SOURCE = called if name == "called" else inline
+            try:
+                if not torch.equal(cg.span_gather(table, starts, span=span,
+                                                  depth=depth), want):
+                    raise AssertionError(f"span_gather ({name} wait) differs "
+                                         "from its plain version")
+                times[name].append(median_ms(
+                    torch, lambda: cg.span_gather(table, starts, span=span,
+                                                  depth=depth), [()]))
+            finally:
+                cg.SOURCE = inline
+    log(f"span_gather wait at depth {depth}: called "
+        f"{times['called'][0]:.5f}/{times['called'][1]:.5f} ms, inlined "
+        f"{times['inlined'][0]:.5f}/{times['inlined'][1]:.5f} ms")
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 # --------------------------------------------------------------------- main
@@ -1451,7 +1625,9 @@ def main() -> int:
     yi_params = build_model(yi_cfg).init(gen, "cuda")
     cfg, stats, counts = serve_main_path(torch, "yi-6b", yi_params)
     timing = time_kernel(torch, cfg, stats)
-    profile_decode_rounds(torch, cfg, stats["round_width"], params=yi_params)
+    _, by_kernel, _ = profile_decode_rounds(torch, cfg, stats["round_width"],
+                                            params=yi_params)
+    log_decode_share("yi-6b paged decode round", by_kernel)
     log(f"depths: solved {stats['solved_depth']}, round width "
         f"{stats['round_width']}")
     log(f"phases 1-7 done at {time.perf_counter() - t_start:.1f} s")
@@ -1461,10 +1637,7 @@ def main() -> int:
     fd_timing = time_flash_decode(torch, cfg, 8, sweep=True)
     fd_b1 = time_flash_decode(torch, cfg, 1)
     _, by_kernel, _ = profile_dense_steps(torch, yi_cfg, yi_params)
-    k3_ms = sum(ms for key, ms in by_kernel.items()
-                if "flash_split_kernel" in key or "flash_merge_kernel" in key)
-    log(f"yi-6b dense decode step: flash_decode (split pass + merge) "
-        f"{k3_ms:.3f} ms of {sum(by_kernel.values()):.3f} ms device time")
+    log_decode_share("yi-6b dense decode step", by_kernel)
     del yi_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1497,6 +1670,7 @@ def main() -> int:
     gmm_times = time_gmm(torch, params, width)
     busy, by_kernel, wall_ms = profile_decode_rounds(torch, moe_cfg, width,
                                                      params=params)
+    log_decode_share(f"{MOE_ARCH} paged decode round", by_kernel)
     device_ms = sum(by_kernel.values())
     gmm_ms = sum(ms for key, ms in by_kernel.items() if "gmm_kernel" in key)
     log(f"{MOE_ARCH} decode round (B={width}): grouped matmul {gmm_ms:.3f} "
@@ -1521,7 +1695,7 @@ def main() -> int:
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/decode_attention/csrc/paged_decode.cu",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:163",
         "tpu": "kernels/decode_attention/decode_attention.py:paged_flash_decode",
         "launches": counts["paged_decode"],
@@ -1529,7 +1703,10 @@ def main() -> int:
                              MOE_ARCH: moe_counts["paged_decode"]},
         "parity": "ok",
         **{k: timing[k] for k in keys},
+        "splits": timing["splits"],
         "shape": timing["shape"],
+        "at_other_shapes": {"B=1": {k: timing["b1"][k] for k in
+                                    keys + ("splits", "shape")}},
     }, {
         "name": "flash_decode",
         "route": "cuda",
@@ -1577,6 +1754,7 @@ def main() -> int:
             "parity": "ok",
             **{k: t[k] for k in keys},
             "shape": t["shape"],
+            **{k: t[k] for k in ("wait_ab",) if k in t},
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,6 +1,7 @@
-"""Hold broken copies of the dense decode-attention kernel (K3,
-``flash_decode.cu``) and the SSD-scan kernel (K4, ``ssd_scan.cu``) to the
-tolerances ``chip_smoke.py`` holds the real ones to, on the card.
+"""Hold broken copies of the flash-decode kernels (K1 paged and K3 dense,
+one source: ``flash_decode.cu``) and the SSD-scan kernel (K4,
+``ssd_scan.cu``) to the tolerances ``chip_smoke.py`` holds the real ones
+to, on the card.
 
 Each broken copy ("mutant") is one textual change to a copy of the source,
 made in a temporary directory outside the checkout and built there with
@@ -17,7 +18,6 @@ control fails anywhere or any mutant passes anywhere.
 from __future__ import annotations
 
 import json
-import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -28,12 +28,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402  (its tolerances and operands)
 
-KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 FLASH = "decode_attention/csrc/flash_decode.cu"
 SSD = "ssd_scan/csrc/ssd_scan.cu"
+PAGED_KEYS = "return max(0, min(lengths[b], M * page));"
 
 # name -> (source, the text replaced, its replacement)
 MUTANTS = {
+    "K1 page looked up one table entry late": (
+        FLASH, "smem_table[i] = row_bt[min(r.page0 + i, M - 1)];",
+        "smem_table[i] = row_bt[min(r.page0 + i + 1, M - 1)];"),
+    "K1 last live key of each request dropped": (
+        FLASH, PAGED_KEYS, "return max(0, min(lengths[b], M * page) - 1);"),
+    "K1 every request at request 0's length": (
+        FLASH, PAGED_KEYS, "return max(0, min(lengths[0], M * page));"),
     "K3 merge without exp(m_i - m)": (
         FLASH, "const float w = exp2f(m_i - M);", "const float w = 1.f;"),
     "K3 last row of each split dropped": (
@@ -54,24 +61,7 @@ MUTANTS = {
         "for (int i = 0; i < n_tiles - 1; ++i) {\n    const int slot = i % depth;\n    const int t0"),
 }
 
-
-def patched_copy(tmp: Path, name: str, rel: str, edits) -> Path:
-    """A copy of the kernels tree under `tmp` / `name` (the sources include
-    ../../csrc/coro_ring.cuh) with `edits`, (text, replacement) pairs, made
-    to the source `rel`; each text must occur exactly once. Returns the
-    edited source's path."""
-    tree = tmp / name
-    shutil.copytree(KERNELS, tree, ignore=shutil.ignore_patterns(
-        "*.py", "__pycache__"))
-    src = tree / rel
-    text = src.read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: the text to change occurs "
-                             f"{text.count(old)} times in {rel}: {old!r}")
-        text = text.replace(old, new)
-    src.write_text(text)
-    return src
+patched_copy = chip_smoke.patched_copy
 
 
 def make_copies(tmp: Path):
@@ -92,6 +82,25 @@ def k3_cases(torch):
         for dtype_name in ("float32", "bfloat16"):
             args = [t.to(getattr(torch, dtype_name)) for t in base]
             yield f"B={b} pos={pos} {dtype_name}", args, pos, dtype_name
+
+
+def k1_cases(torch):
+    """yi-6b's heads (H 32, KH 4, D 128) over 16-row pages: phase 6's
+    timing shape (B 5, mid-generation lengths 132-272, a table of 18
+    pages) and a ragged B 3 (lengths 1, 300, 517), f32 and bf16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    for lengths, m in (([132, 181, 207, 244, 272], 18), ([1, 300, 517], 33)):
+        base = chip_smoke.paged_problem(torch, gen, lengths, h=32, kh=4, d=128,
+                                        blk=16, dtype=torch.float32,
+                                        device="cuda", pad_row=False)
+        q, kp, vp, bt, ln = base
+        bt = torch.nn.functional.pad(bt, (0, m - bt.shape[1])).contiguous()
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            yield (f"B={len(lengths)} M={m} lengths={lengths} {dtype_name}",
+                   (q.to(dtype), kp.to(dtype), vp.to(dtype), bt, ln),
+                   dtype_name)
 
 
 def k4_cases(torch):
@@ -117,7 +126,15 @@ def run(torch, kernel: str, source):
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     rows = []
-    if kernel == "K3":
+    if kernel == "K1":
+        da.FLASH_SOURCE = source
+        for case, args, dtype_name in k1_cases(torch):
+            got = da.paged_flash_decode(*args)
+            want = da.paged_flash_decode_plain(*args)
+            atol, rtol = chip_smoke.DECODE_TOL[dtype_name]
+            err = float((got.float() - want.float()).abs().max())
+            rows.append((case, err, within(torch, got, want, atol, rtol)))
+    elif kernel == "K3":
         da.FLASH_SOURCE = source
         for case, (q, k, v), pos, dtype_name in k3_cases(torch):
             got = da.flash_decode(q, k, v, pos)
@@ -151,14 +168,15 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
-    controls = {"K3": da.FLASH_SOURCE, "K4": ss.SOURCE}
+    controls = {"K1": da.FLASH_SOURCE, "K3": da.FLASH_SOURCE, "K4": ss.SOURCE}
     bad = []
     summary = {}
     with tempfile.TemporaryDirectory(prefix="kernel_mutants_") as tmp:
         tmp = Path(tmp)
         build.BUILD_DIR = tmp / "build"
         mutants = make_copies(tmp)
-        build.build([*controls.values(), *mutants.values()])
+        build.build(list(dict.fromkeys([*controls.values(),
+                                        *mutants.values()])))
         for kernel, source in controls.items():
             for case, err, ok in run(torch, kernel, source):
                 print(f"MUT control {kernel} {case}: err={err:.3e} "

@@ -74,7 +74,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t i = 0; i < count; ++i) {
     const int slot = static_cast<int>(i % depth);
     const int64_t t = first + i;
-    repro::cp_async_wait_pending(depth - 1);  // tile i has landed (this thread's units)
+    // Tile i has landed (this thread's units). The span gather inlines the
+    // wait's binary search, as it did before the header's wait became a
+    // call: the call cost its loop ~6% on an H100 (PERF.md). The row gather
+    // keeps the call.
+    if constexpr (kSpan) {
+      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);
+    } else {
+      repro::cp_async_wait_pending(depth - 1);
+    }
     const typename U::Slot* src = ring + static_cast<size_t>(slot) * tile_units;
     V* dst = out + t * tile_units;
     // source() is read only by the sub-word units; the compiler drops it

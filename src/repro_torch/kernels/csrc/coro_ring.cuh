@@ -1,5 +1,5 @@
 // The coroutine ring shared by the port's kernels (gather, span gather,
-// scatter-add, STREAM triad, paged decode, grouped matmul): cp.async copies
+// scatter-add, STREAM triad, flash decode, grouped matmul): cp.async copies
 // into shared memory, one commit group per tile (the paper's aset group),
 // and a wait on a run-time depth.
 //
@@ -7,7 +7,7 @@
 // slots. In the row-copy kernels a thread copies the same vectors of every
 // tile it issues and later reads back exactly those vectors, so
 // cp.async.wait_group alone makes its data visible to it: their ring needs
-// no block barrier (the paged-decode and grouped-matmul kernels share each
+// no block barrier (the flash-decode and grouped-matmul kernels share each
 // tile across the block and add one after the wait).
 
 #pragma once
@@ -79,9 +79,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // Wait until at most `n` copy groups are still pending, for any n below
 // kMaxDepth. The instruction takes an immediate, so the run-time n picks one
 // of kMaxDepth instantiations by binary search (six uniform branches). Not
-// inlined: inlined into the paged-decode kernel's page loop, the search ran
-// that kernel a third slower on an H100 (a switch there cost the gather
-// kernels' deep rings 6% instead); as a call it costs neither.
+// inlined: inlined into the page loop of the first paged-decode kernel (since
+// replaced), the search ran that kernel a third slower on an H100 (a switch
+// there cost the gather kernels' deep rings 6% instead). A kernel whose loop
+// it does not slow may inline cp_async_wait_range itself (the span gather).
 template <int Lo, int Hi>
 __device__ __forceinline__ void cp_async_wait_range(int n) {
   if constexpr (Lo == Hi) {

@@ -1,32 +1,39 @@
-// Flash-decode attention over a dense KV cache, for Hopper (sm_90a).
+// Flash-decode attention for Hopper (sm_90a), over a dense KV cache (K3)
+// and over a paged one (K1): one split body, two row functions.
 //
-// Replaces the TPU kernel
-// src/repro/kernels/decode_attention/decode_attention.py:flash_decode.
-// For each sequence b and query head h of KV group kh = h / G it computes
+// Replaces the TPU kernels
+//   src/repro/kernels/decode_attention/decode_attention.py:flash_decode (K3)
+//   src/repro/kernels/decode_attention/decode_attention.py:paged_flash_decode (K1).
+// For each sequence b and query head h of KV group kh = h / G both compute
 //
-//   o[b, h] = softmax_j(q[b, h] . K[b, j, kh] * D^-0.5) V[b, j, kh]   over j <= pos
+//   o[b, h] = softmax_j(q[b, h] . K[b, j, kh] * D^-0.5) V[b, j, kh]   over j < n_keys(b)
 //
-// on caches [B, S, KH, D] with one scalar `pos` for the whole batch, with an
-// f32 online softmax (m, l, acc) and the output acc / max(l, 1e-30) cast to
-// the input type. This is the dense serving engine's decode attention:
-// every attention layer, every decode step.
+// with an f32 online softmax (m, l, acc) and the output acc / max(l, 1e-30)
+// cast to the input type. K3 reads caches [B, S, KH, D] up to one scalar
+// `pos` for the whole batch: n_keys = min(pos + 1, S) for every b. K1 reads
+// pools [NB, page, KH, D] through a block table [B, M]: key j of request b
+// is row j % page of page block_tables[b, j / page], and n_keys(b) is
+// lengths[b] (clamped to [0, M * page]), read from the device array inside
+// the kernel. The dense serving engine runs K3 and the paged one K1, for
+// every attention layer of every decode step.
 //
 // What bounds it: bytes. Each key row is read once and used for G query
 // heads (2 * G flops per byte in bf16), far below the ~295 flops/byte at
 // which the H100 becomes compute-bound, so its floor is the live K/V rows
-// (positions <= pos) over 3.35 TB/s: 17.2 MB, 5.1 us at yi-6b's batch-8
-// decode shape. One SM pulls only ~30 GB/s, so the card reaches its rate
-// only with every SM loading, and a call this short also pays for its
-// launches and its epilogue. What the design does about it:
+// over 3.35 TB/s: 17.2 MB, 5.1 us at yi-6b's batch-8 dense decode shape.
+// One SM pulls only ~30 GB/s, so the card reaches its rate only with every
+// SM loading, and a call this short also pays for its launches and its
+// epilogue. What the design does about it:
 //   * the sequence is split over blocks (flash-decoding): the grid is
 //     (B * KH, n_split), each split a contiguous range of `blk`-row tiles,
 //     so that B * KH = 32 (yi-6b at batch 8) still puts two or more blocks
-//     on every one of the 132 SMs. The host plans n_split from B, KH, S,
-//     blk and the SM count; the grid depends on S, not on pos. Each split
-//     leaves an f32 partial (m, l, acc) per head; a second kernel here, one
-//     block per (b, kh, head) and one thread per column, merges a head's
-//     partials with the rescale exp(m_i - m). With one split the split pass
-//     writes the output itself and no merge runs;
+//     on every one of the 132 SMs. The host plans n_split from B, KH, the
+//     rows the cache can hold (S, or M * page), blk and the SM count; the
+//     grid never depends on pos or on the lengths, which the host does not
+//     read. Each split leaves an f32 partial (m, l, acc) per head; a second
+//     kernel here, one block per (b, kh, head) and one thread per column,
+//     merges a head's partials with the rescale exp(m_i - m). With one
+//     split the split pass writes the output itself and no merge runs;
 //   * both kernels are launched with programmatic dependent launch: each
 //     is scheduled while the kernel before it still runs and waits
 //     (griddepcontrol.wait) before its first read, so neither launch's
@@ -34,8 +41,8 @@
 //   * a ring of `depth` K and V tiles in shared memory is kept in flight
 //     with cp.async (the shared coro_ring.cuh); `depth` is the host's
 //     solved pipeline depth, clamped to the tiles of one split. A split
-//     loads only rows below min(pos + 1, S): one past pos is never read,
-//     and a split wholly past pos writes an empty partial (m = -1e30,
+//     loads only rows below its sequence's n_keys: no row past it is ever
+//     read, and a split wholly past it writes an empty partial (m = -1e30,
 //     l = 0, acc = 0);
 //   * bf16 runs both products on the tensor cores with
 //     mma.sync.m16n8k16 (f32 accumulate), query heads as the M dimension
@@ -58,8 +65,18 @@
 //     its four warps through shared memory once, after its last tile, with
 //     each head's warp weights computed once and the scratch rows padded
 //     off a single bank.
-// Every K/V row address comes from one device function (DenseRows); a
-// paged cache would give the same body a block-table row function.
+// Every K/V row address comes from one device function, the kernel's row
+// function: DenseRows for the dense cache, PagedRows for the block table.
+// The page size is any positive integer, independent of `blk`: each row is
+// addressed on its own, so a tile may span several pages. A paged block
+// copies its split's slice of the table row (at most
+// (tiles_per_split * blk - 1) / page + 2 entries) into shared memory once,
+// in the prologue, while it also reads its request's length and its query.
+// So no cp.async waits behind a dependent global load of the table: chosen
+// over computing the page once per row because each thread issues one
+// 16-byte chunk of a row, so a page computed per row would still put a
+// global load in front of every row's copies, in every tile; the slice
+// costs one round trip per block and 4 bytes of shared memory an entry.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
@@ -87,26 +104,65 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kAccPad = 8;  // floats after each head row of the merge scratch
 
-// Dynamic shared memory: a K ring and a V ring ([depth][blk][D + pad] each,
-// input type, rows padded by 16 bytes); after the last tile the same bytes
-// hold every warp's f32 (m [GP], l [GP], acc [GP][D + kAccPad]) for the block's
-// merge. GP is G padded: to 16 or 32 in bf16, to a power of two in f32.
-// The kAccPad floats of padding put the eight head rows of an m16n8 fragment's
-// stores on different banks (unpadded, D = 128 puts them all on one).
-// The same formula is
-// repro_torch/kernels/decode_attention/decode_attention.py:_flash_smem_bytes.
-size_t smem_bytes(int GP, int D, int blk, int depth, int itemsize) {
+// Dynamic shared memory: the paged row function's slice of the block table
+// (`slots` ints, a multiple of four; none for the dense cache), then a K ring
+// and a V ring ([depth][blk][D + pad] each, input type, rows padded by 16
+// bytes); after the last tile the ring's bytes hold every warp's f32
+// (m [GP], l [GP], acc [GP][D + kAccPad]) for the block's merge. GP is G
+// padded: to 16 or 32 in bf16, to a power of two in f32. The kAccPad floats
+// of padding put the eight head rows of an m16n8 fragment's stores on
+// different banks (unpadded, D = 128 puts them all on one). The same formula
+// is repro_torch/kernels/decode_attention/decode_attention.py:_flash_smem_bytes.
+size_t smem_bytes(int GP, int D, int blk, int depth, int itemsize, int slots) {
   const size_t ring = static_cast<size_t>(2) * depth * blk * (D + 16 / itemsize) * itemsize;
   const size_t merge = sizeof(float) * kWarps * static_cast<size_t>(GP) * (D + kAccPad + 2);
-  return ring > merge ? ring : merge;
+  return sizeof(int) * static_cast<size_t>(slots) + (ring > merge ? ring : merge);
 }
 
-// Element offset of key row `row` of sequence b, KV head kh, in a dense
-// [B, S, KH, D] cache: the only place the kernel computes a K/V address.
+// The row functions. keys(b) is sequence b's live key count; bind() runs
+// once per block, in the prologue, and returns the function the block's
+// copies address with; operator() is the element offset of key row `row`
+// of sequence b, KV head kh: the only place the kernel computes a K/V
+// address.
+
+// A dense [B, S, KH, D] cache attended up to one position for the batch.
 struct DenseRows {
-  int S, KH, D;
+  static constexpr bool kTable = false;
+  int S, KH, D, n_keys;  // n_keys = min(pos + 1, S)
+  __device__ __forceinline__ int keys(int) const { return n_keys; }
+  __device__ __forceinline__ int table_bytes() const { return 0; }
+  __device__ __forceinline__ DenseRows bind(int*, int, int, int) const { return *this; }
   __device__ __forceinline__ int64_t operator()(int b, int row, int kh) const {
     return ((static_cast<int64_t>(b) * S + row) * KH + kh) * D;
+  }
+};
+
+// Pools [NB, page, KH, D] through a block table [B, M] and per-request
+// lengths [B]. bind() copies entries [page0, page0 + slots) of sequence b's
+// table row (clamped to its last entry) into shared memory; the slots cover
+// every page the split's rows touch.
+struct PagedRows {
+  static constexpr bool kTable = true;
+  const int* bt;
+  const int* lengths;
+  int M, page, KH, D, slots;
+  const int* table;  // after bind(): the slice in shared memory
+  int page0;
+  __device__ __forceinline__ int keys(int b) const {
+    return max(0, min(lengths[b], M * page));
+  }
+  __device__ __forceinline__ int table_bytes() const { return static_cast<int>(sizeof(int)) * slots; }
+  __device__ __forceinline__ PagedRows bind(int* smem_table, int b, int row0, int tid) const {
+    PagedRows r = *this;
+    r.page0 = row0 / page;
+    const int* row_bt = bt + static_cast<int64_t>(b) * M;
+    for (int i = tid; i < slots; i += kThreads) smem_table[i] = row_bt[min(r.page0 + i, M - 1)];
+    r.table = smem_table;
+    return r;
+  }
+  __device__ __forceinline__ int64_t operator()(int, int row, int kh) const {
+    const int p = row / page;
+    return ((static_cast<int64_t>(table[p - page0]) * page + (row - p * page)) * KH + kh) * D;
   }
 };
 
@@ -379,12 +435,12 @@ struct Partials {
 
 // Grid (B * KH, n_split): block (bkh, split) walks the key rows
 // [split * tiles_per_split * blk, ...) of sequence b = bkh / KH, KV head
-// kh = bkh % KH, up to n_keys = min(pos + 1, S).
+// kh = bkh % KH, up to n_keys = layout.keys(b).
 template <typename T, int D, int GP, typename Rows>
 __global__ void __launch_bounds__(kThreads)
     flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                        const T* __restrict__ v_cache, T* __restrict__ out,
-                       float* __restrict__ part, Rows row_of, int H, int KH, int blk, int n_keys,
+                       float* __restrict__ part, Rows layout, int H, int KH, int blk,
                        int tiles_per_split, int depth, float scale_log2) {
   using Warp = typename WarpOf<T, D, GP>::type;
   constexpr int kStride = Warp::kStride;
@@ -409,13 +465,16 @@ __global__ void __launch_bounds__(kThreads)
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* k_ring = reinterpret_cast<T*>(smem);
+  unsigned char* body = smem + layout.table_bytes();  // the ring, then the merge scratch
+  T* k_ring = reinterpret_cast<T*>(body);
   T* v_ring = k_ring + static_cast<size_t>(depth) * tile_elems;
 
-  // This split's live key rows [row0, row_end).
+  // This split's live key rows [row0, row_end), and its row function.
   const int row0 = split * tiles_per_split * blk;
+  const int n_keys = layout.keys(b);
   const int row_end = min(n_keys, row0 + tiles_per_split * blk);
   const int n_tiles = row_end > row0 ? (row_end - row0 + blk - 1) / blk : 0;
+  const Rows row_of = layout.bind(reinterpret_cast<int*>(smem), b, row0, tid);
 
   // Start the copies of this split's tile `tile` into ring slot `slot`: its
   // live rows, 16 B per cp.async. V rows from the last live one to the end
@@ -447,6 +506,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t q_off = static_cast<int64_t>(bkh) * G * D;  // (b * H + kh * G) * D
   Warp st;
   st.init(q + q_off, G, lane);
+  if constexpr (Rows::kTable) __syncthreads();  // the table slice is in shared memory
   for (int s = 0; s < depth; ++s) {
     if (s < n_tiles) issue(s, s);
     cp_async_commit();
@@ -470,7 +530,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();  // the ring's bytes now hold the warps' states
 
   constexpr int kWP = GP;
-  float* sm_m = reinterpret_cast<float*>(smem);
+  float* sm_m = reinterpret_cast<float*>(body);
   float* sm_l = sm_m + kWarps * kWP;
   float* sm_acc = sm_l + kWarps * kWP;
   st.store(sm_m + warp * kWP, sm_l + warp * kWP, sm_acc + warp * kWP * (D + kAccPad), lane);
@@ -518,9 +578,13 @@ __global__ void __launch_bounds__(kThreads)
 // Grid (B * KH, G), D threads: block (bkh, h) merges head h's n_split
 // partials, thread d its column:
 //   o = sum_i acc_i exp(m_i - m) / max(sum_i l_i exp(m_i - m), 1e-30),
-// m = max_i m_i (m in the log2 domain). Split 0 always holds key 0, so m is
-// finite and an empty partial weighs 0. The loads of different splits are
-// independent, so an unrolled loop keeps several in flight.
+// m = max_i m_i (m in the log2 domain). Where a sequence has a live key,
+// m is finite and an empty partial (m_i = -1e30) weighs exp2(-1e30 - m) = 0.
+// A paged request of length 0 has no live key: every partial is empty, so
+// m = -1e30, every weight is exp2(0) = 1, the sum of l is 0 and o = 0 /
+// 1e-30 = 0, finite (the engine pads a round with such rows). The loads of
+// different splits are independent, so an unrolled loop keeps several in
+// flight.
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
     flash_merge_kernel(const float* __restrict__ part, T* __restrict__ out, int n_split) {
@@ -547,7 +611,7 @@ struct Args {
   const void *q, *k, *v;
   void* out;
   float* part;
-  int B, H, KH, S, blk, n_keys, n_split, tiles_per_split, depth;
+  int B, H, KH, blk, n_split, tiles_per_split, depth;
   float scale_log2;
   cudaStream_t stream;
 };
@@ -573,85 +637,135 @@ cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, size_t
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <typename T, int D, int GP>
-cudaError_t launch(const Args& a) {
-  const size_t smem = smem_bytes(GP, D, a.blk, a.depth, static_cast<int>(sizeof(T)));
-  auto kernel = flash_split_kernel<T, D, GP, DenseRows>;
+template <typename T, int D, int GP, typename Rows>
+cudaError_t launch(const Args& a, const Rows& rows, int slots) {
+  const size_t smem = smem_bytes(GP, D, a.blk, a.depth, static_cast<int>(sizeof(T)), slots);
+  auto kernel = flash_split_kernel<T, D, GP, Rows>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   err = launch_pdl(kernel, dim3(a.B * a.KH, a.n_split), kThreads, smem, a.stream,
                    static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                   static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part,
-                   DenseRows{a.S, a.KH, D}, a.H, a.KH, a.blk, a.n_keys, a.tiles_per_split,
-                   a.depth, a.scale_log2);
+                   static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part, rows, a.H, a.KH,
+                   a.blk, a.tiles_per_split, a.depth, a.scale_log2);
   if (err != cudaSuccess || a.n_split == 1) return err;
   return launch_pdl(flash_merge_kernel<T>, dim3(a.B * a.KH, a.H / a.KH), D, 0, a.stream,
                     static_cast<const float*>(a.part), static_cast<T*>(a.out), a.n_split);
 }
 
 // G padded: to 16 or 32 query heads (M tiles) in bf16, a power of two in f32.
-template <typename T, int D>
-cudaError_t dispatch_g(int G, const Args& a) {
+template <typename T, int D, typename Rows>
+cudaError_t dispatch_g(int G, const Args& a, const Rows& rows, int slots) {
   if constexpr (sizeof(T) == 2) {
-    if (G <= 16) return launch<T, D, 16>(a);
-    return launch<T, D, 32>(a);
+    if (G <= 16) return launch<T, D, 16>(a, rows, slots);
+    return launch<T, D, 32>(a, rows, slots);
   } else {
-    if (G <= 1) return launch<T, D, 1>(a);
-    if (G <= 2) return launch<T, D, 2>(a);
-    if (G <= 4) return launch<T, D, 4>(a);
-    if (G <= 8) return launch<T, D, 8>(a);
-    if (G <= 16) return launch<T, D, 16>(a);
-    return launch<T, D, 32>(a);
+    if (G <= 1) return launch<T, D, 1>(a, rows, slots);
+    if (G <= 2) return launch<T, D, 2>(a, rows, slots);
+    if (G <= 4) return launch<T, D, 4>(a, rows, slots);
+    if (G <= 8) return launch<T, D, 8>(a, rows, slots);
+    if (G <= 16) return launch<T, D, 16>(a, rows, slots);
+    return launch<T, D, 32>(a, rows, slots);
   }
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, int G, const Args& a) {
+template <typename T, typename Rows>
+cudaError_t dispatch_d(int D, int G, const Args& a, const Rows& rows, int slots) {
   switch (D) {
     case 16:
-      return dispatch_g<T, 16>(G, a);
+      return dispatch_g<T, 16>(G, a, rows, slots);
     case 32:
-      return dispatch_g<T, 32>(G, a);
+      return dispatch_g<T, 32>(G, a, rows, slots);
     case 64:
-      return dispatch_g<T, 64>(G, a);
+      return dispatch_g<T, 64>(G, a, rows, slots);
     case 128:
-      return dispatch_g<T, 128>(G, a);
+      return dispatch_g<T, 128>(G, a, rows, slots);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. `pos` >= 0 is the last key position
-// attended (keys at or past S do not exist: min(pos + 1, S) rows are live).
-// The grid is (B * KH, n_split), split i walking tiles
-// [i * tiles_per_split, (i + 1) * tiles_per_split) of `blk` rows, which
-// must cover the S rows; `part` holds B * KH * n_split * G * (D + 2) floats
-// (unused, and may be null, when n_split == 1). Returns the cudaError_t of
-// the launches (0 on success); the caller raises on anything else.
-extern "C" int repro_flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                                  void* out, void* part, int B, int H, int KH, int D, int S,
-                                  int blk, int pos, int n_split, int tiles_per_split, int depth,
-                                  float scale, int dtype, void* stream) {
-  if (B < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup || S < 1 || blk < kChunkRows ||
-      blk % kChunkRows != 0 || pos < 0 || depth < 1 || n_split < 1 || tiles_per_split < 1 ||
-      static_cast<int64_t>(n_split) * tiles_per_split * blk < S || (n_split > 1 && !part)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int n_keys = pos + 1 < S ? pos + 1 : S;
-  const Args a{q, k_cache, v_cache, out, static_cast<float*>(part), B, H, KH, S, blk, n_keys,
-               n_split, tiles_per_split, depth, scale * kLog2e, static_cast<cudaStream_t>(stream)};
-  const int G = H / KH;
+// dtype: 0 = float32, 1 = bfloat16.
+template <typename Rows>
+int dispatch(int dtype, int D, const Args& a, const Rows& rows, int slots) {
+  const int G = a.H / a.KH;
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(D, G, a);
+    err = dispatch_d<float>(D, G, a, rows, slots);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(D, G, a);
+    err = dispatch_d<__nv_bfloat16>(D, G, a, rows, slots);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// What both entry points refuse: a batch, head layout, tile, ring or split
+// plan the kernel does not take, or a missing partials buffer.
+bool bad_launch(int B, int H, int KH, int blk, int depth, int n_split, int tiles_per_split,
+                int64_t rows, const void* part) {
+  return B < 1 || KH < 1 || H % KH != 0 || H / KH > kMaxGroup || blk < kChunkRows ||
+         blk % kChunkRows != 0 || depth < 1 || depth > repro::kMaxDepth || n_split < 1 ||
+         tiles_per_split < 1 || static_cast<int64_t>(n_split) * tiles_per_split * blk < rows ||
+         (n_split > 1 && !part);
+}
+
+// The table slice one paged split copies: every page its rows can touch,
+// min(M, (tiles_per_split * blk - 1) / page + 2) entries, rounded up to four
+// (16 bytes, so the ring after it stays aligned). The same formula is
+// repro_torch/kernels/decode_attention/decode_attention.py:_table_slots.
+int table_slots(int M, int page, int blk, int tiles_per_split) {
+  const int64_t touched = (static_cast<int64_t>(tiles_per_split) * blk - 1) / page + 2;
+  const int64_t n = touched < M ? touched : M;
+  return static_cast<int>((n + 3) / 4 * 4);
+}
+
+}  // namespace
+
+// The grid of both entry points is (B * KH, n_split), split i walking tiles
+// [i * tiles_per_split, (i + 1) * tiles_per_split) of `blk` rows, which
+// must cover every row the cache holds (S, or M * page); `part` holds
+// B * KH * n_split * G * (D + 2) floats (unused, and may be null, when
+// n_split == 1). dtype: 0 = float32, 1 = bfloat16. Each returns the
+// cudaError_t of the launches (0 on success); the caller raises on
+// anything else.
+
+// K3: caches [B, S, KH, D]. `pos` >= 0 is the last key position attended
+// (keys at or past S do not exist: min(pos + 1, S) rows are live).
+extern "C" int repro_flash_decode(const void* q, const void* k_cache, const void* v_cache,
+                                  void* out, void* part, int B, int H, int KH, int D, int S,
+                                  int blk, int pos, int n_split, int tiles_per_split, int depth,
+                                  float scale, int dtype, void* stream) {
+  if (S < 1 || pos < 0 || bad_launch(B, H, KH, blk, depth, n_split, tiles_per_split, S, part)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_keys = pos + 1 < S ? pos + 1 : S;
+  const Args a{q, k_cache, v_cache, out, static_cast<float*>(part), B, H, KH, blk,
+               n_split, tiles_per_split, depth, scale * kLog2e, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, a, DenseRows{S, KH, D, n_keys}, 0);
+}
+
+// K1: pools [NB, page, KH, D], block_tables [B, M] int32 (entries past a
+// request's live pages are never used; the engine pads with page 0),
+// lengths [B] int32: request b attends key positions < lengths[b] (all
+// M * page of them when lengths[b] is larger; none when it is 0 or less,
+// and its output is then 0). Neither array is read on the host. Any page
+// size >= 1 and table width >= 1 with M * page below 2^31 are taken.
+extern "C" int repro_paged_flash_decode(const void* q, const void* k_pool, const void* v_pool,
+                                        const void* block_tables, const void* lengths, void* out,
+                                        void* part, int B, int H, int KH, int D, int page, int M,
+                                        int blk, int n_split, int tiles_per_split, int depth,
+                                        float scale, int dtype, void* stream) {
+  const int64_t rows = static_cast<int64_t>(M) * page;
+  if (page < 1 || M < 1 || rows > INT32_MAX || !block_tables || !lengths ||
+      bad_launch(B, H, KH, blk, depth, n_split, tiles_per_split, rows, part)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int slots = table_slots(M, page, blk, tiles_per_split);
+  const Args a{q, k_pool, v_pool, out, static_cast<float*>(part), B, H, KH, blk,
+               n_split, tiles_per_split, depth, scale * kLog2e, static_cast<cudaStream_t>(stream)};
+  const PagedRows paged{static_cast<const int*>(block_tables), static_cast<const int*>(lengths),
+                        M, page, KH, D, slots, nullptr, 0};
+  return dispatch(dtype, D, a, paged, slots);
 }

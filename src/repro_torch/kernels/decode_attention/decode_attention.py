@@ -1,31 +1,36 @@
 """Flash-decode attention, dense and paged: each kernel's `CoroSpec`, its
 CUDA wrapper and its plain PyTorch version.
 
-Dense (`flash_decode`): one decode token per sequence attends over a dense
-``[B, S, KH, D]`` cache up to one scalar position ``pos``, in ``blk``-row
-tiles. The CUDA kernel (`csrc/flash_decode.cu`) replaces the TPU kernel
+Dense (`flash_decode`, K3): one decode token per sequence attends over a
+dense ``[B, S, KH, D]`` cache up to one scalar position ``pos``. It
+replaces the TPU kernel
 ``src/repro/kernels/decode_attention/decode_attention.py:flash_decode``;
 the dense serving engine runs it for every attention layer of every
 decode step.
 
-Paged (`paged_flash_decode`): one decode token per request attends over
-that request's KV pages, which the pager scattered across a shared block
-pool; the block table redirects every page load. The CUDA kernel
-(`csrc/paged_decode.cu`) replaces the TPU kernel
-``src/repro/kernels/decode_attention/decode_attention.py:paged_flash_decode``.
+Paged (`paged_flash_decode`, K1): one decode token per request attends
+over that request's KV pages, which the pager scattered across a shared
+block pool; the block table redirects every row, and each request has its
+own length. It replaces the TPU kernel
+``src/repro/kernels/decode_attention/decode_attention.py:paged_flash_decode``;
+the paged serving engine runs it for every attention layer of every round.
 
-Both are hand-written for sm_90a and keep the TPU kernels' arithmetic:
-scores scaled in f32 by ``D**-0.5``, an f32 online softmax over the live
-keys, output ``acc / max(l, 1e-30)`` cast to q's type (the dense kernel
-splits the sequence over blocks and merges their partial softmax states;
-in bf16 it rounds P to bf16 for the tensor cores, as the reference
-engine's decode attention does). Both are bound by the bytes of the live
-K/V rows; the source notes say what their designs do about that.
+One CUDA source (`csrc/flash_decode.cu`), hand-written for sm_90a, runs
+both: one split kernel and one merge kernel, instantiated with two row
+functions (dense rows, or pages through the block table) and two length
+sources (``min(pos + 1, S)`` for the batch, or ``lengths[b]`` read on the
+device). Both keep the TPU kernels' arithmetic: scores scaled in f32 by
+``D**-0.5``, an f32 online softmax over the live keys, output
+``acc / max(l, 1e-30)`` cast to q's type; the sequence is split over
+blocks in ``blk``-row tiles and the splits' partial softmax states merged;
+in bf16 P is rounded to bf16 for the tensor cores, as the reference
+engine's decode attention does. Both are bound by the bytes of the live
+K/V rows; the source notes say what the design does about that.
 
 Each wrapper picks its path from the device of the tensors it is given: on
 CPU tensors it runs its plain version; on CUDA tensors it launches the
 kernel or raises. `flash_decode.launches` and `paged_flash_decode.launches`
-count kernel launches (and nothing else).
+count kernel calls (and nothing else).
 """
 from __future__ import annotations
 
@@ -50,15 +55,17 @@ __all__ = [
     "paged_flash_decode",
     "paged_flash_decode_plain",
     "kernel_depth",
+    "ring_pages",
     "split_plan",
 ]
 
 NEG_INF = -1e30
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode.cu"
 FLASH_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
-HEAD_DIMS = (16, 64, 128)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 32                 # query heads per KV head the kernel holds
+FLASH_BLK = 64                 # default tile height (the sweep: PERF.md)
+BLOCKS_PER_SM = 2              # what the split plan aims to put on each SM
+WARPS = 4                      # kWarps in csrc/flash_decode.cu
 
 
 def _softmax_vars(kh: int, g: int, d: int):
@@ -168,163 +175,22 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, lengths):
     return out.reshape(b, h, d).to(q.dtype)
 
 
-# ------------------------------------------------------------- the kernel
-
-
-def _smem_bytes(g: int, d: int, blk: int, depth: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block (the layout in the .cu source)."""
-    return 2 * depth * blk * d * itemsize + 4 * (g * d + g * blk + 2 * g)
-
-
-def kernel_depth(depth: int, *, g: int, d: int, blk: int, itemsize: int,
-                 n_tiles: int, kernel: str = "paged_decode") -> int:
-    """Clamp a solved depth to what either decode kernel runs (both lay out
-    shared memory as `_smem_bytes` says): at most `n_tiles` tiles (pages,
-    or `blk`-row tiles of the dense cache), at most `ring.MAX_DEPTH` (the
-    deepest wait the kernels compile), and no more K/V buffer pairs than
-    one block's shared memory holds for its own [blk, D] tile."""
-    if depth < 1:
-        raise ValueError(f"depth must be >= 1, got {depth}")
-    fixed = _smem_bytes(g, d, blk, 0, itemsize)
-    per_slot = _smem_bytes(g, d, blk, 1, itemsize) - fixed
-    fit = (ring.SMEM_LIMIT - fixed) // per_slot
-    if fit < 1:
-        raise KernelResourceError(
-            f"one page buffer needs {fixed + per_slot} B of shared memory, "
-            f"over {ring.SMEM_LIMIT}", kernel=kernel, depth=1,
-            tile=(blk, d))
-    return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
-
-
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-
-def _check(q, k_pool, v_pool, block_tables, lengths) -> None:
-    if q.dim() != 3 or k_pool.dim() != 4:
-        raise ValueError(f"need q [B,H,D] and pools [NB,blk,KH,D], got "
-                         f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
-    if v_pool.shape != k_pool.shape:
-        raise ValueError(f"k_pool {tuple(k_pool.shape)} != v_pool "
-                         f"{tuple(v_pool.shape)}")
-    b, h, d = q.shape
-    kh = k_pool.shape[2]
-    if k_pool.shape[3] != d or h % kh:
-        raise ValueError(f"q {tuple(q.shape)} does not fit pools "
-                         f"{tuple(k_pool.shape)}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != b:
-        raise ValueError(f"block_tables must be [B={b}, M], got "
-                         f"{tuple(block_tables.shape)}")
-    if tuple(lengths.shape) != (b,):
-        raise ValueError(f"lengths must be [B={b}], got {tuple(lengths.shape)}")
-
-
-def _check_cuda(q, k_pool, v_pool, block_tables, lengths) -> None:
-    dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("lengths", lengths)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in ring.DTYPE_CODE:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError(f"pools ({k_pool.dtype}, {v_pool.dtype}) must match "
-                        f"q ({q.dtype})")
-    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("block_tables and lengths must be int32")
-    d = q.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if q.shape[1] // k_pool.shape[2] > MAX_GROUP:
-        raise ValueError(f"more than {MAX_GROUP} query heads per KV head")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("lengths", lengths)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
-
-
-def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, *,
-                       depth: Optional[int] = None):
-    """Flash-decode over a paged KV pool with ragged per-request lengths.
-
-    q: [B,H,D]; k_pool/v_pool: [NB, blk, KH, D]; block_tables: [B, M] int32
-    (pad with the reserved garbage block 0); lengths: [B] int32 — request b
-    attends key positions < lengths[b]. Returns [B,H,D]; rows with
-    lengths == 0 are garbage (round padding slots).
-
-    `depth` is the number of pages in flight; None solves it from
-    `paged_decode_spec` through `core.autotune.choose_depth`. The kernel
-    clamps it to what shared memory holds (`kernel_depth`).
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel, or
-    raise (`KernelCompileError` / `KernelResourceError` on a failed build or
-    launch, ValueError / TypeError on inputs it does not take).
-    """
-    if depth is not None and depth < 1:
-        raise ValueError(f"depth must be >= 1, got {depth}")
-    _check(q, k_pool, v_pool, block_tables, lengths)
-    if q.device.type == "cpu":
-        for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                        ("block_tables", block_tables), ("lengths", lengths)):
-            if t.device.type != "cpu":
-                raise ValueError(f"{name} is on {t.device}, q on the CPU")
-        return paged_flash_decode_plain(q, k_pool, v_pool, block_tables,
-                                        lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda(q, k_pool, v_pool, block_tables, lengths)
-
-    b, h, d = q.shape
-    blk, kh = k_pool.shape[1], k_pool.shape[2]
-    m = block_tables.shape[1]
-    g = h // kh
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
-    itemsize = q.element_size()
-    if depth is None:
-        spec = paged_decode_spec(blk, kh, g, d, q.dtype, max_blocks=m)
-        depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
-                                      vars=spec.all_vars())
-    depth = kernel_depth(depth, g=g, d=d, blk=blk, itemsize=itemsize,
-                         n_tiles=m)
-    autotune.record_choice("paged_decode", depth)
-    lib = ring.library(SOURCE, "repro_paged_decode", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_paged_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, kh, d, blk, m, depth, float(d ** -0.5),
-            ring.DTYPE_CODE[q.dtype], stream)
-    ring.raise_on_error(err, lib, kernel="paged_decode", depth=depth,
-                        tile=(blk, d))
-    paged_flash_decode.launches += 1
-    return out
-
-
-paged_flash_decode.launches = 0
-
-
-# ------------------------------------------------------- the dense kernel
+# ------------------------------------------------ the kernel's host side
 
 _FLASH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-FLASH_BLK = 64                 # default tile height (the sweep: PERF.md)
-BLOCKS_PER_SM = 2              # what the split plan aims to put on each SM
-WARPS = 4                      # kWarps in csrc/flash_decode.cu
+_PAGED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def split_plan(b: int, kh: int, s: int, blk: int, sm_count: int,
                splits: Optional[int] = None):
-    """(n_split, tiles per split) of the dense kernel's grid (B * KH,
-    n_split): the ceil(S / blk) tiles of the cache cut into contiguous runs,
-    as few splits as put `BLOCKS_PER_SM` blocks on each of `sm_count` SMs
-    (one split when B * KH alone does), or `splits` when given. Depends on
-    S, never on pos; every split holds at least one tile."""
+    """(n_split, tiles per split) of the kernel's grid (B * KH, n_split):
+    the ceil(S / blk) tiles of the rows the cache holds (S, or M * page for
+    a paged one) cut into contiguous runs, as few splits as put
+    `BLOCKS_PER_SM` blocks on each of `sm_count` SMs (one split when B * KH
+    alone does), or `splits` when given. Depends on S, never on pos or the
+    lengths; every split holds at least one tile."""
     n_tiles = -(-s // blk)
     if splits is None:
         splits = -(-BLOCKS_PER_SM * sm_count // max(b * kh, 1))
@@ -332,32 +198,33 @@ def split_plan(b: int, kh: int, s: int, blk: int, sm_count: int,
     return -(-n_tiles // per), per
 
 
-def _flash_smem_bytes(g: int, d: int, blk: int, depth: int,
-                      itemsize: int) -> int:
-    """Dynamic shared memory of one dense-kernel block (the layout in
-    csrc/flash_decode.cu): the K/V ring, rows padded by 16 bytes, or the
-    warps' f32 states for the block's merge (head rows padded by 8
-    floats), whichever is larger."""
+def _flash_smem_bytes(g: int, d: int, blk: int, depth: int, itemsize: int,
+                      slots: int = 0) -> int:
+    """Dynamic shared memory of one block (the layout in
+    csrc/flash_decode.cu): a paged block's `slots` table entries, then the
+    K/V ring, rows padded by 16 bytes, or the warps' f32 states for the
+    block's merge (head rows padded by 8 floats), whichever is larger."""
     gp = -(-g // 16) * 16 if itemsize == 2 else 1 << (g - 1).bit_length()
     ring_bytes = 2 * depth * blk * (d + 16 // itemsize) * itemsize
-    return max(ring_bytes, 4 * WARPS * gp * (d + 8 + 2))
+    return 4 * slots + max(ring_bytes, 4 * WARPS * gp * (d + 8 + 2))
 
 
 def flash_kernel_depth(depth: int, *, g: int, d: int, blk: int,
-                       itemsize: int, n_tiles: int) -> int:
-    """Clamp a solved depth to what the dense kernel runs: at most
-    `n_tiles` tiles (those of one split that hold a live key), at most
+                       itemsize: int, n_tiles: int, slots: int = 0,
+                       kernel: str = "flash_decode") -> int:
+    """Clamp a depth in tiles to what the kernel runs: at most `n_tiles`
+    tiles (those of one split that can hold a live key), at most
     `ring.MAX_DEPTH`, and no more K/V tile pairs than one block's shared
-    memory holds."""
+    memory holds beside a paged block's `slots` table entries."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    per_slot = _flash_smem_bytes(g, d, blk, 1, itemsize)
-    if per_slot > ring.SMEM_LIMIT:
+    need = _flash_smem_bytes(g, d, blk, 1, itemsize, slots)
+    if need > ring.SMEM_LIMIT:
         raise KernelResourceError(
-            f"one K/V tile pair needs {per_slot} B of shared memory, over "
-            f"{ring.SMEM_LIMIT}", kernel="flash_decode", depth=1,
-            tile=(blk, d))
-    fit = ring.SMEM_LIMIT // (2 * blk * (d + 16 // itemsize) * itemsize)
+            f"one K/V tile pair needs {need} B of shared memory, over "
+            f"{ring.SMEM_LIMIT}", kernel=kernel, depth=1, tile=(blk, d))
+    fit = (ring.SMEM_LIMIT - 4 * slots) // (
+        2 * blk * (d + 16 // itemsize) * itemsize)
     return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
 
 
@@ -377,21 +244,22 @@ def _check_dense(q, k_cache, v_cache, blk: int) -> None:
         raise ValueError(f"blk must be >= 1, got {blk}")
 
 
-def _check_dense_cuda(q, k_cache, v_cache, blk: int) -> None:
+def _check_cuda(q, k, v, blk: int, names=("k_cache", "v_cache")) -> None:
+    """What the kernel takes on the card; `names` are the K/V operands'."""
     if q.dtype not in ring.DTYPE_CODE:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"caches ({k_cache.dtype}, {v_cache.dtype}) must "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{names[0]}/{names[1]} ({k.dtype}, {v.dtype}) must "
                         f"match q ({q.dtype})")
     d = q.shape[2]
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {FLASH_HEAD_DIMS}")
-    if q.shape[1] // k_cache.shape[2] > MAX_GROUP:
+    if q.shape[1] // k.shape[2] > MAX_GROUP:
         raise ValueError(f"more than {MAX_GROUP} query heads per KV head")
     if blk % 16:
         raise ValueError(f"blk must be a multiple of 16 (a warp's rows), "
                          f"got {blk}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+    for name, t in zip(names, (k, v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
 
@@ -443,7 +311,7 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     autotune.record_choice(spec.name, depth)
     if not on_card:
         return flash_decode_plain(q, k_cache, v_cache, pos)
-    _check_dense_cuda(q, k_cache, v_cache, blk)
+    _check_cuda(q, k_cache, v_cache, blk)
     out = torch.empty_like(q)
     if b == 0:
         return out
@@ -464,3 +332,137 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
 
 
 flash_decode.launches = 0
+
+
+# ------------------------------------------------------- the paged kernel
+
+
+def _table_slots(m: int, page: int, blk: int, per: int) -> int:
+    """Block-table entries a paged block holds in shared memory: every page
+    its split's `per` tiles of `blk` rows can touch, at most the table width
+    `m`, rounded up to four (csrc/flash_decode.cu:table_slots)."""
+    n = min(m, (per * blk - 1) // page + 2)
+    return -(-n // 4) * 4
+
+
+def kernel_depth(depth: int, *, g: int, d: int, page: int, blk: int,
+                 itemsize: int, n_tiles: int, m: int) -> int:
+    """The paged kernel's ring in tiles for a depth of `depth` pages (the
+    unit `paged_decode_spec` solves in): the tiles those pages' rows fill,
+    at least one, clamped by `flash_kernel_depth` to the `n_tiles` tiles of
+    one split and to one block's shared memory beside its slice of the
+    `m`-wide block table. The depth that runs, in pages, is
+    `ring_pages(tiles, blk, page)`."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    return flash_kernel_depth(
+        max(1, int(depth) * page // blk), g=g, d=d, blk=blk,
+        itemsize=itemsize, n_tiles=n_tiles,
+        slots=_table_slots(m, page, blk, n_tiles), kernel="paged_decode")
+
+
+def ring_pages(tiles: int, blk: int, page: int) -> int:
+    """A ring of `tiles` tiles of `blk` rows, in pages (at least one)."""
+    return max(1, tiles * blk // page)
+
+
+def _check_paged(q, k_pool, v_pool, block_tables, lengths, blk: int) -> None:
+    if q.dim() != 3 or k_pool.dim() != 4:
+        raise ValueError(f"need q [B,H,D] and pools [NB,blk,KH,D], got "
+                         f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
+    if v_pool.shape != k_pool.shape:
+        raise ValueError(f"k_pool {tuple(k_pool.shape)} != v_pool "
+                         f"{tuple(v_pool.shape)}")
+    b, h, d = q.shape
+    kh = k_pool.shape[2]
+    if k_pool.shape[3] != d or h % kh:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(k_pool.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or \
+            block_tables.shape[1] < 1:
+        raise ValueError(f"block_tables must be [B={b}, M >= 1], got "
+                         f"{tuple(block_tables.shape)}")
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be [B={b}], got {tuple(lengths.shape)}")
+    if blk < 1:
+        raise ValueError(f"blk must be >= 1, got {blk}")
+
+
+def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, *,
+                       blk: int = FLASH_BLK, depth: Optional[int] = None,
+                       splits: Optional[int] = None):
+    """Flash-decode over a paged KV pool with ragged per-request lengths.
+
+    q: [B,H,D]; k_pool/v_pool: [NB, page, KH, D] (any page size);
+    block_tables: [B, M] int32 (pad with the reserved garbage block 0);
+    lengths: [B] int32 — request b attends key positions < lengths[b].
+    Returns [B,H,D]; rows with lengths == 0 (round padding) are finite (0
+    on the card).
+
+    On the card the rows the table can hold, M * page, are split over
+    `splits` blocks per (b, kh) in `blk`-row tiles; None takes `split_plan`
+    for this card's SM count. The grid and the plan never depend on
+    `lengths` or `block_tables`, which the host never reads: each split
+    finds its live rows on the device. The plain version does not split.
+    `depth` is the number of pages in flight; None solves it from
+    `paged_decode_spec` through `core.autotune.choose_depth`. Either is
+    turned into ring tiles by `kernel_depth` (at most one split's tiles)
+    and recorded in pages as run (`ring_pages`), for
+    `autotune.last_choice("paged_decode")`.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel, or
+    raise (`KernelCompileError` / `KernelResourceError` on a failed build or
+    launch, ValueError / TypeError on inputs it does not take).
+    """
+    if depth is not None and depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    if splits is not None and splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    _check_paged(q, k_pool, v_pool, block_tables, lengths, blk)
+    on_card = ring.route("paged_decode", ("q", q), ("k_pool", k_pool),
+                         ("v_pool", v_pool), ("block_tables", block_tables),
+                         ("lengths", lengths))
+    b, h, d = q.shape
+    page, kh = k_pool.shape[1], k_pool.shape[2]
+    m = block_tables.shape[1]
+    g = h // kh
+    if on_card:
+        n_split, per = split_plan(b, kh, m * page, blk,
+                                  ring.sm_count(q.device), splits)
+    else:
+        n_split, per = split_plan(b, kh, m * page, blk, 0, splits or 1)
+    spec = paged_decode_spec(page, kh, g, d, k_pool.dtype, max_blocks=m)
+    if depth is None:
+        depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
+                                      vars=spec.all_vars())
+    tiles = kernel_depth(depth, g=g, d=d, page=page, blk=blk,
+                         itemsize=k_pool.element_size(), n_tiles=per, m=m)
+    autotune.record_choice(spec.name, ring_pages(tiles, blk, page))
+    if not on_card:
+        return paged_flash_decode_plain(q, k_pool, v_pool, block_tables,
+                                        lengths)
+    _check_cuda(q, k_pool, v_pool, blk, names=("k_pool", "v_pool"))
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    part = torch.empty(b * kh * n_split * g * (d + 2), dtype=torch.float32,
+                       device=q.device) if n_split > 1 else None
+    lib = ring.library(FLASH_SOURCE, "repro_paged_flash_decode",
+                       _PAGED_ARGTYPES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_paged_flash_decode(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            b, h, kh, d, page, m, blk, n_split, per, tiles,
+            float(d ** -0.5), ring.DTYPE_CODE[q.dtype], stream)
+    ring.raise_on_error(err, lib, kernel="paged_decode", depth=tiles,
+                        tile=(blk, d))
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0

@@ -103,7 +103,7 @@ def test_kernel_raises_instead_of_falling_back(cuda_device):
                                    kh=2, d=16, blk=8)
     with pytest.raises(TypeError):          # no f16 kernel
         da.paged_flash_decode(q.half(), kp.half(), vp.half(), bt, lens)
-    with pytest.raises(ValueError):         # head_dim 32 not built
+    with pytest.raises(ValueError):         # head_dim 8 not built
         da.paged_flash_decode(q[..., :8].contiguous(), kp[..., :8].contiguous(),
                               vp[..., :8].contiguous(), bt, lens)
     with pytest.raises(ValueError):         # mixed devices
@@ -112,22 +112,115 @@ def test_kernel_raises_instead_of_falling_back(cuda_device):
     assert strided.shape == kp.shape and not strided.is_contiguous()
     with pytest.raises(ValueError):         # non-contiguous pool
         da.paged_flash_decode(q, strided, vp, bt, lens)
+    with pytest.raises(ValueError):         # a tile not in 16-row chunks
+        da.paged_flash_decode(q, kp, vp, bt, lens, blk=24)
+    with pytest.raises(TypeError):          # int64 lengths
+        da.paged_flash_decode(q, kp, vp, bt, lens.long())
     assert launch_counts()["paged_decode"] == 0
 
 
 @pytest.mark.parametrize("depth", [17, 20, 27])
 def test_kernel_deep_ring(cuda_device, depth):
-    """Depths past 16 run as asked (27 page pairs of yi-6b's bf16 head fit
-    one block's shared memory), and agree with the plain version."""
+    """Deep page depths become rings of the shared layout's 64-row tiles:
+    one split of 32 tiles takes 4, 5 and 6 tiles (6 is also all that one
+    block's shared memory holds), the plan's splits of 2 tiles take 2; the
+    depth recorded, in pages, is the clamp's, and the output agrees with
+    the plain version."""
     from repro_torch.core import autotune
 
     args = _problem(cuda_device, torch.bfloat16, [300, 517, 2048], h=32, kh=4,
                     d=128, blk=16, seed=depth)
-    out = da.paged_flash_decode(*args, depth=depth)
-    assert autotune.last_choice("paged_decode") == depth
     ref = da.paged_flash_decode_plain(*args)
-    torch.testing.assert_close(out[:-1].float(), ref[:-1].float(),
-                               **DECODE_TOL[torch.bfloat16])
+    m = args[3].shape[1]
+    for splits in (1, None):
+        _, per = da.split_plan(4, 4, m * 16, da.FLASH_BLK, _sms(cuda_device),
+                               splits)
+        tiles = da.kernel_depth(depth, g=8, d=128, page=16, blk=da.FLASH_BLK,
+                                itemsize=2, n_tiles=per, m=m)
+        out = da.paged_flash_decode(*args, depth=depth, splits=splits)
+        assert autotune.last_choice("paged_decode") == \
+            da.ring_pages(tiles, da.FLASH_BLK, 16)
+        assert tiles == (min(depth // 4, 6) if splits == 1 else per)
+        torch.testing.assert_close(out[:-1].float(), ref[:-1].float(),
+                                   **DECODE_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blk", [32, 64])
+@pytest.mark.parametrize("splits", [1, 2, None])
+def test_kernel_splits_and_tiles(cuda_device, dtype, splits, blk):
+    """yi-6b's heads over a 19-page table (304 rows, off the tile) at
+    B 8: one split, two and the plan's, lengths at the run's first split
+    boundary +-1 (inside the table), in the first split and the whole
+    table; the zero-length row is 0."""
+    n_split, per = da.split_plan(8, 4, 19 * 16, blk, _sms(cuda_device), splits)
+    edge = per * blk
+    lengths = [1, 37, 200, 304] + [min(n, 303) for n in (edge - 1, edge,
+                                                         edge + 1)]
+    args = _problem(cuda_device, dtype, lengths, h=32, kh=4, d=128, blk=16,
+                    seed=blk + (splits or 0))
+    assert args[3].shape[1] == 19 and n_split == (splits or n_split)
+    out = da.paged_flash_decode(*args, blk=blk, splits=splits).float()
+    ref = da.paged_flash_decode_plain(*args).float()
+    assert torch.isfinite(out).all() and not out[-1].any()
+    torch.testing.assert_close(out[:-1], ref[:-1], **DECODE_TOL[dtype])
+    assert launch_counts()["paged_decode"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 6, 8, 32])
+def test_kernel_groups_and_head_dims(cuda_device, dtype, d, g):
+    """Every group size (G <= 16 is one M tile in bf16, 32 two) and head
+    dim, over 8-row pages, at the plan's splits."""
+    args = _problem(cuda_device, dtype, [17, 96, 290], h=2 * g, kh=2, d=d,
+                    blk=8, seed=g * d)
+    out = da.paged_flash_decode(*args).float()
+    torch.testing.assert_close(out[:-1],
+                               da.paged_flash_decode_plain(*args)[:-1].float(),
+                               **DECODE_TOL[dtype])
+    assert torch.isfinite(out).all()
+    assert launch_counts()["paged_decode"] == 1
+
+
+@pytest.mark.parametrize("splits", [1, None])
+def test_kernel_zero_length_rows(cuda_device, splits):
+    """Round padding: a batch where every length is 0 (every partial
+    empty) and one where some are, both in one split and in many; the
+    padding rows come out 0, the others agree with the plain version."""
+    for lengths in ([0, 0, 0], [0, 40, 0, 129]):
+        q, kp, vp, bt, lens = _problem(cuda_device, torch.bfloat16,
+                                       [max(n, 1) for n in lengths], h=8,
+                                       kh=2, d=64, blk=16, seed=len(lengths))
+        lens = torch.tensor(lengths + [0], dtype=torch.int32,
+                            device=cuda_device)
+        out = da.paged_flash_decode(q, kp, vp, bt, lens,
+                                    splits=splits).float()
+        ref = da.paged_flash_decode_plain(q, kp, vp, bt, lens).float()
+        live = lens > 0
+        assert torch.isfinite(out).all() and not out[~live].any()
+        torch.testing.assert_close(out[live], ref[live],
+                                   **DECODE_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("page", [4, 16, 64])
+def test_kernel_table_of_width_one(cuda_device, page):
+    """M = 1: one page per request, lengths inside it, filling it and past
+    it (the whole page)."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(page)
+    q = torch.randn(4, 8, 64, generator=g).to(cuda_device)
+    kp, vp = (torch.randn(5, page, 2, 64, generator=g).to(cuda_device)
+              for _ in range(2))
+    bt = torch.tensor([[3], [1], [4], [2]], dtype=torch.int32,
+                      device=cuda_device)
+    lens = torch.tensor([1, page // 2, page, page + 9], dtype=torch.int32,
+                        device=cuda_device)
+    for splits in (1, None):
+        out = da.paged_flash_decode(q, kp, vp, bt, lens, splits=splits)
+        torch.testing.assert_close(
+            out, da.paged_flash_decode_plain(q, kp, vp, bt, lens),
+            **DECODE_TOL[torch.float32])
 
 
 # ------------------------------------------- MoE grouped matmul (K2)
