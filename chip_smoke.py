@@ -1521,12 +1521,9 @@ def time_gups_kernels(torch, st, gmm_case):
 
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 # K5b's ring wait: inlined in the source, and as the shared header's call
-SPAN_WAIT_INLINE = """    if constexpr (kSpan) {
-      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);
-    } else {
-      repro::cp_async_wait_pending(depth - 1);
-    }"""
-SPAN_WAIT_CALLED = "    repro::cp_async_wait_pending(depth - 1);"
+SPAN_WAIT_INLINE = \
+    "      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);"
+SPAN_WAIT_CALLED = "      repro::cp_async_wait_pending(depth - 1);"
 
 
 def patched_copy(tmp: Path, name: str, rel: str, edits) -> Path:

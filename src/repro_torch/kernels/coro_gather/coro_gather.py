@@ -17,7 +17,10 @@ Both are byte copies: f32, bf16 and int32 tables alike. Each wrapper picks
 its path from the device of its tensors: CPU tensors run the plain version,
 CUDA tensors launch the kernel or raise. With ``depth=None`` the depth is
 solved from the spec through `core.autotune.choose_depth` and recorded for
-`autotune.last_choice`. Indices outside the table are undefined behaviour,
+`autotune.last_choice`. The row gather reads its depth as tiles in flight
+per SM and runs it as several blocks per SM (`ring.split_depth`; it
+records blocks x slots); the span gather keeps one ring of `depth` tiles
+per block. Indices outside the table are undefined behaviour,
 as in the reference: checking them would cost a device-to-host sync.
 `row_gather.launches` and `span_gather.launches` count kernel launches.
 """
@@ -29,12 +32,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.coro import CoroSpec, LoadStream
 from repro_torch.kernels import ring
 
 __all__ = [
     "row_gather",
+    "row_gather_at",
     "row_gather_plain",
+    "row_gather_split",
     "row_gather_spec",
     "span_gather",
     "span_gather_plain",
@@ -98,7 +104,8 @@ def _check(table, idx, name: str) -> None:
 
 
 def _launch(kernel: str, table, idx, out, *, n_tiles: int,
-            rows_per_tile: int, depth: int, unit: int, span: bool) -> None:
+            rows_per_tile: int, depth: int, unit: int, span: bool,
+            blocks_per_sm: Optional[int] = None) -> None:
     if idx.dtype != torch.int32:
         raise TypeError(f"{kernel}: indices must be int32, got {idx.dtype}")
     row_bytes = table.shape[1] * table.element_size()
@@ -106,7 +113,7 @@ def _launch(kernel: str, table, idx, out, *, n_tiles: int,
     ring.check_smem(smem, kernel=kernel, depth=depth,
                     tile=(rows_per_tile, table.shape[1]))
     grid, per_block = ring.launch_grid(table.device, n_tiles, depth, smem,
-                                       THREADS)
+                                       THREADS, blocks_per_sm)
     lib = ring.library(SOURCE, "repro_gather", _ARGTYPES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -118,13 +125,27 @@ def _launch(kernel: str, table, idx, out, *, n_tiles: int,
                         tile=(rows_per_tile, table.shape[1]))
 
 
+def _slot_bytes(table, rows: int, unit: int) -> int:
+    """Shared memory of one ring slot: a tile of `rows` rows of `table`."""
+    return ring.ring_bytes(rows * table.shape[1] * table.element_size(), unit)
+
+
 def _depth(spec, depth, table, rows: int, n_tiles: int):
     """(depth, copy unit) of a gather of `rows`-row tiles from `table`."""
-    row_bytes = table.shape[1] * table.element_size()
-    unit = ring.copy_unit(row_bytes, (table,))
+    unit = ring.copy_unit(table.shape[1] * table.element_size(), (table,))
     return ring.solve_depth(spec, depth, n_tiles=n_tiles,
-                            slot_bytes=ring.ring_bytes(rows * row_bytes,
-                                                       unit)), unit
+                            slot_bytes=_slot_bytes(table, rows, unit)), unit
+
+
+def row_gather_split(depth: int, table: torch.Tensor,
+                     rows_per_tile: int = 8):
+    """(blocks per SM, slots a block) of a row gather from `table` whose
+    clamped depth is `depth` tiles in flight per SM (`ring.split_depth`).
+    `row_gather` runs and records this split: blocks x slots."""
+    unit = ring.copy_unit(table.shape[1] * table.element_size(), (table,))
+    return ring.split_depth(depth, threads=THREADS,
+                            slot_bytes=_slot_bytes(table, rows_per_tile,
+                                                   unit))
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor, *,
@@ -133,26 +154,54 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, *,
     """out[i] = table[idx[i]]; len(idx) must divide into `rows_per_tile`.
 
     table: [R, d] of any type; idx: [n] int32, in range. `depth` is the
-    number of tiles in flight per thread block; None solves it from
-    `row_gather_spec`.
+    number of tiles in flight per SM, run as `row_gather_split` blocks of
+    slots; None solves it from `row_gather_spec` (and records blocks x
+    slots).
     """
+    n_tiles = _check_rows(table, idx, rows_per_tile)
+    cuda = ring.route("row_gather", ("table", table), ("idx", idx))
+    solve = depth is None
+    depth, _ = _depth(row_gather_spec(rows_per_tile, table.shape[1],
+                                      table.dtype),
+                      depth, table, rows_per_tile, n_tiles)
+    blocks, slots = row_gather_split(depth, table, rows_per_tile)
+    if solve:
+        autotune.record_choice("row_gather", blocks * slots)
+    if not cuda:
+        return row_gather_plain(table, idx)
+    return row_gather_at(table, idx, blocks_per_sm=blocks, slots=slots,
+                         rows_per_tile=rows_per_tile)
+
+
+def _check_rows(table, idx, rows_per_tile: int) -> int:
+    """The tile count of a row gather; raises on what it does not take."""
     _check(table, idx, "idx")
     n = idx.shape[0]
     if rows_per_tile < 1 or n % rows_per_tile:
         raise ValueError(f"len(idx)={n} must divide into rows_per_tile="
                          f"{rows_per_tile}")
-    n_tiles = n // rows_per_tile
-    d = table.shape[1]
-    cuda = ring.route("row_gather", ("table", table), ("idx", idx))
-    depth, unit = _depth(row_gather_spec(rows_per_tile, d, table.dtype),
-                         depth, table, rows_per_tile, n_tiles)
-    if not cuda:
-        return row_gather_plain(table, idx)
-    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    return n // rows_per_tile
+
+
+def row_gather_at(table: torch.Tensor, idx: torch.Tensor, *,
+                  blocks_per_sm: int, slots: int,
+                  rows_per_tile: int = 8) -> torch.Tensor:
+    """`row_gather` on CUDA tensors at a given split: `blocks_per_sm`
+    blocks on each SM, each keeping `slots` tiles in flight (no solve, no
+    record). The kernel's launch count is `row_gather.launches`."""
+    n_tiles = _check_rows(table, idx, rows_per_tile)
+    if not ring.route("row_gather", ("table", table), ("idx", idx)):
+        raise ValueError("row_gather_at takes CUDA tensors")
+    if blocks_per_sm < 1 or not 1 <= slots <= ring.MAX_DEPTH:
+        raise ValueError(f"need blocks_per_sm >= 1 and 1 <= slots <= "
+                         f"{ring.MAX_DEPTH}, got {blocks_per_sm}, {slots}")
+    unit = ring.copy_unit(table.shape[1] * table.element_size(), (table,))
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
     if n_tiles:
         _launch("row_gather", table, idx, out, n_tiles=n_tiles,
-                rows_per_tile=rows_per_tile, depth=depth, unit=unit,
-                span=False)
+                rows_per_tile=rows_per_tile, depth=slots, unit=unit,
+                span=False, blocks_per_sm=blocks_per_sm)
         row_gather.launches += 1
     return out
 

@@ -10,18 +10,28 @@
 // Both are byte copies, so one kernel serves f32, bf16 and int32 tables.
 //
 // What bounds it: bytes. Every gathered row is read once and written once
-// (2 x row bytes + a 4-byte index per row), with no arithmetic, so its floor
-// is those bytes over 3.35 TB/s. A random row is a separate 512 B request,
-// so what the kernel has to supply is memory-level parallelism: enough rows
-// in flight to cover the ~600 ns a load takes under load. What the design
-// does about it:
+// (2 x row bytes + a 4-byte index per row: 1028 B for the GUPS path's 512 B
+// rows), with no arithmetic, so its floor is those bytes over 3.35 TB/s. A
+// random row is a separate 512 B request, so what the kernel has to supply
+// is memory-level parallelism: enough rows in flight on every SM to cover
+// the ~600 ns a load takes under load. What the design does about it:
 //   * a thread block is one coroutine scheduler over a contiguous range of
 //     tiles; it keeps `depth` tiles in flight in a ring of shared-memory
 //     slots filled by cp.async (the paper's decoupled aload), one commit
 //     group per tile (the aset group), so the copies of tiles i+1..i+depth-1
-//     are in flight while tile i is written out; `depth` is the pipeline
-//     depth the host solves from the kernel's CoroSpec, clamped to shared
-//     memory, to the tile count and to repro::kMaxDepth;
+//     are in flight while tile i is written out;
+//   * the row gather (K5a) reads the depth the host solves from its
+//     CoroSpec as tiles in flight per SM, the unit of the reference's depth
+//     (tiles in flight on one TPU core), and runs it as several blocks per
+//     SM (repro_torch/kernels/ring.py:split_depth): at the GUPS path's
+//     shape, 56 tiles of 4 KiB as 4 blocks of 14 slots instead of one block
+//     of 56, so four loops, not one, wait on copies and issue new ones;
+//   * K5a loads the row ids of the tile it issues next one iteration ahead,
+//     into registers, so no cp.async waits on a dependent global load of
+//     its row id (the first kIds units of a thread's tile; rows wider than
+//     that, 8 KiB of 16-byte units a tile, load the rest at issue);
+//   * the span gather (K5b) keeps one ring of `depth` tiles per block and
+//     inlines its wait;
 //   * a row is copied in 16-byte units where its bytes and both base
 //     pointers allow it, else in 4-, 2- or 1-byte units (coro_ring.cuh), by
 //     consecutive threads on consecutive addresses;
@@ -37,6 +47,9 @@
 namespace {
 
 constexpr int kThreads = 128;
+// Units of a row-gather tile per thread whose row ids are loaded one
+// iteration ahead: all of a tile up to 512 units (8 KiB of 16-byte units).
+constexpr int kIds = 4;
 
 // kSpan: tile t covers rows idx[t] .. idx[t] + rows_per_tile - 1 (idx holds
 // span starts); otherwise row r of tile t is idx[t * rows_per_tile + r].
@@ -65,31 +78,72 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = threadIdx.x; u < tile_units; u += kThreads) U::load(dst + u, source(t, u));
   };
 
-  // Prologue: the first `depth` tiles in flight. Every slot commits one
-  // group, empty or not, so that group i always holds tile i.
-  for (int s = 0; s < depth; ++s) {
-    if (s < count) issue(first + s, s);
-    repro::cp_async_commit();
-  }
-  for (int64_t i = 0; i < count; ++i) {
-    const int slot = static_cast<int>(i % depth);
-    const int64_t t = first + i;
-    // Tile i has landed (this thread's units). The span gather inlines the
-    // wait's binary search, as it did before the header's wait became a
-    // call: the call cost its loop ~6% on an H100 (PERF.md). The row gather
-    // keeps the call.
-    if constexpr (kSpan) {
-      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);
-    } else {
-      repro::cp_async_wait_pending(depth - 1);
+  if constexpr (kSpan) {
+    // Prologue: the first `depth` tiles in flight. Every slot commits one
+    // group, empty or not, so that group i always holds tile i.
+    for (int s = 0; s < depth; ++s) {
+      if (s < count) issue(first + s, s);
+      repro::cp_async_commit();
     }
-    const typename U::Slot* src = ring + static_cast<size_t>(slot) * tile_units;
-    V* dst = out + t * tile_units;
-    // source() is read only by the sub-word units; the compiler drops it
-    // (and its index load) for the others.
-    for (int u = threadIdx.x; u < tile_units; u += kThreads) dst[u] = U::read(src + u, source(t, u));
-    if (i + depth < count) issue(t + depth, slot);
-    repro::cp_async_commit();
+    for (int64_t i = 0; i < count; ++i) {
+      const int slot = static_cast<int>(i % depth);
+      const int64_t t = first + i;
+      // Tile i has landed (this thread's units). The wait's binary search is
+      // inlined: as the header's call it cost this loop ~6% on an H100
+      // (PERF.md).
+      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);
+      const typename U::Slot* src = ring + static_cast<size_t>(slot) * tile_units;
+      V* dst = out + t * tile_units;
+      for (int u = threadIdx.x; u < tile_units; u += kThreads) dst[u] = U::read(src + u, source(t, u));
+      if (i + depth < count) issue(t + depth, slot);
+      repro::cp_async_commit();
+    }
+  } else {
+    // The row and column of this thread's first kIds units of a tile (the
+    // same in every tile), and the row ids of those units in the tile
+    // issued next, loaded one iteration ahead.
+    int row_of[kIds], col_of[kIds], ids[kIds];
+#pragma unroll
+    for (int j = 0; j < kIds; ++j) {
+      const int u = threadIdx.x + j * kThreads;
+      row_of[j] = u / row_units;
+      col_of[j] = u - row_of[j] * row_units;
+    }
+    auto fetch = [&](int64_t t) {
+#pragma unroll
+      for (int j = 0; j < kIds; ++j) {
+        if (threadIdx.x + j * kThreads < tile_units) ids[j] = idx[t * rows_per_tile + row_of[j]];
+      }
+    };
+    auto issue_fetched = [&](int64_t t, int slot) {
+      typename U::Slot* dst = ring + static_cast<size_t>(slot) * tile_units;
+#pragma unroll
+      for (int j = 0; j < kIds; ++j) {
+        const int u = threadIdx.x + j * kThreads;
+        if (u < tile_units) U::load(dst + u, table + static_cast<int64_t>(ids[j]) * row_units + col_of[j]);
+      }
+      for (int u = threadIdx.x + kIds * kThreads; u < tile_units; u += kThreads) {
+        U::load(dst + u, source(t, u));
+      }
+    };
+    for (int s = 0; s < depth; ++s) {
+      if (s < count) issue(first + s, s);
+      repro::cp_async_commit();
+    }
+    if (depth < count) fetch(first + depth);
+    for (int64_t i = 0; i < count; ++i) {
+      const int slot = static_cast<int>(i % depth);
+      const int64_t t = first + i;
+      repro::cp_async_wait_pending(depth - 1);  // tile i has landed (this thread's units)
+      const typename U::Slot* src = ring + static_cast<size_t>(slot) * tile_units;
+      V* dst = out + t * tile_units;
+      // source() is read only by the sub-word units; the compiler drops it
+      // (and its index load) for the others.
+      for (int u = threadIdx.x; u < tile_units; u += kThreads) dst[u] = U::read(src + u, source(t, u));
+      if (i + depth < count) issue_fetched(t + depth, slot);
+      if (i + depth + 1 < count) fetch(t + depth + 1);
+      repro::cp_async_commit();
+    }
   }
   repro::cp_async_wait<0>();
 }

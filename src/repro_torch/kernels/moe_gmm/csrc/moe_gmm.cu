@@ -15,26 +15,45 @@
 // tokens) or a prefill chunk (32), so each weight element feeds 2C flops:
 // at most 64 per 2-byte element, far below the ~295 flops per byte at
 // which the H100's tensor cores become the limit. The floor is the expert
-// weights over 3.35 TB/s. What the design does about it:
-//   * one thread block per (128-column f tile, 16- or 32-row token tile,
-//     expert), so every weight byte crosses from global memory once per
-//     token tile, and the serving path has one token tile;
-//   * the block walks dm in k-slices of 128 bytes per weight row
+// weights over 3.35 TB/s, so what matters is that every SM streams an equal
+// share of the weights with bytes in flight from the first microsecond to
+// the last. That is also why there is no wgmma here: its 64-row tile would
+// be 59/64 padding at C 5, and the tensor-core rate is not the limit. What
+// the design does:
+//   * a persistent grid (moe_gmm.py:walk): the work is numbered in k-slices
+//     (e, 128-column f tile, 16- or 32-row token tile, k-slice), k fastest;
+//     sm_count x blocks-per-SM blocks each walk an equal contiguous range
+//     of them (stream-K), so no SM idles in a partial last wave (one block
+//     per output tile left 108 blocks alone in a second wave at qwen3-moe's
+//     gate/up shape);
+//   * a block that owns a whole output tile stores it; a block that owns
+//     part of one writes its f32 partial to a workspace slot of its own,
+//     counts itself in on the tile's arrival counter, and the last to
+//     arrive sums the parts in block order (so the result does not depend
+//     on which block came last: a run is deterministic), stores the tile
+//     and sets the counter back to 0, so the counters stay zero between
+//     calls and a call is one launch. Two calls on one stream run one
+//     after the other, so they never share a workspace slot or a counter
+//     at once (the wrapper keeps one set of counters per stream);
+//   * the block walks its range in k-slices of 128 bytes per weight row
 //     ([BK, 128]: 64 rows in bf16, 32 in f32) and keeps `depth` of them in
 //     flight in a ring of shared-memory slots filled by cp.async (the
 //     paper's decoupled aload, coro_ring.cuh), each slot holding the weight
-//     slice and the matching [BM, BK] token slice; `depth` is the pipeline
-//     depth the host solves from the kernel's CoroSpec, clamped to shared
-//     memory, to the number of k-slices and to repro::kMaxDepth;
+//     slice and the matching [BM, BK] token slice; the ring runs on across
+//     tile boundaries, so the next tile's slices land while a tile is
+//     stored; several blocks share an SM (about 40 KiB of ring each at
+//     depth 2), so while one waits at its barriers the others copy;
 //   * bf16 runs on the tensor cores through mma.sync.m16n8k16 with f32
-//     accumulators (each of the 4 warps owns 32 columns); f32 runs on the
-//     SIMT cores (each thread owns one column), so no TF32 rounding enters;
+//     accumulators (each of the 4 warps owns 32 columns), its fragments
+//     loaded by ldmatrix (.trans for the [BK, 128] weight slice); f32 runs
+//     on the SIMT cores (each thread owns one column), so no TF32 rounding
+//     enters;
 //   * every axis may be ragged: a weight or token unit outside the tensor is
 //     never read (its slot is zero-filled instead), and stores are masked.
 //     Rows whose bytes or strides are not 16-byte units copy element by
 //     element, synchronously.
-// Later work: wgmma and TMA loads with a producer warp, and a persistent
-// grid that spreads one expert's columns over SMs.
+// Later work: a producer warp that fills the ring with bulk copies on
+// mbarriers, which would take the two block barriers out of every k-slice.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
@@ -46,13 +65,13 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBN = 128;  // f columns per block (moe_gmm.py:F_TILE)
+constexpr int kBN = 128;  // f columns per tile (moe_gmm.py:F_TILE)
 static_assert(kThreads == kBN, "a SIMT thread owns one column");
 
 // The ring's geometry for element type T and MT 16-row token tiles. Rows of
-// both slices are padded by 16 bytes so that the tensor-core fragment loads
-// of one warp fall in distinct shared-memory banks. The same formula is
-// repro_torch/kernels/moe_gmm/moe_gmm.py:slot_bytes.
+// both slices are padded by 16 bytes so that the eight rows of an ldmatrix
+// (or of a warp's SIMT loads) fall in distinct shared-memory banks. The
+// same formula is repro_torch/kernels/moe_gmm/moe_gmm.py:slot_bytes.
 template <typename T, int MT>
 struct Ring {
   static constexpr int kBM = 16 * MT;
@@ -68,6 +87,32 @@ size_t smem_bytes(int itemsize, int mt, int depth) {
   const size_t slot = static_cast<size_t>(bk) * (kBN + pad) + static_cast<size_t>(16) * mt * (bk + pad);
   return slot * itemsize * depth;
 }
+
+// The walk over the k-slices (moe_gmm.py:walk): slice s belongs to tile
+// s / per_tile, tile = (e * n_col + column tile) * n_tok + token tile.
+// Block b walks [start(b), start(b + 1)): `base` slices, one more for the
+// first `rem` blocks.
+struct Walk {
+  int64_t base;
+  int64_t rem;
+  int64_t per_tile;
+  int n_col;
+  int n_tok;
+
+  __device__ __forceinline__ int64_t start(int64_t b) const {
+    return b * base + (b < rem ? b : rem);
+  }
+  __device__ __forceinline__ int64_t block_of(int64_t s) const {
+    const int64_t big = rem * (base + 1);
+    return s < big ? s / (base + 1) : rem + (s - big) / base;
+  }
+  // A block's workspace slot for its part of `tile`: 2b for the tile its
+  // range starts in, 2b + 1 for the one it ends in (a block holds at most
+  // these two parts).
+  __device__ __forceinline__ int64_t part_slot(int64_t b, int64_t tile) const {
+    return 2 * b + (tile == start(b) / per_tile ? 0 : 1);
+  }
+};
 
 // One copy unit: 16 bytes through cp.async, or one element synchronously.
 template <typename T, bool kVec>
@@ -88,9 +133,21 @@ __device__ __forceinline__ void zero_unit(T* dst) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// Four 8x8 b16 matrices from shared memory; lane l names row l % 8 of
+// matrix l / 8. .trans hands each thread a column pair instead of a row
+// pair: the B fragment of a row-major [k, n] slice.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
 // d += a @ b for one 16x8x16 tile: bf16 inputs, f32 accumulators.
@@ -105,39 +162,62 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
 template <typename T, int MT, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     gmm_kernel(const T* __restrict__ tokens, const T* __restrict__ weights, T* __restrict__ out,
-               int C, int dm, int f, int64_t tok_e_stride, int64_t tok_c_stride, int depth) {
+               float* __restrict__ workspace, int* __restrict__ counters, int C, int dm, int f,
+               int64_t tok_e_stride, int64_t tok_c_stride, int depth, Walk walk) {
   using R = Ring<T, MT>;
   constexpr int kVecElems = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
   constexpr int kWRowUnits = kBN / kVecElems;
   constexpr int kTRowUnits = R::kBK / kVecElems;
   constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+  // Accumulators a thread owns, on both paths. Tensor cores: warp w owns
+  // columns [32w, 32w + 32) as four 8-column mma tiles of each 16-row token
+  // tile, in the m16n8 C-fragment layout (rows g and g + 8, columns
+  // 2 * tig + {0, 1}). SIMT: thread t owns column t of every token row.
+  constexpr int kAcc = 16 * MT;
 
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * R::kBM;
-  const int64_t e = blockIdx.z;
-  const T* tok = tokens + e * tok_e_stride;
-  const T* w = weights + e * static_cast<int64_t>(dm) * f;
-  T* o = out + e * static_cast<int64_t>(C) * f;
   const int tid = threadIdx.x;
-  const int n_slices = (dm + R::kBK - 1) / R::kBK;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int64_t first = walk.start(blockIdx.x);
+  const int64_t count = walk.start(blockIdx.x + 1) - first;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
+  __shared__ int last_arrival;
+
+  // The operands of output tile `tile`: the expert's token block and weight
+  // matrix, and the tile's first output row and column.
+  struct Tile {
+    const T* tok;
+    const T* w;
+    T* o;
+    int m0, n0;
+  };
+  auto tile_at = [&](int64_t tile) {
+    const int tt = static_cast<int>(tile % walk.n_tok);
+    const int64_t rest = tile / walk.n_tok;
+    const int col = static_cast<int>(rest % walk.n_col);
+    const int64_t e = rest / walk.n_col;
+    return Tile{tokens + e * tok_e_stride, weights + e * static_cast<int64_t>(dm) * f,
+                out + e * static_cast<int64_t>(C) * f, tt * R::kBM, col * kBN};
+  };
 
   // Start the copies of k-slice `s` into ring slot `slot`: the weight rows
-  // [k0, k0 + BK) of this block's columns, then the token rows of this
-  // block's token tile over the same k range.
-  auto issue = [&](int s, int slot) {
+  // [k0, k0 + BK) of its tile's columns, then the token rows of its tile
+  // over the same k range.
+  auto issue = [&](int64_t s, int slot) {
+    const int64_t tile = s / walk.per_tile;
+    const Tile t = tile_at(tile);
+    const int k0 = static_cast<int>(s - tile * walk.per_tile) * R::kBK;
     T* ws = ring + static_cast<size_t>(slot) * R::kSlot;
     T* ts = ws + R::kBK * R::kWS;
-    const int k0 = s * R::kBK;
     for (int u = tid; u < R::kBK * kWRowUnits; u += kThreads) {
       const int r = u / kWRowUnits;
       const int c = (u - r * kWRowUnits) * kVecElems;
-      const int k = k0 + r, n = n0 + c;
+      const int k = k0 + r, n = t.n0 + c;
       T* dst = ws + r * R::kWS + c;
       if (k < dm && n < f) {
-        copy_unit<T, kVec>(dst, w + static_cast<int64_t>(k) * f + n);
+        copy_unit<T, kVec>(dst, t.w + static_cast<int64_t>(k) * f + n);
       } else {
         zero_unit<T, kVec>(dst);
       }
@@ -145,59 +225,43 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = tid; u < R::kBM * kTRowUnits; u += kThreads) {
       const int r = u / kTRowUnits;
       const int c = (u - r * kTRowUnits) * kVecElems;
-      const int m = m0 + r, k = k0 + c;
+      const int m = t.m0 + r, k = k0 + c;
       T* dst = ts + r * R::kTS + c;
       if (m < C && k < dm) {
-        copy_unit<T, kVec>(dst, tok + m * tok_c_stride + k);
+        copy_unit<T, kVec>(dst, t.tok + m * tok_c_stride + k);
       } else {
         zero_unit<T, kVec>(dst);
       }
     }
   };
 
-  // Accumulators. Tensor cores: warp w owns columns [32w, 32w + 32) as four
-  // 8-column mma tiles of each 16-row token tile, in the m16n8 C-fragment
-  // layout (rows g and g + 8, columns 2 * tig + {0, 1}). SIMT: thread t owns
-  // column t of every token row.
-  constexpr int kAcc = kTensorCores ? MT * 4 * 4 : R::kBM;
-  float acc[kAcc];
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-
-  // Prologue: the first `depth` k-slices in flight, one commit group per
-  // slot, empty or not, so that group i always holds slice i.
-  for (int s = 0; s < depth; ++s) {
-    if (s < n_slices) issue(s, s);
-    repro::cp_async_commit();
-  }
-
-  for (int i = 0; i < n_slices; ++i) {
-    const int slot = i % depth;
-    repro::cp_async_wait_pending(depth - 1);  // slice i has landed (this thread's part)
-    __syncthreads();                          // ... and every other thread's part
+  // acc += the token slice @ the weight slice in ring slot `slot`.
+  auto multiply = [&](int slot, float* acc) {
     const T* ws = ring + static_cast<size_t>(slot) * R::kSlot;
     const T* ts = ws + R::kBK * R::kWS;
     if constexpr (kTensorCores) {
+      const int mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
       for (int kk = 0; kk < R::kBK; kk += 16) {
+        // B fragments of the warp's four 8-column tiles: matrices (k 0-7,
+        // n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15) of
+        // each 16-column half.
         uint32_t b[4][2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = warp * 32 + j * 8 + g;
-          const T* col = ws + (kk + 2 * tig) * R::kWS + n;
-          b[j][0] = pack_bf16(col[0], col[R::kWS]);
-          b[j][1] = pack_bf16(col[8 * R::kWS], col[9 * R::kWS]);
+        for (int h = 0; h < 2; ++h) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, ws + (kk + (mi & 1) * 8 + r8) * R::kWS + warp * 32 + h * 16 + (mi >> 1) * 8);
+          b[2 * h][0] = r[0];
+          b[2 * h][1] = r[1];
+          b[2 * h + 1][0] = r[2];
+          b[2 * h + 1][1] = r[3];
         }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const T* row = ts + (mt * 16 + g) * R::kTS + kk + 2 * tig;
+          // A fragment: matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7,
+          // k 8-15), (m 8-15, k 8-15).
           uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(row);
-          a[1] = *reinterpret_cast<const uint32_t*>(row + 8 * R::kTS);
-          a[2] = *reinterpret_cast<const uint32_t*>(row + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(row + 8 * R::kTS + 8);
+          ldmatrix_x4(a, ts + (mt * 16 + (mi & 1) * 8 + r8) * R::kTS + kk + (mi >> 1) * 8);
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma_bf16(acc + (mt * 4 + j) * 4, a, b[j]);
         }
@@ -210,92 +274,181 @@ __global__ void __launch_bounds__(kThreads)
         for (int m = 0; m < R::kBM; ++m) acc[m] = fmaf(repro::to_f32(ts[m * R::kTS + k]), wv, acc[m]);
       }
     }
-    __syncthreads();  // the slot is free again
+  };
 
-    if (i + depth < n_slices) issue(i + depth, slot);
+  // Masked stores of a tile's accumulators in the token type.
+  auto store = [&](const Tile& t, const float* acc) {
+    auto put = [&](int m, int n, float v) {
+      if (m < C && n < f) t.o[static_cast<int64_t>(m) * f + n] = repro::from_f32<T>(v);
+    };
+    if constexpr (kTensorCores) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* d = acc + (mt * 4 + j) * 4;
+          const int m = t.m0 + mt * 16 + g;
+          const int n = t.n0 + warp * 32 + j * 8 + 2 * tig;
+          put(m, n, d[0]);
+          put(m, n + 1, d[1]);
+          put(m + 8, n, d[2]);
+          put(m + 8, n + 1, d[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < R::kBM; ++m) put(t.m0 + m, t.n0 + tid, acc[m]);
+    }
+  };
+
+  // The end of this block's part [lo, hi) of `tile`'s k-slices.
+  auto finish = [&](int64_t tile, int64_t lo, int64_t hi, float* acc) {
+    const Tile t = tile_at(tile);
+    if (lo == tile * walk.per_tile && hi == (tile + 1) * walk.per_tile) {
+      store(t, acc);  // the whole tile is this block's
+      return;
+    }
+    // Publish the partial (each thread its own accumulators, in the same
+    // place in every part), then count this part in.
+    const int64_t b0 = walk.block_of(tile * walk.per_tile);
+    const int64_t b1 = walk.block_of((tile + 1) * walk.per_tile - 1);
+    float* part = workspace + walk.part_slot(blockIdx.x, tile) * kAcc * kThreads;
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) part[a * kThreads + tid] = acc[a];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_arrival = atomicAdd(&counters[b0], 1) == b1 - b0;
+    __syncthreads();
+    if (!last_arrival) return;
+    __threadfence();
+    // The last arrival: sum the parts in block order and store.
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+    for (int64_t b = b0; b <= b1; ++b) {
+      const float* p = workspace + walk.part_slot(b, tile) * kAcc * kThreads;
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) acc[a] += __ldcg(p + a * kThreads + tid);
+    }
+    store(t, acc);
+    if (tid == 0) counters[b0] = 0;
+  };
+
+  float acc[kAcc];
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+
+  // Prologue: the first `depth` k-slices in flight, one commit group per
+  // slot, empty or not, so that group i always holds slice i.
+  for (int s = 0; s < depth; ++s) {
+    if (s < count) issue(first + s, s);
     repro::cp_async_commit();
   }
-  repro::cp_async_wait<0>();
 
-  // Epilogue: masked stores in the token type.
-  auto store = [&](int m, int n, float v) {
-    if (m < C && n < f) o[static_cast<int64_t>(m) * f + n] = repro::from_f32<T>(v);
-  };
-  if constexpr (kTensorCores) {
+  int64_t lo = first;  // the first slice of the current tile's part
+  for (int64_t i = 0; i < count; ++i) {
+    const int slot = static_cast<int>(i % depth);
+    repro::cp_async_wait_pending(depth - 1);  // slice i has landed (this thread's part)
+    __syncthreads();                          // ... and every other thread's part
+    multiply(slot, acc);
+    __syncthreads();  // the slot is free again
+    if (i + depth < count) issue(first + i + depth, slot);
+    repro::cp_async_commit();
+
+    const int64_t s = first + i;
+    const int64_t tile = s / walk.per_tile;
+    if (s + 1 == (tile + 1) * walk.per_tile || i + 1 == count) {
+      finish(tile, lo, s + 1, acc);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float* d = acc + (mt * 4 + j) * 4;
-        const int m = m0 + mt * 16 + g;
-        const int n = n0 + warp * 32 + j * 8 + 2 * tig;
-        store(m, n, d[0]);
-        store(m, n + 1, d[1]);
-        store(m + 8, n, d[2]);
-        store(m + 8, n + 1, d[3]);
-      }
+      for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+      lo = s + 1;
     }
-  } else {
-#pragma unroll
-    for (int m = 0; m < R::kBM; ++m) store(m0 + m, n0 + tid, acc[m]);
   }
+  repro::cp_async_wait<0>();
 }
 
 template <typename T, int MT, bool kVec>
-cudaError_t launch(const void* tokens, const void* weights, void* out, int E, int C, int dm,
-                   int f, int64_t tok_e_stride, int64_t tok_c_stride, int depth,
+cudaError_t launch(const void* tokens, const void* weights, void* out, void* workspace,
+                   void* counters, int C, int dm, int f, int64_t tok_e_stride,
+                   int64_t tok_c_stride, int depth, int blocks, const Walk& walk,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(static_cast<int>(sizeof(T)), MT, depth);
   auto kernel = gmm_kernel<T, MT, kVec>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((f + kBN - 1) / kBN, (C + 16 * MT - 1) / (16 * MT), E);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(tokens),
-                                           static_cast<const T*>(weights), static_cast<T*>(out),
-                                           C, dm, f, tok_e_stride, tok_c_stride, depth);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(tokens), static_cast<const T*>(weights), static_cast<T*>(out),
+      static_cast<float*>(workspace), static_cast<int*>(counters), C, dm, f, tok_e_stride,
+      tok_c_stride, depth, walk);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int mt, int vec, const void* tokens, const void* weights, void* out, int E,
-                     int C, int dm, int f, int64_t tok_e_stride, int64_t tok_c_stride, int depth,
-                     cudaStream_t stream) {
-#define REPRO_LAUNCH(MT, VEC)                                                                  \
-  return launch<T, MT, VEC>(tokens, weights, out, E, C, dm, f, tok_e_stride, tok_c_stride, \
-                            depth, stream)
-  if (mt == 1) {
-    if (vec) REPRO_LAUNCH(1, true);
-    REPRO_LAUNCH(1, false);
-  }
-  if (vec) REPRO_LAUNCH(2, true);
-  REPRO_LAUNCH(2, false);
-#undef REPRO_LAUNCH
+template <typename T, int MT, bool kVec>
+cudaError_t occupancy(int depth, int* blocks_per_sm) {
+  const size_t smem = smem_bytes(static_cast<int>(sizeof(T)), MT, depth);
+  auto kernel = gmm_kernel<T, MT, kVec>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+}
+
+// Expands to `return CALL(T, MT, VEC);` for the run-time dtype (0 =
+// float32, 1 = bfloat16), mt (1 or 2) and vec.
+#define REPRO_DISPATCH(CALL)                                                       \
+  if (dtype == 0) {                                                                \
+    if (mt == 1) return vec ? CALL(float, 1, true) : CALL(float, 1, false);        \
+    return vec ? CALL(float, 2, true) : CALL(float, 2, false);                     \
+  }                                                                                \
+  if (mt == 1) return vec ? CALL(__nv_bfloat16, 1, true) : CALL(__nv_bfloat16, 1, false); \
+  return vec ? CALL(__nv_bfloat16, 2, true) : CALL(__nv_bfloat16, 2, false)
+
+bool valid(int dtype, int mt, int depth) {
+  return (dtype == 0 || dtype == 1) && (mt == 1 || mt == 2) && depth >= 1 &&
+         depth <= repro::kMaxDepth;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; mt: 16-row token tiles per block (1 or
-// 2); vec: 1 if every row and base pointer allows 16-byte copies. Returns
-// the cudaError_t of the launch (0 on success); the caller raises on
-// anything else.
-extern "C" int repro_moe_gmm(const void* tokens, const void* weights, void* out, int E, int C,
-                             int dm, int f, int64_t tok_e_stride, int64_t tok_c_stride, int depth,
-                             int dtype, int mt, int vec, void* stream) {
-  if (E < 1 || E > 65535 || C < 1 || dm < 0 || f < 1 || depth < 1 ||
-      depth > repro::kMaxDepth || (mt != 1 && mt != 2) || (C + 16 * mt - 1) / (16 * mt) > 65535) {
+// The persistent grid's walk (moe_gmm.py:walk): `blocks` blocks over
+// `n_slices` k-slices, `per_tile` of them per output tile of n_col column
+// tiles x n_tok token tiles per expert. workspace: 2 x blocks slots of
+// 16 x mt x 128 floats; counters: at least `blocks` ints, all zero (the
+// kernel leaves them zero). dtype: 0 = float32, 1 = bfloat16; mt: 16-row
+// token tiles per tile (1 or 2); vec: 1 if every row and base pointer
+// allows 16-byte copies. Returns the cudaError_t of the launch (0 on
+// success); the caller raises on anything else.
+extern "C" int repro_moe_gmm(const void* tokens, const void* weights, void* out, void* workspace,
+                             void* counters, int C, int dm, int f, long long tok_e_stride,
+                             long long tok_c_stride, int depth, int dtype, int mt, int vec,
+                             int blocks, long long n_slices, long long per_tile, int n_col,
+                             int n_tok, void* stream) {
+  if (!valid(dtype, mt, depth) || C < 1 || dm < 0 || f < 1 || blocks < 1 || per_tile < 1 ||
+      n_slices < blocks || n_col != (f + kBN - 1) / kBN || n_tok != (C + 16 * mt - 1) / (16 * mt) ||
+      n_slices % (per_tile * n_col * n_tok) != 0 || per_tile * (128 / (dtype ? 2 : 4)) < dm) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Walk walk{n_slices / blocks, n_slices % blocks, per_tile, n_col, n_tok};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dispatch<float>(mt, vec, tokens, weights, out, E, C, dm, f, tok_e_stride, tok_c_stride,
-                          depth, s);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(mt, vec, tokens, weights, out, E, C, dm, f, tok_e_stride,
-                                  tok_c_stride, depth, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  auto run = [&]() -> cudaError_t {
+#define REPRO_LAUNCH(T, MT, VEC)                                                            \
+  launch<T, MT, VEC>(tokens, weights, out, workspace, counters, C, dm, f, tok_e_stride, \
+                     tok_c_stride, depth, blocks, walk, s)
+    REPRO_DISPATCH(REPRO_LAUNCH);
+#undef REPRO_LAUNCH
+  };
+  return static_cast<int>(run());
+}
+
+// The blocks of the kernel for (dtype, mt, vec) at `depth` that fit one SM
+// at once (registers, shared memory and threads), into *blocks_per_sm.
+extern "C" int repro_moe_gmm_occupancy(int dtype, int mt, int vec, int depth,
+                                       int* blocks_per_sm) {
+  if (!valid(dtype, mt, depth)) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&]() -> cudaError_t {
+#define REPRO_OCCUPANCY(T, MT, VEC) occupancy<T, MT, VEC>(depth, blocks_per_sm)
+    REPRO_DISPATCH(REPRO_OCCUPANCY);
+#undef REPRO_OCCUPANCY
+  };
+  return static_cast<int>(run());
 }

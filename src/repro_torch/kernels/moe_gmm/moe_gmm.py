@@ -14,9 +14,17 @@ MoE layer passes it).
 Depth: the reference's tile is a whole ``[dm, f_tile]`` column block of
 one expert, and `gmm_spec` declares that tile, so the solve is the
 reference's. The kernel's tile is a ``[BK, 128]`` k-slice (128 bytes of
-each weight row: 64 rows in bf16, 32 in f32); it keeps the solved number of
-k-slices in flight, clamped by `ring.kernel_depth` to what one block's
-shared memory holds, to the number of k-slices and to `ring.MAX_DEPTH`.
+each weight row: 64 rows in bf16, 32 in f32); each block keeps the solved
+number of k-slices in flight, clamped by `kernel_depth` to what one block's
+shared memory holds, to the k-slices of an output tile and to
+`ring.MAX_DEPTH`.
+
+Grid: persistent. `walk` numbers the work in k-slices (expert, column
+tile, token tile, k-slice), k fastest, and gives each of `sm_count x
+blocks_per_sm` blocks an equal contiguous range of them; a tile split
+between blocks is summed by the last of them to arrive (`csrc/moe_gmm.cu`).
+The kernel leaves its arrival counters zero, so they are allocated once
+per device and stream and a call is one launch.
 
 `gmm` picks its path from the device of the tensors it is given: on CPU
 tensors it runs `gmm_plain`; on CUDA tensors it launches the kernel or
@@ -25,25 +33,32 @@ raises. `gmm.launches` counts kernel launches (and nothing else).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import autotune
 from repro_torch.core import context as ctx_mod
 from repro_torch.core.coro import CoroSpec, LoadStream
+from repro_torch.core.guard import KernelResourceError
 from repro_torch.kernels import ring
 
-__all__ = ["F_TILE", "gmm", "gmm_plain", "gmm_spec", "kernel_depth",
-           "n_slices", "slot_bytes"]
+__all__ = ["F_TILE", "Walk", "blocks_per_sm", "gmm", "gmm_at", "gmm_plain",
+           "gmm_spec", "kernel_depth", "n_slices", "reset_counters",
+           "slot_bytes", "walk"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
 F_TILE = 128                   # kBN in the .cu source: columns per block
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
+_OCCUPANCY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+MAX_BLOCKS_PER_SM = 32         # the H100's limit of resident blocks per SM
 
 
 def gmm_spec(c: int, dm: int, f_tile: int, dtype,
@@ -97,8 +112,69 @@ def slot_bytes(c: int, itemsize: int) -> int:
 
 
 def n_slices(dm: int, itemsize: int) -> int:
-    """k-slices one block walks: its tiles."""
+    """k-slices of one output tile (the ring's tiles)."""
     return -(-dm // _slice_rows(itemsize))
+
+
+@dataclasses.dataclass(frozen=True)
+class Walk:
+    """The persistent grid's walk (`csrc/moe_gmm.cu`): `slices` k-slices,
+    `per_tile` to an output tile, numbered (expert, column tile, token
+    tile, k-slice) with k fastest; block b walks ``range(*self.range(b))``,
+    `slices // blocks` of them, one more for the first `slices % blocks`
+    blocks."""
+    blocks: int
+    slices: int
+    per_tile: int
+    n_col: int
+    n_tok: int
+
+    def start(self, b: int) -> int:
+        base, rem = divmod(self.slices, self.blocks)
+        return b * base + min(b, rem)
+
+    def range(self, b: int) -> Tuple[int, int]:
+        return self.start(b), self.start(b + 1)
+
+    def block_of(self, s: int) -> int:
+        """The block whose range holds slice `s`."""
+        base, rem = divmod(self.slices, self.blocks)
+        big = rem * (base + 1)
+        return s // (base + 1) if s < big else rem + (s - big) // base
+
+    def parts(self, tile: int) -> Tuple[int, int]:
+        """(first block, number of blocks) that share output `tile`."""
+        b0 = self.block_of(tile * self.per_tile)
+        return b0, self.block_of((tile + 1) * self.per_tile - 1) - b0 + 1
+
+    def split_tiles(self) -> Dict[int, int]:
+        """{tile: parts} of every tile split between blocks."""
+        out = {}
+        for b in range(self.blocks - 1):
+            tile = self.start(b + 1) // self.per_tile
+            if self.start(b + 1) % self.per_tile:
+                out[tile] = self.parts(tile)[1]
+        return out
+
+    def part_slot(self, b: int, tile: int) -> int:
+        """Block b's workspace slot for its part of `tile`: 2b for the tile
+        its range starts in, 2b + 1 for the one it ends in."""
+        return 2 * b + (0 if tile == self.start(b) // self.per_tile else 1)
+
+
+def walk(e: int, c: int, dm: int, f: int, itemsize: int,
+         blocks: int) -> Walk:
+    """The walk of `blocks` blocks (at most one per k-slice) over
+    [E, C, dm] x [E, dm, f] in 16 MT-row token tiles, 128-column tiles and
+    k-slices of 128 bytes a weight row (one, zero-filled, when dm = 0)."""
+    per_tile = max(1, n_slices(dm, itemsize))
+    n_col = -(-f // F_TILE)
+    n_tok = -(-c // (16 * _token_tiles(c)))
+    slices = e * n_col * n_tok * per_tile
+    if blocks < 1 or slices < 1:
+        raise ValueError(f"need blocks >= 1 and work, got {blocks} blocks "
+                         f"over {slices} k-slices")
+    return Walk(min(blocks, slices), slices, per_tile, n_col, n_tok)
 
 
 def kernel_depth(depth: int, *, c: int, dm: int, itemsize: int) -> int:
@@ -148,10 +224,11 @@ def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
     """tokens: [E, C, dm] (any expert and row stride, 0 included);
     weights: [E, dm, f] -> [E, C, f] in the token type.
 
-    `depth` is the number of k-slices in flight; None solves it from
-    `gmm_spec` through `core.autotune.choose_depth`. Either is clamped by
-    `kernel_depth` and recorded as run, for
-    `autotune.last_choice("moe_gmm")`.
+    `depth` is the number of k-slices in flight per block; None solves it
+    from `gmm_spec` through `core.autotune.choose_depth`. Either is clamped
+    by `kernel_depth` and recorded as run, for
+    `autotune.last_choice("moe_gmm")`. The grid is `blocks_per_sm` blocks
+    on every SM.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
@@ -170,20 +247,108 @@ def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
     if tokens.device.type != "cuda":
         raise ValueError(f"moe_gmm: no kernel for device {tokens.device}")
     _check_cuda(tokens, weights, f_tile)
+    blocks = ring.sm_count(tokens.device) * blocks_per_sm(tokens, weights,
+                                                          depth)
+    return gmm_at(tokens, weights, depth=depth, blocks=blocks)
+
+
+def _library() -> ctypes.CDLL:
+    lib = ring.library(SOURCE, "repro_moe_gmm", _ARGTYPES)
+    occ = lib.repro_moe_gmm_occupancy
+    if occ.argtypes is None:
+        occ.argtypes = _OCCUPANCY_ARGTYPES
+        occ.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device: int, dtype_code: int, mt: int, vec: bool,
+               depth: int) -> int:
+    lib = _library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.repro_moe_gmm_occupancy(dtype_code, mt, int(vec), depth,
+                                          ctypes.byref(n))
+    ring.raise_on_error(err, lib, kernel="moe_gmm", depth=depth,
+                        tile=(128 // (4 - 2 * dtype_code), F_TILE))
+    if n.value < 1:
+        raise KernelResourceError(
+            f"no block of the kernel fits an SM at depth {depth}",
+            kernel="moe_gmm", depth=depth, tile=(0, F_TILE))
+    return n.value
+
+
+def blocks_per_sm(tokens: torch.Tensor, weights: torch.Tensor,
+                  depth: int) -> int:
+    """The kernel's blocks that fit one SM at once at `depth` (registers,
+    shared memory and threads, from the CUDA occupancy calculator), read
+    once per device and configuration."""
+    dev = tokens.device
+    return _occupancy(dev.index if dev.index is not None
+                      else torch.cuda.current_device(),
+                      ring.DTYPE_CODE[tokens.dtype],
+                      _token_tiles(tokens.shape[1]),
+                      _vectorized(tokens, weights), depth)
+
+
+# one set of arrival counters per (device, stream): the kernel leaves them 0
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, blocks: int) -> torch.Tensor:
+    """At least `blocks` zero counters for `stream` (one per SM-resident
+    block, or more for a larger grid)."""
+    key = (device.index, stream)
+    t = _COUNTERS.get(key)
+    if t is None or t.numel() < blocks:
+        n = max(blocks, ring.sm_count(device) * MAX_BLOCKS_PER_SM)
+        t = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
+def reset_counters() -> None:
+    """Set every arrival counter back to 0 (after a failed launch)."""
+    for t in _COUNTERS.values():
+        t.zero_()
+
+
+def gmm_at(tokens: torch.Tensor, weights: torch.Tensor, *, depth: int,
+           blocks: int) -> torch.Tensor:
+    """`gmm` on CUDA tensors with `depth` k-slices in flight per block and
+    a grid of `blocks` blocks (at most one per k-slice; no solve, no
+    record). The kernel's launch count is `gmm.launches`."""
+    _check(tokens, weights)
+    if tokens.device.type != "cuda":
+        raise ValueError("gmm_at takes CUDA tensors")
+    _check_cuda(tokens, weights, F_TILE)
+    e, c, dm = tokens.shape
+    f = weights.shape[2]
+    itemsize = tokens.element_size()
     out = torch.empty((e, c, f), dtype=tokens.dtype, device=tokens.device)
     if out.numel() == 0:
         return out
     tile = (_slice_rows(itemsize), F_TILE)
+    if not 1 <= depth <= ring.MAX_DEPTH:
+        raise ValueError(f"depth must be in [1, {ring.MAX_DEPTH}], got {depth}")
     ring.check_smem(depth * slot_bytes(c, itemsize), kernel="moe_gmm",
                     depth=depth, tile=tile)
-    lib = ring.library(SOURCE, "repro_moe_gmm", _ARGTYPES)
+    w = walk(e, c, dm, f, itemsize, blocks)
+    mt = _token_tiles(c)
     with torch.cuda.device(tokens.device):
         stream = torch.cuda.current_stream(tokens.device).cuda_stream
+        counters = _counters(tokens.device, stream, w.blocks)
+        workspace = torch.empty((2 * w.blocks, 16 * mt * F_TILE),
+                                dtype=torch.float32, device=tokens.device)
+        lib = _library()
         err = lib.repro_moe_gmm(
-            tokens.data_ptr(), weights.data_ptr(), out.data_ptr(), e, c, dm,
-            f, tokens.stride(0), tokens.stride(1), depth,
-            ring.DTYPE_CODE[tokens.dtype], _token_tiles(c),
-            int(_vectorized(tokens, weights)), stream)
+            tokens.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            workspace.data_ptr(), counters.data_ptr(), c, dm, f,
+            tokens.stride(0), tokens.stride(1), depth,
+            ring.DTYPE_CODE[tokens.dtype], mt,
+            int(_vectorized(tokens, weights)), w.blocks, w.slices,
+            w.per_tile, w.n_col, w.n_tok, stream)
+    if err:
+        reset_counters()
     ring.raise_on_error(err, lib, kernel="moe_gmm", depth=depth, tile=tile)
     gmm.launches += 1
     return out

@@ -20,7 +20,7 @@ from repro_torch.core.guard import KernelCompileError, KernelResourceError
 
 __all__ = ["MAX_DEPTH", "SMEM_LIMIT", "check_smem", "copy_unit",
            "kernel_depth", "launch_grid", "library", "raise_on_error",
-           "ring_bytes", "route", "sm_count", "solve_depth"]
+           "ring_bytes", "route", "sm_count", "solve_depth", "split_depth"]
 
 MAX_DEPTH = 64                 # kMaxDepth in csrc/coro_ring.cuh
 
@@ -42,6 +42,26 @@ def kernel_depth(depth: int, *, slot_bytes: int, n_tiles: int) -> int:
         raise ValueError(f"depth must be >= 1, got {depth}")
     fit = SMEM_LIMIT // max(slot_bytes, 1)
     return max(1, min(int(depth), MAX_DEPTH, fit, max(int(n_tiles), 1)))
+
+
+def split_depth(depth: int, *, slot_bytes: int,
+                threads: int) -> Tuple[int, int]:
+    """(blocks per SM, slots a block) that keep `depth` tiles in flight on
+    one SM: `depth` (already clamped by `kernel_depth`) is read as tiles
+    in flight per SM and split over the most blocks that threads and the
+    SM's shared memory allow, counting the runtime's reservation per
+    block, each holding ceil(depth / blocks) slots and at least 2 (one
+    block of `depth` slots when depth < 4). One block always fits, since
+    `kernel_depth` caps a ring at `SMEM_LIMIT`. The depth that runs is
+    blocks x slots."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    most = min(MAX_THREADS_PER_SM // threads, max(1, depth // 2))
+    for blocks in range(most, 0, -1):
+        slots = -(-depth // blocks)
+        if blocks * (slots * slot_bytes + SMEM_RESERVED) <= SM_SMEM:
+            return blocks, slots
+    return 1, depth
 
 
 def solve_depth(spec: CoroSpec, depth: Optional[int], *, slot_bytes: int,
@@ -80,11 +100,13 @@ def sm_count(device: torch.device) -> int:
 
 
 def launch_grid(device: torch.device, n_tiles: int, depth: int,
-                smem_bytes: int, threads: int) -> Tuple[int, int]:
-    """(blocks, tiles per block): as many blocks as fit on the card at once,
-    but each walking at least `depth` tiles so that its ring fills."""
-    per_sm = min(MAX_THREADS_PER_SM // threads,
-                 SM_SMEM // (smem_bytes + SMEM_RESERVED))
+                smem_bytes: int, threads: int,
+                blocks_per_sm: Optional[int] = None) -> Tuple[int, int]:
+    """(blocks, tiles per block): as many blocks as fit on the card at once
+    (`blocks_per_sm` on each SM when given), but each walking at least
+    `depth` tiles so that its ring fills."""
+    per_sm = blocks_per_sm or min(MAX_THREADS_PER_SM // threads,
+                                  SM_SMEM // (smem_bytes + SMEM_RESERVED))
     resident = sm_count(device) * max(per_sm, 1)
     per_block = max(depth, -(-n_tiles // resident))
     return -(-n_tiles // per_block), per_block
