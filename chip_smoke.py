@@ -23,10 +23,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      projection and prefill shapes, granite-moe's, reduced tails and rows
      off the 16-byte unit, with one token block shared by every expert
      (stride 0) and with a token block per expert, in f32 (2e-3) and bf16
-     (3e-2 + 3e-2 x |value|), at depths 1, 2 and solved; the row and span
+     (3e-2 + 3e-2 x |value|), at depths 1, 2 and solved, then its
+     persistent walk at given grids (three tiles over 2 blocks, fewer
+     tiles than blocks, C 16 and 17, ragged f, 2 blocks an SM: whole tiles
+     dealt in turn, some blocks walking one more), each repeated bitwise;
+     the row and span
      gathers in f32, bf16 and int32, 1/4/8 rows per tile, depths 1, 2 and
      solved, an index count off the tile, rows of 16-byte, 4-byte and
-     (bf16) 2-byte units, and the coalesced gather of the gups_random,
+     (bf16) 2-byte units, the row gather at the per-SM splits phase 9
+     sweeps, and the coalesced gather of the gups_random,
      stream_unit and hj_mixed streams (all bitwise); the scatter-add with
      duplicates through its op in f32 (2e-3) and bf16 (3e-2), and the
      kernel on deduplicated rows (bitwise, 16- and 2-byte units); the triad
@@ -88,10 +93,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      grouped matmul 3 x n_layers times per decode round and prefill chunk;
   6b. grouped-matmul times at that path's decode (C = round width) and
      prefill (C = 32) shapes, gate/up (dm -> f) and down (f -> dm), on
-     layer 0's weights: the kernel, its plain version, and as a yardstick
-     torch.bmm over the tokens expanded to every expert; the bound is the
-     weights, tokens and output over 3.35 TB/s (or the flops over 989
-     TFLOP/s, if larger);
+     layer 0's weights (with the blocks an SM, slots a block, grid and
+     tiles a block that ran): the kernel, its plain version, and as a
+     yardstick torch.bmm over the tokens expanded to every expert; the
+     bound is the weights, tokens and output over 3.35 TB/s (or the flops
+     over 989 TFLOP/s, if larger); and the host time of one `gmm` call
+     (`host_ms_per_call`);
   7b. a profile of full-width qwen3-moe decode rounds: device time by
      kernel per round, K1's and the grouped matmul's shares, the busy
      share, and the round's floor (every weight but the embedding table
@@ -110,16 +117,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      the expanded span rows, index_add_ on the deduplicated rows,
      torch.add(b, c, alpha=s)); each bound is the bytes the function must
      move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
-     then the same kernels at other depths (tiles in flight per block), the
-     triad at other tile heights and the grouped matmul at qwen3-moe's
-     decode shape at other depths (k-slices in flight), each time beside its
-     bound; last, the span gather with its ring wait inlined (the source)
+     then the same kernels at other depths (tiles in flight per block;
+     the row gather's per SM, and at 4x14, 6x9, 8x6 and 12x4 blocks an SM x
+     slots), the triad at other tile heights and the grouped matmul at
+     qwen3-moe's decode shape at other depths (k-slices in flight per
+     block) and at other blocks per SM, each time beside its bound; last, the span gather with its ring wait inlined (the source)
      against a copy built with the shared header's called wait, in turns;
  10. one JSON line describing every kernel (eight), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
+
+    python3 chip_smoke.py --gmm-host-time
+
+runs only the host-time measurement of phase 6b, on random weights of the
+same shapes, against the package of the checkout the script sits in (copy
+the script into another checkout to measure that one), and prints one
+JSON line.
 """
 from __future__ import annotations
 
@@ -161,6 +176,9 @@ GUPS_KERNELS = (   # name, CUDA source, TPU kernel it replaces
      "stream_copy/stream_copy.py:40"),
 )
 F32_PEAK = 67e12                 # data sheet, f32 outside the tensor cores
+# K5a's per-SM splits swept in phase 9 (blocks per SM, slots a block): all
+# fit 228 KiB of shared memory with the runtime's 1 KiB per block
+K5A_SPLITS = ((4, 14), (6, 9), (8, 6), (12, 4))
 MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
@@ -324,6 +342,19 @@ GMM_SHAPES = (   # name, E, C, dm, f, tokens shared by every expert
 )
 
 
+# The persistent walk at a given grid (whole tiles dealt in turn): name, E,
+# C, dm, f, shared, blocks
+GMM_WALK_CASES = (
+    ("three tiles over 2 blocks", 1, 5, 2048, 384, True, 2),
+    ("fewer tiles than blocks", 2, 5, 64, 32, False, 1000),
+    ("C=16, 4 blocks", 3, 16, 512, 256, False, 4),
+    ("C=17, 5 blocks", 3, 17, 256, 136, True, 5),
+    ("ragged f and dm, 4 blocks", 3, 5, 200, 136, True, 4),
+    ("qwen3-moe decode gate/up, 2 blocks an SM", 128, 5, 2048, 768, True,
+     "2/SM"),
+)
+
+
 def gmm_operands(torch, gen, e, c, dm, f, shared, dtype):
     """Tokens (one [C, dm] block expanded over the experts when `shared`,
     as the dense MoE layer passes them) and weights scaled by dm**-0.5."""
@@ -354,6 +385,24 @@ def check_gmm_parity(torch) -> float:
                              f"(ran {ran})", out, ref, TOL[dtype_name])
                 worst = max(worst, err)
             del tokens, w, ref, out
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, e, c, dm, f, shared, blocks in GMM_WALK_CASES:
+        if blocks == "2/SM":
+            blocks = 2 * sm
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            tokens, w = gmm_operands(torch, gen, e, c, dm, f, shared, dtype)
+            out = mg.gmm_at(tokens, w, depth=2, blocks=blocks)
+            again = mg.gmm_at(tokens, w, depth=2, blocks=blocks)
+            walk = mg.walk(e, c, dm, f, tokens.element_size(), blocks)
+            err = _close(f"moe_gmm walk: {name} [{e},{c},{dm}]x[{dm},{f}] "
+                         f"{dtype_name} ({walk.blocks} blocks over "
+                         f"{walk.tiles} tiles)", out, mg.gmm_plain(tokens, w),
+                         TOL[dtype_name])
+            if not torch.equal(out, again):
+                raise AssertionError(f"moe_gmm walk: {name}: two runs of "
+                                     "one call differ")
+            worst = max(worst, err)
     torch.cuda.synchronize()
     return worst
 
@@ -757,6 +806,9 @@ def time_gmm(torch, params, width):
             tokens = args[0][0]
             got = mg.gmm(tokens, w)
             depth = autotune.last_choice("moe_gmm")
+            per_sm = mg.blocks_per_sm(tokens, w, depth)
+            grid = mg.grid_for(tokens, w, depth)
+            tiles = mg.walk(e, c, dm, f, 2, grid).tiles
             ref = mg.gmm_plain(tokens, w)
             torch.cuda.synchronize()
             err = _close(f"moe_gmm {MOE_ARCH} {phase} {proj} at the path's "
@@ -766,6 +818,7 @@ def time_gmm(torch, params, width):
             plain_ms = median_ms(torch, mg.gmm_plain, args)
             library_ms = median_ms(torch, torch.bmm, args)
             kernel_b = median_ms(torch, mg.gmm, args)
+            host_ms = host_ms_per_call(torch, mg.gmm, args[0])
             ms = statistics.median([kernel_a, kernel_b])
             bound_ms, bound_by = gmm_bound(e, c, dm, f)
             spec = mg.gmm_spec(c, dm, mg.F_TILE, torch.bfloat16, f_total=f)
@@ -773,16 +826,58 @@ def time_gmm(torch, params, width):
                                            vars=spec.all_vars())
             shape = {"E": e, "C": c, "dm": dm, "f": f, "shared": shared,
                      "dtype": "bfloat16", "solved_depth": solved,
-                     "ran_depth": depth}
+                     "ran_depth": depth, "blocks_per_sm": per_sm,
+                     "slots_a_block": depth, "grid": grid,
+                     "tiles": tiles, "tiles_a_block": -(-tiles // grid)}
             log(f"times moe_gmm {phase} {proj} {json.dumps(shape)}: kernel "
                 f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"torch.bmm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by}), {bound_ms / ms:.1%} of the bound")
+                f"({bound_by}), {bound_ms / ms:.1%} of the bound; host "
+                f"{host_ms:.5f} ms a call")
             out[f"{phase} {proj}"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "shape": shape}
+                "bound_by": bound_by, "host_ms": host_ms, "shape": shape}
             del args, tokens
+    return out
+
+
+def host_ms_per_call(torch, fn, args, calls=100, repeats=5):
+    """Host time of one call of `fn`: the wall clock of `calls` calls in a
+    row, queued behind a device-side sleep so that no call waits on the
+    device, median of `repeats` runs."""
+    fn(*args)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(60_000_000)        # ~30 ms of device time
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def gmm_host_times(torch) -> dict:
+    """`host_ms_per_call` of `gmm` at phase 6b's shapes (C 5 and 32, gate/up
+    with tokens shared at stride 0, down with a block per expert) on random
+    bf16 weights: only `gmm(tokens, weights)` of this checkout's package."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    out = {}
+    for proj, (e, dm, f) in (("gate/up", (128, 2048, 768)),
+                             ("down", (128, 768, 2048))):
+        w = torch.randn(e, dm, f, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for phase, c in (("decode", 5), ("prefill", 32)):
+            rows = 1 if proj == "gate/up" else e
+            tokens = torch.randn(rows, c, dm, generator=gen, device="cuda",
+                                 dtype=torch.bfloat16).expand(e, c, dm)
+            out[f"{phase} {proj}"] = host_ms_per_call(torch, mg.gmm,
+                                                      (tokens, w))
     return out
 
 
@@ -1230,6 +1325,17 @@ def check_gups_parity(torch) -> None:
                 _equal(f"span_gather {dtype} {rows}x{d} depth={depth}",
                        cg.span_gather(tab, starts, span=8, depth=depth),
                        cg.span_gather_plain(tab, starts, 8))
+    # the row gather at the per-SM splits phase 9 sweeps (blocks x slots)
+    idx = torch.randint(0, 4096, (1 << 15,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        tab = table(4096, 128, dtype)
+        for blocks, slots in K5A_SPLITS:
+            _equal(f"row_gather {dtype} 4096x128 n=32768 at {blocks} blocks "
+                   f"an SM x {slots} slots",
+                   cg.row_gather_at(tab, idx, blocks_per_sm=blocks,
+                                    slots=slots),
+                   cg.row_gather_plain(tab, idx))
     tab = table(4096, 128, torch.float32)
     for name, idx in coalesce_patterns().items():
         out, plan = coalesced_gather(tab, idx)
@@ -1395,6 +1501,7 @@ def time_gups_kernels(torch, st, gmm_case):
     shapes phase 8 gave them, each kernel checked against its plain
     version on exactly these inputs; then the depth sweeps, the grouped
     matmul's on `gmm_case` (tokens, weights, bound ms) from phase 6b."""
+    from repro_torch.kernels import ring
     from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
@@ -1420,6 +1527,11 @@ def time_gups_kernels(torch, st, gmm_case):
     b, c, s = st["b"], st["c"], GUPS["scalar"]
     n, t, u, nt = idx.numel(), starts.numel(), uniq.numel(), b.numel()
 
+    # K5a's per-SM split and grid at this shape
+    k5a_blocks, k5a_slots = cg.row_gather_split(depths["row_gather"], table)
+    k5a_grid = ring.launch_grid(table.device, n // 8, k5a_slots,
+                                k5a_slots * 8 * row_bytes, cg.THREADS,
+                                k5a_blocks)[0]
     cases = {
         "row_gather": dict(
             kernel=lambda: cg.row_gather(table, idx,
@@ -1428,7 +1540,8 @@ def time_gups_kernels(torch, st, gmm_case):
             library=(torch.index_select, (table, 0, idx.long())),
             bound=_bound_ms(2 * n * row_bytes + 4 * n),
             shape={"table": list(table.shape), "n": n, "rows_per_tile": 8,
-                   "dtype": "float32"}),
+                   "dtype": "float32", "blocks_per_sm": k5a_blocks,
+                   "slots_a_block": k5a_slots, "grid": k5a_grid}),
         "span_gather": dict(
             kernel=lambda: cg.span_gather(table, starts, span=plan.span,
                                           depth=depths["span_gather"]),
@@ -1488,10 +1601,16 @@ def time_gups_kernels(torch, st, gmm_case):
     log(f"GUPS from kernel times: {gups:.4f} giga-updates/s "
         f"({GUPS['n']} updates: gather + scatter-add of {u} rows)")
 
-    # the same work at other depths, and the triad at other tile heights
-    sweep = [("row_gather", f"depth={k}",
+    # the same work at other depths (K5a: tiles in flight per SM, and its
+    # per-SM split as blocks x slots), and the triad at other tile heights
+    sweep = [("row_gather", f"depth={k} per SM "
+              f"({'x'.join(map(str, cg.row_gather_split(k, table)))})",
               lambda k=k: cg.row_gather(table, idx, depth=k))
              for k in (4, 8, 16, 32, 56)]
+    sweep += [("row_gather", f"{k} blocks an SM x {slots} slots",
+               lambda k=k, slots=slots: cg.row_gather_at(
+                   table, idx, blocks_per_sm=k, slots=slots))
+              for k, slots in K5A_SPLITS]
     sweep += [("scatter_add", f"depth={k}",
                lambda k=k: sa.scatter_add_unique(work, uniq, summed, depth=k))
               for k in (4, 8, 16, 28)]
@@ -1502,9 +1621,21 @@ def time_gups_kernels(torch, st, gmm_case):
     tokens, w, gmm_bound_ms = gmm_case
     deepest = mg.kernel_depth(64, c=tokens.shape[1], dm=tokens.shape[2],
                               itemsize=tokens.element_size())
-    sweep += [("moe_gmm", f"decode gate/up depth={k}",
+    sweep += [("moe_gmm", f"decode gate/up depth={k} "
+               f"({mg.blocks_per_sm(tokens, w, k)} blocks an SM fit, grid "
+               f"{mg.grid_for(tokens, w, k)})",
                lambda k=k: mg.gmm(tokens, w, depth=k))
               for k in sorted({1, 2, 3, 4, 6, 8, deepest})]
+    # depth 2 on grids of k blocks on every SM, whole tiles dealt in turn
+    # (up to one tile a block more than others)
+    sm = ring.sm_count(tokens.device)
+    most = mg.blocks_per_sm(tokens, w, 2)
+    tiles = mg.walk(*tokens.shape, w.shape[2], 2, 1).tiles
+    sweep += [("moe_gmm", f"decode gate/up depth=2 at {k} blocks an SM "
+               f"(grid {sm * k}, {-(-tiles // (sm * k))} tiles a block at "
+               f"most)",
+               lambda k=k: mg.gmm_at(tokens, w, depth=2, blocks=sm * k))
+              for k in sorted({2, most})]
     bounds = {name: t["bound_ms"] for name, t in out.items()}
     bounds["moe_gmm"] = gmm_bound_ms
     swept = {}
@@ -1594,6 +1725,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--gmm-host-time"]:
+        card_info(torch)
+        print(json.dumps({"gmm_host_ms": gmm_host_times(torch)}), flush=True)
+        return 0
     # f32 results are compared on the card: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

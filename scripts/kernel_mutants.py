@@ -1,7 +1,8 @@
 """Hold broken copies of the flash-decode kernels (K1 paged and K3 dense,
-one source: ``flash_decode.cu``) and the SSD-scan kernel (K4,
-``ssd_scan.cu``) to the tolerances ``chip_smoke.py`` holds the real ones
-to, on the card.
+one source: ``flash_decode.cu``), the SSD-scan kernel (K4,
+``ssd_scan.cu``), the grouped matmul (K2, ``moe_gmm.cu``) and the row
+gather (K5a, ``coro_gather.cu``) to the tolerances ``chip_smoke.py`` holds
+the real ones to, on the card (K5a: bitwise).
 
 Each broken copy ("mutant") is one textual change to a copy of the source,
 made in a temporary directory outside the checkout and built there with
@@ -30,6 +31,8 @@ import chip_smoke  # noqa: E402  (its tolerances and operands)
 
 FLASH = "decode_attention/csrc/flash_decode.cu"
 SSD = "ssd_scan/csrc/ssd_scan.cu"
+GMM = "moe_gmm/csrc/moe_gmm.cu"
+GATHER = "coro_gather/csrc/coro_gather.cu"
 PAGED_KEYS = "return max(0, min(lengths[b], M * page));"
 
 # name -> (source, the text replaced, its replacement)
@@ -59,6 +62,18 @@ MUTANTS = {
     "K4 last tile dropped": (
         SSD, "for (int i = 0; i < n_tiles; ++i) {\n    const int slot = i % depth;\n    const int t0",
         "for (int i = 0; i < n_tiles - 1; ++i) {\n    const int slot = i % depth;\n    const int t0"),
+    "K2 a block's last tile dropped": (
+        GMM, "return (tiles - b + blocks - 1) / blocks * per_tile;",
+        "return ((tiles - b + blocks - 1) / blocks - (b + blocks < tiles)) * per_tile;"),
+    "K2 tiles dealt with the wrong stride": (
+        GMM, "return b + i / per_tile * blocks;",
+        "return b + i / per_tile * (blocks - 1);"),
+    "K2 a tile stored one k-slice early": (
+        GMM, "if ((i + 1) % walk.per_tile == 0) {",
+        "if ((i + 2) % walk.per_tile == 0) {"),
+    "K5a a row id prefetched for the wrong tile": (
+        GATHER, "if (i + depth + 1 < count) fetch(t + depth + 1);",
+        "if (i + depth + 1 < count) fetch(t + depth);"),
 }
 
 patched_copy = chip_smoke.patched_copy
@@ -114,6 +129,42 @@ def k4_cases(torch):
         yield f"b=8 s=2048 x/B/C {dtype_name}", args, dtype_name
 
 
+def k2_cases(torch):
+    """qwen3-moe's decode gate/up (tokens shared at stride 0) at the
+    wrapper's grid (two tiles a block) and down at 5 blocks an SM (3 or 4
+    tiles a block), and three [2048, 128] tiles of one expert over two
+    blocks; f32 and bf16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, e, c, dm, f, shared, blocks in (
+            ("decode gate/up E=128 C=5, the wrapper's grid", 128, 5, 2048,
+             768, True, None),
+            ("decode down E=128 C=5, 5 blocks an SM", 128, 5, 768, 2048,
+             False, 5 * sm),
+            ("three tiles over 2 blocks E=1 C=5", 1, 5, 2048, 384, True, 2)):
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            tokens, w = chip_smoke.gmm_operands(torch, gen, e, c, dm, f,
+                                                shared, dtype)
+            yield f"{name} {dtype_name}", tokens, w, blocks, dtype_name
+
+
+def k5a_cases(torch):
+    """2^18 row ids over a [2^16, 128] table of 512 B rows (f32, int32)
+    and 256 B rows (bf16), at the solved split and at 4x14, 6x9, 8x6 and
+    12x4 blocks per SM x slots."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    idx = torch.randint(0, 1 << 16, (1 << 18,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        table = (torch.randn(1 << 16, 128, generator=gen, device="cuda")
+                 * 100).to(dtype)
+        for split in (None, (4, 14), (6, 9), (8, 6), (12, 4)):
+            yield f"{str(dtype)[6:]} split={split}", table, idx, split
+
+
 def within(torch, got, want, atol, rtol) -> bool:
     got, want = got.float(), want.float()
     return bool(torch.isfinite(got).all()) and bool(
@@ -122,11 +173,36 @@ def within(torch, got, want, atol, rtol) -> bool:
 
 def run(torch, kernel: str, source):
     """[(case, max_abs_err, passed)] of the kernel built from `source`."""
+    from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     rows = []
-    if kernel == "K1":
+    if kernel == "K2":
+        mg.SOURCE = source
+        for case, tokens, w, blocks, dtype_name in k2_cases(torch):
+            tol = chip_smoke.TOL[dtype_name]
+            # free a NaN block of the output's size for the output to reuse,
+            # so a tile the kernel never writes cannot hold an earlier result
+            poison = torch.full((tokens.shape[0], tokens.shape[1], w.shape[2]),
+                                float("nan"), dtype=tokens.dtype, device="cuda")
+            del poison
+            got = mg.gmm(tokens, w, depth=2) if blocks is None else \
+                mg.gmm_at(tokens, w, depth=2, blocks=blocks)
+            want = mg.gmm_plain(tokens, w)
+            err = float((got.float() - want.float()).abs().max())
+            rows.append((case, err, within(torch, got, want, tol, tol)))
+    elif kernel == "K5a":
+        cg.SOURCE = source
+        for case, table, idx, split in k5a_cases(torch):
+            got = cg.row_gather(table, idx) if split is None else \
+                cg.row_gather_at(table, idx, blocks_per_sm=split[0],
+                                 slots=split[1])
+            want = cg.row_gather_plain(table, idx)
+            err = float((got.float() - want.float()).abs().max())
+            rows.append((case, err, bool(torch.equal(got, want))))
+    elif kernel == "K1":
         da.FLASH_SOURCE = source
         for case, args, dtype_name in k1_cases(torch):
             got = da.paged_flash_decode(*args)
@@ -165,10 +241,13 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import build
+    from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
-    controls = {"K1": da.FLASH_SOURCE, "K3": da.FLASH_SOURCE, "K4": ss.SOURCE}
+    controls = {"K1": da.FLASH_SOURCE, "K3": da.FLASH_SOURCE, "K4": ss.SOURCE,
+                "K2": mg.SOURCE, "K5a": cg.SOURCE}
     bad = []
     summary = {}
     with tempfile.TemporaryDirectory(prefix="kernel_mutants_") as tmp:

@@ -15,48 +15,52 @@
 // tokens) or a prefill chunk (32), so each weight element feeds 2C flops:
 // at most 64 per 2-byte element, far below the ~295 flops per byte at
 // which the H100's tensor cores become the limit. The floor is the expert
-// weights over 3.35 TB/s, so what matters is that every SM streams an equal
-// share of the weights with bytes in flight from the first microsecond to
-// the last. That is also why there is no wgmma here: its 64-row tile would
-// be 59/64 padding at C 5, and the tensor-core rate is not the limit. What
-// the design does:
-//   * a persistent grid (moe_gmm.py:walk): the work is numbered in k-slices
-//     (e, 128-column f tile, 16- or 32-row token tile, k-slice), k fastest;
-//     sm_count x blocks-per-SM blocks each walk an equal contiguous range
-//     of them (stream-K), so no SM idles in a partial last wave (one block
-//     per output tile left 108 blocks alone in a second wave at qwen3-moe's
-//     gate/up shape);
-//   * a block that owns a whole output tile stores it; a block that owns
-//     part of one writes its f32 partial to a workspace slot of its own,
-//     counts itself in on the tile's arrival counter, and the last to
-//     arrive sums the parts in block order (so the result does not depend
-//     on which block came last: a run is deterministic), stores the tile
-//     and sets the counter back to 0, so the counters stay zero between
-//     calls and a call is one launch. Two calls on one stream run one
-//     after the other, so they never share a workspace slot or a counter
-//     at once (the wrapper keeps one set of counters per stream);
-//   * the block walks its range in k-slices of 128 bytes per weight row
+// weights over 3.35 TB/s, so what matters is that every SM streams its share
+// of the weights with bytes in flight from the first microsecond to the
+// last. That is also why there is no wgmma here: its 64-row tile would be
+// 59/64 padding at C 5, and the tensor-core rate is not the limit. What the
+// design does:
+//   * a persistent grid (moe_gmm.py:walk, grid_blocks): the output tiles
+//     (e, 128-column f tile, 16- or 32-row token tile) are dealt to the
+//     blocks in turn, block b taking tiles b, b + blocks, ..., so that the
+//     blocks in flight together read neighbouring tiles of one expert. The
+//     grid is the fewest blocks that walk the tiles in the fewest tiles a
+//     block on a card of sm_count x blocks-per-SM (the occupancy
+//     calculator's); each block stores every tile it walks, whole. (Every
+//     block an equal share of k-slices, tiles split between blocks and
+//     summed by the last to arrive, read 3-6% slower at every shape timed:
+//     memory, not an SM, is the shared limit, and a split tile costs a
+//     fix-up and row locality);
+//   * the block walks each tile in k-slices of 128 bytes per weight row
 //     ([BK, 128]: 64 rows in bf16, 32 in f32) and keeps `depth` of them in
-//     flight in a ring of shared-memory slots filled by cp.async (the
-//     paper's decoupled aload, coro_ring.cuh), each slot holding the weight
-//     slice and the matching [BM, BK] token slice; the ring runs on across
-//     tile boundaries, so the next tile's slices land while a tile is
-//     stored; several blocks share an SM (about 40 KiB of ring each at
-//     depth 2), so while one waits at its barriers the others copy;
+//     flight in a ring of shared-memory slots, each holding the weight
+//     slice and the matching [BM, BK] token slice. Loading and computing
+//     are separate warps: one producer warp fills a slot as soon as it is
+//     free (the weight slice as TMA boxes of a 3-D tensor map, the token
+//     slice in cp.async units; both complete on the slot's `full`
+//     mbarrier), and four consumer warps wait on `full`, multiply, and
+//     release the slot on its `empty` mbarrier. No block barrier stands in
+//     the k-loop, and the copy engine keeps the weights in flight: a
+//     slice is two or four TMA instructions (with 1-D bulk copies, one per
+//     256-byte weight row, the time followed the blocks an SM, not the
+//     depth: their issue bound it). The ring runs on
+//     across tile boundaries, so the next tile's slices land while a tile
+//     is stored;
 //   * bf16 runs on the tensor cores through mma.sync.m16n8k16 with f32
-//     accumulators (each of the 4 warps owns 32 columns), its fragments
-//     loaded by ldmatrix (.trans for the [BK, 128] weight slice); f32 runs
-//     on the SIMT cores (each thread owns one column), so no TF32 rounding
-//     enters;
-//   * every axis may be ragged: a weight or token unit outside the tensor is
-//     never read (its slot is zero-filled instead), and stores are masked.
-//     Rows whose bytes or strides are not 16-byte units copy element by
-//     element, synchronously.
-// Later work: a producer warp that fills the ring with bulk copies on
-// mbarriers, which would take the two block barriers out of every k-slice.
+//     accumulators (each of the 4 consumer warps owns 32 columns), its
+//     fragments loaded by ldmatrix (.trans for the weight slice, which the
+//     TMA stores with the 128-byte swizzle); f32 runs on the SIMT cores
+//     (each consumer thread owns one column), so no TF32 rounding enters;
+//   * every axis may be ragged: the tensor map returns zeros past dm and f,
+//     a token row or column outside the tensor is never read (its slot is
+//     zero-filled instead), and stores are masked. Rows whose bytes or
+//     strides are not 16-byte units are copied element by element by the
+//     producer warp, synchronously.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
+
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 
 #include <type_traits>
 
@@ -64,73 +68,136 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kConsumers = 128;              // four consumer warps
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;    // and one producer warp
 constexpr int kBN = 128;  // f columns per tile (moe_gmm.py:F_TILE)
-static_assert(kThreads == kBN, "a SIMT thread owns one column");
+static_assert(kConsumers == kBN, "a SIMT consumer thread owns one column");
 
-// The ring's geometry for element type T and MT 16-row token tiles. Rows of
-// both slices are padded by 16 bytes so that the eight rows of an ldmatrix
-// (or of a warp's SIMT loads) fall in distinct shared-memory banks. The
-// same formula is repro_torch/kernels/moe_gmm/moe_gmm.py:slot_bytes.
+// The ring's geometry for element type T and MT 16-row token tiles. A slot
+// holds the [BK, 128] weight slice as kBoxes TMA boxes of [BK rows, 128
+// bytes], each stored with the 128-byte swizzle (16-byte chunk c of row r
+// at chunk c ^ (r % 8)), so that the eight rows of an ldmatrix (or a warp's
+// SIMT loads of one row) fall in distinct banks; then the [BM, BK] token
+// slice, rows padded by 16 bytes for the same reason. Slots are 1024-byte
+// aligned (the swizzle's period). The slots' mbarriers, a `full` and an
+// `empty` one each (8 bytes apiece), come first, and 1024 bytes of slack
+// align the slots. The same formula is
+// repro_torch/kernels/moe_gmm/moe_gmm.py:slot_bytes.
 template <typename T, int MT>
 struct Ring {
   static constexpr int kBM = 16 * MT;
   static constexpr int kBK = 128 / static_cast<int>(sizeof(T));
   static constexpr int kPad = 16 / static_cast<int>(sizeof(T));
-  static constexpr int kWS = kBN + kPad;  // weight slice row stride
-  static constexpr int kTS = kBK + kPad;  // token slice row stride
-  static constexpr int kSlot = kBK * kWS + kBM * kTS;
+  static constexpr int kTS = kBK + kPad;                          // token row stride
+  static constexpr int kBoxCols = 128 / static_cast<int>(sizeof(T));  // a box row: 128 bytes
+  static constexpr int kBoxes = kBN / kBoxCols;
+  static constexpr int kWeightBytes = kBK * kBN * static_cast<int>(sizeof(T));  // 16 KiB
+  static constexpr int kSlotBytes =
+      (kWeightBytes + kBM * kTS * static_cast<int>(sizeof(T)) + 1023) / 1024 * 1024;
 };
+
+constexpr int kBarrierBytes = 16;  // a slot's full and empty mbarriers
+constexpr int kAlignSlack = 1024;  // to align the slots to the swizzle's period
 
 size_t smem_bytes(int itemsize, int mt, int depth) {
   const int bk = 128 / itemsize, pad = 16 / itemsize;
-  const size_t slot = static_cast<size_t>(bk) * (kBN + pad) + static_cast<size_t>(16) * mt * (bk + pad);
-  return slot * itemsize * depth;
+  const size_t slot = (static_cast<size_t>(bk) * kBN * itemsize +
+                       static_cast<size_t>(16) * mt * (bk + pad) * itemsize + 1023) / 1024 * 1024;
+  return (slot + kBarrierBytes) * depth + kAlignSlack;
 }
 
-// The walk over the k-slices (moe_gmm.py:walk): slice s belongs to tile
-// s / per_tile, tile = (e * n_col + column tile) * n_tok + token tile.
-// Block b walks [start(b), start(b + 1)): `base` slices, one more for the
-// first `rem` blocks.
+// The byte offset of element (row r, column n) of a weight slice in its
+// slot: box n / kBoxCols, 16-byte chunk swizzled by the row.
+template <typename T, int MT>
+__device__ __forceinline__ int weight_offset(int r, int n) {
+  using R = Ring<T, MT>;
+  const int box = n / R::kBoxCols;
+  const int byte = (n - box * R::kBoxCols) * static_cast<int>(sizeof(T));
+  return box * R::kBK * 128 + r * 128 + ((((byte >> 4) ^ (r & 7))) << 4) + (byte & 15);
+}
+
+// The walk (moe_gmm.py:walk): block b walks output tiles b, b + blocks,
+// b + 2 * blocks, ... below `tiles`, `per_tile` k-slices each. Its i-th
+// k-slice is k-slice i % per_tile of its (i / per_tile)-th tile. Output
+// tile (e * n_col + column tile) * n_tok + token tile.
 struct Walk {
-  int64_t base;
-  int64_t rem;
+  int64_t tiles;
   int64_t per_tile;
+  int blocks;
   int n_col;
   int n_tok;
 
-  __device__ __forceinline__ int64_t start(int64_t b) const {
-    return b * base + (b < rem ? b : rem);
+  // The k-slices block b walks.
+  __device__ __forceinline__ int64_t slices_of(int b) const {
+    return (tiles - b + blocks - 1) / blocks * per_tile;
   }
-  __device__ __forceinline__ int64_t block_of(int64_t s) const {
-    const int64_t big = rem * (base + 1);
-    return s < big ? s / (base + 1) : rem + (s - big) / base;
-  }
-  // A block's workspace slot for its part of `tile`: 2b for the tile its
-  // range starts in, 2b + 1 for the one it ends in (a block holds at most
-  // these two parts).
-  __device__ __forceinline__ int64_t part_slot(int64_t b, int64_t tile) const {
-    return 2 * b + (tile == start(b) / per_tile ? 0 : 1);
+  // The output tile of block b's i-th k-slice.
+  __device__ __forceinline__ int64_t tile_of(int b, int64_t i) const {
+    return b + i / per_tile * blocks;
   }
 };
 
-// One copy unit: 16 bytes through cp.async, or one element synchronously.
-template <typename T, bool kVec>
-__device__ __forceinline__ void copy_unit(T* dst, const T* src) {
-  if constexpr (kVec) {
-    repro::cp_async16(dst, src);
-  } else {
-    *dst = *src;
-  }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, bool kVec>
-__device__ __forceinline__ void zero_unit(T* dst) {
-  if constexpr (kVec) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    *dst = repro::from_f32<T>(0.f);
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// Arrive, and expect `bytes` more of bulk copies before the phase completes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}\n" ::"r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Load box (c0, c1, c2) of the 3-D tensor map `map` into shared memory at
+// `dst` with the Tensor Memory Accelerator; elements outside the tensor
+// arrive as zeros. Completes on `bar` with the box's bytes. The weights are
+// read once, so they go first when L2 evicts (the tokens, read once per
+// column tile, and the partials stay).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar)),
+      "l"(policy)
+      : "memory");
+}
+
+// Arrive on `bar` once this thread's cp.async copies so far have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
 }
 
 // Four 8x8 b16 matrices from shared memory; lane l names row l % 8 of
@@ -162,36 +229,48 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
 template <typename T, int MT, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     gmm_kernel(const T* __restrict__ tokens, const T* __restrict__ weights, T* __restrict__ out,
-               float* __restrict__ workspace, int* __restrict__ counters, int C, int dm, int f,
-               int64_t tok_e_stride, int64_t tok_c_stride, int depth, Walk walk) {
+               int C, int dm, int f, int64_t tok_e_stride, int64_t tok_c_stride, int depth,
+               Walk walk, const __grid_constant__ CUtensorMap wmap) {
   using R = Ring<T, MT>;
-  constexpr int kVecElems = kVec ? 16 / static_cast<int>(sizeof(T)) : 1;
-  constexpr int kWRowUnits = kBN / kVecElems;
-  constexpr int kTRowUnits = R::kBK / kVecElems;
   constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  // Accumulators a thread owns, on both paths. Tensor cores: warp w owns
-  // columns [32w, 32w + 32) as four 8-column mma tiles of each 16-row token
-  // tile, in the m16n8 C-fragment layout (rows g and g + 8, columns
-  // 2 * tig + {0, 1}). SIMT: thread t owns column t of every token row.
+  // Accumulators a consumer thread owns, on both paths. Tensor cores: warp
+  // w owns columns [32w, 32w + 32) as four 8-column mma tiles of each
+  // 16-row token tile, in the m16n8 C-fragment layout (rows g and g + 8,
+  // columns 2 * tig + {0, 1}). SIMT: thread t owns column t of every token
+  // row.
   constexpr int kAcc = 16 * MT;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int64_t first = walk.start(blockIdx.x);
-  const int64_t count = walk.start(blockIdx.x + 1) - first;
+  const int block = static_cast<int>(blockIdx.x);
+  const int64_t count = walk.slices_of(block);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  __shared__ int last_arrival;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* empty = full + depth;
+  const uint32_t raw = smem_addr(smem_raw);
+  unsigned char* slots =
+      smem_raw + (((raw + kBarrierBytes * depth + 1023) & ~1023u) - raw);
 
-  // The operands of output tile `tile`: the expert's token block and weight
-  // matrix, and the tile's first output row and column.
+  if (tid == 0) {
+    for (int s = 0; s < depth; ++s) {
+      // full: every producer lane arrives twice (its generic stores, then
+      // its cp.async copies); the TMA boxes add their bytes
+      mbar_init(full + s, 64);
+      mbar_init(empty + s, kConsumerWarps);  // every consumer warp releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the last block-wide barrier: the roles split here
+
+  // The operands of output tile `tile`: the expert's token block, weight
+  // matrix and output block, and the tile's first row and column.
   struct Tile {
     const T* tok;
     const T* w;
     T* o;
-    int m0, n0;
+    int m0, n0, e;
   };
   auto tile_at = [&](int64_t tile) {
     const int tt = static_cast<int>(tile % walk.n_tok);
@@ -199,46 +278,74 @@ __global__ void __launch_bounds__(kThreads)
     const int col = static_cast<int>(rest % walk.n_col);
     const int64_t e = rest / walk.n_col;
     return Tile{tokens + e * tok_e_stride, weights + e * static_cast<int64_t>(dm) * f,
-                out + e * static_cast<int64_t>(C) * f, tt * R::kBM, col * kBN};
+                out + e * static_cast<int64_t>(C) * f, tt * R::kBM, col * kBN,
+                static_cast<int>(e)};
   };
 
-  // Start the copies of k-slice `s` into ring slot `slot`: the weight rows
-  // [k0, k0 + BK) of its tile's columns, then the token rows of its tile
-  // over the same k range.
-  auto issue = [&](int64_t s, int slot) {
-    const int64_t tile = s / walk.per_tile;
-    const Tile t = tile_at(tile);
-    const int k0 = static_cast<int>(s - tile * walk.per_tile) * R::kBK;
-    T* ws = ring + static_cast<size_t>(slot) * R::kSlot;
-    T* ts = ws + R::kBK * R::kWS;
-    for (int u = tid; u < R::kBK * kWRowUnits; u += kThreads) {
-      const int r = u / kWRowUnits;
-      const int c = (u - r * kWRowUnits) * kVecElems;
-      const int k = k0 + r, n = t.n0 + c;
-      T* dst = ws + r * R::kWS + c;
-      if (k < dm && n < f) {
-        copy_unit<T, kVec>(dst, t.w + static_cast<int64_t>(k) * f + n);
+  if (warp == kConsumerWarps) {
+    // The producer warp: fill slot i % depth with the block's i-th k-slice
+    // once its consumers have released it. Lane 0 loads the weight slice as
+    // kBoxes TMA boxes (zeros past dm and f); the lanes copy the token slice
+    // in 16-byte cp.async units, zero-filling its rows and columns outside
+    // the tensor. Rows off the 16-byte unit (kVec false) are copied element by
+    // element, synchronously.
+    for (int64_t i = 0; i < count; ++i) {
+      const int slot = static_cast<int>(i % depth);
+      const uint32_t use = static_cast<uint32_t>(i / depth);
+      if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
+      const Tile t = tile_at(walk.tile_of(block, i));
+      const int k0 = static_cast<int>(i % walk.per_tile) * R::kBK;
+      unsigned char* ws = slots + static_cast<size_t>(slot) * R::kSlotBytes;
+      T* ts = reinterpret_cast<T*>(ws + R::kWeightBytes);
+      const int t_cols = max(0, min(R::kBK, dm - k0));  // token row elements inside the tensor
+      if constexpr (kVec) {
+        constexpr int kE = 16 / static_cast<int>(sizeof(T));
+        constexpr int kTU = R::kBK / kE;
+        for (int u = lane; u < R::kBM * kTU; u += 32) {
+          const int r = u / kTU, c = (u - r * kTU) * kE;
+          T* dst = ts + r * R::kTS + c;
+          if (t.m0 + r < C && c < t_cols) {
+            repro::cp_async16(dst, t.tok + (t.m0 + r) * tok_c_stride + k0 + c);
+          } else {
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + slot, R::kWeightBytes);
+          for (int b = 0; b < R::kBoxes; ++b) {
+            tma_load_3d(ws + b * R::kBK * 128, &wmap, t.n0 + b * R::kBoxCols, k0, t.e, full + slot);
+          }
+        } else {
+          mbar_arrive(full + slot);
+        }
+        cp_async_arrive(full + slot);
       } else {
-        zero_unit<T, kVec>(dst);
+        const T zero = repro::from_f32<T>(0.f);
+        const int w_cols = min(kBN, f - t.n0);
+        for (int r = 0; r < R::kBK; ++r) {
+          const T* src = t.w + static_cast<int64_t>(k0 + r) * f + t.n0;
+          for (int c = lane; c < kBN; c += 32) {
+            *reinterpret_cast<T*>(ws + weight_offset<T, MT>(r, c)) =
+                k0 + r < dm && c < w_cols ? src[c] : zero;
+          }
+        }
+        for (int r = 0; r < R::kBM; ++r) {
+          const T* src = t.tok + (t.m0 + r) * tok_c_stride + k0;
+          for (int c = lane; c < R::kBK; c += 32) {
+            ts[r * R::kTS + c] = t.m0 + r < C && c < t_cols ? src[c] : zero;
+          }
+        }
+        mbar_arrive(full + slot);
+        mbar_arrive(full + slot);
       }
     }
-    for (int u = tid; u < R::kBM * kTRowUnits; u += kThreads) {
-      const int r = u / kTRowUnits;
-      const int c = (u - r * kTRowUnits) * kVecElems;
-      const int m = t.m0 + r, k = k0 + c;
-      T* dst = ts + r * R::kTS + c;
-      if (m < C && k < dm) {
-        copy_unit<T, kVec>(dst, t.tok + m * tok_c_stride + k);
-      } else {
-        zero_unit<T, kVec>(dst);
-      }
-    }
-  };
+    return;
+  }
 
   // acc += the token slice @ the weight slice in ring slot `slot`.
   auto multiply = [&](int slot, float* acc) {
-    const T* ws = ring + static_cast<size_t>(slot) * R::kSlot;
-    const T* ts = ws + R::kBK * R::kWS;
+    const unsigned char* ws = slots + static_cast<size_t>(slot) * R::kSlotBytes;
+    const T* ts = reinterpret_cast<const T*>(ws + R::kWeightBytes);
     if constexpr (kTensorCores) {
       const int mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
@@ -250,7 +357,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           uint32_t r[4];
-          ldmatrix_x4_trans(r, ws + (kk + (mi & 1) * 8 + r8) * R::kWS + warp * 32 + h * 16 + (mi >> 1) * 8);
+          ldmatrix_x4_trans(r, ws + weight_offset<T, MT>(kk + (mi & 1) * 8 + r8,
+                                                         warp * 32 + h * 16 + (mi >> 1) * 8));
           b[2 * h][0] = r[0];
           b[2 * h][1] = r[1];
           b[2 * h + 1][0] = r[2];
@@ -269,7 +377,7 @@ __global__ void __launch_bounds__(kThreads)
     } else {
 #pragma unroll 4
       for (int k = 0; k < R::kBK; ++k) {
-        const float wv = repro::to_f32(ws[k * R::kWS + tid]);
+        const float wv = repro::to_f32(*reinterpret_cast<const T*>(ws + weight_offset<T, MT>(k, tid)));
 #pragma unroll
         for (int m = 0; m < R::kBM; ++m) acc[m] = fmaf(repro::to_f32(ts[m * R::kTS + k]), wv, acc[m]);
       }
@@ -282,6 +390,18 @@ __global__ void __launch_bounds__(kThreads)
       if (m < C && n < f) t.o[static_cast<int64_t>(m) * f + n] = repro::from_f32<T>(v);
     };
     if constexpr (kTensorCores) {
+      // columns n and n + 1 of a row as one 4-byte store where both are
+      // inside the tensor and n * 2 bytes is 4-byte aligned (f even)
+      auto put2 = [&](int m, int n, float a, float b) {
+        if (m >= C) return;
+        if (n + 1 < f && (f & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(t.o + static_cast<int64_t>(m) * f + n) =
+              __floats2bfloat162_rn(a, b);
+        } else {
+          put(m, n, a);
+          put(m, n + 1, b);
+        }
+      };
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -289,10 +409,8 @@ __global__ void __launch_bounds__(kThreads)
           const float* d = acc + (mt * 4 + j) * 4;
           const int m = t.m0 + mt * 16 + g;
           const int n = t.n0 + warp * 32 + j * 8 + 2 * tig;
-          put(m, n, d[0]);
-          put(m, n + 1, d[1]);
-          put(m + 8, n, d[2]);
-          put(m + 8, n + 1, d[3]);
+          put2(m, n, d[0], d[1]);
+          put2(m + 8, n, d[2], d[3]);
         }
       }
     } else {
@@ -301,85 +419,82 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  // The end of this block's part [lo, hi) of `tile`'s k-slices.
-  auto finish = [&](int64_t tile, int64_t lo, int64_t hi, float* acc) {
-    const Tile t = tile_at(tile);
-    if (lo == tile * walk.per_tile && hi == (tile + 1) * walk.per_tile) {
-      store(t, acc);  // the whole tile is this block's
-      return;
-    }
-    // Publish the partial (each thread its own accumulators, in the same
-    // place in every part), then count this part in.
-    const int64_t b0 = walk.block_of(tile * walk.per_tile);
-    const int64_t b1 = walk.block_of((tile + 1) * walk.per_tile - 1);
-    float* part = workspace + walk.part_slot(blockIdx.x, tile) * kAcc * kThreads;
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) part[a * kThreads + tid] = acc[a];
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) last_arrival = atomicAdd(&counters[b0], 1) == b1 - b0;
-    __syncthreads();
-    if (!last_arrival) return;
-    __threadfence();
-    // The last arrival: sum the parts in block order and store.
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-    for (int64_t b = b0; b <= b1; ++b) {
-      const float* p = workspace + walk.part_slot(b, tile) * kAcc * kThreads;
-#pragma unroll
-      for (int a = 0; a < kAcc; ++a) acc[a] += __ldcg(p + a * kThreads + tid);
-    }
-    store(t, acc);
-    if (tid == 0) counters[b0] = 0;
-  };
-
   float acc[kAcc];
 #pragma unroll
   for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-
-  // Prologue: the first `depth` k-slices in flight, one commit group per
-  // slot, empty or not, so that group i always holds slice i.
-  for (int s = 0; s < depth; ++s) {
-    if (s < count) issue(first + s, s);
-    repro::cp_async_commit();
-  }
-
-  int64_t lo = first;  // the first slice of the current tile's part
   for (int64_t i = 0; i < count; ++i) {
     const int slot = static_cast<int>(i % depth);
-    repro::cp_async_wait_pending(depth - 1);  // slice i has landed (this thread's part)
-    __syncthreads();                          // ... and every other thread's part
+    mbar_wait(full + slot, static_cast<uint32_t>(i / depth) & 1);  // slice i has landed
     multiply(slot, acc);
-    __syncthreads();  // the slot is free again
-    if (i + depth < count) issue(first + i + depth, slot);
-    repro::cp_async_commit();
-
-    const int64_t s = first + i;
-    const int64_t tile = s / walk.per_tile;
-    if (s + 1 == (tile + 1) * walk.per_tile || i + 1 == count) {
-      finish(tile, lo, s + 1, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);  // this warp is done with the slot
+    if ((i + 1) % walk.per_tile == 0) {        // the tile's last k-slice
+      store(tile_at(walk.tile_of(block, i)), acc);
 #pragma unroll
       for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-      lo = s + 1;
     }
   }
-  repro::cp_async_wait<0>();
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime so that
+// the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The weights [E, dm, f] as a 3-D tensor map of [BK rows, 128-byte] boxes
+// with the 128-byte swizzle; reads past dm or f come back as zeros.
+template <typename T, int MT>
+cudaError_t weight_map(CUtensorMap* map, const void* weights, int E, int dm, int f) {
+  using R = Ring<T, MT>;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(f), static_cast<cuuint64_t>(dm),
+                              static_cast<cuuint64_t>(E)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(f) * sizeof(T),
+                                 static_cast<cuuint64_t>(dm) * f * sizeof(T)};
+  const cuuint32_t box[3] = {R::kBoxCols, R::kBK, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r =
+      encode(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             3, const_cast<void*>(weights), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T, int MT, bool kVec>
-cudaError_t launch(const void* tokens, const void* weights, void* out, void* workspace,
-                   void* counters, int C, int dm, int f, int64_t tok_e_stride,
-                   int64_t tok_c_stride, int depth, int blocks, const Walk& walk,
+cudaError_t launch(const void* tokens, const void* weights, void* out, int E, int C, int dm,
+                   int f, int64_t tok_e_stride, int64_t tok_c_stride, int depth, const Walk& walk,
                    cudaStream_t stream) {
+  CUtensorMap wmap{};
+  if constexpr (kVec) {
+    const cudaError_t err = weight_map<T, MT>(&wmap, weights, E, dm, f);
+    if (err != cudaSuccess) return err;
+  }
   const size_t smem = smem_bytes(static_cast<int>(sizeof(T)), MT, depth);
   auto kernel = gmm_kernel<T, MT, kVec>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(tokens), static_cast<const T*>(weights), static_cast<T*>(out),
-      static_cast<float*>(workspace), static_cast<int*>(counters), C, dm, f, tok_e_stride,
-      tok_c_stride, depth, walk);
+  kernel<<<walk.blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(tokens), static_cast<const T*>(weights), static_cast<T*>(out), C, dm,
+      f, tok_e_stride, tok_c_stride, depth, walk, wmap);
   return cudaGetLastError();
 }
 
@@ -410,30 +525,30 @@ bool valid(int dtype, int mt, int depth) {
 
 }  // namespace
 
-// The persistent grid's walk (moe_gmm.py:walk): `blocks` blocks over
-// `n_slices` k-slices, `per_tile` of them per output tile of n_col column
-// tiles x n_tok token tiles per expert. workspace: 2 x blocks slots of
-// 16 x mt x 128 floats; counters: at least `blocks` ints, all zero (the
-// kernel leaves them zero). dtype: 0 = float32, 1 = bfloat16; mt: 16-row
-// token tiles per tile (1 or 2); vec: 1 if every row and base pointer
-// allows 16-byte copies. Returns the cudaError_t of the launch (0 on
-// success); the caller raises on anything else.
-extern "C" int repro_moe_gmm(const void* tokens, const void* weights, void* out, void* workspace,
-                             void* counters, int C, int dm, int f, long long tok_e_stride,
-                             long long tok_c_stride, int depth, int dtype, int mt, int vec,
-                             int blocks, long long n_slices, long long per_tile, int n_col,
-                             int n_tok, void* stream) {
+// The persistent grid's walk (moe_gmm.py:walk): `blocks` blocks of 160
+// threads over `tiles` output tiles (n_col column tiles x n_tok token tiles
+// per expert) of `per_tile` k-slices each. dtype: 0 = float32, 1 =
+// bfloat16; mt: 16-row token tiles per tile (1 or 2); vec: 1 if every row
+// and base pointer allows 16-byte copies. Returns the cudaError_t of the
+// launch (0 on success); the caller raises on anything else.
+extern "C" int repro_moe_gmm(const void* tokens, const void* weights, void* out, int C, int dm,
+                             int f, long long tok_e_stride, long long tok_c_stride, int depth,
+                             int dtype, int mt, int vec, int blocks, long long tiles,
+                             long long per_tile, int n_col, int n_tok, void* stream) {
   if (!valid(dtype, mt, depth) || C < 1 || dm < 0 || f < 1 || blocks < 1 || per_tile < 1 ||
-      n_slices < blocks || n_col != (f + kBN - 1) / kBN || n_tok != (C + 16 * mt - 1) / (16 * mt) ||
-      n_slices % (per_tile * n_col * n_tok) != 0 || per_tile * (128 / (dtype ? 2 : 4)) < dm) {
+      tiles < blocks || n_col != (f + kBN - 1) / kBN || n_tok != (C + 16 * mt - 1) / (16 * mt) ||
+      tiles % (static_cast<long long>(n_col) * n_tok) != 0 ||
+      per_tile * (128 / (dtype ? 2 : 4)) < dm) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Walk walk{n_slices / blocks, n_slices % blocks, per_tile, n_col, n_tok};
+  const Walk walk{tiles, per_tile, blocks, n_col, n_tok};
+  const int E = static_cast<int>(tiles / (static_cast<long long>(n_col) * n_tok));
+  if (dm == 0) vec = 0;  // no tensor map of an empty matrix: the element-wise path
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&]() -> cudaError_t {
-#define REPRO_LAUNCH(T, MT, VEC)                                                            \
-  launch<T, MT, VEC>(tokens, weights, out, workspace, counters, C, dm, f, tok_e_stride, \
-                     tok_c_stride, depth, blocks, walk, s)
+#define REPRO_LAUNCH(T, MT, VEC)                                                               \
+  launch<T, MT, VEC>(tokens, weights, out, E, C, dm, f, tok_e_stride, tok_c_stride, depth, \
+                     walk, s)
     REPRO_DISPATCH(REPRO_LAUNCH);
 #undef REPRO_LAUNCH
   };

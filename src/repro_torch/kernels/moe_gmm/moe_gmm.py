@@ -19,12 +19,11 @@ number of k-slices in flight, clamped by `kernel_depth` to what one block's
 shared memory holds, to the k-slices of an output tile and to
 `ring.MAX_DEPTH`.
 
-Grid: persistent. `walk` numbers the work in k-slices (expert, column
-tile, token tile, k-slice), k fastest, and gives each of `sm_count x
-blocks_per_sm` blocks an equal contiguous range of them; a tile split
-between blocks is summed by the last of them to arrive (`csrc/moe_gmm.cu`).
-The kernel leaves its arrival counters zero, so they are allocated once
-per device and stream and a call is one launch.
+Grid: persistent. `walk` deals the output tiles (expert, column tile,
+token tile) to the blocks in turn, and each block walks the k-slices of
+its tiles in order and stores each tile whole. `grid_blocks` sizes the
+grid to the card (`sm_count x blocks_per_sm`): the fewest blocks that walk
+the tiles in the fewest tiles a block. A call is one launch.
 
 `gmm` picks its path from the device of the tensors it is given: on CPU
 tensors it runs `gmm_plain`; on CUDA tensors it launches the kernel or
@@ -37,7 +36,7 @@ import dataclasses
 import functools
 import math
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -48,17 +47,17 @@ from repro_torch.core.guard import KernelResourceError
 from repro_torch.kernels import ring
 
 __all__ = ["F_TILE", "Walk", "blocks_per_sm", "gmm", "gmm_at", "gmm_plain",
-           "gmm_spec", "kernel_depth", "n_slices", "reset_counters",
+           "gmm_spec", "grid_blocks", "grid_for", "kernel_depth", "n_slices",
            "slot_bytes", "walk"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gmm.cu"
-F_TILE = 128                   # kBN in the .cu source: columns per block
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+F_TILE = 128                   # kBN in the .cu source: columns per tile
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
 _OCCUPANCY_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-MAX_BLOCKS_PER_SM = 32         # the H100's limit of resident blocks per SM
+ALIGN_SLACK = 1024             # kAlignSlack: aligns the slots, once a block
 
 
 def gmm_spec(c: int, dm: int, f_tile: int, dtype,
@@ -105,10 +104,13 @@ def _slice_rows(itemsize: int) -> int:
 
 
 def slot_bytes(c: int, itemsize: int) -> int:
-    """Shared memory of one ring slot: the [BK, 128] weight slice and the
-    [16 MT, BK] token slice, rows padded by 16 bytes (the .cu's Ring)."""
+    """Shared memory of one ring slot: the [BK, 128] weight slice (16 KiB,
+    swizzled, no pad) and the [16 MT, BK] token slice (rows padded by 16
+    bytes), rounded up to 1024 bytes, and the slot's two 8-byte mbarriers
+    (the .cu's Ring and kBarrierBytes). A block adds `ALIGN_SLACK`."""
     bk, pad = _slice_rows(itemsize), 16 // itemsize
-    return (bk * (F_TILE + pad) + 16 * _token_tiles(c) * (bk + pad)) * itemsize
+    data = (bk * F_TILE + 16 * _token_tiles(c) * (bk + pad)) * itemsize
+    return -(-data // 1024) * 1024 + 16
 
 
 def n_slices(dm: int, itemsize: int) -> int:
@@ -118,63 +120,48 @@ def n_slices(dm: int, itemsize: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Walk:
-    """The persistent grid's walk (`csrc/moe_gmm.cu`): `slices` k-slices,
-    `per_tile` to an output tile, numbered (expert, column tile, token
-    tile, k-slice) with k fastest; block b walks ``range(*self.range(b))``,
-    `slices // blocks` of them, one more for the first `slices % blocks`
-    blocks."""
+    """The persistent grid's walk (`csrc/moe_gmm.cu`): `tiles` output
+    tiles of `per_tile` k-slices each, numbered (expert, column tile, token
+    tile) with the token tile fastest. Block b walks tiles b, b + blocks,
+    b + 2 blocks, ... (so the blocks in flight together read neighbouring
+    tiles of one expert), each tile's k-slices in order, and stores each
+    tile whole: no tile is split between blocks."""
     blocks: int
-    slices: int
+    tiles: int
     per_tile: int
     n_col: int
     n_tok: int
 
-    def start(self, b: int) -> int:
-        base, rem = divmod(self.slices, self.blocks)
-        return b * base + min(b, rem)
+    def tiles_of(self, b: int) -> range:
+        return range(b, self.tiles, self.blocks)
 
-    def range(self, b: int) -> Tuple[int, int]:
-        return self.start(b), self.start(b + 1)
+    @property
+    def slices(self) -> int:
+        return self.tiles * self.per_tile
 
-    def block_of(self, s: int) -> int:
-        """The block whose range holds slice `s`."""
-        base, rem = divmod(self.slices, self.blocks)
-        big = rem * (base + 1)
-        return s // (base + 1) if s < big else rem + (s - big) // base
 
-    def parts(self, tile: int) -> Tuple[int, int]:
-        """(first block, number of blocks) that share output `tile`."""
-        b0 = self.block_of(tile * self.per_tile)
-        return b0, self.block_of((tile + 1) * self.per_tile - 1) - b0 + 1
-
-    def split_tiles(self) -> Dict[int, int]:
-        """{tile: parts} of every tile split between blocks."""
-        out = {}
-        for b in range(self.blocks - 1):
-            tile = self.start(b + 1) // self.per_tile
-            if self.start(b + 1) % self.per_tile:
-                out[tile] = self.parts(tile)[1]
-        return out
-
-    def part_slot(self, b: int, tile: int) -> int:
-        """Block b's workspace slot for its part of `tile`: 2b for the tile
-        its range starts in, 2b + 1 for the one it ends in."""
-        return 2 * b + (0 if tile == self.start(b) // self.per_tile else 1)
+def grid_blocks(tiles: int, capacity: int) -> int:
+    """The grid of a walk over `tiles` output tiles on a card that holds
+    `capacity` blocks at once: the fewest blocks that walk them in the
+    fewest tiles a block, ceil(tiles / capacity) (one tile a block when
+    they fit at once), so that no block walks more tiles than it must and
+    the blocks' shares differ by at most one tile."""
+    per_block = -(-tiles // capacity)
+    return -(-tiles // per_block)
 
 
 def walk(e: int, c: int, dm: int, f: int, itemsize: int,
          blocks: int) -> Walk:
-    """The walk of `blocks` blocks (at most one per k-slice) over
+    """The walk of `blocks` blocks (at most one per tile) over
     [E, C, dm] x [E, dm, f] in 16 MT-row token tiles, 128-column tiles and
     k-slices of 128 bytes a weight row (one, zero-filled, when dm = 0)."""
     per_tile = max(1, n_slices(dm, itemsize))
-    n_col = -(-f // F_TILE)
-    n_tok = -(-c // (16 * _token_tiles(c)))
-    slices = e * n_col * n_tok * per_tile
-    if blocks < 1 or slices < 1:
+    n_col, n_tok = -(-f // F_TILE), -(-c // (16 * _token_tiles(c)))
+    tiles = e * n_col * n_tok
+    if blocks < 1 or tiles < 1:
         raise ValueError(f"need blocks >= 1 and work, got {blocks} blocks "
-                         f"over {slices} k-slices")
-    return Walk(min(blocks, slices), slices, per_tile, n_col, n_tok)
+                         f"over {tiles} tiles")
+    return Walk(min(blocks, tiles), tiles, per_tile, n_col, n_tok)
 
 
 def kernel_depth(depth: int, *, c: int, dm: int, itemsize: int) -> int:
@@ -227,8 +214,7 @@ def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
     `depth` is the number of k-slices in flight per block; None solves it
     from `gmm_spec` through `core.autotune.choose_depth`. Either is clamped
     by `kernel_depth` and recorded as run, for
-    `autotune.last_choice("moe_gmm")`. The grid is `blocks_per_sm` blocks
-    on every SM.
+    `autotune.last_choice("moe_gmm")`. The grid is `grid_for`'s.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
@@ -247,9 +233,7 @@ def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
     if tokens.device.type != "cuda":
         raise ValueError(f"moe_gmm: no kernel for device {tokens.device}")
     _check_cuda(tokens, weights, f_tile)
-    blocks = ring.sm_count(tokens.device) * blocks_per_sm(tokens, weights,
-                                                          depth)
-    return gmm_at(tokens, weights, depth=depth, blocks=blocks)
+    return _launch(tokens, weights, depth, None)
 
 
 def _library() -> ctypes.CDLL:
@@ -269,20 +253,23 @@ def _occupancy(device: int, dtype_code: int, mt: int, vec: bool,
     with torch.cuda.device(device):
         err = lib.repro_moe_gmm_occupancy(dtype_code, mt, int(vec), depth,
                                           ctypes.byref(n))
+    rows = _slice_rows(4 if dtype_code == ring.DTYPE_CODE[torch.float32]
+                       else 2)
     ring.raise_on_error(err, lib, kernel="moe_gmm", depth=depth,
-                        tile=(128 // (4 - 2 * dtype_code), F_TILE))
+                        tile=(rows, F_TILE))
     if n.value < 1:
         raise KernelResourceError(
             f"no block of the kernel fits an SM at depth {depth}",
-            kernel="moe_gmm", depth=depth, tile=(0, F_TILE))
+            kernel="moe_gmm", depth=depth, tile=(rows, F_TILE))
     return n.value
 
 
 def blocks_per_sm(tokens: torch.Tensor, weights: torch.Tensor,
                   depth: int) -> int:
     """The kernel's blocks that fit one SM at once at `depth` (registers,
-    shared memory and threads, from the CUDA occupancy calculator), read
-    once per device and configuration."""
+    shared memory and threads, from the CUDA occupancy calculator: at C 32
+    registers allow fewer blocks than shared memory does), read once per
+    device and configuration."""
     dev = tokens.device
     return _occupancy(dev.index if dev.index is not None
                       else torch.cuda.current_device(),
@@ -291,36 +278,34 @@ def blocks_per_sm(tokens: torch.Tensor, weights: torch.Tensor,
                       _vectorized(tokens, weights), depth)
 
 
-# one set of arrival counters per (device, stream): the kernel leaves them 0
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(device: torch.device, stream: int, blocks: int) -> torch.Tensor:
-    """At least `blocks` zero counters for `stream` (one per SM-resident
-    block, or more for a larger grid)."""
-    key = (device.index, stream)
-    t = _COUNTERS.get(key)
-    if t is None or t.numel() < blocks:
-        n = max(blocks, ring.sm_count(device) * MAX_BLOCKS_PER_SM)
-        t = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
-    return t
-
-
-def reset_counters() -> None:
-    """Set every arrival counter back to 0 (after a failed launch)."""
-    for t in _COUNTERS.values():
-        t.zero_()
+def grid_for(tokens: torch.Tensor, weights: torch.Tensor, depth: int) -> int:
+    """The grid `gmm` launches for these CUDA tensors at `depth`:
+    `grid_blocks` of their output tiles on `sm_count x blocks_per_sm`."""
+    e, c, _ = tokens.shape
+    tiles = e * -(-weights.shape[2] // F_TILE) * -(-c // (16 * _token_tiles(c)))
+    capacity = ring.sm_count(tokens.device) * blocks_per_sm(tokens, weights,
+                                                            depth)
+    return grid_blocks(tiles, capacity)
 
 
 def gmm_at(tokens: torch.Tensor, weights: torch.Tensor, *, depth: int,
            blocks: int) -> torch.Tensor:
     """`gmm` on CUDA tensors with `depth` k-slices in flight per block and
-    a grid of `blocks` blocks (at most one per k-slice; no solve, no
+    a grid of `blocks` blocks (at most one per output tile; no solve, no
     record). The kernel's launch count is `gmm.launches`."""
     _check(tokens, weights)
     if tokens.device.type != "cuda":
         raise ValueError("gmm_at takes CUDA tensors")
     _check_cuda(tokens, weights, F_TILE)
+    if not 1 <= depth <= ring.MAX_DEPTH:
+        raise ValueError(f"depth must be in [1, {ring.MAX_DEPTH}], got {depth}")
+    return _launch(tokens, weights, depth, blocks)
+
+
+def _launch(tokens: torch.Tensor, weights: torch.Tensor, depth: int,
+            blocks: Optional[int]) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors, on a grid of
+    `blocks` blocks (None: `grid_for`'s)."""
     e, c, dm = tokens.shape
     f = weights.shape[2]
     itemsize = tokens.element_size()
@@ -328,27 +313,20 @@ def gmm_at(tokens: torch.Tensor, weights: torch.Tensor, *, depth: int,
     if out.numel() == 0:
         return out
     tile = (_slice_rows(itemsize), F_TILE)
-    if not 1 <= depth <= ring.MAX_DEPTH:
-        raise ValueError(f"depth must be in [1, {ring.MAX_DEPTH}], got {depth}")
-    ring.check_smem(depth * slot_bytes(c, itemsize), kernel="moe_gmm",
-                    depth=depth, tile=tile)
+    ring.check_smem(depth * slot_bytes(c, itemsize) + ALIGN_SLACK,
+                    kernel="moe_gmm", depth=depth, tile=tile)
+    if blocks is None:
+        blocks = grid_for(tokens, weights, depth)
     w = walk(e, c, dm, f, itemsize, blocks)
-    mt = _token_tiles(c)
+    lib = _library()
     with torch.cuda.device(tokens.device):
         stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        counters = _counters(tokens.device, stream, w.blocks)
-        workspace = torch.empty((2 * w.blocks, 16 * mt * F_TILE),
-                                dtype=torch.float32, device=tokens.device)
-        lib = _library()
         err = lib.repro_moe_gmm(
-            tokens.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            workspace.data_ptr(), counters.data_ptr(), c, dm, f,
+            tokens.data_ptr(), weights.data_ptr(), out.data_ptr(), c, dm, f,
             tokens.stride(0), tokens.stride(1), depth,
-            ring.DTYPE_CODE[tokens.dtype], mt,
-            int(_vectorized(tokens, weights)), w.blocks, w.slices,
+            ring.DTYPE_CODE[tokens.dtype], _token_tiles(c),
+            int(_vectorized(tokens, weights)), w.blocks, w.tiles,
             w.per_tile, w.n_col, w.n_tok, stream)
-    if err:
-        reset_counters()
     ring.raise_on_error(err, lib, kernel="moe_gmm", depth=depth, tile=tile)
     gmm.launches += 1
     return out

@@ -3,7 +3,8 @@
 The gather, span-gather, scatter-add and triad kernels share one shape: a
 thread block walks a contiguous range of tiles and keeps `depth` of them in
 flight in a ring of shared-memory slots. This module solves and clamps the
-depth, sizes the grid, picks the copy unit and raises on a failed launch.
+depth, splits the row gather's depth over the blocks of an SM, sizes the
+grid, picks the copy unit and raises on a failed launch.
 """
 from __future__ import annotations
 

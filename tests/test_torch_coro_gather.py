@@ -249,3 +249,57 @@ def test_copy_unit_and_ring_bytes(dtype, d, offset, unit):
     row_bytes = d * t.element_size()
     assert ring.copy_unit(row_bytes, (t,)) == unit
     assert ring.ring_bytes(row_bytes, unit) == row_bytes * max(1, 4 // unit)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 4, 5, 8, 14, 28, 32, 56, 64])
+@pytest.mark.parametrize("slot_bytes", [64, 4096, 8192, 16384, 65536])
+def test_split_depth_respects_the_sm(depth, slot_bytes):
+    """The per-SM split of a clamped depth: blocks that fit one SM's threads
+    and shared memory with the runtime's reservation per block, at least 2
+    slots a block (one block below depth 4), ceil(depth / blocks) slots,
+    and no larger block count that would also fit."""
+    depth = ring.kernel_depth(depth, slot_bytes=slot_bytes, n_tiles=10 ** 6)
+    blocks, slots = ring.split_depth(depth, slot_bytes=slot_bytes,
+                                     threads=cg.THREADS)
+
+    def fits(k):
+        s = -(-depth // k)
+        return k * (s * slot_bytes + ring.SMEM_RESERVED) <= ring.SM_SMEM
+
+    assert slots == -(-depth // blocks) and blocks * slots >= depth
+    assert blocks * cg.THREADS <= ring.MAX_THREADS_PER_SM
+    assert fits(blocks) and 1 <= slots <= ring.MAX_DEPTH
+    assert slots >= 2 or depth < 2
+    most = min(ring.MAX_THREADS_PER_SM // cg.THREADS, max(1, depth // 2))
+    assert not any(fits(k) for k in range(blocks + 1, most + 1))
+
+
+def test_gups_shape_splits_into_four_blocks_of_fourteen():
+    """The GUPS path's row gather (512 B rows, 8 a tile: 4 KiB slots) solves
+    depth 56 on the h100 profile and runs it as 4 blocks of 14 slots."""
+    _same_machine()
+    table = torch.zeros(64, 128)
+    spec = cg.row_gather_spec(8, 128, torch.float32)
+    solved = autotune.choose_depth(spec.profile(), vars=spec.all_vars())
+    depth = ring.kernel_depth(solved, slot_bytes=4096, n_tiles=1 << 19)
+    assert depth == 56
+    assert cg.row_gather_split(depth, table) == (4, 14)
+
+
+@pytest.mark.parametrize("n_rows,d,n_idx,dtype", [
+    (512, 128, 256, "float32"), (2048, 256, 512, "float32"),
+    (256, 64, 40, "float32"), (128, 8, 24, "bfloat16"), (64, 5, 16, "int32")])
+def test_recorded_depth_is_the_split_of_the_reference_choice(n_rows, d, n_idx,
+                                                             dtype):
+    """A depth=None call records blocks x slots of the reference's choice
+    passed through the port's split (`row_gather_split`, the wrapper's own
+    function); at the reference test's shapes that is the choice itself."""
+    _same_machine()
+    rng = np.random.RandomState(1)
+    ref_t, t = _pair((rng.randn(n_rows, d) * 10).astype(np.float32), dtype)
+    idx = rng.randint(0, n_rows, n_idx).astype(np.int32)
+    coro_gather(t, idx)
+    ref_coro_gather(ref_t, jnp.asarray(idx))
+    blocks, slots = cg.row_gather_split(ref_autotune.last_choice("row_gather"),
+                                        t)
+    assert autotune.last_choice("row_gather") == blocks * slots

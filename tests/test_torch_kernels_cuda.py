@@ -272,6 +272,56 @@ def test_gmm_matches_plain(cuda_device, dtype, e, c, dm, f, shared):
     assert launch_counts()["moe_gmm"] == 4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,dm,f,shared,blocks", [
+    (1, 5, 2048, 384, True, 2),      # three tiles over 2 blocks
+    (3, 5, 2048, 128, True, 2),      # ... over 2 blocks, one per expert
+    (2, 5, 64, 32, False, 1000),     # fewer tiles than blocks
+    (1, 16, 512, 256, False, 5),     # one expert, C 16
+    (3, 5, 200, 136, True, 7),       # ragged f and dm
+    (3, 17, 256, 136, True, 4),      # C 17: two token tiles of 16
+    (4, 32, 256, 384, False, 9),     # C 32: one token tile of 32
+    (4, 5, 768, 512, False, None),   # the grid the wrapper picks
+])
+def test_gmm_persistent_walk(cuda_device, dtype, e, c, dm, f, shared, blocks):
+    """Whole tiles dealt to a given grid in turn, some blocks walking one
+    tile more than others: two calls in a row on one stream (different
+    inputs) both agree with the plain version, and the same call twice
+    gives the same bits."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    for seed in (0, 1):
+        tokens, w = _gmm_problem(cuda_device, dtype, e, c, dm, f,
+                                 shared=shared, seed=seed)
+        run = (lambda: mg.gmm(tokens, w)) if blocks is None else \
+            (lambda: mg.gmm_at(tokens, w, depth=2, blocks=blocks))
+        out = run()
+        again = run()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), mg.gmm_plain(tokens, w).float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        assert torch.equal(out, again)
+    assert launch_counts()["moe_gmm"] == 4
+
+
+def test_gmm_grid_fills_every_sm(cuda_device):
+    """At qwen3-moe's gate/up shape the wrapper's grid walks two tiles a
+    block (768 tiles, fewer than two waves of what fits the card at once),
+    at least half of what fits, and its blocks hold at least 48 KiB of
+    weight slices an SM in flight."""
+    from repro_torch.kernels import ring
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    tokens, w = _gmm_problem(cuda_device, torch.bfloat16, 128, 5, 2048, 768,
+                             shared=True)
+    per_sm = mg.blocks_per_sm(tokens, w, 2)
+    sm = ring.sm_count(cuda_device)
+    grid = mg.grid_for(tokens, w, 2)
+    assert per_sm >= 2 and sm * per_sm >= grid >= sm * per_sm / 2
+    assert grid == mg.grid_blocks(768, sm * per_sm)
+    assert grid * 2 * 64 * 128 * 2 >= sm * 48 * 1024
+
+
 def test_moe_layer_runs_the_kernel(cuda_device):
     """A reduced MoE layer on the card: three grouped matmuls launch, and
     the layer agrees with the same layer on the CPU."""
@@ -341,6 +391,21 @@ def test_row_gather_bitwise(cuda_device, dtype, rows, d, rows_per_tile):
         out = cg.row_gather(tab, idx, depth=depth, rows_per_tile=rows_per_tile)
         assert torch.equal(out, cg.row_gather_plain(tab, idx))
     assert launch_counts()["row_gather"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("split", [None, (4, 14), (6, 9), (8, 6), (12, 4),
+                                   (1, 56)])
+def test_row_gather_per_sm_splits_bitwise(cuda_device, dtype, split):
+    """The row gather at the solved per-SM split and at the splits the
+    chip_smoke sweep times (blocks per SM x slots), over 2^15 ids of a
+    4096-row table: bitwise."""
+    tab = _table(cuda_device, 4096, 128, dtype)
+    idx = _ints(cuda_device, 4096, 1 << 15)
+    out = cg.row_gather(tab, idx) if split is None else cg.row_gather_at(
+        tab, idx, blocks_per_sm=split[0], slots=split[1])
+    assert torch.equal(out, cg.row_gather_plain(tab, idx))
+    assert launch_counts()["row_gather"] == 1
 
 
 def test_deep_ring_bitwise(cuda_device):

@@ -261,12 +261,128 @@ def test_kernel_depth_clamps_to_shared_memory_slices_and_max(depth, c, dm,
 
 def test_slot_bytes_follow_the_kernel_source():
     """The ring geometry the host clamps with is the one the .cu lays out:
-    [BK, 128 + pad] weights and [16 MT, BK + pad] tokens, 16-byte pads."""
+    [BK, 128] weights (swizzled TMA boxes, no pad) and [16 MT, BK + pad]
+    tokens (16-byte pads) rounded up to 1024 bytes, a full and an empty
+    mbarrier of 8 bytes each per slot, and 1024 bytes a block to align."""
     src = Path(mg.SOURCE).read_text()
     assert '#include "../../csrc/coro_ring.cuh"' in src
     assert "constexpr int kBN = 128;" in src and mg.F_TILE == 128
-    assert mg.slot_bytes(5, 2) == (64 * 136 + 16 * 72) * 2
-    assert mg.slot_bytes(32, 2) == (64 * 136 + 32 * 72) * 2
-    assert mg.slot_bytes(5, 4) == (32 * 132 + 16 * 36) * 4
+    assert "constexpr int kBarrierBytes = 16;" in src
+    assert "constexpr int kAlignSlack = 1024;" in src and mg.ALIGN_SLACK == 1024
+    assert mg.slot_bytes(5, 2) == 19 * 1024 + 16       # 16384 + 16 * 72 * 2
+    assert mg.slot_bytes(32, 2) == 21 * 1024 + 16      # 16384 + 32 * 72 * 2
+    assert mg.slot_bytes(5, 4) == 19 * 1024 + 16       # 16384 + 16 * 36 * 4
     assert mg.n_slices(2048, 2) == 32 and mg.n_slices(768, 4) == 24
     assert mg.n_slices(65, 2) == 2
+
+
+# The persistent walk (moe_gmm.walk) and an emulation of the kernel's
+# arithmetic along it. On the card the kernel walks exactly these tiles.
+WALK_SHAPES = [  # E, C, dm, f, itemsize
+    (128, 5, 2048, 768, 2),          # qwen3-moe decode, gate / up
+    (128, 5, 768, 2048, 2),          # ... down
+    (128, 32, 2048, 768, 2),         # ... prefill chunk, gate / up
+    (128, 32, 768, 2048, 2),         # ... prefill chunk, down
+    (32, 5, 1024, 512, 2),           # granite-moe decode
+    (1, 5, 2048, 128, 2),            # one expert, one tile
+    (3, 5, 200, 136, 4),             # ragged f and dm, f32
+    (2, 33, 64, 32, 4),              # two token tiles
+]
+
+
+@pytest.mark.parametrize("e,c,dm,f,itemsize", WALK_SHAPES)
+@pytest.mark.parametrize("blocks", [1, 2, 3, 7, 132 * 3, 132 * 5, 10 ** 6])
+def test_walk_covers_every_slice_once(e, c, dm, f, itemsize, blocks):
+    """Every (expert, column tile, token tile, k-slice) exactly once: each
+    output tile walked whole by one block, in shares of tiles differing by
+    at most one, dealt in turn so that blocks in flight together read
+    neighbouring tiles."""
+    w = mg.walk(e, c, dm, f, itemsize, blocks)
+    n_tok = -(-c // (16 if c <= 16 else 32))
+    assert w.tiles == e * -(-f // 128) * n_tok
+    assert w.per_tile == mg.n_slices(dm, itemsize)
+    assert w.slices == w.tiles * w.per_tile
+    assert w.blocks == min(blocks, w.tiles)
+    walked = [t for b in range(w.blocks) for t in w.tiles_of(b)]
+    assert sorted(walked) == list(range(w.tiles))     # each tile once
+    shares = {len(w.tiles_of(b)) for b in range(w.blocks)}
+    assert max(shares) - min(shares) <= 1 and min(shares) >= 1
+    assert [w.tiles_of(b)[0] for b in range(w.blocks)] == list(range(w.blocks))
+
+
+def _emulate_walk(tokens, weights, blocks):
+    """The kernel's arithmetic on the CPU: each block sums the k-slices of
+    every tile it walks in order, in f32, and stores the tile."""
+    e, c, dm = tokens.shape
+    f = weights.shape[2]
+    itemsize = tokens.element_size()
+    w = mg.walk(e, c, dm, f, itemsize, blocks)
+    bk, bm = 128 // itemsize, 16 * (1 if c <= 16 else 2)
+    out = torch.full((e, c, f), float("nan"))
+    for b in range(w.blocks):
+        for tile in w.tiles_of(b):
+            tt = tile % w.n_tok
+            col = (tile // w.n_tok) % w.n_col
+            x, m0, n0 = tile // (w.n_tok * w.n_col), tt * bm, col * mg.F_TILE
+            acc = torch.zeros(min(bm, c - m0), min(mg.F_TILE, f - n0))
+            for k in range(w.per_tile):
+                k_lo, k_hi = k * bk, min(dm, (k + 1) * bk)
+                acc = acc + tokens[x, m0:m0 + bm, k_lo:k_hi].float() @ \
+                    weights[x, k_lo:k_hi, n0:n0 + mg.F_TILE].float()
+            out[x, m0:m0 + bm, n0:n0 + mg.F_TILE] = acc
+    return out.to(tokens.dtype)
+
+
+@pytest.mark.parametrize("tiles,capacity,want", [
+    (768, 660, 384),                 # qwen3-moe gate/up at 5 blocks an SM
+    (2048, 660, 512),                # ... down
+    (768, 528, 384),                 # ... prefill, 4 an SM
+    (2048, 528, 512),
+    (128, 660, 128),                 # granite-moe: one tile a block
+    (769, 660, 385),                 # 2 tiles a block, one block 1
+    (2 * 655, 660, 655),             # two tiles a block, 5 blocks short
+])
+def test_grid_is_whole_tiles_a_block_where_it_fills_the_card(tiles, capacity,
+                                                             want):
+    """The fewest blocks that walk `tiles` in the fewest tiles a block the
+    card's `capacity` allows: ceil(tiles / capacity) for the busiest."""
+    got = mg.grid_blocks(tiles, capacity)
+    assert got == want and got <= capacity
+    most = -(-tiles // capacity)
+    w = mg.walk(tiles, 5, 2048, 128, 2, got)         # one tile per expert
+    assert max(len(w.tiles_of(b)) for b in range(w.blocks)) == most
+    assert got == 1 or -(-tiles // (got - 1)) > most  # no fewer blocks do
+
+
+@pytest.mark.parametrize("e,c,dm,f,blocks", [
+    (4, 8, 256, 256, 4),             # two tiles a block
+    (2, 8, 256, 256, 3),             # the reference test's f tile: 8 slices
+    (2, 8, 256, 256, 5),             # one block per tile
+    (1, 5, 512, 128, 7),             # one expert, one tile
+    (3, 5, 200, 136, 4),             # ragged dm and f
+    (2, 33, 96, 128, 100),           # two token tiles, more blocks than tiles
+])
+def test_walk_emulation_matches_plain_and_reference(e, c, dm, f, blocks):
+    """The walk's arithmetic, emulated on the CPU, gives `gmm_plain`'s and
+    the reference's results within GMM_TOL (the Pallas kernel in interpret
+    mode where f is a whole number of tiles, else its einsum oracle), and
+    writes every output element."""
+    rng = np.random.RandomState(e * 100 + c)
+    t = rng.randn(e, c, dm).astype(np.float32)
+    w = rng.randn(e, dm, f).astype(np.float32)
+    got = _emulate_walk(_t(t), _t(w), blocks)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), mg.gmm_plain(_t(t), _t(w)).numpy(),
+                               rtol=GMM_TOL, atol=GMM_TOL)
+    if f % 128 == 0:
+        want = ref_moe_gmm(jnp.asarray(t), jnp.asarray(w), f_tile=128)
+    else:
+        want = gmm_ref(jnp.asarray(t), jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=GMM_TOL,
+                               atol=GMM_TOL)
+
+
+def test_walk_rejects_empty_work():
+    with pytest.raises(ValueError):
+        mg.walk(2, 5, 64, 32, 2, 0)
+    assert mg.walk(2, 5, 0, 32, 2, 8).per_tile == 1   # dm = 0: one zero slice
