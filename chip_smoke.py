@@ -35,7 +35,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      stream_unit and hj_mixed streams (all bitwise); the scatter-add with
      duplicates through its op in f32 (2e-3) and bf16 (3e-2), and the
      kernel on deduplicated rows (bitwise, 16- and 2-byte units); the triad
-     in f32 (1e-5) and bf16 (2e-2);
+     in f32 (bitwise) and bf16 (2e-2) on 16-byte items, 4- and 2-byte
+     units and 16-byte items at an address off 16 bytes, at depths 1, 2
+     and solved, then at given plans in both store forms (items smaller
+     than the caller's tile, fewer caller tiles than blocks, a last block
+     with fewer items than the others);
   3c. the dense engine's kernels against their plain versions: dense
      flash-decode at the five head shapes above over a cache of 1056 rows
      (off the 128-row tile), pos 0, mid and last, f32 (2e-4) and bf16
@@ -44,8 +48,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      in the first split, at split boundaries +-1 and past S; the SSD scan at mamba2-130m's (nh 24,
      p 64, n 128, chunk 256), hymba-1.5b's (nh 50, p 64, n 16) and a
      reduced shape (chunk 16), x/B/C in f32 and in bf16 beside f32 dt,
-     depths 1, 2 and solved, and a strong decay (dt 8, A -1), at 2e-3 +
-     2e-3 x |value| (f32) and 3e-2 + 3e-2 x |value| (bf16 y);
+     depths 1, 2 and solved; then its chunk-parallel cases (1, 2 and 8
+     kernel chunks, s 4096, s off the chunk, 50 and 8 heads in groups of
+     6, one group of every head, one head a group) with dt in f32 and bf16;
+     and a strong decay (dt 8, A -1), at 2e-3 + 2e-3 x |value| (f32) and
+     3e-2 + 3e-2 x |value| (bf16 y);
   4. a reduced yi-6b engine, and (4b) a reduced granite-moe engine, in f32
      on the card against the same engine on the CPU (same parameters, same
      prompts, round width pinned): the greedy tokens must be identical;
@@ -83,9 +90,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      weights from seed 0, batch 8, prompts of 2048 tokens (8 chunks of
      256), 32 new tokens: the SSD scan 24 times (once per layer of the
      prefill) and nothing else; then (6c) SSD-scan times at that prefill
-     shape: kernel and plain version (no PyTorch call computes the scan);
-     bound: the larger of the bytes in and out over 3.35 TB/s and the
-     reference spec's flops over the 67 TFLOP/s f32 peak;
+     shape in bf16 (with a head-group x depth sweep) and in f32: kernel,
+     the time of each of its three launches (torch.profiler) and plain
+     version (no PyTorch call computes the scan); bound: the larger of the
+     bytes in and out over 3.35 TB/s and the reference spec's flops over
+     the peak of the kernel's products (989 TFLOP/s bf16 tensor cores, 67
+     TFLOP/s f32);
   5b. the MoE path: `serve_paged` for qwen3-moe-30b-a3b at full width
      (48 layers, 128 experts, 61.1 GB of bf16 weights), the same traffic
      as phase 5, after yi-6b is freed. Every request must finish, the
@@ -119,7 +129,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
      then the same kernels at other depths (tiles in flight per block;
      the row gather's per SM, and at 4x14, 6x9, 8x6 and 12x4 blocks an SM x
-     slots), the triad at other tile heights and the grouped matmul at
+     slots), the triad at item sizes x items a block x both store forms
+     (with the blocks an SM that fit) and at other tile heights and
+     depths, and the grouped matmul at
      qwen3-moe's decode shape at other depths (k-slices in flight per
      block) and at other blocks per SM, each time beside its bound; last, the span gather with its ring wait inlined (the source)
      against a copy built with the shared header's called wait, in turns;
@@ -135,10 +147,16 @@ runs only the host-time measurement of phase 6b, on random weights of the
 same shapes, against the package of the checkout the script sits in (copy
 the script into another checkout to measure that one), and prints one
 JSON line.
+
+    python3 chip_smoke.py --ssd-time
+
+likewise times only the SSD scan (K4) at phase 6c's shape in bf16 and f32
+(each checked against its plain version) and prints one JSON line.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -165,6 +183,13 @@ SERVE = dict(batch=8, prompt_len=256, gen=32, block_size=16)
 # 512 B rows) and the STREAM triad arrays (each over 4x the caches).
 GUPS = dict(rows=1 << 24, d=128, n=1 << 22, triad_rows=1 << 21, scalar=3.0)
 TRIAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# K7 at given plans in phase 3 (n, d, rows, item rows, items a block)
+TRIAD_PLANS = ((4096, 128, 128, 8, 1), (4096, 128, 128, 32, 3),
+               (256, 128, 128, 8, 2), (301 * 16, 64, 16, 16, 2),
+               (301 * 16, 64, 16, 16, 4), (1 << 16, 128, 128, 32, 6))
+# K7's sweep in phase 9 (item rows, items a block)
+TRIAD_SWEEP = ((2, 1), (4, 1), (8, 1), (16, 1), (32, 1), (2, 2), (8, 2),
+               (2, 4), (8, 4), (32, 4))
 GUPS_KERNELS = (   # name, CUDA source, TPU kernel it replaces
     ("row_gather", "coro_gather/csrc/coro_gather.cu",
      "coro_gather/coro_gather.py:56"),
@@ -881,6 +906,35 @@ def gmm_host_times(torch) -> dict:
     return out
 
 
+def ssd_times(torch) -> dict:
+    """K4 (`ssd_scan`, this checkout's package) at phase 6c's shape (b 8,
+    s 2048, nh 24, p 64, n 128, chunk 256; x/B/C slices of one joint
+    projection, dt f32) in bf16 and f32: device ms a call (`median_ms`,
+    two operand sets alternating, twice in turns) and the largest error
+    against the plain version."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    out = {}
+    for dtype_name in ("bfloat16", "float32"):
+        sets = [ssd_operands(torch, gen, 8, 2048, 24, 64, 128,
+                             dtype=getattr(torch, dtype_name))
+                for _ in range(2)]
+        y, h = ss.ssd_scan(*sets[0], chunk=256)
+        ry, rh = ss.ssd_scan_plain(*sets[0], chunk=256)
+        err = _close(f"ssd_scan {dtype_name} y", y, ry, TOL[dtype_name])
+        err = max(err, _close(f"ssd_scan {dtype_name} h_final", h, rh,
+                              TOL["float32"]))
+        del y, h, ry, rh
+        times = [median_ms(torch, lambda *a: ss.ssd_scan(*a, chunk=256),
+                           sets) for _ in range(2)]
+        out[dtype_name] = {"ms": statistics.median(times), "runs": times,
+                           "max_abs_err": err}
+        del sets
+    return out
+
+
 def round_floor_ms(cfg, params) -> float:
     """A decode round reads every weight once, but of the embedding table
     only the round's rows: the rest of the parameter bytes over 3.35 TB/s."""
@@ -899,6 +953,19 @@ SSD_SHAPES = (   # name, batch, seq, nh, p, n, chunk
     ("mamba2-130m", 2, 512, 24, 64, 128, 256),
     ("hymba-1.5b", 2, 512, 50, 64, 16, 256),
     ("reduced", 2, 64, 8, 16, 16, 16),
+)
+# K4's chunk-parallel cases (name, batch, seq, nh, p, n, head group): 1, 2
+# and 8 kernel chunks (128 rows in bf16) and s 4096, s off the chunk, head
+# counts off the group
+SSD_CHUNK_CASES = (
+    ("1 chunk", 2, 128, 24, 64, 128, 6),
+    ("2 chunks", 2, 256, 24, 64, 128, 6),
+    ("8 chunks", 2, 1024, 24, 64, 128, 6),
+    ("s 4096", 2, 4096, 24, 64, 128, 6),
+    ("s off the chunk, hymba's heads", 2, 208, 50, 64, 16, 6),
+    ("8 heads in groups of 6 and 2", 2, 192, 8, 16, 32, 6),
+    ("every head one group", 2, 256, 24, 64, 128, 24),
+    ("one head a group", 2, 256, 24, 64, 128, 1),
 )
 
 
@@ -981,6 +1048,22 @@ def check_dense_parity(torch) -> None:
                        f"depth={depth} (ran {ran})")
                 _close(tag + " y", y, ry, TOL[dtype_name])
                 _close(tag + " h_final", h, rh, TOL["float32"])
+    for name, b, s, nh, p, n, group in SSD_CHUNK_CASES:
+        for dtype_name, dt_name in (("float32", "float32"),
+                                    ("bfloat16", "float32"),
+                                    ("bfloat16", "bfloat16")):
+            args = list(ssd_operands(torch, gen, b, s, nh, p, n,
+                                     dtype=getattr(torch, dtype_name)))
+            args[1] = args[1].to(getattr(torch, dt_name))
+            ry, rh = ss.ssd_scan_plain(*args, chunk=16)
+            run = ss.plan(b, s, nh, p, n, args[0].element_size(), 2, group)
+            y, h = ss.ssd_scan_at(*args, chunk=16, depth=2, group=group)
+            tag = (f"ssd_scan {name} [b={b},s={s},nh={nh},p={p},n={n}] "
+                   f"x/B/C {dtype_name} dt {dt_name}: {run.chunks} chunks "
+                   f"of {run.chunk}, {run.groups} groups of {run.group} "
+                   f"heads")
+            _close(tag + " y", y, ry, TOL[dtype_name])
+            _close(tag + " h_final", h, rh, TOL["float32"])
     args = ssd_operands(torch, gen, 2, 64, 4, 16, 16, dtype=torch.float32,
                         strong=True)
     ry, rh = ss.ssd_scan_plain(*args, chunk=16)
@@ -1188,14 +1271,32 @@ def time_flash_decode(torch, cfg, b, sweep=False):
             "bound_by": bound_by, "splits": n_split, "shape": shape}
 
 
-def time_ssd_scan(torch, cfg):
+def launch_ms(torch, fn, calls=10) -> dict:
+    """Device time of each kernel one call of `fn` launches (torch.profiler
+    over `calls` calls, per call), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.findall(r"(\w+)(?=[<(])", e.key)[0]:
+            e.device_time_total / calls / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
     """K4 at the dense mamba2-130m prefill shape (b 8, s 2048, nh 24, p 64,
-    n 128, chunk 256; x/B/C bf16 slices of one joint projection, dt f32),
-    two operand sets alternating: the kernel and its plain version. No
-    single PyTorch call computes the SSD scan, so there is no library
-    time. The bound is the larger of the bytes in and out over 3.35 TB/s
-    and the reference spec's flops (flops_per_tile x chunks) over the
-    67 TFLOP/s f32 peak (the kernel's arithmetic is f32 SIMT)."""
+    n 128, chunk 256; x/B/C slices of one joint projection in `dtype_name`,
+    dt f32), two operand sets alternating: the kernel (and each of its
+    launches) and its plain version. No single PyTorch call computes the
+    SSD scan, so there is no library time. The bound is the larger of the
+    bytes in and out over 3.35 TB/s and the reference spec's flops
+    (flops_per_tile x chunks) over the peak of the kernel's products: bf16
+    tensor cores (989 TFLOP/s), f32 CUDA cores (67 TFLOP/s). `sweep` adds
+    head groups x depths."""
     from repro_torch.core import autotune
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.models.ssm import ssm_dims
@@ -1204,17 +1305,18 @@ def time_ssd_scan(torch, cfg):
     dims = ssm_dims(cfg)
     b, s, chunk = kw["batch"], kw["prompt_len"], cfg.ssm_chunk
     nh, p, n = dims["nh"], dims["p"], dims["n"]
+    dtype = getattr(torch, dtype_name)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    sets = [ssd_operands(torch, gen, b, s, nh, p, n, dtype=torch.bfloat16)
+    sets = [ssd_operands(torch, gen, b, s, nh, p, n, dtype=dtype)
             for _ in range(2)]
     y, h = ss.ssd_scan(*sets[0], chunk=chunk)
     depth = autotune.last_choice("ssd_scan")
     ry, rh = ss.ssd_scan_plain(*sets[0], chunk=chunk)
-    err = _close(f"ssd_scan at the dense path's shape (depth {depth}) y", y,
-                 ry, TOL["bfloat16"])
-    err = max(err, _close("ssd_scan at the dense path's shape h_final", h,
-                          rh, TOL["float32"]))
+    err = _close(f"ssd_scan at the dense path's shape, {dtype_name} (depth "
+                 f"{depth}) y", y, ry, TOL[dtype_name])
+    err = max(err, _close(f"ssd_scan at the dense path's shape, "
+                          f"{dtype_name} h_final", h, rh, TOL["float32"]))
     del y, h, ry, rh
 
     def kernel(*a):
@@ -1227,25 +1329,38 @@ def time_ssd_scan(torch, cfg):
     plain_ms = median_ms(torch, plain, sets)
     kernel_b = median_ms(torch, kernel, sets)
     ms = statistics.median([kernel_a, kernel_b])
-    nbytes = (2 * b * s * nh * p * 2          # x in, y out (bf16)
-              + 2 * b * s * n * 2             # B, C
+    per_launch = launch_ms(torch, lambda: kernel(*sets[0]))
+    isz = dtype.itemsize
+    nbytes = (2 * b * s * nh * p * isz        # x in, y out
+              + 2 * b * s * n * isz           # B, C
               + b * s * nh * 4 + nh * 4       # dt, A (f32)
               + b * nh * p * n * 4)           # h_final out (f32)
-    spec = ss.ssd_spec(chunk, nh, p, n, torch.bfloat16, seq_len=s)
+    spec = ss.ssd_spec(chunk, nh, p, n, dtype, seq_len=s)
     flops = spec.flops_per_tile * b * (s // chunk)
-    bytes_s, ops_s = nbytes / HBM_BW, flops / F32_PEAK
+    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK[dtype_name]
     bound_ms = max(bytes_s, ops_s) * 1e3
     bound_by = "bytes" if bytes_s >= ops_s else "operations"
+    run = ss.plan(b, s, nh, p, n, isz, depth)
     shape = {"b": b, "s": s, "nh": nh, "p": p, "n": n, "chunk": chunk,
-             "kernel_tile": ss.KQ, "dtype": "bfloat16", "dt": "float32",
-             "depth": depth}
+             "dtype": dtype_name, "dt": "float32", **run._asdict()}
     log(f"times ssd_scan {json.dumps(shape)}: kernel "
-        f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, no "
-        f"library call, bound {bound_ms:.5f} ms ({bound_by}, {nbytes} B, "
-        f"{flops:.4g} flop), {bound_ms / ms:.1%} of the bound")
+        f"{kernel_a:.4f}/{kernel_b:.4f} ms ({json.dumps(per_launch)}), "
+        f"plain {plain_ms:.4f} ms, no library call, bound {bound_ms:.5f} ms "
+        f"({bound_by}, {nbytes} B, {flops:.4g} flop), "
+        f"{bound_ms / ms:.1%} of the bound")
+    if sweep:
+        swept = {}
+        for group in (2, 3, 4, 6, 8, 12, 24):
+            for k in (1, 2):
+                t = median_ms(torch, lambda *a, g=group, k=k: ss.ssd_scan_at(
+                    *a, chunk=chunk, depth=k, group=g), sets)
+                swept[f"group {group} depth {k}"] = t
+                log(f"sweep ssd_scan {dtype_name} group={group} depth={k}: "
+                    f"{t:.4f} ms, {bound_ms / t:.1%} of the bound")
+        log("sweep: " + json.dumps(swept))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": shape}
+            "launch_ms": per_launch, "shape": shape}
 
 
 # ----------------------------------------------- phase 3 (GUPS-path kernels)
@@ -1367,17 +1482,41 @@ def check_gups_parity(torch) -> None:
                        sa.scatter_add_unique_plain(tab_d.clone(), uniq,
                                                    summed))
 
+    # the triad: f32 bitwise, bf16 at 2e-2; 16-byte items, 4-byte units
+    # (64x3 f32, both bf16 shapes: 12-byte items), 2-byte units (63x3 bf16:
+    # 6-byte items) and 16-byte items at an address 132 bytes in (4-byte
+    # units); then given plans, both store forms: items smaller than the
+    # caller's tile, fewer caller tiles than blocks, a last block with fewer
+    # items than the others
+    def triad_check(tag, dtype, got, want):
+        if dtype == torch.float32:
+            _equal(tag, got, want)
+        else:
+            _close(tag, got, want, TRIAD_TOL["bfloat16"])
+
     for dtype in (torch.float32, torch.bfloat16):
-        tol = TRIAD_TOL[str(dtype).split(".")[1]]
         for n, d, rows in ((4096, 128, 128), (640, 96, 64), (64, 3, 2),
-                           (63, 3, 1)):
+                           (63, 3, 1), (257, 33, 16)):
+            b = table(n, d, dtype)
+            c = table(n, d, dtype)
+            if n % rows:                          # a view one row in
+                b, c = b[1:], c[1:]
+            want = sc.triad_plain(b, c, 2.5)
+            for depth in (1, 2, None):
+                triad_check(f"triad {dtype} {tuple(b.shape)} rows={rows} "
+                            f"depth={depth}", dtype,
+                            sc.triad(b, c, 2.5, rows=rows, depth=depth),
+                            want)
+        for n, d, rows, item, slots in TRIAD_PLANS:
             b = table(n, d, dtype)
             c = table(n, d, dtype)
             want = sc.triad_plain(b, c, 2.5)
-            for depth in (1, 2, None):
-                _close(f"triad {dtype} {n}x{d} rows={rows} depth={depth}",
-                       sc.triad(b, c, 2.5, rows=rows, depth=depth), want,
-                       tol)
+            for store in sc.STORES:
+                triad_check(f"triad {dtype} {n}x{d} rows={rows}: "
+                            f"{n // item} items of {item} rows, {slots} a "
+                            f"block, {store} store", dtype,
+                            sc.triad_at(b, c, 2.5, rows=rows, item_rows=item,
+                                        slots=slots, store=store), want)
     torch.cuda.synchronize()
 
 
@@ -1564,7 +1703,9 @@ def time_gups_kernels(torch, st, gmm_case):
             plain=lambda: sc.triad_plain(b, c, s),
             library=(lambda x, y: torch.add(x, y, alpha=s), (b, c)),
             bound=_bound_ms(3 * nt * 4, 2 * nt),
-            shape={"N": b.shape[0], "d": d, "rows": 128, "dtype": "float32"}),
+            shape={"N": b.shape[0], "d": d, "rows": 128, "dtype": "float32",
+                   **sc.plan(*b.shape, 4, 128, depths["stream_triad"])
+                   ._asdict(), "store": sc.STORE}),
     }
     out = {}
     for name, case in cases.items():
@@ -1614,10 +1755,16 @@ def time_gups_kernels(torch, st, gmm_case):
     sweep += [("scatter_add", f"depth={k}",
                lambda k=k: sa.scatter_add_unique(work, uniq, summed, depth=k))
               for k in (4, 8, 16, 28)]
-    sweep += [("stream_triad", f"rows={r} depth={k}",
+    sweep += [("stream_triad", f"items of {r} rows ({r * row_bytes} B an "
+               f"array), {k} a block ({sc.resident_blocks(r * row_bytes, k)}"
+               f" blocks an SM fit), {store} store",
+               lambda r=r, k=k, store=store: sc.triad_at(
+                   b, c, s, item_rows=r, slots=k, store=store))
+              for r, k in TRIAD_SWEEP for store in sc.STORES]
+    sweep += [("stream_triad", f"rows={r} depth={k} (items of "
+               f"{sc.plan(*b.shape, 4, r, k).item_rows} rows)",
                lambda r=r, k=k: sc.triad(b, c, s, rows=r, depth=k))
-              for r, k in ((128, 1), (64, 1), (64, 3), (32, 1), (32, 2),
-                           (32, 6))]
+              for r, k in ((128, 1), (64, 1), (64, 3), (32, 2))]
     tokens, w, gmm_bound_ms = gmm_case
     deepest = mg.kernel_depth(64, c=tokens.shape[1], dm=tokens.shape[2],
                               itemsize=tokens.element_size())
@@ -1729,6 +1876,11 @@ def main() -> int:
         card_info(torch)
         print(json.dumps({"gmm_host_ms": gmm_host_times(torch)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--ssd-time"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_info(torch)
+        print(json.dumps({"ssd_ms": ssd_times(torch)}), flush=True)
+        return 0
     # f32 results are compared on the card: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1777,7 +1929,8 @@ def main() -> int:
     gen.manual_seed(0)
     ssm_params = build_model(ssm_cfg).init(gen, "cuda")
     _, _, ssm_counts = serve_dense_path(torch, "mamba2-130m", ssm_params)
-    ssd_timing = time_ssd_scan(torch, ssm_cfg)
+    ssd_timing = time_ssd_scan(torch, ssm_cfg, sweep=True)
+    ssd_f32 = time_ssd_scan(torch, ssm_cfg, "float32")
     profile_dense_steps(torch, ssm_cfg, ssm_params)
     del ssm_params
     gc.collect()
@@ -1861,7 +2014,10 @@ def main() -> int:
         "launches": ssm_counts["ssd_scan"],
         "parity": "ok",
         **{k: ssd_timing[k] for k in keys},
+        "launch_ms": ssd_timing["launch_ms"],
         "shape": ssd_timing["shape"],
+        "at_other_shapes": {"float32": {k: ssd_f32[k] for k in
+                                        keys + ("launch_ms", "shape")}},
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -1,15 +1,19 @@
 """Hold broken copies of the flash-decode kernels (K1 paged and K3 dense,
 one source: ``flash_decode.cu``), the SSD-scan kernel (K4,
-``ssd_scan.cu``), the grouped matmul (K2, ``moe_gmm.cu``) and the row
-gather (K5a, ``coro_gather.cu``) to the tolerances ``chip_smoke.py`` holds
-the real ones to, on the card (K5a: bitwise).
+``ssd_scan.cu``), the grouped matmul (K2, ``moe_gmm.cu``), the row gather
+(K5a, ``coro_gather.cu``) and the STREAM triad (K7, ``triad.cu``) to the
+tolerances ``chip_smoke.py`` holds the real ones to, on the card (K5a and
+K7 in f32: bitwise).
 
-Each broken copy ("mutant") is one textual change to a copy of the source,
-made in a temporary directory outside the checkout and built there with
-nvcc; the wrapper is pointed at it, and its output is compared with the
-plain PyTorch version on the inputs `chip_smoke.py` uses. A tolerance is
-worth something only if every mutant fails it; the unchanged source runs
-first, as a control, and must pass.
+Each broken copy ("mutant") is one or a few textual changes to a copy of
+the source, made in a temporary directory outside the checkout and built
+there with nvcc; the wrapper is pointed at it, and its output is compared
+with the plain PyTorch version on the inputs `chip_smoke.py` uses (a
+mutant that breaks one path of a kernel runs on that path's cases only).
+A tolerance is worth something only if every mutant fails it; the
+unchanged source runs first, as a control, and must pass. Outputs are
+allocated over freed NaN blocks, so an element a mutant never writes
+cannot hold an earlier result.
 
     python3 scripts/kernel_mutants.py      (needs a CUDA card and nvcc)
 
@@ -33,9 +37,15 @@ FLASH = "decode_attention/csrc/flash_decode.cu"
 SSD = "ssd_scan/csrc/ssd_scan.cu"
 GMM = "moe_gmm/csrc/moe_gmm.cu"
 GATHER = "coro_gather/csrc/coro_gather.cu"
+TRIAD = "stream_copy/csrc/triad.cu"
 PAGED_KEYS = "return max(0, min(lengths[b], M * page));"
+SSD_INTRA_BF16 = ("          for (int kb = 0; kb <= rb; ++kb) {",
+                  "          for (int kb = 0; kb < 0; ++kb) {")
+SSD_INTRA_F32 = ("        for (int j = 0; j < i0 + 4; ++j) {",
+                 "        for (int j = 0; j < 0; ++j) {")
 
-# name -> (source, the text replaced, its replacement)
+# name -> (source, the text replaced, its replacement), or (source, [(text,
+# replacement), ...], the substring that picks the cases it runs on)
 MUTANTS = {
     "K1 page looked up one table entry late": (
         FLASH, "smem_table[i] = row_bt[min(r.page0 + i, M - 1)];",
@@ -52,16 +62,38 @@ MUTANTS = {
     "K3 one row past pos": (
         FLASH, "const int n_keys = pos + 1 < S ? pos + 1 : S;",
         "const int n_keys = pos + 2 < S ? pos + 2 : S;"),
-    "K4 diagonal (intra-chunk) term dropped": (
-        SSD, "for (int j = 0; j <= r; ++j) {\n        const float s = sm[r * kQ + j];",
-        "for (int j = 0; j < 0; ++j) {\n        const float s = sm[r * kQ + j];"),
+    "K4 intra-chunk term dropped": (
+        SSD, [SSD_INTRA_BF16, SSD_INTRA_F32], ""),
     "K4 inter-chunk term dropped": (
-        SSD, "const float ec = ecs_s[r];", "const float ec = 0.f;"),
-    "K4 state not decayed between tiles": (
-        SSD, "const float decay = expf(cs_s[kQ - 1]);", "const float decay = 1.f;"),
-    "K4 last tile dropped": (
-        SSD, "for (int i = 0; i < n_tiles; ++i) {\n    const int slot = i % depth;\n    const int t0",
-        "for (int i = 0; i < n_tiles - 1; ++i) {\n    const int slot = i % depth;\n    const int t0"),
+        SSD, "const bool inter = at.c > 0;", "const bool inter = false;"),
+    "K4 state not decayed between chunks": (
+        SSD, "const float decay = expf(tot[static_cast<size_t>(c) * a.NH]);",
+        "const float decay = 1.f;"),
+    "K4 last chunk dropped": (
+        SSD, "const dim3 grid((a.NH + a.group - 1) / a.group, a.chunks, Bsz);",
+        "const dim3 grid((a.NH + a.group - 1) / a.group, a.chunks - 1, Bsz);"),
+    "K4 one head group's C B^T from the wrong sequence": (
+        SSD, "copy_rows<kScanThreads>(bt, m.bs, static_cast<const T*>(a.B) + at.b * a.b_sb",
+        "copy_rows<kScanThreads>(bt, m.bs, static_cast<const T*>(a.B) + "
+        "((at.b + (blockIdx.x == 0)) % gridDim.z) * a.b_sb"),
+    "K7 items dealt with the wrong stride": (
+        TRIAD, "const int64_t first = static_cast<int64_t>(blockIdx.x) * slots;",
+        "const int64_t first = static_cast<int64_t>(blockIdx.x) * (slots + 1);"),
+    "K7 a block's last item dropped": (
+        TRIAD, [("    for (int k = 0; k < count; ++k) {\n      const int64_t off",
+                 "    for (int k = 0; k < count - 1; ++k) {\n      const int64_t off"),
+                ("    for (int k = 0; k < count; ++k) {\n      repro::mbar_wait(",
+                 "    for (int k = 0; k < count - 1; ++k) {\n      repro::mbar_wait(")],
+        ""),
+    "K7 s not applied on the unit path": (
+        TRIAD, [("a[off + u] = repro::axpy_unit<T, V, true>(b[off + u], c[off + u], s);",
+                 "a[off + u] = repro::axpy_unit<T, V, false>(b[off + u], c[off + u], s);")],
+        "unit path"),
+    "K7 a slot's bulk store issued before the block wrote it": (
+        TRIAD, [("repro::fence_proxy_async();  // the writes above, seen by the bulk store\n"
+                 "        __syncthreads();",
+                 "repro::fence_proxy_async();  // the writes above, seen by the bulk store")],
+        "bulk store"),
     "K2 a block's last tile dropped": (
         GMM, "return (tiles - b + blocks - 1) / blocks * per_tile;",
         "return ((tiles - b + blocks - 1) / blocks - (b + blocks < tiles)) * per_tile;"),
@@ -79,10 +111,28 @@ MUTANTS = {
 patched_copy = chip_smoke.patched_copy
 
 
+def edits_of(spec):
+    """(source, [(text, replacement), ...], case filter) of a mutant."""
+    if isinstance(spec[1], list):
+        return spec
+    rel, old, new = spec
+    return rel, [(old, new)], ""
+
+
 def make_copies(tmp: Path):
     """{name: mutated source path}."""
-    return {name: patched_copy(tmp, f"m{i}", rel, [(old, new)])
-            for i, (name, (rel, old, new)) in enumerate(MUTANTS.items())}
+    out = {}
+    for i, (name, spec) in enumerate(MUTANTS.items()):
+        rel, edits, _ = edits_of(spec)
+        out[name] = patched_copy(tmp, f"m{i}", rel, edits)
+    return out
+
+
+def nan_block(torch, shape, dtype) -> None:
+    """Free a NaN block of `shape` for the next output of that size to
+    reuse (the caching allocator hands it back)."""
+    block = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+    del block
 
 
 def k3_cases(torch):
@@ -120,13 +170,33 @@ def k1_cases(torch):
 
 def k4_cases(torch):
     """mamba2-130m's prefill shape (b 8, s 2048, nh 24, p 64, n 128, chunk
-    256), x/B/C in f32 and in bf16, dt f32."""
+    256), x/B/C in f32 and in bf16, dt f32, and a sequence off the
+    kernel's chunk (s 1984: the last chunk partial) in bf16."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    for dtype_name in ("float32", "bfloat16"):
-        args = chip_smoke.ssd_operands(torch, gen, 8, 2048, 24, 64, 128,
+    for s, dtype_name in ((2048, "float32"), (2048, "bfloat16"),
+                          (1984, "bfloat16")):
+        args = chip_smoke.ssd_operands(torch, gen, 8, s, 24, 64, 128,
                                        dtype=getattr(torch, dtype_name))
-        yield f"b=8 s=2048 x/B/C {dtype_name}", args, dtype_name
+        yield f"b=8 s={s} x/B/C {dtype_name}", args, dtype_name
+
+
+def k7_cases(torch):
+    """[2^20, 128] arrays (512 MiB each) at the wrapper's plan (streaming
+    stores) and with bulk stores, f32 and bf16; the unit path at 4-byte
+    (64 x 3 f32) and 2-byte units (63 x 3 bf16)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    for dtype in (torch.float32, torch.bfloat16):
+        b, c = (torch.randn(1 << 20, 128, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        for store in ("stream", "bulk"):
+            yield (f"{str(dtype)[6:]} [2^20, 128] {store} store", b, c, 1,
+                   store)
+    for dtype, n, rows in ((torch.float32, 64, 2), (torch.bfloat16, 63, 1)):
+        b, c = (torch.randn(n, 3, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        yield f"{str(dtype)[6:]} {n}x3 unit path", b, c, rows, None
 
 
 def k2_cases(torch):
@@ -171,23 +241,39 @@ def within(torch, got, want, atol, rtol) -> bool:
         torch.allclose(got, want, atol=atol, rtol=rtol))
 
 
-def run(torch, kernel: str, source):
-    """[(case, max_abs_err, passed)] of the kernel built from `source`."""
+def run(torch, kernel: str, source, only: str = ""):
+    """[(case, max_abs_err, passed)] of the kernel built from `source`, on
+    the cases whose name holds `only`."""
     from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    from repro_torch.kernels.stream_copy import stream_copy as sc
 
     rows = []
-    if kernel == "K2":
+    if kernel == "K7":
+        sc.SOURCE = source
+        for case, b, c, rows_, store in k7_cases(torch):
+            if only not in case:
+                continue
+            nan_block(torch, b.shape, b.dtype)
+            if store is None:
+                got = sc.triad(b, c, 3.0, rows=rows_)
+            else:
+                item = sc.plan(*b.shape, b.element_size(), 128, 1).item_rows
+                got = sc.triad_at(b, c, 3.0, item_rows=item, store=store)
+            want = sc.triad_plain(b, c, 3.0)
+            err = float((got.float() - want.float()).abs().max())
+            ok = bool(torch.equal(got, want)) if b.dtype == torch.float32 \
+                else within(torch, got, want, *(chip_smoke.TRIAD_TOL[
+                    "bfloat16"],) * 2)
+            rows.append((case, err, ok))
+    elif kernel == "K2":
         mg.SOURCE = source
         for case, tokens, w, blocks, dtype_name in k2_cases(torch):
             tol = chip_smoke.TOL[dtype_name]
-            # free a NaN block of the output's size for the output to reuse,
-            # so a tile the kernel never writes cannot hold an earlier result
-            poison = torch.full((tokens.shape[0], tokens.shape[1], w.shape[2]),
-                                float("nan"), dtype=tokens.dtype, device="cuda")
-            del poison
+            nan_block(torch, (tokens.shape[0], tokens.shape[1], w.shape[2]),
+                      tokens.dtype)
             got = mg.gmm(tokens, w, depth=2) if blocks is None else \
                 mg.gmm_at(tokens, w, depth=2, blocks=blocks)
             want = mg.gmm_plain(tokens, w)
@@ -221,8 +307,12 @@ def run(torch, kernel: str, source):
     else:
         ss.SOURCE = source
         for case, args, dtype_name in k4_cases(torch):
-            y, h = ss.ssd_scan(*args, chunk=256)
-            ry, rh = ss.ssd_scan_plain(*args, chunk=256)
+            x = args[0]
+            nan_block(torch, x.shape, x.dtype)
+            nan_block(torch, (x.shape[0], x.shape[2], x.shape[3],
+                              args[3].shape[2]), torch.float32)
+            y, h = ss.ssd_scan(*args, chunk=64)
+            ry, rh = ss.ssd_scan_plain(*args, chunk=64)
             tol_y, tol_h = chip_smoke.TOL[dtype_name], chip_smoke.TOL["float32"]
             err = max(float((y.float() - ry.float()).abs().max()),
                       float((h - rh).abs().max()))
@@ -246,8 +336,10 @@ def main() -> int:
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
+    from repro_torch.kernels.stream_copy import stream_copy as sc
+
     controls = {"K1": da.FLASH_SOURCE, "K3": da.FLASH_SOURCE, "K4": ss.SOURCE,
-                "K2": mg.SOURCE, "K5a": cg.SOURCE}
+                "K2": mg.SOURCE, "K5a": cg.SOURCE, "K7": sc.SOURCE}
     bad = []
     summary = {}
     with tempfile.TemporaryDirectory(prefix="kernel_mutants_") as tmp:
@@ -264,7 +356,8 @@ def main() -> int:
                     bad.append(f"control {kernel} {case}")
         for name, source in mutants.items():
             verdicts = []
-            for case, err, ok in run(torch, name.split()[0], source):
+            only = edits_of(MUTANTS[name])[2]
+            for case, err, ok in run(torch, name.split()[0], source, only):
                 print(f"MUT {name} {case}: err={err:.3e} "
                       f"{'pass' if ok else 'FAIL'}", flush=True)
                 verdicts.append("pass" if ok else "FAIL")

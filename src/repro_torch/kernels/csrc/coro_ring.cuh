@@ -1,7 +1,8 @@
 // The coroutine ring shared by the port's kernels (gather, span gather,
-// scatter-add, STREAM triad, flash decode, grouped matmul): cp.async copies
+// scatter-add, flash decode, grouped matmul, SSD scan): cp.async copies
 // into shared memory, one commit group per tile (the paper's aset group),
-// and a wait on a run-time depth.
+// and a wait on a run-time depth; and the bulk copies on mbarriers that
+// the STREAM triad streams with.
 //
 // Each kernel keeps `depth` tiles in flight in a ring of shared-memory
 // slots. In the row-copy kernels a thread copies the same vectors of every
@@ -131,6 +132,87 @@ __device__ __forceinline__ V axpy_unit(V a, V b, float s) {
     po[e] = from_f32<T>(__fadd_rn(to_f32(pa[e]), y));
   }
   return out;
+}
+
+// mbarriers, and bulk copies (the Tensor Memory Accelerator's 1-D form)
+// that complete on them (the grouped matmul's TMA boxes do too). A bulk
+// copy moves a contiguous run of bytes, a multiple of 16 at 16-byte
+// aligned addresses on both sides, without registers or per-thread
+// instructions: one thread issues it.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Make initialised mbarriers visible to the bulk-copy unit.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive, and expect `bytes` more of bulk copies before the phase completes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}\n" ::"r"(smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Global -> shared, `bytes` of them, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared -> global, `bytes` of them, in the issuing thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
+               "r"(smem_addr(smem)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are still pending.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's shared-memory writes before later bulk copies read them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A 16-byte global store that streams past the caches (evict-first).
+__device__ __forceinline__ void st_global_cs(uint4* g, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(g), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // The tiles [first, last) of block blockIdx.x when every block walks

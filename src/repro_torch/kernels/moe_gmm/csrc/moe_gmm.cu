@@ -138,43 +138,16 @@ struct Walk {
   }
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
+using repro::mbar_arrive_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_addr;
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile(
       "{\n\t.reg .b64 state;\n\t"
       "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(smem_addr(bar))
       : "memory");
-}
-
-// Arrive, and expect `bytes` more of bulk copies before the phase completes.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n\t}\n" ::"r"(smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // Load box (c0, c1, c2) of the 3-D tensor map `map` into shared memory at
@@ -260,7 +233,7 @@ __global__ void __launch_bounds__(kThreads)
       mbar_init(full + s, 64);
       mbar_init(empty + s, kConsumerWarps);  // every consumer warp releases
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    repro::mbar_fence_init();
   }
   __syncthreads();  // the last block-wide barrier: the roles split here
 

@@ -1,10 +1,11 @@
 """Host side of the row-copy kernels' coroutine ring (``csrc/coro_ring.cuh``).
 
-The gather, span-gather, scatter-add and triad kernels share one shape: a
-thread block walks a contiguous range of tiles and keeps `depth` of them in
-flight in a ring of shared-memory slots. This module solves and clamps the
-depth, splits the row gather's depth over the blocks of an SM, sizes the
-grid, picks the copy unit and raises on a failed launch.
+The gather, span-gather and scatter-add kernels share one shape: a thread
+block walks a contiguous range of tiles and keeps `depth` of them in flight
+in a ring of shared-memory slots. This module solves and clamps the depth,
+splits the row gather's depth over the blocks of an SM, counts the blocks
+an SM holds, sizes the grid, picks the copy unit and raises on a failed
+launch (the triad and the other kernels use these too).
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from repro_torch.core.guard import KernelCompileError, KernelResourceError
 
 __all__ = ["MAX_DEPTH", "SMEM_LIMIT", "check_smem", "copy_unit",
            "kernel_depth", "launch_grid", "library", "raise_on_error",
-           "ring_bytes", "route", "sm_count", "solve_depth", "split_depth"]
+           "resident_blocks", "ring_bytes", "route", "sm_count",
+           "solve_depth", "split_depth"]
 
 MAX_DEPTH = 64                 # kMaxDepth in csrc/coro_ring.cuh
 
@@ -106,11 +108,17 @@ def launch_grid(device: torch.device, n_tiles: int, depth: int,
     """(blocks, tiles per block): as many blocks as fit on the card at once
     (`blocks_per_sm` on each SM when given), but each walking at least
     `depth` tiles so that its ring fills."""
-    per_sm = blocks_per_sm or min(MAX_THREADS_PER_SM // threads,
-                                  SM_SMEM // (smem_bytes + SMEM_RESERVED))
+    per_sm = blocks_per_sm or resident_blocks(smem_bytes, threads)
     resident = sm_count(device) * max(per_sm, 1)
     per_block = max(depth, -(-n_tiles // resident))
     return -(-n_tiles // per_block), per_block
+
+
+def resident_blocks(smem_bytes: int, threads: int) -> int:
+    """Blocks of `threads` threads and `smem_bytes` of shared memory that
+    one SM holds at once, counting the runtime's reservation per block."""
+    return min(MAX_THREADS_PER_SM // threads,
+               SM_SMEM // (smem_bytes + SMEM_RESERVED))
 
 
 def copy_unit(nbytes: int, tensors: Sequence[torch.Tensor]) -> int:

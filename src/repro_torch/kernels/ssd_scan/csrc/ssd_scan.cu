@@ -8,40 +8,56 @@
 //   state_t = state_{t-1} * exp(dt_t a) + dt_t x_t B_t^T      ([P, N], f32)
 //   y_t     = state_t C_t                                     ([P])
 //
-// computed as the chunked SSD (Mamba-2, Alg. 1): within a tile of kQ rows,
-// cs = cumsum(dt a),
+// computed as the chunked SSD (Mamba-2, arXiv:2405.21060 section 6) made
+// parallel over chunks of kL rows: within a chunk, cs = cumsum(dt a),
 //   y_i = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j      (intra)
-//       + exp(cs_i) state C_i                                     (inter)
-//   state <- state exp(cs_last) + sum_j exp(cs_last - cs_j) dt_j x_j B_j^T.
-// It returns y in x's type and the final state [b, nh, P, N] in f32.
+//       + exp(cs_i) C_i h_{c-1}                                   (inter)
+//   S_c = sum_j exp(total - cs_j) dt_j x_j B_j^T                  (the chunk's own state)
+//   h_c = h_{c-1} exp(total) + S_c                                (the state pass)
+// in three launches, one call:
+//   (a) chunk_state_kernel, a block per (sequence, chunk, group of heads):
+//       the cumsum and S_c of each head of the group, into an f32
+//       workspace [b, chunks, nh, P, N], and exp's argument `total`;
+//   (b) state_pass_kernel, per (sequence, head, slice of the state): the
+//       only sequential part, P x N per chunk; it overwrites the workspace
+//       with the state entering each chunk and writes h_final;
+//   (c) chunk_scan_kernel, a block per (sequence, chunk, group of heads):
+//       C B^T once for the group, then each head's intra and inter terms,
+//       y rounded once to x's type.
+// The result does not depend on the chunk length but for rounding; the
+// kernel's chunk is kL rows (128 in bf16, 64 in f32), whatever the caller's.
+// No exponent of a positive argument is taken: exp(cs_i - cs_j) only for
+// j <= i, and exp(total - cs_j), exp(cs_i), exp(total) are all of
+// non-positive arguments (the Pallas body's exp(seg) * causal overflows
+// above the diagonal once a chunk's decay passes ~88).
 //
-// The result does not depend on the tile length but for rounding, and the
-// kernel computes at a tile of kQ = 32 rows, whatever the caller's chunk
-// (256 at mamba2's width): a [256, 256] f32 decay matrix alone is 256 KiB,
-// over a block's shared memory, and the intra-tile work grows with the tile.
-// The exponent is taken only where j <= i, so its argument is never
-// positive: the Pallas body's exp(seg) * causal overflows to inf above the
-// diagonal once a chunk's decay passes ~88 (inf * 0 = NaN); here nothing
-// above the diagonal is exponentiated.
-//
-// What bounds it: operations. At mamba2's prefill shape the SSD needs ~14
-// GFLOP against ~117 MB in and out (the reference spec's flops_per_tile
-// over its 256-row chunks), all of it f32 SIMT arithmetic here. What the
-// design does about it:
-//   * one thread block per (sequence, head) walks the sequence's tiles in
-//     order; the [P, N] state stays in shared memory (stored [N][P]) for
-//     the whole sequence, nothing crosses between blocks;
-//   * each block reads its head's x and dt once, and B and C once per head
-//     (nh times in all: 24x at mamba2, 2 x 8 x 2048 x 128 x 2 B x 24 =
-//     201 MB of B/C reads at bf16, mostly from L2);
-//   * a ring of `depth` tiles (x, dt, B, C of kQ rows) is kept in flight
-//     with cp.async (the shared coro_ring.cuh), so the copy of tile
-//     i + depth overlaps the math on tile i; `depth` is solved by the host
-//     from the reference's CoroSpec and clamped to shared memory;
-//   * the per-row products are register-blocked 4 wide over the head dim
-//     (16-byte vector loads from shared memory).
-// Later work: one block for several heads (B and C read once), tensor-core
-// products (wgmma) for C B^T and the state update.
+// What bounds it: bytes in bf16 (at mamba2's prefill shape ~117 MB in and
+// out against ~14 GFLOP on tensor cores), operations in f32 (SIMT). What
+// the design does about it:
+//   * bf16 products run on tensor cores (mma.sync m16n8k16, f32
+//     accumulators, operands by ldmatrix): C B^T, the intra term, the inter
+//     term and S_c. x, B and C are exact in bf16; an operand carrying a
+//     factor computed in f32 (the decayed scores, x exp(total - cs) dt, the
+//     state) is split into a bf16 high part and a bf16 low part, two
+//     products, so it keeps ~16 bits and the f32 state stays within 2e-3;
+//   * f32 inputs take the same decomposition with f32 FMA products on CUDA
+//     cores (register tiles of 4 x 4): no TF32 or bf16 rounding;
+//   * C B^T does not depend on the head: a block of (c) computes it once
+//     for a group of heads and keeps it in shared memory; per head, the
+//     whole block turns it into the decayed scores (each exponent once) and
+//     the entering state into its bf16 parts, in shared memory, so that the
+//     warps' products read every operand by ldmatrix;
+//   * each block keeps `depth` heads' tiles (x, dt and, in (c), the entering
+//     state) in flight in a ring of shared-memory slots filled by cp.async
+//     (the shared coro_ring.cuh), so the copies of head k + depth overlap
+//     the products of head k, and starts the tiles of the head after into
+//     L2; `depth` is solved by the host from the reference's CoroSpec and
+//     clamped to shared memory and to the group (at mamba2's widths C, C B^T
+//     and the scores leave room for one slot in (c): one 512-thread block
+//     an SM, and its per-head phases, not its products, take most of (c)'s
+//     time);
+//   * rows past the sequence and padding columns are zeros in shared
+//     memory (dt 0 there), so the last chunk needs no masked products.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
@@ -59,51 +75,82 @@ using repro::cp_async4;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
 using repro::cp_async_wait_pending;
-using repro::from_f32;
-using repro::to_f32;
 
-constexpr int kThreads = 512;  // 16 warps: more loads in flight per SM than 8
+constexpr int kThreads = 256;      // (a) and (b)
 constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 32;            // rows per tile: one warp lane per row
-constexpr int kMaxNPerLane = 4;   // N <= 128
+constexpr int kScanThreads = 512;  // (c): 16 warps, the most its registers allow
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxState = 128;  // N
+constexpr int kMaxHead = 128;   // P
 
-// Shared memory: a ring of `depth` slots (x [kQ][P], B [kQ][N], C [kQ][N]
-// in the input type, dt [kQ] as 4-byte words), then f32 state [N][P],
-// scores [kQ][kQ] and four [kQ] rows (cs, exp(cs), exp(total - cs) dt, dt).
-// The same formulas are repro_torch/kernels/ssd_scan/ssd_scan.py:slot_bytes
-// and fixed_bytes.
-__host__ __device__ size_t slot_bytes(int P, int N, int itemsize) {
-  return static_cast<size_t>(kQ) * (P + 2 * N) * itemsize + kQ * sizeof(uint32_t);
-}
+// Rows of the kernel's chunk.
+template <typename T>
+struct Chunk;
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kL = 128;
+};
+template <>
+struct Chunk<float> {
+  static constexpr int kL = 64;
+};
 
-__host__ __device__ size_t fixed_bytes(int P, int N) {
-  return sizeof(float) * (static_cast<size_t>(N) * P + kQ * kQ + 4 * kQ);
-}
+__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+// Shared-memory layout of (a) and (c), the same on the host and in the
+// kernels (and in repro_torch/kernels/ssd_scan/ssd_scan.py:_layout). Tiles
+// are row-major; strides in elements. bf16 (tensor cores): P and N padded
+// to 16, rows 8 elements (16 bytes) longer than that, so that ldmatrix and
+// the f32 fragment loads meet no bank conflict; the f32 state's rows are 12
+// values longer (an odd number of 16-byte units), and hold its bf16 high
+// and low parts after the state lands; f32: unpadded, C B^T rows 4 longer.
+struct Smem {
+  int Pp, Np, xs, bs, hs, cbs;
+  size_t x, bc, h, cb, dtw, vec;
+  bool tc;
+  __host__ __device__ Smem(bool tensor_cores, int L, int P, int N) : tc(tensor_cores) {
+    Pp = tc ? round16(P) : P;
+    Np = tc ? round16(N) : N;
+    const int isz = tc ? 2 : 4;
+    xs = tc ? Pp + 8 : P;
+    bs = tc ? Np + 8 : N;
+    hs = tc ? Np + 12 : N;
+    cbs = L + (tc ? 8 : 4);
+    x = static_cast<size_t>(L) * xs * isz;    // x tile [L][xs]
+    bc = static_cast<size_t>(L) * bs * isz;   // B or C tile [L][bs]
+    h = static_cast<size_t>(Pp) * hs * 4;     // f32 state [Pp][hs]
+    cb = static_cast<size_t>(L) * cbs * 4;    // f32 C B^T [L][cbs]
+    dtw = static_cast<size_t>(L) * 4;         // dt, a 4-byte word a row
+    vec = static_cast<size_t>(3 * L + 8) * 4; // cs, exp(cs) (or w), dt, scratch
+  }
+  // (a): B, x exp(total - cs) dt (bf16: high and low parts), vectors; a
+  // slot: x and dt
+  __host__ __device__ size_t fixed_a() const { return bc + (tc ? 2 : 1) * x + vec; }
+  __host__ __device__ size_t slot_a() const { return x + dtw; }
+  // (c): C, C B^T (B is staged there in bf16; f32 keeps B beside it), a
+  // head's decayed scores (f32 [L][cbs]; bf16: high and low parts, each
+  // [L][L + 8], the same bytes), vectors; a slot: x, the entering state and dt
+  __host__ __device__ size_t fixed_c() const { return (tc ? 1 : 2) * bc + 2 * cb + vec; }
+  __host__ __device__ size_t slot_c() const { return x + h + dtw; }
+};
 
-// Four consecutive values from shared memory as f32 (16- or 8-byte load).
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = b.x;
-  o[3] = b.y;
-}
+// The operands of one call.
+struct ScanArgs {
+  const void* x;
+  int64_t x_sb, x_st;
+  const void* dt;
+  int64_t dt_sb, dt_st, dt_sh;
+  const float* A;
+  const void* B;
+  int64_t b_sb, b_st;
+  const void* C;
+  int64_t c_sb, c_st;
+  void* y;
+  float* h_out;
+  float* states;  // [b, chunks, nh, P, N]: S_c after (a), the entering state after (b)
+  float* totals;  // [b, chunks, nh]: sum of dt a over the chunk
+  int S, NH, P, N, chunks, group;
+};
 
 // dt of one row: one 4-byte ring word. An f32 value is the word; a bf16
 // value is copied with the aligned word that holds it (the shared ring's
@@ -130,220 +177,701 @@ struct DtUnit<__nv_bfloat16> {
   }
 };
 
-template <typename T, typename TD>
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const T* __restrict__ x, int64_t x_sb, int64_t x_st,
-                    const TD* __restrict__ dt, int64_t dt_sb, int64_t dt_st, int64_t dt_sh,
-                    const float* __restrict__ A, const T* __restrict__ Bm, int64_t b_sb,
-                    int64_t b_st, const T* __restrict__ Cm, int64_t c_sb, int64_t c_st,
-                    T* __restrict__ y, float* __restrict__ h_out, int S, int NH, int P, int N,
-                    int depth) {
-  const int head = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int kChunk = 16 / static_cast<int>(sizeof(T));  // elements per 16 B copy
-  const int x_units = P / kChunk;
-  const int bc_units = N / kChunk;
-  const int P4 = P / 4;
-  const size_t sbytes = slot_bytes(P, N, static_cast<int>(sizeof(T)));
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* hT = reinterpret_cast<float*>(smem + static_cast<size_t>(depth) * sbytes);  // [N][P]
-  float* sm = hT + static_cast<size_t>(N) * P;  // [kQ][kQ] decayed, dt-scaled C B^T
-  float* cs_s = sm + kQ * kQ;                   // cumsum(dt a) within the tile
-  float* ecs_s = cs_s + kQ;                     // exp(cs)
-  float* w_s = ecs_s + kQ;                      // exp(total - cs) dt
-  float* dt_s = w_s + kQ;                       // dt
-  auto x_slot = [&](int slot) {
-    return reinterpret_cast<T*>(smem + static_cast<size_t>(slot) * sbytes);
-  };
-  auto b_slot = [&](int slot) { return x_slot(slot) + kQ * P; };
-  auto c_slot = [&](int slot) { return b_slot(slot) + kQ * N; };
-  auto dt_slot = [&](int slot) { return reinterpret_cast<uint32_t*>(c_slot(slot) + kQ * N); };
-
-  const float a = A[head];
-  const int n_tiles = (S + kQ - 1) / kQ;
-  const T* xb = x + b * x_sb + static_cast<int64_t>(head) * P;
-  const TD* dtb = dt + b * dt_sb + head * dt_sh;
-  const T* bb = Bm + b * b_sb;
-  const T* cb = Cm + b * c_sb;
-
-  // Start the copies of tile `tile` into ring slot `slot`: its rows (fewer
-  // than kQ at the end of the sequence; rows past S are never read).
-  auto issue = [&](int tile, int slot) {
-    const int t0 = tile * kQ;
-    const int rows = min(kQ, S - t0);
-    T* xs = x_slot(slot);
-    T* bs = b_slot(slot);
-    T* cm = c_slot(slot);
-    for (int c = tid; c < rows * x_units; c += kThreads) {
-      const int r = c / x_units;
-      const int u = (c - r * x_units) * kChunk;
-      cp_async16(xs + r * P + u, xb + (t0 + r) * x_st + u);
-    }
-    for (int c = tid; c < rows * bc_units; c += kThreads) {
-      const int r = c / bc_units;
-      const int u = (c - r * bc_units) * kChunk;
-      cp_async16(bs + r * N + u, bb + (t0 + r) * b_st + u);
-      cp_async16(cm + r * N + u, cb + (t0 + r) * c_st + u);
-    }
-    uint32_t* ds = dt_slot(slot);
-    for (int r = tid; r < rows; r += kThreads) DtUnit<TD>::load(ds + r, dtb + (t0 + r) * dt_st);
-  };
-
-  for (int e = tid; e < N * P; e += kThreads) hT[e] = 0.f;
-  for (int s = 0; s < depth; ++s) {
-    if (s < n_tiles) issue(s, s);
-    cp_async_commit();
+// Inclusive cumsum over the chunk's rows: row r's value on thread r (r < L,
+// 0 past the sequence); returns thread tid's sum. Every thread calls it.
+template <int L>
+__device__ __forceinline__ float chunk_cumsum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += o;
   }
+  if (lane == 31 && warp < L / 32) scratch[warp] = v;
+  __syncthreads();
+  float base = 0.f;
+  for (int w = 0; w < warp && w < L / 32; ++w) base += scratch[w];
+  __syncthreads();  // scratch is free again
+  return v + base;
+}
 
-  for (int i = 0; i < n_tiles; ++i) {
-    const int slot = i % depth;
-    const int t0 = i * kQ;
-    const int rows = min(kQ, S - t0);
-    cp_async_wait_pending(depth - 1);  // tile i has landed (this thread's part)
-    __syncthreads();                   // ... and every other thread's part
-    const T* xs = x_slot(slot);
-    const T* bs = b_slot(slot);
-    const T* cm = c_slot(slot);
+// The dt of row tid of `head`'s slot (0 past the sequence and for threads
+// past the chunk).
+template <typename TD>
+__device__ __forceinline__ float row_dt(const uint32_t* dtw, const TD* dtg, const ScanArgs& a,
+                                        int head, int valid) {
+  const int r = threadIdx.x;
+  return r < valid ? DtUnit<TD>::read(dtw + r, dtg + head * a.dt_sh + r * a.dt_st) : 0.f;
+}
 
-    // 1. Lane r of warp 0 takes row r: cs = inclusive cumsum of dt a over
-    //    the tile (rows past the sequence add 0), and the row factors.
-    if (warp == 0) {
-      const float d = lane < rows ? DtUnit<TD>::read(dt_slot(slot) + lane, dtb + (t0 + lane) * dt_st)
-                                  : 0.f;
-      float v = d * a;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += o;
-      }
-      const float total = __shfl_sync(0xffffffffu, v, 31);
-      cs_s[lane] = v;
-      ecs_s[lane] = expf(v);
-      w_s[lane] = expf(total - v) * d;
-      dt_s[lane] = d;
-    }
-    __syncthreads();
+// Start moving global bytes into L2 ahead of the cp.async that will copy
+// them: one line, or (bulk) a contiguous run of 16-byte units.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
 
-    // 2. sm[i][j] = (C_i . B_j) exp(cs_i - cs_j) dt_j for j <= i: a warp per
-    //    row i, lanes over N, one warp reduction per j; lane j keeps it.
-    for (int r = warp; r < rows; r += kWarps) {
-      float cv[kMaxNPerLane];
-#pragma unroll
-      for (int k = 0; k < kMaxNPerLane; ++k) {
-        const int n = lane + 32 * k;
-        cv[k] = n < N ? to_f32(cm[r * N + n]) : 0.f;
-      }
-      float mine = 0.f;
-      for (int j = 0; j <= r; ++j) {
-        float part = 0.f;
-#pragma unroll
-        for (int k = 0; k < kMaxNPerLane; ++k) {
-          const int n = lane + 32 * k;
-          if (n < N) part += cv[k] * to_f32(bs[j * N + n]);
-        }
-        part = warp_sum(part);
-        if (lane == j) mine = part;
-      }
-      sm[r * kQ + lane] = lane <= r ? mine * expf(cs_s[r] - cs_s[lane]) * dt_s[lane] : 0.f;
-    }
-    __syncthreads();
+__device__ __forceinline__ void bulk_prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
 
-    // 3. y[i][p0 .. p0 + 3] = sum_{j <= i} sm[i][j] x_j + exp(cs_i) C_i state.
-    for (int e = tid; e < rows * P4; e += kThreads) {
-      const int r = e / P4;
-      const int p0 = (e - r * P4) * 4;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      float v[4];
-      for (int n = 0; n < N; ++n) {
-        const float c = to_f32(cm[r * N + n]);
-        load4(hT + n * P + p0, v);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] += c * v[u];
-      }
-      const float ec = ecs_s[r];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] *= ec;
-      for (int j = 0; j <= r; ++j) {
-        const float s = sm[r * kQ + j];
-        load4(xs + j * P + p0, v);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] += s * v[u];
-      }
-      T* out = y + ((static_cast<int64_t>(b) * S + t0 + r) * NH + head) * P + p0;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) out[u] = from_f32<T>(acc[u]);
-    }
-    __syncthreads();  // every read of the old state is done
-
-    // 4. state[n][p0 .. p0 + 3] = state exp(total) + sum_j B_j[n] w_j x_j.
-    const float decay = expf(cs_s[kQ - 1]);
-    for (int e = tid; e < N * P4; e += kThreads) {
-      const int n = e / P4;
-      const int p0 = (e - n * P4) * 4;
-      float acc[4], v[4];
-      load4(hT + n * P + p0, acc);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] *= decay;
-      for (int j = 0; j < rows; ++j) {
-        const float bw = to_f32(bs[j * N + n]) * w_s[j];
-        load4(xs + j * P + p0, v);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] += bw * v[u];
-      }
-      *reinterpret_cast<float4*>(hT + n * P + p0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    }
-    __syncthreads();  // the slot is free and the state is updated
-
-    if (i + depth < n_tiles) issue(i + depth, slot);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  // The final state, [P][N] per (sequence, head).
-  float* ho = h_out + (static_cast<int64_t>(b) * NH + head) * P * N;
-  for (int e = tid; e < N * P; e += kThreads) {
-    const int n = e / P;
-    const int p = e - n * P;
-    ho[p * N + n] = hT[e];
+// The x rows [0, valid) of `head`, each 128-byte line of them, into L2.
+template <int kT, typename T>
+__device__ __forceinline__ void prefetch_rows(const T* xg, int64_t x_st, int valid, int P) {
+  const int lines = (P * static_cast<int>(sizeof(T)) + 127) / 128;
+  for (int e = threadIdx.x; e < valid * lines; e += kT) {
+    const int r = e / lines;
+    prefetch_l2(reinterpret_cast<const char*>(xg + r * x_st) + (e - r * lines) * 128);
   }
 }
 
+// Zero the padding of a [rows][stride] tile whose first `valid` rows hold
+// `cols` values each: the rest of those rows, and every later row.
+template <int kT, typename E>
+__device__ __forceinline__ void zero_pad(E* tile, int rows, int stride, int valid, int cols) {
+  const int w = stride - cols;
+  for (int e = threadIdx.x; e < valid * w; e += kT) tile[(e / w) * stride + cols + e % w] = E(0.f);
+  for (int e = valid * stride + threadIdx.x; e < rows * stride; e += kT) tile[e] = E(0.f);
+}
+
+// ---------------------------------------------------------- tensor cores
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(repro::smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(repro::smem_addr(p)));
+}
+
+// d += a @ b for one 16x8x16 tile: bf16 inputs, f32 accumulators.
+__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x for x <= 0 (one MUFU instruction; results below 2^-126 flush to 0).
+__device__ __forceinline__ float exp2_neg(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (u, v) as a bf16 pair `hi` and the pair of what it leaves, `lo`.
+__device__ __forceinline__ void split(float u, float v, uint32_t* hi, uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
+  *hi = pack(h);
+  *lo = pack(__floats2bfloat162_rn(u - __low2float(h), v - __high2float(h)));
+}
+
+// f(r, u) for every r < rows and u < units, spread over kT threads; where
+// units divides kT (every width here but a few) a thread keeps one u and
+// steps r, with no division in the loop.
+template <int kT, typename F>
+__device__ __forceinline__ void for_rows(int rows, int units, F f) {
+  if (kT % units == 0) {
+    const int u = threadIdx.x % units;
+    for (int r = threadIdx.x / units; r < rows; r += kT / units) f(r, u);
+  } else {
+    for (int e = threadIdx.x; e < rows * units; e += kT) f(e / units, e % units);
+  }
+}
+
+// cp.async rows [0, rows) of `cols` values (whole 16-byte units) from
+// global memory (row stride `gs`) into a shared tile (row stride `ss`).
+template <int kT, typename E>
+__device__ __forceinline__ void copy_rows(E* tile, int ss, const E* g, int64_t gs, int rows,
+                                          int cols) {
+  constexpr int v = 16 / sizeof(E);
+  for_rows<kT>(rows, cols / v, [&](int r, int u) {
+    cp_async16(tile + r * ss + u * v, g + r * gs + u * v);
+  });
+}
+
+// Where a block is: its sequence b, chunk c (rows t0 .. t0 + valid), and
+// heads h0 .. h0 + nheads.
+struct Place {
+  int b, c, h0, nheads, t0, valid;
+  __device__ Place(const ScanArgs& a, int L) {
+    h0 = blockIdx.x * a.group;
+    nheads = min(a.group, a.NH - h0);
+    c = blockIdx.y;
+    b = blockIdx.z;
+    t0 = c * L;
+    valid = min(L, a.S - t0);
+  }
+  __device__ size_t state(const ScanArgs& a, int head) const {
+    return ((static_cast<size_t>(b) * a.chunks + c) * a.NH + head) * a.P * a.N;
+  }
+};
+
+// (a) S_c = sum_j (x_j exp(total - cs_j) dt_j)^T B_j of each head of the
+// block's group, into the workspace, and total = cs at the chunk's end.
 template <typename T, typename TD>
-cudaError_t launch(const void* x, int64_t x_sb, int64_t x_st, const void* dt, int64_t dt_sb,
-                   int64_t dt_st, int64_t dt_sh, const void* A, const void* Bm, int64_t b_sb,
-                   int64_t b_st, const void* Cm, int64_t c_sb, int64_t c_st, void* y,
-                   void* h_out, int Bsz, int S, int NH, int P, int N, int depth,
-                   cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(depth) * slot_bytes(P, N, sizeof(T)) + fixed_bytes(P, N);
-  auto kernel = ssd_scan_kernel<T, TD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+__global__ void __launch_bounds__(kThreads) chunk_state_kernel(const ScanArgs a, int depth) {
+  constexpr int L = Chunk<T>::kL;
+  constexpr bool kTC = sizeof(T) == 2;
+  const Place at(a, L);
+  const Smem m(kTC, L, a.P, a.N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* bt = reinterpret_cast<T*>(smem);                    // B [L][bs]
+  T* xw = reinterpret_cast<T*>(smem + m.bc);             // x w [L][xs] (bf16: high, then low)
+  float* cs_s = reinterpret_cast<float*>(smem + m.bc + (kTC ? 2 : 1) * m.x);
+  float* w_s = cs_s + L;  // exp(total - cs) dt
+  float* scratch = cs_s + 3 * L;
+  unsigned char* ring = smem + m.fixed_a();
+  auto x_slot = [&](int s) { return reinterpret_cast<T*>(ring + s * m.slot_a()); };
+  auto dt_slot = [&](int s) { return reinterpret_cast<uint32_t*>(ring + s * m.slot_a() + m.x); };
+
+  const T* xg = static_cast<const T*>(a.x) + at.b * a.x_sb + at.t0 * a.x_st;
+  const TD* dtg = static_cast<const TD*>(a.dt) + at.b * a.dt_sb + at.t0 * a.dt_st;
+  auto issue = [&](int k, int slot) {
+    if (k >= at.nheads) return;
+    const int head = at.h0 + k;
+    copy_rows<kThreads>(x_slot(slot), m.xs, xg + head * a.P, a.x_st, at.valid, a.P);
+    uint32_t* dw = dt_slot(slot);
+    for (int r = tid; r < at.valid; r += kThreads)
+      DtUnit<TD>::load(dw + r, dtg + head * a.dt_sh + r * a.dt_st);
+  };
+
+  zero_pad<kThreads>(bt, L, m.bs, at.valid, a.N);
+  for (int s = 0; s < depth; ++s) zero_pad<kThreads>(x_slot(s), L, m.xs, at.valid, a.P);
+  copy_rows<kThreads>(bt, m.bs, static_cast<const T*>(a.B) + at.b * a.b_sb + at.t0 * a.b_st, a.b_st,
+            at.valid, a.N);
+  for (int s = 0; s < depth; ++s) {
+    issue(s, s);
+    cp_async_commit();  // group 0 also holds B
+  }
+
+  for (int k = 0; k < at.nheads; ++k) {
+    const int slot = k % depth;
+    const int head = at.h0 + k;
+    if (k + depth < at.nheads)  // the head this slot takes next, into L2
+      prefetch_rows<kThreads>(xg + (head + depth) * a.P, a.x_st, at.valid, a.P);
+    cp_async_wait_pending(depth - 1);
+    __syncthreads();
+    const float d = row_dt(dt_slot(slot), dtg, a, head, at.valid);
+    const float cs = chunk_cumsum<L>(d * a.A[head], scratch);
+    if (tid < L) cs_s[tid] = cs;
+    __syncthreads();
+    const float total = cs_s[L - 1];
+    if (tid < L) w_s[tid] = expf(total - cs) * d;
+    if (tid == 0) a.totals[(static_cast<size_t>(at.b) * a.chunks + at.c) * a.NH + head] = total;
+    __syncthreads();
+    const T* xs = x_slot(slot);
+    float* out = a.states + at.state(a, head);
+    if constexpr (kTC) {
+      // x w as bf16 high and low parts, [L][xs] each
+      T* lo = xw + L * m.xs;
+      for_rows<kThreads>(L, m.Pp / 2, [&](int j, int pair) {
+        const int p = 2 * pair;
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + j * m.xs + p));
+        uint32_t hi32, lo32;
+        split(v.x * w_s[j], v.y * w_s[j], &hi32, &lo32);
+        *reinterpret_cast<uint32_t*>(xw + j * m.xs + p) = hi32;
+        *reinterpret_cast<uint32_t*>(lo + j * m.xs + p) = lo32;
+      });
+      __syncthreads();
+      // S [Pp x Np] = (x w)^T [Pp x L] B [L x Np]: a warp takes a 16-row
+      // tile of p and four 8-column tiles of n at a time
+      const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, tig = lane & 3;
+      const int mt_n = m.Pp / 16, nt_n = m.Np / 8, units = mt_n * ((nt_n + 3) / 4);
+      for (int u = warp; u < units; u += kWarps) {
+        const int mt = u % mt_n, n_base = (u / mt_n) * 32;
+        float acc[4][4] = {};
+        for (int ks = 0; ks < L / 16; ++ks) {
+          uint32_t ahi[4], alo[4];
+          const int off = (ks * 16 + r8 + (q >> 1) * 8) * m.xs + mt * 16 + (q & 1) * 8;
+          ldsm_x4_trans(ahi, xw + off);
+          ldsm_x4_trans(alo, lo + off);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            const int n0 = n_base + np * 16;
+            if (n0 >= m.Np) break;
+            uint32_t bf[4];
+            ldsm_x4_trans(bf, bt + (ks * 16 + r8 + (q & 1) * 8) * m.bs + n0 + (q >> 1) * 8);
+            mma(acc[2 * np], ahi, bf[0], bf[1]);
+            mma(acc[2 * np + 1], ahi, bf[2], bf[3]);
+            mma(acc[2 * np], alo, bf[0], bf[1]);
+            mma(acc[2 * np + 1], alo, bf[2], bf[3]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = n_base + nt * 8 + 2 * tig;
+          if (n >= a.N) continue;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int p = mt * 16 + g + hf * 8;
+            if (p < a.P)
+              *reinterpret_cast<float2*>(out + p * a.N + n) =
+                  make_float2(acc[nt][2 * hf], acc[nt][2 * hf + 1]);
+          }
+        }
+      }
+    } else {
+      // x w, then S [P x N] in 4 x 4 register tiles over the L rows
+      for (int e = tid; e < L * (a.P / 4); e += kThreads) {
+        const int j = e / (a.P / 4), p = 4 * (e - j * (a.P / 4));
+        float4 v = *reinterpret_cast<const float4*>(xs + j * m.xs + p);
+        const float wj = w_s[j];
+        v.x *= wj; v.y *= wj; v.z *= wj; v.w *= wj;
+        *reinterpret_cast<float4*>(xw + j * m.xs + p) = v;
+      }
+      __syncthreads();
+      const int n4 = a.N / 4;
+      for (int t = tid; t < (a.P / 4) * n4; t += kThreads) {
+        const int p0 = (t / n4) * 4, n0 = (t - (t / n4) * n4) * 4;
+        float acc[4][4] = {};
+        for (int j = 0; j < L; ++j) {
+          const float4 xv = *reinterpret_cast<const float4*>(xw + j * m.xs + p0);
+          const float4 bv = *reinterpret_cast<const float4*>(bt + j * m.bs + n0);
+          const float xr[4] = {xv.x, xv.y, xv.z, xv.w}, br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(xr[u], br[v], acc[u][v]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          *reinterpret_cast<float4*>(out + (p0 + u) * a.N + n0) =
+              make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+      }
+    }
+    __syncthreads();  // the slot and x w are free
+    issue(k + depth, slot);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+// (b) Along the chunks of one (sequence, head), 8 values of the state a
+// thread: h_c = h_{c-1} exp(total_c) + S_c. The workspace's slot c (c > 0)
+// is overwritten with the state entering chunk c; the last state is h_final.
+__global__ void __launch_bounds__(kThreads) state_pass_kernel(const ScanArgs a) {
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int PN = a.P * a.N;
+  const int e0 = (blockIdx.x * kThreads + threadIdx.x) * 8;
+  if (e0 >= PN) return;  // PN is a multiple of 16: a thread's 8 all exist
+  const size_t step = static_cast<size_t>(a.NH) * PN;
+  float* s = a.states + (static_cast<size_t>(b) * a.chunks * a.NH + head) * PN + e0;
+  const float* tot = a.totals + static_cast<size_t>(b) * a.chunks * a.NH + head;
+  float4 h[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  float4 nxt[2] = {reinterpret_cast<const float4*>(s)[0], reinterpret_cast<const float4*>(s)[1]};
+  for (int c = 0; c < a.chunks; ++c) {
+    const float4 cur[2] = {nxt[0], nxt[1]};
+    if (c + 1 < a.chunks) {
+      nxt[0] = reinterpret_cast<const float4*>(s + (c + 1) * step)[0];
+      nxt[1] = reinterpret_cast<const float4*>(s + (c + 1) * step)[1];
+    }
+    const float decay = expf(tot[static_cast<size_t>(c) * a.NH]);
+    if (c > 0) {
+      reinterpret_cast<float4*>(s + c * step)[0] = h[0];
+      reinterpret_cast<float4*>(s + c * step)[1] = h[1];
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      h[k].x = fmaf(h[k].x, decay, cur[k].x);
+      h[k].y = fmaf(h[k].y, decay, cur[k].y);
+      h[k].z = fmaf(h[k].z, decay, cur[k].z);
+      h[k].w = fmaf(h[k].w, decay, cur[k].w);
+    }
+  }
+  float4* ho = reinterpret_cast<float4*>(a.h_out + (static_cast<size_t>(b) * a.NH + head) * PN + e0);
+  ho[0] = h[0];
+  ho[1] = h[1];
+}
+
+// (c) y of each head of the block's group: the intra term through C B^T
+// (computed once for the group) and the inter term through the state
+// entering the chunk, y rounded once to x's type.
+template <typename T, typename TD>
+__global__ void __launch_bounds__(kScanThreads) chunk_scan_kernel(const ScanArgs a, int depth) {
+  constexpr int L = Chunk<T>::kL;
+  constexpr bool kTC = sizeof(T) == 2;
+  const Place at(a, L);
+  const Smem m(kTC, L, a.P, a.N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [C][C B^T (bf16: B staged there first)][the decayed scores (bf16: high
+  // and low parts, [L][L + 8] each)][f32: B]; then cs (log2 units),
+  // exp(cs), dt
+  T* ct = reinterpret_cast<T*>(smem);
+  float* cbm = reinterpret_cast<float*>(smem + m.bc);
+  float* pm = reinterpret_cast<float*>(smem + m.bc + m.cb);
+  T* bt = reinterpret_cast<T*>(kTC ? smem + m.bc : smem + m.bc + 2 * m.cb);
+  __nv_bfloat16* ps_hi = reinterpret_cast<__nv_bfloat16*>(pm);
+  __nv_bfloat16* ps_lo = ps_hi + L * (L + 8);
+  float* cs_s = reinterpret_cast<float*>(smem + m.fixed_c() - m.vec);
+  float* ecs_s = cs_s + L;
+  float* dtv_s = cs_s + 2 * L;
+  float* scratch = cs_s + 3 * L;
+  unsigned char* ring = smem + m.fixed_c();
+  auto x_slot = [&](int s) { return reinterpret_cast<T*>(ring + s * m.slot_c()); };
+  auto h_slot = [&](int s) { return reinterpret_cast<float*>(ring + s * m.slot_c() + m.x); };
+  auto dt_slot = [&](int s) {
+    return reinterpret_cast<uint32_t*>(ring + s * m.slot_c() + m.x + m.h);
+  };
+
+  const T* xg = static_cast<const T*>(a.x) + at.b * a.x_sb + at.t0 * a.x_st;
+  const TD* dtg = static_cast<const TD*>(a.dt) + at.b * a.dt_sb + at.t0 * a.dt_st;
+  const bool inter = at.c > 0;  // chunk 0 enters from a zero state
+  auto issue = [&](int k, int slot) {
+    if (k >= at.nheads) return;
+    const int head = at.h0 + k;
+    copy_rows<kScanThreads>(x_slot(slot), m.xs, xg + head * a.P, a.x_st, at.valid, a.P);
+    if (inter)
+      copy_rows<kScanThreads>(h_slot(slot), m.hs, a.states + at.state(a, head), a.N, a.P, a.N);
+    uint32_t* dw = dt_slot(slot);
+    for (int r = tid; r < at.valid; r += kScanThreads)
+      DtUnit<TD>::load(dw + r, dtg + head * a.dt_sh + r * a.dt_st);
+  };
+
+  zero_pad<kScanThreads>(ct, L, m.bs, at.valid, a.N);
+  zero_pad<kScanThreads>(bt, L, m.bs, at.valid, a.N);
+  for (int s = 0; s < depth; ++s) {
+    zero_pad<kScanThreads>(x_slot(s), L, m.xs, at.valid, a.P);
+    zero_pad<kScanThreads>(h_slot(s), m.Pp, m.hs, a.P, a.N);
+  }
+  copy_rows<kScanThreads>(ct, m.bs, static_cast<const T*>(a.C) + at.b * a.c_sb + at.t0 * a.c_st, a.c_st,
+            at.valid, a.N);
+  copy_rows<kScanThreads>(bt, m.bs, static_cast<const T*>(a.B) + at.b * a.b_sb + at.t0 * a.b_st, a.b_st,
+            at.valid, a.N);
+  for (int s = 0; s < depth; ++s) {
+    issue(s, s);
+    cp_async_commit();  // group 0 also holds B and C
+  }
+  cp_async_wait_pending(depth - 1);
+  __syncthreads();
+
+  const int q = lane >> 3, r8 = lane & 7, g = lane >> 2, tig = lane & 3;
+  // C B^T once for the group: bf16, the 16 x 16 blocks on and below the
+  // diagonal on tensor cores, all in registers before B's bytes are
+  // overwritten; f32, every entry in 4 x 4 register tiles
+  if constexpr (kTC) {
+    constexpr int kRB = L / 16;
+    constexpr int kUnits = kRB * (kRB + 1) / 2;
+    constexpr int kWarpsC = kScanThreads / 32;
+    constexpr int kMine = (kUnits + kWarpsC - 1) / kWarpsC;
+    float acc[kMine][2][4] = {};
+#pragma unroll
+    for (int k = 0; k < kMine; ++k) {
+      const int u = warp + k * kWarpsC;
+      if (u >= kUnits) break;
+      int rb = 0;
+      while ((rb + 1) * (rb + 2) / 2 <= u) ++rb;
+      const int kb = u - rb * (rb + 1) / 2;
+      for (int ks = 0; ks < m.Np / 16; ++ks) {
+        uint32_t af[4], bf[4];
+        ldsm_x4(af, ct + (rb * 16 + r8 + (q & 1) * 8) * m.bs + ks * 16 + (q >> 1) * 8);
+        ldsm_x4(bf, bt + (kb * 16 + r8 + (q >> 1) * 8) * m.bs + ks * 16 + (q & 1) * 8);
+        mma(acc[k][0], af, bf[0], bf[1]);
+        mma(acc[k][1], af, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every read of B is done
+#pragma unroll
+    for (int k = 0; k < kMine; ++k) {
+      const int u = warp + k * kWarpsC;
+      if (u >= kUnits) break;
+      int rb = 0;
+      while ((rb + 1) * (rb + 2) / 2 <= u) ++rb;
+      const int kb = u - rb * (rb + 1) / 2;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(cbm + (rb * 16 + g + hf * 8) * m.cbs + kb * 16 + nt * 8 +
+                                     2 * tig) =
+              make_float2(acc[k][nt][2 * hf], acc[k][nt][2 * hf + 1]);
+    }
+  } else {
+    for (int t = tid; t < (L / 4) * (L / 4); t += kScanThreads) {
+      const int i0 = (t / (L / 4)) * 4, j0 = (t % (L / 4)) * 4;
+      float acc[4][4] = {};
+      for (int n = 0; n < a.N; n += 4) {
+        float4 cv[4], bv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          cv[u] = *reinterpret_cast<const float4*>(ct + (i0 + u) * m.bs + n);
+          bv[u] = *reinterpret_cast<const float4*>(bt + (j0 + u) * m.bs + n);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            acc[u][v] = fmaf(cv[u].x, bv[v].x,
+                             fmaf(cv[u].y, bv[v].y,
+                                  fmaf(cv[u].z, bv[v].z, fmaf(cv[u].w, bv[v].w, acc[u][v]))));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        *reinterpret_cast<float4*>(cbm + (i0 + u) * m.cbs + j0) =
+            make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+    }
+  }
+  __syncthreads();
+
+  for (int k = 0; k < at.nheads; ++k) {
+    const int slot = k % depth;
+    const int head = at.h0 + k;
+    if (k + depth < at.nheads) {  // the head this slot takes next, into L2
+      prefetch_rows<kScanThreads>(xg + (head + depth) * a.P, a.x_st, at.valid, a.P);
+      if (inter && tid == 0)
+        bulk_prefetch_l2(a.states + at.state(a, head + depth),
+                         static_cast<uint32_t>(a.P) * a.N * 4);
+    }
+    if (k > 0) {
+      cp_async_wait_pending(depth - 1);
+      __syncthreads();
+    }
+    const T* xs = x_slot(slot);
+    const float* hs = h_slot(slot);
+    const float d = row_dt(dt_slot(slot), dtg, a, head, at.valid);
+    const float cs = chunk_cumsum<L>(d * a.A[head], scratch);
+    if (tid < L) {
+      cs_s[tid] = cs * kLog2e;  // exp(cs_i - cs_j) = exp2(cs_s[i] - cs_s[j])
+      ecs_s[tid] = expf(cs);
+      dtv_s[tid] = d;
+    }
+    __syncthreads();
+    T* yg = static_cast<T*>(a.y) + (static_cast<int64_t>(at.b) * a.S + at.t0) * a.NH * a.P +
+            head * a.P;
+    const int64_t y_st = static_cast<int64_t>(a.NH) * a.P;
+    if constexpr (kTC) {
+      // the decayed scores on and below the diagonal 16 x 16 blocks, once
+      // a head, as bf16 high and low parts: (C_i . B_j) exp(cs_i - cs_j)
+      // dt_j, 0 above the diagonal (never exponentiated)
+      constexpr int kSS = L + 8;
+      constexpr int kBlocks = (L / 16) * (L / 16 + 1) / 2;
+      for (int e = tid; e < kBlocks * 128; e += kScanThreads) {
+        const int blk = e >> 7;  // warp-uniform: 128 column pairs a block
+        // the block's row: the largest rb with rb (rb + 1) / 2 <= blk
+        // (sqrtf is exact on the perfect squares 8 blk + 1 of a row's start)
+        const int rb = (static_cast<int>(sqrtf(8.f * blk + 1.f)) - 1) >> 1;
+        const int i = rb * 16 + ((e >> 3) & 15);
+        const int j = (blk - rb * (rb + 1) / 2) * 16 + 2 * (e & 7);
+        const float2 cb = *reinterpret_cast<const float2*>(cbm + i * m.cbs + j);
+        const float p0 = j <= i ? cb.x * exp2_neg(cs_s[i] - cs_s[j]) * dtv_s[j] : 0.f;
+        const float p1 =
+            j + 1 <= i ? cb.y * exp2_neg(cs_s[i] - cs_s[j + 1]) * dtv_s[j + 1] : 0.f;
+        split(p0, p1, reinterpret_cast<uint32_t*>(ps_hi + i * kSS + j),
+              reinterpret_cast<uint32_t*>(ps_lo + i * kSS + j));
+      }
+      // the entering state's f32 rows [p][n] become their bf16 high parts
+      // (at n) and low parts (at Np + 8 + n) in place, zeros past N
+      const int kHS = 2 * m.hs;  // a state row in bf16 elements
+      __nv_bfloat16* h_hi = reinterpret_cast<__nv_bfloat16*>(const_cast<float*>(hs));
+      if (inter) {
+        constexpr int kMost = kMaxHead * kMaxState / 4 / kScanThreads;
+        const int n4 = m.Np / 4, units = a.P * n4;
+        // thread tid's t-th value: p = (tid + t kScanThreads) / n4, its n
+        // the same for every t when n4 divides the block
+        const bool even = kScanThreads % n4 == 0;
+        const int p0 = tid / n4, n0 = 4 * (tid % n4), p_step = kScanThreads / n4;
+        auto at = [&](int t, int* p, int* n) {
+          const int e = tid + t * kScanThreads;
+          *p = even ? p0 + t * p_step : e / n4;
+          *n = even ? n0 : 4 * (e % n4);
+          return e < units;
+        };
+        float4 v[kMost];
+#pragma unroll
+        for (int t = 0; t < kMost; ++t) {
+          int p, n;
+          v[t] = at(t, &p, &n) && n < a.N ? *reinterpret_cast<const float4*>(hs + p * m.hs + n)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        __syncthreads();  // every value is read before any is overwritten
+#pragma unroll
+        for (int t = 0; t < kMost; ++t) {
+          int p, n;
+          if (!at(t, &p, &n)) break;
+          uint32_t hi[2], lo[2];
+          split(v[t].x, v[t].y, &hi[0], &lo[0]);
+          split(v[t].z, v[t].w, &hi[1], &lo[1]);
+          *reinterpret_cast<uint2*>(h_hi + p * kHS + n) = make_uint2(hi[0], hi[1]);
+          *reinterpret_cast<uint2*>(h_hi + p * kHS + m.Np + 8 + n) = make_uint2(lo[0], lo[1]);
+        }
+      }
+      __syncthreads();
+      // warp w: row blocks r0 and 7 - r0 (r0 = w % 4; the causal work of
+      // the pair is the same for every warp) and the 16-column pairs of
+      // p tiles cg, cg + 4 (cg = w / 4): two row blocks x up to four
+      // 8-column tiles
+      constexpr int kRB = L / 16;
+      const int r0 = warp & 3, cg = warp >> 2;
+      const int rbs[2] = {r0, kRB - 1 - r0};
+      const int pairs = m.Pp / 16;
+      if (cg < pairs) {
+        float yi[2][4][4] = {}, ye[2][4][4] = {};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int rb = rbs[r];
+          for (int kb = 0; kb <= rb; ++kb) {
+            uint32_t ahi[4], alo[4];
+            const int off = (rb * 16 + r8 + (q & 1) * 8) * kSS + kb * 16 + (q >> 1) * 8;
+            ldsm_x4(ahi, ps_hi + off);
+            ldsm_x4(alo, ps_lo + off);
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              const int pair = cg + 4 * np;
+              if (pair >= pairs) break;
+              uint32_t bf[4];
+              ldsm_x4_trans(bf, xs + (kb * 16 + r8 + (q & 1) * 8) * m.xs + pair * 16 +
+                                    (q >> 1) * 8);
+              mma(yi[r][2 * np], ahi, bf[0], bf[1]);
+              mma(yi[r][2 * np + 1], ahi, bf[2], bf[3]);
+              mma(yi[r][2 * np], alo, bf[0], bf[1]);
+              mma(yi[r][2 * np + 1], alo, bf[2], bf[3]);
+            }
+          }
+        }
+        if (inter) {
+          for (int ks = 0; ks < m.Np / 16; ++ks) {
+            uint32_t af[2][4];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              ldsm_x4(af[r], ct + (rbs[r] * 16 + r8 + (q & 1) * 8) * m.bs + ks * 16 + (q >> 1) * 8);
+#pragma unroll
+            for (int np = 0; np < 2; ++np) {
+              const int pair = cg + 4 * np;
+              if (pair >= pairs) break;
+              // the state as B fragments (k = n, column = p) from its
+              // [p][n] high and low parts
+              const __nv_bfloat16* hp =
+                  h_hi + (pair * 16 + r8 + (q >> 1) * 8) * kHS + ks * 16 + (q & 1) * 8;
+              uint32_t bh[4], bl[4];
+              ldsm_x4(bh, hp);
+              ldsm_x4(bl, hp + m.Np + 8);
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                mma(ye[r][2 * np], af[r], bh[0], bh[1]);
+                mma(ye[r][2 * np + 1], af[r], bh[2], bh[3]);
+              }
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                mma(ye[r][2 * np], af[r], bl[0], bl[1]);
+                mma(ye[r][2 * np + 1], af[r], bl[2], bl[3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int pair = cg + 4 * (nt >> 1);
+            const int p = pair * 16 + (nt & 1) * 8 + 2 * tig;
+            if (pair >= pairs || p >= a.P) continue;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int i = rbs[r] * 16 + g + hf * 8;
+              if (i >= at.valid) continue;
+              const float e = ecs_s[i];
+              *reinterpret_cast<__nv_bfloat162*>(yg + i * y_st + p) = __floats2bfloat162_rn(
+                  fmaf(e, ye[r][nt][2 * hf], yi[r][nt][2 * hf]),
+                  fmaf(e, ye[r][nt][2 * hf + 1], yi[r][nt][2 * hf + 1]));
+            }
+          }
+      }
+    } else {
+      // the decayed scores, then y in 4 x 4 register tiles (rows i, columns p)
+      for (int e = tid; e < L * L; e += kScanThreads) {
+        const int i = e / L, j = e - i * L;
+        pm[i * m.cbs + j] = j <= i ? cbm[i * m.cbs + j] * exp2f(cs_s[i] - cs_s[j]) * dtv_s[j] : 0.f;
+      }
+      __syncthreads();
+      const int p4 = a.P / 4;
+      for (int t = tid; t < (L / 4) * p4; t += kScanThreads) {
+        const int i0 = (t / p4) * 4, p0 = (t - (t / p4) * p4) * 4;
+        float yi[4][4] = {}, ye[4][4] = {};
+        for (int j = 0; j < i0 + 4; ++j) {
+          const float4 xv = *reinterpret_cast<const float4*>(xs + j * m.xs + p0);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float s = pm[(i0 + u) * m.cbs + j];
+            yi[u][0] = fmaf(s, xv.x, yi[u][0]);
+            yi[u][1] = fmaf(s, xv.y, yi[u][1]);
+            yi[u][2] = fmaf(s, xv.z, yi[u][2]);
+            yi[u][3] = fmaf(s, xv.w, yi[u][3]);
+          }
+        }
+        if (inter) {
+          for (int n = 0; n < a.N; n += 4) {
+            float4 cv[4], hv[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              cv[u] = *reinterpret_cast<const float4*>(ct + (i0 + u) * m.bs + n);
+              hv[u] = *reinterpret_cast<const float4*>(hs + (p0 + u) * m.hs + n);
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+#pragma unroll
+              for (int v = 0; v < 4; ++v)
+                ye[u][v] = fmaf(cv[u].x, hv[v].x,
+                                fmaf(cv[u].y, hv[v].y,
+                                     fmaf(cv[u].z, hv[v].z, fmaf(cv[u].w, hv[v].w, ye[u][v]))));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u;
+          if (i >= at.valid) continue;
+          const float e = ecs_s[i];
+          *reinterpret_cast<float4*>(yg + i * y_st + p0) =
+              make_float4(fmaf(e, ye[u][0], yi[u][0]), fmaf(e, ye[u][1], yi[u][1]),
+                          fmaf(e, ye[u][2], yi[u][2]), fmaf(e, ye[u][3], yi[u][3]));
+        }
+      }
+    }
+    __syncthreads();  // the slot is free
+    issue(k + depth, slot);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+template <typename T, typename TD>
+cudaError_t launch(const ScanArgs& a, int Bsz, int depth, cudaStream_t stream) {
+  constexpr int L = Chunk<T>::kL;
+  const Smem m(sizeof(T) == 2, L, a.P, a.N);
+  const size_t smem_a = m.fixed_a() + depth * m.slot_a();
+  const size_t smem_c = m.fixed_c() + depth * m.slot_c();
+  auto ka = chunk_state_kernel<T, TD>;
+  auto kc = chunk_scan_kernel<T, TD>;
+  cudaError_t err = cudaFuncSetAttribute(ka, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_a));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_c));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(NH, Bsz), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), x_sb, x_st, static_cast<const TD*>(dt), dt_sb, dt_st, dt_sh,
-      static_cast<const float*>(A), static_cast<const T*>(Bm), b_sb, b_st,
-      static_cast<const T*>(Cm), c_sb, c_st, static_cast<T*>(y), static_cast<float*>(h_out), S,
-      NH, P, N, depth);
+  const dim3 grid((a.NH + a.group - 1) / a.group, a.chunks, Bsz);
+  ka<<<grid, kThreads, smem_a, stream>>>(a, depth);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int PN = a.P * a.N;
+  state_pass_kernel<<<dim3((PN + 8 * kThreads - 1) / (8 * kThreads), a.NH, Bsz), kThreads, 0,
+                      stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  kc<<<grid, kScanThreads, smem_c, stream>>>(a, depth);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dt(int dt_dtype, const void* x, int64_t x_sb, int64_t x_st, const void* dt,
-                        int64_t dt_sb, int64_t dt_st, int64_t dt_sh, const void* A,
-                        const void* Bm, int64_t b_sb, int64_t b_st, const void* Cm, int64_t c_sb,
-                        int64_t c_st, void* y, void* h_out, int Bsz, int S, int NH, int P, int N,
-                        int depth, cudaStream_t stream) {
-  if (dt_dtype == 0)
-    return launch<T, float>(x, x_sb, x_st, dt, dt_sb, dt_st, dt_sh, A, Bm, b_sb, b_st, Cm, c_sb,
-                            c_st, y, h_out, Bsz, S, NH, P, N, depth, stream);
-  if (dt_dtype == 1)
-    return launch<T, __nv_bfloat16>(x, x_sb, x_st, dt, dt_sb, dt_st, dt_sh, A, Bm, b_sb, b_st,
-                                    Cm, c_sb, c_st, y, h_out, Bsz, S, NH, P, N, depth, stream);
+cudaError_t dispatch_dt(int dt_dtype, const ScanArgs& a, int Bsz, int depth,
+                        cudaStream_t stream) {
+  if (dt_dtype == 0) return launch<T, float>(a, Bsz, depth, stream);
+  if (dt_dtype == 1) return launch<T, __nv_bfloat16>(a, Bsz, depth, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -351,27 +879,29 @@ cudaError_t dispatch_dt(int dt_dtype, const void* x, int64_t x_sb, int64_t x_st,
 
 // dtype (of x, B, C and y) and dt_dtype: 0 = float32, 1 = bfloat16. A is
 // f32 [NH]; strides are in elements. Rows of x (P values) and of B and C
-// (N values) must be whole 16-byte units at 16-byte aligned addresses
-// (the wrapper checks). Returns the cudaError_t of the launch (0 on
-// success); the caller raises on anything else.
+// (N values) must be whole 16-byte units at 16-byte aligned addresses (the
+// wrapper checks). `states` is an f32 workspace of Bsz x chunks x NH x P x
+// N values and `totals` of Bsz x chunks x NH, chunks = ceil(S / kL) (kL:
+// 128 in bf16, 64 in f32). `group` heads share a block of (a) and of (c)
+// (and its C B^T); `depth` heads' tiles are in flight in a block. Three launches on `stream`; returns the
+// first failure's cudaError_t (0 on success).
 extern "C" int repro_ssd_scan(const void* x, long long x_sb, long long x_st, const void* dt,
                               long long dt_sb, long long dt_st, long long dt_sh, const void* A,
                               const void* Bm, long long b_sb, long long b_st, const void* Cm,
-                              long long c_sb, long long c_st, void* y, void* h_out, int Bsz, int S,
-                              int NH, int P, int N, int depth, int dtype, int dt_dtype,
-                              void* stream) {
-  if (Bsz < 1 || S < 1 || NH < 1 || P < 4 || P % 4 != 0 || N < 1 ||
-      N > 32 * kMaxNPerLane || depth < 1) {
+                              long long c_sb, long long c_st, void* y, void* h_out,
+                              void* states, void* totals, int Bsz, int S, int NH, int P, int N,
+                              int depth, int group, int dtype, int dt_dtype, void* stream) {
+  const int L = dtype == 1 ? Chunk<__nv_bfloat16>::kL : Chunk<float>::kL;
+  if (Bsz < 1 || S < 1 || NH < 1 || P < 4 || P % 4 != 0 || P > kMaxHead || N < 4 ||
+      N % 4 != 0 || N > kMaxState || depth < 1 || group < 1 || (dtype != 0 && dtype != 1) ||
+      Bsz > 65535 || (S + L - 1) / L > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  ScanArgs a{x, x_sb, x_st, dt, dt_sb, dt_st, dt_sh, static_cast<const float*>(A), Bm, b_sb,
+             b_st, Cm, c_sb, c_st, y, static_cast<float*>(h_out),
+             static_cast<float*>(states), static_cast<float*>(totals), S, NH, P, N,
+             (S + L - 1) / L, group};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(dispatch_dt<float>(dt_dtype, x, x_sb, x_st, dt, dt_sb, dt_st, dt_sh,
-                                               A, Bm, b_sb, b_st, Cm, c_sb, c_st, y, h_out, Bsz,
-                                               S, NH, P, N, depth, s));
-  if (dtype == 1)
-    return static_cast<int>(dispatch_dt<__nv_bfloat16>(dt_dtype, x, x_sb, x_st, dt, dt_sb, dt_st,
-                                                       dt_sh, A, Bm, b_sb, b_st, Cm, c_sb, c_st,
-                                                       y, h_out, Bsz, S, NH, P, N, depth, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return static_cast<int>(dispatch_dt<float>(dt_dtype, a, Bsz, depth, s));
+  return static_cast<int>(dispatch_dt<__nv_bfloat16>(dt_dtype, a, Bsz, depth, s));
 }

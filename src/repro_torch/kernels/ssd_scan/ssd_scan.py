@@ -12,13 +12,20 @@ one type, dt in another: the SSM block passes dt in f32 after the
 softplus), and x, B and C as strided views (slices of the block's joint
 projection) whose rows are whole 16-byte units.
 
+The kernel (three launches, one call) runs Mamba-2's chunked
+decomposition in parallel over chunks of `CHUNK` rows (128 in bf16, 64 in
+f32, whatever the caller's chunk: equal but for rounding): each chunk's
+own state into an f32 workspace (`workspace_bytes`), a pass along the
+chunks that turns them into the state entering each chunk, and each
+chunk's output through C B^T, computed once for a group of `HEAD_GROUP`
+heads. `plan` says what a call runs.
+
 Depth: `ssd_spec` declares the reference's chunk tile, so the solve is the
 reference's (its per-sequence ``y_block`` resident alone is over a block's
 shared memory at a real sequence length, so it falls to the floor). The
-kernel's tile is `KQ` rows of one head (it computes the SSD at that tile
-length, equal to the chunked result but for rounding); it keeps the solved
-number of tiles in flight, clamped by `kernel_depth` to what one block's
-shared memory holds, to the tile count and to `ring.MAX_DEPTH`.
+kernel reads it as the heads' tiles a block keeps in flight, clamped by
+`kernel_depth` to what one block's shared memory holds, to the heads of a
+group and to `ring.MAX_DEPTH`.
 
 `ssd_scan` picks its path from the device of the tensors it is given: on
 CPU tensors it runs `ssd_scan_plain`; on CUDA tensors it launches the
@@ -29,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,18 +46,37 @@ from repro_torch.core.coro import CoroSpec, LoadStream
 from repro_torch.core.guard import KernelResourceError
 from repro_torch.kernels import ring
 
-__all__ = ["KQ", "MAX_STATE", "fixed_bytes", "kernel_depth", "slot_bytes",
-           "ssd_scan", "ssd_scan_plain", "ssd_spec"]
+__all__ = ["CHUNK", "HEAD_GROUP", "LAUNCHES", "MAX_HEAD", "MAX_STATE",
+           "Plan", "fixed_bytes", "kernel_depth", "plan", "slot_bytes",
+           "ssd_scan", "ssd_scan_at", "ssd_scan_plain", "ssd_spec",
+           "workspace_bytes"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
-KQ = 32                        # kQ in the .cu source: rows per kernel tile
+CHUNK = {torch.bfloat16: 128, torch.float32: 64}   # kL in the .cu source
 MAX_STATE = 128                # the largest state width n the kernel takes
+MAX_HEAD = 128                 # the largest head width p the kernel takes
+HEAD_GROUP = 12                # heads that share a block (and its C B^T)
+LAUNCHES = 3                   # kernels a call launches
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
              + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
              + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
              + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_void_p])
+
+
+class Plan(NamedTuple):
+    """What one kernel call runs: `chunks` chunks of `chunk` rows a
+    sequence, `groups` groups of `group` heads (the last may hold fewer),
+    `depth` heads' tiles in flight a block, an f32 workspace of
+    `workspace_bytes`, `launches` kernels."""
+    chunk: int
+    chunks: int
+    group: int
+    groups: int
+    depth: int
+    workspace_bytes: int
+    launches: int
 
 
 def ssd_spec(chunk: int, nh: int, p: int, n: int, dtype,
@@ -98,33 +124,73 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int):
 # ------------------------------------------------------------- the kernel
 
 
+def _layout(p: int, n: int, itemsize: int) -> dict:
+    """Byte sizes of the kernel's shared-memory tiles (the .cu's `Smem`):
+    bf16 pads p and n to 16, each bf16 row by 8 values and each state row
+    by 12; f32 pads nothing but C B^T's rows, by 4 values."""
+    L = CHUNK[torch.bfloat16 if itemsize == 2 else torch.float32]
+    tc = itemsize == 2
+    pp, np_ = (-(-p // 16) * 16, -(-n // 16) * 16) if tc else (p, n)
+    xs, bs, hs = (pp + 8, np_ + 8, np_ + 12) if tc else (p, n, n)
+    return dict(tc=tc, x=L * xs * itemsize, bc=L * bs * itemsize,
+                h=pp * hs * 4, cb=L * (L + (8 if tc else 4)) * 4, dtw=L * 4,
+                vec=(3 * L + 8) * 4)
+
+
 def slot_bytes(p: int, n: int, itemsize: int) -> int:
-    """Shared memory of one ring slot: x [KQ, p], B and C [KQ, n] in the
-    input type and one 4-byte dt word per row (the .cu's slot_bytes)."""
-    return KQ * (p + 2 * n) * itemsize + KQ * 4
+    """Shared memory of one ring slot of the scan kernel (the .cu's
+    slot_c): a head's x tile, its entering f32 state and its dt words."""
+    m = _layout(p, n, itemsize)
+    return m["x"] + m["h"] + m["dtw"]
 
 
-def fixed_bytes(p: int, n: int) -> int:
-    """Shared memory beside the ring: the f32 state [n, p], the [KQ, KQ]
-    scores and four [KQ] rows (the .cu's fixed_bytes)."""
-    return 4 * (n * p + KQ * KQ + 4 * KQ)
+def fixed_bytes(p: int, n: int, itemsize: int) -> int:
+    """Shared memory of the scan kernel beside the ring (the .cu's
+    fixed_c): C, C B^T, a head's decayed scores (the size of C B^T), the
+    vectors, and in f32 B."""
+    m = _layout(p, n, itemsize)
+    return (1 if m["tc"] else 2) * m["bc"] + 2 * m["cb"] + m["vec"]
 
 
 def kernel_depth(depth: int, *, p: int, n: int, itemsize: int,
                  n_tiles: int) -> int:
-    """Clamp a depth to the tiles the kernel keeps in flight: at most
-    `n_tiles`, at most `ring.MAX_DEPTH`, and no more slots than one block's
-    shared memory holds beside the state."""
+    """Clamp a depth to the heads' tiles a block keeps in flight: at most
+    `n_tiles` (the heads of a group), at most `ring.MAX_DEPTH`, and no more
+    slots than one block's shared memory holds beside C, C B^T and the
+    decayed scores."""
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    fixed, slot = fixed_bytes(p, n), slot_bytes(p, n, itemsize)
+    fixed, slot = fixed_bytes(p, n, itemsize), slot_bytes(p, n, itemsize)
     fit = (ring.SMEM_LIMIT - fixed) // slot
     if fit < 1:
         raise KernelResourceError(
-            f"one tile slot and the state need {fixed + slot} B of shared "
-            f"memory, over {ring.SMEM_LIMIT}", kernel="ssd_scan", depth=1,
-            tile=(KQ, p, n))
+            f"one tile slot and the chunk's tiles need {fixed + slot} B of "
+            f"shared memory, over {ring.SMEM_LIMIT}", kernel="ssd_scan",
+            depth=1, tile=(p, n))
     return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
+
+
+def workspace_bytes(b: int, s: int, nh: int, p: int, n: int,
+                    itemsize: int) -> int:
+    """The f32 workspace of a call: every chunk's state [b, chunks, nh, p,
+    n] and its sum of dt A [b, chunks, nh]."""
+    L = CHUNK[torch.bfloat16 if itemsize == 2 else torch.float32]
+    chunks = -(-s // L)
+    return 4 * b * chunks * nh * (p * n + 1)
+
+
+def plan(b: int, s: int, nh: int, p: int, n: int, itemsize: int,
+         depth: int, group: int = HEAD_GROUP) -> Plan:
+    """The kernel's plan for a call at `depth` (clamped by `kernel_depth`
+    to the group's heads) and head group `group` (at most nh)."""
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    group = min(group, nh)
+    L = CHUNK[torch.bfloat16 if itemsize == 2 else torch.float32]
+    return Plan(L, -(-s // L), group, -(-nh // group),
+                kernel_depth(depth, p=p, n=n, itemsize=itemsize,
+                             n_tiles=group),
+                workspace_bytes(b, s, nh, p, n, itemsize), LAUNCHES)
 
 
 def _check(x, dt, A, B, C, chunk: int) -> None:
@@ -155,8 +221,9 @@ def _check_cuda(x, dt, B, C) -> None:
         raise TypeError(f"B ({B.dtype}) and C ({C.dtype}) must match x "
                         f"({x.dtype})")
     p, n = x.shape[3], B.shape[2]
-    if n > MAX_STATE:
-        raise ValueError(f"state width {n} over {MAX_STATE}")
+    if n > MAX_STATE or p > MAX_HEAD:
+        raise ValueError(f"state width {n} or head width {p} over "
+                         f"{MAX_STATE} or {MAX_HEAD}")
     if x.stride(3) != 1 or (x.shape[2] > 1 and x.stride(2) != p) or \
             B.stride(2) != 1 or C.stride(2) != 1:
         raise ValueError("x needs packed heads of unit stride, B and C a "
@@ -178,9 +245,9 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64,
     B,C:[b,s,n]; s a multiple of `chunk`. Returns (y [b,s,nh,p] in x's
     type, h_final [b,nh,p,n] f32).
 
-    `depth` is the number of tiles in flight; None solves it from
-    `ssd_spec` through `core.autotune.choose_depth`. Either is clamped by
-    `kernel_depth` and recorded as run, for `autotune.last_choice("ssd_scan")`.
+    `depth` is the number of heads' tiles in flight a block; None solves it
+    from `ssd_spec` through `core.autotune.choose_depth`. Either is clamped
+    by `plan` and recorded as run, for `autotune.last_choice("ssd_scan")`.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
@@ -189,24 +256,39 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64,
     _check(x, dt, A, B, C, chunk)
     bsz, s, nh, p = x.shape
     n = B.shape[2]
-    spec = ssd_spec(chunk, nh, p, n, x.dtype, seq_len=s)
     if depth is None:
+        spec = ssd_spec(chunk, nh, p, n, x.dtype, seq_len=s)
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
-    depth = kernel_depth(depth, p=p, n=n, itemsize=x.element_size(),
-                         n_tiles=-(-s // KQ))
-    autotune.record_choice(spec.name, depth)
+    run = plan(bsz, s, nh, p, n, x.element_size(), depth)
+    autotune.record_choice("ssd_scan", run.depth)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    return ssd_scan_at(x, dt, A, B, C, chunk=chunk, depth=run.depth)
+
+
+def ssd_scan_at(x, dt, A, B, C, *, chunk: int, depth: int,
+                group: int = HEAD_GROUP):
+    """`ssd_scan` on CUDA tensors at a given depth and head group (no
+    solve, no record). One call: `LAUNCHES` kernels, one count."""
+    _check(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError("ssd_scan_at takes CUDA tensors")
     _check_cuda(x, dt, B, C)
+    bsz, s, nh, p = x.shape
+    n = B.shape[2]
+    run = plan(bsz, s, nh, p, n, x.element_size(), depth, group)
     y = torch.empty((bsz, s, nh, p), dtype=x.dtype, device=x.device)
     h_final = torch.empty((bsz, nh, p, n), dtype=torch.float32,
                           device=x.device)
     if y.numel() == 0:
         return y, h_final.zero_()
     a32 = A.to(torch.float32).contiguous()
+    work = torch.empty(run.workspace_bytes // 4, dtype=torch.float32,
+                       device=x.device)
+    totals = work[bsz * run.chunks * nh * p * n:]
     lib = ring.library(SOURCE, "repro_ssd_scan", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -215,10 +297,11 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64,
             dt.data_ptr(), dt.stride(0), dt.stride(1), dt.stride(2),
             a32.data_ptr(), B.data_ptr(), B.stride(0), B.stride(1),
             C.data_ptr(), C.stride(0), C.stride(1),
-            y.data_ptr(), h_final.data_ptr(), bsz, s, nh, p, n, depth,
+            y.data_ptr(), h_final.data_ptr(), work.data_ptr(),
+            totals.data_ptr(), bsz, s, nh, p, n, run.depth, run.group,
             ring.DTYPE_CODE[x.dtype], ring.DTYPE_CODE[dt.dtype], stream)
-    ring.raise_on_error(err, lib, kernel="ssd_scan", depth=depth,
-                        tile=(KQ, p, n))
+    ring.raise_on_error(err, lib, kernel="ssd_scan", depth=run.depth,
+                        tile=(run.chunk, p, n))
     ssd_scan.launches += 1
     return y, h_final
 

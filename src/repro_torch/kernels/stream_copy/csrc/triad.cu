@@ -2,28 +2,34 @@
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/stream_copy/stream_copy.py:triad  (K7)
-// a = b + s * c over [N, d] arrays in tiles of `rows` rows. The product and
-// the sum are each rounded in f32 (__fmul_rn, __fadd_rn: no FMA
-// contraction) and the result rounded once to the arrays' type, so in f32
-// it equals the plain version bit for bit. `s` arrives already rounded to
-// the arrays' type, as the reference passes it.
+// a = b + s * c over [N, d] arrays. The product and the sum are each
+// rounded in f32 (__fmul_rn, __fadd_rn: no FMA contraction) and the result
+// rounded once to the arrays' type, so in f32 it equals the plain version
+// bit for bit. `s` arrives already rounded to the arrays' type, as the
+// reference passes it.
 //
 // What bounds it: bytes. Two loads and one store per element and two flops,
 // far below the card's balance point, so its floor is 3 x N x d x itemsize
 // over 3.35 TB/s. What the design does about it:
-//   * a thread block is one coroutine scheduler over a contiguous range of
-//     tiles; it keeps `depth` tiles of b and c in flight in a shared-memory
-//     ring filled by cp.async, one commit group per tile (both loads of a
-//     tile are one aset group), while the tile before is computed and
-//     stored; the depth is solved on the host from the CoroSpec and clamped
-//     to shared memory (a 128 x 128 f32 tile pair is 128 KiB, so one slot)
-//     and to the tile count;
-//   * the store stream (the reference's StoreStream) is a plain global store
-//     from registers: it does not stall the thread and needs no slot;
-//   * 16-byte units where the tiles and pointers allow, else 4-byte words,
-//     else (bf16 tiles of an odd number of values) 2-byte units
-//     (coro_ring.cuh), consecutive threads on consecutive addresses; a
-//     thread reads back only the units it copied, so no block barrier.
+//   * the arrays are cut into equal items (a slice of the caller's tile of
+//     `rows` rows: contiguous, a few KiB of each array); block g takes the
+//     `slots` consecutive items from g x slots and makes one pass over them,
+//     so the block scheduler, which starts blocks in order as others
+//     finish, keeps the bytes in flight in one narrow window that moves
+//     through the arrays. (A persistent grid, each block walking items g,
+//     g + grid, ..., read slower on an H100 at every split tried: its
+//     blocks drift apart, and the window widens.);
+//   * one thread loads each item's b and c slices with one bulk copy each
+//     (cp.async.bulk), all of the block's items at once, each slot
+//     completing on its own mbarrier: no thread spends an instruction per
+//     16 bytes on the loads, and the item's bytes in flight on an SM are
+//     its resident blocks' slots;
+//   * a is computed in place over b's slice and written back with one bulk
+//     store (kBulkStore), or stored from registers with 16-byte streaming
+//     stores (kStreamStore);
+//   * items off 16-byte sizes or addresses (the 4-byte and bf16 2-byte
+//     units) take a unit path in the same kernel: plain loads and stores of
+//     4- or 2-byte units, consecutive threads on consecutive addresses.
 //
 // Built by repro_torch/kernels/build.py with nvcc for sm_90a into a shared
 // library with a plain C interface, called through ctypes.
@@ -32,104 +38,121 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kBulkStore = 0;    // a written back from the slot by a bulk store
+constexpr int kStreamStore = 1;  // a stored from registers, st.global.cs
 
-template <typename T, typename V>
+// V is the copy unit: uint4 takes the bulk path, uint32_t / uint16_t the
+// unit path. An item is `item_bytes` of each array; block g takes items
+// [g x slots, g x slots + slots) that exist.
+template <typename T, typename V, int kStore>
 __global__ void __launch_bounds__(kThreads)
     triad_kernel(const V* __restrict__ b, const V* __restrict__ c, V* __restrict__ a, float s,
-                 int64_t n_tiles, int64_t tiles_per_block, int tile_units, int depth) {
-  using U = repro::Unit<V>;
-  using Slot = typename U::Slot;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Slot* ring = reinterpret_cast<Slot*>(smem);  // slot k: [b tile | c tile]
-  int64_t first, count;
-  repro::block_tiles(n_tiles, tiles_per_block, &first, &count);
+                 int64_t items, int item_bytes, int slots) {
+  const int tid = threadIdx.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * slots;
+  const int count = static_cast<int>(min(static_cast<int64_t>(slots), items - first));
+  const int units = item_bytes / static_cast<int>(sizeof(V));
+  auto first_unit = [&](int k) { return (first + k) * units; };
 
-  auto issue = [&](int64_t t, int slot) {
-    Slot* bs = ring + static_cast<size_t>(slot) * 2 * tile_units;
-    Slot* cs = bs + tile_units;
-    const int64_t off = t * tile_units;
-    for (int u = threadIdx.x; u < tile_units; u += kThreads) {
-      U::load(bs + u, b + off + u);
-      U::load(cs + u, c + off + u);
+  if constexpr (sizeof(V) != 16) {
+    for (int k = 0; k < count; ++k) {
+      const int64_t off = first_unit(k);
+      for (int u = tid; u < units; u += kThreads)
+        a[off + u] = repro::axpy_unit<T, V, true>(b[off + u], c[off + u], s);
     }
-  };
-
-  for (int k = 0; k < depth; ++k) {
-    if (k < count) issue(first + k, k);
-    repro::cp_async_commit();
+  } else {
+    // slot k: [b item | c item]; then one mbarrier per slot
+    extern __shared__ __align__(128) unsigned char smem[];
+    V* ring = reinterpret_cast<V*>(smem);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + static_cast<size_t>(slots) * 2 * item_bytes);
+    if (tid == 0) {
+      for (int k = 0; k < count; ++k) repro::mbar_init(full + k, 1);
+      repro::mbar_fence_init();
+      for (int k = 0; k < count; ++k) {
+        V* bs = ring + static_cast<size_t>(k) * 2 * units;
+        repro::mbar_arrive_expect_tx(full + k, 2u * item_bytes);
+        repro::bulk_load(bs, b + first_unit(k), item_bytes, full + k);
+        repro::bulk_load(bs + units, c + first_unit(k), item_bytes, full + k);
+      }
+    }
+    __syncthreads();  // the mbarriers are initialised
+    for (int k = 0; k < count; ++k) {
+      repro::mbar_wait(full + k, 0);
+      V* bs = ring + static_cast<size_t>(k) * 2 * units;
+      const V* cs = bs + units;
+      if constexpr (kStore == kBulkStore) {
+        for (int u = tid; u < units; u += kThreads)
+          bs[u] = repro::axpy_unit<T, V, true>(bs[u], cs[u], s);
+        repro::fence_proxy_async();  // the writes above, seen by the bulk store
+        __syncthreads();
+        if (tid == 0) {
+          repro::bulk_store(a + first_unit(k), bs, item_bytes);
+          repro::bulk_commit();
+        }
+      } else {
+        V* out = a + first_unit(k);
+        for (int u = tid; u < units; u += kThreads)
+          repro::st_global_cs(out + u, repro::axpy_unit<T, V, true>(bs[u], cs[u], s));
+      }
+    }
+    // the slots stay allocated until every bulk store has read them
+    if (kStore == kBulkStore && tid == 0) repro::bulk_wait<0>();
   }
-  for (int64_t i = 0; i < count; ++i) {
-    const int slot = static_cast<int>(i % depth);
-    repro::cp_async_wait_pending(depth - 1);
-    const Slot* bs = ring + static_cast<size_t>(slot) * 2 * tile_units;
-    const Slot* cs = bs + tile_units;
-    const int64_t off = (first + i) * tile_units;
-    for (int u = threadIdx.x; u < tile_units; u += kThreads)
-      a[off + u] = repro::axpy_unit<T, V, true>(U::read(bs + u, b + off + u),
-                                                U::read(cs + u, c + off + u), s);
-    if (i + depth < count) issue(first + i + depth, slot);
-    repro::cp_async_commit();
-  }
-  repro::cp_async_wait<0>();
 }
 
-template <typename T, typename V>
-cudaError_t launch(const void* b, const void* c, void* a, float s, int64_t n_tiles,
-                   int64_t tiles_per_block, int grid, int tile_bytes, int depth,
-                   cudaStream_t stream) {
-  const int tile_units = tile_bytes / static_cast<int>(sizeof(V));
-  const size_t smem = static_cast<size_t>(depth) * 2 * tile_units *
-                      sizeof(typename repro::Unit<V>::Slot);
-  auto kernel = triad_kernel<T, V>;
+template <typename T, typename V, int kStore>
+cudaError_t launch(const void* b, const void* c, void* a, float s, int64_t items, int item_bytes,
+                   int slots, cudaStream_t stream) {
+  const size_t smem = sizeof(V) == 16 ? static_cast<size_t>(slots) * (2 * item_bytes + 8) : 0;
+  auto kernel = triad_kernel<T, V, kStore>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const V*>(b), static_cast<const V*>(c),
-                                           static_cast<V*>(a), s, n_tiles, tiles_per_block,
-                                           tile_units, depth);
+  const int64_t grid = (items + slots - 1) / slots;
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+      static_cast<const V*>(b), static_cast<const V*>(c), static_cast<V*>(a), s, items,
+      item_bytes, slots);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_unit(int unit, const void* b, const void* c, void* a, float s,
-                          int64_t n_tiles, int64_t tiles_per_block, int grid, int tile_bytes,
-                          int depth, cudaStream_t stream) {
+cudaError_t dispatch(int unit, int store, const void* b, const void* c, void* a, float s,
+                     int64_t items, int item_bytes, int slots, cudaStream_t stream) {
   if (unit == 16)
-    return launch<T, uint4>(b, c, a, s, n_tiles, tiles_per_block, grid, tile_bytes, depth,
-                            stream);
+    return store == kBulkStore
+               ? launch<T, uint4, kBulkStore>(b, c, a, s, items, item_bytes, slots, stream)
+               : launch<T, uint4, kStreamStore>(b, c, a, s, items, item_bytes, slots, stream);
   if (unit == 4)
-    return launch<T, uint32_t>(b, c, a, s, n_tiles, tiles_per_block, grid, tile_bytes, depth,
-                               stream);
+    return launch<T, uint32_t, kStreamStore>(b, c, a, s, items, item_bytes, slots, stream);
   if constexpr (sizeof(T) == 2) {
     if (unit == 2)
-      return launch<T, uint16_t>(b, c, a, s, n_tiles, tiles_per_block, grid, tile_bytes, depth,
-                                 stream);
+      return launch<T, uint16_t, kStreamStore>(b, c, a, s, items, item_bytes, slots, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// a = b + s * c over n_tiles contiguous tiles of tile_bytes each. dtype:
-// 0 = float32, 1 = bfloat16. unit: copy unit in bytes, 16, 4 or (bfloat16)
-// 2. depth is at most repro::kMaxDepth. Returns the cudaError_t of the launch
-// (0 on success).
-extern "C" int repro_triad(const void* b, const void* c, void* a, float s, long long n_tiles,
-                           long long tiles_per_block, int grid, int tile_bytes, int depth,
-                           int dtype, int unit, void* stream) {
-  if (n_tiles < 1 || tiles_per_block < 1 || grid < 1 || depth < 1 ||
-      depth > repro::kMaxDepth || unit < 2 || tile_bytes < unit || tile_bytes % unit != 0) {
+// a = b + s * c over `items` contiguous items of `item_bytes` each, `slots`
+// consecutive items a block (ceil(items / slots) blocks). dtype: 0 =
+// float32, 1 = bfloat16. unit: 16 (the bulk path: item_bytes and the
+// pointers 16-byte aligned; store 0 = bulk store, 1 = streaming stores), or
+// 4 or (bfloat16) 2 (the unit path; store unused). Returns the cudaError_t
+// of the launch (0 on success).
+extern "C" int repro_triad(const void* b, const void* c, void* a, float s, long long items,
+                           int item_bytes, int slots, int dtype, int unit, int store,
+                           void* stream) {
+  if (items < 1 || slots < 1 || unit < 2 || item_bytes < unit || item_bytes % unit != 0 ||
+      (items + slots - 1) / slots > 0x7fffffffLL || store < 0 || store > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_unit<float>(unit, b, c, a, s, n_tiles, tiles_per_block, grid, tile_bytes,
-                               depth, st);
+    err = dispatch<float>(unit, store, b, c, a, s, items, item_bytes, slots, st);
   } else if (dtype == 1) {
-    err = dispatch_unit<__nv_bfloat16>(unit, b, c, a, s, n_tiles, tiles_per_block, grid,
-                                       tile_bytes, depth, st);
+    err = dispatch<__nv_bfloat16>(unit, store, b, c, a, s, items, item_bytes, slots, st);
   } else {
     err = cudaErrorInvalidValue;
   }

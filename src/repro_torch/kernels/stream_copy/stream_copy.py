@@ -8,6 +8,16 @@ b and c stream in while tiles of a stream back out. The CUDA kernel
 (`csrc/triad.cu`, hand-written for sm_90a) replaces the TPU kernel
 ``src/repro/kernels/stream_copy/stream_copy.py:triad``.
 
+The kernel cuts the arrays into items, equal slices of the caller's tile
+of `rows` rows, and gives each thread block `slots` consecutive items (one
+by default), loaded with one bulk copy per array: the block scheduler
+starts the blocks in order, so the bytes in flight stay in one window that
+moves through the arrays. The solved depth (tiles of `rows` rows in flight
+per SM) sets the item: the largest slice such that the blocks resident on
+an SM hold at most `depth` tiles (`plan`); the depth recorded is what the
+resident blocks hold. Items off 16-byte sizes or addresses take the
+kernel's unit path.
+
 The scalar is rounded to the arrays' type first, as the reference passes
 it; the product and the sum are each rounded in f32 and the result once to
 the arrays' type, in the kernel and the plain version alike (the reference
@@ -19,20 +29,35 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.coro import CoroSpec, LoadStream, StoreStream
 from repro_torch.kernels import ring
 
-__all__ = ["triad", "triad_plain", "triad_spec"]
+__all__ = ["Plan", "plan", "resident_blocks", "triad", "triad_at",
+           "triad_plain", "triad_spec"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "triad.cu"
-THREADS = 256                  # kThreads in the .cu source
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
-             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
-             + [ctypes.c_void_p])
+THREADS = 128                  # kThreads in the .cu source
+BARRIER_BYTES = 8              # a slot's mbarrier
+STORES = {"bulk": 0, "stream": 1}   # kBulkStore, kStreamStore in the source
+STORE = "stream"               # the store form `triad` launches (faster)
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_longlong]
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+class Plan(NamedTuple):
+    """How the kernel runs a triad: `items` items of `item_rows` rows (a
+    divisor of the caller's `rows`), one a block; `blocks_per_sm` of them
+    resident on an SM at once, holding `depth` tiles of `rows` rows
+    (rounded up)."""
+    item_rows: int
+    items: int
+    blocks_per_sm: int
+    depth: int
 
 
 def triad_spec(rows: int, d: int, dtype) -> CoroSpec:
@@ -57,48 +82,102 @@ def triad_plain(b: torch.Tensor, c: torch.Tensor, scalar) -> torch.Tensor:
     return (b.float() + s * c.float()).to(b.dtype)
 
 
+def resident_blocks(item_bytes: int, slots: int = 1) -> int:
+    """Blocks of `slots` items of `item_bytes` (of each array) that one SM
+    holds at once (`ring.resident_blocks`; the unit path keeps no slots)."""
+    smem = slots * (2 * item_bytes + BARRIER_BYTES) if item_bytes % 16 == 0 \
+        else 0
+    return ring.resident_blocks(smem, THREADS)
+
+
+def plan(n: int, d: int, itemsize: int, rows: int, depth: int) -> Plan:
+    """The items of an [n, d] triad in tiles of `rows` rows at `depth`
+    tiles in flight per SM (clamped by `ring.kernel_depth`: a tile's b and
+    c in one block's shared memory, at most the tile count): the largest
+    divisor of `rows` at most depth x rows over the blocks an SM's threads
+    allow (whole 16-byte units when the tile is; else the smallest such
+    divisor)."""
+    row_bytes = d * itemsize
+    depth = ring.kernel_depth(depth, slot_bytes=2 * rows * row_bytes,
+                              n_tiles=n // rows)
+    align = 16 if rows * row_bytes % 16 == 0 else 1
+    fits = [r for r in range(rows, 0, -1)
+            if rows % r == 0 and r * row_bytes % align == 0]
+    most = depth * rows // (ring.MAX_THREADS_PER_SM // THREADS)
+    r = next((r for r in fits if r <= most), fits[-1])
+    per_sm = resident_blocks(r * row_bytes)
+    return Plan(r, n // r, per_sm, -(-per_sm * r // rows))
+
+
+def _check(b: torch.Tensor, c: torch.Tensor, rows: int) -> int:
+    """The tile count of a triad; raises on what it does not take."""
+    if b.dim() != 2 or c.shape != b.shape:
+        raise ValueError(f"need b and c of one [N, d] shape, got "
+                         f"{tuple(b.shape)} and {tuple(c.shape)}")
+    if rows < 1 or b.shape[0] % rows:
+        raise ValueError(f"N={b.shape[0]} must be a multiple of rows={rows}")
+    return b.shape[0] // rows
+
+
 def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
           depth: Optional[int] = None) -> torch.Tensor:
     """a = b + scalar * c over [N, d] arrays, N a multiple of `rows`.
 
-    `depth` is the number of tiles of `rows` rows in flight per thread
-    block; None solves it from `triad_spec`.
+    `depth` is the number of tiles of `rows` rows in flight per SM, run as
+    `plan`'s items; None solves it from `triad_spec` (and records the
+    plan's depth).
     """
-    if b.dim() != 2 or c.shape != b.shape:
-        raise ValueError(f"need b and c of one [N, d] shape, got "
-                         f"{tuple(b.shape)} and {tuple(c.shape)}")
-    n, d = b.shape
-    if rows < 1 or n % rows:
-        raise ValueError(f"N={n} must be a multiple of rows={rows}")
-    n_tiles = n // rows
+    _check(b, c, rows)
     cuda = ring.route("stream_triad", ("b", b), ("c", c))
-    spec = triad_spec(rows, d, b.dtype)
-    tile_bytes = rows * d * b.element_size()
-    unit = ring.copy_unit(tile_bytes, (b, c))
-    slot_bytes = ring.ring_bytes(2 * tile_bytes, unit)
-    depth = ring.solve_depth(spec, depth, n_tiles=n_tiles,
-                             slot_bytes=slot_bytes)
+    n, d = b.shape
+    if depth is None:
+        spec = triad_spec(rows, d, b.dtype)
+        p = plan(n, d, b.element_size(), rows, autotune.choose_depth(
+            spec.profile(), kernel=spec.name, vars=spec.all_vars()))
+        autotune.record_choice(spec.name, p.depth)
+    else:
+        p = plan(n, d, b.element_size(), rows, depth)
     if not cuda:
         return triad_plain(b, c, scalar)
+    return triad_at(b, c, scalar, rows=rows, item_rows=p.item_rows)
+
+
+def triad_at(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
+             item_rows: int, slots: int = 1,
+             store: str = STORE) -> torch.Tensor:
+    """`triad` on CUDA tensors at a given plan: items of `item_rows` rows
+    (a divisor of `rows`), `slots` consecutive items a block, the output
+    written by `store` ("bulk" or "stream"); no solve, no record. Counts
+    one launch."""
+    n_tiles = _check(b, c, rows)
+    if not ring.route("stream_triad", ("b", b), ("c", c)):
+        raise ValueError("triad_at takes CUDA tensors")
     if b.dtype not in ring.DTYPE_CODE or c.dtype != b.dtype:
         raise TypeError(f"stream_triad: kernel takes float32 or bfloat16 "
                         f"arrays of one type, got {b.dtype} and {c.dtype}")
+    if item_rows < 1 or rows % item_rows or slots < 1 or \
+            store not in STORES:
+        raise ValueError(f"need item_rows dividing rows={rows}, slots >= 1 "
+                         f"and a store in {sorted(STORES)}, got "
+                         f"{item_rows}, {slots}, {store!r}")
     a = torch.empty_like(b)
     if n_tiles == 0:
         return a
-    tile = (rows, d)
-    smem = depth * slot_bytes
-    ring.check_smem(smem, kernel="stream_triad", depth=depth, tile=tile)
-    grid, per_block = ring.launch_grid(b.device, n_tiles, depth, smem,
-                                       THREADS)
+    item_bytes = item_rows * b.shape[1] * b.element_size()
+    unit = ring.copy_unit(item_bytes, (b, c, a))
+    tile = (item_rows, b.shape[1])
+    if unit == 16:
+        ring.check_smem(slots * (2 * item_bytes + BARRIER_BYTES),
+                        kernel="stream_triad", depth=slots, tile=tile)
     lib = ring.library(SOURCE, "repro_triad", _ARGTYPES)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = lib.repro_triad(b.data_ptr(), c.data_ptr(), a.data_ptr(),
-                              _scalar(scalar, b.dtype), n_tiles, per_block,
-                              grid, tile_bytes, depth,
-                              ring.DTYPE_CODE[b.dtype], unit, stream)
-    ring.raise_on_error(err, lib, kernel="stream_triad", depth=depth,
+                              _scalar(scalar, b.dtype),
+                              b.shape[0] // item_rows, item_bytes, slots,
+                              ring.DTYPE_CODE[b.dtype], unit, STORES[store],
+                              stream)
+    ring.raise_on_error(err, lib, kernel="stream_triad", depth=slots,
                         tile=tile)
     triad.launches += 1
     return a

@@ -52,7 +52,7 @@ from repro_torch.kernels.decode_attention.decode_attention import (
     flash_decode,
 )
 from repro_torch.kernels.moe_gmm.moe_gmm import gmm, gmm_spec, n_slices
-from repro_torch.kernels.ssd_scan.ssd_scan import KQ, ssd_scan, ssd_spec
+from repro_torch.kernels.ssd_scan.ssd_scan import CHUNK, ssd_scan, ssd_spec
 from repro_torch.kernels.stream_copy.ops import stream_triad
 from repro_torch.kernels.stream_copy.stream_copy import (
     triad,
@@ -232,7 +232,7 @@ def _json_workloads(device):
     a = _tensor(-np.abs(rng.randn(2)).astype(np.float32), device)
     bm = _tensor(rng.randn(1, 128, 16).astype(np.float32), device)
     cm = _tensor(rng.randn(1, 128, 16).astype(np.float32), device)
-    n_x = 2 * (128 // KQ)             # (sequence, head) blocks x KQ-row tiles
+    n_x = 2 * (128 // CHUNK[f32])     # (chunk, head) tiles of x streamed
     tb = _tensor(rng.randn(256, 64).astype(np.float32), device)
     tc = _tensor(rng.randn(256, 64).astype(np.float32), device)
     return [

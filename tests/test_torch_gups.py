@@ -211,12 +211,12 @@ def test_kernel_bench_table_and_json_on_cpu():
     assert rep["kernels"]["moe_gmm"]["ran_depth"] == 2
     # the reference's flash-decode and SSD workloads: decode_spec(64, 2, 4,
     # 16, f32) solves 14 and the kernel runs its 2 tiles; ssd_spec(64, 2,
-    # 8, 16, f32, seq_len=128) solves 17 and the kernel runs its 4 tiles
-    # of 32 rows
+    # 8, 16, f32, seq_len=128) solves 17 and the kernel keeps its 2 heads'
+    # tiles in flight (both heads are one group)
     assert [rep["kernels"]["flash_decode"][k]
             for k in ("static_depth", "ran_depth")] == [14, 2]
     assert [rep["kernels"]["ssd_scan"][k]
-            for k in ("static_depth", "ran_depth")] == [17, 4]
+            for k in ("static_depth", "ran_depth")] == [17, 2]
     for entry in rep["kernels"].values():
         assert entry["ran_depth"] <= entry["static_depth"]
         assert entry["samples"] == 0        # the CPU feeds no transfer samples

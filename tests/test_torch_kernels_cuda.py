@@ -489,6 +489,54 @@ def test_triad_matches_plain(cuda_device, dtype, tol, n, d, rows):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
     assert launch_counts()["stream_triad"] == 3
+    if dtype == torch.float32:
+        assert torch.equal(sc.triad(b, c, 3.0, rows=rows), want)
+
+
+# (n, d, rows, item_rows, slots a block): items smaller than the caller's
+# tile, fewer caller tiles than blocks, a last block with fewer items than
+# the others (301 items in twos and fours), deeper blocks
+TRIAD_WALKS = [(4096, 128, 128, 8, 1), (4096, 128, 128, 32, 3),
+               (256, 128, 128, 8, 2), (301 * 16, 64, 16, 16, 2),
+               (301 * 16, 64, 16, 16, 4), (640, 96, 64, 16, 1),
+               (1 << 16, 128, 128, 32, 6)]
+
+
+@pytest.mark.parametrize("store", ["bulk", "stream"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,rows,item,slots", TRIAD_WALKS)
+def test_triad_items_and_slots(cuda_device, store, dtype, n, d, rows, item,
+                               slots):
+    b = _table(cuda_device, n, d, dtype, seed=7)
+    c = _table(cuda_device, n, d, dtype, seed=8)
+    got = sc.triad_at(b, c, 3.0, rows=rows, item_rows=item, slots=slots,
+                      store=store)
+    want = sc.triad_plain(b, c, 3.0)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert launch_counts()["stream_triad"] == 1
+
+
+@pytest.mark.parametrize("dtype,n,d,rows", [
+    (torch.float32, 64, 3, 2), (torch.float32, 63, 3, 1),     # 4-byte units
+    (torch.bfloat16, 64, 3, 2), (torch.bfloat16, 63, 3, 1),   # 4, 2 bytes
+    (torch.float32, 257, 33, 16)])          # 16-byte items, a view 132 B in
+def test_triad_unit_path(cuda_device, dtype, n, d, rows):
+    b = _table(cuda_device, n, d, dtype, seed=9)
+    c = _table(cuda_device, n, d, dtype, seed=10)
+    if n % rows:                                  # a view one row in
+        b, c = b[1:], c[1:]
+    got = sc.triad(b, c, 2.5, rows=rows)
+    want = sc.triad_plain(b, c, 2.5)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert launch_counts()["stream_triad"] == 1
 
 
 def test_gups_kernels_raise_instead_of_falling_back(cuda_device):
@@ -698,6 +746,34 @@ def test_ssd_scan_matches_plain(cuda_device, dtype, dt_dtype, chunk, nh, p, n,
     assert launch_counts()["ssd_scan"] == 1
 
 
+@pytest.mark.parametrize("dtype,dt_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("s,nh,p,n,group", [
+    (128, 24, 64, 128, 6),      # one bf16 chunk (two f32 chunks)
+    (256, 24, 64, 128, 6),      # two
+    (1024, 24, 64, 128, 6),     # eight
+    (4096, 4, 64, 128, 6),
+    (208, 50, 64, 16, 6),       # hymba's heads in groups of 6 and 2, s off
+    (192, 8, 16, 32, 6),        # 8 heads: 6 and 2
+    (48, 8, 16, 16, 3),
+    (256, 24, 64, 128, 1), (256, 24, 64, 128, 8), (256, 24, 64, 128, 24)])
+def test_ssd_scan_chunks_and_head_groups(cuda_device, dtype, dt_dtype, s, nh,
+                                         p, n, group):
+    """The chunk-parallel kernel at 1, 2, 8 and 32 chunks, s off the chunk,
+    head counts off the group and groups of 1 to every head; one call,
+    one count, whatever its launches."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    args = _ssd_problem(cuda_device, 2, s, nh, p, n, dtype=dtype,
+                        dt_dtype=dt_dtype, seed=s + nh + group)
+    got = ss.ssd_scan_at(*args, chunk=16, depth=2, group=group)
+    want = ss.ssd_scan_plain(*args, chunk=16)
+    torch.cuda.synchronize()
+    _ssd_close(got, want, dtype)
+    assert launch_counts()["ssd_scan"] == 1
+
+
 def test_ssd_scan_strong_decay_stays_finite(cuda_device):
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.models.ssm import ssd_sequential
@@ -709,8 +785,9 @@ def test_ssd_scan_strong_decay_stays_finite(cuda_device):
 
 
 def test_ssd_scan_depths_and_strided_views(cuda_device):
-    """Depths 1, 2, 5 and the deepest ring that fits, each recorded as run;
-    x, B and C as slices of one joint projection (the SSM block's layout)."""
+    """Depths 1, 2, 5 and the deepest ring that fits (heads' tiles in flight
+    a block), each recorded as run (5 is clamped); x, B and C as slices of
+    one joint projection (the SSM block's layout)."""
     from repro_torch.core import autotune
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
@@ -724,12 +801,12 @@ def test_ssd_scan_depths_and_strided_views(cuda_device):
     dt = (torch.rand(b, s, nh, generator=g) * 0.5 + 0.1).to(cuda_device)
     a = -torch.exp(torch.randn(nh, generator=g) * 0.3).to(cuda_device)
     want = ss.ssd_scan_plain(x, dt, a, bm, cm, chunk=64)
-    deepest = ss.kernel_depth(64, p=p, n=n, itemsize=2, n_tiles=s // ss.KQ)
+    deepest = ss.kernel_depth(64, p=p, n=n, itemsize=2, n_tiles=nh)
     for depth in (1, 2, 5, deepest):
         got = ss.ssd_scan(x, dt, a, bm, cm, chunk=64, depth=depth)
-        assert autotune.last_choice("ssd_scan") == depth
+        assert autotune.last_choice("ssd_scan") == min(depth, deepest)
         _ssd_close(got, want, torch.bfloat16)
-    assert deepest > 5
+    assert deepest == 1   # one head's slot fits beside C, C B^T and scores
 
 
 def test_ssm_forward_runs_the_kernel(cuda_device):

@@ -279,30 +279,176 @@ def test_spec_context_and_depth_match_reference(profile, chunk, nh, p, n,
 def test_mamba2_solve_falls_to_the_floor_and_the_kernel_runs_what_fits():
     """At mamba2's prefill shape the reference spec's y_block resident
     (seq_len x nh x p x 2 B = 6 MiB) is over a block's shared memory, so
-    the solve is the floor (2); the kernel's depth is what fits beside the
-    state, never more."""
+    the solve is the floor (2); the kernel's depth (heads' tiles in flight
+    a block) is what fits beside C, C B^T and a head's decayed scores (one
+    slot at mamba2's widths), and at most a group's heads."""
     spec = ss.ssd_spec(256, 24, 64, 128, torch.bfloat16, seq_len=2048)
     solved = autotune.choose_depth(spec.profile(),
                                    machine=machine.machine_profile("h100"),
                                    vars=spec.all_vars())
     assert solved == 2
-    fit = (ring.SMEM_LIMIT - ss.fixed_bytes(64, 128)) // ss.slot_bytes(64, 128, 2)
-    assert ss.kernel_depth(64, p=64, n=128, itemsize=2, n_tiles=64) == fit
-    assert ss.kernel_depth(solved, p=64, n=128, itemsize=2, n_tiles=64) == 2
-    assert ss.kernel_depth(64, p=64, n=128, itemsize=2, n_tiles=3) == 3
+    fit = (ring.SMEM_LIMIT - ss.fixed_bytes(64, 128, 2)) // \
+        ss.slot_bytes(64, 128, 2)
+    assert fit == 1
+    assert ss.kernel_depth(64, p=64, n=128, itemsize=2, n_tiles=6) == fit
+    assert ss.kernel_depth(solved, p=64, n=128, itemsize=2, n_tiles=6) == 1
+    assert ss.kernel_depth(64, p=64, n=128, itemsize=4, n_tiles=6) == 2
+    assert ss.kernel_depth(solved, p=16, n=16, itemsize=2, n_tiles=6) == 2
+    assert ss.kernel_depth(64, p=16, n=16, itemsize=4, n_tiles=6) == 6
+    assert ss.kernel_depth(64, p=16, n=16, itemsize=4, n_tiles=1) == 1
     with pytest.raises(ValueError):
         ss.kernel_depth(0, p=64, n=128, itemsize=2, n_tiles=3)
 
 
 def test_slot_layout_follows_the_kernel_source():
     src = Path(ss.SOURCE).read_text()
-    assert f"constexpr int kQ = {ss.KQ};" in src
-    assert f"N <= {ss.MAX_STATE}" in src
+    assert f"static constexpr int kL = {ss.CHUNK[torch.bfloat16]};" in src
+    assert f"static constexpr int kL = {ss.CHUNK[torch.float32]};" in src
+    assert f"constexpr int kMaxState = {ss.MAX_STATE};" in src
+    assert f"constexpr int kMaxHead = {ss.MAX_HEAD};" in src
     assert '#include "../../csrc/coro_ring.cuh"' in src
-    assert "kQ) * (P + 2 * N) * itemsize + kQ * sizeof(uint32_t)" in src
-    assert "(static_cast<size_t>(N) * P + kQ * kQ + 4 * kQ)" in src
-    assert ss.slot_bytes(64, 128, 2) == 32 * (64 + 256) * 2 + 32 * 4
-    assert ss.fixed_bytes(64, 128) == 4 * (128 * 64 + 32 * 32 + 4 * 32)
+    for text in ("xs = tc ? Pp + 8 : P;", "bs = tc ? Np + 8 : N;",
+                 "hs = tc ? Np + 12 : N;",
+                 "cbs = L + (tc ? 8 : 4);",
+                 "vec = static_cast<size_t>(3 * L + 8) * 4;",
+                 "return (tc ? 1 : 2) * bc + 2 * cb + vec;",
+                 "return x + h + dtw;"):
+        assert text in src
+    # bf16: x [128][72] bf16, state [64][140] f32, dt; C [128][136] bf16,
+    # C B^T [128][136] f32, the scores' two parts [128][136] bf16, three
+    # [128] f32 vectors and 8 words of scratch
+    assert ss.slot_bytes(64, 128, 2) == 128 * 72 * 2 + 64 * 140 * 4 + 128 * 4
+    assert ss.fixed_bytes(64, 128, 2) == (128 * 136 * 2 + 2 * 128 * 136 * 4
+                                          + (3 * 128 + 8) * 4)
+    # f32: x [64][64], state [64][128], dt; C and B [64][128], C B^T and
+    # the decayed scores [64][68], three [64] vectors, 8 words
+    assert ss.slot_bytes(64, 128, 4) == 64 * 64 * 4 + 64 * 128 * 4 + 64 * 4
+    assert ss.fixed_bytes(64, 128, 4) == (2 * 64 * 128 * 4 + 2 * 64 * 68 * 4
+                                          + (3 * 64 + 8) * 4)
+    # the reduced shape: p and n padded to 16 in bf16
+    assert ss.slot_bytes(8, 4, 2) == 128 * 24 * 2 + 16 * 28 * 4 + 128 * 4
+
+
+@pytest.mark.parametrize("b,s,nh,p,n,itemsize,chunks,groups", [
+    (8, 2048, 24, 64, 128, 2, 16, 2),     # mamba2-130m's prefill
+    (2, 4096, 24, 64, 128, 2, 32, 2),
+    (2, 512, 50, 64, 16, 2, 4, 5),        # hymba: the last group of 2 heads
+    (2, 256, 8, 16, 32, 2, 2, 1),         # 8 heads: one group of 8
+    (2, 48, 8, 16, 16, 2, 1, 1),          # s off the chunk
+    (2, 192, 4, 16, 32, 2, 2, 1),
+    (2, 64, 8, 16, 16, 4, 1, 1),          # reduced mamba2 in f32
+    (8, 2048, 24, 64, 128, 4, 32, 2)])
+def test_plan_chunks_groups_workspace_and_launches(b, s, nh, p, n, itemsize,
+                                                   chunks, groups):
+    run = ss.plan(b, s, nh, p, n, itemsize, 2)
+    assert run.chunk == (128 if itemsize == 2 else 64)
+    assert run.chunks == chunks == -(-s // run.chunk)
+    assert run.group == min(ss.HEAD_GROUP, nh) and run.groups == groups
+    assert (run.groups - 1) * run.group < nh <= run.groups * run.group
+    assert run.depth == ss.kernel_depth(2, p=p, n=n, itemsize=itemsize,
+                                        n_tiles=run.group)
+    assert 1 <= run.depth <= min(2, run.group)
+    assert run.workspace_bytes == ss.workspace_bytes(b, s, nh, p, n,
+                                                     itemsize)
+    assert run.workspace_bytes == 4 * b * chunks * nh * (p * n + 1)
+    assert run.launches == ss.LAUNCHES == 3
+    if (b, s, nh, p, n, itemsize) == (8, 2048, 24, 64, 128, 2):
+        assert run.workspace_bytes == 100_675_584    # ~101 MB, 3072 items
+        assert run.chunks * run.groups * b == 256      # blocks a kernel
+    one = ss.plan(b, s, nh, p, n, itemsize, 2, group=1)
+    assert one.groups == nh and one.depth == 1
+    six = ss.plan(b, s, nh, p, n, itemsize, 2, group=6)   # nh 50, 8: off 6
+    assert six.groups == -(-nh // 6) and six.group == min(6, nh)
+    with pytest.raises(ValueError):
+        ss.plan(b, s, nh, p, n, itemsize, 2, group=0)
+
+
+def _hi_lo(t):
+    """t as a bf16 high part and the bf16 part of what it leaves (f32)."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def _emulate(x, dt, A, B, C, L, group, split):
+    """The kernel's three passes in torch, over chunks of L rows and groups
+    of heads: each chunk's state S_c into a workspace, the pass along the
+    chunks, then y = intra + inter through C B^T (computed once a group).
+    `split` multiplies each operand that carries an f32 factor (x w, the
+    decayed scores, the state) as bf16 high and low parts, as the tensor-
+    core path does."""
+    b, s, nh, p = x.shape
+    n = B.shape[2]
+    chunks = -(-s // L)
+    pad = chunks * L - s
+    xc = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad)) \
+        .view(b, chunks, L, nh, p)
+    dtc = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad)) \
+        .view(b, chunks, L, nh)
+    bc, cc = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+              .view(b, chunks, L, n) for t in (B, C))
+
+    def prod(eq, f32_operand, exact):
+        if not split:
+            return torch.einsum(eq, f32_operand, exact)
+        hi, lo = _hi_lo(f32_operand)
+        return torch.einsum(eq, hi, exact) + torch.einsum(eq, lo, exact)
+
+    ys = torch.zeros(b, chunks, L, nh, p)
+    work = torch.zeros(b, chunks, nh, p, n)
+    totals = torch.zeros(b, chunks, nh)
+    for h0 in range(0, nh, group):
+        hs = slice(h0, min(h0 + group, nh))
+        cs = torch.cumsum(dtc[..., hs] * A[hs], dim=2)       # [b, c, L, g]
+        totals[..., hs] = cs[:, :, -1]
+        w = torch.exp(cs[:, :, -1:] - cs) * dtc[..., hs]
+        work[:, :, hs] = prod("bcjgp,bcjn->bcgpn", xc[..., hs, :]
+                              * w[..., None], bc)
+    h = torch.zeros(b, nh, p, n)
+    for c in range(chunks):                                   # the pass
+        s_c = work[:, c].clone()
+        work[:, c] = h
+        h = h * torch.exp(totals[:, c])[..., None, None] + s_c
+    causal = torch.ones(L, L).tril().bool()
+    for h0 in range(0, nh, group):
+        hs = slice(h0, min(h0 + group, nh))
+        cb = torch.einsum("bcin,bcjn->bcij", cc, bc)          # once a group
+        cs = torch.cumsum(dtc[..., hs] * A[hs], dim=2)
+        seg = cs[:, :, :, None] - cs[:, :, None, :]           # [b,c,i,j,g]
+        decay = torch.where(causal[..., None], torch.exp(
+            torch.where(causal[..., None], seg, 0.0)), 0.0)
+        scores = cb[..., None] * decay * dtc[..., hs][:, :, None]
+        intra = prod("bcijg,bcjgp->bcigp", scores, xc[..., hs, :])
+        inter = prod("bcgpn,bcin->bcigp", work[:, :, hs], cc) \
+            * torch.exp(cs)[..., None]
+        ys[..., hs, :] = intra + inter
+    return ys.view(b, chunks * L, nh, p)[:, :s].to(x.dtype), h
+
+
+@pytest.mark.parametrize("L,group,split,s,nh", [
+    (128, 6, True, 256, 8),     # bf16's chunk, groups of 6 and 2, split
+    (128, 6, True, 192, 3),     # s off the chunk
+    (64, 6, False, 128, 8),     # f32's chunk
+    (64, 3, False, 48, 4),
+    (16, 2, True, 64, 5)])
+def test_emulated_chunk_parallel_scan_matches_plain_and_reference(
+        L, group, split, s, nh):
+    """The kernel's decomposition (its chunk, head groups, workspace pass
+    and, for bf16, the high/low split) against the plain version at the
+    caller's chunk and the reference's Pallas kernel in interpret mode;
+    bf16-valued x, B and C where split, as the kernel gets them."""
+    args = _inputs(L + s + nh, 2, s, nh, 16, 32)
+    if split:
+        args = [a if i in (1, 2) else
+                torch.from_numpy(a).bfloat16().float().numpy()
+                for i, a in enumerate(args)]
+    x, dt, A, B, C = _t(args)
+    y, h = _emulate(x, dt, A, B, C, L, group, split)
+    ry, rh = ss.ssd_scan_plain(x, dt, A, B, C, chunk=16)
+    _close(y.numpy(), ry.numpy(), TOL)
+    _close(h.numpy(), rh.numpy(), TOL)
+    jy, jh = ref_ssd(*_j(args), chunk=16, interpret=True)
+    _close(y.numpy(), jy, TOL)
+    _close(h.numpy(), jh, TOL)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -18,7 +18,7 @@ from repro.core import machine as ref_machine
 from repro.kernels.stream_copy import stream_copy as ref_sc
 from repro.kernels.stream_copy.ops import stream_triad as ref_stream_triad
 from repro_torch.core import autotune, machine
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, ring
 from repro_torch.kernels.stream_copy import stream_copy as sc
 from repro_torch.kernels.stream_copy.ops import stream_triad
 
@@ -98,3 +98,55 @@ def test_wrapper_rejects_bad_inputs():
         sc.triad(b, torch.zeros(100, 5), 1.0, rows=10)
     with pytest.raises(ValueError):
         sc.triad(b, b, 1.0, rows=10, depth=0)
+
+
+@pytest.mark.parametrize("n,d,dtype,rows,depth,item", [
+    (1 << 21, 128, "float32", 128, 1, 8),    # the GUPS path: 4 KiB items
+    (1 << 21, 128, "bfloat16", 128, 1, 8),
+    (1024, 64, "float32", 128, 2, 16),
+    (1024, 64, "float32", 128, 3, 16),       # 24 rows: the 16-row divisor
+    (640, 96, "float32", 64, 2, 8),
+    (256, 128, "float32", 128, 2, 8),        # two tiles: clamped to one
+    (64, 3, "float32", 2, 1, 1),             # 24-byte tiles: unit path
+    (63, 3, "bfloat16", 1, 5, 1),
+    (96, 40, "float32", 96, 1, 6)])          # rows off a power of two
+def test_plan_items_divide_the_tile_and_fill_the_sm(n, d, dtype, rows, depth,
+                                                    item):
+    """An item is a divisor of the caller's tile, of whole 16-byte units
+    when the tile is, at most depth x rows over the blocks an SM's threads
+    allow; the blocks an SM holds are `ring.resident_blocks`'s, and the
+    depth recorded is the tiles they hold, rounded up."""
+    itemsize = DTYPES[dtype].itemsize
+    p = sc.plan(n, d, itemsize, rows, depth)
+    row_bytes = d * itemsize
+    assert p.item_rows == item and rows % p.item_rows == 0
+    assert p.items * p.item_rows == n
+    if rows * row_bytes % 16 == 0:
+        assert p.item_rows * row_bytes % 16 == 0
+    smem = 2 * item * row_bytes + sc.BARRIER_BYTES \
+        if item * row_bytes % 16 == 0 else 0
+    assert p.blocks_per_sm == ring.resident_blocks(smem, sc.THREADS) == 16
+    assert p.depth == -(-p.blocks_per_sm * p.item_rows // rows)
+    clamped = ring.kernel_depth(depth, slot_bytes=2 * rows * row_bytes,
+                                n_tiles=n // rows)
+    most = clamped * rows // (ring.MAX_THREADS_PER_SM // sc.THREADS)
+    assert p.item_rows <= most or p.item_rows == min(
+        r for r in range(1, rows + 1) if rows % r == 0
+        and (rows * row_bytes % 16 or r * row_bytes % 16 == 0))
+
+
+def test_triad_records_the_plans_depth():
+    b = torch.zeros(1 << 12, 128)
+    sc.triad(b, b, 1.0)
+    assert autotune.last_choice("stream_triad") == \
+        sc.plan(1 << 12, 128, 4, 128, 1).depth == 1
+    sc.triad(b, b, 1.0, depth=3)                   # a given depth: no record
+    assert autotune.last_choice("stream_triad") == 1
+
+
+def test_triad_at_takes_only_cuda_tensors_and_a_known_plan():
+    b = torch.zeros(256, 16)
+    with pytest.raises(ValueError):
+        sc.triad_at(b, b, 1.0, item_rows=8)
+    assert sc.STORE in sc.STORES and set(sc.STORES) == {"bulk", "stream"}
+    assert launch_counts()["stream_triad"] == 0
