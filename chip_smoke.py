@@ -37,9 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel on deduplicated rows (bitwise, 16- and 2-byte units); the triad
      in f32 (bitwise) and bf16 (2e-2) on 16-byte items, 4- and 2-byte
      units and 16-byte items at an address off 16 bytes, at depths 1, 2
-     and solved, then at given plans in both store forms (items smaller
-     than the caller's tile, fewer caller tiles than blocks, a last block
-     with fewer items than the others);
+     and solved, then at given item sizes (items smaller than the caller's
+     tile, fewer items than the card's SMs, an odd item count);
   3c. the dense engine's kernels against their plain versions: dense
      flash-decode at the five head shapes above over a cache of 1056 rows
      (off the 128-row tile), pos 0, mid and last, f32 (2e-4) and bf16
@@ -129,12 +128,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
      then the same kernels at other depths (tiles in flight per block;
      the row gather's per SM, and at 4x14, 6x9, 8x6 and 12x4 blocks an SM x
-     slots), the triad at item sizes x items a block x both store forms
-     (with the blocks an SM that fit) and at other tile heights and
-     depths, and the grouped matmul at
+     slots), the triad at item sizes (with the blocks an SM that fit) and
+     at other tile heights and depths, and the grouped matmul at
      qwen3-moe's decode shape at other depths (k-slices in flight per
-     block) and at other blocks per SM, each time beside its bound; last, the span gather with its ring wait inlined (the source)
-     against a copy built with the shared header's called wait, in turns;
+     block) and at other blocks per SM, each time beside its bound; last,
+     in turns against copies of their sources built in a temporary
+     directory: the span gather with its ring wait inlined (the source)
+     against the shared header's called wait, and the triad's one pass a
+     block (the source) against a persistent grid of 4, 8 and 16 blocks an
+     SM, block g walking items g, g + grid, ...;
  10. one JSON line describing every kernel (eight), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -183,13 +185,13 @@ SERVE = dict(batch=8, prompt_len=256, gen=32, block_size=16)
 # 512 B rows) and the STREAM triad arrays (each over 4x the caches).
 GUPS = dict(rows=1 << 24, d=128, n=1 << 22, triad_rows=1 << 21, scalar=3.0)
 TRIAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# K7 at given plans in phase 3 (n, d, rows, item rows, items a block)
-TRIAD_PLANS = ((4096, 128, 128, 8, 1), (4096, 128, 128, 32, 3),
-               (256, 128, 128, 8, 2), (301 * 16, 64, 16, 16, 2),
-               (301 * 16, 64, 16, 16, 4), (1 << 16, 128, 128, 32, 6))
-# K7's sweep in phase 9 (item rows, items a block)
-TRIAD_SWEEP = ((2, 1), (4, 1), (8, 1), (16, 1), (32, 1), (2, 2), (8, 2),
-               (2, 4), (8, 4), (32, 4))
+# K7 at given item sizes in phase 3 (n, d, rows, item rows)
+TRIAD_PLANS = ((4096, 128, 128, 8), (4096, 128, 128, 2), (256, 128, 128, 8),
+               (301 * 16, 64, 16, 16), (1 << 16, 128, 128, 32))
+# K7's item sizes swept in phase 9 (rows), and the blocks an SM of the
+# persistent grids it is timed against
+TRIAD_SWEEP = (2, 4, 8, 16, 32)
+TRIAD_PERSISTENT = (4, 8, 16)
 GUPS_KERNELS = (   # name, CUDA source, TPU kernel it replaces
     ("row_gather", "coro_gather/csrc/coro_gather.cu",
      "coro_gather/coro_gather.py:56"),
@@ -1295,8 +1297,10 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
     SSD scan, so there is no library time. The bound is the larger of the
     bytes in and out over 3.35 TB/s and the reference spec's flops
     (flops_per_tile x chunks) over the peak of the kernel's products: bf16
-    tensor cores (989 TFLOP/s), f32 CUDA cores (67 TFLOP/s). `sweep` adds
-    head groups x depths."""
+    tensor cores (989 TFLOP/s), f32 CUDA cores (67 TFLOP/s). Each launch
+    is printed beside its own bytes over 3.35 TB/s, the f32 workspace
+    counted where it is written and where it is read. `sweep` adds head
+    groups x depths."""
     from repro_torch.core import autotune
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.models.ssm import ssm_dims
@@ -1343,8 +1347,15 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
     run = ss.plan(b, s, nh, p, n, isz, depth)
     shape = {"b": b, "s": s, "nh": nh, "p": p, "n": n, "chunk": chunk,
              "dtype": dtype_name, "dt": "float32", **run._asdict()}
+    x_b, bc_b, dt_b = b * s * nh * p * isz, b * s * n * isz, b * s * nh * 4
+    ws = run.workspace_bytes
+    launch_bound_ms = {name: nb / HBM_BW * 1e3 for name, nb in (
+        ("chunk_state_kernel", x_b + bc_b + dt_b + ws),     # x, B, dt -> ws
+        ("state_pass_kernel", 2 * ws + b * nh * p * n * 4),  # ws -> ws, h
+        ("chunk_scan_kernel", 2 * x_b + 2 * bc_b + dt_b + ws))}  # -> y
     log(f"times ssd_scan {json.dumps(shape)}: kernel "
-        f"{kernel_a:.4f}/{kernel_b:.4f} ms ({json.dumps(per_launch)}), "
+        f"{kernel_a:.4f}/{kernel_b:.4f} ms ({json.dumps(per_launch)}; each "
+        f"launch's bytes over 3.35 TB/s: {json.dumps(launch_bound_ms)}), "
         f"plain {plain_ms:.4f} ms, no library call, bound {bound_ms:.5f} ms "
         f"({bound_by}, {nbytes} B, {flops:.4g} flop), "
         f"{bound_ms / ms:.1%} of the bound")
@@ -1360,7 +1371,8 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
         log("sweep: " + json.dumps(swept))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "launch_ms": per_launch, "shape": shape}
+            "launch_ms": per_launch, "launch_bound_ms": launch_bound_ms,
+            "shape": shape}
 
 
 # ----------------------------------------------- phase 3 (GUPS-path kernels)
@@ -1485,9 +1497,8 @@ def check_gups_parity(torch) -> None:
     # the triad: f32 bitwise, bf16 at 2e-2; 16-byte items, 4-byte units
     # (64x3 f32, both bf16 shapes: 12-byte items), 2-byte units (63x3 bf16:
     # 6-byte items) and 16-byte items at an address 132 bytes in (4-byte
-    # units); then given plans, both store forms: items smaller than the
-    # caller's tile, fewer caller tiles than blocks, a last block with fewer
-    # items than the others
+    # units); then given item sizes: items smaller than the caller's tile,
+    # fewer items than the card's SMs, an odd item count
     def triad_check(tag, dtype, got, want):
         if dtype == torch.float32:
             _equal(tag, got, want)
@@ -1507,16 +1518,13 @@ def check_gups_parity(torch) -> None:
                             f"depth={depth}", dtype,
                             sc.triad(b, c, 2.5, rows=rows, depth=depth),
                             want)
-        for n, d, rows, item, slots in TRIAD_PLANS:
+        for n, d, rows, item in TRIAD_PLANS:
             b = table(n, d, dtype)
             c = table(n, d, dtype)
-            want = sc.triad_plain(b, c, 2.5)
-            for store in sc.STORES:
-                triad_check(f"triad {dtype} {n}x{d} rows={rows}: "
-                            f"{n // item} items of {item} rows, {slots} a "
-                            f"block, {store} store", dtype,
-                            sc.triad_at(b, c, 2.5, rows=rows, item_rows=item,
-                                        slots=slots, store=store), want)
+            triad_check(f"triad {dtype} {n}x{d} rows={rows}: {n // item} "
+                        f"items of {item} rows", dtype,
+                        sc.triad_at(b, c, 2.5, rows=rows, item_rows=item),
+                        sc.triad_plain(b, c, 2.5))
     torch.cuda.synchronize()
 
 
@@ -1705,7 +1713,7 @@ def time_gups_kernels(torch, st, gmm_case):
             bound=_bound_ms(3 * nt * 4, 2 * nt),
             shape={"N": b.shape[0], "d": d, "rows": 128, "dtype": "float32",
                    **sc.plan(*b.shape, 4, 128, depths["stream_triad"])
-                   ._asdict(), "store": sc.STORE}),
+                   ._asdict()}),
     }
     out = {}
     for name, case in cases.items():
@@ -1756,11 +1764,9 @@ def time_gups_kernels(torch, st, gmm_case):
                lambda k=k: sa.scatter_add_unique(work, uniq, summed, depth=k))
               for k in (4, 8, 16, 28)]
     sweep += [("stream_triad", f"items of {r} rows ({r * row_bytes} B an "
-               f"array), {k} a block ({sc.resident_blocks(r * row_bytes, k)}"
-               f" blocks an SM fit), {store} store",
-               lambda r=r, k=k, store=store: sc.triad_at(
-                   b, c, s, item_rows=r, slots=k, store=store))
-              for r, k in TRIAD_SWEEP for store in sc.STORES]
+               f"array, {sc.resident_blocks(r * row_bytes)} blocks an SM "
+               f"fit)", lambda r=r: sc.triad_at(b, c, s, item_rows=r))
+              for r in TRIAD_SWEEP]
     sweep += [("stream_triad", f"rows={r} depth={k} (items of "
                f"{sc.plan(*b.shape, 4, r, k).item_rows} rows)",
                lambda r=r, k=k: sc.triad(b, c, s, rows=r, depth=k))
@@ -1794,6 +1800,9 @@ def time_gups_kernels(torch, st, gmm_case):
     log("sweep: " + json.dumps(swept))
     out["span_gather"]["wait_ab"] = time_span_gather_wait(
         torch, table, starts, plan.span, depths["span_gather"])
+    out["stream_triad"]["walk_ab"] = time_triad_walk(
+        torch, b, c, s, sc.plan(*b.shape, 4, 128, depths["stream_triad"])
+        .item_rows)
     return out
 
 
@@ -1802,6 +1811,42 @@ KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 SPAN_WAIT_INLINE = \
     "      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);"
 SPAN_WAIT_CALLED = "      repro::cp_async_wait_pending(depth - 1);"
+TRIAD_SOURCE = "stream_copy/csrc/triad.cu"
+
+
+def triad_persistent_edits(per_sm: int):
+    """The edits that put K7 on a persistent grid of `per_sm` blocks an SM,
+    block g walking items g, g + grid, ... through its one slot (the
+    mbarrier's phase flips each item; the block reads the slot before it
+    is refilled)."""
+    return [
+        ("                 int item_bytes) {\n  const int tid = threadIdx.x;\n",
+         "                 int item_bytes, int64_t items) {\n"
+         "  const int tid = threadIdx.x;\n"
+         "  for (int64_t item = blockIdx.x, k = 0; item < items; "
+         "item += gridDim.x, ++k) {\n"),
+        ("  const int64_t off = static_cast<int64_t>(blockIdx.x) * units;",
+         "  const int64_t off = item * units;"),
+        ("      repro::mbar_init(full, 1);\n      repro::mbar_fence_init();\n",
+         "      if (k == 0) {\n        repro::mbar_init(full, 1);\n"
+         "        repro::mbar_fence_init();\n      }\n"),
+        ("    repro::mbar_wait(full, 0);",
+         "    repro::mbar_wait(full, static_cast<uint32_t>(k & 1));"),
+        ("      repro::st_global_cs(a + off + u, repro::axpy_unit<T, V, true>"
+         "(bs[u], cs[u], s));\n  }\n}",
+         "      repro::st_global_cs(a + off + u, repro::axpy_unit<T, V, true>"
+         "(bs[u], cs[u], s));\n    __syncthreads();\n  }\n  }\n}"),
+        ("  kernel<<<static_cast<unsigned>(items), kThreads, smem, stream>>>(\n"
+         "      static_cast<const V*>(b), static_cast<const V*>(c), "
+         "static_cast<V*>(a), s, item_bytes);",
+         "  int dev = 0, sms = 0;\n  cudaGetDevice(&dev);\n"
+         "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+         f"  const int64_t cap = static_cast<int64_t>(sms) * {per_sm};\n"
+         "  const int64_t grid = items < cap ? items : cap;\n"
+         "  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(\n"
+         "      static_cast<const V*>(b), static_cast<const V*>(c), "
+         "static_cast<V*>(a), s, item_bytes, items);"),
+    ]
 
 
 def patched_copy(tmp: Path, name: str, rel: str, edits) -> Path:
@@ -1858,6 +1903,44 @@ def time_span_gather_wait(torch, table, starts, span, depth):
     log(f"span_gather wait at depth {depth}: called "
         f"{times['called'][0]:.5f}/{times['called'][1]:.5f} ms, inlined "
         f"{times['inlined'][0]:.5f}/{times['inlined'][1]:.5f} ms")
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def time_triad_walk(torch, b, c, s, item_rows):
+    """K7 at phase 8's shape in items of `item_rows` rows: one pass a block
+    (the source) and copies of the source on persistent grids of
+    `TRIAD_PERSISTENT` blocks an SM (built in a temporary directory), each
+    checked bitwise against the plain version and timed in turns: the
+    source, the copies, the copies in reverse, the source."""
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.stream_copy import stream_copy as sc
+
+    source = sc.SOURCE
+    want = sc.triad_plain(b, c, s)
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        copies = {f"persistent {k} blocks an SM": patched_copy(
+            Path(tmp), f"persistent{k}", TRIAD_SOURCE,
+            triad_persistent_edits(k)) for k in TRIAD_PERSISTENT}
+        build.build(list(copies.values()))
+        names = ["one pass a block", *copies]
+        for name in names + names[::-1]:
+            sc.SOURCE = copies.get(name, source)
+            try:
+                if not torch.equal(sc.triad_at(b, c, s, item_rows=item_rows),
+                                   want):
+                    raise AssertionError(f"stream_triad ({name}) differs "
+                                         "from its plain version")
+                times.setdefault(name, []).append(median_ms(
+                    torch, lambda: sc.triad_at(b, c, s, item_rows=item_rows),
+                    [()]))
+            finally:
+                sc.SOURCE = source
+    log("stream_triad walk in items of " + str(item_rows) + " rows: " +
+        ", ".join(f"{name} {'/'.join(f'{t:.4f}' for t in ts)} ms"
+                  for name, ts in times.items()))
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -2015,9 +2098,10 @@ def main() -> int:
         "parity": "ok",
         **{k: ssd_timing[k] for k in keys},
         "launch_ms": ssd_timing["launch_ms"],
+        "launch_bound_ms": ssd_timing["launch_bound_ms"],
         "shape": ssd_timing["shape"],
-        "at_other_shapes": {"float32": {k: ssd_f32[k] for k in
-                                        keys + ("launch_ms", "shape")}},
+        "at_other_shapes": {"float32": {k: ssd_f32[k] for k in keys + (
+            "launch_ms", "launch_bound_ms", "shape")}},
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -2042,7 +2126,7 @@ def main() -> int:
             "parity": "ok",
             **{k: t[k] for k in keys},
             "shape": t["shape"],
-            **{k: t[k] for k in ("wait_ab",) if k in t},
+            **{k: t[k] for k in ("wait_ab", "walk_ab") if k in t},
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(card)

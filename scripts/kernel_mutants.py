@@ -77,23 +77,19 @@ MUTANTS = {
         "copy_rows<kScanThreads>(bt, m.bs, static_cast<const T*>(a.B) + "
         "((at.b + (blockIdx.x == 0)) % gridDim.z) * a.b_sb"),
     "K7 items dealt with the wrong stride": (
-        TRIAD, "const int64_t first = static_cast<int64_t>(blockIdx.x) * slots;",
-        "const int64_t first = static_cast<int64_t>(blockIdx.x) * (slots + 1);"),
-    "K7 a block's last item dropped": (
-        TRIAD, [("    for (int k = 0; k < count; ++k) {\n      const int64_t off",
-                 "    for (int k = 0; k < count - 1; ++k) {\n      const int64_t off"),
-                ("    for (int k = 0; k < count; ++k) {\n      repro::mbar_wait(",
-                 "    for (int k = 0; k < count - 1; ++k) {\n      repro::mbar_wait(")],
-        ""),
+        TRIAD, "const int64_t off = static_cast<int64_t>(blockIdx.x) * units;",
+        "const int64_t off = static_cast<int64_t>(blockIdx.x) * (units - 1);"),
+    "K7 last item not launched": (
+        TRIAD, "kernel<<<static_cast<unsigned>(items), kThreads",
+        "kernel<<<static_cast<unsigned>(items - 1), kThreads"),
     "K7 s not applied on the unit path": (
         TRIAD, [("a[off + u] = repro::axpy_unit<T, V, true>(b[off + u], c[off + u], s);",
                  "a[off + u] = repro::axpy_unit<T, V, false>(b[off + u], c[off + u], s);")],
         "unit path"),
-    "K7 a slot's bulk store issued before the block wrote it": (
-        TRIAD, [("repro::fence_proxy_async();  // the writes above, seen by the bulk store\n"
-                 "        __syncthreads();",
-                 "repro::fence_proxy_async();  // the writes above, seen by the bulk store")],
-        "bulk store"),
+    "K7 an item's last 16 bytes not stored on the bulk path": (
+        TRIAD, [("    for (int u = tid; u < units; u += kThreads)\n      repro::st_global_cs(",
+                 "    for (int u = tid; u < units - 1; u += kThreads)\n      repro::st_global_cs(")],
+        "[2^20, 128]"),
     "K2 a block's last tile dropped": (
         GMM, "return (tiles - b + blocks - 1) / blocks * per_tile;",
         "return ((tiles - b + blocks - 1) / blocks - (b + blocks < tiles)) * per_tile;"),
@@ -182,21 +178,19 @@ def k4_cases(torch):
 
 
 def k7_cases(torch):
-    """[2^20, 128] arrays (512 MiB each) at the wrapper's plan (streaming
-    stores) and with bulk stores, f32 and bf16; the unit path at 4-byte
-    (64 x 3 f32) and 2-byte units (63 x 3 bf16)."""
+    """[2^20, 128] arrays (512 MiB each) at the wrapper's plan, f32 and
+    bf16; the unit path at 4-byte (64 x 3 f32) and 2-byte units (63 x 3
+    bf16)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     for dtype in (torch.float32, torch.bfloat16):
         b, c = (torch.randn(1 << 20, 128, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
-        for store in ("stream", "bulk"):
-            yield (f"{str(dtype)[6:]} [2^20, 128] {store} store", b, c, 1,
-                   store)
+        yield f"{str(dtype)[6:]} [2^20, 128]", b, c, 128
     for dtype, n, rows in ((torch.float32, 64, 2), (torch.bfloat16, 63, 1)):
         b, c = (torch.randn(n, 3, generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
-        yield f"{str(dtype)[6:]} {n}x3 unit path", b, c, rows, None
+        yield f"{str(dtype)[6:]} {n}x3 unit path", b, c, rows
 
 
 def k2_cases(torch):
@@ -253,15 +247,11 @@ def run(torch, kernel: str, source, only: str = ""):
     rows = []
     if kernel == "K7":
         sc.SOURCE = source
-        for case, b, c, rows_, store in k7_cases(torch):
+        for case, b, c, rows_ in k7_cases(torch):
             if only not in case:
                 continue
             nan_block(torch, b.shape, b.dtype)
-            if store is None:
-                got = sc.triad(b, c, 3.0, rows=rows_)
-            else:
-                item = sc.plan(*b.shape, b.element_size(), 128, 1).item_rows
-                got = sc.triad_at(b, c, 3.0, item_rows=item, store=store)
+            got = sc.triad(b, c, 3.0, rows=rows_)
             want = sc.triad_plain(b, c, 3.0)
             err = float((got.float() - want.float()).abs().max())
             ok = bool(torch.equal(got, want)) if b.dtype == torch.float32 \

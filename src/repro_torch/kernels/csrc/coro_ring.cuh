@@ -186,28 +186,6 @@ __device__ __forceinline__ void bulk_load(void* smem, const void* gmem, uint32_t
       : "memory");
 }
 
-// Shared -> global, `bytes` of them, in the issuing thread's bulk group.
-__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
-               "r"(smem_addr(smem)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's bulk groups are still pending.
-template <int N>
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Order this thread's shared-memory writes before later bulk copies read them.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // A 16-byte global store that streams past the caches (evict-first).
 __device__ __forceinline__ void st_global_cs(uint4* g, uint4 v) {
   asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(g), "r"(v.x), "r"(v.y),

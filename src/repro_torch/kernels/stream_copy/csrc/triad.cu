@@ -12,21 +12,19 @@
 // far below the card's balance point, so its floor is 3 x N x d x itemsize
 // over 3.35 TB/s. What the design does about it:
 //   * the arrays are cut into equal items (a slice of the caller's tile of
-//     `rows` rows: contiguous, a few KiB of each array); block g takes the
-//     `slots` consecutive items from g x slots and makes one pass over them,
-//     so the block scheduler, which starts blocks in order as others
-//     finish, keeps the bytes in flight in one narrow window that moves
-//     through the arrays. (A persistent grid, each block walking items g,
-//     g + grid, ..., read slower on an H100 at every split tried: its
-//     blocks drift apart, and the window widens.);
-//   * one thread loads each item's b and c slices with one bulk copy each
-//     (cp.async.bulk), all of the block's items at once, each slot
-//     completing on its own mbarrier: no thread spends an instruction per
-//     16 bytes on the loads, and the item's bytes in flight on an SM are
-//     its resident blocks' slots;
-//   * a is computed in place over b's slice and written back with one bulk
-//     store (kBulkStore), or stored from registers with 16-byte streaming
-//     stores (kStreamStore);
+//     `rows` rows: contiguous, a few KiB of each array), one a block, and
+//     block g makes one pass over item g: the block scheduler, which
+//     starts blocks in order as others finish, keeps the bytes in flight in
+//     one narrow window that moves through the arrays. (A persistent grid,
+//     each block walking items g, g + grid, ..., reads slower on an H100:
+//     its blocks drift apart and the window widens; chip_smoke.py's phase
+//     9 times it from a patched copy of this source.);
+//   * one thread loads the item's b and c slices with one bulk copy each
+//     (cp.async.bulk), completing on one mbarrier: no thread spends an
+//     instruction per 16 bytes on the loads, and the bytes in flight on an
+//     SM are its resident blocks' items;
+//   * a is stored from registers with 16-byte streaming stores
+//     (st.global.cs; a bulk store from the slot read no faster);
 //   * items off 16-byte sizes or addresses (the 4-byte and bf16 2-byte
 //     units) take a unit path in the same kernel: plain loads and stores of
 //     4- or 2-byte units, consecutive threads on consecutive addresses.
@@ -39,120 +37,82 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBulkStore = 0;    // a written back from the slot by a bulk store
-constexpr int kStreamStore = 1;  // a stored from registers, st.global.cs
 
 // V is the copy unit: uint4 takes the bulk path, uint32_t / uint16_t the
-// unit path. An item is `item_bytes` of each array; block g takes items
-// [g x slots, g x slots + slots) that exist.
-template <typename T, typename V, int kStore>
+// unit path. An item is `item_bytes` of each array; block g takes item g.
+template <typename T, typename V>
 __global__ void __launch_bounds__(kThreads)
     triad_kernel(const V* __restrict__ b, const V* __restrict__ c, V* __restrict__ a, float s,
-                 int64_t items, int item_bytes, int slots) {
+                 int item_bytes) {
   const int tid = threadIdx.x;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * slots;
-  const int count = static_cast<int>(min(static_cast<int64_t>(slots), items - first));
   const int units = item_bytes / static_cast<int>(sizeof(V));
-  auto first_unit = [&](int k) { return (first + k) * units; };
+  const int64_t off = static_cast<int64_t>(blockIdx.x) * units;
 
   if constexpr (sizeof(V) != 16) {
-    for (int k = 0; k < count; ++k) {
-      const int64_t off = first_unit(k);
-      for (int u = tid; u < units; u += kThreads)
-        a[off + u] = repro::axpy_unit<T, V, true>(b[off + u], c[off + u], s);
-    }
+    for (int u = tid; u < units; u += kThreads)
+      a[off + u] = repro::axpy_unit<T, V, true>(b[off + u], c[off + u], s);
   } else {
-    // slot k: [b item | c item]; then one mbarrier per slot
+    // [b's item | c's item | the mbarrier]
     extern __shared__ __align__(128) unsigned char smem[];
-    V* ring = reinterpret_cast<V*>(smem);
-    uint64_t* full = reinterpret_cast<uint64_t*>(smem + static_cast<size_t>(slots) * 2 * item_bytes);
+    V* bs = reinterpret_cast<V*>(smem);
+    const V* cs = bs + units;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * static_cast<size_t>(item_bytes));
     if (tid == 0) {
-      for (int k = 0; k < count; ++k) repro::mbar_init(full + k, 1);
+      repro::mbar_init(full, 1);
       repro::mbar_fence_init();
-      for (int k = 0; k < count; ++k) {
-        V* bs = ring + static_cast<size_t>(k) * 2 * units;
-        repro::mbar_arrive_expect_tx(full + k, 2u * item_bytes);
-        repro::bulk_load(bs, b + first_unit(k), item_bytes, full + k);
-        repro::bulk_load(bs + units, c + first_unit(k), item_bytes, full + k);
-      }
+      repro::mbar_arrive_expect_tx(full, 2u * item_bytes);
+      repro::bulk_load(bs, b + off, item_bytes, full);
+      repro::bulk_load(bs + units, c + off, item_bytes, full);
     }
-    __syncthreads();  // the mbarriers are initialised
-    for (int k = 0; k < count; ++k) {
-      repro::mbar_wait(full + k, 0);
-      V* bs = ring + static_cast<size_t>(k) * 2 * units;
-      const V* cs = bs + units;
-      if constexpr (kStore == kBulkStore) {
-        for (int u = tid; u < units; u += kThreads)
-          bs[u] = repro::axpy_unit<T, V, true>(bs[u], cs[u], s);
-        repro::fence_proxy_async();  // the writes above, seen by the bulk store
-        __syncthreads();
-        if (tid == 0) {
-          repro::bulk_store(a + first_unit(k), bs, item_bytes);
-          repro::bulk_commit();
-        }
-      } else {
-        V* out = a + first_unit(k);
-        for (int u = tid; u < units; u += kThreads)
-          repro::st_global_cs(out + u, repro::axpy_unit<T, V, true>(bs[u], cs[u], s));
-      }
-    }
-    // the slots stay allocated until every bulk store has read them
-    if (kStore == kBulkStore && tid == 0) repro::bulk_wait<0>();
+    __syncthreads();  // the mbarrier is initialised
+    repro::mbar_wait(full, 0);
+    for (int u = tid; u < units; u += kThreads)
+      repro::st_global_cs(a + off + u, repro::axpy_unit<T, V, true>(bs[u], cs[u], s));
   }
 }
 
-template <typename T, typename V, int kStore>
+template <typename T, typename V>
 cudaError_t launch(const void* b, const void* c, void* a, float s, int64_t items, int item_bytes,
-                   int slots, cudaStream_t stream) {
-  const size_t smem = sizeof(V) == 16 ? static_cast<size_t>(slots) * (2 * item_bytes + 8) : 0;
-  auto kernel = triad_kernel<T, V, kStore>;
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(V) == 16 ? 2 * static_cast<size_t>(item_bytes) + 8 : 0;
+  auto kernel = triad_kernel<T, V>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int64_t grid = (items + slots - 1) / slots;
-  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-      static_cast<const V*>(b), static_cast<const V*>(c), static_cast<V*>(a), s, items,
-      item_bytes, slots);
+  kernel<<<static_cast<unsigned>(items), kThreads, smem, stream>>>(
+      static_cast<const V*>(b), static_cast<const V*>(c), static_cast<V*>(a), s, item_bytes);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int unit, int store, const void* b, const void* c, void* a, float s,
-                     int64_t items, int item_bytes, int slots, cudaStream_t stream) {
-  if (unit == 16)
-    return store == kBulkStore
-               ? launch<T, uint4, kBulkStore>(b, c, a, s, items, item_bytes, slots, stream)
-               : launch<T, uint4, kStreamStore>(b, c, a, s, items, item_bytes, slots, stream);
-  if (unit == 4)
-    return launch<T, uint32_t, kStreamStore>(b, c, a, s, items, item_bytes, slots, stream);
+cudaError_t dispatch(int unit, const void* b, const void* c, void* a, float s, int64_t items,
+                     int item_bytes, cudaStream_t stream) {
+  if (unit == 16) return launch<T, uint4>(b, c, a, s, items, item_bytes, stream);
+  if (unit == 4) return launch<T, uint32_t>(b, c, a, s, items, item_bytes, stream);
   if constexpr (sizeof(T) == 2) {
-    if (unit == 2)
-      return launch<T, uint16_t, kStreamStore>(b, c, a, s, items, item_bytes, slots, stream);
+    if (unit == 2) return launch<T, uint16_t>(b, c, a, s, items, item_bytes, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// a = b + s * c over `items` contiguous items of `item_bytes` each, `slots`
-// consecutive items a block (ceil(items / slots) blocks). dtype: 0 =
-// float32, 1 = bfloat16. unit: 16 (the bulk path: item_bytes and the
-// pointers 16-byte aligned; store 0 = bulk store, 1 = streaming stores), or
-// 4 or (bfloat16) 2 (the unit path; store unused). Returns the cudaError_t
-// of the launch (0 on success).
+// a = b + s * c over `items` contiguous items of `item_bytes` each, one a
+// block. dtype: 0 = float32, 1 = bfloat16. unit: 16 (the bulk path:
+// item_bytes and the pointers 16-byte aligned), or 4 or (bfloat16) 2 (the
+// unit path). Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_triad(const void* b, const void* c, void* a, float s, long long items,
-                           int item_bytes, int slots, int dtype, int unit, int store,
-                           void* stream) {
-  if (items < 1 || slots < 1 || unit < 2 || item_bytes < unit || item_bytes % unit != 0 ||
-      (items + slots - 1) / slots > 0x7fffffffLL || store < 0 || store > 1) {
+                           int item_bytes, int dtype, int unit, void* stream) {
+  if (items < 1 || items > 0x7fffffffLL || unit < 2 || item_bytes < unit ||
+      item_bytes % unit != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch<float>(unit, store, b, c, a, s, items, item_bytes, slots, st);
+    err = dispatch<float>(unit, b, c, a, s, items, item_bytes, st);
   } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(unit, store, b, c, a, s, items, item_bytes, slots, st);
+    err = dispatch<__nv_bfloat16>(unit, b, c, a, s, items, item_bytes, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -9,8 +9,8 @@ b and c stream in while tiles of a stream back out. The CUDA kernel
 ``src/repro/kernels/stream_copy/stream_copy.py:triad``.
 
 The kernel cuts the arrays into items, equal slices of the caller's tile
-of `rows` rows, and gives each thread block `slots` consecutive items (one
-by default), loaded with one bulk copy per array: the block scheduler
+of `rows` rows, and gives each thread block one item, loaded with one bulk
+copy per array and stored with streaming stores: the block scheduler
 starts the blocks in order, so the bytes in flight stay in one window that
 moves through the arrays. The solved depth (tiles of `rows` rows in flight
 per SM) sets the item: the largest slice such that the blocks resident on
@@ -42,11 +42,9 @@ __all__ = ["Plan", "plan", "resident_blocks", "triad", "triad_at",
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "triad.cu"
 THREADS = 128                  # kThreads in the .cu source
-BARRIER_BYTES = 8              # a slot's mbarrier
-STORES = {"bulk": 0, "stream": 1}   # kBulkStore, kStreamStore in the source
-STORE = "stream"               # the store form `triad` launches (faster)
+BARRIER_BYTES = 8              # the item's mbarrier
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_longlong]
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 class Plan(NamedTuple):
@@ -82,11 +80,10 @@ def triad_plain(b: torch.Tensor, c: torch.Tensor, scalar) -> torch.Tensor:
     return (b.float() + s * c.float()).to(b.dtype)
 
 
-def resident_blocks(item_bytes: int, slots: int = 1) -> int:
-    """Blocks of `slots` items of `item_bytes` (of each array) that one SM
-    holds at once (`ring.resident_blocks`; the unit path keeps no slots)."""
-    smem = slots * (2 * item_bytes + BARRIER_BYTES) if item_bytes % 16 == 0 \
-        else 0
+def resident_blocks(item_bytes: int) -> int:
+    """Blocks of one item of `item_bytes` (of each array) that one SM holds
+    at once (`ring.resident_blocks`; the unit path keeps no slot)."""
+    smem = 2 * item_bytes + BARRIER_BYTES if item_bytes % 16 == 0 else 0
     return ring.resident_blocks(smem, THREADS)
 
 
@@ -143,23 +140,18 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
 
 
 def triad_at(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
-             item_rows: int, slots: int = 1,
-             store: str = STORE) -> torch.Tensor:
-    """`triad` on CUDA tensors at a given plan: items of `item_rows` rows
-    (a divisor of `rows`), `slots` consecutive items a block, the output
-    written by `store` ("bulk" or "stream"); no solve, no record. Counts
-    one launch."""
+             item_rows: int) -> torch.Tensor:
+    """`triad` on CUDA tensors in items of `item_rows` rows (a divisor of
+    `rows`), one a block; no solve, no record. Counts one launch."""
     n_tiles = _check(b, c, rows)
     if not ring.route("stream_triad", ("b", b), ("c", c)):
         raise ValueError("triad_at takes CUDA tensors")
     if b.dtype not in ring.DTYPE_CODE or c.dtype != b.dtype:
         raise TypeError(f"stream_triad: kernel takes float32 or bfloat16 "
                         f"arrays of one type, got {b.dtype} and {c.dtype}")
-    if item_rows < 1 or rows % item_rows or slots < 1 or \
-            store not in STORES:
-        raise ValueError(f"need item_rows dividing rows={rows}, slots >= 1 "
-                         f"and a store in {sorted(STORES)}, got "
-                         f"{item_rows}, {slots}, {store!r}")
+    if item_rows < 1 or rows % item_rows:
+        raise ValueError(f"need item_rows dividing rows={rows}, got "
+                         f"{item_rows}")
     a = torch.empty_like(b)
     if n_tiles == 0:
         return a
@@ -167,18 +159,16 @@ def triad_at(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
     unit = ring.copy_unit(item_bytes, (b, c, a))
     tile = (item_rows, b.shape[1])
     if unit == 16:
-        ring.check_smem(slots * (2 * item_bytes + BARRIER_BYTES),
-                        kernel="stream_triad", depth=slots, tile=tile)
+        ring.check_smem(2 * item_bytes + BARRIER_BYTES,
+                        kernel="stream_triad", depth=1, tile=tile)
     lib = ring.library(SOURCE, "repro_triad", _ARGTYPES)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = lib.repro_triad(b.data_ptr(), c.data_ptr(), a.data_ptr(),
                               _scalar(scalar, b.dtype),
-                              b.shape[0] // item_rows, item_bytes, slots,
-                              ring.DTYPE_CODE[b.dtype], unit, STORES[store],
-                              stream)
-    ring.raise_on_error(err, lib, kernel="stream_triad", depth=slots,
-                        tile=tile)
+                              b.shape[0] // item_rows, item_bytes,
+                              ring.DTYPE_CODE[b.dtype], unit, stream)
+    ring.raise_on_error(err, lib, kernel="stream_triad", depth=1, tile=tile)
     triad.launches += 1
     return a
 

@@ -493,24 +493,19 @@ def test_triad_matches_plain(cuda_device, dtype, tol, n, d, rows):
         assert torch.equal(sc.triad(b, c, 3.0, rows=rows), want)
 
 
-# (n, d, rows, item_rows, slots a block): items smaller than the caller's
-# tile, fewer caller tiles than blocks, a last block with fewer items than
-# the others (301 items in twos and fours), deeper blocks
-TRIAD_WALKS = [(4096, 128, 128, 8, 1), (4096, 128, 128, 32, 3),
-               (256, 128, 128, 8, 2), (301 * 16, 64, 16, 16, 2),
-               (301 * 16, 64, 16, 16, 4), (640, 96, 64, 16, 1),
-               (1 << 16, 128, 128, 32, 6)]
+# (n, d, rows, item_rows): items smaller than the caller's tile, fewer
+# items than the card's SMs, an odd item count, 1 KiB to 16 KiB items
+TRIAD_ITEMS = [(4096, 128, 128, 8), (4096, 128, 128, 2), (256, 128, 128, 8),
+               (301 * 16, 64, 16, 16), (640, 96, 64, 16),
+               (1 << 16, 128, 128, 32)]
 
 
-@pytest.mark.parametrize("store", ["bulk", "stream"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d,rows,item,slots", TRIAD_WALKS)
-def test_triad_items_and_slots(cuda_device, store, dtype, n, d, rows, item,
-                               slots):
+@pytest.mark.parametrize("n,d,rows,item", TRIAD_ITEMS)
+def test_triad_items(cuda_device, dtype, n, d, rows, item):
     b = _table(cuda_device, n, d, dtype, seed=7)
     c = _table(cuda_device, n, d, dtype, seed=8)
-    got = sc.triad_at(b, c, 3.0, rows=rows, item_rows=item, slots=slots,
-                      store=store)
+    got = sc.triad_at(b, c, 3.0, rows=rows, item_rows=item)
     want = sc.triad_plain(b, c, 3.0)
     if dtype == torch.float32:
         assert torch.equal(got, want)

@@ -1,5 +1,6 @@
-"""The broken kernel copies of ``scripts/kernel_mutants.py`` and the
-reduced copies of ``scripts/{flash_decode,ssd_scan}_breakdown.py`` against
+"""The broken kernel copies of ``scripts/kernel_mutants.py``, the reduced
+copies of ``scripts/{flash_decode,ssd_scan}_breakdown.py`` and the
+persistent-grid copies of the triad that ``chip_smoke.py`` times, against
 the sources they change.
 
 The scripts build and run them only on a card, and refuse an edit whose
@@ -50,3 +51,14 @@ def test_breakdown_texts_occur_once_in_their_source(script, variant):
     for old, new in edits:
         assert text.count(old) == 1, (variant, old)
         text = text.replace(old, new)
+
+
+@pytest.mark.parametrize("per_sm", MUTANTS.chip_smoke.TRIAD_PERSISTENT)
+def test_triad_persistent_grid_texts_occur_once(per_sm):
+    smoke = MUTANTS.chip_smoke
+    text = (KERNELS / smoke.TRIAD_SOURCE).read_text()
+    for old, new in smoke.triad_persistent_edits(per_sm):
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    assert f"static_cast<int64_t>(sms) * {per_sm};" in text
+    assert text.count("int64_t items") == 3    # launch, dispatch, kernel
