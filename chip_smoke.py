@@ -34,7 +34,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      sweeps, and the coalesced gather of the gups_random,
      stream_unit and hj_mixed streams (all bitwise); the scatter-add with
      duplicates through its op in f32 (2e-3) and bf16 (3e-2), and the
-     kernel on deduplicated rows (bitwise, 16- and 2-byte units); the triad
+     kernel on deduplicated rows (bitwise, 16- and 2-byte units), also at
+     the per-SM splits phase 9 sweeps (4099 tiles, off every split's block
+     boundary, and 5, fewer than its blocks; d 128 and 5); the triad
      in f32 (bitwise) and bf16 (2e-2) on 16-byte items, 4- and 2-byte
      units and 16-byte items at an address off 16 bytes, at depths 1, 2
      and solved, then at given item sizes (items smaller than the caller's
@@ -127,14 +129,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      torch.add(b, c, alpha=s)); each bound is the bytes the function must
      move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
      then the same kernels at other depths (tiles in flight per block;
-     the row gather's per SM, and at 4x14, 6x9, 8x6 and 12x4 blocks an SM x
-     slots), the triad at item sizes (with the blocks an SM that fit) and
-     at other tile heights and depths, and the grouped matmul at
+     the row gather's and the scatter-add's per SM, and at 4x14, 6x9, 8x6
+     and 12x4 (K5a) and 2x14, 3x8, 4x7, 6x4 and 12x2 (K6) blocks an SM x
+     slots; the K6 line of phase 9 gives its split and grid), the triad
+     at item sizes (with the blocks an SM that fit) and at other tile
+     heights and depths, and the grouped matmul at
      qwen3-moe's decode shape at other depths (k-slices in flight per
      block) and at other blocks per SM, each time beside its bound; last,
      in turns against copies of their sources built in a temporary
      directory: the span gather with its ring wait inlined (the source)
-     against the shared header's called wait, and the triad's one pass a
+     against the shared header's called wait, likewise the scatter-add's,
+     and the triad's one pass a
      block (the source) against a persistent grid of 4, 8 and 16 blocks an
      SM, block g walking items g, g + grid, ...;
  10. one JSON line describing every kernel (eight), then the result line.
@@ -206,6 +211,8 @@ F32_PEAK = 67e12                 # data sheet, f32 outside the tensor cores
 # K5a's per-SM splits swept in phase 9 (blocks per SM, slots a block): all
 # fit 228 KiB of shared memory with the runtime's 1 KiB per block
 K5A_SPLITS = ((4, 14), (6, 9), (8, 6), (12, 4))
+# K6's, likewise (its slots hold 8 KiB at the GUPS path's shape)
+K6_SPLITS = ((2, 14), (3, 8), (4, 7), (6, 4), (12, 2))
 MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
@@ -1493,6 +1500,23 @@ def check_gups_parity(torch) -> None:
                                              depth=depth),
                        sa.scatter_add_unique_plain(tab_d.clone(), uniq,
                                                    summed))
+    # the scatter-add at the per-SM splits phase 9 sweeps: 4099 tiles (off
+    # every split's block boundary) and 5 (fewer than any split's blocks)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (128, 5):
+            tab = table(1 << 16, d, dtype)
+            for n in (8 * 4099, 40):
+                uniq = torch.as_tensor(
+                    rng.permutation(1 << 16)[:n].astype(np.int32),
+                    device="cuda")
+                upd = table(n, d, dtype)
+                want = sa.scatter_add_unique_plain(tab.clone(), uniq, upd)
+                for blocks, slots in K6_SPLITS:
+                    _equal(f"scatter_add_unique {dtype} d={d} n={n} at "
+                           f"{blocks} blocks an SM x {slots} slots",
+                           sa.scatter_add_at(tab.clone(), uniq, upd,
+                                             blocks_per_sm=blocks,
+                                             slots=slots), want)
 
     # the triad: f32 bitwise, bf16 at 2e-2; 16-byte items, 4-byte units
     # (64x3 f32, both bf16 shapes: 12-byte items), 2-byte units (63x3 bf16:
@@ -1679,6 +1703,12 @@ def time_gups_kernels(torch, st, gmm_case):
     k5a_grid = ring.launch_grid(table.device, n // 8, k5a_slots,
                                 k5a_slots * 8 * row_bytes, cg.THREADS,
                                 k5a_blocks)[0]
+    # K6's, at its 8 KiB slots (table rows and update rows)
+    k6_blocks, k6_slots = sa.scatter_add_split(depths["scatter_add"], table,
+                                               summed)
+    k6_grid = ring.launch_grid(table.device, u // 8, k6_slots,
+                               k6_slots * 16 * row_bytes, sa.THREADS,
+                               k6_blocks)[0]
     cases = {
         "row_gather": dict(
             kernel=lambda: cg.row_gather(table, idx,
@@ -1705,7 +1735,8 @@ def time_gups_kernels(torch, st, gmm_case):
                      (uniq.long(), summed)),
             bound=_bound_ms(3 * u * row_bytes + 4 * u, u * d),
             shape={"table": list(table.shape), "n": u, "rows_per_tile": 8,
-                   "dtype": "float32"}),
+                   "dtype": "float32", "blocks_per_sm": k6_blocks,
+                   "slots_a_block": k6_slots, "grid": k6_grid}),
         "stream_triad": dict(
             kernel=lambda: sc.triad(b, c, s, depth=depths["stream_triad"]),
             plain=lambda: sc.triad_plain(b, c, s),
@@ -1760,9 +1791,14 @@ def time_gups_kernels(torch, st, gmm_case):
                lambda k=k, slots=slots: cg.row_gather_at(
                    table, idx, blocks_per_sm=k, slots=slots))
               for k, slots in K5A_SPLITS]
-    sweep += [("scatter_add", f"depth={k}",
+    sweep += [("scatter_add", f"depth={k} per SM "
+               f"({'x'.join(map(str, sa.scatter_add_split(k, work, summed)))})",
                lambda k=k: sa.scatter_add_unique(work, uniq, summed, depth=k))
               for k in (4, 8, 16, 28)]
+    sweep += [("scatter_add", f"{k} blocks an SM x {slots} slots",
+               lambda k=k, slots=slots: sa.scatter_add_at(
+                   work, uniq, summed, blocks_per_sm=k, slots=slots))
+              for k, slots in K6_SPLITS]
     sweep += [("stream_triad", f"items of {r} rows ({r * row_bytes} B an "
                f"array, {sc.resident_blocks(r * row_bytes)} blocks an SM "
                f"fit)", lambda r=r: sc.triad_at(b, c, s, item_rows=r))
@@ -1798,8 +1834,26 @@ def time_gups_kernels(torch, st, gmm_case):
         log(f"sweep {name} {tag}: {ms:.4f} ms, "
             f"{bounds[name] / ms:.1%} of the bound")
     log("sweep: " + json.dumps(swept))
-    out["span_gather"]["wait_ab"] = time_span_gather_wait(
-        torch, table, starts, plan.span, depths["span_gather"])
+    span_want = cg.span_gather_plain(table, starts, plan.span)
+    out["span_gather"]["wait_ab"] = time_wait_ab(
+        torch, cg, "span_gather", f"at depth {depths['span_gather']}",
+        lambda: torch.equal(cg.span_gather(
+            table, starts, span=plan.span, depth=depths["span_gather"]),
+            span_want),
+        lambda: cg.span_gather(table, starts, span=plan.span,
+                               depth=depths["span_gather"]))
+    del span_want
+    before = work.clone()
+    sa_want = sa.scatter_add_unique_plain(before.clone(), uniq, summed)
+    out["scatter_add"]["wait_ab"] = time_wait_ab(
+        torch, sa, "scatter_add", f"at {k6_blocks} blocks an SM x {k6_slots} "
+        "slots",
+        lambda: torch.equal(sa.scatter_add_unique(
+            before.clone(), uniq, summed, depth=depths["scatter_add"]),
+            sa_want),
+        lambda: sa.scatter_add_unique(work, uniq, summed,
+                                      depth=depths["scatter_add"]))
+    del before, sa_want
     out["stream_triad"]["walk_ab"] = time_triad_walk(
         torch, b, c, s, sc.plan(*b.shape, 4, 128, depths["stream_triad"])
         .item_rows)
@@ -1807,10 +1861,12 @@ def time_gups_kernels(torch, st, gmm_case):
 
 
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
-# K5b's ring wait: inlined in the source, and as the shared header's call
-SPAN_WAIT_INLINE = \
-    "      repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);"
-SPAN_WAIT_CALLED = "      repro::cp_async_wait_pending(depth - 1);"
+WAIT_INLINE = "repro::cp_async_wait_range<0, repro::kMaxDepth - 1>(depth - 1);"
+WAIT_CALLED = "repro::cp_async_wait_pending(depth - 1);"
+# The sources that inline their ring wait (K5b, K6), and the indent of its
+# line: phase 9 times each against a copy that calls the header's wait
+WAITS = {"span_gather": ("coro_gather/csrc/coro_gather.cu", 6),
+         "scatter_add": ("coro_scatter_add/csrc/scatter_add.cu", 4)}
 TRIAD_SOURCE = "stream_copy/csrc/triad.cu"
 
 
@@ -1870,37 +1926,35 @@ def patched_copy(tmp: Path, name: str, rel: str, edits) -> Path:
     return src
 
 
-def time_span_gather_wait(torch, table, starts, span, depth):
-    """K5b at phase 8's shape with its ring wait inlined (the source) and
+def time_wait_ab(torch, mod, name: str, label: str, check, run):
+    """`run()` with the ring wait of `mod.SOURCE` inlined (the source) and
     with the header's called wait (a copy of the source, built in a
     temporary directory), timed in turns: called, inlined, inlined,
-    called."""
+    called. `name` is the kernel's key in `WAITS`; `check()`, the kernel
+    against its plain version, must hold before each time. Returns
+    {"called": ms, "inlined": ms}, each a median."""
     import tempfile
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.coro_gather import coro_gather as cg
 
-    inline = cg.SOURCE
+    rel, indent = WAITS[name]
+    inline = mod.SOURCE
     times = {"called": [], "inlined": []}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        called = patched_copy(Path(tmp), "called",
-                              "coro_gather/csrc/coro_gather.cu",
-                              [(SPAN_WAIT_INLINE, SPAN_WAIT_CALLED)])
+        called = patched_copy(Path(tmp), "called", rel,
+                              [(" " * indent + WAIT_INLINE,
+                                " " * indent + WAIT_CALLED)])
         build.build([called])
-        want = cg.span_gather_plain(table, starts, span)
-        for name in ("called", "inlined", "inlined", "called"):
-            cg.SOURCE = called if name == "called" else inline
+        for wait in ("called", "inlined", "inlined", "called"):
+            mod.SOURCE = called if wait == "called" else inline
             try:
-                if not torch.equal(cg.span_gather(table, starts, span=span,
-                                                  depth=depth), want):
-                    raise AssertionError(f"span_gather ({name} wait) differs "
+                if not check():
+                    raise AssertionError(f"{name} ({wait} wait) differs "
                                          "from its plain version")
-                times[name].append(median_ms(
-                    torch, lambda: cg.span_gather(table, starts, span=span,
-                                                  depth=depth), [()]))
+                times[wait].append(median_ms(torch, run, [()]))
             finally:
-                cg.SOURCE = inline
-    log(f"span_gather wait at depth {depth}: called "
+                mod.SOURCE = inline
+    log(f"{name} wait {label}: called "
         f"{times['called'][0]:.5f}/{times['called'][1]:.5f} ms, inlined "
         f"{times['inlined'][0]:.5f}/{times['inlined'][1]:.5f} ms")
     return {k: statistics.median(v) for k, v in times.items()}

@@ -1,9 +1,9 @@
 """Hold broken copies of the flash-decode kernels (K1 paged and K3 dense,
 one source: ``flash_decode.cu``), the SSD-scan kernel (K4,
 ``ssd_scan.cu``), the grouped matmul (K2, ``moe_gmm.cu``), the row gather
-(K5a, ``coro_gather.cu``) and the STREAM triad (K7, ``triad.cu``) to the
-tolerances ``chip_smoke.py`` holds the real ones to, on the card (K5a and
-K7 in f32: bitwise).
+(K5a, ``coro_gather.cu``), the scatter-add (K6, ``scatter_add.cu``) and the
+STREAM triad (K7, ``triad.cu``) to the tolerances ``chip_smoke.py`` holds
+the real ones to, on the card (K5a and K6 bitwise, K7 in f32 too).
 
 Each broken copy ("mutant") is one or a few textual changes to a copy of
 the source, made in a temporary directory outside the checkout and built
@@ -37,6 +37,7 @@ FLASH = "decode_attention/csrc/flash_decode.cu"
 SSD = "ssd_scan/csrc/ssd_scan.cu"
 GMM = "moe_gmm/csrc/moe_gmm.cu"
 GATHER = "coro_gather/csrc/coro_gather.cu"
+SCATTER = "coro_scatter_add/csrc/scatter_add.cu"
 TRIAD = "stream_copy/csrc/triad.cu"
 PAGED_KEYS = "return max(0, min(lengths[b], M * page));"
 SSD_INTRA_BF16 = ("          for (int kb = 0; kb <= rb; ++kb) {",
@@ -102,6 +103,22 @@ MUTANTS = {
     "K5a a row id prefetched for the wrong tile": (
         GATHER, "if (i + depth + 1 < count) fetch(t + depth + 1);",
         "if (i + depth + 1 < count) fetch(t + depth);"),
+    "K6 write-back at the row ids of the tile issued next": (
+        SCATTER, "V* dst = row(back, j);", "V* dst = row(next, j);"),
+    "K6 a block's last tile dropped": (
+        SCATTER, "for (int64_t i = 0; i < count; ++i) {",
+        "for (int64_t i = 0; i < count - 1; ++i) {"),
+    # the race at its worst: the slot's next tile lands before it is read
+    "K6 a slot reissued before its write-back has read it": (
+        SCATTER, "    write_back(t, slot);\n"
+        "    if (i + depth < count) issue(t + depth, slot);\n",
+        "    if (i + depth < count) issue(t + depth, slot);\n"
+        "    repro::cp_async_commit();\n    repro::cp_async_wait<0>();\n"
+        "    write_back(t, slot);\n"),
+    "K6 update taken from the next slot": (
+        SCATTER, "const Slot* up = cur + tile_units;",
+        "const Slot* up = ring + static_cast<size_t>((slot + 1) % depth) * 2 "
+        "* tile_units + tile_units;"),
 }
 
 patched_copy = chip_smoke.patched_copy
@@ -229,6 +246,22 @@ def k5a_cases(torch):
             yield f"{str(dtype)[6:]} split={split}", table, idx, split
 
 
+def k6_cases(torch):
+    """2^17 distinct rows of a [2^18, 128] table (512 B rows in f32, 256 B
+    in bf16; 16384 tiles, so that every block at every split walks more
+    tiles than it has slots and refills one), at the solved split and at
+    K6_SPLITS."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    uniq = torch.randperm(1 << 18, generator=gen, device="cuda")[:1 << 17] \
+        .int()
+    for dtype in (torch.float32, torch.bfloat16):
+        table, upd = ((torch.randn(rows, 128, generator=gen, device="cuda")
+                       * 10).to(dtype) for rows in (1 << 18, 1 << 17))
+        for split in (None, *chip_smoke.K6_SPLITS):
+            yield f"{str(dtype)[6:]} split={split}", table, uniq, upd, split
+
+
 def within(torch, got, want, atol, rtol) -> bool:
     got, want = got.float(), want.float()
     return bool(torch.isfinite(got).all()) and bool(
@@ -239,6 +272,7 @@ def run(torch, kernel: str, source, only: str = ""):
     """[(case, max_abs_err, passed)] of the kernel built from `source`, on
     the cases whose name holds `only`."""
     from repro_torch.kernels.coro_gather import coro_gather as cg
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
@@ -276,6 +310,16 @@ def run(torch, kernel: str, source, only: str = ""):
                 cg.row_gather_at(table, idx, blocks_per_sm=split[0],
                                  slots=split[1])
             want = cg.row_gather_plain(table, idx)
+            err = float((got.float() - want.float()).abs().max())
+            rows.append((case, err, bool(torch.equal(got, want))))
+    elif kernel == "K6":
+        sa.SOURCE = source
+        for case, table, uniq, upd, split in k6_cases(torch):
+            want = sa.scatter_add_unique_plain(table.clone(), uniq, upd)
+            got = sa.scatter_add_unique(table.clone(), uniq, upd) \
+                if split is None else sa.scatter_add_at(
+                    table.clone(), uniq, upd, blocks_per_sm=split[0],
+                    slots=split[1])
             err = float((got.float() - want.float()).abs().max())
             rows.append((case, err, bool(torch.equal(got, want))))
     elif kernel == "K1":
@@ -322,14 +366,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels.coro_gather import coro_gather as cg
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
-
     from repro_torch.kernels.stream_copy import stream_copy as sc
 
     controls = {"K1": da.FLASH_SOURCE, "K3": da.FLASH_SOURCE, "K4": ss.SOURCE,
-                "K2": mg.SOURCE, "K5a": cg.SOURCE, "K7": sc.SOURCE}
+                "K2": mg.SOURCE, "K5a": cg.SOURCE, "K6": sa.SOURCE,
+                "K7": sc.SOURCE}
     bad = []
     summary = {}
     with tempfile.TemporaryDirectory(prefix="kernel_mutants_") as tmp:

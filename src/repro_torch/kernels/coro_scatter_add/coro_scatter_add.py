@@ -15,10 +15,13 @@ in-flight tiles would race: the ops layer combines them first
 await/asignal locks), so `idx` here must be duplicate-free.
 
 The add is computed in f32 and rounded once to the table's type, in the
-kernel and in the plain version alike. On CPU tensors the wrapper runs the
-plain version; on CUDA tensors it launches the kernel or raises. Indices
-outside the table are undefined behaviour, as in the reference.
-`scatter_add_unique.launches` counts kernel launches.
+kernel and in the plain version alike. The wrapper reads its depth as
+tiles in flight per SM and runs it as several blocks per SM
+(`ring.split_depth`; it records blocks x slots); `scatter_add_at` launches
+a given split. On CPU tensors the wrapper runs the plain version; on CUDA
+tensors it launches the kernel or raises. Indices outside the table are
+undefined behaviour, as in the reference. `scatter_add_unique.launches`
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -28,11 +31,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.core.coro import CoroSpec, LoadStream, StoreStream
 from repro_torch.kernels import ring
 
-__all__ = ["scatter_add_spec", "scatter_add_unique",
-           "scatter_add_unique_plain"]
+__all__ = ["scatter_add_at", "scatter_add_spec", "scatter_add_split",
+           "scatter_add_unique", "scatter_add_unique_plain"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "scatter_add.cu"
 THREADS = 128                  # kThreads in the .cu source
@@ -61,16 +65,27 @@ def scatter_add_unique_plain(table: torch.Tensor, idx: torch.Tensor,
     return table
 
 
-def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
-                       updates: torch.Tensor, *, depth: Optional[int] = None,
-                       rows_per_tile: int = 8) -> torch.Tensor:
-    """In-place pipelined RMW: table[idx[i]] += updates[i]; returns `table`.
+def _slot_bytes(table: torch.Tensor, updates: torch.Tensor,
+                rows_per_tile: int) -> int:
+    """Shared memory of one ring slot: a tile of table rows and its update
+    rows, in the copy unit the rows and both pointers allow."""
+    row_bytes = table.shape[1] * table.element_size()
+    unit = ring.copy_unit(row_bytes, (table, updates))
+    return ring.ring_bytes(2 * rows_per_tile * row_bytes, unit)
 
-    table: [R, d] f32 or bf16; idx: [n] int32, duplicate-free and in range,
-    n a multiple of `rows_per_tile`; updates: [n, d] in the table's type.
-    `depth` is the number of tiles in flight per thread block; None solves
-    it from `scatter_add_spec`.
-    """
+
+def scatter_add_split(depth: int, table: torch.Tensor, updates: torch.Tensor,
+                      rows_per_tile: int = 8):
+    """(blocks per SM, slots a block) of a scatter-add into `table` whose
+    clamped depth is `depth` tiles in flight per SM (`ring.split_depth`).
+    `scatter_add_unique` runs and records this split: blocks x slots."""
+    return ring.split_depth(depth, threads=THREADS,
+                            slot_bytes=_slot_bytes(table, updates,
+                                                   rows_per_tile))
+
+
+def _check(table, idx, updates, rows_per_tile: int) -> int:
+    """The tile count of a scatter-add; raises on what it does not take."""
     if table.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"need table [R, d] and idx [n], got "
                          f"{tuple(table.shape)} and {tuple(idx.shape)}")
@@ -81,17 +96,49 @@ def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
     if rows_per_tile < 1 or n % rows_per_tile:
         raise ValueError(f"len(idx)={n} must divide into rows_per_tile="
                          f"{rows_per_tile}")
-    n_tiles = n // rows_per_tile
+    return n // rows_per_tile
+
+
+def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
+                       updates: torch.Tensor, *, depth: Optional[int] = None,
+                       rows_per_tile: int = 8) -> torch.Tensor:
+    """In-place pipelined RMW: table[idx[i]] += updates[i]; returns `table`.
+
+    table: [R, d] f32 or bf16; idx: [n] int32, duplicate-free and in range,
+    n a multiple of `rows_per_tile`; updates: [n, d] in the table's type.
+    `depth` is the number of tiles in flight per SM, run as
+    `scatter_add_split` blocks of slots; None solves it from
+    `scatter_add_spec` (and records blocks x slots).
+    """
+    n_tiles = _check(table, idx, updates, rows_per_tile)
     cuda = ring.route("scatter_add", ("table", table), ("idx", idx),
                       ("updates", updates))
-    spec = scatter_add_spec(rows_per_tile, d, table.dtype)
-    row_bytes = d * table.element_size()
-    unit = ring.copy_unit(row_bytes, (table, updates))
-    slot_bytes = ring.ring_bytes(2 * rows_per_tile * row_bytes, unit)
-    depth = ring.solve_depth(spec, depth, n_tiles=n_tiles,
-                             slot_bytes=slot_bytes)
+    solve = depth is None
+    depth = ring.solve_depth(
+        scatter_add_spec(rows_per_tile, table.shape[1], table.dtype), depth,
+        n_tiles=n_tiles, slot_bytes=_slot_bytes(table, updates, rows_per_tile))
+    blocks, slots = scatter_add_split(depth, table, updates, rows_per_tile)
+    if solve:
+        autotune.record_choice("scatter_add", blocks * slots)
     if not cuda:
         return scatter_add_unique_plain(table, idx, updates)
+    return scatter_add_at(table, idx, updates, blocks_per_sm=blocks,
+                          slots=slots, rows_per_tile=rows_per_tile)
+
+
+def scatter_add_at(table: torch.Tensor, idx: torch.Tensor,
+                   updates: torch.Tensor, *, blocks_per_sm: int, slots: int,
+                   rows_per_tile: int = 8) -> torch.Tensor:
+    """`scatter_add_unique` on CUDA tensors at a given split: `blocks_per_sm`
+    blocks on each SM, each keeping `slots` tiles in flight (no solve, no
+    record). The kernel's launch count is `scatter_add_unique.launches`."""
+    n_tiles = _check(table, idx, updates, rows_per_tile)
+    if blocks_per_sm < 1 or not 1 <= slots <= ring.MAX_DEPTH:
+        raise ValueError(f"need blocks_per_sm >= 1 and 1 <= slots <= "
+                         f"{ring.MAX_DEPTH}, got {blocks_per_sm}, {slots}")
+    if not ring.route("scatter_add", ("table", table), ("idx", idx),
+                      ("updates", updates)):
+        raise ValueError("scatter_add_at takes CUDA tensors")
     if table.dtype not in ring.DTYPE_CODE:
         raise TypeError(f"scatter_add: kernel takes float32 or bfloat16, got "
                         f"{table.dtype}")
@@ -101,19 +148,21 @@ def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
                         f"be int32")
     if n_tiles == 0:
         return table
-    tile = (rows_per_tile, d)
-    smem = depth * slot_bytes
-    ring.check_smem(smem, kernel="scatter_add", depth=depth, tile=tile)
-    grid, per_block = ring.launch_grid(table.device, n_tiles, depth, smem,
-                                       THREADS)
+    tile = (rows_per_tile, table.shape[1])
+    row_bytes = table.shape[1] * table.element_size()
+    unit = ring.copy_unit(row_bytes, (table, updates))
+    smem = slots * _slot_bytes(table, updates, rows_per_tile)
+    ring.check_smem(smem, kernel="scatter_add", depth=slots, tile=tile)
+    grid, per_block = ring.launch_grid(table.device, n_tiles, slots, smem,
+                                       THREADS, blocks_per_sm)
     lib = ring.library(SOURCE, "repro_scatter_add", _ARGTYPES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.repro_scatter_add(
             table.data_ptr(), idx.data_ptr(), updates.data_ptr(), n_tiles,
-            per_block, grid, rows_per_tile, row_bytes, depth,
+            per_block, grid, rows_per_tile, row_bytes, slots,
             ring.DTYPE_CODE[table.dtype], unit, stream)
-    ring.raise_on_error(err, lib, kernel="scatter_add", depth=depth,
+    ring.raise_on_error(err, lib, kernel="scatter_add", depth=slots,
                         tile=tile)
     scatter_add_unique.launches += 1
     return table

@@ -83,7 +83,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // inlined: inlined into the page loop of the first paged-decode kernel (since
 // replaced), the search ran that kernel a third slower on an H100 (a switch
 // there cost the gather kernels' deep rings 6% instead). A kernel whose loop
-// it does not slow may inline cp_async_wait_range itself (the span gather).
+// it does not slow may inline cp_async_wait_range itself (the span gather,
+// the scatter-add).
 template <int Lo, int Hi>
 __device__ __forceinline__ void cp_async_wait_range(int n) {
   if constexpr (Lo == Hi) {

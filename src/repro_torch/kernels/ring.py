@@ -3,9 +3,9 @@
 The gather, span-gather and scatter-add kernels share one shape: a thread
 block walks a contiguous range of tiles and keeps `depth` of them in flight
 in a ring of shared-memory slots. This module solves and clamps the depth,
-splits the row gather's depth over the blocks of an SM, counts the blocks
-an SM holds, sizes the grid, picks the copy unit and raises on a failed
-launch (the triad and the other kernels use these too).
+splits the row gather's and the scatter-add's depth over the blocks of an
+SM, counts the blocks an SM holds, sizes the grid, picks the copy unit and
+raises on a failed launch (the triad and the other kernels use these too).
 """
 from __future__ import annotations
 

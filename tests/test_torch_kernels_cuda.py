@@ -476,6 +476,30 @@ def test_scatter_add_unique_bitwise(cuda_device, dtype, d):
         assert torch.equal(got, want)
 
 
+# K6 at the solved split and at the per-SM splits chip_smoke sweeps (blocks
+# per SM, slots a block)
+K6_SPLITS = [None, (2, 14), (3, 8), (4, 7), (6, 4), (12, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 5])
+@pytest.mark.parametrize("n", [8 * 4099, 40])
+@pytest.mark.parametrize("split", K6_SPLITS)
+def test_scatter_add_per_sm_splits_bitwise(cuda_device, dtype, d, n, split):
+    """4099 tiles (off every split's block boundary) and 5 tiles (fewer
+    than the blocks of any split) into a 2^16-row table, rows of 16-byte
+    units and of 4- or (bf16) 2-byte units: bitwise, one launch a call."""
+    tab = _table(cuda_device, 1 << 16, d, dtype)
+    uniq = torch.randperm(1 << 16, device=cuda_device)[:n].int()
+    upd = _table(cuda_device, n, d, dtype, seed=11)
+    want = sa.scatter_add_unique_plain(tab.clone(), uniq, upd)
+    got = sa.scatter_add_unique(tab.clone(), uniq, upd) if split is None \
+        else sa.scatter_add_at(tab.clone(), uniq, upd,
+                               blocks_per_sm=split[0], slots=split[1])
+    assert torch.equal(got, want)
+    assert launch_counts()["scatter_add"] == 1
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,d,rows", [(4096, 128, 128), (640, 96, 64),

@@ -1,7 +1,8 @@
 """The broken kernel copies of ``scripts/kernel_mutants.py``, the reduced
 copies of ``scripts/{flash_decode,ssd_scan}_breakdown.py`` and the
-persistent-grid copies of the triad that ``chip_smoke.py`` times, against
-the sources they change.
+persistent-grid copies of the triad and the ring-wait copies of the span
+gather and the scatter-add that ``chip_smoke.py`` times, against the
+sources they change.
 
 The scripts build and run them only on a card, and refuse an edit whose
 text does not occur exactly once in its source; this checks every copy's
@@ -38,7 +39,7 @@ def test_mutant_texts_occur_once_in_their_source(name):
         assert text.count(old) == 1, (name, old)
         text = text.replace(old, new)
     assert text != (KERNELS / rel).read_text()
-    assert name.split()[0] in {"K1", "K2", "K3", "K4", "K5a", "K7"}
+    assert name.split()[0] in {"K1", "K2", "K3", "K4", "K5a", "K6", "K7"}
     assert isinstance(only, str)
 
 
@@ -62,3 +63,14 @@ def test_triad_persistent_grid_texts_occur_once(per_sm):
         text = text.replace(old, new)
     assert f"static_cast<int64_t>(sms) * {per_sm};" in text
     assert text.count("int64_t items") == 3    # launch, dispatch, kernel
+
+
+@pytest.mark.parametrize("name", sorted(MUTANTS.chip_smoke.WAITS))
+def test_ring_wait_texts_occur_once(name):
+    """The inlined wait that phase 9 swaps for the header's call in its A/B
+    occurs once in its source, at its indent."""
+    smoke = MUTANTS.chip_smoke
+    rel, indent = smoke.WAITS[name]
+    text = (KERNELS / rel).read_text()
+    assert text.count(" " * indent + smoke.WAIT_INLINE) == 1
+    assert text.count(smoke.WAIT_INLINE) == 1

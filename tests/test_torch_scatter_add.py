@@ -6,7 +6,10 @@ The same numpy inputs, made from a seed, go through the reference's op
 bf16, where the port sums duplicate updates in f32 and the reference in
 bf16. `dedup_rmw` must give identical arrays, the kernel on duplicate-free
 rows must equal the reference's kernel bit for bit (one add, rounded once),
-and the spec must give the reference's context bytes and solved depth.
+and the spec must give the reference's context bytes and solved depth. The
+per-SM split of the depth (`scatter_add_split`) must fit one SM and give 4
+blocks of 7 slots at the GUPS shape, a solved call records blocks x slots,
+and `scatter_add_at` refuses CPU tensors and bad splits.
 """
 import dataclasses
 
@@ -24,7 +27,7 @@ from repro.kernels.coro_scatter_add.ops import \
     coro_scatter_add as ref_coro_scatter_add
 from repro_torch.core import autotune, machine
 from repro_torch.core.descriptors import dedup_rmw
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import launch_counts, ring
 from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
 from repro_torch.kernels.coro_scatter_add.ops import coro_scatter_add
 
@@ -159,3 +162,101 @@ def test_wrapper_rejects_bad_inputs():
         sa.scatter_add_unique(table, idx[:6], torch.zeros(6, 4))   # 6 % 8
     with pytest.raises(ValueError):
         sa.scatter_add_unique(table, idx, torch.zeros(8, 4), depth=0)
+
+
+def _same_machine(name="h100"):
+    mm = machine.set_machine(name)
+    ref_machine.set_machine(ref_machine.MachineModel(**dataclasses.asdict(mm)))
+    return mm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [128, 64, 5])
+@pytest.mark.parametrize("rows_per_tile", [1, 4, 8])
+def test_split_respects_the_sm(dtype, d, rows_per_tile):
+    """The per-SM split of every clamped depth 1-64 at the kernel's slot
+    bytes (a tile of table rows and its update rows): blocks that fit one
+    SM's threads and shared memory with the runtime's reservation per
+    block, each ring within one block's limit, at least 2 slots a block
+    (one block of 1 slot at depth 1), blocks x slots >= depth."""
+    table = torch.zeros(64, d, dtype=DTYPES[dtype])
+    upd = torch.zeros(8, d, dtype=DTYPES[dtype])
+    row_bytes = d * table.element_size()
+    slot_bytes = ring.ring_bytes(2 * rows_per_tile * row_bytes,
+                                 ring.copy_unit(row_bytes, (table, upd)))
+    for depth in range(1, 65):
+        depth = ring.kernel_depth(depth, slot_bytes=slot_bytes,
+                                  n_tiles=10 ** 6)
+        blocks, slots = sa.scatter_add_split(depth, table, upd,
+                                             rows_per_tile)
+        assert (blocks, slots) == ring.split_depth(
+            depth, slot_bytes=slot_bytes, threads=sa.THREADS)
+        assert blocks * sa.THREADS <= ring.MAX_THREADS_PER_SM
+        assert blocks * (slots * slot_bytes + ring.SMEM_RESERVED) <= \
+            ring.SM_SMEM
+        assert slots * slot_bytes <= ring.SMEM_LIMIT
+        assert 1 <= slots <= ring.MAX_DEPTH and blocks * slots >= depth
+        assert slots >= 2 or depth == 1
+
+
+def test_gups_shape_splits_into_four_blocks_of_seven():
+    """The GUPS path's scatter-add (512 B rows, 8 a tile, table and update
+    rows: 8 KiB slots) solves depth 28 on the h100 profile and runs it as
+    4 blocks of 7 slots, which fill one SM's 228 KiB exactly."""
+    _same_machine()
+    table, upd = torch.zeros(64, 128), torch.zeros(8, 128)
+    spec = sa.scatter_add_spec(8, 128, torch.float32)
+    solved = autotune.choose_depth(spec.profile(), vars=spec.all_vars())
+    depth = ring.kernel_depth(solved, slot_bytes=8192, n_tiles=1 << 19)
+    assert depth == 28
+    assert sa.scatter_add_split(depth, table, upd) == (4, 7)
+    assert 4 * (7 * 8192 + ring.SMEM_RESERVED) == ring.SM_SMEM
+
+
+@pytest.mark.parametrize("n_rows,d,n_idx,dtype", [
+    (96, 16, 40, "float32"), (512, 128, 256, "float32"),
+    (256, 64, 48, "bfloat16"), (64, 5, 16, "bfloat16")])
+def test_recorded_depth_is_the_split_of_the_reference_choice(n_rows, d, n_idx,
+                                                             dtype):
+    """A depth=None call records blocks x slots of the reference's choice
+    passed through the port's split (`scatter_add_split`, the wrapper's
+    own function), on CPU tensors as on the card."""
+    _same_machine()
+    rng = np.random.RandomState(2)
+    table = rng.randn(n_rows, d).astype(np.float32)
+    idx = rng.permutation(n_rows)[:n_idx].astype(np.int32)
+    upd = rng.randn(n_idx, d).astype(np.float32)
+    t = torch.from_numpy(table).to(DTYPES[dtype])
+    u = torch.from_numpy(upd).to(DTYPES[dtype])
+    sa.scatter_add_unique(t, torch.from_numpy(idx), u)
+    ref_sa.scatter_add_unique(jnp.asarray(table, dtype), jnp.asarray(idx),
+                              jnp.asarray(upd, dtype), interpret=True)
+    blocks, slots = sa.scatter_add_split(
+        ref_autotune.last_choice("scatter_add"), t, u)
+    assert autotune.last_choice("scatter_add") == blocks * slots
+    assert launch_counts()["scatter_add"] == 0          # CPU: plain version
+
+
+@pytest.mark.parametrize("blocks,slots", [(0, 7), (4, 0), (4, 65), (-1, 2)])
+def test_scatter_add_at_refuses_bad_splits(blocks, slots):
+    table = torch.zeros(16, 4)
+    idx = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="blocks_per_sm >= 1"):
+        sa.scatter_add_at(table, idx, torch.ones(8, 4), blocks_per_sm=blocks,
+                          slots=slots)
+    assert not table.any()
+
+
+def test_scatter_add_at_refuses_cpu_tensors():
+    """`scatter_add_at` launches the kernel or raises: it never runs the
+    plain version."""
+    table = torch.zeros(16, 4)
+    idx = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sa.scatter_add_at(table, idx, torch.ones(8, 4), blocks_per_sm=4,
+                          slots=7)
+    with pytest.raises(ValueError):                      # 6 % 8
+        sa.scatter_add_at(table, idx[:6], torch.ones(6, 4), blocks_per_sm=4,
+                          slots=7)
+    assert not table.any()
+    assert launch_counts()["scatter_add"] == 0
