@@ -56,14 +56,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      3e-2 + 3e-2 x |value| (bf16 y);
   4. a reduced yi-6b engine, and (4b) a reduced granite-moe engine, in f32
      on the card against the same engine on the CPU (same parameters, same
-     prompts, round width pinned): the greedy tokens must be identical;
-     (4c) the same for the dense engine, reduced yi-6b and mamba2-130m;
+     prompts, round width pinned): the greedy tokens must be identical,
+     and every decode round on the card a captured CUDA graph or its
+     replay (`graphs`: captures, capture seconds, replays); (4c) the same
+     for the dense engine, reduced yi-6b and mamba2-130m, its decode steps
+     one capture and replays (`jit_decode_step`);
   5. the main path: `serve_paged` for yi-6b at full width with the serving
      layout (bf16, weights drawn once from seed 0 and shared by phases 5-7
      and 5c), 8 requests, prompts of 64-256 tokens (half share a system
      prefix), 32 new tokens each, prefix cache on. Launch counts are
      zeroed just before and read just after; every request must finish and
-     the paged-decode kernel must run n_layers times per decode round;
+     the paged-decode kernel must run n_layers times per decode round
+     (each round a replay of a captured graph, counted as the launches its
+     capture recorded; the line's `graphs` gives captures and replays);
   6. K1 times at the main path's decode shape (CUDA events around one call
      per layer, queued behind a device sleep; median of 21 batches) and
      at B 1 (its longest request): the kernel (with the splits, tile and
@@ -72,15 +77,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      excludes the page gather); the bound is the larger of the live K/V
      bytes over 3.35 TB/s and the flops over 989 TFLOP/s (data sheet);
      then a sweep of tile height (32, 64) x splits, each beside the bound;
-  7. a profile of full-width decode rounds (torch.profiler): device time
-     by kernel per round, K1's share of it and the device's busy share of
-     the wall clock;
+  7. a profile of full-width decode rounds (torch.profiler), each a replay
+     of the round's CUDA graph: device time by kernel per round, K1's share
+     of it, the device's busy share of the wall clock, and the graphs
+     captured on the way (how many, their capture time) and replayed;
   5c. the dense engine: `serve(engine="dense")` for yi-6b at full width on
      phase 5's weights, batch 8, prompts of 1024 tokens, 32 new tokens
      (caches [32, 8, 1056, 4, 128] x 2, 0.55 GB). Launch counts zeroed
      just before and read just after: dense flash-decode 32 x 31 times and
-     nothing else; decode tok/s and per-token p50/p99; then a profile of
-     dense decode steps (device time by kernel, busy share), as phase 7;
+     nothing else; decode tok/s and per-token p50/p99 (the first step
+     includes the decode step's capture: `decode_captures`); then a
+     profile of dense decode steps through `jit_decode_step` (device time
+     by kernel, busy share, captures), as phase 7;
   6c. dense flash-decode times at 5c's decode shape (B 8, S 1056, pos
      1040; the method of phase 6) and at B 1: kernel (with the splits,
      tile height and depth it ran), plain version, and as a yardstick
@@ -96,7 +104,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      version (no PyTorch call computes the scan); bound: the larger of the
      bytes in and out over 3.35 TB/s and the reference spec's flops over
      the peak of the kernel's products (989 TFLOP/s bf16 tensor cores, 67
-     TFLOP/s f32);
+     TFLOP/s f32); then a profile of its decode steps, as 5c;
   5b. the MoE path: `serve_paged` for qwen3-moe-30b-a3b at full width
      (48 layers, 128 experts, 61.1 GB of bf16 weights), the same traffic
      as phase 5, after yi-6b is freed. Every request must finish, the
@@ -110,10 +118,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      bound is the weights, tokens and output over 3.35 TB/s (or the flops
      over 989 TFLOP/s, if larger); and the host time of one `gmm` call
      (`host_ms_per_call`);
-  7b. a profile of full-width qwen3-moe decode rounds: device time by
-     kernel per round, K1's and the grouped matmul's shares, the busy
-     share, and the round's floor (every weight but the embedding table
-     read once);
+  7b. a profile of full-width qwen3-moe decode rounds, replays as in
+     phase 7: device time by kernel per round, K1's and the grouped
+     matmul's shares, the busy share, the captures, and the round's floor
+     (every weight but the embedding table read once);
   8. the GUPS path at a real size, through `repro_torch.launch.gups` and the
      ops: a 2^24 x 128 f32 table (8 GiB, far past the 50 MB L2), 2^22
      seeded uniform-random indices gathered and then scatter-added, a
@@ -444,8 +452,18 @@ def check_gmm_parity(torch) -> float:
 # ------------------------------------------------------------------ phase 4
 
 
+def graph_delta(since: dict) -> dict:
+    """`core.step_graph.stats()` since `since`: the CUDA graphs captured,
+    the seconds the captures took and the replays."""
+    from repro_torch.core import step_graph
+
+    now = step_graph.stats()
+    return {k: now[k] - since[k] for k in now}
+
+
 def check_engine_card_vs_cpu(torch, arch: str) -> None:
     from repro_torch.configs import get_config
+    from repro_torch.core import step_graph
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import serve_paged
     from repro_torch.models import build_model
@@ -464,8 +482,10 @@ def check_engine_card_vs_cpu(torch, arch: str) -> None:
               max_in_flight=3)
     cpu = serve_paged(cfg, device="cpu", params=params_cpu, **kw)
     reset_launch_counts()
+    since = step_graph.stats()
     card = serve_paged(cfg, device="cuda", params=to_card(params_cpu), **kw)
     counts = launch_counts()
+    graphs = graph_delta(since)
     if cpu["generated"] != card["generated"]:
         raise AssertionError(f"{arch}: card tokens {card['generated']} != "
                              f"CPU tokens {cpu['generated']}")
@@ -473,9 +493,15 @@ def check_engine_card_vs_cpu(torch, arch: str) -> None:
     if not all(ran.values()):
         raise AssertionError(f"{arch}: the card engine did not launch every "
                              f"kernel of its path: {ran}")
+    if graphs["captures"] < 1 or \
+            graphs["captures"] + graphs["replays"] != card["decode_rounds"]:
+        raise AssertionError(f"{arch}: {card['decode_rounds']} decode rounds "
+                             f"were not captured rounds and replays: "
+                             f"{graphs}")
     log(f"engine {arch} reduced f32 card == cpu: "
         f"{sum(map(len, card['generated']))} tokens identical, launches "
-        f"{ran}")
+        f"{ran}, decode rounds {card['decode_rounds']} as graphs "
+        f"{json.dumps(graphs)}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -485,16 +511,19 @@ def serve_main_path(torch, arch: str, params=None):
     """`serve_paged` for `arch` at full width, serving layout (bf16), with
     the launch counts zeroed just before and read just after."""
     from repro_torch.configs import get_config
+    from repro_torch.core import step_graph
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import SERVING_OVERRIDES, serve_paged
 
     cfg = get_config(arch).replace(**SERVING_OVERRIDES)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    since = step_graph.stats()
     reset_launch_counts()
     stats = serve_paged(cfg, device="cuda", params=params, **SERVE)
     counts = launch_counts()
     wall = time.perf_counter() - t0
+    graphs = graph_delta(since)
     n = SERVE["batch"]
     bad = {k: stats[k] for k in ("failed", "cancelled", "stalled") if stats[k]}
     if stats["completed"] != n or bad or \
@@ -525,6 +554,7 @@ def serve_main_path(torch, arch: str, params=None):
     shown["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     shown["wall_s"] = wall
     shown["launches"] = {k: counts[k] for k in want}
+    shown["graphs"] = graphs
     log(f"serve {arch} full width: " + json.dumps(shown))
     return cfg, stats, counts
 
@@ -702,10 +732,12 @@ def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
     `profile_steps` over its rounds."""
     import numpy as np
 
+    from repro_torch.core import step_graph
     from repro_torch.serve import PagedServingEngine
 
     new = 64
     blocks = -(-(SERVE["prompt_len"] + new) // SERVE["block_size"])
+    since = step_graph.stats()
     eng = PagedServingEngine(cfg, block_size=SERVE["block_size"],
                              num_blocks=width * blocks, max_in_flight=width,
                              device="cuda", params=params)
@@ -720,15 +752,18 @@ def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
     if len(eng.scheduler.running) != width:
         raise AssertionError("the profiled engine never filled its round")
     return profile_steps(torch, eng.step_round, rounds,
-                         f"decode round (B={width}, {cfg.n_layers} layers)")
+                         f"decode round (B={width}, {cfg.n_layers} layers)",
+                         since)
 
 
-def profile_steps(torch, step, rounds, label):
+def profile_steps(torch, step, rounds, label, since):
     """One warm call of `step`, `rounds` calls timed on the host clock,
-    then `rounds` more under torch.profiler for the device time by kernel.
-    Busy share = device time per call over the unprofiled wall clock per
-    call. Returns (busy share, device ms per call by kernel name, wall ms
-    per call)."""
+    then `rounds` more under torch.profiler for the device time by kernel
+    (each a replay of the captured step). Busy share = device time per call
+    over the unprofiled wall clock per call. Logs the CUDA graphs captured
+    since `step_graph.stats()` read `since` (the path's set-up included),
+    their capture time and the replays. Returns (busy share, device ms per
+    call by kernel name, wall ms per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -757,7 +792,8 @@ def profile_steps(torch, step, rounds, label):
     busy_ms = sum(r[0] for r in rows)
     log(f"profile {label}: wall {wall_ms:.2f} ms/call, device busy "
         f"{busy_ms:.2f} ms/call ({100 * busy_ms / wall_ms:.1f}% busy), "
-        f"device time by kernel per call:")
+        f"graphs {json.dumps(graph_delta(since))}, device time by kernel "
+        f"per call:")
     for ms, count, key in rows[:12]:
         log(f"  {ms:8.3f} ms {count:6d} x  {key[:90]}")
     return busy_ms / wall_ms, {key: ms for ms, _, key in rows}, wall_ms
@@ -778,10 +814,14 @@ def profile_dense_steps(torch, cfg, params, rounds=4):
     """Where a dense decode step's time goes at the dense path's widths:
     the batch prefilled with random prompts, then `profile_steps` over
     decode steps (the cache holds every step)."""
+    from repro_torch.core import step_graph
+    from repro_torch.launch.serve import jit_decode_step
     from repro_torch.models import build_model
 
+    since = step_graph.stats()
     kw = DENSE_SERVE[cfg.name]
     model = build_model(cfg)
+    decode = jit_decode_step(model)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     prompts = torch.randint(0, cfg.vocab, (kw["batch"], kw["prompt_len"]),
@@ -792,13 +832,13 @@ def profile_dense_steps(torch, cfg, params, rounds=4):
     state["tokens"] = torch.argmax(logits, dim=-1).to(torch.int32)
 
     def step():
-        logits, state["cache"] = model.decode_step(
-            params, state["cache"], {"tokens": state["tokens"]})
+        logits, state["cache"] = decode(params, state["cache"],
+                                        {"tokens": state["tokens"]})
         state["tokens"] = torch.argmax(logits, dim=-1).to(torch.int32)
 
     return profile_steps(torch, step, rounds,
                          f"dense decode step {cfg.name} (B={kw['batch']}, "
-                         f"{cfg.n_layers} layers)")
+                         f"{cfg.n_layers} layers)", since)
 
 
 # ----------------------------------------------------------------- phase 6b
@@ -1110,6 +1150,9 @@ def check_dense_engine_card_vs_cpu(torch, arch: str) -> None:
     reset_launch_counts()
     card = serve(cfg, device="cuda", params=to_card(params_cpu), **kw)
     counts = launch_counts()
+    if card["decode_captures"] != 1:
+        raise AssertionError(f"{arch} dense: {card['decode_captures']} "
+                             f"captures of the decode step, want 1")
     if cpu["generated"] != card["generated"]:
         raise AssertionError(f"{arch} dense: card tokens {card['generated']} "
                              f"!= CPU tokens {cpu['generated']}")
@@ -1120,7 +1163,8 @@ def check_dense_engine_card_vs_cpu(torch, arch: str) -> None:
                              f"{counts[kernel]} times, want {want}")
     log(f"engine {arch} reduced dense f32 card == cpu: "
         f"{sum(map(len, card['generated']))} tokens identical, {kernel} "
-        f"launched {counts[kernel]} times")
+        f"launched {counts[kernel]} times, one capture, "
+        f"{kw['gen'] - 2} replays")
 
 
 # ------------------------------------------------------- phases 5c and 5d
@@ -1162,7 +1206,8 @@ def serve_dense_path(torch, arch: str, params=None):
                              f"{stats['generated_shape']}")
     shown = {k: stats[k] for k in ("decode_tok_per_s", "p50_ms", "p99_ms",
                                    "mean_ms", "prefill_s", "decode_s",
-                                   "generated_shape", "sample_tokens")}
+                                   "decode_captures", "generated_shape",
+                                   "sample_tokens")}
     shown["launches"] = {k: v for k, v in counts.items() if v}
     shown["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     shown["wall_s"] = wall
@@ -1184,11 +1229,11 @@ def check_flash_decode_path_shape(torch, q, k, v, pos):
     out = da.flash_decode(q, k, v, pos)
     depth = autotune.last_choice("flash_decode")
     err = _close(f"flash_decode at the dense path's shape {tuple(k.shape)} "
-                 f"pos={pos} bfloat16 (depth {depth})", out,
+                 f"pos={int(pos)} bfloat16 (depth {depth})", out,
                  da.flash_decode_plain(q, k, v, pos), *DECODE_TOL["bfloat16"])
     q, k, v = q.float(), k.float(), v.float()
     _close(f"flash_decode at the dense path's shape {tuple(k.shape)} "
-           f"pos={pos} float32", da.flash_decode(q, k, v, pos),
+           f"pos={int(pos)} float32", da.flash_decode(q, k, v, pos),
            da.flash_decode_plain(q, k, v, pos), *DECODE_TOL["float32"])
     return err, depth
 
@@ -1206,10 +1251,11 @@ def flash_decode_bound(b, h, kh, d, pos):
 
 def time_flash_decode(torch, cfg, b, sweep=False):
     """K3 at the dense yi-6b decode shape (H 32, KH 4, D 128, S 1056,
-    pos 1040) at batch `b`, one call per layer's cache: the kernel, its
-    plain version, and as a yardstick scaled_dot_product_attention over
-    the cache sliced to pos + 1, beside the bound. With `sweep`, the
-    kernel again at tile heights 64 and 128 and several split counts."""
+    pos 1040) at batch `b`, one call per layer's cache, pos in a device
+    int32 as the dense step passes it: the kernel, its plain version, and
+    as a yardstick scaled_dot_product_attention over the cache sliced to
+    pos + 1, beside the bound. With `sweep`, the kernel again at tile
+    heights 64 and 128 and several split counts."""
     import torch.nn.functional as F
 
     from repro_torch.core import autotune
@@ -1222,6 +1268,7 @@ def time_flash_decode(torch, cfg, b, sweep=False):
     h, kh, d = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
+    dev_pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     layers = []
     for _ in range(cfg.n_layers):
         q = torch.randn(b, h, d, generator=gen, device="cuda").to(
@@ -1230,9 +1277,9 @@ def time_flash_decode(torch, cfg, b, sweep=False):
             torch.bfloat16)
         v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(
             torch.bfloat16)
-        layers.append((q, k, v, pos))
+        layers.append((q, k, v, dev_pos))
     q, k, v, _ = layers[0]
-    err, depth = check_flash_decode_path_shape(torch, q, k, v, pos)
+    err, depth = check_flash_decode_path_shape(torch, q, k, v, dev_pos)
     sms = ring.sm_count(q.device)
     n_split, per = da.split_plan(b, kh, s, da.FLASH_BLK, sms)
 

@@ -74,10 +74,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     b, s, pos = 8, 1056, 1040
+    dev_pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     layers = [tuple(torch.randn(*shape, generator=gen, device="cuda")
                     .to(torch.bfloat16)
                     for shape in ((b, 32, 128), (b, s, 4, 128),
-                                  (b, s, 4, 128))) + (pos,)
+                                  (b, s, 4, 128))) + (dev_pos,)
               for _ in range(32)]
     bound_ms = chip_smoke.flash_decode_bound(b, 32, 4, 128, pos)[0]
     times = {}

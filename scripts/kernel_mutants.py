@@ -61,8 +61,8 @@ MUTANTS = {
         FLASH, "const int row_end = min(n_keys, row0 + tiles_per_split * blk);",
         "const int row_end = min(n_keys, row0 + tiles_per_split * blk) - 1;"),
     "K3 one row past pos": (
-        FLASH, "const int n_keys = pos + 1 < S ? pos + 1 : S;",
-        "const int n_keys = pos + 2 < S ? pos + 2 : S;"),
+        FLASH, "static_cast<int>(pos + 1 < S ? pos + 1 : S);",
+        "static_cast<int>(pos + 2 < S ? pos + 2 : S);"),
     "K4 intra-chunk term dropped": (
         SSD, [SSD_INTRA_BF16, SSD_INTRA_F32], ""),
     "K4 inter-chunk term dropped": (

@@ -12,9 +12,10 @@ def reset() -> None:
     """Reset the process-wide state of the port: autotune samples and
     quarantine, the active machine profile (from ``REPRO_MACHINE``), the
     tracer and metrics registry (from ``REPRO_TELEMETRY``), the substrate
-    counters and the kernels' launch counts. Tests call this between cases."""
+    counters, the kernels' launch counts and the step graphs' capture and
+    replay counts. Tests call this between cases."""
     from repro_torch import obs
-    from repro_torch.core import autotune, guard
+    from repro_torch.core import autotune, guard, step_graph
     from repro_torch.core.machine import set_machine
     from repro_torch.kernels import reset_launch_counts
 
@@ -23,6 +24,7 @@ def reset() -> None:
     obs.reset()
     guard.reset()
     reset_launch_counts()
+    step_graph.reset()
 
 
 __all__ = ["reset"]

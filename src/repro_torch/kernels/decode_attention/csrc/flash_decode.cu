@@ -10,12 +10,15 @@
 //
 // with an f32 online softmax (m, l, acc) and the output acc / max(l, 1e-30)
 // cast to the input type. K3 reads caches [B, S, KH, D] up to one scalar
-// `pos` for the whole batch: n_keys = min(pos + 1, S) for every b. K1 reads
-// pools [NB, page, KH, D] through a block table [B, M]: key j of request b
-// is row j % page of page block_tables[b, j / page], and n_keys(b) is
-// lengths[b] (clamped to [0, M * page]), read from the device array inside
-// the kernel. The dense serving engine runs K3 and the paged one K1, for
-// every attention layer of every decode step.
+// `pos` for the whole batch: n_keys = min(pos + 1, S) for every b, with pos
+// read from a device int32 inside the kernel (the TPU kernel takes it as a
+// scalar-prefetched array). K1 reads pools [NB, page, KH, D] through a
+// block table [B, M]: key j of request b is row j % page of page
+// block_tables[b, j / page], and n_keys(b) is lengths[b] (clamped to
+// [0, M * page]), read from the device array inside the kernel. Neither
+// launch takes a value that changes from one decode step to the next, so
+// both replay in a captured CUDA graph. The dense serving engine runs K3
+// and the paged one K1, for every attention layer of every decode step.
 //
 // What bounds it: bytes. Each key row is read once and used for G query
 // heads (2 * G flops per byte in bf16), far below the ~295 flops/byte at
@@ -126,10 +129,17 @@ size_t smem_bytes(int GP, int D, int blk, int depth, int itemsize, int slots) {
 // address.
 
 // A dense [B, S, KH, D] cache attended up to one position for the batch.
+// The position is a device scalar, read by every block after its
+// griddepcontrol.wait (the kernel before may have written it), so that a
+// captured launch reads each replay's value; past S every row is live.
 struct DenseRows {
   static constexpr bool kTable = false;
-  int S, KH, D, n_keys;  // n_keys = min(pos + 1, S)
-  __device__ __forceinline__ int keys(int) const { return n_keys; }
+  const int* last;  // pos, the last key position attended
+  int S, KH, D;
+  __device__ __forceinline__ int keys(int) const {
+    const int64_t pos = *last;
+    return pos < 0 ? 0 : static_cast<int>(pos + 1 < S ? pos + 1 : S);
+  }
   __device__ __forceinline__ int table_bytes() const { return 0; }
   __device__ __forceinline__ DenseRows bind(int*, int, int, int) const { return *this; }
   __device__ __forceinline__ int64_t operator()(int b, int row, int kh) const {
@@ -731,19 +741,20 @@ int table_slots(int M, int page, int blk, int tiles_per_split) {
 // cudaError_t of the launches (0 on success); the caller raises on
 // anything else.
 
-// K3: caches [B, S, KH, D]. `pos` >= 0 is the last key position attended
-// (keys at or past S do not exist: min(pos + 1, S) rows are live).
+// K3: caches [B, S, KH, D]. `pos` points to one int32 on the device: the
+// last key position attended (keys at or past S do not exist: min(pos + 1,
+// S) rows are live; none when it is negative, and the output is then 0). It
+// is not read on the host, as K1's lengths are not.
 extern "C" int repro_flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                                  void* out, void* part, int B, int H, int KH, int D, int S,
-                                  int blk, int pos, int n_split, int tiles_per_split, int depth,
-                                  float scale, int dtype, void* stream) {
-  if (S < 1 || pos < 0 || bad_launch(B, H, KH, blk, depth, n_split, tiles_per_split, S, part)) {
+                                  void* out, void* part, const void* pos, int B, int H, int KH,
+                                  int D, int S, int blk, int n_split, int tiles_per_split,
+                                  int depth, float scale, int dtype, void* stream) {
+  if (S < 1 || !pos || bad_launch(B, H, KH, blk, depth, n_split, tiles_per_split, S, part)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int n_keys = pos + 1 < S ? pos + 1 : S;
   const Args a{q, k_cache, v_cache, out, static_cast<float*>(part), B, H, KH, blk,
                n_split, tiles_per_split, depth, scale * kLog2e, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, D, a, DenseRows{S, KH, D, n_keys}, 0);
+  return dispatch(dtype, D, a, DenseRows{static_cast<const int*>(pos), S, KH, D}, 0);
 }
 
 // K1: pools [NB, page, KH, D], block_tables [B, M] int32 (entries past a

@@ -18,8 +18,9 @@ the paged serving engine runs it for every attention layer of every round.
 One CUDA source (`csrc/flash_decode.cu`), hand-written for sm_90a, runs
 both: one split kernel and one merge kernel, instantiated with two row
 functions (dense rows, or pages through the block table) and two length
-sources (``min(pos + 1, S)`` for the batch, or ``lengths[b]`` read on the
-device). Both keep the TPU kernels' arithmetic: scores scaled in f32 by
+sources (``min(pos + 1, S)`` for the batch, or ``lengths[b]``, both read
+on the device, so that a captured launch replays any step). Both keep the
+TPU kernels' arithmetic: scores scaled in f32 by
 ``D**-0.5``, an f32 online softmax over the live keys, output
 ``acc / max(l, 1e-30)`` cast to q's type; the sequence is split over
 blocks in ``blk``-row tiles and the splits' partial softmax states merged;
@@ -127,19 +128,20 @@ def paged_decode_spec(blk: int, kh: int, g: int, d: int, dtype,
 # ------------------------------------------------------------ plain versions
 
 
-def flash_decode_plain(q, k_cache, v_cache, pos: int):
+def flash_decode_plain(q, k_cache, v_cache, pos):
     """The dense kernel's function in plain PyTorch, with the same f32
     arithmetic (a one-pass softmax in place of the online one: equal up to
     rounding).
 
     q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: the last key
-    position attended (every key when pos >= S - 1). Returns [B, H, D] in
-    q's type."""
+    position attended (every key when pos >= S - 1), an int or a one-element
+    integer tensor, never read on the host. Returns [B, H, D] in q's
+    type."""
     b, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     qv = q.float().reshape(b, kh, h // kh, d) * (d ** -0.5)
     sc = torch.einsum("bkgd,bskd->bkgs", qv, k_cache.float())
-    valid = torch.arange(s, device=q.device) <= int(pos)
+    valid = torch.arange(s, device=q.device) <= pos
     sc = sc.masked_fill(~valid, NEG_INF)
     p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1)
@@ -177,7 +179,7 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, lengths):
 
 # ------------------------------------------------ the kernel's host side
 
-_FLASH_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _PAGED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -268,17 +270,25 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
                  depth: Optional[int] = None, splits: Optional[int] = None):
     """Flash-decode over a dense KV cache at one scalar position.
 
-    q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: int (or a 0-d
-    tensor), the last key position attended — every position <= pos (all
-    S when pos >= S). S need not be a multiple of `blk`. Returns [B, H, D]
-    in q's type.
+    q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: the last key
+    position attended — every position <= pos (all S when pos >= S). S
+    need not be a multiple of `blk`. Returns [B, H, D] in q's type.
+
+    `pos` is a Python int >= 0, or a one-element int32 tensor on q's
+    device, which the kernel reads on the device, as the reference's Pallas
+    kernel reads its scalar-prefetched `pos`: the host never reads a tensor
+    `pos`, so a captured launch reads each replay's value (an int is
+    written to the device first). A negative tensor `pos` attends no key
+    (0 on the card).
 
     On the card the sequence is split over `splits` blocks per (b, kh);
     None takes `split_plan` for this card's SM count. The plain version
     does not split (one split). `depth` is the number of `blk`-row tiles in
     flight per block; None solves it from `decode_spec` through
     `core.autotune.choose_depth`. Either is clamped by `flash_kernel_depth`
-    to the live tiles of one split and recorded as run, for
+    to the tiles of one split that can hold a live key (an int `pos` bounds
+    them; a tensor `pos`, which the host does not read, leaves the split's
+    tiles, as the reference's ``n_tiles`` is S's) and recorded as run, for
     `autotune.last_choice("flash_decode")`.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
@@ -286,13 +296,21 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     launch, ValueError / TypeError on inputs it does not take).
     """
     _check_dense(q, k_cache, v_cache, blk)
-    pos = int(pos)
-    if pos < 0:
-        raise ValueError(f"pos must be >= 0, got {pos}")
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        if pos.numel() != 1 or pos.dtype != torch.int32:
+            raise ValueError(f"a tensor pos must be one int32 element, got "
+                             f"{pos.dtype} {tuple(pos.shape)}")
+        pos = pos.reshape(())
+    else:
+        pos = int(pos)
+        if pos < 0:
+            raise ValueError(f"pos must be >= 0, got {pos}")
     if splits is not None and splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     on_card = ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
-                         ("v_cache", v_cache))
+                         ("v_cache", v_cache),
+                         *([("pos", pos)] if on_device else []))
     b, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
@@ -305,9 +323,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     if depth is None:
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
+    live = per if on_device else min(per, -(-min(pos + 1, s) // blk))
     depth = flash_kernel_depth(depth, g=g, d=d, blk=blk,
-                               itemsize=k_cache.element_size(),
-                               n_tiles=min(per, -(-min(pos + 1, s) // blk)))
+                               itemsize=k_cache.element_size(), n_tiles=live)
     autotune.record_choice(spec.name, depth)
     if not on_card:
         return flash_decode_plain(q, k_cache, v_cache, pos)
@@ -317,13 +335,15 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
         return out
     part = torch.empty(b * kh * n_split * g * (d + 2), dtype=torch.float32,
                        device=q.device) if n_split > 1 else None
+    if not on_device:         # the kernel reads pos on the device
+        pos = torch.full((), min(pos, s), dtype=torch.int32, device=q.device)
     lib = ring.library(FLASH_SOURCE, "repro_flash_decode", _FLASH_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
-            b, h, kh, d, s, blk, pos, n_split, per, depth,
+            pos.data_ptr(), b, h, kh, d, s, blk, n_split, per, depth,
             float(d ** -0.5), ring.DTYPE_CODE[q.dtype], stream)
     ring.raise_on_error(err, lib, kernel="flash_decode", depth=depth,
                         tile=(blk, d))

@@ -4,14 +4,18 @@ Two engines, as in the reference package:
 
   dense - the fixed-batch baseline (the default): one ``[batch, max_len]``
           cache per layer, `model.prefill` once, then `model.decode_step`
-          for every token, timed one step at a time (`serve`,
+          for every token through `jit_decode_step` (on the GPU one CUDA
+          graph a step), timed one step at a time (`serve`,
           `timed_decode_loop`). It serves the dense, MoE and Mamba-2 SSM
           families; its decode attention is the `flash_decode` kernel and
           its SSM prefill the `ssd_scan` kernel.
   paged - `repro_torch.serve.PagedServingEngine` (`serve_paged`):
           continuous batching over a paged KV block pool, ragged prompt
           lengths, half of them sharing a system-prompt prefix, through a
-          pool sized to force page reuse.
+          pool sized to force page reuse (on the GPU one CUDA graph a
+          decode round).
+
+Prefill runs eagerly in both.
 
 Both report decode tok/s and per-token p50/p99 (the paged engine also
 TTFT/TBT, prefix-cache and failure accounting) plus every request's
@@ -40,6 +44,7 @@ import torch
 from repro_torch.configs import get_config, token_split
 from repro_torch.core import autotune, guard
 from repro_torch.core.machine import get_machine
+from repro_torch.core.step_graph import StepGraph
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import latency_report
 
@@ -55,10 +60,40 @@ def make_prompts(cfg, batch: int, prompt_len: int, rng, device):
     if front:
         raise NotImplementedError(
             f"arch {cfg.name!r}: frontend (audio/vision) inputs wait for a "
-            "later slice of the port (ROADMAP Queue 1 item 6)")
+            "later slice of the port (ROADMAP Queue 1, \"Hybrid and the "
+            "other families\")")
     tokens = rng.integers(0, cfg.vocab, (batch, text))
     return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
                                       device=device)}, text
+
+
+def jit_decode_step(model):
+    """The one decode step every drive loop reuses, as the reference's
+    ``jax.jit(model.decode_step, donate_argnums=(1,))``: the same call as
+    `model.decode_step` (params, cache, batch) -> (logits, cache).
+
+    On CUDA tensors each call replays a CUDA graph of `model.decode_step`
+    (`core.step_graph.StepGraph`), captured at the first call for these
+    parameters, caches and batch shape, and again whenever one of them
+    changes; the caches are updated in place, as the reference donates
+    them. The logits and the cache's ``pos`` it returns are the graph's
+    output buffers: the next call overwrites them, so a caller reads them
+    first (`timed_decode_loop` takes the argmax and scans the logits before
+    its next call). On CPU tensors it is `model.decode_step`, run eagerly.
+    The graph is the function's ``graph`` attribute."""
+
+    def step(params, layers, pos, tokens):
+        return model.decode_step(params, {"pos": pos, "layers": layers},
+                                 {"tokens": tokens})
+
+    graph = StepGraph(step)
+
+    def decode(params, cache, batch):
+        return graph((params, cache["layers"]),
+                     (cache["pos"], batch["tokens"]))
+
+    decode.graph = graph
+    return decode
 
 
 def timed_decode_loop(decode, params, cache, tokens, *, steps, make_batch):
@@ -67,7 +102,9 @@ def timed_decode_loop(decode, params, cache, tokens, *, steps, make_batch):
     Returns (tokens_list, final_tokens, per-step latencies in seconds). The
     per-step synchronisation is what makes p50/p99 meaningful; its cost is
     inside the latencies. A step whose logits are not finite raises
-    `KernelNumericsError` (counted in `guard.stats()`)."""
+    `KernelNumericsError` (counted in `guard.stats()`). Each step's logits
+    are read (argmax, then the scan) before the next call, which may
+    overwrite them (`jit_decode_step`)."""
     out = [tokens]
     lat = []
     tracer = obs_trace.get_tracer()  # fetched once: null no-op when off
@@ -140,9 +177,9 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     def make_batch(tokens, i):
         return {"tokens": tokens}
 
-    out, tokens, lat = timed_decode_loop(model.decode_step, params, cache,
-                                         tokens, steps=gen - 1,
-                                         make_batch=make_batch)
+    decode = jit_decode_step(model)
+    out, tokens, lat = timed_decode_loop(decode, params, cache, tokens,
+                                         steps=gen - 1, make_batch=make_batch)
     t_decode = sum(lat)
     generated = torch.cat(out, dim=1).cpu()
     stats = {
@@ -153,6 +190,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+        "decode_captures": decode.graph.captures,
         "sample_tokens": generated[0, :8].tolist(),
         "substrate": guard.stats(),
         "generated": generated.tolist(),

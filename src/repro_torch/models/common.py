@@ -145,7 +145,7 @@ def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0,
     ):
         raise NotImplementedError(
             "sliding-window block attention comes with the hybrid family "
-            "(ROADMAP Queue 1 item 6)")
+            "(ROADMAP Queue 1, \"Hybrid and the other families\")")
     if impl == "naive" or (impl == "auto" and s_kv <= max(chunk, 4096)):
         return attention_naive(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                causal=causal, window=window, prefix=prefix)
@@ -157,19 +157,22 @@ def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0,
 # --------------------------------------------------- decode over a dense cache
 
 
-def _single_decode(q, k_cache, v_cache, new_k, new_v, pos: int, update=True):
+def _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update=True):
     """Unsharded decode attention: write the new K/V row at `pos` in place
-    (clamped to the last row, as the reference's dynamic_update_slice is),
+    (clamped into the cache, as the reference's dynamic_update_slice is),
     then attend every position <= pos through the flash-decode kernel (its
     plain version on CPU tensors).
 
     q: [B, 1, H, D]; k_cache/v_cache: [B, S, KH, D]; new_k/new_v:
-    [B, 1, KH, D]; pos: int. Returns (out [B, 1, H, D], k_cache, v_cache)."""
-    pos = int(pos)
+    [B, 1, KH, D]; pos: a 0-d int32 tensor on the cache's device (the
+    engine's), or an int. A tensor `pos` is never read on the host: the row
+    is written at a device index and K3 reads it on the device, so the step
+    replays in a CUDA graph. Returns (out [B, 1, H, D], k_cache, v_cache)."""
     if update:
-        row = min(pos, k_cache.shape[1] - 1)
-        k_cache[:, row] = new_k[:, 0].to(k_cache.dtype)
-        v_cache[:, row] = new_v[:, 0].to(v_cache.dtype)
+        row = torch.as_tensor(pos, device=k_cache.device).reshape(1)
+        row = row.clamp(0, k_cache.shape[1] - 1).long()
+        k_cache.index_copy_(1, row, new_k.to(k_cache.dtype))
+        v_cache.index_copy_(1, row, new_v.to(v_cache.dtype))
     out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos)
     return out[:, None], k_cache, v_cache
 

@@ -45,7 +45,7 @@ from repro_torch.models.ssm import ssm_decode, ssm_forward, ssm_param_specs
 
 LATER_SLICE = ("the hybrid, encoder-decoder and VLM families and sliding-"
                "window caches wait for a later slice of the port (ROADMAP "
-               "Queue 1 item 6)")
+               "Queue 1, \"Hybrid and the other families\")")
 
 # ------------------------------------------------------------- param specs
 
@@ -194,10 +194,11 @@ def attn_full(p, x, cfg: ArchConfig, *, positions):
     return _attn_out(p, o), (k, v)
 
 
-def attn_decode(p, x, cache, cfg: ArchConfig, *, pos: int, cross=False):
+def attn_decode(p, x, cache, cfg: ArchConfig, *, pos, cross=False):
     """One-token self-attention against a dense KV cache: the new row is
-    written at `pos` in place, then the flash-decode kernel attends every
-    position <= pos. Returns (attn_out, (k_cache, v_cache))."""
+    written at `pos` (a 0-d int32 tensor on x's device) in place, then the
+    flash-decode kernel attends every position <= pos. Returns (attn_out,
+    (k_cache, v_cache))."""
     kc, vc = cache
     if cross:
         raise NotImplementedError(f"cross-attention decode: {LATER_SLICE}")
@@ -206,7 +207,7 @@ def attn_decode(p, x, cache, cfg: ArchConfig, *, pos: int, cross=False):
                                   f"{LATER_SLICE}")
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h)
-    posv = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
+    posv = torch.as_tensor(pos, device=x.device).reshape(1)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
     o, kc, vc = decode_attention(q, kc, vc, k, v, pos)
@@ -229,7 +230,7 @@ def block_full(p, x, cfg: ArchConfig, *, positions, build_cache=False):
     return x, ({"k": k, "v": v} if build_cache else {})
 
 
-def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos: int):
+def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
     """One layer, one token. Returns (x, new_layer_cache); the attention
     cache is updated in place (the same tensors come back)."""
     if cfg.family == "ssm":
@@ -257,7 +258,7 @@ def run_layers_full(layers, x, cfg: ArchConfig, *, positions,
     return x, caches
 
 
-def run_layers_decode(layers, caches, x, cfg: ArchConfig, *, pos: int):
+def run_layers_decode(layers, caches, x, cfg: ArchConfig, *, pos):
     """All layers for one token. Layer i updates its slice of every stacked
     cache leaf ([L, B, S, KH, D] K/V rows, [L, B, H, P, N] SSM state, ...)
     in place; no leaf is re-stacked. Returns (x, caches)."""
@@ -290,13 +291,15 @@ def _pad_cache_seq(layer_caches, pad_to: Optional[int]):
 
 def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
     """Build decode state from a full prompt. batch["tokens"]: [B, S].
-    Returns (cache, last_logits [B, 1, V] f32); cache = {"pos": S (an int),
-    "layers": stacked per-layer caches, K/V padded to `pad_to` rows}."""
+    Returns (cache, last_logits [B, 1, V] f32); cache = {"pos": S (a 0-d
+    int32 tensor on the tokens' device, as the reference's is), "layers":
+    stacked per-layer caches, K/V padded to `pad_to` rows}."""
     _check_family(cfg)
     x, positions = _embed_in(params, batch, cfg)
     x, layer_caches = run_layers_full(params["layers"], x, cfg,
                                       positions=positions, build_cache=True)
-    cache = {"pos": int(x.shape[1]),
+    cache = {"pos": torch.full((), x.shape[1], dtype=torch.int32,
+                               device=x.device),
              "layers": _pad_cache_seq(layer_caches, pad_to)}
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return cache, _unembed(params, x)
@@ -304,10 +307,13 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
 
 def decode_step(params, cache, batch, cfg: ArchConfig):
     """One decode step for the whole batch at the cache's position.
-    batch["tokens"]: [B, 1]. The cache is updated in place. Returns
-    (logits [B, 1, V] f32, {"pos": pos + 1, "layers": the same caches})."""
+    batch["tokens"]: [B, 1]; cache["pos"]: a 0-d int32 tensor on the
+    caches' device, which the step never reads on the host (so that it
+    replays as a CUDA graph: `launch.serve.jit_decode_step`). The caches
+    are updated in place. Returns (logits [B, 1, V] f32, {"pos": pos + 1, a
+    new tensor, "layers": the same caches})."""
     _check_family(cfg)
-    pos = int(cache["pos"])
+    pos = cache["pos"]
     x = embed_lookup(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
     x, layers = run_layers_decode(params["layers"], cache["layers"], x, cfg,
                                   pos=pos)

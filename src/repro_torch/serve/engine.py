@@ -23,7 +23,12 @@ The decode step's attention runs through the paged flash-decode kernel
 grouped-matmul kernel (`kernels/moe_gmm`): their CUDA kernels when the
 engine lives on a GPU, their plain PyTorch versions on the CPU. The engine
 runs on the GPU unless the caller passes ``device="cpu"``; with no CUDA
-device it raises instead of quietly running on the CPU.
+device it raises instead of quietly running on the CPU. On the GPU a
+decode round is one CUDA graph (`core.step_graph.StepGraph`), captured
+whenever the block-table width changes, where the reference recompiles its
+jitted round, and replayed for every other round; the argmax stays inside
+it, and the round's only read back is its next tokens. Chunked prefill
+runs eagerly.
 
 Because freed pages are reused immediately, the aggregate KV served over a
 workload routinely exceeds what the same HBM held as a dense
@@ -69,6 +74,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import autotune, guard
 from repro_torch.core.machine import get_machine
+from repro_torch.core.step_graph import StepGraph
 from repro_torch.kernels.decode_attention.decode_attention import paged_decode_spec
 from repro_torch.models import build_model
 from repro_torch.models.params import torch_dtype
@@ -174,9 +180,9 @@ class PagedServingEngine:
         self._requests: Dict[int, Request] = {}   # live (non-terminal) only
         self._done: Dict[int, Request] = {}       # terminal, any reason
         self._next_rid = 0
-        # the first decode round pays the kernel build and load: keep its
-        # wall clock out of the transfer-telemetry feedback store
-        self._decode_fresh = True
+        self._decode_fn: Optional[StepGraph] = None  # keyed by table width
+        self._decode_fn_width = 0
+        self._decode_fresh = False
         self._tw_hw = 1    # padded-table high-water mark
         self.rounds = 0
         self.decode_rounds = 0                  # decode steps that ran
@@ -481,22 +487,32 @@ class PagedServingEngine:
 
     # -------------------------------------------------------------- decode
 
-    def _decode_step(self, tokens, tables, lengths):
-        """One batched decode step on the engine's device: the next greedy
-        token of every row, as a host array."""
-        dev = self.device
-        logits, self.k_pools, self.v_pools = self.model.decode_step_paged(
-            self.params, self.k_pools, self.v_pools,
-            torch.from_numpy(tables).to(dev),
-            torch.from_numpy(lengths).to(dev),
-            {"tokens": torch.from_numpy(tokens).to(dev)})
-        return torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+    def _round_step(self, params, k_pools, v_pools, tokens, tables,
+                    lengths):
+        """One batched decode step (pools written in place): the next
+        greedy token of every row, on the engine's device."""
+        logits, _, _ = self.model.decode_step_paged(
+            params, k_pools, v_pools, tables, lengths, {"tokens": tokens})
+        return torch.argmax(logits[:, -1], dim=-1)
+
+    def _decode(self, table_width: int) -> StepGraph:
+        """The round's step for this table width: a new one, captured anew
+        on the card, whenever the width changes, as the reference builds a
+        new jitted step then."""
+        if self._decode_fn is None or table_width != self._decode_fn_width:
+            self._decode_fn = StepGraph(self._round_step)
+            self._decode_fn_width = table_width
+            # the next round's wall clock includes the eager step and the
+            # capture: keep it out of the transfer-telemetry feedback store
+            self._decode_fresh = True
+        return self._decode_fn
 
     def _table_width(self) -> int:
         """Block-table width: every request's table padded to the worst
         case any **live** request can reach, tracked as a high-water mark
         so the width is stable across the rounds of one workload (the same
-        widths as the reference package, whose compiled steps key on it).
+        widths as the reference package, whose compiled steps key on it,
+        as this engine's captured rounds do: `_decode`).
         Terminal requests move out of `_requests`, so one long retired
         request does not pin the width forever; the mark only drops once
         the live need falls to half of it."""
@@ -554,9 +570,15 @@ class PagedServingEngine:
             # path as any other step fault
             guard.check_injected("paged_decode_round", self.faults,
                                  round=self.rounds, width=len(writable))
+            decode = self._decode(tw)
+            captures = decode.captures
             with self.tracer.span("decode_round", width=len(writable),
                                   table_width=tw):
-                nxt = self._decode_step(tokens, tables, lengths)
+                nxt = decode(
+                    (self.params, self.k_pools, self.v_pools),
+                    (torch.from_numpy(tokens), torch.from_numpy(tables),
+                     torch.from_numpy(lengths))).cpu().numpy()
+            self._decode_fresh |= decode.captures > captures
         except Exception as e:
             # the batched step raised: roll the reservations back and let
             # every member retry next round. A step that failed part-way may
@@ -589,7 +611,7 @@ class PagedServingEngine:
                              context_bytes=self._pipeline_ctx_bytes,
                              warmup=self._decode_fresh)
         if self._decode_fresh:
-            self._decode_fresh = False  # round paid the build; don't record
+            self._decode_fresh = False  # round paid a capture; don't record
         elif autotune.telemetry_enabled() and tiles:
             autotune.record_transfer("paged_decode", dt / tiles)
 

@@ -182,3 +182,52 @@ def test_supports_paged_decode_matches_reference(arch, reduced):
     if want:                        # the engine takes what the model serves
         PagedServingEngine(cfg.reduced().replace(**F32), block_size=4,
                            num_blocks=4, device="cpu")
+
+
+def _spy_rebuilds(engine):
+    """Record (round, table width, _decode_fresh) whenever the engine's
+    `_decode` builds a new round step: the reference's new jitted round,
+    the port's new capture on the card."""
+    log = []
+    build = engine._decode
+
+    def spy(table_width):
+        before = engine._decode_fn
+        fn = build(table_width)
+        if fn is not before:
+            log.append((engine.rounds, table_width, engine._decode_fresh))
+        return fn
+
+    engine._decode = spy
+    return log
+
+
+def test_engine_capture_keys_follow_the_reference_recompiles():
+    """One workload whose table width falls (the long requests finish
+    first) and rises again (a long request arrives later): the port's round
+    step is rebuilt, which is a new capture on the card, on exactly the
+    rounds and at the widths where the reference builds a new jitted
+    round, and every rebuild sets `_decode_fresh`."""
+    ref_cfg, cfg, ref_params, params = _setup(3)
+    rng = np.random.default_rng(7)
+    long_ = [rng.integers(0, cfg.vocab, 24) for _ in range(3)]
+    short = [rng.integers(0, cfg.vocab, 2) for _ in range(3)]
+    kw = dict(block_size=4, num_blocks=24, max_in_flight=3, prefill_chunk=8)
+    logs, tokens = [], []
+    for engine in (RefEngine(ref_cfg, params=ref_params, **kw),
+                   PagedServingEngine(cfg, params=params, device="cpu",
+                                      **kw)):
+        log = _spy_rebuilds(engine)
+        rids = [engine.submit(p, max_new_tokens=2) for p in long_[:2]]
+        rids += [engine.submit(p, max_new_tokens=10) for p in short]
+        engine.run()
+        rids.append(engine.submit(long_[2], max_new_tokens=2))
+        engine.run()
+        assert not engine._decode_fresh          # consumed by its round
+        logs.append(log)
+        tokens.append([list(engine.request(r).generated) for r in rids])
+    assert tokens[1] == tokens[0]
+    assert logs[1] == logs[0]
+    widths = [w for _, w, _ in logs[1]]
+    assert len(widths) >= 3 and min(widths) < widths[0] < max(widths[1:]) + 1
+    assert all(fresh for _, _, fresh in logs[1])

@@ -354,3 +354,37 @@ def test_spec_context_and_depth_match_reference(profile, blk, kh, g, d, dtype):
     want = ref_autotune.choose_depth(ref_spec.profile(), machine=ref_mm,
                                      vars=ref_spec.all_vars())
     assert got == want
+
+
+@pytest.mark.parametrize("pos", [0, 50, 170, 255, 256, 400])
+def test_plain_with_a_device_pos_matches_pallas(pos):
+    """pos as a 0-d int32 tensor (the dense engine's, which the host never
+    reads) against the Pallas kernel given ``jnp.asarray(pos, int32)`` and
+    the oracle, at S - 1 and past S too; the recorded depth is the clamp to
+    one split's tiles from S alone, as the reference's ``n_tiles`` is."""
+    q, k, v = _problem(pos + 3, 2, 8, 2, 16, 256)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    dev_pos = torch.tensor(pos, dtype=torch.int32)
+    out = da.flash_decode(*t, dev_pos, blk=64, depth=8).numpy()
+    jpos = jnp.asarray(pos, jnp.int32)
+    pal = np.asarray(ref_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jpos, blk=64, depth=8, interpret=True))
+    np.testing.assert_allclose(out, pal, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(out, _oracle(q, k, v, jpos), rtol=TOL,
+                               atol=TOL)
+    _, per = da.split_plan(2, 2, 256, 64, 0, 1)
+    assert autotune.last_choice("flash_decode") == da.flash_kernel_depth(
+        8, g=4, d=16, blk=64, itemsize=4, n_tiles=per) == 4
+    np.testing.assert_array_equal(
+        da.flash_decode_plain(*t, dev_pos).numpy(), out)
+
+
+def test_tensor_pos_is_checked_without_reading_it():
+    q, k, v = (torch.from_numpy(a) for a in _problem(4, 2, 4, 2, 16, 64))
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, torch.tensor([3, 4], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        da.flash_decode(q, k, v, torch.tensor(3))          # int64
+    out = da.flash_decode(q, k, v, torch.tensor([30], dtype=torch.int32))
+    np.testing.assert_array_equal(out.numpy(),
+                                  da.flash_decode(q, k, v, 30).numpy())

@@ -863,3 +863,166 @@ def test_ssd_scan_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):         # mixed devices
         ss.ssd_scan(x, dt.cpu(), a, bm, cm, chunk=16)
     assert launch_counts()["ssd_scan"] == 0
+
+
+# ------------------------------------------------- captured steps (graphs)
+
+
+def test_flash_decode_replays_with_pos_read_on_the_device(cuda_device):
+    """K3 captured once with pos in a device buffer, then replayed at five
+    positions written into that buffer: each replay equals the eager
+    kernel and the plain version at the new pos, and counts one launch."""
+    from repro_torch.core.step_graph import StepGraph
+
+    q, k, v = _dense_problem(cuda_device, torch.bfloat16, 8, 32, 4, 128,
+                             1056, seed=21)
+    step = StepGraph(lambda q, k, v, pos: da.flash_decode(q, k, v, pos))
+    first = torch.tensor(1040, dtype=torch.int32, device=cuda_device)
+    step((q, k, v), (first,))                         # eager, then capture
+    assert step.captures == 1
+    for pos in (0, 63, 640, 1055, 2000):
+        out = step((q, k, v), (torch.tensor(pos, dtype=torch.int32,
+                                            device=cuda_device),))
+        eager = da.flash_decode(q, k, v, pos)
+        torch.testing.assert_close(out.float(), eager.float(),
+                                   **DECODE_TOL[torch.bfloat16])
+        torch.testing.assert_close(
+            out.float(), da.flash_decode_plain(q, k, v, pos).float(),
+            **DECODE_TOL[torch.bfloat16])
+    assert step.captures == 1 and step.replays == 5
+    assert launch_counts()["flash_decode"] == 1 + 5 + 5
+
+
+def test_paged_decode_replays_new_tables_and_lengths(cuda_device):
+    """K1 captured once, then replayed after other block tables and
+    lengths (a zero-length row among them) are written into its buffers."""
+    from repro_torch.core.step_graph import StepGraph
+
+    q, kp, vp, bt, lens = _problem(cuda_device, torch.bfloat16,
+                                   [40, 300, 17, 129], h=32, kh=4, d=128,
+                                   blk=16, seed=4)
+    step = StepGraph(lambda kp, vp, q, bt, lens:
+                     da.paged_flash_decode(q, kp, vp, bt, lens))
+    step((kp, vp), (q, bt, lens))
+    g = torch.Generator(device="cpu")
+    for seed in range(3):
+        g.manual_seed(seed)
+        perm = torch.randperm(bt.shape[1], generator=g)
+        bt2 = bt[:, perm.to(cuda_device)].flip(0).contiguous()
+        lens2 = (torch.randint(0, bt.shape[1] * 16, (bt.shape[0],),
+                               generator=g, dtype=torch.int32)
+                 .to(cuda_device))
+        lens2[seed] = 0
+        out = step((kp, vp), (q, bt2, lens2))
+        want = da.paged_flash_decode_plain(q, kp, vp, bt2, lens2)
+        live = lens2 > 0          # the plain version's empty rows: garbage
+        torch.testing.assert_close(out[live].float(), want[live].float(),
+                                   **DECODE_TOL[torch.bfloat16])
+        assert not out[seed].float().abs().any()       # no live key: 0
+    assert step.captures == 1 and step.replays == 3
+    assert launch_counts()["paged_decode"] == 1 + 3
+
+
+def test_gmm_replays_new_tokens(cuda_device):
+    """K2 captured once (its weights' TMA map encoded at the capture),
+    then replayed on other tokens written into its buffer."""
+    from repro_torch.core.step_graph import StepGraph
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    tokens, w = _gmm_problem(cuda_device, torch.bfloat16, 8, 5, 2048, 768)
+    step = StepGraph(lambda w, x: mg.gmm(x, w))
+    step((w,), (tokens,))
+    for seed in range(3):
+        x, _ = _gmm_problem(cuda_device, torch.bfloat16, 8, 5, 2048, 768,
+                            seed=seed + 1)
+        out = step((w,), (x,))
+        want = mg.gmm_plain(x, w).float()
+        torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=3e-2)
+    assert step.captures == 1 and step.replays == 3
+    assert launch_counts()["moe_gmm"] == 1 + 3
+
+
+def _reduced_f32(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    model = build_model(cfg)
+    return cfg, model, model.init(g, "cuda")
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m",
+                                  "mamba2-130m"])
+def test_dense_decode_graph_equals_eager(cuda_device, arch):
+    """Reduced archs in f32: eight steps through `jit_decode_step` (one
+    eager step and its capture, then replays) against eight eager
+    `decode_step`s on a copy of the same cache: identical greedy tokens,
+    logits and caches within 2e-3, and the kernels' launch counts those
+    of eight steps."""
+    import repro_torch
+    from repro_torch.core import step_graph
+    from repro_torch.launch.serve import jit_decode_step
+
+    cfg, model, params = _reduced_f32(arch)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (3, 32), generator=g,
+                            device="cuda", dtype=torch.int32)
+    cache, logits = model.prefill(params, {"tokens": prompts}, pad_to=48)
+    eager = {"pos": cache["pos"].clone(),
+             "layers": {k: t.clone() for k, t in cache["layers"].items()}}
+    tok = e_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    repro_torch.reset()
+    decode = jit_decode_step(model)
+    for _ in range(8):
+        logits, cache = decode(params, cache, {"tokens": tok})
+        e_logits, eager = model.decode_step(params, eager, {"tokens": e_tok})
+        torch.testing.assert_close(logits, e_logits, rtol=2e-3, atol=2e-3)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        e_tok = torch.argmax(e_logits, dim=-1).to(torch.int32)
+        assert torch.equal(tok, e_tok)
+    assert int(cache["pos"]) == int(eager["pos"]) == 40
+    assert cache["pos"].dtype == torch.int32 and cache["pos"].dim() == 0
+    for key, leaf in cache["layers"].items():
+        torch.testing.assert_close(leaf, eager["layers"][key], rtol=2e-3,
+                                   atol=2e-3)
+    assert decode.graph.captures == 1 and decode.graph.replays == 7
+    assert step_graph.stats()["replays"] == 7
+    want = 0 if cfg.family == "ssm" else 2 * 8 * cfg.n_layers
+    assert launch_counts()["flash_decode"] == want       # graph + eager
+    if cfg.moe:
+        assert launch_counts()["moe_gmm"] == 2 * 8 * 3 * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m"])
+def test_paged_engine_graph_equals_cpu(cuda_device, arch):
+    """A reduced paged engine in f32 on the card (each round a replay, one
+    capture per table width) against the same engine on the CPU: identical
+    tokens, and the decode kernel launched n_layers times a round."""
+    from repro_torch.core import step_graph
+    from repro_torch.launch.serve import serve_paged
+
+    import repro_torch
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    cfg, _, params = _reduced_f32(arch)
+    kw = dict(batch=4, prompt_len=40, gen=8, block_size=4, seed=1,
+              max_in_flight=3)
+    cpu = serve_paged(cfg, device="cpu", params=to_cpu(params), **kw)
+    repro_torch.reset()
+    card = serve_paged(cfg, device="cuda", params=params, **kw)
+    assert card["generated"] == cpu["generated"]
+    st = step_graph.stats()
+    assert st["captures"] >= 1
+    assert st["captures"] + st["replays"] == card["decode_rounds"]
+    counts = launch_counts()
+    assert counts["paged_decode"] == cfg.n_layers * card["decode_rounds"]
+    if cfg.moe:
+        assert counts["moe_gmm"] == 3 * cfg.n_layers * (
+            card["decode_rounds"] + card["prefill_chunks"])

@@ -217,3 +217,56 @@ def test_cli_runs_the_dense_engine_by_default(capsys):
                              "--prompt-len", "32", "--gen", "3"])
     assert stats["engine"] == "dense"
     assert '"engine": "dense"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_jit_decode_step_matches_reference(arch):
+    """`jit_decode_step` (on CPU tensors `model.decode_step`; on the card a
+    replayed CUDA graph) against the reference's jitted step over eight
+    greedy steps from the same prefill: logits and caches at 2e-3, tokens
+    identical, and the cache's pos equal, a 0-d int32 tensor."""
+    ref_model, ref_params, model, params, cfg = _bridge(arch, seed=5)
+    toks = _tokens(cfg, 2, 32, 6)
+    ref_cache, ref_logits = ref_model.prefill(
+        ref_params, {"tokens": jnp.asarray(toks)}, pad_to=48)
+    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                                  pad_to=48)
+    ref_decode = ref_serve.jit_decode_step(ref_model)
+    decode = port_serve.jit_decode_step(model)
+    ref_tok = jnp.argmax(ref_logits[:, -1:], axis=-1).astype(jnp.int32)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    for _ in range(8):
+        ref_logits, ref_cache = ref_decode(ref_params, ref_cache,
+                                           {"tokens": ref_tok})
+        logits, cache = decode(params, cache, {"tokens": tok})
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
+                                   rtol=TOL, atol=TOL)
+        ref_tok = jnp.argmax(ref_logits, axis=-1).astype(jnp.int32)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(ref_tok))
+    pos = cache["pos"]
+    assert isinstance(pos, torch.Tensor) and pos.dim() == 0
+    assert pos.dtype == torch.int32 and int(pos) == int(ref_cache["pos"]) == 40
+    for key, leaf in cache["layers"].items():
+        np.testing.assert_allclose(leaf.float().numpy(),
+                                   np.asarray(ref_cache["layers"][key],
+                                              np.float32),
+                                   rtol=TOL, atol=TOL, err_msg=key)
+    assert decode.graph.captures == 0          # CPU tensors: eager steps
+
+
+def test_decode_steps_read_no_position_on_the_host():
+    """The dense and paged decode steps keep pos on the device: no int() of
+    a position and no read back inside them (the paged round's one read of
+    its next tokens is the engine's, after the replay)."""
+    import inspect
+
+    from repro_torch.models import common, lm
+
+    for fn in (lm.decode_step, lm.attn_decode, lm.block_decode,
+               lm.run_layers_decode, lm.decode_step_paged,
+               lm.paged_attn_decode, common._single_decode,
+               common.paged_cache_append, common.paged_decode_attention):
+        src = inspect.getsource(fn)
+        assert "int(pos" not in src and ".cpu()" not in src, fn.__name__
+        assert ".item()" not in src and ".tolist()" not in src, fn.__name__
