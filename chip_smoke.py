@@ -57,10 +57,13 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. a reduced yi-6b engine, and (4b) a reduced granite-moe engine, in f32
      on the card against the same engine on the CPU (same parameters, same
      prompts, round width pinned): the greedy tokens must be identical,
-     and every decode round on the card a captured CUDA graph or its
-     replay (`graphs`: captures, capture seconds, replays); (4c) the same
-     for the dense engine, reduced yi-6b and mamba2-130m, its decode steps
-     one capture and replays (`jit_decode_step`);
+     and every decode round and every prefill chunk on the card a captured
+     CUDA graph or its replay (`graphs`, by step name: captures, capture
+     seconds, replays); then `launch.kernel_bench`'s two paged rows on the
+     card (paged against dense decode at equal KV; the shared-prefix
+     engine warm against cold), printed with the card's name; (4c) the
+     same for the dense engine, reduced yi-6b and mamba2-130m, its decode
+     steps one capture and replays (`jit_decode_step`);
   5. the main path: `serve_paged` for yi-6b at full width with the serving
      layout (bf16, weights drawn once from seed 0 and shared by phases 5-7
      and 5c), 8 requests, prompts of 64-256 tokens (half share a system
@@ -68,7 +71,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      zeroed just before and read just after; every request must finish and
      the paged-decode kernel must run n_layers times per decode round
      (each round a replay of a captured graph, counted as the launches its
-     capture recorded; the line's `graphs` gives captures and replays);
+     capture recorded), and every round and prefill chunk must be a
+     captured graph or its replay (one prefill graph per padded length
+     and table width); the line's `graphs` gives captures, capture seconds
+     and replays of the decode and the prefill graphs, and
+     `memory_reserved_gb` what the allocator holds after the run, the
+     graphs' private pools included;
   6. K1 times at the main path's decode shape (CUDA events around one call
      per layer, queued behind a device sleep; median of 21 batches) and
      at B 1 (its longest request): the kernel (with the splits, tile and
@@ -80,7 +88,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. a profile of full-width decode rounds (torch.profiler), each a replay
      of the round's CUDA graph: device time by kernel per round, K1's share
      of it, the device's busy share of the wall clock, and the graphs
-     captured on the way (how many, their capture time) and replayed;
+     captured on the way (how many, their capture time) and replayed; then
+     the same of replayed 32-token prefill chunks at table width 18;
   5c. the dense engine: `serve(engine="dense")` for yi-6b at full width on
      phase 5's weights, batch 8, prompts of 1024 tokens, 32 new tokens
      (caches [32, 8, 1056, 4, 128] x 2, 0.55 GB). Launch counts zeroed
@@ -121,7 +130,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   7b. a profile of full-width qwen3-moe decode rounds, replays as in
      phase 7: device time by kernel per round, K1's and the grouped
      matmul's shares, the busy share, the captures, and the round's floor
-     (every weight but the embedding table read once);
+     (every weight but the embedding table read once); then replayed
+     prefill chunks, as phase 7, with the grouped matmul's share;
   8. the GUPS path at a real size, through `repro_torch.launch.gups` and the
      ops: a 2^24 x 128 f32 table (8 GiB, far past the 50 MB L2), 2^22
      seeded uniform-random indices gathered and then scatter-added, a
@@ -452,13 +462,33 @@ def check_gmm_parity(torch) -> float:
 # ------------------------------------------------------------------ phase 4
 
 
+GRAPH_FIELDS = ("captures", "capture_s", "replays")
+
+
 def graph_delta(since: dict) -> dict:
-    """`core.step_graph.stats()` since `since`: the CUDA graphs captured,
-    the seconds the captures took and the replays."""
+    """`core.step_graph.stats()` since `since`, by step name (the dense and
+    paged decode steps, the paged prefill chunks): the CUDA graphs
+    captured, the seconds the captures took and the replays."""
     from repro_torch.core import step_graph
 
-    now = step_graph.stats()
-    return {k: now[k] - since[k] for k in now}
+    now = step_graph.stats()["by_name"]
+    out = {}
+    for name, counts in now.items():
+        before = since["by_name"].get(name, {})
+        delta = {k: counts[k] - before.get(k, 0) for k in GRAPH_FIELDS}
+        if any(delta.values()):
+            out[name] = delta
+    return out
+
+
+def check_graphs(label: str, graphs: dict, want: dict) -> None:
+    """Every step of each name in `want` ({name: steps run}) was a captured
+    graph or its replay, with at least one capture."""
+    for name, steps in want.items():
+        got = graphs.get(name, dict.fromkeys(GRAPH_FIELDS, 0))
+        if got["captures"] < 1 or got["captures"] + got["replays"] != steps:
+            raise AssertionError(f"{label}: {steps} {name} steps were not "
+                                 f"captured graphs and replays: {graphs}")
 
 
 def check_engine_card_vs_cpu(torch, arch: str) -> None:
@@ -493,15 +523,23 @@ def check_engine_card_vs_cpu(torch, arch: str) -> None:
     if not all(ran.values()):
         raise AssertionError(f"{arch}: the card engine did not launch every "
                              f"kernel of its path: {ran}")
-    if graphs["captures"] < 1 or \
-            graphs["captures"] + graphs["replays"] != card["decode_rounds"]:
-        raise AssertionError(f"{arch}: {card['decode_rounds']} decode rounds "
-                             f"were not captured rounds and replays: "
-                             f"{graphs}")
+    check_graphs(arch, graphs, {"paged_decode": card["decode_rounds"],
+                                "paged_prefill": card["prefill_chunks"]})
     log(f"engine {arch} reduced f32 card == cpu: "
         f"{sum(map(len, card['generated']))} tokens identical, launches "
-        f"{ran}, decode rounds {card['decode_rounds']} as graphs "
-        f"{json.dumps(graphs)}")
+        f"{ran}, decode rounds {card['decode_rounds']} and prefill chunks "
+        f"{card['prefill_chunks']} as graphs {json.dumps(graphs)}")
+
+
+def bench_paged_rows(torch, card: str) -> None:
+    """`launch.kernel_bench`'s two paged rows on the card: paged against
+    dense decode at equal KV, and the shared-prefix engine warm against
+    cold (reduced yi-6b, f32: its rounds and prefill chunks replayed)."""
+    from repro_torch.launch import kernel_bench
+
+    log(f"kernel_bench paged rows on {card}:")
+    for line in kernel_bench.paged_table(torch.device("cuda")).splitlines():
+        log(f"  {line}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -551,7 +589,12 @@ def serve_main_path(torch, arch: str, params=None):
         "tbt_p99_ms", "p50_ms", "p99_ms", "round_width", "solved_depth",
         "decode_rounds", "rounds", "prefill_chunks", "prefix_hits",
         "cow_forks", "preemptions", "prefill_s", "decode_s", "prompt_lens")}
+    check_graphs(arch, graphs, {"paged_decode": stats["decode_rounds"],
+                                "paged_prefill": stats["prefill_chunks"]})
     shown["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the graphs' private pools are held (with the caching allocator's
+    # free blocks) in what is reserved after the run
+    shown["memory_reserved_gb"] = torch.cuda.memory_reserved() / 1e9
     shown["wall_s"] = wall
     shown["launches"] = {k: counts[k] for k in want}
     shown["graphs"] = graphs
@@ -754,6 +797,60 @@ def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
     return profile_steps(torch, eng.step_round, rounds,
                          f"decode round (B={width}, {cfg.n_layers} layers)",
                          since)
+
+
+def profile_prefill_chunks(torch, cfg, params, rounds=4):
+    """Where a replayed prefill chunk's time goes at the main path's shape:
+    one request's 32-token chunks at the main path's table width (prompt
+    plus generation over 16-token pages: 18) through the engine's
+    `ChunkedPrefiller`, on pools of that request's pages, each call a
+    chunk further along a 256-token prompt (wrapping), then
+    `profile_steps` over them: the first call at the key runs eagerly and
+    captures, the rest replay."""
+    import numpy as np
+
+    from repro_torch.core import step_graph
+    from repro_torch.models import build_model
+    from repro_torch.models.params import torch_dtype
+    from repro_torch.serve.prefill import ChunkedPrefiller
+
+    since = step_graph.stats()
+    blk, chunk, plen = SERVE["block_size"], 32, SERVE["prompt_len"]
+    tw = -(-(plen + SERVE["gen"]) // blk)
+    shape = (cfg.n_layers, tw + 1, blk, cfg.kv_heads, cfg.resolved_head_dim)
+    k_pools = torch.zeros(shape, dtype=torch_dtype(cfg.dtype), device="cuda")
+    v_pools = torch.zeros_like(k_pools)
+    table = np.arange(1, tw + 1, dtype=np.int32)      # page 0: garbage
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, plen)
+    pre = ChunkedPrefiller(build_model(cfg), blk, "cuda")
+    calls = [0]
+
+    def step():
+        start = chunk * (calls[0] % (plen // chunk))
+        calls[0] += 1
+        logits, _, _, _ = pre.run_chunk(params, k_pools, v_pools,
+                                        prompt[start:start + chunk], table,
+                                        start, chunk)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+
+    out = profile_steps(torch, step, rounds,
+                        f"prefill chunk {cfg.name} (32 tokens, table width "
+                        f"{tw}, {cfg.n_layers} layers)", since)
+    if list(pre.graphs) != [(chunk, tw)] or \
+            pre.graphs[(chunk, tw)].captures != 1:
+        raise AssertionError(f"{cfg.name}: the profiled chunks were not one "
+                             f"capture and its replays: {list(pre.graphs)}")
+    return out
+
+
+def log_gmm_share(label, by_kernel, wall_ms) -> None:
+    """The grouped matmul's (K2) device ms per call in a profile's
+    `by_kernel`, logged beside the call's device time and wall clock."""
+    device_ms = sum(by_kernel.values())
+    gmm_ms = sum(ms for key, ms in by_kernel.items() if "gmm_kernel" in key)
+    log(f"{label}: grouped matmul {gmm_ms:.3f} ms of {device_ms:.3f} ms "
+        f"device time ({gmm_ms / device_ms:.1%}), wall {wall_ms:.2f} ms")
 
 
 def profile_steps(torch, step, rounds, label, since):
@@ -2083,6 +2180,7 @@ def main() -> int:
     check_gups_parity(torch)
     for arch in ("yi-6b", "granite-moe-1b-a400m"):
         check_engine_card_vs_cpu(torch, arch)
+    bench_paged_rows(torch, card)
     for arch in ("yi-6b", "mamba2-130m"):
         check_dense_engine_card_vs_cpu(torch, arch)
     # yi-6b's weights, drawn once (seed 0, as the engine would draw them)
@@ -2096,6 +2194,7 @@ def main() -> int:
     _, by_kernel, _ = profile_decode_rounds(torch, cfg, stats["round_width"],
                                             params=yi_params)
     log_decode_share("yi-6b paged decode round", by_kernel)
+    profile_prefill_chunks(torch, cfg, yi_params)
     log(f"depths: solved {stats['solved_depth']}, round width "
         f"{stats['round_width']}")
     log(f"phases 1-7 done at {time.perf_counter() - t_start:.1f} s")
@@ -2140,13 +2239,12 @@ def main() -> int:
     busy, by_kernel, wall_ms = profile_decode_rounds(torch, moe_cfg, width,
                                                      params=params)
     log_decode_share(f"{MOE_ARCH} paged decode round", by_kernel)
-    device_ms = sum(by_kernel.values())
-    gmm_ms = sum(ms for key, ms in by_kernel.items() if "gmm_kernel" in key)
-    log(f"{MOE_ARCH} decode round (B={width}): grouped matmul {gmm_ms:.3f} "
-        f"ms of {device_ms:.3f} ms device time ({gmm_ms / device_ms:.1%}), "
-        f"wall {wall_ms:.2f} ms, busy {busy:.1%}; floor "
+    log_gmm_share(f"{MOE_ARCH} decode round (B={width})", by_kernel, wall_ms)
+    log(f"{MOE_ARCH} decode round: busy {busy:.1%}; floor "
         f"{round_floor_ms(moe_cfg, params):.3f} ms (weights read once over "
         f"3.35 TB/s)")
+    _, by_kernel, wall_ms = profile_prefill_chunks(torch, moe_cfg, params)
+    log_gmm_share(f"{MOE_ARCH} prefill chunk", by_kernel, wall_ms)
     w = params["layers"]["moe"]["w_gate"][0].clone()
     tokens = torch.randn(1, width, w.shape[1], generator=gen,
                          device="cuda").to(torch.bfloat16)

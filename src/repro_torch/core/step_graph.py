@@ -1,21 +1,26 @@
 """A serving step replayed as one CUDA graph: the port's counterpart of what
-`jax.jit` does for the reference's two decode steps
-(``launch/serve.py:jit_decode_step`` and the paged engine's ``_decode_fn``).
+`jax.jit` does for the reference's three compiled serving steps
+(``launch/serve.py:jit_decode_step``, the paged engine's ``_decode_fn``
+and ``serve/prefill.py:ChunkedPrefiller``'s chunk step, one per padded
+length and table width).
 
 A `StepGraph` wraps a step function ``fn(*closed, *inputs)``. `closed` is
 what the step closes over and never copies (parameters, KV caches and
 pools, updated in place); `inputs` are the step's small per-call tensors
-(tokens, positions, block tables, lengths), copied into static device
-buffers before every replay (host tensors through pinned buffers). On CUDA
-tensors the first call at a key runs the step once eagerly, on those
-buffers and on the stream the capture uses: a real step, returned as such,
-which also loads every CUDA module and solves every depth outside the
-capture. Then it captures the step with `torch.cuda.graph` and replays it
-on every later call at the same key. The key is the inputs' shapes and
-types and the addresses, shapes and types of every closed tensor: another
-cache or pool is a new capture, never a replay over stale addresses. One
-graph is kept per `StepGraph`; a new key drops the old one, as the
-reference keeps one compiled step.
+(tokens, positions, block tables, lengths, a chunk's start and length),
+copied into static device buffers before every replay (host tensors
+through pinned buffers). On CUDA tensors the first call at a key runs the
+step once eagerly, on those buffers and on the stream the capture uses: a
+real step, returned as such, which also loads every CUDA module and solves
+every depth outside the capture. Then it captures the step with
+`torch.cuda.graph` and replays it on every later call at the same key.
+The key is the inputs' shapes and types and the addresses, shapes and
+types of every closed tensor: another cache or pool is a new capture,
+never a replay over stale addresses. One graph is kept per `StepGraph`; a
+new key drops the old one, as a jitted function keeps one compiled step
+per input signature. A caller that needs several live graphs (the chunked
+prefill: one per padded length and table width) holds several
+`StepGraph`s.
 
 What a replay returns is the graph's own output tensors, rewritten by the
 next replay: a caller reads them before it calls again.
@@ -23,9 +28,11 @@ next replay: a caller reads them before it calls again.
 Launch counts stay true: the kernel launches a capture records are taken
 back from each wrapper's count (nothing ran), and each replay adds them,
 so `repro_torch.kernels.launch_counts()` counts kernels that ran on the
-card. On CPU tensors a call is the step itself, run eagerly (the device
-rule). There is no switch that turns the graphs off on the card: a capture
-or a replay that fails raises.
+card. `stats()` gives the captures, capture seconds and replays of the
+process in total and by each `StepGraph`'s name, so the decode graphs and
+the prefill graphs can be told apart. On CPU tensors a call is the step
+itself, run eagerly (the device rule). There is no switch that turns the
+graphs off on the card: a capture or a replay that fails raises.
 """
 from __future__ import annotations
 
@@ -36,18 +43,30 @@ import torch
 
 __all__ = ["StepGraph", "reset", "stats"]
 
-_STATS = {"captures": 0, "capture_s": 0.0, "replays": 0}
+_STATS: Dict[str, Dict[str, Any]] = {}      # by StepGraph name
 _STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _tally(name: str, **add) -> None:
+    counts = _STATS.setdefault(name, {"captures": 0, "capture_s": 0.0,
+                                      "replays": 0})
+    for field, n in add.items():
+        counts[field] += n
 
 
 def stats() -> Dict[str, Any]:
     """Captures, seconds spent capturing and replays of every `StepGraph`
-    of the process since the last `reset`."""
-    return dict(_STATS)
+    of the process since the last `reset`: in total, and by name under
+    ``by_name``."""
+    by_name = {name: dict(c) for name, c in _STATS.items()}
+    total = {field: sum((c[field] for c in by_name.values()), zero)
+             for field, zero in (("captures", 0), ("capture_s", 0.0),
+                                 ("replays", 0))}
+    return {**total, "by_name": by_name}
 
 
 def reset() -> None:
-    _STATS.update(captures=0, capture_s=0.0, replays=0)
+    _STATS.clear()
 
 
 def _leaves(tree) -> Iterator[torch.Tensor]:
@@ -72,10 +91,12 @@ def _stream(device: torch.device) -> torch.cuda.Stream:
 
 class StepGraph:
     """One step function, captured once per key and replayed (module
-    docstring). `captures` and `replays` count this instance's."""
+    docstring). `captures` and `replays` count this instance's; `stats()`
+    adds them up under `name`."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, name: str):
         self.fn = fn
+        self.name = name
         self.key = None
         self.graph = None
         self.out = None                  # the graph's outputs
@@ -99,7 +120,7 @@ class StepGraph:
         self.graph.replay()
         self._count(+1)
         self.replays += 1
-        _STATS["replays"] += 1
+        _tally(self.name, replays=1)
         return self.out
 
     def _count(self, sign: int) -> None:
@@ -153,6 +174,5 @@ class StepGraph:
         self._count(-1)                  # a capture runs nothing
         self.graph, self.out, self.key = graph, out, key
         self.captures += 1
-        _STATS["captures"] += 1
-        _STATS["capture_s"] += time.perf_counter() - t0
+        _tally(self.name, captures=1, capture_s=time.perf_counter() - t0)
         return result

@@ -86,7 +86,7 @@ def jit_decode_step(model):
         return model.decode_step(params, {"pos": pos, "layers": layers},
                                  {"tokens": tokens})
 
-    graph = StepGraph(step)
+    graph = StepGraph(step, "dense_decode")
 
     def decode(params, cache, batch):
         return graph((params, cache["layers"]),

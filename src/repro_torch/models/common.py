@@ -207,8 +207,8 @@ def paged_cache_append(k_pool, v_pool, block_tables, lengths, new_k, new_v):
     return k_pool, v_pool
 
 
-def paged_cache_append_chunk(k_pool, v_pool, block_tables, start: int,
-                             new_k, new_v, n_valid: int):
+def paged_cache_append_chunk(k_pool, v_pool, block_tables, start, new_k,
+                             new_v, n_valid):
     """Write a chunk of consecutive KV rows into paged blocks, in place.
 
     Rows ``i < n_valid`` of the (right-padded) chunk land at logical
@@ -216,8 +216,11 @@ def paged_cache_append_chunk(k_pool, v_pool, block_tables, start: int,
     reserved garbage block 0 so they never clobber real pages.
 
     k_pool/v_pool: [NB, blk, KH, D]; block_tables: [B, M] int32; start /
-    n_valid: ints (one request per call); new_k/new_v: [B, C, KH, D].
-    Returns the pools."""
+    n_valid: 0-d int32 tensors on the pools' device (the reference's
+    ``[] int32``) or ints, one request per call; new_k/new_v:
+    [B, C, KH, D]. Nothing here reads them on the host, so a captured
+    chunk step replays at any `start` / `n_valid` written into its
+    buffers. Returns the pools."""
     b, c = new_k.shape[0], new_k.shape[1]
     blk = k_pool.shape[1]
     m = block_tables.shape[1]

@@ -343,13 +343,14 @@ def paged_attn_decode(p, x, k_pool, v_pool, cfg: ArchConfig, *, block_tables,
 
 
 def paged_attn_prefill_chunk(p, x, k_pool, v_pool, cfg: ArchConfig, *,
-                             block_tables, start: int, n_valid: int):
+                             block_tables, start, n_valid):
     """Chunk attention against one layer's paged KV pool (chunked prefill).
 
-    x: [1, C, d] — prompt hidden states at absolute positions ``start + i``;
-    the chunk's KV rows are appended into the pool first (padding rows to
-    the garbage page), then every query attends causally over all pool
-    positions <= its own. Returns (attn_out, k_pool, v_pool)."""
+    x: [1, C, d] — prompt hidden states at absolute positions ``start + i``
+    (`start`, `n_valid`: 0-d int32 device tensors or ints); the chunk's KV
+    rows are appended into the pool first (padding rows to the garbage
+    page), then every query attends causally over all pool positions <= its
+    own. Returns (attn_out, k_pool, v_pool)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h)
     c = x.shape[1]
@@ -393,15 +394,19 @@ def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
     return _unembed(params, x), k_pools, v_pools
 
 
-def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start: int,
-                        batch, n_valid: int, cfg: ArchConfig):
+def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
+                        n_valid, cfg: ArchConfig):
     """One chunk of a request's prefill through the paged pipeline.
 
     batch["tokens"]: [1, C] right-padded chunk; start: absolute position of
     its first token; n_valid: real tokens (the rest is padding whose KV
-    writes go to the garbage page). The request's block table must already
-    map every position < start + n_valid. Returns (last_logits [1, V] f32 at
-    the chunk's final real token, k_pools, v_pools)."""
+    writes go to the garbage page). Both are 0-d int32 tensors on the
+    pools' device, as the reference's traced scalars, or ints; no branch
+    reads them on the host, so the step can be captured once per
+    (C, table width) and replayed along the prompt. The request's block
+    table must already map every position < start + n_valid. Returns
+    (last_logits [1, V] f32 at the chunk's final real token, k_pools,
+    v_pools)."""
     if not supports_paged_decode(cfg):
         raise ValueError(f"paged prefill unsupported for family {cfg.family!r} "
                          f"(sliding_window={cfg.sliding_window})")
@@ -414,7 +419,10 @@ def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start: int,
             lp["attn"], x, k_pools[i], v_pools[i], cfg,
             block_tables=block_tables, start=start, n_valid=n_valid)
         x = _ffn(lp, x + attn_o, cfg)
-    last = x[:, n_valid - 1:n_valid]                     # [1, 1, d]
+    # the last real row, gathered at a device index (the reference's
+    # dynamic_slice_in_dim): a slice would read n_valid on the host
+    row = torch.as_tensor(n_valid, device=x.device).long().reshape(1) - 1
+    last = x.index_select(1, row)                        # [1, 1, d]
     last = rms_norm(last, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, last)[:, 0]
     return logits, k_pools, v_pools

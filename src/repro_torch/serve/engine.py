@@ -27,8 +27,11 @@ device it raises instead of quietly running on the CPU. On the GPU a
 decode round is one CUDA graph (`core.step_graph.StepGraph`), captured
 whenever the block-table width changes, where the reference recompiles its
 jitted round, and replayed for every other round; the argmax stays inside
-it, and the round's only read back is its next tokens. Chunked prefill
-runs eagerly.
+it, and the round's only read back is its next tokens. A prefill chunk is
+one too (`serve/prefill.py`): one graph per (padded length, table width),
+as the reference keeps one jitted chunk step per key, replayed at every
+`start` and `n_valid`. Its logits are the graph's output, read (numerics
+scan, first token) before the next chunk rewrites them.
 
 Because freed pages are reused immediately, the aggregate KV served over a
 workload routinely exceeds what the same HBM held as a dense
@@ -439,7 +442,8 @@ class PagedServingEngine:
         self._c_prefill_s.inc(time.perf_counter() - t0)
         # the always-on numerics scan: a non-finite chunk raises before
         # prefill_pos advances, so the chunk re-runs on retry (its KV rows
-        # rewrite idempotently; the pools are already written)
+        # rewrite idempotently; the pools are already written; on the card
+        # the retry is a replay at the same key and start)
         nerr = guard.scan_output("paged_prefill_chunk", logits)
         if nerr is not None:
             raise nerr
@@ -500,7 +504,7 @@ class PagedServingEngine:
         on the card, whenever the width changes, as the reference builds a
         new jitted step then."""
         if self._decode_fn is None or table_width != self._decode_fn_width:
-            self._decode_fn = StepGraph(self._round_step)
+            self._decode_fn = StepGraph(self._round_step, "paged_decode")
             self._decode_fn_width = table_width
             # the next round's wall clock includes the eager step and the
             # capture: keep it out of the transfer-telemetry feedback store

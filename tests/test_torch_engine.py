@@ -231,3 +231,66 @@ def test_engine_capture_keys_follow_the_reference_recompiles():
     widths = [w for _, w, _ in logs[1]]
     assert len(widths) >= 3 and min(widths) < widths[0] < max(widths[1:]) + 1
     assert all(fresh for _, _, fresh in logs[1])
+
+
+def _spy_prefill_builds(engine):
+    """Record (round, (padded, table width)) whenever the prefiller builds
+    the chunk step of a new key: the reference's new jitted chunk step
+    (`ChunkedPrefiller._fn`), the port's new `StepGraph` (`_graph`), which
+    is a new capture on the card."""
+    pre = engine.prefiller
+    log = []
+    if isinstance(engine, RefEngine):
+        build = pre._fn
+
+        def spy(padded, width):
+            if (padded, width) not in pre._fns:
+                log.append((engine.rounds, (padded, width)))
+            return build(padded, width)
+
+        pre._fn = spy
+    else:
+        build = pre._graph
+
+        def spy(key):
+            if key not in pre.graphs:
+                log.append((engine.rounds, key))
+            return build(key)
+
+        pre._graph = spy
+    return log
+
+
+def test_prefill_capture_keys_follow_the_reference_compiles():
+    """The workload of the decode test above, whose table width falls and
+    rises, with prompts that end in chunks of 8 and of 4 (padded to the
+    block): the port's prefiller builds a chunk step (a capture on the
+    card) at the same rounds and (padded, table width) keys, in the same
+    order, as the reference jits one, keeps every one it built, and the
+    greedy tokens are identical."""
+    ref_cfg, cfg, ref_params, params = _setup(3)
+    rng = np.random.default_rng(7)
+    long_ = [rng.integers(0, cfg.vocab, n) for n in (24, 21, 22)]
+    short = [rng.integers(0, cfg.vocab, 2) for _ in range(3)]
+    kw = dict(block_size=4, num_blocks=24, max_in_flight=3, prefill_chunk=8)
+    logs, tokens, chunks = [], [], []
+    for engine in (RefEngine(ref_cfg, params=ref_params, **kw),
+                   PagedServingEngine(cfg, params=params, device="cpu",
+                                      **kw)):
+        log = _spy_prefill_builds(engine)
+        rids = [engine.submit(p, max_new_tokens=2) for p in long_[:2]]
+        rids += [engine.submit(p, max_new_tokens=10) for p in short]
+        engine.run()
+        rids.append(engine.submit(long_[2], max_new_tokens=2))
+        engine.run()
+        logs.append(log)
+        tokens.append([list(engine.request(r).generated) for r in rids])
+        chunks.append(engine.prefiller.chunks_run)
+    assert tokens[1] == tokens[0]
+    assert logs[1] == logs[0] and chunks[1] == chunks[0]
+    keys = [k for _, k in logs[1]]
+    assert len(set(keys)) == len(keys)            # each key built once
+    assert {p for p, _ in keys} >= {4, 8}         # two padded lengths
+    widths = [w for _, w in keys]
+    assert min(widths) < widths[0] and widths[-1] > min(widths)  # fell, rose
+    assert chunks[1] > len(keys)                  # later chunks reuse a step

@@ -196,10 +196,29 @@ def test_kernel_bench_rows_match_reference():
     assert all(r[3] is True for r in got)
 
 
+def test_kernel_bench_paged_rows_match_reference():
+    """The paged rows the port's bench adds: the paged-vs-dense decode row
+    (shape, context bytes, the depth run) and the shared-prefix serving
+    row's counters (hit rate, blocks shared, blocks allocated warm/cold)
+    equal the reference's; the tokens/s columns are host times here."""
+    _same_machine()
+    ref = _load("benchmarks/kernel_bench.py")
+    cpu = torch.device("cpu")
+    got, want = kernel_bench.paged_decode_rows(cpu), ref.paged_decode_rows()
+    assert [r[:4] for r in got] == [r[:4] for r in want]
+    got, want = kernel_bench.prefix_decode_rows(cpu), ref.prefix_decode_rows()
+    assert [r[:5] for r in got] == [r[:5] for r in want]
+    assert got[0][4] == "24/36" and got[0][3] > 0
+
+
 def test_kernel_bench_table_and_json_on_cpu():
     _, lines = _stdout(kernel_bench.main, ["--device", "cpu"])
     assert lines[0] == "# device: cpu"
     assert "adaptive_depth,row_gather,5" in "\n".join(lines)
+    assert any(line.startswith("paged_decode,2x256x2x16/blk64,")
+               for line in lines)
+    assert any(line.startswith("prefix_decode,6req/blk4,0.667,12,24/36,")
+               for line in lines)
     report, _ = _stdout(kernel_bench.main, ["--device", "cpu", "--json"])
     rep = json.loads(report)
     assert set(rep["kernels"]) == {"row_gather", "span_gather", "scatter_add",

@@ -876,7 +876,8 @@ def test_flash_decode_replays_with_pos_read_on_the_device(cuda_device):
 
     q, k, v = _dense_problem(cuda_device, torch.bfloat16, 8, 32, 4, 128,
                              1056, seed=21)
-    step = StepGraph(lambda q, k, v, pos: da.flash_decode(q, k, v, pos))
+    step = StepGraph(lambda q, k, v, pos: da.flash_decode(q, k, v, pos),
+                     "flash_decode")
     first = torch.tensor(1040, dtype=torch.int32, device=cuda_device)
     step((q, k, v), (first,))                         # eager, then capture
     assert step.captures == 1
@@ -902,7 +903,8 @@ def test_paged_decode_replays_new_tables_and_lengths(cuda_device):
                                    [40, 300, 17, 129], h=32, kh=4, d=128,
                                    blk=16, seed=4)
     step = StepGraph(lambda kp, vp, q, bt, lens:
-                     da.paged_flash_decode(q, kp, vp, bt, lens))
+                     da.paged_flash_decode(q, kp, vp, bt, lens),
+                     "paged_decode")
     step((kp, vp), (q, bt, lens))
     g = torch.Generator(device="cpu")
     for seed in range(3):
@@ -930,7 +932,7 @@ def test_gmm_replays_new_tokens(cuda_device):
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
 
     tokens, w = _gmm_problem(cuda_device, torch.bfloat16, 8, 5, 2048, 768)
-    step = StepGraph(lambda w, x: mg.gmm(x, w))
+    step = StepGraph(lambda w, x: mg.gmm(x, w), "moe_gmm")
     step((w,), (tokens,))
     for seed in range(3):
         x, _ = _gmm_problem(cuda_device, torch.bfloat16, 8, 5, 2048, 768,
@@ -990,7 +992,8 @@ def test_dense_decode_graph_equals_eager(cuda_device, arch):
         torch.testing.assert_close(leaf, eager["layers"][key], rtol=2e-3,
                                    atol=2e-3)
     assert decode.graph.captures == 1 and decode.graph.replays == 7
-    assert step_graph.stats()["replays"] == 7
+    st = step_graph.stats()["by_name"]["dense_decode"]
+    assert (st["captures"], st["replays"]) == (1, 7)
     want = 0 if cfg.family == "ssm" else 2 * 8 * cfg.n_layers
     assert launch_counts()["flash_decode"] == want       # graph + eager
     if cfg.moe:
@@ -998,10 +1001,65 @@ def test_dense_decode_graph_equals_eager(cuda_device, arch):
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m"])
+def test_prefill_chunk_graph_replays_equal_eager(cuda_device, arch):
+    """Reduced archs in f32: chunks of one request through the prefiller's
+    captured step at one (padded 8, table width 8) key, at several `start`
+    / `n_valid` (a full chunk, chunks off a block boundary, one whose first
+    page was copy-on-write forked between replays, and a retry of the last
+    chunk), against the eager `prefill_chunk_paged` with int `start` /
+    `n_valid` on a copy of the pools: the logits and every pool row
+    bitwise equal after each chunk, one capture and no recapture."""
+    import numpy as np
+
+    from repro_torch.core import step_graph
+    from repro_torch.serve.prefill import ChunkedPrefiller
+
+    cfg, model, params = _reduced_f32(arch)
+    blk, nb = 4, 24
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    shape = (cfg.n_layers, nb, blk, cfg.kv_heads, cfg.resolved_head_dim)
+    kp = torch.randn(shape, generator=g, device="cuda")
+    vp = torch.randn(shape, generator=g, device="cuda")
+    ek, ev = kp.clone(), vp.clone()
+    table = np.array([5, 9, 2, 14, 7, 11, 0, 0], np.int32)
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab, 24)
+    pre = ChunkedPrefiller(model, blk, "cuda")
+    # (start, n_valid, CoW fork before the chunk: (table slot, new page))
+    chunks = [(0, 8, None), (8, 5, None), (13, 6, (3, 20)), (19, 5, None),
+              (19, 5, None)]
+    for start, n, fork in chunks:
+        if fork is not None:          # the engine's `_copy_page`, in place
+            slot, dst = fork
+            for pools in (kp, vp, ek, ev):
+                pools[:, dst] = pools[:, table[slot]]
+            table[slot] = dst
+        logits, out_k, out_v, _ = pre.run_chunk(
+            params, kp, vp, prompt[start:start + n], table, start, n)
+        assert out_k is kp and out_v is vp
+        buf = np.zeros((1, 8), np.int64)
+        buf[0, :n] = prompt[start:start + n]
+        want, _, _ = model.prefill_chunk_paged(
+            params, ek, ev, torch.from_numpy(table[None]).cuda(), start,
+            {"tokens": torch.from_numpy(buf).cuda()}, n)
+        assert torch.equal(logits, want), (start, n)
+        assert torch.equal(kp, ek) and torch.equal(vp, ev), (start, n)
+    assert list(pre.graphs) == [(8, 8)]
+    graph = pre.graphs[(8, 8)]
+    assert graph.captures == 1 and graph.replays == len(chunks) - 1
+    st = step_graph.stats()["by_name"]["paged_prefill"]
+    assert (st["captures"], st["replays"]) == (1, len(chunks) - 1)
+    want = 3 * cfg.n_layers * 2 * len(chunks) if cfg.moe else 0
+    assert launch_counts()["moe_gmm"] == want         # graph + eager
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m"])
 def test_paged_engine_graph_equals_cpu(cuda_device, arch):
     """A reduced paged engine in f32 on the card (each round a replay, one
-    capture per table width) against the same engine on the CPU: identical
-    tokens, and the decode kernel launched n_layers times a round."""
+    capture per table width; each prefill chunk a replay, one capture per
+    padded length and table width) against the same engine on the CPU:
+    identical tokens, and the decode kernel launched n_layers times a
+    round."""
     from repro_torch.core import step_graph
     from repro_torch.launch.serve import serve_paged
 
@@ -1018,9 +1076,13 @@ def test_paged_engine_graph_equals_cpu(cuda_device, arch):
     repro_torch.reset()
     card = serve_paged(cfg, device="cuda", params=params, **kw)
     assert card["generated"] == cpu["generated"]
-    st = step_graph.stats()
-    assert st["captures"] >= 1
-    assert st["captures"] + st["replays"] == card["decode_rounds"]
+    by_name = step_graph.stats()["by_name"]
+    decode, prefill = by_name["paged_decode"], by_name["paged_prefill"]
+    assert decode["captures"] >= 1 and prefill["captures"] >= 1
+    assert decode["captures"] + decode["replays"] == card["decode_rounds"]
+    assert prefill["captures"] + prefill["replays"] == card["prefill_chunks"]
+    assert prefill["replays"] >= 1
+    assert set(by_name) == {"paged_decode", "paged_prefill"}
     counts = launch_counts()
     assert counts["paged_decode"] == cfg.n_layers * card["decode_rounds"]
     if cfg.moe:

@@ -112,18 +112,30 @@ def test_decode_step_paged_matches_reference(arch):
                                rtol=TOL, atol=TOL)
 
 
+# (start, n_valid, padded, the request's pages): a chunk starting mid-block
+# after a shared prefix, one with no padding row, one starting on a block
+# boundary (blk 4)
+CHUNKS = {"mid_block": (6, 5, 8, [9, 3, 12]),
+          "no_padding": (6, 8, 8, [9, 3, 12, 5]),
+          "block_boundary": (8, 5, 8, [9, 3, 12, 5])}
+
+
+@pytest.mark.parametrize("case", list(CHUNKS))
+@pytest.mark.parametrize("scalars", ["int", "tensor"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_chunk_paged_matches_reference(arch):
-    """A chunk that starts mid-block after a shared prefix: the prefix pages
-    are read, the chunk's rows written (padding to the garbage page), and
-    the last real token's logits agree."""
+def test_prefill_chunk_paged_matches_reference(arch, scalars, case):
+    """A chunk through the request's pages: the prefix pages are read, the
+    chunk's rows written (padding to the garbage page), and the last real
+    token's logits agree. `start` / `n_valid` go in as Python ints and as
+    0-d int32 tensors, the form a captured chunk step reads on the
+    device."""
     ref_model, ref_params, model, params, cfg = _bridge(arch)
     rng = np.random.RandomState(2)
     blk, nb = 4, 16
     kp, vp = _pools(rng, cfg, nb, blk)
-    start, n_valid, padded = 6, 5, 8                # positions 6..10, pad to 8
+    start, n_valid, padded, pages = CHUNKS[case]
     table = np.zeros((1, 5), np.int32)
-    table[0, :3] = [9, 3, 12]                       # prefix pages 9, 3; then 12
+    table[0, :len(pages)] = pages
     chunk = np.zeros((1, padded), np.int32)
     chunk[0, :n_valid] = rng.randint(0, cfg.vocab, n_valid)
 
@@ -132,6 +144,9 @@ def test_prefill_chunk_paged_matches_reference(arch):
         jnp.asarray(start, jnp.int32), {"tokens": jnp.asarray(chunk)},
         jnp.asarray(n_valid, jnp.int32))
     tkp, tvp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    if scalars == "tensor":
+        start, n_valid = (torch.tensor(v, dtype=torch.int32)
+                          for v in (start, n_valid))
     logits, _, _ = model.prefill_chunk_paged(
         params, tkp, tvp, torch.from_numpy(table), start,
         {"tokens": torch.from_numpy(chunk)}, n_valid)
@@ -139,10 +154,10 @@ def test_prefill_chunk_paged_matches_reference(arch):
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
                                rtol=TOL, atol=TOL)
     for pool, ref in ((tkp, ref_kp), (tvp, ref_vp)):
-        np.testing.assert_allclose(pool.numpy()[:, [9, 3, 12]],
-                                   np.asarray(ref)[:, [9, 3, 12]],
+        np.testing.assert_allclose(pool.numpy()[:, pages],
+                                   np.asarray(ref)[:, pages],
                                    rtol=TOL, atol=TOL)
-        untouched = [b for b in range(1, nb) if b not in (9, 3, 12)]
+        untouched = [b for b in range(1, nb) if b not in pages]
         np.testing.assert_array_equal(pool.numpy()[:, untouched],
                                       kp[:, untouched] if pool is tkp
                                       else vp[:, untouched])
