@@ -67,7 +67,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the main path: `serve_paged` for yi-6b at full width with the serving
      layout (bf16, weights drawn once from seed 0 and shared by phases 5-7
      and 5c), 8 requests, prompts of 64-256 tokens (half share a system
-     prefix), 32 new tokens each, prefix cache on. Launch counts are
+     prefix), 32 new tokens each, prefix cache on, in the guard's strict
+     mode (the ``--strict`` lane; it must show no backoff: the line's
+     `substrate`). Launch counts are
      zeroed just before and read just after; every request must finish and
      the paged-decode kernel must run n_layers times per decode round
      (each round a replay of a captured graph, counted as the launches its
@@ -78,7 +80,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      `memory_reserved_gb` what the allocator holds after the run, the
      graphs' private pools included;
   6. K1 times at the main path's decode shape (CUDA events around one call
-     per layer, queued behind a device sleep; median of 21 batches) and
+     per layer of the launch the guarded wrapper ran, taken back from the
+     guard (`path_launch`): every timing loop below times such a launch
+     without the guard's checks, since the guard's output scan waits for
+     the device; queued behind a device sleep; median of 21 batches) and
      at B 1 (its longest request): the kernel (with the splits, tile and
      depth it ran), its plain version, and as a yardstick
      `scaled_dot_product_attention` over K/V gathered beforehand (it
@@ -89,7 +94,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      of the round's CUDA graph: device time by kernel per round, K1's share
      of it, the device's busy share of the wall clock, and the graphs
      captured on the way (how many, their capture time) and replayed; then
-     the same of replayed 32-token prefill chunks at table width 18;
+     the same of replayed 32-token prefill chunks at table width 18; after
+     each, the guard's cost in the eager step before a capture: a step at
+     a new key (eager, then captured) with the guard's checks and with
+     them stubbed out, in turns (`eager_guard_cost`);
   5c. the dense engine: `serve(engine="dense")` for yi-6b at full width on
      phase 5's weights, batch 8, prompts of 1024 tokens, 32 new tokens
      (caches [32, 8, 1056, 4, 128] x 2, 0.55 GB). Launch counts zeroed
@@ -125,8 +133,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      tiles a block that ran): the kernel, its plain version, and as a
      yardstick torch.bmm over the tokens expanded to every expert; the
      bound is the weights, tokens and output over 3.35 TB/s (or the flops
-     over 989 TFLOP/s, if larger); and the host time of one `gmm` call
-     (`host_ms_per_call`);
+     over 989 TFLOP/s, if larger); and the host time of one call of the
+     launch `gmm` ran, without the solve and the guard (`path_launch`,
+     `host_ms_per_call`);
   7b. a profile of full-width qwen3-moe decode rounds, replays as in
      phase 7: device time by kernel per round, K1's and the grouped
      matmul's shares, the busy share, the captures, and the round's floor
@@ -146,7 +155,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the expanded span rows, index_add_ on the deduplicated rows,
      torch.add(b, c, alpha=s)); each bound is the bytes the function must
      move over 3.35 TB/s (or its flops over 67 TFLOP/s f32, if larger);
-     then the same kernels at other depths (tiles in flight per block;
+     the guarded row gather and scatter-add (the guard's scan of what they
+     wrote included) beside their bare launches, sync to sync, and GUPS
+     through each; then the same kernels at other depths (tiles in flight per block;
      the row gather's and the scatter-add's per SM, and at 4x14, 6x9, 8x6
      and 12x4 (K5a) and 2x14, 3x8, 4x7, 6x4 and 12x2 (K6) blocks an SM x
      slots; the K6 line of phase 9 gives its split and grid), the triad
@@ -159,8 +170,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      against the shared header's called wait, likewise the scatter-add's,
      and the triad's one pass a
      block (the source) against a persistent grid of 4, 8 and 16 blocks an
-     SM, block g walking items g, g + grid, ...;
- 10. one JSON line describing every kernel (eight), then the result line.
+     SM, block g walking items g, g + grid, ...; then (g) the four GUPS
+     kernels three times more through `launch.gups.observed` and
+     `obs.stall_breakdown()` over them: each kernel's compute, transfer
+     and gap must sum to its observed per-tile time;
+ 10. the guard (`core.guard`) on the card (its sentinel is off in phases
+     1-9, whatever ``REPRO_PARITY`` says): (a) with the sentinel on full,
+     each of the eight guarded wrappers once at small f32 shapes: 8 parity
+     checks, no mismatch; (b) a deliberately wrong plain version around
+     K5a's `row_gather_at`: `KernelParityError`, the ladder 8, 4, 2, 1,
+     each depth quarantined; (c) K6 asked for 64 and 32 slots of 8 KiB,
+     which `check_smem` refuses: the ladder lands on 16, the table equals
+     the plain version's bitwise, the refused depths are quarantined and
+     `choose_depth` does not propose them; (d) a dense decode step graph
+     of reduced yi-6b under the full sentinel: the eager step is checked,
+     the capture and its replays add no check; (e) `launch.chaos_serve`
+     on reduced yi-6b, seed 0, 20 rounds: every request terminal, no
+     mismatch; then the guard's own host cost per eager call (an unguarded
+     launch, the guard without and with its scan, with the sentinel);
+ 11. `guard.stats()` on one JSON line, one JSON line describing every
+     kernel (eight), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -168,10 +197,11 @@ prints no result.
 
     python3 chip_smoke.py --gmm-host-time
 
-runs only the host-time measurement of phase 6b, on random weights of the
-same shapes, against the package of the checkout the script sits in (copy
-the script into another checkout to measure that one), and prints one
-JSON line.
+runs only the host-time measurement of phase 6b (the launch `gmm` runs,
+taken back from the guard), on random weights of the same shapes, against
+the package of the checkout the script sits in (copy the script into
+another checkout with `core.guard.record` to measure that one), and
+prints one JSON line.
 
     python3 chip_smoke.py --ssd-time
 
@@ -181,6 +211,7 @@ likewise times only the SSD scan (K4) at phase 6c's shape in bf16 and f32
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -547,9 +578,11 @@ def bench_paged_rows(torch, card: str) -> None:
 
 def serve_main_path(torch, arch: str, params=None):
     """`serve_paged` for `arch` at full width, serving layout (bf16), with
-    the launch counts zeroed just before and read just after."""
+    the launch counts zeroed just before and read just after, in the
+    guard's strict mode (the ``--strict`` lane: a kernel failure raises;
+    the run must show no backoff)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import step_graph
+    from repro_torch.core import guard, step_graph
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import SERVING_OVERRIDES, serve_paged
 
@@ -557,11 +590,19 @@ def serve_main_path(torch, arch: str, params=None):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     since = step_graph.stats()
+    before = guard.stats()
+    guard.set_strict(True)
     reset_launch_counts()
-    stats = serve_paged(cfg, device="cuda", params=params, **SERVE)
+    try:
+        stats = serve_paged(cfg, device="cuda", params=params, **SERVE)
+    finally:
+        guard.set_strict(False)
     counts = launch_counts()
     wall = time.perf_counter() - t0
     graphs = graph_delta(since)
+    substrate = _guard_delta(before)
+    if substrate["backoffs"] or substrate["parity_mismatches"]:
+        raise AssertionError(f"{arch}: strict serving degraded: {substrate}")
     n = SERVE["batch"]
     bad = {k: stats[k] for k in ("failed", "cancelled", "stalled") if stats[k]}
     if stats["completed"] != n or bad or \
@@ -598,6 +639,7 @@ def serve_main_path(torch, arch: str, params=None):
     shown["wall_s"] = wall
     shown["launches"] = {k: counts[k] for k in want}
     shown["graphs"] = graphs
+    shown["substrate"] = {"strict": True, **substrate}
     log(f"serve {arch} full width: " + json.dumps(shown))
     return cfg, stats, counts
 
@@ -628,6 +670,23 @@ def median_ms(torch, fn, args_list, repeats=21):
     return statistics.median(times)
 
 
+def path_launch(fn, *args, **kw):
+    """Call the guarded kernel wrapper `fn` once, its checks included, and
+    return (its output, the launch it ran as a thunk: `GuardResult.rerun`,
+    which runs the same kernel at the same depth, split and grid without
+    the guard). The timing loops time that thunk: the launch the main path
+    makes, without the guard's output scan (a device sync)."""
+    from repro_torch.core import guard
+
+    with guard.record() as calls:
+        out = fn(*args, **kw)
+    return out, calls[-1].rerun
+
+
+def run_thunk(run):
+    return run()
+
+
 def paged_decode_bound(lengths, h, kh, d, m):
     """(bound ms, bound_by, bytes, flops) of paged decode attention: the
     live K/V rows, q, the output, the block table and the lengths over
@@ -656,23 +715,24 @@ def time_paged(torch, layers, gathered, lengths, depth):
     q, kp, vp, bt, ln = layers[0]
     b, h, d = q.shape
     page, kh, m = kp.shape[1], kp.shape[2], bt.shape[1]
-    out = da.paged_flash_decode(q, kp, vp, bt, ln, depth=depth)
+    runs = [path_launch(da.paged_flash_decode, *a, depth=depth)
+            for a in layers]
     ran = autotune.last_choice("paged_decode")
     err = _close(f"paged_decode at the main path's shape B={b} lengths="
-                 f"{lengths}", out, da.paged_flash_decode_plain(q, kp, vp, bt, ln),
+                 f"{lengths}", runs[0][0],
+                 da.paged_flash_decode_plain(q, kp, vp, bt, ln),
                  *DECODE_TOL["bfloat16"])
+    launches = [(run,) for _, run in runs]
+    del runs
 
     def sdpa(q, k, v, mask):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               enable_gqa=True)
 
-    def kernel(*a):
-        return da.paged_flash_decode(*a, depth=depth)
-
-    kernel_a = median_ms(torch, kernel, layers)
+    kernel_a = median_ms(torch, run_thunk, launches)
     plain_ms = median_ms(torch, da.paged_flash_decode_plain, layers)
     library_ms = median_ms(torch, sdpa, gathered)
-    kernel_b = median_ms(torch, kernel, layers)
+    kernel_b = median_ms(torch, run_thunk, launches)
     ms = statistics.median([kernel_a, kernel_b])
     bound_ms, bound_by, nbytes, flops = paged_decode_bound(lengths, h, kh, d, m)
     sms = ring.sm_count(q.device)
@@ -750,13 +810,14 @@ def time_kernel(torch, cfg, stats):
                 continue
             seen.add(plan)
 
-            def fn(*a, tile=tile, splits=plan[0]):
-                return da.paged_flash_decode(*a, blk=tile, splits=splits,
-                                             depth=depth)
-
-            t = median_ms(torch, fn, layers)
+            launches = [(path_launch(da.paged_flash_decode, *a, blk=tile,
+                                     splits=plan[0], depth=depth)[1],)
+                        for a in layers]
+            pages = autotune.last_choice("paged_decode")
+            t = median_ms(torch, run_thunk, launches)
+            del launches
             tag = (f"blk={tile} splits={plan[0]} tiles_per_split={plan[1]} "
-                   f"depth_pages={autotune.last_choice('paged_decode')} "
+                   f"depth_pages={pages} "
                    f"blocks={width * kh * plan[0]}"
                    f"{' (plan)' if splits is None else ''}")
             swept[tag] = t
@@ -794,9 +855,17 @@ def profile_decode_rounds(torch, cfg, width, rounds=4, params=None):
         eng.step_round()
     if len(eng.scheduler.running) != width:
         raise AssertionError("the profiled engine never filled its round")
-    return profile_steps(torch, eng.step_round, rounds,
-                         f"decode round (B={width}, {cfg.n_layers} layers)",
-                         since)
+    out = profile_steps(torch, eng.step_round, rounds,
+                        f"decode round (B={width}, {cfg.n_layers} layers)",
+                        since)
+
+    def fresh_round():                  # a new step: eager, then captured
+        eng._decode_fn = None
+        eng.step_round()
+
+    eager_guard_cost(torch, fresh_round,
+                     f"{cfg.name} decode round (B={width})")
+    return out
 
 
 def profile_prefill_chunks(torch, cfg, params, rounds=4):
@@ -822,7 +891,8 @@ def profile_prefill_chunks(torch, cfg, params, rounds=4):
     v_pools = torch.zeros_like(k_pools)
     table = np.arange(1, tw + 1, dtype=np.int32)      # page 0: garbage
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, plen)
-    pre = ChunkedPrefiller(build_model(cfg), blk, "cuda")
+    model = build_model(cfg)
+    pre = ChunkedPrefiller(model, blk, "cuda")
     calls = [0]
 
     def step():
@@ -841,6 +911,65 @@ def profile_prefill_chunks(torch, cfg, params, rounds=4):
             pre.graphs[(chunk, tw)].captures != 1:
         raise AssertionError(f"{cfg.name}: the profiled chunks were not one "
                              f"capture and its replays: {list(pre.graphs)}")
+
+    def fresh_chunk():                  # a new key: eager, then captured
+        ChunkedPrefiller(model, blk, "cuda").run_chunk(
+            params, k_pools, v_pools, prompt[:chunk], table, 0, chunk)
+
+    eager_guard_cost(torch, fresh_chunk,
+                     f"{cfg.name} prefill chunk (32 tokens)")
+    return out
+
+
+def eager_guard_cost(torch, fresh_step, label, turns=3) -> dict:
+    """The guard's cost in the eager step a serving run makes before each
+    capture (one a key): `fresh_step()`, a step at a new key (run eagerly,
+    then captured), on the host clock from an idle device to its work
+    done, with the guard as it is ("checked") and with its checks of each
+    output (scan, sentinel, injected poison: `core.guard._police`) stubbed
+    out for this measurement ("unchecked"), in turns: checked, unchecked,
+    unchecked, checked, `turns` times. The eager step's guarded calls are
+    its launches (a capture takes its own back). Logs and returns the
+    medians and the difference a guarded call."""
+    from unittest import mock
+
+    from repro_torch.core import guard
+    from repro_torch.kernels import launch_counts
+
+    def run():
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh_step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        return dt, sum(after[k] - before[k] for k in after)
+
+    times = {"checked": [], "unchecked": []}
+    calls = set()
+    for _ in range(turns):
+        for mode in ("checked", "unchecked", "unchecked", "checked"):
+            if mode == "checked":
+                dt, n = run()
+            else:
+                with mock.patch.object(guard, "_police",
+                                       lambda *a, **k: None):
+                    dt, n = run()
+            times[mode].append(dt)
+            calls.add(n)
+    if len(calls) != 1:
+        raise AssertionError(f"{label}: eager steps launched {calls} kernels")
+    n = calls.pop()
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out.update(runs=times, guarded_calls=n,
+               guard_ms=out["checked"] - out["unchecked"])
+    out["guard_us_a_call"] = out["guard_ms"] / n * 1e3 if n else None
+    log(f"guard eager cost {label}: eager step plus capture "
+        f"{out['checked']:.2f} ms checked, {out['unchecked']:.2f} ms "
+        f"unchecked ({json.dumps(times)}); {n} guarded calls; "
+        f"{out['guard_ms']:.2f} ms a step"
+        + (f", {out['guard_us_a_call']:.1f} µs a call" if n else ""))
     return out
 
 
@@ -975,7 +1104,8 @@ def time_gmm(torch, params, width):
                 tok = torch.randn(rows, c, dm, generator=gen, device="cuda")
                 args.append((tok.to(torch.bfloat16).expand(e, c, dm), wi))
             tokens = args[0][0]
-            got = mg.gmm(tokens, w)
+            got, run = path_launch(mg.gmm, tokens, w)
+            launches = [(run,), (path_launch(mg.gmm, *args[1])[1],)]
             depth = autotune.last_choice("moe_gmm")
             per_sm = mg.blocks_per_sm(tokens, w, depth)
             grid = mg.grid_for(tokens, w, depth)
@@ -985,11 +1115,11 @@ def time_gmm(torch, params, width):
             err = _close(f"moe_gmm {MOE_ARCH} {phase} {proj} at the path's "
                          f"shape", got, ref, TOL["bfloat16"])
             del got, ref
-            kernel_a = median_ms(torch, mg.gmm, args)
+            kernel_a = median_ms(torch, run_thunk, launches)
             plain_ms = median_ms(torch, mg.gmm_plain, args)
             library_ms = median_ms(torch, torch.bmm, args)
-            kernel_b = median_ms(torch, mg.gmm, args)
-            host_ms = host_ms_per_call(torch, mg.gmm, args[0])
+            kernel_b = median_ms(torch, run_thunk, launches)
+            host_ms = host_ms_per_call(torch, run, ())
             ms = statistics.median([kernel_a, kernel_b])
             bound_ms, bound_by = gmm_bound(e, c, dm, f)
             spec = mg.gmm_spec(c, dm, mg.F_TILE, torch.bfloat16, f_total=f)
@@ -1009,7 +1139,7 @@ def time_gmm(torch, params, width):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "host_ms": host_ms, "shape": shape}
-            del args, tokens
+            del args, tokens, launches, run
     return out
 
 
@@ -1031,9 +1161,11 @@ def host_ms_per_call(torch, fn, args, calls=100, repeats=5):
 
 
 def gmm_host_times(torch) -> dict:
-    """`host_ms_per_call` of `gmm` at phase 6b's shapes (C 5 and 32, gate/up
-    with tokens shared at stride 0, down with a block per expert) on random
-    bf16 weights: only `gmm(tokens, weights)` of this checkout's package."""
+    """`host_ms_per_call` of the launch `gmm` runs (`path_launch`'s thunk:
+    the grid and `gmm_at`; the depth solve and the guard's checks stay
+    outside) at phase 6b's shapes (C 5 and 32, gate/up with tokens shared
+    at stride 0, down with a block per expert) on random bf16 weights, for
+    this checkout's package."""
     from repro_torch.kernels.moe_gmm import moe_gmm as mg
 
     gen = torch.Generator(device="cuda")
@@ -1047,8 +1179,8 @@ def gmm_host_times(torch) -> dict:
             rows = 1 if proj == "gate/up" else e
             tokens = torch.randn(rows, c, dm, generator=gen, device="cuda",
                                  dtype=torch.bfloat16).expand(e, c, dm)
-            out[f"{phase} {proj}"] = host_ms_per_call(torch, mg.gmm,
-                                                      (tokens, w))
+            out[f"{phase} {proj}"] = host_ms_per_call(
+                torch, path_launch(mg.gmm, tokens, w)[1], ())
     return out
 
 
@@ -1067,14 +1199,15 @@ def ssd_times(torch) -> dict:
         sets = [ssd_operands(torch, gen, 8, 2048, 24, 64, 128,
                              dtype=getattr(torch, dtype_name))
                 for _ in range(2)]
-        y, h = ss.ssd_scan(*sets[0], chunk=256)
+        runs = [path_launch(ss.ssd_scan, *a, chunk=256) for a in sets]
+        (y, h), _ = runs[0]
         ry, rh = ss.ssd_scan_plain(*sets[0], chunk=256)
         err = _close(f"ssd_scan {dtype_name} y", y, ry, TOL[dtype_name])
         err = max(err, _close(f"ssd_scan {dtype_name} h_final", h, rh,
                               TOL["float32"]))
-        del y, h, ry, rh
-        times = [median_ms(torch, lambda *a: ss.ssd_scan(*a, chunk=256),
-                           sets) for _ in range(2)]
+        launches = [(run,) for _, run in runs]
+        del y, h, ry, rh, runs
+        times = [median_ms(torch, run_thunk, launches) for _ in range(2)]
         out[dtype_name] = {"ms": statistics.median(times), "runs": times,
                            "max_abs_err": err}
         del sets
@@ -1316,14 +1449,13 @@ def serve_dense_path(torch, arch: str, params=None):
 # -------------------------------------------------------------- phase 6c
 
 
-def check_flash_decode_path_shape(torch, q, k, v, pos):
-    """K3 against its plain version on the dense path's bf16 operands, then
-    on the same values in f32 (DECODE_TOL). Returns the bf16 error and the
-    depth that ran."""
+def check_flash_decode_path_shape(torch, out, q, k, v, pos):
+    """K3's output `out` against its plain version on the dense path's bf16
+    operands, then K3 on the same values in f32 (DECODE_TOL). Returns the
+    bf16 error."""
     from repro_torch.core import autotune
     from repro_torch.kernels.decode_attention import decode_attention as da
 
-    out = da.flash_decode(q, k, v, pos)
     depth = autotune.last_choice("flash_decode")
     err = _close(f"flash_decode at the dense path's shape {tuple(k.shape)} "
                  f"pos={int(pos)} bfloat16 (depth {depth})", out,
@@ -1332,7 +1464,7 @@ def check_flash_decode_path_shape(torch, q, k, v, pos):
     _close(f"flash_decode at the dense path's shape {tuple(k.shape)} "
            f"pos={int(pos)} float32", da.flash_decode(q, k, v, pos),
            da.flash_decode_plain(q, k, v, pos), *DECODE_TOL["float32"])
-    return err, depth
+    return err
 
 
 def flash_decode_bound(b, h, kh, d, pos):
@@ -1375,8 +1507,12 @@ def time_flash_decode(torch, cfg, b, sweep=False):
         v = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         layers.append((q, k, v, dev_pos))
+    runs = [path_launch(da.flash_decode, *a) for a in layers]
+    depth = autotune.last_choice("flash_decode")
     q, k, v, _ = layers[0]
-    err, depth = check_flash_decode_path_shape(torch, q, k, v, dev_pos)
+    err = check_flash_decode_path_shape(torch, runs[0][0], q, k, v, dev_pos)
+    launches = [(run,) for _, run in runs]
+    del runs
     sms = ring.sm_count(q.device)
     n_split, per = da.split_plan(b, kh, s, da.FLASH_BLK, sms)
 
@@ -1386,10 +1522,10 @@ def time_flash_decode(torch, cfg, b, sweep=False):
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
 
-    kernel_a = median_ms(torch, da.flash_decode, layers)
+    kernel_a = median_ms(torch, run_thunk, launches)
     plain_ms = median_ms(torch, da.flash_decode_plain, layers)
     library_ms = median_ms(torch, sdpa, sliced)
-    kernel_b = median_ms(torch, da.flash_decode, layers)
+    kernel_b = median_ms(torch, run_thunk, launches)
     ms = statistics.median([kernel_a, kernel_b])
     bound_ms, bound_by, nbytes, flops = flash_decode_bound(b, h, kh, d, pos)
     shape = {"B": b, "H": h, "KH": kh, "D": d, "S": s, "pos": pos,
@@ -1409,11 +1545,10 @@ def time_flash_decode(torch, cfg, b, sweep=False):
                     continue
                 seen.add(plan)
 
-                def fn(q, k, v, pos, blk=blk, splits=plan[0]):
-                    return da.flash_decode(q, k, v, pos, blk=blk,
-                                           splits=splits)
-
-                t = median_ms(torch, fn, layers)
+                swept = [(path_launch(da.flash_decode, *a, blk=blk,
+                                      splits=plan[0])[1],) for a in layers]
+                t = median_ms(torch, run_thunk, swept)
+                del swept
                 log(f"sweep flash_decode B={b} blk={blk} splits={plan[0]} "
                     f"tiles_per_split={plan[1]} depth="
                     f"{autotune.last_choice('flash_decode')} blocks="
@@ -1465,7 +1600,10 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
     gen.manual_seed(12)
     sets = [ssd_operands(torch, gen, b, s, nh, p, n, dtype=dtype)
             for _ in range(2)]
-    y, h = ss.ssd_scan(*sets[0], chunk=chunk)
+    runs = [path_launch(ss.ssd_scan, *a, chunk=chunk) for a in sets]
+    (y, h), _ = runs[0]
+    launches = [(run,) for _, run in runs]
+    del runs
     depth = autotune.last_choice("ssd_scan")
     ry, rh = ss.ssd_scan_plain(*sets[0], chunk=chunk)
     err = _close(f"ssd_scan at the dense path's shape, {dtype_name} (depth "
@@ -1474,17 +1612,14 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
                           f"{dtype_name} h_final", h, rh, TOL["float32"]))
     del y, h, ry, rh
 
-    def kernel(*a):
-        return ss.ssd_scan(*a, chunk=chunk)
-
     def plain(*a):
         return ss.ssd_scan_plain(*a, chunk=chunk)
 
-    kernel_a = median_ms(torch, kernel, sets)
+    kernel_a = median_ms(torch, run_thunk, launches)
     plain_ms = median_ms(torch, plain, sets)
-    kernel_b = median_ms(torch, kernel, sets)
+    kernel_b = median_ms(torch, run_thunk, launches)
     ms = statistics.median([kernel_a, kernel_b])
-    per_launch = launch_ms(torch, lambda: kernel(*sets[0]))
+    per_launch = launch_ms(torch, launches[0][0])
     isz = dtype.itemsize
     nbytes = (2 * b * s * nh * p * isz        # x in, y out
               + 2 * b * s * n * isz           # B, C
@@ -1841,6 +1976,24 @@ def time_gups_kernels(torch, st, gmm_case):
     work = st["updated"]
     b, c, s = st["b"], st["c"], GUPS["scalar"]
     n, t, u, nt = idx.numel(), starts.numel(), uniq.numel(), b.numel()
+    # the timing loops time the launch each wrapper runs at the path's
+    # depth (`path_launch`), without the guard's checks around it; the
+    # guarded wrappers are timed beside them below
+    runs = {
+        "row_gather": path_launch(cg.row_gather, table, idx,
+                                  depth=depths["row_gather"]),
+        "span_gather": path_launch(cg.span_gather, table, starts,
+                                   span=plan.span,
+                                   depth=depths["span_gather"]),
+        "scatter_add": path_launch(sa.scatter_add_unique, work, uniq, summed,
+                                   depth=depths["scatter_add"]),
+        "stream_triad": path_launch(sc.triad, b, c, s,
+                                    depth=depths["stream_triad"]),
+    }
+    got = {name: out for name, (out, _) in runs.items()
+           if name != "scatter_add"}      # in place: checked on copies below
+    runs = {name: run for name, (_, run) in runs.items()}
+    triad_plan = sc.plan(*b.shape, 4, 128, depths["stream_triad"])
 
     # K5a's per-SM split and grid at this shape
     k5a_blocks, k5a_slots = cg.row_gather_split(depths["row_gather"], table)
@@ -1855,8 +2008,6 @@ def time_gups_kernels(torch, st, gmm_case):
                                k6_blocks)[0]
     cases = {
         "row_gather": dict(
-            kernel=lambda: cg.row_gather(table, idx,
-                                         depth=depths["row_gather"]),
             plain=lambda: cg.row_gather_plain(table, idx),
             library=(torch.index_select, (table, 0, idx.long())),
             bound=_bound_ms(2 * n * row_bytes + 4 * n),
@@ -1864,16 +2015,12 @@ def time_gups_kernels(torch, st, gmm_case):
                    "dtype": "float32", "blocks_per_sm": k5a_blocks,
                    "slots_a_block": k5a_slots, "grid": k5a_grid}),
         "span_gather": dict(
-            kernel=lambda: cg.span_gather(table, starts, span=plan.span,
-                                          depth=depths["span_gather"]),
             plain=lambda: cg.span_gather_plain(table, starts, plan.span),
             library=(torch.index_select, (table, 0, span_rows)),
             bound=_bound_ms(2 * t * plan.span * row_bytes + 4 * t),
             shape={"table": list(table.shape), "spans": t, "span": plan.span,
                    "dtype": "float32"}),
         "scatter_add": dict(
-            kernel=lambda: sa.scatter_add_unique(work, uniq, summed,
-                                                 depth=depths["scatter_add"]),
             plain=lambda: sa.scatter_add_unique_plain(work, uniq, summed),
             library=(lambda i, v: work.index_add_(0, i, v),
                      (uniq.long(), summed)),
@@ -1882,35 +2029,33 @@ def time_gups_kernels(torch, st, gmm_case):
                    "dtype": "float32", "blocks_per_sm": k6_blocks,
                    "slots_a_block": k6_slots, "grid": k6_grid}),
         "stream_triad": dict(
-            kernel=lambda: sc.triad(b, c, s, depth=depths["stream_triad"]),
             plain=lambda: sc.triad_plain(b, c, s),
             library=(lambda x, y: torch.add(x, y, alpha=s), (b, c)),
             bound=_bound_ms(3 * nt * 4, 2 * nt),
             shape={"N": b.shape[0], "d": d, "rows": 128, "dtype": "float32",
-                   **sc.plan(*b.shape, 4, 128, depths["stream_triad"])
-                   ._asdict()}),
+                   **triad_plan._asdict()}),
     }
     out = {}
     for name, case in cases.items():
         if name == "scatter_add":       # in place: compare on copies
             before = work.clone()
-            got = sa.scatter_add_unique(before.clone(), uniq, summed,
-                                        depth=depths["scatter_add"])
+            out_ = sa.scatter_add_unique(before.clone(), uniq, summed,
+                                         depth=depths["scatter_add"])
             ref = sa.scatter_add_unique_plain(before, uniq, summed)
             del before
         else:
-            got, ref = case["kernel"](), case["plain"]()
+            out_, ref = got.pop(name), case["plain"]()
         torch.cuda.synchronize()
-        err = _max_abs_err(got, ref)
-        if not torch.equal(got, ref):
+        err = _max_abs_err(out_, ref)
+        if not torch.equal(out_, ref):
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"the GUPS path's shapes: {err:.3e}")
-        del got, ref
+        del out_, ref
         lib_fn, lib_args = case["library"]
-        kernel_a = median_ms(torch, lambda: case["kernel"](), [()])
+        kernel_a = median_ms(torch, runs[name], [()])
         plain_ms = median_ms(torch, lambda: case["plain"](), [()])
         library_ms = median_ms(torch, lib_fn, [lib_args])
-        kernel_b = median_ms(torch, lambda: case["kernel"](), [()])
+        kernel_b = median_ms(torch, runs[name], [()])
         bound_ms, bound_by = case["bound"]
         ms = statistics.median([kernel_a, kernel_b])
         log(f"times {name} {json.dumps(case['shape'])}: kernel "
@@ -1924,12 +2069,21 @@ def time_gups_kernels(torch, st, gmm_case):
                         * 1e-3) / 1e9
     log(f"GUPS from kernel times: {gups:.4f} giga-updates/s "
         f"({GUPS['n']} updates: gather + scatter-add of {u} rows)")
+    guarded = time_guarded_gups(torch, {
+        "row_gather": (lambda: cg.row_gather(table, idx,
+                                             depth=depths["row_gather"]),
+                       runs["row_gather"]),
+        "scatter_add": (lambda: sa.scatter_add_unique(
+            work, uniq, summed, depth=depths["scatter_add"]),
+            runs["scatter_add"])})
+    for name in ("row_gather", "scatter_add"):
+        out[name]["guarded"] = guarded[name]
 
     # the same work at other depths (K5a: tiles in flight per SM, and its
     # per-SM split as blocks x slots), and the triad at other tile heights
     sweep = [("row_gather", f"depth={k} per SM "
               f"({'x'.join(map(str, cg.row_gather_split(k, table)))})",
-              lambda k=k: cg.row_gather(table, idx, depth=k))
+              path_launch(cg.row_gather, table, idx, depth=k)[1])
              for k in (4, 8, 16, 32, 56)]
     sweep += [("row_gather", f"{k} blocks an SM x {slots} slots",
                lambda k=k, slots=slots: cg.row_gather_at(
@@ -1937,7 +2091,8 @@ def time_gups_kernels(torch, st, gmm_case):
               for k, slots in K5A_SPLITS]
     sweep += [("scatter_add", f"depth={k} per SM "
                f"({'x'.join(map(str, sa.scatter_add_split(k, work, summed)))})",
-               lambda k=k: sa.scatter_add_unique(work, uniq, summed, depth=k))
+               path_launch(sa.scatter_add_unique, work, uniq, summed,
+                           depth=k)[1])
               for k in (4, 8, 16, 28)]
     sweep += [("scatter_add", f"{k} blocks an SM x {slots} slots",
                lambda k=k, slots=slots: sa.scatter_add_at(
@@ -1949,7 +2104,7 @@ def time_gups_kernels(torch, st, gmm_case):
               for r in TRIAD_SWEEP]
     sweep += [("stream_triad", f"rows={r} depth={k} (items of "
                f"{sc.plan(*b.shape, 4, r, k).item_rows} rows)",
-               lambda r=r, k=k: sc.triad(b, c, s, rows=r, depth=k))
+               path_launch(sc.triad, b, c, s, rows=r, depth=k)[1])
               for r, k in ((128, 1), (64, 1), (64, 3), (32, 2))]
     tokens, w, gmm_bound_ms = gmm_case
     deepest = mg.kernel_depth(64, c=tokens.shape[1], dm=tokens.shape[2],
@@ -1957,7 +2112,7 @@ def time_gups_kernels(torch, st, gmm_case):
     sweep += [("moe_gmm", f"decode gate/up depth={k} "
                f"({mg.blocks_per_sm(tokens, w, k)} blocks an SM fit, grid "
                f"{mg.grid_for(tokens, w, k)})",
-               lambda k=k: mg.gmm(tokens, w, depth=k))
+               path_launch(mg.gmm, tokens, w, depth=k)[1])
               for k in sorted({1, 2, 3, 4, 6, 8, deepest})]
     # depth 2 on grids of k blocks on every SM, whole tiles dealt in turn
     # (up to one tile a block more than others)
@@ -1984,8 +2139,7 @@ def time_gups_kernels(torch, st, gmm_case):
         lambda: torch.equal(cg.span_gather(
             table, starts, span=plan.span, depth=depths["span_gather"]),
             span_want),
-        lambda: cg.span_gather(table, starts, span=plan.span,
-                               depth=depths["span_gather"]))
+        runs["span_gather"])
     del span_want
     before = work.clone()
     sa_want = sa.scatter_add_unique_plain(before.clone(), uniq, summed)
@@ -1995,12 +2149,51 @@ def time_gups_kernels(torch, st, gmm_case):
         lambda: torch.equal(sa.scatter_add_unique(
             before.clone(), uniq, summed, depth=depths["scatter_add"]),
             sa_want),
-        lambda: sa.scatter_add_unique(work, uniq, summed,
-                                      depth=depths["scatter_add"]))
+        runs["scatter_add"])
     del before, sa_want
-    out["stream_triad"]["walk_ab"] = time_triad_walk(
-        torch, b, c, s, sc.plan(*b.shape, 4, 128, depths["stream_triad"])
-        .item_rows)
+    out["stream_triad"]["walk_ab"] = time_triad_walk(torch, b, c, s,
+                                                     triad_plan.item_rows)
+    return out
+
+
+def sync_wall_ms(torch, fn, calls=11) -> float:
+    """Host wall clock of one call of `fn` from an idle device to its work
+    done (a sync before and after), median of `calls` calls (ms)."""
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def time_guarded_gups(torch, pairs) -> dict:
+    """The GUPS kernels' guarded wrappers (the guard's checks, the scan's
+    read of every row written, its sync) beside the launches they run
+    without the guard, both timed by `sync_wall_ms`, in turns: launch,
+    wrapper, wrapper, launch. `pairs` maps a kernel to (wrapper call,
+    launch thunk). Logs GUPS through the wrappers and through the bare
+    launches on the same clock."""
+    times = {name: {"launch": [], "wrapper": []} for name in pairs}
+    for which in ("launch", "wrapper", "wrapper", "launch"):
+        for name, (wrapper, launch) in pairs.items():
+            fn = wrapper if which == "wrapper" else launch
+            times[name][which].append(sync_wall_ms(torch, fn))
+    out = {name: {k: statistics.median(v) for k, v in t.items()}
+           for name, t in times.items()}
+    for name, t in out.items():
+        t["runs"] = times[name]
+        t["guard_ms"] = t["wrapper"] - t["launch"]
+    gups = {which: GUPS["n"] / (sum(t[which] for t in out.values()) * 1e-3)
+            / 1e9 for which in ("launch", "wrapper")}
+    log(f"guarded GUPS kernels at the path's shapes (ms a call, sync to "
+        f"sync): {json.dumps(out)}; GUPS through the wrappers "
+        f"{gups['wrapper']:.4f}, through the bare launches "
+        f"{gups['launch']:.4f} (same clock)")
+    out["gups"] = gups
     return out
 
 
@@ -2142,6 +2335,340 @@ def time_triad_walk(torch, b, c, s, item_rows):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+# ----------------------------------------------------------------- phase 10
+
+
+def guard_operands(torch):
+    """Small operands for each of the eight guarded wrappers, f32 on the
+    card: {kernel: thunk calling its wrapper once}."""
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    from repro_torch.kernels.stream_copy import stream_copy as sc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    paged = paged_problem(torch, gen, [17, 40], h=8, kh=2, d=64, blk=16,
+                          dtype=torch.float32, device="cuda")
+    q = torch.randn(2, 8, 64, generator=gen, device="cuda")
+    k, v = (torch.randn(2, 80, 2, 64, generator=gen, device="cuda")
+            for _ in range(2))
+    tokens = torch.randn(2, 16, 64, generator=gen, device="cuda")
+    w = torch.randn(2, 64, 256, generator=gen, device="cuda")
+    ssd = ssd_operands(torch, gen, 1, 128, 2, 64, 64, dtype=torch.float32)
+    table = torch.randn(256, 128, generator=gen, device="cuda")
+    idx = torch.randint(0, 256, (64,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    starts = torch.arange(0, 128, 16, device="cuda", dtype=torch.int32)
+    uniq = torch.randperm(256, generator=gen, device="cuda")[:64].int()
+    upd = torch.randn(64, 128, generator=gen, device="cuda")
+    b, c = (torch.randn(256, 64, generator=gen, device="cuda")
+            for _ in range(2))
+    return {
+        "paged_decode": lambda: da.paged_flash_decode(*paged),
+        "moe_gmm": lambda: mg.gmm(tokens, w),
+        "flash_decode": lambda: da.flash_decode(q, k, v, 70),
+        "ssd_scan": lambda: ss.ssd_scan(*ssd, chunk=64),
+        "row_gather": lambda: cg.row_gather(table, idx),
+        "span_gather": lambda: cg.span_gather(table, starts, span=8),
+        "scatter_add": lambda: sa.scatter_add_unique(table.clone(), uniq, upd),
+        "stream_triad": lambda: sc.triad(b, c, 2.5, rows=128),
+    }
+
+
+def _guard_delta(before: dict) -> dict:
+    from repro_torch.core import guard
+
+    now = guard.stats()
+    return {k: now[k] - before[k] for k in before
+            if isinstance(before[k], int) and not isinstance(before[k], bool)}
+
+
+def check_sentinel(torch) -> None:
+    """(a) With the sentinel on full, each of the eight guarded wrappers
+    once, eagerly: 8 parity checks against the plain versions on the card,
+    no mismatch, one launch each."""
+    from repro_torch.core import guard
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    calls = guard_operands(torch)
+    guard.set_parity("full")
+    before = guard.stats()
+    reset_launch_counts()
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    delta, counts = _guard_delta(before), launch_counts()
+    guard.set_parity("off")
+    if delta["parity_checks"] != 8 or delta["parity_mismatches"] or \
+            delta["clean_calls"] != 8 or any(counts[k] != 1 for k in calls):
+        raise AssertionError(f"sentinel over the eight wrappers: {delta}, "
+                             f"launches {counts}")
+    log(f"guard (a) sentinel full over {sorted(calls)}: {json.dumps(delta)}")
+
+
+def check_poisoned_plain(torch) -> None:
+    """(b) A deliberately wrong plain version around K5a's real attempt
+    (`row_gather_at` at each rung's split): every rung mismatches, the
+    ladder halves to 1, every depth is quarantined, `KernelParityError`."""
+    from repro_torch.core import autotune, guard
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    table = torch.randn(1024, 128, generator=gen, device="cuda")
+    idx = torch.randint(0, 1024, (512,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+
+    def attempt(d):
+        blocks, slots = cg.row_gather_split(d, table)
+        return cg.row_gather_at(table, idx, blocks_per_sm=blocks, slots=slots)
+
+    guard.set_parity("full")
+    try:
+        guard.guarded_call(cg.row_gather_spec(8, 128, torch.float32),
+                           (table, idx), attempt, depth=8, n_tiles=64,
+                           plain=lambda t, i: cg.row_gather_plain(t, i) + 1)
+    except guard.KernelParityError as e:
+        err = e
+    else:
+        raise AssertionError("a poisoned plain version raised no "
+                             "KernelParityError")
+    finally:
+        guard.set_parity("off")
+    ladder = guard.last_ladder("row_gather")
+    quarantined = autotune.quarantined_depths("row_gather")
+    if ladder != [8, 4, 2, 1] or quarantined != [1, 2, 4, 8]:
+        raise AssertionError(f"poisoned plain: ladder {ladder}, quarantined "
+                             f"{quarantined}")
+    autotune.clear_quarantine("row_gather")
+    log(f"guard (b) poisoned plain around row_gather_at: "
+        f"{type(err).__name__}, ladder {ladder}, quarantined {quarantined}")
+
+
+def check_resource_ladder(torch) -> None:
+    """(c) K6 asked for rings that `check_smem` refuses (64 and 32 slots of
+    8 KiB): the ladder lands on 16 slots, the table equals the plain
+    version's bitwise, the refused depths are quarantined and
+    `choose_depth` does not propose them."""
+    from repro_torch.core import autotune, guard
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    table = torch.randn(4096, 128, generator=gen, device="cuda")
+    idx = torch.randperm(4096, generator=gen, device="cuda")[:1024].int()
+    upd = torch.randn(1024, 128, generator=gen, device="cuda")
+    want = sa.scatter_add_unique_plain(table.clone(), idx, upd)
+    spec = sa.scatter_add_spec(8, 128, torch.float32)
+    res = guard.guarded_call(
+        spec, (table, idx, upd),
+        lambda d: sa.scatter_add_at(table, idx, upd, blocks_per_sm=1,
+                                    slots=d),
+        depth=64, n_tiles=128, plain=sa.updated_rows, in_place=True,
+        written=lambda t: t.index_select(0, idx),
+        finite=lambda t: sa.rows_finite(t, idx))
+    ladder = guard.last_ladder("scatter_add")
+    refused = autotune.quarantined_depths("scatter_add")
+    proposed = autotune.choose_depth(spec.profile(), kernel="scatter_add",
+                                     vars=spec.all_vars())
+    if ladder != [64, 32, 16] or res.depth != 16 or refused != [32, 64] \
+            or proposed in refused or not torch.equal(table, want):
+        raise AssertionError(f"resource ladder: {ladder}, landed "
+                             f"{res.depth}, quarantined {refused}, proposed "
+                             f"{proposed}, equal "
+                             f"{bool(torch.equal(table, want))}")
+    autotune.clear_quarantine("scatter_add")
+    log(f"guard (c) scatter_add resource ladder {ladder} (check_smem "
+        f"refused {refused}), bitwise equal to plain, choose_depth then "
+        f"proposes {proposed}")
+
+
+def check_capture(torch) -> None:
+    """(d) With the sentinel on full, a dense decode `StepGraph` of reduced
+    yi-6b (f32): the first step runs eagerly (policed: one check per
+    layer's flash-decode) and captures; its replays add no parity check."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import guard
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import jit_decode_step, make_prompts
+    from repro_torch.models import build_model
+
+    cfg = get_config("yi-6b").reduced().replace(dtype="float32",
+                                                param_dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    params = model.init(gen, "cuda")
+    prompts, text = make_prompts(cfg, 2, 24, np.random.default_rng(24),
+                                 "cuda")
+    cache, logits = model.prefill(params, prompts, pad_to=text + 8)
+    tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    decode = jit_decode_step(model)
+    guard.set_parity("full")
+    reset_launch_counts()
+    before = guard.stats()
+    checks = []
+    for _ in range(4):
+        logits, cache = decode(params, cache, {"tokens": tokens})
+        tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        checks.append(_guard_delta(before)["parity_checks"])
+    guard.set_parity("off")
+    delta, counts = _guard_delta(before), launch_counts()
+    if decode.graph.captures != 1 or decode.graph.replays != 3 or \
+            checks != [cfg.n_layers] * 4 or delta["parity_mismatches"] or \
+            counts["flash_decode"] != 4 * cfg.n_layers or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"capture under the sentinel: captures "
+                             f"{decode.graph.captures}, replays "
+                             f"{decode.graph.replays}, checks after each "
+                             f"step {checks}, {delta}, launches {counts}")
+    log(f"guard (d) dense decode StepGraph under the sentinel: 1 capture, 3 "
+        f"replays, parity checks after each step {checks} (the eager step's "
+        f"{cfg.n_layers} only), launches {counts['flash_decode']}")
+
+
+def check_chaos(torch) -> None:
+    """(e) `launch.chaos_serve` on reduced yi-6b on the card, seed 0, 20
+    rounds: every request terminal, no parity mismatch (the harness
+    asserts both)."""
+    from repro_torch.core import autotune, guard
+    from repro_torch.launch import chaos_serve
+
+    summary = chaos_serve.main(["--seed", "0", "--rounds", "20"])
+    guard.set_parity("off")
+    autotune.clear_quarantine()
+    if summary["device"] != "cuda" or summary["substrate"][
+            "parity_mismatches"]:
+        raise AssertionError(f"chaos: {summary}")
+    log("guard (e) chaos_serve yi-6b reduced on the card: "
+        + json.dumps(summary))
+
+
+def guard_phase(torch) -> dict:
+    """Phase 10, (a)-(e) and the guard's host cost; prints and returns
+    `guard.stats()`."""
+    from repro_torch.core import guard
+
+    check_sentinel(torch)
+    check_poisoned_plain(torch)
+    check_resource_ladder(torch)
+    check_capture(torch)
+    check_chaos(torch)
+    guard_host_cost(torch)
+    stats = guard.stats()
+    log("guard stats: " + json.dumps(stats))
+    return stats
+
+
+def wall_us_per_call(torch, fn, calls=200, repeats=5) -> float:
+    """Host wall clock of one call of `fn` followed by a device sync,
+    median of `repeats` runs of `calls` calls (µs)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(times)
+
+
+def guard_host_cost(torch) -> dict:
+    """The guard's own cost per eager call at a small K5a shape (a 256 x 128
+    f32 table, 64 rows), each call followed by a device sync: the
+    unguarded launch (the wrapper's, `path_launch`), the guard without its
+    scan (a guarded call whose checked view is empty), the wrapper (guard
+    and scan), the wrapper with the sentinel on full. Timed in turns,
+    twice."""
+    from repro_torch.core import guard
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    table = torch.randn(256, 128, generator=gen, device="cuda")
+    idx = torch.randint(0, 256, (64,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    spec = cg.row_gather_spec(8, 128, torch.float32)
+    launch = path_launch(cg.row_gather, table, idx, depth=8)[1]
+
+    def no_scan():
+        return guard.guarded_call(spec, (table, idx), lambda d: launch(),
+                                  depth=8, n_tiles=8,
+                                  plain=cg.row_gather_plain,
+                                  written=lambda out: ())
+
+    def wrapper():
+        return cg.row_gather(table, idx, depth=8)
+
+    def sentinel():
+        guard.set_parity("full")
+        try:
+            return wrapper()
+        finally:
+            guard.set_parity("off")
+
+    fns = {"unguarded_launch": launch, "guard_no_scan": no_scan,
+           "guard_scan": wrapper, "guard_scan_parity_full": sentinel}
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        times[name].append(wall_us_per_call(torch, fns[name]))
+    out = {name: statistics.median(ts) for name, ts in times.items()}
+    log("guard host cost per eager call (µs, a call plus a device sync; "
+        f"K5a at 256x128 f32, 64 rows): {json.dumps(times)}")
+    return out
+
+
+def check_gups_breakdown(torch, st) -> dict:
+    """(g) The GUPS kernels through `launch.gups.observed` at phase 8's
+    shapes, three calls each (a kernel's first sample at a tile count is
+    dropped as warm-up), then `obs.stall_breakdown()`: every GUPS kernel
+    is there with its recorded tile profile, and its compute, transfer
+    and gap sum to its observed per-tile time."""
+    from repro_torch import obs
+    from repro_torch.kernels.coro_gather import coro_gather as cg
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
+    from repro_torch.kernels.stream_copy import stream_copy as sc
+    from repro_torch.launch.gups import observed
+
+    table, idx, plan = st["table"], st["idx"], st["plan"]
+    starts = torch.as_tensor(plan.span_starts, device="cuda")
+    uniq = torch.unique(idx)[:(torch.unique(idx).numel() // 8) * 8]
+    upd = torch.zeros(uniq.numel(), table.shape[1], device="cuda")
+    b, c = st["b"], st["c"]
+    for _ in range(3):
+        observed("row_gather", idx.numel() // 8, cg.row_gather, table, idx)
+        observed("span_gather", starts.numel(), cg.span_gather, table,
+                 starts, span=plan.span)
+        observed("scatter_add", uniq.numel() // 8, sa.scatter_add_unique,
+                 st["updated"], uniq, upd)
+        observed("stream_triad", b.shape[0] // 128, sc.triad, b, c,
+                 GUPS["scalar"])
+    report = obs.stall_breakdown()
+    out = {}
+    for name in ("row_gather", "span_gather", "scatter_add", "stream_triad"):
+        bd = report["kernels"].get(name)
+        if bd is None or bd.get("unattributed"):
+            raise AssertionError(f"stall breakdown has no attributed "
+                                 f"{name}: {report}")
+        parts = bd["compute_us"] + bd["transfer_us"] + bd["gap_us"]
+        fracs = bd["compute_frac"] + bd["transfer_frac"] + bd["gap_frac"]
+        if abs(parts - bd["observed_us"]) > 2e-3 or abs(fracs - 1) > 1e-3:
+            raise AssertionError(f"{name}: the split {bd} does not sum to "
+                                 f"its observed time")
+        out[name] = bd
+    log(f"guard (g) stall breakdown of the GUPS kernels ({report['machine']}"
+        f"): {json.dumps(out)}")
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2172,6 +2699,13 @@ def main() -> int:
 
     t_start = time.perf_counter()
     repro_torch.reset()
+    from repro_torch.core import guard
+    # the sentinel is off outside phase 10, whatever REPRO_PARITY says, so
+    # that phases 1-9 measure the kernels and paths without the plain
+    # versions beside them
+    log(f"REPRO_PARITY={os.environ.get(guard.PARITY_ENV)!r}: sentinel "
+        f"{guard.parity_mode()!r} at start, off until phase 10")
+    guard.set_parity("off")
     card = card_info(torch)
     build_kernels()
     check_parity(torch)
@@ -2257,6 +2791,15 @@ def main() -> int:
 
     gups = gups_main_path(torch)
     gups_times = time_gups_kernels(torch, gups, gmm_case)
+    check_gups_breakdown(torch, gups)
+    gups_counts = gups["counts"]
+    del gups, gmm_case
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phases 8-9 done at {time.perf_counter() - t_start:.1f} s")
+
+    guard_phase(torch)
+    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{
@@ -2321,14 +2864,15 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
-            "launches": gups["counts"][name],
+            "launches": gups_counts[name],
             "parity": "ok",
             **{k: t[k] for k in keys},
             "shape": t["shape"],
-            **{k: t[k] for k in ("wait_ab", "walk_ab") if k in t},
+            **{k: t[k] for k in ("wait_ab", "walk_ab", "guarded") if k in t},
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(card)
+    print(json.dumps({"substrate": guard.stats()}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,12 @@ mutant that breaks one path of a kernel runs on that path's cases only).
 A tolerance is worth something only if every mutant fails it; the
 unchanged source runs first, as a control, and must pass. Outputs are
 allocated over freed NaN blocks, so an element a mutant never writes
-cannot hold an earlier result.
+cannot hold an earlier result. The kernel wrappers run under the guard
+(`core.guard`) in strict mode: a kernel is held at the depth and grid its
+wrapper picks, with no ladder to retry it at another (where a broken
+walk can come out right), and a mutant whose output the guard's scan
+finds non-finite raises `KernelNumericsError`, which counts as a failure;
+a mutant that does not build or load aborts the script.
 
     python3 scripts/kernel_mutants.py      (needs a CUDA card and nvcc)
 
@@ -268,6 +273,20 @@ def within(torch, got, want, atol, rtol) -> bool:
         torch.allclose(got, want, atol=atol, rtol=rtol))
 
 
+def caught(fn):
+    """`fn()`, or None when the guard's checks of the output raised (the
+    scan found it non-finite, or the sentinel found it off its plain
+    version). Any other failure, a mutant that does not build or load
+    included, propagates and fails the script."""
+    from repro_torch.core.guard import KernelNumericsError, KernelParityError
+
+    try:
+        return fn()
+    except (KernelNumericsError, KernelParityError) as e:
+        print(f"MUT   raised {type(e).__name__}: {e}", flush=True)
+        return None
+
+
 def run(torch, kernel: str, source, only: str = ""):
     """[(case, max_abs_err, passed)] of the kernel built from `source`, on
     the cases whose name holds `only`."""
@@ -285,7 +304,10 @@ def run(torch, kernel: str, source, only: str = ""):
             if only not in case:
                 continue
             nan_block(torch, b.shape, b.dtype)
-            got = sc.triad(b, c, 3.0, rows=rows_)
+            got = caught(lambda: sc.triad(b, c, 3.0, rows=rows_))
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
             want = sc.triad_plain(b, c, 3.0)
             err = float((got.float() - want.float()).abs().max())
             ok = bool(torch.equal(got, want)) if b.dtype == torch.float32 \
@@ -298,17 +320,25 @@ def run(torch, kernel: str, source, only: str = ""):
             tol = chip_smoke.TOL[dtype_name]
             nan_block(torch, (tokens.shape[0], tokens.shape[1], w.shape[2]),
                       tokens.dtype)
-            got = mg.gmm(tokens, w, depth=2) if blocks is None else \
+            got = caught(lambda: mg.gmm(tokens, w, depth=2)) \
+                if blocks is None else \
                 mg.gmm_at(tokens, w, depth=2, blocks=blocks)
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
             want = mg.gmm_plain(tokens, w)
             err = float((got.float() - want.float()).abs().max())
             rows.append((case, err, within(torch, got, want, tol, tol)))
     elif kernel == "K5a":
         cg.SOURCE = source
         for case, table, idx, split in k5a_cases(torch):
-            got = cg.row_gather(table, idx) if split is None else \
+            got = caught(lambda: cg.row_gather(table, idx)) \
+                if split is None else \
                 cg.row_gather_at(table, idx, blocks_per_sm=split[0],
                                  slots=split[1])
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
             want = cg.row_gather_plain(table, idx)
             err = float((got.float() - want.float()).abs().max())
             rows.append((case, err, bool(torch.equal(got, want))))
@@ -316,16 +346,23 @@ def run(torch, kernel: str, source, only: str = ""):
         sa.SOURCE = source
         for case, table, uniq, upd, split in k6_cases(torch):
             want = sa.scatter_add_unique_plain(table.clone(), uniq, upd)
-            got = sa.scatter_add_unique(table.clone(), uniq, upd) \
+            got = caught(lambda: sa.scatter_add_unique(table.clone(), uniq,
+                                                       upd)) \
                 if split is None else sa.scatter_add_at(
                     table.clone(), uniq, upd, blocks_per_sm=split[0],
                     slots=split[1])
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
             err = float((got.float() - want.float()).abs().max())
             rows.append((case, err, bool(torch.equal(got, want))))
     elif kernel == "K1":
         da.FLASH_SOURCE = source
         for case, args, dtype_name in k1_cases(torch):
-            got = da.paged_flash_decode(*args)
+            got = caught(lambda: da.paged_flash_decode(*args))
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
             want = da.paged_flash_decode_plain(*args)
             atol, rtol = chip_smoke.DECODE_TOL[dtype_name]
             err = float((got.float() - want.float()).abs().max())
@@ -333,7 +370,10 @@ def run(torch, kernel: str, source, only: str = ""):
     elif kernel == "K3":
         da.FLASH_SOURCE = source
         for case, (q, k, v), pos, dtype_name in k3_cases(torch):
-            got = da.flash_decode(q, k, v, pos)
+            got = caught(lambda: da.flash_decode(q, k, v, pos))
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
             want = da.flash_decode_plain(q, k, v, pos)
             atol, rtol = chip_smoke.DECODE_TOL[dtype_name]
             err = float((got.float() - want.float()).abs().max())
@@ -345,7 +385,11 @@ def run(torch, kernel: str, source, only: str = ""):
             nan_block(torch, x.shape, x.dtype)
             nan_block(torch, (x.shape[0], x.shape[2], x.shape[3],
                               args[3].shape[2]), torch.float32)
-            y, h = ss.ssd_scan(*args, chunk=64)
+            got = caught(lambda: ss.ssd_scan(*args, chunk=64))
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
+            y, h = got
             ry, rh = ss.ssd_scan_plain(*args, chunk=64)
             tol_y, tol_h = chip_smoke.TOL[dtype_name], chip_smoke.TOL["float32"]
             err = max(float((y.float() - ry.float()).abs().max()),
@@ -364,6 +408,7 @@ def main() -> int:
         print("kernel_mutants: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import guard
     from repro_torch.kernels import build
     from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
@@ -375,6 +420,7 @@ def main() -> int:
     controls = {"K1": da.FLASH_SOURCE, "K3": da.FLASH_SOURCE, "K4": ss.SOURCE,
                 "K2": mg.SOURCE, "K5a": cg.SOURCE, "K6": sa.SOURCE,
                 "K7": sc.SOURCE}
+    guard.set_strict(True)
     bad = []
     summary = {}
     with tempfile.TemporaryDirectory(prefix="kernel_mutants_") as tmp:

@@ -9,11 +9,13 @@ from __future__ import annotations
 
 
 def reset() -> None:
-    """Reset the process-wide state of the port: autotune samples and
-    quarantine, the active machine profile (from ``REPRO_MACHINE``), the
-    tracer and metrics registry (from ``REPRO_TELEMETRY``), the substrate
-    counters, the kernels' launch counts and the step graphs' capture and
-    replay counts. Tests call this between cases."""
+    """Reset the process-wide state of the port: autotune samples, depth
+    decisions and config quarantine, the active machine profile (from
+    ``REPRO_MACHINE``), the tracer and metrics registry (from
+    ``REPRO_TELEMETRY``), the guard (its counters and ladders, strict mode
+    off, the sentinel from ``REPRO_PARITY``, no injector), the kernels'
+    launch counts and the step graphs' capture and replay counts. Tests
+    call this between cases."""
     from repro_torch import obs
     from repro_torch.core import autotune, guard, step_graph
     from repro_torch.core.machine import set_machine

@@ -63,15 +63,21 @@ from repro_torch.obs.metrics import percentile
 __all__ = [
     "TileProfile",
     "choose_depth",
+    "clear_quarantine",
     "clear_samples",
+    "is_quarantined",
     "last_choice",
+    "last_profile",
     "observe_pipeline",
     "profile_decode",
+    "profile_gmm",
     "profile_row_gather",
     "profile_scatter_add",
     "profile_span_gather",
     "profile_ssd",
     "profile_triad",
+    "quarantine_config",
+    "quarantined_depths",
     "record_choice",
     "record_transfer",
     "set_telemetry",
@@ -90,7 +96,9 @@ _lock = threading.Lock()
 _transfer_samples: Dict[Tuple[str, str], List[float]] = {}
 _last_choice: Dict[Tuple[str, str], int] = {}
 _last_mode: Dict[Tuple[str, str], str] = {}       # "static" | "adaptive"
+_last_profile: Dict[Tuple[str, str], TileProfile] = {}  # for obs.breakdown
 _warmed: Set[Tuple[str, str, int]] = set()        # (machine, kernel, n_tiles)
+_quarantined: Set[Tuple[str, str, int]] = set()   # (machine, kernel, depth)
 _telemetry_on: bool = os.environ.get(TELEMETRY_ENV, "1") not in ("0", "off")
 
 
@@ -137,6 +145,17 @@ def profile_triad(rows: int, d: int, itemsize: int) -> TileProfile:
     return TileProfile(
         tile_bytes=3 * rows * d * itemsize,
         flops_per_tile=float(2 * rows * d),  # fma per element
+    )
+
+
+def profile_gmm(c: int, dm: int, f_tile: int, itemsize: int,
+                *, f_total: Optional[int] = None) -> TileProfile:
+    """Streamed expert-weight tile; the token block AND the expert's full
+    [c, f] output block are depth-independent shared-memory residents."""
+    return TileProfile(
+        tile_bytes=dm * f_tile * itemsize,
+        flops_per_tile=float(2 * c * dm * f_tile),
+        shared_bytes=(c * dm + c * (f_total or f_tile)) * itemsize,
     )
 
 
@@ -189,14 +208,67 @@ def clear_samples(kernel: Optional[str] = None) -> None:
             _transfer_samples.clear()
             _last_choice.clear()
             _last_mode.clear()
+            _last_profile.clear()
             _warmed.clear()
+            _quarantined.clear()
         else:
             k = _key(kernel)
             _transfer_samples.pop(k, None)
             _last_choice.pop(k, None)
             _last_mode.pop(k, None)
+            _last_profile.pop(k, None)
             _warmed.difference_update(
                 {w for w in _warmed if w[:2] == k})
+            _quarantined.difference_update(
+                {q for q in _quarantined if q[:2] == k})
+
+
+# ------------------------------------------------------- config quarantine
+#
+# core.guard pushes every (machine, kernel, depth) that failed an attempt
+# here; the decision path below halves past quarantined depths so a config
+# that just failed is never proposed again.
+
+
+def quarantine_config(kernel: str, depth: int,
+                      machine: Optional[MachineModel] = None) -> None:
+    """Mark (machine, kernel, depth) as known-bad."""
+    with _lock:
+        _quarantined.add((*_key(kernel, machine), int(depth)))
+
+
+def is_quarantined(kernel: str, depth: int,
+                   machine: Optional[MachineModel] = None) -> bool:
+    with _lock:
+        return (*_key(kernel, machine), int(depth)) in _quarantined
+
+
+def quarantined_depths(kernel: str,
+                       machine: Optional[MachineModel] = None) -> List[int]:
+    k = _key(kernel, machine)
+    with _lock:
+        return sorted(d for (m, kn, d) in _quarantined if (m, kn) == k)
+
+
+def clear_quarantine(kernel: Optional[str] = None) -> None:
+    """Forget known-bad configs for one kernel (active machine) or all."""
+    with _lock:
+        if kernel is None:
+            _quarantined.clear()
+        else:
+            k = _key(kernel)
+            _quarantined.difference_update(
+                {q for q in _quarantined if q[:2] == k})
+
+
+def _avoid_quarantined(machine_name: str, kernel: str, depth: int) -> int:
+    """Halve past quarantined depths, as the guard's ladder does (so the
+    solver's proposal and the ladder's landing spot agree). Call with
+    `_lock` held."""
+    d = int(depth)
+    while d > 1 and (machine_name, kernel, d) in _quarantined:
+        d = max(1, d // 2)
+    return d
 
 
 def last_choice(kernel: str) -> Optional[int]:
@@ -204,6 +276,13 @@ def last_choice(kernel: str) -> Optional[int]:
     under the active machine profile."""
     with _lock:
         return _last_choice.get(_key(kernel))
+
+
+def last_profile(kernel: str) -> Optional[TileProfile]:
+    """Tile profile of the most recent `choose_depth` call for `kernel`
+    under the active machine (what `obs.breakdown` attributes against)."""
+    with _lock:
+        return _last_profile.get(_key(kernel))
 
 
 def record_choice(kernel: str, depth: int) -> None:
@@ -255,12 +334,18 @@ def telemetry_summary() -> Dict[str, Any]:
     """Per-kernel feedback-loop state under the active machine profile.
 
     Returns ``{"machine": name, "kernels": {kernel: {samples, p50_us,
-    p99_us, depth, mode}}}`` where `depth` is the depth the kernel last ran
-    (`last_choice`) and `mode` says whether that decision came from the
-    static data-sheet solve or the adaptive re-solve over observed samples.
-    Percentiles route through `obs.metrics.percentile`. The ``substrate``
-    section folds in `core.guard.stats()`.
+    p99_us, depth, mode, breakdown?}}}`` where `depth` is the depth the
+    kernel last ran (`last_choice`), `mode` says whether that decision came
+    from the static data-sheet solve or the adaptive re-solve over observed
+    samples, and `breakdown` (present when both samples and a recorded tile
+    profile exist) is `obs.breakdown.attribute`'s Fig. 14-style split of
+    the observed p50 per-tile time into compute / exposed transfer /
+    scheduling gap. Percentiles route through `obs.metrics.percentile`.
+    The ``substrate`` section folds in `core.guard.stats()` plus the
+    active machine's quarantined configs.
     """
+    from repro_torch.obs import breakdown as breakdown_mod  # obs ties back
+
     m = get_machine()
     with _lock:
         kernels = sorted({k for mk, k in _transfer_samples if mk == m.name}
@@ -278,9 +363,16 @@ def telemetry_summary() -> Dict[str, Any]:
                 p50_s = percentile(xs, 0.50)
                 entry["p50_us"] = round(p50_s * 1e6, 3)
                 entry["p99_us"] = round(percentile(xs, 0.99) * 1e6, 3)
+                prof = _last_profile.get(key)
+                if prof is not None:
+                    entry["breakdown"] = breakdown_mod.attribute(
+                        prof, _last_choice.get(key), p50_s, machine=m)
             out["kernels"][kernel] = entry
-    from repro_torch.core import guard  # local: guard imports obs metrics
+        quarantined = sorted(q for q in _quarantined if q[0] == m.name)
+    from repro_torch.core import guard  # local: guard imports this module
     out["substrate"] = guard.stats()
+    out["substrate"]["quarantined"] = [
+        {"kernel": kn, "depth": d} for (_, kn, d) in quarantined]
     return out
 
 
@@ -334,6 +426,8 @@ def choose_depth(
     if kernel is not None:
         key = (m.name, kernel)
         with _lock:
+            depth = _avoid_quarantined(m.name, kernel, depth)
             _last_choice[key] = depth
             _last_mode[key] = mode
+            _last_profile[key] = profile
     return depth

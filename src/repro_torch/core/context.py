@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from typing import Any, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -91,6 +91,11 @@ def classify(v: VarSpec) -> VarClass:
     if v.commutative:
         return VarClass.SHARED  # order-free reduction: share one accumulator
     return VarClass.SEQUENTIAL
+
+
+def classify_all(vs: Iterable[VarSpec]) -> Dict[str, VarClass]:
+    """Every variable's class, by name."""
+    return {v.name: classify(v) for v in vs}
 
 
 def context_bytes(vs: Iterable[VarSpec], depth: int,

@@ -128,3 +128,11 @@ def adaptive_depth(p: TileProfile, latency_samples_s: Sequence[float],
     return solve_depth(p, machine=machine, latency_s=q,
                        vmem_budget=vmem_budget, slot_limit=slot_limit,
                        vmem_cap=vmem_cap)
+
+
+def static_prefetch_depth(p: TileProfile, *, latency_s: float,
+                          machine: Optional[MachineModel] = None,
+                          mshr_limit: int = 16) -> int:
+    """The baseline the paper improves on: prefetch distance capped by MSHRs."""
+    return min(solve_depth(p, machine=machine, latency_s=latency_s),
+               mshr_limit)

@@ -7,7 +7,9 @@ named after a hash of the source, the shared headers in ``kernels/csrc/``
 and the flags, so that an edited source or header rebuilds. Builds of several sources start together, one nvcc each.
 
 Nothing here runs at import time, and nothing falls back: a missing nvcc,
-a failed compile or a failed load raises `KernelCompileError`.
+a failed compile or a failed load raises `KernelCompileError`, marked not
+retriable (depth is a runtime argument, so every depth builds the same
+source) and refused (no kernel ran). A failed build is not cached.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise KernelCompileError("nvcc not found on PATH or in the CUDA toolkit",
-                             kernel="build")
+                             kernel="build", refused=True, retriable=False)
 
 
 def library_path(source: Path) -> Path:
@@ -84,7 +86,8 @@ def build(sources: Sequence[Path]) -> Dict[Path, Path]:
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
     if failed:
         raise KernelCompileError("nvcc failed: " + "\n".join(failed),
-                                 kernel="build")
+                                 kernel="build", refused=True,
+                                 retriable=False)
     return out
 
 
@@ -100,6 +103,7 @@ def load(source: Path) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:
                 raise KernelCompileError(f"cannot load {path}: {e}",
-                                         kernel=source.stem) from e
+                                         kernel=source.stem, refused=True,
+                                         retriable=False) from e
             _loaded[key] = lib
         return lib

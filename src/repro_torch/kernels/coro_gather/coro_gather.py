@@ -15,7 +15,9 @@ block:
 
 Both are byte copies: f32, bf16 and int32 tables alike. Each wrapper picks
 its path from the device of its tensors: CPU tensors run the plain version,
-CUDA tensors launch the kernel or raise. With ``depth=None`` the depth is
+CUDA tensors launch the kernel or raise; either runs under `core.guard`
+(`ring.guarded`: the depth ladder, the scan, the sentinel). `row_gather_at`
+and `span_gather_at` launch the kernel at a given depth, unguarded. With ``depth=None`` the depth is
 solved from the spec through `core.autotune.choose_depth` and recorded for
 `autotune.last_choice`. The row gather reads its depth as tiles in flight
 per SM and runs it as several blocks per SM (`ring.split_depth`; it
@@ -43,6 +45,7 @@ __all__ = [
     "row_gather_split",
     "row_gather_spec",
     "span_gather",
+    "span_gather_at",
     "span_gather_plain",
     "span_gather_spec",
     "span_rows",
@@ -103,11 +106,15 @@ def _check(table, idx, name: str) -> None:
         raise ValueError(f"{name} must be 1-D, got {tuple(idx.shape)}")
 
 
+def _check_ids(kernel: str, idx) -> None:
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{kernel}: indices must be int32, got {idx.dtype}")
+
+
 def _launch(kernel: str, table, idx, out, *, n_tiles: int,
             rows_per_tile: int, depth: int, unit: int, span: bool,
             blocks_per_sm: Optional[int] = None) -> None:
-    if idx.dtype != torch.int32:
-        raise TypeError(f"{kernel}: indices must be int32, got {idx.dtype}")
+    _check_ids(kernel, idx)
     row_bytes = table.shape[1] * table.element_size()
     smem = depth * ring.ring_bytes(rows_per_tile * row_bytes, unit)
     ring.check_smem(smem, kernel=kernel, depth=depth,
@@ -161,16 +168,22 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, *,
     n_tiles = _check_rows(table, idx, rows_per_tile)
     cuda = ring.route("row_gather", ("table", table), ("idx", idx))
     solve = depth is None
-    depth, _ = _depth(row_gather_spec(rows_per_tile, table.shape[1],
-                                      table.dtype),
-                      depth, table, rows_per_tile, n_tiles)
-    blocks, slots = row_gather_split(depth, table, rows_per_tile)
-    if solve:
+    spec = row_gather_spec(rows_per_tile, table.shape[1], table.dtype)
+    depth, _ = _depth(spec, depth, table, rows_per_tile, n_tiles)
+    if cuda:
+        _check_ids("row_gather", idx)
+
+    def launch(d: int) -> torch.Tensor:
+        blocks, slots = row_gather_split(d, table, rows_per_tile)
+        return row_gather_at(table, idx, blocks_per_sm=blocks, slots=slots,
+                             rows_per_tile=rows_per_tile)
+
+    res = ring.guarded(spec, (table, idx), launch, row_gather_plain,
+                       cuda=cuda, depth=depth)
+    if solve or res.depth != depth:
+        blocks, slots = row_gather_split(res.depth, table, rows_per_tile)
         autotune.record_choice("row_gather", blocks * slots)
-    if not cuda:
-        return row_gather_plain(table, idx)
-    return row_gather_at(table, idx, blocks_per_sm=blocks, slots=slots,
-                         rows_per_tile=rows_per_tile)
+    return res.out
 
 
 def _check_rows(table, idx, rows_per_tile: int) -> int:
@@ -213,17 +226,43 @@ def span_gather(table: torch.Tensor, starts: torch.Tensor, *, span: int = 8,
     starts: [T] int32 with starts[i] + span <= R. `depth` is the number of
     spans in flight per thread block; None solves it from `span_gather_spec`.
     """
+    n_tiles = _check_span(table, starts, span)
+    cuda = ring.route("span_gather", ("table", table), ("starts", starts))
+    spec = span_gather_spec(span, table.shape[1], table.dtype)
+    depth, _ = _depth(spec, depth, table, span, n_tiles)
+    if cuda:
+        _check_ids("span_gather", starts)
+    res = ring.guarded(
+        spec, (table, starts),
+        lambda d: span_gather_at(table, starts, span=span, depth=d),
+        lambda table, starts: span_gather_plain(table, starts, span),
+        cuda=cuda, depth=depth)
+    if res.depth != depth:
+        autotune.record_choice("span_gather", res.depth)
+    return res.out
+
+
+def _check_span(table, starts, span: int) -> int:
+    """The tile count of a span gather; raises on what it does not take."""
     _check(table, starts, "starts")
     if span < 1:
         raise ValueError(f"span must be >= 1, got {span}")
-    n_tiles = starts.shape[0]
-    d = table.shape[1]
-    cuda = ring.route("span_gather", ("table", table), ("starts", starts))
-    depth, unit = _depth(span_gather_spec(span, d, table.dtype), depth,
-                         table, span, n_tiles)
-    if not cuda:
-        return span_gather_plain(table, starts, span)
-    out = torch.empty((n_tiles * span, d), dtype=table.dtype,
+    return starts.shape[0]
+
+
+def span_gather_at(table: torch.Tensor, starts: torch.Tensor, *, span: int,
+                   depth: int) -> torch.Tensor:
+    """`span_gather` on CUDA tensors with `depth` spans in flight per block
+    (no solve, no record). The kernel's launch count is
+    `span_gather.launches`."""
+    n_tiles = _check_span(table, starts, span)
+    if not ring.route("span_gather", ("table", table), ("starts", starts)):
+        raise ValueError("span_gather_at takes CUDA tensors")
+    if not 1 <= depth <= ring.MAX_DEPTH:
+        raise ValueError(f"depth must be in [1, {ring.MAX_DEPTH}], got "
+                         f"{depth}")
+    unit = ring.copy_unit(table.shape[1] * table.element_size(), (table,))
+    out = torch.empty((n_tiles * span, table.shape[1]), dtype=table.dtype,
                       device=table.device)
     if n_tiles:
         _launch("span_gather", table, starts, out, n_tiles=n_tiles,

@@ -19,9 +19,14 @@ kernel and in the plain version alike. The wrapper reads its depth as
 tiles in flight per SM and runs it as several blocks per SM
 (`ring.split_depth`; it records blocks x slots); `scatter_add_at` launches
 a given split. On CPU tensors the wrapper runs the plain version; on CUDA
-tensors it launches the kernel or raises. Indices outside the table are
-undefined behaviour, as in the reference. `scatter_add_unique.launches`
-counts kernel launches.
+tensors it launches the kernel or raises. Either runs under `core.guard`
+as a kernel that writes in place: a failure is retried at a smaller depth
+only when the launch was refused before the kernel ran (a retry after the
+launch would add the updates twice), and the scan and the sentinel read
+the rows it wrote, the sentinel against those rows gathered before the
+launch plus the updates (never a copy of the table). Indices outside the
+table are undefined behaviour, as in the reference.
+`scatter_add_unique.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -30,13 +35,15 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import autotune
 from repro_torch.core.coro import CoroSpec, LoadStream, StoreStream
 from repro_torch.kernels import ring
 
 __all__ = ["scatter_add_at", "scatter_add_spec", "scatter_add_split",
-           "scatter_add_unique", "scatter_add_unique_plain"]
+           "scatter_add_unique", "scatter_add_unique_plain",
+           "updated_rows"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "scatter_add.cu"
 THREADS = 128                  # kThreads in the .cu source
@@ -63,6 +70,37 @@ def scatter_add_unique_plain(table: torch.Tensor, idx: torch.Tensor,
     rows = idx.long()
     table[rows] = (table[rows].float() + updates.float()).to(table.dtype)
     return table
+
+
+def updated_rows(table: torch.Tensor, idx: torch.Tensor,
+                 updates: torch.Tensor) -> torch.Tensor:
+    """The rows a scatter-add writes, as the plain version computes them
+    from `table` before it runs: table[idx] + updates, in f32, rounded once
+    (the sentinel's reference)."""
+    return (table.index_select(0, idx).float()
+            + updates.float()).to(table.dtype)
+
+
+def rows_finite(table: torch.Tensor, idx: torch.Tensor, *,
+                bag: int = 1024) -> torch.Tensor:
+    """Whether every value in the rows `idx` of `table` is finite, as a 0-d
+    bool tensor on the table's device (the guard's scan of a scatter-add,
+    which reads the rows it wrote without copying them out). The rows are
+    summed in bags of `bag` (at most 2^11), each scaled by 2^-11 first, so
+    that no sum of finite values can overflow, while a NaN or an Inf in any
+    row leaves its bag's sum non-finite."""
+    if not 1 <= bag <= 2048:
+        raise ValueError(f"bag must be in [1, 2048], got {bag}")
+    n = idx.shape[0]
+    if n == 0:
+        return torch.ones((), dtype=torch.bool, device=table.device)
+    rows = idx.long()
+    offsets = torch.arange(0, n, bag, device=table.device)
+    scale = torch.full((n,), 2.0 ** -11, dtype=table.dtype,
+                       device=table.device)
+    sums = F.embedding_bag(rows, table, offsets, mode="sum",
+                           per_sample_weights=scale)
+    return torch.isfinite(sums).all()
 
 
 def _slot_bytes(table: torch.Tensor, updates: torch.Tensor,
@@ -99,6 +137,17 @@ def _check(table, idx, updates, rows_per_tile: int) -> int:
     return n // rows_per_tile
 
 
+def _check_types(table, idx, updates) -> None:
+    """The types the kernel takes."""
+    if table.dtype not in ring.DTYPE_CODE:
+        raise TypeError(f"scatter_add: kernel takes float32 or bfloat16, got "
+                        f"{table.dtype}")
+    if updates.dtype != table.dtype or idx.dtype != torch.int32:
+        raise TypeError(f"scatter_add: updates ({updates.dtype}) must match "
+                        f"the table ({table.dtype}) and idx ({idx.dtype}) "
+                        f"be int32")
+
+
 def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
                        updates: torch.Tensor, *, depth: Optional[int] = None,
                        rows_per_tile: int = 8) -> torch.Tensor:
@@ -114,16 +163,28 @@ def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
     cuda = ring.route("scatter_add", ("table", table), ("idx", idx),
                       ("updates", updates))
     solve = depth is None
+    spec = scatter_add_spec(rows_per_tile, table.shape[1], table.dtype)
     depth = ring.solve_depth(
-        scatter_add_spec(rows_per_tile, table.shape[1], table.dtype), depth,
-        n_tiles=n_tiles, slot_bytes=_slot_bytes(table, updates, rows_per_tile))
-    blocks, slots = scatter_add_split(depth, table, updates, rows_per_tile)
-    if solve:
+        spec, depth, n_tiles=n_tiles,
+        slot_bytes=_slot_bytes(table, updates, rows_per_tile))
+    if cuda:
+        _check_types(table, idx, updates)
+
+    def launch(d: int) -> torch.Tensor:
+        blocks, slots = scatter_add_split(d, table, updates, rows_per_tile)
+        return scatter_add_at(table, idx, updates, blocks_per_sm=blocks,
+                              slots=slots, rows_per_tile=rows_per_tile)
+
+    res = ring.guarded(spec, (table, idx, updates), launch,
+                       scatter_add_unique_plain, cuda=cuda, depth=depth,
+                       reference=updated_rows, in_place=True,
+                       written=lambda t: t.index_select(0, idx),
+                       finite=lambda t: rows_finite(t, idx))
+    if solve or res.depth != depth:
+        blocks, slots = scatter_add_split(res.depth, table, updates,
+                                          rows_per_tile)
         autotune.record_choice("scatter_add", blocks * slots)
-    if not cuda:
-        return scatter_add_unique_plain(table, idx, updates)
-    return scatter_add_at(table, idx, updates, blocks_per_sm=blocks,
-                          slots=slots, rows_per_tile=rows_per_tile)
+    return res.out
 
 
 def scatter_add_at(table: torch.Tensor, idx: torch.Tensor,
@@ -139,13 +200,7 @@ def scatter_add_at(table: torch.Tensor, idx: torch.Tensor,
     if not ring.route("scatter_add", ("table", table), ("idx", idx),
                       ("updates", updates)):
         raise ValueError("scatter_add_at takes CUDA tensors")
-    if table.dtype not in ring.DTYPE_CODE:
-        raise TypeError(f"scatter_add: kernel takes float32 or bfloat16, got "
-                        f"{table.dtype}")
-    if updates.dtype != table.dtype or idx.dtype != torch.int32:
-        raise TypeError(f"scatter_add: updates ({updates.dtype}) must match "
-                        f"the table ({table.dtype}) and idx ({idx.dtype}) "
-                        f"be int32")
+    _check_types(table, idx, updates)
     if n_tiles == 0:
         return table
     tile = (rows_per_tile, table.shape[1])

@@ -30,7 +30,10 @@ K/V rows; the source notes say what the design does about that.
 
 Each wrapper picks its path from the device of the tensors it is given: on
 CPU tensors it runs its plain version; on CUDA tensors it launches the
-kernel or raises. `flash_decode.launches` and `paged_flash_decode.launches`
+kernel or raises; either under `core.guard` (`ring.guarded`: the depth
+ladder, the scan, the sentinel). `flash_decode_at` and
+`paged_flash_decode_at` launch the kernel at a given depth and split,
+unguarded. `flash_decode.launches` and `paged_flash_decode.launches`
 count kernel calls (and nothing else).
 """
 from __future__ import annotations
@@ -50,10 +53,12 @@ from repro_torch.kernels import ring
 __all__ = [
     "decode_spec",
     "flash_decode",
+    "flash_decode_at",
     "flash_decode_plain",
     "flash_kernel_depth",
     "paged_decode_spec",
     "paged_flash_decode",
+    "paged_flash_decode_at",
     "paged_flash_decode_plain",
     "kernel_depth",
     "ring_pages",
@@ -224,7 +229,8 @@ def flash_kernel_depth(depth: int, *, g: int, d: int, blk: int,
     if need > ring.SMEM_LIMIT:
         raise KernelResourceError(
             f"one K/V tile pair needs {need} B of shared memory, over "
-            f"{ring.SMEM_LIMIT}", kernel=kernel, depth=1, tile=(blk, d))
+            f"{ring.SMEM_LIMIT}", kernel=kernel, depth=1, tile=(blk, d),
+            refused=True)
     fit = (ring.SMEM_LIMIT - 4 * slots) // (
         2 * blk * (d + 16 // itemsize) * itemsize)
     return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
@@ -295,22 +301,8 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
     launch, ValueError / TypeError on inputs it does not take).
     """
-    _check_dense(q, k_cache, v_cache, blk)
+    pos, on_card = _dense_args(q, k_cache, v_cache, pos, blk, splits)
     on_device = isinstance(pos, torch.Tensor)
-    if on_device:
-        if pos.numel() != 1 or pos.dtype != torch.int32:
-            raise ValueError(f"a tensor pos must be one int32 element, got "
-                             f"{pos.dtype} {tuple(pos.shape)}")
-        pos = pos.reshape(())
-    else:
-        pos = int(pos)
-        if pos < 0:
-            raise ValueError(f"pos must be >= 0, got {pos}")
-    if splits is not None and splits < 1:
-        raise ValueError(f"splits must be >= 1, got {splits}")
-    on_card = ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
-                         ("v_cache", v_cache),
-                         *([("pos", pos)] if on_device else []))
     b, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
@@ -326,16 +318,61 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     live = per if on_device else min(per, -(-min(pos + 1, s) // blk))
     depth = flash_kernel_depth(depth, g=g, d=d, blk=blk,
                                itemsize=k_cache.element_size(), n_tiles=live)
-    autotune.record_choice(spec.name, depth)
+    if on_card:
+        _check_cuda(q, k_cache, v_cache, blk)
+    res = ring.guarded(
+        spec, (q, k_cache, v_cache, pos),
+        lambda k: flash_decode_at(q, k_cache, v_cache, pos, blk=blk,
+                                  depth=k, splits=n_split),
+        flash_decode_plain, cuda=on_card, depth=depth)
+    autotune.record_choice(spec.name, res.depth)
+    return res.out
+
+
+def _dense_args(q, k_cache, v_cache, pos, blk: int, splits):
+    """(pos as an int or a 0-d int32 tensor, whether the tensors are on the
+    card) of a dense flash-decode call; raises on what it does not take."""
+    _check_dense(q, k_cache, v_cache, blk)
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype != torch.int32:
+            raise ValueError(f"a tensor pos must be one int32 element, got "
+                             f"{pos.dtype} {tuple(pos.shape)}")
+        pos = pos.reshape(())
+    else:
+        pos = int(pos)
+        if pos < 0:
+            raise ValueError(f"pos must be >= 0, got {pos}")
+    if splits is not None and splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    on_card = ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
+                         ("v_cache", v_cache),
+                         *([("pos", pos)] if isinstance(pos, torch.Tensor)
+                           else []))
+    return pos, on_card
+
+
+def flash_decode_at(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
+                    depth: int, splits: Optional[int] = None):
+    """`flash_decode` on CUDA tensors with `depth` tiles in flight per block
+    and the sequence in `splits` splits (None: `split_plan`'s); no solve,
+    no record, no guard. Counts one launch."""
+    pos, on_card = _dense_args(q, k_cache, v_cache, pos, blk, splits)
     if not on_card:
-        return flash_decode_plain(q, k_cache, v_cache, pos)
+        raise ValueError("flash_decode_at takes CUDA tensors")
     _check_cuda(q, k_cache, v_cache, blk)
+    if not 1 <= depth <= ring.MAX_DEPTH:
+        raise ValueError(f"depth must be in [1, {ring.MAX_DEPTH}], got "
+                         f"{depth}")
+    b, h, d = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    n_split, per = split_plan(b, kh, s, blk, ring.sm_count(q.device), splits)
     out = torch.empty_like(q)
     if b == 0:
         return out
     part = torch.empty(b * kh * n_split * g * (d + 2), dtype=torch.float32,
                        device=q.device) if n_split > 1 else None
-    if not on_device:         # the kernel reads pos on the device
+    if not isinstance(pos, torch.Tensor):   # the kernel reads it on the card
         pos = torch.full((), min(pos, s), dtype=torch.int32, device=q.device)
     lib = ring.library(FLASH_SOURCE, "repro_flash_decode", _FLASH_ARGTYPES)
     with torch.cuda.device(q.device):
@@ -455,15 +492,68 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, *,
     if depth is None:
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
-    tiles = kernel_depth(depth, g=g, d=d, page=page, blk=blk,
-                         itemsize=k_pool.element_size(), n_tiles=per, m=m)
-    autotune.record_choice(spec.name, ring_pages(tiles, blk, page))
-    if not on_card:
-        return paged_flash_decode_plain(q, k_pool, v_pool, block_tables,
-                                        lengths)
+
+    def tiles_of(pages: int) -> int:
+        return kernel_depth(pages, g=g, d=d, page=page, blk=blk,
+                            itemsize=k_pool.element_size(), n_tiles=per, m=m)
+
+    pages = ring_pages(tiles_of(depth), blk, page)
+    if on_card:
+        _check_cuda(q, k_pool, v_pool, blk, names=("k_pool", "v_pool"))
+        if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+            raise TypeError("block_tables and lengths must be int32")
+    ops = (q, k_pool, v_pool, block_tables, lengths)
+    res = ring.guarded(
+        spec, ops,
+        lambda p: paged_flash_decode_at(*ops, blk=blk, tiles=tiles_of(p),
+                                        splits=n_split),
+        paged_flash_decode_plain, cuda=on_card, depth=pages,
+        reference=_live_plain, written=lambda out: _live_rows(out, ops[4]))
+    autotune.record_choice(spec.name,
+                           ring_pages(tiles_of(res.depth), blk, page))
+    return res.out
+
+
+def _live_rows(out, lengths):
+    """`out` with the rows of zero-length requests (round padding) set to
+    0, on the device (no host read): what the guard's scan and sentinel
+    compare. A padding row is the kernel's 0 and the plain version's
+    finite garbage, and no caller reads it."""
+    return torch.where((lengths > 0)[:, None, None], out, out.new_zeros(()))
+
+
+def _live_plain(q, k_pool, v_pool, block_tables, lengths):
+    """The sentinel's reference: the plain version's live rows."""
+    return _live_rows(paged_flash_decode_plain(q, k_pool, v_pool,
+                                               block_tables, lengths),
+                      lengths)
+
+
+def paged_flash_decode_at(q, k_pool, v_pool, block_tables, lengths, *,
+                          blk: int = FLASH_BLK, tiles: int,
+                          splits: Optional[int] = None):
+    """`paged_flash_decode` on CUDA tensors with a ring of `tiles` tiles of
+    `blk` rows a block and the table's rows in `splits` splits (None:
+    `split_plan`'s); no solve, no record, no guard. Counts one launch."""
+    if splits is not None and splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    _check_paged(q, k_pool, v_pool, block_tables, lengths, blk)
+    if not ring.route("paged_decode", ("q", q), ("k_pool", k_pool),
+                      ("v_pool", v_pool), ("block_tables", block_tables),
+                      ("lengths", lengths)):
+        raise ValueError("paged_flash_decode_at takes CUDA tensors")
     _check_cuda(q, k_pool, v_pool, blk, names=("k_pool", "v_pool"))
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
+    if not 1 <= tiles <= ring.MAX_DEPTH:
+        raise ValueError(f"tiles must be in [1, {ring.MAX_DEPTH}], got "
+                         f"{tiles}")
+    b, h, d = q.shape
+    page, kh = k_pool.shape[1], k_pool.shape[2]
+    m = block_tables.shape[1]
+    g = h // kh
+    n_split, per = split_plan(b, kh, m * page, blk, ring.sm_count(q.device),
+                              splits)
     out = torch.empty_like(q)
     if b == 0:
         return out

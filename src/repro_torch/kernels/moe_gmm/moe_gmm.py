@@ -218,7 +218,8 @@ def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
-    launch, ValueError / TypeError on inputs it does not take).
+    launch, ValueError / TypeError on inputs it does not take). Either runs
+    under `core.guard` (`ring.guarded`); `gmm_at` launches unguarded.
     """
     _check(tokens, weights)
     e, c, dm = tokens.shape
@@ -227,13 +228,16 @@ def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
     spec = gmm_spec(c, dm, f_tile, weights.dtype, f_total=f)
     depth = ring.solve_depth(spec, depth, slot_bytes=slot_bytes(c, itemsize),
                              n_tiles=n_slices(dm, itemsize))
-    autotune.record_choice(spec.name, depth)
-    if tokens.device.type == "cpu":
-        return gmm_plain(tokens, weights)
-    if tokens.device.type != "cuda":
+    cuda = tokens.device.type == "cuda"
+    if not cuda and tokens.device.type != "cpu":
         raise ValueError(f"moe_gmm: no kernel for device {tokens.device}")
-    _check_cuda(tokens, weights, f_tile)
-    return _launch(tokens, weights, depth, None)
+    if cuda:
+        _check_cuda(tokens, weights, f_tile)
+    res = ring.guarded(spec, (tokens, weights),
+                       lambda d: _launch(tokens, weights, d, None),
+                       gmm_plain, cuda=cuda, depth=depth)
+    autotune.record_choice(spec.name, res.depth)
+    return res.out
 
 
 def _library() -> ctypes.CDLL:
@@ -260,7 +264,7 @@ def _occupancy(device: int, dtype_code: int, mt: int, vec: bool,
     if n.value < 1:
         raise KernelResourceError(
             f"no block of the kernel fits an SM at depth {depth}",
-            kernel="moe_gmm", depth=depth, tile=(rows, F_TILE))
+            kernel="moe_gmm", depth=depth, tile=(rows, F_TILE), refused=True)
     return n.value
 
 

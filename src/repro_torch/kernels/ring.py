@@ -4,23 +4,24 @@ The gather, span-gather and scatter-add kernels share one shape: a thread
 block walks a contiguous range of tiles and keeps `depth` of them in flight
 in a ring of shared-memory slots. This module solves and clamps the depth,
 splits the row gather's and the scatter-add's depth over the blocks of an
-SM, counts the blocks an SM holds, sizes the grid, picks the copy unit and
-raises on a failed launch (the triad and the other kernels use these too).
+SM, counts the blocks an SM holds, sizes the grid, picks the copy unit,
+raises on a failed launch and runs a wrapper's call under `core.guard`
+(the triad and the other kernels use these too).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core import autotune
+from repro_torch.core import autotune, guard
 from repro_torch.core.coro import CoroSpec
 from repro_torch.core.guard import KernelCompileError, KernelResourceError
 
-__all__ = ["MAX_DEPTH", "SMEM_LIMIT", "check_smem", "copy_unit",
+__all__ = ["MAX_DEPTH", "SMEM_LIMIT", "check_smem", "copy_unit", "guarded",
            "kernel_depth", "launch_grid", "library", "raise_on_error",
            "resident_blocks", "ring_bytes", "route", "sm_count",
            "solve_depth", "split_depth"]
@@ -31,8 +32,14 @@ SMEM_LIMIT = 232_448           # shared memory one block may use on sm_90
 SM_SMEM = 233_472              # shared memory of one SM (228 KiB)
 SMEM_RESERVED = 1_024          # the runtime's reservation per resident block
 MAX_THREADS_PER_SM = 2_048
-# cudaErrorMemoryAllocation, cudaErrorLaunchOutOfResources
+# cudaErrorMemoryAllocation, cudaErrorLaunchOutOfResources: the launch was
+# refused before the kernel ran, so a smaller depth may fit
 _RESOURCE_ERRORS = (2, 701)
+# sticky errors: the CUDA context is lost and no later launch can succeed
+# (illegal address, launch timeout, device assert, hardware stack error,
+# illegal instruction, misaligned address, invalid address space, invalid
+# PC, launch failure)
+_STICKY_ERRORS = (700, 702, 710, 714, 715, 716, 717, 718, 719)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -88,7 +95,7 @@ def check_smem(smem_bytes: int, *, kernel: str, depth: int,
         raise KernelResourceError(
             f"a ring of {depth} slot(s) needs {smem_bytes} B of shared "
             f"memory, over {SMEM_LIMIT}", kernel=kernel, depth=depth,
-            tile=tile)
+            tile=tile, refused=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,12 +160,18 @@ def library(source: Path, fn_name: str, argtypes) -> ctypes.CDLL:
 
 def raise_on_error(err: int, lib: ctypes.CDLL, *, kernel: str, depth: int,
                    tile: Tuple[int, ...]) -> None:
+    """Raise the typed error of a nonzero CUDA status: `KernelResourceError`
+    marked refused for codes 2 and 701, `KernelCompileError` otherwise,
+    marked not retriable for a sticky code (`core.guard`'s ladder reads
+    both marks)."""
     if err:
         msg = lib.repro_cuda_error_string(err).decode()
-        cls = KernelResourceError if err in _RESOURCE_ERRORS else \
-            KernelCompileError
-        raise cls(f"{kernel} launch failed: CUDA error {err} ({msg})",
-                  kernel=kernel, depth=depth, tile=tile)
+        text = f"{kernel} launch failed: CUDA error {err} ({msg})"
+        if err in _RESOURCE_ERRORS:
+            raise KernelResourceError(text, kernel=kernel, depth=depth,
+                                      tile=tile, refused=True)
+        raise KernelCompileError(text, kernel=kernel, depth=depth, tile=tile,
+                                 retriable=err not in _STICKY_ERRORS)
 
 
 def route(kernel: str, *tensors: Tuple[str, torch.Tensor]) -> bool:
@@ -178,3 +191,23 @@ def route(kernel: str, *tensors: Tuple[str, torch.Tensor]) -> bool:
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
     return True
+
+
+def guarded(spec: CoroSpec, operands: Sequence, launch: Callable[[int], object],
+            plain: Callable, *, cuda: bool, depth: int, n_tiles: int = 0,
+            reference: Optional[Callable] = None, in_place: bool = False,
+            written: Optional[Callable] = None,
+            finite: Optional[Callable] = None) -> guard.GuardResult:
+    """A kernel wrapper's call under `core.guard.guarded_call`: each attempt
+    at depth d runs `launch(d)` on CUDA tensors (`cuda`) and
+    `plain(*operands)` on CPU tensors. The sentinel compares `written(out)`
+    with `reference(*operands)` (default `plain`), computed before the
+    attempt; the scan reads `written(out)`, or calls `finite(out)`;
+    `in_place` marks a kernel that updates an operand."""
+    def attempt(d: int):
+        return launch(d) if cuda else plain(*operands)
+
+    return guard.guarded_call(spec, operands, attempt, depth=depth,
+                              n_tiles=n_tiles, plain=reference or plain,
+                              in_place=in_place, written=written,
+                              finite=finite)

@@ -166,7 +166,7 @@ def kernel_depth(depth: int, *, p: int, n: int, itemsize: int,
         raise KernelResourceError(
             f"one tile slot and the chunk's tiles need {fixed + slot} B of "
             f"shared memory, over {ring.SMEM_LIMIT}", kernel="ssd_scan",
-            depth=1, tile=(p, n))
+            depth=1, tile=(p, n), refused=True)
     return max(1, min(int(depth), ring.MAX_DEPTH, fit, max(int(n_tiles), 1)))
 
 
@@ -251,22 +251,29 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
-    launch, ValueError / TypeError on inputs it does not take).
+    launch, ValueError / TypeError on inputs it does not take). Either runs
+    under `core.guard` (`ring.guarded`); `ssd_scan_at` launches unguarded.
     """
     _check(x, dt, A, B, C, chunk)
     bsz, s, nh, p = x.shape
     n = B.shape[2]
+    spec = ssd_spec(chunk, nh, p, n, x.dtype, seq_len=s)
     if depth is None:
-        spec = ssd_spec(chunk, nh, p, n, x.dtype, seq_len=s)
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
     run = plan(bsz, s, nh, p, n, x.element_size(), depth)
-    autotune.record_choice("ssd_scan", run.depth)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-    if x.device.type != "cuda":
+    cuda = x.device.type == "cuda"
+    if not cuda and x.device.type != "cpu":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    return ssd_scan_at(x, dt, A, B, C, chunk=chunk, depth=run.depth)
+    if cuda:
+        _check_cuda(x, dt, B, C)
+    res = ring.guarded(
+        spec, (x, dt, A, B, C),
+        lambda d: ssd_scan_at(x, dt, A, B, C, chunk=chunk, depth=d),
+        lambda *ops: ssd_scan_plain(*ops, chunk=chunk), cuda=cuda,
+        depth=run.depth)
+    autotune.record_choice("ssd_scan", res.depth)
+    return res.out
 
 
 def ssd_scan_at(x, dt, A, B, C, *, chunk: int, depth: int,

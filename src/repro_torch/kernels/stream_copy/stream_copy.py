@@ -23,7 +23,8 @@ it; the product and the sum are each rounded in f32 and the result once to
 the arrays' type, in the kernel and the plain version alike (the reference
 rounds bf16 after each operation: within its 2e-2 bf16 tolerance). On CPU
 tensors the wrapper runs the plain version; on CUDA tensors it launches the
-kernel or raises. `triad.launches` counts kernel launches.
+kernel or raises; either under `core.guard` (`ring.guarded`). `triad_at`
+launches given items, unguarded. `triad.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -116,6 +117,13 @@ def _check(b: torch.Tensor, c: torch.Tensor, rows: int) -> int:
     return b.shape[0] // rows
 
 
+def _check_types(b: torch.Tensor, c: torch.Tensor) -> None:
+    """The types the kernel takes."""
+    if b.dtype not in ring.DTYPE_CODE or c.dtype != b.dtype:
+        raise TypeError(f"stream_triad: kernel takes float32 or bfloat16 "
+                        f"arrays of one type, got {b.dtype} and {c.dtype}")
+
+
 def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
           depth: Optional[int] = None) -> torch.Tensor:
     """a = b + scalar * c over [N, d] arrays, N a multiple of `rows`.
@@ -124,19 +132,30 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
     `plan`'s items; None solves it from `triad_spec` (and records the
     plan's depth).
     """
-    _check(b, c, rows)
+    n_tiles = _check(b, c, rows)
     cuda = ring.route("stream_triad", ("b", b), ("c", c))
     n, d = b.shape
-    if depth is None:
-        spec = triad_spec(rows, d, b.dtype)
-        p = plan(n, d, b.element_size(), rows, autotune.choose_depth(
-            spec.profile(), kernel=spec.name, vars=spec.all_vars()))
-        autotune.record_choice(spec.name, p.depth)
-    else:
-        p = plan(n, d, b.element_size(), rows, depth)
-    if not cuda:
-        return triad_plain(b, c, scalar)
-    return triad_at(b, c, scalar, rows=rows, item_rows=p.item_rows)
+    spec = triad_spec(rows, d, b.dtype)
+    solve = depth is None
+    if solve:
+        depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
+                                      vars=spec.all_vars())
+    depth = ring.kernel_depth(depth, n_tiles=n_tiles,
+                              slot_bytes=2 * rows * d * b.element_size())
+    if cuda:
+        _check_types(b, c)
+
+    def launch(k: int) -> torch.Tensor:
+        p = plan(n, d, b.element_size(), rows, k)
+        return triad_at(b, c, scalar, rows=rows, item_rows=p.item_rows)
+
+    res = ring.guarded(spec, (b, c), launch,
+                       lambda b, c: triad_plain(b, c, scalar), cuda=cuda,
+                       depth=depth)
+    if solve or res.depth != depth:
+        autotune.record_choice(spec.name, plan(n, d, b.element_size(), rows,
+                                               res.depth).depth)
+    return res.out
 
 
 def triad_at(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
@@ -146,9 +165,7 @@ def triad_at(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
     n_tiles = _check(b, c, rows)
     if not ring.route("stream_triad", ("b", b), ("c", c)):
         raise ValueError("triad_at takes CUDA tensors")
-    if b.dtype not in ring.DTYPE_CODE or c.dtype != b.dtype:
-        raise TypeError(f"stream_triad: kernel takes float32 or bfloat16 "
-                        f"arrays of one type, got {b.dtype} and {c.dtype}")
+    _check_types(b, c)
     if item_rows < 1 or rows % item_rows:
         raise ValueError(f"need item_rows dividing rows={rows}, got "
                          f"{item_rows}")

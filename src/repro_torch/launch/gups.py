@@ -22,15 +22,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import autotune, sim
+from repro_torch.core import autotune, guard, sim
 from repro_torch.core.descriptors import plan_gather
 from repro_torch.core.machine import get_machine
 from repro_torch.core.schedule import achieved_bandwidth, solve_depth
+from repro_torch.obs import trace as obs_trace
 from repro_torch.kernels.coro_gather.coro_gather import (
     row_gather,
     row_gather_spec,
@@ -47,21 +49,28 @@ PAPER_GUPS = {200: "29.0", 800: "59.8"}   # paper's reported speedups
 
 def observed(kernel: str, n_tiles: int, fn: Callable, *args, **kw):
     """Run the kernel wrapper `fn` on operands already on the device; on the
-    card, feed its device time (CUDA events around the call) to
+    card, feed the device time of the launch it ran (CUDA events around
+    that attempt alone: the guard's checks of its output stay outside) to
     `autotune.observe_pipeline`, the always-on transfer telemetry, as one
     sample over `n_tiles` tiles. Host passes in front of a kernel (dedup,
     padding, copies) stay outside the call. The CPU runs plain versions,
-    whose times are not transfer samples."""
-    dev = args[0].device
-    if dev.type != "cuda":
-        return fn(*args, **kw)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn(*args, **kw)
-    end.record()
-    end.synchronize()
-    autotune.observe_pipeline(kernel, start.elapsed_time(end) / 1e3, n_tiles)
+    whose times are not transfer samples. Either way the call lands one
+    ``pipeline:<kernel>`` span (device time on the card, host time of the
+    call on the CPU) on the tracer's kernel track, with the depth it ran at
+    and `n_tiles`."""
+    tracer = obs_trace.get_tracer()
+    if args[0].device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        wall_s = time.perf_counter() - t0
+    else:
+        with guard.record() as calls:
+            out = fn(*args, **kw)
+        wall_s = calls[-1].device_s()
+        autotune.observe_pipeline(kernel, wall_s, n_tiles)
+    tracer.complete(f"pipeline:{kernel}", tracer.now_us() - wall_s * 1e6,
+                    wall_s * 1e6, tid=obs_trace.TID_KERNEL,
+                    depth=autotune.last_choice(kernel), n_tiles=n_tiles)
     return out
 
 

@@ -9,7 +9,8 @@ decode rounds and prefill chunks run as captured CUDA graphs).
 The derived columns are what the reference reports: correctness against
 the plain version, the coalescing ratio (paper §III-C), and the
 latency-aware depth the scheduler solves (§III-D). ``us_per_call`` is the
-device time of one call (CUDA events) on the card; with ``--device cpu``
+device time of one guarded call (CUDA events around it, so the guard's
+output scan is in it) on the card; with ``--device cpu``
 it is the host time of the kernels' plain versions, which says nothing
 about the card.
 
@@ -20,6 +21,13 @@ and `observe_pipeline` (``--json``).
   python -m repro_torch.launch.kernel_bench            # CSV tables, on the GPU
   python -m repro_torch.launch.kernel_bench --json
   python -m repro_torch.launch.kernel_bench --device cpu
+  python -m repro_torch.launch.kernel_bench --strict --json --trace OUT.json
+
+``--strict`` turns off the guard's depth ladder (`core.guard.set_strict`):
+any kernel failure or parity mismatch raises its typed error, so a clean
+``--strict --json`` report shows zero backoffs in its ``substrate``
+section. ``--trace`` exports the run's span trace as Chrome trace-event
+JSON (open in https://ui.perfetto.dev).
 """
 from __future__ import annotations
 
@@ -376,6 +384,7 @@ def json_report(device) -> dict:
             "mode": t.get("mode"),
             "samples": t.get("samples", 0),
             "observed_p99_us": t.get("p99_us"),
+            "breakdown": t.get("breakdown"),
         }
     return {"machine": m.name, "profile": m.summary(),
             "device": str(device), "kernels": kernels,
@@ -416,13 +425,26 @@ def main(argv=None):
     ap.add_argument("--json", action="store_true",
                     help="machine-stamped JSON report instead of CSV tables")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="export the bench run's span trace as Chrome "
+                         "trace-event JSON (open in https://ui.perfetto.dev)")
+    ap.add_argument("--strict", action="store_true",
+                    help="disable substrate degradation: any kernel "
+                         "backoff or parity mismatch raises its typed "
+                         "SubstrateError instead")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.strict:
+        guard.set_strict(True)
     if args.json:
         text = json.dumps(json_report(device), indent=2)
     else:
         text = table(device)
     print(text)
+    if args.trace:
+        from repro_torch.obs import trace as obs_trace
+
+        obs_trace.get_tracer().export(args.trace)
     return text
 
 

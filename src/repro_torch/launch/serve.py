@@ -101,8 +101,9 @@ def timed_decode_loop(decode, params, cache, tokens, *, steps, make_batch):
 
     Returns (tokens_list, final_tokens, per-step latencies in seconds). The
     per-step synchronisation is what makes p50/p99 meaningful; its cost is
-    inside the latencies. A step whose logits are not finite raises
-    `KernelNumericsError` (counted in `guard.stats()`). Each step's logits
+    inside the latencies. A step whose logits are not finite is counted in
+    `guard.stats()` and, in strict mode, raises `KernelNumericsError`
+    (the dense loop has no step to retry). Each step's logits
     are read (argmax, then the scan) before the next call, which may
     overwrite them (`jit_decode_step`)."""
     out = [tokens]
@@ -118,7 +119,7 @@ def timed_decode_loop(decode, params, cache, tokens, *, steps, make_batch):
         dt = time.perf_counter() - t0
         lat.append(dt)
         nerr = guard.scan_output("serve_dense_decode", logits)
-        if nerr is not None:
+        if nerr is not None and guard.strict_mode():
             raise nerr
         if autotune.telemetry_enabled():
             # one "tile" per request token this step; the first observation
@@ -134,7 +135,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           num_blocks: Optional[int] = None, prefix_cache: bool = True,
           prefill_chunk: int = 32, deadline_s: Optional[float] = None,
           chaos: Optional[int] = None, device=None, params=None,
-          max_in_flight: Optional[int] = None):
+          max_in_flight: Optional[int] = None, strict: bool = False):
     """Serve `batch` prompts of `prompt_len` tokens, `gen` new tokens each.
 
     engine="dense" (the default): one prefill of the whole batch into
@@ -142,10 +143,14 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     steps. engine="paged": `serve_paged`. `device` None means the GPU
     (RuntimeError where there is none); `params` None draws random weights
     from `seed` on that device. The prompts are the reference package's
-    for the same seed."""
+    for the same seed. `strict` turns on the guard's strict mode
+    (`core.guard.set_strict`) for the rest of the process."""
     from repro_torch.models import build_model
     from repro_torch.serve.engine import resolve_device
 
+    if strict:
+        # no degradation: a substrate fault raises its typed error
+        guard.set_strict(True)
     if engine == "paged":
         return serve_paged(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
                            seed=seed, block_size=block_size,
@@ -273,6 +278,10 @@ def main(argv=None):
                     help="per-request wall-clock deadline in seconds; "
                          "expired requests are CANCELLED at the next round "
                          "boundary (paged engine)")
+    ap.add_argument("--strict", action="store_true",
+                    help="disable substrate degradation: any kernel "
+                         "backoff or parity mismatch raises its typed "
+                         "SubstrateError instead")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="inject a deterministic fault schedule seeded by "
                          "SEED (paged engine)")
@@ -294,7 +303,7 @@ def main(argv=None):
                   prefix_cache=args.prefix_cache,
                   prefill_chunk=args.prefill_chunk,
                   deadline_s=args.deadline_s, chaos=args.chaos,
-                  device=args.device)
+                  device=args.device, strict=args.strict)
     if args.trace:
         stats["trace"] = obs_trace.get_tracer().export(args.trace)
         stats["trace_events"] = len(obs_trace.get_tracer().events)

@@ -131,8 +131,8 @@ def ssm_param_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     if cfg.ssm_split_proj:
         raise NotImplementedError(
             "ssm_split_proj is the reference's sharded training layout; the "
-            "port serves the joint in_proj layout (multi-device: ROADMAP "
-            "Queue 1 item 8)")
+            "port serves the joint in_proj layout (ROADMAP Queue 1, "
+            "\"Multi-device\")")
     d = ssm_dims(cfg)
     dm = cfg.d_model
     return {

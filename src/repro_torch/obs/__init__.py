@@ -1,4 +1,5 @@
-"""Observability: the span tracer and the metrics registry.
+"""Observability: the span tracer, the metrics registry and the stall
+breakdown.
 
   obs.trace     - ring-buffered span tracer, Chrome trace-event JSON export
                   (opens in Perfetto); request-lifecycle spans, decode-round
@@ -6,13 +7,17 @@
   obs.metrics   - named counters/gauges/histograms, JSON + Prometheus text
                   export, and the one percentile/latency_report
                   implementation every layer shares
+  obs.breakdown - Fig. 14-style attribution of observed wall time to
+                  compute vs. exposed transfer vs. scheduling gap, driven
+                  by the `MachineModel` solve + live telemetry samples
 
 ``REPRO_TELEMETRY=0`` turns both into module-level null objects with no
 per-call branching on hot paths.
 """
 from __future__ import annotations
 
-from repro_torch.obs import metrics, trace
+from repro_torch.obs import breakdown, metrics, trace
+from repro_torch.obs.breakdown import attribute, stall_breakdown
 from repro_torch.obs.metrics import (
     NULL_REGISTRY,
     MetricsRegistry,
@@ -28,6 +33,8 @@ __all__ = [
     "NULL_REGISTRY",
     "NULL_TRACER",
     "Tracer",
+    "attribute",
+    "breakdown",
     "default_registry",
     "enabled",
     "get_tracer",
@@ -37,6 +44,7 @@ __all__ = [
     "percentile",
     "reset",
     "set_enabled",
+    "stall_breakdown",
     "trace",
 ]
 

@@ -1088,3 +1088,227 @@ def test_paged_engine_graph_equals_cpu(cuda_device, arch):
     if cfg.moe:
         assert counts["moe_gmm"] == 3 * cfg.n_layers * (
             card["decode_rounds"] + card["prefill_chunks"])
+
+
+# --------------------------------------------- the guard (core.guard) on card
+
+
+def _guard_calls(device):
+    """Each of the eight guarded wrappers once, at small f32 shapes."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(21)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    paged = _problem(device, torch.float32, [17, 40], h=8, kh=2, d=64, blk=16)
+    q, k, v = randn(2, 8, 64), randn(2, 80, 2, 64), randn(2, 80, 2, 64)
+    tokens, w = randn(2, 16, 64), randn(2, 64, 256)
+    joint = randn(1, 128, 2 * 64 + 2 * 64)
+    x = joint[..., :128].reshape(1, 128, 2, 64)
+    bm, cm = joint[..., 128:192], joint[..., 192:]
+    dt = torch.rand(1, 128, 2, generator=g).to(device) * 0.5 + 0.1
+    a = -torch.exp(randn(2) * 0.3)
+    table = _table(device, 256, 128, torch.float32)
+    idx = _ints(device, 256, 64)
+    starts = torch.arange(0, 128, 16, dtype=torch.int32, device=device)
+    uniq = torch.randperm(256, generator=g)[:64].int().to(device)
+    upd = randn(64, 128)
+    b, c = randn(256, 64), randn(256, 64)
+    return {
+        "paged_decode": lambda: da.paged_flash_decode(*paged),
+        "moe_gmm": lambda: mg.gmm(tokens, w),
+        "flash_decode": lambda: da.flash_decode(q, k, v, 70),
+        "ssd_scan": lambda: ss.ssd_scan(x, dt, a, bm, cm, chunk=64),
+        "row_gather": lambda: cg.row_gather(table, idx),
+        "span_gather": lambda: cg.span_gather(table, starts, span=8),
+        "scatter_add": lambda: sa.scatter_add_unique(table.clone(), uniq,
+                                                     upd),
+        "stream_triad": lambda: sc.triad(b, c, 2.5, rows=128),
+    }
+
+
+def test_guard_sentinel_over_the_eight_wrappers(cuda_device):
+    """With the sentinel on full every wrapper's kernel is held against its
+    plain version on the card: 8 checks, no mismatch, one launch each."""
+    from repro_torch.core import guard
+
+    calls = _guard_calls(cuda_device)
+    guard.set_parity("full")
+    for fn in calls.values():
+        fn()
+    s = guard.stats()
+    assert (s["parity_checks"], s["parity_mismatches"]) == (8, 0)
+    assert s["clean_calls"] == 8 and s["backoffs"] == 0
+    assert all(launch_counts()[k] == 1 for k in calls)
+
+
+def test_guard_poisoned_plain_raises_and_walks_to_one(cuda_device):
+    """A wrong plain version around K5a's real attempt: every rung is
+    checked again, the ladder halves to 1 and the call raises; the kernel's
+    output is never swapped for the plain one."""
+    from repro_torch.core import autotune, guard
+
+    table = _table(cuda_device, 1024, 128, torch.float32)
+    idx = _ints(cuda_device, 1024, 512)
+
+    def attempt(d):
+        blocks, slots = cg.row_gather_split(d, table)
+        return cg.row_gather_at(table, idx, blocks_per_sm=blocks, slots=slots)
+
+    guard.set_parity("full")
+    with pytest.raises(guard.KernelParityError):
+        guard.guarded_call(cg.row_gather_spec(8, 128, torch.float32),
+                           (table, idx), attempt, depth=8, n_tiles=64,
+                           plain=lambda t, i: cg.row_gather_plain(t, i) + 1)
+    assert guard.last_ladder("row_gather") == [8, 4, 2, 1]
+    assert autotune.quarantined_depths("row_gather") == [1, 2, 4, 8]
+    assert launch_counts()["row_gather"] == 4
+
+
+def test_guard_scatter_add_resource_ladder(cuda_device):
+    """K6 asked for rings check_smem refuses (64 and 32 slots of 8 KiB): the
+    refused launches wrote nothing, the ladder lands on 16 and the table is
+    the plain version's, bit for bit; choose_depth avoids the refused."""
+    from repro_torch.core import autotune, guard
+
+    table = _table(cuda_device, 4096, 128, torch.float32)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    idx = torch.randperm(4096, generator=g)[:1024].int().to(cuda_device)
+    upd = torch.randn(1024, 128, generator=g).to(cuda_device)
+    want = sa.scatter_add_unique_plain(table.clone(), idx, upd)
+    spec = sa.scatter_add_spec(8, 128, torch.float32)
+    res = guard.guarded_call(
+        spec, (table, idx, upd),
+        lambda d: sa.scatter_add_at(table, idx, upd, blocks_per_sm=1,
+                                    slots=d),
+        depth=64, n_tiles=128, plain=sa.updated_rows, in_place=True,
+        written=lambda t: t.index_select(0, idx))
+    assert res.depth == 16 and res.out is table
+    assert guard.last_ladder("scatter_add") == [64, 32, 16]
+    assert torch.equal(table, want)
+    assert autotune.quarantined_depths("scatter_add") == [32, 64]
+    assert autotune.choose_depth(spec.profile(), kernel="scatter_add",
+                                 vars=spec.all_vars()) not in (32, 64)
+    assert launch_counts()["scatter_add"] == 1
+
+
+def test_guard_scatter_add_no_double_add_on_card(cuda_device):
+    """A fault after K6's launch (NaN poisoning of what it wrote) raises at
+    once: the updates are in the table exactly once."""
+    from repro_torch.core import guard
+    from repro_torch.serve import FaultInjector
+
+    table = _table(cuda_device, 512, 64, torch.float32)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(4)
+    idx = torch.randperm(512, generator=g)[:128].int().to(cuda_device)
+    upd = torch.randn(128, 64, generator=g).to(cuda_device)
+    want = sa.scatter_add_unique_plain(table.clone(), idx, upd)
+    guard.set_injector(FaultInjector(0, rates={"kernel_nan": 1.0}))
+    with pytest.raises(guard.KernelNumericsError):
+        sa.scatter_add_unique(table, idx, upd)
+    assert len(guard.last_ladder("scatter_add")) == 1
+    assert torch.equal(table, want)
+    assert launch_counts()["scatter_add"] == 1
+
+
+def test_guard_capture_skips_the_sentinel(cuda_device):
+    """Inside a CUDA graph capture the guard runs the attempt once and
+    polices nothing; neither the capture nor its replays add a parity
+    check, and the replays compute the kernel's answer."""
+    from repro_torch.core import guard
+
+    table = _table(cuda_device, 256, 128, torch.float32)
+    idx = _ints(cuda_device, 256, 64)
+    guard.set_parity("full")
+    cg.row_gather(table, idx)                    # eager: checked once
+    assert guard.stats()["parity_checks"] == 1
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = cg.row_gather(table, idx)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert guard.stats()["parity_checks"] == 1
+    assert torch.equal(out, cg.row_gather_plain(table, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_guard_scatter_add_scan_of_the_written_rows(cuda_device, dtype):
+    """K6's scan (`rows_finite`) on the card: the rows at the type's largest
+    finite value pass, a NaN or an Inf in a written row is found, one in a
+    row not written is not; through the wrapper a NaN update raises at
+    once, with the updates added once."""
+    from repro_torch.core import guard
+
+    big = torch.full((4096, 128), torch.finfo(dtype).max, dtype=dtype,
+                     device=cuda_device)
+    idx = torch.arange(0, 4096, 2, dtype=torch.int32, device=cuda_device)
+    assert bool(sa.rows_finite(big, idx)) and bool(sa.rows_finite(-big, idx))
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        t = torch.zeros(4096, 128, dtype=dtype, device=cuda_device)
+        t[2048, 5] = bad
+        assert not bool(sa.rows_finite(t, idx))
+        t[2048, 5], t[2049, 5] = 0, bad
+        assert bool(sa.rows_finite(t, idx))
+    table = _table(cuda_device, 512, 64, dtype)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(5)
+    uniq = torch.randperm(512, generator=g)[:128].int().to(cuda_device)
+    upd = torch.randn(128, 64, generator=g).to(cuda_device, dtype)
+    upd[7, 3] = float("nan")
+    want = sa.scatter_add_unique_plain(table.clone(), uniq, upd)
+    with pytest.raises(guard.KernelNumericsError):
+        sa.scatter_add_unique(table, uniq, upd)
+    assert len(guard.last_ladder("scatter_add")) == 1
+    assert torch.equal(table.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(table), torch.nan_to_num(want))
+    assert launch_counts()["scatter_add"] == 1
+
+
+def test_guard_record_times_the_attempt_alone(cuda_device):
+    """Inside `record()` a guarded call on the card records CUDA events
+    around the attempt it returns; `rerun()` launches the same kernel at
+    the same depth without the guard, and the device time it takes is of
+    the order of the events' (the scan, which reads the output, and its
+    sync stay outside them)."""
+    from repro_torch.core import guard
+
+    table = _table(cuda_device, 1 << 16, 128, torch.float32)
+    idx = _ints(cuda_device, 1 << 16, 1 << 14)
+    with guard.record() as calls:
+        out = cg.row_gather(table, idx)
+    res, = calls
+    assert res.kernel == "row_gather" and res.events is not None
+    assert res.device_s() > 0
+    before = (guard.stats(), launch_counts()["row_gather"])
+    again = res.rerun()
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+    assert guard.stats() == before[0]
+    assert launch_counts()["row_gather"] == before[1] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_guard_scan_finds_one_nonfinite_value_on_card(cuda_device, dtype):
+    """The guard's scan (min and max in one read) on the card: one NaN or
+    Inf anywhere in a large tensor is found, the type's extremes are not."""
+    from repro_torch.core import guard
+
+    t = torch.full((1 << 20, 64), torch.finfo(dtype).max, dtype=dtype,
+                   device=cuda_device)
+    t[7, 0] = -torch.finfo(dtype).max
+    assert guard.scan_output("k", t) is None
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        for pos in (0, (1 << 19) + 3, (1 << 20) - 1):
+            t[pos, 63] = bad
+            assert isinstance(guard.scan_output("k", t),
+                              guard.KernelNumericsError)
+            t[pos, 63] = 1
