@@ -63,7 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      card (paged against dense decode at equal KV; the shared-prefix
      engine warm against cold), printed with the card's name; (4c) the
      same for the dense engine, reduced yi-6b and mamba2-130m, its decode
-     steps one capture and replays (`jit_decode_step`);
+     steps one capture and replays (`jit_decode_step`), the launches
+     those of `dense_launches`;
   5. the main path: `serve_paged` for yi-6b at full width with the serving
      layout (bf16, weights drawn once from seed 0 and shared by phases 5-7
      and 5c), 8 requests, prompts of 64-256 tokens (half share a system
@@ -99,7 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      a new key (eager, then captured) with the guard's checks and with
      them stubbed out, in turns (`eager_guard_cost`);
   5c. the dense engine: `serve(engine="dense")` for yi-6b at full width on
-     phase 5's weights, batch 8, prompts of 1024 tokens, 32 new tokens
+     phase 5's weights, under strict (no backoff; every decode step a
+     captured graph or its replay, as in 5d and 5e), batch 8, prompts of
+     1024 tokens, 32 new tokens
      (caches [32, 8, 1056, 4, 128] x 2, 0.55 GB). Launch counts zeroed
      just before and read just after: dense flash-decode 32 x 31 times and
      nothing else; decode tok/s and per-token p50/p99 (the first step
@@ -122,6 +125,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      bytes in and out over 3.35 TB/s and the reference spec's flops over
      the peak of the kernel's products (989 TFLOP/s bf16 tensor cores, 67
      TFLOP/s f32); then a profile of its decode steps, as 5c;
+  3d. (after 6c, so that the phases above run as before) dense
+     flash-decode at paligemma-3b's heads (8 on one KV head, head dim
+     256) over 1056 rows, f32 and bf16 at the same bounds, depths 1, 2 and
+     solved at B 3, splits 1, 2 and the plan's at B 8; and the
+     sliding-window ring decode (`models.lm.ring_decode_attention`) at
+     hymba-1.5b's heads (25 on 5, D 64) over a ring of 1024 slots, pos
+     before, at and after the wrap (the new row at slot pos % 1024, the
+     output K3's plain version at min(pos, 1023)); then (4d) reduced
+     hymba-1.5b, whisper-medium and paligemma-3b dense engines in f32 on
+     the card against the CPU, as 4c;
+  5e. the hybrid, enc-dec and VLM families at full width, one at a time
+     (bf16, random weights from seed 0, each freed before the next),
+     `serve(engine="dense")` under strict, batch 8, 32 new tokens:
+     hymba-1.5b at 2048 prompt tokens (the sliding-window blocks of its
+     prefill and the ring's roll; K4 32 times, K3 32 x 31), whisper-
+     medium at 1024 frames and 256 text tokens (K3 2 x 24 x 31: self and
+     cross attention), paligemma-3b at 256 patches and 768 text tokens (K3
+     18 x 31 at head dim 256). Launch counts zeroed just before and read
+     just after; no backoff; every decode step a captured graph or its
+     replay. Each with a profile of replayed decode steps, and hymba's K4
+     times at its prefill shape (b 8, s 2048, nh 50, p 64, n 16);
+  6e. K3 times at paligemma-3b's decode shape (B 8, S 1056, pos 1040, D
+     256), whisper-medium's cross shape (B 8, 16 heads, S 1024, pos 1023)
+     and hymba-1.5b's ring (B 8, 25 on 5 heads, 1024 slots, pos 1023), the
+     method of phase 6c; then `launch.serve_batched --engine both
+     --prefix-cache` (its asserts must hold);
   5b. the MoE path: `serve_paged` for qwen3-moe-30b-a3b at full width
      (48 layers, 128 experts, 61.1 GB of bf16 weights), the same traffic
      as phase 5, after yi-6b is freed. Every request must finish, the
@@ -189,7 +218,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      mismatch; then the guard's own host cost per eager call (an unguarded
      launch, the guard without and with its scan, with the sentinel);
  11. `guard.stats()` on one JSON line, one JSON line describing every
-     kernel (eight), then the result line.
+     kernel (eight; K3's and K4's launches by path, and K3's times at the
+     new families' shapes, among them), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -1044,17 +1074,19 @@ def profile_dense_steps(torch, cfg, params, rounds=4):
     from repro_torch.launch.serve import jit_decode_step
     from repro_torch.models import build_model
 
+    import numpy as np
+
+    from repro_torch.launch.serve import make_prompts
+
     since = step_graph.stats()
     kw = DENSE_SERVE[cfg.name]
     model = build_model(cfg)
     decode = jit_decode_step(model)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(13)
-    prompts = torch.randint(0, cfg.vocab, (kw["batch"], kw["prompt_len"]),
-                            generator=gen, device="cuda", dtype=torch.int32)
+    prompts, text = make_prompts(cfg, kw["batch"], kw["prompt_len"],
+                                 np.random.default_rng(13), "cuda")
     state = {}
-    state["cache"], logits = model.prefill(
-        params, {"tokens": prompts}, pad_to=kw["prompt_len"] + 2 * rounds + 1)
+    state["cache"], logits = model.prefill(params, prompts,
+                                           pad_to=text + 2 * rounds + 1)
     state["tokens"] = torch.argmax(logits, dim=-1).to(torch.int32)
 
     def step():
@@ -1353,6 +1385,62 @@ def check_dense_parity(torch) -> None:
     torch.cuda.synchronize()
 
 
+# ------------------------------------------------------------- phase 3d
+
+
+def check_family_parity(torch) -> None:
+    """K3 at paligemma-3b's heads (H 8, KH 1, D 256) over DENSE_S rows, B 3,
+    pos 0, mid and last, f32 and bf16 (DECODE_TOL), depths 1, 2 and
+    solved, then at B 8 split 1, 2 and the plan's ways; and the ring form
+    (`models.lm.ring_decode_attention`) at hymba-1.5b's (H 25, KH 5, D 64,
+    B 8, a ring of 1024 slots) with pos before, at and after the wrap:
+    the new row lands at slot pos % w and the output is K3's plain version
+    over the ring at min(pos, w - 1)."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.models.lm import ring_decode_attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for b, splits_list in ((3, (None,)), (8, (1, 2, None))):
+            q = torch.randn(b, 8, 256, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, DENSE_S, 1, 256, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            for pos in (0, DENSE_S // 2, 1040, DENSE_S - 1):
+                ref = da.flash_decode_plain(q, k, v, pos)
+                for splits in splits_list:
+                    for depth in ((1, 2, None) if b == 3 else (None,)):
+                        out = da.flash_decode(q, k, v, pos, depth=depth,
+                                              splits=splits)
+                        ran = autotune.last_choice("flash_decode")
+                        _close(f"flash_decode paligemma-3b H=8 KH=1 D=256 "
+                               f"B={b} S={DENSE_S} pos={pos} {dtype_name} "
+                               f"depth={depth} (ran {ran}) splits={splits}",
+                               out, ref, *DECODE_TOL[dtype_name])
+        w = 1024
+        kc, vc = (torch.randn(8, w, 5, 64, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        for pos in (0, 511, w - 1, w, w + 300, 3 * w + 5):
+            q = torch.randn(8, 1, 25, 64, generator=gen,
+                            device="cuda").to(dtype)
+            nk, nv = (torch.randn(8, 1, 5, 64, generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+            out, _, _ = ring_decode_attention(
+                q, kc, vc, nk, nv,
+                torch.tensor(pos, dtype=torch.int32, device="cuda"), w)
+            if not (torch.equal(kc[:, pos % w], nk[:, 0])
+                    and torch.equal(vc[:, pos % w], nv[:, 0])):
+                raise AssertionError(f"ring decode pos={pos}: the new row "
+                                     f"is not at slot {pos % w}")
+            _close(f"ring decode hymba-1.5b H=25 KH=5 D=64 B=8 w={w} "
+                   f"pos={pos} {dtype_name}", out[:, 0],
+                   da.flash_decode_plain(q[:, 0], kc, vc, min(pos, w - 1)),
+                   *DECODE_TOL[dtype_name])
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------- phase 4c
 
 
@@ -1386,47 +1474,66 @@ def check_dense_engine_card_vs_cpu(torch, arch: str) -> None:
     if cpu["generated"] != card["generated"]:
         raise AssertionError(f"{arch} dense: card tokens {card['generated']} "
                              f"!= CPU tokens {cpu['generated']}")
-    kernel = "ssd_scan" if cfg.family == "ssm" else "flash_decode"
-    want = cfg.n_layers * (1 if kernel == "ssd_scan" else kw["gen"] - 1)
-    if counts[kernel] != want:
-        raise AssertionError(f"{arch} dense: {kernel} launched "
-                             f"{counts[kernel]} times, want {want}")
+    want = dense_launches(cfg, kw["prompt_len"], kw["gen"])
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{arch} dense: launches {got}, want {want}")
     log(f"engine {arch} reduced dense f32 card == cpu: "
-        f"{sum(map(len, card['generated']))} tokens identical, {kernel} "
-        f"launched {counts[kernel]} times, one capture, "
-        f"{kw['gen'] - 2} replays")
+        f"{sum(map(len, card['generated']))} tokens identical, launches "
+        f"{json.dumps(got)}, one capture, {kw['gen'] - 2} replays")
 
 
-# ------------------------------------------------------- phases 5c and 5d
+def dense_launches(cfg, prompt_len: int, gen: int) -> dict:
+    """The kernel launches of one dense-engine run: flash_decode once a
+    layer per decode step (twice in an enc-dec decoder: self and cross
+    attention), ssd_scan once an SSM or hybrid layer in the prefill (when
+    the prompt is whole chunks, the reference's route)."""
+    want = {}
+    if cfg.has_attention:
+        want["flash_decode"] = (cfg.n_layers * (gen - 1)
+                                * (2 if cfg.enc_dec else 1))
+    if cfg.ssm and prompt_len % cfg.ssm_chunk == 0:
+        want["ssd_scan"] = cfg.n_layers
+    return want
+
+
+# ------------------------------------------------- phases 5c, 5d and 5e
 
 
 DENSE_SERVE = {"yi-6b": dict(batch=8, prompt_len=1024, gen=32),
-               "mamba2-130m": dict(batch=8, prompt_len=2048, gen=32)}
+               "mamba2-130m": dict(batch=8, prompt_len=2048, gen=32),
+               # 2048 positions reach the sliding-window blocks (2 x 1024)
+               # and the ring's roll
+               "hymba-1.5b": dict(batch=8, prompt_len=2048, gen=32),
+               # 1024 frames, 256 text tokens
+               "whisper-medium": dict(batch=8, prompt_len=1024, gen=32),
+               # 256 patches, 768 text tokens
+               "paligemma-3b": dict(batch=8, prompt_len=1024, gen=32)}
+FAMILY_ARCHS = ("hymba-1.5b", "whisper-medium", "paligemma-3b")
 
 
 def serve_dense_path(torch, arch: str, params=None):
     """`serve(engine="dense")` for `arch` at full width, serving layout
-    (bf16), with the launch counts zeroed just before and read just after:
-    flash_decode must run n_layers times per decode step (attention
-    archs), ssd_scan n_layers times in the prefill (SSM archs), and
-    nothing else."""
+    (bf16), in the guard's strict mode, with the launch counts zeroed just
+    before and read just after: the kernels of `dense_launches` and
+    nothing else, no backoff, and every decode step a captured graph or
+    its replay."""
     from repro_torch.configs import get_config
+    from repro_torch.core import step_graph
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import SERVING_OVERRIDES, serve
 
     cfg = get_config(arch).replace(**SERVING_OVERRIDES)
     kw = DENSE_SERVE[arch]
     torch.cuda.reset_peak_memory_stats()
+    since = step_graph.stats()
     t0 = time.perf_counter()
     reset_launch_counts()
-    stats = serve(cfg, device="cuda", params=params, **kw)
+    stats = serve(cfg, device="cuda", params=params, strict=True, **kw)
     counts = launch_counts()
     wall = time.perf_counter() - t0
     want = {name: 0 for name in counts}
-    if cfg.family == "ssm":
-        want["ssd_scan"] = cfg.n_layers
-    else:
-        want["flash_decode"] = cfg.n_layers * (kw["gen"] - 1)
+    want.update(dense_launches(cfg, kw["prompt_len"], kw["gen"]))
     if counts != want:
         raise AssertionError(f"{arch} dense: launches {counts}, want {want}")
     gen_tokens = stats["generated"]
@@ -1434,11 +1541,20 @@ def serve_dense_path(torch, arch: str, params=None):
             0 <= t < cfg.vocab for row in gen_tokens for t in row):
         raise AssertionError(f"{arch} dense: bad generation "
                              f"{stats['generated_shape']}")
+    graphs = graph_delta(since)
+    check_graphs(f"serve dense {arch}", graphs,
+                 {"dense_decode": kw["gen"] - 1})
+    if stats["substrate"]["backoffs"]:
+        raise AssertionError(f"{arch} dense: backoffs under strict: "
+                             f"{stats['substrate']}")
     shown = {k: stats[k] for k in ("decode_tok_per_s", "p50_ms", "p99_ms",
                                    "mean_ms", "prefill_s", "decode_s",
                                    "decode_captures", "generated_shape",
                                    "sample_tokens")}
     shown["launches"] = {k: v for k, v in counts.items() if v}
+    shown["graphs"] = graphs
+    shown["substrate"] = {k: stats["substrate"][k] for k in (
+        "strict", "guarded_calls", "backoffs", "numerics_faults")}
     shown["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     shown["wall_s"] = wall
     log(f"serve dense {arch} full width {json.dumps(kw)}: "
@@ -1446,23 +1562,73 @@ def serve_dense_path(torch, arch: str, params=None):
     return cfg, stats, counts
 
 
+def serve_family(torch, arch: str) -> dict:
+    """Phase 5e for one arch: random weights from seed 0 at full width
+    (serving layout), `serve_dense_path` under strict, a profile of its
+    replayed decode steps, and for hymba-1.5b K4's time at its prefill
+    shape; the weights are freed before it returns."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SERVING_OVERRIDES
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).replace(**SERVING_OVERRIDES)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"{arch}: {model.n_params()} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    _, stats, counts = serve_dense_path(torch, arch, params)
+    busy, by_kernel, wall_ms = profile_dense_steps(torch, cfg, params)
+    k3_ms = log_decode_share(f"{arch} dense decode step", by_kernel)
+    out = {"counts": counts, "busy": busy, "wall_ms": wall_ms,
+           "k3_ms": k3_ms, "stats": stats}
+    if cfg.ssm:
+        out["ssd"] = time_ssd_scan(torch, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_batched_run(torch) -> None:
+    """`launch.serve_batched --engine both --prefix-cache` on the card: the
+    dense demo (reduced yi-6b, hymba-1.5b, mamba2-130m), then the paged
+    and prefix demos, whose asserts must hold."""
+    from repro_torch.launch import serve_batched
+
+    t0 = time.perf_counter()
+    out = serve_batched.main(["--engine", "both", "--prefix-cache"])
+    dense = {arch: {k: r["stats"][k] for k in ("generated_shape",
+                                                "decode_tok_per_s")}
+             for arch, r in out["dense"].items()}
+    log(f"serve_batched --engine both on the card in "
+        f"{time.perf_counter() - t0:.1f} s: dense {json.dumps(dense)}, paged "
+        f"completed {out['paged']['completed']} of 8 "
+        f"(kv_oversubscription {out['paged']['kv_oversubscription']}), "
+        f"prefix hits {out['prefix']['prefix_hits']}")
+
+
 # -------------------------------------------------------------- phase 6c
 
 
-def check_flash_decode_path_shape(torch, out, q, k, v, pos):
-    """K3's output `out` against its plain version on the dense path's bf16
+def check_flash_decode_path_shape(torch, out, q, k, v, pos, label):
+    """K3's output `out` against its plain version on a dense path's bf16
     operands, then K3 on the same values in f32 (DECODE_TOL). Returns the
     bf16 error."""
     from repro_torch.core import autotune
     from repro_torch.kernels.decode_attention import decode_attention as da
 
     depth = autotune.last_choice("flash_decode")
-    err = _close(f"flash_decode at the dense path's shape {tuple(k.shape)} "
+    err = _close(f"flash_decode at {label} {tuple(k.shape)} "
                  f"pos={int(pos)} bfloat16 (depth {depth})", out,
                  da.flash_decode_plain(q, k, v, pos), *DECODE_TOL["bfloat16"])
     q, k, v = q.float(), k.float(), v.float()
-    _close(f"flash_decode at the dense path's shape {tuple(k.shape)} "
-           f"pos={int(pos)} float32", da.flash_decode(q, k, v, pos),
+    _close(f"flash_decode at {label} {tuple(k.shape)} pos={int(pos)} "
+           f"float32", da.flash_decode(q, k, v, pos),
            da.flash_decode_plain(q, k, v, pos), *DECODE_TOL["float32"])
     return err
 
@@ -1478,11 +1644,24 @@ def flash_decode_bound(b, h, kh, d, pos):
             "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
 
 
-def time_flash_decode(torch, cfg, b, sweep=False):
-    """K3 at the dense yi-6b decode shape (H 32, KH 4, D 128, S 1056,
-    pos 1040) at batch `b`, one call per layer's cache, pos in a device
-    int32 as the dense step passes it: the kernel, its plain version, and
-    as a yardstick scaled_dot_product_attention over the cache sliced to
+# K3 at the new families' decode shapes: label, (B, H, KH, D, S, pos,
+# layers). paligemma-3b: 256 patches + 768 text + 32 new rows, pos as
+# yi-6b's; whisper-medium's cross-attention over its 1024 encoder rows
+# (pos = S - 1); hymba-1.5b's ring of 1024 slots after the wrap (pos' =
+# w - 1)
+FAMILY_K3_SHAPES = (
+    ("paligemma-3b D=256", (8, 8, 1, 256, 1056, 1040, 18)),
+    ("whisper-medium cross", (8, 16, 16, 64, 1024, 1023, 24)),
+    ("hymba-1.5b ring", (8, 25, 5, 64, 1024, 1023, 32)),
+)
+
+
+def time_flash_decode(torch, b, h, kh, d, s, pos, n_layers, sweep=False,
+                      label="the dense yi-6b shape"):
+    """K3 at batch `b` over caches [b, s, kh, d] at `pos` (h query heads),
+    one call per layer's cache (`n_layers` of them), pos in a device int32
+    as the dense step passes it: the kernel, its plain version, and as a
+    yardstick scaled_dot_product_attention over the cache sliced to
     pos + 1, beside the bound. With `sweep`, the kernel again at tile
     heights 64 and 128 and several split counts."""
     import torch.nn.functional as F
@@ -1491,15 +1670,11 @@ def time_flash_decode(torch, cfg, b, sweep=False):
     from repro_torch.kernels import ring
     from repro_torch.kernels.decode_attention import decode_attention as da
 
-    kw = DENSE_SERVE["yi-6b"]
-    s = kw["prompt_len"] + kw["gen"]
-    pos = s - 16
-    h, kh, d = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     dev_pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     layers = []
-    for _ in range(cfg.n_layers):
+    for _ in range(n_layers):
         q = torch.randn(b, h, d, generator=gen, device="cuda").to(
             torch.bfloat16)
         k = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(
@@ -1510,7 +1685,8 @@ def time_flash_decode(torch, cfg, b, sweep=False):
     runs = [path_launch(da.flash_decode, *a) for a in layers]
     depth = autotune.last_choice("flash_decode")
     q, k, v, _ = layers[0]
-    err = check_flash_decode_path_shape(torch, runs[0][0], q, k, v, dev_pos)
+    err = check_flash_decode_path_shape(torch, runs[0][0], q, k, v, dev_pos,
+                                        label)
     launches = [(run,) for _, run in runs]
     del runs
     sms = ring.sm_count(q.device)
@@ -1532,7 +1708,7 @@ def time_flash_decode(torch, cfg, b, sweep=False):
              "blk": da.FLASH_BLK, "dtype": "bfloat16", "depth": depth,
              "splits": n_split, "tiles_per_split": per,
              "blocks": b * kh * n_split, "sms": sms}
-    log(f"times flash_decode {json.dumps(shape)}: kernel "
+    log(f"times flash_decode {label} {json.dumps(shape)}: kernel "
         f"{kernel_a:.6f}/{kernel_b:.6f} ms, plain {plain_ms:.6f} ms, sdpa "
         f"{library_ms:.6f} ms, bound {bound_ms:.7f} ms ({bound_by}, "
         f"{nbytes} B, {flops} flop), {bound_ms / ms:.1%} of the bound")
@@ -1576,8 +1752,9 @@ def launch_ms(torch, fn, calls=10) -> dict:
 
 
 def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
-    """K4 at the dense mamba2-130m prefill shape (b 8, s 2048, nh 24, p 64,
-    n 128, chunk 256; x/B/C slices of one joint projection in `dtype_name`,
+    """K4 at `cfg`'s dense prefill shape (mamba2-130m: b 8, s 2048, nh 24,
+    p 64, n 128; hymba-1.5b: b 8, s 2048, nh 50, p 64, n 16; chunk 256;
+    x/B/C slices of one joint projection in `dtype_name`,
     dt f32), two operand sets alternating: the kernel (and each of its
     launches) and its plain version. No single PyTorch call computes the
     SSD scan, so there is no library time. The bound is the larger of the
@@ -1591,7 +1768,7 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
     from repro_torch.models.ssm import ssm_dims
 
-    kw = DENSE_SERVE["mamba2-130m"]
+    kw = DENSE_SERVE[cfg.name]
     dims = ssm_dims(cfg)
     b, s, chunk = kw["batch"], kw["prompt_len"], cfg.ssm_chunk
     nh, p, n = dims["nh"], dims["p"], dims["n"]
@@ -1606,9 +1783,9 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
     del runs
     depth = autotune.last_choice("ssd_scan")
     ry, rh = ss.ssd_scan_plain(*sets[0], chunk=chunk)
-    err = _close(f"ssd_scan at the dense path's shape, {dtype_name} (depth "
-                 f"{depth}) y", y, ry, TOL[dtype_name])
-    err = max(err, _close(f"ssd_scan at the dense path's shape, "
+    err = _close(f"ssd_scan at {cfg.name}'s prefill shape, {dtype_name} "
+                 f"(depth {depth}) y", y, ry, TOL[dtype_name])
+    err = max(err, _close(f"ssd_scan at {cfg.name}'s prefill shape, "
                           f"{dtype_name} h_final", h, rh, TOL["float32"]))
     del y, h, ry, rh
 
@@ -1639,7 +1816,7 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
         ("chunk_state_kernel", x_b + bc_b + dt_b + ws),     # x, B, dt -> ws
         ("state_pass_kernel", 2 * ws + b * nh * p * n * 4),  # ws -> ws, h
         ("chunk_scan_kernel", 2 * x_b + 2 * bc_b + dt_b + ws))}  # -> y
-    log(f"times ssd_scan {json.dumps(shape)}: kernel "
+    log(f"times ssd_scan {cfg.name} {json.dumps(shape)}: kernel "
         f"{kernel_a:.4f}/{kernel_b:.4f} ms ({json.dumps(per_launch)}; each "
         f"launch's bytes over 3.35 TB/s: {json.dumps(launch_bound_ms)}), "
         f"plain {plain_ms:.4f} ms, no library call, bound {bound_ms:.5f} ms "
@@ -2735,8 +2912,11 @@ def main() -> int:
 
     # the dense engine: yi-6b on the same weights, then mamba2-130m
     _, _, dense_counts = serve_dense_path(torch, "yi-6b", yi_params)
-    fd_timing = time_flash_decode(torch, cfg, 8, sweep=True)
-    fd_b1 = time_flash_decode(torch, cfg, 1)
+    s = DENSE_SERVE["yi-6b"]["prompt_len"] + DENSE_SERVE["yi-6b"]["gen"]
+    yi_k3 = (cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim, s, s - 16,
+             cfg.n_layers)
+    fd_timing = time_flash_decode(torch, 8, *yi_k3, sweep=True)
+    fd_b1 = time_flash_decode(torch, 1, *yi_k3)
     _, by_kernel, _ = profile_dense_steps(torch, yi_cfg, yi_params)
     log_decode_share("yi-6b dense decode step", by_kernel)
     del yi_params
@@ -2753,6 +2933,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phases 5c-6c done at {time.perf_counter() - t_start:.1f} s")
+
+    # the hybrid, enc-dec and VLM families, after the paths above so that
+    # those run as they did before: their kernels' parity and card-vs-CPU
+    # tokens, each at full width, then K3 at their shapes and serve_batched
+    check_family_parity(torch)
+    for arch in FAMILY_ARCHS:
+        check_dense_engine_card_vs_cpu(torch, arch)
+    family = {arch: serve_family(torch, arch) for arch in FAMILY_ARCHS}
+    fd_family = {label: time_flash_decode(torch, *shape, label=label)
+                 for label, shape in FAMILY_K3_SHAPES}
+    serve_batched_run(torch)
+    log(f"phases 3d-6e done at {time.perf_counter() - t_start:.1f} s")
 
     # the MoE path: qwen3-moe at full width, after yi-6b is freed
     gc.collect()
@@ -2824,12 +3016,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:63",
         "tpu": "kernels/decode_attention/decode_attention.py:flash_decode",
         "launches": dense_counts["flash_decode"],
+        "launches_by_path": {"yi-6b": dense_counts["flash_decode"], **{
+            arch: family[arch]["counts"]["flash_decode"]
+            for arch in FAMILY_ARCHS}},
         "parity": "ok",
         **{k: fd_timing[k] for k in keys},
         "splits": fd_timing["splits"],
         "shape": fd_timing["shape"],
         "at_other_shapes": {"B=1": {k: fd_b1[k] for k in
-                                    keys + ("splits", "shape")}},
+                                    keys + ("splits", "shape")}, **{
+            label: {k: t[k] for k in keys + ("splits", "shape")}
+            for label, t in fd_family.items()}},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2837,13 +3034,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:60",
         "tpu": "kernels/ssd_scan/ssd_scan.py:ssd_scan",
         "launches": ssm_counts["ssd_scan"],
+        "launches_by_path": {
+            "mamba2-130m": ssm_counts["ssd_scan"],
+            "hymba-1.5b": family["hymba-1.5b"]["counts"]["ssd_scan"]},
         "parity": "ok",
         **{k: ssd_timing[k] for k in keys},
         "launch_ms": ssd_timing["launch_ms"],
         "launch_bound_ms": ssd_timing["launch_bound_ms"],
         "shape": ssd_timing["shape"],
-        "at_other_shapes": {"float32": {k: ssd_f32[k] for k in keys + (
-            "launch_ms", "launch_bound_ms", "shape")}},
+        "at_other_shapes": {name: {k: t[k] for k in keys + (
+            "launch_ms", "launch_bound_ms", "shape")} for name, t in (
+                ("float32", ssd_f32),
+                ("hymba-1.5b prefill", family["hymba-1.5b"]["ssd"]))},
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -154,17 +154,20 @@ def nan_block(torch, shape, dtype) -> None:
 
 
 def k3_cases(torch):
-    """yi-6b's heads (H 32, KH 4, D 128) over S 1056: B 8 pos 1040 (the
-    dense path's decode shape) and B 3 pos 528, f32 and bf16."""
+    """yi-6b's heads (H 32, KH 4, D 128) and paligemma-3b's (H 8, KH 1,
+    D 256) over S 1056: B 8 pos 1040 (the dense path's decode shape) and
+    B 3 pos 528, f32 and bf16."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    for b, pos in ((8, 1040), (3, 528)):
-        base = [torch.randn(*shape, generator=gen, device="cuda")
-                for shape in ((b, 32, 128), (b, 1056, 4, 128),
-                              (b, 1056, 4, 128))]
-        for dtype_name in ("float32", "bfloat16"):
-            args = [t.to(getattr(torch, dtype_name)) for t in base]
-            yield f"B={b} pos={pos} {dtype_name}", args, pos, dtype_name
+    for h, kh, d in ((32, 4, 128), (8, 1, 256)):
+        for b, pos in ((8, 1040), (3, 528)):
+            base = [torch.randn(*shape, generator=gen, device="cuda")
+                    for shape in ((b, h, d), (b, 1056, kh, d),
+                                  (b, 1056, kh, d))]
+            for dtype_name in ("float32", "bfloat16"):
+                args = [t.to(getattr(torch, dtype_name)) for t in base]
+                yield (f"H={h} KH={kh} D={d} B={b} pos={pos} {dtype_name}",
+                       args, pos, dtype_name)
 
 
 def k1_cases(torch):

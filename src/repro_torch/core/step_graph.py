@@ -36,6 +36,7 @@ graphs off on the card: a capture or a replay that fails raises.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, Iterator, Sequence, Tuple
 
@@ -166,8 +167,14 @@ class StepGraph:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
+        # Nothing alive now is collected inside the capture: a dead
+        # earlier graph in a reference cycle (an engine and its steps)
+        # would be destroyed mid-capture, which CUDA refuses, breaking the
+        # capture; torch.cuda.graph no longer collects before it begins.
+        gc.freeze()
         with torch.cuda.graph(graph, stream=stream):
             out = self.fn(*closed, *self.static)
+        gc.unfreeze()
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}

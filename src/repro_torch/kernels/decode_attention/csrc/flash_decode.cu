@@ -101,8 +101,8 @@ using repro::from_f32;
 constexpr int kThreads = 128;  // four warps, each over its own 16-row chunks of a tile
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunkRows = 16;  // key rows a warp takes at a time (the mma K of P V)
-constexpr int kMergeThreads = 128;  // the largest head dim: one thread per column
 constexpr int kMaxGroup = 32;  // query heads per KV head this kernel takes
+constexpr int kMaxGroupWide = 16;  // ... at head dim 256 (one bf16 M tile)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kAccPad = 8;  // floats after each head row of the merge scratch
@@ -594,9 +594,10 @@ __global__ void __launch_bounds__(kThreads)
 // m = -1e30, every weight is exp2(0) = 1, the sum of l is 0 and o = 0 /
 // 1e-30 = 0, finite (the engine pads a round with such rows). The loads of
 // different splits are independent, so an unrolled loop keeps several in
-// flight.
-template <typename T>
-__global__ void __launch_bounds__(kMergeThreads)
+// flight. kMaxD bounds the block: 128 threads up to head dim 128, 256 at
+// head dim 256.
+template <typename T, int kMaxD>
+__global__ void __launch_bounds__(kMaxD)
     flash_merge_kernel(const float* __restrict__ part, T* __restrict__ out, int n_split) {
   const int bkh = blockIdx.x, h = blockIdx.y, G = gridDim.y;
   const int d = threadIdx.x, D = blockDim.x;
@@ -660,24 +661,31 @@ cudaError_t launch(const Args& a, const Rows& rows, int slots) {
                    static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part, rows, a.H, a.KH,
                    a.blk, a.tiles_per_split, a.depth, a.scale_log2);
   if (err != cudaSuccess || a.n_split == 1) return err;
-  return launch_pdl(flash_merge_kernel<T>, dim3(a.B * a.KH, a.H / a.KH), D, 0, a.stream,
+  return launch_pdl(flash_merge_kernel<T, (D > 128 ? 256 : 128)>, dim3(a.B * a.KH, a.H / a.KH),
+                    D, 0, a.stream,
                     static_cast<const float*>(a.part), static_cast<T*>(a.out), a.n_split);
 }
 
 // G padded: to 16 or 32 query heads (M tiles) in bf16, a power of two in f32.
+// At head dim 256 a warp's P V accumulator alone is 16 x 256 f32 (128
+// registers a lane in bf16) and its query 64 more, so G stops at 16 there:
+// a second M tile, or a 32-head f32 state, would live in local memory.
 template <typename T, int D, typename Rows>
 cudaError_t dispatch_g(int G, const Args& a, const Rows& rows, int slots) {
+  constexpr bool kWide = D > 128;
+  if (kWide && G > kMaxGroupWide) return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     if (G <= 16) return launch<T, D, 16>(a, rows, slots);
-    return launch<T, D, 32>(a, rows, slots);
+    if constexpr (!kWide) return launch<T, D, 32>(a, rows, slots);
   } else {
     if (G <= 1) return launch<T, D, 1>(a, rows, slots);
     if (G <= 2) return launch<T, D, 2>(a, rows, slots);
     if (G <= 4) return launch<T, D, 4>(a, rows, slots);
     if (G <= 8) return launch<T, D, 8>(a, rows, slots);
     if (G <= 16) return launch<T, D, 16>(a, rows, slots);
-    return launch<T, D, 32>(a, rows, slots);
+    if constexpr (!kWide) return launch<T, D, 32>(a, rows, slots);
   }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, typename Rows>
@@ -691,6 +699,8 @@ cudaError_t dispatch_d(int D, int G, const Args& a, const Rows& rows, int slots)
       return dispatch_g<T, 64>(G, a, rows, slots);
     case 128:
       return dispatch_g<T, 128>(G, a, rows, slots);
+    case 256:
+      return dispatch_g<T, 256>(G, a, rows, slots);
     default:
       return cudaErrorInvalidValue;
   }

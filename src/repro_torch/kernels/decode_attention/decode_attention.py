@@ -67,8 +67,9 @@ __all__ = [
 
 NEG_INF = -1e30
 FLASH_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32                 # query heads per KV head the kernel holds
+MAX_GROUP_WIDE = 16            # ... at head_dim 256 (csrc: kMaxGroupWide)
 FLASH_BLK = 64                 # default tile height (the sweep: PERF.md)
 BLOCKS_PER_SM = 2              # what the split plan aims to put on each SM
 WARPS = 4                      # kWarps in csrc/flash_decode.cu
@@ -262,8 +263,10 @@ def _check_cuda(q, k, v, blk: int, names=("k_cache", "v_cache")) -> None:
     d = q.shape[2]
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {FLASH_HEAD_DIMS}")
-    if q.shape[1] // k.shape[2] > MAX_GROUP:
-        raise ValueError(f"more than {MAX_GROUP} query heads per KV head")
+    most = MAX_GROUP_WIDE if d > 128 else MAX_GROUP
+    if q.shape[1] // k.shape[2] > most:
+        raise ValueError(f"more than {most} query heads per KV head at "
+                         f"head_dim {d}")
     if blk % 16:
         raise ValueError(f"blk must be a multiple of 16 (a warp's rows), "
                          f"got {blk}")

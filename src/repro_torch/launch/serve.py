@@ -6,9 +6,13 @@ Two engines, as in the reference package:
           cache per layer, `model.prefill` once, then `model.decode_step`
           for every token through `jit_decode_step` (on the GPU one CUDA
           graph a step), timed one step at a time (`serve`,
-          `timed_decode_loop`). It serves the dense, MoE and Mamba-2 SSM
-          families; its decode attention is the `flash_decode` kernel and
-          its SSM prefill the `ssd_scan` kernel.
+          `timed_decode_loop`). It serves every family: dense, MoE,
+          Mamba-2 SSM, hybrid (a sliding-window ring beside SSM heads),
+          encoder-decoder (frame embeddings through an encoder, then
+          cross-attention) and VLM (patch embeddings as a prefix); its
+          decode attention, over a cache, a ring or the encoder's output,
+          is the `flash_decode` kernel and its SSM prefill the `ssd_scan`
+          kernel.
   paged - `repro_torch.serve.PagedServingEngine` (`serve_paged`):
           continuous batching over a paged KV block pool, ragged prompt
           lengths, half of them sharing a system-prompt prefix, through a
@@ -27,6 +31,10 @@ generated tokens. They run on the GPU unless asked for the CPU:
       --prompt-len 2048 --gen 32
   python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --layout serving --engine paged --batch 8 --prompt-len 256 --gen 32
+  python -m repro_torch.launch.serve --arch hymba-1.5b --layout serving \\
+      --batch 8 --prompt-len 2048 --gen 32
+  python -m repro_torch.launch.serve --arch whisper-medium --reduced \\
+      --device cpu
   python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \\
       --engine paged --device cpu
@@ -45,6 +53,7 @@ from repro_torch.configs import get_config, token_split
 from repro_torch.core import autotune, guard
 from repro_torch.core.machine import get_machine
 from repro_torch.core.step_graph import StepGraph
+from repro_torch.models.params import torch_dtype
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import latency_report
 
@@ -55,16 +64,19 @@ SERVING_OVERRIDES: Dict[str, Any] = {"param_dtype": "bfloat16"}
 
 def make_prompts(cfg, batch: int, prompt_len: int, rng, device):
     """Random prompts from the numpy generator `rng` (the reference's draws
-    for the same seed). Returns ({"tokens": [batch, text] int32}, text)."""
+    for the same seed, in its order). Returns ({"tokens": [batch, text]
+    int32, and for a stub frontend "frames" (enc-dec) or "patches" (VLM):
+    [batch, front, d_model] of normal * 0.02, rounded to bf16, in
+    cfg.dtype}, text)."""
     front, text = token_split(cfg, prompt_len)
-    if front:
-        raise NotImplementedError(
-            f"arch {cfg.name!r}: frontend (audio/vision) inputs wait for a "
-            "later slice of the port (ROADMAP Queue 1, \"Hybrid and the "
-            "other families\")")
     tokens = rng.integers(0, cfg.vocab, (batch, text))
-    return {"tokens": torch.as_tensor(tokens, dtype=torch.int32,
-                                      device=device)}, text
+    b = {"tokens": torch.as_tensor(tokens, dtype=torch.int32, device=device)}
+    for key, on in (("frames", cfg.enc_dec), ("patches", cfg.vlm)):
+        if on:
+            emb = rng.normal(size=(batch, front, cfg.d_model)) * 0.02
+            b[key] = torch.as_tensor(emb).to(torch.bfloat16).to(
+                device=device, dtype=torch_dtype(cfg.dtype))
+    return b, text
 
 
 def jit_decode_step(model):

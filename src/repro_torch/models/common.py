@@ -1,6 +1,6 @@
-"""Layer library: norms, RoPE, SwiGLU, embeddings, full-sequence GQA
-attention (naive / chunked), decode attention over a dense KV cache, and
-attention over paged KV pools.
+"""Layer library: norms, RoPE, sinusoidal positions, SwiGLU, embeddings,
+full-sequence GQA attention (naive / chunked / sliding-window blocks),
+decode attention over a dense KV cache, and attention over paged KV pools.
 
 Layouts follow the reference package at every public function (q
 ``[B, S, H, D]``, caches ``[B, S, KH, D]``, pools ``[NB, blk, KH, D]``,
@@ -10,6 +10,8 @@ kernel in the reference and stays torch ops here; decode attention goes
 through the flash-decode kernels (dense and paged).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +51,17 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_pos_emb(seq: int, d_model: int, dtype, device=None):
+    """[seq, d_model] sinusoidal positions (sines, then cosines), computed
+    in f32 and cast to `dtype`: the encoder's input positions."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    inv = torch.exp(-math.log(10_000.0) * dim / d_model)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down):
@@ -132,20 +145,50 @@ def attention_chunked(q, k, v, *, q_pos, k_pos, causal=True, window=0,
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, kh * g, d).to(q.dtype)
 
 
+def attention_swa_block(q, k, v, *, q_pos, window: int, chunk: int):
+    """Block-local sliding-window attention: each query chunk attends only
+    to its own and the previous key chunk, O(S * 2c) score work instead of
+    O(S * S). Needs window <= chunk, self-attention and S % chunk == 0.
+    Scores in f32, probabilities cast to q's type before the product with
+    V, as in the reference."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    nc = s // chunk
+    qc = (_group(q, kh) * (d ** -0.5)).reshape(b, nc, chunk, kh, g, d)
+    kc = k.reshape(b, nc, chunk, kh, d)
+    vc = v.reshape(b, nc, chunk, kh, d)
+    kprev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    kk = torch.cat([kprev, kc], dim=2)                       # [b,nc,2c,kh,d]
+    vv = torch.cat([vprev, vc], dim=2)
+    sc = torch.einsum("bcqkgd,bcskd->bckgqs", qc.float(), kk.float())
+    qp = q_pos.reshape(nc, chunk)
+    kp = torch.cat([qp - chunk, qp], dim=1)                  # [nc, 2c]
+    msk = ((kp[:, None, :] <= qp[:, :, None])
+           & (kp[:, None, :] > qp[:, :, None] - window)
+           & (kp[:, None, :] >= 0))
+    sc = sc.masked_fill(~msk[None, :, None, None], NEG_INF)
+    p = torch.softmax(sc, dim=-1).to(q.dtype)
+    o = torch.einsum("bckgqs,bcskd->bcqkgd", p, vv)
+    return o.reshape(b, s, h, d)
+
+
 def attention(q, k, v, *, q_pos, k_pos, causal=True, window=0, prefix=0,
               impl="auto", chunk=1024):
-    """Full-sequence attention: the naive form up to max(chunk, 4096) keys,
-    the chunked one beyond (the reference's dispatch, without its
-    sliding-window block form, which waits for the hybrid family)."""
+    """Full-sequence attention, the reference's dispatch: the
+    sliding-window block form for causal windowed self-attention over at
+    least two whole chunks, the naive form up to max(chunk, 4096) keys, the
+    chunked one beyond."""
     s_q, s_kv = q.shape[1], k.shape[1]
     if impl == "swa_block" or (
         impl == "auto" and causal and window and not prefix
         and s_q == s_kv and window <= chunk and s_q % chunk == 0
         and s_q >= 2 * chunk
     ):
-        raise NotImplementedError(
-            "sliding-window block attention comes with the hybrid family "
-            "(ROADMAP Queue 1, \"Hybrid and the other families\")")
+        return attention_swa_block(
+            q, k, v, q_pos=q_pos, window=window,
+            chunk=max(window, chunk if s_q % chunk == 0 else window))
     if impl == "naive" or (impl == "auto" and s_kv <= max(chunk, 4096)):
         return attention_naive(q, k, v, q_pos=q_pos, k_pos=k_pos,
                                causal=causal, window=window, prefix=prefix)
@@ -164,7 +207,8 @@ def _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update=True):
     plain version on CPU tensors).
 
     q: [B, 1, H, D]; k_cache/v_cache: [B, S, KH, D]; new_k/new_v:
-    [B, 1, KH, D]; pos: a 0-d int32 tensor on the cache's device (the
+    [B, 1, KH, D] (unused without `update`: a cross-attention cache is
+    read only); pos: a 0-d int32 tensor on the cache's device (the
     engine's), or an int. A tensor `pos` is never read on the host: the row
     is written at a device index and K3 reads it on the device, so the step
     replays in a CUDA graph. Returns (out [B, 1, H, D], k_cache, v_cache)."""

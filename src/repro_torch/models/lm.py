@@ -10,14 +10,19 @@ axis and each layer writes its cache rows (or its SSM state) into its
 slice of the stacked caches or pools in place. The functions still return
 the caches, so callers read the same as against the reference.
 
-Families: attention LMs with a dense SwiGLU FFN (yi-6b, granite-3-2b,
-internlm2-20b, command-r-plus-104b) or a MoE FFN (granite-moe-1b-a400m,
-qwen3-moe-30b-a3b; `models/moe.py`, whose expert matmuls are the `moe_gmm`
-kernel), on both engines; the Mamba-2 SSM family (mamba2-130m;
-`models/ssm.py`, whose prefill scan is the `ssd_scan` kernel) on the dense
-engine. Dense decode attention is the `flash_decode` kernel, paged decode
-attention the `paged_decode` kernel. The hybrid, encoder-decoder and VLM
-families, and sliding-window caches, wait for a later slice.
+Families, all on the dense engine: attention LMs with a dense SwiGLU FFN
+(yi-6b, granite-3-2b, internlm2-20b, command-r-plus-104b) or a MoE FFN
+(granite-moe-1b-a400m, qwen3-moe-30b-a3b; `models/moe.py`, whose expert
+matmuls are the `moe_gmm` kernel), both also on the paged engine; the
+Mamba-2 SSM family (mamba2-130m; `models/ssm.py`, whose prefill scan is
+the `ssd_scan` kernel); the hybrid family (hymba-1.5b: attention beside
+SSM heads in every layer, sliding-window attention over a ring cache);
+the encoder-decoder family (whisper-medium: a non-causal encoder over
+frame embeddings, a decoder with cross-attention over its output); and
+the VLM family (paligemma-3b: patch embeddings as a bidirectional prefix
+of the text). Dense decode attention, over a cache, a ring or the
+encoder's output, is the `flash_decode` kernel; paged decode attention
+the `paged_decode` kernel.
 """
 from __future__ import annotations
 
@@ -37,15 +42,13 @@ from repro_torch.models.common import (
     paged_decode_attention,
     paged_prefill_attention,
     rms_norm,
+    sinusoid_pos_emb,
     swiglu,
 )
+from repro_torch.kernels.decode_attention.decode_attention import flash_decode
 from repro_torch.models.moe import moe_layer, moe_param_specs
 from repro_torch.models.params import ParamSpec, map_specs, torch_dtype
 from repro_torch.models.ssm import ssm_decode, ssm_forward, ssm_param_specs
-
-LATER_SLICE = ("the hybrid, encoder-decoder and VLM families and sliding-"
-               "window caches wait for a later slice of the port (ROADMAP "
-               "Queue 1, \"Hybrid and the other families\")")
 
 # ------------------------------------------------------------- param specs
 
@@ -77,18 +80,18 @@ def _mlp_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    """Refuse the families this package does not serve yet."""
-    if cfg.hybrid or cfg.enc_dec or cfg.vlm or cfg.sliding_window:
-        raise NotImplementedError(f"arch {cfg.name!r} (family={cfg.family}): "
-                                  f"{LATER_SLICE}")
-
-
-def _layer_specs(cfg: ArchConfig) -> Dict[str, Any]:
+def _layer_specs(cfg: ArchConfig, *, cross: bool = False) -> Dict[str, Any]:
+    """One layer: an SSM block (the SSM family), or attention (beside SSM
+    heads for the hybrid family, followed by cross-attention in an
+    enc-dec decoder) and the FFN. An encoder layer is the plain form."""
     if cfg.family == "ssm":
         return {"ssm_ln": ParamSpec((cfg.d_model,), ("embed",), init="ones"),
                 "ssm": ssm_param_specs(cfg)}
     s: Dict[str, Any] = {"attn": _attn_specs(cfg)}
+    if cfg.hybrid:
+        s["ssm"] = ssm_param_specs(cfg)
+    if cross:
+        s["cross"] = _attn_specs(cfg)
     if cfg.moe:
         s["moe"] = moe_param_specs(cfg)
         s["moe_ln"] = ParamSpec((cfg.d_model,), ("embed",), init="ones")
@@ -105,17 +108,26 @@ def _stack(tree, n: int):
 
 
 def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    """The parameter tree of a dense, MoE or SSM arch, in the reference's
-    names and shapes."""
-    _check_family(cfg)
+    """The parameter tree of any shipped arch, in the reference's names and
+    shapes: the encoder stack, its norm and the decoder's learned
+    positions (``dec_pos_embed [32768 // dec_ratio, d]``) for an enc-dec
+    arch, the patch projection for a VLM."""
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed")),
         "final_norm": ParamSpec((d,), ("embed",), init="ones"),
-        "layers": _stack(_layer_specs(cfg), cfg.n_layers),
+        "layers": _stack(_layer_specs(cfg, cross=cfg.enc_dec), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, cfg.vocab), ("embed", "vocab"))
+    if cfg.enc_dec:
+        specs["enc_layers"] = _stack(_layer_specs(cfg), cfg.n_enc_layers)
+        specs["enc_norm"] = ParamSpec((d,), ("embed",), init="ones")
+        specs["dec_pos_embed"] = ParamSpec((32768 // cfg.dec_ratio, d),
+                                           ("seq", "embed"))
+    if cfg.vlm:
+        specs["patch_proj"] = ParamSpec((d, d), ("embed", None),
+                                        init="fan_in")
     return map_specs(
         lambda s: ParamSpec(s.shape, s.axes, cfg.param_dtype, s.init, s.scale),
         specs)
@@ -124,20 +136,17 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------- attention
 
 
-def _project_qkv(p, h):
+def _proj(h, w, bias=None):
+    """[B, S, d] x [d, heads, hd] -> [B, S, heads, hd] in h's type."""
     b, s, d = h.shape
-    dt = h.dtype
-
-    def proj(w):
-        return (h @ w.to(dt).reshape(d, -1)).reshape(b, s, w.shape[1],
+    out = (h @ w.to(h.dtype).reshape(d, -1)).reshape(b, s, w.shape[1],
                                                      w.shape[2])
+    return out if bias is None else out + bias.to(h.dtype)
 
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
-    if "bq" in p:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    return q, k, v
+
+def _project_qkv(p, h):
+    return (_proj(h, p["wq"], p.get("bq")), _proj(h, p["wk"], p.get("bk")),
+            _proj(h, p["wv"], p.get("bv")))
 
 
 def _attn_out(p, o):
@@ -168,6 +177,14 @@ def _layer(layers, i: int):
             for k, v in layers.items()}
 
 
+def _depth(layers) -> int:
+    """The length of a stack's leading (layers) axis."""
+    leaf = layers
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
 def _unembed(params, x):
     dt = x.dtype
     table = params.get("lm_head")
@@ -181,58 +198,140 @@ def _unembed(params, x):
 # ------------------------------------------------ dense prefill and decode
 
 
-def attn_full(p, x, cfg: ArchConfig, *, positions):
-    """Full-sequence causal self-attention block (prefill). Returns
-    (attn_out, (k, v)) with the roped keys and the values, for the cache."""
+def attn_full(p, x, cfg: ArchConfig, *, positions, causal=True, prefix=0,
+              rope=True):
+    """Full-sequence self-attention block (prefill, or the encoder with
+    `causal` and `rope` off; the first `prefix` positions of a VLM prompt
+    attend both ways). Returns (attn_out, (k, v)) with the (roped) keys and
+    the values, for the cache."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, q_pos=positions, k_pos=positions, causal=True,
-                  window=cfg.sliding_window, impl=cfg.attn_impl,
-                  chunk=cfg.attn_chunk)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, q_pos=positions, k_pos=positions, causal=causal,
+                  window=cfg.sliding_window, prefix=prefix,
+                  impl=cfg.attn_impl, chunk=cfg.attn_chunk)
     return _attn_out(p, o), (k, v)
 
 
-def attn_decode(p, x, cache, cfg: ArchConfig, *, pos, cross=False):
-    """One-token self-attention against a dense KV cache: the new row is
-    written at `pos` (a 0-d int32 tensor on x's device) in place, then the
-    flash-decode kernel attends every position <= pos. Returns (attn_out,
-    (k_cache, v_cache))."""
-    kc, vc = cache
-    if cross:
-        raise NotImplementedError(f"cross-attention decode: {LATER_SLICE}")
-    if cfg.sliding_window and kc.shape[1] <= cfg.sliding_window:
-        raise NotImplementedError(f"ring (sliding-window) decode: "
-                                  f"{LATER_SLICE}")
+def attn_cross_full(p, x, enc_out, cfg: ArchConfig):
+    """Cross-attention of the decoder's positions over the encoder's
+    output (no mask, no rope). Returns (attn_out, (k, v)): the encoder's
+    keys and values, the decode steps' static cross cache."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = _proj(h, p["wq"], p.get("bq"))
+    enc_out = enc_out.to(h.dtype)
+    k = _proj(enc_out, p["wk"], p.get("bk"))
+    v = _proj(enc_out, p["wv"], p.get("bv"))
+    sq, sk = x.shape[1], enc_out.shape[1]
+    o = attention(q, k, v, q_pos=torch.arange(sq, device=x.device),
+                  k_pos=torch.arange(sk, device=x.device), causal=False,
+                  impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    return _attn_out(p, o), (k, v)
+
+
+def ring_decode_attention(q, k_cache, v_cache, new_k, new_v, pos,
+                          window: int):
+    """Sliding-window ring-buffer decode (cache slot = position % window):
+    the new K/V row lands at slot ``pos % window`` in place, then every
+    live slot is attended. The reference masks slot s live when
+    ``pos - (pos - s) % window >= 0``: every slot s <= pos while pos <
+    window, every slot after. Softmax does not depend on the keys' order,
+    so this is the flash-decode kernel over the whole ring at
+    ``min(pos, window - 1)``. `pos` (a 0-d int32 tensor or an int) is
+    never read on the host: the slot and the clamp are computed on the
+    device, so the step replays in a CUDA graph.
+
+    q: [B, 1, H, D]; k_cache/v_cache: [B, window, KH, D]; new_k/new_v:
+    [B, 1, KH, D]. Returns (out [B, 1, H, D], k_cache, v_cache)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_cache.device)
+    slot = (pos % window).reshape(1).long()
+    k_cache.index_copy_(1, slot, new_k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, new_v.to(v_cache.dtype))
+    last = torch.clamp(pos, max=window - 1)
+    out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, last)
+    return out[:, None], k_cache, v_cache
+
+
+def attn_decode(p, x, cache, cfg: ArchConfig, *, pos, cross=False,
+                rope=True):
+    """One-token attention against a dense KV cache: self-attention writes
+    the new row at `pos` (a 0-d int32 tensor on x's device) in place, into
+    a ring when the arch's window covers the cache; cross-attention reads
+    the encoder's static K/V, all of it, and writes nothing. Each runs
+    the flash-decode kernel. Returns (attn_out, (k_cache, v_cache))."""
+    kc, vc = cache
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if cross:
+        q = _proj(h, p["wq"], p.get("bq"))
+        o, _, _ = decode_attention(q, kc, vc, None, None, kc.shape[1] - 1,
+                                   update=False)
+        return _attn_out(p, o), (kc, vc)
     q, k, v = _project_qkv(p, h)
-    posv = torch.as_tensor(pos, device=x.device).reshape(1)
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k = apply_rope(k, posv, cfg.rope_theta)
-    o, kc, vc = decode_attention(q, kc, vc, k, v, pos)
+    if rope:
+        posv = torch.as_tensor(pos, device=x.device).reshape(1)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+    if cfg.sliding_window and kc.shape[1] <= cfg.sliding_window:
+        o, kc, vc = ring_decode_attention(q, kc, vc, k, v, pos, kc.shape[1])
+    else:
+        o, kc, vc = decode_attention(q, kc, vc, k, v, pos)
     return _attn_out(p, o), (kc, vc)
 
 
-def block_full(p, x, cfg: ArchConfig, *, positions, build_cache=False):
-    """One layer, full sequence. Returns (x, cache_entry): K/V for an
-    attention layer, the final SSM and conv states for an SSM layer, or
-    nothing without `build_cache`. (The reference also returns the MoE
-    aux loss, which serves training.)"""
+def _ring_layout(kv, window: int):
+    """A prompt's K or V [B, S, KH, D] in a `window`-slot ring (slot =
+    position % window): the last `window` rows, rolled by S % window."""
+    s_full = kv.shape[1]
+    if not window or s_full < window:
+        return kv
+    kv = kv[:, -window:]
+    shift = s_full % window
+    return torch.roll(kv, shift, dims=1) if shift else kv
+
+
+def block_full(p, x, cfg: ArchConfig, *, positions, causal=True, prefix=0,
+               rope=True, cross_src=None, build_cache=False):
+    """One layer, full sequence. Returns (x, cache_entry): with
+    `build_cache`, K/V of an attention layer (in a ring under a sliding
+    window), the final SSM and conv states of an SSM or hybrid layer, and
+    the cross K/V over `cross_src`; nothing otherwise. (The reference also
+    returns the MoE aux loss, which serves training.)"""
     if cfg.family == "ssm":
         h = rms_norm(x, p["ssm_ln"], cfg.norm_eps)
         if build_cache:
             out, h_fin, conv = ssm_forward(p["ssm"], h, cfg, return_state=True)
             return x + out, {"h": h_fin, "conv": conv}
         return x + ssm_forward(p["ssm"], h, cfg), {}
-    attn_o, (k, v) = attn_full(p["attn"], x, cfg, positions=positions)
-    x = _ffn(p, x + attn_o, cfg)
-    return x, ({"k": k, "v": v} if build_cache else {})
+    cache: Dict[str, Any] = {}
+    attn_o, (k, v) = attn_full(p["attn"], x, cfg, positions=positions,
+                               causal=causal, prefix=prefix, rope=rope)
+    if cfg.hybrid:
+        h = rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
+        if build_cache:
+            ssm_o, cache["h"], cache["conv"] = ssm_forward(
+                p["ssm"], h, cfg, return_state=True)
+        else:
+            ssm_o = ssm_forward(p["ssm"], h, cfg)
+        x = x + 0.5 * (attn_o + ssm_o)
+    else:
+        x = x + attn_o
+    if build_cache:
+        cache["k"] = _ring_layout(k, cfg.sliding_window)
+        cache["v"] = _ring_layout(v, cfg.sliding_window)
+    if cross_src is not None:
+        cross_o, (ck, cv) = attn_cross_full(p["cross"], x, cross_src, cfg)
+        if build_cache:
+            cache["cross_k"], cache["cross_v"] = ck, cv
+        x = x + cross_o
+    return _ffn(p, x, cfg), cache
 
 
 def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
     """One layer, one token. Returns (x, new_layer_cache); the attention
-    cache is updated in place (the same tensors come back)."""
+    cache is updated in place (the same tensors come back), the SSM state
+    of an SSM or hybrid layer is new, the cross cache is read only."""
     if cfg.family == "ssm":
         h = rms_norm(x, p["ssm_ln"], cfg.norm_eps)
         out, st = ssm_decode(p["ssm"], {"h": layer_cache["h"],
@@ -240,18 +339,35 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
         return x + out, st
     attn_o, (kc, vc) = attn_decode(p["attn"], x,
                                    (layer_cache["k"], layer_cache["v"]), cfg,
-                                   pos=pos)
-    return _ffn(p, x + attn_o, cfg), {"k": kc, "v": vc}
+                                   pos=pos, rope=not cfg.enc_dec)
+    new: Dict[str, Any] = {"k": kc, "v": vc}
+    if cfg.hybrid:
+        h = rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
+        ssm_o, st = ssm_decode(p["ssm"], {"h": layer_cache["h"],
+                                          "conv": layer_cache["conv"]}, h,
+                               cfg)
+        new.update(st)
+        x = x + 0.5 * (attn_o + ssm_o)
+    else:
+        x = x + attn_o
+    if "cross" in p:
+        cross_o, _ = attn_decode(p["cross"], x, (layer_cache["cross_k"],
+                                                 layer_cache["cross_v"]),
+                                 cfg, pos=pos, cross=True)
+        x = x + cross_o
+    return _ffn(p, x, cfg), new
 
 
-def run_layers_full(layers, x, cfg: ArchConfig, *, positions,
-                    build_cache=False):
-    """Apply all layers in a Python loop over the stacked axis. Returns
-    (x, stacked_cache) with each cache leaf stacked to [L, ...]."""
+def run_layers_full(layers, x, cfg: ArchConfig, *, positions, causal=True,
+                    prefix=0, rope=True, cross_src=None, build_cache=False):
+    """Apply every layer of a stack (the decoder's, or the encoder's) in a
+    Python loop over its stacked axis. Returns (x, stacked_cache) with
+    each cache leaf stacked to [L, ...]."""
     entries = []
-    for i in range(cfg.n_layers):
+    for i in range(_depth(layers)):
         x, cache = block_full(_layer(layers, i), x, cfg, positions=positions,
-                              build_cache=build_cache)
+                              causal=causal, prefix=prefix, rope=rope,
+                              cross_src=cross_src, build_cache=build_cache)
         entries.append(cache)
     caches = {k: torch.stack([e[k] for e in entries])
               for k in entries[0]} if entries and entries[0] else {}
@@ -271,36 +387,85 @@ def run_layers_decode(layers, caches, x, cfg: ArchConfig, *, pos):
     return x, caches
 
 
+def _vlm_scale(cfg: ArchConfig) -> float:
+    """The VLM's embedding scale, sqrt(d_model), rounded to the compute
+    type, as the reference multiplies by a scalar of that type."""
+    return float(torch.tensor(cfg.d_model ** 0.5,
+                              dtype=torch_dtype(cfg.dtype)))
+
+
 def _embed_in(params, batch, cfg: ArchConfig):
-    """Token embedding (no VLM frontend). Returns (x, positions)."""
-    x = embed_lookup(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
+    """Token embedding, after the VLM's projected patches (its text scaled
+    by sqrt(d_model)). Returns (x, positions)."""
+    dt = torch_dtype(cfg.dtype)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    if cfg.vlm:
+        x = x * _vlm_scale(cfg)
+        patches = batch["patches"].to(dt) @ params["patch_proj"].to(dt)
+        x = torch.cat([patches, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
 
 
-def _pad_cache_seq(layer_caches, pad_to: Optional[int]):
+def _encode(params, frames, cfg: ArchConfig):
+    """The enc-dec encoder over frame embeddings [B, S_enc, d]: sinusoidal
+    positions, non-causal self-attention without rope, the final norm."""
+    dt = torch_dtype(cfg.dtype)
+    frames = frames.to(dt)
+    s = frames.shape[1]
+    x = frames + sinusoid_pos_emb(s, cfg.d_model, dt, frames.device)[None]
+    x, _ = run_layers_full(params["enc_layers"], x, cfg,
+                           positions=torch.arange(s, device=x.device),
+                           causal=False, rope=False)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _pad_cache_seq(layer_caches, cfg: ArchConfig, pad_to: Optional[int]):
     """Pad the attention caches along seq so decode can write past the
-    prompt (the reference's, without its sliding-window ring case)."""
+    prompt; a ring (sliding window) only up to its window."""
     out = dict(layer_caches)
     for key in ("k", "v"):
-        if key in out and pad_to and out[key].shape[2] < pad_to:
-            kv = out[key]  # [L, B, S, KH, D]
-            out[key] = F.pad(kv, (0, 0, 0, 0, 0, pad_to - kv.shape[2]))
+        if key not in out:
+            continue
+        kv = out[key]  # [L, B, S, KH, D]
+        target = pad_to
+        if cfg.sliding_window:
+            target = (min(cfg.sliding_window, pad_to) if pad_to
+                      else cfg.sliding_window)
+        if target and kv.shape[2] < target:
+            out[key] = F.pad(kv, (0, 0, 0, 0, 0, target - kv.shape[2]))
     return out
 
 
 def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
-    """Build decode state from a full prompt. batch["tokens"]: [B, S].
-    Returns (cache, last_logits [B, 1, V] f32); cache = {"pos": S (a 0-d
-    int32 tensor on the tokens' device, as the reference's is), "layers":
-    stacked per-layer caches, K/V padded to `pad_to` rows}."""
-    _check_family(cfg)
-    x, positions = _embed_in(params, batch, cfg)
-    x, layer_caches = run_layers_full(params["layers"], x, cfg,
-                                      positions=positions, build_cache=True)
+    """Build decode state from a full prompt. batch["tokens"]: [B, S] text
+    tokens, with batch["frames"] [B, S_enc, d] for an enc-dec arch (the
+    encoder's input) or batch["patches"] [B, P, d] for a VLM (a prefix of
+    P positions before the text). `pad_to` counts text positions.
+    Returns (cache, last_logits [B, 1, V] f32); cache = {"pos": the
+    decoder's length (a 0-d int32 tensor on the tokens' device, as the
+    reference's is), "layers": stacked per-layer caches, K/V padded to
+    `pad_to` rows (plus the prefix), a ring to its window}."""
+    dt = torch_dtype(cfg.dtype)
+    if cfg.enc_dec:
+        enc_out = _encode(params, batch["frames"], cfg)
+        x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+        x = x + params["dec_pos_embed"][: x.shape[1]].to(dt)[None]
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, layer_caches = run_layers_full(params["layers"], x, cfg,
+                                          positions=positions, rope=False,
+                                          cross_src=enc_out, build_cache=True)
+    else:
+        x, positions = _embed_in(params, batch, cfg)
+        prefix = x.shape[1] - batch["tokens"].shape[1] if cfg.vlm else 0
+        x, layer_caches = run_layers_full(params["layers"], x, cfg,
+                                          positions=positions, prefix=prefix,
+                                          build_cache=True)
+        if pad_to is not None:
+            pad_to = pad_to + prefix
     cache = {"pos": torch.full((), x.shape[1], dtype=torch.int32,
                                device=x.device),
-             "layers": _pad_cache_seq(layer_caches, pad_to)}
+             "layers": _pad_cache_seq(layer_caches, cfg, pad_to)}
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return cache, _unembed(params, x)
 
@@ -309,12 +474,21 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
     """One decode step for the whole batch at the cache's position.
     batch["tokens"]: [B, 1]; cache["pos"]: a 0-d int32 tensor on the
     caches' device, which the step never reads on the host (so that it
-    replays as a CUDA graph: `launch.serve.jit_decode_step`). The caches
-    are updated in place. Returns (logits [B, 1, V] f32, {"pos": pos + 1, a
-    new tensor, "layers": the same caches})."""
-    _check_family(cfg)
+    replays as a CUDA graph: `launch.serve.jit_decode_step`): an enc-dec
+    decoder reads its learned position at ``min(pos, max_dec - 1)``
+    through a device index. The caches are updated in place. Returns
+    (logits [B, 1, V] f32, {"pos": pos + 1, a new tensor, "layers": the
+    same caches})."""
+    dt = torch_dtype(cfg.dtype)
     pos = cache["pos"]
-    x = embed_lookup(params["embed"], batch["tokens"]).to(torch_dtype(cfg.dtype))
+    x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    if cfg.vlm:
+        x = x * _vlm_scale(cfg)
+    if cfg.enc_dec:
+        table = params["dec_pos_embed"]
+        row = torch.clamp(torch.as_tensor(pos, device=x.device),
+                          max=table.shape[0] - 1).long().reshape(1)
+        x = x + table.index_select(0, row).to(dt)[None]
     x, layers = run_layers_decode(params["layers"], cache["layers"], x, cfg,
                                   pos=pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

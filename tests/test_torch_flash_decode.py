@@ -109,6 +109,20 @@ def test_plain_cache_off_the_tile(s, pos):
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("b,kh,h,s,pos", [
+    (2, 1, 8, 1056, 1040),    # paligemma-3b's heads: 8 on one KV head
+    (2, 1, 8, 77, 0),
+    (1, 2, 32, 300, 299),     # 16 query heads a KV head, the kernel's most
+    (3, 1, 1, 130, 64),
+])
+def test_plain_head_dim_256_matches_oracle(b, kh, h, s, pos):
+    """Head dim 256, which the kernel takes since paligemma-3b: the plain
+    version against the reference's oracle, S off the tile."""
+    q, k, v = _problem(s + pos, b, h, kh, 256, s)
+    np.testing.assert_allclose(_port(q, k, v, pos), _oracle(q, k, v, pos),
+                               rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("s,pos", [(64, 0), (64, 37), (200, 130), (40, 39)])
 def test_single_decode_matches_reference(s, pos):
     """The dense engine's decode attention: the new K/V row lands at pos in
@@ -180,6 +194,8 @@ def test_wrapper_rejects_bad_inputs():
     (8, 128, 128, 2, 3),      # yi-6b bf16: 68 KiB per padded K/V tile pair
     (8, 128, 128, 4, 1),      # yi-6b f32: one 132 KiB pair
     (2, 16, 128, 4, 11),      # reduced yi-6b f32
+    (8, 256, 64, 2, 3),       # paligemma-3b bf16: 66 KiB per tile pair
+    (8, 256, 64, 4, 1),       # paligemma-3b f32: one 130 KiB pair
 ])
 def test_kernel_depth_clamps_to_shared_memory(g, d, blk, itemsize, want):
     assert da.flash_kernel_depth(64, g=g, d=d, blk=blk, itemsize=itemsize,

@@ -655,6 +655,70 @@ def test_flash_decode_groups_and_head_dims(cuda_device, dtype, d, g):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kh", [1, 2])
+@pytest.mark.parametrize("g", [1, 8, 16])
+def test_flash_decode_head_dim_256(cuda_device, dtype, kh, g):
+    """Head dim 256 (paligemma-3b: 8 heads on one KV head), G 1, 8 and 16,
+    S 77 and 1056 (off the 64-row tile), pos 0, mid, last and past S;
+    depths 1, 2 and solved, clamped to the K/V tile pairs one block's
+    shared memory holds (3 in bf16, 1 in f32)."""
+    from repro_torch.core import autotune
+
+    fit = 3 if dtype == torch.bfloat16 else 1
+    for s in (77, 1056):
+        q, k, v = _dense_problem(cuda_device, dtype, 2, kh * g, kh, 256, s,
+                                 seed=g + s)
+        for pos in (0, s // 2, s - 1, s + 5):
+            ref = da.flash_decode_plain(q, k, v, pos).float()
+            for depth in (1, 2, None):
+                out = da.flash_decode(q, k, v, pos, depth=depth)
+                assert autotune.last_choice("flash_decode") <= fit
+                torch.testing.assert_close(out.float(), ref,
+                                           **DECODE_TOL[dtype])
+    assert launch_counts()["flash_decode"] == 24
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, None])
+def test_flash_decode_head_dim_256_splits(cuda_device, dtype, splits):
+    """paligemma-3b's dense decode shape (B 8, H 8, KH 1, D 256, S 1056):
+    one split, two and the plan's, pos at a split boundary +-1."""
+    q, k, v = _dense_problem(cuda_device, dtype, 8, 8, 1, 256, 1056, seed=5)
+    _, per = da.split_plan(8, 1, 1056, da.FLASH_BLK, _sms(cuda_device),
+                           splits)
+    edge = per * da.FLASH_BLK
+    for pos in (edge - 1, edge, edge + 1, 1040):
+        torch.testing.assert_close(
+            da.flash_decode(q, k, v, pos, splits=splits).float(),
+            da.flash_decode_plain(q, k, v, pos).float(), **DECODE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_decode_runs_the_kernel_across_the_wrap(cuda_device, dtype):
+    """The sliding-window ring decode (hymba-1.5b's heads: 25 on 5 KV
+    heads, D 64) over 2w steps from an empty ring of w = 96 slots, pos on
+    the device: each step's output against the plain version over the
+    slots written so far, then over the whole ring after the wrap."""
+    from repro_torch.models import lm
+
+    w, b = 96, 2
+    q, k, v = _dense_problem(cuda_device, dtype, b, 25, 5, 64, 2 * w, seed=4)
+    kc = torch.zeros(b, w, 5, 64, dtype=dtype, device=cuda_device)
+    vc = torch.zeros_like(kc)
+    for pos in range(2 * w):
+        dev_pos = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+        out, ok, ov = lm.ring_decode_attention(
+            q[:, None], kc, vc, k[:, pos:pos + 1], v[:, pos:pos + 1],
+            dev_pos, w)
+        assert ok is kc and ov is vc
+        assert torch.equal(kc[:, pos % w], k[:, pos])
+        want = da.flash_decode_plain(q, kc, vc, min(pos, w - 1))
+        torch.testing.assert_close(out[:, 0].float(), want.float(),
+                                   **DECODE_TOL[dtype])
+    assert launch_counts()["flash_decode"] == 2 * w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_one_split_when_the_batch_fills_the_card(cuda_device,
                                                               dtype):
     """B * KH >= 2 blocks per SM: the plan takes one split, and the split
@@ -708,6 +772,10 @@ def test_flash_decode_raises_instead_of_falling_back(cuda_device):
         da.flash_decode(q, k.transpose(1, 2), v.transpose(1, 2), 3)
     with pytest.raises(ValueError):         # a tile not in 16-row chunks
         da.flash_decode(q, k, v, 3, blk=24)
+    wq, wk, wv = _dense_problem(cuda_device, torch.bfloat16, 1, 32, 1, 256,
+                                64)
+    with pytest.raises(ValueError):         # G 32 not built at head_dim 256
+        da.flash_decode(wq, wk, wv, 3)
     assert launch_counts()["flash_decode"] == 0
 
 
@@ -866,6 +934,40 @@ def test_ssd_scan_raises_instead_of_falling_back(cuda_device):
 
 
 # ------------------------------------------------- captured steps (graphs)
+
+
+def test_capture_survives_dead_graphs_in_cycles(cuda_device):
+    """Earlier graphs that died in reference cycles are not destroyed
+    inside a later capture, even when the collector runs there: the
+    capture completes and its replay is right."""
+    import gc
+
+    from repro_torch.core.step_graph import StepGraph
+
+    def step(x, scale):
+        return x * scale + 1.0
+
+    def collecting_step(x, scale):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()                    # a collection inside the capture
+        return step(x, scale)
+
+    gc.disable()                            # keep the dead graphs until then
+    try:
+        for _ in range(3):
+            dead = StepGraph(step, "dead")
+            x = torch.ones(64, device=cuda_device)
+            dead((x,), (torch.tensor(2.0, device=cuda_device),))
+            dead.cycle = dead
+            del dead
+        live = StepGraph(collecting_step, "live")
+        x = torch.ones(64, device=cuda_device)
+        live((x,), (torch.tensor(2.0, device=cuda_device),))
+        out = live((x,), (torch.tensor(5.0, device=cuda_device),))
+    finally:
+        gc.enable()
+    assert live.captures == 1 and live.replays == 1
+    assert torch.equal(out, torch.full_like(x, 6.0))
 
 
 def test_flash_decode_replays_with_pos_read_on_the_device(cuda_device):

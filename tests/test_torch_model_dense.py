@@ -1,14 +1,20 @@
 """The dense serving engine of the port against the JAX reference.
 
-Reduced yi-6b (dense), granite-moe-1b-a400m (MoE) and mamba2-130m (SSM),
-in f32, with the reference's parameters bridged through numpy
-(`params_from_numpy`): prefill logits and caches, and four decode steps,
-agree within the reference's f32 parity bound (2e-3); the greedy token
-streams of `prefill` + `timed_decode_loop` are identical to the
-reference's; `serve(engine="dense")` runs on the CPU when asked, and
+Reduced yi-6b (dense), granite-moe-1b-a400m (MoE), mamba2-130m (SSM),
+hymba-1.5b (hybrid), whisper-medium (encoder-decoder) and paligemma-3b
+(VLM), in f32, with the reference's parameters bridged through numpy
+(`params_from_numpy`): prefill logits and every cache leaf, and four
+decode steps, agree within the reference's f32 parity bound (2e-3); the
+greedy token streams of `prefill` + `timed_decode_loop` are identical to
+the reference's; `serve(engine="dense")` runs on the CPU when asked, and
 raises RuntimeError by default where there is no CUDA device. The mamba2
 prompts are a multiple of its reduced `ssm_chunk` (16), so its prefill
 goes the SSD-scan kernel's route (its plain version on CPU tensors).
+Reduced hymba (window 32, `attn_chunk` 32) takes prompts of 64 tokens, so
+its prefill runs the sliding-window block attention and its ring wraps in
+the first decode step. whisper's prompts are frame embeddings with a
+quarter as many text tokens, paligemma's patch embeddings before the
+text (`configs.token_split`).
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +26,7 @@ import repro_torch
 from repro.configs import get_config as ref_get_config
 from repro.launch import serve as ref_serve
 from repro.models import build_model as ref_build_model
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, token_split
 from repro_torch.core import autotune
 from repro_torch.kernels import launch_counts
 from repro_torch.launch import serve as port_serve
@@ -29,7 +35,10 @@ from repro_torch.models.params import params_from_numpy
 
 TOL = 2e-3
 F32 = dict(dtype="float32", param_dtype="float32")
-ARCHS = ["yi-6b", "granite-moe-1b-a400m", "mamba2-130m"]
+ARCHS = ["yi-6b", "granite-moe-1b-a400m", "mamba2-130m", "hymba-1.5b",
+         "whisper-medium", "paligemma-3b"]
+# prompt positions (frontend + text): hymba's reach its swa block (2 x 32)
+PROMPT = {"hymba-1.5b": 64}
 
 
 @pytest.fixture(autouse=True)
@@ -46,7 +55,7 @@ def _bridge(arch, seed=0):
     cfg = get_config(arch).reduced().replace(**F32)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(seed))
-    if cfg.family == "ssm":
+    if cfg.ssm:
         # random A_log / dt_bias / D: the init's zeros and ones hide mistakes
         rng = np.random.RandomState(seed + 7)
         ssm_p = dict(ref_params["layers"]["ssm"])
@@ -60,9 +69,19 @@ def _bridge(arch, seed=0):
     return ref_model, ref_params, build_model(cfg), params, cfg
 
 
-def _tokens(cfg, b, s, seed):
-    return np.random.RandomState(seed).randint(0, cfg.vocab,
-                                               (b, s)).astype(np.int32)
+def _prompts(cfg, b, s, seed):
+    """numpy inputs of a prompt of `s` positions: the text tokens, and the
+    frame (enc-dec) or patch (VLM) embeddings of a stub frontend. Returns
+    (the reference's batch, the port's, text length, decode position)."""
+    front, text = token_split(cfg, s)
+    rng = np.random.RandomState(seed)
+    batch = {"tokens": rng.randint(0, cfg.vocab, (b, text)).astype(np.int32)}
+    if cfg.enc_dec or cfg.vlm:
+        emb = (rng.randn(b, front, cfg.d_model) * 0.02).astype(np.float32)
+        batch["frames" if cfg.enc_dec else "patches"] = emb
+    pos = text + (front if cfg.vlm else 0)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()}, text, pos)
 
 
 def _flat(tree, prefix=""):
@@ -91,36 +110,55 @@ def test_mamba2_params_bridge_keeps_names_and_shapes():
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-medium",
                                   "paligemma-3b"])
-def test_families_of_a_later_slice_are_refused(arch):
-    with pytest.raises(NotImplementedError):
-        build_model(get_config(arch).reduced()).param_specs()
+def test_paged_engine_refuses_the_dense_only_families(arch):
+    """The hybrid, enc-dec and VLM archs run on the dense engine only, as
+    in the reference (`supports_paged_decode`): the paged engine and the
+    paged steps raise ValueError for them."""
+    from repro_torch.serve import PagedServingEngine
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    assert not model.supports_paged_decode()
+    assert not ref_build_model(ref_get_config(arch).reduced()
+                               ).supports_paged_decode()
+    with pytest.raises(ValueError):
+        PagedServingEngine(cfg, device="cpu")
+    with pytest.raises(ValueError):
+        model.decode_step_paged({}, None, None, None, None,
+                                {"tokens": torch.zeros(1, 1)})
+    with pytest.raises(ValueError):
+        model.prefill_chunk_paged({}, None, None, None, 0,
+                                  {"tokens": torch.zeros(1, 4)}, 4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_steps_match_reference(arch):
-    """Prefill logits and caches (padded past the prompt), then four decode
+    """Prefill logits and every cache leaf (K/V padded past the prompt, a
+    ring at its window, SSM and conv states, cross K/V), then four decode
     steps: logits and the caches they write, at 2e-3."""
     ref_model, ref_params, model, params, cfg = _bridge(arch)
-    toks = _tokens(cfg, 2, 32, 1)
-    pad_to = 40
-    ref_cache, ref_logits = ref_model.prefill(
-        ref_params, {"tokens": jnp.asarray(toks)}, pad_to=pad_to)
-    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(toks)},
-                                  pad_to=pad_to)
+    ref_batch, batch, text, pos = _prompts(cfg, 2, PROMPT.get(arch, 32), 1)
+    pad_to = text + 8
+    ref_cache, ref_logits = ref_model.prefill(ref_params, ref_batch,
+                                              pad_to=pad_to)
+    cache, logits = model.prefill(params, batch, pad_to=pad_to)
     assert logits.shape == ref_logits.shape and logits.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
                                rtol=TOL, atol=TOL)
-    assert cache["pos"] == int(ref_cache["pos"]) == 32
+    assert cache["pos"] == int(ref_cache["pos"]) == pos
     assert set(cache["layers"]) == set(ref_cache["layers"])
     for key, leaf in cache["layers"].items():
+        assert tuple(leaf.shape) == ref_cache["layers"][key].shape, key
         np.testing.assert_allclose(leaf.float().numpy(),
                                    np.asarray(ref_cache["layers"][key],
                                               np.float32),
                                    rtol=TOL, atol=TOL, err_msg=key)
-    if cfg.family == "ssm":
+    if cfg.ssm:
         assert autotune.last_choice("ssd_scan") is not None   # K4's route
-    else:
-        assert cache["layers"]["k"].shape[2] == pad_to
+    if cfg.sliding_window:
+        assert cache["layers"]["k"].shape[2] == cfg.sliding_window  # a ring
+    elif cfg.family != "ssm":
+        assert cache["layers"]["k"].shape[2] == pos + 8
     leaves = {k: v for k, v in cache["layers"].items()}
     rng = np.random.RandomState(2)
     for _ in range(4):
@@ -131,7 +169,7 @@ def test_prefill_and_decode_steps_match_reference(arch):
                                           {"tokens": torch.from_numpy(step)})
         np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
                                    rtol=TOL, atol=TOL)
-    assert cache["pos"] == int(ref_cache["pos"]) == 36
+    assert cache["pos"] == int(ref_cache["pos"]) == pos + 4
     for key, leaf in cache["layers"].items():
         assert leaf is leaves[key]              # updated in place
         np.testing.assert_allclose(leaf.float().numpy(),
@@ -147,19 +185,19 @@ def test_greedy_tokens_match_reference(arch):
     """prefill + timed_decode_loop in both packages, the reference's jitted
     step: identical greedy streams."""
     ref_model, ref_params, model, params, cfg = _bridge(arch, seed=3)
-    batch, text_len, gen = 2, 48, 10
-    toks = _tokens(cfg, batch, text_len, 4)
+    batch, gen = 2, 10
+    ref_prompts, prompts, text_len, _ = _prompts(
+        cfg, batch, PROMPT.get(arch, 48), 4)
 
     ref_cache, ref_logits = ref_model.prefill(
-        ref_params, {"tokens": jnp.asarray(toks)}, pad_to=text_len + gen)
+        ref_params, ref_prompts, pad_to=text_len + gen)
     first = jnp.argmax(ref_logits[:, -1:], axis=-1).astype(jnp.int32)
     ref_out, _, _ = ref_serve.timed_decode_loop(
         ref_serve.jit_decode_step(ref_model), ref_params, ref_cache, first,
         steps=gen - 1, make_batch=lambda t, i: {"tokens": t})
     want = np.concatenate([np.asarray(t) for t in ref_out], axis=1)
 
-    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(toks)},
-                                  pad_to=text_len + gen)
+    cache, logits = model.prefill(params, prompts, pad_to=text_len + gen)
     first = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     out, last, lat = port_serve.timed_decode_loop(
         model.decode_step, params, cache, first, steps=gen - 1,
@@ -192,7 +230,7 @@ def test_serve_dense_runs_on_the_cpu_when_asked(arch):
     assert all(0 <= t < cfg.vocab for row in stats["generated"] for t in row)
     assert stats["p50_ms"] > 0 and stats["decode_tok_per_s"] > 0
     # the paged engine is one flag away, for the archs it serves
-    if arch != "mamba2-130m":
+    if build_model(cfg).supports_paged_decode():
         paged = port_serve.serve(cfg, batch=2, prompt_len=12, gen=3,
                                  engine="paged", block_size=4, device="cpu")
         assert paged["states"] == ["finished"] * 2
@@ -226,11 +264,11 @@ def test_jit_decode_step_matches_reference(arch):
     greedy steps from the same prefill: logits and caches at 2e-3, tokens
     identical, and the cache's pos equal, a 0-d int32 tensor."""
     ref_model, ref_params, model, params, cfg = _bridge(arch, seed=5)
-    toks = _tokens(cfg, 2, 32, 6)
-    ref_cache, ref_logits = ref_model.prefill(
-        ref_params, {"tokens": jnp.asarray(toks)}, pad_to=48)
-    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(toks)},
-                                  pad_to=48)
+    ref_prompts, prompts, text, pos = _prompts(cfg, 2, PROMPT.get(arch, 32),
+                                               6)
+    ref_cache, ref_logits = ref_model.prefill(ref_params, ref_prompts,
+                                              pad_to=text + 16)
+    cache, logits = model.prefill(params, prompts, pad_to=text + 16)
     ref_decode = ref_serve.jit_decode_step(ref_model)
     decode = port_serve.jit_decode_step(model)
     ref_tok = jnp.argmax(ref_logits[:, -1:], axis=-1).astype(jnp.int32)
@@ -244,9 +282,10 @@ def test_jit_decode_step_matches_reference(arch):
         ref_tok = jnp.argmax(ref_logits, axis=-1).astype(jnp.int32)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         np.testing.assert_array_equal(tok.numpy(), np.asarray(ref_tok))
-    pos = cache["pos"]
+    want_pos, pos = pos, cache["pos"]
     assert isinstance(pos, torch.Tensor) and pos.dim() == 0
-    assert pos.dtype == torch.int32 and int(pos) == int(ref_cache["pos"]) == 40
+    assert pos.dtype == torch.int32
+    assert int(pos) == int(ref_cache["pos"]) == want_pos + 8
     for key, leaf in cache["layers"].items():
         np.testing.assert_allclose(leaf.float().numpy(),
                                    np.asarray(ref_cache["layers"][key],
@@ -264,7 +303,8 @@ def test_decode_steps_read_no_position_on_the_host():
     from repro_torch.models import common, lm
 
     for fn in (lm.decode_step, lm.attn_decode, lm.block_decode,
-               lm.run_layers_decode, lm.decode_step_paged,
+               lm.run_layers_decode, lm.ring_decode_attention,
+               lm.decode_step_paged,
                lm.paged_attn_decode, common._single_decode,
                common.paged_cache_append, common.paged_decode_attention):
         src = inspect.getsource(fn)
