@@ -127,8 +127,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      TFLOP/s f32); then a profile of its decode steps, as 5c;
   3d. (after 6c, so that the phases above run as before) dense
      flash-decode at paligemma-3b's heads (8 on one KV head, head dim
-     256) over 1056 rows, f32 and bf16 at the same bounds, depths 1, 2 and
-     solved at B 3, splits 1, 2 and the plan's at B 8; and the
+     256) over 1056 rows and at whisper-medium's decoder self-attention
+     (16 on 16, D 64) over 288 rows, at pos 0, half the cache, the first,
+     middle and last decode positions and the last row, f32 and bf16 at
+     the same bounds, depths 1, 2 and solved at B 3, splits 1, 2 and the
+     plan's at B 8; and the
      sliding-window ring decode (`models.lm.ring_decode_attention`) at
      hymba-1.5b's heads (25 on 5, D 64) over a ring of 1024 slots, pos
      before, at and after the wrap (the new row at slot pos % 1024, the
@@ -147,9 +150,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      replay. Each with a profile of replayed decode steps, and hymba's K4
      times at its prefill shape (b 8, s 2048, nh 50, p 64, n 16);
   6e. K3 times at paligemma-3b's decode shape (B 8, S 1056, pos 1040, D
-     256), whisper-medium's cross shape (B 8, 16 heads, S 1024, pos 1023)
-     and hymba-1.5b's ring (B 8, 25 on 5 heads, 1024 slots, pos 1023), the
-     method of phase 6c; then `launch.serve_batched --engine both
+     256), whisper-medium's self-attention (B 8, 16 heads, S 288, pos
+     272) and cross shape (S 1024, pos 1023) and hymba-1.5b's ring (B 8,
+     25 on 5 heads, 1024 slots, pos 1023), each shape derived from its
+     config and phase 5e's run (`family_k3_shapes`), the method of phase
+     6c; then `launch.serve_batched --engine both
      --prefix-cache` (its asserts must hold);
   5b. the MoE path: `serve_paged` for qwen3-moe-30b-a3b at full width
      (48 layers, 128 experts, 61.1 GB of bf16 weights), the same traffic
@@ -237,6 +242,12 @@ prints one JSON line.
 
 likewise times only the SSD scan (K4) at phase 6c's shape in bf16 and f32
 (each checked against its plain version) and prints one JSON line.
+
+    python3 chip_smoke.py --dense-first-step
+
+likewise takes phase 5c's first dense decode step apart (its eager run,
+capture and replay, and the collections of the garbage collector inside
+it) over six runs of yi-6b's dense path, and prints one JSON line.
 """
 from __future__ import annotations
 
@@ -1246,6 +1257,90 @@ def ssd_times(torch) -> dict:
     return out
 
 
+def dense_first_steps(torch, runs: int = 6) -> dict:
+    """Phase 5c's first decode step, taken apart: yi-6b's dense path at
+    its `DENSE_SERVE` size (this checkout's package, one set of bf16
+    weights from seed 0, strict), `runs` times over, each with a new
+    decode step graph, as `serve` drives it: prefill, then
+    `timed_decode_loop` through `jit_decode_step`. A run reports its first
+    step (its eager run, the capture and the first replay), the capture's
+    time (`core.step_graph.stats()`), the p50 of the other steps, one more
+    eager step after them, and the collector's collections inside the
+    first step and after it (count and ms, by `gc.callbacks`). Also the
+    cost of a `gc.freeze()` + `gc.unfreeze()` pair over the objects then
+    alive."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import guard, step_graph
+    from repro_torch.launch.serve import (SERVING_OVERRIDES, jit_decode_step,
+                                          make_prompts, timed_decode_loop)
+    from repro_torch.models import build_model
+
+    cfg = get_config("yi-6b").replace(**SERVING_OVERRIDES)
+    kw = DENSE_SERVE["yi-6b"]
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen, "cuda")
+    guard.set_strict(True)
+    collections = []
+    started = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        else:
+            collections.append((time.perf_counter(), info["generation"],
+                                time.perf_counter() - started["t"]))
+
+    gc.callbacks.append(on_gc)
+    out = []
+    try:
+        for _ in range(runs):
+            prompts, text = make_prompts(cfg, kw["batch"], kw["prompt_len"],
+                                         np.random.default_rng(0), "cuda")
+            cache, logits = model.prefill(params, prompts,
+                                          pad_to=text + kw["gen"])
+            tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            since = step_graph.stats()
+            decode = jit_decode_step(model)
+            t0 = time.perf_counter()
+            _, tokens, lat = timed_decode_loop(
+                decode, params, cache, tokens, steps=kw["gen"] - 1,
+                make_batch=lambda t, i: {"tokens": t})
+            t1 = t0 + lat[0]
+            graphs = graph_delta(since)["dense_decode"]
+            te = time.perf_counter()
+            model.decode_step(params, cache, {"tokens": tokens})
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - te) * 1e3
+            first = [c for c in collections if t0 <= c[0] <= t1]
+            rest = [c for c in collections if t1 < c[0] <= te]
+            out.append({
+                "first_ms": lat[0] * 1e3,
+                "capture_ms": graphs["capture_s"] * 1e3,
+                "p50_rest_ms": statistics.median(lat[1:]) * 1e3,
+                "eager_ms": eager_ms,
+                "gc_first": [len(first), sum(c[2] for c in first) * 1e3,
+                             max((c[1] for c in first), default=None)],
+                "gc_rest": [len(rest), sum(c[2] for c in rest) * 1e3],
+                "captures": graphs["captures"]})
+            del cache, logits, decode
+    finally:
+        gc.callbacks.remove(on_gc)
+    n_objects = len(gc.get_objects())
+    t0 = time.perf_counter()
+    gc.freeze()
+    gc.unfreeze()
+    freeze_ms = (time.perf_counter() - t0) * 1e3
+    return {"runs": out, "gc_objects": n_objects,
+            "freeze_unfreeze_ms": freeze_ms}
+
+
 def round_floor_ms(cfg, params) -> float:
     """A decode round reads every weight once, but of the embedding table
     only the round's rows: the rest of the parameter bytes over 3.35 TB/s."""
@@ -1389,43 +1484,55 @@ def check_dense_parity(torch) -> None:
 
 
 def check_family_parity(torch) -> None:
-    """K3 at paligemma-3b's heads (H 8, KH 1, D 256) over DENSE_S rows, B 3,
-    pos 0, mid and last, f32 and bf16 (DECODE_TOL), depths 1, 2 and
-    solved, then at B 8 split 1, 2 and the plan's ways; and the ring form
-    (`models.lm.ring_decode_attention`) at hymba-1.5b's (H 25, KH 5, D 64,
-    B 8, a ring of 1024 slots) with pos before, at and after the wrap:
-    the new row lands at slot pos % w and the output is K3's plain version
-    over the ring at min(pos, w - 1)."""
+    """K3 at the new families' cache shapes (`family_k3_shapes`): at
+    paligemma-3b's (H 8, KH 1, D 256) and at whisper-medium's decoder
+    self-attention (H 16, KH 16, D 64, a cache of text + new rows, off the
+    tile), B 3 at depths 1, 2 and solved, then at the path's batch split 1,
+    2 and the plan's ways, each at pos 0, half the cache, the first, middle
+    and last decode positions and the last row, f32 and bf16 (DECODE_TOL);
+    and the ring form (`models.lm.ring_decode_attention`) at hymba-1.5b's
+    (H 25, KH 5, D 64, its batch, a ring of `sliding_window` slots) with
+    pos before, at and after the wrap: the new row lands at slot pos % w
+    and the output is K3's plain version over the ring at min(pos, w - 1)."""
     from repro_torch.core import autotune
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.models.lm import ring_decode_attention
 
+    shapes = family_k3_shapes()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for b, splits_list in ((3, (None,)), (8, (1, 2, None))):
-            q = torch.randn(b, 8, 256, generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn(b, DENSE_S, 1, 256, generator=gen,
-                                device="cuda").to(dtype) for _ in range(2))
-            for pos in (0, DENSE_S // 2, 1040, DENSE_S - 1):
-                ref = da.flash_decode_plain(q, k, v, pos)
-                for splits in splits_list:
-                    for depth in ((1, 2, None) if b == 3 else (None,)):
-                        out = da.flash_decode(q, k, v, pos, depth=depth,
-                                              splits=splits)
-                        ran = autotune.last_choice("flash_decode")
-                        _close(f"flash_decode paligemma-3b H=8 KH=1 D=256 "
-                               f"B={b} S={DENSE_S} pos={pos} {dtype_name} "
-                               f"depth={depth} (ran {ran}) splits={splits}",
-                               out, ref, *DECODE_TOL[dtype_name])
-        w = 1024
-        kc, vc = (torch.randn(8, w, 5, 64, generator=gen,
+        for label, (bb, h, kh, d, s, mid, _) in shapes.items():
+            if label.endswith((" ring", " cross")):
+                continue
+            first = s - 2 * (s - mid)      # the first decode position
+            for b, splits_list in ((3, (None,)), (bb, (1, 2, None))):
+                q = torch.randn(b, h, d, generator=gen,
+                                device="cuda").to(dtype)
+                k, v = (torch.randn(b, s, kh, d, generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                for pos in sorted({0, s // 2, first, mid, s - 2, s - 1}):
+                    ref = da.flash_decode_plain(q, k, v, pos)
+                    for splits in splits_list:
+                        for depth in ((1, 2, None) if b == 3 else (None,)):
+                            out = da.flash_decode(q, k, v, pos, depth=depth,
+                                                  splits=splits)
+                            ran = autotune.last_choice("flash_decode")
+                            _close(f"flash_decode {label} H={h} KH={kh} "
+                                   f"D={d} B={b} S={s} pos={pos} "
+                                   f"{dtype_name} depth={depth} (ran {ran})"
+                                   f" splits={splits}",
+                                   out, ref, *DECODE_TOL[dtype_name])
+        (label, (b, h, kh, d, w, _, _)), = (
+            (k, v) for k, v in shapes.items() if k.endswith(" ring"))
+        kc, vc = (torch.randn(b, w, kh, d, generator=gen,
                               device="cuda").to(dtype) for _ in range(2))
-        for pos in (0, 511, w - 1, w, w + 300, 3 * w + 5):
-            q = torch.randn(8, 1, 25, 64, generator=gen,
+        for pos in (0, w // 2 - 1, w - 1, w, w + w // 4, 3 * w + 5):
+            q = torch.randn(b, 1, h, d, generator=gen,
                             device="cuda").to(dtype)
-            nk, nv = (torch.randn(8, 1, 5, 64, generator=gen,
+            nk, nv = (torch.randn(b, 1, kh, d, generator=gen,
                                   device="cuda").to(dtype) for _ in range(2))
             out, _, _ = ring_decode_attention(
                 q, kc, vc, nk, nv,
@@ -1434,7 +1541,7 @@ def check_family_parity(torch) -> None:
                     and torch.equal(vc[:, pos % w], nv[:, 0])):
                 raise AssertionError(f"ring decode pos={pos}: the new row "
                                      f"is not at slot {pos % w}")
-            _close(f"ring decode hymba-1.5b H=25 KH=5 D=64 B=8 w={w} "
+            _close(f"ring decode {label} H={h} KH={kh} D={d} B={b} w={w} "
                    f"pos={pos} {dtype_name}", out[:, 0],
                    da.flash_decode_plain(q[:, 0], kc, vc, min(pos, w - 1)),
                    *DECODE_TOL[dtype_name])
@@ -1644,16 +1751,36 @@ def flash_decode_bound(b, h, kh, d, pos):
             "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
 
 
-# K3 at the new families' decode shapes: label, (B, H, KH, D, S, pos,
-# layers). paligemma-3b: 256 patches + 768 text + 32 new rows, pos as
-# yi-6b's; whisper-medium's cross-attention over its 1024 encoder rows
-# (pos = S - 1); hymba-1.5b's ring of 1024 slots after the wrap (pos' =
-# w - 1)
-FAMILY_K3_SHAPES = (
-    ("paligemma-3b D=256", (8, 8, 1, 256, 1056, 1040, 18)),
-    ("whisper-medium cross", (8, 16, 16, 64, 1024, 1023, 24)),
-    ("hymba-1.5b ring", (8, 25, 5, 64, 1024, 1023, 32)),
-)
+def family_k3_shapes() -> dict:
+    """K3 at the new families' decode shapes, from each arch's config and
+    its `DENSE_SERVE` run: label -> (B, H, KH, D, S, pos, layers), pos
+    the middle of the decode (`gen // 2` steps before the cache's end) as
+    yi-6b's. paligemma-3b: one cache of patches + text + new rows;
+    whisper-medium: the decoder's self-attention over text + new rows, and
+    its cross-attention over the encoder's frames (pos = S - 1); hymba-1.5b:
+    its ring of `sliding_window` slots after the wrap (pos' = w - 1)."""
+    from repro_torch.configs import get_config, token_split
+
+    shapes = {}
+    for arch in FAMILY_ARCHS:
+        cfg, kw = get_config(arch), DENSE_SERVE[arch]
+        front, text = token_split(cfg, kw["prompt_len"])
+        heads = (kw["batch"], cfg.n_heads, cfg.kv_heads,
+                 cfg.resolved_head_dim)
+        if cfg.sliding_window:
+            w = cfg.sliding_window
+            shapes[f"{arch} ring"] = (*heads, w, w - 1, cfg.n_layers)
+        elif cfg.enc_dec:
+            s = text + kw["gen"]
+            shapes[f"{arch} self"] = (*heads, s, s - kw["gen"] // 2,
+                                      cfg.n_layers)
+            shapes[f"{arch} cross"] = (*heads, front, front - 1,
+                                       cfg.n_layers)
+        else:
+            s = front + text + kw["gen"]
+            shapes[f"{arch} D={cfg.resolved_head_dim}"] = (
+                *heads, s, s - kw["gen"] // 2, cfg.n_layers)
+    return shapes
 
 
 def time_flash_decode(torch, b, h, kh, d, s, pos, n_layers, sweep=False,
@@ -2861,6 +2988,11 @@ def main() -> int:
         card_info(torch)
         print(json.dumps({"gmm_host_ms": gmm_host_times(torch)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--dense-first-step"]:
+        card_info(torch)
+        print(json.dumps({"dense_first_step": dense_first_steps(torch)}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--ssd-time"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         card_info(torch)
@@ -2942,7 +3074,7 @@ def main() -> int:
         check_dense_engine_card_vs_cpu(torch, arch)
     family = {arch: serve_family(torch, arch) for arch in FAMILY_ARCHS}
     fd_family = {label: time_flash_decode(torch, *shape, label=label)
-                 for label, shape in FAMILY_K3_SHAPES}
+                 for label, shape in family_k3_shapes().items()}
     serve_batched_run(torch)
     log(f"phases 3d-6e done at {time.perf_counter() - t_start:.1f} s")
 

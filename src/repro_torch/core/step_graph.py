@@ -81,6 +81,20 @@ def _leaves(tree) -> Iterator[torch.Tensor]:
             yield from _leaves(v)
 
 
+class _Frozen:
+    """`gc.freeze()` for the length of a with-block, thawed on the way out
+    whether or not the block raised. Python thaws all frozen objects at
+    once or none, and CPython 3.12 starts with objects frozen of its own,
+    so a count cannot tell a caller's freeze apart: the block thaws
+    everything, lest dead cycles frozen with it be kept for good."""
+
+    def __enter__(self):
+        gc.freeze()
+
+    def __exit__(self, *exc):
+        gc.unfreeze()
+
+
 def _stream(device: torch.device) -> torch.cuda.Stream:
     """The side stream the eager step and the capture of `device` run on."""
     index = device.index if device.index is not None \
@@ -171,10 +185,8 @@ class StepGraph:
         # earlier graph in a reference cycle (an engine and its steps)
         # would be destroyed mid-capture, which CUDA refuses, breaking the
         # capture; torch.cuda.graph no longer collects before it begins.
-        gc.freeze()
-        with torch.cuda.graph(graph, stream=stream):
+        with _Frozen(), torch.cuda.graph(graph, stream=stream):
             out = self.fn(*closed, *self.static)
-        gc.unfreeze()
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}

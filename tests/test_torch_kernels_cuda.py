@@ -970,6 +970,28 @@ def test_capture_survives_dead_graphs_in_cycles(cuda_device):
     assert torch.equal(out, torch.full_like(x, 6.0))
 
 
+def test_failed_capture_thaws_what_it_froze(cuda_device):
+    """A capture that raises still thaws the objects it froze against
+    the collector, and the error reaches the caller."""
+    import gc
+
+    from repro_torch.core.step_graph import StepGraph
+
+    def failing_step(x, y):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fails inside the capture")
+        return x + y
+
+    x = torch.ones(64, device=cuda_device)
+    y = torch.tensor(1.0, device=cuda_device)
+    with pytest.raises(RuntimeError, match="inside the capture"):
+        StepGraph(failing_step, "failing")((x,), (y,))
+    assert gc.get_freeze_count() == 0
+    step = StepGraph(lambda x, y: x + y, "ok")
+    step((x,), (y,))
+    assert step.captures == 1 and gc.get_freeze_count() == 0
+
+
 def test_flash_decode_replays_with_pos_read_on_the_device(cuda_device):
     """K3 captured once with pos in a device buffer, then replayed at five
     positions written into that buffer: each replay equals the eager
