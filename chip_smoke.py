@@ -222,9 +222,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      on reduced yi-6b, seed 0, 20 rounds: every request terminal, no
      mismatch; then the guard's own host cost per eager call (an unguarded
      launch, the guard without and with its scan, with the sentinel);
- 11. `guard.stats()` on one JSON line, one JSON line describing every
-     kernel (eight; K3's and K4's launches by path, and K3's times at the
-     new families' shapes, among them), then the result line.
+ 11. training (`runtime.train_loop.train`, with the sentinel off again):
+     (a) K2's gradients through `moe_gmm`'s autograd Function (each
+     backward product one more K2 launch) at the six products of a
+     granite-moe training step (the gate/up forward on one token block
+     shared by the 32 experts, the down forward on per-expert tokens, and
+     their d tokens and d weights, 4096 tokens) against the plain
+     version's autograd, f32 (2e-3) and bf16 (3e-2 + 3e-2 x |value|),
+     depths 1, 2 and solved; (b) a reduced granite-moe f32 train step on
+     the card against the same step on the CPU (same parameters and
+     batch): the loss, every gradient leaf and the AdamW update within
+     2e-3, and the card's state through a checkpoint and back, bitwise;
+     (c) Mamba-2's block under grad on the card raises K4's typed error
+     (K4 has no backward yet); (d) granite-moe-1b-a400m trained at full
+     width (f32 parameters, bf16 compute, batch 8 x seq 512, AdamW, 20
+     steps): every loss finite, the mean of the last 5 below the mean of
+     the first 5, exactly 216 K2 launches a step (9 a layer) and no other
+     kernel; step time p50, tokens a second, peak memory, then a profile
+     of fresh steps (device busy share, K2's share) and the guard's cost
+     a step; (e) K2's times at the six products beside torch.bmm and the
+     bound;
+ 12. `guard.stats()` on one JSON line, one JSON line describing every
+     kernel (eight; K2's, K3's and K4's launches by path, and K2's times
+     at the training products and K3's at the new families' shapes, among
+     them), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -237,6 +258,11 @@ taken back from the guard), on random weights of the same shapes, against
 the package of the checkout the script sits in (copy the script into
 another checkout with `core.guard.record` to measure that one), and
 prints one JSON line.
+
+    python3 chip_smoke.py --train
+
+builds the kernels and runs only phase 11 (training), then prints its
+record as one JSON line.
 
     python3 chip_smoke.py --ssd-time
 
@@ -252,6 +278,7 @@ it) over six runs of yi-6b's dense path, and prints one JSON line.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -1113,10 +1140,12 @@ def profile_dense_steps(torch, cfg, params, rounds=4):
 # ----------------------------------------------------------------- phase 6b
 
 
-def gmm_bound(e, c, dm, f, itemsize=2):
-    """Bytes: the weights, one [C, dm] token block and the [E, C, f]
-    output, each once; flops: 2 E C dm f on the tensor cores."""
-    nbytes = (e * dm * f + c * dm + e * c * f) * itemsize
+def gmm_bound(e, c, dm, f, itemsize=2, shared=True):
+    """Bytes: the weights, the tokens (one [C, dm] block when `shared`, one
+    an expert otherwise) and the [E, C, f] output, each once; flops:
+    2 E C dm f on the tensor cores."""
+    nbytes = (e * dm * f + (1 if shared else e) * c * dm + e * c * f) \
+        * itemsize
     flops = 2 * e * c * dm * f
     bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
     return max(bytes_s, ops_s) * 1e3, \
@@ -2973,6 +3002,363 @@ def check_gups_breakdown(torch, st) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+
+# Training (the port's `runtime.train_loop.train`): granite-moe-1b-a400m at
+# full width, f32 parameters and bf16 compute, batch 8 x seq 512 (4096
+# tokens a step) on the Markov task, AdamW, 20 steps. Each step launches K2
+# 9 times a layer: 3 forward and, for each, its d tokens and d weights.
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+# The data and the optimizer (PERF.md §6, training, and
+# scripts/train_sweep.py, for the runs behind them):
+# the chain runs over the model's first 512 token ids (over all 49155, 20
+# steps of 4096 tokens visit each id's successors about twice and the loss
+# stays at 11.2-11.3); and the global-norm clip is off: under the
+# reference's init (each stacked leaf's fan-in is its shape[-2], the heads
+# for wq/wk/wv, so those weights are 8x the per-layer fan-in's scale) the
+# 24-layer stack's gradient norm is ~1e13 at the first step, so a clip at
+# 1.0 scales every update under AdamW's eps and the loss stays flat;
+# without it AdamW's per-leaf normalisation trains
+TRAIN_DATA_VOCAB, TRAIN_LR, TRAIN_CLIP = 512, 1e-2, 0.0
+
+
+def gmm_train_products(cfg, t: int):
+    """K2's six products in a training step at `t` tokens: (name, E, C,
+    dm, f, tokens shared by every expert). The backward of out = x @ w is
+    d x = d out @ w^T and d w = x^T @ d out (`kernels/moe_gmm/ops.py`)."""
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    return (("forward gate/up", e, t, d, ff, True),
+            ("forward down", e, t, ff, d, False),
+            ("d tokens gate/up", e, t, ff, d, False),
+            ("d tokens down", e, t, d, ff, False),
+            ("d weights gate/up", e, d, t, ff, True),
+            ("d weights down", e, ff, t, d, False))
+
+
+def gmm_grads(torch, tokens, w, up, via, depth=None):
+    """(out, d tokens, d weights) of out = moe_gmm(tokens, w) under the
+    upstream gradient `up`: through K2 (`via` "kernel") or through the
+    plain version's autograd."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+
+    t = tokens.detach().clone().requires_grad_(True)
+    wt = w.detach().clone().requires_grad_(True)
+    if via == "kernel":
+        out = moe_gmm(t, wt, depth=depth)
+    else:
+        out = mg.gmm_plain(t.expand(wt.shape[0], -1, -1), wt)
+    out.backward(up)
+    return out.detach(), t.grad, wt.grad
+
+
+def check_gmm_grads(torch, cfg) -> float:
+    """Phase 11a: K2's gradients at the training step's six products
+    (the gate/up forward, on one token block shared by the experts, and
+    the down forward, on per-expert tokens, each with its two backward
+    products) against the plain version's autograd on the card: f32 at
+    2e-3, bf16 at 3e-2 + 3e-2 x |value|, depths 1, 2 and solved."""
+    from repro_torch.kernels import launch_counts
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    t = TRAIN_BATCH * TRAIN_SEQ
+    worst = 0.0
+    for name, e, c, dm, f, shared in gmm_train_products(cfg, t)[:2]:
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            tokens = torch.randn(1 if shared else e, c, dm, generator=gen,
+                                 device="cuda").to(dtype)
+            w = (torch.randn(e, dm, f, generator=gen, device="cuda")
+                 * dm ** -0.5).to(dtype)
+            up = (torch.randn(e, c, f, generator=gen, device="cuda")
+                  * c ** -0.5).to(dtype)
+            want = gmm_grads(torch, tokens, w, up, "plain")
+            for depth in (1, 2, None):
+                before = launch_counts()["moe_gmm"]
+                got = gmm_grads(torch, tokens, w, up, "kernel", depth)
+                torch.cuda.synchronize()
+                if launch_counts()["moe_gmm"] - before != 3:
+                    raise AssertionError(f"moe_gmm grads {name}: "
+                                         f"{launch_counts()['moe_gmm'] - before}"
+                                         " launches, not 3")
+                for part, a, b in zip(("out", "d tokens", "d weights"), got,
+                                      want):
+                    worst = max(worst, _close(
+                        f"moe_gmm grads {name} {part} [{e},{c},{dm}]x"
+                        f"[{dm},{f}] shared={shared} {dtype_name} "
+                        f"depth={depth}", a, b, TOL[dtype_name]))
+                del got
+            del tokens, w, up, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_train_step_card_vs_cpu(torch) -> None:
+    """Phase 11b: a reduced granite-moe f32 step on the card against the
+    same step on the CPU, from the same parameters and batch: loss, every
+    gradient leaf and the AdamW update (params, mu, nu) at 2e-3; then the
+    card's state through a checkpoint and back, bitwise, on the card."""
+    import tempfile
+
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.runtime.steps import value_and_grad
+
+    cfg = get_config(TRAIN_ARCH).reduced().replace(dtype="float32",
+                                                   param_dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model.init(gen, "cpu")
+    batch = MarkovTask(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4)).batch_for_step(0)
+    opt = AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree.map_tree(lambda x: x.to(dev), params)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        reset_launch_counts()
+        loss, grads = value_and_grad(model, p, b)
+        state, metrics = apply_updates(init_state(p), grads, opt)
+        out[dev] = (loss, grads, state, launch_counts()["moe_gmm"])
+    if out["cpu"][3] != 0 or out["cuda"][3] != 9 * cfg.n_layers:
+        raise AssertionError(f"train step: K2 launches cpu/card "
+                             f"{out['cpu'][3]}/{out['cuda'][3]}, want 0/"
+                             f"{9 * cfg.n_layers}")
+    worst = _close("train step reduced f32 loss card vs cpu",
+                   out["cuda"][0].reshape(1).cpu(), out["cpu"][0].reshape(1),
+                   2e-3)
+    for label, i in (("grad", 1), ("update", 2)):
+        for (path, a), b in zip(tree.paths(out["cuda"][i]),
+                                tree.leaves(out["cpu"][i])):
+            if a.dtype.is_floating_point:
+                worst = max(worst, _close_quiet(
+                    f"train step {label} {'/'.join(path)}", a.cpu(), b,
+                    2e-3))
+    log(f"train step {TRAIN_ARCH} reduced f32 card == cpu: loss "
+        f"{float(out['cuda'][0]):.6f} / {float(out['cpu'][0]):.6f}, every "
+        f"gradient leaf and the AdamW update within 2e-3 (max abs err "
+        f"{worst:.3e}), {out['cuda'][3]} K2 launches (9 a layer)")
+    state = out["cuda"][2]
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(state, d, 1)
+        back = checkpoint.restore(d, tree.map_tree(torch.zeros_like, state))
+    for (path, a), b in zip(tree.paths(back), tree.leaves(state)):
+        if a.device != b.device or a.dtype != b.dtype or \
+                not torch.equal(a, b):
+            raise AssertionError(f"checkpoint round trip: {'/'.join(path)} "
+                                 "differs")
+    log(f"checkpoint round trip on the card: {len(tree.leaves(state))} "
+        f"leaves bitwise, on {back['step'].device}")
+
+
+def _close_quiet(name, got, want, tol) -> float:
+    """`_close` without a log line per tensor (a step has many leaves)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or \
+            not bool(torch.allclose(got, want, rtol=tol, atol=tol)):
+        raise AssertionError(f"{name}: card disagrees with the CPU, "
+                             f"max_abs_err={err:.3e}")
+    return err
+
+
+def check_k4_refuses_grad(torch) -> None:
+    """Phase 11c: Mamba-2's block under grad on the card raises K4's typed
+    error (K4 has no backward yet) and launches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts, ring
+    from repro_torch.models import ssm
+    from repro_torch.models.params import initialize
+
+    cfg = get_config("mamba2-130m").reduced().replace(dtype="float32",
+                                                      param_dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    p = initialize(ssm.ssm_param_specs(cfg), gen, "cuda")
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    x = torch.randn(2, 64, cfg.d_model, generator=gen, device="cuda")
+    reset_launch_counts()
+    try:
+        ssm.ssm_forward(p, x, cfg)
+    except ring.NoBackwardError as e:
+        if e.kernel != "ssd_scan" or launch_counts()["ssd_scan"]:
+            raise AssertionError(f"K4 under grad: {e.kernel}, "
+                                 f"{launch_counts()['ssd_scan']} launches")
+        log(f"refusal: mamba2-130m reduced under grad on the card raises "
+            f"{type(e).__name__} ({e.kernel}), no launch")
+    else:
+        raise AssertionError("K4 under grad on the card did not raise")
+
+
+def train_full_width(torch) -> dict:
+    """Phase 11d: `train` on granite-moe-1b-a400m at full width. Every loss
+    finite and the mean of the last 5 below the mean of the first 5;
+    exactly 9 K2 launches a layer a step and nothing else launched. Then a
+    fresh state's steps for the profile (device busy share, K2's share)
+    and the guard's cost a step (checked against unchecked)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import step_graph
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.train_loop import train
+
+    cfg = get_config(TRAIN_ARCH)
+    if (cfg.dtype, cfg.param_dtype) != ("bfloat16", "float32"):
+        raise AssertionError(f"{TRAIN_ARCH}: {cfg.dtype}/{cfg.param_dtype}")
+    model = build_model(cfg)
+    data = DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=2,
+                      grad_clip=TRAIN_CLIP)
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rep = train(model, steps=TRAIN_STEPS, data_cfg=data, opt=opt,
+                log_every=1, device="cuda")
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [rep.losses[i] for i in range(TRAIN_STEPS)]
+    per_step = 9 * cfg.n_layers
+    want = {k: 0 for k in counts}
+    want["moe_gmm"] = per_step * TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = statistics.median(rep.step_s)
+    step_ms = [s * 1e3 for s in rep.step_s]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"train {TRAIN_ARCH} full width ({model.n_params()} parameters, f32 "
+        f"params, bf16 compute, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps, Markov task over {TRAIN_DATA_VOCAB} ids, lr "
+        f"{TRAIN_LR:g}, clip {TRAIN_CLIP:g}): "
+        f"losses {json.dumps([round(x, 4) for x in losses])}, mean of the "
+        f"first 5 {first:.4f}, of the last 5 {last:.4f}")
+    log(f"train {TRAIN_ARCH}: step p50 {p50 * 1e3:.1f} ms (steps "
+        f"{json.dumps([round(s, 1) for s in step_ms])} ms), "
+        f"{tokens / p50:.0f} tokens/s, peak memory {peak_gb:.2f} GB, K2 "
+        f"launches {counts['moe_gmm']} ({per_step} a step), wall "
+        f"{rep.wall_s:.1f} s")
+    if counts != want:
+        raise AssertionError(f"train {TRAIN_ARCH}: launches {counts}, want "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {TRAIN_ARCH}: losses {losses}")
+    if not last < first:
+        raise AssertionError(f"train {TRAIN_ARCH}: loss did not fall: "
+                             f"{losses}")
+    del rep
+    gc_collect(torch)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    state = init_state(model.init(gen, "cuda"))
+    step = make_train_step(model, opt)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in MarkovTask(data).batch_for_step(0).items()}
+    busy, by_kernel, wall_ms = profile_steps(
+        torch, lambda: step(state, batch), 2,
+        f"{TRAIN_ARCH} train step (B {TRAIN_BATCH} x {TRAIN_SEQ})",
+        step_graph.stats())
+    log_gmm_share(f"{TRAIN_ARCH} train step", by_kernel, wall_ms)
+    guard = eager_guard_cost(torch, lambda: step(state, batch),
+                             f"{TRAIN_ARCH} train step", turns=1)
+    del state, batch
+    gc_collect(torch)
+    return {"losses": losses, "step_ms_p50": p50 * 1e3, "step_ms": step_ms,
+            "tokens_per_s": tokens / p50, "peak_memory_gb": peak_gb,
+            "busy_share": busy, "guard_ms_a_step": guard["guard_ms"],
+            "gmm_launches": counts["moe_gmm"], "gmm_launches_a_step": per_step}
+
+
+def gc_collect(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_gmm_train(torch, cfg) -> dict:
+    """Phase 11e: K2 at the six training products in bf16, the launch the
+    path runs (no guard) against the plain version, torch.bmm and the
+    bound, in turns: kernel, plain, bmm, kernel."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    out = {}
+    for name, e, c, dm, f, shared in gmm_train_products(
+            cfg, TRAIN_BATCH * TRAIN_SEQ):
+        args = []
+        for _ in range(2):
+            tok = torch.randn(1 if shared else e, c, dm, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            w = (torch.randn(e, dm, f, generator=gen, device="cuda")
+                 * dm ** -0.5).to(torch.bfloat16)
+            args.append((tok.expand(e, c, dm), w))
+        tokens, w = args[0]
+        got, run = path_launch(mg.gmm, tokens, w)
+        depth = autotune.last_choice("moe_gmm")
+        grid = mg.grid_for(tokens, w, depth)
+        launches = [(run,), (path_launch(mg.gmm, *args[1])[1],)]
+        err = _close(f"moe_gmm train {name} at the path's shape", got,
+                     mg.gmm_plain(tokens, w), TOL["bfloat16"])
+        del got
+        kernel_a = median_ms(torch, run_thunk, launches, repeats=11)
+        plain_ms = median_ms(torch, mg.gmm_plain, args, repeats=11)
+        library_ms = median_ms(torch, torch.bmm, args, repeats=11)
+        kernel_b = median_ms(torch, run_thunk, launches, repeats=11)
+        ms = statistics.median([kernel_a, kernel_b])
+        bound_ms, bound_by = gmm_bound(e, c, dm, f, shared=shared)
+        shape = {"E": e, "C": c, "dm": dm, "f": f, "shared": shared,
+                 "dtype": "bfloat16", "ran_depth": depth, "grid": grid,
+                 "tiles": mg.walk(e, c, dm, f, 2, grid).tiles}
+        log(f"times moe_gmm train {name} {json.dumps(shape)}: kernel "
+            f"{kernel_a:.4f}/{kernel_b:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.bmm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), {bound_ms / ms:.1%} of the bound")
+        out[f"train {name}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": shape}
+        del args, tokens, w, launches, run
+        gc_collect(torch)
+    # a layer runs each gate/up product twice (gate and up), down once
+    layer_ms = sum(t["ms"] * (2 if "gate/up" in k else 1)
+                   for k, t in out.items())
+    log(f"times moe_gmm train: 9 launches a layer {layer_ms:.3f} ms, "
+        f"{layer_ms * cfg.n_layers:.1f} ms a step ({cfg.n_layers} layers)")
+    return out
+
+
+def train_phase(torch) -> dict:
+    """Phase 11: (a) K2's gradients, (b) a reduced step card == CPU and a
+    checkpoint round trip, (c) K4's refusal under grad, (d) granite-moe
+    trained at full width, (e) K2's times at the training products."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import guard
+
+    guard.set_parity("off")
+    cfg = get_config(TRAIN_ARCH)
+    check_gmm_grads(torch, cfg)
+    check_train_step_card_vs_cpu(torch)
+    check_k4_refuses_grad(torch)
+    run = train_full_width(torch)
+    run["gmm_times"] = time_gmm_train(torch, cfg)
+    return run
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2992,6 +3378,14 @@ def main() -> int:
         card_info(torch)
         print(json.dumps({"dense_first_step": dense_first_steps(torch)}),
               flush=True)
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card_info(torch)
+        build_kernels()
+        run = train_phase(torch)
+        print(json.dumps({"train": run}), flush=True)
         return 0
     if sys.argv[1:] == ["--ssd-time"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3124,6 +3518,8 @@ def main() -> int:
 
     guard_phase(torch)
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+    trained = train_phase(torch)
+    log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{
@@ -3185,11 +3581,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:48",
         "tpu": "kernels/moe_gmm/moe_gmm.py:gmm",
         "launches": moe_counts["moe_gmm"],
+        "launches_by_path": {MOE_ARCH: moe_counts["moe_gmm"],
+                             f"{TRAIN_ARCH} train": trained["gmm_launches"]},
+        "launches_a_train_step": trained["gmm_launches_a_step"],
         "parity": "ok",
         **{k: gmm_times["decode gate/up"][k] for k in keys},
         "shape": gmm_times["decode gate/up"]["shape"],
         "at_other_shapes": {name: {k: t[k] for k in keys + ("shape",)}
-                            for name, t in gmm_times.items()
+                            for name, t in {**gmm_times,
+                                            **trained["gmm_times"]}.items()
                             if name != "decode gate/up"},
     }]
     for name, source, replaces in GUPS_KERNELS:
@@ -3206,6 +3606,8 @@ def main() -> int:
         })
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(card)
+    print(json.dumps({"train": {k: v for k, v in trained.items()
+                                if k != "gmm_times"}}), flush=True)
     print(json.dumps({"substrate": guard.stats()}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,10 @@ from repro_torch.core import autotune, guard
 from repro_torch.core.coro import CoroSpec
 from repro_torch.core.guard import KernelCompileError, KernelResourceError
 
-__all__ = ["MAX_DEPTH", "SMEM_LIMIT", "check_smem", "copy_unit", "guarded",
-           "kernel_depth", "launch_grid", "library", "raise_on_error",
-           "resident_blocks", "ring_bytes", "route", "sm_count",
-           "solve_depth", "split_depth"]
+__all__ = ["MAX_DEPTH", "NoBackwardError", "SMEM_LIMIT", "check_smem",
+           "copy_unit", "guarded", "kernel_depth", "launch_grid", "library",
+           "raise_on_error", "resident_blocks", "ring_bytes", "route",
+           "sm_count", "solve_depth", "split_depth"]
 
 MAX_DEPTH = 64                 # kMaxDepth in csrc/coro_ring.cuh
 
@@ -193,6 +193,29 @@ def route(kernel: str, *tensors: Tuple[str, torch.Tensor]) -> bool:
     return True
 
 
+class NoBackwardError(TypeError):
+    """A kernel with no backward was called on CUDA tensors of which one
+    requires grad: its output, a fresh tensor from a ctypes launch, would
+    cut the autograd graph without a word. `kernel` names it."""
+
+    def __init__(self, kernel: str):
+        super().__init__(
+            f"{kernel}: the CUDA kernel has no backward, and an operand "
+            f"requires grad; call it under torch.no_grad() or on detached "
+            f"tensors (the plain version runs only on CPU tensors)")
+        self.kernel = kernel
+
+
+def _refuse_grad(kernel: str, operands: Sequence) -> None:
+    """Raise `NoBackwardError` when grad mode is on and an operand
+    requires grad. A differentiable wrapper (`moe_gmm`) calls the kernel
+    inside its `autograd.Function`, where grad mode is off."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in operands):
+        raise NoBackwardError(kernel)
+
+
 def guarded(spec: CoroSpec, operands: Sequence, launch: Callable[[int], object],
             plain: Callable, *, cuda: bool, depth: int, n_tiles: int = 0,
             reference: Optional[Callable] = None, in_place: bool = False,
@@ -203,7 +226,12 @@ def guarded(spec: CoroSpec, operands: Sequence, launch: Callable[[int], object],
     `plain(*operands)` on CPU tensors. The sentinel compares `written(out)`
     with `reference(*operands)` (default `plain`), computed before the
     attempt; the scan reads `written(out)`, or calls `finite(out)`;
-    `in_place` marks a kernel that updates an operand."""
+    `in_place` marks a kernel that updates an operand. On CUDA tensors an
+    operand that requires grad (under grad mode) raises `NoBackwardError`;
+    on CPU tensors the plain version runs with autograd live."""
+    if cuda:
+        _refuse_grad(spec.name, operands)
+
     def attempt(d: int):
         return launch(d) if cuda else plain(*operands)
 

@@ -1,0 +1,94 @@
+"""Training launcher (the reference package's ``launch/train.py``).
+
+Picks an arch (reduced or custom dims), builds the Markov data task, and
+runs the fault-tolerant train loop on one device: the GPU unless
+``--device cpu`` is given (RuntimeError where there is no GPU).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+      --reduced --device cpu --steps 100 --batch 8 --seq 128
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.models import build_model
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.train_loop import train
+
+MESH_REFUSED = ("--mesh mini needs the multi-device port (torch.distributed "
+                "DeviceMesh), which is not done yet: ROADMAP Queue 1, "
+                "\"Multi-device\"")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale config")
+    ap.add_argument("--d-model", type=int, default=0,
+                    help="override width (e.g. ~100M model)")
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--vocab", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a crash (fault-tolerance demo)")
+    ap.add_argument("--mesh", default="none", choices=["none", "mini"])
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    if args.mesh != "none":
+        ap.error(MESH_REFUSED)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    over = {}
+    if args.d_model:
+        over.update(d_model=args.d_model,
+                    n_heads=max(args.d_model // 64, 1),
+                    kv_heads=max(args.d_model // 128, 1),
+                    d_ff=args.d_model * 4, head_dim=0)
+    if args.layers:
+        over["n_layers"] = args.layers
+    if args.vocab:
+        over["vocab"] = args.vocab
+    if over:
+        cfg = cfg.replace(**over)
+
+    model = build_model(cfg)
+    print(f"arch={cfg.name} params={model.n_params()/1e6:.1f}M "
+          f"layers={cfg.n_layers} d_model={cfg.d_model}")
+
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                          global_batch=args.batch)
+    report = train(
+        model, steps=args.steps, data_cfg=data_cfg,
+        opt=AdamWConfig(lr=args.lr, total_steps=args.steps,
+                        warmup_steps=max(args.steps // 20, 5)),
+        accum=args.accum, compress_grads=args.compress_grads,
+        ckpt_dir=args.ckpt_dir, fail_at_step=args.fail_at,
+        device=args.device,
+    )
+    first = min(report.losses)
+    last = max(report.losses)
+    print(json.dumps({
+        "steps": report.steps,
+        "loss_first": report.losses[first],
+        "loss_last": report.losses[last],
+        "resumed_from": report.resumed_from,
+        "stragglers": report.straggler_steps,
+        "wall_s": round(report.wall_s, 1),
+    }))
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""The LM's serving paths: parameter specs; the dense engine's one-shot
+"""The LM: parameter specs; the training loss (`loss_fn`: next-token
+cross-entropy plus the MoE router's aux loss); the dense engine's one-shot
 prefill and one-token decode over ``[L, B, S, KH, D]`` caches; and the
 paged engine's decode over paged KV pools for a round of ragged requests
 and chunked prefill into the pools.
@@ -159,16 +160,17 @@ def _attn_out(p, o):
 
 def _ffn(p, x, cfg: ArchConfig):
     """The post-attention half of a block (MoE or SwiGLU MLP): the
-    reference's ``_paged_ffn``. The MoE router's aux loss is dropped: it
-    serves training, which this package does not run yet."""
+    reference's ``_paged_ffn``. Returns (x, aux): the MoE router's
+    load-balancing aux loss (an f32 scalar; None for the MLP), which the
+    loss adds and the serving paths ignore."""
     if cfg.moe:
         h = rms_norm(x, p["moe_ln"], cfg.norm_eps)
-        moe_o, _ = moe_layer(p["moe"], h, cfg)
-        return x + moe_o
+        moe_o, aux = moe_layer(p["moe"], h, cfg)
+        return x + moe_o, aux
     m = p["mlp"]
     h = rms_norm(x, m["ln"], cfg.norm_eps)
     return x + swiglu(h, m["w_gate"].to(h.dtype), m["w_up"].to(h.dtype),
-                      m["w_down"].to(h.dtype))
+                      m["w_down"].to(h.dtype)), None
 
 
 def _layer(layers, i: int):
@@ -177,12 +179,16 @@ def _layer(layers, i: int):
             for k, v in layers.items()}
 
 
-def _depth(layers) -> int:
-    """The length of a stack's leading (layers) axis."""
-    leaf = layers
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return leaf.shape[0]
+def _unstack(layers):
+    """Every layer's parameters at once: each stacked leaf unbound along
+    its layers axis (views, as `_layer`'s slices are). Under autograd the
+    backward stacks the layers' gradients once, where `_layer`'s slices
+    would each add theirs into a zeroed copy of the whole stacked leaf."""
+    if not isinstance(layers, dict):
+        return layers.unbind(0)
+    parts = {k: _unstack(v) for k, v in layers.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _unembed(params, x):
@@ -293,17 +299,17 @@ def _ring_layout(kv, window: int):
 
 def block_full(p, x, cfg: ArchConfig, *, positions, causal=True, prefix=0,
                rope=True, cross_src=None, build_cache=False):
-    """One layer, full sequence. Returns (x, cache_entry): with
-    `build_cache`, K/V of an attention layer (in a ring under a sliding
-    window), the final SSM and conv states of an SSM or hybrid layer, and
-    the cross K/V over `cross_src`; nothing otherwise. (The reference also
-    returns the MoE aux loss, which serves training.)"""
+    """One layer, full sequence. Returns (x, aux, cache_entry): the MoE
+    router's aux loss (an f32 scalar; None without MoE); with `build_cache`,
+    K/V of an attention layer (in a ring under a sliding window), the
+    final SSM and conv states of an SSM or hybrid layer, and the cross K/V
+    over `cross_src`; nothing otherwise."""
     if cfg.family == "ssm":
         h = rms_norm(x, p["ssm_ln"], cfg.norm_eps)
         if build_cache:
             out, h_fin, conv = ssm_forward(p["ssm"], h, cfg, return_state=True)
-            return x + out, {"h": h_fin, "conv": conv}
-        return x + ssm_forward(p["ssm"], h, cfg), {}
+            return x + out, None, {"h": h_fin, "conv": conv}
+        return x + ssm_forward(p["ssm"], h, cfg), None, {}
     cache: Dict[str, Any] = {}
     attn_o, (k, v) = attn_full(p["attn"], x, cfg, positions=positions,
                                causal=causal, prefix=prefix, rope=rope)
@@ -325,7 +331,8 @@ def block_full(p, x, cfg: ArchConfig, *, positions, causal=True, prefix=0,
         if build_cache:
             cache["cross_k"], cache["cross_v"] = ck, cv
         x = x + cross_o
-    return _ffn(p, x, cfg), cache
+    x, aux = _ffn(p, x, cfg)
+    return x, aux, cache
 
 
 def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
@@ -355,23 +362,30 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
                                                  layer_cache["cross_v"]),
                                  cfg, pos=pos, cross=True)
         x = x + cross_o
-    return _ffn(p, x, cfg), new
+    x, _ = _ffn(p, x, cfg)
+    return x, new
 
 
 def run_layers_full(layers, x, cfg: ArchConfig, *, positions, causal=True,
                     prefix=0, rope=True, cross_src=None, build_cache=False):
     """Apply every layer of a stack (the decoder's, or the encoder's) in a
-    Python loop over its stacked axis. Returns (x, stacked_cache) with
-    each cache leaf stacked to [L, ...]."""
+    Python loop over its stacked axis. Returns (x, aux_sum, stacked_cache)
+    with the layers' aux losses summed in f32 and each cache leaf stacked
+    to [L, ...]."""
     entries = []
-    for i in range(_depth(layers)):
-        x, cache = block_full(_layer(layers, i), x, cfg, positions=positions,
-                              causal=causal, prefix=prefix, rope=rope,
-                              cross_src=cross_src, build_cache=build_cache)
+    aux = None
+    for lp in _unstack(layers):
+        x, a, cache = block_full(lp, x, cfg, positions=positions,
+                                 causal=causal, prefix=prefix, rope=rope,
+                                 cross_src=cross_src, build_cache=build_cache)
+        if a is not None:
+            aux = a if aux is None else aux + a
         entries.append(cache)
     caches = {k: torch.stack([e[k] for e in entries])
               for k in entries[0]} if entries and entries[0] else {}
-    return x, caches
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, caches
 
 
 def run_layers_decode(layers, caches, x, cfg: ArchConfig, *, pos):
@@ -414,9 +428,9 @@ def _encode(params, frames, cfg: ArchConfig):
     frames = frames.to(dt)
     s = frames.shape[1]
     x = frames + sinusoid_pos_emb(s, cfg.d_model, dt, frames.device)[None]
-    x, _ = run_layers_full(params["enc_layers"], x, cfg,
-                           positions=torch.arange(s, device=x.device),
-                           causal=False, rope=False)
+    x, _, _ = run_layers_full(params["enc_layers"], x, cfg,
+                              positions=torch.arange(s, device=x.device),
+                              causal=False, rope=False)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -437,6 +451,30 @@ def _pad_cache_seq(layer_caches, cfg: ArchConfig, pad_to: Optional[int]):
     return out
 
 
+def _trunk(params, batch, cfg: ArchConfig, *, build_cache: bool):
+    """The decoder's stack over a whole batch: the encoder first for an
+    enc-dec arch (its output is the cross-attention's source), the
+    projected patches as a bidirectional prefix for a VLM. Returns (x,
+    aux_sum, stacked layer caches, the prefix's length)."""
+    if cfg.enc_dec:
+        enc_out = _encode(params, batch["frames"], cfg)
+        x = embed_lookup(params["embed"], batch["tokens"]).to(
+            torch_dtype(cfg.dtype))
+        x = x + params["dec_pos_embed"][: x.shape[1]].to(x.dtype)[None]
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux, caches = run_layers_full(params["layers"], x, cfg,
+                                         positions=positions, rope=False,
+                                         cross_src=enc_out,
+                                         build_cache=build_cache)
+        return x, aux, caches, 0
+    x, positions = _embed_in(params, batch, cfg)
+    prefix = x.shape[1] - batch["tokens"].shape[1] if cfg.vlm else 0
+    x, aux, caches = run_layers_full(params["layers"], x, cfg,
+                                     positions=positions, prefix=prefix,
+                                     build_cache=build_cache)
+    return x, aux, caches, prefix
+
+
 def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
     """Build decode state from a full prompt. batch["tokens"]: [B, S] text
     tokens, with batch["frames"] [B, S_enc, d] for an enc-dec arch (the
@@ -446,28 +484,40 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
     decoder's length (a 0-d int32 tensor on the tokens' device, as the
     reference's is), "layers": stacked per-layer caches, K/V padded to
     `pad_to` rows (plus the prefix), a ring to its window}."""
-    dt = torch_dtype(cfg.dtype)
-    if cfg.enc_dec:
-        enc_out = _encode(params, batch["frames"], cfg)
-        x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
-        x = x + params["dec_pos_embed"][: x.shape[1]].to(dt)[None]
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, layer_caches = run_layers_full(params["layers"], x, cfg,
-                                          positions=positions, rope=False,
-                                          cross_src=enc_out, build_cache=True)
-    else:
-        x, positions = _embed_in(params, batch, cfg)
-        prefix = x.shape[1] - batch["tokens"].shape[1] if cfg.vlm else 0
-        x, layer_caches = run_layers_full(params["layers"], x, cfg,
-                                          positions=positions, prefix=prefix,
-                                          build_cache=True)
-        if pad_to is not None:
-            pad_to = pad_to + prefix
+    x, _, layer_caches, prefix = _trunk(params, batch, cfg, build_cache=True)
+    if pad_to is not None:
+        pad_to = pad_to + prefix
     cache = {"pos": torch.full((), x.shape[1], dtype=torch.int32,
                                device=x.device),
              "layers": _pad_cache_seq(layer_caches, cfg, pad_to)}
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return cache, _unembed(params, x)
+
+
+# --------------------------------------------------------------------- loss
+
+
+def _xent(logits, targets):
+    """Mean next-token cross-entropy of f32 logits [B, S, V] at int
+    targets [B, S]."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Next-token CE loss plus ``router_aux_coef`` x the MoE aux loss, for
+    every family: batch["tokens"] and ["targets"] [B, S] (with ["frames"]
+    for an enc-dec arch, ["patches"] for a VLM, whose prefix positions
+    are cut before the unembedding). Returns (total, {"loss", "aux"}),
+    f32 scalars."""
+    x, aux, _, prefix = _trunk(params, batch, cfg, build_cache=False)
+    if prefix:
+        x = x[:, prefix:]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = _xent(_unembed(params, x), batch["targets"])
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 def decode_step(params, cache, batch, cfg: ArchConfig):
@@ -563,7 +613,7 @@ def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
         attn_o, _, _ = paged_attn_decode(
             lp["attn"], x, k_pools[i], v_pools[i], cfg,
             block_tables=block_tables, lengths=lengths)
-        x = _ffn(lp, x + attn_o, cfg)
+        x, _ = _ffn(lp, x + attn_o, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, x), k_pools, v_pools
 
@@ -592,7 +642,7 @@ def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
         attn_o, _, _ = paged_attn_prefill_chunk(
             lp["attn"], x, k_pools[i], v_pools[i], cfg,
             block_tables=block_tables, start=start, n_valid=n_valid)
-        x = _ffn(lp, x + attn_o, cfg)
+        x, _ = _ffn(lp, x + attn_o, cfg)
     # the last real row, gathered at a device index (the reference's
     # dynamic_slice_in_dim): a slice would read n_valid on the host
     row = torch.as_tensor(n_valid, device=x.device).long().reshape(1) - 1

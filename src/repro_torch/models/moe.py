@@ -6,7 +6,7 @@ single-device part of the reference package's ``models/moe.py``: the dense
 backend computes every expert for every token and combines the top-k by
 masks (exact, dropless). Its expert FFN is three grouped matmuls through
 the `kernels/moe_gmm` kernel, which streams each expert's weights through a
-ring of shared-memory slots. The expert-parallel backends need a device
+ring of shared-memory slots, forward and backward (`moe_gmm.ops`). The expert-parallel backends need a device
 mesh; until the port has one, every ``moe_impl`` runs the dense backend, as
 the reference does without a mesh.
 """
@@ -55,10 +55,10 @@ def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int
 def _expert_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                 wd: torch.Tensor) -> torch.Tensor:
     """Per-expert SwiGLU: xs [E or 1, C, d] -> [E, C, d]. A leading 1 is
-    broadcast over the E experts as a stride-0 view, never copied. Each of
-    the three grouped matmuls is the `moe_gmm` kernel on CUDA tensors (its
-    plain version on CPU tensors), for every shape."""
-    xs = xs.expand(wg.shape[0], -1, -1)
+    broadcast over the E experts as a stride-0 view, never copied (and its
+    gradient summed over them). Each of the three grouped matmuls is the
+    `moe_gmm` kernel on CUDA tensors (its plain version on CPU tensors),
+    for every shape, forward and backward."""
     dt = xs.dtype
     h = F.silu(moe_gmm(xs, wg.to(dt)))
     h = h * moe_gmm(xs, wu.to(dt))

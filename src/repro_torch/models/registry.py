@@ -1,5 +1,6 @@
-"""Model facade: bind an ArchConfig to the LM's serving functions (the
-dense engine's prefill and decode step, the paged engine's steps)."""
+"""Model facade: bind an ArchConfig to the LM's functions (the training
+loss, the dense engine's prefill and decode step, the paged engine's
+steps)."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,6 +29,9 @@ class Model:
         return pm.count(self.param_specs())
 
     # -------------------------------------------------------------- steps
+    def loss(self, params, batch):
+        return lm.loss_fn(params, batch, self.cfg)
+
     def prefill(self, params, batch, pad_to=None):
         return lm.prefill(params, batch, self.cfg, pad_to=pad_to)
 

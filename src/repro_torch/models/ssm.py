@@ -124,22 +124,48 @@ def ssm_dims(cfg: ArchConfig) -> Dict[str, int]:
     )
 
 
+SPLIT_REFUSED = ("ssm_split_proj is a training-layout optimization; "
+                 "decode/prefill cache handoff uses the joint in_proj layout")
+
+
 def ssm_param_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     """The joint ``in_proj`` layout (the one the decode cache hand-off
-    uses). The reference's split, shard-aligned layout is a multi-device
-    training optimisation and is not ported."""
-    if cfg.ssm_split_proj:
-        raise NotImplementedError(
-            "ssm_split_proj is the reference's sharded training layout; the "
-            "port serves the joint in_proj layout (ROADMAP Queue 1, "
-            "\"Multi-device\")")
+    uses) or, with ``ssm_split_proj``, the reference's split training
+    layout: z and x projected per (head, head_dim), B, C and dt each by
+    their own matrix, with their own depthwise convs."""
     d = ssm_dims(cfg)
     dm = cfg.d_model
-    return {
+    common = {
         "A_log": ParamSpec((d["nh"],), ("ssm_heads",), init="zeros"),
         "dt_bias": ParamSpec((d["nh"],), ("ssm_heads",), init="zeros"),
         "D": ParamSpec((d["nh"],), ("ssm_heads",), init="ones"),
         "norm_w": ParamSpec((d["di"],), ("d_inner",), init="ones"),
+    }
+    if cfg.ssm_split_proj:
+        nh, p, n, w = d["nh"], d["p"], d["n"], cfg.conv_width
+        return {
+            **common,
+            "w_z": ParamSpec((dm, nh, p), ("embed", "ssm_heads", "head_dim"),
+                             init="fan_in"),
+            "w_x": ParamSpec((dm, nh, p), ("embed", "ssm_heads", "head_dim"),
+                             init="fan_in"),
+            "w_B": ParamSpec((dm, n), ("embed", "ssm_state"), init="fan_in"),
+            "w_C": ParamSpec((dm, n), ("embed", "ssm_state"), init="fan_in"),
+            "w_dt": ParamSpec((dm, nh), ("embed", "ssm_heads"),
+                              init="fan_in"),
+            "conv_x": ParamSpec((w, nh, p), ("width", "ssm_heads", "head_dim"),
+                                init="fan_in"),
+            "conv_B": ParamSpec((w, n), ("width", "ssm_state"), init="fan_in"),
+            "conv_C": ParamSpec((w, n), ("width", "ssm_state"), init="fan_in"),
+            "conv_bx": ParamSpec((nh, p), ("ssm_heads", "head_dim"),
+                                 init="zeros"),
+            "conv_bB": ParamSpec((n,), ("ssm_state",), init="zeros"),
+            "conv_bC": ParamSpec((n,), ("ssm_state",), init="zeros"),
+            "out_proj": ParamSpec((nh, p, dm), ("ssm_heads", "head_dim",
+                                                "embed"), init="fan_in"),
+        }
+    return {
+        **common,
         "in_proj": ParamSpec((dm, d["d_in_proj"]), ("embed", "d_inner"),
                              init="fan_in"),
         "conv_w": ParamSpec((cfg.conv_width, d["conv_dim"]),
@@ -159,21 +185,55 @@ def _split_proj(zxbcdt, cfg: ArchConfig):
 
 
 def _causal_conv(xBC, w, b):
-    """Depthwise causal conv along seq. xBC:[B,S,C], w:[W,C]."""
+    """Depthwise causal conv along seq. xBC:[B,S,*C], w:[W,*C], b:[*C]
+    (C one axis, or the split layout's (heads, head_dim))."""
     width = w.shape[0]
     s = xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, width - 1, 0))
-    out = pad[:, 0:s, :] * w[0][None, None, :]
+    pad = F.pad(xBC, (0, 0) * (xBC.dim() - 2) + (width - 1, 0))
+    out = pad[:, 0:s] * w[0][None, None]
     for i in range(1, width):
-        out = out + pad[:, i: i + s, :] * w[i][None, None, :]
-    return out + b[None, None, :]
+        out = out + pad[:, i: i + s] * w[i][None, None]
+    return out + b[None, None]
+
+
+def _forward_split(p, x, cfg: ArchConfig, h0=None, return_state=False):
+    """The split layout's full-sequence SSD block (training only): per-piece
+    projections and depthwise convs, then the chunked SSD as in the joint
+    layout. Decode and prefill refuse it: their cache hand-off uses the
+    joint layout."""
+    if return_state:
+        raise NotImplementedError(SPLIT_REFUSED)
+    d = ssm_dims(cfg)
+    dt_ = x.dtype
+    nh, pp = d["nh"], d["p"]
+    b, s, _ = x.shape
+    z = torch.einsum("bsd,dhp->bshp", x, p["w_z"].to(dt_))
+    xh = torch.einsum("bsd,dhp->bshp", x, p["w_x"].to(dt_))
+    Bs = x @ p["w_B"].to(dt_)
+    Cs = x @ p["w_C"].to(dt_)
+    dt = x @ p["w_dt"].to(dt_)
+    xh = F.silu(_causal_conv(xh, p["conv_x"].to(dt_), p["conv_bx"].to(dt_)))
+    Bs = F.silu(_causal_conv(Bs, p["conv_B"].to(dt_), p["conv_bB"].to(dt_)))
+    Cs = F.silu(_causal_conv(Cs, p["conv_C"].to(dt_), p["conv_bC"].to(dt_)))
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    y, _ = ssd_chunked(xh, dt, A, Bs, Cs, cfg.ssm_chunk, h0)
+    y = y + p["D"].to(y.dtype)[:, None] * xh
+    g = (y * F.silu(z)).reshape(b, s, nh * pp)
+    g = rms_norm(g, p["norm_w"], cfg.norm_eps).reshape(b, s, nh, pp)
+    return torch.einsum("bshp,hpd->bsd", g, p["out_proj"].to(dt_))
 
 
 def ssm_forward(p, x, cfg: ArchConfig, h0=None, conv0=None,
                 return_state=False):
     """Full-sequence SSD block. x: [B,S,d_model] -> [B,S,d_model]; with
     `return_state`, also the final SSM state [B,H,P,N] (f32) and the conv
-    state (the last W-1 pre-activation xBC rows)."""
+    state (the last W-1 pre-activation xBC rows). The split layout
+    (``w_x`` in `p`) takes `_forward_split`, which has no state."""
+    if cfg.ssm_split_proj and "w_x" in p:
+        if conv0 is not None:
+            raise NotImplementedError(SPLIT_REFUSED)
+        return _forward_split(p, x, cfg, h0, return_state)
     d = ssm_dims(cfg)
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xBC_in, dt = _split_proj(zxbcdt, cfg)
@@ -206,7 +266,10 @@ def ssm_forward(p, x, cfg: ArchConfig, h0=None, conv0=None,
 
 def ssm_decode(p, cache: Dict[str, torch.Tensor], x, cfg: ArchConfig):
     """One-token decode. x: [B,1,d_model]; cache: {"h": [B,H,P,N] f32,
-    "conv": [B,W-1,conv_dim]}. Returns (out, new cache)."""
+    "conv": [B,W-1,conv_dim]}. Returns (out, new cache). The split
+    layout is refused."""
+    if "w_x" in p:
+        raise NotImplementedError(SPLIT_REFUSED)
     d = ssm_dims(cfg)
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xBC, dt = _split_proj(zxbcdt, cfg)

@@ -1,0 +1,4 @@
+from repro_torch.optim.adamw import (AdamWConfig, apply_updates, init_state,
+                                    lr_schedule)
+
+__all__ = ["AdamWConfig", "apply_updates", "init_state", "lr_schedule"]

@@ -1,0 +1,100 @@
+"""Self-contained AdamW with a warmup-cosine schedule: the reference
+package's ``optim/adamw.py``.
+
+Parameters are stored in f32 and cast to the compute type inside the model,
+so the optimizer state is exactly (step, params, mu, nu). The update is the
+reference's: a global-norm clip of the gradients, the warmup-cosine
+learning rate, decoupled weight decay on every leaf, f32 moments. It is
+not ``torch.optim.AdamW``, whose clip and schedule are not these. Trees
+are nested dicts of tensors (`core.tree`); `apply_updates` returns a new
+state and leaves the old one as it was.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core import tree
+
+__all__ = ["AdamWConfig", "apply_updates", "global_norm", "init_state",
+           "lr_schedule"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """The learning rate at `step` (an int or an integer tensor), as an f32
+    0-d tensor on the step's device: linear warmup, then a cosine down to
+    ``min_lr_ratio * lr`` at ``total_steps``."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    frac = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * frac))
+    return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
+
+
+def init_state(params) -> Dict[str, Any]:
+    """Step 0 and zero moments of the parameters' shapes and types, on
+    their devices."""
+    first = tree.leaves(params)[0]
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=first.device),
+        "params": params,
+        "mu": tree.map_tree(torch.zeros_like, params),
+        "nu": tree.map_tree(torch.zeros_like, params),
+    }
+
+
+def global_norm(grads) -> torch.Tensor:
+    """The f32 L2 norm over every leaf of a gradient tree."""
+    total = sum(torch.sum(torch.square(g.float())) for g in tree.leaves(grads))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(state: Dict[str, Any], grads, cfg: AdamWConfig):
+    """One AdamW step. Returns (new_state, {"lr", "grad_norm"})."""
+    step = state["step"] + 1
+    lr = lr_schedule(cfg, step)
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                         max=1.0) if cfg.grad_clip else 1.0)
+    b1, b2 = cfg.b1, cfg.b2
+    c1 = 1 - b1 ** step.float()
+    c2 = 1 - b2 ** step.float()
+
+    def upd(p, g, mu, nu):
+        g = g.float() * scale
+        mu = b1 * mu + (1 - b1) * g
+        nu = b2 * nu + (1 - b2) * g * g
+        step_dir = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+        p = p - lr * (step_dir + cfg.weight_decay * p)
+        return p, mu, nu
+
+    out = [upd(*leaf) for leaf in zip(
+        tree.leaves(state["params"]), tree.leaves(grads),
+        tree.leaves(state["mu"]), tree.leaves(state["nu"]))]
+    template = state["params"]
+    new_state = {
+        "step": step,
+        "params": tree.unflatten(template, [o[0] for o in out]),
+        "mu": tree.unflatten(template, [o[1] for o in out]),
+        "nu": tree.unflatten(template, [o[2] for o in out]),
+    }
+    return new_state, {"lr": lr, "grad_norm": gnorm}

@@ -1,0 +1,103 @@
+"""Training loop: steps + checkpoints + straggler monitor + exact resume
+(the reference package's ``runtime/train_loop.py``)."""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpointing.checkpoint import (AsyncCheckpointer,
+                                                  latest_step, restore)
+from repro_torch.data.pipeline import DataConfig, MarkovTask
+from repro_torch.models.registry import Model
+from repro_torch.optim import AdamWConfig, apply_updates, init_state
+from repro_torch.optim.compression import ef_compress, init_error_state
+from repro_torch.runtime.fault_tolerance import StragglerMonitor
+from repro_torch.runtime.steps import make_train_step, value_and_grad
+
+__all__ = ["TrainReport", "train"]
+
+
+@dataclasses.dataclass
+class TrainReport:
+    steps: int
+    losses: Dict[int, float]
+    resumed_from: Optional[int]
+    straggler_steps: int
+    wall_s: float
+    step_s: List[float] = dataclasses.field(default_factory=list)
+
+
+def train(model: Model, *, steps: int, data_cfg: DataConfig,
+          opt: Optional[AdamWConfig] = None, accum: int = 1,
+          compress_grads: bool = False, ckpt_dir: Optional[str] = None,
+          ckpt_every: int = 50, log_every: int = 10, seed: int = 0,
+          fail_at_step: Optional[int] = None, device=None) -> TrainReport:
+    """Run `steps` optimizer steps on `device` (CUDA unless the caller names
+    another; RuntimeError where there is none); resumes exactly from
+    `ckpt_dir` if it holds a checkpoint. Parameters are drawn from a
+    `torch.Generator` on the device seeded with `seed`; batches are the
+    Markov task's for each step, moved to the device.
+
+    `fail_at_step` injects a crash (fault-tolerance tests and demos).
+    `TrainReport.step_s` holds each step's time, the device synchronized
+    at its end."""
+    from repro_torch.serve.engine import resolve_device
+
+    t_start = time.time()
+    device = resolve_device(device)
+    opt = opt or AdamWConfig(total_steps=steps)
+    task = MarkovTask(data_cfg)
+
+    if compress_grads:
+        # compress gradients with error feedback before the update
+        def step_fn(state, batch):
+            err = state.pop("grad_error")
+            loss, grads = value_and_grad(model, state["params"], batch)
+            grads, err = ef_compress(grads, err)
+            new_state, om = apply_updates(state, grads, opt)
+            new_state["grad_error"] = err
+            return new_state, {"loss": loss, **om}
+    else:
+        step_fn = make_train_step(model, opt, accum=accum)
+
+    # ---- init or resume
+    resumed_from = None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = model.init(gen, device)
+    state = init_state(params)
+    if compress_grads:
+        state["grad_error"] = init_error_state(params)
+    if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
+        resumed_from = latest_step(ckpt_dir)
+        state = restore(ckpt_dir, state)
+
+    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir is not None else None
+    monitor = StragglerMonitor()
+    losses: Dict[int, float] = {}
+    step_s: List[float] = []
+
+    start = int(state["step"])
+    for step in range(start, steps):
+        if fail_at_step is not None and step == fail_at_step:
+            raise RuntimeError(f"injected failure at step {step}")
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in task.batch_for_step(step).items()}
+        with monitor.timed() as timer:
+            state, metrics = step_fn(state, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        step_s.append(timer.elapsed)
+        if step % log_every == 0 or step == steps - 1:
+            losses[step] = float(metrics["loss"])
+        if ckpt is not None and (step + 1) % ckpt_every == 0:
+            ckpt.save_async(state, step + 1)
+    if ckpt is not None:
+        ckpt.save_async(state, steps)
+        ckpt.wait()
+    return TrainReport(steps=steps, losses=losses, resumed_from=resumed_from,
+                       straggler_steps=len(monitor.flagged),
+                       wall_s=time.time() - t_start, step_s=step_s)

@@ -2,9 +2,10 @@
 
 A static scan of every module of `src/repro_torch` and of `chip_smoke.py`
 for imports of `jax` or `repro`, and a subprocess in which both are
-blocked (`sys.modules[...] = None`) that imports the port and serves two
-requests of a dense and two of a MoE arch through the paged engine, and a
-batch of two of an SSM arch through the dense engine, on the CPU.
+blocked (`sys.modules[...] = None`) that imports the port, serves two
+requests of a dense and two of a MoE arch through the paged engine and a
+batch of two of an SSM arch through the dense engine, and trains a MoE
+arch for three steps with a checkpoint and a resume, on the CPU.
 """
 import ast
 import json
@@ -52,7 +53,20 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/decode_attention/ops.py",
                  "src/repro_torch/kernels/ssd_scan/ssd_scan.py",
                  "src/repro_torch/kernels/ssd_scan/ops.py",
-                 "src/repro_torch/launch/serve.py", "chip_smoke.py"):
+                 "src/repro_torch/launch/serve.py", "chip_smoke.py",
+                 "src/repro_torch/configs/shapes.py",
+                 "src/repro_torch/core/tree.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/optim/compression.py",
+                 "src/repro_torch/runtime/steps.py",
+                 "src/repro_torch/runtime/train_loop.py",
+                 "src/repro_torch/runtime/fault_tolerance.py",
+                 "src/repro_torch/checkpointing/checkpoint.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/quickstart.py",
+                 "src/repro_torch/launch/train_100m.py",
+                 "src/repro_torch/launch/machine_smoke.py"):
         assert want in names
 
 
@@ -84,11 +98,22 @@ cfg = get_config("mamba2-130m").reduced().replace(dtype="float32",
 dense = serve(cfg, batch=2, prompt_len=32, gen=3, device="cpu")
 states += ["finished" if dense["engine"] == "dense" else "?"] * 2
 generated += dense["generated"]
+import tempfile
+import repro_torch.checkpointing.checkpoint, repro_torch.configs.shapes
+import repro_torch.launch.machine_smoke, repro_torch.launch.quickstart
+import repro_torch.launch.train_100m, repro_torch.optim.compression
+from repro_torch.launch.train import main as train_main
+with tempfile.TemporaryDirectory() as ckpt:
+    args = ["--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu",
+            "--batch", "2", "--seq", "16", "--ckpt-dir", ckpt]
+    first = train_main(args + ["--steps", "2"])
+    resumed = train_main(args + ["--steps", "3"])
+trained = [sorted(first.losses), resumed.resumed_from, sorted(resumed.losses)]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 print(json.dumps({"states": states, "generated": generated,
-                  "leaked": leaked}))
+                  "trained": trained, "leaked": leaked}))
 """
 
 
@@ -101,4 +126,5 @@ def test_port_serves_with_jax_blocked():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["states"] == ["finished"] * 6
     assert [len(g) for g in out["generated"]] == [3] * 6
+    assert out["trained"] == [[0, 1], 2, [2]]
     assert out["leaked"] == []

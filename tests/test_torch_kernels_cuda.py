@@ -1436,3 +1436,155 @@ def test_guard_scan_finds_one_nonfinite_value_on_card(cuda_device, dtype):
             assert isinstance(guard.scan_output("k", t),
                               guard.KernelNumericsError)
             t[pos, 63] = 1
+
+
+# ------------------------------------------- K2's backward, and the others'
+
+
+# The six products of a training step of granite-moe-1b-a400m (batch 8 x
+# seq 512 = 4096 tokens) are the forwards of its gate/up (one token block
+# shared by the 32 experts) and down projections and their backwards; and
+# reduced and ragged shapes
+GMM_GRAD_CASES = [
+    (32, 4096, 1024, 512, True),     # gate / up: d tokens, d weights too
+    (32, 4096, 512, 1024, False),    # down
+    (4, 32, 64, 32, True),           # reduced granite-moe
+    (4, 32, 32, 64, False),
+    (3, 33, 200, 136, True),         # ragged C, dm and f
+    (2, 7, 50, 36, False),           # rows off the 16-byte unit
+]
+
+
+def _gmm_grads(tokens, weights, upstream, via):
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+
+    t = tokens.detach().clone().requires_grad_(True)
+    w = weights.detach().clone().requires_grad_(True)
+    if via == "kernel":
+        out = moe_gmm(t, w)
+    else:
+        out = mg.gmm_plain(t.expand(w.shape[0], -1, -1), w)
+    out.backward(upstream)
+    return out.detach(), t.grad, w.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,dm,f,shared", GMM_GRAD_CASES)
+def test_gmm_backward_matches_plain_autograd(cuda_device, dtype, e, c, dm,
+                                              f, shared):
+    """`moe_gmm`'s gradients through K2 (two more launches) against the
+    plain version's autograd on the same card: the output, d tokens
+    (summed over the experts for a shared block) and d weights."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(e + c + dm)
+    tokens = torch.randn(1 if shared else e, c, dm, generator=g)
+    w = torch.randn(e, dm, f, generator=g) * dm ** -0.5
+    up = torch.randn(e, c, f, generator=g) * c ** -0.5
+    tokens, w, up = (x.to(cuda_device, dtype) for x in (tokens, w, up))
+    got = _gmm_grads(tokens, w, up, "kernel")
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_gmm"] == 3
+    want = _gmm_grads(tokens, w, up, "plain")
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+
+def test_moe_layer_gradients_match_the_cpu(cuda_device):
+    """A reduced f32 MoE layer's gradients on the card (K2 forward and
+    backward: nine launches) against the same layer on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import initialize
+
+    cfg = get_config("granite-moe-1b-a400m").reduced().replace(
+        dtype="float32", param_dtype="float32")
+    g = torch.Generator(device="cpu")
+    g.manual_seed(4)
+    p = initialize(moe.moe_param_specs(cfg), g, "cpu")
+    x = torch.randn(2, 16, cfg.d_model, generator=g)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        pd = {k: v.detach().to(dev).requires_grad_(True)
+              for k, v in p.items()}
+        xd = x.detach().to(dev).requires_grad_(True)
+        y, aux = moe.moe_dense(pd, xd, cfg)
+        ((y ** 2).mean() + 0.01 * aux).backward()
+        grads.append([xd.grad.cpu()] + [pd[k].grad.cpu() for k in sorted(p)])
+    assert launch_counts()["moe_gmm"] == 9
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+
+
+def _no_backward_calls(device):
+    """Each wrapper without a backward, called on card tensors of which
+    the first requires grad: (kernel name, call)."""
+    from repro_torch.kernels.coro_gather import coro_gather as cgm
+    from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sam
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).to(device)
+
+    q, kc, vc = r(2, 4, 16), r(2, 32, 2, 16), r(2, 32, 2, 16)
+    qp, kp, vp = r(2, 4, 16), r(8, 16, 2, 16), r(8, 16, 2, 16)
+    bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=device)
+    lens = torch.tensor([20, 9], dtype=torch.int32, device=device)
+    x, dt, A = r(1, 64, 2, 16), r(1, 64, 2).abs() * 0.1, -r(2).abs()
+    B, C = r(1, 64, 16), r(1, 64, 16)
+    table = r(64, 32)
+    idx = torch.arange(16, dtype=torch.int32, device=device)
+    grad = torch.Tensor.requires_grad_
+    return [
+        ("flash_decode", lambda: da.flash_decode(grad(q), kc, vc, 20)),
+        ("paged_decode", lambda: da.paged_flash_decode(grad(qp), kp, vp, bt,
+                                                       lens)),
+        ("ssd_scan", lambda: ss.ssd_scan(grad(x), dt, A, B, C, chunk=64)),
+        ("row_gather", lambda: cgm.row_gather(grad(table), idx)),
+        ("span_gather", lambda: cgm.span_gather(grad(table), idx[:4] * 8)),
+        ("scatter_add", lambda: sam.scatter_add_unique(
+            table.clone(), idx, grad(r(16, 32)))),
+        ("stream_triad", lambda: sc.triad(grad(r(128, 4)), r(128, 4), 2.0)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_wrappers_without_backward_raise_under_grad(cuda_device, case):
+    """A kernel with no backward never returns a tensor that cuts the
+    graph: under grad mode an operand that requires grad raises the typed
+    error naming the kernel, before any launch; under no_grad the same
+    call launches."""
+    from repro_torch.kernels import ring
+
+    name, call = _no_backward_calls(cuda_device)[case]
+    with pytest.raises(ring.NoBackwardError) as ei:
+        call()
+    assert ei.value.kernel == name and launch_counts()[name] == 0
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert launch_counts()[name] >= 1
+
+
+def test_ssm_block_under_grad_raises_at_k4(cuda_device):
+    """Mamba-2's block reaches K4 on a zero state: training it on the card
+    raises until K4 has a backward (it never runs the plain version)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ring
+    from repro_torch.models import ssm
+    from repro_torch.models.params import initialize
+
+    cfg = get_config("mamba2-130m").reduced().replace(dtype="float32",
+                                                      param_dtype="float32")
+    g = torch.Generator(device="cpu")
+    g.manual_seed(6)
+    p = {k: v.to(cuda_device).requires_grad_(True) for k, v in
+         initialize(ssm.ssm_param_specs(cfg), g, "cpu").items()}
+    x = torch.randn(1, 32, cfg.d_model, device=cuda_device)
+    with pytest.raises(ring.NoBackwardError, match="ssd_scan"):
+        ssm.ssm_forward(p, x, cfg)

@@ -234,8 +234,18 @@ def test_ssm_dims_and_specs_match_reference(arch, reduced):
     for k, s in ours.items():
         assert (s.shape, s.axes, s.init) == (ref[k].shape, ref[k].axes,
                                              ref[k].init)
-    with pytest.raises(NotImplementedError):
-        ssm.ssm_param_specs(cfg.replace(ssm_split_proj=True))
+    # the split training layout: the reference's specs; decode refuses it
+    split = ssm.ssm_param_specs(cfg.replace(ssm_split_proj=True))
+    ref_split = ref_ssm.ssm_param_specs(ref_cfg.replace(ssm_split_proj=True))
+    assert set(split) == set(ref_split)
+    for k, s in split.items():
+        assert (s.shape, s.axes, s.init) == (ref_split[k].shape,
+                                             ref_split[k].axes,
+                                             ref_split[k].init)
+    meta = {k: torch.empty(s.shape, device="meta") for k, s in split.items()}
+    with pytest.raises(NotImplementedError, match="joint in_proj layout"):
+        ssm.ssm_decode(meta, {}, torch.empty(1, 1, cfg.d_model,
+                                             device="meta"), cfg)
 
 
 @pytest.mark.parametrize("args", [(256, 24, 64, 128, 2, 2048),
