@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every CUDA kernel of the serving (paged and dense) and GUPS
-     paths from the sources in the checkout (one nvcc per source, all
-     started together; K1 and K3 share one source);
+  2. build every CUDA kernel of the serving (paged and dense), GUPS and
+     training paths from the sources in the checkout (one nvcc per
+     source, all started together; K1 and K3 share one source, K4's
+     backward has its own);
   3. each kernel against its plain PyTorch version on the card: paged
      decode (K1) at yi-6b, granite-3-2b, internlm2-20b, head_dim-16 and
      one-KV-head shapes (1 to 32 query heads per KV head), ragged
@@ -210,8 +211,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      and gap must sum to its observed per-tile time;
  10. the guard (`core.guard`) on the card (its sentinel is off in phases
      1-9, whatever ``REPRO_PARITY`` says): (a) with the sentinel on full,
-     each of the eight guarded wrappers once at small f32 shapes: 8 parity
-     checks, no mismatch; (b) a deliberately wrong plain version around
+     each of the nine guarded wrappers (K4's backward among them) once at
+     small f32 shapes: a parity check each, no mismatch; (b) a deliberately wrong plain version around
      K5a's `row_gather_at`: `KernelParityError`, the ladder 8, 4, 2, 1,
      each depth quarantined; (c) K6 asked for 64 and 32 slots of 8 KiB,
      which `check_smem` refuses: the ladder lands on 16, the table equals
@@ -233,19 +234,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      the card against the same step on the CPU (same parameters and
      batch): the loss, every gradient leaf and the AdamW update within
      2e-3, and the card's state through a checkpoint and back, bitwise;
-     (c) Mamba-2's block under grad on the card raises K4's typed error
-     (K4 has no backward yet); (d) granite-moe-1b-a400m trained at full
-     width (f32 parameters, bf16 compute, batch 8 x seq 512, AdamW, 20
-     steps): every loss finite, the mean of the last 5 below the mean of
-     the first 5, exactly 216 K2 launches a step (9 a layer) and no other
-     kernel; step time p50, tokens a second, peak memory, then a profile
-     of fresh steps (device busy share, K2's share) and the guard's cost
-     a step; (e) K2's times at the six products beside torch.bmm and the
-     bound;
+     then the same reduced f32 step of mamba2-130m and hymba-1.5b (a K4
+     forward and a K4 backward call a layer) card == CPU within 2e-3;
+     (c) K4's backward kernel (`ssd_scan_bwd`, four launches a call)
+     against its plain version at mamba2's and hymba's full training
+     shapes (b 8, s 512, chunk 256; x/B/C slices of one projection, dt
+     f32), f32 (2e-3 + 2e-3 x |value|) and bf16 (3e-2 + 3e-2 x |value|),
+     depths 1, 2 and solved, dh_final None and given, one count a call;
+     (d) granite-moe-1b-a400m (20 steps), mamba2-130m (20) and hymba-1.5b
+     (10) trained at full width (f32 parameters, bf16 compute, batch 8 x
+     seq 512, AdamW): every loss finite, the mean of the last 5 below the
+     mean of the first 5, exactly the step's launches (216 K2; or 24 / 32
+     K4 forward and backward calls) and no other kernel; step time p50,
+     tokens a second, peak memory, then a profile of fresh steps (device
+     busy share; K2's share, or K4's forward and backward ms a step) and
+     the guard's cost a step; (e) K2's times at the six products beside
+     torch.bmm and the bound, and K4's backward's at the two SSM training
+     shapes (by launch) beside its plain version and the bound;
  12. `guard.stats()` on one JSON line, one JSON line describing every
-     kernel (eight; K2's, K3's and K4's launches by path, and K2's times
-     at the training products and K3's at the new families' shapes, among
-     them), then the result line.
+     kernel (nine: K4's backward has its own entry; K2's, K3's and K4's
+     launches by path, and K2's times at the training products and K3's
+     at the new families' shapes, among them), then the result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -364,8 +373,8 @@ def build_kernels():
     from repro_torch.kernels.stream_copy import stream_copy as sc
 
     t0 = time.perf_counter()
-    libs = build.build([da.FLASH_SOURCE, ss.SOURCE, mg.SOURCE, cg.SOURCE,
-                        sa.SOURCE, sc.SOURCE])
+    libs = build.build([da.FLASH_SOURCE, ss.SOURCE, ss.BWD_SOURCE, mg.SOURCE,
+                        cg.SOURCE, sa.SOURCE, sc.SOURCE])
     log(f"built {len(libs)} kernel librar{'y' if len(libs) == 1 else 'ies'} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, text in build.build_logs.items():
@@ -1404,10 +1413,12 @@ SSD_CHUNK_CASES = (
 )
 
 
-def ssd_operands(torch, gen, b, s, nh, p, n, *, dtype, strong=False):
+def ssd_operands(torch, gen, b, s, nh, p, n, *, dtype, strong=False,
+                 weak=False):
     """x, B and C as slices of one joint [b, s, nh p + 2 n] projection in
     `dtype` (the SSM block's layout), dt in f32 in [0.1, 0.6) (or 8, with
-    A = -1: a strong decay), A = -exp(0.3 N)."""
+    A = -1: a strong decay; or in [0.005, 0.03): a weak one, under which a
+    64-row chunk keeps ~a third of its state), A = -exp(0.3 N)."""
     joint = torch.randn(b, s, nh * p + 2 * n, generator=gen,
                         device="cuda").to(dtype)
     x = joint[..., :nh * p].reshape(b, s, nh, p)
@@ -1416,6 +1427,8 @@ def ssd_operands(torch, gen, b, s, nh, p, n, *, dtype, strong=False):
     a = -torch.exp(torch.randn(nh, generator=gen, device="cuda") * 0.3)
     if strong:
         dt, a = torch.full_like(dt, 8.0), torch.full_like(a, -1.0)
+    if weak:
+        dt = dt * 0.05
     return x, dt, a, bm, cm
 
 
@@ -1902,9 +1915,15 @@ def launch_ms(torch, fn, calls=10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {re.findall(r"(\w+)(?=[<(])", e.key)[0]:
-            e.device_time_total / calls / 1e3
+    return {kernel_name(e.key): e.device_time_total / calls / 1e3
             for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's name from its profiler key, templated or not
+    ("void f<128>(float*)" and "f(float*)" give "f")."""
+    found = re.findall(r"(\w+)(?=[<(])", key)
+    return found[0] if found else key
 
 
 def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
@@ -2214,10 +2233,10 @@ def gups_main_path(torch):
     depths["stream_triad"] = autotune.last_choice("stream_triad")
     counts = launch_counts()
 
-    want = {"paged_decode": 0, "moe_gmm": 0, "flash_decode": 0,
-            "ssd_scan": 0, "row_gather": 1 + bool(plan.n_singles),
-            "span_gather": int(bool(plan.n_spans)), "scatter_add": 1,
-            "stream_triad": 1}
+    want = {name: 0 for name in counts}
+    want.update(row_gather=1 + bool(plan.n_singles),
+                span_gather=int(bool(plan.n_spans)), scatter_add=1,
+                stream_triad=1)
     if counts != want:
         raise AssertionError(f"GUPS path launches {counts}, want {want}")
     idx64 = idx.long()
@@ -2672,8 +2691,9 @@ def time_triad_walk(torch, b, c, s, item_rows):
 
 
 def guard_operands(torch):
-    """Small operands for each of the eight guarded wrappers, f32 on the
-    card: {kernel: thunk calling its wrapper once}."""
+    """Small operands for each of the nine guarded wrappers (K4's backward
+    among them), f32 on the card: {kernel: thunk calling its wrapper
+    once}."""
     from repro_torch.kernels.coro_gather import coro_gather as cg
     from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sa
     from repro_torch.kernels.decode_attention import decode_attention as da
@@ -2691,6 +2711,7 @@ def guard_operands(torch):
     tokens = torch.randn(2, 16, 64, generator=gen, device="cuda")
     w = torch.randn(2, 64, 256, generator=gen, device="cuda")
     ssd = ssd_operands(torch, gen, 1, 128, 2, 64, 64, dtype=torch.float32)
+    dy = torch.randn(1, 128, 2, 64, generator=gen, device="cuda")
     table = torch.randn(256, 128, generator=gen, device="cuda")
     idx = torch.randint(0, 256, (64,), generator=gen, device="cuda",
                         dtype=torch.int32)
@@ -2704,6 +2725,7 @@ def guard_operands(torch):
         "moe_gmm": lambda: mg.gmm(tokens, w),
         "flash_decode": lambda: da.flash_decode(q, k, v, 70),
         "ssd_scan": lambda: ss.ssd_scan(*ssd, chunk=64),
+        "ssd_scan_bwd": lambda: ss.ssd_scan_bwd(*ssd, dy, chunk=64),
         "row_gather": lambda: cg.row_gather(table, idx),
         "span_gather": lambda: cg.span_gather(table, starts, span=8),
         "scatter_add": lambda: sa.scatter_add_unique(table.clone(), uniq, upd),
@@ -2720,9 +2742,9 @@ def _guard_delta(before: dict) -> dict:
 
 
 def check_sentinel(torch) -> None:
-    """(a) With the sentinel on full, each of the eight guarded wrappers
-    once, eagerly: 8 parity checks against the plain versions on the card,
-    no mismatch, one launch each."""
+    """(a) With the sentinel on full, each of the nine guarded wrappers
+    once, eagerly: a parity check each against the plain versions on the
+    card, no mismatch, one launch each."""
     from repro_torch.core import guard
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
@@ -2735,10 +2757,12 @@ def check_sentinel(torch) -> None:
     torch.cuda.synchronize()
     delta, counts = _guard_delta(before), launch_counts()
     guard.set_parity("off")
-    if delta["parity_checks"] != 8 or delta["parity_mismatches"] or \
-            delta["clean_calls"] != 8 or any(counts[k] != 1 for k in calls):
-        raise AssertionError(f"sentinel over the eight wrappers: {delta}, "
-                             f"launches {counts}")
+    if delta["parity_checks"] != len(calls) or \
+            delta["parity_mismatches"] or \
+            delta["clean_calls"] != len(calls) or \
+            any(counts[k] != 1 for k in calls):
+        raise AssertionError(f"sentinel over the {len(calls)} wrappers: "
+                             f"{delta}, launches {counts}")
     log(f"guard (a) sentinel full over {sorted(calls)}: {json.dumps(delta)}")
 
 
@@ -3021,6 +3045,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
 # 1.0 scales every update under AdamW's eps and the loss stays flat;
 # without it AdamW's per-leaf normalisation trains
 TRAIN_DATA_VOCAB, TRAIN_LR, TRAIN_CLIP = 512, 1e-2, 0.0
+# The SSM and hybrid families at the same settings, through K4's forward
+# and backward kernels (a call each a layer a step); hymba (1.5 B
+# parameters) takes fewer steps
+SSM_TRAIN = (("mamba2-130m", 20), ("hymba-1.5b", 10))
+K4_FWD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
+                  "chunk_scan_kernel")
+K4_BWD_KERNELS = ("bwd_state_kernel", "bwd_pass_kernel", "bwd_chunk_kernel",
+                  "bwd_reduce_kernel")
 
 
 def gmm_train_products(cfg, t: int):
@@ -3095,11 +3127,14 @@ def check_gmm_grads(torch, cfg) -> float:
     return worst
 
 
-def check_train_step_card_vs_cpu(torch) -> None:
-    """Phase 11b: a reduced granite-moe f32 step on the card against the
-    same step on the CPU, from the same parameters and batch: loss, every
-    gradient leaf and the AdamW update (params, mu, nu) at 2e-3; then the
-    card's state through a checkpoint and back, bitwise, on the card."""
+def check_train_step_card_vs_cpu(torch, arch: str = TRAIN_ARCH) -> None:
+    """Phase 11b: a reduced f32 step of `arch` on the card against the same
+    step on the CPU, from the same parameters and batch: loss, every
+    gradient leaf and the AdamW update (params, mu, nu) at 2e-3, with the
+    step's kernel launches (granite-moe: K2, 9 a layer; mamba2 and hymba:
+    a K4 forward and a K4 backward call a layer) and none on the CPU; for
+    granite-moe then the card's state through a checkpoint and back,
+    bitwise, on the card."""
     import tempfile
 
     from repro_torch.checkpointing import checkpoint
@@ -3111,8 +3146,8 @@ def check_train_step_card_vs_cpu(torch) -> None:
     from repro_torch.optim import AdamWConfig, apply_updates, init_state
     from repro_torch.runtime.steps import value_and_grad
 
-    cfg = get_config(TRAIN_ARCH).reduced().replace(dtype="float32",
-                                                   param_dtype="float32")
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
     model = build_model(cfg)
     gen = torch.Generator()
     gen.manual_seed(0)
@@ -3127,12 +3162,17 @@ def check_train_step_card_vs_cpu(torch) -> None:
         reset_launch_counts()
         loss, grads = value_and_grad(model, p, b)
         state, metrics = apply_updates(init_state(p), grads, opt)
-        out[dev] = (loss, grads, state, launch_counts()["moe_gmm"])
-    if out["cpu"][3] != 0 or out["cuda"][3] != 9 * cfg.n_layers:
-        raise AssertionError(f"train step: K2 launches cpu/card "
-                             f"{out['cpu'][3]}/{out['cuda'][3]}, want 0/"
-                             f"{9 * cfg.n_layers}")
-    worst = _close("train step reduced f32 loss card vs cpu",
+        out[dev] = (loss, grads, state, launch_counts())
+    want = {k: 0 for k in out["cuda"][3]}
+    if cfg.moe:
+        want["moe_gmm"] = 9 * cfg.n_layers
+    else:
+        want["ssd_scan"] = want["ssd_scan_bwd"] = cfg.n_layers
+    if any(out["cpu"][3].values()) or out["cuda"][3] != want:
+        raise AssertionError(f"train step {arch}: launches cpu "
+                             f"{out['cpu'][3]}, card {out['cuda'][3]}, want "
+                             f"none and {want}")
+    worst = _close(f"train step {arch} reduced f32 loss card vs cpu",
                    out["cuda"][0].reshape(1).cpu(), out["cpu"][0].reshape(1),
                    2e-3)
     for label, i in (("grad", 1), ("update", 2)):
@@ -3140,12 +3180,15 @@ def check_train_step_card_vs_cpu(torch) -> None:
                                 tree.leaves(out["cpu"][i])):
             if a.dtype.is_floating_point:
                 worst = max(worst, _close_quiet(
-                    f"train step {label} {'/'.join(path)}", a.cpu(), b,
+                    f"train step {arch} {label} {'/'.join(path)}", a.cpu(), b,
                     2e-3))
-    log(f"train step {TRAIN_ARCH} reduced f32 card == cpu: loss "
+    launched = {k: v for k, v in out["cuda"][3].items() if v}
+    log(f"train step {arch} reduced f32 card == cpu: loss "
         f"{float(out['cuda'][0]):.6f} / {float(out['cpu'][0]):.6f}, every "
         f"gradient leaf and the AdamW update within 2e-3 (max abs err "
-        f"{worst:.3e}), {out['cuda'][3]} K2 launches (9 a layer)")
+        f"{worst:.3e}), launches {json.dumps(launched)}")
+    if arch != TRAIN_ARCH:
+        return
     state = out["cuda"][2]
     with tempfile.TemporaryDirectory() as d:
         checkpoint.save(state, d, 1)
@@ -3172,40 +3215,88 @@ def _close_quiet(name, got, want, tol) -> float:
     return err
 
 
-def check_k4_refuses_grad(torch) -> None:
-    """Phase 11c: Mamba-2's block under grad on the card raises K4's typed
-    error (K4 has no backward yet) and launches nothing."""
+def ssd_train_shape(arch: str):
+    """(b, s, nh, p, n, chunk) of K4 in `arch`'s training step."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts, ring
-    from repro_torch.models import ssm
-    from repro_torch.models.params import initialize
+    from repro_torch.models.ssm import ssm_dims
 
-    cfg = get_config("mamba2-130m").reduced().replace(dtype="float32",
-                                                      param_dtype="float32")
+    cfg = get_config(arch)
+    d = ssm_dims(cfg)
+    return TRAIN_BATCH, TRAIN_SEQ, d["nh"], d["p"], d["n"], cfg.ssm_chunk
+
+
+def ssd_grad_operands(torch, gen, arch, dtype, with_dh=False, weak=False):
+    """K4's backward operands at `arch`'s training shape: x, B and C slices
+    of one joint projection, dt f32 (`ssd_operands`, `weak`: a decay weak
+    enough that the gradient carried across a chunk counts), dy in x's
+    type, and dh_final (f32) or None, as in training."""
+    b, s, nh, p, n, _ = ssd_train_shape(arch)
+    args = ssd_operands(torch, gen, b, s, nh, p, n, dtype=dtype, weak=weak)
+    dy = torch.randn(b, s, nh, p, generator=gen, device="cuda").to(dtype)
+    dh = torch.randn(b, nh, p, n, generator=gen, device="cuda") \
+        if with_dh else None
+    return args, dy, dh
+
+
+def check_k4_grads(torch) -> float:
+    """Phase 11c: K4's backward kernel (`ssd_scan_bwd`) at mamba2-130m's and
+    hymba-1.5b's full training shapes (b 8, s 512, chunk 256) against its
+    plain version on the card: dx, ddt, dA, dB and dC, f32 at 2e-3 + 2e-3 x
+    |value| and bf16 at 3e-2 + 3e-2 x |value|, depths 1, 2 and solved (the
+    heads a block walks), dh_final None (as in training); and at the
+    solved depth under a weak decay with dh_final given (at the path's
+    decay a 64-row chunk keeps under 1e-9 of its state, so the gradient
+    carried back across chunks would not show); one count a call, and no
+    forward launch."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(12)
-    p = initialize(ssm.ssm_param_specs(cfg), gen, "cuda")
-    p = {k: v.requires_grad_(True) for k, v in p.items()}
-    x = torch.randn(2, 64, cfg.d_model, generator=gen, device="cuda")
-    reset_launch_counts()
-    try:
-        ssm.ssm_forward(p, x, cfg)
-    except ring.NoBackwardError as e:
-        if e.kernel != "ssd_scan" or launch_counts()["ssd_scan"]:
-            raise AssertionError(f"K4 under grad: {e.kernel}, "
-                                 f"{launch_counts()['ssd_scan']} launches")
-        log(f"refusal: mamba2-130m reduced under grad on the card raises "
-            f"{type(e).__name__} ({e.kernel}), no launch")
-    else:
-        raise AssertionError("K4 under grad on the card did not raise")
+    gen.manual_seed(14)
+    worst = 0.0
+    for arch, _ in SSM_TRAIN:
+        chunk = ssd_train_shape(arch)[-1]
+        for dtype_name in ("float32", "bfloat16"):
+            for with_dh in (False, True):     # and, given, a weak decay
+                args, dy, dh = ssd_grad_operands(
+                    torch, gen, arch, getattr(torch, dtype_name), with_dh,
+                    weak=with_dh)
+                want = ss.ssd_scan_bwd_plain(*args, dy, dh, chunk=chunk)
+                for depth in ((1, 2, None) if not with_dh else (None,)):
+                    before = launch_counts()
+                    got = ss.ssd_scan_bwd(*args, dy, dh, chunk=chunk,
+                                          depth=depth)
+                    torch.cuda.synchronize()
+                    after = launch_counts()
+                    moved = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+                    if moved != {"ssd_scan_bwd": 1}:
+                        raise AssertionError(f"ssd_scan_bwd {arch}: launches "
+                                             f"{moved}, not one call")
+                    ran = autotune.last_choice("ssd_scan_bwd")
+                    for part, a, b in zip(("dx", "ddt", "dA", "dB", "dC"),
+                                          got, want):
+                        worst = max(worst, _close(
+                            f"ssd_scan_bwd {arch} train shape {part} "
+                            f"{dtype_name} depth={depth} (ran {ran}) "
+                            f"{'weak decay, dh_final given' if with_dh else 'dh_final None'}",
+                            a, b, TOL[dtype_name]))
+                    del got
+                del args, dy, dh, want
+                gc_collect(torch)
+    return worst
 
 
-def train_full_width(torch) -> dict:
-    """Phase 11d: `train` on granite-moe-1b-a400m at full width. Every loss
-    finite and the mean of the last 5 below the mean of the first 5;
-    exactly 9 K2 launches a layer a step and nothing else launched. Then a
-    fresh state's steps for the profile (device busy share, K2's share)
-    and the guard's cost a step (checked against unchecked)."""
+def train_full_width(torch, arch: str = TRAIN_ARCH,
+                     steps: int = TRAIN_STEPS) -> dict:
+    """Phase 11d: `train` on `arch` at full width for `steps` steps. Every
+    loss finite and the mean of the last 5 below the mean of the first 5;
+    exactly the step's kernel launches (granite-moe: 9 K2 a
+    layer; mamba2 and hymba: a K4 forward and a K4 backward call a layer)
+    and nothing else launched. Then a fresh state's steps for the profile
+    (device busy share; K2's share, or K4's forward and backward ms a
+    step) and the guard's cost a step (checked against unchecked)."""
     from repro_torch.configs import get_config
     from repro_torch.core import step_graph
     from repro_torch.data.pipeline import DataConfig, MarkovTask
@@ -3215,48 +3306,51 @@ def train_full_width(torch) -> dict:
     from repro_torch.runtime.steps import make_train_step
     from repro_torch.runtime.train_loop import train
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     if (cfg.dtype, cfg.param_dtype) != ("bfloat16", "float32"):
-        raise AssertionError(f"{TRAIN_ARCH}: {cfg.dtype}/{cfg.param_dtype}")
+        raise AssertionError(f"{arch}: {cfg.dtype}/{cfg.param_dtype}")
     model = build_model(cfg)
     data = DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
-    opt = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=2,
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=steps, warmup_steps=2,
                       grad_clip=TRAIN_CLIP)
     gc_collect(torch)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    rep = train(model, steps=TRAIN_STEPS, data_cfg=data, opt=opt,
-                log_every=1, device="cuda")
+    rep = train(model, steps=steps, data_cfg=data, opt=opt, log_every=1,
+                device="cuda")
     counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [rep.losses[i] for i in range(TRAIN_STEPS)]
-    per_step = 9 * cfg.n_layers
-    want = {k: 0 for k in counts}
-    want["moe_gmm"] = per_step * TRAIN_STEPS
+    losses = [rep.losses[i] for i in range(steps)]
+    per_step = {k: 0 for k in counts}
+    if cfg.moe:
+        per_step["moe_gmm"] = 9 * cfg.n_layers
+    else:
+        per_step["ssd_scan"] = per_step["ssd_scan_bwd"] = cfg.n_layers
+    want = {k: v * steps for k, v in per_step.items()}
+    per_step = {k: v for k, v in per_step.items() if v}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     p50 = statistics.median(rep.step_s)
     step_ms = [s * 1e3 for s in rep.step_s]
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-    log(f"train {TRAIN_ARCH} full width ({model.n_params()} parameters, f32 "
+    log(f"train {arch} full width ({model.n_params()} parameters, f32 "
         f"params, bf16 compute, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
-        f"{TRAIN_STEPS} steps, Markov task over {TRAIN_DATA_VOCAB} ids, lr "
+        f"{steps} steps, Markov task over {TRAIN_DATA_VOCAB} ids, lr "
         f"{TRAIN_LR:g}, clip {TRAIN_CLIP:g}): "
         f"losses {json.dumps([round(x, 4) for x in losses])}, mean of the "
-        f"first 5 {first:.4f}, of the last 5 {last:.4f}")
-    log(f"train {TRAIN_ARCH}: step p50 {p50 * 1e3:.1f} ms (steps "
+        f"first 5 {first:.4f}, of the last 5 {last:.4f}"
+        f" ({'fell' if last < first else 'did not fall'})")
+    log(f"train {arch}: step p50 {p50 * 1e3:.1f} ms (steps "
         f"{json.dumps([round(s, 1) for s in step_ms])} ms), "
-        f"{tokens / p50:.0f} tokens/s, peak memory {peak_gb:.2f} GB, K2 "
-        f"launches {counts['moe_gmm']} ({per_step} a step), wall "
-        f"{rep.wall_s:.1f} s")
+        f"{tokens / p50:.0f} tokens/s, peak memory {peak_gb:.2f} GB, "
+        f"launches {json.dumps({k: counts[k] for k in per_step})} "
+        f"({json.dumps(per_step)} a step), wall {rep.wall_s:.1f} s")
     if counts != want:
-        raise AssertionError(f"train {TRAIN_ARCH}: launches {counts}, want "
-                             f"{want}")
+        raise AssertionError(f"train {arch}: launches {counts}, want {want}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train {TRAIN_ARCH}: losses {losses}")
+        raise AssertionError(f"train {arch}: losses {losses}")
     if not last < first:
-        raise AssertionError(f"train {TRAIN_ARCH}: loss did not fall: "
-                             f"{losses}")
+        raise AssertionError(f"train {arch}: loss did not fall: {losses}")
     del rep
     gc_collect(torch)
 
@@ -3268,17 +3362,31 @@ def train_full_width(torch) -> dict:
              for k, v in MarkovTask(data).batch_for_step(0).items()}
     busy, by_kernel, wall_ms = profile_steps(
         torch, lambda: step(state, batch), 2,
-        f"{TRAIN_ARCH} train step (B {TRAIN_BATCH} x {TRAIN_SEQ})",
+        f"{arch} train step (B {TRAIN_BATCH} x {TRAIN_SEQ})",
         step_graph.stats())
-    log_gmm_share(f"{TRAIN_ARCH} train step", by_kernel, wall_ms)
+    out = {"losses": losses, "loss_first5": first, "loss_last5": last,
+           "step_ms_p50": p50 * 1e3, "step_ms": step_ms,
+           "tokens_per_s": tokens / p50, "peak_memory_gb": peak_gb,
+           "busy_share": busy, "launches": {k: counts[k] for k in per_step},
+           "launches_a_step": per_step}
+    if cfg.moe:
+        log_gmm_share(f"{arch} train step", by_kernel, wall_ms)
+    else:
+        device_ms = sum(by_kernel.values())
+        for part, names in (("forward", K4_FWD_KERNELS),
+                            ("backward", K4_BWD_KERNELS)):
+            ms = sum(t for key, t in by_kernel.items()
+                     if kernel_name(key) in names)
+            out[f"k4_{part}_ms_a_step"] = ms
+            log(f"{arch} train step: K4 {part} {ms:.3f} ms of {device_ms:.3f}"
+                f" ms device time ({ms / device_ms:.1%}), "
+                f"{per_step['ssd_scan']} calls")
     guard = eager_guard_cost(torch, lambda: step(state, batch),
-                             f"{TRAIN_ARCH} train step", turns=1)
+                             f"{arch} train step", turns=1)
+    out["guard_ms_a_step"] = guard["guard_ms"]
     del state, batch
     gc_collect(torch)
-    return {"losses": losses, "step_ms_p50": p50 * 1e3, "step_ms": step_ms,
-            "tokens_per_s": tokens / p50, "peak_memory_gb": peak_gb,
-            "busy_share": busy, "guard_ms_a_step": guard["guard_ms"],
-            "gmm_launches": counts["moe_gmm"], "gmm_launches_a_step": per_step}
+    return out
 
 
 def gc_collect(torch) -> None:
@@ -3342,21 +3450,142 @@ def time_gmm_train(torch, cfg) -> dict:
     return out
 
 
+def ssd_bwd_bound(b, s, nh, p, n, dtype_name):
+    """The least time of K4's backward at a shape: the larger of its bytes
+    (x, dy, B, C, dt and A read once; dx, dB, dC, ddt and dA written once)
+    over 3.35 TB/s and its operations (`ssd_scan.bwd_flops`: the causal
+    half of each product at the kernel's 64-row chunks, the products with
+    the heads' shared B and C once a chunk) over the peak of the inputs'
+    type."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    isz = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (3 * b * s * nh * p * isz          # x, dy in; dx out
+              + 4 * b * s * n * isz             # B, C in; dB, dC out
+              + 2 * b * s * nh * 4 + 2 * nh * 4)  # dt, A in; ddt, dA out
+    flops = ss.bwd_flops(ss.BWD_CHUNK, nh, p, n) * b * -(-s // ss.BWD_CHUNK)
+    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK[dtype_name]
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
+
+
+def time_ssd_bwd(torch) -> dict:
+    """Phase 11e: K4's backward alone at mamba2-130m's and hymba-1.5b's
+    training shapes (bf16 and f32, dh_final None), the launch the path runs
+    (no guard; each of its four launches by name) against the plain
+    version and the bound, in turns: kernel, plain, kernel. No single
+    PyTorch call computes it: no library time."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    out = {}
+    for arch, _ in SSM_TRAIN:
+        b, s, nh, p, n, chunk = ssd_train_shape(arch)
+        for dtype_name in ("bfloat16", "float32"):
+            sets = [ssd_grad_operands(torch, gen, arch,
+                                      getattr(torch, dtype_name))
+                    for _ in range(2)]
+            runs = [path_launch(ss.ssd_scan_bwd, *args, dy, dh, chunk=chunk)
+                    for args, dy, dh in sets]
+            depth = autotune.last_choice("ssd_scan_bwd")
+            got = runs[0][0]
+            args, dy, dh = sets[0]
+            want = ss.ssd_scan_bwd_plain(*args, dy, dh, chunk=chunk)
+            err = max(_close(f"ssd_scan_bwd {arch} timing shape {part} "
+                             f"{dtype_name}", a, w, TOL[dtype_name])
+                      for part, a, w in zip(("dx", "ddt", "dA", "dB", "dC"),
+                                            got, want))
+            del got, want
+            launches = [(run,) for _, run in runs]
+            plain_args = [(*a, d_y, d_h) for a, d_y, d_h in sets]
+
+            def plain(*a):
+                return ss.ssd_scan_bwd_plain(*a, chunk=chunk)
+
+            kernel_a = median_ms(torch, run_thunk, launches, repeats=11)
+            plain_ms = median_ms(torch, plain, plain_args, repeats=5)
+            kernel_b = median_ms(torch, run_thunk, launches, repeats=11)
+            ms = statistics.median([kernel_a, kernel_b])
+            per_launch = launch_ms(torch, launches[0][0])
+            bound_ms, bound_by, nbytes, flops = ssd_bwd_bound(
+                b, s, nh, p, n, dtype_name)
+            run = ss.bwd_plan(b, s, nh, p, n, depth)
+            shape = {"b": b, "s": s, "nh": nh, "p": p, "n": n,
+                     "chunk": chunk, "dtype": dtype_name, "dt": "float32",
+                     **run._asdict()}
+            log(f"times ssd_scan_bwd {arch} train {json.dumps(shape)}: "
+                f"kernel {kernel_a:.4f}/{kernel_b:.4f} ms "
+                f"({json.dumps(per_launch)}), plain {plain_ms:.4f} ms, no "
+                f"library call, bound {bound_ms:.5f} ms ({bound_by}, "
+                f"{nbytes} B, {flops:.4g} flop), {bound_ms / ms:.1%} of the "
+                f"bound")
+            out[f"{arch} train {dtype_name}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "launch_ms": per_launch,
+                "shape": shape}
+            del sets, runs, launches, plain_args
+            gc_collect(torch)
+    return out
+
+
 def train_phase(torch) -> dict:
-    """Phase 11: (a) K2's gradients, (b) a reduced step card == CPU and a
-    checkpoint round trip, (c) K4's refusal under grad, (d) granite-moe
-    trained at full width, (e) K2's times at the training products."""
+    """Phase 11: (a) K2's gradients, (b) reduced steps card == CPU
+    (granite-moe, mamba2, hymba) and a checkpoint round trip, (c) K4's
+    gradients at the two SSM training shapes, (d) granite-moe, mamba2 and
+    hymba trained at full width, (e) K2's times at the training products
+    and K4's backward's at the SSM training shapes."""
     from repro_torch.configs import get_config
     from repro_torch.core import guard
 
     guard.set_parity("off")
     cfg = get_config(TRAIN_ARCH)
     check_gmm_grads(torch, cfg)
-    check_train_step_card_vs_cpu(torch)
-    check_k4_refuses_grad(torch)
+    for arch in (TRAIN_ARCH, *(a for a, _ in SSM_TRAIN)):
+        check_train_step_card_vs_cpu(torch, arch)
+    check_k4_grads(torch)
     run = train_full_width(torch)
+    run["ssm"] = {arch: train_full_width(torch, arch, steps)
+                  for arch, steps in SSM_TRAIN}
     run["gmm_times"] = time_gmm_train(torch, cfg)
+    run["ssd_bwd_times"] = time_ssd_bwd(torch)
     return run
+
+
+def ssd_bwd_entry(trained) -> dict:
+    """The kernels line's entry of K4's backward: launches (calls) in the
+    mamba2-130m training run, its time at mamba2's training shape in bf16
+    (the path's type) and at the others beside it."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    times = trained["ssd_bwd_times"]
+    main_key = f"{SSM_TRAIN[0][0]} train bfloat16"
+    return {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:60",
+        "tpu": "none of its own: the backward of "
+               "kernels/ssd_scan/ssd_scan.py:ssd_scan, which the reference "
+               "differentiates through its jnp ssd_chunked "
+               "(models/ssm.py:48)",
+        "launches": trained["ssm"][SSM_TRAIN[0][0]]["launches"]
+        ["ssd_scan_bwd"],
+        "launches_by_path": {f"{arch} train": t["launches"]["ssd_scan_bwd"]
+                             for arch, t in trained["ssm"].items()},
+        "launches_a_train_step": {
+            arch: t["launches_a_step"]["ssd_scan_bwd"]
+            for arch, t in trained["ssm"].items()},
+        "parity": "ok",
+        **{k: times[main_key][k] for k in keys},
+        "launch_ms": times[main_key]["launch_ms"],
+        "shape": times[main_key]["shape"],
+        "at_other_shapes": {name: {k: t[k] for k in keys + (
+            "launch_ms", "shape")} for name, t in times.items()
+            if name != main_key},
+    }
 
 
 # --------------------------------------------------------------------- main
@@ -3564,7 +3793,9 @@ def main() -> int:
         "launches": ssm_counts["ssd_scan"],
         "launches_by_path": {
             "mamba2-130m": ssm_counts["ssd_scan"],
-            "hymba-1.5b": family["hymba-1.5b"]["counts"]["ssd_scan"]},
+            "hymba-1.5b": family["hymba-1.5b"]["counts"]["ssd_scan"], **{
+                f"{arch} train": t["launches"]["ssd_scan"]
+                for arch, t in trained["ssm"].items()}},
         "parity": "ok",
         **{k: ssd_timing[k] for k in keys},
         "launch_ms": ssd_timing["launch_ms"],
@@ -3581,9 +3812,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gmm/moe_gmm.py:48",
         "tpu": "kernels/moe_gmm/moe_gmm.py:gmm",
         "launches": moe_counts["moe_gmm"],
-        "launches_by_path": {MOE_ARCH: moe_counts["moe_gmm"],
-                             f"{TRAIN_ARCH} train": trained["gmm_launches"]},
-        "launches_a_train_step": trained["gmm_launches_a_step"],
+        "launches_by_path": {
+            MOE_ARCH: moe_counts["moe_gmm"],
+            f"{TRAIN_ARCH} train": trained["launches"]["moe_gmm"]},
+        "launches_a_train_step": trained["launches_a_step"]["moe_gmm"],
         "parity": "ok",
         **{k: gmm_times["decode gate/up"][k] for k in keys},
         "shape": gmm_times["decode gate/up"]["shape"],
@@ -3591,7 +3823,7 @@ def main() -> int:
                             for name, t in {**gmm_times,
                                             **trained["gmm_times"]}.items()
                             if name != "decode gate/up"},
-    }]
+    }, ssd_bwd_entry(trained)]
     for name, source, replaces in GUPS_KERNELS:
         t = gups_times[name]
         kernels.append({
@@ -3607,7 +3839,7 @@ def main() -> int:
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"train": {k: v for k, v in trained.items()
-                                if k != "gmm_times"}}), flush=True)
+                                if not k.endswith("_times")}}), flush=True)
     print(json.dumps({"substrate": guard.stats()}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

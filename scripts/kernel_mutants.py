@@ -1,6 +1,7 @@
 """Hold broken copies of the flash-decode kernels (K1 paged and K3 dense,
 one source: ``flash_decode.cu``), the SSD-scan kernel (K4,
-``ssd_scan.cu``), the grouped matmul (K2, ``moe_gmm.cu``), the row gather
+``ssd_scan.cu``) and its backward (K4b, ``ssd_scan_bwd.cu``), the grouped
+matmul (K2, ``moe_gmm.cu``), the row gather
 (K5a, ``coro_gather.cu``), the scatter-add (K6, ``scatter_add.cu``) and the
 STREAM triad (K7, ``triad.cu``) to the tolerances ``chip_smoke.py`` holds
 the real ones to, on the card (K5a and K6 bitwise, K7 in f32 too).
@@ -40,6 +41,7 @@ import chip_smoke  # noqa: E402  (its tolerances and operands)
 
 FLASH = "decode_attention/csrc/flash_decode.cu"
 SSD = "ssd_scan/csrc/ssd_scan.cu"
+SSD_BWD = "ssd_scan/csrc/ssd_scan_bwd.cu"
 GMM = "moe_gmm/csrc/moe_gmm.cu"
 GATHER = "coro_gather/csrc/coro_gather.cu"
 SCATTER = "coro_scatter_add/csrc/scatter_add.cu"
@@ -82,6 +84,30 @@ MUTANTS = {
         SSD, "copy_rows<kScanThreads>(bt, m.bs, static_cast<const T*>(a.B) + at.b * a.b_sb",
         "copy_rows<kScanThreads>(bt, m.bs, static_cast<const T*>(a.B) + "
         "((at.b + (blockIdx.x == 0)) % gridDim.z) * a.b_sb"),
+    # caught only under a weak decay: at the others a 64-row chunk keeps
+    # under 1e-4 of its state, so what is carried across chunks is below
+    # the tolerance
+    "K4b gradient of the state not carried back between chunks": (
+        SSD_BWD, [("g = fma4(g, expf(tot[static_cast<size_t>(c) * a.NH]), d);",
+                   "g = d;")], "weak decay"),
+    "K4b state entering a chunk not carried from the chunk before": (
+        SSD_BWD, [("h = fma4(h, expf(tot[static_cast<size_t>(c) * a.NH]), cur);",
+                   "h = cur;")], "weak decay"),
+    "K4b dA and ddt without the reverse cumsum": (
+        SSD_BWD, "const float rc = rc_s[j] + before + egh;",
+        "const float rc = dcs_s[j] + before + egh;"),
+    "K4b intra-chunk term of dx dropped": (
+        SSD_BWD, "for (int i = j0; i < kL; ++i) {  // M_ij = 0 for i < j",
+        "for (int i = j0; i < j0; ++i) {  // M_ij = 0 for i < j"),
+    "K4b inter-chunk term of dC dropped from one lane of four": (
+        SSD_BWD, "v.x += fmaf(e, yh[u][0], acc[u][0]);", "v.x += acc[u][0];"),
+    # caught only where a group holds more than one head
+    "K4b a head's dB written over its group's, not added": (
+        SSD_BWD, [("float4* dst = reinterpret_cast<float4*>(a.dB_part + (prow + j) * N + n0);\n"
+                   "        float4 v = k ? *dst : make_float4(0.f, 0.f, 0.f, 0.f);",
+                   "float4* dst = reinterpret_cast<float4*>(a.dB_part + (prow + j) * N + n0);\n"
+                   "        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);")],
+        "depth=2"),
     "K7 items dealt with the wrong stride": (
         TRIAD, "const int64_t off = static_cast<int64_t>(blockIdx.x) * units;",
         "const int64_t off = static_cast<int64_t>(blockIdx.x) * (units - 1);"),
@@ -200,6 +226,30 @@ def k4_cases(torch):
         args = chip_smoke.ssd_operands(torch, gen, 8, s, 24, 64, 128,
                                        dtype=getattr(torch, dtype_name))
         yield f"b=8 s={s} x/B/C {dtype_name}", args, dtype_name
+
+
+def k4b_cases(torch):
+    """K4's backward at mamba2-130m's training shape (b 8, s 512, nh 24,
+    p 64, n 128, chunk 256) in bf16 at the solved depth (one head a block),
+    at hymba-1.5b's (nh 50, p 64, n 16) in f32 at depth 2 with dh_final
+    given, and off the kernel's chunk (s 480, chunk 32: the last 64-row
+    chunk partial) in f32 at depth 5, and at mamba2's shape under a weak
+    decay (dt in [0.005, 0.03)) in f32 at depth 2."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    for name, s, nh, p, n, chunk, dtype_name, depth, with_dh in (
+            ("mamba2 train", 512, 24, 64, 128, 256, "bfloat16", None, False),
+            ("hymba train", 512, 50, 64, 16, 256, "float32", 2, True),
+            ("s off the chunk", 480, 24, 64, 128, 32, "float32", 5, True),
+            ("weak decay", 512, 24, 64, 128, 256, "float32", 2, True)):
+        dtype = getattr(torch, dtype_name)
+        args = chip_smoke.ssd_operands(torch, gen, 8, s, nh, p, n,
+                                       dtype=dtype, weak=name == "weak decay")
+        dy = torch.randn(8, s, nh, p, generator=gen, device="cuda").to(dtype)
+        dh = torch.randn(8, nh, p, n, generator=gen, device="cuda") \
+            if with_dh else None
+        yield (f"{name} b=8 s={s} nh={nh} {dtype_name} depth={depth}",
+               args, dy, dh, chunk, depth, dtype_name)
 
 
 def k7_cases(torch):
@@ -381,6 +431,23 @@ def run(torch, kernel: str, source, only: str = ""):
             atol, rtol = chip_smoke.DECODE_TOL[dtype_name]
             err = float((got.float() - want.float()).abs().max())
             rows.append((case, err, within(torch, got, want, atol, rtol)))
+    elif kernel == "K4b":
+        ss.BWD_SOURCE = source
+        for case, args, dy, dh, chunk, depth, dtype_name in k4b_cases(torch):
+            if only not in case:
+                continue
+            nan_block(torch, args[0].shape, args[0].dtype)
+            got = caught(lambda: ss.ssd_scan_bwd(*args, dy, dh, chunk=chunk,
+                                                 depth=depth))
+            if got is None:
+                rows.append((case, float("nan"), False))
+                continue
+            want = ss.ssd_scan_bwd_plain(*args, dy, dh, chunk=chunk)
+            tol = chip_smoke.TOL[dtype_name]
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+            ok = all(within(torch, a, b, tol, tol) for a, b in zip(got, want))
+            rows.append((case, err, ok))
     else:
         ss.SOURCE = source
         for case, args, dtype_name in k4_cases(torch):
@@ -421,8 +488,8 @@ def main() -> int:
     from repro_torch.kernels.stream_copy import stream_copy as sc
 
     controls = {"K1": da.FLASH_SOURCE, "K3": da.FLASH_SOURCE, "K4": ss.SOURCE,
-                "K2": mg.SOURCE, "K5a": cg.SOURCE, "K6": sa.SOURCE,
-                "K7": sc.SOURCE}
+                "K4b": ss.BWD_SOURCE, "K2": mg.SOURCE, "K5a": cg.SOURCE,
+                "K6": sa.SOURCE, "K7": sc.SOURCE}
     guard.set_strict(True)
     bad = []
     summary = {}

@@ -17,7 +17,7 @@ from repro_torch.kernels.decode_attention.decode_attention import (
     paged_flash_decode,
 )
 from repro_torch.kernels.moe_gmm.moe_gmm import gmm
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan, ssd_scan_bwd
 from repro_torch.kernels.stream_copy.stream_copy import triad
 
 KERNELS: Dict[str, Callable] = {
@@ -25,6 +25,7 @@ KERNELS: Dict[str, Callable] = {
     "moe_gmm": gmm,
     "flash_decode": flash_decode,
     "ssd_scan": ssd_scan,
+    "ssd_scan_bwd": ssd_scan_bwd,
     "row_gather": row_gather,
     "span_gather": span_gather,
     "scatter_add": scatter_add_unique,

@@ -3,8 +3,9 @@
 The chunked SSD streams sequence chunks through a small recurrent state:
 the paper's coroutine pipeline, with the inter-chunk state as its
 *sequential* context variable. On a zero initial state `ssd_chunked` runs
-the SSD-scan kernel (`kernels/ssd_scan`: the CUDA kernel on CUDA tensors,
-its plain version on CPU ones); `chunked_ssd` is the reference's chunked
+the SSD-scan kernel and, under grad, its backward kernel (`kernels/ssd_scan`:
+the CUDA kernels on CUDA tensors, their plain versions on CPU ones);
+`chunked_ssd` is the reference's chunked
 math in torch ops, the kernel's plain version and the path for a given
 initial state. Layouts and names follow the reference package
 (``src/repro/models/ssm.py``).
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.models.common import rms_norm
 from repro_torch.models.params import ParamSpec
 
@@ -100,13 +101,14 @@ def chunked_ssd(x, dt, A, B, C, chunk: int, h0=None):
 def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     """Chunked SSD with the reference's dispatch: the sequential recurrence
     when `s` is not a multiple of `chunk`; on a zero initial state the
-    SSD-scan kernel (`ssd_scan`); from a given state `h0`, `chunked_ssd`.
-    Same signature and result as `ssd_sequential`."""
+    SSD-scan kernel through its `autograd.Function` (`ops.ssd`: the forward
+    kernel, and the backward kernel under grad); from a given state `h0`,
+    `chunked_ssd`. Same signature and result as `ssd_sequential`."""
     s = x.shape[1]
     if s % chunk != 0:
         return ssd_sequential(x, dt, A, B, C, h0)
     if h0 is None:
-        return ssd_scan(x, dt, A, B, C, chunk=chunk)
+        return ssd(x, dt, A, B, C, chunk=chunk)
     return chunked_ssd(x, dt, A, B, C, chunk, h0)
 
 

@@ -783,9 +783,10 @@ def test_flash_decode_raises_instead_of_falling_back(cuda_device):
 
 
 def _ssd_problem(device, b, s, nh, p, n, *, dtype=torch.float32,
-                 dt_dtype=torch.float32, seed=0, strong=False):
-    """The reference test's draws (dt in [0.1, 0.6), A = -exp(0.3 N)), or a
-    strong decay (dt 8, A -1)."""
+                 dt_dtype=torch.float32, seed=0, strong=False, weak=False):
+    """The reference test's draws (dt in [0.1, 0.6), A = -exp(0.3 N)), a
+    strong decay (dt 8, A -1), or a weak one (dt in [0.005, 0.03): a
+    64-row chunk keeps ~a third of its state)."""
     g = torch.Generator(device="cpu")
     g.manual_seed(seed)
     x = torch.randn(b, s, nh, p, generator=g)
@@ -795,6 +796,8 @@ def _ssd_problem(device, b, s, nh, p, n, *, dtype=torch.float32,
     cm = torch.randn(b, s, n, generator=g)
     if strong:
         dt, a = torch.full_like(dt, 8.0), torch.full_like(a, -1.0)
+    if weak:
+        dt = dt * 0.05
     return (x.to(device, dtype), dt.to(device, dt_dtype), a.to(device),
             bm.to(device, dtype), cm.to(device, dtype))
 
@@ -931,6 +934,163 @@ def test_ssd_scan_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):         # mixed devices
         ss.ssd_scan(x, dt.cpu(), a, bm, cm, chunk=16)
     assert launch_counts()["ssd_scan"] == 0
+
+
+# ------------------------------------------------- SSD scan backward (K4)
+
+
+def _ssd_bwd_close(got, want, dtype):
+    """(dx, ddt, dA, dB, dC) against the plain backward: 2e-3 + 2e-3 x
+    |value| in f32; in bf16 3e-2 + 3e-2 x |value| (the plain version sums
+    the caller's chunks, the kernel 64-row chunks, and dx, dB and dC are
+    rounded to bf16 after). ddt and dA are f32 in both."""
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    for name, a, b, t in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                             (dtype, torch.float32, torch.float32, dtype,
+                              dtype)):
+        assert a.dtype == t and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol,
+                                   msg=name)
+
+
+def _ssd_bwd_problem(device, b, s, nh, p, n, *, dtype, dt_dtype, seed,
+                     with_dh, strong=False, weak=False):
+    args = _ssd_problem(device, b, s, nh, p, n, dtype=dtype,
+                        dt_dtype=dt_dtype, seed=seed, strong=strong,
+                        weak=weak)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed + 1)
+    dy = torch.randn(b, s, nh, p, generator=g).to(device, dtype)
+    dh = torch.randn(b, nh, p, n, generator=g).to(device) if with_dh \
+        else None
+    return args, dy, dh
+
+
+@pytest.mark.parametrize("dtype,dt_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("chunk,nh,p,n,s,with_dh,weak", [
+    (256, 24, 64, 128, 512, False, False),  # mamba2-130m's training shape
+    (256, 50, 64, 16, 512, False, False),   # hymba-1.5b's
+    (256, 24, 64, 128, 256, True, False),   # one caller chunk, 4 kernel chunks
+    (64, 4, 16, 32, 192, True, False),
+    (16, 8, 16, 16, 48, True, False),   # reduced mamba2: a partial 64-row chunk
+    (32, 13, 32, 64, 96, False, False),  # 13 heads: past 12, off every group
+    # a weak decay: what is carried across the 64-row chunks counts
+    (256, 24, 64, 128, 512, True, True),
+    (32, 13, 32, 64, 224, True, True),
+])
+def test_ssd_scan_bwd_matches_plain(cuda_device, dtype, dt_dtype, chunk, nh,
+                                    p, n, s, with_dh, weak):
+    """The backward kernel against its plain version: one call, one count
+    (four launches), every gradient in its type."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    args, dy, dh = _ssd_bwd_problem(cuda_device, 2, s, nh, p, n, dtype=dtype,
+                                    dt_dtype=dt_dtype, seed=s + nh,
+                                    with_dh=with_dh, weak=weak)
+    want = ss.ssd_scan_bwd_plain(*args, dy, dh, chunk=chunk)
+    got = ss.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    _ssd_bwd_close(got, want, dtype)
+    assert launch_counts()["ssd_scan_bwd"] == 1
+    assert launch_counts()["ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_depths_and_strided_views(cuda_device, dtype):
+    """Depths 1, 2, 5, every head in one group and the solved depth (the
+    heads a block walks), each recorded as run; x, B and C as slices of
+    one joint projection, dt a strided view; dh_final None and given."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    b, s, nh, p, n = 2, 256, 12, 64, 128
+    g = torch.Generator(device="cpu")
+    g.manual_seed(7)
+    joint = torch.randn(b, s, nh * p + 2 * n + 16, generator=g).to(
+        cuda_device, dtype)
+    x = joint[..., :nh * p].reshape(b, s, nh, p)
+    bm = joint[..., nh * p:nh * p + n]
+    cm = joint[..., nh * p + n:nh * p + 2 * n]
+    dt = torch.nn.functional.softplus(joint[..., -16:].float())[..., :nh]
+    assert dt.stride(1) == 16
+    a = -torch.exp(torch.randn(nh, generator=g) * 0.3).to(cuda_device)
+    dy = torch.randn(b, s, nh, p, generator=g).to(cuda_device, dtype)
+    dh = torch.randn(b, nh, p, n, generator=g).to(cuda_device)
+    for d_final in (None, dh):
+        want = ss.ssd_scan_bwd_plain(x, dt, a, bm, cm, dy, d_final, chunk=64)
+        for depth in (1, 2, 5, nh, None):
+            before = launch_counts()["ssd_scan_bwd"]
+            got = ss.ssd_scan_bwd(x, dt, a, bm, cm, dy, d_final, chunk=64,
+                                  depth=depth)
+            torch.cuda.synchronize()
+            assert launch_counts()["ssd_scan_bwd"] == before + 1
+            ran = autotune.last_choice("ssd_scan_bwd")
+            assert ran == (depth if depth else ran) and 1 <= ran <= nh
+            _ssd_bwd_close(got, want, dtype)
+
+
+def test_ssd_scan_bwd_strong_decay_stays_finite(cuda_device):
+    """dt 8, A -1: a chunk decays past exp(-88); no exponent of a positive
+    argument, so every gradient stays finite and equals the plain one."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    args, dy, dh = _ssd_bwd_problem(cuda_device, 2, 128, 2, 16, 16,
+                                    dtype=torch.float32,
+                                    dt_dtype=torch.float32, seed=3,
+                                    with_dh=True, strong=True)
+    got = ss.ssd_scan_bwd(*args, dy, dh, chunk=16)
+    _ssd_bwd_close(got, ss.ssd_scan_bwd_plain(*args, dy, dh, chunk=16),
+                   torch.float32)
+
+
+def test_ssd_op_differentiates_through_both_kernels(cuda_device):
+    """`ops.ssd` under grad: the forward kernel and one backward call, the
+    gradients of (y, h_final) equal the plain version's autograd; the raw
+    `ssd_scan` wrapper (no backward of its own) still refuses grad."""
+    from repro_torch.kernels import ring
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    args, dy, dh = _ssd_bwd_problem(cuda_device, 2, 128, 4, 16, 32,
+                                    dtype=torch.float32,
+                                    dt_dtype=torch.float32, seed=9,
+                                    with_dh=True)
+    grads = []
+    for via in ("kernel", "plain"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        if via == "kernel":
+            y, h = ops.ssd(*leaves, chunk=32)
+        else:
+            y, h = ss.ssd_scan_plain(*leaves, chunk=32)
+        torch.autograd.backward((y, h), (dy, dh))
+        grads.append([t.grad for t in leaves])
+    assert launch_counts()["ssd_scan"] == 1
+    assert launch_counts()["ssd_scan_bwd"] == 1
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+    with pytest.raises(ring.NoBackwardError, match="ssd_scan"):
+        ss.ssd_scan(args[0].clone().requires_grad_(True), *args[1:], chunk=32)
+
+
+def test_ssd_scan_bwd_raises_instead_of_falling_back(cuda_device):
+    from repro_torch.core.guard import KernelResourceError
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    x, dt, a, bm, cm = _ssd_problem(cuda_device, 1, 64, 2, 16, 16)
+    dy = torch.randn_like(x)
+    with pytest.raises(TypeError):          # dy in another type than x
+        ss.ssd_scan_bwd(x, dt, a, bm, cm, dy.bfloat16(), chunk=16)
+    with pytest.raises(ValueError):         # dy of another shape
+        ss.ssd_scan_bwd(x, dt, a, bm, cm, dy[:, :32], chunk=16)
+    with pytest.raises(ValueError):         # mixed devices
+        ss.ssd_scan_bwd(x, dt, a, bm, cm, dy.cpu(), chunk=16)
+    wide = _ssd_problem(cuda_device, 1, 64, 1, 128, 128)
+    with pytest.raises(KernelResourceError):    # tiles over shared memory
+        ss.ssd_scan_bwd(*wide, torch.randn_like(wide[0]), chunk=16)
+    assert launch_counts()["ssd_scan_bwd"] == 0
 
 
 # ------------------------------------------------- captured steps (graphs)
@@ -1523,7 +1683,6 @@ def _no_backward_calls(device):
     the first requires grad: (kernel name, call)."""
     from repro_torch.kernels.coro_gather import coro_gather as cgm
     from repro_torch.kernels.coro_scatter_add import coro_scatter_add as sam
-    from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     g = torch.Generator(device="cpu")
     g.manual_seed(5)
@@ -1535,8 +1694,6 @@ def _no_backward_calls(device):
     qp, kp, vp = r(2, 4, 16), r(8, 16, 2, 16), r(8, 16, 2, 16)
     bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=device)
     lens = torch.tensor([20, 9], dtype=torch.int32, device=device)
-    x, dt, A = r(1, 64, 2, 16), r(1, 64, 2).abs() * 0.1, -r(2).abs()
-    B, C = r(1, 64, 16), r(1, 64, 16)
     table = r(64, 32)
     idx = torch.arange(16, dtype=torch.int32, device=device)
     grad = torch.Tensor.requires_grad_
@@ -1544,7 +1701,6 @@ def _no_backward_calls(device):
         ("flash_decode", lambda: da.flash_decode(grad(q), kc, vc, 20)),
         ("paged_decode", lambda: da.paged_flash_decode(grad(qp), kp, vp, bt,
                                                        lens)),
-        ("ssd_scan", lambda: ss.ssd_scan(grad(x), dt, A, B, C, chunk=64)),
         ("row_gather", lambda: cgm.row_gather(grad(table), idx)),
         ("span_gather", lambda: cgm.span_gather(grad(table), idx[:4] * 8)),
         ("scatter_add", lambda: sam.scatter_add_unique(
@@ -1553,7 +1709,7 @@ def _no_backward_calls(device):
     ]
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(6))
 def test_wrappers_without_backward_raise_under_grad(cuda_device, case):
     """A kernel with no backward never returns a tensor that cuts the
     graph: under grad mode an operand that requires grad raises the typed
@@ -1571,11 +1727,12 @@ def test_wrappers_without_backward_raise_under_grad(cuda_device, case):
     assert launch_counts()[name] >= 1
 
 
-def test_ssm_block_under_grad_raises_at_k4(cuda_device):
-    """Mamba-2's block reaches K4 on a zero state: training it on the card
-    raises until K4 has a backward (it never runs the plain version)."""
+def test_ssm_block_gradients_match_the_cpu(cuda_device):
+    """A reduced f32 Mamba-2 block under grad on the card (joint layout:
+    x, B and C strided slices of one projection): one forward K4 launch
+    and one backward call, and every gradient equals the same block's on
+    the CPU (plain versions) within 2e-3."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ring
     from repro_torch.models import ssm
     from repro_torch.models.params import initialize
 
@@ -1583,8 +1740,16 @@ def test_ssm_block_under_grad_raises_at_k4(cuda_device):
                                                       param_dtype="float32")
     g = torch.Generator(device="cpu")
     g.manual_seed(6)
-    p = {k: v.to(cuda_device).requires_grad_(True) for k, v in
-         initialize(ssm.ssm_param_specs(cfg), g, "cpu").items()}
-    x = torch.randn(1, 32, cfg.d_model, device=cuda_device)
-    with pytest.raises(ring.NoBackwardError, match="ssd_scan"):
-        ssm.ssm_forward(p, x, cfg)
+    p = initialize(ssm.ssm_param_specs(cfg), g, "cpu")
+    x = torch.randn(1, 64, cfg.d_model, generator=g)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        pd = {k: v.detach().to(dev).requires_grad_(True)
+              for k, v in p.items()}
+        xd = x.detach().to(dev).requires_grad_(True)
+        (ssm.ssm_forward(pd, xd, cfg) ** 2).mean().backward()
+        grads.append([xd.grad.cpu()] + [pd[k].grad.cpu() for k in sorted(p)])
+    assert launch_counts()["ssd_scan"] == 1
+    assert launch_counts()["ssd_scan_bwd"] == 1
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
