@@ -236,11 +236,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      2e-3, and the card's state through a checkpoint and back, bitwise;
      then the same reduced f32 step of mamba2-130m and hymba-1.5b (a K4
      forward and a K4 backward call a layer) card == CPU within 2e-3;
-     (c) K4's backward kernel (`ssd_scan_bwd`, four launches a call)
-     against its plain version at mamba2's and hymba's full training
-     shapes (b 8, s 512, chunk 256; x/B/C slices of one projection, dt
-     f32), f32 (2e-3 + 2e-3 x |value|) and bf16 (3e-2 + 3e-2 x |value|),
-     depths 1, 2 and solved, dh_final None and given, one count a call;
+     (c) K4's backward kernel (`ssd_scan_bwd`, four launches a call, on
+     tensor cores) against its plain version at mamba2's and hymba's full
+     training shapes (b 8, s 512, chunk 256; x/B/C slices of one
+     projection, dt f32), f32 (2e-3 + 2e-3 x |value|) and bf16 (3e-2 +
+     3e-2 x |value|), depths 1, 2 and solved, dh_final None and given, one
+     count a call, a second call at the solved depth bitwise the same;
      (d) granite-moe-1b-a400m (20 steps), mamba2-130m (20) and hymba-1.5b
      (10) trained at full width (f32 parameters, bf16 compute, batch 8 x
      seq 512, AdamW): every loss finite, the mean of the last 5 below the
@@ -3243,11 +3244,12 @@ def check_k4_grads(torch) -> float:
     hymba-1.5b's full training shapes (b 8, s 512, chunk 256) against its
     plain version on the card: dx, ddt, dA, dB and dC, f32 at 2e-3 + 2e-3 x
     |value| and bf16 at 3e-2 + 3e-2 x |value|, depths 1, 2 and solved (the
-    heads a block walks), dh_final None (as in training); and at the
-    solved depth under a weak decay with dh_final given (at the path's
-    decay a 64-row chunk keeps under 1e-9 of its state, so the gradient
-    carried back across chunks would not show); one count a call, and no
-    forward launch."""
+    heads' tiles a block keeps in flight, clamped to shared memory),
+    dh_final None (as in training); and at the solved depth under a weak
+    decay with dh_final given (at the path's decay a 64-row chunk keeps
+    under 1e-9 of its state, so the gradient carried back across chunks
+    would not show); one count a call, and no forward launch; and a second
+    call at the solved depth gives the same bits."""
     from repro_torch.core import autotune
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
@@ -3275,13 +3277,26 @@ def check_k4_grads(torch) -> float:
                         raise AssertionError(f"ssd_scan_bwd {arch}: launches "
                                              f"{moved}, not one call")
                     ran = autotune.last_choice("ssd_scan_bwd")
+                    label = (f"{dtype_name} depth={depth} (ran {ran}) "
+                             f"{'weak decay, dh_final given' if with_dh else 'dh_final None'}")
                     for part, a, b in zip(("dx", "ddt", "dA", "dB", "dC"),
                                           got, want):
                         worst = max(worst, _close(
-                            f"ssd_scan_bwd {arch} train shape {part} "
-                            f"{dtype_name} depth={depth} (ran {ran}) "
-                            f"{'weak decay, dh_final given' if with_dh else 'dh_final None'}",
+                            f"ssd_scan_bwd {arch} train shape {part} {label}",
                             a, b, TOL[dtype_name]))
+                    if depth is None:
+                        again = ss.ssd_scan_bwd(*args, dy, dh, chunk=chunk)
+                        torch.cuda.synchronize()
+                        differ = [part for part, a, b in zip(
+                            ("dx", "ddt", "dA", "dB", "dC"), got, again)
+                            if not torch.equal(a, b)]
+                        if differ:
+                            raise AssertionError(
+                                f"ssd_scan_bwd {arch} {label}: a second call "
+                                f"differs in {differ}")
+                        log(f"ssd_scan_bwd {arch} {label}: a second call "
+                            f"gives the same bits")
+                        del again
                     del got
                 del args, dy, dh, want
                 gc_collect(torch)
@@ -3476,6 +3491,7 @@ def time_ssd_bwd(torch) -> dict:
     version and the bound, in turns: kernel, plain, kernel. No single
     PyTorch call computes it: no library time."""
     from repro_torch.core import autotune
+    from repro_torch.kernels import ring
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     gen = torch.Generator(device="cuda")
@@ -3511,7 +3527,9 @@ def time_ssd_bwd(torch) -> dict:
             per_launch = launch_ms(torch, launches[0][0])
             bound_ms, bound_by, nbytes, flops = ssd_bwd_bound(
                 b, s, nh, p, n, dtype_name)
-            run = ss.bwd_plan(b, s, nh, p, n, depth)
+            run = ss.bwd_plan(b, s, nh, p, n, 2 if dtype_name == "bfloat16"
+                              else 4, depth, sms=ring.sm_count(
+                                  args[0].device))
             shape = {"b": b, "s": s, "nh": nh, "p": p, "n": n,
                      "chunk": chunk, "dtype": dtype_name, "dt": "float32",
                      **run._asdict()}
@@ -3556,8 +3574,9 @@ def train_phase(torch) -> dict:
 
 def ssd_bwd_entry(trained) -> dict:
     """The kernels line's entry of K4's backward: launches (calls) in the
-    mamba2-130m training run, its time at mamba2's training shape in bf16
-    (the path's type) and at the others beside it."""
+    mamba2-130m training run, its device ms in a profiled step of each SSM
+    family, its time at mamba2's training shape in bf16 (the path's type)
+    and at the others beside it."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     times = trained["ssd_bwd_times"]
@@ -3578,6 +3597,8 @@ def ssd_bwd_entry(trained) -> dict:
         "launches_a_train_step": {
             arch: t["launches_a_step"]["ssd_scan_bwd"]
             for arch, t in trained["ssm"].items()},
+        "ms_a_train_step": {arch: t["k4_backward_ms_a_step"]
+                            for arch, t in trained["ssm"].items()},
         "parity": "ok",
         **{k: times[main_key][k] for k in keys},
         "launch_ms": times[main_key]["launch_ms"],

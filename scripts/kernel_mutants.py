@@ -88,26 +88,38 @@ MUTANTS = {
     # under 1e-4 of its state, so what is carried across chunks is below
     # the tolerance
     "K4b gradient of the state not carried back between chunks": (
-        SSD_BWD, [("g = fma4(g, expf(tot[static_cast<size_t>(c) * a.NH]), d);",
-                   "g = d;")], "weak decay"),
+        SSD_BWD, [("if (t + 1 < C) fma8(h, expf(f[u]), v[u]);",
+                   "if (t + 1 < C) fma8(h, back ? 0.f : expf(f[u]), v[u]);")], "weak decay"),
     "K4b state entering a chunk not carried from the chunk before": (
-        SSD_BWD, [("h = fma4(h, expf(tot[static_cast<size_t>(c) * a.NH]), cur);",
-                   "h = cur;")], "weak decay"),
+        SSD_BWD, [("if (t + 1 < C) fma8(h, expf(f[u]), v[u]);",
+                   "if (t + 1 < C) fma8(h, back ? expf(f[u]) : 0.f, v[u]);")], "weak decay"),
     "K4b dA and ddt without the reverse cumsum": (
-        SSD_BWD, "const float rc = rc_s[j] + before + egh;",
-        "const float rc = dcs_s[j] + before + egh;"),
+        SSD_BWD, "      scan64(&dcs[0], &dcs[1], true);\n", ""),
     "K4b intra-chunk term of dx dropped": (
-        SSD_BWD, "for (int i = j0; i < kL; ++i) {  // M_ij = 0 for i < j",
-        "for (int i = j0; i < j0; ++i) {  // M_ij = 0 for i < j"),
+        SSD_BWD, "mma_tile<true, true>(in, Sop, Yop, jb * 16, cp * 16, jb * 16, kL);",
+        "mma_tile<true, true>(in, Sop, Yop, jb * 16, cp * 16, kL, kL);"),
     "K4b inter-chunk term of dC dropped from one lane of four": (
-        SSD_BWD, "v.x += fmaf(e, yh[u][0], acc[u][0]);", "v.x += acc[u][0];"),
-    # caught only where a group holds more than one head
+        SSD_BWD, "dct[t][s][e] = fmaf(ecs_s[i], yhv[s][e], dct[t][s][e]);",
+        "dct[t][s][e] = tig ? fmaf(ecs_s[i], yhv[s][e], dct[t][s][e]) : dct[t][s][e];"),
+    # every case's group holds more than one head
     "K4b a head's dB written over its group's, not added": (
-        SSD_BWD, [("float4* dst = reinterpret_cast<float4*>(a.dB_part + (prow + j) * N + n0);\n"
-                   "        float4 v = k ? *dst : make_float4(0.f, 0.f, 0.f, 0.f);",
-                   "float4* dst = reinterpret_cast<float4*>(a.dB_part + (prow + j) * N + n0);\n"
-                   "        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);")],
-        "depth=2"),
+        SSD_BWD, "dbt[t][s][e] = fmaf(w_s[j], xgv[s][e], dbt[t][s][e]);",
+        "dbt[t][s][e] = w_s[j] * xgv[s][e];"),
+    # the first head group's B tile, from which C B^T is hoisted once for
+    # the group, from the next chunk (at s 512 every chunk is whole)
+    "K4b C B^T hoisted from the wrong chunk": (
+        SSD_BWD, [("m.Pp, m.hs, P, N);\n    }\n  }\n  copy_rows<kThreads>(bt, m.bs, "
+                   "static_cast<const T*>(a.B) + at.b * a.b_sb + at.t0 * a.b_st,",
+                   "m.Pp, m.hs, P, N);\n    }\n  }\n  copy_rows<kThreads>(bt, m.bs, "
+                   "static_cast<const T*>(a.B) + at.b * a.b_sb + "
+                   "(at.grp ? at.t0 : (at.c + 1) % a.chunks * kL) * a.b_st,")],
+        "s=512"),
+    # bf16 path: the states' low parts (~8 bits past bf16's) dropped from
+    # every product with H or G; seen through ddt, whose terms are ~100x
+    # its smaller values
+    "K4b a split operand's low part dropped": (
+        SSD_BWD, [("    if (B.lo) {\n      uint32_t bl[4];",
+                   "    if (false) {\n      uint32_t bl[4];")], "bfloat16"),
     "K7 items dealt with the wrong stride": (
         TRIAD, "const int64_t off = static_cast<int64_t>(blockIdx.x) * units;",
         "const int64_t off = static_cast<int64_t>(blockIdx.x) * (units - 1);"),
@@ -230,7 +242,7 @@ def k4_cases(torch):
 
 def k4b_cases(torch):
     """K4's backward at mamba2-130m's training shape (b 8, s 512, nh 24,
-    p 64, n 128, chunk 256) in bf16 at the solved depth (one head a block),
+    p 64, n 128, chunk 256) in bf16 at the solved depth (one slot a block),
     at hymba-1.5b's (nh 50, p 64, n 16) in f32 at depth 2 with dh_final
     given, and off the kernel's chunk (s 480, chunk 32: the last 64-row
     chunk partial) in f32 at depth 5, and at mamba2's shape under a weak

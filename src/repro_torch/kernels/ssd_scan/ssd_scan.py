@@ -40,9 +40,10 @@ the same chunked decomposition run backwards, in four launches a call
 (`bwd_plan`): each chunk's own state and its sum of exp(cs_i) dy_i C_i^T,
 the passes along the chunks (the state entering each chunk, and the
 gradient of the state leaving it), every chunk's gradients for a group
-of `depth` heads, and a fixed-order sum of the head groups' dB and dC
-and of dA. `ssd_scan_bwd.launches` counts its calls. `ops.ssd` is the
-`autograd.Function` that pairs the two.
+of heads (`bwd_group`: C B^T once, `depth` heads' tiles in flight), and a
+fixed-order sum of the head groups' dB and dC and of dA; its bf16
+products run on tensor cores. `ssd_scan_bwd.launches` counts its calls.
+`ops.ssd` is the `autograd.Function` that pairs the two.
 """
 from __future__ import annotations
 
@@ -59,9 +60,10 @@ from repro_torch.core.guard import KernelResourceError
 from repro_torch.kernels import ring
 
 __all__ = ["BWD_CHUNK", "BWD_LAUNCHES", "CHUNK", "HEAD_GROUP", "LAUNCHES",
-           "MAX_HEAD", "MAX_STATE", "Plan", "bwd_flops", "bwd_plan",
-           "bwd_smem_bytes", "bwd_workspace_bytes", "fixed_bytes",
-           "kernel_depth", "plan", "slot_bytes", "ssd_bwd_spec", "ssd_scan",
+           "MAX_HEAD", "MAX_STATE", "Plan", "bwd_depth", "bwd_flops",
+           "bwd_group", "bwd_plan", "bwd_smem_bytes", "bwd_workspace_bytes",
+           "fixed_bytes", "kernel_depth", "plan", "slot_bytes",
+           "ssd_bwd_spec", "ssd_scan",
            "ssd_scan_at", "ssd_scan_bwd", "ssd_scan_bwd_at",
            "ssd_scan_bwd_plain", "ssd_scan_plain", "ssd_spec",
            "workspace_bytes"]
@@ -85,8 +87,9 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2
                  + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
                  + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
                  + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
-                 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+                 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
+H100_SMS = 132                 # SMs of an H100 SXM, the group solve's default
 
 
 class Plan(NamedTuple):
@@ -133,26 +136,33 @@ def ssd_spec(chunk: int, nh: int, p: int, n: int, dtype,
 
 
 def ssd_bwd_spec(chunk: int, nh: int, p: int, n: int, dtype) -> CoroSpec:
-    """The backward's chunk tile: the forward's streams and dy, and the
-    gradient of the state as its sequential variable (the pass runs
-    backwards along the chunks). What the kernel reads as the depth is the
-    number of heads a block of its third launch walks (`bwd_plan`): it sets
-    the grid and the head groups' dB/dC partials, not a ring of loads or
-    shared memory. At the training shapes the tile is over a block's shared
-    memory, so the solve gives its floor, 2: two heads a block."""
+    """The backward's tile as its kernel streams it: one head's slot of
+    the ring of which a block of its chunk launch keeps `depth`
+    (`bwd_plan`): x and dy [BWD_CHUNK, p] in x's type, dt, and the entering
+    state and the gradient of the leaving one [p, n] at 4 bytes a value
+    (f32, or bf16 high and low parts); the gradient of the state is its
+    sequential variable (the pass runs backwards along the chunks), the
+    block's B, C and scores its residents. `chunk` is the caller's, which
+    the kernel does not follow: its flops are one kernel chunk's for one
+    head."""
+    del chunk
+    L = BWD_CHUNK
+    itemsize = ctx_mod.itemsize(dtype)
     return CoroSpec(
         name="ssd_scan_bwd",
         loads=(
-            LoadStream("x", (chunk, nh, p), dtype),
-            LoadStream("dy", (chunk, nh, p), dtype),
-            LoadStream("dt", (chunk, nh), dtype),
-            LoadStream("bmat", (chunk, n), dtype),
-            LoadStream("cmat", (chunk, n), dtype),
+            LoadStream("x", (L, p), dtype),
+            LoadStream("dy", (L, p), dtype),
+            LoadStream("dt", (L,), "float32"),
+            LoadStream("states", (2, p, n), "float32"),
         ),
         vars=(
-            ctx_mod.var("dh", (nh, p, n), "float32", carries_dependence=True),
+            ctx_mod.var("dh", (p, n), "float32", carries_dependence=True),
+            ctx_mod.VarSpec("bc_scores",
+                            nbytes=_bwd_layout(p, n, itemsize)["fixed_c"],
+                            hint=ctx_mod.VarClass.SHARED),
         ),
-        flops_per_tile=float(bwd_flops(chunk, nh, p, n)),
+        flops_per_tile=float(bwd_flops(L, nh, p, n) / nh),
     )
 
 
@@ -481,16 +491,62 @@ ssd_scan.launches = 0
 # ------------------------------------------------------------ the backward
 
 
-def bwd_smem_bytes(p: int, n: int) -> int:
-    """Shared memory of the backward's largest block (the .cu's `BwdSmem`,
-    f32 tiles, rows 4 values longer than their width): x and dy [kL][p],
-    B and C [kL][n], the entering state and the gradient of the leaving
-    one [p][n], M, dS and R [kL][kL], and the vectors."""
+def _bwd_layout(p: int, n: int, itemsize: int) -> dict:
+    """Byte sizes of the backward's shared memory (the .cu's `Layout`):
+    tiles in the input type, p and n padded to 16, rows 8 (bf16) or 4
+    (f32) values longer; a split bf16 operand (the scores, the states, the
+    scaled x and dy) in two bf16 parts, 4 bytes a value like f32; the
+    vectors (`kVecFloats`)."""
     L = BWD_CHUNK
-    floats = (2 * L * (p + 4) + 2 * L * (n + 4) + 2 * p * (n + 4)
-              + 3 * L * (L + 4) + 13 * L + 40)
-    state = 2 * L * (p + n) + 2 * L + 40      # the chunk-state kernel's
-    return 4 * max(floats, state)
+    pp, np_ = -(-p // 16) * 16, -(-n // 16) * 16
+    pad = 4 if itemsize == 4 else 8
+    xs, bs, hs, ss = pp + pad, np_ + pad, np_ + pad, L + pad
+    x, bc = L * xs * itemsize, L * bs * itemsize
+    st, sc, dtw, vec = pp * hs * 4, L * ss * 4, L * 4, 31 * L * 4
+    return dict(fixed_a=2 * bc + 2 * L * xs * 4 + 2 * L * 4,
+                slot_a=2 * x + dtw, fixed_c=2 * bc + sc + vec,
+                slot_c=2 * x + 2 * st + dtw)
+
+
+def bwd_smem_bytes(p: int, n: int, itemsize: int, depth: int = 1) -> int:
+    """Shared memory of the backward's largest block at `depth` heads'
+    tiles in flight: the chunk launch's B, C, scores (M, then the group's
+    dS) and vectors and a slot per depth of x, dy, dt and the two states
+    (bf16 high and low parts, or f32); or the state launch's B, C, scaled
+    x and dy and its slots of x, dy and dt."""
+    m = _bwd_layout(p, n, itemsize)
+    return max(m["fixed_a"] + depth * m["slot_a"],
+               m["fixed_c"] + depth * m["slot_c"])
+
+
+def bwd_depth(depth: int, *, p: int, n: int, itemsize: int,
+              group: int) -> int:
+    """Clamp a depth to the heads' tiles a block keeps in flight: at most
+    the group's heads, at most `ring.MAX_DEPTH`, and no more slots than one
+    block's shared memory holds."""
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    m = _bwd_layout(p, n, itemsize)
+    fit = min((ring.SMEM_LIMIT - m["fixed_a"]) // m["slot_a"],
+              (ring.SMEM_LIMIT - m["fixed_c"]) // m["slot_c"])
+    if fit < 1:
+        raise KernelResourceError(
+            f"the backward's tiles need {bwd_smem_bytes(p, n, itemsize)} B "
+            f"of shared memory at head width {p} and state width {n}, over "
+            f"{ring.SMEM_LIMIT}", kernel="ssd_scan_bwd", depth=1,
+            tile=(BWD_CHUNK, p, n), refused=True)
+    return max(1, min(int(depth), ring.MAX_DEPTH, fit, group))
+
+
+def bwd_group(b: int, chunks: int, nh: int, sms: int = H100_SMS) -> int:
+    """The heads a block of the chunk launch walks: the group that ends the
+    launch soonest, its waves of `sms` blocks (one a SM) times the heads
+    each block walks, the largest on a tie (fewer dB/dC partials)."""
+    def cost(g: int):
+        waves = -(-b * chunks * -(-nh // g) // sms)
+        return waves * g, -g
+
+    return min(range(1, nh + 1), key=cost)
 
 
 def bwd_workspace_bytes(b: int, s: int, nh: int, p: int, n: int,
@@ -503,15 +559,21 @@ def bwd_workspace_bytes(b: int, s: int, nh: int, p: int, n: int,
     return 4 * (2 * b * chunks * nh * (p * n + 1) + 2 * groups * b * s * n)
 
 
-def bwd_plan(b: int, s: int, nh: int, p: int, n: int, depth: int) -> Plan:
-    """The backward's plan at `depth`: the heads a block of the third
-    launch walks (its group; clamped to nh and `ring.MAX_DEPTH`), chunks
-    of `BWD_CHUNK` rows in both types."""
-    if depth < 1:
-        raise ValueError(f"depth must be >= 1, got {depth}")
-    group = max(1, min(int(depth), ring.MAX_DEPTH, nh))
+def bwd_plan(b: int, s: int, nh: int, p: int, n: int, itemsize: int,
+             depth: int, group: Optional[int] = None,
+             sms: int = H100_SMS) -> Plan:
+    """The backward's plan at `depth` (clamped by `bwd_depth`) and head
+    group `group` (None: `bwd_group` on `sms` SMs; at most nh), chunks of
+    `BWD_CHUNK` rows in both types."""
+    chunks = -(-s // BWD_CHUNK)
+    if group is None:
+        group = bwd_group(b, chunks, nh, sms)
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    group = min(group, nh)
     groups = -(-nh // group)
-    return Plan(BWD_CHUNK, -(-s // BWD_CHUNK), group, groups, group,
+    return Plan(BWD_CHUNK, chunks, group, groups,
+                bwd_depth(depth, p=p, n=n, itemsize=itemsize, group=group),
                 bwd_workspace_bytes(b, s, nh, p, n, groups), BWD_LAUNCHES)
 
 
@@ -531,13 +593,9 @@ def _check_bwd(x, dy, dh_final) -> None:
 def _check_bwd_cuda(x, dy, p: int, n: int) -> None:
     if dy.dtype != x.dtype:
         raise TypeError(f"dy ({dy.dtype}) must match x ({x.dtype})")
-    need = bwd_smem_bytes(p, n)
-    if need > ring.SMEM_LIMIT:
-        raise KernelResourceError(
-            f"the backward's tiles need {need} B of shared memory at head "
-            f"width {p} and state width {n}, over {ring.SMEM_LIMIT}",
-            kernel="ssd_scan_bwd", depth=1, tile=(BWD_CHUNK, p, n),
-            refused=True)
+    if p % 8 or n % 8:
+        raise ValueError(f"the backward kernel takes head and state widths "
+                         f"that are multiples of 8, got {p} and {n}")
 
 
 def ssd_scan_bwd(x, dt, A, B, C, dy, dh_final=None, *, chunk: int = 64,
@@ -546,9 +604,10 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dh_final=None, *, chunk: int = 64,
     x's type and dh_final [b,nh,p,n] (None: zero): (dx, dB, dC in x's
     type; ddt, dA in f32), as (dx, ddt, dA, dB, dC).
 
-    `depth` is the heads a block of the third launch walks; None solves it
-    from `ssd_bwd_spec`. Either is clamped by `bwd_plan` and recorded as
-    run, for `autotune.last_choice("ssd_scan_bwd")`.
+    `depth` is the heads' tiles a block keeps in flight; None solves it
+    from `ssd_bwd_spec`. Either is clamped by `bwd_plan` (to shared memory
+    and the head group) and recorded as run, for
+    `autotune.last_choice("ssd_scan_bwd")`.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel, or
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
@@ -563,13 +622,14 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dh_final=None, *, chunk: int = 64,
     if depth is None:
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
-    run = bwd_plan(bsz, s, nh, p, n, depth)
     cuda = x.device.type == "cuda"
     if not cuda and x.device.type != "cpu":
         raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
     if cuda:
         _check_cuda(x, dt, B, C)
         _check_bwd_cuda(x, dy, p, n)
+    run = bwd_plan(bsz, s, nh, p, n, x.element_size(), depth,
+                   sms=ring.sm_count(x.device) if cuda else H100_SMS)
     operands = (x, dt, A, B, C, dy, dh_final)
     res = ring.guarded(
         spec, operands,
@@ -581,9 +641,10 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dh_final=None, *, chunk: int = 64,
 
 
 def ssd_scan_bwd_at(x, dt, A, B, C, dy, dh_final=None, *, chunk: int,
-                    depth: int):
-    """`ssd_scan_bwd` on CUDA tensors at a given depth (no solve, no
-    record). One call: `BWD_LAUNCHES` kernels, one count."""
+                    depth: int, group: Optional[int] = None):
+    """`ssd_scan_bwd` on CUDA tensors at a given depth and head group
+    (None: `bwd_group`; no solve, no record). One call: `BWD_LAUNCHES`
+    kernels, one count."""
     _check(x, dt, A, B, C, chunk)
     _check_bwd(x, dy, dh_final)
     if x.device.type != "cuda":
@@ -592,7 +653,8 @@ def ssd_scan_bwd_at(x, dt, A, B, C, dy, dh_final=None, *, chunk: int,
     bsz, s, nh, p = x.shape
     n = B.shape[2]
     _check_bwd_cuda(x, dy, p, n)
-    run = bwd_plan(bsz, s, nh, p, n, depth)
+    run = bwd_plan(bsz, s, nh, p, n, x.element_size(), depth, group,
+                   ring.sm_count(x.device))
     dev = x.device
     dx = torch.empty((bsz, s, nh, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((bsz, s, nh), dtype=torch.float32, device=dev)
@@ -626,7 +688,7 @@ def ssd_scan_bwd_at(x, dt, A, B, C, dy, dh_final=None, *, chunk: int,
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), states.data_ptr(), dstates.data_ptr(),
             totals.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
-            dc_part.data_ptr(), bsz, s, nh, p, n, run.group,
+            dc_part.data_ptr(), bsz, s, nh, p, n, run.group, run.depth,
             ring.DTYPE_CODE[x.dtype], ring.DTYPE_CODE[dt.dtype], stream)
     ring.raise_on_error(err, lib, kernel="ssd_scan_bwd", depth=run.depth,
                         tile=(run.chunk, p, n))

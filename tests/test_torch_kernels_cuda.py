@@ -1000,10 +1000,13 @@ def test_ssd_scan_bwd_matches_plain(cuda_device, dtype, dt_dtype, chunk, nh,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_bwd_depths_and_strided_views(cuda_device, dtype):
-    """Depths 1, 2, 5, every head in one group and the solved depth (the
-    heads a block walks), each recorded as run; x, B and C as slices of
-    one joint projection, dt a strided view; dh_final None and given."""
+    """Depths 1, 2, 5, 12 and the solved depth (the heads' tiles a block
+    keeps in flight, clamped by the plan to shared memory and the head
+    group), each recorded as run, and every head in one group; x, B and C
+    as slices of one joint projection, dt a strided view; dh_final None
+    and given."""
     from repro_torch.core import autotune
+    from repro_torch.kernels import ring
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     b, s, nh, p, n = 2, 256, 12, 64, 128
@@ -1019,6 +1022,7 @@ def test_ssd_scan_bwd_depths_and_strided_views(cuda_device, dtype):
     a = -torch.exp(torch.randn(nh, generator=g) * 0.3).to(cuda_device)
     dy = torch.randn(b, s, nh, p, generator=g).to(cuda_device, dtype)
     dh = torch.randn(b, nh, p, n, generator=g).to(cuda_device)
+    sms = ring.sm_count(x.device)
     for d_final in (None, dh):
         want = ss.ssd_scan_bwd_plain(x, dt, a, bm, cm, dy, d_final, chunk=64)
         for depth in (1, 2, 5, nh, None):
@@ -1028,8 +1032,64 @@ def test_ssd_scan_bwd_depths_and_strided_views(cuda_device, dtype):
             torch.cuda.synchronize()
             assert launch_counts()["ssd_scan_bwd"] == before + 1
             ran = autotune.last_choice("ssd_scan_bwd")
-            assert ran == (depth if depth else ran) and 1 <= ran <= nh
+            assert ran == ss.bwd_plan(b, s, nh, p, n, x.element_size(),
+                                      depth or ran, sms=sms).depth
             _ssd_bwd_close(got, want, dtype)
+        got = ss.ssd_scan_bwd_at(x, dt, a, bm, cm, dy, d_final, chunk=64,
+                                 depth=1, group=nh)
+        torch.cuda.synchronize()
+        _ssd_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,depth", [(12, 1), (12, 3), (6, 3), (5, 2),
+                                         (3, 3)])
+def test_ssd_scan_bwd_head_groups_and_rings(cuda_device, dtype, group,
+                                            depth):
+    """Head groups larger than 2 (12 heads in one group, 6, 5: the last
+    group short, and 3) at hymba's widths (p 64, n 16), where shared memory
+    holds several heads' tiles: the ring wraps (depth 3 over 12 heads) or
+    holds the whole group (3 of 3); dh_final given, a weak decay (what is
+    carried across chunks counts), a partial last chunk."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    args, dy, dh = _ssd_bwd_problem(cuda_device, 2, 224, 12, 64, 16,
+                                    dtype=dtype, dt_dtype=torch.float32,
+                                    seed=group + depth, with_dh=True,
+                                    weak=True)
+    run = ss.bwd_plan(2, 224, 12, 64, 16, args[0].element_size(), depth,
+                      group)
+    assert (run.group, run.depth) == (group, depth)
+    got = ss.ssd_scan_bwd_at(*args, dy, dh, chunk=32, depth=depth,
+                             group=group)
+    torch.cuda.synchronize()
+    _ssd_bwd_close(got, ss.ssd_scan_bwd_plain(*args, dy, dh, chunk=32),
+                   dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,p,n,group", [
+    (24, 64, 128, None),     # mamba2-130m's widths, the solved group
+    (24, 64, 128, 12),
+    (50, 64, 16, None),      # hymba-1.5b's
+])
+def test_ssd_scan_bwd_is_bitwise_repeatable(cuda_device, dtype, nh, p, n,
+                                            group):
+    """Two calls on the same inputs give the same bits in every gradient:
+    no atomics, each group's dB and dC and the dA terms summed in a fixed
+    order."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    args, dy, dh = _ssd_bwd_problem(cuda_device, 2, 512, nh, p, n,
+                                    dtype=dtype, dt_dtype=torch.float32,
+                                    seed=nh + n, with_dh=True)
+    runs = [ss.ssd_scan_bwd_at(*args, dy, dh, chunk=256, depth=2,
+                               group=group) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), *runs):
+        assert torch.equal(a, b), name
+    _ssd_bwd_close(runs[0], ss.ssd_scan_bwd_plain(*args, dy, dh, chunk=256),
+                   dtype)
 
 
 def test_ssd_scan_bwd_strong_decay_stays_finite(cuda_device):
@@ -1090,6 +1150,9 @@ def test_ssd_scan_bwd_raises_instead_of_falling_back(cuda_device):
     wide = _ssd_problem(cuda_device, 1, 64, 1, 128, 128)
     with pytest.raises(KernelResourceError):    # tiles over shared memory
         ss.ssd_scan_bwd(*wide, torch.randn_like(wide[0]), chunk=16)
+    odd = _ssd_problem(cuda_device, 1, 64, 2, 12, 16)
+    with pytest.raises(ValueError):             # p not a multiple of 8
+        ss.ssd_scan_bwd(*odd, torch.randn_like(odd[0]), chunk=16)
     assert launch_counts()["ssd_scan_bwd"] == 0
 
 

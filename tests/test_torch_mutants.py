@@ -1,8 +1,8 @@
 """The broken kernel copies of ``scripts/kernel_mutants.py``, the reduced
-copies of ``scripts/{flash_decode,ssd_scan}_breakdown.py`` and the
-persistent-grid copies of the triad and the ring-wait copies of the span
-gather and the scatter-add that ``chip_smoke.py`` times, against the
-sources they change.
+copies of ``scripts/{flash_decode,ssd_scan,ssd_scan_bwd}_breakdown.py``
+and the persistent-grid copies of the triad and the ring-wait copies of
+the span gather and the scatter-add that ``chip_smoke.py`` times, against
+the sources they change.
 
 The scripts build and run them only on a card, and refuse an edit whose
 text does not occur exactly once in its source; this checks every copy's
@@ -28,7 +28,8 @@ def _load(name):
 
 MUTANTS = _load("kernel_mutants")
 BREAKDOWNS = {"flash_decode_breakdown": MUTANTS.FLASH,
-              "ssd_scan_breakdown": MUTANTS.SSD}
+              "ssd_scan_breakdown": MUTANTS.SSD,
+              "ssd_scan_bwd_breakdown": MUTANTS.SSD_BWD}
 
 
 @pytest.mark.parametrize("name", sorted(MUTANTS.MUTANTS))

@@ -186,20 +186,70 @@ def test_wrapper_on_cpu_runs_the_plain_backward():
 
 
 def test_bwd_plan_and_shared_memory():
-    """The kernel's plan: 64-row chunks in both types, the depth read as
-    the heads a block walks (clamped to nh), four launches; the shipped
-    SSM widths fit one block's shared memory, p = n = 128 does not."""
-    run = ss.bwd_plan(8, 512, 24, 64, 128, 5)
-    assert (run.chunk, run.chunks, run.group, run.groups, run.launches) == \
-        (64, 8, 5, 5, 4)
-    assert ss.bwd_plan(8, 500, 50, 64, 16, 100).group == 50
+    """The kernel's plan: 64-row chunks in both types, the head group
+    solved from the grid (the fewest waves of blocks, one an SM, times the
+    heads a block walks; the largest on a tie) or given, the depth read as
+    the heads' tiles a block keeps in flight (clamped to the group and to
+    shared memory), four launches; mamba2's widths fit one slot in bf16
+    and in f32, hymba's several, p = n = 128 none."""
+    from repro_torch.core.guard import KernelResourceError
+
+    run = ss.bwd_plan(8, 512, 24, 64, 128, 2, 5)
+    assert (run.chunk, run.chunks, run.group, run.groups, run.depth,
+            run.launches) == (64, 8, 12, 2, 1, 4)
     assert run.workspace_bytes == 4 * (2 * 8 * 8 * 24 * (64 * 128 + 1)
-                                       + 2 * 5 * 8 * 512 * 128)
-    assert ss.bwd_smem_bytes(64, 128) <= ring.SMEM_LIMIT   # mamba2-130m
-    assert ss.bwd_smem_bytes(64, 16) <= ring.SMEM_LIMIT // 2  # hymba-1.5b
-    assert ss.bwd_smem_bytes(128, 128) > ring.SMEM_LIMIT
+                                       + 2 * 2 * 8 * 512 * 128)
+    hymba = ss.bwd_plan(8, 500, 50, 64, 16, 2, 100)
+    assert (hymba.chunks, hymba.group, hymba.groups) == (8, 25, 2)
+    assert 2 < hymba.depth <= hymba.group
+    assert ss.bwd_plan(8, 512, 24, 64, 128, 2, 1, group=24).groups == 1
+    assert ss.bwd_plan(2, 256, 12, 64, 16, 4, 3, group=5).depth == 3
+    assert ss.bwd_group(8, 8, 24, sms=132) == 12      # 128 blocks, one wave
+    assert ss.bwd_group(2, 4, 12, sms=132) == 1
+    assert ss.bwd_smem_bytes(64, 128, 2) <= ring.SMEM_LIMIT < \
+        ss.bwd_smem_bytes(64, 128, 2, 2)              # mamba2-130m, bf16
+    assert ss.bwd_smem_bytes(64, 128, 4) <= ring.SMEM_LIMIT < \
+        ss.bwd_smem_bytes(64, 128, 4, 2)
+    assert ss.bwd_smem_bytes(64, 16, 2, 2) <= ring.SMEM_LIMIT // 2  # hymba
+    for itemsize in (2, 4):
+        assert ss.bwd_smem_bytes(128, 128, itemsize) > ring.SMEM_LIMIT
+        with pytest.raises(KernelResourceError):
+            ss.bwd_plan(1, 64, 1, 128, 128, itemsize, 1)
     with pytest.raises(ValueError):
-        ss.bwd_plan(8, 512, 24, 64, 128, 0)
+        ss.bwd_plan(8, 512, 24, 64, 128, 2, 0)
+
+
+def test_bwd_layout_follows_the_kernel_source():
+    """`_bwd_layout` mirrors the .cu's `Layout`, which the wrapper's shared
+    memory clamp reads: 64-row chunks, bf16 rows 8 values longer and f32
+    rows 4, the vectors, the fixed parts and slots of both launches."""
+    from pathlib import Path
+
+    src = Path(ss.BWD_SOURCE).read_text()
+    for text in (f"constexpr int kL = {ss.BWD_CHUNK};",
+                 f"constexpr int kMaxState = {ss.MAX_STATE};",
+                 f"constexpr int kMaxHead = {ss.MAX_HEAD};",
+                 "const int pad = f32 ? 4 : 8, esz = f32 ? 4 : 2;",
+                 "constexpr int kVecRows = 6;",
+                 "constexpr int kVecFloats = (kVecRows + 24 + 1) * kL;",
+                 "return 2 * bc + 2 * (kL * xs * 4) + 2 * kL * 4; }",
+                 "size_t slot_a() const { return 2 * x + dtw; }",
+                 "size_t fixed_c() const { return 2 * bc + sc + vec; }",
+                 "size_t slot_c() const { return 2 * x + 2 * st + dtw; }",
+                 '#include "../../csrc/coro_ring.cuh"',
+                 '#include "../../csrc/ssd_common.cuh"'):
+        assert text in src, text
+    # bf16, mamba2's widths: B and C [64][136], x w and dy exp(cs) [64][72]
+    # in two parts, w and exp(cs); x and dy [64][72]; the scores [64][72]
+    # in two parts, 31 vectors of 64; H and G [64][136] in two parts each
+    assert ss._bwd_layout(64, 128, 2) == dict(
+        fixed_a=2 * 64 * 136 * 2 + 2 * 64 * 72 * 4 + 2 * 64 * 4,
+        slot_a=2 * 64 * 72 * 2 + 64 * 4,
+        fixed_c=2 * 64 * 136 * 2 + 64 * 72 * 4 + 31 * 64 * 4,
+        slot_c=2 * 64 * 72 * 2 + 2 * 64 * 136 * 4 + 64 * 4)
+    # f32, hymba's: rows 4 longer, p and n padded to 16
+    assert ss._bwd_layout(64, 16, 4)["slot_c"] == \
+        2 * 64 * 68 * 4 + 2 * 64 * 20 * 4 + 64 * 4
 
 
 def test_ssd_op_backward_is_one_bwd_call(monkeypatch):
