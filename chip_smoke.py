@@ -233,9 +233,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      depths 1, 2 and solved; (b) a reduced granite-moe f32 train step on
      the card against the same step on the CPU (same parameters and
      batch): the loss, every gradient leaf and the AdamW update within
-     2e-3, and the card's state through a checkpoint and back, bitwise;
-     then the same reduced f32 step of mamba2-130m and hymba-1.5b (a K4
-     forward and a K4 backward call a layer) card == CPU within 2e-3;
+     2e-3, then three steps through `jit_train_step` on each device (on
+     the card the eager step and its capture, then two replays): the
+     loss, learning rate and gradient norm of each step and the state
+     within 2e-3, one capture, two replays, each launching the eager
+     step's kernels; and the card's state through a checkpoint and back,
+     bitwise; then the same for mamba2-130m and hymba-1.5b (a K4 forward
+     and a K4 backward call a layer);
      (c) K4's backward kernel (`ssd_scan_bwd`, four launches a call, on
      tensor cores) against its plain version at mamba2's and hymba's full
      training shapes (b 8, s 512, chunk 256; x/B/C slices of one
@@ -244,14 +248,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      count a call, a second call at the solved depth bitwise the same;
      (d) granite-moe-1b-a400m (20 steps), mamba2-130m (20) and hymba-1.5b
      (10) trained at full width (f32 parameters, bf16 compute, batch 8 x
-     seq 512, AdamW): every loss finite, the mean of the last 5 below the
-     mean of the first 5, exactly the step's launches (216 K2; or 24 / 32
-     K4 forward and backward calls) and no other kernel; step time p50,
-     tokens a second, peak memory, then a profile of fresh steps (device
-     busy share; K2's share, or K4's forward and backward ms a step) and
-     the guard's cost a step; (e) K2's times at the six products beside
-     torch.bmm and the bound, and K4's backward's at the two SSM training
-     shapes (by launch) beside its plain version and the bound;
+     seq 512, AdamW) through `train`, whose step is one CUDA graph
+     (`train_step`): one capture and steps - 1 replays; every loss
+     finite, the mean of the last 5 below the mean of the first 5,
+     exactly the step's launches (216 K2; or 24 / 32 K4 forward and
+     backward calls) and no other kernel, the eager step's and each
+     replay's the same; the first step (eager step and capture) apart
+     from the replays' p50, tokens a second, peak memory allocated and
+     reserved, then a profile of replayed steps (device busy share; K2's
+     share, or K4's forward and backward ms a step) and the guard's cost
+     in the eager step before a capture; `memory_reserved` before and
+     after each arch, which must drop back; (e) K2's times at the six
+     products beside torch.bmm and the bound, and K4's backward's at the
+     two SSM training shapes (by launch) beside its plain version and
+     the bound; (f) for each of the three archs, from one init and the
+     same three batches, three eager `make_train_step` steps against
+     three `jit_train_step` steps (the eager step and two replays): the
+     losses, gradient norms and every leaf of params, mu and nu within
+     2e-3, the largest difference printed;
  12. `guard.stats()` on one JSON line, one JSON line describing every
      kernel (nine: K4's backward has its own entry; K2's, K3's and K4's
      launches by path, and K2's times at the training products and K3's
@@ -271,8 +285,8 @@ prints one JSON line.
 
     python3 chip_smoke.py --train
 
-builds the kernels and runs only phase 11 (training), then prints its
-record as one JSON line.
+builds the kernels and runs only phase 11 (training, (a) to (f)), then
+prints its record as one JSON line.
 
     python3 chip_smoke.py --ssd-time
 
@@ -999,11 +1013,13 @@ def profile_prefill_chunks(torch, cfg, params, rounds=4):
     return out
 
 
-def eager_guard_cost(torch, fresh_step, label, turns=3) -> dict:
+def eager_guard_cost(torch, fresh_step, label, turns=3,
+                     what="eager step plus capture") -> dict:
     """The guard's cost in the eager step a serving run makes before each
     capture (one a key): `fresh_step()`, a step at a new key (run eagerly,
-    then captured), on the host clock from an idle device to its work
-    done, with the guard as it is ("checked") and with its checks of each
+    then captured; or, as `what` says, the eager step alone), on the host
+    clock from an idle device to its work done, with the guard as it is
+    ("checked") and with its checks of each
     output (scan, sentinel, injected poison: `core.guard._police`) stubbed
     out for this measurement ("unchecked"), in turns: checked, unchecked,
     unchecked, checked, `turns` times. The eager step's guarded calls are
@@ -1043,7 +1059,7 @@ def eager_guard_cost(torch, fresh_step, label, turns=3) -> dict:
     out.update(runs=times, guarded_calls=n,
                guard_ms=out["checked"] - out["unchecked"])
     out["guard_us_a_call"] = out["guard_ms"] / n * 1e3 if n else None
-    log(f"guard eager cost {label}: eager step plus capture "
+    log(f"guard eager cost {label}: {what} "
         f"{out['checked']:.2f} ms checked, {out['unchecked']:.2f} ms "
         f"unchecked ({json.dumps(times)}); {n} guarded calls; "
         f"{out['guard_ms']:.2f} ms a step"
@@ -3046,6 +3062,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
 # 1.0 scales every update under AdamW's eps and the loss stays flat;
 # without it AdamW's per-leaf normalisation trains
 TRAIN_DATA_VOCAB, TRAIN_LR, TRAIN_CLIP = 512, 1e-2, 0.0
+# steps through the graph train step that phases 11b and 11f compare with
+# eager steps: the eager step and its capture, then replays
+GRAPH_STEPS = 3
 # The SSM and hybrid families at the same settings, through K4's forward
 # and backward kernels (a call each a layer a step); hymba (1.5 B
 # parameters) takes fewer steps
@@ -3133,9 +3152,9 @@ def check_train_step_card_vs_cpu(torch, arch: str = TRAIN_ARCH) -> None:
     step on the CPU, from the same parameters and batch: loss, every
     gradient leaf and the AdamW update (params, mu, nu) at 2e-3, with the
     step's kernel launches (granite-moe: K2, 9 a layer; mamba2 and hymba:
-    a K4 forward and a K4 backward call a layer) and none on the CPU; for
-    granite-moe then the card's state through a checkpoint and back,
-    bitwise, on the card."""
+    a K4 forward and a K4 backward call a layer) and none on the CPU;
+    then `check_graph_steps_card_vs_cpu`; for granite-moe then the card's
+    state through a checkpoint and back, bitwise, on the card."""
     import tempfile
 
     from repro_torch.checkpointing import checkpoint
@@ -3188,6 +3207,7 @@ def check_train_step_card_vs_cpu(torch, arch: str = TRAIN_ARCH) -> None:
         f"{float(out['cuda'][0]):.6f} / {float(out['cpu'][0]):.6f}, every "
         f"gradient leaf and the AdamW update within 2e-3 (max abs err "
         f"{worst:.3e}), launches {json.dumps(launched)}")
+    check_graph_steps_card_vs_cpu(torch, arch, model, params, opt, want)
     if arch != TRAIN_ARCH:
         return
     state = out["cuda"][2]
@@ -3201,6 +3221,78 @@ def check_train_step_card_vs_cpu(torch, arch: str = TRAIN_ARCH) -> None:
                                  "differs")
     log(f"checkpoint round trip on the card: {len(tree.leaves(state))} "
         f"leaves bitwise, on {back['step'].device}")
+
+
+def check_graph_steps_card_vs_cpu(torch, arch, model, params, opt,
+                                  per_step) -> None:
+    """Phase 11b: `GRAPH_STEPS` reduced f32 steps of `arch` through
+    `jit_train_step` on the card (the eager step and its capture, then
+    replays) and on the CPU (eager), from the same parameters and Markov
+    batches: the loss, learning rate and gradient norm of every step and
+    every state leaf at 2e-3; on the card one capture and steps - 1
+    replays, the step's launches `per_step` recorded by the capture, the
+    run's launches `per_step` a step; none on the CPU."""
+    from repro_torch.core import step_graph, tree
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import init_state
+    from repro_torch.runtime.steps import jit_train_step
+
+    cfg = model.cfg
+    task = MarkovTask(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                 global_batch=4))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        # a copy on each device: the step updates the state in place
+        state = init_state(tree.map_tree(
+            lambda x: x.to(dev, copy=True), params))
+        step = jit_train_step(model, opt)
+        since = step_graph.stats()
+        reset_launch_counts()
+        metrics = []
+        for i in range(GRAPH_STEPS):
+            batch = {k: torch.as_tensor(v)
+                     for k, v in task.batch_for_step(i).items()}
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (state, metrics, launch_counts(), graph_delta(since),
+                     dict(step.graph.launches))
+        del step
+    state, metrics, counts, graphs, recorded = runs["cuda"]
+    per_step = {k: v for k, v in per_step.items() if v}
+    want_graphs = {"train_step": {"captures": 1, "replays": GRAPH_STEPS - 1}}
+    if any(runs["cpu"][2].values()) or runs["cpu"][3] or \
+            {k: v for k, v in counts.items() if v} != {
+                k: GRAPH_STEPS * v for k, v in per_step.items()} or \
+            recorded != per_step or {
+                name: {k: g[k] for k in ("captures", "replays")}
+                for name, g in graphs.items()} != want_graphs:
+        raise AssertionError(
+            f"graph steps {arch}: cpu launches {runs['cpu'][2]} graphs "
+            f"{runs['cpu'][3]}; card launches {counts}, graphs {graphs}, a "
+            f"replay's launches {recorded}; want none, and {per_step} a "
+            f"step, {want_graphs}")
+    worst = 0.0
+    for i, (got, ref) in enumerate(zip(metrics, runs["cpu"][1])):
+        for k in ("loss", "lr", "grad_norm"):
+            worst = max(worst, _close_quiet(
+                f"graph step {i} {arch} {k}", torch.tensor([got[k]]),
+                torch.tensor([ref[k]]), 2e-3))
+    for (path, a), b in zip(tree.paths(state), tree.leaves(runs["cpu"][0])):
+        if a.dtype.is_floating_point:
+            worst = max(worst, _close_quiet(
+                f"graph steps {arch} state {'/'.join(path)}", a.cpu(), b,
+                2e-3))
+    if int(state["step"]) != GRAPH_STEPS:
+        raise AssertionError(f"graph steps {arch}: step {state['step']}")
+    log(f"train step graph {arch} reduced f32 card == cpu over "
+        f"{GRAPH_STEPS} `jit_train_step` steps (eager step, capture, "
+        f"{GRAPH_STEPS - 1} replays): losses "
+        f"{json.dumps([round(m['loss'], 6) for m in metrics])} / "
+        f"{json.dumps([round(m['loss'], 6) for m in runs['cpu'][1]])}, "
+        f"lr, grad norm and every state leaf within 2e-3 (max abs err "
+        f"{worst:.3e}); graphs {json.dumps(graphs)}, a replay's launches "
+        f"{json.dumps(recorded)}")
 
 
 def _close_quiet(name, got, want, tol) -> float:
@@ -3305,20 +3397,29 @@ def check_k4_grads(torch) -> float:
 
 def train_full_width(torch, arch: str = TRAIN_ARCH,
                      steps: int = TRAIN_STEPS) -> dict:
-    """Phase 11d: `train` on `arch` at full width for `steps` steps. Every
-    loss finite and the mean of the last 5 below the mean of the first 5;
-    exactly the step's kernel launches (granite-moe: 9 K2 a
-    layer; mamba2 and hymba: a K4 forward and a K4 backward call a layer)
-    and nothing else launched. Then a fresh state's steps for the profile
+    """Phase 11d: `train` on `arch` at full width for `steps` steps, its
+    step one CUDA graph: one capture and steps - 1 replays. Every loss
+    finite and the mean of the last 5 below the mean of the first 5;
+    exactly the step's kernel launches (granite-moe: 9 K2 a layer; mamba2
+    and hymba: a K4 forward and a K4 backward call a layer) and nothing
+    else launched. The first step (the eager step and the capture) apart
+    from the replays' p50; peak memory allocated and reserved. Then a
+    fresh state through a fresh `jit_train_step`: the eager step's and a
+    replay's launches, both the step's, a profile of replayed steps
     (device busy share; K2's share, or K4's forward and backward ms a
-    step) and the guard's cost a step (checked against unchecked)."""
+    step), the memory reserved while the state and the graph live; then,
+    the graph dropped, the guard's cost in the eager step the graph step
+    runs before its capture (that function alone, checked against
+    unchecked) and that step's peak memory. `memory_reserved` must drop
+    back to what it was before the arch (the graph's pool is freed with
+    its step)."""
     from repro_torch.configs import get_config
     from repro_torch.core import step_graph
     from repro_torch.data.pipeline import DataConfig, MarkovTask
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, init_state
-    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.steps import jit_train_step
     from repro_torch.runtime.train_loop import train
 
     cfg = get_config(arch)
@@ -3330,12 +3431,16 @@ def train_full_width(torch, arch: str = TRAIN_ARCH,
     opt = AdamWConfig(lr=TRAIN_LR, total_steps=steps, warmup_steps=2,
                       grad_clip=TRAIN_CLIP)
     gc_collect(torch)
+    reserved_before = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    since = step_graph.stats()
     rep = train(model, steps=steps, data_cfg=data, opt=opt, log_every=1,
                 device="cuda")
     counts = launch_counts()
+    graphs = graph_delta(since)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     losses = [rep.losses[i] for i in range(steps)]
     per_step = {k: 0 for k in counts}
     if cfg.moe:
@@ -3345,7 +3450,8 @@ def train_full_width(torch, arch: str = TRAIN_ARCH,
     want = {k: v * steps for k, v in per_step.items()}
     per_step = {k: v for k, v in per_step.items() if v}
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    p50 = statistics.median(rep.step_s)
+    first_s = rep.step_s[0]
+    p50 = statistics.median(rep.step_s[1:])
     step_ms = [s * 1e3 for s in rep.step_s]
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     log(f"train {arch} full width ({model.n_params()} parameters, f32 "
@@ -3355,13 +3461,21 @@ def train_full_width(torch, arch: str = TRAIN_ARCH,
         f"losses {json.dumps([round(x, 4) for x in losses])}, mean of the "
         f"first 5 {first:.4f}, of the last 5 {last:.4f}"
         f" ({'fell' if last < first else 'did not fall'})")
-    log(f"train {arch}: step p50 {p50 * 1e3:.1f} ms (steps "
-        f"{json.dumps([round(s, 1) for s in step_ms])} ms), "
-        f"{tokens / p50:.0f} tokens/s, peak memory {peak_gb:.2f} GB, "
-        f"launches {json.dumps({k: counts[k] for k in per_step})} "
+    log(f"train {arch}: first step (eager step + capture) "
+        f"{first_s * 1e3:.1f} ms; replayed step p50 {p50 * 1e3:.1f} ms "
+        f"(steps {json.dumps([round(s, 1) for s in step_ms])} ms), "
+        f"{tokens / p50:.0f} tokens/s, peak memory {peak_gb:.2f} GB "
+        f"allocated, {peak_reserved_gb:.2f} GB reserved, graphs "
+        f"{json.dumps(graphs)}, launches "
+        f"{json.dumps({k: counts[k] for k in per_step})} "
         f"({json.dumps(per_step)} a step), wall {rep.wall_s:.1f} s")
     if counts != want:
         raise AssertionError(f"train {arch}: launches {counts}, want {want}")
+    got_graphs = {name: (g["captures"], g["replays"])
+                  for name, g in graphs.items()}
+    if got_graphs != {"train_step": (1, steps - 1)}:
+        raise AssertionError(f"train {arch}: graphs {graphs}, want one "
+                             f"capture and {steps - 1} replays")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train {arch}: losses {losses}")
     if not last < first:
@@ -3372,20 +3486,36 @@ def train_full_width(torch, arch: str = TRAIN_ARCH,
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     state = init_state(model.init(gen, "cuda"))
-    step = make_train_step(model, opt)
-    batch = {k: torch.as_tensor(v, device="cuda")
+    batch = {k: torch.as_tensor(v)
              for k, v in MarkovTask(data).batch_for_step(0).items()}
+    step = jit_train_step(model, opt)
+    launched = []
+    for _ in range(2):                  # the eager step and capture; a replay
+        before = launch_counts()
+        step(state, batch)
+        after = launch_counts()
+        launched.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+    if launched != [per_step, per_step] or step.graph.launches != per_step:
+        raise AssertionError(f"train {arch}: the eager step launched "
+                             f"{launched[0]}, a replay {launched[1]} "
+                             f"(recorded {step.graph.launches}), want "
+                             f"{per_step}")
+    log(f"train {arch}: the eager step and a replay each launch "
+        f"{json.dumps(per_step)}, nothing else")
     busy, by_kernel, wall_ms = profile_steps(
         torch, lambda: step(state, batch), 2,
-        f"{arch} train step (B {TRAIN_BATCH} x {TRAIN_SEQ})",
+        f"{arch} replayed train step (B {TRAIN_BATCH} x {TRAIN_SEQ})",
         step_graph.stats())
     out = {"losses": losses, "loss_first5": first, "loss_last5": last,
-           "step_ms_p50": p50 * 1e3, "step_ms": step_ms,
-           "tokens_per_s": tokens / p50, "peak_memory_gb": peak_gb,
+           "first_step_ms": first_s * 1e3, "step_ms_p50": p50 * 1e3,
+           "step_ms": step_ms, "tokens_per_s": tokens / p50,
+           "peak_memory_gb": peak_gb,
+           "peak_memory_reserved_gb": peak_reserved_gb, "graphs": graphs,
            "busy_share": busy, "launches": {k: counts[k] for k in per_step},
            "launches_a_step": per_step}
     if cfg.moe:
-        log_gmm_share(f"{arch} train step", by_kernel, wall_ms)
+        log_gmm_share(f"{arch} replayed train step", by_kernel, wall_ms)
     else:
         device_ms = sum(by_kernel.values())
         for part, names in (("forward", K4_FWD_KERNELS),
@@ -3393,15 +3523,126 @@ def train_full_width(torch, arch: str = TRAIN_ARCH,
             ms = sum(t for key, t in by_kernel.items()
                      if kernel_name(key) in names)
             out[f"k4_{part}_ms_a_step"] = ms
-            log(f"{arch} train step: K4 {part} {ms:.3f} ms of {device_ms:.3f}"
-                f" ms device time ({ms / device_ms:.1%}), "
+            log(f"{arch} replayed train step: K4 {part} {ms:.3f} ms of "
+                f"{device_ms:.3f} ms device time ({ms / device_ms:.1%}), "
                 f"{per_step['ssd_scan']} calls")
-    guard = eager_guard_cost(torch, lambda: step(state, batch),
-                             f"{arch} train step", turns=1)
-    out["guard_ms_a_step"] = guard["guard_ms"]
-    del state, batch
+    out["memory_reserved_with_graph_gb"] = torch.cuda.memory_reserved() / 1e9
+    log(f"train {arch}: {out['memory_reserved_with_graph_gb']:.2f} GB "
+        f"reserved while the state and the step's graph live")
+    eager_fn = step.graph.fn            # the function the graph captured
+    del step                            # and its graph's pool
     gc_collect(torch)
+    values = [batch[k].cuda() for k in sorted(batch)]
+    torch.cuda.reset_peak_memory_stats()
+    guard = eager_guard_cost(
+        torch, lambda: eager_fn(state, *values),
+        f"{arch} train step", turns=2,
+        what="the eager step the graph step runs before its capture")
+    out["guard_ms_eager_step"] = guard["guard_ms"]
+    out["eager_step_peak_gb"] = [torch.cuda.max_memory_allocated() / 1e9,
+                                 torch.cuda.max_memory_reserved() / 1e9]
+    log(f"train {arch}: the eager step alone peaks at "
+        f"{out['eager_step_peak_gb'][0]:.2f} GB allocated, "
+        f"{out['eager_step_peak_gb'][1]:.2f} GB reserved")
+    del state, batch, values, eager_fn
+    gc_collect(torch)
+    out["memory_reserved_gb"] = log_reserved(torch, arch, reserved_before)
     return out
+
+
+def log_reserved(torch, label, before) -> list:
+    """Logs `memory_reserved` before and after a phase (the collector run
+    and the cache emptied; `memory_allocated` after beside it) and fails
+    if more than 64 MiB stayed reserved: a CUDA graph's pool that
+    outlived its step (tens of GB at these widths) or a tensor kept."""
+    after = torch.cuda.memory_reserved()
+    log(f"memory_reserved {label}: {before / 1e9:.3f} GB before, "
+        f"{after / 1e9:.3f} GB after "
+        f"({torch.cuda.memory_allocated() / 1e9:.3f} GB allocated)")
+    if after > before + 2 ** 26:
+        raise AssertionError(f"{label}: {after - before} bytes stayed "
+                             "reserved")
+    return [before / 1e9, after / 1e9]
+
+
+def graph_against_eager(torch, arch: str) -> dict:
+    """Phase 11f: `arch` at full width (phase 11d's settings), from one
+    init (seed 2, drawn again) and the same `GRAPH_STEPS` Markov batches:
+    eager `make_train_step` steps against `jit_train_step` steps (the
+    eager step and its capture, then replays). The losses, gradient norms
+    and every leaf of params, mu and nu at 2e-3; the largest difference
+    logged (no kernel of the port uses atomics, so 0 is expected of
+    them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import step_graph, tree
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime.steps import jit_train_step, make_train_step
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    task = MarkovTask(DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH))
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=2,
+                      grad_clip=TRAIN_CLIP)
+    batches = [{k: torch.as_tensor(v)
+                for k, v in task.batch_for_step(i).items()}
+               for i in range(GRAPH_STEPS)]
+
+    def fresh_state():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        return init_state(model.init(gen, "cuda"))
+
+    gc_collect(torch)
+    reserved_before = torch.cuda.memory_reserved()
+    state, eager = fresh_state(), make_train_step(model, opt)
+    eager_metrics = []
+    for b in batches:
+        state, m = eager(state, {k: v.cuda() for k, v in b.items()})
+        eager_metrics.append({k: float(v) for k, v in m.items()})
+    want = tree.map_tree(lambda t: t.cpu(), state)
+    del state, m
+    gc_collect(torch)
+    since = step_graph.stats()
+    state, step = fresh_state(), jit_train_step(model, opt)
+    graph_metrics = []
+    for b in batches:
+        state, m = step(state, b)
+        graph_metrics.append({k: float(v) for k, v in m.items()})
+    graphs = graph_delta(since)
+    if {n: (g["captures"], g["replays"]) for n, g in graphs.items()} != \
+            {"train_step": (1, GRAPH_STEPS - 1)}:
+        raise AssertionError(f"graph against eager {arch}: graphs {graphs}")
+    del step, m                         # the graph's pool, before comparing
+    gc_collect(torch)
+    worst = {}
+    for i, (got, ref) in enumerate(zip(graph_metrics, eager_metrics)):
+        for k in ("loss", "grad_norm"):
+            worst[f"{k} {i}"] = _close_quiet(
+                f"graph against eager {arch} step {i} {k}",
+                torch.tensor([got[k]]), torch.tensor([ref[k]]), 2e-3)
+    for part in ("params", "mu", "nu"):
+        for (path, a), b in zip(tree.paths(state[part]),
+                                tree.leaves(want[part])):
+            worst[f"{part}/{'/'.join(path)}"] = _close_quiet(
+                f"graph against eager {arch} {part}/{'/'.join(path)}", a,
+                b.to(a.device), 2e-3)
+    top = max(worst, key=worst.get)
+    log(f"graph against eager {arch} full width, {GRAPH_STEPS} steps from "
+        f"one init: losses {json.dumps([m['loss'] for m in graph_metrics])}"
+        f" / {json.dumps([m['loss'] for m in eager_metrics])}, grad norms, "
+        f"and all {len(worst) - 2 * GRAPH_STEPS} leaves of params, mu and "
+        f"nu within 2e-3; largest difference {worst[top]:.3e} ({top}), "
+        f"{sum(1 for v in worst.values() if v)} of {len(worst)} compared "
+        f"values not bitwise equal; graphs {json.dumps(graphs)}")
+    del state, want, a, b               # a: the last leaf, on the card
+    gc_collect(torch)
+    return {"max_abs_diff": worst[top], "at": top,
+            "not_bitwise": [k for k, v in worst.items() if v],
+            "memory_reserved_gb": log_reserved(
+                torch, f"{arch} graph against eager", reserved_before)}
 
 
 def gc_collect(torch) -> None:
@@ -3550,11 +3791,13 @@ def time_ssd_bwd(torch) -> dict:
 
 
 def train_phase(torch) -> dict:
-    """Phase 11: (a) K2's gradients, (b) reduced steps card == CPU
-    (granite-moe, mamba2, hymba) and a checkpoint round trip, (c) K4's
-    gradients at the two SSM training shapes, (d) granite-moe, mamba2 and
-    hymba trained at full width, (e) K2's times at the training products
-    and K4's backward's at the SSM training shapes."""
+    """Phase 11: (a) K2's gradients, (b) reduced steps card == CPU, eager
+    and through the graph step (granite-moe, mamba2, hymba), and a
+    checkpoint round trip, (c) K4's gradients at the two SSM training
+    shapes, (d) granite-moe, mamba2 and hymba trained at full width
+    through graph replays, (e) K2's times at the training products and
+    K4's backward's at the SSM training shapes, (f) the graph step against
+    the eager step at full width."""
     from repro_torch.configs import get_config
     from repro_torch.core import guard
 
@@ -3569,6 +3812,9 @@ def train_phase(torch) -> dict:
                   for arch, steps in SSM_TRAIN}
     run["gmm_times"] = time_gmm_train(torch, cfg)
     run["ssd_bwd_times"] = time_ssd_bwd(torch)
+    run["graph_against_eager"] = {
+        arch: graph_against_eager(torch, arch)
+        for arch in (TRAIN_ARCH, *(a for a, _ in SSM_TRAIN))}
     return run
 
 

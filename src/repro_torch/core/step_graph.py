@@ -1,26 +1,32 @@
-"""A serving step replayed as one CUDA graph: the port's counterpart of what
-`jax.jit` does for the reference's three compiled serving steps
+"""A compiled step replayed as one CUDA graph: the port's counterpart of
+what `jax.jit` does for the reference's three compiled serving steps
 (``launch/serve.py:jit_decode_step``, the paged engine's ``_decode_fn``
 and ``serve/prefill.py:ChunkedPrefiller``'s chunk step, one per padded
-length and table width).
+length and table width) and for its jitted, donated train step
+(``runtime/steps.py:jit_train_step``: forward, backward and AdamW, the
+state updated in place).
 
 A `StepGraph` wraps a step function ``fn(*closed, *inputs)``. `closed` is
 what the step closes over and never copies (parameters, KV caches and
-pools, updated in place); `inputs` are the step's small per-call tensors
-(tokens, positions, block tables, lengths, a chunk's start and length),
-copied into static device buffers before every replay (host tensors
-through pinned buffers). On CUDA tensors the first call at a key runs the
-step once eagerly, on those buffers and on the stream the capture uses: a
-real step, returned as such, which also loads every CUDA module and solves
-every depth outside the capture. Then it captures the step with
-`torch.cuda.graph` and replays it on every later call at the same key.
-The key is the inputs' shapes and types and the addresses, shapes and
-types of every closed tensor: another cache or pool is a new capture,
-never a replay over stale addresses. One graph is kept per `StepGraph`; a
-new key drops the old one, as a jitted function keeps one compiled step
-per input signature. A caller that needs several live graphs (the chunked
-prefill: one per padded length and table width) holds several
-`StepGraph`s.
+pools, a train state, updated in place); `inputs` are the step's per-call
+tensors (tokens, positions, block tables, lengths, a chunk's start and
+length, a training batch), copied into static device buffers before
+every replay (host tensors through pinned buffers). On CUDA tensors the
+first call at a key runs the step once eagerly, on those buffers and on
+the stream the capture uses: a real step, returned as such, which also
+loads every CUDA module and solves every depth outside the capture (one
+real step is the only warm-up, for the train step's backward too). Then
+it captures the step with `torch.cuda.graph`, which empties the
+allocator's cache as it begins: the blocks the eager step freed go back
+to the device before the capture fills the graph's private pool, so a
+step whose eager peak nearly fills the card (hymba-1.5b's train step) is
+not held twice. Every later call at the same key replays the graph. The
+key is the inputs' shapes and types and the addresses, shapes and types
+of every closed tensor: another cache or pool is a new capture, never a
+replay over stale addresses. One graph is kept per `StepGraph`; a new key
+drops the old one, as a jitted function keeps one compiled step per input
+signature. A caller that needs several live graphs (the chunked prefill:
+one per padded length and table width) holds several `StepGraph`s.
 
 What a replay returns is the graph's own output tensors, rewritten by the
 next replay: a caller reads them before it calls again.

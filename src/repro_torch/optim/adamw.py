@@ -7,7 +7,8 @@ reference's: a global-norm clip of the gradients, the warmup-cosine
 learning rate, decoupled weight decay on every leaf, f32 moments. It is
 not ``torch.optim.AdamW``, whose clip and schedule are not these. Trees
 are nested dicts of tensors (`core.tree`); `apply_updates` returns a new
-state and leaves the old one as it was.
+state and leaves the old one as it was; `apply_updates_` writes the same
+update into the state's own tensors (the train step's CUDA graph).
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ import torch
 
 from repro_torch.core import tree
 
-__all__ = ["AdamWConfig", "apply_updates", "global_norm", "init_state",
-           "lr_schedule"]
+__all__ = ["AdamWConfig", "apply_updates", "apply_updates_", "global_norm",
+           "init_state", "lr_schedule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,29 +68,41 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-@torch.no_grad()
-def apply_updates(state: Dict[str, Any], grads, cfg: AdamWConfig):
-    """One AdamW step. Returns (new_state, {"lr", "grad_norm"})."""
+def _update_scalars(state: Dict[str, Any], grads, cfg: AdamWConfig):
+    """(step + 1, its learning rate, the gradients' global norm, the clip
+    scale, the two bias corrections): what every leaf's update reads."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.grad_clip else 1.0)
+    c1 = 1 - cfg.b1 ** step.float()
+    c2 = 1 - cfg.b2 ** step.float()
+    return step, lr, gnorm, scale, c1, c2
+
+
+def _update_leaf(p, g, mu, nu, lr, scale, c1, c2, cfg: AdamWConfig):
+    """One leaf's AdamW update: (new p, new mu, new nu), new tensors."""
     b1, b2 = cfg.b1, cfg.b2
-    c1 = 1 - b1 ** step.float()
-    c2 = 1 - b2 ** step.float()
+    g = g.float() * scale
+    mu = b1 * mu + (1 - b1) * g
+    nu = b2 * nu + (1 - b2) * g * g
+    step_dir = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+    p = p - lr * (step_dir + cfg.weight_decay * p)
+    return p, mu, nu
 
-    def upd(p, g, mu, nu):
-        g = g.float() * scale
-        mu = b1 * mu + (1 - b1) * g
-        nu = b2 * nu + (1 - b2) * g * g
-        step_dir = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-        p = p - lr * (step_dir + cfg.weight_decay * p)
-        return p, mu, nu
 
-    out = [upd(*leaf) for leaf in zip(
-        tree.leaves(state["params"]), tree.leaves(grads),
-        tree.leaves(state["mu"]), tree.leaves(state["nu"]))]
+def _leaves(state: Dict[str, Any], grads):
+    return zip(tree.leaves(state["params"]), tree.leaves(grads),
+               tree.leaves(state["mu"]), tree.leaves(state["nu"]))
+
+
+@torch.no_grad()
+def apply_updates(state: Dict[str, Any], grads, cfg: AdamWConfig):
+    """One AdamW step. Returns (new_state, {"lr", "grad_norm"})."""
+    step, lr, gnorm, *coef = _update_scalars(state, grads, cfg)
+    out = [_update_leaf(*leaf, lr, *coef, cfg)
+           for leaf in _leaves(state, grads)]
     template = state["params"]
     new_state = {
         "step": step,
@@ -98,3 +111,21 @@ def apply_updates(state: Dict[str, Any], grads, cfg: AdamWConfig):
         "nu": tree.unflatten(template, [o[2] for o in out]),
     }
     return new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def apply_updates_(state: Dict[str, Any], grads, cfg: AdamWConfig
+                   ) -> Dict[str, torch.Tensor]:
+    """`apply_updates` written into the state's own tensors: the same
+    arithmetic, leaf by leaf, each leaf's new params, mu and nu copied
+    into its old ones, and the step advanced in place. The counterpart of
+    the reference's donated state: a CUDA graph of the train step keeps
+    no second copy of params, mu and nu. Returns {"lr", "grad_norm"}."""
+    step, lr, gnorm, *coef = _update_scalars(state, grads, cfg)
+    for p, g, mu, nu in _leaves(state, grads):
+        new_p, new_mu, new_nu = _update_leaf(p, g, mu, nu, lr, *coef, cfg)
+        p.copy_(new_p)
+        mu.copy_(new_mu)
+        nu.copy_(new_nu)
+    state["step"].copy_(step)
+    return {"lr": lr, "grad_norm": gnorm}

@@ -1,5 +1,8 @@
 """Training loop: steps + checkpoints + straggler monitor + exact resume
-(the reference package's ``runtime/train_loop.py``)."""
+(the reference package's ``runtime/train_loop.py``). Every step goes
+through `runtime.steps.jit_train_step`, the counterpart of the reference's
+``jax.jit(step_fn, donate_argnums=(0,))``: on the card one captured CUDA
+graph, replayed; on the CPU the same step run eagerly."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,10 +15,10 @@ from repro_torch.checkpointing.checkpoint import (AsyncCheckpointer,
                                                   latest_step, restore)
 from repro_torch.data.pipeline import DataConfig, MarkovTask
 from repro_torch.models.registry import Model
-from repro_torch.optim import AdamWConfig, apply_updates, init_state
-from repro_torch.optim.compression import ef_compress, init_error_state
+from repro_torch.optim import AdamWConfig, init_state
+from repro_torch.optim.compression import init_error_state
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
-from repro_torch.runtime.steps import make_train_step, value_and_grad
+from repro_torch.runtime.steps import jit_train_step
 
 __all__ = ["TrainReport", "train"]
 
@@ -39,11 +42,14 @@ def train(model: Model, *, steps: int, data_cfg: DataConfig,
     another; RuntimeError where there is none); resumes exactly from
     `ckpt_dir` if it holds a checkpoint. Parameters are drawn from a
     `torch.Generator` on the device seeded with `seed`; batches are the
-    Markov task's for each step, moved to the device.
+    Markov task's for each step, copied into the step's buffers.
 
     `fail_at_step` injects a crash (fault-tolerance tests and demos).
     `TrainReport.step_s` holds each step's time, the device synchronized
-    at its end."""
+    at its end; on the card the first step (of this call) is the eager
+    step and the capture, every later one a replay. With
+    `compress_grads`, as in the reference, the whole batch is one
+    microbatch (`accum` is not used)."""
     from repro_torch.serve.engine import resolve_device
 
     t_start = time.time()
@@ -51,17 +57,9 @@ def train(model: Model, *, steps: int, data_cfg: DataConfig,
     opt = opt or AdamWConfig(total_steps=steps)
     task = MarkovTask(data_cfg)
 
-    if compress_grads:
-        # compress gradients with error feedback before the update
-        def step_fn(state, batch):
-            err = state.pop("grad_error")
-            loss, grads = value_and_grad(model, state["params"], batch)
-            grads, err = ef_compress(grads, err)
-            new_state, om = apply_updates(state, grads, opt)
-            new_state["grad_error"] = err
-            return new_state, {"loss": loss, **om}
-    else:
-        step_fn = make_train_step(model, opt, accum=accum)
+    # the step is dropped on return, and the graph's memory pool with it
+    step_fn = jit_train_step(model, opt, accum=1 if compress_grads else accum,
+                             compress=compress_grads)
 
     # ---- init or resume
     resumed_from = None
@@ -84,13 +82,16 @@ def train(model: Model, *, steps: int, data_cfg: DataConfig,
     for step in range(start, steps):
         if fail_at_step is not None and step == fail_at_step:
             raise RuntimeError(f"injected failure at step {step}")
-        batch = {k: torch.as_tensor(v, device=device)
+        batch = {k: torch.as_tensor(v)
                  for k, v in task.batch_for_step(step).items()}
         with monitor.timed() as timer:
             state, metrics = step_fn(state, batch)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         step_s.append(timer.elapsed)
+        # `metrics` are the graph's outputs and `state` its donated buffers,
+        # both rewritten by the next replay: the loss is read and the
+        # checkpoint's host copy taken (on this thread) before it
         if step % log_every == 0 or step == steps - 1:
             losses[step] = float(metrics["loss"])
         if ckpt is not None and (step + 1) % ckpt_every == 0:

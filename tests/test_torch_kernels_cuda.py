@@ -1816,3 +1816,156 @@ def test_ssm_block_gradients_match_the_cpu(cuda_device):
     assert launch_counts()["ssd_scan_bwd"] == 1
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------- the train step as one CUDA graph
+
+
+def _train_run(arch):
+    """A reduced f32 arch on the card with AdamW at lr 1e-3 and Markov
+    batches of 4 x 32 as host tensors: (cfg, model, params, opt, batches)."""
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.optim import AdamWConfig
+
+    cfg, model, params = _reduced_f32(arch)
+    task = MarkovTask(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                 global_batch=4))
+    batches = [{k: torch.as_tensor(v) for k, v in
+                task.batch_for_step(i).items()} for i in range(4)]
+    return cfg, model, params, AdamWConfig(lr=1e-3, total_steps=10,
+                                           warmup_steps=1), batches
+
+
+def _moved(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m"])
+def test_train_step_graph_equals_eager(cuda_device, arch):
+    """Reduced f32: four steps through `jit_train_step` (the eager step and
+    its capture, then three replays) against four eager `make_train_step`
+    steps from a copy of the same state: loss, learning rate and gradient
+    norm of every step and every state leaf within 2e-3; one capture and
+    three replays, each launching exactly the eager step's kernels (K2, or
+    K4 and its backward)."""
+    from repro_torch.core import step_graph, tree
+    from repro_torch.optim import init_state
+    from repro_torch.runtime.steps import jit_train_step, make_train_step
+
+    cfg, model, params, opt, batches = _train_run(arch)
+    state = init_state(params)
+    eager_state = tree.map_tree(torch.clone, state)
+    step = jit_train_step(model, opt)
+    eager = make_train_step(model, opt)
+    for batch in batches:
+        before = launch_counts()
+        eager_state, em = eager(eager_state, {k: v.to(cuda_device)
+                                              for k, v in batch.items()})
+        mid = launch_counts()
+        out, gm = step(state, batch)
+        after = launch_counts()
+        assert out is state
+        assert _moved(mid, after) == _moved(before, mid) != {}
+        for k in ("loss", "lr", "grad_norm"):
+            torch.testing.assert_close(gm[k], em[k], rtol=2e-3, atol=2e-3)
+    assert step.graph.captures == 1 and step.graph.replays == 3
+    assert step.graph.launches == _moved(before, mid)
+    st = step_graph.stats()["by_name"]["train_step"]
+    assert (st["captures"], st["replays"]) == (1, 3)
+    want = ({"moe_gmm": 9 * cfg.n_layers} if cfg.moe else
+            {"ssd_scan": cfg.n_layers, "ssd_scan_bwd": cfg.n_layers})
+    assert step.graph.launches == want
+    assert int(state["step"]) == int(eager_state["step"]) == 4
+    for (path, a), b in zip(tree.paths(state), tree.leaves(eager_state)):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3,
+                                   msg=lambda m: f"{path}: {m}")
+
+
+def test_train_resumes_through_a_new_capture_exactly(cuda_device, tmp_path):
+    """Reduced granite-moe through `train` on the card: six steps in one run
+    against three steps and their checkpoint, then a run that resumes
+    from it (restored tensors, new addresses: a new capture). The resumed
+    losses and the final checkpoint are bitwise the uninterrupted run's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import step_graph
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import train
+
+    cfg = get_config("granite-moe-1b-a400m").reduced().replace(
+        dtype="float32", param_dtype="float32")
+    kw = dict(steps=6, data_cfg=DataConfig(vocab=cfg.vocab, seq_len=32,
+                                           global_batch=4),
+              opt=AdamWConfig(lr=1e-3, total_steps=6, warmup_steps=1),
+              log_every=1, seed=3, device="cuda")
+    whole = train(build_model(cfg), ckpt_dir=tmp_path / "a", ckpt_every=100,
+                  **kw)
+    train(build_model(cfg), ckpt_dir=tmp_path / "b",
+          **{**kw, "steps": 3})
+    resumed = train(build_model(cfg), ckpt_dir=tmp_path / "b", **kw)
+    assert resumed.resumed_from == 3
+    assert {k: whole.losses[k] for k in (3, 4, 5)} == resumed.losses
+    st = step_graph.stats()["by_name"]["train_step"]
+    assert (st["captures"], st["replays"]) == (3, 5 + 2 + 2)
+    a = np.load(tmp_path / "a" / "step_00000006" / "arrays.npz")
+    b = np.load(tmp_path / "b" / "step_00000006" / "arrays.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for name in a.files:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+
+
+def test_train_step_without_donation_leaves_the_state(cuda_device):
+    """`donate=False`: three chained steps leave the caller's state as it
+    was and equal, bitwise, three donated steps on a copy; the step's own
+    state is captured once; a call with the caller's state again starts
+    from it."""
+    from repro_torch.core import tree
+    from repro_torch.optim import init_state
+    from repro_torch.runtime.steps import jit_train_step
+
+    _, model, params, opt, batches = _train_run("granite-moe-1b-a400m")
+    state = init_state(params)
+    kept = tree.map_tree(torch.clone, state)
+    donated = tree.map_tree(torch.clone, state)
+    step = jit_train_step(model, opt, donate=False)
+    twin = jit_train_step(model, opt)
+    out = state
+    for batch in batches[:3]:
+        out, m = step(out, batch)
+        loss = float(m["loss"])
+        donated, dm = twin(donated, batch)
+        assert loss == float(dm["loss"])
+    assert out is not state and int(out["step"]) == 3
+    for a, b in zip(tree.leaves(state), tree.leaves(kept)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree.leaves(out), tree.leaves(donated)):
+        assert torch.equal(a, b)
+    again, _ = step(state, batches[0])
+    assert again is out and int(again["step"]) == 1
+    assert step.graph.captures == 1 and step.graph.replays == 3
+
+
+def test_train_step_capture_skips_the_sentinel(cuda_device):
+    """Under the full sentinel the graph step's eager step checks each of
+    its guarded calls (K2's nine a layer); its capture and replays add no
+    parity check."""
+    from repro_torch.core import guard
+    from repro_torch.optim import init_state
+    from repro_torch.runtime.steps import jit_train_step
+
+    cfg, model, params, opt, batches = _train_run("granite-moe-1b-a400m")
+    guard.set_parity("full")
+    state = init_state(params)
+    step = jit_train_step(model, opt)
+    step(state, batches[0])                  # the eager step, then capture
+    checks = guard.stats()["parity_checks"]
+    assert checks == 9 * cfg.n_layers
+    for batch in batches[1:]:
+        step(state, batch)
+    torch.cuda.synchronize()
+    assert step.graph.replays == 3
+    assert guard.stats()["parity_checks"] == checks
+    assert guard.stats()["parity_mismatches"] == 0
