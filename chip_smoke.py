@@ -266,10 +266,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      three `jit_train_step` steps (the eager step and two replays): the
      losses, gradient norms and every leaf of params, mu and nu within
      2e-3, the largest difference printed;
- 12. `guard.stats()` on one JSON line, one JSON line describing every
-     kernel (nine: K4's backward has its own entry; K2's, K3's and K4's
-     launches by path, and K2's times at the training products and K3's
-     at the new families' shapes, among them), then the result line.
+ 12. serving on a device mesh, data 1 x model 2: two ranks (processes)
+     that share the card through gloo (NCCL refuses two ranks on one
+     device; gloo moves CUDA tensors through the host, so its walls are
+     not a mesh of cards'): (a) K3 with its lse against its plain version
+     at the per-shard shapes (yi-6b's and granite-moe's S 1056 split in
+     two), bf16 and f32, a shard fully live, partly and empty (out 0, lse
+     -inf), timed with and without the lse beside the bound, and K2 at
+     the mesh's per-rank granite-moe shapes (16 local experts; the
+     prefill's [16, 2560, 1024] capacity buffers, the decode's [1, 8,
+     1024] at expert stride 0) beside its plain version, torch.bmm and
+     the bound; (b) reduced f32 yi-6b and granite-moe served on the
+     card's mesh give the tokens of the same mesh on CPU ranks; (c) yi-6b
+     and granite-moe-1b-a400m served at full width on the card's mesh
+     (bf16, serving layout, batch 8, 1024 + 32, strict): every request
+     finishes, both ranks generate the same tokens and launch exactly K3
+     once a layer a decode step and K2 three times a MoE layer a prefill
+     or step (counts zeroed just before each serve), each rank holds half
+     the experts' and the KV caches' single-card bytes, and for each rank
+     the prefill seconds, per-step p50/p99, tok/s, peak memory and the
+     collectives' calls, bytes and share of the decode steps;
+ 13. `guard.stats()` on one JSON line, the mesh's record on one, one JSON
+     line describing every kernel (nine: K4's backward has its own entry;
+     K2's, K3's and K4's launches by path, and K2's times at the training
+     products and the mesh's shapes, and K3's at the new families' shapes
+     and with its lse at the mesh's shard shapes, among them), then the
+     result line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -292,6 +314,18 @@ prints its record as one JSON line.
 
 likewise times only the SSD scan (K4) at phase 6c's shape in bf16 and f32
 (each checked against its plain version) and prints one JSON line.
+
+    python3 chip_smoke.py --k3-time
+
+builds only K1's and K3's source and times K3 (without its lse) at phase
+6c's dense yi-6b shape, B 8 and B 1, for the package of the checkout the
+script sits in (copy it into another checkout to compare), and prints one
+JSON line.
+
+    python3 chip_smoke.py --mesh
+
+builds the kernels and runs only phase 12 (serving on the (1, 2) mesh,
+two gloo ranks sharing the card), then prints its record as one JSON line.
 
     python3 chip_smoke.py --dense-first-step
 
@@ -3855,6 +3889,320 @@ def ssd_bwd_entry(trained) -> dict:
     }
 
 
+# ----------------------------------------------------------------- phase 12
+
+# Serving on a device mesh: data 1 x model 2, two ranks (processes) that
+# share the one card through gloo, which NCCL refuses. Each rank holds half
+# the experts and half of every KV cache; gloo moves CUDA tensors through
+# the host, so the mesh's walls are a two-rank, one-card gloo figure, not
+# that of a mesh of cards.
+MESH_SHAPE = (1, 2)
+MESH_ARCHS = ("yi-6b", "granite-moe-1b-a400m")
+MESH_SERVE = dict(batch=8, prompt_len=1024, gen=32)
+MESH_REDUCED = dict(batch=4, prompt_len=16, gen=8)   # 24 cache rows: 2 x 12
+MESH_TIMEOUT_S = 480.0
+# K3 with its lse at the per-shard shapes of MESH_SERVE (S 1056 in two
+# shards of 528): (label, B, H, KH, D, S_l); and the local positions of a
+# shard fully live (shard 0 at pos 1040), partly (shard 1 at 1040) and
+# empty (shard 1 at an early pos, 100)
+MESH_K3_SHAPES = (("yi-6b shard", 8, 32, 4, 128, 528),
+                  ("granite-moe shard", 8, 16, 8, 64, 528))
+MESH_K3_POS = (("full", 1040), ("partly", 512), ("empty", -428))
+
+
+def time_flash_decode_lse(torch) -> dict:
+    """(a) K3 with its lse against its plain version at the mesh's
+    per-shard shapes, bf16 and f32, a shard fully live, partly and empty
+    (out 0, lse -inf), and its time with and without the lse (8 layers'
+    caches a batch, as phase 6c), beside the bound; at each shape's partly
+    live bf16 case also the plain version and SDPA (which gives no lse)
+    over the live rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    out = {}
+    for label, b, h, kh, d, s in MESH_K3_SHAPES:
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            layers = [tuple(torch.randn(*shape, generator=gen, device="cuda")
+                            .to(dt) for shape in ((b, h, d), (b, s, kh, d),
+                                                  (b, s, kh, d)))
+                      for _ in range(8)]
+            for state, pos in MESH_K3_POS:
+                dev_pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                args = [(*a, dev_pos) for a in layers]
+                (o, lse), run = path_launch(da.flash_decode, *args[0],
+                                            return_lse=True)
+                want, want_lse = da.flash_decode_plain(*args[0],
+                                                       return_lse=True)
+                name = f"flash_decode with lse {label} {state} {dtype_name}"
+                if state == "empty":
+                    if o.any() or not bool((lse == float("-inf")).all()):
+                        raise AssertionError(f"{name}: wanted out 0, lse "
+                                             f"-inf")
+                    err = 0.0
+                    log(f"parity {name}: out 0, lse -inf ok")
+                else:
+                    err = _close(name, o, want, *DECODE_TOL[dtype_name])
+                    _close(f"{name} (lse)", lse, want_lse,
+                           *DECODE_TOL[dtype_name])
+                if not torch.equal(o, da.flash_decode(*args[0])):
+                    raise AssertionError(f"{name}: out differs without lse")
+                with_lse = [(path_launch(da.flash_decode, *a,
+                                         return_lse=True)[1],) for a in args]
+                without = [(path_launch(da.flash_decode, *a)[1],)
+                           for a in args]
+                t = {"ms": median_ms(torch, run_thunk, with_lse),
+                     "ms_without_lse": median_ms(torch, run_thunk, without)}
+                live = max(0, min(pos + 1, s))
+                bound_ms, bound_by, _, _ = flash_decode_bound(
+                    b, h, kh, d, live - 1) if live else (
+                        2 * b * h * d * 2 / HBM_BW * 1e3, "bytes", 0, 0)
+                t.update(max_abs_err=err, bound_ms=bound_ms,
+                         bound_by=bound_by, plain_ms=None, library_ms=None)
+                if state == "partly" and dtype_name == "bfloat16":
+                    t["plain_ms"] = median_ms(
+                        torch, lambda *a: da.flash_decode_plain(
+                            *a, return_lse=True), args)
+                    sliced = [(q[:, :, None], k[:, :live].transpose(1, 2),
+                               v[:, :live].transpose(1, 2))
+                              for q, k, v in layers]
+                    t["library_ms"] = median_ms(
+                        torch, lambda q, k, v: F.scaled_dot_product_attention(
+                            q, k, v, enable_gqa=True), sliced)
+                t["shape"] = {"B": b, "H": h, "KH": kh, "D": d, "S": s,
+                              "pos": pos, "dtype": dtype_name}
+                log(f"times {name} {json.dumps(t['shape'])}: with lse "
+                    f"{t['ms']:.6f} ms, without {t['ms_without_lse']:.6f} ms"
+                    f", plain {t['plain_ms']}, sdpa {t['library_ms']}, bound "
+                    f"{bound_ms:.7f} ms ({bound_by})")
+                out[f"{label} {state} {dtype_name}"] = t
+                del with_lse, without, run, o, lse
+    return out
+
+
+def time_gmm_mesh(torch) -> dict:
+    """K2 at the mesh's per-rank granite-moe shapes (16 local experts of
+    32): the prefill's capacity buffers [16, n C = 2560, dm] (4096 local
+    tokens, C 1280) and the decode's [1, 8, dm] at expert stride 0, gate/up
+    and down: the kernel against its plain version, and its time beside
+    the plain version's, torch.bmm's and the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.models import moe as moe_mod
+
+    cfg = get_config("granite-moe-1b-a400m")
+    e_l = cfg.n_experts // MESH_SHAPE[1]
+    tokens = MESH_SERVE["batch"] * MESH_SERVE["prompt_len"] // MESH_SHAPE[1]
+    c = moe_mod._capacity(tokens, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    out = {}
+    for phase, rows, shared in (("prefill", MESH_SHAPE[1] * c, False),
+                                ("decode", MESH_SERVE["batch"], True)):
+        for proj, dm, f in (("gate/up", cfg.d_model, cfg.d_ff_expert),
+                            ("down", cfg.d_ff_expert, cfg.d_model)):
+            args = [gmm_operands(torch, gen, e_l, rows, dm, f,
+                                 shared and proj == "gate/up",
+                                 torch.bfloat16) for _ in range(2)]
+            got, run = path_launch(mg.gmm, *args[0])
+            err = _close(f"moe_gmm mesh {phase} {proj}", got,
+                         mg.gmm_plain(*args[0]), TOL["bfloat16"],
+                         TOL["bfloat16"])
+            launches = [(run,), (path_launch(mg.gmm, *args[1])[1],)]
+            kernel_a = median_ms(torch, run_thunk, launches)
+            plain_ms = median_ms(torch, mg.gmm_plain, args)
+            library_ms = median_ms(torch, torch.bmm, args)
+            kernel_b = median_ms(torch, run_thunk, launches)
+            bound_ms, bound_by = gmm_bound(e_l, rows, dm, f,
+                                           shared=shared and proj == "gate/up")
+            # where the reference's FFN would reach its Pallas kernel: its
+            # token block as it passes it ([1, T, d] in decode), its weights
+            meta = lambda *shape: torch.empty(shape, device="meta")  # noqa
+            xs = meta(e_l, rows, cfg.d_model) if phase == "prefill" else \
+                meta(1, rows, cfg.d_model)
+            wg = meta(e_l, cfg.d_model, cfg.d_ff_expert)
+            shape = {"E": e_l, "C": rows, "dm": dm, "f": f,
+                     "shared": shared and proj == "gate/up",
+                     "dtype": "bfloat16",
+                     "reference_gmm": moe_mod._gmm_eligible(
+                         xs, wg, wg, meta(e_l, cfg.d_ff_expert,
+                                          cfg.d_model))}
+            log(f"times moe_gmm mesh {phase} {proj} {json.dumps(shape)}: "
+                f"kernel {kernel_a:.4f}/{kernel_b:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by})")
+            out[f"mesh {phase} {proj}"] = {
+                "max_abs_err": err, "ms": statistics.median([kernel_a,
+                                                             kernel_b]),
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape}
+            del args, got, run, launches
+    return out
+
+
+def mesh_rank(ctx, reduced_only: bool = False) -> dict:
+    """One rank of phase 12 (spawned; `ctx` its running mesh): reduced f32
+    yi-6b and granite-moe, then (unless `reduced_only`) each at full width
+    in the serving layout under strict mode, every `serve` with the launch
+    counts zeroed just before it and read just after."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    def to_device(tree):
+        return {k: (to_device(v) if isinstance(v, dict) else
+                    v.to(ctx.device)) for k, v in tree.items()}
+
+    out = {}
+    for arch in MESH_ARCHS:
+        cfg = get_config(arch).reduced().replace(dtype="float32",
+                                                 param_dtype="float32")
+        # drawn on the CPU (a CUDA generator draws other numbers), this
+        # rank's shard moved to its device: the same weights on both meshes
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        params = to_device(build_model(cfg, ctx).init(gen, "cpu"))
+        reset_launch_counts()
+        stats = serve(cfg, ctx=ctx, device=ctx.device.type, params=params,
+                      **MESH_REDUCED)
+        out[f"{arch} reduced"] = {"stats": stats, "counts": launch_counts()}
+    if reduced_only:
+        return out
+    for arch in MESH_ARCHS:
+        reset_launch_counts()
+        stats = serve(get_config(arch), ctx=ctx, device="cuda",
+                      layout="serving", strict=True, **MESH_SERVE)
+        out[arch] = {"stats": stats, "counts": launch_counts()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_full_bytes(arch: str) -> dict:
+    """What one card serving MESH_SERVE holds of `arch`'s experts and KV
+    caches (bf16), from its config."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    s = MESH_SERVE["prompt_len"] + MESH_SERVE["gen"]
+    kv = 2 * cfg.n_layers * MESH_SERVE["batch"] * s * cfg.kv_heads \
+        * cfg.resolved_head_dim * 2
+    experts = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model \
+        * cfg.d_ff_expert * 2 if cfg.moe else 0
+    return {"experts": experts, "kv_cache": kv}
+
+
+def mesh_launches(cfg, kw: dict) -> dict:
+    """Each rank's launches of one mesh `serve`: K3 once a layer a decode
+    step, K2 three times a MoE layer in the prefill and in each step."""
+    want = {"flash_decode": cfg.n_layers * (kw["gen"] - 1)}
+    if cfg.moe:
+        want["moe_gmm"] = 3 * cfg.n_layers * kw["gen"]
+    return want
+
+
+def check_mesh_run(arch: str, ranks, kw: dict, *, full: bool) -> None:
+    """Every request finished, every rank generated the same tokens, each
+    rank launched what `mesh_launches` wants and nothing else, and at full
+    width holds half the experts' and the KV caches' single-card bytes."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch) if full else get_config(arch).reduced()
+    want = {name: 0 for name in ranks[0]["counts"]}
+    want.update(mesh_launches(cfg, kw))
+    for r, run in enumerate(ranks):
+        st = run["stats"]
+        if tuple(st["generated_shape"]) != (kw["batch"], kw["gen"]) or \
+                st["generated"] != ranks[0]["stats"]["generated"]:
+            raise AssertionError(f"mesh {arch} rank {r}: generated "
+                                 f"{st['generated_shape']}, or tokens that "
+                                 f"differ from rank 0's")
+        if run["counts"] != want:
+            raise AssertionError(f"mesh {arch} rank {r}: launches "
+                                 f"{run['counts']}, want {want}")
+        if full:
+            single = mesh_full_bytes(arch)
+            for key, whole in single.items():
+                if st["held_bytes"][key] * MESH_SHAPE[1] != whole:
+                    raise AssertionError(
+                        f"mesh {arch} rank {r}: holds {st['held_bytes'][key]}"
+                        f" B of {key}, one card {whole}")
+
+
+def mesh_phase(torch) -> dict:
+    """Phase 12: (a) K3 with its lse, and K2, at the mesh's per-shard
+    shapes; (b) reduced f32 yi-6b and granite-moe served on the card's
+    (1, 2) mesh give the tokens of the same mesh on CPU ranks; (c) yi-6b
+    and granite-moe-1b-a400m served at full width on the card's mesh
+    (bf16, serving layout, batch 8, 1024 + 32): every request finishes,
+    each rank holds half the experts and half the KV caches, and for each
+    rank the prefill seconds, per-step p50/p99, tok/s, peak memory and the
+    collectives' share of the decode steps."""
+    import functools
+    import gc
+
+    from repro_torch.launch.mesh import spawn
+
+    lse = time_flash_decode_lse(torch)
+    gmm = time_gmm_mesh(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card = spawn(mesh_rank, MESH_SHAPE, device="cuda", backend="gloo",
+                 timeout_s=MESH_TIMEOUT_S)
+    t_card = time.perf_counter() - t0
+    cpu = spawn(functools.partial(mesh_rank, reduced_only=True), MESH_SHAPE,
+                device="cpu", backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    log(f"mesh {MESH_SHAPE}: gloo ranks on the card ran in {t_card:.1f} s, "
+        f"on the CPU in {time.perf_counter() - t0 - t_card:.1f} s")
+    runs = {}
+    for arch in MESH_ARCHS:
+        key = f"{arch} reduced"
+        check_mesh_run(arch, [c[key] for c in card], MESH_REDUCED,
+                       full=False)
+        got = card[0][key]["stats"]["generated"]
+        want = cpu[0][key]["stats"]["generated"]
+        if got != want:
+            raise AssertionError(f"mesh {key}: card tokens {got} != CPU "
+                                 f"tokens {want}")
+        log(f"mesh {key} f32 tokens card == cpu on {MESH_SHAPE}: {got[0]}")
+    for arch in MESH_ARCHS:
+        ranks = [c[arch] for c in card]
+        check_mesh_run(arch, ranks, MESH_SERVE, full=True)
+        per_rank = []
+        for r, run in enumerate(ranks):
+            st = run["stats"]
+            coll = st["collectives"]
+            shown = {k: st[k] for k in (
+                "prefill_s", "decode_s", "p50_ms", "p99_ms",
+                "decode_tok_per_s", "max_memory_allocated_gb",
+                "decode_captures", "held_bytes", "kv_len")}
+            shown["collectives"] = dict(coll, share_of_decode=coll["s"] / max(
+                st["decode_s"], 1e-9))
+            shown["launches"] = {k: v for k, v in run["counts"].items() if v}
+            shown["substrate"] = {k: st["substrate"][k] for k in (
+                "strict", "guarded_calls", "backoffs", "numerics_faults")}
+            per_rank.append(shown)
+            log(f"serve mesh {arch} full width {json.dumps(MESH_SERVE)} rank "
+                f"{r} of {MESH_SHAPE} (gloo, one card): {json.dumps(shown)}")
+        log(f"mesh {arch}: each rank holds {per_rank[0]['held_bytes']} of "
+            f"one card's {mesh_full_bytes(arch)} (experts, KV caches)")
+        runs[arch] = {"ranks": per_rank, "mesh": ranks[0]["stats"]["mesh"],
+                      "sample_tokens": ranks[0]["stats"]["sample_tokens"]}
+    return {"flash_decode_lse": lse, "gmm": gmm, "serve": runs,
+            "launches": {arch: [c[arch]["counts"] for c in card]
+                         for arch in MESH_ARCHS}}
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -3882,6 +4230,27 @@ def main() -> int:
         build_kernels()
         run = train_phase(torch)
         print(json.dumps({"train": run}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--k3-time"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_info(torch)
+        from repro_torch.core import guard
+        from repro_torch.kernels import build
+        from repro_torch.kernels.decode_attention import decode_attention as da
+        build.build([da.FLASH_SOURCE])
+        guard.set_parity("off")
+        print(json.dumps({"k3": {
+            f"B={b}": time_flash_decode(torch, b, 32, 4, 128, 1056, 1040, 32)
+            for b in (8, 1)}}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card_info(torch)
+        build_kernels()
+        from repro_torch.core import guard
+        guard.set_parity("off")
+        print(json.dumps({"mesh": mesh_phase(torch)}), flush=True)
         return 0
     if sys.argv[1:] == ["--ssd-time"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4016,6 +4385,11 @@ def main() -> int:
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     trained = train_phase(torch)
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    guard.set_parity("off")
+    meshed = mesh_phase(torch)
+    log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{
@@ -4042,7 +4416,10 @@ def main() -> int:
         "launches": dense_counts["flash_decode"],
         "launches_by_path": {"yi-6b": dense_counts["flash_decode"], **{
             arch: family[arch]["counts"]["flash_decode"]
-            for arch in FAMILY_ARCHS}},
+            for arch in FAMILY_ARCHS}, **{
+            f"mesh {arch} rank {r}": c["flash_decode"]
+            for arch, ranks in meshed["launches"].items()
+            for r, c in enumerate(ranks)}},
         "parity": "ok",
         **{k: fd_timing[k] for k in keys},
         "splits": fd_timing["splits"],
@@ -4050,7 +4427,9 @@ def main() -> int:
         "at_other_shapes": {"B=1": {k: fd_b1[k] for k in
                                     keys + ("splits", "shape")}, **{
             label: {k: t[k] for k in keys + ("splits", "shape")}
-            for label, t in fd_family.items()}},
+            for label, t in fd_family.items()}, **{
+            f"with lse, {label}": t
+            for label, t in meshed["flash_decode_lse"].items()}},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -4081,14 +4460,17 @@ def main() -> int:
         "launches": moe_counts["moe_gmm"],
         "launches_by_path": {
             MOE_ARCH: moe_counts["moe_gmm"],
-            f"{TRAIN_ARCH} train": trained["launches"]["moe_gmm"]},
+            f"{TRAIN_ARCH} train": trained["launches"]["moe_gmm"],
+            **{f"mesh {TRAIN_ARCH} rank {r}": c["moe_gmm"]
+               for r, c in enumerate(meshed["launches"][TRAIN_ARCH])}},
         "launches_a_train_step": trained["launches_a_step"]["moe_gmm"],
         "parity": "ok",
         **{k: gmm_times["decode gate/up"][k] for k in keys},
         "shape": gmm_times["decode gate/up"]["shape"],
         "at_other_shapes": {name: {k: t[k] for k in keys + ("shape",)}
                             for name, t in {**gmm_times,
-                                            **trained["gmm_times"]}.items()
+                                            **trained["gmm_times"],
+                                            **meshed["gmm"]}.items()
                             if name != "decode gate/up"},
     }, ssd_bwd_entry(trained)]
     for name, source, replaces in GUPS_KERNELS:
@@ -4108,6 +4490,8 @@ def main() -> int:
     print(json.dumps({"train": {k: v for k, v in trained.items()
                                 if not k.endswith("_times")}}), flush=True)
     print(json.dumps({"substrate": guard.stats()}), flush=True)
+    print(json.dumps({"mesh": {k: meshed[k] for k in ("serve", "launches")}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

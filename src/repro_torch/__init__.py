@@ -14,9 +14,9 @@ def reset() -> None:
     ``REPRO_MACHINE``), the tracer and metrics registry (from
     ``REPRO_TELEMETRY``), the guard (its counters and ladders, strict mode
     off, the sentinel from ``REPRO_PARITY``, no injector), the kernels'
-    launch counts and the step graphs' capture and replay counts. Tests
-    call this between cases."""
-    from repro_torch import obs
+    launch counts, the step graphs' capture and replay counts and the
+    collectives' counts. Tests call this between cases."""
+    from repro_torch import obs, sharding
     from repro_torch.core import autotune, guard, step_graph
     from repro_torch.core.machine import set_machine
     from repro_torch.kernels import reset_launch_counts
@@ -27,6 +27,7 @@ def reset() -> None:
     guard.reset()
     reset_launch_counts()
     step_graph.reset()
+    sharding.reset_collective_stats()
 
 
 __all__ = ["reset"]

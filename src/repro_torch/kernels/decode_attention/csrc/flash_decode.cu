@@ -68,6 +68,13 @@
 //     its four warps through shared memory once, after its last tile, with
 //     each head's warp weights computed once and the scratch rows padded
 //     off a single bank.
+// K3 may also write each head's log-sum-exp of its scaled scores over the
+// live keys, lse = m + log(l) in the natural log (m back from the log2
+// domain), as f32 [B, H]: -inf, with an output of 0, for a head with no
+// live key. The one split writes it beside its output, the merge kernel
+// beside the merged one. A sequence-sharded decode runs K3 on each shard
+// of the cache and merges the shards' (o, lse) (models/common.py:
+// _decode_core); K1 passes no lse and writes none.
 // Every K/V row address comes from one device function, the kernel's row
 // function: DenseRows for the dense cache, PagedRows for the block table.
 // The page size is any positive integer, independent of `blk`: each row is
@@ -105,6 +112,7 @@ constexpr int kMaxGroup = 32;  // query heads per KV head this kernel takes
 constexpr int kMaxGroupWide = 16;  // ... at head dim 256 (one bf16 M tile)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kAccPad = 8;  // floats after each head row of the merge scratch
 
 // Dynamic shared memory: the paged row function's slice of the block table
@@ -434,6 +442,12 @@ struct WarpOf<__nv_bfloat16, D, GP> {
   using type = MmaWarp<D, GP / 16>;
 };
 
+// A head's log-sum-exp from its max score M (log2 domain) and its sum L of
+// exp2(score - M): -inf when no key is live (L = 0).
+__device__ __forceinline__ float head_lse(float M, float L) {
+  return L > 0.f ? (M + log2f(L)) * kLn2 : __int_as_float(0xff800000);
+}
+
 // The f32 partials of B * KH * n_split (b, kh, split) rows: acc [rows][G][D],
 // then m [rows][G], then l [rows][G].
 template <typename F>
@@ -450,7 +464,8 @@ template <typename T, int D, int GP, typename Rows>
 __global__ void __launch_bounds__(kThreads)
     flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                        const T* __restrict__ v_cache, T* __restrict__ out,
-                       float* __restrict__ part, Rows layout, int H, int KH, int blk,
+                       float* __restrict__ lse, float* __restrict__ part, Rows layout,
+                       int H, int KH, int blk,
                        int tiles_per_split, int depth, float scale_log2) {
   using Warp = typename WarpOf<T, D, GP>::type;
   constexpr int kStride = Warp::kStride;
@@ -563,6 +578,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     sm_l[tid] = L;
     sm_l[kWP + tid] = M;
+    if (lse != nullptr && n_split == 1) lse[static_cast<int64_t>(bkh) * G + tid] = head_lse(M, L);
   }
   __syncthreads();
   const Partials<float> pt(part, gridDim.x * n_split, G, D);
@@ -598,7 +614,8 @@ __global__ void __launch_bounds__(kThreads)
 // head dim 256.
 template <typename T, int kMaxD>
 __global__ void __launch_bounds__(kMaxD)
-    flash_merge_kernel(const float* __restrict__ part, T* __restrict__ out, int n_split) {
+    flash_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
+                       float* __restrict__ lse, int n_split) {
   const int bkh = blockIdx.x, h = blockIdx.y, G = gridDim.y;
   const int d = threadIdx.x, D = blockDim.x;
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the split pass is done
@@ -616,11 +633,13 @@ __global__ void __launch_bounds__(kMaxD)
     A += pt.acc[((first + i) * G + h) * D + d] * w;
   }
   out[(static_cast<int64_t>(bkh) * G + h) * D + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
+  if (lse != nullptr && d == 0) lse[static_cast<int64_t>(bkh) * G + h] = head_lse(M, L);
 }
 
 struct Args {
   const void *q, *k, *v;
   void* out;
+  float* lse;  // K3's optional [B, H] log-sum-exp; null for K1
   float* part;
   int B, H, KH, blk, n_split, tiles_per_split, depth;
   float scale_log2;
@@ -658,12 +677,13 @@ cudaError_t launch(const Args& a, const Rows& rows, int slots) {
   if (err != cudaSuccess) return err;
   err = launch_pdl(kernel, dim3(a.B * a.KH, a.n_split), kThreads, smem, a.stream,
                    static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                   static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part, rows, a.H, a.KH,
+                   static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.part, rows, a.H,
+                   a.KH,
                    a.blk, a.tiles_per_split, a.depth, a.scale_log2);
   if (err != cudaSuccess || a.n_split == 1) return err;
   return launch_pdl(flash_merge_kernel<T, (D > 128 ? 256 : 128)>, dim3(a.B * a.KH, a.H / a.KH),
                     D, 0, a.stream,
-                    static_cast<const float*>(a.part), static_cast<T*>(a.out), a.n_split);
+                    static_cast<const float*>(a.part), static_cast<T*>(a.out), a.lse, a.n_split);
 }
 
 // G padded: to 16 or 32 query heads (M tiles) in bf16, a power of two in f32.
@@ -754,16 +774,19 @@ int table_slots(int M, int page, int blk, int tiles_per_split) {
 // K3: caches [B, S, KH, D]. `pos` points to one int32 on the device: the
 // last key position attended (keys at or past S do not exist: min(pos + 1,
 // S) rows are live; none when it is negative, and the output is then 0). It
-// is not read on the host, as K1's lengths are not.
+// is not read on the host, as K1's lengths are not. `lse`, when not null,
+// receives each head's f32 log-sum-exp, [B, H].
 extern "C" int repro_flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                                  void* out, void* part, const void* pos, int B, int H, int KH,
+                                  void* out, void* lse, void* part, const void* pos, int B,
+                                  int H, int KH,
                                   int D, int S, int blk, int n_split, int tiles_per_split,
                                   int depth, float scale, int dtype, void* stream) {
   if (S < 1 || !pos || bad_launch(B, H, KH, blk, depth, n_split, tiles_per_split, S, part)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k_cache, v_cache, out, static_cast<float*>(part), B, H, KH, blk,
-               n_split, tiles_per_split, depth, scale * kLog2e, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k_cache, v_cache, out, static_cast<float*>(lse), static_cast<float*>(part),
+               B, H, KH, blk, n_split, tiles_per_split, depth, scale * kLog2e,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, a, DenseRows{static_cast<const int*>(pos), S, KH, D}, 0);
 }
 
@@ -784,7 +807,7 @@ extern "C" int repro_paged_flash_decode(const void* q, const void* k_pool, const
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int slots = table_slots(M, page, blk, tiles_per_split);
-  const Args a{q, k_pool, v_pool, out, static_cast<float*>(part), B, H, KH, blk,
+  const Args a{q, k_pool, v_pool, out, nullptr, static_cast<float*>(part), B, H, KH, blk,
                n_split, tiles_per_split, depth, scale * kLog2e, static_cast<cudaStream_t>(stream)};
   const PagedRows paged{static_cast<const int*>(block_tables), static_cast<const int*>(lengths),
                         M, page, KH, D, slots, nullptr, 0};

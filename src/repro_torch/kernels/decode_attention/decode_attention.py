@@ -134,26 +134,51 @@ def paged_decode_spec(blk: int, kh: int, g: int, d: int, dtype,
 # ------------------------------------------------------------ plain versions
 
 
-def flash_decode_plain(q, k_cache, v_cache, pos):
+def flash_decode_plain(q, k_cache, v_cache, pos, return_lse: bool = False):
     """The dense kernel's function in plain PyTorch, with the same f32
     arithmetic (a one-pass softmax in place of the online one: equal up to
     rounding).
 
     q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: the last key
-    position attended (every key when pos >= S - 1), an int or a one-element
-    integer tensor, never read on the host. Returns [B, H, D] in q's
-    type."""
+    position attended (every key when pos >= S - 1; none when it is
+    negative, and the output is then 0), an int or a one-element integer
+    tensor, never read on the host. Returns [B, H, D] in q's type, and with
+    `return_lse` also each head's f32 log-sum-exp of its scaled scores over
+    the live keys, [B, H] (-inf where none is live)."""
     b, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     qv = q.float().reshape(b, kh, h // kh, d) * (d ** -0.5)
     sc = torch.einsum("bkgd,bskd->bkgs", qv, k_cache.float())
     valid = torch.arange(s, device=q.device) <= pos
     sc = sc.masked_fill(~valid, NEG_INF)
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m).masked_fill(~valid, 0.0)
     l = p.sum(dim=-1)
     acc = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(b, h, d).to(q.dtype)
+    out = (acc / l.clamp_min(1e-30)[..., None]).reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l),
+                      torch.full_like(l, float("-inf")))
+    return out, lse.reshape(b, h)
+
+
+def _finite_lse(out):
+    """(o, lse) with lse's -inf (a head with no live key) as NEG_INF: what
+    the guard's scan and sentinel read of a call that returns its lse (a
+    NaN stays NaN)."""
+    o, lse = out
+    return o, torch.where(lse == float("-inf"), torch.full_like(lse, NEG_INF),
+                          lse)
+
+
+def _plain_with_lse(q, k_cache, v_cache, pos):
+    return flash_decode_plain(q, k_cache, v_cache, pos, return_lse=True)
+
+
+def _finite_plain_lse(q, k_cache, v_cache, pos):
+    """The sentinel's reference of a call that returns its lse."""
+    return _finite_lse(_plain_with_lse(q, k_cache, v_cache, pos))
 
 
 def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, lengths):
@@ -185,7 +210,7 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, lengths):
 
 # ------------------------------------------------ the kernel's host side
 
-_FLASH_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _PAGED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -276,12 +301,17 @@ def _check_cuda(q, k, v, blk: int, names=("k_cache", "v_cache")) -> None:
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
-                 depth: Optional[int] = None, splits: Optional[int] = None):
+                 depth: Optional[int] = None, splits: Optional[int] = None,
+                 return_lse: bool = False):
     """Flash-decode over a dense KV cache at one scalar position.
 
     q: [B, H, D]; k_cache/v_cache: [B, S, KH, D]; pos: the last key
     position attended — every position <= pos (all S when pos >= S). S
-    need not be a multiple of `blk`. Returns [B, H, D] in q's type.
+    need not be a multiple of `blk`. Returns [B, H, D] in q's type; with
+    `return_lse`, (out, lse): lse [B, H] f32, each head's log-sum-exp of
+    its scaled scores over the live keys, -inf (and out 0) where no key is
+    live. A sequence-sharded decode merges its shards' (out, lse)
+    (`models.common._decode_core`).
 
     `pos` is a Python int >= 0, or a one-element int32 tensor on q's
     device, which the kernel reads on the device, as the reference's Pallas
@@ -323,11 +353,17 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
                                itemsize=k_cache.element_size(), n_tiles=live)
     if on_card:
         _check_cuda(q, k_cache, v_cache, blk)
+    if return_lse:   # the scan and the sentinel read lse's -inf as finite
+        extra = dict(reference=_finite_plain_lse, written=_finite_lse)
+        plain = _plain_with_lse
+    else:
+        extra, plain = {}, flash_decode_plain
     res = ring.guarded(
         spec, (q, k_cache, v_cache, pos),
         lambda k: flash_decode_at(q, k_cache, v_cache, pos, blk=blk,
-                                  depth=k, splits=n_split),
-        flash_decode_plain, cuda=on_card, depth=depth)
+                                  depth=k, splits=n_split,
+                                  return_lse=return_lse),
+        plain, cuda=on_card, depth=depth, **extra)
     autotune.record_choice(spec.name, res.depth)
     return res.out
 
@@ -355,10 +391,12 @@ def _dense_args(q, k_cache, v_cache, pos, blk: int, splits):
 
 
 def flash_decode_at(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
-                    depth: int, splits: Optional[int] = None):
+                    depth: int, splits: Optional[int] = None,
+                    return_lse: bool = False):
     """`flash_decode` on CUDA tensors with `depth` tiles in flight per block
     and the sequence in `splits` splits (None: `split_plan`'s); no solve,
-    no record, no guard. Counts one launch."""
+    no record, no guard. Returns out, or (out, lse) with `return_lse`.
+    Counts one launch."""
     pos, on_card = _dense_args(q, k_cache, v_cache, pos, blk, splits)
     if not on_card:
         raise ValueError("flash_decode_at takes CUDA tensors")
@@ -371,8 +409,10 @@ def flash_decode_at(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     g = h // kh
     n_split, per = split_plan(b, kh, s, blk, ring.sm_count(q.device), splits)
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     part = torch.empty(b * kh * n_split * g * (d + 2), dtype=torch.float32,
                        device=q.device) if n_split > 1 else None
     if not isinstance(pos, torch.Tensor):   # the kernel reads it on the card
@@ -382,13 +422,14 @@ def flash_decode_at(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if part is None else part.data_ptr(),
             pos.data_ptr(), b, h, kh, d, s, blk, n_split, per, depth,
             float(d ** -0.5), ring.DTYPE_CODE[q.dtype], stream)
     ring.raise_on_error(err, lib, kernel="flash_decode", depth=depth,
                         tile=(blk, d))
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

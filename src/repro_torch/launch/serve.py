@@ -21,6 +21,14 @@ Two engines, as in the reference package:
 
 Prefill runs eagerly in both.
 
+The dense engine also serves on a device mesh (`serve(..., ctx=...)` on
+every rank of `launch.mesh.spawn`, or `serve_on_mesh`): each rank takes
+its `data` slice of the batch, holds its `model` share of the experts and
+of the sequence-split KV caches, and runs the same prefill and decode
+steps with the MoE expert-parallel and the decode attention merged over
+`model`. Its decode steps run eagerly: collectives over gloo cannot be
+captured in a CUDA graph.
+
 Both report decode tok/s and per-token p50/p99 (the paged engine also
 TTFT/TBT, prefix-cache and failure accounting) plus every request's
 generated tokens. They run on the GPU unless asked for the CPU:
@@ -38,13 +46,18 @@ generated tokens. They run on the GPU unless asked for the CPU:
   python -m repro_torch.launch.serve --arch mamba2-130m --reduced --device cpu
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \\
       --engine paged --device cpu
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \\
+      --device cpu --mesh 1x2
+  python -m repro_torch.launch.serve --arch yi-6b --layout serving \\
+      --batch 8 --prompt-len 1024 --gen 32 --mesh 1x2 --backend gloo
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,10 +69,17 @@ from repro_torch.core.step_graph import StepGraph
 from repro_torch.models.params import torch_dtype
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import latency_report
+from repro_torch.runtime.layouts import serving_config_overrides
+from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
 
-# ArchConfig override of the serving layout: weights stored in bf16
-# (compute stays cfg.dtype, bf16 for every shipped arch).
-SERVING_OVERRIDES: Dict[str, Any] = {"param_dtype": "bfloat16"}
+# ArchConfig overrides of the serving layout: weights stored in bf16
+# (compute stays cfg.dtype, bf16 for every shipped arch) and the
+# row-granular KV write of the sequence-split decode.
+SERVING_OVERRIDES: Dict[str, Any] = serving_config_overrides()
+
+MESH_PAGED_REFUSED = ("the paged engine on a device mesh is not ported yet: "
+                      "ROADMAP Queue 1, item 3d (serve a mesh with "
+                      "engine=\"dense\")")
 
 
 def make_prompts(cfg, batch: int, prompt_len: int, rng, device):
@@ -147,7 +167,8 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           num_blocks: Optional[int] = None, prefix_cache: bool = True,
           prefill_chunk: int = 32, deadline_s: Optional[float] = None,
           chaos: Optional[int] = None, device=None, params=None,
-          max_in_flight: Optional[int] = None, strict: bool = False):
+          max_in_flight: Optional[int] = None, strict: bool = False,
+          ctx: ShardingCtx = NULL_CTX, layout: str = "default"):
     """Serve `batch` prompts of `prompt_len` tokens, `gen` new tokens each.
 
     engine="dense" (the default): one prefill of the whole batch into
@@ -156,13 +177,31 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     (RuntimeError where there is none); `params` None draws random weights
     from `seed` on that device. The prompts are the reference package's
     for the same seed. `strict` turns on the guard's strict mode
-    (`core.guard.set_strict`) for the rest of the process."""
+    (`core.guard.set_strict`) for the rest of the process. `layout`
+    "serving" applies `SERVING_OVERRIDES` to `cfg`.
+
+    With a `ctx` whose mesh runs (each rank of `launch.mesh.spawn` calls
+    this), the dense engine serves on the mesh (`_serve_mesh`): `device`
+    must name the ranks' device type (None: the GPU), and `params`, when
+    given, are this rank's. The paged engine raises NotImplementedError
+    there."""
     from repro_torch.models import build_model
     from repro_torch.serve.engine import resolve_device
 
     if strict:
         # no degradation: a substrate fault raises its typed error
         guard.set_strict(True)
+    if layout == "serving":
+        cfg = cfg.replace(**SERVING_OVERRIDES)
+    elif layout != "default":
+        raise ValueError(f"unknown layout {layout!r} (default or serving)")
+    if ctx.mesh is not None:
+        if engine != "dense":
+            raise NotImplementedError(MESH_PAGED_REFUSED)
+        if deadline_s is not None or chaos is not None:
+            raise ValueError("--deadline-s / --chaos need --engine paged")
+        return _serve_mesh(cfg, ctx, batch=batch, prompt_len=prompt_len,
+                           gen=gen, seed=seed, device=device, params=params)
     if engine == "paged":
         return serve_paged(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
                            seed=seed, block_size=block_size,
@@ -216,12 +255,145 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     return stats
 
 
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
+
+
+def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
+                gen: int, seed: int, device, params):
+    """The dense engine on one rank of a running mesh: this rank's `data`
+    slice of the reference's prompts for `seed`, the model's prefill and
+    ``gen - 1`` eager decode steps under `ctx`, then every rank's tokens
+    gathered over the batch axes. Returns the stats of `serve` (the whole
+    batch's tokens under "generated", the same on every rank) with
+    ``"decode_captures": 0``, the mesh, the bytes this rank holds (its
+    parameters, its experts, its KV caches), its peak memory, and the
+    collectives' calls, bytes and seconds in the decode steps (timed sync
+    to sync: `sharding.collective_stats`)."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != ctx.device.type:
+        raise ValueError(f"the mesh's ranks run on {ctx.device.type}, "
+                         f"asked for {dev}")
+    dev = ctx.device
+    batch_axes = ctx.resolved_rules()["batch"]
+    batch_axes = (batch_axes,) if isinstance(batch_axes, str) \
+        else tuple(batch_axes or ())
+    n_batch = ctx.axis_size(batch_axes or None)
+    if batch % n_batch:
+        raise ValueError(f"batch {batch} does not split over the mesh's "
+                         f"{n_batch} data ranks")
+    model = build_model(cfg, ctx)
+    if params is None:
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(seed))
+        params = model.init(g, dev)
+    rng = np.random.default_rng(seed)
+    prompts, text_len = make_prompts(cfg, batch, prompt_len, rng, dev)
+    spec = ctx.spec(("batch",), (batch,))
+    prompts = {k: local_shard(v, spec, ctx) for k, v in prompts.items()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(params, prompts, pad_to=text_len + gen)
+    tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_prefill = time.perf_counter() - t0
+
+    sharding.reset_collective_stats(timed=True)
+    out, tokens, lat = timed_decode_loop(
+        model.decode_step, params, cache, tokens, steps=gen - 1,
+        make_batch=lambda tokens, i: {"tokens": tokens})
+    coll = sharding.collective_stats()
+    sharding.reset_collective_stats()
+    t_decode = sum(lat)
+    generated = torch.cat(out, dim=1)
+    for axis in reversed(batch_axes):
+        generated = ctx.all_gather(generated, axis, dim=0)
+    generated = generated.cpu()
+    layers, moe = cache["layers"], params["layers"].get("moe", {})
+    stats = {
+        "engine": "dense",
+        "machine": get_machine().name,
+        "device": str(dev),
+        "mesh": {"axes": list(ctx.mesh.axis_names),
+                 "shape": list(ctx.mesh.shape),
+                 "coordinate": list(ctx.mesh.coordinate),
+                 "rank": dist.get_rank(), "backend": dist.get_backend()},
+        "generated_shape": tuple(generated.shape),
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+        "decode_captures": 0,
+        "held_bytes": {
+            "params": _tensor_bytes(params),
+            "experts": sum(_tensor_bytes(moe.get(k))
+                           for k in ("w_gate", "w_up", "w_down")),
+            "kv_cache": sum(_tensor_bytes(layers.get(k)) for k in
+                            ("k", "v", "cross_k", "cross_v")),
+        },
+        "kv_len": cache.get("kv_len", {}),
+        "collectives": coll,
+        "sample_tokens": generated[0, :8].tolist(),
+        "substrate": guard.stats(),
+        "generated": generated.tolist(),
+    }
+    if dev.type == "cuda":
+        stats["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated(dev) / 1e9
+    stats.update(latency_report(lat))
+    return stats
+
+
+def _serve_rank(ctx: ShardingCtx, cfg, kwargs: Dict[str, Any]):
+    """One rank of `serve_on_mesh`: `serve` under the rank's context, on
+    the mesh's device type."""
+    return serve(cfg, ctx=ctx, device=ctx.device.type, **kwargs)
+
+
+def serve_on_mesh(cfg, shape: Sequence[int], *, device: str, backend: str,
+                  layout: str = "default", timeout_s: Optional[float] = None,
+                  **kwargs) -> List[Dict[str, Any]]:
+    """`serve` on a ``(data, model)`` mesh of `shape`, one process a rank
+    (`launch.mesh.spawn`, whose `device` and `backend` the caller names:
+    two ranks that share a card need "gloo"). Returns every rank's stats,
+    in rank order; raises unless every rank generated the same tokens for
+    the whole batch, every request its `gen` of them."""
+    from repro_torch.launch.mesh import DEFAULT_TIMEOUT_S, spawn
+    from repro_torch.runtime.layouts import rules_for
+
+    fn = functools.partial(_serve_rank, cfg=cfg,
+                           kwargs=dict(kwargs, layout=layout))
+    stats = spawn(fn, shape, device=device, backend=backend,
+                  rules=rules_for(layout),
+                  timeout_s=timeout_s or DEFAULT_TIMEOUT_S)
+    want = (kwargs["batch"], kwargs["gen"])
+    for r, st in enumerate(stats):
+        if tuple(st["generated_shape"]) != want:
+            raise RuntimeError(f"rank {r}: generated {st['generated_shape']}, "
+                               f"wanted {want}")
+        if st["generated"] != stats[0]["generated"]:
+            raise RuntimeError(f"rank {r}'s tokens differ from rank 0's")
+    return stats
+
+
 def serve_paged(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
                 block_size: int = 16, num_blocks: Optional[int] = None,
                 prefix_cache: bool = True, prefill_chunk: int = 32,
                 deadline_s: Optional[float] = None,
                 chaos: Optional[int] = None, device=None,
-                params=None, max_in_flight: Optional[int] = None):
+                params=None, max_in_flight: Optional[int] = None,
+                ctx: ShardingCtx = NULL_CTX):
     """Continuous batching: `batch` requests with ragged prompt lengths
     (4x spread) through a block pool sized to force page reuse. Half the
     requests share a system-prompt prefix so the prefix cache (when on) has
@@ -229,8 +401,12 @@ def serve_paged(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     `chaos` seeds a deterministic fault schedule (serve.FaultInjector).
     `device` None means the GPU; `params` None draws random weights from
     `seed` on that device. The prompts are the reference package's for the
-    same seed."""
+    same seed. A `ctx` with a mesh raises NotImplementedError: the paged
+    engine on a mesh is not ported yet."""
     from repro_torch.serve import FaultInjector, PagedServingEngine
+
+    if ctx.mesh is not None:
+        raise NotImplementedError(MESH_PAGED_REFUSED)
 
     faults = FaultInjector(chaos) if chaos is not None else None
     rng = np.random.default_rng(seed)
@@ -274,7 +450,7 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layout", default="default", choices=["default", "serving"],
-                    help="serving: bf16 weight storage")
+                    help="serving: bf16 weight storage, row KV writes")
     ap.add_argument("--engine", default="dense", choices=["dense", "paged"],
                     help="dense: fixed batch, one cache per layer; paged: "
                          "continuous batching over a paged KV pool")
@@ -302,20 +478,37 @@ def main(argv=None):
                          "JSON (open in https://ui.perfetto.dev)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on a (data, model) mesh, one process a "
+                         "rank (dense engine), e.g. 1x2; rank 0 prints")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="the mesh's process-group backend (default: nccl "
+                         "on the GPU, one card a rank; gloo on the CPU; "
+                         "ranks sharing a card need gloo)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if args.layout == "serving":
-        cfg = cfg.replace(**SERVING_OVERRIDES)
+    if args.mesh:
+        from repro_torch.launch.mesh import parse_mesh
+
+        device = "cuda" if args.device is None else args.device
+        backend = args.backend or ("gloo" if device == "cpu" else "nccl")
+        stats = serve_on_mesh(
+            cfg, parse_mesh(args.mesh), device=device, backend=backend,
+            layout=args.layout, batch=args.batch, prompt_len=args.prompt_len,
+            gen=args.gen, seed=args.seed, strict=args.strict)[0]
+        print(json.dumps(stats))
+        return stats
     stats = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                   gen=args.gen, seed=args.seed, engine=args.engine,
                   block_size=args.block_size, num_blocks=args.num_blocks,
                   prefix_cache=args.prefix_cache,
                   prefill_chunk=args.prefill_chunk,
                   deadline_s=args.deadline_s, chaos=args.chaos,
-                  device=args.device, strict=args.strict)
+                  device=args.device, strict=args.strict,
+                  layout=args.layout)
     if args.trace:
         stats["trace"] = obs_trace.get_tracer().export(args.trace)
         stats["trace_events"] = len(obs_trace.get_tracer().events)

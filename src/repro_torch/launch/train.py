@@ -18,9 +18,9 @@ from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train_loop import train
 
-MESH_REFUSED = ("--mesh mini needs the multi-device port (torch.distributed "
-                "DeviceMesh), which is not done yet: ROADMAP Queue 1, "
-                "\"Multi-device\"")
+MESH_REFUSED = ("--mesh mini: training on a device mesh is not ported yet "
+                "(serving on one is: launch.serve --mesh); ROADMAP Queue 1, "
+                "item 3b, \"Multi-device training\"")
 
 
 def main(argv=None):

@@ -1,6 +1,7 @@
 """Layer library: norms, RoPE, sinusoidal positions, SwiGLU, embeddings,
 full-sequence GQA attention (naive / chunked / sliding-window blocks),
-decode attention over a dense KV cache, and attention over paged KV pools.
+decode attention over a dense KV cache (on one device, or split by
+sequence over a mesh's `model` axis), and attention over paged KV pools.
 
 Layouts follow the reference package at every public function (q
 ``[B, S, H, D]``, caches ``[B, S, KH, D]``, pools ``[NB, blk, KH, D]``,
@@ -20,6 +21,7 @@ from repro_torch.kernels.decode_attention.decode_attention import (
     flash_decode,
     paged_flash_decode,
 )
+from repro_torch.sharding import ShardingCtx
 
 NEG_INF = -1e30
 
@@ -221,10 +223,105 @@ def _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update=True):
     return out[:, None], k_cache, v_cache
 
 
-def decode_attention(q, k_cache, v_cache, new_k, new_v, pos, update=True):
-    """Public decode-attention entry over a dense cache (one device: the
-    sequence-sharded form waits for the multi-device slice)."""
-    return _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update)
+# ------------------------------------- decode over a sequence-sharded cache
+
+
+def _row_update(cache, new_row, safe, in_range):
+    """Row-granular cache write, in place: read the one row at `safe`,
+    select the new row where `in_range` (a 0-d bool tensor), write the row
+    back (the reference's `cache_update="row"`, which cuts decode cache
+    traffic ~3x against a whole-cache select)."""
+    old = cache.index_select(1, safe)
+    cache.index_copy_(1, safe, torch.where(in_range, new_row.to(cache.dtype),
+                                           old))
+    return cache
+
+
+def _full_update(cache, new_row, safe, in_range):
+    """Whole-cache write, in place: the cache with the new row at `safe`,
+    selected over the whole cache where `in_range` (the reference's
+    `cache_update="full"`: an updated copy, then a select)."""
+    upd = cache.index_copy(1, safe, new_row.to(cache.dtype))
+    cache.copy_(torch.where(in_range, upd, cache))
+    return cache
+
+
+def _decode_core(ctx: ShardingCtx, q, k_cache, v_cache, new_k, new_v, pos, *,
+                 s_local: int, update=True, update_mode="full"):
+    """One rank's part of the sequence-sharded decode (the reference's
+    shard_map body). Shapes are this rank's:
+
+      q:            [B, 1, H, D]    (the same on every rank of `model`)
+      k/v_cache:    [B, S_l, KH, D] (shard `ctx.index("model")` of the
+                    sequence: positions offset .. offset + S_l - 1)
+      new_k/new_v:  [B, 1, KH, D]
+      pos:          0-d int32 tensor (or an int): the cache is live in
+                    [0, pos]
+
+    The new row lands only on the shard that owns `pos`, at a device index
+    (`pos` is never read on the host). The flash-decode kernel attends the
+    shard's live rows at ``pos - offset`` and returns each head's (o, lse);
+    the shards merge them over `model`: M = max lse, then the sums of
+    exp(lse - M) o and of exp(lse - M), then their quotient. This is the
+    reference's pmax/psum over its unnormalised partials, on the kernel's
+    normalised ones; M is held finite, so a shard with no live key (lse
+    -inf, o 0) weighs 0 and never forms inf - inf. Returns (out [B, 1, H,
+    D] in q's type, k_cache, v_cache), the caches updated in place."""
+    if update_mode not in ("full", "row"):
+        raise ValueError(f"cache_update is full or row, got {update_mode!r}")
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k_cache.device)
+    local = pos.reshape(()) - ctx.index("model") * s_local
+    if update:
+        in_range = (local >= 0) & (local < s_local)
+        safe = local.clamp(0, s_local - 1).long().reshape(1)
+        write = _row_update if update_mode == "row" else _full_update
+        write(k_cache, new_k, safe, in_range)
+        write(v_cache, new_v, safe, in_range)
+    o, lse = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, local,
+                          return_lse=True)
+    m = ctx.all_reduce(lse.clone(), "max").clamp_min(NEG_INF)
+    w = torch.exp(lse - m)                                    # [B, H]
+    part = torch.cat([o.float() * w[..., None], w[..., None]], dim=-1)
+    ctx.all_reduce(part, "sum")       # [B, H, D + 1]: numerator, denominator
+    out = part[..., :-1] / part[..., -1:].clamp_min(1e-30)
+    return out.to(q.dtype)[:, None], k_cache, v_cache
+
+
+def flash_decode_attention(ctx: ShardingCtx, q, k_cache, v_cache, new_k,
+                           new_v, pos, update=True, update_mode="full", *,
+                           s_total=None):
+    """Sequence-sharded decode attention (context parallelism over
+    `model`). On a mesh each rank holds its shard of the cache, and
+    `s_total` is the whole cache's length: a multiple of the `model` axis
+    splits it (`_decode_core`); any other length, no `model` axis, or no
+    mesh leaves the cache whole on every rank and takes `_single_decode`,
+    as the reference does."""
+    if ctx.mesh is None or "model" not in ctx.axis_sizes \
+            or not ctx.use_shard_map:
+        return _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update)
+    if s_total is None:
+        raise ValueError("on a mesh, s_total (the whole cache's length) "
+                         "says how the cache is held")
+    n_model = ctx.axis_sizes["model"]
+    held = s_total // n_model if s_total % n_model == 0 else s_total
+    if k_cache.shape[1] != held:
+        raise ValueError(f"a cache of {s_total} rows over {n_model} model "
+                         f"ranks is held as {held} rows a rank, got "
+                         f"{k_cache.shape[1]}")
+    if s_total % n_model != 0:
+        return _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update)
+    return _decode_core(ctx, q, k_cache, v_cache, new_k, new_v, pos,
+                        s_local=held, update=update, update_mode=update_mode)
+
+
+def decode_attention(ctx: ShardingCtx, q, k_cache, v_cache, new_k, new_v,
+                     pos, update=True, update_mode="full", *, s_total=None):
+    """Public decode-attention entry over a dense cache: the
+    sequence-sharded flash decode when a mesh exists, else one device's."""
+    if ctx.mesh is None:
+        return _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update)
+    return flash_decode_attention(ctx, q, k_cache, v_cache, new_k, new_v, pos,
+                                  update, update_mode, s_total=s_total)
 
 
 # --------------------------------------------------------- paged KV (serving)

@@ -24,6 +24,18 @@ the VLM family (paligemma-3b: patch embeddings as a bidirectional prefix
 of the text). Dense decode attention, over a cache, a ring or the
 encoder's output, is the `flash_decode` kernel; paged decode attention
 the `paged_decode` kernel.
+
+On a device mesh (a `sharding.ShardingCtx` with a running mesh, one process
+a rank) the dense engine's functions take this rank's slice of the batch
+(its `data` coordinate's) and the same weights on every rank but a MoE
+layer's experts, of which each rank holds its `model` coordinate's share
+(`params.local_params`). The MoE FFN is expert-parallel (`models/moe.py`);
+the decode caches are split by sequence over `model` where the reference
+splits them (`cache_specs`: ``kv_seq``), each rank holding its
+``[L, B/data, S/model, KH, D]`` slice, and decode attention merges the
+shards' flash-decode results (`common.flash_decode_attention`). The cache
+then also records the whole caches' lengths (``cache["kv_len"]``), which
+the shards alone do not tell.
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSuite, cache_seq_len
 from repro_torch.models.common import (
     apply_rope,
     attention,
@@ -49,7 +62,13 @@ from repro_torch.models.common import (
 from repro_torch.kernels.decode_attention.decode_attention import flash_decode
 from repro_torch.models.moe import moe_layer, moe_param_specs
 from repro_torch.models.params import ParamSpec, map_specs, torch_dtype
-from repro_torch.models.ssm import ssm_decode, ssm_forward, ssm_param_specs
+from repro_torch.models.ssm import (
+    ssm_cache_shape,
+    ssm_decode,
+    ssm_forward,
+    ssm_param_specs,
+)
+from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
 
 # ------------------------------------------------------------- param specs
 
@@ -158,15 +177,16 @@ def _attn_out(p, o):
     return out
 
 
-def _ffn(p, x, cfg: ArchConfig):
+def _ffn(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
+         aux: bool = True):
     """The post-attention half of a block (MoE or SwiGLU MLP): the
     reference's ``_paged_ffn``. Returns (x, aux): the MoE router's
-    load-balancing aux loss (an f32 scalar; None for the MLP), which the
-    loss adds and the serving paths ignore."""
+    load-balancing aux loss (an f32 scalar; None for the MLP, and on a mesh
+    without `aux`), which the loss adds and the serving paths ignore."""
     if cfg.moe:
         h = rms_norm(x, p["moe_ln"], cfg.norm_eps)
-        moe_o, aux = moe_layer(p["moe"], h, cfg)
-        return x + moe_o, aux
+        moe_o, a = moe_layer(p["moe"], h, cfg, ctx, aux=aux)
+        return x + moe_o, a
     m = p["mlp"]
     h = rms_norm(x, m["ln"], cfg.norm_eps)
     return x + swiglu(h, m["w_gate"].to(h.dtype), m["w_up"].to(h.dtype),
@@ -260,30 +280,41 @@ def ring_decode_attention(q, k_cache, v_cache, new_k, new_v, pos,
     return out[:, None], k_cache, v_cache
 
 
-def attn_decode(p, x, cache, cfg: ArchConfig, *, pos, cross=False,
-                rope=True):
+def attn_decode(p, x, cache, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
+                pos, cross=False, rope=True, s_total=None):
     """One-token attention against a dense KV cache: self-attention writes
     the new row at `pos` (a 0-d int32 tensor on x's device) in place, into
     a ring when the arch's window covers the cache; cross-attention reads
     the encoder's static K/V, all of it, and writes nothing. Each runs
-    the flash-decode kernel. Returns (attn_out, (k_cache, v_cache))."""
+    the flash-decode kernel; on a mesh `s_total` is the whole cache's
+    length (`common.flash_decode_attention`). Returns (attn_out, (k_cache,
+    v_cache))."""
     kc, vc = cache
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if cross:
         q = _proj(h, p["wq"], p.get("bq"))
-        o, _, _ = decode_attention(q, kc, vc, None, None, kc.shape[1] - 1,
-                                   update=False)
+        last = (kc.shape[1] if s_total is None else s_total) - 1
+        o, _, _ = decode_attention(ctx, q, kc, vc, None, None, last,
+                                   update=False, s_total=s_total)
         return _attn_out(p, o), (kc, vc)
     q, k, v = _project_qkv(p, h)
     if rope:
         posv = torch.as_tensor(pos, device=x.device).reshape(1)
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
-    if cfg.sliding_window and kc.shape[1] <= cfg.sliding_window:
+    if _is_ring(cfg, kc.shape[1]):
         o, kc, vc = ring_decode_attention(q, kc, vc, k, v, pos, kc.shape[1])
     else:
-        o, kc, vc = decode_attention(q, kc, vc, k, v, pos)
+        o, kc, vc = decode_attention(ctx, q, kc, vc, k, v, pos,
+                                     update_mode=cfg.cache_update,
+                                     s_total=s_total)
     return _attn_out(p, o), (kc, vc)
+
+
+def _is_ring(cfg: ArchConfig, s_kv: int) -> bool:
+    """Whether a self-attention cache of `s_kv` rows is a sliding-window
+    ring (never split over a mesh: its axis is ``seq``)."""
+    return bool(cfg.sliding_window and s_kv <= cfg.sliding_window)
 
 
 def _ring_layout(kv, window: int):
@@ -297,10 +328,12 @@ def _ring_layout(kv, window: int):
     return torch.roll(kv, shift, dims=1) if shift else kv
 
 
-def block_full(p, x, cfg: ArchConfig, *, positions, causal=True, prefix=0,
-               rope=True, cross_src=None, build_cache=False):
+def block_full(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
+               positions, causal=True, prefix=0, rope=True, cross_src=None,
+               build_cache=False):
     """One layer, full sequence. Returns (x, aux, cache_entry): the MoE
-    router's aux loss (an f32 scalar; None without MoE); with `build_cache`,
+    router's aux loss (an f32 scalar; None without MoE, and for a prefill
+    (`build_cache`) on a mesh, which drops it); with `build_cache`,
     K/V of an attention layer (in a ring under a sliding window), the
     final SSM and conv states of an SSM or hybrid layer, and the cross K/V
     over `cross_src`; nothing otherwise."""
@@ -331,14 +364,17 @@ def block_full(p, x, cfg: ArchConfig, *, positions, causal=True, prefix=0,
         if build_cache:
             cache["cross_k"], cache["cross_v"] = ck, cv
         x = x + cross_o
-    x, aux = _ffn(p, x, cfg)
+    x, aux = _ffn(p, x, cfg, ctx, aux=not build_cache)
     return x, aux, cache
 
 
-def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
+def block_decode(p, x, layer_cache, cfg: ArchConfig,
+                 ctx: ShardingCtx = NULL_CTX, *, pos, kv_len=None):
     """One layer, one token. Returns (x, new_layer_cache); the attention
     cache is updated in place (the same tensors come back), the SSM state
-    of an SSM or hybrid layer is new, the cross cache is read only."""
+    of an SSM or hybrid layer is new, the cross cache is read only.
+    `kv_len` (on a mesh) holds the whole caches' lengths."""
+    kv_len = kv_len or {}
     if cfg.family == "ssm":
         h = rms_norm(x, p["ssm_ln"], cfg.norm_eps)
         out, st = ssm_decode(p["ssm"], {"h": layer_cache["h"],
@@ -346,7 +382,8 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
         return x + out, st
     attn_o, (kc, vc) = attn_decode(p["attn"], x,
                                    (layer_cache["k"], layer_cache["v"]), cfg,
-                                   pos=pos, rope=not cfg.enc_dec)
+                                   ctx, pos=pos, rope=not cfg.enc_dec,
+                                   s_total=kv_len.get("k"))
     new: Dict[str, Any] = {"k": kc, "v": vc}
     if cfg.hybrid:
         h = rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
@@ -360,14 +397,16 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig, *, pos):
     if "cross" in p:
         cross_o, _ = attn_decode(p["cross"], x, (layer_cache["cross_k"],
                                                  layer_cache["cross_v"]),
-                                 cfg, pos=pos, cross=True)
+                                 cfg, ctx, pos=pos, cross=True,
+                                 s_total=kv_len.get("cross_k"))
         x = x + cross_o
-    x, _ = _ffn(p, x, cfg)
+    x, _ = _ffn(p, x, cfg, ctx, aux=False)
     return x, new
 
 
-def run_layers_full(layers, x, cfg: ArchConfig, *, positions, causal=True,
-                    prefix=0, rope=True, cross_src=None, build_cache=False):
+def run_layers_full(layers, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
+                    *, positions, causal=True, prefix=0, rope=True,
+                    cross_src=None, build_cache=False):
     """Apply every layer of a stack (the decoder's, or the encoder's) in a
     Python loop over its stacked axis. Returns (x, aux_sum, stacked_cache)
     with the layers' aux losses summed in f32 and each cache leaf stacked
@@ -375,7 +414,7 @@ def run_layers_full(layers, x, cfg: ArchConfig, *, positions, causal=True,
     entries = []
     aux = None
     for lp in _unstack(layers):
-        x, a, cache = block_full(lp, x, cfg, positions=positions,
+        x, a, cache = block_full(lp, x, cfg, ctx, positions=positions,
                                  causal=causal, prefix=prefix, rope=rope,
                                  cross_src=cross_src, build_cache=build_cache)
         if a is not None:
@@ -388,13 +427,15 @@ def run_layers_full(layers, x, cfg: ArchConfig, *, positions, causal=True,
     return x, aux, caches
 
 
-def run_layers_decode(layers, caches, x, cfg: ArchConfig, *, pos):
+def run_layers_decode(layers, caches, x, cfg: ArchConfig,
+                      ctx: ShardingCtx = NULL_CTX, *, pos, kv_len=None):
     """All layers for one token. Layer i updates its slice of every stacked
     cache leaf ([L, B, S, KH, D] K/V rows, [L, B, H, P, N] SSM state, ...)
     in place; no leaf is re-stacked. Returns (x, caches)."""
     for i in range(cfg.n_layers):
         lc = _layer(caches, i)
-        x, nc = block_decode(_layer(layers, i), x, lc, cfg, pos=pos)
+        x, nc = block_decode(_layer(layers, i), x, lc, cfg, ctx, pos=pos,
+                             kv_len=kv_len)
         for key, new in nc.items():
             if new is not lc[key]:
                 lc[key].copy_(new)
@@ -421,14 +462,14 @@ def _embed_in(params, batch, cfg: ArchConfig):
     return x, positions
 
 
-def _encode(params, frames, cfg: ArchConfig):
+def _encode(params, frames, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """The enc-dec encoder over frame embeddings [B, S_enc, d]: sinusoidal
     positions, non-causal self-attention without rope, the final norm."""
     dt = torch_dtype(cfg.dtype)
     frames = frames.to(dt)
     s = frames.shape[1]
     x = frames + sinusoid_pos_emb(s, cfg.d_model, dt, frames.device)[None]
-    x, _, _ = run_layers_full(params["enc_layers"], x, cfg,
+    x, _, _ = run_layers_full(params["enc_layers"], x, cfg, ctx,
                               positions=torch.arange(s, device=x.device),
                               causal=False, rope=False)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -451,31 +492,53 @@ def _pad_cache_seq(layer_caches, cfg: ArchConfig, pad_to: Optional[int]):
     return out
 
 
-def _trunk(params, batch, cfg: ArchConfig, *, build_cache: bool):
+def _trunk(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
+           build_cache: bool):
     """The decoder's stack over a whole batch: the encoder first for an
     enc-dec arch (its output is the cross-attention's source), the
     projected patches as a bidirectional prefix for a VLM. Returns (x,
     aux_sum, stacked layer caches, the prefix's length)."""
     if cfg.enc_dec:
-        enc_out = _encode(params, batch["frames"], cfg)
+        enc_out = _encode(params, batch["frames"], cfg, ctx)
         x = embed_lookup(params["embed"], batch["tokens"]).to(
             torch_dtype(cfg.dtype))
         x = x + params["dec_pos_embed"][: x.shape[1]].to(x.dtype)[None]
         positions = torch.arange(x.shape[1], device=x.device)
-        x, aux, caches = run_layers_full(params["layers"], x, cfg,
+        x, aux, caches = run_layers_full(params["layers"], x, cfg, ctx,
                                          positions=positions, rope=False,
                                          cross_src=enc_out,
                                          build_cache=build_cache)
         return x, aux, caches, 0
     x, positions = _embed_in(params, batch, cfg)
     prefix = x.shape[1] - batch["tokens"].shape[1] if cfg.vlm else 0
-    x, aux, caches = run_layers_full(params["layers"], x, cfg,
+    x, aux, caches = run_layers_full(params["layers"], x, cfg, ctx,
                                      positions=positions, prefix=prefix,
                                      build_cache=build_cache)
     return x, aux, caches, prefix
 
 
-def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
+def _hold_caches(layers, cfg: ArchConfig, ctx: ShardingCtx):
+    """Whole stacked caches -> this rank's (a copy of its slice of each
+    split one), and the whole K/V caches' lengths: a self-attention cache
+    (not a ring) and the cross cache are split by sequence over `model`
+    when it divides them, the reference's ``kv_seq`` layout."""
+    kv_len = {key: layers[key].shape[2] for key in ("k", "cross_k")
+              if key in layers}
+    held = dict(layers)
+    for key in ("k", "v", "cross_k", "cross_v"):
+        if key not in layers:
+            continue
+        s_kv = layers[key].shape[2]
+        if key in ("k", "v") and _is_ring(cfg, s_kv):
+            continue
+        spec = ctx.spec((None, None, "kv_seq"), (None, None, s_kv))
+        if spec:
+            held[key] = local_shard(layers[key], spec, ctx).clone()
+    return held, kv_len
+
+
+def prefill(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
+            pad_to: Optional[int] = None):
     """Build decode state from a full prompt. batch["tokens"]: [B, S] text
     tokens, with batch["frames"] [B, S_enc, d] for an enc-dec arch (the
     encoder's input) or batch["patches"] [B, P, d] for a VLM (a prefix of
@@ -483,13 +546,19 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: Optional[int] = None):
     Returns (cache, last_logits [B, 1, V] f32); cache = {"pos": the
     decoder's length (a 0-d int32 tensor on the tokens' device, as the
     reference's is), "layers": stacked per-layer caches, K/V padded to
-    `pad_to` rows (plus the prefix), a ring to its window}."""
-    x, _, layer_caches, prefix = _trunk(params, batch, cfg, build_cache=True)
+    `pad_to` rows (plus the prefix), a ring to its window}. On a mesh the
+    batch is this rank's, the caches are this rank's shards, and
+    ``cache["kv_len"]`` holds the whole K/V caches' lengths."""
+    x, _, layer_caches, prefix = _trunk(params, batch, cfg, ctx,
+                                        build_cache=True)
     if pad_to is not None:
         pad_to = pad_to + prefix
     cache = {"pos": torch.full((), x.shape[1], dtype=torch.int32,
                                device=x.device),
              "layers": _pad_cache_seq(layer_caches, cfg, pad_to)}
+    if ctx.mesh is not None:
+        cache["layers"], cache["kv_len"] = _hold_caches(cache["layers"], cfg,
+                                                        ctx)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return cache, _unembed(params, x)
 
@@ -505,13 +574,13 @@ def _xent(logits, targets):
     return (lse - gold).mean()
 
 
-def loss_fn(params, batch, cfg: ArchConfig):
+def loss_fn(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """Next-token CE loss plus ``router_aux_coef`` x the MoE aux loss, for
     every family: batch["tokens"] and ["targets"] [B, S] (with ["frames"]
     for an enc-dec arch, ["patches"] for a VLM, whose prefix positions
     are cut before the unembedding). Returns (total, {"loss", "aux"}),
     f32 scalars."""
-    x, aux, _, prefix = _trunk(params, batch, cfg, build_cache=False)
+    x, aux, _, prefix = _trunk(params, batch, cfg, ctx, build_cache=False)
     if prefix:
         x = x[:, prefix:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -520,7 +589,8 @@ def loss_fn(params, batch, cfg: ArchConfig):
     return total, {"loss": loss, "aux": aux}
 
 
-def decode_step(params, cache, batch, cfg: ArchConfig):
+def decode_step(params, cache, batch, cfg: ArchConfig,
+                ctx: ShardingCtx = NULL_CTX):
     """One decode step for the whole batch at the cache's position.
     batch["tokens"]: [B, 1]; cache["pos"]: a 0-d int32 tensor on the
     caches' device, which the step never reads on the host (so that it
@@ -528,7 +598,7 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
     decoder reads its learned position at ``min(pos, max_dec - 1)``
     through a device index. The caches are updated in place. Returns
     (logits [B, 1, V] f32, {"pos": pos + 1, a new tensor, "layers": the
-    same caches})."""
+    same caches, and on a mesh the same "kv_len"})."""
     dt = torch_dtype(cfg.dtype)
     pos = cache["pos"]
     x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
@@ -540,9 +610,46 @@ def decode_step(params, cache, batch, cfg: ArchConfig):
                           max=table.shape[0] - 1).long().reshape(1)
         x = x + table.index_select(0, row).to(dt)[None]
     x, layers = run_layers_decode(params["layers"], cache["layers"], x, cfg,
-                                  pos=pos)
+                                  ctx, pos=pos, kv_len=cache.get("kv_len"))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, x), {"pos": pos + 1, "layers": layers}
+    new = {"pos": pos + 1, "layers": layers}
+    if "kv_len" in cache:
+        new["kv_len"] = cache["kv_len"]
+    return _unembed(params, x), new
+
+
+# -------------------------------------------------------------- cache specs
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeSuite) -> Dict[str, Any]:
+    """The decode cache of a shape suite as a spec tree (shapes, logical
+    axes, types): K/V over ``kv_seq`` (a ring over ``seq``), the enc-dec
+    cross K/V over ``kv_seq``, the SSM state and conv window."""
+    b = shape.global_batch
+    hd = cfg.resolved_head_dim
+    n = cfg.n_layers
+    dt = cfg.dtype
+    layer: Dict[str, ParamSpec] = {}
+    if cfg.has_attention:
+        s_kv = cache_seq_len(cfg, shape)
+        seq_axis = "seq" if _is_ring(cfg, s_kv) else "kv_seq"
+        for key in ("k", "v"):
+            layer[key] = ParamSpec(
+                (n, b, s_kv, cfg.kv_heads, hd),
+                ("layers", "batch", seq_axis, "kv_heads", "head_dim"), dt)
+    if cfg.enc_dec:
+        for key in ("cross_k", "cross_v"):
+            layer[key] = ParamSpec(
+                (n, b, shape.seq_len, cfg.kv_heads, hd),
+                ("layers", "batch", "kv_seq", "kv_heads", "head_dim"), dt)
+    if cfg.ssm or cfg.hybrid:
+        shapes = ssm_cache_shape(cfg, b)
+        layer["h"] = ParamSpec(
+            (n,) + shapes["h"][0],
+            ("layers", "batch", "ssm_heads", None, "ssm_state"), "float32")
+        layer["conv"] = ParamSpec((n,) + shapes["conv"][0],
+                                  ("layers", "batch", "width", "conv_dim"), dt)
+    return {"pos": ParamSpec((), (), "int32"), "layers": layer}
 
 
 # ------------------------------------------------------------ paged decode

@@ -1,9 +1,13 @@
 """Parameter declaration: shapes + logical axes + initializers in one tree.
 
-Models declare a nested dict of ``ParamSpec``; `initialize` materializes it
-as tensors on a device from a seeded `torch.Generator`, and
-`params_from_numpy` takes the reference package's parameters (its pytree
-with numpy leaves) across with the same names and shapes.
+Models declare a nested dict of ``ParamSpec``; the tree can then be made
+into meta tensors (`abstract`: shapes and types, no memory), into real
+tensors on a device from a seeded `torch.Generator` (`initialize`), or
+into partition specs (`partition_specs`, through a `sharding.ShardingCtx`),
+and `params_from_numpy` takes the reference package's parameters (its
+pytree with numpy leaves) across with the same names and shapes. On a mesh
+each rank holds the shard of every parameter that `held_specs` gives
+(`local_params`).
 """
 from __future__ import annotations
 
@@ -14,8 +18,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ParamSpec", "count", "initialize", "is_spec", "map_specs",
-           "params_from_numpy", "torch_dtype"]
+from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
+
+__all__ = ["ParamSpec", "abstract", "count", "held_specs", "initialize",
+           "is_spec", "local_params", "map_specs", "params_from_numpy",
+           "partition_specs", "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +72,57 @@ def count(tree) -> int:
     return sum(math.prod(s.shape) for _, s in _leaves(tree))
 
 
+def abstract(tree):
+    """Meta tensors of every spec's shape and type (no memory): the
+    reference's ShapeDtypeStruct tree."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                           device="meta"), tree)
+
+
+def partition_specs(tree, ctx: ShardingCtx):
+    """Every spec's partition spec under `ctx`'s rules (a tuple a leaf)."""
+    return map_specs(lambda s: ctx.spec(s.axes, s.shape), tree)
+
+
+def held_specs(tree, cfg, ctx: ShardingCtx):
+    """What each rank holds of every parameter on the serving path, as a
+    partition spec a leaf: the reference places no weight there, so every
+    leaf is whole, except a MoE layer's experts inside its expert-parallel
+    regions (`models.moe.EXPERT_SPECS`, on the stacked leaf's experts
+    axis) when the layer takes them (`models.moe.ep_sharded`)."""
+    from repro_torch.models.moe import EXPERT_SPECS, ep_sharded
+
+    split = ep_sharded(cfg, ctx)
+
+    def walk(node, path):
+        if is_spec(node):
+            if split and len(path) >= 2 and path[-2] == "moe" \
+                    and EXPERT_SPECS.get(path[-1]):
+                lead = node.axes.index("experts")
+                return (None,) * lead + EXPERT_SPECS[path[-1]]
+            return ()
+        return {k: walk(v, path + (k,)) for k, v in node.items()}
+
+    return walk(tree, ())
+
+
+def local_params(params, cfg, ctx: ShardingCtx):
+    """The whole parameters -> this rank's (`held_specs`): a split leaf is
+    copied out of the whole one (which the caller may then free), a whole
+    one is the same tensor."""
+    from repro_torch.models.lm import param_specs
+
+    def take(x, spec):
+        return local_shard(x, spec, ctx).clone() if spec else x
+
+    def walk(node, specs):
+        if isinstance(node, dict):
+            return {k: walk(v, specs[k]) for k, v in node.items()}
+        return take(node, specs)
+
+    return walk(params, held_specs(param_specs(cfg), cfg, ctx))
+
+
 def _fan_in_scale(s: ParamSpec) -> float:
     fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
     return 1.0 / float(np.sqrt(max(fan_in, 1)))
@@ -109,14 +167,16 @@ def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
                                                        dtype=dtype)
 
 
-def params_from_numpy(tree, cfg, device) -> Dict[str, Any]:
+def params_from_numpy(tree, cfg, device,
+                      ctx: ShardingCtx = NULL_CTX) -> Dict[str, Any]:
     """The reference package's parameters -> the port's.
 
     `tree` is the reference's parameter pytree with numpy leaves
     (``jax.tree.map(np.asarray, model.init(key))``). Returns a nested dict
     of tensors on `device` with the same names and shapes, each cast to the
-    port's declared dtype for `cfg`; a missing, extra or misshapen leaf
-    raises ValueError."""
+    port's declared dtype for `cfg` and, on a mesh, cut to this rank's
+    shard (`local_params`); a missing, extra or misshapen leaf raises
+    ValueError."""
     from repro_torch.models.lm import param_specs
 
     specs = param_specs(cfg)
@@ -145,7 +205,7 @@ def params_from_numpy(tree, cfg, device) -> Dict[str, Any]:
     if extra:
         raise ValueError(f"reference params have leaves the port does not "
                          f"declare: {sorted('.'.join(p) for p in extra)}")
-    return out
+    return out if ctx.mesh is None else local_params(out, cfg, ctx)
 
 
 def _numpy_leaves(tree, prefix: Tuple[str, ...] = ()):

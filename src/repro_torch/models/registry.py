@@ -1,6 +1,6 @@
-"""Model facade: bind an ArchConfig to the LM's functions (the training
-loss, the dense engine's prefill and decode step, the paged engine's
-steps)."""
+"""Model facade: bind an ArchConfig and a `sharding.ShardingCtx` to the LM's
+functions (the training loss, the dense engine's prefill and decode step,
+the paged engine's steps) and to its parameter and cache spec trees."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,35 +8,50 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSuite
 from repro_torch.models import lm
 from repro_torch.models import params as pm
+from repro_torch.sharding import NULL_CTX, ShardingCtx
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
+    ctx: ShardingCtx = NULL_CTX
 
     # ------------------------------------------------------------- params
     def param_specs(self):
         return lm.param_specs(self.cfg)
 
+    def abstract_params(self):
+        """Meta tensors of every parameter (no memory)."""
+        return pm.abstract(self.param_specs())
+
     def init(self, generator: torch.Generator, device):
         """Random parameters on `device`, drawn from `generator` (which
-        must live on that device)."""
-        return pm.initialize(self.param_specs(), generator, device)
+        must live on that device); on a mesh, this rank's shard of them
+        (`params.local_params`: each leaf drawn whole, so every rank draws
+        the same numbers)."""
+        params = pm.initialize(self.param_specs(), generator, device)
+        if self.ctx.mesh is None:
+            return params
+        return pm.local_params(params, self.cfg, self.ctx)
+
+    def param_partition_specs(self):
+        return pm.partition_specs(self.param_specs(), self.ctx)
 
     def n_params(self) -> int:
         return pm.count(self.param_specs())
 
     # -------------------------------------------------------------- steps
     def loss(self, params, batch):
-        return lm.loss_fn(params, batch, self.cfg)
+        return lm.loss_fn(params, batch, self.cfg, self.ctx)
 
     def prefill(self, params, batch, pad_to=None):
-        return lm.prefill(params, batch, self.cfg, pad_to=pad_to)
+        return lm.prefill(params, batch, self.cfg, self.ctx, pad_to=pad_to)
 
     def decode_step(self, params, cache, batch):
-        return lm.decode_step(params, cache, batch, self.cfg)
+        return lm.decode_step(params, cache, batch, self.cfg, self.ctx)
 
     def decode_step_paged(self, params, k_pools, v_pools, block_tables, lengths, batch):
         return lm.decode_step_paged(params, k_pools, v_pools, block_tables,
@@ -50,6 +65,17 @@ class Model:
     def supports_paged_decode(self) -> bool:
         return lm.supports_paged_decode(self.cfg)
 
+    # -------------------------------------------------------------- cache
+    def cache_specs(self, shape: ShapeSuite):
+        return lm.cache_specs(self.cfg, shape)
 
-def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg=cfg)
+    def abstract_cache(self, shape: ShapeSuite):
+        """Meta tensors of the decode cache of `shape` (no memory)."""
+        return pm.abstract(self.cache_specs(shape))
+
+    def cache_partition_specs(self, shape: ShapeSuite):
+        return pm.partition_specs(self.cache_specs(shape), self.ctx)
+
+
+def build_model(cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX) -> Model:
+    return Model(cfg=cfg, ctx=ctx)

@@ -8,8 +8,10 @@ reference's ``lax.scan``) with the same f32 mean of gradients and losses.
 `make_train_step`). `jit_train_step` is the reference's mesh-less
 ``jax.jit(step, donate_argnums=(0,))``: the same arithmetic, written into
 the state's own tensors and replayed as one CUDA graph
-(`core/step_graph.py`). The sharding helpers and the mesh branch come with
-the multi-device work (ROADMAP).
+(`core/step_graph.py`). The sharding helpers give the batch's and the
+state's partition specs and the state's meta tensors; training on a mesh
+(the reference's mesh branch of its jitted step) is not ported yet:
+`jit_train_step` refuses a model with a mesh (ROADMAP item 3b).
 """
 from __future__ import annotations
 
@@ -17,14 +19,50 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.shapes import Spec
 from repro_torch.core import tree
 from repro_torch.core.step_graph import StepGraph
 from repro_torch.models.registry import Model
 from repro_torch.optim import AdamWConfig, apply_updates, apply_updates_
 from repro_torch.optim.compression import ef_compress, ef_compress_
+from repro_torch.sharding import ShardingCtx
 
-__all__ = ["jit_train_step", "make_decode_step", "make_prefill_step",
-           "make_train_step", "value_and_grad"]
+__all__ = ["MESH_TRAIN_REFUSED", "abstract_state", "batch_shardings",
+           "jit_train_step", "make_decode_step", "make_prefill_step",
+           "make_train_step", "state_shardings", "value_and_grad"]
+
+MESH_TRAIN_REFUSED = ("training on a device mesh (compressed_psum, the "
+                      "parameters placed by their rules, the jitted step's "
+                      "mesh branch) is not ported yet: ROADMAP Queue 1, "
+                      "item 3b")
+
+
+# ----------------------------------------------------------------- sharding
+
+
+def batch_shardings(ctx: ShardingCtx, specs: Dict[str, Spec]):
+    """Each input's partition spec: its leading axis over ``batch``. None
+    without a mesh, as in the reference."""
+    if ctx.mesh is None:
+        return None
+    return {k: ctx.spec(["batch"] + [None] * (len(v.shape) - 1), v.shape)
+            for k, v in specs.items()}
+
+
+def state_shardings(model: Model):
+    """The train state's partition specs: the parameters' (by their rules)
+    for params, mu and nu, the step replicated. None without a mesh."""
+    if model.ctx.mesh is None:
+        return None
+    ps = model.param_partition_specs()
+    return {"step": (), "params": ps, "mu": ps, "nu": ps}
+
+
+def abstract_state(model: Model):
+    """The train state as meta tensors (no memory)."""
+    p = model.abstract_params()
+    return {"step": torch.empty((), dtype=torch.int32, device="meta"),
+            "params": p, "mu": p, "nu": p}
 
 
 def value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor, Any]:
@@ -109,7 +147,11 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
     caller's into it before every call, one copy of the whole state a step
     (params, mu, nu, and the error state with `compress`); the caller's
     tensors stay as they were, and the returned state is the step's own,
-    rewritten by its next call."""
+    rewritten by its next call.
+
+    A model with a mesh raises NotImplementedError (`MESH_TRAIN_REFUSED`)."""
+    if model.ctx.mesh is not None:
+        raise NotImplementedError(MESH_TRAIN_REFUSED)
     names: List[str] = []
     own: Dict[str, Any] = {}
 

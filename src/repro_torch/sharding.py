@@ -1,0 +1,315 @@
+"""Logical-axis sharding rules (MaxText-style) with divisibility guards, and
+the collectives of a running mesh.
+
+Every parameter and activation dimension carries a *logical* axis name;
+rules map logical names to mesh axes. A dimension is sharded only when its
+size divides the mesh-axis extent and the mesh axis is not already consumed
+by an earlier dimension of the same tensor; otherwise it falls back to
+replication (paligemma's kv_heads=1 on a 16-way model axis). The rules, the
+guard and the specs are the reference package's ``sharding.py``; a spec is
+a plain tuple holding what the reference's ``PartitionSpec`` holds.
+
+A `Mesh` is the mesh's axis names and sizes, so specs are pure logic and
+need no process group (`launch.mesh.make_production_mesh` gives the
+production shapes without devices). A mesh that runs (`launch.mesh.spawn`:
+one process a rank) also holds its ``torch.distributed`` `DeviceMesh` and
+this rank's coordinate on each axis; `ShardingCtx` then runs the manual
+regions' collectives over an axis's process group (`all_reduce`,
+`all_to_all`, `all_gather`, `mean_all`). Every tensor a rank holds is its
+own shard: the whole tensor where the spec replicates, its slice
+(`local_shard`) where the spec splits it.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import time
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+__all__ = ["AxisVal", "DEFAULT_RULES", "Mesh", "NULL_CTX", "ShardingCtx",
+           "collective_stats", "local_shard", "reset_collective_stats",
+           "tree_specs"]
+
+AxisVal = Union[None, str, Tuple[str, ...]]
+
+# logical axis -> mesh axis (or tuple of mesh axes)
+DEFAULT_RULES: Dict[str, AxisVal] = {
+    "batch": ("pod", "data"),   # data parallel (pod extends DP across pods)
+    "fsdp": "data",             # ZeRO/FSDP parameter+optimizer storage
+    "embed": "data",            # alias of fsdp for embedding-dim storage
+    "vocab": "model",           # column-parallel embedding / logits
+    "heads": "model",           # tensor-parallel attention heads
+    "kv_heads": "model",
+    "mlp": "model",             # tensor-parallel FFN width
+    "experts": "model",         # expert parallelism
+    "kv_seq": "model",          # context parallelism of decode KV caches
+    "d_inner": "model",         # SSM inner width tensor parallelism
+    "conv_dim": "model",
+    # unsharded logical axes
+    "layers": None,
+    "seq": None,
+    "head_dim": None,
+    "ssm_state": None,
+    "ssm_heads": None,
+    "chunk": None,
+    "width": None,
+    "stack": None,
+}
+
+
+# This process's collectives since the last reset: calls, bytes sent in,
+# and (when timed) seconds, each call timed from a device sync before it to
+# one after it, so that it holds the collective alone.
+_STATS: Dict[str, Any] = {"calls": 0, "bytes": 0, "s": 0.0, "timed": False}
+
+
+def reset_collective_stats(*, timed: bool = False) -> None:
+    """Zero the counts; `timed` times each collective from here on."""
+    _STATS.update(calls=0, bytes=0, s=0.0, timed=bool(timed))
+
+
+def collective_stats() -> Dict[str, Any]:
+    return dict(_STATS)
+
+
+@contextlib.contextmanager
+def _counted(x: torch.Tensor):
+    _STATS["calls"] += 1
+    _STATS["bytes"] += x.numel() * x.element_size()
+    if not _STATS["timed"]:
+        yield
+        return
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    yield
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    _STATS["s"] += time.perf_counter() - t0
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A device mesh: axis names and sizes; when it runs, also the
+    `torch.distributed` `DeviceMesh`, this rank's coordinate on each axis
+    and this rank's device."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    device_mesh: Any = None
+    coordinate: Tuple[int, ...] = ()
+    device: Optional[torch.device] = None
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"axes {self.axis_names} and shape {self.shape} "
+                             "differ in rank")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """Mesh context handed to models and runtime; ``mesh=None`` takes the
+    single-device paths."""
+
+    mesh: Optional[Mesh] = None
+    rules: Optional[Dict[str, AxisVal]] = None
+    use_shard_map: bool = True  # the manual regions (decode attention, EP)
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        if self.mesh is None:
+            return {}
+        return dict(zip(self.mesh.axis_names, self.mesh.shape))
+
+    def resolved_rules(self) -> Dict[str, AxisVal]:
+        rules = dict(DEFAULT_RULES)
+        if self.rules:
+            rules.update(self.rules)
+        # drop mesh axes this mesh lacks (e.g. "pod" on one pod)
+        names = set(self.mesh.axis_names) if self.mesh is not None else set()
+
+        def _filter(v: AxisVal) -> AxisVal:
+            if v is None:
+                return None
+            if isinstance(v, str):
+                return v if v in names else None
+            kept = tuple(a for a in v if a in names)
+            return kept if kept else None
+
+        return {k: _filter(v) for k, v in rules.items()}
+
+    def axis_size(self, mesh_axes: AxisVal) -> int:
+        if mesh_axes is None or self.mesh is None:
+            return 1
+        sizes = self.axis_sizes
+        if isinstance(mesh_axes, str):
+            return sizes[mesh_axes]
+        return math.prod(sizes[a] for a in mesh_axes)
+
+    # ------------------------------------------------------------ spec build
+    def spec(self, axes: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None) -> Tuple[AxisVal, ...]:
+        """The partition spec of logical `axes` (guarded by `shape`'s
+        divisibility): one entry a dimension, a mesh axis, a tuple of them
+        or None, with trailing Nones dropped, as the reference's
+        ``PartitionSpec`` holds them."""
+        if self.mesh is None:
+            return ()
+        rules = self.resolved_rules()
+        used: set = set()
+        entries = []
+        for i, name in enumerate(axes):
+            mesh_axes = rules.get(name) if name else None
+            if mesh_axes is None:
+                entries.append(None)
+                continue
+            tup = (mesh_axes,) if isinstance(mesh_axes, str) \
+                else tuple(mesh_axes)
+            tup = tuple(a for a in tup if a not in used)
+            if not tup:
+                entries.append(None)
+                continue
+            extent = math.prod(self.axis_sizes[a] for a in tup)
+            if shape is not None and shape[i] % extent != 0:
+                entries.append(None)  # replicate: not evenly divisible
+                continue
+            used.update(tup)
+            entries.append(tup[0] if len(tup) == 1 else tup)
+        while entries and entries[-1] is None:
+            entries.pop()
+        return tuple(entries)
+
+    def constrain(self, x, axes: Sequence[Optional[str]]):
+        """The reference's sharding constraint: an annotation for its
+        compiler. Each rank here already holds its shard, so it is the
+        identity."""
+        return x
+
+    # --------------------------------------------------------- running mesh
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on mesh axis `axis` (0 where the mesh
+        lacks it)."""
+        if self.mesh is None or axis not in self.mesh.axis_names:
+            return 0
+        self._running()
+        return self.mesh.coordinate[self.mesh.axis_names.index(axis)]
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        return None if self.mesh is None else self.mesh.device
+
+    def _running(self) -> None:
+        if self.mesh is None or self.mesh.device_mesh is None:
+            raise RuntimeError(
+                "this needs a running mesh (one process a rank: "
+                "repro_torch.launch.mesh.spawn); this context holds only "
+                "the mesh's shape")
+
+    def group(self, axis: str):
+        """The process group of this rank's line along mesh axis `axis`."""
+        self._running()
+        return self.mesh.device_mesh.get_group(axis)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum",
+                   axis: str = "model") -> torch.Tensor:
+        """``op`` ("sum" or "max") of `x` over mesh axis `axis`, in place;
+        returns `x` (the identity on an axis of one rank)."""
+        if self.axis_sizes.get(axis, 1) == 1:
+            return x
+        import torch.distributed as dist
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        with _counted(x):
+            dist.all_reduce(x, op=red, group=self.group(axis))
+        return x
+
+    def all_to_all(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """``jax.lax.all_to_all(x, axis, 0, 0)``: block i of `x`'s leading
+        axis (of size n, the axis's ranks) goes to rank i, and block i of
+        the result came from rank i."""
+        n = self.axis_sizes.get(axis, 1)
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all over {axis!r} needs a leading axis "
+                             f"of {n}, got {tuple(x.shape)}")
+        if n == 1:
+            return x
+        import torch.distributed as dist
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        with _counted(x):
+            dist.all_to_all_single(out, x, group=self.group(axis))
+        return out
+
+    def all_gather(self, x: torch.Tensor, axis: str = "model",
+                   dim: int = 0) -> torch.Tensor:
+        """The axis's ranks' `x` concatenated along `dim`, in rank order."""
+        n = self.axis_sizes.get(axis, 1)
+        if n == 1:
+            return x
+        import torch.distributed as dist
+        parts = [torch.empty_like(x) for _ in range(n)]
+        with _counted(x):
+            dist.all_gather(parts, x.contiguous(), group=self.group(axis))
+        return torch.cat(parts, dim=dim)
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of `x` over every rank of the mesh (the reference's
+        ``pmean`` over all axes): a new tensor."""
+        if self.mesh is None or self.mesh.size == 1:
+            return x
+        self._running()
+        import torch.distributed as dist
+        out = x.clone()
+        with _counted(out):
+            dist.all_reduce(out, op=dist.ReduceOp.SUM)
+        return out / self.mesh.size
+
+
+NULL_CTX = ShardingCtx(mesh=None)
+
+
+def _shard_index(ctx: ShardingCtx, entry: AxisVal) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a dimension whose spec
+    entry is `entry`: the row-major index over its mesh axes."""
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    idx, n = 0, 1
+    for a in axes:
+        size = ctx.axis_sizes[a]
+        idx = idx * size + ctx.index(a)
+        n *= size
+    return idx, n
+
+
+def local_shard(x: torch.Tensor, spec: Sequence[AxisVal],
+                ctx: ShardingCtx) -> torch.Tensor:
+    """The block of the whole tensor `x` that this rank holds under `spec`
+    (a view; `x` itself where the spec replicates every dimension)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, n = _shard_index(ctx, entry)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"into {n} blocks")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, idx * size, size)
+    return x
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in x)
+
+
+def tree_specs(ctx: ShardingCtx, spec_tree, shape_tree):
+    """A nested dict of logical-axes tuples and one of matching shapes ->
+    the nested dict of their specs."""
+    if _is_axes(spec_tree):
+        return ctx.spec(spec_tree, shape_tree)
+    return {k: tree_specs(ctx, v, shape_tree[k]) for k, v in spec_tree.items()}

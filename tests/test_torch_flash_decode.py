@@ -11,6 +11,7 @@ under one shared MachineModel. The CUDA kernel itself is checked against
 the plain version on the card (`test_torch_kernels_cuda.py`).
 """
 import dataclasses
+import functools
 import re
 from pathlib import Path
 
@@ -32,6 +33,7 @@ from repro_torch.kernels import launch_counts, ring
 from repro_torch.kernels.decode_attention import decode_attention as da
 from repro_torch.kernels.decode_attention import ops
 from repro_torch.models import common
+from repro_torch.sharding import NULL_CTX as PORT_NULL_CTX
 
 TOL = 2e-5
 
@@ -138,7 +140,8 @@ def test_single_decode_matches_reference(s, pos):
         NULL_CTX, jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
         jnp.asarray(nk), jnp.asarray(nv), jnp.asarray(pos, jnp.int32))
     tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
-    for fn in (common.decode_attention, common._single_decode):
+    for fn in (functools.partial(common.decode_attention, PORT_NULL_CTX),
+               common._single_decode):
         tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
         out, ok, ov = fn(torch.from_numpy(q), tk, tv, torch.from_numpy(nk),
                          torch.from_numpy(nv), pos)

@@ -66,7 +66,10 @@ def test_port_files_exist():
                  "src/repro_torch/launch/train.py",
                  "src/repro_torch/launch/quickstart.py",
                  "src/repro_torch/launch/train_100m.py",
-                 "src/repro_torch/launch/machine_smoke.py"):
+                 "src/repro_torch/launch/machine_smoke.py",
+                 "src/repro_torch/sharding.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/runtime/layouts.py"):
         assert want in names
 
 

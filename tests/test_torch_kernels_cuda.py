@@ -618,6 +618,33 @@ def _sms(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, None])
+def test_flash_decode_lse_matches_plain(cuda_device, dtype, splits):
+    """K3's log-sum-exp (the sequence-sharded decode's merge input) at
+    yi-6b's heads over a shard of S 528, one split, two and the plan's:
+    the shard fully live, partly, and empty (a device pos below 0: out 0,
+    lse -inf). The output equals the call without lse bitwise."""
+    q, k, v = _dense_problem(cuda_device, dtype, 3, 32, 4, 128, 528, seed=5)
+    atol, rtol = DECODE_TOL[dtype]["atol"], DECODE_TOL[dtype]["rtol"]
+    for pos in (600, 527, 300, 0, -1, -300):
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+        out, lse = da.flash_decode(q, k, v, p, splits=splits,
+                                   return_lse=True)
+        want, want_lse = da.flash_decode_plain(q, k, v, p, return_lse=True)
+        assert lse.dtype == torch.float32 and lse.shape == (3, 32)
+        assert torch.equal(out, da.flash_decode(q, k, v, p, splits=splits))
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **DECODE_TOL[dtype])
+        if pos < 0:
+            assert torch.equal(out, torch.zeros_like(out))
+            assert bool((lse == float("-inf")).all())
+        else:
+            assert torch.isfinite(lse).all()
+            torch.testing.assert_close(lse, want_lse, atol=atol, rtol=rtol)
+    assert launch_counts()["flash_decode"] == 12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("blk", [64, 128])
 @pytest.mark.parametrize("splits", [1, 2, None])
 def test_flash_decode_splits(cuda_device, dtype, splits, blk):
@@ -745,12 +772,14 @@ def test_flash_decode_small_tiles_and_past_the_cache(cuda_device):
 
 def test_dense_decode_step_writes_in_place_and_runs_the_kernel(cuda_device):
     from repro_torch.models import common
+    from repro_torch.sharding import NULL_CTX
 
     q, k, v = _dense_problem(cuda_device, torch.bfloat16, 2, 8, 2, 64, 40)
     nk, nv = (t[:, :1].clone() for t in _dense_problem(
         cuda_device, torch.bfloat16, 2, 2, 2, 64, 1, seed=9)[1:])
     kc, vc = k.clone(), v.clone()
-    out, ok, ov = common.decode_attention(q[:, None], kc, vc, nk, nv, 17)
+    out, ok, ov = common.decode_attention(NULL_CTX, q[:, None], kc, vc, nk,
+                                          nv, 17)
     assert ok is kc and ov is vc
     assert torch.equal(kc[:, 17], nk[:, 0]) and torch.equal(vc[:, 18:], v[:, 18:])
     ref = da.flash_decode_plain(q, kc, vc, 17)
