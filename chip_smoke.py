@@ -286,12 +286,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      the experts' and the KV caches' single-card bytes, and for each rank
      the prefill seconds, per-step p50/p99, tok/s, peak memory and the
      collectives' calls, bytes and share of the decode steps;
- 13. `guard.stats()` on one JSON line, the mesh's record on one, one JSON
-     line describing every kernel (nine: K4's backward has its own entry;
-     K2's, K3's and K4's launches by path, and K2's times at the training
-     products and the mesh's shapes, and K3's at the new families' shapes
-     and with its lse at the mesh's shard shapes, among them), then the
-     result line.
+ 13. training on a device mesh, two gloo ranks sharing the card: (a)
+     reduced f32 granite-moe (a capacity factor that drops tokens) and
+     mamba2-130m, three `jit_train_step` steps on the card's (1, 2) mesh
+     against the same steps on CPU ranks from the same draw: every step's
+     loss, learning rate and gradient norm and every state leaf a rank
+     holds within 2e-3, the launches exact; (b) granite-moe-1b-a400m at
+     full width on (1, 2), each rank half the experts, and (c)
+     mamba2-130m at full width on (2, 1), each rank 4 of the batch's 8
+     rows, both through `train` with phase 11d's settings (f32 parameters
+     and AdamW, bf16 compute, seq 512, lr 1e-2, the clip off) for 5 eager
+     steps: the loss finite, falling and the same on every rank, each rank
+     launching exactly K2 9 times a MoE layer a step, or a K4 forward and
+     a K4 backward call a layer a step (counts zeroed just before each
+     run), and for each rank the first step apart from the p50, tokens a
+     second, peak memory and the collectives' calls, bytes and share of
+     the steps (timed sync to sync);
+ 14. `guard.stats()` on one JSON line, the mesh's record on one, the mesh
+     training's on one, one JSON line describing every kernel (nine: K4's
+     backward has its own entry; K2's, K3's and K4's launches by path, the
+     mesh training's among them, and K2's times at the training products
+     and the mesh's shapes, and K3's at the new families' shapes and with
+     its lse at the mesh's shard shapes, among them), then the result
+     line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -326,6 +343,12 @@ JSON line.
 
 builds the kernels and runs only phase 12 (serving on the (1, 2) mesh,
 two gloo ranks sharing the card), then prints its record as one JSON line.
+
+    python3 chip_smoke.py --mesh-train
+
+builds the kernels and runs only phase 13 (training on the (1, 2) and
+(2, 1) meshes, two gloo ranks sharing the card), then prints its record as
+one JSON line.
 
     python3 chip_smoke.py --dense-first-step
 
@@ -1833,13 +1856,15 @@ def check_flash_decode_path_shape(torch, out, q, k, v, pos, label):
     return err
 
 
-def flash_decode_bound(b, h, kh, d, pos):
-    """(bound ms, bound_by, bytes, flops) of dense decode attention: the
-    live K/V rows, q and the output over 3.35 TB/s, or the flops over
-    989 TFLOP/s (bf16) if larger."""
-    nbytes = 2 * b * (pos + 1) * kh * d * 2 + 2 * b * h * d * 2
+def flash_decode_bound(b, h, kh, d, pos, dtype_name="bfloat16"):
+    """(bound ms, bound_by, bytes, flops) of dense decode attention in
+    `dtype_name`: the live K/V rows, q and the output, each element of the
+    type's size, over 3.35 TB/s, or the flops over the type's peak
+    (989 TFLOP/s bf16, 67 f32) if larger."""
+    isz = 2 if dtype_name == "bfloat16" else 4
+    nbytes = 2 * b * (pos + 1) * kh * d * isz + 2 * b * h * d * isz
     flops = 4 * b * h * d * (pos + 1)
-    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
+    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK[dtype_name]
     return (max(bytes_s, ops_s) * 1e3,
             "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
 
@@ -3852,11 +3877,12 @@ def train_phase(torch) -> dict:
     return run
 
 
-def ssd_bwd_entry(trained) -> dict:
+def ssd_bwd_entry(trained, mesh_paths=None) -> dict:
     """The kernels line's entry of K4's backward: launches (calls) in the
-    mamba2-130m training run, its device ms in a profiled step of each SSM
-    family, its time at mamba2's training shape in bf16 (the path's type)
-    and at the others beside it."""
+    mamba2-130m training run (and by path: each SSM family's, and
+    `mesh_paths`, phase 13's ranks'), its device ms in a profiled step of
+    each SSM family, its time at mamba2's training shape in bf16 (the
+    path's type) and at the others beside it."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     times = trained["ssd_bwd_times"]
@@ -3872,8 +3898,9 @@ def ssd_bwd_entry(trained) -> dict:
                "(models/ssm.py:48)",
         "launches": trained["ssm"][SSM_TRAIN[0][0]]["launches"]
         ["ssd_scan_bwd"],
-        "launches_by_path": {f"{arch} train": t["launches"]["ssd_scan_bwd"]
-                             for arch, t in trained["ssm"].items()},
+        "launches_by_path": {**{
+            f"{arch} train": t["launches"]["ssd_scan_bwd"]
+            for arch, t in trained["ssm"].items()}, **(mesh_paths or {})},
         "launches_a_train_step": {
             arch: t["launches_a_step"]["ssd_scan_bwd"]
             for arch, t in trained["ssm"].items()},
@@ -3958,9 +3985,10 @@ def time_flash_decode_lse(torch) -> dict:
                 t = {"ms": median_ms(torch, run_thunk, with_lse),
                      "ms_without_lse": median_ms(torch, run_thunk, without)}
                 live = max(0, min(pos + 1, s))
+                isz = 2 if dtype_name == "bfloat16" else 4
                 bound_ms, bound_by, _, _ = flash_decode_bound(
-                    b, h, kh, d, live - 1) if live else (
-                        2 * b * h * d * 2 / HBM_BW * 1e3, "bytes", 0, 0)
+                    b, h, kh, d, live - 1, dtype_name) if live else (
+                        2 * b * h * d * isz / HBM_BW * 1e3, "bytes", 0, 0)
                 t.update(max_abs_err=err, bound_ms=bound_ms,
                          bound_by=bound_by, plain_ms=None, library_ms=None)
                 if state == "partly" and dtype_name == "bfloat16":
@@ -4203,6 +4231,342 @@ def mesh_phase(torch) -> dict:
                          for arch in MESH_ARCHS}}
 
 
+# ----------------------------------------------------------------- phase 13
+
+# Training on a device mesh: two ranks (processes) that share the one card
+# through gloo, as phase 12 serves. granite-moe-1b-a400m on (1, 2): each
+# rank holds half the experts and runs the whole batch, its S / 2 positions
+# of each MoE layer through the all_to_all and K2; mamba2-130m on (2, 1):
+# each rank its 4 of the batch's 8 rows, K4 and K4b a layer. The settings
+# are phase 11d's (f32 parameters and AdamW, bf16 compute, seq 512, the
+# Markov task over 512 ids, lr 1e-2, the clip off), 5 steps, eager (gloo
+# cannot be captured). The reduced f32 check runs both archs on the (1, 2)
+# mesh, on the card and on CPU ranks, from the same draw.
+MESH_TRAIN = (("granite-moe-1b-a400m", (1, 2)), ("mamba2-130m", (2, 1)))
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH = 5, 8
+MESH_TRAIN_REDUCED = dict(shape=(1, 2), batch=4, seq=32, steps=3,
+                          capacity_factor=0.5)
+MESH_TRAIN_TIMEOUT_S = 600.0
+
+
+def mesh_train_launches(cfg, steps: int) -> dict:
+    """A rank's launches of `steps` train steps: K2 9 times a MoE layer (3
+    forward, a d tokens and a d weights for each), or a K4 forward and a
+    K4 backward call a layer."""
+    if cfg.moe:
+        return {"moe_gmm": 9 * cfg.n_layers * steps}
+    return {"ssd_scan": cfg.n_layers * steps,
+            "ssd_scan_bwd": cfg.n_layers * steps}
+
+
+def check_mesh_train_kernels(torch) -> dict:
+    """The kernels of (b) and (c) at the shapes a rank gives them, against
+    their plain versions on the card, in bf16 (the path's compute type):
+    K2's gate/up and down products with their d tokens and d weights on a
+    rank's capacity buffers of granite-moe on (1, 2) ([E / 2, 2 C, d]
+    from its B S / 2 tokens), through `gmm_grads` against the plain
+    version's autograd; K4 and K4b at a (2, 1) rank's batch of mamba2
+    (b B / 2, s 512, dh_final None, as in training). Each call's launches
+    are counted; each max_abs_err is logged and returned."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+    from repro_torch.models import moe as moe_mod
+
+    def moved(before):
+        after = launch_counts()
+        return {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    tol = TOL["bfloat16"]
+    out = {}
+    (moe_arch, moe_shape), (ssm_arch, ssm_shape) = MESH_TRAIN
+    cfg = get_config(moe_arch)
+    n = moe_shape[1]
+    e_l = cfg.n_experts // n
+    rows = n * moe_mod._capacity(MESH_TRAIN_BATCH * TRAIN_SEQ // n, cfg)
+    for proj, dm, f in (("gate/up", cfg.d_model, cfg.d_ff_expert),
+                        ("down", cfg.d_ff_expert, cfg.d_model)):
+        tokens = torch.randn(e_l, rows, dm, generator=gen,
+                             device="cuda").bfloat16()
+        w = (torch.randn(e_l, dm, f, generator=gen, device="cuda")
+             * dm ** -0.5).bfloat16()
+        up = (torch.randn(e_l, rows, f, generator=gen, device="cuda")
+              * rows ** -0.5).bfloat16()
+        want = gmm_grads(torch, tokens, w, up, "plain")
+        before = launch_counts()
+        got = gmm_grads(torch, tokens, w, up, "kernel")
+        torch.cuda.synchronize()
+        if moved(before) != {"moe_gmm": 3}:
+            raise AssertionError(f"moe_gmm mesh train {proj}: launches "
+                                 f"{moved(before)}, not 3")
+        for part, a, b in zip(("out", "d tokens", "d weights"), got, want):
+            out[f"moe_gmm {proj} {part}"] = _close(
+                f"moe_gmm mesh train {moe_arch} {moe_shape} rank {proj} "
+                f"{part} [{e_l},{rows},{dm}]x[{dm},{f}] bfloat16", a, b, tol)
+        del tokens, w, up, want, got
+    b = MESH_TRAIN_BATCH // ssm_shape[0]
+    _, s, nh, p, nn, chunk = ssd_train_shape(ssm_arch)
+    args = ssd_operands(torch, gen, b, s, nh, p, nn, dtype=torch.bfloat16)
+    dy = torch.randn(b, s, nh, p, generator=gen,
+                     device="cuda").bfloat16()
+    tag = (f"{ssm_arch} {ssm_shape} rank [b={b},s={s},nh={nh},p={p},n={nn}]"
+           f" chunk={chunk} x/B/C bfloat16 dt float32")
+    ry, rh = ss.ssd_scan_plain(*args, chunk=chunk)
+    before = launch_counts()
+    y, h = ss.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    if moved(before) != {"ssd_scan": 1}:
+        raise AssertionError(f"ssd_scan mesh train: launches "
+                             f"{moved(before)}, not one call")
+    out["ssd_scan y"] = _close(f"ssd_scan mesh train {tag} y", y, ry, tol)
+    out["ssd_scan h_final"] = _close(f"ssd_scan mesh train {tag} h_final",
+                                     h, rh, TOL["float32"])
+    want = ss.ssd_scan_bwd_plain(*args, dy, None, chunk=chunk)
+    before = launch_counts()
+    got = ss.ssd_scan_bwd(*args, dy, None, chunk=chunk)
+    torch.cuda.synchronize()
+    if moved(before) != {"ssd_scan_bwd": 1}:
+        raise AssertionError(f"ssd_scan_bwd mesh train: launches "
+                             f"{moved(before)}, not one call")
+    for part, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        out[f"ssd_scan_bwd {part}"] = _close(
+            f"ssd_scan_bwd mesh train {tag} {part} dh_final None", a, w, tol)
+    del args, dy, y, h, ry, rh, got, want
+    gc_collect(torch)
+    return out
+
+
+def mesh_train_reduced(ctx) -> dict:
+    """(a) on one rank: each arch of MESH_TRAIN reduced in f32 (granite-moe
+    at a capacity factor that drops tokens), drawn whole on the CPU from
+    seed 0 and cut to this rank's share on its device, three
+    `jit_train_step` steps on its rows of the Markov batches: each step's
+    metrics, the state after them (on the CPU) and the launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime.steps import jit_train_step, local_batch
+
+    # a new process: f32 compared with the CPU, so no TF32 here either
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = MESH_TRAIN_REDUCED
+    out = {}
+    for arch, _ in MESH_TRAIN:
+        cfg = get_config(arch).reduced().replace(dtype="float32",
+                                                 param_dtype="float32")
+        if cfg.moe:
+            cfg = cfg.replace(capacity_factor=kw["capacity_factor"])
+        model = build_model(cfg, ctx)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        state = init_state(tree.map_tree(lambda x: x.to(ctx.device),
+                                         model.init(gen, "cpu")))
+        step = jit_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                 total_steps=kw["steps"]))
+        task = MarkovTask(DataConfig(vocab=cfg.vocab, seq_len=kw["seq"],
+                                     global_batch=kw["batch"]))
+        metrics = []
+        reset_launch_counts()
+        for i in range(kw["steps"]):
+            batch = {k: torch.as_tensor(v)
+                     for k, v in task.batch_for_step(i).items()}
+            state, m = step(state, local_batch(ctx, batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[arch] = {"metrics": metrics, "counts": launch_counts(),
+                     "state": {"/".join(path): x.cpu() for path, x in
+                               tree.paths(state)}}
+    return out
+
+
+def mesh_train_full(ctx, arch: str) -> dict:
+    """(b), (c) on one rank: `train` on `arch` at full width on the mesh,
+    the launch counts zeroed just before it and read just after, the
+    collectives timed sync to sync."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import train
+
+    cfg = get_config(arch)
+    model = build_model(cfg, ctx)
+    data = DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=TRAIN_SEQ,
+                      global_batch=MESH_TRAIN_BATCH)
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=MESH_TRAIN_STEPS,
+                      warmup_steps=2, grad_clip=TRAIN_CLIP)
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    sharding.reset_collective_stats(timed=True)
+    reset_launch_counts()
+    rep = train(model, steps=MESH_TRAIN_STEPS, data_cfg=data, opt=opt,
+                log_every=1)
+    counts = launch_counts()
+    coll = sharding.collective_stats()
+    sharding.reset_collective_stats()
+    return {"losses": [rep.losses[i] for i in range(MESH_TRAIN_STEPS)],
+            "step_s": rep.step_s, "wall_s": rep.wall_s, "counts": counts,
+            "collectives": coll,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated(ctx.device) / 1e9,
+            "max_memory_reserved_gb":
+                torch.cuda.max_memory_reserved(ctx.device) / 1e9}
+
+
+def mesh_train_rank(ctx, arch=None, reduced: bool = True) -> dict:
+    """One rank of phase 13: (a) when `reduced`, then `arch` (if given) at
+    full width."""
+    out = {"coordinate": list(ctx.mesh.coordinate)}
+    if reduced:
+        out["reduced"] = mesh_train_reduced(ctx)
+    if arch is not None:
+        out["full"] = mesh_train_full(ctx, arch)
+    return out
+
+
+def check_mesh_train_reduced(torch, card, cpu) -> float:
+    """(a): the card's ranks against the CPU's, rank by rank: every step's
+    loss, learning rate and gradient norm and every leaf of the state a
+    rank holds within 2e-3, the card's launches exactly the steps' and
+    none on the CPU."""
+    from repro_torch.configs import get_config
+
+    overall = 0.0
+    for arch, _ in MESH_TRAIN:
+        worst = 0.0
+        cfg = get_config(arch).reduced()
+        want = mesh_train_launches(cfg, MESH_TRAIN_REDUCED["steps"])
+        for r, (c, h) in enumerate(zip(card, cpu)):
+            got, ref = c["reduced"][arch], h["reduced"][arch]
+            counts = {k: v for k, v in got["counts"].items() if v}
+            if counts != want or any(ref["counts"].values()):
+                raise AssertionError(
+                    f"mesh train {arch} reduced rank {r}: launches card "
+                    f"{counts}, cpu {ref['counts']}, want {want} and none")
+            for i, (a, b) in enumerate(zip(got["metrics"], ref["metrics"])):
+                for key in ("loss", "lr", "grad_norm"):
+                    worst = max(worst, _close_quiet(
+                        f"mesh train {arch} rank {r} step {i} {key}",
+                        torch.tensor([a[key]]), torch.tensor([b[key]]),
+                        2e-3))
+            for name, x in got["state"].items():
+                if x.dtype.is_floating_point:
+                    worst = max(worst, _close_quiet(
+                        f"mesh train {arch} rank {r} {name}", x,
+                        ref["state"][name], 2e-3))
+        log(f"mesh train {arch} reduced f32 on {MESH_TRAIN_REDUCED['shape']}"
+            f": card ranks == cpu ranks over {MESH_TRAIN_REDUCED['steps']} "
+            f"steps (losses {[round(m['loss'], 6) for m in got['metrics']]},"
+            f" grad norms {[round(m['grad_norm'], 4) for m in got['metrics']]}"
+            f"), every state leaf within 2e-3 (max abs err {worst:.3e}), "
+            f"launches {json.dumps(want)} a rank")
+        overall = max(overall, worst)
+    return overall
+
+
+def check_mesh_train_full(arch: str, shape, ranks) -> dict:
+    """(b), (c): every loss finite and the last below the first, the same
+    on every rank; each rank launched exactly `mesh_train_launches` and
+    nothing else; each rank's step p50 (the first step apart), tokens a
+    second, peak memory, the collectives' calls, bytes and share of the
+    steps."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    steps = MESH_TRAIN_STEPS
+    want = mesh_train_launches(cfg, steps)
+    tokens = MESH_TRAIN_BATCH * TRAIN_SEQ
+    per_rank = []
+    for r, run in enumerate(ranks):
+        full = run["full"]
+        losses = full["losses"]
+        counts = {k: v for k, v in full["counts"].items() if v}
+        if counts != want:
+            raise AssertionError(f"mesh train {arch} rank {r}: launches "
+                                 f"{full['counts']}, want {want}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"mesh train {arch} rank {r}: losses "
+                                 f"{losses} (finite and falling wanted)")
+        if losses != ranks[0]["full"]["losses"]:
+            raise AssertionError(f"mesh train {arch}: rank {r} logged "
+                                 f"{losses}, rank 0 {ranks[0]['full']['losses']}")
+        p50 = statistics.median(full["step_s"][1:])
+        coll = full["collectives"]
+        shown = {
+            "coordinate": run["coordinate"],
+            "first_step_ms": full["step_s"][0] * 1e3,
+            "step_ms_p50": p50 * 1e3,
+            "step_ms": [s * 1e3 for s in full["step_s"]],
+            "tokens_per_s": tokens / p50,
+            "max_memory_allocated_gb": full["max_memory_allocated_gb"],
+            "max_memory_reserved_gb": full["max_memory_reserved_gb"],
+            "collectives": dict(coll, share_of_steps=coll["s"] / max(
+                sum(full["step_s"]), 1e-9)),
+            "launches_a_step": {k: v // steps for k, v in counts.items()},
+            "losses": losses}
+        per_rank.append(shown)
+        log(f"mesh train {arch} full width on {shape} (two gloo ranks on "
+            f"one card; f32 params, bf16 compute, batch {MESH_TRAIN_BATCH} "
+            f"x seq {TRAIN_SEQ}, {steps} eager steps, lr {TRAIN_LR:g}, clip "
+            f"{TRAIN_CLIP:g}) rank {r}: {json.dumps(shown)}")
+    log(f"mesh train {arch}: loss {per_rank[0]['losses'][0]:.4f} -> "
+        f"{per_rank[0]['losses'][-1]:.4f} (fell), "
+        f"{json.dumps(per_rank[0]['launches_a_step'])} a step on each rank")
+    return {"ranks": per_rank, "shape": list(shape),
+            "launches": [run["full"]["counts"] for run in ranks]}
+
+
+def mesh_train_phase(torch) -> dict:
+    """Phase 13: K2, K4 and K4b against their plain versions at the shapes
+    a rank of (b) and (c) gives them (`check_mesh_train_kernels`); (a)
+    reduced f32 granite-moe and mamba2 steps on the card's
+    (1, 2) gloo mesh against the same steps on CPU ranks; (b)
+    granite-moe-1b-a400m at full width on (1, 2); (c) mamba2-130m at full
+    width on (2, 1); each run's launches, losses and per-rank figures."""
+    import functools
+    import gc
+
+    from repro_torch.launch.mesh import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel_errs = check_mesh_train_kernels(torch)
+    runs = {}
+    t0 = time.perf_counter()
+    for i, (arch, shape) in enumerate(MESH_TRAIN):
+        t = time.perf_counter()
+        runs[arch] = spawn(functools.partial(mesh_train_rank, arch=arch,
+                                             reduced=i == 0), shape,
+                           device="cuda", backend="gloo",
+                           timeout_s=MESH_TRAIN_TIMEOUT_S)
+        log(f"mesh train {arch} on {shape}: gloo ranks on the card ran in "
+            f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cpu = spawn(mesh_train_rank, MESH_TRAIN_REDUCED["shape"], device="cpu",
+                backend="gloo", timeout_s=MESH_TRAIN_TIMEOUT_S)
+    log(f"mesh train reduced on CPU ranks: {time.perf_counter() - t:.1f} s; "
+        f"phase 13 {time.perf_counter() - t0:.1f} s")
+    first = MESH_TRAIN[0][0]
+    worst = check_mesh_train_reduced(torch, runs[first], cpu)
+    out = {"reduced_max_abs_err": worst,
+           "kernels_at_rank_shapes_max_abs_err": kernel_errs}
+    for arch, shape in MESH_TRAIN:
+        out[arch] = check_mesh_train_full(arch, shape, runs[arch])
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -4251,6 +4615,15 @@ def main() -> int:
         from repro_torch.core import guard
         guard.set_parity("off")
         print(json.dumps({"mesh": mesh_phase(torch)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--mesh-train"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card_info(torch)
+        build_kernels()
+        from repro_torch.core import guard
+        guard.set_parity("off")
+        print(json.dumps({"mesh_train": mesh_train_phase(torch)}), flush=True)
         return 0
     if sys.argv[1:] == ["--ssd-time"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4390,6 +4763,14 @@ def main() -> int:
     guard.set_parity("off")
     meshed = mesh_phase(torch)
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+    mesh_trained = mesh_train_phase(torch)
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    mesh_train_paths = {"moe_gmm": {}, "ssd_scan": {}, "ssd_scan_bwd": {}}
+    for arch, _ in MESH_TRAIN:
+        for name in mesh_train_launches(get_config(arch), 1):
+            for r, c in enumerate(mesh_trained[arch]["launches"]):
+                mesh_train_paths[name][f"mesh train {arch} rank {r}"] = \
+                    c[name]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = [{
@@ -4441,7 +4822,8 @@ def main() -> int:
             "mamba2-130m": ssm_counts["ssd_scan"],
             "hymba-1.5b": family["hymba-1.5b"]["counts"]["ssd_scan"], **{
                 f"{arch} train": t["launches"]["ssd_scan"]
-                for arch, t in trained["ssm"].items()}},
+                for arch, t in trained["ssm"].items()},
+            **mesh_train_paths["ssd_scan"]},
         "parity": "ok",
         **{k: ssd_timing[k] for k in keys},
         "launch_ms": ssd_timing["launch_ms"],
@@ -4462,7 +4844,8 @@ def main() -> int:
             MOE_ARCH: moe_counts["moe_gmm"],
             f"{TRAIN_ARCH} train": trained["launches"]["moe_gmm"],
             **{f"mesh {TRAIN_ARCH} rank {r}": c["moe_gmm"]
-               for r, c in enumerate(meshed["launches"][TRAIN_ARCH])}},
+               for r, c in enumerate(meshed["launches"][TRAIN_ARCH])},
+            **mesh_train_paths["moe_gmm"]},
         "launches_a_train_step": trained["launches_a_step"]["moe_gmm"],
         "parity": "ok",
         **{k: gmm_times["decode gate/up"][k] for k in keys},
@@ -4472,7 +4855,7 @@ def main() -> int:
                                             **trained["gmm_times"],
                                             **meshed["gmm"]}.items()
                             if name != "decode gate/up"},
-    }, ssd_bwd_entry(trained)]
+    }, ssd_bwd_entry(trained, mesh_train_paths["ssd_scan_bwd"])]
     for name, source, replaces in GUPS_KERNELS:
         t = gups_times[name]
         kernels.append({
@@ -4492,6 +4875,7 @@ def main() -> int:
     print(json.dumps({"substrate": guard.stats()}), flush=True)
     print(json.dumps({"mesh": {k: meshed[k] for k in ("serve", "launches")}}),
           flush=True)
+    print(json.dumps({"mesh_train": mesh_trained}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,7 +128,8 @@ def spawn(fn: Callable[[ShardingCtx], Any], shape: Sequence[int], *,
           device: str, backend: str,
           axis_names: Sequence[str] = ("data", "model"),
           rules: Optional[Dict[str, Any]] = None,
-          timeout_s: float = DEFAULT_TIMEOUT_S) -> List[Any]:
+          timeout_s: float = DEFAULT_TIMEOUT_S,
+          deadline: bool = True) -> List[Any]:
     """Run ``fn(ctx)`` on every rank of a mesh of `shape`, one process a
     rank; returns each rank's value, in rank order (values come back
     through ``torch.save``: keep them on the CPU).
@@ -137,10 +138,13 @@ def spawn(fn: Callable[[ShardingCtx], Any], shape: Sequence[int], *,
     `functools.partial` of one). `device` is ``"cuda"`` (rank r on card
     ``r % device_count``) or ``"cpu"``; `backend` ``"nccl"`` or
     ``"gloo"``, named by the caller: NCCL with more ranks than cards, or on
-    the CPU, raises ValueError. `timeout_s` bounds both the process
-    group's collectives and the whole run: a rank that raises, or a run
-    past the limit, stops every rank and raises RuntimeError (with the
-    failing rank's traceback) or TimeoutError. Nothing hangs."""
+    the CPU, raises ValueError. `timeout_s` bounds each of the process
+    group's collectives and, with `deadline` (the default), the whole run
+    too: a rank that raises, or a run past the limit, stops every rank and
+    raises RuntimeError (with the failing rank's traceback) or
+    TimeoutError. Nothing hangs. Without `deadline` the run takes as long
+    as it takes (a training run), and a collective that waits past
+    `timeout_s` still fails it."""
     shape = tuple(int(s) for s in shape)
     axis_names = tuple(axis_names)
     world = math.prod(shape)
@@ -169,13 +173,13 @@ def spawn(fn: Callable[[ShardingCtx], Any], shape: Sequence[int], *,
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout_s
+        end = time.monotonic() + timeout_s if deadline else math.inf
         while True:
             codes = [p.exitcode for p in procs]
             failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
             if failed or all(c == 0 for c in codes):
                 break
-            if time.monotonic() > deadline:
+            if time.monotonic() > end:
                 raise TimeoutError(f"mesh {shape}: ranks still running after "
                                    f"{timeout_s:.0f} s")
             time.sleep(0.05)

@@ -1,15 +1,26 @@
 """Training launcher (the reference package's ``launch/train.py``).
 
 Picks an arch (reduced or custom dims), builds the Markov data task, and
-runs the fault-tolerant train loop on one device: the GPU unless
-``--device cpu`` is given (RuntimeError where there is no GPU).
+runs the fault-tolerant train loop: on one device, the GPU unless
+``--device cpu`` is given (RuntimeError where there is no GPU); or, with
+``--mesh mini``, on the reference's mini mesh of ``--ranks`` processes
+(``(ranks / 2, 2)`` when the count is even, else ``(ranks, 1)``), one a
+rank (`launch.mesh.spawn`). The reference takes its rank count from its
+devices; processes are named by the caller here, 2 by default.
+``--backend`` is the process group's: ``gloo`` on the CPU, ``nccl`` (the
+default) for one card a rank; ranks that share a card ask for ``gloo``,
+and NCCL with more ranks than cards raises. The run has no time limit;
+each collective has `spawn`'s. Rank 0's report is printed.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --reduced --device cpu --steps 100 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+      --reduced --mesh mini --ranks 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 
 from repro_torch.configs import get_config
@@ -17,10 +28,26 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train_loop import train
+from repro_torch.sharding import NULL_CTX, ShardingCtx
 
-MESH_REFUSED = ("--mesh mini: training on a device mesh is not ported yet "
-                "(serving on one is: launch.serve --mesh); ROADMAP Queue 1, "
-                "item 3b, \"Multi-device training\"")
+
+def _run(ctx: ShardingCtx, args, cfg):
+    """The loop on one device (`NULL_CTX`), or on one rank of the mesh
+    `ctx` runs."""
+    model = build_model(cfg, ctx)
+    if ctx.mesh is None or not any(ctx.mesh.coordinate):
+        print(f"arch={cfg.name} params={model.n_params()/1e6:.1f}M "
+              f"layers={cfg.n_layers} d_model={cfg.d_model}", flush=True)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                          global_batch=args.batch)
+    return train(
+        model, steps=args.steps, data_cfg=data_cfg,
+        opt=AdamWConfig(lr=args.lr, total_steps=args.steps,
+                        warmup_steps=max(args.steps // 20, 5)),
+        accum=args.accum, compress_grads=args.compress_grads,
+        ckpt_dir=args.ckpt_dir, fail_at_step=args.fail_at,
+        device=args.device if ctx.mesh is None else None,
+    )
 
 
 def main(argv=None):
@@ -42,10 +69,13 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a crash (fault-tolerance demo)")
     ap.add_argument("--mesh", default="none", choices=["none", "mini"])
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="--mesh mini's processes, one a rank (default 2)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="the mesh's process-group backend (default: nccl "
+                         "on cuda, gloo on cpu)")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        ap.error(MESH_REFUSED)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -63,20 +93,19 @@ def main(argv=None):
     if over:
         cfg = cfg.replace(**over)
 
-    model = build_model(cfg)
-    print(f"arch={cfg.name} params={model.n_params()/1e6:.1f}M "
-          f"layers={cfg.n_layers} d_model={cfg.d_model}")
+    if args.mesh == "mini":
+        from repro_torch.launch.mesh import mesh_by_name, spawn
+        from repro_torch.serve.engine import resolve_device
 
-    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                          global_batch=args.batch)
-    report = train(
-        model, steps=args.steps, data_cfg=data_cfg,
-        opt=AdamWConfig(lr=args.lr, total_steps=args.steps,
-                        warmup_steps=max(args.steps // 20, 5)),
-        accum=args.accum, compress_grads=args.compress_grads,
-        ckpt_dir=args.ckpt_dir, fail_at_step=args.fail_at,
-        device=args.device,
-    )
+        device = resolve_device(args.device).type
+        mesh = mesh_by_name("mini", devices=args.ranks)
+        report = spawn(functools.partial(_run, args=args, cfg=cfg),
+                       mesh.shape, axis_names=mesh.axis_names, device=device,
+                       backend=args.backend or ("gloo" if device == "cpu"
+                                                else "nccl"),
+                       deadline=False)[0]
+    else:
+        report = _run(NULL_CTX, args, cfg)
     first = min(report.losses)
     last = max(report.losses)
     print(json.dumps({

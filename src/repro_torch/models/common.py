@@ -279,10 +279,10 @@ def _decode_core(ctx: ShardingCtx, q, k_cache, v_cache, new_k, new_v, pos, *,
         write(v_cache, new_v, safe, in_range)
     o, lse = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, local,
                           return_lse=True)
-    m = ctx.all_reduce(lse.clone(), "max").clamp_min(NEG_INF)
+    m = ctx.all_reduce(lse, "max").clamp_min(NEG_INF)
     w = torch.exp(lse - m)                                    # [B, H]
     part = torch.cat([o.float() * w[..., None], w[..., None]], dim=-1)
-    ctx.all_reduce(part, "sum")       # [B, H, D + 1]: numerator, denominator
+    part = ctx.all_reduce(part, "sum")  # [B, H, D + 1]: numerator, denominator
     out = part[..., :-1] / part[..., -1:].clamp_min(1e-30)
     return out.to(q.dtype)[:, None], k_cache, v_cache
 

@@ -22,6 +22,15 @@ expert (dense), over this rank's experts' capacity buffers ``[E_l, n C,
 d]`` (a2a), or over this rank's experts with one token block shared at
 expert stride 0 (replicated). Under a mesh each rank holds only its
 ``E / n`` experts of ``w_gate``, ``w_up`` and ``w_down`` (`ep_sharded`).
+
+Both expert-parallel backends train: their collectives are differentiable
+under `sharding`'s sum convention (the all_to_alls' backward the
+all_to_alls back, the all_gather's a reduce-scatter, the all_reduce's
+and the aux mean's an all_reduce), so a rank's backward runs K2's d
+tokens and d weights over the same buffers: 9 launches a layer a step.
+As in the reference, each shard sizes its capacity from its own tokens
+and drops by it, and the aux loss is the mean of the shards' terms, so a
+mesh's loss is not the single-device loss of a MoE arch.
 """
 from __future__ import annotations
 

@@ -40,6 +40,11 @@ class Model:
     def param_partition_specs(self):
         return pm.partition_specs(self.param_specs(), self.ctx)
 
+    def held_param_specs(self):
+        """What each rank holds of every parameter (`params.held_specs`):
+        the partition spec a leaf of the parameters `init` gives."""
+        return pm.held_specs(self.param_specs(), self.cfg, self.ctx)
+
     def n_params(self) -> int:
         return pm.count(self.param_specs())
 

@@ -8,17 +8,20 @@ learning rate, decoupled weight decay on every leaf, f32 moments. It is
 not ``torch.optim.AdamW``, whose clip and schedule are not these. Trees
 are nested dicts of tensors (`core.tree`); `apply_updates` returns a new
 state and leaves the old one as it was; `apply_updates_` writes the same
-update into the state's own tensors (the train step's CUDA graph).
+update into the state's own tensors (the train step's CUDA graph). On a
+mesh the global norm counts every element of the gradients once
+(`global_norm`), so that every rank clips alike.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.core import tree
+from repro_torch.sharding import NULL_CTX, ShardingCtx, split_axes
 
 __all__ = ["AdamWConfig", "apply_updates", "apply_updates_", "global_norm",
            "init_state", "lr_schedule"]
@@ -62,18 +65,33 @@ def init_state(params) -> Dict[str, Any]:
     }
 
 
-def global_norm(grads) -> torch.Tensor:
-    """The f32 L2 norm over every leaf of a gradient tree."""
-    total = sum(torch.sum(torch.square(g.float())) for g in tree.leaves(grads))
+def global_norm(grads, ctx: ShardingCtx = NULL_CTX, specs=None
+                ) -> torch.Tensor:
+    """The f32 L2 norm over every leaf of a gradient tree. On a mesh,
+    `specs` (a tree of partition specs of the gradients' structure: what
+    each rank holds) says which leaves are a rank's block of a split one:
+    their squares are summed over the axes that split them, so that each
+    element counts once; a whole leaf counts once, from this rank's copy.
+    Every rank then holds the same norm."""
+    if ctx.mesh is None or specs is None:
+        total = sum(torch.sum(torch.square(g.float()))
+                    for g in tree.leaves(grads))
+        return torch.sqrt(total)
+    by_axes: Dict[Tuple[str, ...], Any] = {}
+    for g, spec in zip(tree.leaves(grads), tree.leaves(specs)):
+        key = split_axes(spec)
+        by_axes[key] = by_axes.get(key, 0) + torch.sum(torch.square(g.float()))
+    total = sum(ctx.sum_over(sq, axes) for axes, sq in sorted(by_axes.items()))
     return torch.sqrt(total)
 
 
-def _update_scalars(state: Dict[str, Any], grads, cfg: AdamWConfig):
+def _update_scalars(state: Dict[str, Any], grads, cfg: AdamWConfig,
+                    ctx: ShardingCtx, specs):
     """(step + 1, its learning rate, the gradients' global norm, the clip
     scale, the two bias corrections): what every leaf's update reads."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx, specs)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.grad_clip else 1.0)
     c1 = 1 - cfg.b1 ** step.float()
@@ -98,9 +116,12 @@ def _leaves(state: Dict[str, Any], grads):
 
 
 @torch.no_grad()
-def apply_updates(state: Dict[str, Any], grads, cfg: AdamWConfig):
-    """One AdamW step. Returns (new_state, {"lr", "grad_norm"})."""
-    step, lr, gnorm, *coef = _update_scalars(state, grads, cfg)
+def apply_updates(state: Dict[str, Any], grads, cfg: AdamWConfig, *,
+                  ctx: ShardingCtx = NULL_CTX, specs=None):
+    """One AdamW step. Returns (new_state, {"lr", "grad_norm"}). On a mesh
+    `grads` are the reduced gradients of the leaves this rank holds and
+    `specs` their partition specs (`global_norm`)."""
+    step, lr, gnorm, *coef = _update_scalars(state, grads, cfg, ctx, specs)
     out = [_update_leaf(*leaf, lr, *coef, cfg)
            for leaf in _leaves(state, grads)]
     template = state["params"]
@@ -114,14 +135,15 @@ def apply_updates(state: Dict[str, Any], grads, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def apply_updates_(state: Dict[str, Any], grads, cfg: AdamWConfig
+def apply_updates_(state: Dict[str, Any], grads, cfg: AdamWConfig, *,
+                   ctx: ShardingCtx = NULL_CTX, specs=None
                    ) -> Dict[str, torch.Tensor]:
     """`apply_updates` written into the state's own tensors: the same
     arithmetic, leaf by leaf, each leaf's new params, mu and nu copied
     into its old ones, and the step advanced in place. The counterpart of
     the reference's donated state: a CUDA graph of the train step keeps
     no second copy of params, mu and nu. Returns {"lr", "grad_norm"}."""
-    step, lr, gnorm, *coef = _update_scalars(state, grads, cfg)
+    step, lr, gnorm, *coef = _update_scalars(state, grads, cfg, ctx, specs)
     for p, g, mu, nu in _leaves(state, grads):
         new_p, new_mu, new_nu = _update_leaf(p, g, mu, nu, lr, *coef, cfg)
         p.copy_(new_p)

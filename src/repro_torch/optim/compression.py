@@ -1,13 +1,14 @@
 """Int8 gradient compression with error feedback (EF-SGD style): the
-reference package's ``optim/compression.py`` on one device.
+reference package's ``optim/compression.py``.
 
 Per-tensor max-abs scaling to int8, with the quantization residual fed
 back into the next step so that the long-run bias vanishes. The train
-loop's graph step runs `ef_compress_`, the in-place `ef_compress`, when
-``compress_grads=True`` (it models the wire format). The reference's
-``compressed_psum``, the quantized all-reduce over a mesh axis, needs a
-process group and comes with the multi-device work (ROADMAP Queue 1,
-"Multi-device").
+step runs `ef_compress_`, the in-place `ef_compress`, when
+``compress_grads=True`` (it models the wire format); on a mesh it runs on
+the reduced gradients. `compressed_psum` is the reference's quantized
+all-reduce over one mesh axis: quantize locally, sum the int8 values as
+int32 over the axis, dequantize with the largest of the ranks' scales.
+As in the reference, nothing on the train path calls it.
 """
 from __future__ import annotations
 
@@ -16,9 +17,10 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import tree
+from repro_torch.sharding import ShardingCtx
 
-__all__ = ["dequantize_int8", "ef_compress", "ef_compress_",
-           "init_error_state", "quantize_int8"]
+__all__ = ["compressed_psum", "dequantize_int8", "ef_compress",
+           "ef_compress_", "init_error_state", "quantize_int8"]
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,3 +70,18 @@ def init_error_state(params):
     return tree.map_tree(
         lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
         params)
+
+
+@torch.no_grad()
+def compressed_psum(x: torch.Tensor, ctx: ShardingCtx,
+                    axis: str) -> torch.Tensor:
+    """The sum of `x` over mesh axis `axis` through int8 (the reference's
+    ``compressed_psum`` in a ``shard_map``): each rank quantizes its `x`,
+    the int8 values are summed as int32 over the axis (exact for up to
+    2^23 ranks), and the sum is dequantized with the largest of the ranks'
+    scales. Returns a new tensor in `x`'s type, the same on every rank of
+    the axis."""
+    q, scale = quantize_int8(x.float())
+    total = ctx.all_reduce(q.to(torch.int32), "sum", axis)
+    scale = ctx.all_reduce(scale, "max", axis)
+    return dequantize_int8(total, scale).to(x.dtype)

@@ -1,17 +1,29 @@
 """Step builders: train / prefill / decode, one per shape-suite kind (the
-reference package's ``runtime/steps.py`` on one device).
+reference package's ``runtime/steps.py``).
 
 The train step differentiates `Model.loss` with `torch.autograd` and applies
 AdamW. Gradient accumulation is a Python loop over microbatches (the
 reference's ``lax.scan``) with the same f32 mean of gradients and losses.
 `make_train_step` is the functional step, run eagerly (the reference's
-`make_train_step`). `jit_train_step` is the reference's mesh-less
-``jax.jit(step, donate_argnums=(0,))``: the same arithmetic, written into
-the state's own tensors and replayed as one CUDA graph
-(`core/step_graph.py`). The sharding helpers give the batch's and the
-state's partition specs and the state's meta tensors; training on a mesh
-(the reference's mesh branch of its jitted step) is not ported yet:
-`jit_train_step` refuses a model with a mesh (ROADMAP item 3b).
+`make_train_step`). `jit_train_step` is the reference's jitted, donated
+step: without a mesh the same arithmetic, written into the state's own
+tensors and replayed as one CUDA graph (`core/step_graph.py`); on a
+running mesh (one process a rank, `launch.mesh.spawn`) the same step run
+eagerly on every rank.
+
+On a mesh each rank holds its rows of the batch (`local_batch`) and its
+share of the parameters (`Model.held_param_specs`: a MoE layer's experts
+split over `model`, every other leaf whole). The step follows the sum
+convention of `sharding`: each rank's backward is seeded with 1 / (the
+mesh's ranks), its share of the loss's mean, and `reduce_grads` sums each
+leaf's gradient over the mesh axes that do not split it (a whole leaf over
+every axis, an expert leaf over `data`), once a step, after accumulation.
+The logged loss is the mean over the ranks, the global loss; the global
+norm counts every element once (`optim.adamw.global_norm`). The reduced
+gradients are the same bytes on every rank that holds a leaf, so AdamW
+keeps the copies of a whole leaf equal with no broadcast. The sharding
+helpers give the batch's and the state's partition specs and the state's
+meta tensors.
 """
 from __future__ import annotations
 
@@ -25,16 +37,12 @@ from repro_torch.core.step_graph import StepGraph
 from repro_torch.models.registry import Model
 from repro_torch.optim import AdamWConfig, apply_updates, apply_updates_
 from repro_torch.optim.compression import ef_compress, ef_compress_
-from repro_torch.sharding import ShardingCtx
+from repro_torch.sharding import ShardingCtx, local_shard, split_axes
 
-__all__ = ["MESH_TRAIN_REFUSED", "abstract_state", "batch_shardings",
-           "jit_train_step", "make_decode_step", "make_prefill_step",
-           "make_train_step", "state_shardings", "value_and_grad"]
-
-MESH_TRAIN_REFUSED = ("training on a device mesh (compressed_psum, the "
-                      "parameters placed by their rules, the jitted step's "
-                      "mesh branch) is not ported yet: ROADMAP Queue 1, "
-                      "item 3b")
+__all__ = ["abstract_state", "batch_shardings", "held_state_specs",
+           "jit_train_step", "local_batch", "make_decode_step",
+           "make_prefill_step", "make_train_step", "reduce_grads",
+           "state_shardings", "value_and_grad"]
 
 
 # ----------------------------------------------------------------- sharding
@@ -58,6 +66,65 @@ def state_shardings(model: Model):
     return {"step": (), "params": ps, "mu": ps, "nu": ps}
 
 
+def held_state_specs(model: Model, state: Dict[str, Any]):
+    """What each rank holds of every leaf of a train state (params, mu, nu
+    and, with compression, grad_error: the parameters' held specs; the step
+    whole)."""
+    ps = model.held_param_specs()
+    return {k: (() if k == "step" else ps) for k in state}
+
+
+def local_batch(ctx: ShardingCtx, batch: Dict[str, torch.Tensor],
+                accum: int = 1) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch (the batch itself without a
+    mesh). The batch is cut into `accum` microbatches along its leading
+    axis, as the reference's step cuts it, and the rank takes its block of
+    each (`batch_shardings`' spec of a microbatch), so that microbatch i of
+    the rank's rows is its shard of the reference's microbatch i. A
+    microbatch that does not split over ``batch``'s axes is held whole."""
+    if ctx.mesh is None:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        mbs = v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+        spec = ctx.spec(["batch"] + [None] * (v.ndim - 1), mbs.shape[1:])
+        out[k] = local_shard(mbs, (None,) + spec, ctx).reshape(
+            -1, *v.shape[1:])
+    return out
+
+
+def _mesh_specs(model: Model):
+    """What each rank holds of the parameters, on a running mesh (None
+    without a mesh; a mesh of shapes alone raises RuntimeError)."""
+    if model.ctx.mesh is None:
+        return None
+    model.ctx._running()
+    return model.held_param_specs()
+
+
+def reduce_grads(grads, specs, ctx: ShardingCtx):
+    """Each rank's gradient shares -> the gradients of the leaves it holds:
+    a leaf's shares summed over the mesh axes that do not split it (a
+    whole leaf over every axis, a leaf split over `model` over `data`).
+    The leaves of one group go through one collective, as one flat f32
+    buffer."""
+    flat = tree.leaves(grads)
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, spec in enumerate(tree.leaves(specs)):
+        held = split_axes(spec)
+        axes = tuple(a for a in ctx.mesh.axis_names if a not in held)
+        groups.setdefault(axes, []).append(i)
+    out = list(flat)
+    with torch.no_grad():
+        for axes, idx in groups.items():
+            buf = torch.cat([flat[i].float().reshape(-1) for i in idx])
+            buf = ctx.sum_over(buf, axes)
+            for i, part in zip(idx, buf.split([flat[i].numel()
+                                               for i in idx])):
+                out[i] = part.view(flat[i].shape).to(flat[i].dtype)
+    return tree.unflatten(grads, out)
+
+
 def abstract_state(model: Model):
     """The train state as meta tensors (no memory)."""
     p = model.abstract_params()
@@ -69,12 +136,17 @@ def value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor, Any]:
     """(loss, gradient tree) of `model.loss` at `params`: the parameters
     are differentiated as detached leaves (no copy), so `params` itself
     never requires grad. A parameter the loss does not reach gets a zero
-    gradient, as under ``jax.grad``."""
+    gradient, as under ``jax.grad``. On a mesh: this rank's loss (of its
+    rows) and its gradient shares, the backward seeded with 1 / (the
+    mesh's ranks); `reduce_grads` makes them the gradients."""
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
     live = tree.unflatten(params, leaves)
     with torch.enable_grad():
         loss, _ = model.loss(live, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        seed = None if model.ctx.mesh is None else \
+            torch.full_like(loss, 1.0 / model.ctx.mesh.size)
+        grads = torch.autograd.grad(loss, leaves, grad_outputs=seed,
+                                    allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree.unflatten(params, grads)
@@ -82,20 +154,27 @@ def value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor, Any]:
 
 def _loss_and_grads(model: Model, params, batch, accum: int):
     """(loss, gradients) of one step: of the whole batch, or the f32 means
-    over `accum` microbatches cut along the batch's leading axis."""
+    over `accum` microbatches cut along the batch's leading axis. On a
+    mesh: of the rank's rows, the gradients reduced over the ranks
+    (`reduce_grads`) and the loss their mean, the global loss."""
     if accum == 1:
-        return value_and_grad(model, params, batch)
-    gsum = tree.map_tree(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params)
-    lsum = 0.0
-    for i in range(accum):
-        mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
-              for k, v in batch.items()}
-        loss, g = value_and_grad(model, params, mb)
-        gsum = tree.map_tree(torch.add, gsum, g)
-        lsum = lsum + loss
-    return lsum / accum, tree.map_tree(lambda g: g / accum, gsum)
+        loss, grads = value_and_grad(model, params, batch)
+    else:
+        gsum = tree.map_tree(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+        lsum = 0.0
+        for i in range(accum):
+            mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+                  for k, v in batch.items()}
+            loss, g = value_and_grad(model, params, mb)
+            gsum = tree.map_tree(torch.add, gsum, g)
+            lsum = lsum + loss
+        loss, grads = lsum / accum, tree.map_tree(lambda g: g / accum, gsum)
+    specs = _mesh_specs(model)
+    if specs is None:
+        return loss, grads
+    return (model.ctx.mean_all(loss), reduce_grads(grads, specs, model.ctx))
 
 
 def make_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
@@ -105,13 +184,16 @@ def make_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
     microbatches along its leading axis. With `compress` the gradients go
     through `ef_compress` against ``state["grad_error"]`` before the update
     (the reference train loop's compressed step) and the new state holds
-    the new error. The caller's state is left as it was."""
+    the new error. The caller's state is left as it was. On a running mesh
+    `batch` is the rank's rows (`local_batch`) and the state its share."""
+    ctx, specs = model.ctx, _mesh_specs(model)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         loss, grads = _loss_and_grads(model, state["params"], batch, accum)
         if compress:
             grads, err = ef_compress(grads, state["grad_error"])
-        new_state, opt_metrics = apply_updates(state, grads, opt)
+        new_state, opt_metrics = apply_updates(state, grads, opt, ctx=ctx,
+                                               specs=specs)
         if compress:
             new_state["grad_error"] = err
         return new_state, {"loss": loss, **opt_metrics}
@@ -121,9 +203,9 @@ def make_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
 
 def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
                    compress: bool = False, donate: bool = True):
-    """The reference's jitted, donated train step on one device (its
-    ``runtime/steps.py:jit_train_step`` without a mesh, and the train
-    loop's ``jax.jit(step_fn, donate_argnums=(0,))``). Returns
+    """The reference's jitted, donated train step (its
+    ``runtime/steps.py:jit_train_step``, and the train loop's
+    ``jax.jit(step_fn, donate_argnums=(0,))``). Returns
     step(state, batch) -> (state, metrics), `make_train_step`'s arithmetic
     with the update written into the state's own tensors
     (`apply_updates_`, and `ef_compress_` into ``state["grad_error"]``
@@ -149,9 +231,14 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
     tensors stay as they were, and the returned state is the step's own,
     rewritten by its next call.
 
-    A model with a mesh raises NotImplementedError (`MESH_TRAIN_REFUSED`)."""
-    if model.ctx.mesh is not None:
-        raise NotImplementedError(MESH_TRAIN_REFUSED)
+    On a model whose `ctx` holds a running mesh (a mesh of shapes alone
+    raises RuntimeError), every call is the step run eagerly on this
+    rank: `batch` is its rows (`local_batch`), the state its share, the
+    gradients reduced over the ranks before compression and AdamW, and
+    ``step.graph`` is None. No CUDA graph is captured there: gloo's
+    collectives run on the host and cannot be captured, and NCCL cannot
+    put two ranks on one card, which is how one card runs a mesh."""
+    ctx, specs = model.ctx, _mesh_specs(model)
     names: List[str] = []
     own: Dict[str, Any] = {}
 
@@ -160,9 +247,16 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
         loss, grads = _loss_and_grads(model, state["params"], batch, accum)
         if compress:
             grads = ef_compress_(grads, state["grad_error"])
-        return {"loss": loss, **apply_updates_(state, grads, opt)}
+        return {"loss": loss, **apply_updates_(state, grads, opt, ctx=ctx,
+                                               specs=specs)}
 
-    graph = StepGraph(train_fn, "train_step")
+    if ctx.mesh is None:
+        graph = run = StepGraph(train_fn, "train_step")
+    else:
+        graph = None
+
+        def run(args, values):
+            return train_fn(*args, *(v.to(ctx.device) for v in values))
 
     def step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         if not names:
@@ -179,7 +273,7 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
                     if mine is not theirs:
                         mine.copy_(theirs)
             state = own["state"]
-        metrics = graph((state,), [batch[k] for k in names])
+        metrics = run((state,), [batch[k] for k in names])
         return state, metrics
 
     step.graph = graph

@@ -2,7 +2,8 @@
 (the reference package's ``runtime/train_loop.py``). Every step goes
 through `runtime.steps.jit_train_step`, the counterpart of the reference's
 ``jax.jit(step_fn, donate_argnums=(0,))``: on the card one captured CUDA
-graph, replayed; on the CPU the same step run eagerly."""
+graph, replayed; on the CPU, and on every rank of a device mesh, the same
+step run eagerly."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,12 +14,14 @@ import torch
 
 from repro_torch.checkpointing.checkpoint import (AsyncCheckpointer,
                                                   latest_step, restore)
+from repro_torch.core import tree
 from repro_torch.data.pipeline import DataConfig, MarkovTask
 from repro_torch.models.registry import Model
 from repro_torch.optim import AdamWConfig, init_state
 from repro_torch.optim.compression import init_error_state
 from repro_torch.runtime.fault_tolerance import StragglerMonitor
-from repro_torch.runtime.steps import jit_train_step
+from repro_torch.runtime.steps import (held_state_specs, jit_train_step,
+                                       local_batch)
 
 __all__ = ["TrainReport", "train"]
 
@@ -49,31 +52,57 @@ def train(model: Model, *, steps: int, data_cfg: DataConfig,
     at its end; on the card the first step (of this call) is the eager
     step and the capture, every later one a replay. With
     `compress_grads`, as in the reference, the whole batch is one
-    microbatch (`accum` is not used)."""
+    microbatch (`accum` is not used).
+
+    On a model whose `ctx` holds a running mesh (every rank of
+    `launch.mesh.spawn` calls `train`) the loop runs on the mesh's device
+    (`device`, if given, must be its type): each rank draws every leaf
+    whole on the CPU from `seed` (a CUDA generator draws other numbers, so
+    the card's mesh and the CPU's start alike) and keeps its share on its
+    device, takes its rows of each global batch (`steps.local_batch`),
+    and logs the global loss, the same on every rank. A checkpoint holds
+    the whole state (rank 0 writes it) and a resume gives each rank its
+    share, whatever mesh wrote it."""
     from repro_torch.serve.engine import resolve_device
 
     t_start = time.time()
-    device = resolve_device(device)
+    ctx = model.ctx
+    if ctx.mesh is None:
+        device = resolve_device(device)
+    else:
+        ctx._running()
+        if device is not None and torch.device(device).type != \
+                ctx.device.type:
+            raise ValueError(f"the mesh's ranks run on {ctx.device.type}, "
+                             f"not {device}")
+        device = ctx.device
     opt = opt or AdamWConfig(total_steps=steps)
     task = MarkovTask(data_cfg)
+    accum = 1 if compress_grads else accum
 
     # the step is dropped on return, and the graph's memory pool with it
-    step_fn = jit_train_step(model, opt, accum=1 if compress_grads else accum,
+    step_fn = jit_train_step(model, opt, accum=accum,
                              compress=compress_grads)
 
     # ---- init or resume
     resumed_from = None
-    gen = torch.Generator(device=device)
+    gen = torch.Generator(device=device if ctx.mesh is None else "cpu")
     gen.manual_seed(seed)
-    params = model.init(gen, device)
+    if ctx.mesh is None:
+        params = model.init(gen, device)
+    else:
+        params = tree.map_tree(lambda p: p.to(device),
+                               model.init(gen, "cpu"))
     state = init_state(params)
     if compress_grads:
         state["grad_error"] = init_error_state(params)
+    specs = held_state_specs(model, state) if ctx.mesh is not None else None
     if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
         resumed_from = latest_step(ckpt_dir)
-        state = restore(ckpt_dir, state)
+        state = restore(ckpt_dir, state, ctx=ctx, specs=specs)
 
-    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir is not None else None
+    ckpt = AsyncCheckpointer(ckpt_dir, ctx=ctx, specs=specs) \
+        if ckpt_dir is not None else None
     monitor = StragglerMonitor()
     losses: Dict[int, float] = {}
     step_s: List[float] = []
@@ -82,8 +111,8 @@ def train(model: Model, *, steps: int, data_cfg: DataConfig,
     for step in range(start, steps):
         if fail_at_step is not None and step == fail_at_step:
             raise RuntimeError(f"injected failure at step {step}")
-        batch = {k: torch.as_tensor(v)
-                 for k, v in task.batch_for_step(step).items()}
+        batch = local_batch(ctx, {k: torch.as_tensor(v) for k, v in
+                                  task.batch_for_step(step).items()}, accum)
         with monitor.timed() as timer:
             state, metrics = step_fn(state, batch)
             if device.type == "cuda":

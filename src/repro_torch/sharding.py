@@ -18,6 +18,30 @@ regions' collectives over an axis's process group (`all_reduce`,
 `all_to_all`, `all_gather`, `mean_all`). Every tensor a rank holds is its
 own shard: the whole tensor where the spec replicates, its slice
 (`local_shard`) where the spec splits it.
+
+The collectives are out of place and differentiable, under one convention,
+the *sum* convention: every rank differentiates its share of the global
+objective (the objective is the sum of the ranks' shares), so a leaf's
+gradient is the sum, over the ranks that compute with it, of what each
+rank's backward gives it. Each collective's backward is then its textbook
+transpose, itself a collective over the same ranks:
+
+  * ``all_reduce`` (sum)  -> ``all_reduce`` (sum) of the cotangents;
+  * ``mean_all``          -> ``all_reduce`` of the cotangents over every
+                             rank, divided by their count;
+  * ``all_to_all``        -> the ``all_to_all`` back;
+  * ``all_gather``        -> reduce-scatter: the cotangents' blocks summed
+                             over the axis, in rank order, each rank keeping
+                             its own block (an ``all_to_all`` of the blocks,
+                             then their sum).
+
+A slice a rank takes of a tensor every rank holds (``x[:, r*s:(r+1)*s]``)
+is differentiated by autograd as itself: its cotangent lands in the rank's
+block and zeros elsewhere, and the sum over the ranks makes it whole. The
+train step (`runtime.steps`) seeds each rank's backward with 1 / (the
+number of ranks), its share of the mean that every rank computes, and sums
+each leaf's gradient over the axes of the ranks that hold it. ``all_reduce``
+with ``max`` (serving's log-sum-exp merge) has no backward.
 """
 from __future__ import annotations
 
@@ -31,7 +55,7 @@ import torch
 
 __all__ = ["AxisVal", "DEFAULT_RULES", "Mesh", "NULL_CTX", "ShardingCtx",
            "collective_stats", "local_shard", "reset_collective_stats",
-           "tree_specs"]
+           "split_axes", "tree_specs"]
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -219,56 +243,133 @@ class ShardingCtx:
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum",
                    axis: str = "model") -> torch.Tensor:
-        """``op`` ("sum" or "max") of `x` over mesh axis `axis`, in place;
-        returns `x` (the identity on an axis of one rank)."""
+        """``op`` ("sum" or "max") of `x` over mesh axis `axis`: a new
+        tensor (`x` itself on an axis of one rank). The sum is
+        differentiable (its backward the same sum of the cotangents); the
+        max is not, and refuses a tensor that requires grad."""
         if self.axis_sizes.get(axis, 1) == 1:
             return x
-        import torch.distributed as dist
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        with _counted(x):
-            dist.all_reduce(x, op=red, group=self.group(axis))
-        return x
+        if op == "sum":
+            return _AllReduceSum.apply(x, self.group(axis))
+        if op != "max":
+            raise ValueError(f"all_reduce op is sum or max, got {op!r}")
+        if x.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError("all_reduce max has no backward")
+        return _all_reduce(x, "max", self.group(axis))
 
     def all_to_all(self, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """``jax.lax.all_to_all(x, axis, 0, 0)``: block i of `x`'s leading
         axis (of size n, the axis's ranks) goes to rank i, and block i of
-        the result came from rank i."""
+        the result came from rank i. Its backward is the all_to_all back."""
         n = self.axis_sizes.get(axis, 1)
         if x.shape[0] != n:
             raise ValueError(f"all_to_all over {axis!r} needs a leading axis "
                              f"of {n}, got {tuple(x.shape)}")
         if n == 1:
             return x
-        import torch.distributed as dist
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        with _counted(x):
-            dist.all_to_all_single(out, x, group=self.group(axis))
-        return out
+        return _AllToAll.apply(x, self.group(axis))
 
     def all_gather(self, x: torch.Tensor, axis: str = "model",
                    dim: int = 0) -> torch.Tensor:
-        """The axis's ranks' `x` concatenated along `dim`, in rank order."""
+        """The axis's ranks' `x` concatenated along `dim`, in rank order.
+        Its backward is the reduce-scatter of the cotangents."""
         n = self.axis_sizes.get(axis, 1)
         if n == 1:
             return x
-        import torch.distributed as dist
-        parts = [torch.empty_like(x) for _ in range(n)]
-        with _counted(x):
-            dist.all_gather(parts, x.contiguous(), group=self.group(axis))
-        return torch.cat(parts, dim=dim)
+        return _AllGather.apply(x, self.group(axis), n, dim)
+
+    def sum_over(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """The sum of `x` over the ranks of mesh axes `axes` (a new tensor;
+        every axis: the whole mesh; none: `x` itself), with no backward:
+        the train step's reduction of the gradients. Every rank of a group
+        gets the same bytes."""
+        axes = tuple(a for a in axes if self.axis_sizes.get(a, 1) > 1)
+        if not axes:
+            return x
+        self._running()
+        covered = {a for a in self.mesh.axis_names
+                   if self.axis_sizes[a] > 1}
+        if set(axes) == covered:
+            return _all_reduce(x, "sum", None)
+        if len(axes) == 1:
+            return _all_reduce(x, "sum", self.group(axes[0]))
+        raise NotImplementedError(f"a sum over mesh axes {axes} of "
+                                  f"{self.mesh.axis_names}")
 
     def mean_all(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of `x` over every rank of the mesh (the reference's
-        ``pmean`` over all axes): a new tensor."""
+        ``pmean`` over all axes): a new tensor, differentiable."""
         if self.mesh is None or self.mesh.size == 1:
             return x
         self._running()
-        import torch.distributed as dist
-        out = x.clone()
-        with _counted(out):
-            dist.all_reduce(out, op=dist.ReduceOp.SUM)
-        return out / self.mesh.size
+        return _AllReduceSum.apply(x, None) / self.mesh.size
+
+
+# ------------------------------------------------------------ the collectives
+
+
+def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``op`` of `x` over `group` (None: every rank), into a new tensor."""
+    import torch.distributed as dist
+    out = torch.clone(x, memory_format=torch.contiguous_format)
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    with _counted(out):
+        dist.all_reduce(out, op=red, group=group)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with _counted(x):
+        dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    with _counted(x):
+        dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g, "sum", fctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group):
+        fctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_to_all(g, fctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, group, n, dim):
+        fctx.group, fctx.n, fctx.dim = group, n, dim
+        return _all_gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        # reduce-scatter: block i of every rank's cotangent goes to rank i,
+        # which sums the n blocks it receives in rank order
+        blocks = torch.stack(g.chunk(fctx.n, dim=fctx.dim))
+        return _all_to_all(blocks, fctx.group).sum(0), None, None, None
 
 
 NULL_CTX = ShardingCtx(mesh=None)
@@ -284,6 +385,15 @@ def _shard_index(ctx: ShardingCtx, entry: AxisVal) -> Tuple[int, int]:
         idx = idx * size + ctx.index(a)
         n *= size
     return idx, n
+
+
+def split_axes(spec: Sequence[AxisVal]) -> Tuple[str, ...]:
+    """The mesh axes a partition spec splits its tensor over."""
+    axes: Tuple[str, ...] = ()
+    for entry in spec:
+        if entry is not None:
+            axes += (entry,) if isinstance(entry, str) else tuple(entry)
+    return axes
 
 
 def local_shard(x: torch.Tensor, spec: Sequence[AxisVal],

@@ -1998,3 +1998,102 @@ def test_train_step_capture_skips_the_sentinel(cuda_device):
     assert step.graph.replays == 3
     assert guard.stats()["parity_checks"] == checks
     assert guard.stats()["parity_mismatches"] == 0
+
+
+# ------------------------------------------------------- training on a mesh
+
+
+def _mesh_train_rank(ctx, arch):
+    """Three reduced f32 `jit_train_step` steps of `arch` on one rank of a
+    mesh (granite-moe at a capacity factor that drops tokens), from a CPU
+    draw: each step's metrics, the state after them on the CPU, and the
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime.steps import jit_train_step, local_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
+    if cfg.moe:
+        cfg = cfg.replace(capacity_factor=0.5)
+    model = build_model(cfg, ctx)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    state = init_state(tree.map_tree(lambda x: x.to(ctx.device),
+                                     model.init(gen, "cpu")))
+    step = jit_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                             total_steps=3))
+    task = MarkovTask(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                 global_batch=4))
+    reset_launch_counts()
+    metrics = []
+    for i in range(3):
+        batch = {k: torch.as_tensor(v)
+                 for k, v in task.batch_for_step(i).items()}
+        state, m = step(state, local_batch(ctx, batch))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "counts": launch_counts(),
+            "state": [x.cpu() for x in tree.leaves(state)]}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m"])
+def test_mesh_train_steps_on_the_card_equal_the_cpu(cuda_device, arch):
+    """Two gloo ranks sharing the card against two CPU ranks, the (1, 2)
+    mesh: every step's loss, learning rate and gradient norm and every
+    leaf of each rank's state within 2e-3; the card's ranks launch K2 9
+    times a MoE layer a step, or a K4 forward and backward call a layer a
+    step, and the CPU's nothing."""
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+
+    fn = functools.partial(_mesh_train_rank, arch=arch)
+    card = spawn(fn, (1, 2), device="cuda", backend="gloo", timeout_s=300)
+    cpu = spawn(fn, (1, 2), device="cpu", backend="gloo", timeout_s=300)
+    layers = get_config(arch).reduced().n_layers
+    want = {"moe_gmm": 9 * layers * 3} if arch.startswith("granite") else \
+        {"ssd_scan": layers * 3, "ssd_scan_bwd": layers * 3}
+    for got, ref in zip(card, cpu):
+        assert {k: v for k, v in got["counts"].items() if v} == want
+        assert not any(ref["counts"].values())
+        for a, b in zip(got["metrics"], ref["metrics"]):
+            for key in ("loss", "lr", "grad_norm"):
+                assert abs(a[key] - b[key]) <= TOL[torch.float32], key
+        for x, y in zip(got["state"], ref["state"]):
+            if x.dtype.is_floating_point:
+                torch.testing.assert_close(x, y, atol=TOL[torch.float32],
+                                           rtol=0)
+            else:
+                assert torch.equal(x, y)
+
+
+def test_flash_decode_bound_takes_the_dtypes_bytes_and_peak():
+    """`chip_smoke.flash_decode_bound` in f32: twice bf16's bytes, the same
+    operations, over the f32 peak; the larger of the two times is the
+    bound (runs without a card)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_bound", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shape = (8, 16, 8, 64, 527)            # granite-moe's f32 mesh shard
+    bf16 = smoke.flash_decode_bound(*shape)
+    assert bf16 == smoke.flash_decode_bound(*shape, "bfloat16")
+    f32 = smoke.flash_decode_bound(*shape, "float32")
+    assert f32[2] == 2 * bf16[2] and f32[3] == bf16[3]
+    for (ms, by, nbytes, flops), dtype in ((bf16, "bfloat16"),
+                                           (f32, "float32")):
+        bytes_s = nbytes / smoke.HBM_BW
+        ops_s = flops / smoke.PEAK[dtype]
+        assert ms == max(bytes_s, ops_s) * 1e3
+        assert by == ("bytes" if bytes_s >= ops_s else "operations")
+    assert f32[0] > bf16[0]

@@ -536,10 +536,13 @@ def test_paged_engine_and_training_refuse_a_mesh():
             lambda: port_serve.serve(cfg, batch=2, prompt_len=8, gen=2,
                                      ctx=ctx, engine="paged"),
             lambda: port_serve.serve_paged(cfg, batch=2, prompt_len=8, gen=2,
-                                           ctx=ctx),
-            lambda: jit_train_step(build_model(cfg, ctx), AdamWConfig())):
+                                           ctx=ctx)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # training takes a mesh that runs (tests/test_torch_mesh_train.py), not
+    # one of shapes alone
+    with pytest.raises(RuntimeError, match="running mesh"):
+        jit_train_step(build_model(cfg, ctx), AdamWConfig())
 
 
 if __name__ == "__main__":

@@ -132,10 +132,16 @@ def test_launch_train_needs_the_gpu_unless_asked_for_the_cpu():
                            "--steps", "1"])
 
 
-def test_launch_train_refuses_the_mesh(capsys):
-    with pytest.raises(SystemExit):
-        launch_train.main(["--reduced", "--mesh", "mini", "--device", "cpu"])
-    assert "Multi-device" in capsys.readouterr().err
+def test_launch_train_on_the_mini_mesh_of_two_cpu_ranks(capsys):
+    """``--mesh mini --ranks 2 --device cpu``: the (1, 2) mesh as two gloo
+    ranks; rank 0's report, and its loss falls."""
+    rep = launch_train.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                             "--mesh", "mini", "--ranks", "2", "--device",
+                             "cpu", "--steps", "12", "--batch", "4",
+                             "--seq", "16", "--lr", "1e-2"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["steps"] == 12 and rep.steps == 12
+    assert out["loss_last"] < out["loss_first"]
 
 
 def test_launch_train_on_the_cpu(tmp_path, capsys):
