@@ -302,11 +302,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      run), and for each rank the first step apart from the p50, tokens a
      second, peak memory and the collectives' calls, bytes and share of
      the steps (timed sync to sync);
- 14. `guard.stats()` on one JSON line, the mesh's record on one, the mesh
-     training's on one, one JSON line describing every kernel (nine: K4's
-     backward has its own entry; K2's, K3's and K4's launches by path, the
-     mesh training's among them, and K2's times at the training products
-     and the mesh's shapes, and K3's at the new families' shapes and with
+ 14. the paged engine on a device mesh, two gloo ranks sharing the card
+     at (1, 2), each running the whole engine in lockstep: (a) reduced
+     f32 granite-moe (a capacity factor at which no token drops) and
+     yi-6b through `serve_paged` on the card's mesh give the tokens of
+     the same mesh on CPU ranks and of one card's engine; (b)
+     granite-moe-1b-a400m at full width under phase 5's traffic (bf16,
+     serving layout, strict): every request finishes, both ranks
+     generate the same tokens, capture no graph and launch exactly K1
+     once a layer a decode round and K2 three times a MoE layer a round
+     and a prefill chunk, each rank holds half the experts and the whole
+     KV pools of one card's engine, and for each rank TTFT, TBT, tok/s,
+     prefix hits, forks and the collectives' calls, bytes and share of
+     the rounds and of the chunks; (c) K2 on a chunk's capacity buffers
+     and at a round's stride-0 shape over the 16 local experts, and K1
+     at the round, each against its plain version and timed;
+ 15. `guard.stats()` on one JSON line, the mesh's record on one, the mesh
+     training's on one, the paged mesh's on one, one JSON line describing
+     every kernel (nine: K4's backward has its own entry; K1's, K2's,
+     K3's and K4's launches by path, the meshes' among them, and K2's
+     times at the training products and the meshes' shapes, K1's at the
+     paged mesh's round, and K3's at the new families' shapes and with
      its lse at the mesh's shard shapes, among them), then the result
      line.
 
@@ -349,6 +365,12 @@ two gloo ranks sharing the card), then prints its record as one JSON line.
 builds the kernels and runs only phase 13 (training on the (1, 2) and
 (2, 1) meshes, two gloo ranks sharing the card), then prints its record as
 one JSON line.
+
+    python3 chip_smoke.py --mesh-paged
+
+builds the kernels and runs only phase 14 (the paged engine on the (1, 2)
+mesh, two gloo ranks sharing the card), then prints its record as one
+JSON line.
 
     python3 chip_smoke.py --dense-first-step
 
@@ -901,6 +923,38 @@ def time_paged(torch, layers, gathered, lengths, depth):
             "bound_by": bound_by, "splits": n_split, "shape": shape}
 
 
+def paged_layers(torch, cfg, lengths, blk, m):
+    """K1's operands at a decode round of `cfg` with `lengths`, one layer's
+    bf16 pools a call (each `len(lengths) x m + 1` pages of `blk` rows,
+    shuffled tables `m` wide), and SDPA's over the same K/V gathered (and
+    masked) beforehand."""
+    width = len(lengths)
+    h, kh, d = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    nb = width * m + 1
+    layers = []
+    for _ in range(cfg.n_layers):
+        q = torch.randn(width, h, d, generator=gen, device="cuda").to(dtype)
+        kp = torch.randn(nb, blk, kh, d, generator=gen, device="cuda").to(dtype)
+        vp = torch.randn(nb, blk, kh, d, generator=gen, device="cuda").to(dtype)
+        perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
+        bt = perm[: width * m].reshape(width, m).to(torch.int32)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        layers.append((q, kp, vp, bt, ln))
+    # the yardstick: SDPA over K/V gathered (and masked) beforehand
+    s_len = m * blk
+    gathered = []
+    for q, kp, vp, bt, ln in layers:
+        k = kp[bt.long()].reshape(width, s_len, kh, d).transpose(1, 2)
+        v = vp[bt.long()].reshape(width, s_len, kh, d).transpose(1, 2)
+        mask = (torch.arange(s_len, device="cuda")[None, :]
+                < ln.long()[:, None])[:, None, None, :]
+        gathered.append((q[:, :, None], k.contiguous(), v.contiguous(), mask))
+    return layers, gathered
+
+
 def time_kernel(torch, cfg, stats):
     """K1 at the main path's decode shape (B = round width, mid-generation
     lengths of its longest prompts, 16-row pages, a table as wide as a
@@ -916,32 +970,9 @@ def time_kernel(torch, cfg, stats):
     width = stats["round_width"]
     lens = sorted(stats["prompt_lens"])[-width:]
     lengths = [n + SERVE["gen"] // 2 for n in lens]    # mid-generation
-    h, kh, d = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
-    dtype = torch.bfloat16
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
     m = -(-(SERVE["prompt_len"] + SERVE["gen"]) // blk)
-    nb = width * m + 1
-    layers = []
-    for _ in range(cfg.n_layers):
-        q = torch.randn(width, h, d, generator=gen, device="cuda").to(dtype)
-        kp = torch.randn(nb, blk, kh, d, generator=gen, device="cuda").to(dtype)
-        vp = torch.randn(nb, blk, kh, d, generator=gen, device="cuda").to(dtype)
-        perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
-        bt = perm[: width * m].reshape(width, m).to(torch.int32)
-        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        layers.append((q, kp, vp, bt, ln))
-
-    # the yardstick: SDPA over K/V gathered (and masked) beforehand
-    s_len = m * blk
-    gathered = []
-    for q, kp, vp, bt, ln in layers:
-        k = kp[bt.long()].reshape(width, s_len, kh, d).transpose(1, 2)
-        v = vp[bt.long()].reshape(width, s_len, kh, d).transpose(1, 2)
-        mask = (torch.arange(s_len, device="cuda")[None, :]
-                < ln.long()[:, None])[:, None, None, :]
-        gathered.append((q[:, :, None], k.contiguous(), v.contiguous(), mask))
-
+    layers, gathered = paged_layers(torch, cfg, lengths, blk, m)
+    kh = cfg.kv_heads
     depth = stats["solved_depth"]
     rec = time_paged(torch, layers, gathered, lengths, depth)
     # B 1: the longest request alone
@@ -4019,25 +4050,38 @@ def time_gmm_mesh(torch) -> dict:
     and down: the kernel against its plain version, and its time beside
     the plain version's, torch.bmm's and the bound."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.moe_gmm import moe_gmm as mg
     from repro_torch.models import moe as moe_mod
 
     cfg = get_config("granite-moe-1b-a400m")
-    e_l = cfg.n_experts // MESH_SHAPE[1]
     tokens = MESH_SERVE["batch"] * MESH_SERVE["prompt_len"] // MESH_SHAPE[1]
     c = moe_mod._capacity(tokens, cfg)
+    return time_gmm_rank(torch, cfg, MESH_SHAPE[1], "mesh", (
+        ("prefill", MESH_SHAPE[1] * c, False),
+        ("decode", MESH_SERVE["batch"], True)))
+
+
+def time_gmm_rank(torch, cfg, n_model: int, tag: str, cases) -> dict:
+    """K2 at a mesh rank's shapes of `cfg` (its E / `n_model` experts),
+    gate/up and down for each (phase, token rows, shared) of `cases`: a
+    prefill's capacity buffers [E_l, rows, dm], a decode's [1, rows, dm]
+    at expert stride 0. The kernel against its plain version in bf16, and
+    its time beside the plain version's, torch.bmm's and the bound; keyed
+    "`tag` phase proj"."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+    from repro_torch.models import moe as moe_mod
+
+    e_l = cfg.n_experts // n_model
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     out = {}
-    for phase, rows, shared in (("prefill", MESH_SHAPE[1] * c, False),
-                                ("decode", MESH_SERVE["batch"], True)):
+    for phase, rows, shared in cases:
         for proj, dm, f in (("gate/up", cfg.d_model, cfg.d_ff_expert),
                             ("down", cfg.d_ff_expert, cfg.d_model)):
             args = [gmm_operands(torch, gen, e_l, rows, dm, f,
                                  shared and proj == "gate/up",
                                  torch.bfloat16) for _ in range(2)]
             got, run = path_launch(mg.gmm, *args[0])
-            err = _close(f"moe_gmm mesh {phase} {proj}", got,
+            err = _close(f"moe_gmm {tag} {phase} {proj}", got,
                          mg.gmm_plain(*args[0]), TOL["bfloat16"],
                          TOL["bfloat16"])
             launches = [(run,), (path_launch(mg.gmm, *args[1])[1],)]
@@ -4059,11 +4103,11 @@ def time_gmm_mesh(torch) -> dict:
                      "reference_gmm": moe_mod._gmm_eligible(
                          xs, wg, wg, meta(e_l, cfg.d_ff_expert,
                                           cfg.d_model))}
-            log(f"times moe_gmm mesh {phase} {proj} {json.dumps(shape)}: "
+            log(f"times moe_gmm {tag} {phase} {proj} {json.dumps(shape)}: "
                 f"kernel {kernel_a:.4f}/{kernel_b:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms, bound "
                 f"{bound_ms:.5f} ms ({bound_by})")
-            out[f"mesh {phase} {proj}"] = {
+            out[f"{tag} {phase} {proj}"] = {
                 "max_abs_err": err, "ms": statistics.median([kernel_a,
                                                              kernel_b]),
                 "plain_ms": plain_ms, "library_ms": library_ms,
@@ -4567,6 +4611,262 @@ def mesh_train_phase(torch) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+
+# The paged engine on a device mesh: data 1 x model 2, two gloo ranks that
+# share the card, as phase 12. Each rank runs the whole engine (pager,
+# prefix cache, scheduler) in lockstep with the other, holds half of
+# granite-moe's experts and the whole KV pools, and runs its rounds
+# (`moe_ep_replicated`) and prefill chunks (`moe_ep_a2a`) eagerly: gloo's
+# collectives cannot be captured.
+MESH_PAGED_SHAPE = (1, 2)
+MESH_PAGED_ARCH = "granite-moe-1b-a400m"
+MESH_PAGED_REDUCED_ARCHS = ("granite-moe-1b-a400m", "yi-6b")
+MESH_PAGED_REDUCED = dict(batch=4, prompt_len=40, gen=8, block_size=16)
+MESH_PAGED_TIMEOUT_S = 300.0
+
+
+def mesh_paged_reduced_cfg(arch: str):
+    """Reduced f32 `arch`; a MoE arch at a capacity factor of E / top_k,
+    at which an expert's buffer holds every token of a shard, so that no
+    token drops and the mesh's tokens can be held against one card's."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
+    if cfg.moe:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def mesh_paged_params(torch, cfg, ctx, device):
+    """`cfg`'s weights drawn on the CPU from seed 0 (a CUDA generator
+    draws other numbers), whole or this rank's shard of them, on
+    `device`."""
+    from repro_torch.core import tree
+    from repro_torch.models import build_model
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return tree.map_tree(lambda x: x.to(device),
+                         build_model(cfg, ctx).init(gen, "cpu"))
+
+
+def mesh_paged_rank(ctx, full: bool = True) -> dict:
+    """One rank of phase 14 (spawned; `ctx` its running mesh): reduced f32
+    granite-moe and yi-6b through `serve_paged`, then (with `full`)
+    granite-moe-1b-a400m at full width in the serving layout under strict
+    mode with phase 5's traffic, every run with the launch counts zeroed
+    just before it and read just after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import guard
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import SERVING_OVERRIDES, serve_paged
+
+    out = {}
+    for arch in MESH_PAGED_REDUCED_ARCHS:
+        cfg = mesh_paged_reduced_cfg(arch)
+        params = mesh_paged_params(torch, cfg, ctx, ctx.device)
+        reset_launch_counts()
+        stats = serve_paged(cfg, ctx=ctx, device=ctx.device.type,
+                            params=params, **MESH_PAGED_REDUCED)
+        out[f"{arch} reduced"] = {"stats": stats, "counts": launch_counts()}
+    if full:
+        cfg = get_config(MESH_PAGED_ARCH).replace(**SERVING_OVERRIDES)
+        guard.set_strict(True)
+        reset_launch_counts()
+        try:
+            stats = serve_paged(cfg, ctx=ctx, device="cuda", **SERVE)
+            substrate = guard.stats()
+        finally:
+            guard.set_strict(False)
+        out[MESH_PAGED_ARCH] = {"stats": stats, "counts": launch_counts(),
+                                "substrate": substrate}
+    return out
+
+
+def mesh_paged_launches(cfg, stats) -> dict:
+    """A rank's launches of one paged run: K1 once a layer a decode round,
+    K2 three times a MoE layer a round and a prefill chunk."""
+    want = {"paged_decode": cfg.n_layers * stats["decode_rounds"]}
+    if cfg.moe:
+        want["moe_gmm"] = 3 * cfg.n_layers * (stats["decode_rounds"]
+                                              + stats["prefill_chunks"])
+    return want
+
+
+def check_mesh_paged_run(label: str, cfg, ranks, batch: int, *,
+                         on_card: bool) -> None:
+    """Every request finished on every rank, every rank generated the same
+    tokens and ran no CUDA graph, and each launched what
+    `mesh_paged_launches` wants on the card (nothing on the CPU)."""
+    for r, run in enumerate(ranks):
+        st = run["stats"]
+        want = {name: 0 for name in run["counts"]}
+        if on_card:
+            want.update(mesh_paged_launches(cfg, st))
+        if st["completed"] != batch or \
+                any(x != "finished" for x in st["states"]):
+            raise AssertionError(f"mesh paged {label} rank {r}: states "
+                                 f"{st['states']}")
+        if st["generated"] != ranks[0]["stats"]["generated"]:
+            raise AssertionError(f"mesh paged {label} rank {r}: tokens "
+                                 f"differ from rank 0's")
+        if (st["decode_captures"], st["prefill_captures"]) != (0, 0):
+            raise AssertionError(f"mesh paged {label} rank {r}: captured "
+                                 f"a graph on a mesh")
+        if run["counts"] != want:
+            raise AssertionError(f"mesh paged {label} rank {r}: launches "
+                                 f"{run['counts']}, want {want}")
+
+
+def mesh_paged_single_bytes(cfg, stats) -> dict:
+    """What one card's paged engine holds of `cfg` at the run's pool: its
+    parameters, the experts among them, and the KV pools (every page and
+    the garbage page, K and V, every layer)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.params import torch_dtype
+    from repro_torch.serve.engine import tensor_bytes
+
+    params = build_model(cfg).abstract_params()
+    moe = params["layers"].get("moe", {})
+    pool = 2 * cfg.n_layers * (stats["num_blocks"] + 1) \
+        * stats["block_size"] * cfg.kv_heads * cfg.resolved_head_dim \
+        * torch_dtype(cfg.dtype).itemsize
+    return {"params": tensor_bytes(params),
+            "experts": sum(tensor_bytes(moe.get(k))
+                           for k in ("w_gate", "w_up", "w_down")),
+            "kv_pools": pool}
+
+
+def check_mesh_paged_kernels(torch, cfg, stats) -> dict:
+    """(c) K2 and K1 at the shapes a rank gives them in (b), bf16, each
+    against its plain version, and their times: K2 on a 32-token chunk's
+    capacity buffers [E / 2, 2 C, dm] (each rank's 16 positions, C from
+    them) and on a decode round's [1, W, dm] at expert stride 0 over the
+    E / 2 local experts; K1 at the round (W = the round width, every
+    layer's pools whole, phase 6's mid-generation lengths)."""
+    from repro_torch.models import moe as moe_mod
+
+    n = MESH_PAGED_SHAPE[1]
+    width = stats["round_width"]
+    c = moe_mod._capacity(32 // n, cfg)
+    gmm = time_gmm_rank(torch, cfg, n, "mesh paged", (
+        ("prefill", n * c, False), ("decode", width, True)))
+    blk = SERVE["block_size"]
+    lens = sorted(stats["prompt_lens"])[-width:]
+    lengths = [x + SERVE["gen"] // 2 for x in lens]
+    m = -(-(SERVE["prompt_len"] + SERVE["gen"]) // blk)
+    layers, gathered = paged_layers(torch, cfg, lengths, blk, m)
+    k1 = time_paged(torch, layers, gathered, lengths, stats["solved_depth"])
+    del layers, gathered
+    return {"gmm": gmm, "paged_decode": k1}
+
+
+def mesh_paged_phase(torch) -> dict:
+    """Phase 14: (a) reduced f32 granite-moe and yi-6b through the paged
+    engine on the card's (1, 2) mesh give the tokens of the same mesh on
+    CPU ranks and of one card's engine; (b) granite-moe-1b-a400m at full
+    width on the card's mesh under phase 5's traffic: every request
+    finishes, each rank holds half the experts and the whole pools, and
+    for each rank TTFT, TBT, tok/s, prefix hits, forks, bytes held, the
+    collectives' share of the rounds and chunks, and K1's and K2's
+    launches a round and a chunk; (c) K1 and K2 at a rank's shapes."""
+    import functools
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import SERVING_OVERRIDES, serve_paged
+    from repro_torch.sharding import NULL_CTX
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = spawn(mesh_paged_rank, MESH_PAGED_SHAPE, device="cuda",
+                 backend="gloo", timeout_s=MESH_PAGED_TIMEOUT_S)
+    t_card = time.perf_counter() - t0
+    cpu = spawn(functools.partial(mesh_paged_rank, full=False),
+                MESH_PAGED_SHAPE, device="cpu", backend="gloo",
+                timeout_s=MESH_PAGED_TIMEOUT_S)
+    log(f"mesh paged {MESH_PAGED_SHAPE}: gloo ranks on the card ran in "
+        f"{t_card:.1f} s, on the CPU in "
+        f"{time.perf_counter() - t0 - t_card:.1f} s")
+    out = {"reduced": {}}
+    for arch in MESH_PAGED_REDUCED_ARCHS:
+        key = f"{arch} reduced"
+        cfg = mesh_paged_reduced_cfg(arch)
+        check_mesh_paged_run(key, cfg, [c[key] for c in card],
+                             MESH_PAGED_REDUCED["batch"], on_card=True)
+        check_mesh_paged_run(key, cfg, [c[key] for c in cpu],
+                             MESH_PAGED_REDUCED["batch"], on_card=False)
+        single = serve_paged(cfg, device="cuda", params=mesh_paged_params(
+            torch, cfg, NULL_CTX, "cuda"), **MESH_PAGED_REDUCED)
+        got = card[0][key]["stats"]["generated"]
+        for name, want in (("CPU ranks", cpu[0][key]["stats"]["generated"]),
+                           ("one card", single["generated"])):
+            if got != want:
+                raise AssertionError(f"mesh paged {key}: card ranks' tokens "
+                                     f"{got} != {name}' {want}")
+        out["reduced"][arch] = {"tokens": got[0],
+                                "launches": card[0][key]["counts"]}
+        log(f"mesh paged {key} f32 tokens: card ranks == CPU ranks == one "
+            f"card on {MESH_PAGED_SHAPE}: {got[0]}; a card rank's launches "
+            f"{ {k: v for k, v in card[0][key]['counts'].items() if v} }")
+
+    cfg = get_config(MESH_PAGED_ARCH).replace(**SERVING_OVERRIDES)
+    ranks = [c[MESH_PAGED_ARCH] for c in card]
+    check_mesh_paged_run(MESH_PAGED_ARCH, cfg, ranks, SERVE["batch"],
+                         on_card=True)
+    single = mesh_paged_single_bytes(cfg, ranks[0]["stats"])
+    per_rank = []
+    for r, run in enumerate(ranks):
+        st = run["stats"]
+        held = st["held_bytes"]
+        if held["experts"] * MESH_PAGED_SHAPE[1] != single["experts"] or \
+                held["kv_pools"] != single["kv_pools"] or \
+                held["params"] - held["experts"] != \
+                single["params"] - single["experts"]:
+            raise AssertionError(f"mesh paged rank {r}: holds {held}, one "
+                                 f"card {single}")
+        sub = run["substrate"]
+        if sub["backoffs"] or sub["parity_mismatches"]:
+            raise AssertionError(f"mesh paged rank {r}: strict serving "
+                                 f"degraded: {sub}")
+        launches = {k: v for k, v in run["counts"].items() if v}
+        shown = {k: st[k] for k in (
+            "ttft_p50_ms", "ttft_p99_ms", "tbt_p50_ms", "tbt_p99_ms",
+            "p50_ms", "p99_ms", "decode_tok_per_s", "prefill_s", "decode_s",
+            "round_width", "decode_rounds", "prefill_chunks", "rounds",
+            "prefix_hits", "cow_forks", "preemptions",
+            "max_memory_allocated_gb", "decode_captures", "prefill_captures",
+            "held_bytes", "collectives")}
+        shown["one_card_bytes"] = single
+        shown["launches"] = launches
+        # `check_mesh_paged_run` held the totals to these rates exactly
+        shown["launches_a_round"] = {"paged_decode": cfg.n_layers,
+                                     "moe_gmm": 3 * cfg.n_layers}
+        shown["launches_a_chunk"] = {"paged_decode": 0,
+                                     "moe_gmm": 3 * cfg.n_layers}
+        shown["substrate"] = {k: sub[k] for k in (
+            "strict", "guarded_calls", "backoffs", "numerics_faults")}
+        per_rank.append(shown)
+        log(f"serve mesh paged {MESH_PAGED_ARCH} full width "
+            f"{json.dumps(SERVE)} rank {r} of {MESH_PAGED_SHAPE} (gloo, one "
+            f"card): {json.dumps(shown)}")
+    out["serve"] = {"ranks": per_rank, "mesh": ranks[0]["stats"]["mesh"],
+                    "sample_tokens": ranks[0]["stats"]["sample_tokens"]}
+    out["launches"] = [run["counts"] for run in ranks]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["kernels"] = check_mesh_paged_kernels(torch, cfg, ranks[0]["stats"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -4624,6 +4924,16 @@ def main() -> int:
         from repro_torch.core import guard
         guard.set_parity("off")
         print(json.dumps({"mesh_train": mesh_train_phase(torch)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--mesh-paged"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card_info(torch)
+        build_kernels()
+        from repro_torch.core import guard
+        guard.set_parity("off")
+        print(json.dumps({"mesh_paged": mesh_paged_phase(torch)}),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--ssd-time"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4765,6 +5075,10 @@ def main() -> int:
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     mesh_trained = mesh_train_phase(torch)
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    mesh_paged = mesh_paged_phase(torch)
+    log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    paged_ranks = {f"mesh paged {MESH_PAGED_ARCH} rank {r}": c
+                   for r, c in enumerate(mesh_paged["launches"])}
     mesh_train_paths = {"moe_gmm": {}, "ssd_scan": {}, "ssd_scan_bwd": {}}
     for arch, _ in MESH_TRAIN:
         for name in mesh_train_launches(get_config(arch), 1):
@@ -4781,13 +5095,18 @@ def main() -> int:
         "tpu": "kernels/decode_attention/decode_attention.py:paged_flash_decode",
         "launches": counts["paged_decode"],
         "launches_by_path": {"yi-6b": counts["paged_decode"],
-                             MOE_ARCH: moe_counts["paged_decode"]},
+                             MOE_ARCH: moe_counts["paged_decode"], **{
+                                 path: c["paged_decode"]
+                                 for path, c in paged_ranks.items()}},
         "parity": "ok",
         **{k: timing[k] for k in keys},
         "splits": timing["splits"],
         "shape": timing["shape"],
         "at_other_shapes": {"B=1": {k: timing["b1"][k] for k in
-                                    keys + ("splits", "shape")}},
+                                    keys + ("splits", "shape")},
+                            f"mesh paged {MESH_PAGED_ARCH} round": {
+                                k: mesh_paged["kernels"]["paged_decode"][k]
+                                for k in keys + ("splits", "shape")}},
     }, {
         "name": "flash_decode",
         "route": "cuda",
@@ -4845,7 +5164,8 @@ def main() -> int:
             f"{TRAIN_ARCH} train": trained["launches"]["moe_gmm"],
             **{f"mesh {TRAIN_ARCH} rank {r}": c["moe_gmm"]
                for r, c in enumerate(meshed["launches"][TRAIN_ARCH])},
-            **mesh_train_paths["moe_gmm"]},
+            **mesh_train_paths["moe_gmm"],
+            **{path: c["moe_gmm"] for path, c in paged_ranks.items()}},
         "launches_a_train_step": trained["launches_a_step"]["moe_gmm"],
         "parity": "ok",
         **{k: gmm_times["decode gate/up"][k] for k in keys},
@@ -4853,7 +5173,9 @@ def main() -> int:
         "at_other_shapes": {name: {k: t[k] for k in keys + ("shape",)}
                             for name, t in {**gmm_times,
                                             **trained["gmm_times"],
-                                            **meshed["gmm"]}.items()
+                                            **meshed["gmm"],
+                                            **mesh_paged["kernels"]["gmm"]
+                                            }.items()
                             if name != "decode gate/up"},
     }, ssd_bwd_entry(trained, mesh_train_paths["ssd_scan_bwd"])]
     for name, source, replaces in GUPS_KERNELS:
@@ -4876,6 +5198,8 @@ def main() -> int:
     print(json.dumps({"mesh": {k: meshed[k] for k in ("serve", "launches")}}),
           flush=True)
     print(json.dumps({"mesh_train": mesh_trained}), flush=True)
+    print(json.dumps({"mesh_paged": {k: mesh_paged[k] for k in (
+        "reduced", "serve", "launches", "seconds")}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

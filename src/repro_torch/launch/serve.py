@@ -21,13 +21,16 @@ Two engines, as in the reference package:
 
 Prefill runs eagerly in both.
 
-The dense engine also serves on a device mesh (`serve(..., ctx=...)` on
-every rank of `launch.mesh.spawn`, or `serve_on_mesh`): each rank takes
-its `data` slice of the batch, holds its `model` share of the experts and
-of the sequence-split KV caches, and runs the same prefill and decode
-steps with the MoE expert-parallel and the decode attention merged over
-`model`. Its decode steps run eagerly: collectives over gloo cannot be
-captured in a CUDA graph.
+Both engines also serve on a device mesh (`serve(..., ctx=...)` on every
+rank of `launch.mesh.spawn`, or `serve_on_mesh`). The dense engine: each
+rank takes its `data` slice of the batch, holds its `model` share of the
+experts and of the sequence-split KV caches, and runs the same prefill
+and decode steps with the MoE expert-parallel and the decode attention
+merged over `model`. The paged engine: each rank runs the whole engine
+in lockstep with the others, holds its share of the experts and the
+whole KV pools, and its MoE layers are expert-parallel (`serve/engine.py`).
+Their steps run eagerly there: collectives over gloo cannot be captured
+in a CUDA graph.
 
 Both report decode tok/s and per-token p50/p99 (the paged engine also
 TTFT/TBT, prefix-cache and failure accounting) plus every request's
@@ -50,6 +53,8 @@ generated tokens. They run on the GPU unless asked for the CPU:
       --device cpu --mesh 1x2
   python -m repro_torch.launch.serve --arch yi-6b --layout serving \\
       --batch 8 --prompt-len 1024 --gen 32 --mesh 1x2 --backend gloo
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --reduced \\
+      --engine paged --mesh 1x2 --device cpu --backend gloo
 """
 from __future__ import annotations
 
@@ -76,11 +81,6 @@ from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
 # (compute stays cfg.dtype, bf16 for every shipped arch) and the
 # row-granular KV write of the sequence-split decode.
 SERVING_OVERRIDES: Dict[str, Any] = serving_config_overrides()
-
-MESH_PAGED_REFUSED = ("the paged engine on a device mesh is not ported yet: "
-                      "ROADMAP Queue 1, item 3d (serve a mesh with "
-                      "engine=\"dense\")")
-
 
 def make_prompts(cfg, batch: int, prompt_len: int, rng, device):
     """Random prompts from the numpy generator `rng` (the reference's draws
@@ -181,10 +181,10 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     "serving" applies `SERVING_OVERRIDES` to `cfg`.
 
     With a `ctx` whose mesh runs (each rank of `launch.mesh.spawn` calls
-    this), the dense engine serves on the mesh (`_serve_mesh`): `device`
-    must name the ranks' device type (None: the GPU), and `params`, when
-    given, are this rank's. The paged engine raises NotImplementedError
-    there."""
+    this), either engine serves on the mesh (the dense one through
+    `_serve_mesh`, the paged one through `serve_paged`): `device` must
+    name the ranks' device type (None: the GPU), and `params`, when
+    given, are this rank's."""
     from repro_torch.models import build_model
     from repro_torch.serve.engine import resolve_device
 
@@ -195,25 +195,21 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         cfg = cfg.replace(**SERVING_OVERRIDES)
     elif layout != "default":
         raise ValueError(f"unknown layout {layout!r} (default or serving)")
-    if ctx.mesh is not None:
-        if engine != "dense":
-            raise NotImplementedError(MESH_PAGED_REFUSED)
-        if deadline_s is not None or chaos is not None:
-            raise ValueError("--deadline-s / --chaos need --engine paged")
-        return _serve_mesh(cfg, ctx, batch=batch, prompt_len=prompt_len,
-                           gen=gen, seed=seed, device=device, params=params)
     if engine == "paged":
         return serve_paged(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
                            seed=seed, block_size=block_size,
                            num_blocks=num_blocks, prefix_cache=prefix_cache,
                            prefill_chunk=prefill_chunk, deadline_s=deadline_s,
                            chaos=chaos, device=device, params=params,
-                           max_in_flight=max_in_flight)
+                           max_in_flight=max_in_flight, ctx=ctx)
     if engine != "dense":
         raise ValueError(f"unknown engine {engine!r} (dense or paged)")
     if deadline_s is not None or chaos is not None:
         raise ValueError("--deadline-s / --chaos need --engine paged (the "
                          "dense baseline has no per-request lifecycle)")
+    if ctx.mesh is not None:
+        return _serve_mesh(cfg, ctx, batch=batch, prompt_len=prompt_len,
+                           gen=gen, seed=seed, device=device, params=params)
     dev = resolve_device(device)
     model = build_model(cfg)
     if params is None:
@@ -255,13 +251,6 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     return stats
 
 
-def _tensor_bytes(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_tensor_bytes(v) for v in tree.values())
-    return tree.numel() * tree.element_size() \
-        if isinstance(tree, torch.Tensor) else 0
-
-
 def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
                 gen: int, seed: int, device, params):
     """The dense engine on one rank of a running mesh: this rank's `data`
@@ -273,11 +262,10 @@ def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
     parameters, its experts, its KV caches), its peak memory, and the
     collectives' calls, bytes and seconds in the decode steps (timed sync
     to sync: `sharding.collective_stats`)."""
-    import torch.distributed as dist
-
     from repro_torch import sharding
     from repro_torch.models import build_model
-    from repro_torch.serve.engine import resolve_device
+    from repro_torch.serve.engine import mesh_stats, resolve_device, \
+        tensor_bytes
 
     dev = resolve_device(device)
     if dev.type != ctx.device.type:
@@ -326,20 +314,17 @@ def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
         "engine": "dense",
         "machine": get_machine().name,
         "device": str(dev),
-        "mesh": {"axes": list(ctx.mesh.axis_names),
-                 "shape": list(ctx.mesh.shape),
-                 "coordinate": list(ctx.mesh.coordinate),
-                 "rank": dist.get_rank(), "backend": dist.get_backend()},
+        "mesh": mesh_stats(ctx),
         "generated_shape": tuple(generated.shape),
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "decode_tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
         "decode_captures": 0,
         "held_bytes": {
-            "params": _tensor_bytes(params),
-            "experts": sum(_tensor_bytes(moe.get(k))
+            "params": tensor_bytes(params),
+            "experts": sum(tensor_bytes(moe.get(k))
                            for k in ("w_gate", "w_up", "w_down")),
-            "kv_cache": sum(_tensor_bytes(layers.get(k)) for k in
+            "kv_cache": sum(tensor_bytes(layers.get(k)) for k in
                             ("k", "v", "cross_k", "cross_v")),
         },
         "kv_len": cache.get("kv_len", {}),
@@ -367,8 +352,9 @@ def serve_on_mesh(cfg, shape: Sequence[int], *, device: str, backend: str,
     """`serve` on a ``(data, model)`` mesh of `shape`, one process a rank
     (`launch.mesh.spawn`, whose `device` and `backend` the caller names:
     two ranks that share a card need "gloo"). Returns every rank's stats,
-    in rank order; raises unless every rank generated the same tokens for
-    the whole batch, every request its `gen` of them."""
+    in rank order; raises unless every rank generated the same tokens
+    (and, paged, left every request in the same state) and, dense, every
+    request generated its `gen` of them."""
     from repro_torch.launch.mesh import DEFAULT_TIMEOUT_S, spawn
     from repro_torch.runtime.layouts import rules_for
 
@@ -379,11 +365,13 @@ def serve_on_mesh(cfg, shape: Sequence[int], *, device: str, backend: str,
                   timeout_s=timeout_s or DEFAULT_TIMEOUT_S)
     want = (kwargs["batch"], kwargs["gen"])
     for r, st in enumerate(stats):
-        if tuple(st["generated_shape"]) != want:
+        if st["engine"] == "dense" and tuple(st["generated_shape"]) != want:
             raise RuntimeError(f"rank {r}: generated {st['generated_shape']}, "
                                f"wanted {want}")
-        if st["generated"] != stats[0]["generated"]:
-            raise RuntimeError(f"rank {r}'s tokens differ from rank 0's")
+        if st["generated"] != stats[0]["generated"] or \
+                st.get("states") != stats[0].get("states"):
+            raise RuntimeError(f"rank {r}'s tokens or requests' states "
+                               f"differ from rank 0's")
     return stats
 
 
@@ -401,12 +389,16 @@ def serve_paged(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     `chaos` seeds a deterministic fault schedule (serve.FaultInjector).
     `device` None means the GPU; `params` None draws random weights from
     `seed` on that device. The prompts are the reference package's for the
-    same seed. A `ctx` with a mesh raises NotImplementedError: the paged
-    engine on a mesh is not ported yet."""
-    from repro_torch.serve import FaultInjector, PagedServingEngine
+    same seed.
 
-    if ctx.mesh is not None:
-        raise NotImplementedError(MESH_PAGED_REFUSED)
+    With a `ctx` whose mesh runs, this serves on this rank of it (every
+    rank calls it alike; `params`, when given, are this rank's) and the
+    stats add the engine's mesh figures (`PagedServingEngine.stats`: the
+    mesh, the bytes this rank holds, the collectives' calls, bytes and
+    seconds, timed sync to sync, by rounds, chunks and lockstep) and, on
+    the GPU, the rank's peak memory allocated."""
+    from repro_torch import sharding
+    from repro_torch.serve import FaultInjector, PagedServingEngine
 
     faults = FaultInjector(chaos) if chaos is not None else None
     rng = np.random.default_rng(seed)
@@ -421,7 +413,7 @@ def serve_paged(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         num_blocks = blocks_per_req * max(2, (batch + 1) // 2)
 
     system = rng.integers(0, cfg.vocab, max(lo // 2, 1))
-    eng = PagedServingEngine(cfg, block_size=block_size,
+    eng = PagedServingEngine(cfg, ctx, block_size=block_size,
                              num_blocks=num_blocks, seed=seed,
                              prefix_cache=prefix_cache,
                              prefill_chunk=prefill_chunk,
@@ -434,7 +426,17 @@ def serve_paged(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
         if i % 2 == 0:  # every other request opens with the system prompt
             body[: len(system)] = system[: plen]
         rids.append(eng.submit(body, max_new_tokens=gen))
+    on_card = eng.device.type == "cuda"
+    if ctx.mesh is not None:
+        sharding.reset_collective_stats(timed=True)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(eng.device)
     stats = eng.run()
+    if ctx.mesh is not None:
+        sharding.reset_collective_stats()
+        if on_card:
+            stats["max_memory_allocated_gb"] = \
+                torch.cuda.max_memory_allocated(eng.device) / 1e9
     stats["prompt_lens"] = plens
     stats["generated"] = [list(eng.request(r).generated) for r in rids]
     stats["states"] = [eng.request(r).state.value for r in rids]
@@ -480,7 +482,7 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                     help="serve on a (data, model) mesh, one process a "
-                         "rank (dense engine), e.g. 1x2; rank 0 prints")
+                         "rank (either engine), e.g. 1x2; rank 0 prints")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                     help="the mesh's process-group backend (default: nccl "
                          "on the GPU, one card a rank; gloo on the CPU; "
@@ -498,7 +500,11 @@ def main(argv=None):
         stats = serve_on_mesh(
             cfg, parse_mesh(args.mesh), device=device, backend=backend,
             layout=args.layout, batch=args.batch, prompt_len=args.prompt_len,
-            gen=args.gen, seed=args.seed, strict=args.strict)[0]
+            gen=args.gen, seed=args.seed, strict=args.strict,
+            engine=args.engine, block_size=args.block_size,
+            num_blocks=args.num_blocks, prefix_cache=args.prefix_cache,
+            prefill_chunk=args.prefill_chunk, deadline_s=args.deadline_s,
+            chaos=args.chaos)[0]
         print(json.dumps(stats))
         return stats
     stats = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,

@@ -35,7 +35,10 @@ splits them (`cache_specs`: ``kv_seq``), each rank holding its
 ``[L, B/data, S/model, KH, D]`` slice, and decode attention merges the
 shards' flash-decode results (`common.flash_decode_attention`). The cache
 then also records the whole caches' lengths (``cache["kv_len"]``), which
-the shards alone do not tell.
+the shards alone do not tell. The paged engine's steps hold their round
+or chunk, and the KV pools, whole on every rank, as the reference does:
+there `ctx` reaches only the MoE layers (`_paged_ffn`) and the
+unembedding.
 """
 from __future__ import annotations
 
@@ -60,7 +63,7 @@ from repro_torch.models.common import (
     swiglu,
 )
 from repro_torch.kernels.decode_attention.decode_attention import flash_decode
-from repro_torch.models.moe import moe_layer, moe_param_specs
+from repro_torch.models.moe import moe_layer, moe_layer_whole, moe_param_specs
 from repro_torch.models.params import ParamSpec, map_specs, torch_dtype
 from repro_torch.models.ssm import (
     ssm_cache_shape,
@@ -179,8 +182,8 @@ def _attn_out(p, o):
 
 def _ffn(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
          aux: bool = True):
-    """The post-attention half of a block (MoE or SwiGLU MLP): the
-    reference's ``_paged_ffn``. Returns (x, aux): the MoE router's
+    """The post-attention half of a block (MoE or SwiGLU MLP), on this
+    rank's rows of the batch. Returns (x, aux): the MoE router's
     load-balancing aux loss (an f32 scalar; None for the MLP, and on a mesh
     without `aux`), which the loss adds and the serving paths ignore."""
     if cfg.moe:
@@ -211,14 +214,17 @@ def _unstack(layers):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def _unembed(params, x):
+def _unembed(params, x, ctx: ShardingCtx = NULL_CTX):
+    """f32 logits of x [B, S, d], under the reference's constraint of
+    them to ``("batch", "seq", "vocab")`` (`ShardingCtx.constrain`: no
+    collective, each rank already holds its rows)."""
     dt = x.dtype
     table = params.get("lm_head")
     if table is None:
         logits = x @ params["embed"].to(dt).T
     else:
         logits = x @ table.to(dt)
-    return logits.float()
+    return ctx.constrain(logits.float(), ("batch", "seq", "vocab"))
 
 
 # ------------------------------------------------ dense prefill and decode
@@ -560,7 +566,7 @@ def prefill(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
         cache["layers"], cache["kv_len"] = _hold_caches(cache["layers"], cfg,
                                                         ctx)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return cache, _unembed(params, x)
+    return cache, _unembed(params, x, ctx)
 
 
 # --------------------------------------------------------------------- loss
@@ -584,7 +590,7 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     if prefix:
         x = x[:, prefix:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = _xent(_unembed(params, x), batch["targets"])
+    loss = _xent(_unembed(params, x, ctx), batch["targets"])
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -615,7 +621,7 @@ def decode_step(params, cache, batch, cfg: ArchConfig,
     new = {"pos": pos + 1, "layers": layers}
     if "kv_len" in cache:
         new["kv_len"] = cache["kv_len"]
-    return _unembed(params, x), new
+    return _unembed(params, x, ctx), new
 
 
 # -------------------------------------------------------------- cache specs
@@ -701,14 +707,29 @@ def supports_paged_decode(cfg: ArchConfig) -> bool:
             and not cfg.vlm and not cfg.sliding_window)
 
 
+def _paged_ffn(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
+    """The post-attention half of a paged block (the reference's
+    ``_paged_ffn``): `_ffn` without the aux loss. On a mesh the paged
+    steps hold their round or chunk whole on every rank, as the
+    reference's paged path hands its whole activation to ``moe_layer``,
+    so a MoE layer goes through `moe.moe_layer_whole`."""
+    if cfg.moe and ctx.mesh is not None:
+        h = rms_norm(x, p["moe_ln"], cfg.norm_eps)
+        return x + moe_layer_whole(p["moe"], h, cfg, ctx)
+    return _ffn(p, x, cfg, ctx, aux=False)[0]
+
+
 def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
-                      cfg: ArchConfig):
+                      cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """One decode step for a round of ragged requests over paged KV pools.
 
     batch["tokens"]: [B, 1]; lengths: [B] int32 — each request's stored token
     count (its new KV row is written there, then it attends to lengths+1
     positions). k_pools/v_pools: [L, NB, blk, KH, D], updated in place.
-    Returns (logits [B, 1, V] f32, k_pools, v_pools)."""
+    On a mesh every rank holds the whole round and the whole pools (as
+    the reference keeps them) and `ctx` reaches only the MoE layers
+    (`_paged_ffn`) and the unembedding. Returns (logits [B, 1, V] f32,
+    k_pools, v_pools)."""
     if not supports_paged_decode(cfg):
         raise ValueError(f"paged decode unsupported for family {cfg.family!r} "
                          f"(sliding_window={cfg.sliding_window})")
@@ -720,13 +741,14 @@ def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
         attn_o, _, _ = paged_attn_decode(
             lp["attn"], x, k_pools[i], v_pools[i], cfg,
             block_tables=block_tables, lengths=lengths)
-        x, _ = _ffn(lp, x + attn_o, cfg)
+        x = _paged_ffn(lp, x + attn_o, cfg, ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, x), k_pools, v_pools
+    return _unembed(params, x, ctx), k_pools, v_pools
 
 
 def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
-                        n_valid, cfg: ArchConfig):
+                        n_valid, cfg: ArchConfig,
+                        ctx: ShardingCtx = NULL_CTX):
     """One chunk of a request's prefill through the paged pipeline.
 
     batch["tokens"]: [1, C] right-padded chunk; start: absolute position of
@@ -735,7 +757,9 @@ def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
     pools' device, as the reference's traced scalars, or ints; no branch
     reads them on the host, so the step can be captured once per
     (C, table width) and replayed along the prompt. The request's block
-    table must already map every position < start + n_valid. Returns
+    table must already map every position < start + n_valid. On a mesh,
+    as `decode_step_paged`: a MoE layer splits the chunk's positions over
+    `model` (`moe_ep_a2a`). Returns
     (last_logits [1, V] f32 at the chunk's final real token, k_pools,
     v_pools)."""
     if not supports_paged_decode(cfg):
@@ -749,11 +773,11 @@ def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
         attn_o, _, _ = paged_attn_prefill_chunk(
             lp["attn"], x, k_pools[i], v_pools[i], cfg,
             block_tables=block_tables, start=start, n_valid=n_valid)
-        x, _ = _ffn(lp, x + attn_o, cfg)
+        x = _paged_ffn(lp, x + attn_o, cfg, ctx)
     # the last real row, gathered at a device index (the reference's
     # dynamic_slice_in_dim): a slice would read n_valid on the host
     row = torch.as_tensor(n_valid, device=x.device).long().reshape(1) - 1
     last = x.index_select(1, row)                        # [1, 1, d]
     last = rms_norm(last, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(params, last)[:, 0]
+    logits = _unembed(params, last, ctx)[:, 0]
     return logits, k_pools, v_pools

@@ -31,6 +31,10 @@ tokens and d weights over the same buffers: 9 launches a layer a step.
 As in the reference, each shard sizes its capacity from its own tokens
 and drops by it, and the aux loss is the mean of the shards' terms, so a
 mesh's loss is not the single-device loss of a MoE arch.
+
+The paged engine holds its round and chunks whole on every rank
+(`moe_layer_whole`): a 32-token chunk ``[1, 32, d]`` takes `moe_ep_a2a`
+over `model`, a decode round ``[B, 1, d]`` `moe_ep_replicated`.
 """
 from __future__ import annotations
 
@@ -42,11 +46,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.moe_gmm.ops import moe_gmm
 from repro_torch.models.params import ParamSpec
-from repro_torch.sharding import NULL_CTX, ShardingCtx
+from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
 
 __all__ = ["EXPERT_SPECS", "ep_sharded", "moe_dense", "moe_ep_a2a",
-           "moe_ep_replicated", "moe_layer", "moe_param_specs",
-           "router_topk"]
+           "moe_ep_replicated", "moe_layer", "moe_layer_whole",
+           "moe_param_specs", "router_topk"]
 
 GMM_F_TILE = 128
 
@@ -258,3 +262,32 @@ def moe_layer(p, x: torch.Tensor, cfg: ArchConfig,
             return moe_ep_a2a(p, x, cfg, ctx, aux=aux)
         return moe_ep_replicated(p, x, cfg, ctx, aux=aux)
     return moe_dense(p, x, cfg)
+
+
+def moe_layer_whole(p, x: torch.Tensor, cfg: ArchConfig,
+                    ctx: ShardingCtx) -> torch.Tensor:
+    """`moe_layer` (without the aux loss) for a batch that every rank
+    holds whole: the paged engine's decode round ``[B, 1, d]`` and prefill
+    chunk ``[1, C, d]``, which the reference hands to its ``moe_layer``
+    as one global array. Its expert-parallel backends split that batch
+    over `data` (the reference's ``_mesh_bspec``), so here each rank takes
+    its `data` rows, runs `moe_layer` on them and the rows are gathered
+    back over `data`. A batch that `data` does not divide (a 1-row chunk
+    on a mesh with ``data > 1``) is refused with a ValueError, as the
+    reference's shard_map refuses it, on every rank and before any
+    collective. Returns y [B, S, d]."""
+    if not ep_sharded(cfg, ctx):
+        return moe_dense(p, x, cfg)[0]
+    axes = tuple(a for a in ctx.mesh.axis_names if a in ("pod", "data"))
+    n = ctx.axis_size(axes or None)
+    if x.shape[0] % n:
+        raise ValueError(
+            f"expert-parallel MoE on mesh {ctx.axis_sizes} splits the batch "
+            f"over {axes}: an activation of shape {tuple(x.shape)} has "
+            f"{x.shape[0]} rows for {n} ranks (the reference's shard_map "
+            f"refuses it too)")
+    spec = (axes if len(axes) > 1 else axes[0],) if n > 1 else ()
+    y, _ = moe_layer(p, local_shard(x, spec, ctx), cfg, ctx, aux=False)
+    for axis in reversed(axes):
+        y = ctx.all_gather(y, axis, dim=0)
+    return y

@@ -60,12 +60,13 @@ class Model:
 
     def decode_step_paged(self, params, k_pools, v_pools, block_tables, lengths, batch):
         return lm.decode_step_paged(params, k_pools, v_pools, block_tables,
-                                    lengths, batch, self.cfg)
+                                    lengths, batch, self.cfg, self.ctx)
 
     def prefill_chunk_paged(self, params, k_pools, v_pools, block_tables,
                             start, batch, n_valid):
         return lm.prefill_chunk_paged(params, k_pools, v_pools, block_tables,
-                                      start, batch, n_valid, self.cfg)
+                                      start, batch, n_valid, self.cfg,
+                                      self.ctx)
 
     def supports_paged_decode(self) -> bool:
         return lm.supports_paged_decode(self.cfg)

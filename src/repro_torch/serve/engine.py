@@ -55,6 +55,38 @@ total or `max_idle_rounds` rounds of zero progress it cancels the
 remainder (reason "stalled") and returns partial stats with full
 stalled/failed/shed/deadline accounting.
 
+On a device mesh (`PagedServingEngine(cfg, ctx)` with a running mesh, one
+process a rank: `launch.mesh.spawn`) every rank runs the whole engine, as
+the reference's one process drives its mesh: it holds its `model` share
+of a MoE arch's experts (`params.local_params`) and the whole KV pools,
+and its steps are the reference's mesh steps (`models.lm`: a prefill
+chunk splits over `model` into `moe_ep_a2a`, a decode round takes
+`moe_ep_replicated`). They run eagerly there, rounds and chunks alike:
+gloo's collectives cannot be captured in a CUDA graph (`stats()` says so:
+``"mesh"``, ``"decode_captures"``, ``"prefill_captures"``). The ranks
+must enter the same collectives in the same order, so every decision that
+picks what a step runs must be the same on every rank:
+
+  * each rank decides alone what it decides from the same inputs:
+    admission, the round plan, prefix matches, pages and copy-on-write
+    forks, preemption, retirement by length, the fault schedule (the same
+    `FaultInjector` seed and rates on every rank; a latency spike only
+    sleeps, which changes no decision), and the greedy tokens (every rank
+    holds the same logits: the collectives hand each rank the same
+    bytes). The caller submits and cancels the same requests in the same
+    order on every rank;
+  * the mesh decides together what a rank's clock would decide: which
+    deadlines expired (rank 0's clock, one sum over the mesh in a round
+    where a live request has a deadline) and the solved pipeline depth,
+    which sets the round width (rank 0's, once, at construction: the
+    depth solver reads the wall clocks of earlier rounds).
+
+A step that raises a ValueError (from shapes alone, the same on every rank
+before any collective: `models.moe.moe_layer_whole`) is a step fault as on
+one device. Any other exception inside a step may be one rank's alone while
+the others wait in a collective, so it ends the run (`RankFault`) instead
+of a retry out of step; `launch.mesh.spawn` then stops every rank.
+
 Observability: every engine instance owns one
 `obs.metrics` registry — the prefix/COW counters and the token-latency /
 TTFT / TBT histograms live there, and `stats()` is a read-time view over
@@ -68,12 +100,14 @@ scheduler). Both degrade to module-level null objects under
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, FrozenSet, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import autotune, guard
 from repro_torch.core.machine import get_machine
@@ -93,6 +127,7 @@ from repro_torch.serve.scheduler import (
     Request,
     RequestState,
 )
+from repro_torch.sharding import NULL_CTX, ShardingCtx
 
 
 def resolve_device(device=None) -> torch.device:
@@ -107,10 +142,34 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class PagedServingEngine:
-    """Continuous batching over a paged KV pool for one model instance."""
+def tensor_bytes(tree) -> int:
+    """The bytes of every tensor in a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() \
+        if isinstance(tree, torch.Tensor) else 0
 
-    def __init__(self, cfg: ArchConfig, *,
+
+def mesh_stats(ctx: ShardingCtx) -> Dict[str, Any]:
+    """A running mesh as the serving stats report it."""
+    import torch.distributed as dist
+
+    return {"axes": list(ctx.mesh.axis_names),
+            "shape": list(ctx.mesh.shape),
+            "coordinate": list(ctx.mesh.coordinate),
+            "rank": dist.get_rank(), "backend": dist.get_backend()}
+
+
+class RankFault(RuntimeError):
+    """A step raised on this rank of a mesh where the other ranks may be
+    waiting in a collective: the engine cannot retry it in lockstep."""
+
+
+class PagedServingEngine:
+    """Continuous batching over a paged KV pool for one model instance
+    (on a mesh, one rank of it: the module docstring)."""
+
+    def __init__(self, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
                  block_size: int = 16, num_blocks: int = 64,
                  max_in_flight: Optional[int] = None,
                  prefix_cache: bool = True,
@@ -128,8 +187,17 @@ class PagedServingEngine:
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         self.device = resolve_device(device)
+        self.ctx = ctx
+        self._mesh = ctx.mesh is not None
+        if self._mesh:
+            ctx._running()   # a mesh of shapes alone raises RuntimeError
+            if self.device.type != ctx.device.type:
+                raise ValueError(f"the mesh's ranks run on "
+                                 f"{ctx.device.type}, asked for "
+                                 f"{self.device}")
+            self.device = ctx.device
         self.cfg = cfg
-        self.model = build_model(cfg)
+        self.model = build_model(cfg, ctx)
         if not self.model.supports_paged_decode():
             raise ValueError(
                 f"arch {cfg.name!r} (family={cfg.family}, sliding_window="
@@ -157,6 +225,12 @@ class PagedServingEngine:
                                  max_blocks=max(num_blocks, 1))
         self.solved_depth = autotune.choose_depth(
             spec.profile(), kernel="paged_decode", vars=spec.all_vars())
+        # collectives' calls, bytes and seconds by what ran them
+        self._coll: Dict[str, Dict[str, float]] = {
+            kind: {"calls": 0, "bytes": 0, "s": 0.0}
+            for kind in ("decode_rounds", "prefill_chunks", "lockstep")}
+        if self._mesh:
+            self.solved_depth = self._rank0([self.solved_depth])[0]
         self._pipeline_ctx_bytes = spec.context_bytes(self.solved_depth)
         # a round can't usefully exceed one block-owning request per block
         self.round_width = int(max_in_flight
@@ -186,6 +260,7 @@ class PagedServingEngine:
         self._decode_fn: Optional[StepGraph] = None  # keyed by table width
         self._decode_fn_width = 0
         self._decode_fresh = False
+        self.decode_captures = 0                # rounds' graph captures
         self._tw_hw = 1    # padded-table high-water mark
         self.rounds = 0
         self.decode_rounds = 0                  # decode steps that ran
@@ -375,11 +450,56 @@ class PagedServingEngine:
             self.scheduler.requeue(req)
 
     def _expire_deadlines(self) -> None:
+        """Cancel the live requests past their deadlines; on a mesh, those
+        past them by rank 0's clock (`_rank0`), on every rank."""
+        timed = [r for r in self._requests.values()
+                 if r.deadline_s is not None]
+        if not timed:
+            return
         now = time.perf_counter()
-        expired = [r for r in self._requests.values()
-                   if r.deadline_s is not None and now >= r.deadline_s]
-        for req in expired:
-            self.cancel(req.rid, reason="deadline")
+        expired = [int(now >= r.deadline_s) for r in timed]
+        if self._mesh:
+            expired = self._rank0(expired)
+        for req, gone in zip(timed, expired):
+            if gone:
+                self.cancel(req.rid, reason="deadline")
+
+    # --------------------------------------------------------- the mesh
+
+    @contextlib.contextmanager
+    def _collectives(self, kind: str):
+        """Add the collectives run inside the block to `kind`'s count."""
+        before = sharding.collective_stats()
+        try:
+            yield
+        finally:
+            after = sharding.collective_stats()
+            for field, n in self._coll[kind].items():
+                self._coll[kind][field] = n + after[field] - before[field]
+
+    def _rank0(self, values: List[int]) -> List[int]:
+        """Rank 0's `values` on every rank of the mesh: one sum over the
+        whole mesh of rank 0's int64s and the other ranks' zeros."""
+        t = torch.tensor(values, dtype=torch.int64)
+        if any(self.ctx.mesh.coordinate):
+            t.zero_()
+        with self._collectives("lockstep"):
+            t = self.ctx.sum_over(t.to(self.device),
+                                  self.ctx.mesh.axis_names)
+        return t.tolist()
+
+    def _mesh_step(self, fn, *args):
+        """`fn(*args)`, a step on a mesh: a ValueError (from shapes, the
+        same on every rank before any collective) is the step's fault;
+        any other exception ends the run as a `RankFault`."""
+        try:
+            return fn(*args)
+        except ValueError:
+            raise
+        except Exception as e:  # noqa: BLE001 - re-raised as RankFault
+            raise RankFault(f"a step raised on mesh rank "
+                            f"{self.ctx.mesh.coordinate}: "
+                            f"{type(e).__name__}: {e}") from e
 
     # ------------------------------------------------------ prefix plumbing
 
@@ -434,11 +554,16 @@ class PagedServingEngine:
             return  # the fork's pressure resolution preempted this request
         tw = self._table_width()
         table = self.pager.padded_table(req.rid, tw)
-        t0 = time.perf_counter()
-        with self.tracer.span("prefill_chunk", rid=req.rid, start=start, n=n):
-            logits, self.k_pools, self.v_pools, _ = self.prefiller.run_chunk(
-                self.params, self.k_pools, self.v_pools,
+        args = (self.params, self.k_pools, self.v_pools,
                 ctxt[start:start + n], table, start, n)
+        t0 = time.perf_counter()
+        with self.tracer.span("prefill_chunk", rid=req.rid, start=start,
+                              n=n), self._collectives("prefill_chunks"):
+            if self._mesh:
+                out = self._mesh_step(self.prefiller.run_chunk, *args)
+            else:
+                out = self.prefiller.run_chunk(*args)
+            logits, self.k_pools, self.v_pools, _ = out
         self._c_prefill_s.inc(time.perf_counter() - t0)
         # the always-on numerics scan: a non-finite chunk raises before
         # prefill_pos advances, so the chunk re-runs on retry (its KV rows
@@ -574,15 +699,25 @@ class PagedServingEngine:
             # path as any other step fault
             guard.check_injected("paged_decode_round", self.faults,
                                  round=self.rounds, width=len(writable))
-            decode = self._decode(tw)
-            captures = decode.captures
+            inputs = (torch.from_numpy(tokens), torch.from_numpy(tables),
+                      torch.from_numpy(lengths))
             with self.tracer.span("decode_round", width=len(writable),
-                                  table_width=tw):
-                nxt = decode(
-                    (self.params, self.k_pools, self.v_pools),
-                    (torch.from_numpy(tokens), torch.from_numpy(tables),
-                     torch.from_numpy(lengths))).cpu().numpy()
-            self._decode_fresh |= decode.captures > captures
+                                  table_width=tw), \
+                    self._collectives("decode_rounds"):
+                if self._mesh:
+                    nxt = self._mesh_step(
+                        self._round_step, self.params, self.k_pools,
+                        self.v_pools, *(x.to(self.device) for x in inputs))
+                else:
+                    decode = self._decode(tw)
+                    captures = decode.captures
+                    nxt = decode((self.params, self.k_pools, self.v_pools),
+                                 inputs)
+                    self.decode_captures += decode.captures - captures
+                    self._decode_fresh |= decode.captures > captures
+                nxt = nxt.cpu().numpy()
+        except RankFault:
+            raise
         except Exception as e:
             # the batched step raised: roll the reservations back and let
             # every member retry next round. A step that failed part-way may
@@ -666,6 +801,8 @@ class PagedServingEngine:
                     req.fault_count = 0
                 except PoolExhausted as e:
                     self._stall(req, e)
+                except RankFault:
+                    raise
                 except Exception as e:
                     self._note_fault(req, e)
                 emitted += len(req.generated) - before
@@ -701,6 +838,36 @@ class PagedServingEngine:
         self.pager.check_invariants(
             self.prefix_cache.block_refs() if self.prefix_cache else None)
         return self.stats()
+
+    def _placement_stats(self) -> Dict[str, Any]:
+        """Where the engine's steps ran and what this rank holds: the mesh
+        (None without one), the rounds' and chunks' graph captures (0 on
+        a mesh: eager), the bytes of the parameters, of the experts among
+        them and of the KV pools, and on a mesh the collectives' calls,
+        bytes and seconds (timed when `sharding.reset_collective_stats`
+        asked for it) in the decode rounds, the prefill chunks and the
+        lockstep agreements, with their shares of the rounds' and the
+        chunks' seconds."""
+        moe = self.params["layers"].get("moe", {})
+        out: Dict[str, Any] = {
+            "mesh": mesh_stats(self.ctx) if self._mesh else None,
+            "decode_captures": self.decode_captures,
+            "prefill_captures": self.prefiller.captures,
+            "held_bytes": {
+                "params": tensor_bytes(self.params),
+                "experts": sum(tensor_bytes(moe.get(k))
+                               for k in ("w_gate", "w_up", "w_down")),
+                "kv_pools": tensor_bytes(self.k_pools)
+                + tensor_bytes(self.v_pools)},
+        }
+        if self._mesh:
+            coll = {kind: dict(c) for kind, c in self._coll.items()}
+            coll["decode_rounds"]["share"] = \
+                coll["decode_rounds"]["s"] / max(self.decode_s, 1e-9)
+            coll["prefill_chunks"]["share"] = \
+                coll["prefill_chunks"]["s"] / max(self.prefill_s, 1e-9)
+            out["collectives"] = coll
+        return out
 
     def stats(self) -> Dict[str, Any]:
         """Aggregate serving stats — a read-time VIEW over the engine's
@@ -764,6 +931,7 @@ class PagedServingEngine:
             "tbt_p50_ms": latency_report(self._h_tbt.samples)["p50_ms"],
             "tbt_p99_ms": latency_report(self._h_tbt.samples)["p99_ms"],
         }
+        out.update(self._placement_stats())
         out.update(latency_report(self._h_token.samples))
         if self.finished:
             out["sample_tokens"] = self.finished[0].generated[:8]

@@ -32,6 +32,15 @@ Determinism: every site draws from its **own** `numpy` Generator seeded by
 the n-th decision at a site depends only on the seed and n. Two runs of the
 same workload with the same injector config see the same schedule.
 
+On a device mesh every rank runs its own engine and injector
+(`serve/engine.py`). A site that fires on one rank and not another makes
+the ranks plan different rounds, so each rank takes an injector of the
+same seed and rates, except that the latency site may differ: a spike
+only sleeps, and the one decision a rank's clock would take (a deadline)
+the mesh takes from rank 0's clock. Its draws come from its own stream,
+so the other sites fire alike whatever it does; but its fires count
+towards `max_faults`, so with a cap the latency site must be alike too.
+
 The default `NULL_INJECTOR` is inert: `fire` returns False without drawing,
 `check` does nothing, `latency_spike` returns 0.0 — production paths pay
 one method call, no branching at the call sites.

@@ -18,7 +18,10 @@ captured at the key's first chunk (which runs eagerly first, a real chunk)
 and replayed for every later chunk at that key, with the tokens, the block
 table, `start` and `n_valid` copied into its buffers. Moving a chunk along
 the prompt never recaptures, and chunks of 32 and 16 tokens of one prompt
-alternate between two live graphs. On CPU tensors the step runs eagerly.
+alternate between two live graphs. On CPU tensors the step runs eagerly,
+and so it does on a running mesh (the model's `ctx`): its MoE layers'
+collectives go through gloo, which a CUDA graph cannot capture, so each
+chunk is the step itself and `graphs` stays empty.
 
 Each executed chunk after the first of its (padded length, table width)
 key feeds `core.autotune.observe_pipeline` under the ``paged_prefill``
@@ -52,12 +55,14 @@ def synchronize(device: torch.device) -> None:
 
 class ChunkedPrefiller:
     """Runs paged prefill chunk steps at pow2-bucketed lengths, one
-    `StepGraph` per (padded length, table width)."""
+    `StepGraph` per (padded length, table width); eagerly on a mesh
+    (`model.ctx`)."""
 
     def __init__(self, model, block_size: int, device):
         self.model = model
         self.block_size = int(block_size)
         self.device = torch.device(device)
+        self.eager = model.ctx.mesh is not None
         # (padded_len, table_width) -> its step: the reference's `_fns`
         self.graphs: Dict[Tuple[int, int], StepGraph] = {}
         self._warm: Set[Tuple[int, int]] = set()  # keys already run once
@@ -69,6 +74,10 @@ class ChunkedPrefiller:
             params, k_pools, v_pools, table, start, {"tokens": tokens},
             n_valid)
         return logits
+
+    @property
+    def captures(self) -> int:
+        return sum(g.captures for g in self.graphs.values())
 
     def _graph(self, key: Tuple[int, int]) -> StepGraph:
         graph = self.graphs.get(key)
@@ -92,12 +101,15 @@ class ChunkedPrefiller:
         table = np.asarray(table, np.int32).reshape(1, -1)
         key = (padded, table.shape[1])
         warm = key in self._warm
+        inputs = (torch.from_numpy(buf), torch.from_numpy(table),
+                  torch.tensor(int(start), dtype=torch.int32),
+                  torch.tensor(int(n_valid), dtype=torch.int32))
         t0 = time.perf_counter()
-        logits = self._graph(key)(
-            (params, k_pools, v_pools),
-            (torch.from_numpy(buf), torch.from_numpy(table),
-             torch.tensor(int(start), dtype=torch.int32),
-             torch.tensor(int(n_valid), dtype=torch.int32)))
+        if self.eager:
+            logits = self._step(params, k_pools, v_pools,
+                                *(x.to(self.device) for x in inputs))
+        else:
+            logits = self._graph(key)((params, k_pools, v_pools), inputs)
         synchronize(self.device)
         dt = time.perf_counter() - t0
         self.chunks_run += 1

@@ -29,6 +29,11 @@ cover the need, the match itself is sacrificed: reclaim runs unprotected,
 the prompt is re-matched against whatever survived, and admission retries
 as a (partial or full) miss.
 
+Every decision here reads no clock and draws no random number but the
+fault injector's seeded ones, so the ranks of a device mesh, each running
+its own scheduler over the same submissions, plan the same rounds
+(`serve/engine.py`: the ranks in lockstep).
+
 Rounds mix work under a **token budget** (`plan_round`): every running
 request decodes one token (decode is never starved by prefill), and the
 leftover budget is spent on prefill chunks of admitted-but-unfinished

@@ -2097,3 +2097,102 @@ def test_flash_decode_bound_takes_the_dtypes_bytes_and_peak():
         assert ms == max(bytes_s, ops_s) * 1e3
         assert by == ("bytes" if bytes_s >= ops_s else "operations")
     assert f32[0] > bf16[0]
+
+
+# ------------------------------------------- the paged engine on a mesh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,dm,f,shared", [
+    (16, 16, 1024, 512, False),     # a 32-token chunk's capacity buffers on
+    (16, 16, 512, 1024, False),     # a (1, 2) rank of granite-moe: 2 x C 8
+    (16, 5, 1024, 512, True),       # a decode round at expert stride 0
+    (16, 5, 512, 1024, False),      # ... its down projection
+    (16, 10, 1024, 512, True),      # a wider round
+])
+def test_gmm_at_the_mesh_paged_shapes(cuda_device, dtype, e, c, dm, f,
+                                      shared):
+    """K2 at the shapes a rank of granite-moe-1b-a400m's paged engine on
+    the (1, 2) mesh gives it (its 16 local experts of 32)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    tokens, w = _gmm_problem(cuda_device, dtype, e, c, dm, f, shared=shared)
+    out = mg.gmm(tokens, w)
+    torch.cuda.synchronize()
+    assert out.shape == (e, c, f) and out.dtype == dtype
+    torch.testing.assert_close(out.float(), mg.gmm_plain(tokens, w).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert launch_counts()["moe_gmm"] == 1
+
+
+def _mesh_paged_cfg(arch):
+    """Reduced f32 `arch`; a MoE arch at a capacity factor of E / top_k,
+    at which no token drops, so that the mesh's tokens equal one card's."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             param_dtype="float32")
+    if cfg.moe:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def _mesh_paged_params(cfg, ctx, device):
+    from repro_torch.core import tree
+    from repro_torch.models import build_model
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return tree.map_tree(lambda x: x.to(device),
+                         build_model(cfg, ctx).init(gen, "cpu"))
+
+
+MESH_PAGED_SERVE = dict(batch=4, prompt_len=40, gen=8, block_size=16)
+
+
+def _mesh_paged_rank(ctx, arch):
+    """`serve_paged` of reduced f32 `arch` on one rank of a mesh, from a
+    CPU draw: its stats and launches."""
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import serve_paged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _mesh_paged_cfg(arch)
+    params = _mesh_paged_params(cfg, ctx, ctx.device)
+    reset_launch_counts()
+    stats = serve_paged(cfg, ctx=ctx, device=ctx.device.type, params=params,
+                        **MESH_PAGED_SERVE)
+    return {"stats": stats, "counts": launch_counts()}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "yi-6b"])
+def test_mesh_paged_engine_on_the_card_equals_the_cpu(cuda_device, arch):
+    """Two gloo ranks sharing the card against two CPU ranks on the
+    (1, 2) mesh, and one card's engine: the same greedy tokens; the card's
+    ranks capture no graph and launch K1 once a layer a decode round and
+    K2 three times a MoE layer a round and a prefill chunk, the CPU's
+    nothing."""
+    import functools
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import serve_paged
+    from repro_torch.sharding import NULL_CTX
+
+    fn = functools.partial(_mesh_paged_rank, arch=arch)
+    card = spawn(fn, (1, 2), device="cuda", backend="gloo", timeout_s=300)
+    cpu = spawn(fn, (1, 2), device="cpu", backend="gloo", timeout_s=300)
+    cfg = _mesh_paged_cfg(arch)
+    one = serve_paged(cfg, device="cuda", params=_mesh_paged_params(
+        cfg, NULL_CTX, cuda_device), **MESH_PAGED_SERVE)
+    for got, ref in zip(card, cpu):
+        st = got["stats"]
+        assert st["states"] == ["finished"] * MESH_PAGED_SERVE["batch"]
+        assert st["generated"] == ref["stats"]["generated"] \
+            == one["generated"]
+        assert st["decode_captures"] == st["prefill_captures"] == 0
+        want = {"paged_decode": cfg.n_layers * st["decode_rounds"]}
+        if cfg.moe:
+            want["moe_gmm"] = 3 * cfg.n_layers * (st["decode_rounds"]
+                                                  + st["prefill_chunks"])
+        assert {k: v for k, v in got["counts"].items() if v} == want
+        assert not any(ref["counts"].values())

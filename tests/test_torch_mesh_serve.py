@@ -532,15 +532,16 @@ def test_paged_engine_and_training_refuse_a_mesh():
 
     ctx = ShardingCtx(mesh=Mesh(("data", "model"), (1, 2)))
     cfg = get_config("yi-6b").reduced().replace(**F32)
+    # the paged engine and training take a mesh that runs
+    # (tests/test_torch_mesh_paged.py, tests/test_torch_mesh_train.py), not
+    # one of shapes alone
     for call in (
             lambda: port_serve.serve(cfg, batch=2, prompt_len=8, gen=2,
-                                     ctx=ctx, engine="paged"),
+                                     ctx=ctx, engine="paged", device="cpu"),
             lambda: port_serve.serve_paged(cfg, batch=2, prompt_len=8, gen=2,
-                                           ctx=ctx)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                           ctx=ctx, device="cpu")):
+        with pytest.raises(RuntimeError, match="running mesh"):
             call()
-    # training takes a mesh that runs (tests/test_torch_mesh_train.py), not
-    # one of shapes alone
     with pytest.raises(RuntimeError, match="running mesh"):
         jit_train_step(build_model(cfg, ctx), AdamWConfig())
 
