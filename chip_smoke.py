@@ -362,9 +362,9 @@ two gloo ranks sharing the card), then prints its record as one JSON line.
 
     python3 chip_smoke.py --mesh-train
 
-builds the kernels and runs only phase 13 (training on the (1, 2) and
-(2, 1) meshes, two gloo ranks sharing the card), then prints its record as
-one JSON line.
+builds the kernels and runs only phase 13 (training with the state placed
+by its rules on the (1, 2) and (2, 1) meshes, two gloo ranks sharing the
+card), then prints its record as one JSON line.
 
     python3 chip_smoke.py --mesh-paged
 
@@ -4278,19 +4278,33 @@ def mesh_phase(torch) -> dict:
 # ----------------------------------------------------------------- phase 13
 
 # Training on a device mesh: two ranks (processes) that share the one card
-# through gloo, as phase 12 serves. granite-moe-1b-a400m on (1, 2): each
-# rank holds half the experts and runs the whole batch, its S / 2 positions
-# of each MoE layer through the all_to_all and K2; mamba2-130m on (2, 1):
-# each rank its 4 of the batch's 8 rows, K4 and K4b a layer. The settings
-# are phase 11d's (f32 parameters and AdamW, bf16 compute, seq 512, the
-# Markov task over 512 ids, lr 1e-2, the clip off), 5 steps, eager (gloo
-# cannot be captured). The reduced f32 check runs both archs on the (1, 2)
-# mesh, on the card and on CPU ranks, from the same draw.
-MESH_TRAIN = (("granite-moe-1b-a400m", (1, 2)), ("mamba2-130m", (2, 1)))
-MESH_TRAIN_STEPS, MESH_TRAIN_BATCH = 5, 8
-MESH_TRAIN_REDUCED = dict(shape=(1, 2), batch=4, seq=32, steps=3,
-                          capacity_factor=0.5)
+# through gloo, as phase 12 serves. Each rank holds its block of params, mu
+# and nu placed by their rules (`state_shardings`), gathers the parameters
+# to the layout the model computes with once a step and reduce-scatters
+# each gradient into its block. granite-moe-1b-a400m on (1, 2): each rank
+# a half of every leaf the rules split over `model` (experts, vocab, heads,
+# mlp) and the whole batch, its S / 2 positions of each MoE layer through
+# the all_to_all and K2; granite-moe-1b-a400m on (2, 1): each rank half of
+# every leaf (split over `data` by its `embed` axis) and its 4 of the
+# batch's 8 rows, all 32 experts through K2; mamba2-130m on (2, 1): half of
+# every leaf, its 4 rows, K4 and K4b a layer. The settings are phase 11d's
+# (f32 parameters and AdamW, bf16 compute, seq 512, the Markov task over
+# 512 ids, lr 1e-2, the clip off), eager steps (gloo cannot be captured).
+# The reduced f32 check runs both archs on (1, 2) and (2, 1), on the card
+# and on CPU ranks, from the same draw, and a compressed granite step on
+# (1, 2).
+MESH_TRAIN = (("granite-moe-1b-a400m", (1, 2), 5),
+              ("granite-moe-1b-a400m", (2, 1), 3),
+              ("mamba2-130m", (2, 1), 5))
+MESH_TRAIN_BATCH = 8
+MESH_TRAIN_REDUCED = dict(archs=("granite-moe-1b-a400m", "mamba2-130m"),
+                          shapes=((1, 2), (2, 1)), compress_shape=(1, 2),
+                          batch=4, seq=32, steps=3, capacity_factor=0.5)
 MESH_TRAIN_TIMEOUT_S = 600.0
+
+
+def _mesh_tag(shape) -> str:
+    return f"{shape[0]}x{shape[1]}"
 
 
 def mesh_train_launches(cfg, steps: int) -> dict:
@@ -4303,15 +4317,33 @@ def mesh_train_launches(cfg, steps: int) -> dict:
             "ssd_scan_bwd": cfg.n_layers * steps}
 
 
+def mesh_train_shares(cfg, shape) -> dict:
+    """Bytes of params (and so of mu and of nu) a rank of `shape` holds by
+    the placed specs, and the whole's, from meta tensors (no memory)."""
+    from repro_torch.core import tree
+    from repro_torch.models import build_model
+    from repro_torch.sharding import Mesh, ShardingCtx, block_shape
+
+    ctx = ShardingCtx(mesh=Mesh(("data", "model"), tuple(shape)))
+    model = build_model(cfg, ctx)
+    leaves = tree.leaves(model.abstract_params())
+    specs = tree.leaves(model.param_partition_specs())
+    share = sum(math.prod(block_shape(x.shape, sp, ctx)) * x.element_size()
+                for x, sp in zip(leaves, specs))
+    return {"share": share,
+            "whole": sum(x.numel() * x.element_size() for x in leaves)}
+
+
 def check_mesh_train_kernels(torch) -> dict:
     """The kernels of (b) and (c) at the shapes a rank gives them, against
     their plain versions on the card, in bf16 (the path's compute type):
     K2's gate/up and down products with their d tokens and d weights on a
-    rank's capacity buffers of granite-moe on (1, 2) ([E / 2, 2 C, d]
-    from its B S / 2 tokens), through `gmm_grads` against the plain
-    version's autograd; K4 and K4b at a (2, 1) rank's batch of mamba2
-    (b B / 2, s 512, dh_final None, as in training). Each call's launches
-    are counted; each max_abs_err is logged and returned."""
+    rank's capacity buffers of granite-moe on each of its meshes
+    ([E / model, model C, d] from its B S / (data model) tokens), through
+    `gmm_grads` against the plain version's autograd; K4 and K4b at a
+    (2, 1) rank's batch of mamba2 (b B / 2, s 512, dh_final None, as in
+    training). Each call's launches are counted; each max_abs_err is
+    logged and returned."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
@@ -4326,31 +4358,37 @@ def check_mesh_train_kernels(torch) -> dict:
     gen.manual_seed(15)
     tol = TOL["bfloat16"]
     out = {}
-    (moe_arch, moe_shape), (ssm_arch, ssm_shape) = MESH_TRAIN
-    cfg = get_config(moe_arch)
-    n = moe_shape[1]
-    e_l = cfg.n_experts // n
-    rows = n * moe_mod._capacity(MESH_TRAIN_BATCH * TRAIN_SEQ // n, cfg)
-    for proj, dm, f in (("gate/up", cfg.d_model, cfg.d_ff_expert),
-                        ("down", cfg.d_ff_expert, cfg.d_model)):
-        tokens = torch.randn(e_l, rows, dm, generator=gen,
-                             device="cuda").bfloat16()
-        w = (torch.randn(e_l, dm, f, generator=gen, device="cuda")
-             * dm ** -0.5).bfloat16()
-        up = (torch.randn(e_l, rows, f, generator=gen, device="cuda")
-              * rows ** -0.5).bfloat16()
-        want = gmm_grads(torch, tokens, w, up, "plain")
-        before = launch_counts()
-        got = gmm_grads(torch, tokens, w, up, "kernel")
-        torch.cuda.synchronize()
-        if moved(before) != {"moe_gmm": 3}:
-            raise AssertionError(f"moe_gmm mesh train {proj}: launches "
-                                 f"{moved(before)}, not 3")
-        for part, a, b in zip(("out", "d tokens", "d weights"), got, want):
-            out[f"moe_gmm {proj} {part}"] = _close(
-                f"moe_gmm mesh train {moe_arch} {moe_shape} rank {proj} "
-                f"{part} [{e_l},{rows},{dm}]x[{dm},{f}] bfloat16", a, b, tol)
-        del tokens, w, up, want, got
+    for moe_arch, moe_shape, _ in MESH_TRAIN:
+        cfg = get_config(moe_arch)
+        if not cfg.moe:
+            continue
+        n = moe_shape[1]
+        e_l = cfg.n_experts // n
+        tokens_a_rank = MESH_TRAIN_BATCH * TRAIN_SEQ // moe_shape[0]
+        rows = n * moe_mod._capacity(tokens_a_rank // n, cfg)
+        for proj, dm, f in (("gate/up", cfg.d_model, cfg.d_ff_expert),
+                            ("down", cfg.d_ff_expert, cfg.d_model)):
+            tokens = torch.randn(e_l, rows, dm, generator=gen,
+                                 device="cuda").bfloat16()
+            w = (torch.randn(e_l, dm, f, generator=gen, device="cuda")
+                 * dm ** -0.5).bfloat16()
+            up = (torch.randn(e_l, rows, f, generator=gen, device="cuda")
+                  * rows ** -0.5).bfloat16()
+            want = gmm_grads(torch, tokens, w, up, "plain")
+            before = launch_counts()
+            got = gmm_grads(torch, tokens, w, up, "kernel")
+            torch.cuda.synchronize()
+            if moved(before) != {"moe_gmm": 3}:
+                raise AssertionError(f"moe_gmm mesh train {proj}: launches "
+                                     f"{moved(before)}, not 3")
+            for part, a, b in zip(("out", "d tokens", "d weights"), got,
+                                  want):
+                out[f"moe_gmm {_mesh_tag(moe_shape)} {proj} {part}"] = \
+                    _close(f"moe_gmm mesh train {moe_arch} {moe_shape} rank "
+                           f"{proj} {part} [{e_l},{rows},{dm}]x[{dm},{f}] "
+                           "bfloat16", a, b, tol)
+            del tokens, w, up, want, got
+    ssm_arch, ssm_shape, _ = MESH_TRAIN[-1]
     b = MESH_TRAIN_BATCH // ssm_shape[0]
     _, s, nh, p, nn, chunk = ssd_train_shape(ssm_arch)
     args = ssd_operands(torch, gen, b, s, nh, p, nn, dtype=torch.bfloat16)
@@ -4384,11 +4422,14 @@ def check_mesh_train_kernels(torch) -> dict:
 
 
 def mesh_train_reduced(ctx) -> dict:
-    """(a) on one rank: each arch of MESH_TRAIN reduced in f32 (granite-moe
-    at a capacity factor that drops tokens), drawn whole on the CPU from
-    seed 0 and cut to this rank's share on its device, three
-    `jit_train_step` steps on its rows of the Markov batches: each step's
-    metrics, the state after them (on the CPU) and the launches."""
+    """(a) on one rank: each arch of MESH_TRAIN_REDUCED reduced in f32
+    (granite-moe at a capacity factor that drops tokens), drawn whole on
+    the CPU from seed 0 and placed by the rules (`Model.place`) on its
+    device, three `jit_train_step` steps on its rows of the Markov
+    batches: each step's metrics, the rank's blocks of the state after
+    them (on the CPU) and the launches; on the compressed mesh, granite
+    again with `compress=True` (the error state placed with the
+    parameters)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4397,14 +4438,18 @@ def mesh_train_reduced(ctx) -> dict:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.optim.compression import init_error_state
     from repro_torch.runtime.steps import jit_train_step, local_batch
 
     # a new process: f32 compared with the CPU, so no TF32 here either
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = MESH_TRAIN_REDUCED
+    runs = [(arch, False) for arch in kw["archs"]]
+    if tuple(ctx.mesh.shape) == kw["compress_shape"]:
+        runs.append((kw["archs"][0], True))
     out = {}
-    for arch, _ in MESH_TRAIN:
+    for arch, compress in runs:
         cfg = get_config(arch).reduced().replace(dtype="float32",
                                                  param_dtype="float32")
         if cfg.moe:
@@ -4413,9 +4458,13 @@ def mesh_train_reduced(ctx) -> dict:
         gen = torch.Generator()
         gen.manual_seed(0)
         state = init_state(tree.map_tree(lambda x: x.to(ctx.device),
-                                         model.init(gen, "cpu")))
+                                         model.place(build_model(cfg).init(
+                                             gen, "cpu"))))
+        if compress:
+            state["grad_error"] = init_error_state(state["params"])
         step = jit_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
-                                                 total_steps=kw["steps"]))
+                                                 total_steps=kw["steps"]),
+                              compress=compress)
         task = MarkovTask(DataConfig(vocab=cfg.vocab, seq_len=kw["seq"],
                                      global_batch=kw["batch"]))
         metrics = []
@@ -4425,16 +4474,17 @@ def mesh_train_reduced(ctx) -> dict:
                      for k, v in task.batch_for_step(i).items()}
             state, m = step(state, local_batch(ctx, batch))
             metrics.append({k: float(v) for k, v in m.items()})
-        out[arch] = {"metrics": metrics, "counts": launch_counts(),
-                     "state": {"/".join(path): x.cpu() for path, x in
-                               tree.paths(state)}}
+        out[f"{arch} compressed" if compress else arch] = {
+            "metrics": metrics, "counts": launch_counts(),
+            "state": {"/".join(path): x.cpu() for path, x in
+                      tree.paths(state)}}
     return out
 
 
-def mesh_train_full(ctx, arch: str) -> dict:
+def mesh_train_full(ctx, arch: str, steps: int) -> dict:
     """(b), (c) on one rank: `train` on `arch` at full width on the mesh,
-    the launch counts zeroed just before it and read just after, the
-    collectives timed sync to sync."""
+    `steps` steps, the launch counts zeroed just before it and read just
+    after, the collectives timed sync to sync."""
     import torch
 
     from repro_torch import sharding
@@ -4449,87 +4499,113 @@ def mesh_train_full(ctx, arch: str) -> dict:
     model = build_model(cfg, ctx)
     data = DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=TRAIN_SEQ,
                       global_batch=MESH_TRAIN_BATCH)
-    opt = AdamWConfig(lr=TRAIN_LR, total_steps=MESH_TRAIN_STEPS,
-                      warmup_steps=2, grad_clip=TRAIN_CLIP)
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=steps, warmup_steps=2,
+                      grad_clip=TRAIN_CLIP)
     torch.cuda.reset_peak_memory_stats(ctx.device)
     sharding.reset_collective_stats(timed=True)
     reset_launch_counts()
-    rep = train(model, steps=MESH_TRAIN_STEPS, data_cfg=data, opt=opt,
-                log_every=1)
+    rep = train(model, steps=steps, data_cfg=data, opt=opt, log_every=1)
     counts = launch_counts()
     coll = sharding.collective_stats()
     sharding.reset_collective_stats()
-    return {"losses": [rep.losses[i] for i in range(MESH_TRAIN_STEPS)],
+    return {"losses": [rep.losses[i] for i in range(steps)],
             "step_s": rep.step_s, "wall_s": rep.wall_s, "counts": counts,
-            "collectives": coll,
+            "collectives": coll, "held_bytes": rep.held_bytes,
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated(ctx.device) / 1e9,
             "max_memory_reserved_gb":
                 torch.cuda.max_memory_reserved(ctx.device) / 1e9}
 
 
-def mesh_train_rank(ctx, arch=None, reduced: bool = True) -> dict:
+def mesh_train_rank(ctx, arch=None, steps: int = 0,
+                    reduced: bool = True) -> dict:
     """One rank of phase 13: (a) when `reduced`, then `arch` (if given) at
-    full width."""
+    full width for `steps` steps."""
     out = {"coordinate": list(ctx.mesh.coordinate)}
     if reduced:
         out["reduced"] = mesh_train_reduced(ctx)
     if arch is not None:
-        out["full"] = mesh_train_full(ctx, arch)
+        out["full"] = mesh_train_full(ctx, arch, steps)
     return out
 
 
-def check_mesh_train_reduced(torch, card, cpu) -> float:
+def _error_flips(name, got, want) -> int:
+    """The error state of a compressed step, card against CPU: an element
+    more than 2e-3 apart is a rounding flip (g + e on two sides of a
+    rounding boundary: the two errors one quantization step of the leaf
+    apart, that step at least twice the largest error, within 2e-3), and
+    at most 1% of a leaf's elements flip. Returns the flips."""
+    diff = (got.float() - want.float()).abs()
+    flips = diff > 2e-3
+    step = 2 * float(want.abs().max())
+    if bool(flips.any()) and (float(diff[flips].max()) > step + 2e-3
+                              or int(flips.sum()) > 0.01 * diff.numel()):
+        raise AssertionError(
+            f"{name}: {int(flips.sum())} of {diff.numel()} elements off by "
+            f"up to {float(diff.max()):.3e} (a flip is one step, <= "
+            f"{step:.3e})")
+    return int(flips.sum())
+
+
+def check_mesh_train_reduced(torch, card, cpu, shape) -> float:
     """(a): the card's ranks against the CPU's, rank by rank: every step's
-    loss, learning rate and gradient norm and every leaf of the state a
-    rank holds within 2e-3, the card's launches exactly the steps' and
+    loss, learning rate and gradient norm and every leaf of the blocks a
+    rank holds within 2e-3 (a compressed run's error state up to rounding
+    flips, `_error_flips`), the card's launches exactly the steps' and
     none on the CPU."""
     from repro_torch.configs import get_config
 
     overall = 0.0
-    for arch, _ in MESH_TRAIN:
-        worst = 0.0
+    for key in card[0]["reduced"]:
+        arch = key.split()[0]
+        worst, flips = 0.0, 0
         cfg = get_config(arch).reduced()
         want = mesh_train_launches(cfg, MESH_TRAIN_REDUCED["steps"])
         for r, (c, h) in enumerate(zip(card, cpu)):
-            got, ref = c["reduced"][arch], h["reduced"][arch]
+            got, ref = c["reduced"][key], h["reduced"][key]
             counts = {k: v for k, v in got["counts"].items() if v}
             if counts != want or any(ref["counts"].values()):
                 raise AssertionError(
-                    f"mesh train {arch} reduced rank {r}: launches card "
-                    f"{counts}, cpu {ref['counts']}, want {want} and none")
+                    f"mesh train {key} reduced {shape} rank {r}: launches "
+                    f"card {counts}, cpu {ref['counts']}, want {want} and "
+                    "none")
             for i, (a, b) in enumerate(zip(got["metrics"], ref["metrics"])):
-                for key in ("loss", "lr", "grad_norm"):
+                for m in ("loss", "lr", "grad_norm"):
                     worst = max(worst, _close_quiet(
-                        f"mesh train {arch} rank {r} step {i} {key}",
-                        torch.tensor([a[key]]), torch.tensor([b[key]]),
-                        2e-3))
+                        f"mesh train {key} {shape} rank {r} step {i} {m}",
+                        torch.tensor([a[m]]), torch.tensor([b[m]]), 2e-3))
             for name, x in got["state"].items():
-                if x.dtype.is_floating_point:
+                if name.startswith("grad_error/"):
+                    flips += _error_flips(f"mesh train {key} {shape} rank "
+                                          f"{r} {name}", x, ref["state"][name])
+                elif x.dtype.is_floating_point:
                     worst = max(worst, _close_quiet(
-                        f"mesh train {arch} rank {r} {name}", x,
+                        f"mesh train {key} {shape} rank {r} {name}", x,
                         ref["state"][name], 2e-3))
-        log(f"mesh train {arch} reduced f32 on {MESH_TRAIN_REDUCED['shape']}"
-            f": card ranks == cpu ranks over {MESH_TRAIN_REDUCED['steps']} "
-            f"steps (losses {[round(m['loss'], 6) for m in got['metrics']]},"
-            f" grad norms {[round(m['grad_norm'], 4) for m in got['metrics']]}"
-            f"), every state leaf within 2e-3 (max abs err {worst:.3e}), "
-            f"launches {json.dumps(want)} a rank")
+        log(f"mesh train {key} reduced f32 placed on {shape}: card ranks == "
+            f"cpu ranks over {MESH_TRAIN_REDUCED['steps']} steps (losses "
+            f"{[round(m['loss'], 6) for m in got['metrics']]}, grad norms "
+            f"{[round(m['grad_norm'], 4) for m in got['metrics']]}), every "
+            f"block of params, mu, nu within 2e-3 (max abs err {worst:.3e})"
+            + (f", the error state up to {flips} rounding flips"
+               if key.endswith("compressed") else "")
+            + f", launches {json.dumps(want)} a rank")
         overall = max(overall, worst)
     return overall
 
 
-def check_mesh_train_full(arch: str, shape, ranks) -> dict:
+def check_mesh_train_full(arch: str, shape, steps: int, ranks) -> dict:
     """(b), (c): every loss finite and the last below the first, the same
     on every rank; each rank launched exactly `mesh_train_launches` and
-    nothing else; each rank's step p50 (the first step apart), tokens a
-    second, peak memory, the collectives' calls, bytes and share of the
-    steps."""
+    nothing else, and holds exactly the placed specs' share of params, mu
+    and nu; each rank's bytes held, step p50 (the first step apart),
+    tokens a second, peak memory, the collectives' calls, bytes and share
+    of the steps."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    steps = MESH_TRAIN_STEPS
     want = mesh_train_launches(cfg, steps)
+    shares = mesh_train_shares(cfg, shape)
     tokens = MESH_TRAIN_BATCH * TRAIN_SEQ
     per_rank = []
     for r, run in enumerate(ranks):
@@ -4537,48 +4613,65 @@ def check_mesh_train_full(arch: str, shape, ranks) -> dict:
         losses = full["losses"]
         counts = {k: v for k, v in full["counts"].items() if v}
         if counts != want:
-            raise AssertionError(f"mesh train {arch} rank {r}: launches "
-                                 f"{full['counts']}, want {want}")
+            raise AssertionError(f"mesh train {arch} {shape} rank {r}: "
+                                 f"launches {full['counts']}, want {want}")
+        held = full["held_bytes"]
+        if held != {k: shares["share"] for k in ("params", "mu", "nu")}:
+            raise AssertionError(f"mesh train {arch} {shape} rank {r}: "
+                                 f"holds {held}, the specs' share is "
+                                 f"{shares['share']} a part")
         if not all(math.isfinite(x) for x in losses) or \
                 not losses[-1] < losses[0]:
-            raise AssertionError(f"mesh train {arch} rank {r}: losses "
-                                 f"{losses} (finite and falling wanted)")
+            raise AssertionError(f"mesh train {arch} {shape} rank {r}: "
+                                 f"losses {losses} (finite and falling "
+                                 "wanted)")
         if losses != ranks[0]["full"]["losses"]:
-            raise AssertionError(f"mesh train {arch}: rank {r} logged "
-                                 f"{losses}, rank 0 {ranks[0]['full']['losses']}")
+            raise AssertionError(f"mesh train {arch} {shape}: rank {r} "
+                                 f"logged {losses}, rank 0 "
+                                 f"{ranks[0]['full']['losses']}")
         p50 = statistics.median(full["step_s"][1:])
         coll = full["collectives"]
         shown = {
             "coordinate": run["coordinate"],
+            "held_gb": {k: v / 1e9 for k, v in held.items()},
+            "whole_state_gb": 3 * shares["whole"] / 1e9,
+            "held_state_gb": sum(held.values()) / 1e9,
+            "specs_share_gb_a_part": shares["share"] / 1e9,
             "first_step_ms": full["step_s"][0] * 1e3,
             "step_ms_p50": p50 * 1e3,
-            "step_ms": [s * 1e3 for s in full["step_s"]],
+            "step_ms": [x * 1e3 for x in full["step_s"]],
             "tokens_per_s": tokens / p50,
             "max_memory_allocated_gb": full["max_memory_allocated_gb"],
             "max_memory_reserved_gb": full["max_memory_reserved_gb"],
             "collectives": dict(coll, share_of_steps=coll["s"] / max(
-                sum(full["step_s"]), 1e-9)),
+                sum(full["step_s"]), 1e-9), calls_a_step=coll["calls"] /
+                steps, gb_a_step=coll["bytes"] / steps / 1e9),
             "launches_a_step": {k: v // steps for k, v in counts.items()},
             "losses": losses}
         per_rank.append(shown)
-        log(f"mesh train {arch} full width on {shape} (two gloo ranks on "
-            f"one card; f32 params, bf16 compute, batch {MESH_TRAIN_BATCH} "
-            f"x seq {TRAIN_SEQ}, {steps} eager steps, lr {TRAIN_LR:g}, clip "
-            f"{TRAIN_CLIP:g}) rank {r}: {json.dumps(shown)}")
-    log(f"mesh train {arch}: loss {per_rank[0]['losses'][0]:.4f} -> "
-        f"{per_rank[0]['losses'][-1]:.4f} (fell), "
-        f"{json.dumps(per_rank[0]['launches_a_step'])} a step on each rank")
-    return {"ranks": per_rank, "shape": list(shape),
+        log(f"mesh train {arch} full width placed on {shape} (two gloo "
+            f"ranks on one card; f32 params, bf16 compute, batch "
+            f"{MESH_TRAIN_BATCH} x seq {TRAIN_SEQ}, {steps} eager steps, lr "
+            f"{TRAIN_LR:g}, clip {TRAIN_CLIP:g}) rank {r}: "
+            f"{json.dumps(shown)}")
+    log(f"mesh train {arch} {shape}: each rank holds "
+        f"{shares['share'] / 1e9:.3f} GB of params of "
+        f"{shares['whole'] / 1e9:.3f} (and as much of mu and of nu), loss "
+        f"{per_rank[0]['losses'][0]:.4f} -> {per_rank[0]['losses'][-1]:.4f} "
+        f"(fell), {json.dumps(per_rank[0]['launches_a_step'])} a step on "
+        "each rank")
+    return {"ranks": per_rank, "shape": list(shape), "steps": steps,
             "launches": [run["full"]["counts"] for run in ranks]}
 
 
 def mesh_train_phase(torch) -> dict:
     """Phase 13: K2, K4 and K4b against their plain versions at the shapes
     a rank of (b) and (c) gives them (`check_mesh_train_kernels`); (a)
-    reduced f32 granite-moe and mamba2 steps on the card's
-    (1, 2) gloo mesh against the same steps on CPU ranks; (b)
-    granite-moe-1b-a400m at full width on (1, 2); (c) mamba2-130m at full
-    width on (2, 1); each run's launches, losses and per-rank figures."""
+    reduced f32 granite-moe and mamba2 steps, placed, on the card's (1, 2)
+    and (2, 1) gloo meshes against the same steps on CPU ranks, and a
+    compressed granite step on (1, 2); (b) granite-moe-1b-a400m at full
+    width on (1, 2) and (2, 1); (c) mamba2-130m at full width on (2, 1);
+    each run's launches, losses, bytes held and per-rank figures."""
     import functools
     import gc
 
@@ -4589,25 +4682,34 @@ def mesh_train_phase(torch) -> dict:
     kernel_errs = check_mesh_train_kernels(torch)
     runs = {}
     t0 = time.perf_counter()
-    for i, (arch, shape) in enumerate(MESH_TRAIN):
+    left = [tuple(s) for s in MESH_TRAIN_REDUCED["shapes"]]
+    for arch, shape, steps in MESH_TRAIN:
         t = time.perf_counter()
-        runs[arch] = spawn(functools.partial(mesh_train_rank, arch=arch,
-                                             reduced=i == 0), shape,
-                           device="cuda", backend="gloo",
-                           timeout_s=MESH_TRAIN_TIMEOUT_S)
+        reduced = shape in left
+        if reduced:
+            left.remove(shape)
+        runs[(arch, shape)] = spawn(
+            functools.partial(mesh_train_rank, arch=arch, steps=steps,
+                              reduced=reduced), shape, device="cuda",
+            backend="gloo", timeout_s=MESH_TRAIN_TIMEOUT_S)
         log(f"mesh train {arch} on {shape}: gloo ranks on the card ran in "
             f"{time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    cpu = spawn(mesh_train_rank, MESH_TRAIN_REDUCED["shape"], device="cpu",
-                backend="gloo", timeout_s=MESH_TRAIN_TIMEOUT_S)
-    log(f"mesh train reduced on CPU ranks: {time.perf_counter() - t:.1f} s; "
-        f"phase 13 {time.perf_counter() - t0:.1f} s")
-    first = MESH_TRAIN[0][0]
-    worst = check_mesh_train_reduced(torch, runs[first], cpu)
-    out = {"reduced_max_abs_err": worst,
-           "kernels_at_rank_shapes_max_abs_err": kernel_errs}
-    for arch, shape in MESH_TRAIN:
-        out[arch] = check_mesh_train_full(arch, shape, runs[arch])
+    out = {"kernels_at_rank_shapes_max_abs_err": kernel_errs,
+           "reduced_max_abs_err": {}}
+    for shape in MESH_TRAIN_REDUCED["shapes"]:
+        t = time.perf_counter()
+        cpu = spawn(mesh_train_rank, shape, device="cpu", backend="gloo",
+                    timeout_s=MESH_TRAIN_TIMEOUT_S)
+        log(f"mesh train reduced on CPU ranks {shape}: "
+            f"{time.perf_counter() - t:.1f} s")
+        card = next(r for (_, s), r in runs.items() if s == tuple(shape)
+                    and "reduced" in r[0])
+        out["reduced_max_abs_err"][_mesh_tag(shape)] = \
+            check_mesh_train_reduced(torch, card, cpu, shape)
+    log(f"phase 13 {time.perf_counter() - t0:.1f} s")
+    for arch, shape, steps in MESH_TRAIN:
+        out[f"{arch} {_mesh_tag(shape)}"] = check_mesh_train_full(
+            arch, shape, steps, runs[(arch, shape)])
     return out
 
 
@@ -5080,10 +5182,11 @@ def main() -> int:
     paged_ranks = {f"mesh paged {MESH_PAGED_ARCH} rank {r}": c
                    for r, c in enumerate(mesh_paged["launches"])}
     mesh_train_paths = {"moe_gmm": {}, "ssd_scan": {}, "ssd_scan_bwd": {}}
-    for arch, _ in MESH_TRAIN:
+    for arch, shape, _ in MESH_TRAIN:
+        tag = f"{arch} {_mesh_tag(shape)}"
         for name in mesh_train_launches(get_config(arch), 1):
-            for r, c in enumerate(mesh_trained[arch]["launches"]):
-                mesh_train_paths[name][f"mesh train {arch} rank {r}"] = \
+            for r, c in enumerate(mesh_trained[tag]["launches"]):
+                mesh_train_paths[name][f"mesh train {tag} rank {r}"] = \
                     c[name]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -14,11 +14,11 @@ stepping. bfloat16 leaves are stored as float32 (numpy has no bfloat16)
 and come back exactly.
 
 On a device mesh (a `ShardingCtx` whose mesh runs, and `specs`: a tree of
-partition specs of the state's structure, what each rank holds) a
-checkpoint holds the whole state in the single-device layout: every rank
-gathers its split leaves over the axes that split them (a MoE layer's
-experts over `model`), and rank 0 alone writes; `restore` gives each rank
-its block of every leaf. A checkpoint is the same files whatever mesh, or
+partition specs of the state's structure, what each rank holds: the train
+state's placed specs, `runtime.steps.held_state_specs`) a checkpoint holds
+the whole state in the single-device layout: every rank gathers its split
+leaves over the axes that split them, and rank 0 alone writes; `restore`
+gives each rank its block of every leaf. A checkpoint is the same files whatever mesh, or
 none, wrote it, and restores onto any other.
 """
 from __future__ import annotations
@@ -143,9 +143,9 @@ def restore(ckpt_dir, template, *, step: Optional[int] = None,
             ctx: ShardingCtx = NULL_CTX, specs=None) -> Any:
     """Restore into `template`'s tree structure: each tensor leaf comes back
     as a tensor of the template leaf's type on its device, any other leaf
-    as a numpy array. On a mesh the template is a rank's share and `specs`
-    its held specs: each leaf is read whole and this rank keeps its block
-    (`local_shard`)."""
+    as a numpy array. On a mesh the template is a rank's blocks and `specs`
+    their partition specs: each leaf is read whole and this rank keeps its
+    block (`local_shard`)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:

@@ -2,20 +2,25 @@
 
 Picks an arch (reduced or custom dims), builds the Markov data task, and
 runs the fault-tolerant train loop: on one device, the GPU unless
-``--device cpu`` is given (RuntimeError where there is no GPU); or, with
-``--mesh mini``, on the reference's mini mesh of ``--ranks`` processes
-(``(ranks / 2, 2)`` when the count is even, else ``(ranks, 1)``), one a
-rank (`launch.mesh.spawn`). The reference takes its rank count from its
-devices; processes are named by the caller here, 2 by default.
-``--backend`` is the process group's: ``gloo`` on the CPU, ``nccl`` (the
-default) for one card a rank; ranks that share a card ask for ``gloo``,
-and NCCL with more ranks than cards raises. The run has no time limit;
-each collective has `spawn`'s. Rank 0's report is printed.
+``--device cpu`` is given (RuntimeError where there is no GPU); or on a
+device mesh, one process a rank (`launch.mesh.spawn`): ``--mesh mini``,
+the reference's mini mesh of ``--ranks`` processes (``(ranks / 2, 2)``
+when the count is even, else ``(ranks, 1)``; the reference takes its rank
+count from its devices, processes are named by the caller here, 2 by
+default), or ``--mesh DATAxMODEL`` (e.g. ``2x1``). On a mesh each rank
+holds its block of params, mu and nu placed by their rules, and a line
+is printed for each rank with the bytes it holds of each. ``--backend``
+is the process group's: ``gloo`` on the CPU, ``nccl`` (the default) for
+one card a rank; ranks that share a card ask for ``gloo``, and NCCL with
+more ranks than cards raises. The run has no time limit; each collective
+has `spawn`'s. Rank 0's report is printed last.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --reduced --device cpu --steps 100 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --reduced --mesh mini --ranks 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+      --reduced --mesh 2x1 --device cpu --backend gloo
 """
 from __future__ import annotations
 
@@ -68,7 +73,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a crash (fault-tolerance demo)")
-    ap.add_argument("--mesh", default="none", choices=["none", "mini"])
+    ap.add_argument("--mesh", default="none", metavar="none|mini|DATAxMODEL")
     ap.add_argument("--ranks", type=int, default=2,
                     help="--mesh mini's processes, one a rank (default 2)")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
@@ -93,17 +98,25 @@ def main(argv=None):
     if over:
         cfg = cfg.replace(**over)
 
-    if args.mesh == "mini":
-        from repro_torch.launch.mesh import mesh_by_name, spawn
+    if args.mesh != "none":
+        from repro_torch.launch.mesh import mesh_by_name, parse_mesh, spawn
         from repro_torch.serve.engine import resolve_device
 
+        if args.mesh == "mini":
+            mesh = mesh_by_name("mini", devices=args.ranks)
+            shape, names = mesh.shape, mesh.axis_names
+        else:
+            shape, names = parse_mesh(args.mesh), ("data", "model")
         device = resolve_device(args.device).type
-        mesh = mesh_by_name("mini", devices=args.ranks)
-        report = spawn(functools.partial(_run, args=args, cfg=cfg),
-                       mesh.shape, axis_names=mesh.axis_names, device=device,
-                       backend=args.backend or ("gloo" if device == "cpu"
-                                                else "nccl"),
-                       deadline=False)[0]
+        reports = spawn(functools.partial(_run, args=args, cfg=cfg),
+                        shape, axis_names=names, device=device,
+                        backend=args.backend or ("gloo" if device == "cpu"
+                                                 else "nccl"),
+                        deadline=False)
+        for rank, rep in enumerate(reports):
+            print(json.dumps({"rank": rank, "mesh": list(shape),
+                              "held_bytes": rep.held_bytes}))
+        report = reports[0]
     else:
         report = _run(NULL_CTX, args, cfg)
     first = min(report.losses)

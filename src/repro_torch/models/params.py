@@ -22,7 +22,7 @@ from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
 
 __all__ = ["ParamSpec", "abstract", "count", "held_specs", "initialize",
            "is_spec", "local_params", "map_specs", "params_from_numpy",
-           "partition_specs", "torch_dtype"]
+           "partition_specs", "placed_params", "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +121,23 @@ def local_params(params, cfg, ctx: ShardingCtx):
         return take(node, specs)
 
     return walk(params, held_specs(param_specs(cfg), cfg, ctx))
+
+
+def placed_params(params, cfg, ctx: ShardingCtx):
+    """The whole parameters -> this rank's blocks of them placed by their
+    rules (`partition_specs`, the train state's layout on a mesh; a
+    dimension that does not divide its mesh axis stays whole, by the
+    guard of `ShardingCtx.spec`): a split leaf is copied out of the whole
+    one (which the caller may then free), a whole one is the same
+    tensor."""
+    from repro_torch.models.lm import param_specs
+
+    def walk(node, specs):
+        if isinstance(node, dict):
+            return {k: walk(v, specs[k]) for k, v in node.items()}
+        return local_shard(node, specs, ctx).clone() if specs else node
+
+    return walk(params, partition_specs(param_specs(cfg), ctx))
 
 
 def _fan_in_scale(s: ParamSpec) -> float:

@@ -41,9 +41,16 @@ class Model:
         return pm.partition_specs(self.param_specs(), self.ctx)
 
     def held_param_specs(self):
-        """What each rank holds of every parameter (`params.held_specs`):
-        the partition spec a leaf of the parameters `init` gives."""
+        """What each rank serves with of every parameter
+        (`params.held_specs`): the partition spec a leaf of the parameters
+        `init` gives, and the layout the model computes with on a mesh."""
         return pm.held_specs(self.param_specs(), self.cfg, self.ctx)
+
+    def place(self, params):
+        """The whole parameters (or any tree of their shapes: mu, nu) ->
+        this rank's blocks by `param_partition_specs`
+        (`params.placed_params`), the train state's layout on a mesh."""
+        return pm.placed_params(params, self.cfg, self.ctx)
 
     def n_params(self) -> int:
         return pm.count(self.param_specs())

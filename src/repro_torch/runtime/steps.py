@@ -12,18 +12,25 @@ running mesh (one process a rank, `launch.mesh.spawn`) the same step run
 eagerly on every rank.
 
 On a mesh each rank holds its rows of the batch (`local_batch`) and its
-share of the parameters (`Model.held_param_specs`: a MoE layer's experts
-split over `model`, every other leaf whole). The step follows the sum
-convention of `sharding`: each rank's backward is seeded with 1 / (the
-mesh's ranks), its share of the loss's mean, and `reduce_grads` sums each
-leaf's gradient over the mesh axes that do not split it (a whole leaf over
-every axis, an expert leaf over `data`), once a step, after accumulation.
-The logged loss is the mean over the ranks, the global loss; the global
-norm counts every element once (`optim.adamw.global_norm`). The reduced
-gradients are the same bytes on every rank that holds a leaf, so AdamW
-keeps the copies of a whole leaf equal with no broadcast. The sharding
-helpers give the batch's and the state's partition specs and the state's
-meta tensors.
+block of the train state placed by the rules (`state_shardings`: params,
+mu, nu and, with compression, the error state, each leaf split over the
+mesh axes its logical axes map to; `Model.place` cuts a whole tree), as
+the reference's jitted step holds it. The model computes with the serving
+layout (`Model.held_param_specs`: every leaf whole but a MoE layer's
+experts, split over `model`): once a step the placed parameters are
+gathered to it (`gather_params`), differentiated and accumulated, and each
+gradient is reduced into the rank's placed block (`reduce_grads`). The step
+follows the sum convention of `sharding`: each rank's backward is seeded
+with 1 / (the mesh's ranks), its share of the loss's mean, and a leaf's
+gradient is the sum of its shares over the mesh axes that do not split it
+in the layout the model computes with, reduce-scattered over those that
+split it in the placed layout. The logged loss is the mean over the ranks,
+the global loss; the global norm counts every element once
+(`optim.adamw.global_norm`), and compression quantizes each leaf with its
+whole max. AdamW updates each rank's blocks; a block that several ranks
+hold gets the same reduced bytes on each, so the copies stay equal with no
+broadcast. The sharding helpers give the batch's and the state's partition
+specs and the state's meta tensors.
 """
 from __future__ import annotations
 
@@ -37,12 +44,13 @@ from repro_torch.core.step_graph import StepGraph
 from repro_torch.models.registry import Model
 from repro_torch.optim import AdamWConfig, apply_updates, apply_updates_
 from repro_torch.optim.compression import ef_compress, ef_compress_
-from repro_torch.sharding import ShardingCtx, local_shard, split_axes
+from repro_torch.sharding import (ShardingCtx, block_shape, gather_blocks,
+                                  local_shard, reduce_blocks)
 
-__all__ = ["abstract_state", "batch_shardings", "held_state_specs",
-           "jit_train_step", "local_batch", "make_decode_step",
-           "make_prefill_step", "make_train_step", "reduce_grads",
-           "state_shardings", "value_and_grad"]
+__all__ = ["abstract_state", "batch_shardings", "gather_params",
+           "held_state_specs", "jit_train_step", "local_batch",
+           "make_decode_step", "make_prefill_step", "make_train_step",
+           "reduce_grads", "state_shardings", "value_and_grad"]
 
 
 # ----------------------------------------------------------------- sharding
@@ -67,10 +75,10 @@ def state_shardings(model: Model):
 
 
 def held_state_specs(model: Model, state: Dict[str, Any]):
-    """What each rank holds of every leaf of a train state (params, mu, nu
-    and, with compression, grad_error: the parameters' held specs; the step
-    whole)."""
-    ps = model.held_param_specs()
+    """What each rank holds of every leaf of a train state on a mesh:
+    `state_shardings`' specs for params, mu, nu and, with compression,
+    grad_error (the parameters' partition specs); the step whole."""
+    ps = model.param_partition_specs()
     return {k: (() if k == "step" else ps) for k in state}
 
 
@@ -94,35 +102,60 @@ def local_batch(ctx: ShardingCtx, batch: Dict[str, torch.Tensor],
 
 
 def _mesh_specs(model: Model):
-    """What each rank holds of the parameters, on a running mesh (None
-    without a mesh; a mesh of shapes alone raises RuntimeError)."""
-    if model.ctx.mesh is None:
+    """On a running mesh (None without a mesh; a mesh of shapes alone
+    raises RuntimeError): (the specs the model computes with, the placed
+    specs, the placed blocks' shapes), the specs as trees, the shapes a
+    list in the leaves' order."""
+    ctx = model.ctx
+    if ctx.mesh is None:
         return None
-    model.ctx._running()
-    return model.held_param_specs()
+    ctx._running()
+    placed = model.param_partition_specs()
+    shapes = [block_shape(p.shape, spec, ctx) for p, spec in
+              zip(tree.leaves(model.abstract_params()), tree.leaves(placed))]
+    return model.held_param_specs(), placed, shapes
 
 
-def reduce_grads(grads, specs, ctx: ShardingCtx):
-    """Each rank's gradient shares -> the gradients of the leaves it holds:
-    a leaf's shares summed over the mesh axes that do not split it (a
-    whole leaf over every axis, a leaf split over `model` over `data`).
-    The leaves of one group go through one collective, as one flat f32
-    buffer."""
-    flat = tree.leaves(grads)
-    groups: Dict[Tuple[str, ...], List[int]] = {}
-    for i, spec in enumerate(tree.leaves(specs)):
-        held = split_axes(spec)
-        axes = tuple(a for a in ctx.mesh.axis_names if a not in held)
-        groups.setdefault(axes, []).append(i)
-    out = list(flat)
-    with torch.no_grad():
-        for axes, idx in groups.items():
-            buf = torch.cat([flat[i].float().reshape(-1) for i in idx])
-            buf = ctx.sum_over(buf, axes)
-            for i, part in zip(idx, buf.split([flat[i].numel()
-                                               for i in idx])):
-                out[i] = part.view(flat[i].shape).to(flat[i].dtype)
-    return tree.unflatten(grads, out)
+def _placed_specs(model: Model):
+    """The placed specs on a running mesh, else None."""
+    specs = _mesh_specs(model)
+    return None if specs is None else specs[1]
+
+
+def gather_params(model: Model, params):
+    """This rank's placed blocks of the parameters -> the blocks the model
+    computes with (`Model.held_param_specs`): each leaf gathered over the
+    axes that place it and that the model does not split it along (every
+    axis for a whole leaf; ``data`` for an expert leaf). One all_gather a
+    group of leaves (`sharding.gather_blocks`), no backward. The
+    parameters themselves without a mesh."""
+    specs = _mesh_specs(model)
+    if specs is None:
+        return params
+    compute, placed, shapes = specs
+    leaves = tree.leaves(params)
+    got = [tuple(x.shape) for x in leaves]
+    if got != shapes:
+        bad = next(i for i, (a, b) in enumerate(zip(got, shapes)) if a != b)
+        raise ValueError(f"parameter leaf {bad} is held as {got[bad]}; its "
+                         f"placed block is {shapes[bad]} (Model.place cuts "
+                         "the whole parameters)")
+    return tree.unflatten(params, gather_blocks(
+        leaves, tree.leaves(placed), tree.leaves(compute), model.ctx))
+
+
+def reduce_grads(grads, specs, ctx: ShardingCtx, placed=None):
+    """Each rank's gradient shares at the blocks of `specs` (the layout the
+    model computes with) -> the gradients: a leaf's shares summed over the
+    mesh axes that `specs` does not split it along (a whole leaf over
+    every axis, an expert leaf split over `model` over `data`). With
+    `placed` (the placed specs, each splitting a leaf at least as `specs`
+    does) each rank keeps its placed block, the axes that place it
+    reduce-scattered (`sharding.reduce_blocks`). One collective a group of
+    leaves (a bucket of a large one), as one flat f32 buffer."""
+    placed = specs if placed is None else placed
+    return tree.unflatten(grads, reduce_blocks(
+        tree.leaves(grads), tree.leaves(specs), tree.leaves(placed), ctx))
 
 
 def abstract_state(model: Model):
@@ -155,8 +188,13 @@ def value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor, Any]:
 def _loss_and_grads(model: Model, params, batch, accum: int):
     """(loss, gradients) of one step: of the whole batch, or the f32 means
     over `accum` microbatches cut along the batch's leading axis. On a
-    mesh: of the rank's rows, the gradients reduced over the ranks
-    (`reduce_grads`) and the loss their mean, the global loss."""
+    mesh `params` are this rank's placed blocks, gathered once to the
+    layout the model computes with: the loss of the rank's rows, the
+    gradients reduced into its placed blocks (`reduce_grads`) and the loss
+    their mean, the global loss."""
+    specs = _mesh_specs(model)
+    if specs is not None:
+        params = gather_params(model, params)
     if accum == 1:
         loss, grads = value_and_grad(model, params, batch)
     else:
@@ -171,10 +209,12 @@ def _loss_and_grads(model: Model, params, batch, accum: int):
             gsum = tree.map_tree(torch.add, gsum, g)
             lsum = lsum + loss
         loss, grads = lsum / accum, tree.map_tree(lambda g: g / accum, gsum)
-    specs = _mesh_specs(model)
     if specs is None:
         return loss, grads
-    return (model.ctx.mean_all(loss), reduce_grads(grads, specs, model.ctx))
+    del params                     # the gathered leaves, before the reduce
+    compute, placed, _ = specs
+    return (model.ctx.mean_all(loss),
+            reduce_grads(grads, compute, model.ctx, placed))
 
 
 def make_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
@@ -185,13 +225,14 @@ def make_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
     through `ef_compress` against ``state["grad_error"]`` before the update
     (the reference train loop's compressed step) and the new state holds
     the new error. The caller's state is left as it was. On a running mesh
-    `batch` is the rank's rows (`local_batch`) and the state its share."""
-    ctx, specs = model.ctx, _mesh_specs(model)
+    `batch` is the rank's rows (`local_batch`) and the state its placed
+    blocks (`held_state_specs`)."""
+    ctx, specs = model.ctx, _placed_specs(model)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         loss, grads = _loss_and_grads(model, state["params"], batch, accum)
         if compress:
-            grads, err = ef_compress(grads, state["grad_error"])
+            grads, err = ef_compress(grads, state["grad_error"], ctx, specs)
         new_state, opt_metrics = apply_updates(state, grads, opt, ctx=ctx,
                                                specs=specs)
         if compress:
@@ -233,12 +274,14 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
 
     On a model whose `ctx` holds a running mesh (a mesh of shapes alone
     raises RuntimeError), every call is the step run eagerly on this
-    rank: `batch` is its rows (`local_batch`), the state its share, the
-    gradients reduced over the ranks before compression and AdamW, and
+    rank: `batch` is its rows (`local_batch`), the state its placed blocks
+    (`held_state_specs`), the parameters gathered once a step to the layout
+    the model computes with, the gradients reduced into the placed blocks
+    before compression and AdamW (updated in place on the blocks), and
     ``step.graph`` is None. No CUDA graph is captured there: gloo's
     collectives run on the host and cannot be captured, and NCCL cannot
     put two ranks on one card, which is how one card runs a mesh."""
-    ctx, specs = model.ctx, _mesh_specs(model)
+    ctx, specs = model.ctx, _placed_specs(model)
     names: List[str] = []
     own: Dict[str, Any] = {}
 
@@ -246,7 +289,7 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
         batch = dict(zip(names, values))
         loss, grads = _loss_and_grads(model, state["params"], batch, accum)
         if compress:
-            grads = ef_compress_(grads, state["grad_error"])
+            grads = ef_compress_(grads, state["grad_error"], ctx, specs)
         return {"loss": loss, **apply_updates_(state, grads, opt, ctx=ctx,
                                                specs=specs)}
 

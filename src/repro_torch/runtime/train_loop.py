@@ -16,6 +16,7 @@ from repro_torch.checkpointing.checkpoint import (AsyncCheckpointer,
                                                   latest_step, restore)
 from repro_torch.core import tree
 from repro_torch.data.pipeline import DataConfig, MarkovTask
+from repro_torch.models.params import initialize
 from repro_torch.models.registry import Model
 from repro_torch.optim import AdamWConfig, init_state
 from repro_torch.optim.compression import init_error_state
@@ -34,6 +35,7 @@ class TrainReport:
     straggler_steps: int
     wall_s: float
     step_s: List[float] = dataclasses.field(default_factory=list)
+    held_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def train(model: Model, *, steps: int, data_cfg: DataConfig,
@@ -91,8 +93,8 @@ def train(model: Model, *, steps: int, data_cfg: DataConfig,
     if ctx.mesh is None:
         params = model.init(gen, device)
     else:
-        params = tree.map_tree(lambda p: p.to(device),
-                               model.init(gen, "cpu"))
+        params = tree.map_tree(lambda p: p.to(device), model.place(
+            initialize(model.param_specs(), gen, "cpu")))
     state = init_state(params)
     if compress_grads:
         state["grad_error"] = init_error_state(params)
@@ -128,6 +130,9 @@ def train(model: Model, *, steps: int, data_cfg: DataConfig,
     if ckpt is not None:
         ckpt.save_async(state, steps)
         ckpt.wait()
+    held = {k: sum(x.numel() * x.element_size() for x in tree.leaves(v))
+            for k, v in state.items() if k != "step"}
     return TrainReport(steps=steps, losses=losses, resumed_from=resumed_from,
                        straggler_steps=len(monitor.flagged),
-                       wall_s=time.time() - t_start, step_s=step_s)
+                       wall_s=time.time() - t_start, step_s=step_s,
+                       held_bytes=held)

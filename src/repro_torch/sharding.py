@@ -42,19 +42,29 @@ train step (`runtime.steps`) seeds each rank's backward with 1 / (the
 number of ranks), its share of the mean that every rank computes, and sums
 each leaf's gradient over the axes of the ranks that hold it. ``all_reduce``
 with ``max`` (serving's log-sum-exp merge) has no backward.
+
+The train state is held placed (each leaf split by its partition spec)
+while the model computes with coarser blocks (every leaf whole but the
+experts): `gather_blocks` takes a rank's placed blocks to the blocks it
+computes with, and `reduce_blocks` takes each rank's gradient shares there
+to the sum's placed block, a reduce-scatter built from an all_to_all of
+the blocks as all_gather's backward is. Neither has a backward: the step
+gathers once, differentiates the gathered leaves, and reduces once.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["AxisVal", "DEFAULT_RULES", "Mesh", "NULL_CTX", "ShardingCtx",
-           "collective_stats", "local_shard", "reset_collective_stats",
+__all__ = ["AxisVal", "BUCKET_ELEMS", "DEFAULT_RULES", "Mesh", "NULL_CTX",
+           "ShardingCtx", "block_shape", "collective_stats", "gather_blocks",
+           "local_shard", "reduce_blocks", "reset_collective_stats",
            "split_axes", "tree_specs"]
 
 AxisVal = Union[None, str, Tuple[str, ...]]
@@ -283,18 +293,45 @@ class ShardingCtx:
         every axis: the whole mesh; none: `x` itself), with no backward:
         the train step's reduction of the gradients. Every rank of a group
         gets the same bytes."""
-        axes = tuple(a for a in axes if self.axis_sizes.get(a, 1) > 1)
+        return self._reduce_over(x, axes, "sum")
+
+    def max_over(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """`sum_over` with ``max``: the largest of the ranks' `x`."""
+        return self._reduce_over(x, axes, "max")
+
+    def _reduce_over(self, x: torch.Tensor, axes: Sequence[str],
+                     op: str) -> torch.Tensor:
+        axes = self.live_axes(axes)
         if not axes:
             return x
+        return _all_reduce(x, op, self.members(axes)[0])
+
+    def live_axes(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        """`axes` without those of one rank, in the mesh's order."""
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in self.mesh.axis_names
+                     if a in axes and self.axis_sizes[a] > 1)
+
+    def members(self, axes: Sequence[str]):
+        """(process group, coordinates): the ranks of this rank's group
+        over mesh axes `axes` (each of more than one rank), in the group's
+        rank order, each as a dict axis -> coordinate. Every axis of more
+        than one rank is the whole mesh (group None); one axis is its
+        line through this rank."""
         self._running()
-        covered = {a for a in self.mesh.axis_names
-                   if self.axis_sizes[a] > 1}
-        if set(axes) == covered:
-            return _all_reduce(x, "sum", None)
+        names, shape = self.mesh.axis_names, self.mesh.shape
+        mine = dict(zip(names, self.mesh.coordinate))
+        axes = tuple(axes)
+        if set(axes) == set(self.live_axes(names)):
+            coords = [dict(zip(names, c)) for c in
+                      itertools.product(*(range(n) for n in shape))]
+            return None, coords
         if len(axes) == 1:
-            return _all_reduce(x, "sum", self.group(axes[0]))
-        raise NotImplementedError(f"a sum over mesh axes {axes} of "
-                                  f"{self.mesh.axis_names}")
+            return self.group(axes[0]), [dict(mine, **{axes[0]: i}) for i
+                                         in range(self.axis_sizes[axes[0]])]
+        raise NotImplementedError(f"a group over mesh axes {axes} of "
+                                  f"{names}")
 
     def mean_all(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of `x` over every rank of the mesh (the reference's
@@ -327,13 +364,17 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+def _all_gather_parts(x: torch.Tensor, group, n: int):
     import torch.distributed as dist
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     with _counted(x):
         dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    return parts
+
+
+def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    return torch.cat(_all_gather_parts(x, group, n), dim=dim)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -410,6 +451,174 @@ def local_shard(x: torch.Tensor, spec: Sequence[AxisVal],
         size = x.shape[dim] // n
         x = x.narrow(dim, idx * size, size)
     return x
+
+
+def block_shape(shape: Sequence[int], spec: Sequence[AxisVal],
+                ctx: ShardingCtx) -> Tuple[int, ...]:
+    """The shape of a rank's block of a tensor of `shape` under `spec`."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            out[dim] //= ctx.axis_size(entry)
+    return tuple(out)
+
+
+# The most elements one collective of `gather_blocks` gathers, or of
+# `reduce_blocks` sends: leaves are taken in turn into buckets of at most
+# this many (a larger leaf goes alone), so that the transient buffers stay
+# a fraction of a large model's state.
+BUCKET_ELEMS = 1 << 28
+
+
+def _entry(spec: Sequence[AxisVal], dim: int) -> AxisVal:
+    return spec[dim] if dim < len(spec) else None
+
+
+def _moved_axes(fine: Sequence[AxisVal], coarse: Sequence[AxisVal],
+                ctx: ShardingCtx) -> Tuple[str, ...]:
+    """The mesh axes (of more than one rank) that `fine` splits a tensor
+    over and `coarse` does not; `coarse` must split each dimension as
+    `fine` does or not at all."""
+    for dim in range(max(len(fine), len(coarse))):
+        c = _entry(coarse, dim)
+        if c is not None and c != _entry(fine, dim):
+            raise NotImplementedError(
+                f"spec {tuple(coarse)} is not {tuple(fine)} with dimensions "
+                "left whole")
+    kept = set(split_axes(coarse))
+    return ctx.live_axes([a for a in split_axes(fine) if a not in kept])
+
+
+def _within(fine: Sequence[AxisVal], coarse: Sequence[AxisVal],
+            coarse_shape: Sequence[int], coord: Dict[str, int],
+            ctx: ShardingCtx):
+    """Where the block that the rank at `coord` holds under `fine` lies
+    inside the block of `coarse_shape` held under `coarse` (the same
+    block there): a (dim, start, size) for each dimension that `fine`
+    splits and `coarse` does not."""
+    out = []
+    for dim, entry in enumerate(fine):
+        if entry is None or _entry(coarse, dim) == entry:
+            continue
+        idx, n = 0, 1
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            idx = idx * ctx.axis_sizes[a] + coord[a]
+            n *= ctx.axis_sizes[a]
+        size = coarse_shape[dim] // n
+        out.append((dim, idx * size, size))
+    return out
+
+
+def _region(x: torch.Tensor, where) -> torch.Tensor:
+    for dim, start, size in where:
+        x = x.narrow(dim, start, size)
+    return x
+
+
+def _buckets(idx, sizes, cap: int):
+    """`idx` cut in turn into runs of at most `cap` in `sizes` (a larger
+    one alone)."""
+    run, total = [], 0
+    for i, n in zip(idx, sizes):
+        if run and total + n > cap:
+            yield run
+            run, total = [], 0
+        run.append(i)
+        total += n
+    if run:
+        yield run
+
+
+@torch.no_grad()
+def gather_blocks(xs: Sequence[torch.Tensor], fine, coarse,
+                  ctx: ShardingCtx) -> List[torch.Tensor]:
+    """This rank's blocks of leaves held under specs `fine` -> its blocks
+    under the specs `coarse` (a spec a leaf; `coarse` splits each
+    dimension as `fine` does or leaves it whole): each leaf gathered over
+    the axes that `fine` splits it along and `coarse` does not. The
+    leaves gathered over the same axes go through one all_gather a bucket
+    of at most `BUCKET_ELEMS` elements gathered; a leaf already held as `coarse`
+    wants is returned as it is. No backward: the train step gathers its
+    placed parameters once and differentiates the result."""
+    out = list(xs)
+    groups: Dict[Tuple[Any, ...], List[int]] = {}
+    for i, (x, f, c) in enumerate(zip(xs, fine, coarse)):
+        axes = _moved_axes(f, c, ctx)
+        if axes:
+            groups.setdefault((axes, x.dtype), []).append(i)
+    for (axes, _), idx in groups.items():
+        group, coords = ctx.members(axes)
+        n = len(coords)
+        for run in _buckets(idx, [xs[i].numel() * n for i in idx],
+                            BUCKET_ELEMS):
+            parts = _all_gather_parts(
+                torch.cat([xs[i].reshape(-1) for i in run]), group, n)
+            off = 0
+            for i in run:
+                x, k = xs[i], xs[i].numel()
+                shape = list(x.shape)
+                for dim, entry in enumerate(fine[i]):
+                    if entry is not None and _entry(coarse[i], dim) != entry:
+                        shape[dim] *= ctx.axis_size(entry)
+                y = x.new_empty(shape)
+                for part, coord in zip(parts, coords):
+                    _region(y, _within(fine[i], coarse[i], shape, coord,
+                                       ctx)).copy_(
+                        part[off:off + k].view(x.shape))
+                out[i] = y
+                off += k
+    return out
+
+
+@torch.no_grad()
+def reduce_blocks(xs: Sequence[torch.Tensor], coarse, fine,
+                  ctx: ShardingCtx) -> List[torch.Tensor]:
+    """Each rank's shares of leaves computed at specs `coarse` -> this
+    rank's block under the specs `fine` of their sum over every rank that
+    computes with the same block (the reverse of `gather_blocks`: the
+    sum convention's gradients of placed leaves). A leaf's shares are
+    summed over the mesh axes that `coarse` does not split it along: over
+    those that `fine` splits it along by a reduce-scatter (an all_to_all
+    of the blocks, then their sum in rank order: half the bytes of an
+    all_reduce and a cut), then over the rest by an all_reduce of the
+    block. The leaves of one group of axes go through one collective each
+    a bucket of at most `BUCKET_ELEMS` elements, as one f32 buffer; each
+    result comes back in its leaf's type. Every rank that holds a block
+    gets the same bytes."""
+    out = list(xs)
+    groups: Dict[Tuple[Any, ...], List[int]] = {}
+    for i, (c, f) in enumerate(zip(coarse, fine)):
+        scatter = _moved_axes(f, c, ctx)
+        held = set(split_axes(f))
+        rest = ctx.live_axes([a for a in ctx.mesh.axis_names
+                              if a not in held])
+        groups.setdefault((scatter, rest), []).append(i)
+    for (scatter, rest), idx in groups.items():
+        group, coords = ctx.members(scatter) if scatter else \
+            (None, [dict(zip(ctx.mesh.axis_names, ctx.mesh.coordinate))])
+        n = len(coords)
+        for run in _buckets(idx, [xs[i].numel() for i in idx],
+                            BUCKET_ELEMS):
+            wheres = [[_within(fine[i], coarse[i], xs[i].shape, coord, ctx)
+                       for coord in coords] for i in run]
+            sizes = [_region(xs[i], w[0]).numel()
+                     for i, w in zip(run, wheres)]
+            buf = torch.empty(n, sum(sizes), dtype=torch.float32,
+                              device=xs[run[0]].device)
+            off = 0
+            for i, w, k in zip(run, wheres, sizes):
+                for j in range(n):
+                    buf[j, off:off + k].view(_region(xs[i], w[j]).shape) \
+                        .copy_(_region(xs[i], w[j]))
+                off += k
+            red = _all_to_all(buf, group).sum(0) if scatter else buf[0]
+            red = ctx.sum_over(red, rest)
+            off = 0
+            for i, w, k in zip(run, wheres, sizes):
+                out[i] = red[off:off + k].view(_region(xs[i], w[0]).shape) \
+                    .to(xs[i].dtype)
+                off += k
+    return out
 
 
 def _is_axes(x) -> bool:

@@ -2006,8 +2006,8 @@ def test_train_step_capture_skips_the_sentinel(cuda_device):
 def _mesh_train_rank(ctx, arch):
     """Three reduced f32 `jit_train_step` steps of `arch` on one rank of a
     mesh (granite-moe at a capacity factor that drops tokens), from a CPU
-    draw: each step's metrics, the state after them on the CPU, and the
-    launches."""
+    draw placed by the rules (`Model.place`): each step's metrics, the
+    rank's blocks of the state after them on the CPU, and the launches."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree
     from repro_torch.data.pipeline import DataConfig, MarkovTask
@@ -2025,8 +2025,8 @@ def _mesh_train_rank(ctx, arch):
     model = build_model(cfg, ctx)
     gen = torch.Generator()
     gen.manual_seed(0)
-    state = init_state(tree.map_tree(lambda x: x.to(ctx.device),
-                                     model.init(gen, "cpu")))
+    state = init_state(tree.map_tree(lambda x: x.to(ctx.device), model.place(
+        build_model(cfg).init(gen, "cpu"))))
     step = jit_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
                                              total_steps=3))
     task = MarkovTask(DataConfig(vocab=cfg.vocab, seq_len=32,
@@ -2042,36 +2042,104 @@ def _mesh_train_rank(ctx, arch):
             "state": [x.cpu() for x in tree.leaves(state)]}
 
 
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m"])
-def test_mesh_train_steps_on_the_card_equal_the_cpu(cuda_device, arch):
-    """Two gloo ranks sharing the card against two CPU ranks, the (1, 2)
-    mesh: every step's loss, learning rate and gradient norm and every
-    leaf of each rank's state within 2e-3; the card's ranks launch K2 9
-    times a MoE layer a step, or a K4 forward and backward call a layer a
-    step, and the CPU's nothing."""
+def test_mesh_train_steps_on_the_card_equal_the_cpu(cuda_device, arch,
+                                                    shape):
+    """Two gloo ranks sharing the card against two CPU ranks, on (1, 2) and
+    (2, 1), the state placed: every step's loss, learning rate and
+    gradient norm and every leaf of each rank's blocks within 2e-3; the
+    card's ranks launch K2 9 times a MoE layer a step, or a K4 forward and
+    backward call a layer a step, and the CPU's nothing. Granite on
+    (2, 1), whose shards of 64 tokens drop tokens at every layer, holds
+    its later gradient norms within 2e-3 of the norm (plus 2e-3), as phase
+    13 of `chip_smoke.py` does: a norm there moves by more than 2e-3 under
+    the rounding the steps before it leave (6.0e-3 of 18.95 at step 2 on
+    the H100), as the CPU tests against the reference find too."""
     import functools
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn
 
     fn = functools.partial(_mesh_train_rank, arch=arch)
-    card = spawn(fn, (1, 2), device="cuda", backend="gloo", timeout_s=300)
-    cpu = spawn(fn, (1, 2), device="cpu", backend="gloo", timeout_s=300)
+    card = spawn(fn, shape, device="cuda", backend="gloo", timeout_s=300)
+    cpu = spawn(fn, shape, device="cpu", backend="gloo", timeout_s=300)
     layers = get_config(arch).reduced().n_layers
     want = {"moe_gmm": 9 * layers * 3} if arch.startswith("granite") else \
         {"ssd_scan": layers * 3, "ssd_scan_bwd": layers * 3}
+    relative = arch.startswith("granite") and shape == (2, 1)
     for got, ref in zip(card, cpu):
         assert {k: v for k, v in got["counts"].items() if v} == want
         assert not any(ref["counts"].values())
-        for a, b in zip(got["metrics"], ref["metrics"]):
+        for i, (a, b) in enumerate(zip(got["metrics"], ref["metrics"])):
             for key in ("loss", "lr", "grad_norm"):
-                assert abs(a[key] - b[key]) <= TOL[torch.float32], key
+                tol = TOL[torch.float32]
+                if relative and key == "grad_norm" and i:
+                    tol *= 1 + abs(b[key])
+                assert abs(a[key] - b[key]) <= tol, (i, key, a[key], b[key])
         for x, y in zip(got["state"], ref["state"]):
             if x.dtype.is_floating_point:
                 torch.testing.assert_close(x, y, atol=TOL[torch.float32],
                                            rtol=0)
             else:
                 assert torch.equal(x, y)
+
+
+def _placement_rank(ctx):
+    """The placement helpers on this rank's device, for reduced f32
+    granite-moe: its placed blocks gathered to the layout the model
+    computes with (`steps.gather_params`), shares drawn from a seed of
+    the rank reduced into the placed blocks (`steps.reduce_grads`), and
+    `ef_compress` of those; everything back on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import build_model
+    from repro_torch.optim.compression import ef_compress
+    from repro_torch.runtime import steps
+
+    cfg = get_config("granite-moe-1b-a400m").reduced().replace(
+        dtype="float32", param_dtype="float32")
+    model = build_model(cfg, ctx)
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    whole = build_model(cfg).init(gen, "cpu")
+    placed = tree.map_tree(lambda x: x.to(ctx.device), model.place(whole))
+    compute = steps.gather_params(model, placed)
+    gen.manual_seed(10 + 2 * ctx.mesh.coordinate[0] + ctx.mesh.coordinate[1])
+    shares = tree.map_tree(lambda x: torch.randn(
+        x.shape, generator=gen).to(ctx.device), compute)
+    specs = model.param_partition_specs()
+    red = steps.reduce_grads(shares, model.held_param_specs(), ctx, specs)
+    dq, _ = ef_compress(red, tree.map_tree(torch.zeros_like, red), ctx,
+                        specs)
+    held = steps.gather_params(model, model.place(whole))
+    return {name: [x.cpu() for x in tree.leaves(t)] for name, t in
+            (("gathered", compute), ("held", held), ("reduced", red),
+             ("dq", dq))}
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_placement_helpers_on_the_card_equal_the_cpu(cuda_device, shape):
+    """Two gloo ranks sharing the card against two CPU ranks: the gathered
+    parameters are the CPU ranks' bytes (and the layout the model computes
+    with); the gradients reduced into the placed blocks within 1e-5 of the
+    CPU's; each block's largest compressed value (quantized with the whole
+    leaf's scale) the same on the card's ranks as on the CPU's within 1e-6
+    of it."""
+    from repro_torch.launch.mesh import spawn
+
+    card = spawn(_placement_rank, shape, device="cuda", backend="gloo",
+                 timeout_s=300)
+    cpu = spawn(_placement_rank, shape, device="cpu", backend="gloo",
+                timeout_s=300)
+    for got, ref in zip(card, cpu):
+        for a, b, c in zip(got["gathered"], ref["gathered"], ref["held"]):
+            assert torch.equal(a, b) and torch.equal(b, c)
+        for a, b in zip(got["reduced"], ref["reduced"]):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        for a, b in zip(got["dq"], ref["dq"]):
+            amax, bmax = a.abs().max(), b.abs().max()
+            assert abs(float(amax - bmax)) <= 1e-6 * float(bmax)
 
 
 def test_flash_decode_bound_takes_the_dtypes_bytes_and_peak():

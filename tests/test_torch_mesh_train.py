@@ -7,14 +7,19 @@ this file run as a script (``--reference OUT.npz``) builds its meshes
 a capacity factor that drops tokens, yi-6b, mamba2-130m), takes
 ``jax.value_and_grad`` of its mesh loss on the first Markov batch (4 x 32)
 and three AdamW steps of its `make_train_step` (clip on, lr 1e-3), and for
-granite-moe on (2, 2) the same three steps at ``accum=2``; then `compressed_psum`
+granite-moe on (2, 2) the same three steps at ``accum=2``; its train
+loop's compressed step (`ef_compress` of the global gradients, then
+`apply_updates`) for three steps of granite-moe on (1, 2), and
+`ef_compress` alone of that mesh's first gradients; then `compressed_psum`
 in a `shard_map` over each axis of the (2, 2) mesh. Its mesh loss is not
 its single-device loss for a MoE arch: each shard sizes its capacity from
 its own tokens, drops by it, and the aux loss is the mean of the shards'.
 The port runs each mesh as gloo ranks on the CPU (`launch.mesh.spawn`),
-from the reference's parameters (`params_from_numpy`, each rank its share)
-and its rows of each batch (`runtime.steps.local_batch`), and the tests
-hold each rank's results against the reference's, in f32 within 2e-3:
+from the reference's parameters (`params_from_numpy`; the gradients at
+the layout the model computes with, each train state placed by its rules,
+`Model.place`) and its rows of each batch (`runtime.steps.local_batch`),
+and the tests hold each rank's results against the reference's, in f32
+within 2e-3:
 
 * the loss, its cross-entropy and aux parts, and `global_norm` of the
   gradients; every gradient leaf, each rank's share of it; the aux term and
@@ -22,8 +27,12 @@ hold each rank's results against the reference's, in f32 within 2e-3:
 * the metrics of three `jit_train_step` steps (eager on a mesh) and the
   state after them, and at ``accum=2`` for granite-moe on (2, 2); and each
   step again from the state the reference's step started from;
-* the copies of a whole leaf are bitwise equal on every rank after the
-  steps, and so are the gradients' norms;
+* the blocks of the state that the placed specs replicate over an axis
+  are bitwise equal across it after the steps, and so are the metrics;
+* `ef_compress` of each rank's placed blocks equals the reference's of
+  the whole leaves bitwise (each leaf quantized with its whole max), and
+  three compressed steps match the reference's compressed step (the error
+  state up to rounding flips of one quantization step);
 * `moe_ep_a2a` (tokens dropped) and `moe_ep_replicated` alone: the
   gradients of sum(y * c) + aux in the router, the experts and the input;
 * `compressed_psum` to f32 rounding (1e-6 of the sum's largest entry), and
@@ -59,6 +68,7 @@ ARCHS = ["granite-moe-1b-a400m", "yi-6b", "mamba2-130m"]
 MOE_CAPACITY_FACTOR = 0.5
 B, SEQ, STEPS = 4, 32, 3
 ACCUM_ARCH, ACCUM_MESH = "granite-moe-1b-a400m", "2x2"
+COMPRESS_MESH = (1, 2)            # the compressed step's mesh
 # as tests/test_torch_train_optim.py: AdamW's first steps move a parameter
 # by about lr whatever its gradient's size, so lr 1e-3 keeps a near-zero
 # gradient that rounds differently inside the tolerance; the clip (1.0)
@@ -202,6 +212,7 @@ def run_reference(out_path):
                 build_model(cfg).loss, has_aux=True))(
                     params, {k: v[0] for k, v in stacked.items()})
             out.update(_flatten(grads, f"{arch}/single/grads"))
+    run_reference_compressed(out, meshes[_tag(COMPRESS_MESH)])
     from repro.models import moe as ref_moe
 
     cfg = _cfg(ref_get_config, ACCUM_ARCH)
@@ -230,20 +241,106 @@ def run_reference(out_path):
     np.savez(out_path, **out)
 
 
-# ------------------------------------------------------------------ the port
+def run_reference_compressed(out, mesh):
+    """The reference train loop's compressed step (``train(...,
+    compress_grads=True)``, `src/repro/runtime/train_loop.py` 45-58:
+    `ef_compress` of the global gradients, then `apply_updates`) on
+    `mesh`, three steps of granite-moe from its parameters; and
+    `ef_compress` alone of that mesh's first gradients against an error
+    state drawn from a seed."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as ref_get_config
+    from repro.data import pipeline as ref_pipeline
+    from repro.models import build_model
+    from repro.optim import AdamWConfig, apply_updates, init_state
+    from repro.optim.compression import ef_compress, init_error_state
+    from repro.sharding import ShardingCtx as RefCtx
+
+    cfg = _cfg(ref_get_config, ACCUM_ARCH)
+    params = build_model(cfg).init(jax.random.PRNGKey(0))
+    model = build_model(cfg, RefCtx(mesh=mesh))
+    opt = AdamWConfig(**OPT)
+
+    def step_fn(state, batch):
+        err = state["grad_error"]
+        state = {k: v for k, v in state.items() if k != "grad_error"}
+        (loss, _), grads = jax.value_and_grad(model.loss, has_aux=True)(
+            state["params"], batch)
+        # observed, not used: each leaf's quantization step, the whole
+        # leaf's max / 127 as `quantize_int8` takes it
+        steps_ = jax.tree.map(lambda g, e: jnp.max(jnp.abs(
+            g.astype(jnp.float32) + e)) / 127.0 + 1e-30, grads, err)
+        grads, err = ef_compress(grads, err)
+        new_state, om = apply_updates(state, grads, opt)
+        new_state["grad_error"] = err
+        return new_state, {"loss": loss, **om, "quant_step": steps_}
+
+    batches = _batches(ref_pipeline, cfg)
+    stacked = {k: jnp.asarray(np.stack([b[k] for b in batches]))
+               for k in batches[0]}
+    state = init_state(params)
+    state["grad_error"] = init_error_state(params)
+
+    def body(state, batch):
+        new, m = step_fn(state, batch)
+        return new, (m, new["grad_error"])
+
+    state, (m, errs) = jax.jit(lambda s, b: jax.lax.scan(body, s, b))(
+        state, stacked)
+    for i in range(STEPS):
+        for name in ("loss", "lr", "grad_norm"):
+            out[f"compress/step{i}/{name}"] = np.asarray(m[name][i])
+    for part in ("params", "mu", "nu", "grad_error"):
+        out.update(_flatten(state[part], f"compress/state/{part}"))
+    out.update(_flatten(jax.tree.map(lambda e: e[0], errs),
+                        "compress/step0/grad_error"))
+    out.update(_flatten(jax.tree.map(lambda q: q[0], m["quant_step"]),
+                        "compress/step0/quant_step"))
+    grads = _unflatten_dict(out, f"{ACCUM_ARCH}/{_tag(COMPRESS_MESH)}/grads")
+    err = _ef_error_input(grads)
+    dq, new_err = ef_compress(jax.tree.map(jnp.asarray, grads),
+                              jax.tree.map(jnp.asarray, err))
+    out.update(_flatten(grads, "ef/grads"))
+    out.update(_flatten(err, "ef/err_in"))
+    out.update(_flatten(dq, "ef/dq"))
+    out.update(_flatten(new_err, "ef/err"))
 
 
-def _unflatten(npz, prefix):
+def _ef_error_input(grads):
+    """An error state for `ef_compress` alone: each leaf a quarter of its
+    gradient's largest entry times a standard normal draw (seed 13)."""
+    rng = np.random.default_rng(13)
+
+    def draw(g):
+        return (rng.normal(size=g.shape) * 0.25
+                * float(np.max(np.abs(g)))).astype(np.float32)
+
+    return {k: draw(v) if not isinstance(v, dict) else _ef_error_input(v)
+            for k, v in grads.items()} if isinstance(grads, dict) \
+        else draw(grads)
+
+
+def _unflatten_dict(flat, prefix):
     tree = {}
-    for key in npz.files:
+    for key, value in flat.items():
         if not key.startswith(prefix + "/"):
             continue
         node = tree
         parts = key[len(prefix) + 1:].split("/")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = npz[key]
+        node[parts[-1]] = value
     return tree
+
+
+# ------------------------------------------------------------------ the port
+
+
+def _unflatten(npz, prefix):
+    return _unflatten_dict({k: npz[k] for k in npz.files
+                            if k.startswith(prefix + "/")}, prefix)
 
 
 def _numpy(tree, prefix):
@@ -268,7 +365,8 @@ def _rank_train(ctx, ref_path):
     from repro_torch.models.params import params_from_numpy
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.optim.adamw import global_norm
-    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.optim.compression import (compressed_psum,
+                                               ef_compress, init_error_state)
     from repro_torch.runtime import steps
     from repro_torch.sharding import local_shard
 
@@ -298,7 +396,8 @@ def _rank_train(ctx, ref_path):
             step = steps.jit_train_step(model, AdamWConfig(**OPT),
                                         accum=accum)
             assert step.graph is None
-            state = init_state(params_from_numpy(whole, cfg, "cpu", ctx))
+            state = init_state(model.place(params_from_numpy(whole, cfg,
+                                                             "cpu")))
             for i, batch in enumerate(batches):
                 state, m = step(state, steps.local_batch(ctx, batch, accum))
                 for name in ("loss", "lr", "grad_norm"):
@@ -310,9 +409,9 @@ def _rank_train(ctx, ref_path):
             # each step from the state the reference's step started from
             for i in range(1, STEPS):
                 prefix = f"{arch}/{_tag(ctx.mesh.shape)}/accum{accum}"
-                state = {part: params_from_numpy(
+                state = {part: model.place(params_from_numpy(
                     _unflatten(ref, f"{prefix}/entering{i}/{part}"), cfg,
-                    "cpu", ctx) for part in ("params", "mu", "nu")}
+                    "cpu")) for part in ("params", "mu", "nu")}
                 state["step"] = torch.tensor(i, dtype=torch.int32)
                 state, m = step(state, steps.local_batch(ctx, batches[i],
                                                          accum))
@@ -324,9 +423,32 @@ def _rank_train(ctx, ref_path):
                     out.update(_numpy(
                         state[part], f"{arch}/accum{accum}/forced{i}/"
                         f"{after}/{part}"))
+    cfg = _cfg(get_config, ACCUM_ARCH)
+    model = build_model(cfg, ctx)
+    placed = model.param_partition_specs()
+    blocks = {part: model.place(params_from_numpy(
+        _unflatten(ref, f"ef/{part}"), cfg, "cpu"))
+        for part in ("grads", "err_in")}
+    dq, err = ef_compress(blocks["grads"], blocks["err_in"], ctx, placed)
+    out.update(_numpy(dq, "ef/dq"))
+    out.update(_numpy(err, "ef/err"))
+    if tuple(ctx.mesh.shape) == COMPRESS_MESH:
+        state = init_state(model.place(params_from_numpy(
+            _unflatten(ref, f"params/{ACCUM_ARCH}"), cfg, "cpu")))
+        state["grad_error"] = init_error_state(state["params"])
+        step = steps.jit_train_step(model, AdamWConfig(**OPT), compress=True)
+        for i, batch in enumerate(_batches(pipeline, cfg)):
+            state, m = step(state, steps.local_batch(ctx, {
+                k: torch.from_numpy(v) for k, v in batch.items()}))
+            for name in ("loss", "lr", "grad_norm"):
+                out[f"compress/step{i}/{name}"] = m[name].numpy()
+            if i == 0:
+                out.update(_numpy(state["grad_error"],
+                                  "compress/step0/grad_error"))
+        for part in ("params", "mu", "nu"):
+            out.update(_numpy(state[part], f"compress/state/{part}"))
     from repro_torch.models import moe
 
-    cfg = _cfg(get_config, ACCUM_ARCH)
     p, x, c = _moe_inputs(cfg)
     bspec = ctx.spec(("batch",), (B,))
     n_model, n = ctx.axis_sizes["model"], ctx.mesh.size
@@ -485,7 +607,7 @@ def _rank_loop_matches_steps(ctx):
                 seed=3, device="cpu")
     gen = torch.Generator()
     gen.manual_seed(3)
-    state = init_state(model.init(gen, "cpu"))
+    state = init_state(model.place(build_model(cfg).init(gen, "cpu")))
     step = steps.make_train_step(model, opt, accum=2)
     task = MarkovTask(data)
     losses = {}
@@ -554,6 +676,42 @@ def _block(whole, coord, shape, name):
     n = whole.shape[dim] // shape[MODEL]
     return np.take(whole, range(coord[MODEL] * n, (coord[MODEL] + 1) * n),
                    axis=dim)
+
+
+STATE_PARTS = ("params", "mu", "nu", "grad_error")
+
+
+@functools.lru_cache(maxsize=None)
+def _placed_specs(arch, shape):
+    from repro_torch.models import build_model
+    from repro_torch.sharding import Mesh, ShardingCtx
+
+    ctx = ShardingCtx(mesh=Mesh(("data", "model"), shape))
+    return build_model(_cfg(get_config, arch), ctx).param_partition_specs()
+
+
+def _placed_spec(arch, shape, name):
+    """The placed spec (the port's `state_shardings`) of a state leaf
+    named ``.../<part>/<path>``; () for a metric."""
+    parts = name.split("/")
+    at = [i for i, part in enumerate(parts) if part in STATE_PARTS]
+    if not at:
+        return ()
+    node = _placed_specs(arch, tuple(shape))
+    for key in parts[at[-1] + 1:]:
+        node = node[key]
+    return node
+
+
+def _placed_block(whole, coord, shape, name, arch):
+    """A rank's block of a whole state leaf under its placed spec."""
+    for dim, entry in enumerate(_placed_spec(arch, shape, name)):
+        if entry is not None:
+            axis = {"data": DATA, "model": MODEL}[entry]
+            n = whole.shape[dim] // shape[axis]
+            whole = np.take(whole, range(coord[axis] * n,
+                                         (coord[axis] + 1) * n), axis=dim)
+    return whole
 
 
 def _close(got, want, what, rel=False):
@@ -651,7 +809,8 @@ def test_three_adamw_steps_match_reference(ref, port, case):
         for name in _leaf_keys(ref, f"{arch}/{tag}/accum{accum}/state"):
             leaf = name[len(f"{arch}/{tag}/"):]
             _close(res[f"{arch}/{leaf}"],
-                   _block(ref[name], coord, shape, leaf), f"rank {r} {leaf}")
+                   _placed_block(ref[name], coord, shape, leaf, arch),
+                   f"rank {r} {leaf}")
 
 
 @pytest.mark.parametrize("case", ACCUM_CASES,
@@ -674,24 +833,29 @@ def test_each_adamw_step_from_the_reference_state_matches(ref, port, case):
                                    f"{arch}/{tag}/accum{accum}/{after}"):
                 leaf = name[len(f"{arch}/{tag}/accum{accum}/"):]
                 _close(res[f"{arch}/accum{accum}/forced{i}/{leaf}"],
-                       _block(ref[name], coord, shape, leaf),
+                       _placed_block(ref[name], coord, shape, leaf, arch),
                        f"rank {r} step {i} {leaf}")
 
 
 @pytest.mark.parametrize("case", ACCUM_CASES,
                          ids=lambda c: f"{_ids(c)}-accum{c[2]}")
 def test_whole_leaves_are_bitwise_equal_on_every_rank(port, case):
+    """Every block a rank holds of the state after the steps, and every
+    metric, is bitwise equal on the ranks that hold the same block: those
+    whose coordinates agree on the mesh axes its placed spec splits it
+    over (every rank for a metric or a leaf the spec leaves whole)."""
     arch, shape, accum = case
     ranks = port[_tag(shape)]
     prefix = f"{arch}/accum{accum}/"
     names = [k for k in ranks[0] if k.startswith(prefix)]
     assert names
+    axes = {"data": DATA, "model": MODEL}
     for name in names:
-        split = _expert_dim(name) is not None and shape[MODEL] > 1
-        for res in ranks[1:]:
+        split = [axes[e] for e in _placed_spec(arch, shape, name) if e]
+        for res in ranks:
             same = [other for other in ranks
-                    if tuple(other["coordinate"])[MODEL]
-                    == tuple(res["coordinate"])[MODEL]] if split else ranks
+                    if all(tuple(other["coordinate"])[a]
+                           == tuple(res["coordinate"])[a] for a in split)]
             assert all(np.array_equal(res[name], other[name])
                        for other in same), name
 
@@ -720,6 +884,76 @@ def test_moe_capacity_drops_tokens_on_every_mesh():
         shard = tokens // (shape[DATA] * shape[MODEL])
         assert moe._capacity(shard, cfg) < shard * cfg.top_k / cfg.n_experts
     assert _batches(pipeline, cfg)[0]["tokens"].shape == (B, SEQ)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=_tag)
+def test_ef_compress_on_placed_blocks_quantizes_by_the_whole_leaf(ref, port,
+                                                                shape):
+    """`ef_compress` of each rank's placed blocks of the same gradients and
+    error state equals the reference's `ef_compress` of the whole leaves,
+    cut to the block, bitwise: every leaf is quantized with its whole max,
+    not its block's (where the two differ, a block's values move by up to
+    half a quantization step, about 4e-3 of the leaf's largest entry)."""
+    tag = _tag(shape)
+    for r, res in enumerate(port[tag]):
+        coord = tuple(res["coordinate"])
+        for part in ("dq", "err"):
+            for name in _leaf_keys(ref, f"ef/{part}"):
+                leaf = "params/" + name[len(f"ef/{part}/"):]
+                want = _placed_block(ref[name], coord, shape, leaf,
+                                     ACCUM_ARCH)
+                got = res[name]
+                assert got.shape == want.shape, name
+                assert np.array_equal(got, want), (
+                    f"rank {r} {name}: max abs err "
+                    f"{float(np.max(np.abs(got - want)))} of "
+                    f"{float(np.max(np.abs(want)))}")
+
+
+def test_compressed_step_on_the_mesh_matches_reference(ref, port):
+    """Three compressed steps (`jit_train_step(compress=True)`, the error
+    state placed with the parameters) on the (1, 2) mesh against the
+    reference train loop's compressed step, which quantizes the whole
+    gradients: each step's loss and learning rate, the first step's
+    gradient norm, and each rank's block of params, mu and nu after the
+    steps, within 2e-3; and its block of the error state after the first
+    step (from the same parameters), within 2e-3 but for rounding flips.
+
+    The error is the gradient's distance to its int8 grid: where the
+    port's and the reference's g + e, equal but for f32 rounding, lie on
+    two sides of a rounding boundary, the two errors differ by one
+    quantization step of the leaf (7.8e-3 for the embedding here). Such an
+    element must differ by that step within 2e-3, and at most 1% of a
+    leaf's elements may flip; a scale that is not the whole leaf's moves
+    every element of a block by its own amount. Later steps' norms and
+    errors follow the gradients, which move by more than 2e-3 under the
+    rounding the steps before them leave (tokens dropped, as in
+    `test_three_adamw_steps_match_reference`)."""
+    tag = _tag(COMPRESS_MESH)
+    for r, res in enumerate(port[tag]):
+        coord = tuple(res["coordinate"])
+        for i in range(STEPS):
+            for name in ("loss", "lr") + (("grad_norm",) if i == 0 else ()):
+                _close(res[f"compress/step{i}/{name}"],
+                       ref[f"compress/step{i}/{name}"],
+                       f"rank {r} step {i} {name}")
+        for name in _leaf_keys(ref, "compress/state"):
+            if "/grad_error/" not in name:
+                _close(res[name], _placed_block(ref[name], coord,
+                                                COMPRESS_MESH, name,
+                                                ACCUM_ARCH),
+                       f"rank {r} {name}")
+        for name in _leaf_keys(ref, "compress/step0/grad_error"):
+            step = float(ref[name.replace("/grad_error/", "/quant_step/")])
+            want = _placed_block(ref[name], coord, COMPRESS_MESH, name,
+                                 ACCUM_ARCH)
+            diff = np.abs(res[name] - want)
+            flips = diff > TOL
+            assert np.all(np.abs(diff[flips] - step) <= TOL), (
+                f"rank {r} {name}: max abs err {float(diff.max())}, not a "
+                f"flip of one step {step}")
+            assert flips.sum() <= 0.01 * diff.size, (
+                f"rank {r} {name}: {int(flips.sum())} of {diff.size} flip")
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=_tag)

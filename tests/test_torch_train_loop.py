@@ -144,6 +144,38 @@ def test_launch_train_on_the_mini_mesh_of_two_cpu_ranks(capsys):
     assert out["loss_last"] < out["loss_first"]
 
 
+def test_launch_train_on_a_2x1_mesh_prints_each_ranks_placed_bytes(capsys):
+    """``--mesh 2x1``: each rank holds its block of params, mu and nu by
+    the rules, about half the whole (exactly the specs' share), and one
+    line a rank says so before rank 0's report."""
+    from repro_torch.core import tree
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models.params import abstract, partition_specs
+    from repro_torch.sharding import Mesh, ShardingCtx, block_shape
+
+    rep = launch_train.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                             "--mesh", "2x1", "--device", "cpu", "--backend",
+                             "gloo", "--steps", "3", "--batch", "4", "--seq",
+                             "16"])
+    lines = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()[-3:]]
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    ctx = ShardingCtx(mesh=Mesh(("data", "model"), (2, 1)))
+    specs = param_specs(cfg)
+    parts = partition_specs(specs, ctx)
+    leaves = tree.leaves(abstract(specs))
+    share = sum(int(np.prod(block_shape(x.shape, s, ctx))) * x.element_size()
+                for x, s in zip(leaves, tree.leaves(parts)))
+    whole = sum(x.numel() * x.element_size() for x in leaves)
+    assert 0.45 * whole < share < 0.55 * whole
+    assert [x["rank"] for x in lines[:2]] == [0, 1]
+    for x in lines[:2]:
+        assert x["mesh"] == [2, 1]
+        assert x["held_bytes"] == {"params": share, "mu": share, "nu": share}
+    assert rep.held_bytes == lines[0]["held_bytes"]
+    assert lines[2]["steps"] == 3 and np.isfinite(lines[2]["loss_last"])
+
+
 def test_launch_train_on_the_cpu(tmp_path, capsys):
     rep = launch_train.main(["--arch", "granite-moe-1b-a400m", "--reduced",
                              "--device", "cpu", "--steps", "6", "--batch",
