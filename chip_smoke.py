@@ -297,11 +297,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      rows, both through `train` with phase 11d's settings (f32 parameters
      and AdamW, bf16 compute, seq 512, lr 1e-2, the clip off) for 5 eager
      steps: the loss finite, falling and the same on every rank, each rank
-     launching exactly K2 9 times a MoE layer a step, or a K4 forward and
-     a K4 backward call a layer a step (counts zeroed just before each
-     run), and for each rank the first step apart from the p50, tokens a
-     second, peak memory and the collectives' calls, bytes and share of
-     the steps (timed sync to sync);
+     launching exactly `train_launches` a step (K2 12 times a MoE layer,
+     or two K4 forward calls and a K4 backward call a layer, under remat;
+     counts zeroed just before each run), and for each rank the first
+     step apart from the p50, tokens a second, peak memory and the
+     collectives' calls, bytes and share of the steps (timed sync to
+     sync);
  14. the paged engine on a device mesh, two gloo ranks sharing the card
      at (1, 2), each running the whole engine in lockstep: (a) reduced
      f32 granite-moe (a capacity factor at which no token drops) and
@@ -317,7 +318,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      the rounds and of the chunks; (c) K2 on a chunk's capacity buffers
      and at a round's stride-0 shape over the 16 local experts, and K1
      at the round, each against its plain version and timed;
- 15. `guard.stats()` on one JSON line, the mesh's record on one, the mesh
+ 15. the dry-run (`launch.dryrun`, on the CPU, no device): (a) every
+     arch x shape on the 256-rank `single` and 512-rank `multi` meshes at
+     full width under the h100 profile, traced on meta tensors in 8
+     processes, a line a cell (status, dominant term, useful FLOPs ratio,
+     argument and temp GiB a chip) and the count of ok, skipped and error
+     cells (an error fails); (b) the dry-run of phase 5c's dense yi-6b
+     decode step (B 8, a cache of 1056, one card, bf16) and of phase 11d's
+     granite-moe train step (8 x 512, f32 state, remat on): its argument
+     bytes equal, exactly, the bytes of the params, cache or state and
+     batch the phase holds; its argument plus temp bytes beside the
+     `max_memory_allocated` of one eager step there, and its roofline
+     terms beside the phase's step p50 (printed, no gate);
+ 16. `guard.stats()` on one JSON line, the mesh's record on one, the mesh
      training's on one, the paged mesh's on one, one JSON line describing
      every kernel (nine: K4's backward has its own entry; K1's, K2's,
      K3's and K4's launches by path, the meshes' among them, and K2's
@@ -365,6 +378,13 @@ two gloo ranks sharing the card), then prints its record as one JSON line.
 builds the kernels and runs only phase 13 (training with the state placed
 by its rules on the (1, 2) and (2, 1) meshes, two gloo ranks sharing the
 card), then prints its record as one JSON line.
+
+    python3 chip_smoke.py --dryrun
+
+runs only phase 15: (a), then (b) on yi-6b's bf16 weights and a
+granite-moe f32 state drawn for it (building only the sources of K3 and
+K2, which those steps launch), with the p50 of five eager steps in place
+of the phases' step p50, and prints its record as one JSON line.
 
     python3 chip_smoke.py --mesh-paged
 
@@ -861,15 +881,16 @@ def run_thunk(run):
 def paged_decode_bound(lengths, h, kh, d, m):
     """(bound ms, bound_by, bytes, flops) of paged decode attention: the
     live K/V rows, q, the output, the block table and the lengths over
-    3.35 TB/s, or the flops over 989 TFLOP/s (bf16) if larger."""
-    b = len(lengths)
-    kv_bytes = 2 * sum(lengths) * kh * d * 2          # K and V rows < len
-    io_bytes = 2 * b * h * d * 2 + b * m * 4 + b * 4
-    flops = 4 * h * d * sum(lengths)                  # q.k and p.v
-    bytes_s, ops_s = (kv_bytes + io_bytes) / HBM_BW, flops / PEAK["bfloat16"]
+    3.35 TB/s, or the flops over 989 TFLOP/s (bf16) if larger: the
+    kernel's own count (`decode_attention.paged_decode_cost`), which the
+    dry-run reads too."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
+    flops, nbytes = da.paged_decode_cost(len(lengths), h, kh, d, m,
+                                         sum(lengths), 2)
+    bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
     return (max(bytes_s, ops_s) * 1e3,
-            "bytes" if bytes_s >= ops_s else "operations",
-            kv_bytes + io_bytes, flops)
+            "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
 
 
 def time_paged(torch, layers, gathered, lengths, depth):
@@ -1257,10 +1278,11 @@ def profile_dense_steps(torch, cfg, params, rounds=4):
 def gmm_bound(e, c, dm, f, itemsize=2, shared=True):
     """Bytes: the weights, the tokens (one [C, dm] block when `shared`, one
     an expert otherwise) and the [E, C, f] output, each once; flops:
-    2 E C dm f on the tensor cores."""
-    nbytes = (e * dm * f + (1 if shared else e) * c * dm + e * c * f) \
-        * itemsize
-    flops = 2 * e * c * dm * f
+    2 E C dm f on the tensor cores (the kernel's own count,
+    `moe_gmm.cost`, which the dry-run reads too)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    flops, nbytes = mg.cost(e, c, dm, f, itemsize, shared)
     bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK["bfloat16"]
     return max(bytes_s, ops_s) * 1e3, \
         "bytes" if bytes_s >= ops_s else "operations"
@@ -1891,10 +1913,12 @@ def flash_decode_bound(b, h, kh, d, pos, dtype_name="bfloat16"):
     """(bound ms, bound_by, bytes, flops) of dense decode attention in
     `dtype_name`: the live K/V rows, q and the output, each element of the
     type's size, over 3.35 TB/s, or the flops over the type's peak
-    (989 TFLOP/s bf16, 67 f32) if larger."""
+    (989 TFLOP/s bf16, 67 f32) if larger (the kernel's own count,
+    `decode_attention.flash_decode_cost`, which the dry-run reads too)."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+
     isz = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 2 * b * (pos + 1) * kh * d * isz + 2 * b * h * d * isz
-    flops = 4 * b * h * d * (pos + 1)
+    flops, nbytes = da.flash_decode_cost(b, h, kh, d, pos + 1, isz)
     bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK[dtype_name]
     return (max(bytes_s, ops_s) * 1e3,
             "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
@@ -2080,12 +2104,9 @@ def time_ssd_scan(torch, cfg, dtype_name="bfloat16", sweep=False):
     ms = statistics.median([kernel_a, kernel_b])
     per_launch = launch_ms(torch, launches[0][0])
     isz = dtype.itemsize
-    nbytes = (2 * b * s * nh * p * isz        # x in, y out
-              + 2 * b * s * n * isz           # B, C
-              + b * s * nh * 4 + nh * 4       # dt, A (f32)
-              + b * nh * p * n * 4)           # h_final out (f32)
-    spec = ss.ssd_spec(chunk, nh, p, n, dtype, seq_len=s)
-    flops = spec.flops_per_tile * b * (s // chunk)
+    # x in, y out, B, C, dt and A (f32), h_final out (f32); the reference
+    # spec's flops: the kernel's own count, which the dry-run reads too
+    flops, nbytes = ss.cost(b, s, nh, p, n, chunk, isz)
     bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK[dtype_name]
     bound_ms = max(bytes_s, ops_s) * 1e3
     bound_by = "bytes" if bytes_s >= ops_s else "operations"
@@ -2399,7 +2420,11 @@ def _allclose(a, b, tol: float, *, rows: int = 1 << 20) -> bool:
                for s in range(0, a.shape[0], rows))
 
 
-def _bound_ms(nbytes: float, flops: float = 0.0):
+def _bound_ms(cost):
+    """The bound of a GUPS-path kernel's (flops, bytes) `cost`, its own
+    count (which the dry-run reads too), f32 operations outside the
+    tensor cores."""
+    flops, nbytes = cost
     bytes_s, ops_s = nbytes / HBM_BW, flops / F32_PEAK
     return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else \
         "operations"
@@ -2469,28 +2494,28 @@ def time_gups_kernels(torch, st, gmm_case):
         "row_gather": dict(
             plain=lambda: cg.row_gather_plain(table, idx),
             library=(torch.index_select, (table, 0, idx.long())),
-            bound=_bound_ms(2 * n * row_bytes + 4 * n),
+            bound=_bound_ms(cg.row_gather_cost(n, row_bytes)),
             shape={"table": list(table.shape), "n": n, "rows_per_tile": 8,
                    "dtype": "float32", "blocks_per_sm": k5a_blocks,
                    "slots_a_block": k5a_slots, "grid": k5a_grid}),
         "span_gather": dict(
             plain=lambda: cg.span_gather_plain(table, starts, plan.span),
             library=(torch.index_select, (table, 0, span_rows)),
-            bound=_bound_ms(2 * t * plan.span * row_bytes + 4 * t),
+            bound=_bound_ms(cg.span_gather_cost(t, plan.span, row_bytes)),
             shape={"table": list(table.shape), "spans": t, "span": plan.span,
                    "dtype": "float32"}),
         "scatter_add": dict(
             plain=lambda: sa.scatter_add_unique_plain(work, uniq, summed),
             library=(lambda i, v: work.index_add_(0, i, v),
                      (uniq.long(), summed)),
-            bound=_bound_ms(3 * u * row_bytes + 4 * u, u * d),
+            bound=_bound_ms(sa.scatter_add_cost(u, d, table.element_size())),
             shape={"table": list(table.shape), "n": u, "rows_per_tile": 8,
                    "dtype": "float32", "blocks_per_sm": k6_blocks,
                    "slots_a_block": k6_slots, "grid": k6_grid}),
         "stream_triad": dict(
             plain=lambda: sc.triad_plain(b, c, s),
             library=(lambda x, y: torch.add(x, y, alpha=s), (b, c)),
-            bound=_bound_ms(3 * nt * 4, 2 * nt),
+            bound=_bound_ms(sc.triad_cost(nt, 4)),
             shape={"N": b.shape[0], "d": d, "rows": 128, "dtype": "float32",
                    **triad_plan._asdict()}),
     }
@@ -3138,9 +3163,25 @@ def check_gups_breakdown(torch, st) -> dict:
 # Training (the port's `runtime.train_loop.train`): granite-moe-1b-a400m at
 # full width, f32 parameters and bf16 compute, batch 8 x seq 512 (4096
 # tokens a step) on the Markov task, AdamW, 20 steps. Each step launches K2
-# 9 times a layer: 3 forward and, for each, its d tokens and d weights.
+# 12 times a layer: 3 forward and, for each, its d tokens and d weights,
+# and the 3 forward again in the backward's recompute (remat).
 TRAIN_ARCH = "granite-moe-1b-a400m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+
+
+def train_launches(cfg) -> dict:
+    """The kernels' launches of one train step of `cfg`: K2 9 times a MoE
+    layer (3 forward, a d tokens and a d weights for each), or a K4
+    forward and a K4 backward call a layer; under the reference's remat
+    (``cfg.remat``) the backward recomputes each layer's forward first: K2's
+    3 forward products again (kept under policy "dots"), K4's forward
+    again."""
+    again = int(cfg.remat)
+    if cfg.moe:
+        again *= cfg.remat_policy != "dots"
+        return {"moe_gmm": (9 + 3 * again) * cfg.n_layers}
+    return {"ssd_scan": (1 + again) * cfg.n_layers,
+            "ssd_scan_bwd": cfg.n_layers}
 # The data and the optimizer (PERF.md §6, training, and
 # scripts/train_sweep.py, for the runs behind them):
 # the chain runs over the model's first 512 token ids (over all 49155, 20
@@ -3241,8 +3282,9 @@ def check_train_step_card_vs_cpu(torch, arch: str = TRAIN_ARCH) -> None:
     """Phase 11b: a reduced f32 step of `arch` on the card against the same
     step on the CPU, from the same parameters and batch: loss, every
     gradient leaf and the AdamW update (params, mu, nu) at 2e-3, with the
-    step's kernel launches (granite-moe: K2, 9 a layer; mamba2 and hymba:
-    a K4 forward and a K4 backward call a layer) and none on the CPU;
+    step's kernel launches (`train_launches`: granite-moe K2, 12 a layer
+    under remat; mamba2 and hymba two K4 forward calls and a K4 backward
+    call a layer) and none on the CPU;
     then `check_graph_steps_card_vs_cpu`; for granite-moe then the card's
     state through a checkpoint and back, bitwise, on the card."""
     import tempfile
@@ -3274,10 +3316,7 @@ def check_train_step_card_vs_cpu(torch, arch: str = TRAIN_ARCH) -> None:
         state, metrics = apply_updates(init_state(p), grads, opt)
         out[dev] = (loss, grads, state, launch_counts())
     want = {k: 0 for k in out["cuda"][3]}
-    if cfg.moe:
-        want["moe_gmm"] = 9 * cfg.n_layers
-    else:
-        want["ssd_scan"] = want["ssd_scan_bwd"] = cfg.n_layers
+    want.update(train_launches(cfg))
     if any(out["cpu"][3].values()) or out["cuda"][3] != want:
         raise AssertionError(f"train step {arch}: launches cpu "
                              f"{out['cpu'][3]}, card {out['cuda'][3]}, want "
@@ -3533,10 +3572,7 @@ def train_full_width(torch, arch: str = TRAIN_ARCH,
     peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     losses = [rep.losses[i] for i in range(steps)]
     per_step = {k: 0 for k in counts}
-    if cfg.moe:
-        per_step["moe_gmm"] = 9 * cfg.n_layers
-    else:
-        per_step["ssd_scan"] = per_step["ssd_scan_bwd"] = cfg.n_layers
+    per_step.update(train_launches(cfg))
     want = {k: v * steps for k, v in per_step.items()}
     per_step = {k: v for k, v in per_step.items() if v}
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3634,6 +3670,13 @@ def train_full_width(torch, arch: str = TRAIN_ARCH,
     log(f"train {arch}: the eager step alone peaks at "
         f"{out['eager_step_peak_gb'][0]:.2f} GB allocated, "
         f"{out['eager_step_peak_gb'][1]:.2f} GB reserved")
+    if arch == TRAIN_ARCH:              # phase 15 (b): this step's dry-run
+        named = dict(zip(sorted(batch), values))
+        out["dryrun"] = dryrun_tie(
+            torch, f"{arch} train step (B {TRAIN_BATCH} x {TRAIN_SEQ}, f32 "
+            f"state, remat {cfg.remat_policy})",
+            lambda st, b: eager_fn(st, *(b[k] for k in sorted(b))),
+            (state, named), lambda: eager_fn(state, *values), p50 * 1e3)
     del state, batch, values, eager_fn
     gc_collect(torch)
     out["memory_reserved_gb"] = log_reserved(torch, arch, reserved_before)
@@ -3802,14 +3845,12 @@ def ssd_bwd_bound(b, s, nh, p, n, dtype_name):
     over 3.35 TB/s and its operations (`ssd_scan.bwd_flops`: the causal
     half of each product at the kernel's 64-row chunks, the products with
     the heads' shared B and C once a chunk) over the peak of the inputs'
-    type."""
+    type (the kernel's own count, `ssd_scan.bwd_cost`, which the dry-run
+    reads too)."""
     from repro_torch.kernels.ssd_scan import ssd_scan as ss
 
     isz = 2 if dtype_name == "bfloat16" else 4
-    nbytes = (3 * b * s * nh * p * isz          # x, dy in; dx out
-              + 4 * b * s * n * isz             # B, C in; dB, dC out
-              + 2 * b * s * nh * 4 + 2 * nh * 4)  # dt, A in; ddt, dA out
-    flops = ss.bwd_flops(ss.BWD_CHUNK, nh, p, n) * b * -(-s // ss.BWD_CHUNK)
+    flops, nbytes = ss.bwd_cost(b, s, nh, p, n, isz)
     bytes_s, ops_s = nbytes / HBM_BW, flops / PEAK[dtype_name]
     return (max(bytes_s, ops_s) * 1e3,
             "bytes" if bytes_s >= ops_s else "operations", nbytes, flops)
@@ -4308,13 +4349,8 @@ def _mesh_tag(shape) -> str:
 
 
 def mesh_train_launches(cfg, steps: int) -> dict:
-    """A rank's launches of `steps` train steps: K2 9 times a MoE layer (3
-    forward, a d tokens and a d weights for each), or a K4 forward and a
-    K4 backward call a layer."""
-    if cfg.moe:
-        return {"moe_gmm": 9 * cfg.n_layers * steps}
-    return {"ssd_scan": cfg.n_layers * steps,
-            "ssd_scan_bwd": cfg.n_layers * steps}
+    """A rank's launches of `steps` train steps (`train_launches`)."""
+    return {k: v * steps for k, v in train_launches(cfg).items()}
 
 
 def mesh_train_shares(cfg, shape) -> dict:
@@ -4971,6 +5007,229 @@ def mesh_paged_phase(torch) -> dict:
 
 # --------------------------------------------------------------------- main
 
+# ----------------------------------------------------------------- phase 15
+
+
+def dryrun_sweep() -> dict:
+    """Phase 15 (a): `launch.dryrun --arch all --shape all --mesh both` in
+    a process of its own (8 cells traced at once, the h100 profile, no
+    CUDA device visible: the dry-run allocates on none) into
+    ``reports/dryrun``; a line a cell and the count of ok, skipped and
+    error cells. An error cell, or a failed run, fails the phase."""
+    import shutil
+
+    out_dir = ROOT / "reports" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, REPRO_MACHINE="h100", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--shape", "all", "--mesh", "both", "--jobs", "8", "--out",
+         str(out_dir)], env=env, capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(p.read_text()) for p in sorted(out_dir.glob("*.json"))]
+    counts = {"ok": 0, "skipped": 0, "error": 0}
+    for r in recs:
+        counts[r["status"]] += 1
+        tag = f"dryrun {r['arch']} {r['shape']} {r['mesh']}: {r['status']}"
+        if r["status"] == "ok":
+            mem = r["memory"]
+            log(f"{tag}, {r['dominant']}, useful "
+                f"{r['useful_flops_ratio']:.4f}, args "
+                f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB, temp "
+                f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f} GiB a chip, "
+                f"traced {r['compile_s']} s")
+        else:
+            log(f"{tag} ({r.get('reason') or r.get('error')})")
+    log(f"dryrun sweep: {json.dumps(counts)} of {len(recs)} cells in "
+        f"{wall:.1f} s")
+    if proc.returncode or counts["error"] or len(recs) != 80:
+        raise AssertionError(f"dryrun sweep: rc {proc.returncode}, "
+                             f"{counts}, {len(recs)} records; "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return {"counts": counts, "wall_s": wall}
+
+
+def _nbytes(tensors) -> int:
+    """The bytes of the distinct storages of `tensors`."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr() if t.device.type != "meta" else id(st)] = \
+            st.nbytes()
+    return sum(seen.values())
+
+
+def dryrun_tie(torch, label, fn, args, run_eager, p50_ms) -> dict:
+    """Phase 15 (b) for one step: the dry-run of `fn` on meta copies of
+    the real `args` (a tuple of tensor trees) against the real ones: its
+    argument bytes (what the step reads, as XLA counts a jitted step's)
+    plus the bytes of the leaves it never reads (only ``positions`` may
+    be one: the data pipeline's, which the model computes itself) must
+    equal theirs exactly; its argument plus temp bytes are printed beside
+    `max_memory_allocated` over `run_eager()` (one eager step on the real
+    tensors), and its roofline terms (h100) beside the phase's step p50
+    `p50_ms`."""
+    from repro_torch import roofline
+    from repro_torch.core.machine import machine_profile
+    from repro_torch.launch.dryrun import trace_step
+
+    leaves, metas = [], []
+
+    def meta(x, name):
+        if isinstance(x, dict):
+            return {k: meta(v, k) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(meta(v, name) for v in x)
+        if isinstance(x, torch.Tensor):
+            leaves.append(x)
+            metas.append((name, torch.empty_like(x, device="meta")))
+            return metas[-1][1]
+        return x
+
+    margs = meta(args, None)
+    real = _nbytes(leaves)
+    dry = trace_step(fn, margs)
+    mem = dry["memory"]
+    unread = sorted({name for name, t in metas
+                     if not dry["counter"].read(t)}, key=str)
+    if mem["argument_size_in_bytes"] + dry["counter"].unread_bytes != real \
+            or set(unread) - {"positions"}:
+        raise AssertionError(f"dryrun {label}: argument bytes "
+                             f"{mem['argument_size_in_bytes']} read and "
+                             f"{dry['counter'].unread_bytes} unread "
+                             f"({unread}), the phase holds {real}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run_eager()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    t = roofline.terms(dry["flops"], dry["bytes"], dry["collectives"],
+                       machine=machine_profile("h100"))
+    out = {"argument_bytes": real, "dry_memory": mem,
+           "unread": unread, "unread_bytes": dry["counter"].unread_bytes,
+           "dry_arg_plus_temp_gb": (mem["argument_size_in_bytes"]
+                                    + mem["temp_size_in_bytes"]) / 1e9,
+           "eager_peak_allocated_gb": peak / 1e9,
+           "allocated_before_gb": base / 1e9,
+           "eager_peak_above_before_gb": (peak - base) / 1e9,
+           "flops": dry["flops"], "bytes": dry["bytes"],
+           "kernels": {k: v["calls"] for k, v in dry["kernels"].items()},
+           "terms_ms": {k: v * 1e3 for k, v in t.items()},
+           "dominant": roofline.dominant(t), "step_p50_ms": p50_ms,
+           "traced_s": dry["t_trace"]}
+    log(f"dryrun {label}: argument bytes {mem['argument_size_in_bytes']}"
+        f" read + {dry['counter'].unread_bytes} never read ({unread}) == "
+        f"the phase's {real}; argument "
+        f"+ temp {out['dry_arg_plus_temp_gb']:.3f} GB against "
+        f"max_memory_allocated {out['eager_peak_allocated_gb']:.3f} GB over "
+        f"one eager step ({out['allocated_before_gb']:.3f} GB before it); "
+        f"terms {json.dumps({k: round(v, 4) for k, v in out['terms_ms'].items()})}"
+        f" ms ({out['dominant']}, {dry['flops']:.4g} flop, "
+        f"{dry['bytes']:.4g} B) against the step p50 {p50_ms:.3f} ms; "
+        f"kernels {json.dumps(out['kernels'])}")
+    return out
+
+
+def dense_decode_tie(torch, cfg, params, p50_ms) -> dict:
+    """Phase 15 (b), dense yi-6b: the decode step of phase 5c (B 8, a
+    cache of prompt + gen = 1056 rows at pos 1040, one card, bf16) on
+    `params`, a cache of zeros of those shapes and a batch of tokens."""
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core import tree
+    from repro_torch.models import build_model
+
+    kw = DENSE_SERVE[cfg.name]
+    model = build_model(cfg)
+    shape = ShapeSuite("dense", kw["prompt_len"] + kw["gen"], kw["batch"],
+                       "decode")
+    cache = tree.map_tree(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                                device="cuda"),
+                          model.abstract_cache(shape))
+    cache["pos"].fill_(kw["prompt_len"] + kw["gen"] // 2)
+    batch = {"tokens": torch.zeros(kw["batch"], 1, dtype=torch.int32,
+                                   device="cuda")}
+    out = dryrun_tie(torch, f"dense {cfg.name} decode step (B "
+                     f"{kw['batch']}, cache {shape.seq_len})",
+                     model.decode_step, (params, cache, batch),
+                     lambda: model.decode_step(params, cache, batch), p50_ms)
+    del cache, batch
+    return out
+
+
+def dryrun_phase(torch) -> dict:
+    """`--dryrun`: phase 15 alone. (a), then (b) on yi-6b's serving
+    weights (bf16, seed 0) and a granite-moe f32 state (seed 1) drawn for
+    it, each step's p50 over five eager steps after one."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, MarkovTask
+    from repro_torch.launch.serve import SERVING_OVERRIDES
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime.steps import make_train_step
+
+    def p50_ms(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core import tree
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    build.build([da.FLASH_SOURCE, mg.SOURCE])    # the two steps' kernels
+    out = {"sweep": dryrun_sweep()}
+    cfg = get_config("yi-6b").replace(**SERVING_OVERRIDES)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = build_model(cfg).init(gen, "cuda")
+    model = build_model(cfg)
+    kw = DENSE_SERVE[cfg.name]
+    tokens = {"tokens": torch.zeros(kw["batch"], 1, dtype=torch.int32,
+                                    device="cuda")}
+    cache = tree.map_tree(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                                device="cuda"),
+                          model.abstract_cache(ShapeSuite(
+                              "dense", kw["prompt_len"] + kw["gen"],
+                              kw["batch"], "decode")))
+    cache["pos"].fill_(kw["prompt_len"] + kw["gen"] // 2)
+    ms = p50_ms(lambda: model.decode_step(params, cache, tokens))
+    del cache, tokens
+    out["dense yi-6b decode step"] = dense_decode_tie(torch, cfg, params, ms)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    gen.manual_seed(1)
+    state = init_state(model.init(gen, "cuda"))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in MarkovTask(
+        DataConfig(vocab=TRAIN_DATA_VOCAB, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH)).batch_for_step(0).items()}
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR,
+                                              grad_clip=TRAIN_CLIP))
+    ms = p50_ms(lambda: step(state, batch))
+    out[f"{TRAIN_ARCH} train step"] = dryrun_tie(
+        torch, f"{TRAIN_ARCH} train step (B {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"f32 state, remat {cfg.remat_policy}; eager p50)", step,
+        (state, batch), lambda: step(state, batch), ms)
+    return out
+
 
 def main() -> int:
     import gc
@@ -5037,6 +5296,11 @@ def main() -> int:
         print(json.dumps({"mesh_paged": mesh_paged_phase(torch)}),
               flush=True)
         return 0
+    if sys.argv[1:] == ["--dryrun"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card_info(torch)
+        print(json.dumps({"dryrun": dryrun_phase(torch)}), flush=True)
+        return 0
     if sys.argv[1:] == ["--ssd-time"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         card_info(torch)
@@ -5087,7 +5351,10 @@ def main() -> int:
     log(f"phases 1-7 done at {time.perf_counter() - t_start:.1f} s")
 
     # the dense engine: yi-6b on the same weights, then mamba2-130m
-    _, _, dense_counts = serve_dense_path(torch, "yi-6b", yi_params)
+    _, dense_stats, dense_counts = serve_dense_path(torch, "yi-6b",
+                                                    yi_params)
+    yi_tie = dense_decode_tie(torch, yi_cfg, yi_params,
+                              dense_stats["p50_ms"])
     s = DENSE_SERVE["yi-6b"]["prompt_len"] + DENSE_SERVE["yi-6b"]["gen"]
     yi_k3 = (cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim, s, s - 16,
              cfg.n_layers)
@@ -5179,6 +5446,14 @@ def main() -> int:
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     mesh_paged = mesh_paged_phase(torch)
     log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+    t15 = time.perf_counter()
+    dryrun = {"sweep": dryrun_sweep(),
+              "dense yi-6b decode step": yi_tie,
+              f"{TRAIN_ARCH} train step": trained["dryrun"]}
+    log(f"phase 15 done at {time.perf_counter() - t_start:.1f} s (the "
+        f"sweep {time.perf_counter() - t15:.1f} s; (b) "
+        f"{yi_tie['traced_s'] + trained['dryrun']['traced_s']:.1f} s of "
+        f"traces in phases 5c and 11d)")
     paged_ranks = {f"mesh paged {MESH_PAGED_ARCH} rank {r}": c
                    for r, c in enumerate(mesh_paged["launches"])}
     mesh_train_paths = {"moe_gmm": {}, "ssd_scan": {}, "ssd_scan_bwd": {}}
@@ -5296,13 +5571,15 @@ def main() -> int:
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"train": {k: v for k, v in trained.items()
-                                if not k.endswith("_times")}}), flush=True)
+                                if not k.endswith("_times")
+                                and k != "dryrun"}}), flush=True)
     print(json.dumps({"substrate": guard.stats()}), flush=True)
     print(json.dumps({"mesh": {k: meshed[k] for k in ("serve", "launches")}}),
           flush=True)
     print(json.dumps({"mesh_train": mesh_trained}), flush=True)
     print(json.dumps({"mesh_paged": {k: mesh_paged[k] for k in (
         "reduced", "serve", "launches", "seconds")}}), flush=True)
+    print(json.dumps({"dryrun": dryrun}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,6 +64,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 __all__ = [
     "GuardResult",
@@ -480,7 +481,11 @@ def _parity_reference(kernel: str, operands: Sequence[Any],
         _parity_counter[key] = n
     if _parity_mode == "sampled" and (n - 1) % _parity_every:
         return None
-    return plain(*operands)
+    # the sentinel is no op of the program: it runs hidden from dispatch
+    # modes (a selective checkpoint matches a layer's recomputed ops to its
+    # forward's by their order, and sampling differs between the two)
+    with _disable_current_modes():
+        return plain(*operands)
 
 
 def _nonfinite(kernel: str, depth: int) -> KernelNumericsError:
@@ -513,7 +518,9 @@ def _police(kernel: str, out: Any, depth: int,
     if ref is None:
         return None
     _count("parity_checks")
-    if _parity_matches(view, ref):
+    with _disable_current_modes():
+        same = _parity_matches(view, ref)
+    if same:
         return None
     _count("parity_mismatches")
     _instant("parity_mismatch", kernel=kernel, depth=depth)

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,12 +40,14 @@ from repro_torch.kernels import ring
 
 __all__ = [
     "row_gather",
+    "row_gather_cost",
     "row_gather_at",
     "row_gather_plain",
     "row_gather_split",
     "row_gather_spec",
     "span_gather",
     "span_gather_at",
+    "span_gather_cost",
     "span_gather_plain",
     "span_gather_spec",
     "span_rows",
@@ -97,6 +99,26 @@ def span_gather_plain(table: torch.Tensor, starts: torch.Tensor,
 
 
 # ------------------------------------------------------------ the kernels
+
+
+def row_gather_cost(n: int, row_bytes: int) -> Tuple[int, int]:
+    """(flops, bytes) of a gather of `n` rows of `row_bytes` bytes: each
+    row read once and written once, and its int32 id read once; no
+    arithmetic. The bound of `chip_smoke.py` and the dry-run's count."""
+    return 0, 2 * n * row_bytes + 4 * n
+
+
+def span_gather_cost(spans: int, span: int, row_bytes: int
+                     ) -> Tuple[int, int]:
+    """(flops, bytes) of a gather of `spans` spans of `span` rows: each
+    row read once and written once, each span's int32 start read once."""
+    return 0, 2 * spans * span * row_bytes + 4 * spans
+
+
+def _meta_rows(kernel: str, table, ids, rows: int, cost) -> torch.Tensor:
+    return ring.meta_call(kernel, cost, lambda: torch.empty(
+        (rows, table.shape[1]), dtype=table.dtype, device="meta"),
+        (table, ids))
 
 
 def _check(table, idx, name: str) -> None:
@@ -166,7 +188,12 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, *,
     slots).
     """
     n_tiles = _check_rows(table, idx, rows_per_tile)
-    cuda = ring.route("row_gather", ("table", table), ("idx", idx))
+    way = ring.route("row_gather", ("table", table), ("idx", idx))
+    if way == "meta":
+        n = idx.shape[0]
+        return _meta_rows("row_gather", table, idx, n, row_gather_cost(
+            n, table.shape[1] * table.element_size()))
+    cuda = way == "cuda"
     solve = depth is None
     spec = row_gather_spec(rows_per_tile, table.shape[1], table.dtype)
     depth, _ = _depth(spec, depth, table, rows_per_tile, n_tiles)
@@ -203,7 +230,7 @@ def row_gather_at(table: torch.Tensor, idx: torch.Tensor, *,
     blocks on each SM, each keeping `slots` tiles in flight (no solve, no
     record). The kernel's launch count is `row_gather.launches`."""
     n_tiles = _check_rows(table, idx, rows_per_tile)
-    if not ring.route("row_gather", ("table", table), ("idx", idx)):
+    if ring.route("row_gather", ("table", table), ("idx", idx)) != "cuda":
         raise ValueError("row_gather_at takes CUDA tensors")
     if blocks_per_sm < 1 or not 1 <= slots <= ring.MAX_DEPTH:
         raise ValueError(f"need blocks_per_sm >= 1 and 1 <= slots <= "
@@ -227,7 +254,12 @@ def span_gather(table: torch.Tensor, starts: torch.Tensor, *, span: int = 8,
     spans in flight per thread block; None solves it from `span_gather_spec`.
     """
     n_tiles = _check_span(table, starts, span)
-    cuda = ring.route("span_gather", ("table", table), ("starts", starts))
+    way = ring.route("span_gather", ("table", table), ("starts", starts))
+    if way == "meta":
+        return _meta_rows("span_gather", table, starts, n_tiles * span,
+                          span_gather_cost(n_tiles, span, table.shape[1]
+                                           * table.element_size()))
+    cuda = way == "cuda"
     spec = span_gather_spec(span, table.shape[1], table.dtype)
     depth, _ = _depth(spec, depth, table, span, n_tiles)
     if cuda:
@@ -256,7 +288,8 @@ def span_gather_at(table: torch.Tensor, starts: torch.Tensor, *, span: int,
     (no solve, no record). The kernel's launch count is
     `span_gather.launches`."""
     n_tiles = _check_span(table, starts, span)
-    if not ring.route("span_gather", ("table", table), ("starts", starts)):
+    if ring.route("span_gather", ("table", table),
+                  ("starts", starts)) != "cuda":
         raise ValueError("span_gather_at takes CUDA tensors")
     if not 1 <= depth <= ring.MAX_DEPTH:
         raise ValueError(f"depth must be in [1, {ring.MAX_DEPTH}], got "

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +41,7 @@ from repro_torch.core import autotune
 from repro_torch.core.coro import CoroSpec, LoadStream, StoreStream
 from repro_torch.kernels import ring
 
-__all__ = ["scatter_add_at", "scatter_add_spec", "scatter_add_split",
+__all__ = ["scatter_add_at", "scatter_add_cost", "scatter_add_spec", "scatter_add_split",
            "scatter_add_unique", "scatter_add_unique_plain",
            "updated_rows"]
 
@@ -148,6 +148,14 @@ def _check_types(table, idx, updates) -> None:
                         f"be int32")
 
 
+def scatter_add_cost(n: int, d: int, itemsize: int) -> Tuple[int, int]:
+    """(flops, bytes) of adding `n` update rows of `d` elements into
+    distinct table rows: each table row read and written once, each update
+    row and its int32 id read once; one add an element. The bound of
+    `chip_smoke.py` and the dry-run's count."""
+    return n * d, 3 * n * d * itemsize + 4 * n
+
+
 def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
                        updates: torch.Tensor, *, depth: Optional[int] = None,
                        rows_per_tile: int = 8) -> torch.Tensor:
@@ -160,8 +168,13 @@ def scatter_add_unique(table: torch.Tensor, idx: torch.Tensor,
     `scatter_add_spec` (and records blocks x slots).
     """
     n_tiles = _check(table, idx, updates, rows_per_tile)
-    cuda = ring.route("scatter_add", ("table", table), ("idx", idx),
-                      ("updates", updates))
+    way = ring.route("scatter_add", ("table", table), ("idx", idx),
+                     ("updates", updates))
+    if way == "meta":          # in place: the table itself comes back
+        return ring.meta_call("scatter_add", scatter_add_cost(
+            idx.shape[0], table.shape[1], table.element_size()),
+            lambda: table, (table, idx, updates))
+    cuda = way == "cuda"
     solve = depth is None
     spec = scatter_add_spec(rows_per_tile, table.shape[1], table.dtype)
     depth = ring.solve_depth(
@@ -197,8 +210,8 @@ def scatter_add_at(table: torch.Tensor, idx: torch.Tensor,
     if blocks_per_sm < 1 or not 1 <= slots <= ring.MAX_DEPTH:
         raise ValueError(f"need blocks_per_sm >= 1 and 1 <= slots <= "
                          f"{ring.MAX_DEPTH}, got {blocks_per_sm}, {slots}")
-    if not ring.route("scatter_add", ("table", table), ("idx", idx),
-                      ("updates", updates)):
+    if ring.route("scatter_add", ("table", table), ("idx", idx),
+                  ("updates", updates)) != "cuda":
         raise ValueError("scatter_add_at takes CUDA tensors")
     _check_types(table, idx, updates)
     if n_tiles == 0:

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -53,9 +53,11 @@ from repro_torch.kernels import ring
 __all__ = [
     "decode_spec",
     "flash_decode",
+    "flash_decode_cost",
     "flash_decode_at",
     "flash_decode_plain",
     "flash_kernel_depth",
+    "paged_decode_cost",
     "paged_decode_spec",
     "paged_flash_decode",
     "paged_flash_decode_at",
@@ -300,6 +302,30 @@ def _check_cuda(q, k, v, blk: int, names=("k_cache", "v_cache")) -> None:
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
 
 
+def flash_decode_cost(b: int, h: int, kh: int, d: int, live: int,
+                      itemsize: int, lse: bool = False) -> Tuple[int, int]:
+    """(flops, bytes) of dense decode attention over `live` key rows of
+    each of `b` caches: the live K and V rows, q and the output read or
+    written once (and the f32 lse with `lse`); q.k and p.v, two flops a
+    multiply-add. The bound of `chip_smoke.py` and the dry-run's count."""
+    nbytes = 2 * b * live * kh * d * itemsize + 2 * b * h * d * itemsize
+    if lse:
+        nbytes += b * h * 4
+    return 4 * b * h * d * live, nbytes
+
+
+def paged_decode_cost(b: int, h: int, kh: int, d: int, m: int, live: int,
+                      itemsize: int) -> Tuple[int, int]:
+    """(flops, bytes) of paged decode attention for `b` requests with
+    `live` key rows in all (the sum of their lengths) and block tables `m`
+    pages wide: the live K and V rows, q, the output, the int32 table and
+    lengths read or written once; q.k and p.v. The bound of
+    `chip_smoke.py` and the dry-run's count."""
+    nbytes = (2 * live * kh * d * itemsize + 2 * b * h * d * itemsize
+              + b * m * 4 + b * 4)
+    return 4 * h * d * live, nbytes
+
+
 def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
                  depth: Optional[int] = None, splits: Optional[int] = None,
                  return_lse: bool = False):
@@ -334,11 +360,22 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     raise (`KernelCompileError` / `KernelResourceError` on a failed build or
     launch, ValueError / TypeError on inputs it does not take).
     """
-    pos, on_card = _dense_args(q, k_cache, v_cache, pos, blk, splits)
+    pos, way = _dense_args(q, k_cache, v_cache, pos, blk, splits)
     on_device = isinstance(pos, torch.Tensor)
     b, h, d = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
+    if way == "meta":     # a tensor pos holds no data: every row counts
+        live = s if on_device else min(pos + 1, s)
+
+        def empty():
+            out = torch.empty_like(q)
+            return (out, torch.empty(b, h, dtype=torch.float32,
+                                     device="meta")) if return_lse else out
+        return ring.meta_call("flash_decode", flash_decode_cost(
+            b, h, kh, d, live, k_cache.element_size(), return_lse), empty,
+            (q, k_cache, v_cache, pos))
+    on_card = way == "cuda"
     if on_card:
         n_split, per = split_plan(b, kh, s, blk, ring.sm_count(q.device),
                                   splits)
@@ -369,8 +406,8 @@ def flash_decode(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
 
 
 def _dense_args(q, k_cache, v_cache, pos, blk: int, splits):
-    """(pos as an int or a 0-d int32 tensor, whether the tensors are on the
-    card) of a dense flash-decode call; raises on what it does not take."""
+    """(pos as an int or a 0-d int32 tensor, the call's `ring.route`) of a
+    dense flash-decode call; raises on what it does not take."""
     _check_dense(q, k_cache, v_cache, blk)
     if isinstance(pos, torch.Tensor):
         if pos.numel() != 1 or pos.dtype != torch.int32:
@@ -383,11 +420,11 @@ def _dense_args(q, k_cache, v_cache, pos, blk: int, splits):
             raise ValueError(f"pos must be >= 0, got {pos}")
     if splits is not None and splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
-    on_card = ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
-                         ("v_cache", v_cache),
-                         *([("pos", pos)] if isinstance(pos, torch.Tensor)
-                           else []))
-    return pos, on_card
+    way = ring.route("flash_decode", ("q", q), ("k_cache", k_cache),
+                     ("v_cache", v_cache),
+                     *([("pos", pos)] if isinstance(pos, torch.Tensor)
+                       else []))
+    return pos, way
 
 
 def flash_decode_at(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
@@ -397,8 +434,8 @@ def flash_decode_at(q, k_cache, v_cache, pos, *, blk: int = FLASH_BLK,
     and the sequence in `splits` splits (None: `split_plan`'s); no solve,
     no record, no guard. Returns out, or (out, lse) with `return_lse`.
     Counts one launch."""
-    pos, on_card = _dense_args(q, k_cache, v_cache, pos, blk, splits)
-    if not on_card:
+    pos, way = _dense_args(q, k_cache, v_cache, pos, blk, splits)
+    if way != "cuda":
         raise ValueError("flash_decode_at takes CUDA tensors")
     _check_cuda(q, k_cache, v_cache, blk)
     if not 1 <= depth <= ring.MAX_DEPTH:
@@ -520,13 +557,19 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, lengths, *,
     if splits is not None and splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     _check_paged(q, k_pool, v_pool, block_tables, lengths, blk)
-    on_card = ring.route("paged_decode", ("q", q), ("k_pool", k_pool),
-                         ("v_pool", v_pool), ("block_tables", block_tables),
-                         ("lengths", lengths))
+    way = ring.route("paged_decode", ("q", q), ("k_pool", k_pool),
+                     ("v_pool", v_pool), ("block_tables", block_tables),
+                     ("lengths", lengths))
     b, h, d = q.shape
     page, kh = k_pool.shape[1], k_pool.shape[2]
     m = block_tables.shape[1]
     g = h // kh
+    if way == "meta":     # lengths hold no data: every table row counts
+        return ring.meta_call("paged_decode", paged_decode_cost(
+            b, h, kh, d, m, b * m * page, k_pool.element_size()),
+            lambda: torch.empty_like(q),
+            (q, k_pool, v_pool, block_tables, lengths))
+    on_card = way == "cuda"
     if on_card:
         n_split, per = split_plan(b, kh, m * page, blk,
                                   ring.sm_count(q.device), splits)
@@ -582,9 +625,9 @@ def paged_flash_decode_at(q, k_pool, v_pool, block_tables, lengths, *,
     if splits is not None and splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     _check_paged(q, k_pool, v_pool, block_tables, lengths, blk)
-    if not ring.route("paged_decode", ("q", q), ("k_pool", k_pool),
-                      ("v_pool", v_pool), ("block_tables", block_tables),
-                      ("lengths", lengths)):
+    if ring.route("paged_decode", ("q", q), ("k_pool", k_pool),
+                  ("v_pool", v_pool), ("block_tables", block_tables),
+                  ("lengths", lengths)) != "cuda":
         raise ValueError("paged_flash_decode_at takes CUDA tensors")
     _check_cuda(q, k_pool, v_pool, blk, names=("k_pool", "v_pool"))
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:

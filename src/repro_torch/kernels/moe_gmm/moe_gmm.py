@@ -36,7 +36,7 @@ import dataclasses
 import functools
 import math
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,7 +46,8 @@ from repro_torch.core.coro import CoroSpec, LoadStream
 from repro_torch.core.guard import KernelResourceError
 from repro_torch.kernels import ring
 
-__all__ = ["F_TILE", "Walk", "blocks_per_sm", "gmm", "gmm_at", "gmm_plain",
+__all__ = ["F_TILE", "Walk", "blocks_per_sm", "cost", "gmm", "gmm_at",
+           "gmm_plain",
            "gmm_spec", "grid_blocks", "grid_for", "kernel_depth", "n_slices",
            "slot_bytes", "walk"]
 
@@ -206,6 +207,18 @@ def _vectorized(tokens: torch.Tensor, weights: torch.Tensor) -> bool:
                           (tokens, weights)) == 16
 
 
+def cost(e: int, c: int, dm: int, f: int, itemsize: int,
+         shared: bool) -> Tuple[int, int]:
+    """(flops, bytes) of ``out[e] = tokens[e] @ weights[e]`` for `e`
+    experts of [c, dm] x [dm, f]: the weights, the tokens (one [c, dm]
+    block when `shared` by every expert, one an expert otherwise) and the
+    [e, c, f] output, each read or written once; 2 e c dm f flops. The
+    bound of `chip_smoke.py` and the dry-run's count."""
+    nbytes = (e * dm * f + (1 if shared else e) * c * dm + e * c * f) \
+        * itemsize
+    return 2 * e * c * dm * f, nbytes
+
+
 def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
         depth: Optional[int] = None) -> torch.Tensor:
     """tokens: [E, C, dm] (any expert and row stride, 0 included);
@@ -225,12 +238,18 @@ def gmm(tokens: torch.Tensor, weights: torch.Tensor, *, f_tile: int = F_TILE,
     e, c, dm = tokens.shape
     f = weights.shape[2]
     itemsize = tokens.element_size()
+    way = ring.route("moe_gmm", ("tokens", tokens), ("weights", weights),
+                     contiguous=False)
+    if way == "meta":
+        shared = e > 1 and tokens.stride(0) == 0
+        return ring.meta_call(
+            "moe_gmm", cost(e, c, dm, f, itemsize, shared),
+            lambda: torch.empty((e, c, f), dtype=tokens.dtype,
+                                device="meta"), (tokens, weights))
     spec = gmm_spec(c, dm, f_tile, weights.dtype, f_total=f)
     depth = ring.solve_depth(spec, depth, slot_bytes=slot_bytes(c, itemsize),
                              n_tiles=n_slices(dm, itemsize))
-    cuda = tokens.device.type == "cuda"
-    if not cuda and tokens.device.type != "cpu":
-        raise ValueError(f"moe_gmm: no kernel for device {tokens.device}")
+    cuda = way == "cuda"
     if cuda:
         _check_cuda(tokens, weights, f_tile)
     res = ring.guarded(spec, (tokens, weights),

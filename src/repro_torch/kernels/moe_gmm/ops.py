@@ -21,17 +21,55 @@ the formula the card runs):
 Tokens given with a leading 1 are broadcast over the experts as a stride-0
 view, never copied, and their gradient is the sum over the experts, in
 f32. Double backward is not supported.
+
+Under the ``"dots"`` remat policy (`models.lm`) the grouped product is one
+of the saved matmuls: `saving_products` gives the two contexts of a
+checkpointed layer, the forward's keeping each product's output and the
+recompute's handing them back in order instead of launching again.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import List, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.moe_gmm.moe_gmm import F_TILE, gmm
 
-__all__ = ["moe_gmm"]
+__all__ = ["moe_gmm", "saving_products"]
+
+# the innermost saving context: ("store" | "replay", its outputs, [next])
+_SAVING: List[tuple] = []
+
+
+def saving_products():
+    """(store, replay): context managers sharing one list. Inside `store`
+    every grouped product's output is kept, in call order; inside
+    `replay` the i-th product returns the i-th kept output (no launch)."""
+    kept: List[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def mode(name):
+        _SAVING.append((name, kept, [0]))
+        try:
+            yield
+        finally:
+            _SAVING.pop()
+
+    return mode("store"), mode("replay")
+
+
+def _product(tokens, weights, f_tile, depth):
+    if not _SAVING:
+        return gmm(tokens, weights, f_tile=f_tile, depth=depth)
+    name, kept, nxt = _SAVING[-1]
+    if name == "replay":
+        nxt[0] += 1
+        return kept[nxt[0] - 1]
+    out = gmm(tokens, weights, f_tile=f_tile, depth=depth)
+    kept.append(out.detach())
+    return out
 
 
 class _GroupedMatmul(torch.autograd.Function):
@@ -42,7 +80,7 @@ class _GroupedMatmul(torch.autograd.Function):
         xs = tokens.expand(e, -1, -1) if tokens.shape[0] == 1 else tokens
         ctx.save_for_backward(tokens, weights)
         ctx.depth = depth
-        return gmm(xs, weights, f_tile=f_tile, depth=depth)
+        return _product(xs, weights, f_tile, depth)
 
     @staticmethod
     @once_differentiable

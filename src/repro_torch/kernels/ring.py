@@ -23,7 +23,8 @@ from repro_torch.core.guard import KernelCompileError, KernelResourceError
 
 __all__ = ["MAX_DEPTH", "NoBackwardError", "SMEM_LIMIT", "check_smem",
            "copy_unit", "guarded", "kernel_depth", "launch_grid", "library",
-           "raise_on_error", "resident_blocks", "ring_bytes", "route",
+           "meta_call", "raise_on_error", "resident_blocks", "ring_bytes",
+           "route",
            "sm_count", "solve_depth", "split_depth"]
 
 MAX_DEPTH = 64                 # kMaxDepth in csrc/coro_ring.cuh
@@ -174,23 +175,40 @@ def raise_on_error(err: int, lib: ctypes.CDLL, *, kernel: str, depth: int,
                                  retriable=err not in _STICKY_ERRORS)
 
 
-def route(kernel: str, *tensors: Tuple[str, torch.Tensor]) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (run the plain version); raises on mixed devices, another device, and
-    non-contiguous CUDA tensors."""
+def route(kernel: str, *tensors: Tuple[str, torch.Tensor],
+          contiguous: bool = True) -> str:
+    """Where a call runs, from its tensors' device: ``"cuda"`` (launch the
+    kernel), ``"cpu"`` (run the plain version) or ``"meta"`` (the
+    dry-run's trace: no plain version, no launch, no guard; the wrapper
+    returns an empty meta output through `meta_call`). Raises on mixed
+    devices (meta beside another device too), on another device, and on
+    non-contiguous CUDA tensors when `contiguous`."""
     dev = tensors[0][1].device
     for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"{kernel}: {name} is on {t.device}, "
                              f"{tensors[0][0]} on {dev}")
-    if dev.type == "cpu":
-        return False
+    if dev.type in ("cpu", "meta"):
+        return dev.type
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {dev}")
-    for name, t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be contiguous")
-    return True
+    if contiguous:
+        for name, t in tensors:
+            if not t.is_contiguous():
+                raise ValueError(f"{kernel}: {name} must be contiguous")
+    return "cuda"
+
+
+def meta_call(kernel: str, cost: Tuple[float, float], make: Callable,
+              operands: Sequence = ()):
+    """The meta route of a wrapper: `make()`'s empty meta output, the
+    kernel's (flops, bytes) `cost` on its `operands` recorded in the open
+    `roofline.StepCounter` (if any) as one call of `kernel`. Nothing is
+    launched, run or checked: meta tensors hold no data."""
+    from repro_torch import roofline
+
+    with roofline.kernel_call(kernel, *cost, operands=operands):
+        return make()
 
 
 class NoBackwardError(TypeError):

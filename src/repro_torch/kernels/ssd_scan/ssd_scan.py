@@ -49,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,8 +61,8 @@ from repro_torch.kernels import ring
 
 __all__ = ["BWD_CHUNK", "BWD_LAUNCHES", "CHUNK", "HEAD_GROUP", "LAUNCHES",
            "MAX_HEAD", "MAX_STATE", "Plan", "bwd_depth", "bwd_flops",
-           "bwd_group", "bwd_plan", "bwd_smem_bytes", "bwd_workspace_bytes",
-           "fixed_bytes", "kernel_depth", "plan", "slot_bytes",
+           "bwd_cost", "bwd_group", "bwd_plan", "bwd_smem_bytes",
+           "bwd_workspace_bytes", "cost", "fixed_bytes", "kernel_depth", "plan", "slot_bytes",
            "ssd_bwd_spec", "ssd_scan",
            "ssd_scan_at", "ssd_scan_bwd", "ssd_scan_bwd_at",
            "ssd_scan_bwd_plain", "ssd_scan_plain", "ssd_spec",
@@ -176,6 +176,35 @@ def bwd_flops(rows: int, nh: int, p: int, n: int) -> int:
     of exp(cs) dy C^T, G B, dy H, x G: 5 rows p n)."""
     per_head = rows * rows * p + 5 * rows * p * n
     return 2 * (3 * rows * rows * n // 2 + nh * per_head)
+
+
+def cost(b: int, s: int, nh: int, p: int, n: int, chunk: int,
+         itemsize: int, dt_itemsize: int = 4,
+         a_itemsize: int = 4) -> Tuple[float, int]:
+    """(flops, bytes) of `ssd_scan` at a shape: x in and y out, B and C in
+    (`itemsize` each), dt and A in, h_final out in f32, each once; the
+    reference spec's flops (`ssd_spec`'s flops_per_tile a chunk of
+    `chunk` rows). The bound of `chip_smoke.py` and the dry-run's
+    count."""
+    nbytes = (2 * b * s * nh * p * itemsize + 2 * b * s * n * itemsize
+              + b * s * nh * dt_itemsize + nh * a_itemsize
+              + b * nh * p * n * 4)
+    flops = 2 * chunk * chunk * (n + nh * p) * b * (s // chunk)
+    return float(flops), nbytes
+
+
+def bwd_cost(b: int, s: int, nh: int, p: int, n: int, itemsize: int,
+             dt_itemsize: int = 4, a_itemsize: int = 4,
+             dh_final: bool = False) -> Tuple[int, int]:
+    """(flops, bytes) of `ssd_scan_bwd` at a shape: x, dy, B, C, dt and A
+    (and dh_final, f32, when given) read once; dx, dB, dC, ddt (f32) and
+    dA (f32) written once; `bwd_flops` of each kernel chunk. The bound of
+    `chip_smoke.py` and the dry-run's count."""
+    nbytes = (3 * b * s * nh * p * itemsize + 4 * b * s * n * itemsize
+              + b * s * nh * (dt_itemsize + 4) + nh * (a_itemsize + 4))
+    if dh_final:
+        nbytes += b * nh * p * n * 4
+    return bwd_flops(BWD_CHUNK, nh, p, n) * b * -(-s // BWD_CHUNK), nbytes
 
 
 # ------------------------------------------------------------ plain version
@@ -411,6 +440,12 @@ def _check_cuda(x, dt, B, C) -> None:
         raise ValueError("dt is not aligned to its type")
 
 
+def _named(*tensors):
+    """The operands (None skipped) named for `ring.route`."""
+    names = ("x", "dt", "A", "B", "C", "dy", "dh_final")
+    return [(name, t) for name, t in zip(names, tensors) if t is not None]
+
+
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64,
              depth: Optional[int] = None):
     """Batched SSD from a zero state. x:[b,s,nh,p] dt:[b,s,nh] A:[nh]
@@ -429,14 +464,20 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64,
     _check(x, dt, A, B, C, chunk)
     bsz, s, nh, p = x.shape
     n = B.shape[2]
+    way = ring.route("ssd_scan", *_named(x, dt, A, B, C), contiguous=False)
+    if way == "meta":
+        return ring.meta_call("ssd_scan", cost(
+            bsz, s, nh, p, n, chunk, x.element_size(), dt.element_size(),
+            A.element_size()), lambda: (
+                torch.empty((bsz, s, nh, p), dtype=x.dtype, device="meta"),
+                torch.empty((bsz, nh, p, n), dtype=torch.float32,
+                            device="meta")), (x, dt, A, B, C))
     spec = ssd_spec(chunk, nh, p, n, x.dtype, seq_len=s)
     if depth is None:
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
     run = plan(bsz, s, nh, p, n, x.element_size(), depth)
-    cuda = x.device.type == "cuda"
-    if not cuda and x.device.type != "cpu":
-        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    cuda = way == "cuda"
     if cuda:
         _check_cuda(x, dt, B, C)
     res = ring.guarded(
@@ -618,13 +659,26 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dh_final=None, *, chunk: int = 64,
     _check_bwd(x, dy, dh_final)
     bsz, s, nh, p = x.shape
     n = B.shape[2]
+    way = ring.route("ssd_scan_bwd", *_named(x, dt, A, B, C, dy, dh_final),
+                     contiguous=False)
+    if way == "meta":
+        def empty():
+            f32 = dict(dtype=torch.float32, device="meta")
+            return (torch.empty((bsz, s, nh, p), dtype=x.dtype,
+                                device="meta"),
+                    torch.empty((bsz, s, nh), **f32),
+                    torch.empty((nh,), **f32),
+                    torch.empty((bsz, s, n), dtype=x.dtype, device="meta"),
+                    torch.empty((bsz, s, n), dtype=x.dtype, device="meta"))
+        return ring.meta_call("ssd_scan_bwd", bwd_cost(
+            bsz, s, nh, p, n, x.element_size(), dt.element_size(),
+            A.element_size(), dh_final is not None), empty,
+            (x, dt, A, B, C, dy, dh_final))
     spec = ssd_bwd_spec(chunk, nh, p, n, x.dtype)
     if depth is None:
         depth = autotune.choose_depth(spec.profile(), kernel=spec.name,
                                       vars=spec.all_vars())
-    cuda = x.device.type == "cuda"
-    if not cuda and x.device.type != "cpu":
-        raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
+    cuda = way == "cuda"
     if cuda:
         _check_cuda(x, dt, B, C)
         _check_bwd_cuda(x, dy, p, n)

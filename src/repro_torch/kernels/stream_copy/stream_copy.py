@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,6 +39,7 @@ from repro_torch.core.coro import CoroSpec, LoadStream, StoreStream
 from repro_torch.kernels import ring
 
 __all__ = ["Plan", "plan", "resident_blocks", "triad", "triad_at",
+           "triad_cost",
            "triad_plain", "triad_spec"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "triad.cu"
@@ -124,6 +125,13 @@ def _check_types(b: torch.Tensor, c: torch.Tensor) -> None:
                         f"arrays of one type, got {b.dtype} and {c.dtype}")
 
 
+def triad_cost(n: int, itemsize: int) -> Tuple[int, int]:
+    """(flops, bytes) of a triad over `n` elements a array: b and c read
+    once, a written once; a multiply and an add an element. The bound of
+    `chip_smoke.py` and the dry-run's count."""
+    return 2 * n, 3 * n * itemsize
+
+
 def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
           depth: Optional[int] = None) -> torch.Tensor:
     """a = b + scalar * c over [N, d] arrays, N a multiple of `rows`.
@@ -133,7 +141,12 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
     plan's depth).
     """
     n_tiles = _check(b, c, rows)
-    cuda = ring.route("stream_triad", ("b", b), ("c", c))
+    way = ring.route("stream_triad", ("b", b), ("c", c))
+    if way == "meta":
+        return ring.meta_call("stream_triad", triad_cost(
+            b.numel(), b.element_size()), lambda: torch.empty_like(b),
+            (b, c))
+    cuda = way == "cuda"
     n, d = b.shape
     spec = triad_spec(rows, d, b.dtype)
     solve = depth is None
@@ -163,7 +176,7 @@ def triad_at(b: torch.Tensor, c: torch.Tensor, scalar, *, rows: int = 128,
     """`triad` on CUDA tensors in items of `item_rows` rows (a divisor of
     `rows`), one a block; no solve, no record. Counts one launch."""
     n_tiles = _check(b, c, rows)
-    if not ring.route("stream_triad", ("b", b), ("c", c)):
+    if ring.route("stream_triad", ("b", b), ("c", c)) != "cuda":
         raise ValueError("triad_at takes CUDA tensors")
     _check_types(b, c)
     if item_rows < 1 or rows % item_rows:

@@ -5,8 +5,8 @@ reproduction line, then each full table. Figure tables come from the
 calibrated performance model (`core.sim`), the same on any device; the
 ``kernel_bench`` section is `launch.kernel_bench`'s tables on the device
 given (``--device``, the GPU by default). The ``roofline`` section reads
-multi-device dry-run artifacts, which the port does not produce yet: it is
-printed as absent, with the reason.
+the dry-run's records (``reports/dryrun``, written by
+`repro_torch.launch.dryrun`; no records, no rows).
 
   python -m repro_torch.launch.figures.run
   python -m repro_torch.launch.figures.run --device cpu
@@ -25,14 +25,10 @@ from repro_torch.launch.figures import (
     fig14_breakdown,
     fig15_optimizations,
     fig16_mlp,
+    roofline,
 )
 
 __all__ = ["headline", "main"]
-
-ROOFLINE_ABSENT = ("absent: the roofline table reads multi-device dry-run "
-                   "artifacts, which wait for the port's multi-device "
-                   "launcher (ROADMAP.md, Queue 1)")
-
 
 def headline() -> str:
     """The headline reproduction line: CoroAMU-Full's average speedup at
@@ -62,6 +58,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         ("fig15_compiler_opts", fig15_optimizations.table),
         ("fig16_mlp", fig16_mlp.table),
         ("kernel_bench", lambda: kernel_bench.table(device)),
+        ("roofline", roofline.table),
     ]
     lines = ["name,us_per_call,derived"]
     bodies = []
@@ -71,8 +68,6 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         us = (time.perf_counter() - t0) * 1e6
         lines.append(f"{name},{us:.0f},rows={body.count(chr(10)) - 1}")
         bodies.append((name, body))
-    lines.append("roofline,0,absent")
-    bodies.append(("roofline", ROOFLINE_ABSENT + "\n"))
     lines.append(headline())
     text = "\n".join(lines) + "\n"
     for name, body in bodies:

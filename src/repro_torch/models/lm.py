@@ -42,6 +42,7 @@ unembedding.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -63,6 +64,7 @@ from repro_torch.models.common import (
     swiglu,
 )
 from repro_torch.kernels.decode_attention.decode_attention import flash_decode
+from repro_torch.kernels.moe_gmm.ops import saving_products
 from repro_torch.models.moe import moe_layer, moe_layer_whole, moe_param_specs
 from repro_torch.models.params import ParamSpec, map_specs, torch_dtype
 from repro_torch.models.ssm import (
@@ -410,19 +412,75 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig,
     return x, new
 
 
+def _saves_dots(func) -> bool:
+    """The ``"dots"`` remat policy's saved ops: the matmuls (the
+    reference's ``dots_with_no_batch_dims_saveable``; K2's grouped
+    product keeps its own output, `moe_gmm.ops.saving_products`)."""
+    return func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                    torch.ops.aten.addmm.default)
+
+
+def _dots_contexts():
+    """The selective-checkpoint contexts of the ``"dots"`` policy: matmul
+    outputs saved in the forward and handed back in the recompute, every
+    other op recomputed."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if _saves_dots(func)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    fwd, rec = create_selective_checkpoint_contexts(policy)
+    store, replay = saving_products()
+    return _both(fwd, store), _both(rec, replay)
+
+
+@contextlib.contextmanager
+def _both(a, b):
+    with a, b:
+        yield
+
+
+def _rematted(body, cfg: ArchConfig):
+    """`body` under the reference's ``jax.checkpoint`` of a layer
+    (``cfg.remat``): in grad mode each call keeps only its inputs and
+    recomputes the rest in the backward (`torch.utils.checkpoint`,
+    non-reentrant, the RNG state not stashed: no layer draws random
+    numbers, and a CUDA graph capture cannot read it); under
+    ``remat_policy="dots"`` the matmuls' outputs are kept. Outside grad
+    mode (serving, prefill) `body` itself."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+    from torch.utils.checkpoint import checkpoint
+
+    kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
+
+    def run(*args, **kwargs):
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw, **kwargs)
+
+    return run
+
+
 def run_layers_full(layers, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
                     *, positions, causal=True, prefix=0, rope=True,
                     cross_src=None, build_cache=False):
     """Apply every layer of a stack (the decoder's, or the encoder's) in a
-    Python loop over its stacked axis. Returns (x, aux_sum, stacked_cache)
-    with the layers' aux losses summed in f32 and each cache leaf stacked
-    to [L, ...]."""
+    Python loop over its stacked axis, each under the reference's remat
+    (`_rematted`). Returns (x, aux_sum, stacked_cache) with the layers'
+    aux losses summed in f32 and each cache leaf stacked to [L, ...]."""
+
+    def body(lp, x):
+        return block_full(lp, x, cfg, ctx, positions=positions,
+                          causal=causal, prefix=prefix, rope=rope,
+                          cross_src=cross_src, build_cache=build_cache)
+
+    body = _rematted(body, cfg)
     entries = []
     aux = None
     for lp in _unstack(layers):
-        x, a, cache = block_full(lp, x, cfg, ctx, positions=positions,
-                                 causal=causal, prefix=prefix, rope=rope,
-                                 cross_src=cross_src, build_cache=build_cache)
+        x, a, cache = body(lp, x)
         if a is not None:
             aux = a if aux is None else aux + a
         entries.append(cache)

@@ -62,8 +62,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["AxisVal", "BUCKET_ELEMS", "DEFAULT_RULES", "Mesh", "NULL_CTX",
-           "ShardingCtx", "block_shape", "collective_stats", "gather_blocks",
+__all__ = ["AxisVal", "BUCKET_ELEMS", "DEFAULT_RULES", "DryGroup", "Mesh",
+           "NULL_CTX", "ShardingCtx", "block_shape", "collective_stats",
+           "dry_mesh", "gather_blocks",
            "local_shard", "reduce_blocks", "reset_collective_stats",
            "split_axes", "tree_specs"]
 
@@ -96,23 +97,42 @@ DEFAULT_RULES: Dict[str, AxisVal] = {
 
 # This process's collectives since the last reset: calls, bytes sent in,
 # and (when timed) seconds, each call timed from a device sync before it to
-# one after it, so that it holds the collective alone.
-_STATS: Dict[str, Any] = {"calls": 0, "bytes": 0, "s": 0.0, "timed": False}
+# one after it, so that it holds the collective alone; and the calls and
+# bytes by kind (``all-reduce``, ``all-to-all``, ``all-gather``: the
+# reference's HLO names; the port's reduce-scatters are all_to_alls).
+_STATS: Dict[str, Any] = {"calls": 0, "bytes": 0, "s": 0.0, "timed": False,
+                          "by_kind": {}}
 
 
 def reset_collective_stats(*, timed: bool = False) -> None:
     """Zero the counts; `timed` times each collective from here on."""
-    _STATS.update(calls=0, bytes=0, s=0.0, timed=bool(timed))
+    _STATS.update(calls=0, bytes=0, s=0.0, timed=bool(timed), by_kind={})
 
 
 def collective_stats() -> Dict[str, Any]:
-    return dict(_STATS)
+    out = dict(_STATS)
+    out["by_kind"] = {k: dict(v) for k, v in _STATS["by_kind"].items()}
+    return out
+
+
+class DryGroup:
+    """The process group of a dry mesh's line or whole mesh: its size and
+    no processes. A collective over it counts, makes its output as a
+    running group would (meta tensors of the same shapes) and sends
+    nothing."""
+
+    def __init__(self, size: int):
+        self.size = size
 
 
 @contextlib.contextmanager
-def _counted(x: torch.Tensor):
+def _counted(x: torch.Tensor, kind: str):
+    nbytes = x.numel() * x.element_size()
     _STATS["calls"] += 1
-    _STATS["bytes"] += x.numel() * x.element_size()
+    _STATS["bytes"] += nbytes
+    k = _STATS["by_kind"].setdefault(kind, {"calls": 0, "bytes": 0})
+    k["calls"] += 1
+    k["bytes"] += nbytes
     if not _STATS["timed"]:
         yield
         return
@@ -129,13 +149,17 @@ def _counted(x: torch.Tensor):
 class Mesh:
     """A device mesh: axis names and sizes; when it runs, also the
     `torch.distributed` `DeviceMesh`, this rank's coordinate on each axis
-    and this rank's device."""
+    and this rank's device. A `dry` mesh (`dry_mesh`) is one rank's view
+    of a mesh with no processes behind it, for the dry-run's trace on meta
+    tensors: a coordinate, no `DeviceMesh`, collectives that count and
+    send nothing."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     device_mesh: Any = None
     coordinate: Tuple[int, ...] = ()
     device: Optional[torch.device] = None
+    dry: bool = False
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.shape):
@@ -240,6 +264,8 @@ class ShardingCtx:
         return None if self.mesh is None else self.mesh.device
 
     def _running(self) -> None:
+        if self.mesh is not None and self.mesh.dry:
+            return
         if self.mesh is None or self.mesh.device_mesh is None:
             raise RuntimeError(
                 "this needs a running mesh (one process a rank: "
@@ -249,7 +275,14 @@ class ShardingCtx:
     def group(self, axis: str):
         """The process group of this rank's line along mesh axis `axis`."""
         self._running()
+        if self.mesh.dry:
+            return DryGroup(self.axis_sizes[axis])
         return self.mesh.device_mesh.get_group(axis)
+
+    def _everyone(self):
+        """The group of every rank: None (the default group) on a running
+        mesh."""
+        return DryGroup(self.mesh.size) if self.mesh.dry else None
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum",
                    axis: str = "model") -> torch.Tensor:
@@ -316,20 +349,23 @@ class ShardingCtx:
     def members(self, axes: Sequence[str]):
         """(process group, coordinates): the ranks of this rank's group
         over mesh axes `axes` (each of more than one rank), in the group's
-        rank order, each as a dict axis -> coordinate. Every axis of more
-        than one rank is the whole mesh (group None); one axis is its
-        line through this rank."""
+        rank order (row-major over the axes, the mesh's order), each as a
+        dict axis -> coordinate. Every axis of more than one rank is the
+        whole mesh (group None on a running mesh); one axis is its line
+        through this rank. A dry mesh takes any set of axes."""
         self._running()
-        names, shape = self.mesh.axis_names, self.mesh.shape
+        names = self.mesh.axis_names
         mine = dict(zip(names, self.mesh.coordinate))
-        axes = tuple(axes)
+        axes = tuple(a for a in names if a in axes)
+        coords = [dict(mine, **dict(zip(axes, c))) for c in
+                  itertools.product(*(range(self.axis_sizes[a])
+                                      for a in axes))]
         if set(axes) == set(self.live_axes(names)):
-            coords = [dict(zip(names, c)) for c in
-                      itertools.product(*(range(n) for n in shape))]
-            return None, coords
+            return self._everyone(), coords
         if len(axes) == 1:
-            return self.group(axes[0]), [dict(mine, **{axes[0]: i}) for i
-                                         in range(self.axis_sizes[axes[0]])]
+            return self.group(axes[0]), coords
+        if self.mesh.dry:
+            return DryGroup(len(coords)), coords
         raise NotImplementedError(f"a group over mesh axes {axes} of "
                                   f"{names}")
 
@@ -339,7 +375,7 @@ class ShardingCtx:
         if self.mesh is None or self.mesh.size == 1:
             return x
         self._running()
-        return _AllReduceSum.apply(x, None) / self.mesh.size
+        return _AllReduceSum.apply(x, self._everyone()) / self.mesh.size
 
 
 # ------------------------------------------------------------ the collectives
@@ -350,8 +386,9 @@ def _all_reduce(x: torch.Tensor, op: str, group) -> torch.Tensor:
     import torch.distributed as dist
     out = torch.clone(x, memory_format=torch.contiguous_format)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    with _counted(out):
-        dist.all_reduce(out, op=red, group=group)
+    with _counted(out, "all-reduce"):
+        if not isinstance(group, DryGroup):
+            dist.all_reduce(out, op=red, group=group)
     return out
 
 
@@ -359,8 +396,9 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
     x = x.contiguous()
     out = torch.empty_like(x)
-    with _counted(x):
-        dist.all_to_all_single(out, x, group=group)
+    with _counted(x, "all-to-all"):
+        if not isinstance(group, DryGroup):
+            dist.all_to_all_single(out, x, group=group)
     return out
 
 
@@ -368,8 +406,9 @@ def _all_gather_parts(x: torch.Tensor, group, n: int):
     import torch.distributed as dist
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    with _counted(x):
-        dist.all_gather(parts, x, group=group)
+    with _counted(x, "all-gather"):
+        if not isinstance(group, DryGroup):
+            dist.all_gather(parts, x, group=group)
     return parts
 
 
@@ -414,6 +453,26 @@ class _AllGather(torch.autograd.Function):
 
 
 NULL_CTX = ShardingCtx(mesh=None)
+
+
+def dry_mesh(mesh: Mesh, coordinate: Optional[Sequence[int]] = None) -> Mesh:
+    """`mesh` as one rank of it sees it with no processes behind it (the
+    dry-run's): the rank at `coordinate` (default rank 0), meta tensors,
+    collectives that count by kind and operand bytes as a running mesh's
+    do (`collective_stats`), forward and backward, and send nothing,
+    each returning a meta tensor of its output's shape.
+
+    Rank 0's program stands for every rank's, as the reference's SPMD
+    module is one program for every device, as long as every split is
+    even: each rank then runs the same ops on blocks of the same shapes.
+    An uneven split would make rank 0 unrepresentative. The rules never
+    make one: a dimension that does not divide its mesh axes is held
+    whole by the divisibility guard (`ShardingCtx.spec`), on every rank
+    alike, and the dry-run records those leaves (``guard_whole``)."""
+    coord = tuple(coordinate) if coordinate is not None else \
+        (0,) * len(mesh.shape)
+    return Mesh(mesh.axis_names, mesh.shape, coordinate=coord,
+                device=torch.device("meta"), dry=True)
 
 
 def _shard_index(ctx: ShardingCtx, entry: AxisVal) -> Tuple[int, int]:

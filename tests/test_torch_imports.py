@@ -4,8 +4,9 @@ A static scan of every module of `src/repro_torch` and of `chip_smoke.py`
 for imports of `jax` or `repro`, and a subprocess in which both are
 blocked (`sys.modules[...] = None`) that imports the port, serves two
 requests of a dense and two of a MoE arch through the paged engine and a
-batch of two of an SSM arch through the dense engine, and trains a MoE
-arch for three steps with a checkpoint and a resume, on the CPU.
+batch of two of an SSM arch through the dense engine, trains a MoE arch
+for three steps with a checkpoint and a resume, on the CPU, and traces a
+dry-run cell on meta tensors.
 """
 import ast
 import json
@@ -69,7 +70,12 @@ def test_port_files_exist():
                  "src/repro_torch/launch/machine_smoke.py",
                  "src/repro_torch/sharding.py",
                  "src/repro_torch/launch/mesh.py",
-                 "src/repro_torch/runtime/layouts.py"):
+                 "src/repro_torch/runtime/layouts.py",
+                 "src/repro_torch/roofline.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/figures/roofline.py",
+                 "src/repro_torch/launch/build_experiments.py",
+                 "src/repro_torch/launch/remeasure_decode.py"):
         assert want in names
 
 
@@ -112,11 +118,16 @@ with tempfile.TemporaryDirectory() as ckpt:
     first = train_main(args + ["--steps", "2"])
     resumed = train_main(args + ["--steps", "3"])
 trained = [sorted(first.losses), resumed.resumed_from, sorted(resumed.losses)]
+import repro_torch.launch.build_experiments, repro_torch.launch.remeasure_decode
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.figures import roofline
+dry = run_cell("mamba2-130m", "decode_32k", "single", verbose=False)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)
 print(json.dumps({"states": states, "generated": generated,
-                  "trained": trained, "leaked": leaked}))
+                  "trained": trained, "dryrun": dry["status"],
+                  "leaked": leaked}))
 """
 
 
@@ -130,4 +141,5 @@ def test_port_serves_with_jax_blocked():
     assert out["states"] == ["finished"] * 6
     assert [len(g) for g in out["generated"]] == [3] * 6
     assert out["trained"] == [[0, 1], 2, [2]]
+    assert out["dryrun"] == "ok"
     assert out["leaked"] == []

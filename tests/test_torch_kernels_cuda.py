@@ -2,7 +2,9 @@
 
 This file imports neither JAX nor the reference package, so it also runs on
 the GPU machine (``python -m pytest -q tests/test_torch_kernels_cuda.py``).
-Without a CUDA device every test skips: a CUDA kernel has no CPU mode.
+Without a CUDA device every test skips (a CUDA kernel has no CPU mode)
+but the cost tests, which hold each kernel's count of its work to its
+bound in PERF.md and run anywhere.
 Tolerances: 2e-3 in f32, 3e-2 in bf16 (the reference's parity bounds;
 in bf16 3e-2 + 3e-2 x |value| for the grouped matmul, whose sums run in
 another order than the plain version's); decode attention, whose outputs
@@ -1865,6 +1867,20 @@ def _train_run(arch):
                                            warmup_steps=1), batches
 
 
+def _train_launches(cfg, steps: int = 1):
+    """The kernels' launches of `steps` train steps of `cfg`: K2 9 times a
+    MoE layer (3 forward, a d tokens and a d weights each) or a K4 forward
+    and backward call a layer, and under remat (``cfg.remat``; policy
+    "dots" keeps K2's products) each layer's forward again in the
+    backward's recompute."""
+    again = int(cfg.remat)
+    if cfg.moe:
+        again *= cfg.remat_policy != "dots"
+        return {"moe_gmm": (9 + 3 * again) * cfg.n_layers * steps}
+    return {"ssd_scan": (1 + again) * cfg.n_layers * steps,
+            "ssd_scan_bwd": cfg.n_layers * steps}
+
+
 def _moved(before, after):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
@@ -1901,9 +1917,7 @@ def test_train_step_graph_equals_eager(cuda_device, arch):
     assert step.graph.launches == _moved(before, mid)
     st = step_graph.stats()["by_name"]["train_step"]
     assert (st["captures"], st["replays"]) == (1, 3)
-    want = ({"moe_gmm": 9 * cfg.n_layers} if cfg.moe else
-            {"ssd_scan": cfg.n_layers, "ssd_scan_bwd": cfg.n_layers})
-    assert step.graph.launches == want
+    assert step.graph.launches == _train_launches(cfg)
     assert int(state["step"]) == int(eager_state["step"]) == 4
     for (path, a), b in zip(tree.paths(state), tree.leaves(eager_state)):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3,
@@ -1977,10 +1991,44 @@ def test_train_step_without_donation_leaves_the_state(cuda_device):
     assert step.graph.captures == 1 and step.graph.replays == 3
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-130m"])
+@pytest.mark.parametrize("remat", [(True, "nothing"), (True, "dots"),
+                                   (False, "nothing")])
+def test_remat_train_step_replays_bitwise_equal_to_eager(cuda_device, arch,
+                                                         remat):
+    """The reference's remat recomputes each layer's forward inside the
+    backward: under each policy (and without remat) three steps through
+    `jit_train_step` (the eager step and its capture, then two replays,
+    the recompute inside the graph) are bitwise equal to three eager
+    `make_train_step` steps from a copy of the same state: every metric
+    and state leaf; each replay launches `_train_launches`."""
+    from repro_torch.core import tree
+    from repro_torch.optim import init_state
+    from repro_torch.runtime.steps import jit_train_step, make_train_step
+
+    cfg, model, params, opt, batches = _train_run(arch)
+    cfg = cfg.replace(remat=remat[0], remat_policy=remat[1])
+    model = model.__class__(cfg, model.ctx)
+    state = init_state(params)
+    eager_state = tree.map_tree(torch.clone, state)
+    step = jit_train_step(model, opt)
+    eager = make_train_step(model, opt)
+    for batch in batches[:3]:
+        eager_state, em = eager(eager_state, {k: v.to(cuda_device)
+                                              for k, v in batch.items()})
+        _, gm = step(state, batch)
+        for k in ("loss", "lr", "grad_norm"):
+            assert torch.equal(gm[k], em[k]), k
+    assert step.graph.captures == 1 and step.graph.replays == 2
+    assert step.graph.launches == _train_launches(cfg)
+    for (path, a), b in zip(tree.paths(state), tree.leaves(eager_state)):
+        assert torch.equal(a, b), "/".join(path)
+
+
 def test_train_step_capture_skips_the_sentinel(cuda_device):
     """Under the full sentinel the graph step's eager step checks each of
-    its guarded calls (K2's nine a layer); its capture and replays add no
-    parity check."""
+    its guarded calls (K2's twelve a layer under remat); its capture and
+    replays add no parity check."""
     from repro_torch.core import guard
     from repro_torch.optim import init_state
     from repro_torch.runtime.steps import jit_train_step
@@ -1991,7 +2039,7 @@ def test_train_step_capture_skips_the_sentinel(cuda_device):
     step = jit_train_step(model, opt)
     step(state, batches[0])                  # the eager step, then capture
     checks = guard.stats()["parity_checks"]
-    assert checks == 9 * cfg.n_layers
+    assert checks == _train_launches(cfg)["moe_gmm"]
     for batch in batches[1:]:
         step(state, batch)
     torch.cuda.synchronize()
@@ -2064,9 +2112,7 @@ def test_mesh_train_steps_on_the_card_equal_the_cpu(cuda_device, arch,
     fn = functools.partial(_mesh_train_rank, arch=arch)
     card = spawn(fn, shape, device="cuda", backend="gloo", timeout_s=300)
     cpu = spawn(fn, shape, device="cpu", backend="gloo", timeout_s=300)
-    layers = get_config(arch).reduced().n_layers
-    want = {"moe_gmm": 9 * layers * 3} if arch.startswith("granite") else \
-        {"ssd_scan": layers * 3, "ssd_scan_bwd": layers * 3}
+    want = _train_launches(get_config(arch).reduced(), 3)
     relative = arch.startswith("granite") and shape == (2, 1)
     for got, ref in zip(card, cpu):
         assert {k: v for k, v in got["counts"].items() if v} == want
@@ -2264,3 +2310,62 @@ def test_mesh_paged_engine_on_the_card_equals_the_cpu(cuda_device, arch):
                                                   + st["prefill_chunks"])
         assert {k: v for k, v in got["counts"].items() if v} == want
         assert not any(ref["counts"].values())
+
+
+# ------------------------------------------------ each kernel's one count
+
+HBM_BW = 3.35e12                                  # H100 SXM data sheet
+PEAK = {2: 989e12, 4: 67e12}                      # bf16 / f32, dense
+
+# (kernel, its cost at a shape of PERF.md's table, the itemsize whose peak
+# bounds its operations, the table's bound in ms). K5b's span count and
+# K6's distinct rows are those of the GUPS path's run that the table's
+# bounds were taken in (131687 spans of 8 rows; 3711224 rows of 2^22 ids
+# over 2^24); K1's lengths sum to 923 over its 5 requests.
+TABLE_BOUNDS = [
+    ("K1", lambda: da.paged_decode_cost(5, 32, 4, 128, 18, 923, 2), 2,
+     0.00058884),
+    ("K2", lambda: _gmm_cost(128, 5, 2048, 768, 2, True), 2, 0.12049),
+    ("K2 training", lambda: _gmm_cost(32, 4096, 1024, 512, 2, True), 2,
+     0.13897),
+    ("K3", lambda: da.flash_decode_cost(8, 32, 4, 128, 1041, 2), 2,
+     0.0051304),
+    ("K3 f32 shard", lambda: da.flash_decode_cost(8, 32, 4, 128, 528, 4), 4,
+     0.0052429),
+    ("K4 bf16", lambda: _ssd().cost(8, 2048, 24, 64, 128, 256, 2), 2,
+     0.034900),
+    ("K4 f32", lambda: _ssd().cost(8, 2048, 24, 64, 128, 256, 4), 4,
+     0.20834),
+    ("K4b bf16", lambda: _ssd().bwd_cost(8, 512, 24, 64, 128, 2), 2,
+     0.012755),
+    ("K4b f32", lambda: _ssd().bwd_cost(8, 512, 24, 64, 128, 4), 4,
+     0.13372),
+    ("K5a", lambda: cg.row_gather_cost(1 << 22, 512), 4, 1.2871),
+    ("K5b", lambda: cg.span_gather_cost(131687, 8, 512), 4, 0.32218),
+    ("K6", lambda: sa.scatter_add_cost(3711224, 128, 4), 4, 1.7061),
+    ("K7", lambda: sc.triad_cost((1 << 21) * 128, 4), 4, 0.96156),
+]
+
+
+def _gmm_cost(*args):
+    from repro_torch.kernels.moe_gmm import moe_gmm as mg
+
+    return mg.cost(*args)
+
+
+def _ssd():
+    from repro_torch.kernels.ssd_scan import ssd_scan as ss
+
+    return ss
+
+
+@pytest.mark.parametrize("name,cost,itemsize,bound", TABLE_BOUNDS,
+                         ids=[b[0] for b in TABLE_BOUNDS])
+def test_cost_at_the_tables_shape_gives_the_tables_bound(name, cost,
+                                                         itemsize, bound):
+    """Each kernel's `cost` (the count the dry-run and chip_smoke's bounds
+    read) at PERF.md's shape: its bytes over 3.35 TB/s or its operations
+    over the peak of the inputs' type, the larger, is the table's bound."""
+    flops, nbytes = cost()
+    ms = max(nbytes / HBM_BW, flops / PEAK[itemsize]) * 1e3
+    assert ms == pytest.approx(bound, rel=1e-4)
