@@ -330,8 +330,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch the phase holds; its argument plus temp bytes beside the
      `max_memory_allocated` of one eager step there, and its roofline
      terms beside the phase's step p50 (printed, no gate);
- 16. `guard.stats()` on one JSON line, the mesh's record on one, the mesh
-     training's on one, the paged mesh's on one, one JSON line describing
+ 16. the placed serving step (weights and caches by their rules, attention
+     and the MLP tensor-parallel over `model`, each layer gathered over
+     `data`; `launch.serve.serve_placed`: `runtime.steps.jit_prefill_step`
+     and `jit_decode_step`), two gloo ranks sharing the card: (a) reduced
+     f32 yi-6b, granite-moe, mamba2-130m and hymba-1.5b on (1, 2) and
+     (2, 1), card ranks == CPU ranks, each card rank launching exactly K3
+     once an attention layer a step, K2 three times a MoE layer a step
+     and in the prefill, K4 once an SSM layer in the prefill; (b) yi-6b at
+     full width on (1, 2) (f32 weights, bf16 compute, phase 12's traffic
+     and prompts): each rank holds 12,122,603,520 bytes of weights; on
+     the seed-0 draw with `wq` and `wk` scaled to a fan-in of d_model
+     (`soften_attention`: the plain draw's attention is near one-hot, and
+     its logits chaotic over 32 layers), at all 32 layers on the first 4
+     of its prompts: in f32 the placed prefill's and first step's logits
+     within 2e-3 of the held layout's, tokens equal; in bf16 compute the
+     placed prefill's and first step's logits no farther from their f32
+     logits than twice the held layout's bf16 serving run's (phase 12's
+     weights, prompts and mesh, rerun first on the same ranks), a bound
+     that must itself lie under a tenth of the largest f32 logit; the
+     first tokens' agreement printed; and per rank the peak memory,
+     decode p50/p99, the collectives a step by kind (calls, bytes,
+     seconds) and the launches;
+     (c) granite-moe-1b-a400m at full width on (1, 2), K2 on each rank;
+ 17. `guard.stats()` on one JSON line, the mesh's record on one, the mesh
+     training's on one, the paged mesh's on one, the placed step's on one,
+     one JSON line describing
      every kernel (nine: K4's backward has its own entry; K1's, K2's,
      K3's and K4's launches by path, the meshes' among them, and K2's
      times at the training products and the meshes' shapes, K1's at the
@@ -385,6 +409,12 @@ runs only phase 15: (a), then (b) on yi-6b's bf16 weights and a
 granite-moe f32 state drawn for it (building only the sources of K3 and
 K2, which those steps launch), with the p50 of five eager steps in place
 of the phases' step p50, and prints its record as one JSON line.
+
+    python3 chip_smoke.py --placed
+
+builds the kernels and runs only phase 16 (the placed serving step on
+the (1, 2) and (2, 1) meshes, two gloo ranks sharing the card), then
+prints its record as one JSON line.
 
     python3 chip_smoke.py --mesh-paged
 
@@ -5007,6 +5037,331 @@ def mesh_paged_phase(torch) -> dict:
 
 # --------------------------------------------------------------------- main
 
+# ----------------------------------------------------------------- phase 16
+
+# The placed serving step: the weights and the caches held by their rules
+# (the reference's placed layout: `Model.param_shardings`,
+# `Model.cache_shardings`), attention and the MLP tensor-parallel over
+# `model`, each layer's leaves gathered over `data` (`models.lm`), through
+# `runtime.steps.jit_prefill_step` and `jit_decode_step`
+# (`launch.serve.serve_placed`), on two gloo ranks sharing the card as
+# phase 12 serves. (a) reduced f32 archs on (1, 2) and (2, 1): K3, K2 and
+# K4 on the placed path, card ranks == CPU ranks; (b) yi-6b at full width
+# (f32 weights, bf16 compute) on (1, 2) with phase 12's traffic and
+# prompts, against the held layout on the same softened draw; (c)
+# granite-moe-1b-a400m at full width on (1, 2). Full-width (2, 1) is not
+# run: it gathers every layer's weights over `data` through the host each
+# token; (a) covers that mesh.
+PLACED_REDUCED_ARCHS = ("yi-6b", "granite-moe-1b-a400m", "mamba2-130m",
+                        "hymba-1.5b")
+PLACED_SHAPES = ((1, 2), (2, 1))
+PLACED_REDUCED = dict(batch=4, prompt_len=16, gen=5)
+PLACED_FULL_SHAPE = (1, 2)
+PLACED_YI_BYTES = 12_122_603_520        # yi-6b's f32 weights, half a rank
+# (b)'s bf16 bound must lie under this share of the largest f32 logit: a
+# bound as large as the logits themselves would pass zeros
+PLACED_BOUND_SHARE = 0.1
+# (b)'s parity prefills take the first rows of phase 12's prompts: a row's
+# logits are its own, and the four prefills through gloo cost half
+PLACED_PARITY_ROWS = 4
+PLACED_TIMEOUT_S = 480.0
+
+
+def placed_launches(cfg, kw: dict) -> dict:
+    """Each rank's launches of one `serve_placed`: the dense engine's
+    (`dense_launches`) and K2 three times a MoE layer in the prefill and
+    in each step."""
+    want = dense_launches(cfg, kw["prompt_len"], kw["gen"])
+    if cfg.moe:
+        want["moe_gmm"] = 3 * cfg.n_layers * kw["gen"]
+    return want
+
+
+def soften_attention(params, cfg) -> None:
+    """Scale `wq` and `wk` in place to a fan-in of d_model: the init draws
+    them with the head count as their fan-in (the reference's, which the
+    port keeps), so random weights give near one-hot attention whose
+    logits part over 32 layers under a change of the order of summation
+    or under bf16 rounding. A scalar a leaf: a rank's placed blocks stay
+    the blocks of the softened whole."""
+    attn = params["layers"]["attn"]
+    attn["wq"].mul_((cfg.n_heads / cfg.d_model) ** 0.5)
+    attn["wk"].mul_((cfg.kv_heads / cfg.d_model) ** 0.5)
+
+
+def placed_rank(ctx, full: bool = True) -> dict:
+    """One rank of phase 16 (spawned; `ctx` its running mesh): (a) the
+    reduced f32 archs, each from one draw on the CPU (seed 0, this rank's
+    placed blocks moved to its device); with `full`, (b) yi-6b at full
+    width on the seed-0 draw softened (`soften_attention`), on the first
+    `PLACED_PARITY_ROWS` of phase 12's prompts: the held layout's prefill
+    and first step with phase 12's bf16 serving weights, then with f32
+    weights in f32; then `serve_placed` on the placed f32 weights with
+    phase 12's traffic, and on those weights the placed prefill and first
+    step in f32 and in bf16 compute; and (c) granite-moe placed at full
+    width; every `serve_placed` run with the launch counts zeroed just
+    before it and read just after."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSuite
+    from repro_torch.core import tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import (SERVING_OVERRIDES, make_prompts,
+                                          serve_placed)
+    from repro_torch.models import build_model
+    from repro_torch.runtime.steps import (jit_decode_step,
+                                           jit_prefill_step, local_batch)
+
+    out = {}
+    for arch in PLACED_REDUCED_ARCHS:
+        cfg = get_config(arch).reduced().replace(dtype="float32",
+                                                 param_dtype="float32")
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        params = tree.map_tree(lambda x: x.to(ctx.device), build_model(
+            cfg, ctx).init(gen, "cpu", placed=True))
+        reset_launch_counts()
+        stats = serve_placed(cfg, ctx=ctx, device=ctx.device.type,
+                             params=params, **PLACED_REDUCED)
+        out[f"{arch} reduced"] = {"stats": stats, "counts": launch_counts()}
+    if not full:
+        return out
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) phase 12's prompts (their first rows), mesh and cache length, on
+    # the softened draw
+    gen = torch.Generator(device=ctx.device)
+    base = get_config("yi-6b").replace(cache_update="row")
+    prompts, text = make_prompts(base, MESH_SERVE["batch"],
+                                 MESH_SERVE["prompt_len"],
+                                 np.random.default_rng(0), ctx.device)
+    prompts = {k: v[:PLACED_PARITY_ROWS]
+               for k, v in local_batch(ctx, prompts).items()}
+    pad = text + MESH_SERVE["gen"]
+    suite = ShapeSuite("serve", pad, PLACED_PARITY_ROWS, "decode")
+
+    def first_two(prefill, decode, params):
+        """The prefill's last logits and the first step's, f32 on the CPU."""
+        cache, logits = prefill(params, prompts)
+        tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        step, _ = decode(params, cache, {"tokens": tokens})
+        return logits[:, -1].float().cpu(), step[:, -1].float().cpu()
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    for tag, over in (("held bf16", SERVING_OVERRIDES), ("held f32", f32)):
+        cfg = base.replace(**over)
+        model = build_model(cfg, ctx)
+        gen.manual_seed(0)
+        params = model.init(gen, ctx.device)
+        soften_attention(params, cfg)
+        out[f"yi-6b {tag}"] = first_two(
+            lambda p, b: model.prefill(p, b, pad_to=pad), model.decode_step,
+            params)
+        del params, model
+        free()
+    for arch, over in (("yi-6b", {"cache_update": "row"}),
+                       ("granite-moe-1b-a400m", SERVING_OVERRIDES)):
+        cfg = get_config(arch).replace(**over)
+        gen.manual_seed(0)
+        params = build_model(cfg, ctx).init(gen, ctx.device, placed=True)
+        if arch == "yi-6b":
+            soften_attention(params, cfg)
+        reset_launch_counts()
+        stats = serve_placed(cfg, ctx=ctx, params=params, **MESH_SERVE)
+        out[arch] = {"stats": stats, "counts": launch_counts()}
+        if arch == "yi-6b":
+            for tag, c in (("placed f32", cfg.replace(**f32)),
+                           ("placed bf16", cfg)):
+                model = build_model(c, ctx)
+                out[f"yi-6b {tag}"] = first_two(
+                    jit_prefill_step(model, pad_to=pad),
+                    jit_decode_step(model, suite), params)
+        del params
+        free()
+    return out
+
+
+def placed_against_held(r: int, run: dict) -> dict:
+    """(b) for rank `r`, yi-6b at full width and all 32 layers on the
+    softened draw. In f32: the placed prefill's and first step's logits
+    within 2e-3 of the held layout's, their tokens equal. In bf16 compute:
+    the placed run's distance from its f32 logits at most twice the held
+    layout's bf16 serving run's from its own, and that bound under
+    `PLACED_BOUND_SHARE` of the largest f32 logit (else it would pass
+    logits that carry nothing). The first tokens' agreement printed."""
+    import torch
+
+    out = {}
+    for i, what in enumerate(("prefill", "first step")):
+        f32, held_f32 = run["yi-6b placed f32"][i], run["yi-6b held f32"][i]
+        _close(f"placed yi-6b rank {r} f32 {what} against the held "
+               f"layout's", f32, held_f32, TOL["float32"])
+        if not torch.equal(f32.argmax(-1), held_f32.argmax(-1)):
+            raise AssertionError(f"placed yi-6b rank {r}: f32 {what} tokens "
+                                 f"differ from the held layout's")
+        bf16, held = run["yi-6b placed bf16"][i], run["yi-6b held bf16"][i]
+        d_held = float((held - held_f32).abs().max())
+        d_placed = float((bf16 - f32).abs().max())
+        top = float(f32.abs().max())
+        key = what.replace(" ", "_")
+        out[key] = {
+            "max_abs_f32": top,
+            "f32_placed_from_held": float((f32 - held_f32).abs().max()),
+            "bf16_held_from_f32": d_held,
+            "bf16_placed_from_f32": d_placed,
+            "bf16_bound": 2 * d_held,
+            "token_agreement": {
+                "placed_bf16_held_bf16": float(
+                    (bf16.argmax(-1) == held.argmax(-1)).float().mean()),
+                "placed_bf16_f32": float(
+                    (bf16.argmax(-1) == f32.argmax(-1)).float().mean())}}
+        log(f"parity placed yi-6b rank {r} bf16 {what} logits: {d_placed:.4g} "
+            f"from the f32 ones, the held layout's {d_held:.4g} (bound "
+            f"{2 * d_held:.4g}, largest f32 logit {top:.4g}); "
+            f"{json.dumps(out[key])}")
+        if not 2 * d_held <= PLACED_BOUND_SHARE * top:
+            raise AssertionError(f"placed yi-6b rank {r} {what}: the bf16 "
+                                 f"bound {2 * d_held:.4g} is not under "
+                                 f"{PLACED_BOUND_SHARE} of the largest f32 "
+                                 f"logit {top:.4g}")
+        if not d_placed <= 2 * d_held:
+            raise AssertionError(f"placed yi-6b rank {r}: bf16 {what} logits "
+                                 f"{d_placed:.4g} from the f32 ones, over "
+                                 f"twice the held layout's {d_held:.4g}")
+    return out
+
+
+def check_placed_run(label: str, cfg, ranks, kw: dict, *,
+                     on_card: bool) -> None:
+    """Every rank generated the whole batch's tokens, the same on every
+    rank, and launched what `placed_launches` wants on the card (nothing
+    on the CPU)."""
+    for r, run in enumerate(ranks):
+        st = run["stats"]
+        want = {name: 0 for name in run["counts"]}
+        if on_card:
+            want.update(placed_launches(cfg, kw))
+        if tuple(st["generated_shape"]) != (kw["batch"], kw["gen"]) or \
+                st["generated"] != ranks[0]["stats"]["generated"]:
+            raise AssertionError(f"placed {label} rank {r}: generated "
+                                 f"{st['generated_shape']}, or tokens that "
+                                 f"differ from rank 0's")
+        if run["counts"] != want:
+            raise AssertionError(f"placed {label} rank {r}: launches "
+                                 f"{run['counts']}, want {want}")
+
+
+def placed_phase(torch) -> dict:
+    """Phase 16: (a) the reduced f32 archs through the placed prefill and
+    `jit_decode_step` on the card's (1, 2) and (2, 1) meshes give the
+    tokens of the same meshes on CPU ranks, each card rank launching K3,
+    K2 and K4 where its path runs them; (b) yi-6b at full width on the
+    card's (1, 2) mesh: each rank holds 12,122,603,520 bytes of placed
+    weights; at all 32 layers on the softened draw its f32 logits equal
+    the held layout's within 2e-3 and its bf16 ones lie within the bf16
+    bound of phase 12's held serving run (`placed_against_held`; its
+    weights' layout, prompts and mesh, rerun here); and for each rank
+    its peak memory, decode p50/p99, the collectives a step by kind
+    (calls, bytes, seconds) and K3's launches; (c) granite-moe at full
+    width on (1, 2), K2 on each rank."""
+    import concurrent.futures
+    import functools
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import SERVING_OVERRIDES
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced = functools.partial(placed_rank, full=False)
+    # the full-width runs alone on the machine; the other meshes' card
+    # ranks beside every CPU rank
+    runs = {PLACED_FULL_SHAPE: spawn(
+        placed_rank, PLACED_FULL_SHAPE, device="cuda", backend="gloo",
+        timeout_s=PLACED_TIMEOUT_S)}
+    log(f"placed {PLACED_FULL_SHAPE}: card ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(PLACED_SHAPES)) as pool:
+        cpus = {shape: pool.submit(spawn, reduced, shape, device="cpu",
+                                   backend="gloo",
+                                   timeout_s=PLACED_TIMEOUT_S)
+                for shape in PLACED_SHAPES}
+        for shape in PLACED_SHAPES:
+            if shape not in runs:
+                runs[shape] = spawn(reduced, shape, device="cuda",
+                                    backend="gloo",
+                                    timeout_s=PLACED_TIMEOUT_S)
+        cpus = {shape: run.result() for shape, run in cpus.items()}
+    log(f"placed: the other card ranks and the CPU ranks ran in "
+        f"{time.perf_counter() - t1:.1f} s")
+    for shape in PLACED_SHAPES:
+        card, cpu = runs[shape], cpus[shape]
+        for arch in PLACED_REDUCED_ARCHS:
+            key = f"{arch} reduced"
+            cfg = get_config(arch).reduced()
+            check_placed_run(key, cfg, [c[key] for c in card],
+                             PLACED_REDUCED, on_card=True)
+            check_placed_run(key, cfg, [c[key] for c in cpu],
+                             PLACED_REDUCED, on_card=False)
+            got = card[0][key]["stats"]["generated"]
+            want = cpu[0][key]["stats"]["generated"]
+            if got != want:
+                raise AssertionError(f"placed {key} on {shape}: card tokens "
+                                     f"{got} != CPU tokens {want}")
+            log(f"placed {key} f32 tokens card == cpu on {shape}: {got[0]}; "
+                f"a card rank's launches "
+                f"{ {k: v for k, v in card[0][key]['counts'].items() if v} }")
+    card = runs[PLACED_FULL_SHAPE]
+    out = {"reduced_launches": {
+        f"{arch} {_mesh_tag(shape)} rank {r}": c[f"{arch} reduced"]["counts"]
+        for shape, ranks in runs.items() for r, c in enumerate(ranks)
+        for arch in PLACED_REDUCED_ARCHS}, "serve": {}}
+    for arch, over in (("yi-6b", {"cache_update": "row"}),
+                       ("granite-moe-1b-a400m", SERVING_OVERRIDES)):
+        cfg = get_config(arch).replace(**over)
+        ranks = [c[arch] for c in card]
+        check_placed_run(arch, cfg, ranks, MESH_SERVE, on_card=True)
+        per_rank = []
+        for r, (run, c) in enumerate(zip(ranks, card)):
+            st = run["stats"]
+            shown = {k: st[k] for k in (
+                "prefill_s", "decode_s", "p50_ms", "p99_ms",
+                "decode_tok_per_s", "max_memory_allocated_gb",
+                "held_bytes")}
+            coll = st["collectives"]
+            shown["collectives_a_step"] = {
+                kind: {k: v / st["steps"] for k, v in by.items()}
+                for kind, by in coll["by_kind"].items()}
+            shown["collectives_share_of_decode"] = coll["s"] / max(
+                st["decode_s"], 1e-9)
+            shown["launches"] = {k: v for k, v in run["counts"].items() if v}
+            if arch == "yi-6b":
+                if st["held_bytes"]["params"] != PLACED_YI_BYTES:
+                    raise AssertionError(
+                        f"placed yi-6b rank {r}: holds "
+                        f"{st['held_bytes']['params']} B of weights, want "
+                        f"{PLACED_YI_BYTES}")
+                shown["parity"] = placed_against_held(r, c)
+            per_rank.append(shown)
+            log(f"serve placed {arch} full width {json.dumps(MESH_SERVE)} "
+                f"rank {r} of {PLACED_FULL_SHAPE} (gloo, one card): "
+                f"{json.dumps(shown)}")
+        out["serve"][arch] = {"ranks": per_rank,
+                              "launches": [run["counts"] for run in ranks]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ----------------------------------------------------------------- phase 15
 
 
@@ -5296,6 +5651,16 @@ def main() -> int:
         print(json.dumps({"mesh_paged": mesh_paged_phase(torch)}),
               flush=True)
         return 0
+    if sys.argv[1:] == ["--placed"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card_info(torch)
+        build_kernels()
+        from repro_torch.core import guard
+        guard.set_parity("off")
+        print(json.dumps({"placed": placed_phase(torch)}, default=str),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--dryrun"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         card_info(torch)
@@ -5454,6 +5819,21 @@ def main() -> int:
         f"sweep {time.perf_counter() - t15:.1f} s; (b) "
         f"{yi_tie['traced_s'] + trained['dryrun']['traced_s']:.1f} s of "
         f"traces in phases 5c and 11d)")
+    placed = placed_phase(torch)
+    log(f"phase 16 done at {time.perf_counter() - t_start:.1f} s "
+        f"({placed['seconds']:.1f} s)")
+    placed_paths = {}
+    for path, c in placed["reduced_launches"].items():
+        for name in ("flash_decode", "moe_gmm", "ssd_scan"):
+            if c.get(name):
+                placed_paths.setdefault(name, {})[
+                    f"placed {path}"] = c[name]
+    for arch, run in placed["serve"].items():
+        for r, c in enumerate(run["launches"]):
+            for name in ("flash_decode", "moe_gmm"):
+                if c.get(name):
+                    placed_paths.setdefault(name, {})[
+                        f"placed {arch} 1x2 rank {r}"] = c[name]
     paged_ranks = {f"mesh paged {MESH_PAGED_ARCH} rank {r}": c
                    for r, c in enumerate(mesh_paged["launches"])}
     mesh_train_paths = {"moe_gmm": {}, "ssd_scan": {}, "ssd_scan_bwd": {}}
@@ -5497,7 +5877,8 @@ def main() -> int:
             for arch in FAMILY_ARCHS}, **{
             f"mesh {arch} rank {r}": c["flash_decode"]
             for arch, ranks in meshed["launches"].items()
-            for r, c in enumerate(ranks)}},
+            for r, c in enumerate(ranks)},
+            **placed_paths["flash_decode"]},
         "parity": "ok",
         **{k: fd_timing[k] for k in keys},
         "splits": fd_timing["splits"],
@@ -5520,7 +5901,7 @@ def main() -> int:
             "hymba-1.5b": family["hymba-1.5b"]["counts"]["ssd_scan"], **{
                 f"{arch} train": t["launches"]["ssd_scan"]
                 for arch, t in trained["ssm"].items()},
-            **mesh_train_paths["ssd_scan"]},
+            **mesh_train_paths["ssd_scan"], **placed_paths["ssd_scan"]},
         "parity": "ok",
         **{k: ssd_timing[k] for k in keys},
         "launch_ms": ssd_timing["launch_ms"],
@@ -5543,7 +5924,8 @@ def main() -> int:
             **{f"mesh {TRAIN_ARCH} rank {r}": c["moe_gmm"]
                for r, c in enumerate(meshed["launches"][TRAIN_ARCH])},
             **mesh_train_paths["moe_gmm"],
-            **{path: c["moe_gmm"] for path, c in paged_ranks.items()}},
+            **{path: c["moe_gmm"] for path, c in paged_ranks.items()},
+            **placed_paths["moe_gmm"]},
         "launches_a_train_step": trained["launches_a_step"]["moe_gmm"],
         "parity": "ok",
         **{k: gmm_times["decode gate/up"][k] for k in keys},
@@ -5580,6 +5962,8 @@ def main() -> int:
     print(json.dumps({"mesh_paged": {k: mesh_paged[k] for k in (
         "reduced", "serve", "launches", "seconds")}}), flush=True)
     print(json.dumps({"dryrun": dryrun}), flush=True)
+    print(json.dumps({"placed": {k: placed[k] for k in (
+        "serve", "reduced_launches", "seconds")}}, default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

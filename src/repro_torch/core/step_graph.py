@@ -1,6 +1,6 @@
 """A compiled step replayed as one CUDA graph: the port's counterpart of
 what `jax.jit` does for the reference's three compiled serving steps
-(``launch/serve.py:jit_decode_step``, the paged engine's ``_decode_fn``
+(``runtime/steps.py:jit_decode_step``, the paged engine's ``_decode_fn``
 and ``serve/prefill.py:ChunkedPrefiller``'s chunk step, one per padded
 length and table width) and for its jitted, donated train step
 (``runtime/steps.py:jit_train_step``: forward, backward and AdamW, the

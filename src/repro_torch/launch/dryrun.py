@@ -17,13 +17,18 @@ The steps (`_build_step`) and rank 0's inputs:
     reduce-scattered into the placed blocks, AdamW); the state placed by
     its rules (`Model.place`: params, mu, nu), the batch's rows
     (`local_batch`'s cut). Layout ``"placed"``;
-  * prefill: `make_prefill_step`; the parameters as serving holds them
-    (every leaf whole but a MoE layer's experts: `Model.held_param_specs`),
-    the batch's rows. Layout ``"held"``;
-  * decode: `make_decode_step`; the held parameters, the rank's cache (its
-    rows, and the K/V caches split by sequence over ``model`` where the
-    reference splits them, as `models.lm` holds them on a mesh), the
-    batch's rows. Layout ``"held"``.
+  * prefill: `make_prefill_step` (`runtime.steps.
+    jit_prefill_step`'s step); the parameters placed by their rules
+    (`Model.place`, the reference's ``param_shardings``), the batch's rows;
+    the cache comes out placed (``cache_shardings``). Layout ``"placed"``;
+  * decode: `make_decode_step` (`jit_decode_step`'s step); the placed
+    parameters, the rank's blocks of the cache placed by
+    ``cache_shardings`` (`Model.place_cache`), the batch's rows. Layout
+    ``"placed"``.
+
+Serving on the placed layout gathers each layer's leaves over ``data``
+just before the layer and runs attention and the MLP tensor-parallel over
+``model`` (`models.lm`), as the reference's placed step is partitioned.
 
 A trace sees every layer, so the counts are of the full depth, exactly
 (``depth_info.mode`` ``"traced_full_depth"``; ``--full-unroll`` gives the
@@ -66,12 +71,11 @@ from repro_torch.core import tree
 from repro_torch.core.machine import get_machine
 from repro_torch.launch.mesh import mesh_by_name
 from repro_torch.models import build_model
-from repro_torch.models import params as pm
 from repro_torch.models.params import is_spec
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.steps import (make_decode_step, make_prefill_step,
                                        make_train_step)
-from repro_torch.sharding import ShardingCtx, dry_mesh, local_shard
+from repro_torch.sharding import ShardingCtx, dry_mesh
 
 __all__ = ["DEPTHS", "main", "run_cell", "trace_step"]
 
@@ -85,16 +89,6 @@ def _mesh(name: str):
     return mesh_by_name(name)
 
 
-def _cut(x: torch.Tensor, spec, ctx: ShardingCtx) -> torch.Tensor:
-    """Rank 0's block of the meta tensor `x` under `spec`, a tensor of its
-    own (a split leaf's block is a fresh meta tensor, not a view)."""
-    return local_shard(x, spec, ctx).clone() if spec else x
-
-
-def _cut_tree(whole, specs, ctx: ShardingCtx):
-    return tree.map_tree(lambda x, s: _cut(x, s, ctx), whole, specs)
-
-
 def _rows(specs, ctx: ShardingCtx, accum: int = 1) -> Dict[str, torch.Tensor]:
     """Rank 0's rows of a batch of `specs` (`steps.local_batch`'s cut:
     each of `accum` microbatches split over ``batch``'s axes)."""
@@ -106,19 +100,6 @@ def _rows(specs, ctx: ShardingCtx, accum: int = 1) -> Dict[str, torch.Tensor]:
         out[k] = torch.empty((rows * accum,) + shape[1:], dtype=v.dtype,
                              device="meta")
     return out
-
-
-def _cache_specs(model, shape):
-    """What a rank holds of the decode cache (`models.lm` on a mesh): its
-    rows (``batch``) and the K/V caches split by sequence (``kv_seq``)
-    where the reference splits them; every other axis whole."""
-    ctx = model.ctx
-
-    def held(s):
-        axes = tuple(a if a in ("batch", "kv_seq") else None for a in s.axes)
-        return ctx.spec(axes, s.shape)
-
-    return pm.map_specs(held, model.cache_specs(shape))
 
 
 def _guard_whole(model) -> list:
@@ -145,18 +126,15 @@ def _build_step(cfg, shape, mesh, rules=None, accum=1):
             state[key] = model.place(model.abstract_params())
         args = (state, _rows(batch_specs(cfg, shape), ctx, accum))
         return model, fn, args, "placed"
-    params = pm.local_params(model.abstract_params(), cfg, ctx)
+    params = model.place(model.abstract_params())
     if kind == "prefill":
         fn = make_prefill_step(model)
         return model, fn, (params, _rows(batch_specs(cfg, shape), ctx)), \
-            "held"
+            "placed"
     fn = make_decode_step(model)
-    whole = model.abstract_cache(shape)
-    cache = _cut_tree(whole, _cache_specs(model, shape), ctx)
-    cache["kv_len"] = {k: whole["layers"][k].shape[2]
-                       for k in ("k", "cross_k") if k in whole["layers"]}
+    cache = model.place_cache(model.abstract_cache(shape))
     return model, fn, (params, cache, _rows(decode_batch_specs(cfg, shape),
-                                            ctx)), "held"
+                                            ctx)), "placed"
 
 
 def trace_step(fn, args) -> Dict[str, Any]:

@@ -30,7 +30,9 @@ merged over `model`. The paged engine: each rank runs the whole engine
 in lockstep with the others, holds its share of the experts and the
 whole KV pools, and its MoE layers are expert-parallel (`serve/engine.py`).
 Their steps run eagerly there: collectives over gloo cannot be captured
-in a CUDA graph.
+in a CUDA graph. `serve_placed` runs the reference's placed serving step
+on a rank instead (`runtime.steps.jit_prefill_step`, `jit_decode_step`:
+weights and caches placed by their rules, tensor-parallel over `model`).
 
 Both report decode tok/s and per-token p50/p99 (the paged engine also
 TTFT/TBT, prefix-cache and failure accounting) plus every request's
@@ -75,6 +77,7 @@ from repro_torch.models.params import torch_dtype
 from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import latency_report
 from repro_torch.runtime.layouts import serving_config_overrides
+from repro_torch.runtime.steps import jit_decode_step
 from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
 
 # ArchConfig overrides of the serving layout: weights stored in bf16
@@ -99,35 +102,6 @@ def make_prompts(cfg, batch: int, prompt_len: int, rng, device):
     return b, text
 
 
-def jit_decode_step(model):
-    """The one decode step every drive loop reuses, as the reference's
-    ``jax.jit(model.decode_step, donate_argnums=(1,))``: the same call as
-    `model.decode_step` (params, cache, batch) -> (logits, cache).
-
-    On CUDA tensors each call replays a CUDA graph of `model.decode_step`
-    (`core.step_graph.StepGraph`), captured at the first call for these
-    parameters, caches and batch shape, and again whenever one of them
-    changes; the caches are updated in place, as the reference donates
-    them. The logits and the cache's ``pos`` it returns are the graph's
-    output buffers: the next call overwrites them, so a caller reads them
-    first (`timed_decode_loop` takes the argmax and scans the logits before
-    its next call). On CPU tensors it is `model.decode_step`, run eagerly.
-    The graph is the function's ``graph`` attribute."""
-
-    def step(params, layers, pos, tokens):
-        return model.decode_step(params, {"pos": pos, "layers": layers},
-                                 {"tokens": tokens})
-
-    graph = StepGraph(step, "dense_decode")
-
-    def decode(params, cache, batch):
-        return graph((params, cache["layers"]),
-                     (cache["pos"], batch["tokens"]))
-
-    decode.graph = graph
-    return decode
-
-
 def timed_decode_loop(decode, params, cache, tokens, *, steps, make_batch):
     """Drive `steps` decode calls, timing each to its tokens on the host.
 
@@ -137,7 +111,7 @@ def timed_decode_loop(decode, params, cache, tokens, *, steps, make_batch):
     `guard.stats()` and, in strict mode, raises `KernelNumericsError`
     (the dense loop has no step to retry). Each step's logits
     are read (argmax, then the scan) before the next call, which may
-    overwrite them (`jit_decode_step`)."""
+    overwrite them (`runtime.steps.jit_decode_step`)."""
     out = [tokens]
     lat = []
     tracer = obs_trace.get_tracer()  # fetched once: null no-op when off
@@ -252,18 +226,23 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
 
 def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
-                gen: int, seed: int, device, params):
+                gen: int, seed: int, device, params, placed: bool = False):
     """The dense engine on one rank of a running mesh: this rank's `data`
-    slice of the reference's prompts for `seed`, the model's prefill and
-    ``gen - 1`` eager decode steps under `ctx`, then every rank's tokens
-    gathered over the batch axes. Returns the stats of `serve` (the whole
-    batch's tokens under "generated", the same on every rank) with
-    ``"decode_captures": 0``, the mesh, the bytes this rank holds (its
-    parameters, its experts, its KV caches), its peak memory, and the
-    collectives' calls, bytes and seconds in the decode steps (timed sync
-    to sync: `sharding.collective_stats`)."""
+    slice of the reference's prompts for `seed`, the prefill and
+    ``gen - 1`` eager decode steps under `ctx` (`timed_decode_loop`), then
+    every rank's tokens gathered over the batch axes. The parameters are
+    held as serving holds them, or with `placed` by their rules, the
+    caches then by `Model.cache_shardings` (`serve_placed`); `params`,
+    when given, are this rank's in that layout. Returns the stats of
+    `serve` (the whole batch's tokens under "generated", the same on
+    every rank) with ``"decode_captures": 0``, the layout, the mesh, the
+    bytes this rank holds (its parameters, its experts, its KV caches),
+    its peak memory, and the collectives' calls, bytes and seconds in the
+    decode steps (timed sync to sync: `sharding.collective_stats`)."""
     from repro_torch import sharding
+    from repro_torch.configs.shapes import ShapeSuite
     from repro_torch.models import build_model
+    from repro_torch.runtime.steps import jit_prefill_step
     from repro_torch.serve.engine import mesh_stats, resolve_device, \
         tensor_bytes
 
@@ -283,16 +262,30 @@ def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
     if params is None:
         g = torch.Generator(device=dev)
         g.manual_seed(int(seed))
-        params = model.init(g, dev)
+        params = model.init(g, dev, placed=placed)
     rng = np.random.default_rng(seed)
     prompts, text_len = make_prompts(cfg, batch, prompt_len, rng, dev)
     spec = ctx.spec(("batch",), (batch,))
     prompts = {k: local_shard(v, spec, ctx) for k, v in prompts.items()}
+    pad_to = text_len + gen
+    if placed:
+        front = token_split(cfg, prompt_len)[0]
+        if cfg.enc_dec and pad_to != front:
+            raise ValueError(f"the placed step's shape suite holds whisper's "
+                             f"self and cross caches at one length: {pad_to} "
+                             f"text rows against {front} encoder rows")
+        suite = ShapeSuite("serve", pad_to + (front if cfg.vlm else 0),
+                           batch, "decode")
+        prefill = jit_prefill_step(model, pad_to=pad_to)
+        decode = jit_decode_step(model, suite)
+    else:
+        prefill = functools.partial(model.prefill, pad_to=pad_to)
+        decode = model.decode_step
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
     t0 = time.perf_counter()
-    cache, logits = model.prefill(params, prompts, pad_to=text_len + gen)
+    cache, logits = prefill(params, prompts)
     tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -300,7 +293,7 @@ def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
 
     sharding.reset_collective_stats(timed=True)
     out, tokens, lat = timed_decode_loop(
-        model.decode_step, params, cache, tokens, steps=gen - 1,
+        decode, params, cache, tokens, steps=gen - 1,
         make_batch=lambda tokens, i: {"tokens": tokens})
     coll = sharding.collective_stats()
     sharding.reset_collective_stats()
@@ -312,6 +305,7 @@ def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
     layers, moe = cache["layers"], params["layers"].get("moe", {})
     stats = {
         "engine": "dense",
+        "layout": "placed" if placed else "held",
         "machine": get_machine().name,
         "device": str(dev),
         "mesh": mesh_stats(ctx),
@@ -329,6 +323,7 @@ def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
         },
         "kv_len": cache.get("kv_len", {}),
         "collectives": coll,
+        "steps": gen - 1,
         "sample_tokens": generated[0, :8].tolist(),
         "substrate": guard.stats(),
         "generated": generated.tolist(),
@@ -338,6 +333,26 @@ def _serve_mesh(cfg, ctx: ShardingCtx, *, batch: int, prompt_len: int,
             torch.cuda.max_memory_allocated(dev) / 1e9
     stats.update(latency_report(lat))
     return stats
+
+
+def serve_placed(cfg, *, batch: int, prompt_len: int, gen: int,
+                 ctx: ShardingCtx, seed: int = 0, device=None,
+                 params=None) -> Dict[str, Any]:
+    """The placed serving step on this rank of a running mesh, as the
+    reference's dry-run places it: the parameters placed by their rules
+    (`Model.param_shardings`; drawn from `seed` as `serve` draws them,
+    each rank its blocks, unless `params` gives them), this rank's rows of
+    the reference's prompts for `seed`, `runtime.steps.jit_prefill_step`
+    (the caches come out placed by `Model.cache_shardings`), then
+    ``gen - 1`` steps of `runtime.steps.jit_decode_step`. Runs on the GPU
+    unless `device` names the mesh's CPU (never falling back: no CUDA
+    device raises RuntimeError). Returns the stats of `_serve_mesh` with
+    ``"layout": "placed"``."""
+    if ctx.mesh is None:
+        raise ValueError("serve_placed runs on a running mesh's ranks")
+    return _serve_mesh(cfg, ctx, batch=batch, prompt_len=prompt_len,
+                       gen=gen, seed=seed, device=device, params=params,
+                       placed=True)
 
 
 def _serve_rank(ctx: ShardingCtx, cfg, kwargs: Dict[str, Any]):

@@ -12,6 +12,7 @@ through the flash-decode kernels (dense and paged).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,7 +22,7 @@ from repro_torch.kernels.decode_attention.decode_attention import (
     flash_decode,
     paged_flash_decode,
 )
-from repro_torch.sharding import ShardingCtx
+from repro_torch.sharding import NULL_CTX, ShardingCtx, shard_map
 
 NEG_INF = -1e30
 
@@ -71,9 +72,21 @@ def swiglu(x, w_gate, w_up, w_down):
     return h @ w_down.to(x.dtype)
 
 
-def embed_lookup(table, tokens):
-    """Embedding gather: rows of `table` at `tokens`."""
-    return table[tokens.long()]
+def embed_lookup(table, tokens, ctx: ShardingCtx = NULL_CTX, vocab=None,
+                 dtype=None):
+    """Embedding gather: rows of `table` at `tokens`, in `dtype` (the
+    table's by default). A table that holds this rank's block of the
+    vocabulary over `model` (fewer rows than `vocab`, the whole count)
+    looks up only its own rows, zeros for every other token, and one sum
+    over `model` makes them whole: exact, as one rank adds each row."""
+    if vocab is None or table.shape[0] == vocab:
+        rows = table[tokens.long()]
+        return rows if dtype is None else rows.to(dtype)
+    n = table.shape[0]
+    local = tokens.long() - ctx.index("model") * n
+    mine = ((local >= 0) & (local < n))[..., None]
+    rows = table[local.clamp(0, n - 1)].to(dtype or table.dtype)
+    return ctx.all_reduce(rows * mine.to(rows.dtype), "sum")
 
 
 def _group(q, kv_heads: int):
@@ -303,15 +316,23 @@ def flash_decode_attention(ctx: ShardingCtx, q, k_cache, v_cache, new_k,
         raise ValueError("on a mesh, s_total (the whole cache's length) "
                          "says how the cache is held")
     n_model = ctx.axis_sizes["model"]
-    held = s_total // n_model if s_total % n_model == 0 else s_total
-    if k_cache.shape[1] != held:
-        raise ValueError(f"a cache of {s_total} rows over {n_model} model "
-                         f"ranks is held as {held} rows a rank, got "
-                         f"{k_cache.shape[1]}")
     if s_total % n_model != 0:
+        if k_cache.shape[1] != s_total:
+            raise ValueError(f"a cache of {s_total} rows, which {n_model} "
+                             f"model ranks do not split, is held whole; got "
+                             f"{k_cache.shape[1]} rows")
         return _single_decode(q, k_cache, v_cache, new_k, new_v, pos, update)
-    return _decode_core(ctx, q, k_cache, v_cache, new_k, new_v, pos,
-                        s_local=held, update=update, update_mode=update_mode)
+    dp = tuple(a for a in ctx.mesh.axis_names if a in ("pod", "data"))
+    bspec = dp if len(dp) > 1 else (dp[0] if dp else None)
+    q_s, cache_s = (bspec,), (bspec, "model")
+    cache_whole = (None, s_total, None, None)
+    fn = functools.partial(_decode_core, ctx, s_local=s_total // n_model,
+                           update=update, update_mode=update_mode)
+    return shard_map(fn, ctx=ctx,
+                     in_specs=(q_s, cache_s, cache_s, q_s, q_s, ()),
+                     out_specs=(q_s, cache_s, cache_s))(
+        q, k_cache, v_cache, new_k, new_v, pos,
+        whole=(None, cache_whole, cache_whole, None, None, None))
 
 
 def decode_attention(ctx: ShardingCtx, q, k_cache, v_cache, new_k, new_v,

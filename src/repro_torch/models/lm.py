@@ -39,6 +39,20 @@ the shards alone do not tell. The paged engine's steps hold their round
 or chunk, and the KV pools, whole on every rank, as the reference does:
 there `ctx` reaches only the MoE layers (`_paged_ffn`) and the
 unembedding.
+
+The dense engine's functions also take the placed layout, the reference's
+placed serving step (`runtime.steps.jit_prefill_step`, `jit_decode_step`):
+every parameter placed by its rules (`Model.place`) and every cache leaf
+by ``cache_specs`` (`place_caches`). One code path serves both layouts:
+each op decides from the leaf it is handed. Each layer's leaves are
+gathered just before the layer over the axes no op computes in parallel
+(`_gathered`: ``data``, and a ``model`` split outside `PARALLEL_AXES`,
+as the SSM's), which on the held layout gathers nothing; attention is
+column-parallel over the heads `wq`/`wk`/`wv` hold and row-parallel
+through `wo` (one sum over `model`), the MLP likewise, the embedding and
+the logits vocab-parallel, the MoE router's logits gathered, and a cache
+held by heads (a ring, or a sequence `model` does not divide) attended by
+the rank's heads.
 """
 from __future__ import annotations
 
@@ -50,6 +64,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeSuite, cache_seq_len
+from repro_torch.core import tree
 from repro_torch.models.common import (
     apply_rope,
     attention,
@@ -66,14 +81,17 @@ from repro_torch.models.common import (
 from repro_torch.kernels.decode_attention.decode_attention import flash_decode
 from repro_torch.kernels.moe_gmm.ops import saving_products
 from repro_torch.models.moe import moe_layer, moe_layer_whole, moe_param_specs
-from repro_torch.models.params import ParamSpec, map_specs, torch_dtype
+from repro_torch.models.params import (ParamSpec, held_specs, map_specs,
+                                       torch_dtype)
 from repro_torch.models.ssm import (
     ssm_cache_shape,
     ssm_decode,
+    ssm_dims,
     ssm_forward,
     ssm_param_specs,
 )
-from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
+from repro_torch.sharding import (NULL_CTX, ShardingCtx, block_shape,
+                                  gather_blocks, local_shard)
 
 # ------------------------------------------------------------- param specs
 
@@ -158,6 +176,66 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
         specs)
 
 
+# ------------------------------------------------------ the leaves an op uses
+
+# The logical axes whose split over `model` the ops compute with in
+# parallel: attention's heads (column-parallel, then `wo` row-parallel),
+# the MLP's width (likewise), the vocabulary (the embedding's rows, the
+# logits' columns) and the experts (expert-parallel). A leaf's split of any
+# other axis, or over any other mesh axis (`data`, `pod`), is gathered
+# just before the leaf is used, and freed after.
+PARALLEL_AXES = frozenset({"heads", "kv_heads", "mlp", "vocab", "experts"})
+
+
+def _strip(entries) -> tuple:
+    out = list(entries)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _plan(spec_tree, ctx: ShardingCtx):
+    """Each leaf of a spec tree (one layer's, or one leaf) with its placed
+    spec, in the leaves' order; None without a mesh."""
+    if ctx.mesh is None:
+        return None
+    return [(s, ctx.spec(s.axes, s.shape)) for s in tree.leaves(spec_tree)]
+
+
+def _gathered(node, plan, ctx: ShardingCtx):
+    """This rank's leaves of `node` (one layer's tree, or one leaf) -> the
+    blocks its ops compute with: each leaf gathered over the mesh axes it
+    is split over but no op computes in parallel (all but `model` splits
+    of `PARALLEL_AXES`). Every op decides from the leaf it is handed: the
+    split a leaf is held with is read from its shape against its placed
+    spec's (`plan`), so the held layout (every leaf whole but the experts)
+    gathers nothing, and the placed layout (`Model.place`) gathers its
+    `data` blocks. One all_gather a group of leaves
+    (`sharding.gather_blocks`)."""
+    if plan is None:
+        return node
+    leaves = tree.leaves(node)
+    fine, coarse = [], []
+    for x, (s, placed) in zip(leaves, plan):
+        held = _strip(e if e is not None and x.shape[d] != s.shape[d]
+                      else None for d, e in enumerate(placed))
+        fine.append(held)
+        coarse.append(_strip(e if e == "model" and s.axes[d] in PARALLEL_AXES
+                             else None for d, e in enumerate(held)))
+    if fine == coarse:
+        return node
+    return tree.unflatten(node, gather_blocks(leaves, fine, coarse, ctx))
+
+
+def _top(params, key: str, cfg: ArchConfig, ctx: ShardingCtx):
+    """Top-level leaf `key` as its op uses it (`_gathered`); None where the
+    arch has none."""
+    x = params.get(key)
+    if x is None or ctx.mesh is None:
+        return x
+    return _gathered(x, _plan(param_specs(cfg)[key], ctx), ctx)
+
+
 # ---------------------------------------------------------------- attention
 
 
@@ -174,9 +252,55 @@ def _project_qkv(p, h):
             _proj(h, p["wv"], p.get("bv")))
 
 
-def _attn_out(p, o):
+def _heads(x, n_whole: int, split: bool, ctx: ShardingCtx):
+    """x [B, S, h, D], holding every one of `n_whole` heads or this rank's
+    block of them over `model` -> the layout `split` asks for: the rank's
+    block cut out of every head (no collective), or every head gathered
+    over `model`."""
+    local = x.shape[2] != n_whole
+    if split and not local:
+        n = n_whole // ctx.axis_sizes["model"]
+        return x.narrow(2, ctx.index("model") * n, n)
+    if local and not split:
+        return ctx.all_gather(x, "model", dim=2)
+    return x
+
+
+def _kv_for(q, kv, cfg: ArchConfig, ctx: ShardingCtx):
+    """The K or V heads that q's heads read, grouped as `attention` reads
+    them: every head for every q head; this rank's block of K/V heads for
+    its block of q heads (the groups align when h / m is a whole number of
+    groups, h / kh: checked); for a block of q heads over every K/V head,
+    the K/V heads its groups read (a slice where the block holds whole
+    groups, else each q head's own)."""
+    h, kh = cfg.n_heads, cfg.kv_heads
+    if q.shape[2] == h:
+        return _heads(kv, kh, False, ctx)
+    hl, g = q.shape[2], h // kh
+    if kv.shape[2] != kh:
+        if hl != g * kv.shape[2]:
+            raise ValueError(f"a rank's {hl} q heads do not read the groups "
+                             f"of its {kv.shape[2]} K/V heads (h {h}, kh "
+                             f"{kh})")
+        return kv
+    first = ctx.index("model") * hl
+    if hl % g == 0:
+        return kv.narrow(2, first // g, hl // g)
+    idx = (first + torch.arange(hl, device=kv.device)) // g
+    return kv.index_select(2, idx)
+
+
+def _attn_out(p, o, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
+    """The output projection of o [B, S, heads, hd]: row-parallel when `wo`
+    holds this rank's block of the heads (o brought to that block, the
+    partial products summed over `model`), then the bias, once."""
+    wo = p["wo"]
+    split = wo.shape[0] != cfg.n_heads
+    o = _heads(o, cfg.n_heads, split, ctx)
     b, s, h, hd = o.shape
-    out = o.reshape(b, s, h * hd) @ p["wo"].to(o.dtype).reshape(h * hd, -1)
+    out = o.reshape(b, s, h * hd) @ wo.to(o.dtype).reshape(h * hd, -1)
+    if split:
+        out = ctx.all_reduce(out, "sum")
     if "bo" in p:
         out = out + p["bo"].to(o.dtype)
     return out
@@ -187,15 +311,21 @@ def _ffn(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
     """The post-attention half of a block (MoE or SwiGLU MLP), on this
     rank's rows of the batch. Returns (x, aux): the MoE router's
     load-balancing aux loss (an f32 scalar; None for the MLP, and on a mesh
-    without `aux`), which the loss adds and the serving paths ignore."""
+    without `aux`), which the loss adds and the serving paths ignore. An
+    MLP whose weights hold this rank's block of its width (the placed
+    layout) is column-parallel, then row-parallel: its partial outputs
+    are summed over `model`."""
     if cfg.moe:
         h = rms_norm(x, p["moe_ln"], cfg.norm_eps)
         moe_o, a = moe_layer(p["moe"], h, cfg, ctx, aux=aux)
         return x + moe_o, a
     m = p["mlp"]
     h = rms_norm(x, m["ln"], cfg.norm_eps)
-    return x + swiglu(h, m["w_gate"].to(h.dtype), m["w_up"].to(h.dtype),
-                      m["w_down"].to(h.dtype)), None
+    out = swiglu(h, m["w_gate"].to(h.dtype), m["w_up"].to(h.dtype),
+                 m["w_down"].to(h.dtype))
+    if m["w_down"].shape[0] != cfg.d_ff:
+        out = ctx.all_reduce(out, "sum")
+    return x + out, None
 
 
 def _layer(layers, i: int):
@@ -216,53 +346,64 @@ def _unstack(layers):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def _unembed(params, x, ctx: ShardingCtx = NULL_CTX):
+def _unembed(params, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """f32 logits of x [B, S, d], under the reference's constraint of
     them to ``("batch", "seq", "vocab")`` (`ShardingCtx.constrain`: no
-    collective, each rank already holds its rows)."""
+    collective, each rank already holds its rows). A table that holds
+    this rank's block of the vocabulary (the placed layout; tied or
+    ``lm_head``) gives the logits of its block, gathered over `model`
+    along the vocabulary."""
     dt = x.dtype
-    table = params.get("lm_head")
+    table = _top(params, "lm_head", cfg, ctx)
     if table is None:
-        logits = x @ params["embed"].to(dt).T
+        logits = x @ _top(params, "embed", cfg, ctx).to(dt).T
     else:
         logits = x @ table.to(dt)
+    if logits.shape[-1] != cfg.vocab:
+        logits = ctx.all_gather(logits, "model", dim=-1)
     return ctx.constrain(logits.float(), ("batch", "seq", "vocab"))
 
 
 # ------------------------------------------------ dense prefill and decode
 
 
-def attn_full(p, x, cfg: ArchConfig, *, positions, causal=True, prefix=0,
-              rope=True):
+def attn_full(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
+              positions, causal=True, prefix=0, rope=True):
     """Full-sequence self-attention block (prefill, or the encoder with
     `causal` and `rope` off; the first `prefix` positions of a VLM prompt
-    attend both ways). Returns (attn_out, (k, v)) with the (roped) keys and
-    the values, for the cache."""
+    attend both ways), on the heads the weights hold: this rank's block
+    of them when `wq` holds one (the placed layout). Returns (attn_out,
+    (k, v)) with the (roped) keys and the values, for the cache, in the
+    heads `wk` and `wv` hold."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _project_qkv(p, h)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, q_pos=positions, k_pos=positions, causal=causal,
+    o = attention(q, _kv_for(q, k, cfg, ctx), _kv_for(q, v, cfg, ctx),
+                  q_pos=positions, k_pos=positions, causal=causal,
                   window=cfg.sliding_window, prefix=prefix,
                   impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    return _attn_out(p, o), (k, v)
+    return _attn_out(p, o, cfg, ctx), (k, v)
 
 
-def attn_cross_full(p, x, enc_out, cfg: ArchConfig):
+def attn_cross_full(p, x, enc_out, cfg: ArchConfig,
+                    ctx: ShardingCtx = NULL_CTX):
     """Cross-attention of the decoder's positions over the encoder's
-    output (no mask, no rope). Returns (attn_out, (k, v)): the encoder's
-    keys and values, the decode steps' static cross cache."""
+    output (no mask, no rope), on the heads the weights hold, as
+    `attn_full`. Returns (attn_out, (k, v)): the encoder's keys and
+    values, the decode steps' static cross cache."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = _proj(h, p["wq"], p.get("bq"))
     enc_out = enc_out.to(h.dtype)
     k = _proj(enc_out, p["wk"], p.get("bk"))
     v = _proj(enc_out, p["wv"], p.get("bv"))
     sq, sk = x.shape[1], enc_out.shape[1]
-    o = attention(q, k, v, q_pos=torch.arange(sq, device=x.device),
+    o = attention(q, _kv_for(q, k, cfg, ctx), _kv_for(q, v, cfg, ctx),
+                  q_pos=torch.arange(sq, device=x.device),
                   k_pos=torch.arange(sk, device=x.device), causal=False,
                   impl=cfg.attn_impl, chunk=cfg.attn_chunk)
-    return _attn_out(p, o), (k, v)
+    return _attn_out(p, o, cfg, ctx), (k, v)
 
 
 def ring_decode_attention(q, k_cache, v_cache, new_k, new_v, pos,
@@ -295,17 +436,25 @@ def attn_decode(p, x, cache, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
     a ring when the arch's window covers the cache; cross-attention reads
     the encoder's static K/V, all of it, and writes nothing. Each runs
     the flash-decode kernel; on a mesh `s_total` is the whole cache's
-    length (`common.flash_decode_attention`). Returns (attn_out, (k_cache,
-    v_cache))."""
+    length (`common.flash_decode_attention`). The cache decides the heads:
+    one that holds this rank's block of the K/V heads (the placed layout
+    where `model` does not split its sequence; a ring) is attended by the
+    rank's q heads with no gather; any other by every q head (gathered
+    over `model` when `wq` holds a block: a cache split by sequence takes
+    q and the new row with every head, as the reference's shard_map
+    does), the result cut back to `wo`'s block. Returns (attn_out,
+    (k_cache, v_cache))."""
     kc, vc = cache
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    split = kc.shape[2] != cfg.kv_heads
+    q = _heads(_proj(h, p["wq"], p.get("bq")), cfg.n_heads, split, ctx)
     if cross:
-        q = _proj(h, p["wq"], p.get("bq"))
         last = (kc.shape[1] if s_total is None else s_total) - 1
         o, _, _ = decode_attention(ctx, q, kc, vc, None, None, last,
                                    update=False, s_total=s_total)
-        return _attn_out(p, o), (kc, vc)
-    q, k, v = _project_qkv(p, h)
+        return _attn_out(p, o, cfg, ctx), (kc, vc)
+    k = _heads(_proj(h, p["wk"], p.get("bk")), cfg.kv_heads, split, ctx)
+    v = _heads(_proj(h, p["wv"], p.get("bv")), cfg.kv_heads, split, ctx)
     if rope:
         posv = torch.as_tensor(pos, device=x.device).reshape(1)
         q = apply_rope(q, posv, cfg.rope_theta)
@@ -316,7 +465,7 @@ def attn_decode(p, x, cache, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
         o, kc, vc = decode_attention(ctx, q, kc, vc, k, v, pos,
                                      update_mode=cfg.cache_update,
                                      s_total=s_total)
-    return _attn_out(p, o), (kc, vc)
+    return _attn_out(p, o, cfg, ctx), (kc, vc)
 
 
 def _is_ring(cfg: ArchConfig, s_kv: int) -> bool:
@@ -352,7 +501,7 @@ def block_full(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
             return x + out, None, {"h": h_fin, "conv": conv}
         return x + ssm_forward(p["ssm"], h, cfg), None, {}
     cache: Dict[str, Any] = {}
-    attn_o, (k, v) = attn_full(p["attn"], x, cfg, positions=positions,
+    attn_o, (k, v) = attn_full(p["attn"], x, cfg, ctx, positions=positions,
                                causal=causal, prefix=prefix, rope=rope)
     if cfg.hybrid:
         h = rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
@@ -368,7 +517,8 @@ def block_full(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
         cache["k"] = _ring_layout(k, cfg.sliding_window)
         cache["v"] = _ring_layout(v, cfg.sliding_window)
     if cross_src is not None:
-        cross_o, (ck, cv) = attn_cross_full(p["cross"], x, cross_src, cfg)
+        cross_o, (ck, cv) = attn_cross_full(p["cross"], x, cross_src, cfg,
+                                            ctx)
         if build_cache:
             cache["cross_k"], cache["cross_v"] = ck, cv
         x = x + cross_o
@@ -385,8 +535,7 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig,
     kv_len = kv_len or {}
     if cfg.family == "ssm":
         h = rms_norm(x, p["ssm_ln"], cfg.norm_eps)
-        out, st = ssm_decode(p["ssm"], {"h": layer_cache["h"],
-                                        "conv": layer_cache["conv"]}, h, cfg)
+        out, st = _ssm_step(p["ssm"], layer_cache, h, cfg, ctx)
         return x + out, st
     attn_o, (kc, vc) = attn_decode(p["attn"], x,
                                    (layer_cache["k"], layer_cache["v"]), cfg,
@@ -395,9 +544,7 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig,
     new: Dict[str, Any] = {"k": kc, "v": vc}
     if cfg.hybrid:
         h = rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
-        ssm_o, st = ssm_decode(p["ssm"], {"h": layer_cache["h"],
-                                          "conv": layer_cache["conv"]}, h,
-                               cfg)
+        ssm_o, st = _ssm_step(p["ssm"], layer_cache, h, cfg, ctx)
         new.update(st)
         x = x + 0.5 * (attn_o + ssm_o)
     else:
@@ -410,6 +557,21 @@ def block_decode(p, x, layer_cache, cfg: ArchConfig,
         x = x + cross_o
     x, _ = _ffn(p, x, cfg, ctx, aux=False)
     return x, new
+
+
+def _ssm_step(p, layer_cache, h, cfg: ArchConfig, ctx: ShardingCtx):
+    """`ssm_decode` on a layer's SSM state. A conv window held as this
+    rank's block of ``conv_dim`` (the placed layout) is gathered over
+    `model` for the step, and the new window cut back to the block."""
+    conv = layer_cache["conv"]
+    split = conv.shape[-1] != ssm_dims(cfg)["conv_dim"]
+    if split:
+        conv = ctx.all_gather(conv, "model", dim=-1)
+    out, st = ssm_decode(p, {"h": layer_cache["h"], "conv": conv}, h, cfg)
+    if split:
+        n = layer_cache["conv"].shape[-1]
+        st["conv"] = st["conv"].narrow(-1, ctx.index("model") * n, n)
+    return out, st
 
 
 def _saves_dots(func) -> bool:
@@ -469,7 +631,9 @@ def run_layers_full(layers, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
     """Apply every layer of a stack (the decoder's, or the encoder's) in a
     Python loop over its stacked axis, each under the reference's remat
     (`_rematted`). Returns (x, aux_sum, stacked_cache) with the layers'
-    aux losses summed in f32 and each cache leaf stacked to [L, ...]."""
+    aux losses summed in f32 and each cache leaf stacked to [L, ...].
+    Each layer's leaves are gathered just before it to the blocks its ops
+    compute with (`_gathered`), and freed after it."""
 
     def body(lp, x):
         return block_full(lp, x, cfg, ctx, positions=positions,
@@ -477,10 +641,11 @@ def run_layers_full(layers, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
                           cross_src=cross_src, build_cache=build_cache)
 
     body = _rematted(body, cfg)
+    plan = _plan(_layer_specs(cfg, cross=cross_src is not None), ctx)
     entries = []
     aux = None
     for lp in _unstack(layers):
-        x, a, cache = body(lp, x)
+        x, a, cache = body(_gathered(lp, plan, ctx), x)
         if a is not None:
             aux = a if aux is None else aux + a
         entries.append(cache)
@@ -495,11 +660,14 @@ def run_layers_decode(layers, caches, x, cfg: ArchConfig,
                       ctx: ShardingCtx = NULL_CTX, *, pos, kv_len=None):
     """All layers for one token. Layer i updates its slice of every stacked
     cache leaf ([L, B, S, KH, D] K/V rows, [L, B, H, P, N] SSM state, ...)
-    in place; no leaf is re-stacked. Returns (x, caches)."""
+    in place; no leaf is re-stacked. Each layer's leaves are gathered
+    just before it to the blocks its ops compute with (`_gathered`).
+    Returns (x, caches)."""
+    plan = _plan(_layer_specs(cfg, cross=cfg.enc_dec), ctx)
     for i in range(cfg.n_layers):
         lc = _layer(caches, i)
-        x, nc = block_decode(_layer(layers, i), x, lc, cfg, ctx, pos=pos,
-                             kv_len=kv_len)
+        x, nc = block_decode(_gathered(_layer(layers, i), plan, ctx), x, lc,
+                             cfg, ctx, pos=pos, kv_len=kv_len)
         for key, new in nc.items():
             if new is not lc[key]:
                 lc[key].copy_(new)
@@ -513,14 +681,22 @@ def _vlm_scale(cfg: ArchConfig) -> float:
                               dtype=torch_dtype(cfg.dtype)))
 
 
-def _embed_in(params, batch, cfg: ArchConfig):
+def _embed_tokens(params, tokens, cfg: ArchConfig, ctx: ShardingCtx):
+    """The tokens' embeddings in the compute type (vocab-parallel where the
+    table holds a block of the vocabulary: `common.embed_lookup`)."""
+    return embed_lookup(_top(params, "embed", cfg, ctx), tokens, ctx,
+                        cfg.vocab, torch_dtype(cfg.dtype))
+
+
+def _embed_in(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """Token embedding, after the VLM's projected patches (its text scaled
     by sqrt(d_model)). Returns (x, positions)."""
     dt = torch_dtype(cfg.dtype)
-    x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    x = _embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.vlm:
         x = x * _vlm_scale(cfg)
-        patches = batch["patches"].to(dt) @ params["patch_proj"].to(dt)
+        patches = batch["patches"].to(dt) @ \
+            _top(params, "patch_proj", cfg, ctx).to(dt)
         x = torch.cat([patches, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
@@ -536,7 +712,7 @@ def _encode(params, frames, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     x, _, _ = run_layers_full(params["enc_layers"], x, cfg, ctx,
                               positions=torch.arange(s, device=x.device),
                               causal=False, rope=False)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(x, _top(params, "enc_norm", cfg, ctx), cfg.norm_eps)
 
 
 def _pad_cache_seq(layer_caches, cfg: ArchConfig, pad_to: Optional[int]):
@@ -564,16 +740,16 @@ def _trunk(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
     aux_sum, stacked layer caches, the prefix's length)."""
     if cfg.enc_dec:
         enc_out = _encode(params, batch["frames"], cfg, ctx)
-        x = embed_lookup(params["embed"], batch["tokens"]).to(
-            torch_dtype(cfg.dtype))
-        x = x + params["dec_pos_embed"][: x.shape[1]].to(x.dtype)[None]
+        x = _embed_tokens(params, batch["tokens"], cfg, ctx)
+        pos_embed = _top(params, "dec_pos_embed", cfg, ctx)
+        x = x + pos_embed[: x.shape[1]].to(x.dtype)[None]
         positions = torch.arange(x.shape[1], device=x.device)
         x, aux, caches = run_layers_full(params["layers"], x, cfg, ctx,
                                          positions=positions, rope=False,
                                          cross_src=enc_out,
                                          build_cache=build_cache)
         return x, aux, caches, 0
-    x, positions = _embed_in(params, batch, cfg)
+    x, positions = _embed_in(params, batch, cfg, ctx)
     prefix = x.shape[1] - batch["tokens"].shape[1] if cfg.vlm else 0
     x, aux, caches = run_layers_full(params["layers"], x, cfg, ctx,
                                      positions=positions, prefix=prefix,
@@ -581,15 +757,46 @@ def _trunk(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
     return x, aux, caches, prefix
 
 
-def _hold_caches(layers, cfg: ArchConfig, ctx: ShardingCtx):
-    """Whole stacked caches -> this rank's (a copy of its slice of each
-    split one), and the whole K/V caches' lengths: a self-attention cache
-    (not a ring) and the cross cache are split by sequence over `model`
-    when it divides them, the reference's ``kv_seq`` layout."""
+_KV_KEYS = ("k", "v", "cross_k", "cross_v")
+
+
+def _placed_layout(params, cfg: ArchConfig, ctx: ShardingCtx) -> bool:
+    """Whether `params` are this rank's blocks placed by their rules
+    (`Model.place`) rather than held as serving holds them (every leaf
+    whole but the experts: `params.held_specs`), read from the leaves'
+    shapes. A tree whose every leaf has the same block in both layouts
+    counts as held."""
+    specs = param_specs(cfg)
+    held = dict(tree.paths(held_specs(specs, cfg, ctx)))
+    spec = dict(tree.paths(specs))
+    return any(tuple(x.shape) != block_shape(spec[path].shape, held[path], ctx)
+               for path, x in tree.paths(params))
+
+
+def _hold_caches(layers, params, cfg: ArchConfig, ctx: ShardingCtx):
+    """Whole stacked caches of this rank's rows -> the blocks it holds (a
+    copy of its block of each split one), in the layout of `params`
+    (`_placed_layout`), and the whole K/V caches' lengths. K/V computed on
+    this rank's block of the heads (placed weights) are first gathered
+    over `model` to every head. The held layout (serving's): a
+    self-attention cache (not a ring) and the cross cache split by
+    sequence over `model` when it divides them, the reference's
+    ``kv_seq`` layout, every other leaf whole. The placed layout (the
+    reference's ``cache_shardings``, `place_caches`): every leaf by its
+    logical axes (`cache_specs`) through the rules and their guard."""
     kv_len = {key: layers[key].shape[2] for key in ("k", "cross_k")
               if key in layers}
+    heads = [key for key in _KV_KEYS
+             if key in layers and layers[key].shape[3] != cfg.kv_heads]
+    if heads:
+        whole = gather_blocks([layers[key] for key in heads],
+                              [(None, None, None, "model")] * len(heads),
+                              [()] * len(heads), ctx)
+        layers = dict(layers, **dict(zip(heads, whole)))
+    if _placed_layout(params, cfg, ctx):
+        return place_caches(layers, cfg, ctx, rows=True), kv_len
     held = dict(layers)
-    for key in ("k", "v", "cross_k", "cross_v"):
+    for key in _KV_KEYS:
         if key not in layers:
             continue
         s_kv = layers[key].shape[2]
@@ -599,6 +806,28 @@ def _hold_caches(layers, cfg: ArchConfig, ctx: ShardingCtx):
         if spec:
             held[key] = local_shard(layers[key], spec, ctx).clone()
     return held, kv_len
+
+
+def place_caches(layers, cfg: ArchConfig, ctx: ShardingCtx, *,
+                 rows: bool = False):
+    """Whole stacked caches (``cache["layers"]``) -> this rank's blocks of
+    them placed as the reference's ``cache_shardings`` places them: each
+    leaf by its logical axes (`cache_specs`) through the rules and their
+    guard, K/V by sequence over `model` where it divides them, else by
+    heads where `model` divides those (a ring, whose axis is ``seq``, by
+    heads), the SSM conv window by ``conv_dim``, the SSM state by rows
+    alone. With `rows` the caches are already this rank's rows (a
+    prefill's of the rank's batch), and only the other axes are cut. A
+    split leaf is a copy of the rank's block; a whole one is the same
+    tensor."""
+    out = {}
+    for key, leaf in layers.items():
+        axes = _cache_axes(cfg, leaf.shape[2])[key]
+        if rows:
+            axes = tuple(None if a == "batch" else a for a in axes)
+        spec = ctx.spec(axes, leaf.shape)
+        out[key] = local_shard(leaf, spec, ctx).clone() if spec else leaf
+    return out
 
 
 def prefill(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
@@ -612,7 +841,11 @@ def prefill(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
     reference's is), "layers": stacked per-layer caches, K/V padded to
     `pad_to` rows (plus the prefix), a ring to its window}. On a mesh the
     batch is this rank's, the caches are this rank's shards, and
-    ``cache["kv_len"]`` holds the whole K/V caches' lengths."""
+    ``cache["kv_len"]`` holds the whole K/V caches' lengths. The
+    parameters may be held or placed (`Model.place`): each op reads their
+    layout from their shapes, and the caches come out in the same layout
+    (`_hold_caches`): held as serving holds them, or placed as the
+    reference's ``cache_shardings`` places them (`place_caches`)."""
     x, _, layer_caches, prefix = _trunk(params, batch, cfg, ctx,
                                         build_cache=True)
     if pad_to is not None:
@@ -621,10 +854,11 @@ def prefill(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
                                device=x.device),
              "layers": _pad_cache_seq(layer_caches, cfg, pad_to)}
     if ctx.mesh is not None:
-        cache["layers"], cache["kv_len"] = _hold_caches(cache["layers"], cfg,
-                                                        ctx)
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return cache, _unembed(params, x, ctx)
+        cache["layers"], cache["kv_len"] = _hold_caches(
+            cache["layers"], params, cfg, ctx)
+    x = rms_norm(x[:, -1:], _top(params, "final_norm", cfg, ctx),
+                 cfg.norm_eps)
+    return cache, _unembed(params, x, cfg, ctx)
 
 
 # --------------------------------------------------------------------- loss
@@ -647,8 +881,8 @@ def loss_fn(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     x, aux, _, prefix = _trunk(params, batch, cfg, ctx, build_cache=False)
     if prefix:
         x = x[:, prefix:]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = _xent(_unembed(params, x, ctx), batch["targets"])
+    x = rms_norm(x, _top(params, "final_norm", cfg, ctx), cfg.norm_eps)
+    loss = _xent(_unembed(params, x, cfg, ctx), batch["targets"])
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux}
 
@@ -658,61 +892,68 @@ def decode_step(params, cache, batch, cfg: ArchConfig,
     """One decode step for the whole batch at the cache's position.
     batch["tokens"]: [B, 1]; cache["pos"]: a 0-d int32 tensor on the
     caches' device, which the step never reads on the host (so that it
-    replays as a CUDA graph: `launch.serve.jit_decode_step`): an enc-dec
+    replays as a CUDA graph: `runtime.steps.jit_decode_step`): an enc-dec
     decoder reads its learned position at ``min(pos, max_dec - 1)``
     through a device index. The caches are updated in place. Returns
     (logits [B, 1, V] f32, {"pos": pos + 1, a new tensor, "layers": the
     same caches, and on a mesh the same "kv_len"})."""
     dt = torch_dtype(cfg.dtype)
     pos = cache["pos"]
-    x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    x = _embed_tokens(params, batch["tokens"], cfg, ctx)
     if cfg.vlm:
         x = x * _vlm_scale(cfg)
     if cfg.enc_dec:
-        table = params["dec_pos_embed"]
+        table = _top(params, "dec_pos_embed", cfg, ctx)
         row = torch.clamp(torch.as_tensor(pos, device=x.device),
                           max=table.shape[0] - 1).long().reshape(1)
         x = x + table.index_select(0, row).to(dt)[None]
     x, layers = run_layers_decode(params["layers"], cache["layers"], x, cfg,
                                   ctx, pos=pos, kv_len=cache.get("kv_len"))
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, _top(params, "final_norm", cfg, ctx), cfg.norm_eps)
     new = {"pos": pos + 1, "layers": layers}
     if "kv_len" in cache:
         new["kv_len"] = cache["kv_len"]
-    return _unembed(params, x, ctx), new
+    return _unembed(params, x, cfg, ctx), new
 
 
 # -------------------------------------------------------------- cache specs
 
 
+def _cache_axes(cfg: ArchConfig, s_kv: int) -> Dict[str, tuple]:
+    """Each stacked cache leaf's logical axes, for a self-attention cache
+    of `s_kv` rows: K/V over ``kv_seq`` (a ring over ``seq``), the enc-dec
+    cross K/V over ``kv_seq``, the SSM state and conv window."""
+    seq_axis = "seq" if _is_ring(cfg, s_kv) else "kv_seq"
+    kv = ("layers", "batch", seq_axis, "kv_heads", "head_dim")
+    return {"k": kv, "v": kv,
+            "cross_k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+            "cross_v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+            "h": ("layers", "batch", "ssm_heads", None, "ssm_state"),
+            "conv": ("layers", "batch", "width", "conv_dim")}
+
+
 def cache_specs(cfg: ArchConfig, shape: ShapeSuite) -> Dict[str, Any]:
     """The decode cache of a shape suite as a spec tree (shapes, logical
-    axes, types): K/V over ``kv_seq`` (a ring over ``seq``), the enc-dec
-    cross K/V over ``kv_seq``, the SSM state and conv window."""
+    axes (`_cache_axes`), types)."""
     b = shape.global_batch
     hd = cfg.resolved_head_dim
     n = cfg.n_layers
     dt = cfg.dtype
+    s_kv = cache_seq_len(cfg, shape)
+    axes = _cache_axes(cfg, s_kv)
     layer: Dict[str, ParamSpec] = {}
     if cfg.has_attention:
-        s_kv = cache_seq_len(cfg, shape)
-        seq_axis = "seq" if _is_ring(cfg, s_kv) else "kv_seq"
         for key in ("k", "v"):
-            layer[key] = ParamSpec(
-                (n, b, s_kv, cfg.kv_heads, hd),
-                ("layers", "batch", seq_axis, "kv_heads", "head_dim"), dt)
+            layer[key] = ParamSpec((n, b, s_kv, cfg.kv_heads, hd), axes[key],
+                                   dt)
     if cfg.enc_dec:
         for key in ("cross_k", "cross_v"):
-            layer[key] = ParamSpec(
-                (n, b, shape.seq_len, cfg.kv_heads, hd),
-                ("layers", "batch", "kv_seq", "kv_heads", "head_dim"), dt)
+            layer[key] = ParamSpec((n, b, shape.seq_len, cfg.kv_heads, hd),
+                                   axes[key], dt)
     if cfg.ssm or cfg.hybrid:
         shapes = ssm_cache_shape(cfg, b)
-        layer["h"] = ParamSpec(
-            (n,) + shapes["h"][0],
-            ("layers", "batch", "ssm_heads", None, "ssm_state"), "float32")
-        layer["conv"] = ParamSpec((n,) + shapes["conv"][0],
-                                  ("layers", "batch", "width", "conv_dim"), dt)
+        layer["h"] = ParamSpec((n,) + shapes["h"][0], axes["h"], "float32")
+        layer["conv"] = ParamSpec((n,) + shapes["conv"][0], axes["conv"], dt)
     return {"pos": ParamSpec((), (), "int32"), "layers": layer}
 
 
@@ -734,7 +975,7 @@ def paged_attn_decode(p, x, k_pool, v_pool, cfg: ArchConfig, *, block_tables,
     k_pool, v_pool = paged_cache_append(k_pool, v_pool, block_tables, lengths,
                                         k, v)
     o = paged_decode_attention(q, k_pool, v_pool, block_tables, lengths + 1)
-    return _attn_out(p, o), k_pool, v_pool
+    return _attn_out(p, o, cfg), k_pool, v_pool
 
 
 def paged_attn_prefill_chunk(p, x, k_pool, v_pool, cfg: ArchConfig, *,
@@ -755,7 +996,7 @@ def paged_attn_prefill_chunk(p, x, k_pool, v_pool, cfg: ArchConfig, *,
     k_pool, v_pool = paged_cache_append_chunk(k_pool, v_pool, block_tables,
                                               start, k, v, n_valid)
     o = paged_prefill_attention(q, k_pool, v_pool, block_tables, pos)
-    return _attn_out(p, o), k_pool, v_pool
+    return _attn_out(p, o, cfg), k_pool, v_pool
 
 
 def supports_paged_decode(cfg: ArchConfig) -> bool:
@@ -791,8 +1032,7 @@ def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
     if not supports_paged_decode(cfg):
         raise ValueError(f"paged decode unsupported for family {cfg.family!r} "
                          f"(sliding_window={cfg.sliding_window})")
-    dt = torch_dtype(cfg.dtype)
-    x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    x = _embed_tokens(params, batch["tokens"], cfg, ctx)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
@@ -801,7 +1041,7 @@ def decode_step_paged(params, k_pools, v_pools, block_tables, lengths, batch,
             block_tables=block_tables, lengths=lengths)
         x = _paged_ffn(lp, x + attn_o, cfg, ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, x, ctx), k_pools, v_pools
+    return _unembed(params, x, cfg, ctx), k_pools, v_pools
 
 
 def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
@@ -823,8 +1063,7 @@ def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
     if not supports_paged_decode(cfg):
         raise ValueError(f"paged prefill unsupported for family {cfg.family!r} "
                          f"(sliding_window={cfg.sliding_window})")
-    dt = torch_dtype(cfg.dtype)
-    x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    x = _embed_tokens(params, batch["tokens"], cfg, ctx)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
@@ -837,5 +1076,5 @@ def prefill_chunk_paged(params, k_pools, v_pools, block_tables, start, batch,
     row = torch.as_tensor(n_valid, device=x.device).long().reshape(1) - 1
     last = x.index_select(1, row)                        # [1, 1, d]
     last = rms_norm(last, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(params, last, ctx)[:, 0]
+    logits = _unembed(params, last, cfg, ctx)[:, 0]
     return logits, k_pools, v_pools

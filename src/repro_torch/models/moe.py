@@ -46,11 +46,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.moe_gmm.ops import moe_gmm
 from repro_torch.models.params import ParamSpec
-from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
+from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard, \
+    shard_map
 
 __all__ = ["EXPERT_SPECS", "ep_sharded", "moe_dense", "moe_ep_a2a",
            "moe_ep_replicated", "moe_layer", "moe_layer_whole",
-           "moe_param_specs", "router_topk"]
+           "moe_param_specs", "router_logits", "router_topk"]
 
 GMM_F_TILE = 128
 
@@ -77,15 +78,31 @@ def moe_param_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int
+def router_logits(x: torch.Tensor, w_router: torch.Tensor, cfg: ArchConfig,
+                  ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+    """x: [T, d] -> the router's f32 logits [T, E] over every expert. A
+    router that holds this rank's block of the experts over `model` (the
+    placed layout, column-parallel) gives its block of the logits, and
+    they are gathered over `model` before the softmax and the top-k, so
+    that the routing and the aux term are the whole router's."""
+    logits = x.float() @ w_router.float()
+    if w_router.shape[1] != cfg.n_experts:
+        logits = ctx.all_gather(logits, "model", dim=-1)
+    return logits
+
+
+def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int, *,
+                logits: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [T, d] -> (gates [T, k] in x's type, experts [T, k] int32,
-    Switch-style load-balancing aux loss, an f32 scalar)."""
-    logits = x.float() @ w_router.float()
+    Switch-style load-balancing aux loss, an f32 scalar). `logits`, when
+    given, are x's f32 logits over every expert (`router_logits`)."""
+    if logits is None:
+        logits = x.float() @ w_router.float()
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, top_k, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    e = w_router.shape[1]
+    e = logits.shape[1]
     me = probs.mean(0)
     ce = F.one_hot(experts[:, 0], e).float().mean(0)
     aux = e * torch.sum(me * ce)
@@ -115,18 +132,26 @@ def _expert_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return moe_gmm(h, wd.to(dt))
 
 
-def moe_dense(p, x: torch.Tensor, cfg: ArchConfig):
+def moe_dense(p, x: torch.Tensor, cfg: ArchConfig,
+              ctx: ShardingCtx = NULL_CTX):
     """Dense backend: every expert for every token, combined by masks.
 
     x: [B, S, d] -> (y [B, S, d], aux). Exact dropless combine;
-    O(T * E * d * dff) flops."""
+    O(T * E * d * dff) flops. Experts that hold this rank's block of
+    their width over `model` (placed where `model` does not divide the
+    experts: column-parallel, then row-parallel) give partial outputs,
+    summed over `model`."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    gates, experts, aux = router_topk(xt, p["router"], cfg.top_k)
+    gates, experts, aux = router_topk(
+        xt, p["router"], cfg.top_k,
+        logits=router_logits(xt, p["router"], cfg, ctx))
     outs = _expert_ffn(xt[None], p["w_gate"], p["w_up"], p["w_down"])  # [E,T,d]
     comb = F.one_hot(experts.long(), cfg.n_experts).to(xt.dtype) \
         * gates[..., None]                                          # [T,k,E]
     y = torch.einsum("tke,etd->td", comb, outs)
+    if p["w_down"].shape[1] != cfg.d_ff_expert:
+        y = ctx.all_reduce(y, "sum")
     return y.reshape(b, s, d), aux
 
 
@@ -176,13 +201,21 @@ def _combine_local(buf: torch.Tensor, meta, t: int) -> torch.Tensor:
     return by_token.reshape(t, -1, d).sum(1)
 
 
-def _local_experts(p, n_model: int, cfg: ArchConfig) -> int:
-    e_l = cfg.n_experts // n_model
-    if p["w_gate"].shape[0] != e_l:
-        raise ValueError(f"expert-parallel over {n_model} ranks holds "
-                         f"{e_l} experts a rank, got "
-                         f"{p['w_gate'].shape[0]} (models.params.local_params)")
-    return e_l
+def _expert_parallel(body, p, x, cfg: ArchConfig, ctx: ShardingCtx,
+                     x_spec):
+    """`body(p, x)` through `sharding.shard_map` with the reference's
+    specs: the experts split over `model` (`EXPERT_SPECS`; a block that
+    is not E / n experts of the layer's raises ValueError), the tokens
+    `x_spec`, the aux term replicated."""
+    whole = {k: (cfg.n_experts,) + (None,) * (p[k].ndim - 1)
+             for k, spec in EXPERT_SPECS.items() if spec}
+    return shard_map(body, ctx=ctx, in_specs=(EXPERT_SPECS, x_spec),
+                     out_specs=(x_spec, ()))(p, x, whole=(whole, None))
+
+
+def _batch_spec(ctx: ShardingCtx):
+    dp = tuple(a for a in ctx.mesh.axis_names if a in ("pod", "data"))
+    return dp if len(dp) > 1 else (dp[0] if dp else None)
 
 
 def moe_ep_a2a(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardingCtx, *,
@@ -195,14 +228,28 @@ def moe_ep_a2a(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardingCtx, *,
     the grouped-matmul kernel runs them, all_to_all sends them back, and
     the combine weighs them; an all_gather over `model` makes the
     activation whole again. Returns (y [B_l, S, d], the router's aux loss
-    averaged over every rank, or None without `aux`)."""
+    averaged over every rank, or None without `aux`). A router that holds
+    its block of the experts (the placed layout) takes the logits of
+    every position, which each rank of `model` holds, gathers them and
+    keeps its positions'."""
+    return _expert_parallel(lambda p, x: _a2a_body(p, x, cfg, ctx, aux),
+                            p, x, cfg, ctx, (_batch_spec(ctx), "model"))
+
+
+def _a2a_body(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardingCtx,
+              aux: bool):
     n = ctx.axis_sizes["model"]
-    e_l = _local_experts(p, n, cfg)
+    e_l = cfg.n_experts // n
     b, s, d = x.shape
     sl = s // n
     r = ctx.index("model")
     xt = x[:, r * sl:(r + 1) * sl].reshape(b * sl, d)
-    gates, experts, a = router_topk(xt, p["router"], cfg.top_k)
+    logits = None
+    if p["router"].shape[1] != cfg.n_experts:
+        logits = router_logits(x.reshape(b * s, d), p["router"], cfg, ctx)
+        logits = logits.reshape(b, s, -1)[:, r * sl:(r + 1) * sl] \
+            .reshape(b * sl, -1)
+    gates, experts, a = router_topk(xt, p["router"], cfg.top_k, logits=logits)
     buf, meta = _dispatch_local(xt, gates, experts, cfg,
                                 _capacity(xt.shape[0], cfg))
     e, c, _ = buf.shape
@@ -224,11 +271,20 @@ def moe_ep_replicated(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardingCtx,
     (the grouped-matmul kernel over ``[1, T, d]`` at expert stride 0),
     keeps the assignments to its experts, and a sum over `model` combines
     them. Returns (y [B_l, S, d], aux as `moe_ep_a2a`)."""
+    return _expert_parallel(
+        lambda p, x: _replicated_body(p, x, cfg, ctx, aux), p, x, cfg, ctx,
+        (_batch_spec(ctx),))
+
+
+def _replicated_body(p, x: torch.Tensor, cfg: ArchConfig, ctx: ShardingCtx,
+                     aux: bool):
     n = ctx.axis_sizes["model"]
-    e_l = _local_experts(p, n, cfg)
+    e_l = cfg.n_experts // n
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    gates, experts, a = router_topk(xt, p["router"], cfg.top_k)
+    gates, experts, a = router_topk(
+        xt, p["router"], cfg.top_k,
+        logits=router_logits(xt, p["router"], cfg, ctx))
     rel = experts - ctx.index("model") * e_l
     local = (rel >= 0) & (rel < e_l)
     outs = _expert_ffn(xt[None], p["w_gate"], p["w_up"], p["w_down"])
@@ -261,7 +317,7 @@ def moe_layer(p, x: torch.Tensor, cfg: ArchConfig,
         if x.shape[1] % ctx.axis_sizes["model"] == 0:
             return moe_ep_a2a(p, x, cfg, ctx, aux=aux)
         return moe_ep_replicated(p, x, cfg, ctx, aux=aux)
-    return moe_dense(p, x, cfg)
+    return moe_dense(p, x, cfg, ctx)
 
 
 def moe_layer_whole(p, x: torch.Tensor, cfg: ArchConfig,
@@ -277,7 +333,7 @@ def moe_layer_whole(p, x: torch.Tensor, cfg: ArchConfig,
     reference's shard_map refuses it, on every rank and before any
     collective. Returns y [B, S, d]."""
     if not ep_sharded(cfg, ctx):
-        return moe_dense(p, x, cfg)[0]
+        return moe_dense(p, x, cfg, ctx)[0]
     axes = tuple(a for a in ctx.mesh.axis_names if a in ("pod", "data"))
     n = ctx.axis_size(axes or None)
     if x.shape[0] % n:

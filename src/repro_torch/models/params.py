@@ -18,11 +18,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.sharding import NULL_CTX, ShardingCtx, local_shard
+from repro_torch.sharding import NULL_CTX, ShardingCtx, block_shape, \
+    local_shard
 
 __all__ = ["ParamSpec", "abstract", "count", "held_specs", "initialize",
            "is_spec", "local_params", "map_specs", "params_from_numpy",
-           "partition_specs", "placed_params", "torch_dtype"]
+           "partition_specs", "placed_params", "shardings", "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +83,14 @@ def abstract(tree):
 def partition_specs(tree, ctx: ShardingCtx):
     """Every spec's partition spec under `ctx`'s rules (a tuple a leaf)."""
     return map_specs(lambda s: ctx.spec(s.axes, s.shape), tree)
+
+
+def shardings(tree, ctx: ShardingCtx):
+    """`partition_specs` on a mesh, None without one (the reference's
+    ``shardings``: its `NamedSharding`s are the specs here)."""
+    if ctx.mesh is None:
+        return None
+    return partition_specs(tree, ctx)
 
 
 def held_specs(tree, cfg, ctx: ShardingCtx):
@@ -145,31 +154,41 @@ def _fan_in_scale(s: ParamSpec) -> float:
     return 1.0 / float(np.sqrt(max(fan_in, 1)))
 
 
-def initialize(spec_tree, generator: torch.Generator, device) -> Dict[str, Any]:
+def initialize(spec_tree, generator: torch.Generator, device, *,
+               ctx: ShardingCtx = NULL_CTX) -> Dict[str, Any]:
     """Materialize real parameter tensors on `device`, one leaf at a time.
 
     normal / fan_in leaves are drawn in f32 from `generator` (which must
     live on `device`) and cast to the spec's dtype; a stacked ``[L, ...]``
     leaf is drawn one layer slice at a time, so the transient f32 copy is
-    one layer, not the whole stack. The numbers differ from the reference
-    package's (a torch generator is not a jax key); tests that compare the
-    two packages bridge the reference's parameters with `params_from_numpy`.
+    one layer, not the whole stack. On a mesh (`ctx`) each leaf is this
+    rank's block of it placed by its rules (`partition_specs`): every
+    slice is drawn whole and cut, so the numbers are those of
+    `placed_params` of the whole draw, and a rank never holds a whole
+    stacked leaf. The numbers differ from the reference package's (a
+    torch generator is not a jax key); tests that compare the two
+    packages bridge the reference's parameters with `params_from_numpy`.
     """
     device = torch.device(device)
 
     def make(s: ParamSpec) -> torch.Tensor:
         dt = torch_dtype(s.dtype)
+        spec = ctx.spec(s.axes, s.shape)
+        shape = block_shape(s.shape, spec, ctx)
         if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=dt, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if s.init == "ones":
-            return torch.ones(s.shape, dtype=dt, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
         scale = _fan_in_scale(s) if s.init == "fan_in" else s.scale
-        out = torch.empty(s.shape, dtype=dt, device=device)
-        slices = out if len(s.shape) >= 3 else out[None]
+        out = torch.empty(shape, dtype=dt, device=device)
+        stacked = len(s.shape) >= 3
+        slices = out if stacked else out[None]
+        part_shape = s.shape[1:] if stacked else s.shape
+        part_spec = spec[1:] if stacked else spec
         for part in slices:
-            draw = torch.randn(part.shape, generator=generator,
+            draw = torch.randn(part_shape, generator=generator,
                                dtype=torch.float32, device=device)
-            part.copy_(draw.mul_(scale))
+            part.copy_(local_shard(draw, part_spec, ctx).mul_(scale))
         return out
 
     return map_specs(make, spec_tree)

@@ -27,15 +27,26 @@ class Model:
         """Meta tensors of every parameter (no memory)."""
         return pm.abstract(self.param_specs())
 
-    def init(self, generator: torch.Generator, device):
+    def init(self, generator: torch.Generator, device, *,
+             placed: bool = False):
         """Random parameters on `device`, drawn from `generator` (which
         must live on that device); on a mesh, this rank's shard of them
         (`params.local_params`: each leaf drawn whole, so every rank draws
-        the same numbers)."""
+        the same numbers), or with `placed` its blocks placed by their
+        rules (`place` of the same draw, cut slice by slice as drawn)."""
+        if placed:
+            return pm.initialize(self.param_specs(), generator, device,
+                                 ctx=self.ctx)
         params = pm.initialize(self.param_specs(), generator, device)
         if self.ctx.mesh is None:
             return params
         return pm.local_params(params, self.cfg, self.ctx)
+
+    def param_shardings(self):
+        """Every parameter's partition spec by its rules on a mesh (the
+        placed layout: `place`, `runtime.steps.jit_decode_step`), None
+        without one."""
+        return pm.shardings(self.param_specs(), self.ctx)
 
     def param_partition_specs(self):
         return pm.partition_specs(self.param_specs(), self.ctx)
@@ -88,6 +99,25 @@ class Model:
 
     def cache_partition_specs(self, shape: ShapeSuite):
         return pm.partition_specs(self.cache_specs(shape), self.ctx)
+
+    def cache_shardings(self, shape: ShapeSuite):
+        """Every leaf of the decode cache of `shape` by its rules on a mesh
+        (the layout `runtime.steps.jit_decode_step` takes and returns),
+        None without one."""
+        return pm.shardings(self.cache_specs(shape), self.ctx)
+
+    def place_cache(self, cache):
+        """A whole decode cache (``{"pos", "layers"}``, every rank's rows)
+        -> this rank's blocks of it placed as `cache_shardings` places
+        them (`lm.place_caches`), with the whole K/V caches' lengths under
+        ``"kv_len"`` on a mesh."""
+        layers = cache["layers"]
+        out = {"pos": cache["pos"],
+               "layers": lm.place_caches(layers, self.cfg, self.ctx)}
+        if self.ctx.mesh is not None:
+            out["kv_len"] = {k: layers[k].shape[2] for k in ("k", "cross_k")
+                             if k in layers}
+        return out
 
 
 def build_model(cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX) -> Model:

@@ -21,7 +21,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.core import tree
-from repro_torch.sharding import NULL_CTX, ShardingCtx, split_axes
+from repro_torch.sharding import NULL_CTX, ShardingCtx, shard_map, split_axes
 
 __all__ = ["compressed_psum", "dequantize_int8", "ef_compress",
            "ef_compress_", "init_error_state", "quantize_int8"]
@@ -122,8 +122,13 @@ def compressed_psum(x: torch.Tensor, ctx: ShardingCtx,
     the int8 values are summed as int32 over the axis (exact for up to
     2^23 ranks), and the sum is dequantized with the largest of the ranks'
     scales. Returns a new tensor in `x`'s type, the same on every rank of
-    the axis."""
-    q, scale = quantize_int8(x.float())
-    total = ctx.all_reduce(q.to(torch.int32), "sum", axis)
-    scale = ctx.all_reduce(scale, "max", axis)
-    return dequantize_int8(total, scale).to(x.dtype)
+    the axis. The body runs through `sharding.shard_map` on the rank's
+    block, as the reference runs it inside one."""
+
+    def body(x):
+        q, scale = quantize_int8(x.float())
+        total = ctx.all_reduce(q.to(torch.int32), "sum", axis)
+        scale = ctx.all_reduce(scale, "max", axis)
+        return dequantize_int8(total, scale).to(x.dtype)
+
+    return shard_map(body, ctx=ctx, in_specs=((),), out_specs=())(x)

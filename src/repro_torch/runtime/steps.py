@@ -31,6 +31,14 @@ whole max. AdamW updates each rank's blocks; a block that several ranks
 hold gets the same reduced bytes on each, so the copies stay equal with no
 broadcast. The sharding helpers give the batch's and the state's partition
 specs and the state's meta tensors.
+
+The serving steps: `make_prefill_step` and `make_decode_step` (the
+functional steps), and the reference's placed steps, `jit_prefill_step`
+(the prefill its dry-run jits) and `jit_decode_step(model, shape)`, which
+on a running mesh take the parameters placed by `Model.param_shardings`
+and the caches by `Model.cache_shardings(shape)`, in and out, and run
+eagerly; without a mesh `jit_decode_step` is the one-device step every
+serving loop reuses (a CUDA graph on the card).
 """
 from __future__ import annotations
 
@@ -48,9 +56,10 @@ from repro_torch.sharding import (ShardingCtx, block_shape, gather_blocks,
                                   local_shard, reduce_blocks)
 
 __all__ = ["abstract_state", "batch_shardings", "gather_params",
-           "held_state_specs", "jit_train_step", "local_batch",
-           "make_decode_step", "make_prefill_step", "make_train_step",
-           "reduce_grads", "state_shardings", "value_and_grad"]
+           "held_state_specs", "jit_decode_step", "jit_prefill_step",
+           "jit_train_step", "local_batch", "make_decode_step",
+           "make_prefill_step", "make_train_step", "reduce_grads",
+           "state_shardings", "value_and_grad"]
 
 
 # ----------------------------------------------------------------- sharding
@@ -324,6 +333,11 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
 
 
 def make_prefill_step(model: Model, *, pad_to: Optional[int] = None):
+    """Returns prefill_step(params, batch) -> (cache, last logits). The
+    cache comes out in the layout of the parameters it is handed
+    (`models.lm.prefill`): placed parameters give the caches placed as
+    `Model.cache_shardings` places them (the reference dry-run's prefill,
+    whose ``out_shardings`` are those)."""
     def prefill_step(params, batch):
         return model.prefill(params, batch, pad_to=pad_to)
     return prefill_step
@@ -333,3 +347,121 @@ def make_decode_step(model: Model):
     def decode_step(params, cache, batch):
         return model.decode_step(params, cache, batch)
     return decode_step
+
+
+def _placed_blocks(model: Model, wholes, specs):
+    """The placed block shape of each leaf of `wholes` (meta tensors)
+    under `specs`, keyed by its path, for `_check_placed`."""
+    return {path: block_shape(w.shape, spec, model.ctx) for (path, w), spec in
+            zip(tree.paths(wholes), tree.leaves(specs))}
+
+
+def _check_placed(what: str, got, want) -> None:
+    """Raise ValueError unless every leaf of `got` has its placed block's
+    shape in `want` (`_placed_blocks`)."""
+    paths = dict(tree.paths(got))
+    if set(paths) != set(want):
+        raise ValueError(f"{what}: leaves {sorted(map('/'.join, paths))}, "
+                         f"the placed tree's {sorted(map('/'.join, want))}")
+    for path, x in paths.items():
+        if tuple(x.shape) != want[path]:
+            raise ValueError(f"{what} leaf {'/'.join(path)} is held as "
+                             f"{tuple(x.shape)}; its placed block is "
+                             f"{want[path]}")
+
+
+def _placed_params(model: Model):
+    return _placed_blocks(model, model.abstract_params(),
+                          model.param_shardings())
+
+
+def jit_prefill_step(model: Model, *, pad_to: Optional[int] = None):
+    """The placed prefill the reference's dry-run jits (``in_shardings`` the
+    parameters' and the batch's, ``out_shardings`` the cache's): returns
+    step(params, batch) -> (cache, last logits). On a running mesh
+    `params` are this rank's blocks by `Model.param_shardings` (another
+    layout raises ValueError), `batch` its rows (`local_batch`), and the
+    cache comes back placed as `Model.cache_shardings` places it, with
+    the whole K/V caches' lengths under ``"kv_len"``; the step runs
+    eagerly (gloo's collectives cannot be captured). Without a mesh it is
+    `Model.prefill`, as the serving launcher runs it."""
+    ctx = model.ctx
+    fn = make_prefill_step(model, pad_to=pad_to)
+    if ctx.mesh is None:
+        return fn
+    ctx._running()
+    want = _placed_params(model)
+
+    def step(params, batch):
+        _check_placed("placed prefill params", params, want)
+        return fn(params, batch)
+
+    return step
+
+
+def _one_device_decode_step(model: Model):
+    """`jit_decode_step` without a mesh, as the reference's
+    ``jax.jit(model.decode_step, donate_argnums=(1,))``: the same call as
+    `model.decode_step` (params, cache, batch) -> (logits, cache).
+
+    On CUDA tensors each call replays a CUDA graph of `model.decode_step`
+    (`core.step_graph.StepGraph`), captured at the first call for these
+    parameters, caches and batch shape, and again whenever one of them
+    changes; the caches are updated in place, as the reference donates
+    them. The logits and the cache's ``pos`` it returns are the graph's
+    output buffers: the next call overwrites them, so a caller reads them
+    first (`launch.serve.timed_decode_loop` takes the argmax and scans the
+    logits before its next call). On CPU tensors it is
+    `model.decode_step`, run eagerly. The graph is the function's
+    ``graph`` attribute."""
+
+    def step(params, layers, pos, tokens):
+        return model.decode_step(params, {"pos": pos, "layers": layers},
+                                 {"tokens": tokens})
+
+    graph = StepGraph(step, "dense_decode")
+
+    def decode(params, cache, batch):
+        return graph((params, cache["layers"]),
+                     (cache["pos"], batch["tokens"]))
+
+    decode.graph = graph
+    return decode
+
+
+def jit_decode_step(model: Model, shape=None):
+    """The reference's ``jit_decode_step(model, shape)``: step(params,
+    cache, batch) -> (logits, cache), the cache updated in place (the
+    reference donates it).
+
+    On a running mesh the parameters are this rank's blocks by
+    `Model.param_shardings` and the cache its blocks by
+    `Model.cache_shardings(shape)` (`jit_prefill_step` gives them, or
+    `Model.place_cache`), in and out; a leaf held otherwise raises
+    ValueError. Each layer's leaves are gathered over `data` just before
+    the layer; attention and the MLP are tensor-parallel over `model`,
+    the MoE expert-parallel (`models.lm`). The step runs eagerly on every
+    rank: gloo's collectives cannot be captured in a CUDA graph. Without a
+    mesh `shape` is not read, and the step is the one every serving loop
+    reuses (`_one_device_decode_step`: a CUDA graph on the card)."""
+    ctx = model.ctx
+    if ctx.mesh is None:
+        return _one_device_decode_step(model)
+    if shape is None:
+        raise ValueError("jit_decode_step on a mesh needs the shape suite "
+                         "whose caches it holds (Model.cache_shardings)")
+    ctx._running()
+    fn = make_decode_step(model)
+    want = _placed_params(model)
+    whole = model.abstract_cache(shape)
+    want_cache = _placed_blocks(model, whole["layers"],
+                                model.cache_shardings(shape)["layers"])
+
+    def step(params, cache, batch):
+        _check_placed("placed decode params", params, want)
+        _check_placed("placed decode cache", cache["layers"], want_cache)
+        logits, new = fn(params, cache, batch)
+        _check_placed("placed decode cache", new["layers"], want_cache)
+        return logits, new
+
+    return step

@@ -50,6 +50,13 @@ computes with, and `reduce_blocks` takes each rank's gradient shares there
 to the sum's placed block, a reduce-scatter built from an all_to_all of
 the blocks as all_gather's backward is. Neither has a backward: the step
 gathers once, differentiates the gathered leaves, and reduces once.
+Serving on the placed layout (`models.lm`) gathers each layer's blocks
+with `gather_blocks` just before the layer.
+
+`shard_map` is the reference's: the manual regions (the sequence-split
+decode, the expert-parallel MoE, the compressed sum) run their bodies
+through it on this rank's blocks, each checked against its spec's block
+of the whole tensor's shape; `tree_shardings` gives a tree's specs.
 """
 from __future__ import annotations
 
@@ -66,7 +73,7 @@ __all__ = ["AxisVal", "BUCKET_ELEMS", "DEFAULT_RULES", "DryGroup", "Mesh",
            "NULL_CTX", "ShardingCtx", "block_shape", "collective_stats",
            "dry_mesh", "gather_blocks",
            "local_shard", "reduce_blocks", "reset_collective_stats",
-           "split_axes", "tree_specs"]
+           "shard_map", "split_axes", "tree_shardings", "tree_specs"]
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -98,7 +105,7 @@ DEFAULT_RULES: Dict[str, AxisVal] = {
 # This process's collectives since the last reset: calls, bytes sent in,
 # and (when timed) seconds, each call timed from a device sync before it to
 # one after it, so that it holds the collective alone; and the calls and
-# bytes by kind (``all-reduce``, ``all-to-all``, ``all-gather``: the
+# bytes (and, when timed, seconds) by kind (``all-reduce``, ``all-to-all``, ``all-gather``: the
 # reference's HLO names; the port's reduce-scatters are all_to_alls).
 _STATS: Dict[str, Any] = {"calls": 0, "bytes": 0, "s": 0.0, "timed": False,
                           "by_kind": {}}
@@ -142,7 +149,9 @@ def _counted(x: torch.Tensor, kind: str):
     yield
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
-    _STATS["s"] += time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    _STATS["s"] += dt
+    k["s"] = k.get("s", 0.0) + dt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -691,3 +700,73 @@ def tree_specs(ctx: ShardingCtx, spec_tree, shape_tree):
     if _is_axes(spec_tree):
         return ctx.spec(spec_tree, shape_tree)
     return {k: tree_specs(ctx, v, shape_tree[k]) for k, v in spec_tree.items()}
+
+
+def tree_shardings(ctx: ShardingCtx, spec_tree, shape_tree):
+    """`tree_specs` on a mesh, None without one (the reference's
+    ``tree_shardings``: its `NamedSharding`s are the specs here)."""
+    if ctx.mesh is None:
+        return None
+    return tree_specs(ctx, spec_tree, shape_tree)
+
+
+def _check_block(name: str, x, spec, whole, ctx: ShardingCtx) -> None:
+    """Raise ValueError unless `x` (a tensor, or a dict of them with dicts
+    of specs and of whole shapes) is this rank's block under `spec` of a
+    tensor of shape `whole` (a None dimension, or a None `whole`, is not
+    checked)."""
+    if whole is None or x is None:
+        return
+    if isinstance(x, dict):
+        for k, v in x.items():
+            _check_block(f"{name}[{k!r}]", v, spec[k] if isinstance(
+                spec, dict) else spec, whole.get(k), ctx)
+        return
+    want = block_shape([1 if w is None else w for w in whole], spec, ctx)
+    got = tuple(x.shape)
+    if len(got) != len(whole) or any(
+            w is not None and g != b for g, w, b in zip(got, whole, want)):
+        shown = tuple("?" if w is None else b for w, b in zip(whole, want))
+        raise ValueError(f"shard_map argument {name!r}: a block of shape "
+                         f"{got}, where spec {tuple(spec)} of a tensor of "
+                         f"{tuple(whole)} gives blocks of {shown}")
+
+
+def shard_map(fn, *, ctx: ShardingCtx, in_specs, out_specs):
+    """The reference's ``shard_map`` where every rank already holds its
+    blocks: the returned function runs `fn` on this rank's blocks as they
+    are, and adds no collective (the body's own are its collectives).
+
+    It is called with the blocks, and, as ``whole=``, the shapes of the
+    whole tensors they are blocks of: one a positional argument, None for
+    one not checked, a None dimension for a dimension the rank does not
+    know (the batch's rows), a dict for a dict of tensors. A block whose
+    shape is not `block_shape` of its whole under its spec of `in_specs`
+    raises ValueError naming the argument, before `fn` runs. `fn`'s
+    result has one entry a spec of `out_specs` (a tuple of them for a
+    tuple result), each output this rank's block under it."""
+    import inspect
+
+    try:
+        names = [p.name for p in inspect.signature(fn).parameters.values()]
+    except (TypeError, ValueError):
+        names = []
+
+    def mapped(*args, whole=None):
+        if len(args) != len(in_specs):
+            raise ValueError(f"shard_map: {len(args)} arguments for "
+                             f"{len(in_specs)} in_specs")
+        for i, (x, spec) in enumerate(zip(args, in_specs)):
+            name = names[i] if i < len(names) else f"argument {i}"
+            _check_block(name, x, spec, None if whole is None else whole[i],
+                         ctx)
+        out = fn(*args)
+        if isinstance(out_specs, list) or (isinstance(out_specs, tuple) and
+                                           not _is_axes(out_specs)):
+            if not isinstance(out, tuple) or len(out) != len(out_specs):
+                raise ValueError(f"shard_map: {len(out_specs)} out_specs "
+                                 f"for a result of {type(out).__name__}")
+        return out
+
+    mapped.in_specs, mapped.out_specs = tuple(in_specs), out_specs
+    return mapped

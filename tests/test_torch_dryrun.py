@@ -111,44 +111,75 @@ def test_train_argument_bytes_equal_the_references(reference, port):
         reference[cell]["memory"]["argument_size_in_bytes"]
 
 
-def test_decode_argument_bytes_differ_by_the_held_layout(reference, port):
-    """granite-moe decode_32k: the port serves with every leaf whole but
-    the experts (`held_param_specs`), the reference with the leaves placed
-    (`partition_specs`); the cache and the batch are the same bytes. The
-    difference is exactly the parameters' held blocks less their placed
-    blocks."""
-    cell = ("granite-moe-1b-a400m", "decode_32k")
-    assert port[cell]["layout"] == "held"
-    cfg = get_config(cell[0])
-    ctx = ShardingCtx(mesh=Mesh(("data", "model"), (4, 2)))
+def _held_decode_trace(arch: str, shape_name: str, mesh):
+    """The held layout's decode traced on rank 0 of the dry `mesh`: every
+    parameter leaf whole but the experts (`held_param_specs`), the cache a
+    rank's rows with the K/V caches split by sequence over `model` where
+    the reference splits them (``kv_seq``), every other axis whole. What
+    the dry-run traced for serving before it placed the serving steps.
+    Returns (the trace, the model)."""
+    cfg = get_config(arch).replace(scan_layers=False)
+    suite = dryrun.SHAPES[shape_name]
+    ctx = ShardingCtx(mesh=sharding.dry_mesh(mesh))
     model = build_model(cfg, ctx)
+    params = pm.local_params(model.abstract_params(), cfg, ctx)
+
+    def held(s):
+        axes = tuple(a if a in ("batch", "kv_seq") else None for a in s.axes)
+        return ctx.spec(axes, s.shape)
+
+    whole = model.abstract_cache(suite)
+    cache = tree.map_tree(
+        lambda x, spec: sharding.local_shard(x, spec, ctx).clone()
+        if spec else x, whole, pm.map_specs(held, model.cache_specs(suite)))
+    cache["kv_len"] = {k: whole["layers"][k].shape[2]
+                       for k in ("k", "cross_k") if k in whole["layers"]}
+    batch = dryrun._rows(decode_batch_specs(cfg, suite), ctx)
+    return dryrun.trace_step(make_decode_step(model),
+                             (params, cache, batch)), model
+
+
+def test_decode_argument_bytes_differ_by_the_held_layout(reference, port):
+    """granite-moe decode_32k: the dry-run places the parameters by
+    `partition_specs` and the cache by `cache_shardings`, as the reference
+    does, so its argument bytes are the reference's exactly; the held
+    layout's (every leaf whole but the experts, `held_param_specs`) exceed
+    them by exactly its parameters' blocks less their placed blocks."""
+    cell = ("granite-moe-1b-a400m", "decode_32k")
+    assert port[cell]["layout"] == "placed"
+    assert port[cell]["memory"]["argument_size_in_bytes"] == \
+        reference[cell]["memory"]["argument_size_in_bytes"]
+    held, model = _held_decode_trace(*cell, Mesh(("data", "model"), (4, 2)))
+    ctx = model.ctx
     extra = 0
-    for (path, s), held, placed in zip(
+    for (path, s), spec_held, placed in zip(
             tree.paths(model.param_specs()),
             tree.leaves(model.held_param_specs()),
             tree.leaves(model.param_partition_specs())):
         isz = pm.torch_dtype(s.dtype).itemsize
-        extra += (math.prod(block_shape(s.shape, held, ctx))
+        extra += (math.prod(block_shape(s.shape, spec_held, ctx))
                   - math.prod(block_shape(s.shape, placed, ctx))) * isz
     assert extra > 0
-    assert port[cell]["memory"]["argument_size_in_bytes"] - extra == \
+    assert held["memory"]["argument_size_in_bytes"] - extra == \
         reference[cell]["memory"]["argument_size_in_bytes"]
 
 
 # The traced FLOPs a chip against XLA's ``hlo_flops_per_chip`` for the same
-# cell (measured: port / reference = 1.569 for the train cell, 0.190 for
-# the decode cell). By category:
-#   * the held layout: the port's rank computes the dense (non-expert)
-#     projections of all its rows whole, on every rank of `model` (2 here),
-#     where the reference's GSPMD step splits them over `model`: up to 2x
-#     the matmul FLOPs (the train cell, whose every leaf is dense);
+# cell (measured: port / reference = 1.569 for the train cell, 0.185 for
+# the decode cell, 0.190 before the placed serving step). By category:
+#   * training's held layout: the port's rank computes the dense
+#     (non-expert) projections of all its rows whole, on every rank of
+#     `model` (2 here), where the reference's GSPMD step splits them over
+#     `model`: up to 2x the matmul FLOPs (the train cell, whose every leaf
+#     is dense); the placed decode step splits them (tensor parallelism),
+#     as the reference does;
 #   * elementwise ops: the trace counts matmuls and the kernels' products
 #     only, XLA counts every elementwise op too (norms, gates, softmax,
 #     converts, and in decode the select over the whole cache that the
 #     reference's ``cache_update="full"`` writes): the decode cell's
 #     reference count is ~5x its matmuls, the train cell's ~1.3x;
 #   * both count remat's recomputed forward.
-FLOPS_RATIO = {"mamba2-130m": 1.569, "granite-moe-1b-a400m": 0.190}
+FLOPS_RATIO = {"mamba2-130m": 1.569, "granite-moe-1b-a400m": 0.185}
 FLOPS_TOL = 0.05       # relative, about the measured ratio
 
 
@@ -193,16 +224,13 @@ def _real_args(model, kind: str, ctx: ShardingCtx):
         state["nu"] = model.place(tree.map_tree(torch.zeros_like, whole))
         return make_train_step(model, AdamWConfig()), \
             (state, local_batch(ctx, batch(batch_specs(cfg, suite))))
-    params = pm.local_params(whole, cfg, ctx)
+    params = model.place(whole)
     if kind == "prefill":
         return make_prefill_step(model), \
             (params, local_batch(ctx, batch(batch_specs(cfg, suite))))
-    whole_cache = tree.map_tree(lambda m: torch.zeros(m.shape, dtype=m.dtype),
-                                model.abstract_cache(suite))
-    cache = dryrun._cut_tree(whole_cache, dryrun._cache_specs(model, suite),
-                             ctx)
-    cache["kv_len"] = {k: whole_cache["layers"][k].shape[2]
-                       for k in ("k",) if k in whole_cache["layers"]}
+    cache = model.place_cache(tree.map_tree(
+        lambda m: torch.zeros(m.shape, dtype=m.dtype),
+        model.abstract_cache(suite)))
     return make_decode_step(model), \
         (params, cache, local_batch(ctx, batch(decode_batch_specs(cfg,
                                                                   suite))))
@@ -392,18 +420,68 @@ def test_every_cell_of_a_mesh_is_ok_or_skipped_as_the_reference_says(
             assert r["chips"] == 256
             assert r["dominant"] in ("compute_s", "memory_s",
                                      "collective_s")
-            assert r["layout"] == ("placed" if r["kind"] == "train"
-                                   else "held")
+            assert r["layout"] == "placed"
 
 
 def test_yi_decode_useful_ratio_is_the_held_layouts():
-    """yi-6b decode_32k on the single mesh: every rank of the 16-way
-    `model` axis repeats the dense projections over its rows, so the
-    useful FLOPs ratio is near 1/7 (the yardstick of the layout the
-    reference's GSPMD step partitions)."""
+    """yi-6b decode_32k on the single mesh: on the held layout every rank
+    of the 16-way `model` axis repeats the dense projections over its
+    rows, so its useful FLOPs ratio is near 1/7; the dry-run's placed
+    step splits them over `model` (tensor parallelism), leaving whole only
+    what the guard does (`wk`/`wv`: 4 K/V heads on 16 ranks), so its
+    ratio is above 0.5."""
+    from repro_torch import roofline
+
     rec = dryrun.run_cell("yi-6b", "decode_32k", "single", verbose=False)
-    assert 0.13 < rec["useful_flops_ratio"] < 0.15
+    assert rec["layout"] == "placed"
+    assert rec["useful_flops_ratio"] >= 0.5
     assert rec["collective_bytes"]          # the split cache's merge
+    held, model = _held_decode_trace("yi-6b", "decode_32k",
+                                     dryrun._mesh("single"))
+    useful = roofline.model_flops(model.cfg, dryrun.SHAPES["decode_32k"],
+                                  "decode") / rec["chips"]
+    assert 0.13 < useful / held["flops"] < 0.15
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "internlm2-20b",
+                                  "command-r-plus-104b"])
+def test_dense_decode_useful_ratio_on_the_placed_layout(arch):
+    """The other dense archs' decode_32k on the single mesh: at least 0.5
+    of the traced FLOPs are useful on the placed layout (the held
+    layout's were 0.091-0.172), every record placed."""
+    rec = dryrun.run_cell(arch, "decode_32k", "single", verbose=False)
+    assert rec["layout"] == "placed"
+    assert rec["useful_flops_ratio"] >= 0.5
+
+
+def test_placed_argument_bytes_are_the_placed_leaves():
+    """yi-6b prefill and decode on (1, 2): the argument bytes a chip are the
+    placed parameters, plus the placed cache and the rows of the batch's
+    tokens (the one input the steps read)."""
+    shape = (1, 2)
+    mesh = Mesh(("data", "model"), shape)
+    ctx = ShardingCtx(mesh=mesh)
+    cfg = get_config("yi-6b")
+    model = build_model(cfg, ctx)
+    params = sum(math.prod(block_shape(s.shape, spec, ctx))
+                 * pm.torch_dtype(s.dtype).itemsize
+                 for s, spec in zip(tree.leaves(model.param_specs()),
+                                    tree.leaves(model.param_shardings())))
+    assert params == 12_122_603_520
+    for kind in ("prefill", "decode"):
+        suite = dryrun.SHAPES[f"{kind}_32k"]
+        _, fn, args, layout = dryrun._build_step(cfg, suite, mesh)
+        assert layout == "placed"
+        rec = dryrun.trace_step(fn, args)
+        tokens = args[-1]["tokens"]         # the rows the step reads
+        want = params + tokens.numel() * tokens.element_size()
+        if kind == "decode":
+            whole = model.abstract_cache(suite)
+            want += sum(math.prod(block_shape(x.shape, spec, ctx))
+                        * x.element_size() for x, spec in zip(
+                            tree.leaves(whole),
+                            tree.leaves(model.cache_shardings(suite))))
+        assert rec["memory"]["argument_size_in_bytes"] == want, kind
 
 
 def test_main_records_an_error_and_exits_1(tmp_path, monkeypatch):

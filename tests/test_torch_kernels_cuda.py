@@ -2369,3 +2369,70 @@ def test_cost_at_the_tables_shape_gives_the_tables_bound(name, cost,
     flops, nbytes = cost()
     ms = max(nbytes / HBM_BW, flops / PEAK[itemsize]) * 1e3
     assert ms == pytest.approx(bound, rel=1e-4)
+
+
+# ------------------------------------------- the placed serving step
+
+
+def _placed_serve_rank(ctx):
+    """Reduced f32 yi-6b on this rank from one draw (seed 0 on the CPU,
+    moved to the rank's device): the held layout's `serve`, then the
+    placed step (`serve_placed`: weights and caches by their rules,
+    tensor-parallel over `model`) with its launches counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import serve, serve_placed
+    from repro_torch.models import build_model
+
+    cfg = get_config("yi-6b").reduced().replace(dtype="float32",
+                                                param_dtype="float32")
+    model = build_model(cfg, ctx)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    held = tree.map_tree(lambda x: x.to(ctx.device), model.init(gen, "cpu"))
+    gen.manual_seed(0)
+    placed = tree.map_tree(lambda x: x.to(ctx.device),
+                           model.init(gen, "cpu", placed=True))
+    kw = dict(batch=4, prompt_len=16, gen=5, seed=0)
+    want = serve(cfg, ctx=ctx, device=ctx.device.type, params=held, **kw)
+    reset_launch_counts()
+    got = serve_placed(cfg, ctx=ctx, device=ctx.device.type, params=placed,
+                       **kw)
+    return {"held": want["generated"], "placed": got["generated"],
+            "launches": launch_counts(), "n_layers": cfg.n_layers}
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_placed_serving_step_on_the_card_gives_the_held_tokens(cuda_device,
+                                                               shape):
+    """Two gloo ranks sharing the card: the placed prefill and
+    `jit_decode_step` generate the held layout's tokens, each rank
+    launching K3 once a layer a decode step."""
+    from repro_torch.launch.mesh import spawn
+
+    for run in spawn(_placed_serve_rank, shape, device="cuda",
+                     backend="gloo", timeout_s=300):
+        assert run["placed"] == run["held"]
+        assert run["launches"]["flash_decode"] == run["n_layers"] * 4
+
+
+def test_shard_map_refuses_a_misshapen_block_on_the_card(cuda_device):
+    """`sharding.shard_map` and the sequence-split decode through it refuse
+    a CUDA block whose shape is not its spec's block, before any
+    collective, naming the argument."""
+    from repro_torch.models.common import flash_decode_attention
+    from repro_torch.sharding import Mesh, ShardingCtx, shard_map
+
+    ctx = ShardingCtx(mesh=Mesh(("data", "model"), (1, 2)))
+    fn = shard_map(lambda cache: cache.sum(), ctx=ctx,
+                   in_specs=((None, "model"),), out_specs=())
+    fn(torch.zeros(2, 8, device=cuda_device), whole=((None, 16),))
+    with pytest.raises(ValueError, match="'cache'"):
+        fn(torch.zeros(2, 16, device=cuda_device), whole=((None, 16),))
+    q = torch.zeros(1, 1, 4, 16, device=cuda_device)
+    whole_cache = torch.zeros(1, 16, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="'k_cache'"):
+        flash_decode_attention(ctx, q, whole_cache, whole_cache, None, None,
+                               torch.tensor(3, device=cuda_device),
+                               update=False, s_total=16)
