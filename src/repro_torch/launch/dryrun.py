@@ -11,11 +11,13 @@ and runs on the CPU of any machine.
 
 The steps (`_build_step`) and rank 0's inputs:
 
-  * train: `runtime.steps.make_train_step` (the functional step: the
-    placed parameters gathered once to the layout the model computes with,
-    forward, backward under the reference's remat, the gradients
-    reduce-scattered into the placed blocks, AdamW); the state placed by
-    its rules (`Model.place`: params, mu, nu), the batch's rows
+  * train: `runtime.steps.make_train_step` (the functional step, on the
+    placed blocks: each layer's leaves gathered over ``data`` inside its
+    remat and again in the recompute, attention, the MLP, the logits and
+    the loss tensor-parallel over ``model``, the gather's backward
+    reduce-scattering each gradient into its block, an all_reduce over
+    the axes that do not place a leaf, AdamW); the state placed by its
+    rules (`Model.place`: params, mu, nu), the batch's rows
     (`local_batch`'s cut). Layout ``"placed"``;
   * prefill: `make_prefill_step` (`runtime.steps.
     jit_prefill_step`'s step); the parameters placed by their rules
@@ -26,9 +28,10 @@ The steps (`_build_step`) and rank 0's inputs:
     ``cache_shardings`` (`Model.place_cache`), the batch's rows. Layout
     ``"placed"``.
 
-Serving on the placed layout gathers each layer's leaves over ``data``
-just before the layer and runs attention and the MLP tensor-parallel over
-``model`` (`models.lm`), as the reference's placed step is partitioned.
+Every step on the placed layout gathers each layer's leaves over
+``data`` just before the layer and runs attention and the MLP
+tensor-parallel over ``model`` (`models.lm`), as the reference's placed
+steps are partitioned; no rank holds the whole parameters.
 
 A trace sees every layer, so the counts are of the full depth, exactly
 (``depth_info.mode`` ``"traced_full_depth"``; ``--full-unroll`` gives the

@@ -40,19 +40,22 @@ or chunk, and the KV pools, whole on every rank, as the reference does:
 there `ctx` reaches only the MoE layers (`_paged_ffn`) and the
 unembedding.
 
-The dense engine's functions also take the placed layout, the reference's
-placed serving step (`runtime.steps.jit_prefill_step`, `jit_decode_step`):
-every parameter placed by its rules (`Model.place`) and every cache leaf
-by ``cache_specs`` (`place_caches`). One code path serves both layouts:
-each op decides from the leaf it is handed. Each layer's leaves are
-gathered just before the layer over the axes no op computes in parallel
+The dense engine's functions and the loss also take the placed layout,
+the reference's placed steps (`runtime.steps.jit_prefill_step`,
+`jit_decode_step`, and the train step on a mesh): every parameter placed
+by its rules (`Model.place`) and every cache leaf by ``cache_specs``
+(`place_caches`). One code path serves both layouts: each op decides from
+the leaf it is handed. Each layer's leaves are gathered at the start of
+the layer, inside its remat, over the axes no op computes in parallel
 (`_gathered`: ``data``, and a ``model`` split outside `PARALLEL_AXES`,
-as the SSM's), which on the held layout gathers nothing; attention is
-column-parallel over the heads `wq`/`wk`/`wv` hold and row-parallel
-through `wo` (one sum over `model`), the MLP likewise, the embedding and
-the logits vocab-parallel, the MoE router's logits gathered, and a cache
-held by heads (a ring, or a sequence `model` does not divide) attended by
-the rank's heads.
+as the SSM's), which on the held layout gathers nothing; in grad mode the
+gather's backward reduce-scatters the gradients into the rank's blocks
+(`sharding.gather_blocks`). Attention is column-parallel over the heads
+`wq`/`wk`/`wv` hold and row-parallel through `wo` (one sum over `model`),
+the MLP likewise, the embedding and the logits vocab-parallel (the loss
+too: `_xent_split`), the MoE router's logits gathered, and a cache held by
+heads (a ring, or a sequence `model` does not divide) attended by the
+rank's heads.
 """
 from __future__ import annotations
 
@@ -266,28 +269,53 @@ def _heads(x, n_whole: int, split: bool, ctx: ShardingCtx):
     return x
 
 
+def _kv_span(hl: int, cfg: ArchConfig, ctx: ShardingCtx):
+    """(first, count): the K/V heads that this rank's block of `hl` q heads
+    over `model` reads."""
+    g = cfg.n_heads // cfg.kv_heads
+    first = ctx.index("model") * hl
+    return first // g, (first + hl - 1) // g - first // g + 1
+
+
 def _kv_for(q, kv, cfg: ArchConfig, ctx: ShardingCtx):
     """The K or V heads that q's heads read, grouped as `attention` reads
-    them: every head for every q head; this rank's block of K/V heads for
-    its block of q heads (the groups align when h / m is a whole number of
-    groups, h / kh: checked); for a block of q heads over every K/V head,
-    the K/V heads its groups read (a slice where the block holds whole
-    groups, else each q head's own)."""
+    them: every head for every q head; for a block of q heads over `model`,
+    from every K/V head or from the span of them the block reads
+    (`_kv_span`: this rank's block of K/V heads where `wk` holds one, or
+    the span `_kv_weights` cut), the K/V heads its groups read (the kv
+    itself or a slice where the block holds whole groups, else each q
+    head's own)."""
     h, kh = cfg.n_heads, cfg.kv_heads
     if q.shape[2] == h:
         return _heads(kv, kh, False, ctx)
     hl, g = q.shape[2], h // kh
-    if kv.shape[2] != kh:
-        if hl != g * kv.shape[2]:
-            raise ValueError(f"a rank's {hl} q heads do not read the groups "
-                             f"of its {kv.shape[2]} K/V heads (h {h}, kh "
-                             f"{kh})")
-        return kv
     first = ctx.index("model") * hl
-    if hl % g == 0:
-        return kv.narrow(2, first // g, hl // g)
-    idx = (first + torch.arange(hl, device=kv.device)) // g
+    lo, n = _kv_span(hl, cfg, ctx)
+    if kv.shape[2] == kh:
+        kv = kv.narrow(2, lo, n)
+    elif kv.shape[2] != n:
+        raise ValueError(f"a rank's {hl} q heads do not read the groups of "
+                         f"its {kv.shape[2]} K/V heads (h {h}, kh {kh})")
+    if n == 1 or (hl == g * n and first % g == 0):
+        return kv
+    idx = (first + torch.arange(hl, device=kv.device)) // g - lo
     return kv.index_select(2, idx)
+
+
+def _kv_weights(p, hl: int, cfg: ArchConfig, ctx: ShardingCtx):
+    """Attention weights `p` whose `wk`/`wv` hold every K/V head (the
+    guard keeps them whole where `model` does not divide the K/V heads)
+    cut to the span that this rank's block of `hl` q heads reads
+    (`_kv_span`), so that only those heads are projected; `p` itself
+    where `wq` holds every head or `wk` a block."""
+    if hl == cfg.n_heads or p["wk"].shape[1] != cfg.kv_heads:
+        return p
+    lo, n = _kv_span(hl, cfg, ctx)
+    out = dict(p, wk=p["wk"].narrow(1, lo, n), wv=p["wv"].narrow(1, lo, n))
+    for key in ("bk", "bv"):
+        if key in p:
+            out[key] = p[key].narrow(0, lo, n)
+    return out
 
 
 def _attn_out(p, o, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
@@ -346,20 +374,22 @@ def _unstack(layers):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def _unembed(params, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
+def _unembed(params, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
+             whole: bool = True):
     """f32 logits of x [B, S, d], under the reference's constraint of
     them to ``("batch", "seq", "vocab")`` (`ShardingCtx.constrain`: no
     collective, each rank already holds its rows). A table that holds
     this rank's block of the vocabulary (the placed layout; tied or
     ``lm_head``) gives the logits of its block, gathered over `model`
-    along the vocabulary."""
+    along the vocabulary when `whole` (the loss takes them split:
+    `_xent_split`)."""
     dt = x.dtype
     table = _top(params, "lm_head", cfg, ctx)
     if table is None:
         logits = x @ _top(params, "embed", cfg, ctx).to(dt).T
     else:
         logits = x @ table.to(dt)
-    if logits.shape[-1] != cfg.vocab:
+    if whole and logits.shape[-1] != cfg.vocab:
         logits = ctx.all_gather(logits, "model", dim=-1)
     return ctx.constrain(logits.float(), ("batch", "seq", "vocab"))
 
@@ -368,15 +398,18 @@ def _unembed(params, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
 
 
 def attn_full(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
-              positions, causal=True, prefix=0, rope=True):
+              positions, causal=True, prefix=0, rope=True, kv_all=True):
     """Full-sequence self-attention block (prefill, or the encoder with
     `causal` and `rope` off; the first `prefix` positions of a VLM prompt
     attend both ways), on the heads the weights hold: this rank's block
     of them when `wq` holds one (the placed layout). Returns (attn_out,
     (k, v)) with the (roped) keys and the values, for the cache, in the
-    heads `wk` and `wv` hold."""
+    heads `wk` and `wv` hold; without `kv_all` (no cache: the loss) a
+    block of q heads over whole `wk`/`wv` projects only the K/V heads it
+    reads (`_kv_weights`), and (k, v) hold those."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _project_qkv(p, h)
+    q, k, v = _project_qkv(p if kv_all else _kv_weights(
+        p, p["wq"].shape[1], cfg, ctx), h)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -502,7 +535,8 @@ def block_full(p, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX, *,
         return x + ssm_forward(p["ssm"], h, cfg), None, {}
     cache: Dict[str, Any] = {}
     attn_o, (k, v) = attn_full(p["attn"], x, cfg, ctx, positions=positions,
-                               causal=causal, prefix=prefix, rope=rope)
+                               causal=causal, prefix=prefix, rope=rope,
+                               kv_all=build_cache)
     if cfg.hybrid:
         h = rms_norm(x, p["attn"]["ln"], cfg.norm_eps)
         if build_cache:
@@ -632,20 +666,26 @@ def run_layers_full(layers, x, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX,
     Python loop over its stacked axis, each under the reference's remat
     (`_rematted`). Returns (x, aux_sum, stacked_cache) with the layers'
     aux losses summed in f32 and each cache leaf stacked to [L, ...].
-    Each layer's leaves are gathered just before it to the blocks its ops
-    compute with (`_gathered`), and freed after it."""
+    Each layer's leaves are gathered to the blocks its ops compute with
+    (`_gathered`) at the start of its body, inside the remat: the
+    checkpoint keeps only the rank's blocks and x, the gathered leaves are
+    freed after the layer and gathered again in its recompute, and in grad
+    mode the gather's backward reduce-scatters their gradients into the
+    rank's blocks."""
+
+    plan = _plan(_layer_specs(cfg, cross=cross_src is not None), ctx)
 
     def body(lp, x):
-        return block_full(lp, x, cfg, ctx, positions=positions,
-                          causal=causal, prefix=prefix, rope=rope,
-                          cross_src=cross_src, build_cache=build_cache)
+        return block_full(_gathered(lp, plan, ctx), x, cfg, ctx,
+                          positions=positions, causal=causal, prefix=prefix,
+                          rope=rope, cross_src=cross_src,
+                          build_cache=build_cache)
 
     body = _rematted(body, cfg)
-    plan = _plan(_layer_specs(cfg, cross=cross_src is not None), ctx)
     entries = []
     aux = None
     for lp in _unstack(layers):
-        x, a, cache = body(_gathered(lp, plan, ctx), x)
+        x, a, cache = body(lp, x)
         if a is not None:
             aux = a if aux is None else aux + a
         entries.append(cache)
@@ -872,17 +912,40 @@ def _xent(logits, targets):
     return (lse - gold).mean()
 
 
+def _xent_split(logits, targets, ctx: ShardingCtx):
+    """`_xent` of f32 logits [B, S, V / model] that hold this rank's block
+    of the vocabulary over `model` (vocab-parallel, as GSPMD partitions
+    the reference's loss under its ``vocab`` constraint): the row max over
+    `model` taken on detached values (it cancels in the gradient), then
+    one sum over `model` of each row's exps below it and of its gold
+    logit, which only the rank that owns the target adds. Every rank of a
+    `model` line gets the same loss, and the logits are never gathered."""
+    n = logits.shape[-1]
+    top = ctx.all_reduce(logits.detach().amax(-1), "max")
+    local = targets.long() - ctx.index("model") * n
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    sums = ctx.all_reduce(torch.stack([
+        torch.exp(logits - top[..., None]).sum(-1),
+        torch.where(mine, gold, torch.zeros_like(gold))]), "sum")
+    return (top + torch.log(sums[0]) - sums[1]).mean()
+
+
 def loss_fn(params, batch, cfg: ArchConfig, ctx: ShardingCtx = NULL_CTX):
     """Next-token CE loss plus ``router_aux_coef`` x the MoE aux loss, for
     every family: batch["tokens"] and ["targets"] [B, S] (with ["frames"]
     for an enc-dec arch, ["patches"] for a VLM, whose prefix positions
     are cut before the unembedding). Returns (total, {"loss", "aux"}),
-    f32 scalars."""
+    f32 scalars. Logits that hold this rank's block of the vocabulary
+    (the placed layout) take the vocab-parallel cross-entropy
+    (`_xent_split`)."""
     x, aux, _, prefix = _trunk(params, batch, cfg, ctx, build_cache=False)
     if prefix:
         x = x[:, prefix:]
     x = rms_norm(x, _top(params, "final_norm", cfg, ctx), cfg.norm_eps)
-    loss = _xent(_unembed(params, x, cfg, ctx), batch["targets"])
+    logits = _unembed(params, x, cfg, ctx, whole=False)
+    loss = _xent(logits, batch["targets"]) if logits.shape[-1] == cfg.vocab \
+        else _xent_split(logits, batch["targets"], ctx)
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux}
 

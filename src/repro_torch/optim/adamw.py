@@ -26,6 +26,13 @@ from repro_torch.sharding import NULL_CTX, ShardingCtx, split_axes
 __all__ = ["AdamWConfig", "apply_updates", "apply_updates_", "global_norm",
            "init_state", "lr_schedule"]
 
+# On a mesh `apply_updates_` updates a leaf in runs of its leading axis of
+# at most this many bytes of f32: the same elementwise arithmetic, with
+# each temporary (up to ~9 alive at once, each of the run's size) a run's,
+# so that the update does not set a rank's peak memory. The mesh step is
+# eager; the one-device step, a CUDA graph, updates each leaf whole.
+UPDATE_RUN_BYTES = 64 << 20
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -142,12 +149,28 @@ def apply_updates_(state: Dict[str, Any], grads, cfg: AdamWConfig, *,
     arithmetic, leaf by leaf, each leaf's new params, mu and nu copied
     into its old ones, and the step advanced in place. The counterpart of
     the reference's donated state: a CUDA graph of the train step keeps
-    no second copy of params, mu and nu. Returns {"lr", "grad_norm"}."""
+    no second copy of params, mu and nu. On a mesh each leaf goes in runs
+    along its leading axis (`UPDATE_RUN_BYTES`), bitwise the same update.
+    Returns {"lr", "grad_norm"}."""
     step, lr, gnorm, *coef = _update_scalars(state, grads, cfg, ctx, specs)
-    for p, g, mu, nu in _leaves(state, grads):
-        new_p, new_mu, new_nu = _update_leaf(p, g, mu, nu, lr, *coef, cfg)
-        p.copy_(new_p)
-        mu.copy_(new_mu)
-        nu.copy_(new_nu)
+    for leaf in _leaves(state, grads):
+        for p, g, mu, nu in _runs(leaf, ctx):
+            new_p, new_mu, new_nu = _update_leaf(p, g, mu, nu, lr, *coef,
+                                                 cfg)
+            p.copy_(new_p)
+            mu.copy_(new_mu)
+            nu.copy_(new_nu)
     state["step"].copy_(step)
     return {"lr": lr, "grad_norm": gnorm}
+
+
+def _runs(leaf, ctx: ShardingCtx):
+    """A leaf's (p, g, mu, nu), whole, or on a mesh in runs of its leading
+    axis of at most `UPDATE_RUN_BYTES` of f32 (views)."""
+    p = leaf[0]
+    if ctx.mesh is None or p.dim() == 0:
+        return [leaf]
+    rows = max(1, p.shape[0] * UPDATE_RUN_BYTES // max(4 * p.numel(), 1))
+    if rows >= p.shape[0]:
+        return [leaf]
+    return zip(*(x.split(rows) for x in leaf))

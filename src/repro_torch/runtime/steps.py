@@ -15,22 +15,28 @@ On a mesh each rank holds its rows of the batch (`local_batch`) and its
 block of the train state placed by the rules (`state_shardings`: params,
 mu, nu and, with compression, the error state, each leaf split over the
 mesh axes its logical axes map to; `Model.place` cuts a whole tree), as
-the reference's jitted step holds it. The model computes with the serving
-layout (`Model.held_param_specs`: every leaf whole but a MoE layer's
-experts, split over `model`): once a step the placed parameters are
-gathered to it (`gather_params`), differentiated and accumulated, and each
-gradient is reduced into the rank's placed block (`reduce_grads`). The step
-follows the sum convention of `sharding`: each rank's backward is seeded
-with 1 / (the mesh's ranks), its share of the loss's mean, and a leaf's
-gradient is the sum of its shares over the mesh axes that do not split it
-in the layout the model computes with, reduce-scattered over those that
-split it in the placed layout. The logged loss is the mean over the ranks,
-the global loss; the global norm counts every element once
-(`optim.adamw.global_norm`), and compression quantizes each leaf with its
-whole max. AdamW updates each rank's blocks; a block that several ranks
-hold gets the same reduced bytes on each, so the copies stay equal with no
-broadcast. The sharding helpers give the batch's and the state's partition
-specs and the state's meta tensors.
+the reference's jitted step holds it, and the step computes on those
+blocks, as the reference's GSPMD step does: the loss is differentiated
+at the placed blocks themselves. Each layer's leaves are gathered over
+the axes that place them and that no op computes in parallel just before
+the layer, inside its remat, and again in the recompute (`models.lm`);
+attention, the MLP, the embedding, the logits and the loss run
+tensor-parallel over `model`, the MoE expert-parallel; the gather's
+backward reduce-scatters each gradient into the rank's block. No rank
+holds the whole parameters. The step follows the sum convention of
+`sharding`: each rank's backward is seeded with 1 / (the mesh's ranks),
+its share of the loss's mean, so that what the backward leaves on a
+placed block is the sum over the ranks that gathered it, and
+`reduce_grads` sums it over the mesh axes that do not place the leaf
+(every axis for a leaf placed whole, ``data`` for one split over `model`
+only). The logged loss is the mean over the ranks, the global loss; the
+global norm counts every element once (`optim.adamw.global_norm`), and
+compression quantizes each leaf with its whole max. AdamW updates each
+rank's blocks; a block that several ranks hold gets the same reduced
+bytes on each, so the copies stay equal with no broadcast. The sharding
+helpers give the batch's and the state's partition specs and the state's
+meta tensors; `gather_params` and the held form of `reduce_grads` take a
+placed tree to the serving layout and shares there back.
 
 The serving steps: `make_prefill_step` and `make_decode_step` (the
 functional steps), and the reference's placed steps, `jit_prefill_step`
@@ -121,7 +127,7 @@ def _mesh_specs(model: Model):
     ctx._running()
     placed = model.param_partition_specs()
     shapes = [block_shape(p.shape, spec, ctx) for p, spec in
-              zip(tree.leaves(model.abstract_params()), tree.leaves(placed))]
+              zip(tree.leaves(model.param_specs()), tree.leaves(placed))]
     return model.held_param_specs(), placed, shapes
 
 
@@ -131,35 +137,42 @@ def _placed_specs(model: Model):
     return None if specs is None else specs[1]
 
 
-def gather_params(model: Model, params):
-    """This rank's placed blocks of the parameters -> the blocks the model
-    computes with (`Model.held_param_specs`): each leaf gathered over the
-    axes that place it and that the model does not split it along (every
-    axis for a whole leaf; ``data`` for an expert leaf). One all_gather a
-    group of leaves (`sharding.gather_blocks`), no backward. The
-    parameters themselves without a mesh."""
-    specs = _mesh_specs(model)
-    if specs is None:
-        return params
-    compute, placed, shapes = specs
-    leaves = tree.leaves(params)
-    got = [tuple(x.shape) for x in leaves]
+def _check_blocks(params, shapes) -> None:
+    """Raise ValueError unless every leaf of `params` has its placed
+    block's shape (`shapes`, in the leaves' order)."""
+    got = [tuple(x.shape) for x in tree.leaves(params)]
     if got != shapes:
         bad = next(i for i, (a, b) in enumerate(zip(got, shapes)) if a != b)
         raise ValueError(f"parameter leaf {bad} is held as {got[bad]}; its "
                          f"placed block is {shapes[bad]} (Model.place cuts "
                          "the whole parameters)")
+
+
+def gather_params(model: Model, params):
+    """This rank's placed blocks of the parameters -> the serving layout
+    (`Model.held_param_specs`): each leaf gathered over the axes that
+    place it and that serving does not split it along (every axis for a
+    whole leaf; ``data`` for an expert leaf). One all_gather a group of
+    leaves (`sharding.gather_blocks`). The parameters themselves without
+    a mesh. The train step does not call it: it computes on the blocks."""
+    specs = _mesh_specs(model)
+    if specs is None:
+        return params
+    compute, placed, shapes = specs
+    _check_blocks(params, shapes)
     return tree.unflatten(params, gather_blocks(
-        leaves, tree.leaves(placed), tree.leaves(compute), model.ctx))
+        tree.leaves(params), tree.leaves(placed), tree.leaves(compute),
+        model.ctx))
 
 
 def reduce_grads(grads, specs, ctx: ShardingCtx, placed=None):
-    """Each rank's gradient shares at the blocks of `specs` (the layout the
-    model computes with) -> the gradients: a leaf's shares summed over the
-    mesh axes that `specs` does not split it along (a whole leaf over
-    every axis, an expert leaf split over `model` over `data`). With
-    `placed` (the placed specs, each splitting a leaf at least as `specs`
-    does) each rank keeps its placed block, the axes that place it
+    """Each rank's gradient shares at the blocks of `specs` -> the
+    gradients: a leaf's shares summed over the mesh axes that `specs` does
+    not split it along (a whole leaf over every axis, a leaf split over
+    `model` alone over `data`). The train step hands it the placed blocks
+    its backward leaves, with the placed specs. With `placed` (specs that
+    split each leaf at least as `specs` does: shares at the serving
+    layout) each rank keeps its placed block, the axes that place it
     reduce-scattered (`sharding.reduce_blocks`). One collective a group of
     leaves (a bucket of a large one), as one flat f32 buffer."""
     placed = specs if placed is None else placed
@@ -180,7 +193,8 @@ def value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor, Any]:
     never requires grad. A parameter the loss does not reach gets a zero
     gradient, as under ``jax.grad``. On a mesh: this rank's loss (of its
     rows) and its gradient shares, the backward seeded with 1 / (the
-    mesh's ranks); `reduce_grads` makes them the gradients."""
+    mesh's ranks); `reduce_grads` makes them the gradients. Placed
+    parameters give gradients of the same blocks."""
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
     live = tree.unflatten(params, leaves)
     with torch.enable_grad():
@@ -197,13 +211,17 @@ def value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor, Any]:
 def _loss_and_grads(model: Model, params, batch, accum: int):
     """(loss, gradients) of one step: of the whole batch, or the f32 means
     over `accum` microbatches cut along the batch's leading axis. On a
-    mesh `params` are this rank's placed blocks, gathered once to the
-    layout the model computes with: the loss of the rank's rows, the
-    gradients reduced into its placed blocks (`reduce_grads`) and the loss
-    their mean, the global loss."""
+    mesh `params` are this rank's placed blocks (another layout raises
+    ValueError), differentiated as they are: each layer gathers its
+    leaves inside its remat and its backward reduce-scatters their
+    gradients into the blocks (`models.lm`), so the loss is of the rank's
+    rows and each gradient the rank's placed block, accumulated in f32,
+    then summed over the axes that do not place it (`reduce_grads`); the
+    loss is the mean over the ranks, the global loss."""
     specs = _mesh_specs(model)
     if specs is not None:
-        params = gather_params(model, params)
+        _, placed, shapes = specs
+        _check_blocks(params, shapes)
     if accum == 1:
         loss, grads = value_and_grad(model, params, batch)
     else:
@@ -220,10 +238,7 @@ def _loss_and_grads(model: Model, params, batch, accum: int):
         loss, grads = lsum / accum, tree.map_tree(lambda g: g / accum, gsum)
     if specs is None:
         return loss, grads
-    del params                     # the gathered leaves, before the reduce
-    compute, placed, _ = specs
-    return (model.ctx.mean_all(loss),
-            reduce_grads(grads, compute, model.ctx, placed))
+    return model.ctx.mean_all(loss), reduce_grads(grads, placed, model.ctx)
 
 
 def make_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
@@ -284,12 +299,15 @@ def jit_train_step(model: Model, opt: AdamWConfig, *, accum: int = 1,
     On a model whose `ctx` holds a running mesh (a mesh of shapes alone
     raises RuntimeError), every call is the step run eagerly on this
     rank: `batch` is its rows (`local_batch`), the state its placed blocks
-    (`held_state_specs`), the parameters gathered once a step to the layout
-    the model computes with, the gradients reduced into the placed blocks
-    before compression and AdamW (updated in place on the blocks), and
-    ``step.graph`` is None. No CUDA graph is captured there: gloo's
-    collectives run on the host and cannot be captured, and NCCL cannot
-    put two ranks on one card, which is how one card runs a mesh."""
+    (`held_state_specs`), differentiated as they are (each layer's leaves
+    gathered inside its remat and again in the recompute, the dense
+    projections tensor-parallel over `model`, each gradient reduce-
+    scattered into its block by the gather's backward and summed over the
+    axes that do not place it) before compression and AdamW (updated in
+    place on the blocks), and ``step.graph`` is None. No CUDA graph is
+    captured there: gloo's collectives run on the host and cannot be
+    captured, and NCCL cannot put two ranks on one card, which is how one
+    card runs a mesh."""
     ctx, specs = model.ctx, _placed_specs(model)
     names: List[str] = []
     own: Dict[str, Any] = {}

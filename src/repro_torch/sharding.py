@@ -43,15 +43,18 @@ number of ranks), its share of the mean that every rank computes, and sums
 each leaf's gradient over the axes of the ranks that hold it. ``all_reduce``
 with ``max`` (serving's log-sum-exp merge) has no backward.
 
-The train state is held placed (each leaf split by its partition spec)
-while the model computes with coarser blocks (every leaf whole but the
-experts): `gather_blocks` takes a rank's placed blocks to the blocks it
-computes with, and `reduce_blocks` takes each rank's gradient shares there
-to the sum's placed block, a reduce-scatter built from an all_to_all of
-the blocks as all_gather's backward is. Neither has a backward: the step
-gathers once, differentiates the gathered leaves, and reduces once.
-Serving on the placed layout (`models.lm`) gathers each layer's blocks
-with `gather_blocks` just before the layer.
+The parameters are held placed (each leaf split by its partition spec)
+while each op computes with coarser blocks (a leaf split only where the op
+runs in parallel): `gather_blocks` takes a rank's placed blocks to the
+blocks it computes with, and `reduce_blocks` takes each rank's gradient
+shares there to the sum's placed block, a reduce-scatter built from an
+all_to_all of the blocks as all_gather's backward is. In grad mode
+`gather_blocks` is differentiable: its backward is that reduce-scatter
+(`reduce_blocks` without the sum over the axes that do not place a leaf),
+so a rank's gradient of its placed block is the sum over the ranks that
+gathered it. The model (`models.lm`) gathers each layer's blocks just
+before the layer, inside its remat, and again in the recompute; serving
+gathers with no backward.
 
 `shard_map` is the reference's: the manual regions (the sequence-split
 decode, the expert-parallel MoE, the compressed sum) run their bodies
@@ -597,7 +600,6 @@ def _buckets(idx, sizes, cap: int):
         yield run
 
 
-@torch.no_grad()
 def gather_blocks(xs: Sequence[torch.Tensor], fine, coarse,
                   ctx: ShardingCtx) -> List[torch.Tensor]:
     """This rank's blocks of leaves held under specs `fine` -> its blocks
@@ -605,9 +607,49 @@ def gather_blocks(xs: Sequence[torch.Tensor], fine, coarse,
     dimension as `fine` does or leaves it whole): each leaf gathered over
     the axes that `fine` splits it along and `coarse` does not. The
     leaves gathered over the same axes go through one all_gather a bucket
-    of at most `BUCKET_ELEMS` elements gathered; a leaf already held as `coarse`
-    wants is returned as it is. No backward: the train step gathers its
-    placed parameters once and differentiates the result."""
+    of at most `BUCKET_ELEMS` elements gathered; a leaf already held as
+    `coarse` wants is returned as it is.
+
+    In grad mode, where a leaf it gathers requires grad, the gather is
+    differentiable: its backward is the transpose, the reduce-scatter of
+    `reduce_blocks` over the same axes (an all_to_all of the cotangents'
+    blocks, summed in rank order in f32, a bucket a collective), so each
+    rank's gradient of its block is the sum of the cotangents of every
+    rank that gathered it. Otherwise (serving) no backward, and exactly
+    these collectives."""
+    moved = [i for i, (f, c) in enumerate(zip(fine, coarse))
+             if _moved_axes(f, c, ctx)]
+    if not (torch.is_grad_enabled()
+            and any(xs[i].requires_grad for i in moved)):
+        return _gather_blocks(xs, fine, coarse, ctx)
+    out = list(xs)
+    got = _GatherBlocks.apply(ctx, [fine[i] for i in moved],
+                              [coarse[i] for i in moved],
+                              *[xs[i] for i in moved])
+    for i, y in zip(moved, got):
+        out[i] = y
+    return out
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """`_gather_blocks` of the leaves it moves, with the reduce-scatter
+    back as its backward."""
+
+    @staticmethod
+    def forward(fctx, ctx, fine, coarse, *xs):
+        fctx.specs = (ctx, fine, coarse)
+        return tuple(_gather_blocks(xs, fine, coarse, ctx))
+
+    @staticmethod
+    def backward(fctx, *gs):
+        ctx, fine, coarse = fctx.specs
+        return (None, None, None,
+                *_reduce_blocks(gs, coarse, fine, ctx, over_rest=False))
+
+
+@torch.no_grad()
+def _gather_blocks(xs: Sequence[torch.Tensor], fine, coarse,
+                   ctx: ShardingCtx) -> List[torch.Tensor]:
     out = list(xs)
     groups: Dict[Tuple[Any, ...], List[int]] = {}
     for i, (x, f, c) in enumerate(zip(xs, fine, coarse)):
@@ -638,7 +680,6 @@ def gather_blocks(xs: Sequence[torch.Tensor], fine, coarse,
     return out
 
 
-@torch.no_grad()
 def reduce_blocks(xs: Sequence[torch.Tensor], coarse, fine,
                   ctx: ShardingCtx) -> List[torch.Tensor]:
     """Each rank's shares of leaves computed at specs `coarse` -> this
@@ -653,14 +694,25 @@ def reduce_blocks(xs: Sequence[torch.Tensor], coarse, fine,
     a bucket of at most `BUCKET_ELEMS` elements, as one f32 buffer; each
     result comes back in its leaf's type. Every rank that holds a block
     gets the same bytes."""
+    return _reduce_blocks(xs, coarse, fine, ctx, over_rest=True)
+
+
+@torch.no_grad()
+def _reduce_blocks(xs: Sequence[torch.Tensor], coarse, fine,
+                   ctx: ShardingCtx, *, over_rest: bool
+                   ) -> List[torch.Tensor]:
+    """`reduce_blocks`; without `over_rest`, the reduce-scatter alone (no
+    sum over the axes that do not place a leaf): `gather_blocks`'
+    backward. A leaf with nothing to sum is returned as it is."""
     out = list(xs)
     groups: Dict[Tuple[Any, ...], List[int]] = {}
     for i, (c, f) in enumerate(zip(coarse, fine)):
         scatter = _moved_axes(f, c, ctx)
         held = set(split_axes(f))
         rest = ctx.live_axes([a for a in ctx.mesh.axis_names
-                              if a not in held])
-        groups.setdefault((scatter, rest), []).append(i)
+                              if a not in held]) if over_rest else ()
+        if scatter or rest:
+            groups.setdefault((scatter, rest), []).append(i)
     for (scatter, rest), idx in groups.items():
         group, coords = ctx.members(scatter) if scatter else \
             (None, [dict(zip(ctx.mesh.axis_names, ctx.mesh.coordinate))])

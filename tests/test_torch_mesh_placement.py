@@ -2,23 +2,28 @@
 reference's own placed step.
 
 The module draws the parameters of each reduced f32 model (granite-moe
-with a capacity factor that drops tokens, yi-6b, mamba2-130m) once, with
-the port's `initialize` from seed 0, and writes them to an npz. The
+with a capacity factor that drops tokens, yi-6b, mamba2-130m; yi-6b with
+6 heads over 3 K/V heads, which `model` 2 does not divide, so that a
+rank's block of q heads projects only the span of K/V heads it reads;
+hymba-1.5b's hybrid heads, whisper-medium's encoder and cross-attention
+on frame embeddings, paligemma-3b's prefix of patch embeddings) once,
+with the port's `initialize` from seed 0, and writes them to an npz. The
 reference runs in a subprocess with four forced host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``; this file run as
 a script, ``--reference PARAMS.npz OUT.npz``): on each mesh (1, 2), (2, 1)
 and (2, 2) it puts the train state by ``jax.device_put(state,
 state_shardings(model))`` and takes three steps of its
 `runtime.steps.jit_train_step` (placed in and out, so the step does not
-recompile on its own output; granite on (2, 2) also at ``accum=2``),
+recompile on its own output; granite on (2, 2) also at ``accum=2``;
+whisper one step, `STEPS_OF`),
 keeping each step's metrics, the state after them and every output
 leaf's ``sharding.spec``. At the same time the port runs each mesh as
 gloo ranks on the CPU from the same parameters, each rank holding its
 placed blocks (`Model.place`), and the tests hold, in f32 within 2e-3:
 
-* each step's loss, learning rate and gradient norm (granite's first
-  only), and each rank's block of every leaf of params, mu and nu after
-  the steps;
+* each step's loss, learning rate and gradient norm (granite's and
+  paligemma's first only, whisper's within 2e-3 of it), and each rank's
+  block of every leaf of params, mu and nu after the steps;
 * the reference's output specs equal the port's `state_shardings`, leaf
   by leaf;
 * a rank holds exactly the specs' share of params, mu and nu (and, at
@@ -46,7 +51,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, token_split
 from repro_torch.core import tree
 from repro_torch.launch.mesh import spawn
 from repro_torch.sharding import NULL_CTX
@@ -57,10 +62,33 @@ F32 = dict(dtype="float32", param_dtype="float32")
 MESHES = [(1, 2), (2, 1), (2, 2)]
 SPAWN_TIMEOUT_S = 180.0
 REF_TIMEOUT_S = 600.0
-ARCHS = ["granite-moe-1b-a400m", "yi-6b", "mamba2-130m"]
+# case -> (arch, fields of its reduced config replaced)
+ARCHS = {
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}),
+    "yi-6b": ("yi-6b", {}),
+    "mamba2-130m": ("mamba2-130m", {}),
+    "yi-6b-h6-kv3": ("yi-6b", dict(n_heads=6, kv_heads=3, head_dim=16)),
+    "hymba-1.5b": ("hymba-1.5b", {}),
+    "whisper-medium": ("whisper-medium", {}),
+    "paligemma-3b": ("paligemma-3b", {}),
+}
 MOE_CAPACITY_FACTOR = 0.5
 B, SEQ, STEPS = 4, 32, 3
 ACCUM_ARCH, ACCUM_MESH = "granite-moe-1b-a400m", (2, 2)
+# archs whose gradient norms after the first step move by more than 2e-3
+# under the rounding the steps before them leave: from parameters changed
+# by a random 1e-6 of each, the reference's own f32 steps give
+# paligemma-3b norms of 24.30-24.64 and 17.38-18.09 at steps 1 and 2
+# (granite-moe: dropped tokens)
+FIRST_NORM_ONLY = ("granite-moe-1b-a400m", "paligemma-3b")
+# whisper-medium moves further: under that change its first norm is
+# 19.619-19.696 (19.654 unchanged; held within TOL of the norm), its
+# norms at steps 1 and 2 11.75-11.88 and 12.02-14.60, and its mu after
+# three steps moves by up to 7.7e-3. It takes one step, after which a
+# leaf is off by less than 2 lr whatever its gradient's rounding
+# (`tests/test_torch_mesh_placed_train.py` holds its gradients)
+NORM_REL = ("whisper-medium",)
+STEPS_OF = {"whisper-medium": 1}
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
 PARTS = ("params", "mu", "nu")
 DATA, MODEL = 0, 1
@@ -71,9 +99,14 @@ def _tag(shape):
     return f"{shape[0]}x{shape[1]}"
 
 
-def _cfg(get, arch):
-    cfg = get(arch).reduced().replace(**F32)
+def _cfg(get, case):
+    arch, over = ARCHS[case]
+    cfg = get(arch).reduced().replace(**F32, **over)
     return cfg.replace(capacity_factor=MOE_CAPACITY_FACTOR) if cfg.moe else cfg
+
+
+def _steps(case):
+    return STEPS_OF.get(case, STEPS)
 
 
 def _accums(arch, shape):
@@ -82,9 +115,21 @@ def _accums(arch, shape):
 
 
 def _batches(pipeline, cfg):
+    """The steps' batches: Markov tokens over the text positions, and for
+    an enc-dec arch its frame embeddings (a VLM its patch embeddings) over
+    the front positions, drawn with numpy from the step."""
+    front, text = token_split(cfg, SEQ)
     task = pipeline.MarkovTask(pipeline.DataConfig(
-        vocab=cfg.vocab, seq_len=SEQ, global_batch=B))
-    return [task.batch_for_step(i) for i in range(STEPS)]
+        vocab=cfg.vocab, seq_len=text, global_batch=B))
+    out = []
+    for i in range(STEPS):
+        batch = task.batch_for_step(i)
+        if front:
+            batch["frames" if cfg.enc_dec else "patches"] = \
+                np.random.RandomState(i).randn(
+                    B, front, cfg.d_model).astype(np.float32)
+        out.append(batch)
+    return out
 
 
 def _flatten(node, prefix):
@@ -160,7 +205,7 @@ def run_reference(params_path, out_path):
         params = _unflatten({k: given[k] for k in given.files},
                             f"params/{arch}")
         batches = [{k: jnp.asarray(v) for k, v in b.items()}
-                   for b in _batches(ref_pipeline, cfg)]
+                   for b in _batches(ref_pipeline, cfg)[:_steps(arch)]]
         for shape in MESHES:
             mesh = JaxMesh(np.array(jax.devices()[:shape[0] * shape[1]])
                            .reshape(shape), ("data", "model"))
@@ -208,7 +253,7 @@ def _rank_steps(ctx, params_path):
         whole = params_from_numpy(_unflatten(
             {k: given[k] for k in given.files}, f"params/{arch}"), cfg, "cpu")
         batches = [{k: torch.from_numpy(v) for k, v in b.items()}
-                   for b in _batches(pipeline, cfg)]
+                   for b in _batches(pipeline, cfg)[:_steps(arch)]]
         for accum in _accums(arch, ctx.mesh.shape):
             key = f"{arch}/accum{accum}"
             step = steps.jit_train_step(model, AdamWConfig(**OPT),
@@ -312,10 +357,12 @@ def _block(whole, coord, shape, spec):
     return whole
 
 
-def _close(got, want, what):
+def _close(got, want, what, rel=False):
+    """Within TOL; with `rel` within TOL of `want`'s largest entry."""
     assert got.shape == want.shape, (what, got.shape, want.shape)
     err = float(np.max(np.abs(got - want))) if got.size else 0.0
-    assert err <= TOL, f"{what}: max abs err {err}"
+    bound = TOL * float(np.max(np.abs(want))) if rel else TOL
+    assert err <= bound, f"{what}: max abs err {err}, bound {bound}"
 
 
 # ---------------------------------------------------------------- checkpoints
@@ -504,24 +551,27 @@ def _ids(case):
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_placed_steps_match_the_reference_placed_step(runs, case):
-    """Each step's loss and learning rate, its gradient norm (granite's
-    first only: with tokens dropped a later norm moves by more than 2e-3
-    under the rounding the steps before it leave; `test_torch_mesh_train`
-    holds each later step from the reference's own state), and each
-    rank's block of params, mu and nu after the three steps."""
+    """Each step's loss and learning rate, its gradient norm (the first
+    only of granite and paligemma, `FIRST_NORM_ONLY`: a later norm moves
+    by more than 2e-3 under the rounding the steps before it leave;
+    `test_torch_mesh_train` holds each of granite's later steps from the
+    reference's own state; whisper's within 2e-3 of the norm, after its
+    one step, `STEPS_OF`), and each rank's block of params, mu and nu
+    after the steps."""
     ref, port = runs
     arch, shape, accum = case
     key = f"{arch}/accum{accum}"
     rkey = f"{arch}/{_tag(shape)}/accum{accum}"
-    drops = _cfg(get_config, arch).moe
     for r, res in enumerate(port[_tag(shape)]):
         coord = tuple(res["coordinate"])
-        for i in range(STEPS):
-            norm = ("grad_norm",) if i == 0 or not drops else ()
+        for i in range(_steps(arch)):
+            norm = ("grad_norm",) if i == 0 or arch not in \
+                FIRST_NORM_ONLY else ()
             for name in ("loss", "lr") + norm:
                 _close(res[f"{key}/step{i}/{name}"],
                        ref[f"{rkey}/step{i}/{name}"],
-                       f"rank {r} step {i} {name}")
+                       f"rank {r} step {i} {name}",
+                       rel=name == "grad_norm" and arch in NORM_REL)
         names = [k for k in ref.files if k.startswith(f"{rkey}/state/")]
         assert names
         for name in names:
@@ -563,7 +613,7 @@ def _share_bytes(cfg, shape):
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=_tag)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(ARCHS))
 def test_a_rank_holds_exactly_the_specs_share(runs, arch, shape):
     _, port = runs
     held, whole = _share_bytes(_cfg(get_config, arch), shape)
